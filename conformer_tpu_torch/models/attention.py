@@ -1,0 +1,144 @@
+"""Relative-position multi-head self-attention (JAX ``models/attention.py``).
+
+The relative paths of the JAX ``mhsa`` for a full-utterance forward:
+  - skew: the Transformer-XL table slice projected by ``linear_pos`` and
+    shifted into place with the pad+reshape trick (``_rel_skew``);
+  - decomposed: the exact angle-addition factorisation of the same bias,
+    bd = AB F^T with (AB, F) from ``rel_features``;
+  - kernel: the same factorisation inside the fused flash-attention kernel
+    (``ops/rel_attention.py``), taken as in JAX when ``use_pallas`` is set
+    and both ``rel_positions`` and a mask are given.
+The KV cache of streaming and the reference-parity modes come later.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import embedding, layers
+from .layers import Params
+
+
+def init_mhsa(gen, dim: int, num_heads: int) -> Params:
+    head_dim = dim // num_heads
+    bound = math.sqrt(6.0 / (num_heads + head_dim))   # xavier_uniform
+    return {
+        "linear_q": layers.init_dense(gen, dim, dim),
+        "linear_k": layers.init_dense(gen, dim, dim),
+        "linear_v": layers.init_dense(gen, dim, dim),
+        "linear_out": layers.init_dense(gen, dim, dim),
+        "linear_pos": layers.init_dense(gen, dim, dim, use_bias=False),
+        "pos_bias_u": layers.uniform(gen, (num_heads, head_dim), bound),
+        "pos_bias_v": layers.uniform(gen, (num_heads, head_dim), bound),
+    }
+
+
+def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, dk = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dk)
+
+
+def _rel_skew(bd_full: torch.Tensor, k_len: int) -> torch.Tensor:
+    """[B,H,Tq,Tq+Tk-1] (descending distance) -> [B,H,Tq,Tk]: row i takes
+    entries (Tq-1-i) + j, by padding one column, flattening and slicing."""
+    b, h, q_len, p = bd_full.shape
+    flat = torch.nn.functional.pad(bd_full, (0, 1)).reshape(b, h, q_len * (p + 1))
+    flat = flat[:, :, q_len - 1:q_len - 1 + q_len * p]
+    return flat.reshape(b, h, q_len, p)[..., :k_len]
+
+
+def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Float32 softmax over keys; masked entries -1e9 in, 0 out."""
+    sf = scores.float()
+    if mask is not None:
+        sf = torch.where(mask, sf, torch.full_like(sf, -1e9))
+    attn = torch.softmax(sf, dim=-1)
+    if mask is not None:
+        attn = torch.where(mask, attn, torch.zeros_like(attn))
+    return attn
+
+
+def rel_features(
+    p: Params, q_v: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
+    num_heads: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ab [B,H,Tq,D], k_feats [Tk,D]) such that the relative bias is
+    ab @ k_feats^T; D = d_model, not the head width."""
+    bsz, h, tq, dk = q_v.shape
+    d_model = h * dk
+    w = p["linear_pos"]["kernel"].to(q_v.dtype).reshape(d_model, num_heads, dk)
+    c = torch.einsum("bhtd,ihd->bhti", q_v, w)
+    ce, co = c[..., 0::2], c[..., 1::2]
+    freqs = embedding.rel_freqs(d_model, q_v.device)
+    ang_q = q_pos.float()[:, None] * freqs[None, :]
+    sq = torch.sin(ang_q).to(q_v.dtype)
+    cq = torch.cos(ang_q).to(q_v.dtype)
+    alpha = ce * sq + co * cq
+    beta = -ce * cq + co * sq
+    ab = torch.cat([alpha, beta], dim=-1)
+    ang_k = k_pos.float()[:, None] * freqs[None, :]
+    k_feats = torch.cat([torch.cos(ang_k), torch.sin(ang_k)], dim=-1).to(q_v.dtype)
+    return ab, k_feats
+
+
+def mhsa(
+    p: Params,
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    attn_mask: torch.Tensor | None,
+    *,
+    num_heads: int,
+    pos_emb: torch.Tensor | None = None,
+    rel_positions: tuple[torch.Tensor, torch.Tensor] | None = None,
+    use_pallas: bool = False,
+) -> torch.Tensor:
+    """Relative multi-head attention, x_q [B,Tq,D], x_kv [B,Tk,D] ->
+    [B,Tq,D]. attn_mask bool [B|1, Tq, Tk] (True = attend) or None;
+    pos_emb [Tq+Tk-1, D] is the descending-distance table slice (skew);
+    rel_positions (q_pos [Tq], k_pos [Tk]) feed the factorised bias.
+    ``use_pallas`` keeps the JAX flag's name: it selects the CUDA kernel.
+    """
+    if rel_positions is None and pos_emb is None:
+        raise NotImplementedError("absolute-position attention is not ported yet")
+    d_model = x_q.shape[-1]
+    head_dim = d_model // num_heads
+    q = _split_heads(layers.dense(p["linear_q"], x_q), num_heads)
+    k = _split_heads(layers.dense(p["linear_k"], x_kv), num_heads)
+    v = _split_heads(layers.dense(p["linear_v"], x_kv), num_heads)
+    scale = 1.0 / math.sqrt(head_dim)
+    q_u = q + p["pos_bias_u"].to(q.dtype)[None, :, None, :]
+    q_v = q + p["pos_bias_v"].to(q.dtype)[None, :, None, :]
+
+    if use_pallas and rel_positions is not None and attn_mask is not None:
+        from ..ops.rel_attention import rel_attention
+
+        ab, k_feats = rel_features(p, q_v, *rel_positions, num_heads)
+        mask_b = attn_mask.expand(q.shape[0], *attn_mask.shape[1:])
+        out, _ = rel_attention(
+            q_u.contiguous(), ab.contiguous(), k.contiguous(), v.contiguous(),
+            k_feats.contiguous(), mask_b.contiguous(), scale=scale,
+        )
+        return layers.dense(p["linear_out"], _merge_heads(out))
+
+    ac = torch.matmul(q_u.float(), k.float().transpose(-1, -2))
+    if rel_positions is not None and pos_emb is None:
+        ab, k_feats = rel_features(p, q_v, *rel_positions, num_heads)
+        bd = torch.matmul(ab.float(), k_feats.float().transpose(-1, -2))
+    else:
+        p_proj = layers.dense(p["linear_pos"], pos_emb.to(x_q.dtype))
+        p_proj = p_proj.reshape(-1, num_heads, head_dim)             # [P, H, dk]
+        # the position term stays in the compute dtype, as in JAX
+        bd_full = torch.einsum("bhid,phd->bhip", q_v, p_proj)
+        bd = _rel_skew(bd_full, k.shape[2]).float()
+    scores = (ac + bd) * scale
+    mask = attn_mask[:, None, :, :] if attn_mask is not None else None
+    attn = _masked_softmax(scores, mask)
+    out = torch.matmul(attn.to(v.dtype), v)
+    return layers.dense(p["linear_out"], _merge_heads(out))

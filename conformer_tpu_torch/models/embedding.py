@@ -1,0 +1,37 @@
+"""Sinusoidal relative-position encodings (JAX ``models/embedding.py``)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def rel_freqs(d_model: int, device=None) -> torch.Tensor:
+    """The d_model/2 sinusoid angular frequencies omega_k, float32."""
+    return torch.exp(
+        torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+        * (-math.log(10000.0) / d_model)
+    )
+
+
+def signed_sinusoid_table(max_len: int, d_model: int, device=None) -> torch.Tensor:
+    """Relative-distance table [2*max_len-1, d]; row r is distance
+    max_len-1-r (row 0 the largest positive distance), sin at even dims and
+    cos at odd dims."""
+    dist = (max_len - 1) - torch.arange(
+        2 * max_len - 1, dtype=torch.float32, device=device
+    )
+    ang = dist[:, None] * rel_freqs(d_model, device)[None, :]
+    pe = torch.zeros((2 * max_len - 1, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+def relative_pos_embed(table: torch.Tensor, q_len: int, k_len: int) -> torch.Tensor:
+    """Rows of the signed table for (q_len, k_len) attention:
+    [q_len + k_len - 1, d], distances k_len-1 .. -(q_len-1) descending."""
+    max_len = (table.shape[0] + 1) // 2
+    start = max_len - k_len
+    return table[start:start + q_len + k_len - 1]

@@ -1,0 +1,89 @@
+"""RNN-T prediction network, single-step decode path (JAX
+``models/predictor.py``): embedding -> multi-layer LSTM -> projection.
+
+Gate layout and initialiser follow torch.nn.LSTM (i, f, g, o;
+U(-1/sqrt(H), 1/sqrt(H))), with the JAX package's transposed weights
+``w_ih`` [I, 4H] and ``w_hh`` [H, 4H]. The full-sequence forward of
+training comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..config import ModelConfig
+from . import layers
+from .layers import Params
+
+
+class PredictorState(NamedTuple):
+    h: torch.Tensor  # [L, B, H]
+    c: torch.Tensor  # [L, B, H]
+
+
+def init_predictor(gen, cfg: ModelConfig) -> Params:
+    h = cfg.predictor_hidden_size
+    bound = 1.0 / math.sqrt(h)
+    rnn = []
+    for i in range(cfg.predictor_num_layers):
+        in_dim = cfg.predictor_embed_size if i == 0 else h
+        rnn.append({
+            "w_ih": layers.uniform(gen, (in_dim, 4 * h), bound),
+            "w_hh": layers.uniform(gen, (h, 4 * h), bound),
+            "b_ih": layers.uniform(gen, (4 * h,), bound),
+            "b_hh": layers.uniform(gen, (4 * h,), bound),
+        })
+    return {
+        "embed": layers.init_embedding(gen, cfg.vocab_size, cfg.predictor_embed_size),
+        "rnn": rnn,
+        "projection": layers.init_dense(gen, h, cfg.predictor_dim),
+    }
+
+
+def init_predictor_state(cfg: ModelConfig, batch: int, device=None) -> PredictorState:
+    shape = (cfg.predictor_num_layers, batch, cfg.predictor_hidden_size)
+    return PredictorState(
+        h=torch.zeros(shape, device=device), c=torch.zeros(shape, device=device)
+    )
+
+
+def _lstm_cell(lp: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+    """One LSTM step, float32 gates; x [B, I], h and c [B, H]."""
+    gates = (
+        torch.matmul(x.float(), lp["w_ih"].to(x.dtype).float())
+        + torch.matmul(h.float(), lp["w_hh"].to(h.dtype).float())
+        + (lp["b_ih"] + lp["b_hh"])
+    )
+    i, f, g, o = gates.chunk(4, dim=-1)
+    i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+    c_new = f * c.float() + i * torch.tanh(g)
+    h_new = o * torch.tanh(c_new)
+    return h_new.to(x.dtype), c_new.to(x.dtype)
+
+
+def predictor_step(
+    p: Params,
+    token: torch.Tensor,
+    state: PredictorState,
+    cfg: ModelConfig,
+    *,
+    padding: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, PredictorState]:
+    """token [B] -> ([B, predictor_dim], new state). Rows with
+    ``padding`` != 0 keep their previous (h, c)."""
+    x = layers.embedding(p["embed"], token)
+    hs, cs = [], []
+    for li, lp in enumerate(p["rnn"]):
+        h, c = _lstm_cell(lp, x, state.h[li].to(x.dtype), state.c[li].to(x.dtype))
+        hs.append(h)
+        cs.append(c)
+        x = h
+    new_h, new_c = torch.stack(hs), torch.stack(cs)
+    if padding is not None:
+        keep = (padding == 0)[None, :, None]
+        new_h = torch.where(keep, new_h, state.h.to(new_h.dtype))
+        new_c = torch.where(keep, new_c, state.c.to(new_c.dtype))
+    return layers.dense(p["projection"], x), PredictorState(h=new_h, c=new_c)

@@ -1,0 +1,51 @@
+"""Import hygiene of the port: every module of conformer_tpu_torch, and
+chip_smoke.py, import without pulling in JAX or the JAX package, and
+importing builds nothing. This suite's conftest imports JAX in-process,
+so the check runs in a fresh interpreter.
+"""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+import conformer_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(conformer_tpu_torch.__path__, "conformer_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from conformer_tpu_torch.ops import cuda_build
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "conformer_tpu."))
+             or m == "conformer_tpu")
+assert not bad, bad
+assert not cuda_build._libs
+print(len(names))
+"""
+
+
+def _run(args, cwd):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("JAX_PLATFORMS", None)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax():
+    proc = _run(["-c", _CHECK], REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20       # every module was walked
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """Here there is no card: the smoke must exit non-zero and print no
+    result line; alone in a directory it must fail the same way."""
+    for cwd, script in ((REPO, "chip_smoke.py"), (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            with open(os.path.join(REPO, "chip_smoke.py")) as f:
+                (tmp_path / "chip_smoke.py").write_text(f.read())
+        proc = _run([str(script)], cwd)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout

@@ -1,0 +1,127 @@
+"""The port's plain kernel versions against the JAX Pallas kernels (run in
+interpret mode on the CPU), and the wrappers' CPU dispatch.
+
+Inputs come from a seeded numpy generator and go through both packages in
+float32. Tolerance 1e-4 abs and rel: both sides compute in float32 with
+sums in different orders.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conformer_tpu.ops.pallas import attention_kernel as ak
+from conformer_tpu.ops.pallas import conv_kernel as ck
+from conformer_tpu_torch.ops import conv_block as pcb
+from conformer_tpu_torch.ops import rel_attention as pra
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _attn_inputs(seed, b, h, tq, tk, dk, d, lengths, dead_rows=()):
+    rng = np.random.default_rng(seed)
+    q_u = rng.standard_normal((b, h, tq, dk)).astype(np.float32)
+    ab = (0.3 * rng.standard_normal((b, h, tq, d))).astype(np.float32)
+    k = rng.standard_normal((b, h, tk, dk)).astype(np.float32)
+    v = rng.standard_normal((b, h, tk, dk)).astype(np.float32)
+    feats = rng.standard_normal((tk, d)).astype(np.float32)
+    mask = np.arange(tk)[None, None, :] < np.asarray(lengths)[:, None, None]
+    mask = np.broadcast_to(mask, (b, tq, tk)).copy()
+    for bi, row in dead_rows:
+        mask[bi, row, :] = False
+    return q_u, ab, k, v, feats, mask
+
+
+@pytest.mark.parametrize(
+    "tq,tk,lengths,dead_rows",
+    [
+        (37, 37, [37, 30, 1], [(0, 5)]),        # T a multiple of no tile; a dead row
+        (29, 37, [37, 12, 37], [(2, 28)]),      # Tq != Tk (keys include a left cache)
+        (16, 16, [16, 16, 16], [(1, 0), (1, 15)]),
+    ],
+)
+def test_rel_attention_plain_matches_pallas(tq, tk, lengths, dead_rows):
+    b, h, dk, d = 3, 2, 8, 16
+    q_u, ab, k, v, feats, mask = _attn_inputs(0, b, h, tq, tk, dk, d, lengths, dead_rows)
+    scale = 1.0 / np.sqrt(dk)
+    j_out, j_lse = ak._fwd_impl(
+        *(jnp.asarray(a) for a in (q_u, ab, k, v, feats, mask)),
+        jnp.zeros((1,), jnp.int32), scale, 16, 16, 0.0, True,
+    )
+    p_out, p_lse = pra.rel_attention_plain(
+        *(torch.from_numpy(a) for a in (q_u, ab, k, v, feats, mask)), scale=scale
+    )
+    np.testing.assert_allclose(p_out.numpy(), np.asarray(j_out), **TOL)
+    np.testing.assert_allclose(p_lse.numpy(), np.asarray(j_lse), **TOL)
+    for bi, row in dead_rows:
+        assert (p_out[bi, :, row] == 0).all()
+        assert (p_lse[bi, :, row] == pra.LSE_BIG).all()
+
+
+def test_rel_attention_wrapper_takes_plain_on_cpu():
+    q_u, ab, k, v, feats, mask = _attn_inputs(1, 2, 2, 11, 11, 8, 16, [11, 4])
+    args = [torch.from_numpy(a) for a in (q_u, ab, k, v, feats, mask)]
+    before = pra.rel_attention.launches
+    out, lse = pra.rel_attention(*args, scale=0.3)
+    ref_out, ref_lse = pra.rel_attention_plain(*args, scale=0.3)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    assert pra.rel_attention.launches == before
+
+
+def _conv_params(seed, d, k):
+    rng = np.random.default_rng(seed)
+
+    def u(*shape, bound):
+        return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    p_conv = {
+        "pointwise_conv1": {"kernel": u(1, d, 2 * d, bound=d ** -0.5), "bias": u(2 * d, bound=d ** -0.5)},
+        "depthwise_conv": {"kernel": u(k, 1, d, bound=k ** -0.5), "bias": u(d, bound=k ** -0.5)},
+        "norm": {"scale": 1.0 + u(d, bound=0.2), "bias": u(d, bound=0.1)},
+        "pointwise_conv2": {"kernel": u(1, d, d, bound=d ** -0.5), "bias": u(d, bound=d ** -0.5)},
+    }
+    p_norm = {"scale": 1.1 + u(d, bound=0.1), "bias": u(d, bound=0.05)}
+    return p_norm, p_conv
+
+
+def _tree(fn, tree):
+    return {k: _tree(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+@pytest.mark.parametrize(
+    "t,k,lengths",
+    [
+        (29, 15, [29, 17, 1]),    # T a multiple of no tile
+        (9, 15, [9, 6, 1]),       # T < K-1: zero-left-padded cache
+        (40, 7, [40, 40, 33]),
+    ],
+)
+def test_conv_block_plain_matches_pallas(t, k, lengths):
+    b, d = 3, 32
+    p_norm, p_conv = _conv_params(2, d, k)
+    x = np.random.default_rng(3).standard_normal((b, t, d)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    j_out, j_cache = ck.conv_block_fused(
+        jnp.asarray(x), jnp.asarray(lens), _tree(jnp.asarray, p_norm),
+        _tree(jnp.asarray, p_conv), kernel_size=k, interpret=True,
+    )
+    p_out, p_cache = pcb.conv_block_plain(
+        torch.from_numpy(x), torch.from_numpy(lens), _tree(torch.from_numpy, p_norm),
+        _tree(torch.from_numpy, p_conv), kernel_size=k,
+    )
+    assert p_cache.shape == (b, k - 1, d)
+    np.testing.assert_allclose(p_out.numpy(), np.asarray(j_out), **TOL)
+    np.testing.assert_allclose(p_cache.numpy(), np.asarray(j_cache), **TOL)
+
+
+def test_conv_block_wrapper_takes_plain_on_cpu():
+    p_norm, p_conv = _conv_params(4, 32, 7)
+    p_norm, p_conv = _tree(torch.from_numpy, p_norm), _tree(torch.from_numpy, p_conv)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 10, 32)).astype(np.float32))
+    lens = torch.tensor([10, 3])
+    before = pcb.conv_block.launches
+    out, cache = pcb.conv_block(x, lens, p_norm, p_conv, kernel_size=7)
+    ref_out, ref_cache = pcb.conv_block_plain(x, lens, p_norm, p_conv, kernel_size=7)
+    assert torch.equal(out, ref_out) and torch.equal(cache, ref_cache)
+    assert pcb.conv_block.launches == before
