@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``conformer_tpu_torch``) on one
-NVIDIA GPU: the quickest proof that the port starts, builds its kernels
-and serves on the card.
+NVIDIA GPU: the quickest proof that the port starts, builds its kernels,
+serves and trains on the card.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device  - CUDA present; print the card's name and power limit;
-  2. build   - nvcc builds every kernel of the serving path from csrc/;
-  3. kernels - each kernel against its plain PyTorch version at the decode
-               shapes (B=48, T'=374, D=256, H=4) plus edge cases, in float32
-               and bfloat16, with times of kernel, plain version and library
-               call beside the bound;
+  2. build   - nvcc builds every kernel library from csrc/, in parallel;
+  3. kernels - each serving kernel against its plain PyTorch version at the
+               decode shapes (B=48, T'=374, D=256, H=4) plus edge cases, in
+               float32 and bfloat16; each of the six training kernels
+               (simple lattice, RNN-T lattice DP, CTC DP; forward and
+               backward) against its plain version in float32 at the
+               training shape (B=32, T'=374, U=64, V=5002) and at a tiny
+               ragged one, with edge rows (t_len 1, u_len 0, a
+               bucket-padding row); times of kernel, plain version and
+               library call beside the bound;
   4. serve   - Conformer-M at full width (configs/conformer_m.json, both
                kernel flags on, random weights from a seed, +6 on the joint's
                blank bias) behind the port's REST server on 127.0.0.1: three
@@ -22,13 +27,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
                most frames (encoder outputs within 1e-3, identical
                hypotheses), then a bfloat16 decode of 48 x 15 s:
                audio-seconds per second and token agreement with the
-               plain path.
+               plain path;
+  6. train   - the recipe (configs/conformer_m.json as it stands: pruned
+               RNN-T + CTC, the RNN-T and CTC kernel flags on, bf16) on
+               random weights from its seed through the port's Trainer:
+               batches of 32 x 15 s random-normal features with 64 random
+               labels, accum_grad 2, one warm-up step and three timed
+               steps, each with a finite loss and gradient norm, changed
+               weights and an unchanged pos_table; each training kernel
+               must count its launches per microbatch (simple lattice
+               fwd 1 / bwd 1, RNN-T lattice 2 / 2, CTC 1 / 1). Then float32
+               parity of the kernel path against the plain path on one
+               8 x 15 s microbatch: the band starts and occupancy argmaxes
+               that differ are counted and held to BAND_LIMITS, then the
+               plain path runs on the kernel path's band: loss terms within
+               1e-4 relative, every gradient leaf within 1e-3 of its own
+               max-abs.
 The last two lines are the kernels JSON line and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -47,6 +68,9 @@ BF16_TFLOPS = 989.0      # H100 SXM dense bf16 tensor rate
 F32_TFLOPS = 67.0        # H100 SXM float32 outside the tensor cores
 HBM_TBPS = 3.35          # H100 SXM device memory rate
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # abs and rel; bf16: ~1 ulp at |x| < 4
+H100_SMS = 132
+H100_CLOCK_HZ = 1.98e9   # boost clock
+EXP_PER_CLK_SM = 16      # special-function unit: exp2/log2 per clock per SM
 
 
 class SmokeFailure(Exception):
@@ -225,6 +249,178 @@ def check_kernels(dev) -> dict:
     return entries
 
 
+# -------------------------------------------------------- training kernels
+
+
+def lattice_lengths(gen, b, t, u):
+    """(t_len, u_len) int32 [B]: random lengths with t_len >= T/2 (every
+    CTC alignment possible), after the edge rows (T, U), (1, 0), (T/2, 0)
+    and a bucket-padding row (feature length 0: t_len 1, u_len 0, as
+    models/transducer.py makes it)."""
+    import torch
+
+    t_len = torch.randint(t // 2, t + 1, (b,), generator=gen)
+    u_len = torch.randint(1, u + 1, (b,), generator=gen)
+    for i, (tl, ul) in enumerate([(t, u), (1, 0), (max(t // 2, 1), 0), (1, 0)][:b]):
+        t_len[i], u_len[i] = tl, ul
+    return t_len.to(torch.int32), u_len.to(torch.int32)
+
+
+def training_kernel_inputs(dev, gen, b, t, u, v):
+    """float32 inputs of the six training kernels at one shape, built as
+    the pruned loss and the CTC head build them."""
+    import torch
+    import torch.nn.functional as F
+
+    from conformer_tpu_torch.ops.ctc import NEG_INF, _extended_labels, skip_allowed
+
+    t_len, u_len = lattice_lengths(gen, b, t, u)
+    labels = torch.randint(1, v - 1, (b, u), generator=gen)
+    labels[0, 1] = labels[0, 0]                       # a repeat: CTC skip not allowed
+    labels = torch.where(torch.arange(u)[None, :] < u_len[:, None].long(), labels, 0)
+    am = 2.0 * torch.randn(b, t, v, generator=gen)
+    lm = 2.0 * torch.randn(b, u + 1, v, generator=gen)
+    lab = F.pad(labels, (0, 1), value=0).to(torch.int32)
+    g_blank, g_emit = (torch.randn(b, t, u + 1, generator=gen) for _ in range(2))
+    lp_blank = F.logsigmoid(torch.randn(b, t, u + 1, generator=gen))
+    lp_emit = F.logsigmoid(torch.randn(b, t, u + 1, generator=gen))
+    g = 0.5 + 1.5 * torch.rand(b, generator=gen)
+    log_probs = torch.log_softmax(torch.randn(b, t, v, generator=gen), dim=-1)
+    ext = _extended_labels(labels, 0)
+    skip = torch.where(skip_allowed(ext, 0), 0.0, NEG_INF)
+    emit = log_probs.gather(2, ext[:, None, :].expand(b, t, ext.shape[1]))
+    cuda = {k: x.to(dev).contiguous() for k, x in dict(
+        t_len=t_len, u_len=u_len, labels=labels, am=am, lm=lm, lab=lab, g_blank=g_blank,
+        g_emit=g_emit, lp_blank=lp_blank, lp_emit=lp_emit, g=g, log_probs=log_probs,
+        skip=skip, emit=emit).items()}
+    return cuda
+
+
+def compare(name, got, want, tol=TOL["float32"]) -> float:
+    errs = [max_err(x, y, tol) for x, y in zip(got, want)]
+    err = max(e for e, _ in errs)
+    check(all(ok for _, ok in errs), f"{name} disagrees with its plain version "
+          f"(max abs err {err:.3g}, tol {tol} abs + rel)")
+    return err
+
+
+def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (5, 37, 6, 37))) -> dict:
+    """The six training kernels against their plain versions in float32 at
+    the training shape (B=32, T'=374, U=64, V=5002) and at a tiny ragged
+    one, edge rows included; times, plain and library times and bounds at
+    the training shape. Returns the JSON entries without ``launches``."""
+    import torch
+    import torch.nn.functional as F
+
+    from conformer_tpu_torch.ops import ctc_dp as cd
+    from conformer_tpu_torch.ops import rnnt_lattice as rl
+    from conformer_tpu_torch.ops import simple_lattice as sl
+
+    gen = torch.Generator().manual_seed(1)
+    entries = {}
+    for b, t, u, v in shapes:
+        x = training_kernel_inputs(dev, gen, b, t, u, v)
+        tl, ul = x["t_len"], x["u_len"]
+        errs = {}
+        sfwd = sl.simple_lattice_fwd(x["am"], x["lm"], x["lab"], 0)
+        sfwd_p = sl.simple_lattice_plain_fwd(x["am"], x["lm"], x["lab"], 0)
+        errs["simple_lattice_fwd"] = compare("simple_lattice_fwd", sfwd, sfwd_p)
+        logz = sfwd_p[2]
+        sbwd = sl.simple_lattice_bwd(x["am"], x["lm"], x["lab"], logz, x["g_blank"], x["g_emit"], 0)
+        sbwd_p = sl.simple_lattice_plain_bwd(x["am"], x["lm"], x["lab"], logz, x["g_blank"],
+                                             x["g_emit"], 0)
+        errs["simple_lattice_bwd"] = compare("simple_lattice_bwd", sbwd, sbwd_p)
+        rfwd = rl.rnnt_lattice_fwd(x["lp_blank"], x["lp_emit"], tl, ul)
+        rfwd_p = rl.rnnt_lattice_plain_fwd(x["lp_blank"], x["lp_emit"], tl, ul)
+        errs["rnnt_lattice_fwd"] = compare("rnnt_lattice_fwd", rfwd, rfwd_p)
+        nll, alpha = rfwd_p
+        rargs = (x["lp_blank"], x["lp_emit"], alpha, tl, ul, nll, x["g"])
+        errs["rnnt_lattice_bwd"] = compare("rnnt_lattice_bwd", rl.rnnt_lattice_bwd(*rargs),
+                                           rl.rnnt_lattice_plain_bwd(*rargs))
+        cfwd = cd.ctc_dp_fwd(x["emit"], x["skip"], tl, ul)
+        cfwd_p = cd.ctc_dp_plain_fwd(x["emit"], x["skip"], tl, ul)
+        errs["ctc_dp_fwd"] = compare("ctc_dp_fwd", cfwd, cfwd_p)
+        cargs = (x["emit"], x["skip"], cfwd_p[1], tl, ul, cfwd_p[0], x["g"])
+        errs["ctc_dp_bwd"] = compare("ctc_dp_bwd", (cd.ctc_dp_bwd(*cargs),),
+                                     (cd.ctc_dp_plain_bwd(*cargs),))
+        torch.cuda.synchronize()
+        print(f"kernels: training f32 B={b} T'={t} U={u} V={v}: max_abs_err "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+              + f" (tol {TOL['float32']} abs + rel)")
+        if (b, t, u, v) != shapes[0]:
+            continue
+        # --- times and bounds at the training shape
+        lat = b * t * (u + 1)
+        exp_rate = EXP_PER_CLK_SM * H100_SMS * H100_CLOCK_HZ
+        # The simple lattice's least work is its factored form: logZ[t,u] =
+        # max_am + max_lm + log(exp(am - max_am) @ exp(lm - max_lm)^T), one
+        # float32 product of 2*lat*V flops; the backward's d am = exp(am) *
+        # (W @ exp(lm)) and d lm = exp(lm) * (W^T @ exp(am)), W = (g_b+g_e)/Z,
+        # are two such products. Either way, (T+U+1)*V exps per row.
+        s_flops = 2.0 * lat * v
+        s_exps = float(b) * (t + u + 1) * v + lat
+        n_b = nbytes(x["am"], x["lm"], x["lab"], *sfwd)
+        fwd_bound = bound_ms(n_b, max(s_flops / (F32_TFLOPS * 1e12), s_exps / exp_rate))
+        n_b = nbytes(x["am"], x["lm"], x["lab"], logz, x["g_blank"], x["g_emit"], *sbwd)
+        bwd_bound = bound_ms(n_b, max(2 * s_flops / (F32_TFLOPS * 1e12), s_exps / exp_rate))
+        sargs = (x["am"], x["lm"], x["lab"], 0)
+        bargs = (x["am"], x["lm"], x["lab"], logz, x["g_blank"], x["g_emit"], 0)
+        # transcendentals of the DP kernels: two per cell (exp, log1p) and
+        # direction, plus two for each cell's gradients
+        r_fwd = bound_ms(nbytes(x["lp_blank"], x["lp_emit"], tl, ul, *rfwd),
+                         2.0 * lat / exp_rate)
+        r_bwd = bound_ms(nbytes(*rargs, *rl.rnnt_lattice_bwd(*rargs)), 4.0 * lat / exp_rate)
+        s_lat = b * t * (2 * u + 1)
+        c_fwd = bound_ms(nbytes(x["emit"], x["skip"], tl, ul, *cfwd), 4.0 * s_lat / exp_rate)
+        c_bwd = bound_ms(nbytes(*cargs, x["emit"]), 5.0 * s_lat / exp_rate)
+        lp_tbv = x["log_probs"].transpose(0, 1).contiguous().requires_grad_()
+        tgt = x["labels"]
+
+        def lib_ctc():
+            return F.ctc_loss(lp_tbv, tgt, tl, ul, blank=0, reduction="none")
+
+        def lib_ctc_fb():
+            return torch.autograd.grad(lib_ctc().sum(), lp_tbv)
+
+        specs = [
+            ("simple_lattice_fwd", "simple_lattice.cu", "simple_lattice_kernel.py:163",
+             lambda: sl.simple_lattice_fwd(*sargs), lambda: sl.simple_lattice_plain_fwd(*sargs),
+             None, fwd_bound, f"factored: {s_flops:.3g} f32 flops, {s_exps:.3g} exps"),
+            ("simple_lattice_bwd", "simple_lattice.cu", "simple_lattice_kernel.py:196",
+             lambda: sl.simple_lattice_bwd(*bargs), lambda: sl.simple_lattice_plain_bwd(*bargs),
+             None, bwd_bound, f"factored: {2 * s_flops:.3g} f32 flops, {s_exps:.3g} exps"),
+            ("rnnt_lattice_fwd", "rnnt_lattice.cu", "rnnt_kernel.py:240",
+             lambda: rl.rnnt_lattice_fwd(x["lp_blank"], x["lp_emit"], tl, ul),
+             lambda: rl.rnnt_lattice_plain_fwd(x["lp_blank"], x["lp_emit"], tl, ul),
+             None, r_fwd, f"chain of {t + u} dependent steps"),
+            ("rnnt_lattice_bwd", "rnnt_lattice.cu", "rnnt_kernel.py:268",
+             lambda: rl.rnnt_lattice_bwd(*rargs), lambda: rl.rnnt_lattice_plain_bwd(*rargs),
+             None, r_bwd, f"chain of {t + u} dependent steps"),
+            ("ctc_dp_fwd", "ctc_dp.cu", "ctc_kernel.py:222",
+             lambda: cd.ctc_dp_fwd(x["emit"], x["skip"], tl, ul),
+             lambda: cd.ctc_dp_plain_fwd(x["emit"], x["skip"], tl, ul),
+             lib_ctc, c_fwd, f"chain of {t} dependent steps"),
+            ("ctc_dp_bwd", "ctc_dp.cu", "ctc_kernel.py:253",
+             lambda: cd.ctc_dp_bwd(*cargs), lambda: cd.ctc_dp_plain_bwd(*cargs),
+             lib_ctc_fb, c_bwd, f"chain of {t} dependent steps"),
+        ]
+        for name, src, rep, kern, plain, lib, (bnd, by), note in specs:
+            entries[name] = {
+                "name": name, "route": "cuda",
+                "source": f"conformer_tpu_torch/csrc/{src}",
+                "replaces": f"conformer_tpu/ops/pallas/{rep}",
+                "max_abs_err": errs[name],
+                "ms": time_ms(kern), "plain_ms": time_ms(plain),
+                "bound_ms": bnd, "bound_by": by,
+                "library_ms": time_ms(lib) if lib is not None else None,
+            }
+            e = entries[name]
+            print(f"kernels: {name} f32 B={b} T'={t} U={u} V={v}: kernel {e['ms']:.4f} ms, "
+                  f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']} ms, bound "
+                  f"{bnd * 1e3:.2f} us ({by}; {note})")
+    return entries
+
+
 # ------------------------------------------------------------------- serve
 
 
@@ -263,14 +459,21 @@ def post_wav(url: str, data: bytes) -> dict:
         return json.loads(resp.read())
 
 
-def serving_config(path: str):
+def recipe_config(path: str):
+    """The config at ``path`` as it stands, but for the CMVN stats and the
+    vocabulary, whose files are not in the repo."""
     from conformer_tpu_torch.config import Config
 
     cfg = Config.from_json_file(path)
+    cfg.data.cmvn_path = ""
+    cfg.data.vocab_path = ""
+    return cfg
+
+
+def serving_config(path: str):
+    cfg = recipe_config(path)
     cfg.model.use_pallas_attention = True
     cfg.model.use_pallas_conv = True
-    cfg.data.cmvn_path = ""     # stats and vocab files are not in the repo
-    cfg.data.vocab_path = ""
     return cfg
 
 
@@ -432,6 +635,170 @@ def decode_bf16_batch(runner, raw_params, device, batch=48, seconds=15.0) -> dic
     }
 
 
+# ------------------------------------------------------------------- train
+
+# limits of the f32 training parity's band check. The two paths' occupancies
+# differ by float32 rounding (|logZ| in the thousands), so argmax near-ties
+# may flip and move a few band starts; a wrong occupancy moves them by far
+# more. Readings behind each limit: PERF.md, section 6.
+BAND_LIMITS = {"s_begin_diff_share": 0.02, "occupancy_max_abs_err": 2e-3, "flip_max_gap": 5e-4}
+
+# kernel launches per microbatch of the recipe's step: the simple lattice
+# once; the lattice DP twice (the occupancies and the simple NLL), each
+# with its backward; the CTC DP once
+PER_MICROBATCH = {"simple_lattice_fwd": 1, "simple_lattice_bwd": 1, "rnnt_lattice_fwd": 2,
+                  "rnnt_lattice_bwd": 2, "ctc_dp_fwd": 1, "ctc_dp_bwd": 1}
+
+
+def training_wrappers() -> dict:
+    from conformer_tpu_torch.ops import ctc_dp, rnnt_lattice, simple_lattice
+
+    return {"simple_lattice_fwd": simple_lattice.simple_lattice_fwd,
+            "simple_lattice_bwd": simple_lattice.simple_lattice_bwd,
+            "rnnt_lattice_fwd": rnnt_lattice.rnnt_lattice_fwd,
+            "rnnt_lattice_bwd": rnnt_lattice.rnnt_lattice_bwd,
+            "ctc_dp_fwd": ctc_dp.ctc_dp_fwd, "ctc_dp_bwd": ctc_dp.ctc_dp_bwd}
+
+
+def random_batch(cfg, seed: int, batch: int, seconds: float, labels: int = 64,
+                 feat_frames=None) -> dict:
+    """Seeded random-normal features [B, 100*seconds, F] (lengths
+    ``feat_frames`` or full) and labels in [1, V-2] of length ``labels``."""
+    rng = np.random.default_rng(seed)
+    frames = int(seconds * 100)          # 10 ms frame shift
+    lens = np.full(batch, frames, np.int32) if feat_frames is None else np.asarray(
+        feat_frames, np.int32)
+    return {
+        "feats": rng.standard_normal((batch, frames, cfg.model.input_dim), np.float32),
+        "feat_lengths": lens,
+        "labels": rng.integers(1, cfg.model.vocab_size - 1, (batch, labels)).astype(np.int32),
+        "label_lengths": np.full(batch, labels, np.int32),
+    }
+
+
+def train_steps(trainer, steps: int = 3, batch: int = 32, seconds: float = 15.0) -> dict:
+    """One warm-up and ``steps`` timed optimizer steps of ``accum_grad``
+    microbatches each; the launch counts cover the timed steps only."""
+    import torch
+
+    from conformer_tpu_torch.train.optimizer import leaf_paths
+
+    cfg = trainer.cfg
+    accum = cfg.train.accum_grad
+    data = [[random_batch(cfg, 1000 * s + i, batch, seconds) for i in range(accum)]
+            for s in range(steps + 1)]
+    wrappers = training_wrappers()
+
+    def one(mbs):
+        before = {k: v.detach().clone() for k, v in leaf_paths(trainer.params)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = trainer.train_step(mbs)
+        torch.cuda.synchronize()
+        res["step_s"] = time.perf_counter() - t0
+        after = dict(leaf_paths(trainer.params))
+        changed = {k: not torch.equal(before[k], after[k]) for k in before}
+        check(np.isfinite(res["loss"]) and np.isfinite(res["grad_norm"]),
+              f"non-finite loss or gradients: {res}")
+        check(not changed["encoder.pos_table"], "pos_table changed")
+        check(all(c for k, c in changed.items() if after[k].dim() >= 2 and k != "encoder.pos_table"),
+              "a weight matrix did not change")
+        res["leaves_changed"] = sum(changed.values())
+        res["leaves"] = len(changed)
+        return res
+
+    warm = one(data[0])
+    for w in wrappers.values():
+        w.launches = 0
+    timed = [one(mbs) for mbs in data[1:]]
+    launches = {k: w.launches for k, w in wrappers.items()}
+    for k, n in launches.items():
+        want = PER_MICROBATCH[k] * accum * steps
+        check(n == want, f"{k} launched {n} times in {steps} steps, expected {want}")
+    step_s = sum(r["step_s"] for r in timed) / steps
+    return {"warmup": warm, "steps": timed, "launches": launches, "step_s": step_s,
+            "audio_s_per_s": accum * batch * seconds / step_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+@contextlib.contextmanager
+def band_hook(hook):
+    """Inside, the pruned loss's ``prune_bounds_from_occupancy(occ, ...)``
+    becomes ``hook(original, occ, ...)``."""
+    from conformer_tpu_torch.ops import rnnt_pruned
+
+    orig = rnnt_pruned.prune_bounds_from_occupancy
+    rnnt_pruned.prune_bounds_from_occupancy = lambda occ, *a: hook(orig, occ, *a)
+    try:
+        yield
+    finally:
+        rnnt_pruned.prune_bounds_from_occupancy = orig
+
+
+def train_parity(trainer, batch: int = 8, seconds: float = 15.0) -> dict:
+    """Float32 kernel path vs plain path on one deterministic microbatch of
+    ragged lengths. The band starts of the two paths are compared, and the
+    occupancies' argmax over u where they differ; then the plain path is
+    run again on the kernel path's band, so that loss terms and gradients
+    compare the same pruned loss."""
+    import torch
+
+    from conformer_tpu_torch.models.transducer import transducer_forward
+    from conformer_tpu_torch.train.loop import plain_model_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg_k = dataclasses.replace(trainer.cfg.model, compute_dtype="float32")
+    cfg_p = plain_model_config(cfg_k)
+    frames = [int(seconds * 100 * f) for f in np.linspace(1.0, 0.55, batch)]
+    mb = random_batch(trainer.cfg, 77, batch, seconds, feat_frames=frames)
+    mb["label_lengths"] = np.linspace(64, 5, batch).astype(np.int32)
+    mb["labels"] = np.where(np.arange(64)[None, :] < mb["label_lengths"][:, None],
+                            mb["labels"], 0).astype(np.int32)
+    occ = {}
+
+    def record(key):
+        def hook(orig, o, t_len, *a):
+            occ[key] = (o.detach(), t_len)
+            return orig(o, t_len, *a)
+        return hook
+
+    with band_hook(record("kernel")):
+        g_k, out_k = trainer.compute_grads(mb, deterministic=True, model_cfg=cfg_k)
+    with band_hook(record("plain")), torch.no_grad():
+        b = trainer._batch(mb)
+        s_plain = transducer_forward(trainer.params, b["feats"], b["feat_lengths"], b["labels"],
+                                     b["label_lengths"], cfg_p, deterministic=True)["s_begin"]
+    s_k = out_k["s_begin"]
+    with band_hook(lambda orig, o, *a: s_k):
+        g_p, out_p = trainer.compute_grads(mb, deterministic=True, model_cfg=cfg_p)
+    (o_k, t_len), (o_p, _) = occ["kernel"], occ["plain"]
+    live = torch.arange(o_k.shape[1], device=o_k.device)[None, :] < t_len.long()[:, None]
+    u_k, u_p = o_k.argmax(dim=2), o_p.argmax(dim=2)
+    flips = live & (u_k != u_p)
+    # at a flip: how far apart the two cells are in the plain occupancy
+    gap = (o_p.gather(2, u_p[..., None]) - o_p.gather(2, u_k[..., None]))[..., 0]
+    losses = {k: (float(out_k[k].detach()), float(out_p[k].detach()))
+              for k in ("loss", "loss_ctc", "loss_rnnt", "loss_simple")}
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in losses.values())
+    # each leaf against its own max-abs, floored at 1e-6 of the largest
+    # leaf's: a gradient that is zero in exact arithmetic (the key bias:
+    # softmax ignores a shift of every key) holds only rounding noise
+    scales = {k: float(g.abs().max()) for k, g in g_p.items()}
+    floor = 1e-6 * max(scales.values())
+    grad_rel = {k: float((g_k[k] - g_p[k]).abs().max()) / max(scales[k], floor) for k in g_p}
+    top = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]
+    return {"losses": losses, "loss_max_rel_err": loss_rel, "grad_worst_leaves": top,
+            "grad_max_rel_err": top[0][1],
+            "s_begin_diff": int((s_k != s_plain).sum()),
+            "s_begin_entries": int(s_k.numel()),
+            "occupancy_max_abs_err": float(torch.where(live[..., None], o_k - o_p, 0).abs().max()),
+            "argmax_flips": int(flips.sum()),
+            "flip_max_gap": float(gap[flips].max()) if bool(flips.any()) else 0.0,
+            "grad_floored_leaves": [k for k in g_p if scales[k] < floor],
+            "finite": all(bool(torch.isfinite(g).all()) for g in g_k.values())}
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -474,6 +841,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     entries = check_kernels(dev)
+    entries.update(check_training_kernels(dev))
 
     # 4. serve: the main path, counts set to 0 just before each request
     cfg = serving_config(os.path.join(REPO, "configs", "conformer_m.json"))
@@ -490,8 +858,8 @@ def main() -> int:
         for name, n in r["launches"].items():
             check(n == layers, f"{name} launched {n} times in a request, expected {layers}")
             launches[name] += n
-    for name, e in entries.items():
-        e["launches"] = launches[name]
+    for name, n in launches.items():
+        entries[name]["launches"] = n
 
     # 5. parity: the served weights, and the unbiased ones, whose
     # hypotheses are long enough to make "identical" a real check
@@ -511,8 +879,45 @@ def main() -> int:
         agree, same, n_ref = bat[name]
         print(f"parity: bf16 kernel path vs plain path, {name} weights: {same}/{bat['batch']} "
               f"rows identical, token agreement {agree:.4f} over {n_ref} tokens")
+
+    # 6. train: the main path of the training kernels, counts set to 0 just
+    # before the timed steps (inside train_steps) and read just after
+    from conformer_tpu_torch.train.loop import Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = recipe_config(os.path.join(REPO, "configs", "conformer_m.json"))
+    trainer = Trainer(tcfg, device=dev)
+    tr = train_steps(trainer)
+    for r in (tr["warmup"], *tr["steps"]):
+        print(f"train: step {r['step_s'] * 1e3:.1f} ms, loss {r['loss']:.4f} (ctc "
+              f"{r['loss_ctc']:.4f}, rnnt {r['loss_rnnt']:.4f}), grad norm "
+              f"{r['grad_norm']:.4g}, lr {r['lr']:.4g}, {r['leaves_changed']}/{r['leaves']} "
+              "leaves changed")
+    print(f"train: B=32 x 15 s, accum_grad {tcfg.train.accum_grad}: {tr['step_s'] * 1e3:.1f} ms "
+          f"per step, {tr['audio_s_per_s']:.1f} training audio-s/s, peak memory "
+          f"{tr['peak_mem_gb']:.2f} GiB, launches in 3 steps {tr['launches']}")
+    for name, n in tr["launches"].items():
+        entries[name]["launches"] = n
+    par = train_parity(trainer)
+    worst = ", ".join(f"{k} {e:.3g}" for k, e in par["grad_worst_leaves"])
+    print(f"train parity: f32 kernel path vs plain path, B=8 x 15 s: losses {par['losses']}, "
+          f"max rel err {par['loss_max_rel_err']:.3g} (tol 1e-4); gradients max err / max-abs, "
+          f"worst leaves: {worst} (tol 1e-3; scale floored at 1e-6 of the largest for "
+          f"{par['grad_floored_leaves']}), plain path on the kernel path's band; s_begin differs "
+          f"in {par['s_begin_diff']} of {par['s_begin_entries']} entries (limit "
+          f"{BAND_LIMITS['s_begin_diff_share']:.0%}), occupancy max abs err "
+          f"{par['occupancy_max_abs_err']:.3g} (limit {BAND_LIMITS['occupancy_max_abs_err']}), "
+          f"argmax over u differs at {par['argmax_flips']} frames, by at most "
+          f"{par['flip_max_gap']:.3g} in the plain occupancy (limit {BAND_LIMITS['flip_max_gap']})")
+    check(par["s_begin_diff"] <= BAND_LIMITS["s_begin_diff_share"] * par["s_begin_entries"]
+          and par["occupancy_max_abs_err"] <= BAND_LIMITS["occupancy_max_abs_err"]
+          and par["flip_max_gap"] <= BAND_LIMITS["flip_max_gap"],
+          "the kernel path's pruning band differs from the plain path's beyond its limits")
+    check(par["finite"] and par["loss_max_rel_err"] <= 1e-4 and par["grad_max_rel_err"] <= 1e-3,
+          "f32 training kernel path disagrees with the plain path")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entries["rel_flash_attention"], entries["conv_block"]]}))
+    order = ["rel_flash_attention", "conv_block", *PER_MICROBATCH]
+    print(json.dumps({"kernels": [entries[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -8,6 +8,7 @@ The relative paths of the JAX ``mhsa`` for a full-utterance forward:
   - kernel: the same factorisation inside the fused flash-attention kernel
     (``ops/rel_attention.py``), taken as in JAX when ``use_pallas`` is set
     and both ``rel_positions`` and a mask are given.
+Training adds dropout on the attention probabilities in the plain paths.
 The KV cache of streaming and the reference-parity modes come later.
 """
 
@@ -98,15 +99,27 @@ def mhsa(
     pos_emb: torch.Tensor | None = None,
     rel_positions: tuple[torch.Tensor, torch.Tensor] | None = None,
     use_pallas: bool = False,
+    dropout_rate: float = 0.0,
+    gen: torch.Generator | None = None,
+    deterministic: bool = True,
 ) -> torch.Tensor:
     """Relative multi-head attention, x_q [B,Tq,D], x_kv [B,Tk,D] ->
     [B,Tq,D]. attn_mask bool [B|1, Tq, Tk] (True = attend) or None;
     pos_emb [Tq+Tk-1, D] is the descending-distance table slice (skew);
     rel_positions (q_pos [Tq], k_pos [Tk]) feed the factorised bias.
-    ``use_pallas`` keeps the JAX flag's name: it selects the CUDA kernel.
+    ``use_pallas`` keeps the JAX flag's name: it selects the CUDA kernel,
+    which has no backward and no dropout yet, so a training call
+    (``deterministic=False``) with it raises. Dropout at ``dropout_rate``
+    on the attention probabilities draws from ``gen``.
     """
     if rel_positions is None and pos_emb is None:
         raise NotImplementedError("absolute-position attention is not ported yet")
+    if use_pallas and not deterministic:
+        raise NotImplementedError(
+            "use_pallas_attention in training: the attention kernel's backward and "
+            "its in-kernel dropout (attention_kernel.py _flash_bwd) are the next slice "
+            "of the port; turn the flag off to train"
+        )
     d_model = x_q.shape[-1]
     head_dim = d_model // num_heads
     q = _split_heads(layers.dense(p["linear_q"], x_q), num_heads)
@@ -140,5 +153,6 @@ def mhsa(
     scores = (ac + bd) * scale
     mask = attn_mask[:, None, :, :] if attn_mask is not None else None
     attn = _masked_softmax(scores, mask)
+    attn = layers.dropout(gen, attn, dropout_rate, deterministic)
     out = torch.matmul(attn.to(v.dtype), v)
     return layers.dense(p["linear_out"], _merge_heads(out))

@@ -1,9 +1,10 @@
-"""Conformer encoder, full-utterance forward (JAX ``models/encoder.py``).
+"""Conformer encoder, full-utterance forward (JAX ``models/encoder.py``),
+for inference and for training (dropout, dynamic chunk masks).
 
 Layer parameters stay STACKED on a leading [L] axis, as in the JAX pytree;
 ``encoder_forward`` walks them with a Python loop over per-layer views
 (the JAX ``lax.scan``). The streaming half (chunked forward with carried
-caches) comes with the streaming slice.
+caches) and ``remat`` come in later slices.
 """
 
 from __future__ import annotations
@@ -65,9 +66,13 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("only the non-causal LayerNorm conv module is ported")
 
 
-def _ffn_residual(norm_p: Params, ffn_p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x + 0.5 * FFN(LN(x)): one macaron half."""
-    return x + 0.5 * feedforward.ffn(ffn_p, layers.layer_norm(norm_p, x))
+def _ffn_residual(norm_p: Params, ffn_p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  gen, deterministic: bool) -> torch.Tensor:
+    """x + 0.5 * dropout(FFN(LN(x))): one macaron half, with the FFN's inner
+    dropout and the dropout of its output."""
+    y = feedforward.ffn(ffn_p, layers.layer_norm(norm_p, x), dropout_rate=cfg.dropout,
+                        gen=gen, deterministic=deterministic)
+    return x + 0.5 * layers.dropout(gen, y, cfg.dropout, deterministic)
 
 
 def encoder_layer(
@@ -81,15 +86,29 @@ def encoder_layer(
     rel_positions: tuple[torch.Tensor, torch.Tensor] | None = None,
     use_pallas: bool = False,
     use_pallas_conv: bool = False,
+    gen: torch.Generator | None = None,
+    deterministic: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One macaron Conformer layer; returns (x, conv cache [B, K-1, D])."""
-    x = _ffn_residual(p["norm_ff_macaron"], p["feed_forward_macaron"], x)
+    """One macaron Conformer layer; returns (x, conv cache [B, K-1, D]).
+
+    In training (``deterministic=False``) the seven dropout sites of the
+    JAX layer draw from ``gen`` in order: the macaron FFN's inner and
+    output dropout, the attention probabilities, the attention output, the
+    conv output, the second FFN's inner and output dropout. The conv
+    kernel has no backward, so it runs only when ``deterministic``."""
+    def drop(t):
+        return layers.dropout(gen, t, cfg.dropout, deterministic)
+
+    x = _ffn_residual(p["norm_ff_macaron"], p["feed_forward_macaron"], x, cfg, gen,
+                      deterministic)
     y = layers.layer_norm(p["norm_mha"], x)
-    x = x + attention.mhsa(
+    y = attention.mhsa(
         p["self_attn"], y, y, attn_mask, num_heads=cfg.num_heads,
         pos_emb=pos_emb, rel_positions=rel_positions, use_pallas=use_pallas,
+        dropout_rate=cfg.attention_dropout, gen=gen, deterministic=deterministic,
     )
-    if use_pallas_conv:
+    x = x + drop(y)
+    if use_pallas_conv and deterministic:
         from ..ops.conv_block import conv_block
 
         lengths = (
@@ -105,8 +124,8 @@ def encoder_layer(
             p["conv_module"], layers.layer_norm(p["norm_conv"], x), pad_mask,
             kernel_size=cfg.kernel_size,
         )
-        x = x + y
-    x = _ffn_residual(p["norm_ff"], p["feed_forward"], x)
+        x = x + drop(y)
+    x = _ffn_residual(p["norm_ff"], p["feed_forward"], x, cfg, gen, deterministic)
     return layers.layer_norm(p["norm_final"], x), conv_cache
 
 
@@ -132,10 +151,18 @@ def encoder_forward(
     *,
     cmvn: Params | None = None,
     num_decoding_left_chunks: int = -1,
+    gen: torch.Generator | None = None,
+    host_gen: torch.Generator | None = None,
+    deterministic: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Deterministic full-context forward (static chunk mask when
-    ``cfg.static_chunk_size > 0``). feats [B, T, F], feat_lengths [B] ->
-    (encoder_out [B, T', D], pad_mask bool [B, T'] True = valid)."""
+    """Full-utterance forward. feats [B, T, F], feat_lengths [B] ->
+    (encoder_out [B, T', D], pad_mask bool [B, T'] True = valid).
+
+    Deterministic: full context, or a static chunk mask when
+    ``cfg.static_chunk_size > 0``. Training (``deterministic=False``):
+    dropout draws from ``gen`` (on the feats' device) and, with
+    ``cfg.use_dynamic_chunk``, one chunk mask per batch is drawn on the
+    host generator ``host_gen``."""
     from . import cmvn as cmvn_mod
 
     if cmvn is not None:
@@ -143,14 +170,19 @@ def encoder_forward(
     feats = feats.to(getattr(torch, cfg.compute_dtype))
     x, pos_emb, rel_positions = _embed(p, feats, cfg)
     pad_mask = masks.make_non_pad_mask(masks.subsampled_lengths(feat_lengths), x.shape[1])
+    dynamic = None
+    if cfg.use_dynamic_chunk and not deterministic:
+        if host_gen is None:
+            raise ValueError("dynamic chunk training needs a host torch.Generator")
+        dynamic = masks.sample_dynamic_chunk(host_gen, x.shape[1], cfg.use_dynamic_left_chunk)
     attn_mask = masks.make_attn_mask(
         pad_mask, static_chunk_size=cfg.static_chunk_size,
-        num_decoding_left_chunks=num_decoding_left_chunks,
+        num_decoding_left_chunks=num_decoding_left_chunks, dynamic_chunk=dynamic,
     ).contiguous()
     for i in range(cfg.encoder_num_layers):
         x, _ = encoder_layer(
             layer_params(p["layers"], i), x, attn_mask, pos_emb, pad_mask, cfg,
             rel_positions=rel_positions, use_pallas=cfg.use_pallas_attention,
-            use_pallas_conv=cfg.use_pallas_conv,
+            use_pallas_conv=cfg.use_pallas_conv, gen=gen, deterministic=deterministic,
         )
     return layers.layer_norm(p["after_norm"], x), pad_mask

@@ -15,6 +15,15 @@ def init_ffn(gen, dim: int, hidden_dim: int) -> Params:
     }
 
 
-def ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """dense -> swish -> dense (inference: no dropout)."""
-    return layers.dense(p["w_2"], layers.swish(layers.dense(p["w_1"], x)))
+def ffn(
+    p: Params,
+    x: torch.Tensor,
+    *,
+    dropout_rate: float = 0.0,
+    gen: torch.Generator | None = None,
+    deterministic: bool = True,
+) -> torch.Tensor:
+    """dense -> swish -> dropout -> dense."""
+    y = layers.swish(layers.dense(p["w_1"], x))
+    y = layers.dropout(gen, y, dropout_rate, deterministic)
+    return layers.dense(p["w_2"], y)

@@ -116,6 +116,22 @@ def conv2d(
     return y
 
 
+def dropout(
+    gen: torch.Generator | None, x: torch.Tensor, rate: float, deterministic: bool
+) -> torch.Tensor:
+    """x / keep where a Bernoulli(keep) draw from ``gen`` is true, else 0;
+    the identity when ``deterministic`` or ``rate <= 0`` (JAX
+    ``layers.dropout``). ``gen`` lies on x's device. The draws differ from
+    ``jax.random``'s; the keep rate and the scaling are the same."""
+    if deterministic or rate <= 0.0:
+        return x
+    if gen is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def glu(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     a, b = x.chunk(2, dim=dim)
     return a * torch.sigmoid(b)

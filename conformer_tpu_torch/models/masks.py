@@ -1,8 +1,7 @@
-"""Pad and attention masks for the full-utterance inference forward.
-
-Counterpart of the JAX package's ``models/masks.py``. Only the
-deterministic masks are here: full context, and a static chunk mask. The
-dynamic-chunk training masks come with the training slice.
+"""Pad and attention masks (JAX ``models/masks.py``): full context, a
+static chunk mask, and the dynamic-chunk mask of training, whose chunk
+size and left-chunk count are drawn on a host ``torch.Generator`` (a
+device draw would need a host sync to build the mask).
 """
 
 from __future__ import annotations
@@ -41,17 +40,39 @@ def subsequent_chunk_mask(
     return (col >= start) & (col < ending)
 
 
-def make_attn_mask(
-    pad_mask: torch.Tensor, *, static_chunk_size: int, num_decoding_left_chunks: int
-) -> torch.Tensor:
-    """[B, T, T] attention mask (True = attend) of an inference forward.
+def sample_dynamic_chunk(
+    gen: torch.Generator, max_len: int, use_dynamic_left_chunk: bool
+) -> tuple[int, int]:
+    """(chunk_size, num_left_chunks) of one training batch, with the JAX
+    distribution: draw ~ U[1, max_len); full context (chunk max_len, left
+    -1) when draw > max_len // 2, else chunk = draw % 25 + 1 and, with
+    dynamic left chunks, left ~ U[0, max_len - 1), otherwise -1."""
+    draw = int(torch.randint(1, max(max_len, 2), (), generator=gen))
+    left_draw = int(torch.randint(0, max(max_len - 1, 1), (), generator=gen))
+    if draw > max_len // 2:
+        return max_len, -1
+    return draw % 25 + 1, left_draw if use_dynamic_left_chunk else -1
 
-    Key-side padding, intersected with a static chunk mask when
-    ``static_chunk_size > 0`` (the JAX ``make_attn_mask`` with dynamic
-    chunking off, as it is in every deterministic forward).
+
+def make_attn_mask(
+    pad_mask: torch.Tensor,
+    *,
+    static_chunk_size: int,
+    num_decoding_left_chunks: int,
+    dynamic_chunk: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """[B, T, T] attention mask (True = attend).
+
+    Key-side padding, intersected with the chunk mask of ``dynamic_chunk``
+    = (chunk_size, num_left_chunks) when given (a training forward, drawn
+    by ``sample_dynamic_chunk``), else with a static chunk mask when
+    ``static_chunk_size > 0``.
     """
     bsz, max_len = pad_mask.shape
     valid = pad_mask[:, None, :]
+    if dynamic_chunk is not None:
+        chunk = subsequent_chunk_mask(max_len, *dynamic_chunk, device=pad_mask.device)
+        return valid & chunk[None, :, :]
     if static_chunk_size > 0:
         chunk = subsequent_chunk_mask(
             max_len, static_chunk_size, num_decoding_left_chunks, pad_mask.device
@@ -65,3 +86,9 @@ def subsampled_lengths(lengths: torch.Tensor) -> torch.Tensor:
     return torch.div(
         torch.div(lengths - 1, 2, rounding_mode="floor") - 1, 2, rounding_mode="floor"
     )
+
+
+def add_blank(targets: torch.Tensor, blank: int, ignore_id: int) -> torch.Tensor:
+    """[B, U] -> [B, U+1]: prepend blank and replace ignore_id with blank."""
+    out = torch.cat([torch.full_like(targets[:, :1], blank), targets], dim=1)
+    return torch.where(out == ignore_id, blank, out)

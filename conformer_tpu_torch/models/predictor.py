@@ -1,10 +1,10 @@
-"""RNN-T prediction network, single-step decode path (JAX
-``models/predictor.py``): embedding -> multi-layer LSTM -> projection.
+"""RNN-T prediction network (JAX ``models/predictor.py``): embedding ->
+multi-layer LSTM -> projection, as a full-sequence forward (training) and
+a single step (decoding).
 
 Gate layout and initialiser follow torch.nn.LSTM (i, f, g, o;
 U(-1/sqrt(H), 1/sqrt(H))), with the JAX package's transposed weights
-``w_ih`` [I, 4H] and ``w_hh`` [H, 4H]. The full-sequence forward of
-training comes with the training slice.
+``w_ih`` [I, 4H] and ``w_hh`` [H, 4H].
 """
 
 from __future__ import annotations
@@ -50,10 +50,19 @@ def init_predictor_state(cfg: ModelConfig, batch: int, device=None) -> Predictor
     )
 
 
-def _lstm_cell(lp: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
-    """One LSTM step, float32 gates; x [B, I], h and c [B, H]."""
+def _input_gates(lp: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ w_ih in float32 from operands in x's dtype; x [..., I]."""
+    return torch.matmul(x.float(), lp["w_ih"].to(x.dtype).float())
+
+
+def _lstm_cell(lp: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+               x_gates: torch.Tensor | None = None):
+    """One LSTM step, float32 gates; x [B, I], h and c [B, H]. ``x_gates``
+    is x's input product when the caller took it for a whole sequence."""
+    if x_gates is None:
+        x_gates = _input_gates(lp, x)
     gates = (
-        torch.matmul(x.float(), lp["w_ih"].to(x.dtype).float())
+        x_gates
         + torch.matmul(h.float(), lp["w_hh"].to(h.dtype).float())
         + (lp["b_ih"] + lp["b_hh"])
     )
@@ -62,6 +71,36 @@ def _lstm_cell(lp: Params, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
     c_new = f * c.float() + i * torch.tanh(g)
     h_new = o * torch.tanh(c_new)
     return h_new.to(x.dtype), c_new.to(x.dtype)
+
+
+def predictor_forward(
+    p: Params,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    gen: torch.Generator | None = None,
+    deterministic: bool = True,
+) -> torch.Tensor:
+    """Full-sequence forward from a zero state: tokens [B, U] -> [B, U,
+    predictor_dim]. In training, dropout (from ``gen``) on the embeddings
+    and between LSTM layers, not after the last (torch.nn.LSTM's
+    ``dropout``). The input product of each layer is taken for the whole
+    sequence at once; the recurrence is a loop over U."""
+    x = layers.embedding(p["embed"], tokens)
+    x = layers.dropout(gen, x, cfg.predictor_embed_dropout, deterministic)
+    bsz, u, _ = x.shape
+    n = len(p["rnn"])
+    for li, lp in enumerate(p["rnn"]):
+        x_gates = _input_gates(lp, x)
+        h = c = torch.zeros((bsz, cfg.predictor_hidden_size), dtype=x.dtype, device=x.device)
+        ys = []
+        for t in range(u):
+            h, c = _lstm_cell(lp, x[:, t], h, c, x_gates[:, t])
+            ys.append(h)
+        x = torch.stack(ys, dim=1)
+        if li < n - 1:
+            x = layers.dropout(gen, x, cfg.predictor_dropout, deterministic)
+    return layers.dense(p["projection"], x)
 
 
 def predictor_step(

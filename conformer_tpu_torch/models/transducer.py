@@ -1,6 +1,11 @@
-"""Transducer model: random init and the inference encoder pass (JAX
-``models/transducer.py``). The training forward and its losses come with
-the training slice.
+"""Transducer model (JAX ``models/transducer.py``): random init, the
+inference encoder pass, and the training forward with its losses
+
+    loss = ctc_weight * ctc + transducer_weight * rnnt,
+
+where rnnt is the full-lattice transducer loss or, with
+``use_pruned_loss``, the pruned loss plus ``simple_loss_scale`` times the
+simple-lattice loss. The attention-decoder branch is not ported yet.
 """
 
 from __future__ import annotations
@@ -9,13 +14,16 @@ import torch
 
 from ..config import ModelConfig
 from ..params import tree_map
-from . import encoder, joint, layers, predictor
+from ..ops.rnnt import rnnt_loss_fused
+from ..ops.rnnt_pruned import rnnt_loss_pruned_full
+from . import ctc_head, encoder, joint, layers, masks, predictor
 from .layers import Params
 
 
 def init_transducer(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random parameters of the JAX ``init_transducer`` shapes (encoder,
-    predictor, joint and the CTC head), drawn on the CPU from a
+    predictor, joint, the CTC head and, with ``use_pruned_loss``, the
+    simple-lattice projections), drawn on the CPU from a
     ``torch.Generator`` seeded with ``seed`` and moved to ``device``.
     The values differ from ``jax.random``'s for the same seed."""
     gen = torch.Generator().manual_seed(seed)
@@ -25,7 +33,102 @@ def init_transducer(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
         "joint": joint.init_joint(gen, cfg),
         "ctc": {"ctc_lo": layers.init_dense(gen, cfg.encoder_dim, cfg.vocab_size)},
     }
+    if cfg.use_pruned_loss:
+        p["simple_am_proj"] = layers.init_dense(gen, cfg.encoder_dim, cfg.vocab_size)
+        p["simple_lm_proj"] = layers.init_dense(gen, cfg.predictor_dim, cfg.vocab_size)
     return tree_map(lambda t: t.to(device), p)
+
+
+def transducer_forward(
+    p: Params,
+    feats: torch.Tensor,
+    feat_lengths: torch.Tensor,
+    labels: torch.Tensor,
+    label_lengths: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    gen: torch.Generator | None = None,
+    host_gen: torch.Generator | None = None,
+    deterministic: bool = False,
+) -> dict:
+    """Training forward: feats [B, T, F], feat_lengths [B], labels [B, U]
+    (padded with 0 or ignore_id), label_lengths [B] -> {loss, loss_ctc,
+    loss_rnnt, encoder_out, encoder_out_lens}, plus loss_simple and the
+    band starts s_begin [B, T'] with ``use_pruned_loss``.
+
+    Dropout draws from ``gen`` (on the feats' device), the dynamic chunk
+    from the host generator ``host_gen``. Rows with feat_length 0 are
+    bucket-padding dummies: they count in no loss. The transducer losses
+    are means over the valid rows; the lattice DPs take
+    ``max(encoder_out_lens, 1)`` frames."""
+    encoder_out, encoder_mask = encoder.encoder_forward(
+        p["encoder"], feats, feat_lengths, cfg, cmvn=p.get("cmvn"), gen=gen,
+        host_gen=host_gen, deterministic=deterministic,
+    )
+    return transducer_losses(p, encoder_out, encoder_mask, feat_lengths, labels,
+                             label_lengths, cfg, gen=gen, deterministic=deterministic)
+
+
+def transducer_losses(
+    p: Params,
+    encoder_out: torch.Tensor,
+    encoder_mask: torch.Tensor,
+    feat_lengths: torch.Tensor,
+    labels: torch.Tensor,
+    label_lengths: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    gen: torch.Generator | None = None,
+    deterministic: bool = False,
+) -> dict:
+    """The part of ``transducer_forward`` after the encoder: predictor,
+    joint projections, the transducer and CTC losses."""
+    if cfg.attention_weight > 0 and "decoder" in p:
+        raise NotImplementedError("the attention-decoder loss is not ported yet")
+    encoder_out_lens = encoder_mask.sum(dim=1, dtype=torch.int32)
+    labels_in = masks.add_blank(labels, cfg.blank_id, cfg.ignore_id)
+    pred_out = predictor.predictor_forward(p["predictor"], labels_in, cfg, gen=gen,
+                                           deterministic=deterministic)
+    enc_proj, pred_proj = joint.joint_project(p["joint"], encoder_out, pred_out)
+    rnnt_text = torch.where(labels == cfg.ignore_id, cfg.blank_id, labels).to(torch.int32)
+    row_valid = feat_lengths > 0
+    n_valid = row_valid.float().sum().clamp_min(1.0)
+    t_lens = encoder_out_lens.clamp_min(1)
+    u_lens = label_lengths.to(torch.int32)
+    impl = "kernel" if cfg.use_pallas_rnnt else "plain"
+    w_out, b_out = p["joint"]["ffn_out"]["kernel"], p["joint"]["ffn_out"]["bias"]
+
+    def masked_mean(nll):
+        return torch.where(row_valid, nll, 0.0).sum() / n_valid
+
+    out: dict = {}
+    if cfg.use_pruned_loss:
+        am = layers.dense(p["simple_am_proj"], encoder_out)
+        lm = layers.dense(p["simple_lm_proj"], pred_out)
+        simple_nll, pruned_nll, s_begin = rnnt_loss_pruned_full(
+            am, lm, enc_proj, pred_proj, w_out, b_out, rnnt_text, t_lens, u_lens,
+            s_range=cfg.prune_range, blank=cfg.blank_id, lattice_impl=impl,
+            simple_impl=impl, t_chunk=cfg.rnnt_t_chunk,
+        )
+        out["loss_simple"] = masked_mean(simple_nll)
+        out["s_begin"] = s_begin
+        loss_rnnt = masked_mean(pruned_nll) + cfg.simple_loss_scale * out["loss_simple"]
+    else:
+        loss_rnnt = masked_mean(rnnt_loss_fused(
+            enc_proj, pred_proj, w_out, b_out, rnnt_text, t_lens, u_lens,
+            blank=cfg.blank_id, reduction="none", t_chunk=cfg.rnnt_t_chunk,
+            lattice_impl=impl, joint_impl="kernel" if cfg.use_pallas_joint else "plain",
+        ))
+    loss_ctc = ctc_head.ctc_head_loss(
+        p["ctc"], encoder_out, t_lens, rnnt_text, label_lengths, cfg, gen=gen,
+        deterministic=deterministic, row_valid=row_valid,
+    )
+    out.update(
+        loss=cfg.ctc_weight * loss_ctc + cfg.transducer_weight * loss_rnnt,
+        loss_ctc=loss_ctc, loss_rnnt=loss_rnnt, encoder_out=encoder_out,
+        encoder_out_lens=encoder_out_lens,
+    )
+    return out
 
 
 def encode(

@@ -1,0 +1,159 @@
+"""Transducer (RNN-T) loss, plain PyTorch (JAX ``ops/rnnt.py``).
+
+- ``rnnt_loss_from_log_probs``: the lattice DP as a loop over T with an
+  [B, U+1] alpha row; the in-row recurrence is a first-order linear
+  recurrence in the (logaddexp, +) semiring, solved by a log-depth scan
+  (``_semiring_linear_scan``). Rows freeze at t >= t_len. It is the oracle
+  of the DP kernel (``ops/rnnt_lattice.py``) and the path taken when
+  ``use_pallas_rnnt`` is off.
+- ``gather_lattice_log_probs``: (lp_blank, lp_emit) from joint logits.
+- ``rnnt_lattice_log_probs_fused``: the full-lattice joint chunked over T
+  and recomputed in the backward (``torch.utils.checkpoint``, as
+  ``jax.checkpoint`` there), so [B, T, U+1, V] never exists at once.
+- ``rnnt_loss_fused``: joint + DP, the transducer loss of the full lattice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+NEG_INF = -1e30
+
+
+def _semiring_linear_scan(base: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Solve x[u] = logaddexp(base[u], x[u-1] + weights[u]) along the last
+    axis (weights[..., 0] is ignored), by a Hillis-Steele scan over the
+    composed maps f_u(x) = base_u (+) (weights_u (*) x)."""
+    a = base
+    w = torch.cat([torch.full_like(weights[..., :1], NEG_INF), weights[..., 1:]], dim=-1)
+    n = a.shape[-1]
+    k = 1
+    while k < n:
+        a_prev = F.pad(a[..., :-k], (k, 0), value=NEG_INF)
+        w_prev = F.pad(w[..., :-k], (k, 0), value=0.0)
+        a = torch.where(torch.arange(n, device=a.device) >= k,
+                        torch.logaddexp(a, w + a_prev), a)
+        w = w + w_prev
+        k *= 2
+    return a
+
+
+def rnnt_loss_from_log_probs(
+    lp_blank: torch.Tensor,
+    lp_emit: torch.Tensor,
+    t_lengths: torch.Tensor,
+    u_lengths: torch.Tensor,
+) -> torch.Tensor:
+    """Transducer NLL [B] (float32) from lattice log-probs [B, T, U+1];
+    lp_emit[..., u] is log p(label_{u+1} | t, u) (column U unused)."""
+    lp_blank = lp_blank.float()
+    lp_emit = lp_emit.float()
+    bsz, t_max, u1 = lp_blank.shape
+    u_idx = u_lengths.long()[:, None]
+    emit_in = F.pad(lp_emit, (1, 0), value=NEG_INF)[:, :, :u1]
+
+    base0 = torch.full((bsz, u1), NEG_INF, device=lp_blank.device)
+    base0[:, 0] = 0.0
+    alpha = _semiring_linear_scan(base0, emit_in[:, 0])
+    final = torch.where(
+        t_lengths == 1,
+        alpha.gather(1, u_idx)[:, 0] + lp_blank[:, 0].gather(1, u_idx)[:, 0],
+        NEG_INF,
+    )
+    for t in range(1, t_max):
+        new_alpha = _semiring_linear_scan(alpha + lp_blank[:, t - 1], emit_in[:, t])
+        alpha = torch.where((t < t_lengths)[:, None], new_alpha.clamp_min(NEG_INF), alpha)
+        a_u = alpha.gather(1, u_idx)[:, 0]
+        b_u = lp_blank[:, t].gather(1, u_idx)[:, 0]
+        final = torch.where(t == t_lengths - 1, a_u + b_u, final)
+    return -final
+
+
+def gather_lattice_log_probs(logits: torch.Tensor, labels: torch.Tensor, blank: int):
+    """Joint logits [B, T, U+1, V] and labels [B, U] -> (lp_blank, lp_emit)
+    [B, T, U+1] float32; row U gathers blank."""
+    logits = logits.float()
+    denom = torch.logsumexp(logits, dim=-1)
+    bsz, t_max, u1, _ = logits.shape
+    lab = F.pad(labels, (0, 1), value=blank).long()
+    emit = logits.gather(3, lab[:, None, :, None].expand(bsz, t_max, u1, 1))[..., 0]
+    return logits[..., blank] - denom, emit - denom
+
+
+def joint_log_probs_chunk(enc_c, pred, w_out, b_out, lab, blank: int):
+    """(lp_blank, lp_emit) of one chunk of the joint: enc_c [B,tc,J] against
+    pred [B,(tc,)U1,J] (broadcast over t, or one row per t as in the band
+    joint), logits = tanh(enc+pred) W + b. The product runs in the
+    activation dtype; the logsumexp and the picks in float32. ``lab`` is
+    the label index per (b, t, u) or per (b, u)."""
+    pred = pred if pred.dim() == 4 else pred[:, None]
+    x = torch.tanh(enc_c[:, :, None, :] + pred)
+    logits = torch.matmul(x, w_out.to(x.dtype)).float() + b_out.float()
+    denom = torch.logsumexp(logits, dim=-1)
+    lab = lab if lab.dim() == 3 else lab[:, None, :].expand(logits.shape[:3])
+    emit = logits.gather(3, lab[..., None].long())[..., 0]
+    return logits[..., blank] - denom, emit - denom
+
+
+def rnnt_lattice_log_probs_fused(
+    enc_proj: torch.Tensor,
+    pred_proj: torch.Tensor,
+    w_out: torch.Tensor,
+    b_out: torch.Tensor,
+    labels: torch.Tensor,
+    blank: int = 0,
+    t_chunk: int = 32,
+):
+    """(lp_blank, lp_emit) [B, T, U+1] of the full-lattice joint, chunk by
+    chunk over T, each chunk recomputed in the backward: peak memory is
+    O(B * t_chunk * (U+1) * V)."""
+    lab = F.pad(labels, (0, 1), value=blank)
+    lpb, lpe = [], []
+    for t0 in range(0, enc_proj.shape[1], t_chunk):
+        b_c, e_c = checkpoint(joint_log_probs_chunk, enc_proj[:, t0:t0 + t_chunk], pred_proj,
+                              w_out, b_out, lab, blank, use_reentrant=False)
+        lpb.append(b_c)
+        lpe.append(e_c)
+    return torch.cat(lpb, dim=1), torch.cat(lpe, dim=1)
+
+
+def _lattice_nll(lp_blank, lp_emit, t_lengths, u_lengths, lattice_impl: str):
+    """NLL [B] through the DP kernel (``lattice_impl="kernel"``) or the
+    plain scan (``"plain"``)."""
+    if lattice_impl == "kernel":
+        from .rnnt_lattice import rnnt_lattice_nll
+
+        return rnnt_lattice_nll(lp_blank, lp_emit, t_lengths, u_lengths)
+    return rnnt_loss_from_log_probs(lp_blank, lp_emit, t_lengths, u_lengths)
+
+
+def rnnt_loss_fused(
+    enc_proj: torch.Tensor,
+    pred_proj: torch.Tensor,
+    w_out: torch.Tensor,
+    b_out: torch.Tensor,
+    labels: torch.Tensor,
+    t_lengths: torch.Tensor,
+    u_lengths: torch.Tensor,
+    blank: int = 0,
+    reduction: str = "mean",
+    t_chunk: int = 32,
+    lattice_impl: str = "plain",
+    joint_impl: str = "plain",
+) -> torch.Tensor:
+    """Transducer loss of the full lattice from the joint projections."""
+    if joint_impl != "plain":
+        raise NotImplementedError(
+            "the fused joint kernel (joint_kernel.py, use_pallas_joint) is not ported yet"
+        )
+    lp_blank, lp_emit = rnnt_lattice_log_probs_fused(
+        enc_proj, pred_proj, w_out, b_out, labels, blank, t_chunk
+    )
+    nll = _lattice_nll(lp_blank, lp_emit, t_lengths, u_lengths, lattice_impl)
+    if reduction == "mean":
+        return nll.mean()
+    if reduction == "sum":
+        return nll.sum()
+    return nll

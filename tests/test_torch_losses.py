@@ -1,0 +1,484 @@
+"""The port's loss kernels' plain versions and the losses around them,
+against the JAX package: its Pallas kernels (interpret mode on the CPU)
+and its XLA oracles, forward and ``jax.grad``.
+
+Tiny shapes that no tile divides (B=3, T=37, U=6, V=37), float32 on both
+sides, inputs from a seeded numpy generator. Tolerance 1e-4 abs and rel
+unless a test says otherwise: both sides compute in float32 with sums in
+different orders.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from conformer_tpu.ops import ctc as j_ctc
+from conformer_tpu.ops import rnnt as j_rnnt
+from conformer_tpu.ops import rnnt_pruned as j_pruned
+from conformer_tpu.ops.pallas.ctc_kernel import ctc_loss_pallas
+from conformer_tpu.ops.pallas.rnnt_kernel import rnnt_loss_from_log_probs_pallas
+from conformer_tpu.ops.pallas.simple_lattice_kernel import simple_lattice_log_probs_pallas
+from conformer_tpu_torch.ops import ctc as p_ctc
+from conformer_tpu_torch.ops import ctc_dp as p_ctc_dp
+from conformer_tpu_torch.ops import rnnt as p_rnnt
+from conformer_tpu_torch.ops import rnnt_lattice as p_lat
+from conformer_tpu_torch.ops import rnnt_pruned as p_pruned
+from conformer_tpu_torch.ops import simple_lattice as p_simple
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+B, T, U, V = 3, 37, 6, 37
+W = np.array([1.0, 0.5, 2.0], np.float32)       # non-uniform cotangents
+
+
+def _np(x):
+    return x.detach().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _close(got, want, **kw):
+    np.testing.assert_allclose(_np(got), _np(want), **{**TOL, **kw})
+
+
+def _t(a, grad=False):
+    t = torch.from_numpy(np.array(a))
+    return t.requires_grad_() if grad else t
+
+
+def _lattice(seed):
+    rng = np.random.default_rng(seed)
+    sig = lambda x: np.log(1 / (1 + np.exp(-x)))  # noqa: E731
+    lpb = sig(rng.standard_normal((B, T, U + 1))).astype(np.float32)
+    lpe = sig(rng.standard_normal((B, T, U + 1))).astype(np.float32)
+    return lpb, lpe
+
+
+# (t_len, u_len) per row: full, ragged, and the edge rows t_len = 1 /
+# u_len = 0 (a bucket-padding row has t_len 1 and u_len 0)
+LENGTHS = {
+    "ragged": ([37, 20, 30], [6, 2, 4]),
+    "edges": ([37, 1, 1], [0, 0, 3]),
+    "padding_row": ([12, 1, 37], [5, 0, 6]),
+}
+
+
+# ------------------------------------------------------------ RNN-T lattice
+
+
+@pytest.mark.parametrize("case", sorted(LENGTHS))
+def test_rnnt_lattice_plain_matches_pallas_and_oracle(case):
+    lpb, lpe = _lattice(1)
+    tl, ul = (np.array(x, np.int32) for x in LENGTHS[case])
+    args = (jnp.asarray(tl), jnp.asarray(ul))
+
+    def j_loss(fn):
+        return lambda a, b: jnp.sum(jnp.asarray(W) * fn(a, b, *args))
+
+    pallas = lambda a, b, t, u: rnnt_loss_from_log_probs_pallas(a, b, t, u, interpret=True)  # noqa: E731
+    j_nll = pallas(jnp.asarray(lpb), jnp.asarray(lpe), *args)
+    j_g = jax.grad(j_loss(pallas), argnums=(0, 1))(jnp.asarray(lpb), jnp.asarray(lpe))
+    o_nll = j_rnnt.rnnt_loss_from_log_probs(jnp.asarray(lpb), jnp.asarray(lpe), *args)
+    o_g = jax.grad(j_loss(j_rnnt.rnnt_loss_from_log_probs), argnums=(0, 1))(
+        jnp.asarray(lpb), jnp.asarray(lpe))
+    _close(j_nll, o_nll)
+
+    a, b = _t(lpb, True), _t(lpe, True)
+    nll = p_lat.rnnt_lattice_nll(a, b, _t(tl), _t(ul))
+    (nll * _t(W)).sum().backward()
+    _close(nll, j_nll)
+    _close(a.grad, j_g[0])
+    _close(b.grad, j_g[1])
+    _close(a.grad, o_g[0])
+    _close(b.grad, o_g[1])
+    if case == "edges":     # u_len = 0, t_len = 1: nll = -lp_blank[0, 0]
+        assert float(nll[1].detach()) == pytest.approx(-lpb[1, 0, 0], abs=1e-6)
+
+
+def test_rnnt_lattice_plain_bwd_matches_autograd_through_frozen_scan():
+    """The plain forward computes the cells past t_len; the port's scan
+    oracle freezes them. The NLL and the gradients agree either way, and
+    the explicit beta pass equals autograd through the scan."""
+    lpb, lpe = _lattice(2)
+    tl, ul = (np.array(x, np.int32) for x in LENGTHS["ragged"])
+    a, b = _t(lpb, True), _t(lpe, True)
+    nll = p_rnnt.rnnt_loss_from_log_probs(a, b, _t(tl), _t(ul))
+    (nll * _t(W)).sum().backward()
+    nll_p, alpha = p_lat.rnnt_lattice_plain_fwd(_t(lpb), _t(lpe), _t(tl), _t(ul))
+    gb, ge = p_lat.rnnt_lattice_plain_bwd(_t(lpb), _t(lpe), alpha, _t(tl), _t(ul), nll_p, _t(W))
+    _close(nll_p, nll)
+    _close(gb, a.grad)
+    _close(ge, b.grad)
+    for i, t_len in enumerate(tl):
+        assert (gb[i, t_len:] == 0).all() and (ge[i, t_len:] == 0).all()
+
+
+def test_semiring_scan_matches_jax():
+    rng = np.random.default_rng(3)
+    base = rng.standard_normal((4, 13)).astype(np.float32)
+    w = rng.standard_normal((4, 13)).astype(np.float32)
+    _close(p_rnnt._semiring_linear_scan(_t(base), _t(w)),
+           j_rnnt._semiring_linear_scan(jnp.asarray(base), jnp.asarray(w)))
+
+
+# ------------------------------------------------------------ simple lattice
+
+
+def _simple_inputs(seed, u=U):
+    rng = np.random.default_rng(seed)
+    am = (2 * rng.standard_normal((B, T, V))).astype(np.float32)
+    lm = (2 * rng.standard_normal((B, u + 1, V))).astype(np.float32)
+    labels = rng.integers(1, V, (B, u)).astype(np.int32)
+    return am, lm, labels
+
+
+def _sincos(lpb, lpe, mod):
+    return mod.sum(mod.sin(lpb) + 0.5 * mod.cos(lpe))
+
+
+def test_simple_lattice_plain_matches_pallas():
+    am, lm, labels = _simple_inputs(4)
+
+    def j_fn(a, m):
+        return _sincos(*simple_lattice_log_probs_pallas(a, m, jnp.asarray(labels),
+                                                        interpret=True), jnp)
+
+    j_b, j_e = simple_lattice_log_probs_pallas(jnp.asarray(am), jnp.asarray(lm),
+                                               jnp.asarray(labels), interpret=True)
+    j_g = jax.grad(j_fn, argnums=(0, 1))(jnp.asarray(am), jnp.asarray(lm))
+    ta, tm = _t(am, True), _t(lm, True)
+    lpb, lpe = p_simple.simple_lattice_log_probs_fused(ta, tm, _t(labels))
+    _sincos(lpb, lpe, torch).backward()
+    _close(lpb, j_b)
+    _close(lpe, j_e)
+    _close(ta.grad, j_g[0])
+    _close(tm.grad, j_g[1])
+
+
+def test_simple_lattice_plain_matches_xla_oracle_and_logz():
+    am, lm, labels = _simple_inputs(5)
+    j_b, j_e = j_pruned.simple_lattice_log_probs(jnp.asarray(am), jnp.asarray(lm),
+                                                 jnp.asarray(labels))
+    lab = F.pad(_t(labels), (0, 1)).to(torch.int32)
+    lpb, lpe, logz = p_simple.simple_lattice_plain_fwd(_t(am), _t(lm), lab, 0, t_chunk=8)
+    _close(lpb, j_b)
+    _close(lpe, j_e)
+    want_z = np.log(np.exp(am[:, :, None, :].astype(np.float64) + lm[:, None]).sum(-1))
+    _close(logz, want_z)
+    # the port's chunked, checkpointed plain pass (the path with the flag off)
+    ta, tm = _t(am, True), _t(lm, True)
+    c_b, c_e = p_pruned.simple_lattice_log_probs(ta, tm, _t(labels), t_chunk=16)
+    _close(c_b, j_b)
+    _close(c_e, j_e)
+
+
+def test_simple_lattice_plain_bwd_matches_autograd():
+    am, lm, labels = _simple_inputs(6)
+    lab = F.pad(_t(labels), (0, 1)).to(torch.int32)
+    rng = np.random.default_rng(7)
+    gb, ge = (_t(rng.standard_normal((B, T, U + 1)).astype(np.float32)) for _ in range(2))
+    ta, tm = _t(am, True), _t(lm, True)
+    lpb, lpe, logz = p_simple.simple_lattice_plain_fwd(ta, tm, lab, 0, t_chunk=8)
+    ((lpb * gb).sum() + (lpe * ge).sum()).backward()
+    dam, dlm = p_simple.simple_lattice_plain_bwd(_t(am), _t(lm), lab, logz.detach(), gb, ge, 0,
+                                                 t_chunk=8)
+    _close(dam, ta.grad)
+    _close(dlm, tm.grad)
+
+
+# ---------------------------------------------------------------------- CTC
+
+
+def _ctc_inputs(seed, t_lens, u_lens):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, V)).astype(np.float32)
+    lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+    labels = rng.integers(1, V, (B, U)).astype(np.int32)
+    labels[0, 1] = labels[0, 0]                     # a repeat: no skip there
+    labels[2, 3] = labels[2, 2]
+    u_lens = np.asarray(u_lens, np.int32)
+    labels = np.where(np.arange(U)[None, :] < u_lens[:, None], labels, 0).astype(np.int32)
+    return lp, np.asarray(t_lens, np.int32), labels, u_lens
+
+
+CTC_LENGTHS = {
+    "ragged": ([37, 30, 20], [6, 3, 5]),
+    "edges": ([37, 1, 2], [6, 0, 1]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CTC_LENGTHS))
+def test_ctc_dp_plain_matches_pallas_oracle_and_torch(case):
+    lp, tl, labels, ul = _ctc_inputs(8, *CTC_LENGTHS[case])
+    jargs = (jnp.asarray(tl), jnp.asarray(labels), jnp.asarray(ul))
+
+    def j_fn(fn):
+        return lambda x: jnp.sum(jnp.asarray(W) * fn(x, *jargs))
+
+    pallas = lambda x, *a: ctc_loss_pallas(x, *a, interpret=True)  # noqa: E731
+    j_nll = pallas(jnp.asarray(lp), *jargs)
+    j_g = jax.grad(j_fn(pallas))(jnp.asarray(lp))
+    o_nll = j_ctc.ctc_loss(jnp.asarray(lp), *jargs)
+    o_g = jax.grad(j_fn(j_ctc.ctc_loss))(jnp.asarray(lp))
+
+    x = _t(lp, True)
+    nll = p_ctc_dp.ctc_loss_dp(x, _t(tl), _t(labels), _t(ul))
+    (nll * _t(W)).sum().backward()
+    _close(nll, j_nll)
+    _close(nll, o_nll)
+    _close(x.grad, j_g)
+    _close(x.grad, o_g)
+    for i, t_len in enumerate(tl):
+        assert (x.grad[i, t_len:] == 0).all()
+    # torch's CTC loss as a second oracle, value and gradient. Its backward
+    # assumes log-softmax inputs, so both gradients are taken through one,
+    # with respect to the logits
+    grads = []
+    for fn in (lambda y: p_ctc_dp.ctc_loss_dp(y, _t(tl), _t(labels), _t(ul)),
+               lambda y: F.ctc_loss(y.transpose(0, 1), _t(labels).long(), _t(tl).long(),
+                                    _t(ul).long(), blank=0, reduction="none")):
+        z = _t(lp, True)
+        out = fn(torch.log_softmax(z, dim=-1))
+        (out * _t(W)).sum().backward()
+        grads.append((out, z.grad))
+    _close(grads[0][0], grads[1][0])
+    _close(grads[0][1], grads[1][1])
+
+
+def test_ctc_plain_scan_matches_jax_and_dp_bwd_matches_autograd():
+    lp, tl, labels, ul = _ctc_inputs(9, *CTC_LENGTHS["ragged"])
+    x = _t(lp, True)
+    nll = p_ctc.ctc_loss(x, _t(tl), _t(labels), _t(ul))
+    (nll * _t(W)).sum().backward()
+    _close(nll, j_ctc.ctc_loss(jnp.asarray(lp), jnp.asarray(tl), jnp.asarray(labels),
+                               jnp.asarray(ul)))
+    ext = p_ctc._extended_labels(_t(labels).long(), 0)
+    skip = torch.where(p_ctc.skip_allowed(ext, 0), 0.0, p_ctc.NEG_INF)
+    emit = _t(lp).gather(2, ext[:, None, :].expand(B, T, ext.shape[1])).contiguous()
+    nll_p, alpha = p_ctc_dp.ctc_dp_plain_fwd(emit, skip, _t(tl), _t(ul))
+    g_emit = p_ctc_dp.ctc_dp_plain_bwd(emit, skip, alpha, _t(tl), _t(ul), nll_p, _t(W))
+    grad = torch.zeros(B, T, V).scatter_add_(2, ext[:, None, :].expand(B, T, ext.shape[1]),
+                                             g_emit)
+    _close(nll_p, nll)
+    _close(grad, x.grad)
+
+
+def _float64_grad(fn, *inputs):
+    """Gradients of sum(fn(*inputs)) with float64 as the default dtype (the
+    plain forwards allocate their carries in it)."""
+    xs = [x.double().requires_grad_() for x in inputs]
+    torch.set_default_dtype(torch.float64)
+    try:
+        out = fn(*xs)
+    finally:
+        torch.set_default_dtype(torch.float32)
+    return torch.autograd.grad(out.sum(), xs)
+
+
+@pytest.mark.parametrize("dp", ["rnnt", "ctc"])
+def test_dp_bwd_occupancies_sum_to_one_at_large_logz(dp):
+    """At |logZ| in the thousands (T=300, near-uniform log-probs, as on
+    random weights at full width) the explicit beta pass divides each frame's
+    (label's) occupancies by their sum: each sums to 1 within 1e-5, and the
+    gradients agree with float64 autograd within 2.5e-4 absolute (max
+    |gradient| 1; unnormalised, the blank gradients were 5.7e-4 off)."""
+    rng = np.random.default_rng(13)
+    b, t, u = 2, 300, 30
+    tl, ul = torch.tensor([t, 200], dtype=torch.int32), torch.tensor([u, 15], dtype=torch.int32)
+    g = torch.tensor([1.0, 0.5])
+    live_t = (torch.arange(t)[None, :] < tl[:, None]).float()
+    if dp == "rnnt":
+        lpb, lpe = (torch.from_numpy(-8.5 + 0.1 * rng.standard_normal((b, t, u + 1))).float()
+                    for _ in range(2))
+        nll, alpha = p_lat.rnnt_lattice_plain_fwd(lpb, lpe, tl, ul)
+        assert float(nll.min()) > 1700
+        gb, ge = p_lat.rnnt_lattice_plain_bwd(lpb, lpe, alpha, tl, ul, nll, g)
+        _close(-gb.sum(2) / g[:, None], live_t, atol=1e-5, rtol=0)
+        live_u = (torch.arange(u + 1)[None, :] < ul[:, None]).float()
+        _close(-ge.sum(1) / g[:, None], live_u, atol=1e-5, rtol=0)
+        want = _float64_grad(lambda x, y: p_lat.rnnt_lattice_plain_fwd(
+            x, y, tl.long(), ul.long())[0] * g.double(), lpb, lpe)
+        _close(gb, want[0], atol=2.5e-4, rtol=0)
+        _close(ge, want[1], atol=2.5e-4, rtol=0)
+    else:
+        x = 0.3 * rng.standard_normal((b, t, 40))
+        lp = torch.from_numpy(x - np.log(np.exp(x).sum(-1, keepdims=True))).float()
+        labels = torch.from_numpy(rng.integers(1, 40, (b, u)))
+        labels = torch.where(torch.arange(u)[None, :] < ul[:, None].long(), labels, 0)
+        ext = p_ctc._extended_labels(labels, 0)
+        skip = torch.where(p_ctc.skip_allowed(ext, 0), 0.0, p_ctc.NEG_INF)
+        idx = ext[:, None, :].expand(b, t, ext.shape[1])
+        nll, alpha = p_ctc_dp.ctc_dp_plain_fwd(lp.gather(2, idx), skip, tl, ul)
+        assert float(nll.min()) > 600
+        g_emit = p_ctc_dp.ctc_dp_plain_bwd(lp.gather(2, idx), skip, alpha, tl, ul, nll, g)
+        _close(-g_emit.sum(2) / g[:, None], live_t, atol=1e-5, rtol=0)
+        (want,) = _float64_grad(lambda y: p_ctc_dp.ctc_dp_plain_fwd(
+            y.gather(2, idx), skip.double(), tl.long(), ul.long())[0] * g.double(), lp)
+        got = torch.zeros(b, t, 40).scatter_add_(2, idx, g_emit)
+        _close(got, want, atol=2.5e-4, rtol=0)
+
+
+# ------------------------------------------------------------------ wrappers
+
+
+def test_wrappers_take_plain_on_cpu_and_count_no_launch():
+    lpb, lpe = _lattice(10)
+    tl, ul = (_t(np.array(x, np.int32)) for x in LENGTHS["ragged"])
+    am, lm, labels = _simple_inputs(11)
+    lab = F.pad(_t(labels), (0, 1)).to(torch.int32)
+    lp, ctl, clab, cul = _ctc_inputs(12, *CTC_LENGTHS["ragged"])
+    ext = p_ctc._extended_labels(_t(clab).long(), 0)
+    skip = torch.where(p_ctc.skip_allowed(ext, 0), 0.0, p_ctc.NEG_INF)
+    emit = _t(lp).gather(2, ext[:, None, :].expand(B, T, ext.shape[1])).contiguous()
+    g = _t(W)
+    wrappers = (p_simple.simple_lattice_fwd, p_simple.simple_lattice_bwd, p_lat.rnnt_lattice_fwd,
+                p_lat.rnnt_lattice_bwd, p_ctc_dp.ctc_dp_fwd, p_ctc_dp.ctc_dp_bwd)
+    before = [w.launches for w in wrappers]
+
+    s_out = p_simple.simple_lattice_fwd(_t(am), _t(lm), lab, 0)
+    s_ref = p_simple.simple_lattice_plain_fwd(_t(am), _t(lm), lab, 0)
+    gb, ge = torch.ones(B, T, U + 1), torch.full((B, T, U + 1), 0.5)
+    s_bwd = p_simple.simple_lattice_bwd(_t(am), _t(lm), lab, s_ref[2], gb, ge, 0)
+    s_bwd_ref = p_simple.simple_lattice_plain_bwd(_t(am), _t(lm), lab, s_ref[2], gb, ge, 0)
+    r_out = p_lat.rnnt_lattice_fwd(_t(lpb), _t(lpe), tl, ul)
+    r_ref = p_lat.rnnt_lattice_plain_fwd(_t(lpb), _t(lpe), tl, ul)
+    r_args = (_t(lpb), _t(lpe), r_ref[1], tl, ul, r_ref[0], g)
+    c_out = p_ctc_dp.ctc_dp_fwd(emit, skip, _t(ctl), _t(cul))
+    c_ref = p_ctc_dp.ctc_dp_plain_fwd(emit, skip, _t(ctl), _t(cul))
+    c_args = (emit, skip, c_ref[1], _t(ctl), _t(cul), c_ref[0], g)
+    pairs = [(s_out, s_ref), (s_bwd, s_bwd_ref), (r_out, r_ref),
+             (p_lat.rnnt_lattice_bwd(*r_args), p_lat.rnnt_lattice_plain_bwd(*r_args)),
+             (c_out, c_ref), ((p_ctc_dp.ctc_dp_bwd(*c_args),), (p_ctc_dp.ctc_dp_plain_bwd(*c_args),))]
+    for got, want in pairs:
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert [w.launches for w in wrappers] == before
+
+
+# -------------------------------------------------------------- pruned loss
+
+
+def test_prune_bounds_match_jax_as_integers():
+    rng = np.random.default_rng(13)
+    u1 = 9
+    occ = rng.random((6, T, u1)).astype(np.float32)
+    occ[1, 5:20] = 0.0
+    occ[1, 5:20, 8] = 1.0                           # an early jump to the top
+    occ[4] = 0.0
+    occ[4, :, 0] = 1.0                              # never moves: the terminal forces it
+    tl = np.array([37, 30, 1, 2, 20, 37], np.int32)
+    ul = np.array([8, 3, 0, 8, 8, 5], np.int32)
+    for s_range in (2, 4, 5, 9):
+        want = j_pruned.prune_bounds_from_occupancy(jnp.asarray(occ), jnp.asarray(tl),
+                                                    jnp.asarray(ul), s_range)
+        got = p_pruned.prune_bounds_from_occupancy(_t(occ), _t(tl), _t(ul), s_range)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _pruned_inputs(seed):
+    am, lm, labels = _simple_inputs(seed)
+    rng = np.random.default_rng(seed + 1)
+    j = 16
+    enc = rng.standard_normal((B, T, j)).astype(np.float32)
+    pred = rng.standard_normal((B, U + 1, j)).astype(np.float32)
+    w = (0.3 * rng.standard_normal((j, V))).astype(np.float32)
+    b = (0.1 * rng.standard_normal(V)).astype(np.float32)
+    tl = np.array([37, 25, 1], np.int32)
+    ul = np.array([6, 4, 0], np.int32)
+    return am, lm, enc, pred, w, b, labels, tl, ul
+
+
+def _j_s_begin(am, lm, labels, tl, ul, s_range):
+    lpb, lpe = j_pruned.simple_lattice_log_probs(jnp.asarray(am), jnp.asarray(lm),
+                                                 jnp.asarray(labels))
+    occ = -jax.grad(lambda x: jnp.sum(j_rnnt.rnnt_loss_from_log_probs(
+        x, lpe, jnp.asarray(tl), jnp.asarray(ul))))(lpb)
+    return j_pruned.prune_bounds_from_occupancy(occ, jnp.asarray(tl), jnp.asarray(ul),
+                                                s_range), occ
+
+
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+def test_rnnt_loss_pruned_full_matches_jax(impl):
+    s_range = 4
+    am, lm, enc, pred, w, b, labels, tl, ul = _pruned_inputs(14)
+    jimpl = "pallas" if impl == "kernel" else "xla"
+    jx = [jnp.asarray(a) for a in (am, lm, enc, pred, w, b)]
+
+    def j_fn(*xs):
+        s, p = j_pruned.rnnt_loss_pruned_full(
+            *xs, jnp.asarray(labels), jnp.asarray(tl), jnp.asarray(ul), s_range=s_range,
+            lattice_impl=jimpl, simple_impl=jimpl, t_chunk=16)
+        return jnp.sum(jnp.asarray(W) * (p + 0.5 * s)), (s, p)
+
+    j_g, (j_s, j_p) = jax.grad(j_fn, argnums=tuple(range(6)), has_aux=True)(*jx)
+    j_sb, j_occ = _j_s_begin(am, lm, labels, tl, ul, s_range)
+
+    tx = [_t(a, True) for a in (am, lm, enc, pred, w, b)]
+    s, p, s_begin = p_pruned.rnnt_loss_pruned_full(
+        *tx, _t(labels), _t(tl), _t(ul), s_range=s_range, lattice_impl=impl,
+        simple_impl=impl, t_chunk=16)
+    (_t(W) * (p + 0.5 * s)).sum().backward()
+    np.testing.assert_array_equal(s_begin.numpy(), np.asarray(j_sb))
+    # the occupancies behind the band: exp(alpha + lp + beta - logZ) with
+    # logZ ~ 200 here, so float32 leaves ~1e-5 of absolute noise (JAX's own
+    # XLA and Pallas paths differ by 1.3e-5 on these inputs); an argmax
+    # can flip only between cells closer than that
+    with torch.no_grad():
+        lpb, lpe = p_pruned.simple_lattice_log_probs(*(_t(a) for a in (am, lm, labels)))
+    lpb.requires_grad_()
+    (occ,) = torch.autograd.grad(p_rnnt._lattice_nll(lpb, lpe, _t(tl), _t(ul), impl).sum(), lpb)
+    _close(-occ, j_occ, rtol=0)
+    _close(s, j_s)
+    _close(p, j_p)
+    for got, want in zip(tx, j_g):
+        _close(got.grad, want)
+
+
+def test_rnnt_loss_pruned_given_bounds_and_full_band_equals_full_loss():
+    """Fed JAX's own band starts, the band loss matches JAX's; with a band
+    as wide as the lattice it equals the full-lattice loss."""
+    am, lm, enc, pred, w, b, labels, tl, ul = _pruned_inputs(15)
+    j_sb, _ = _j_s_begin(am, lm, labels, tl, ul, 3)
+    jx = [jnp.asarray(a) for a in (enc, pred, w, b)]
+
+    def j_fn(*xs):
+        nll = j_pruned.rnnt_loss_pruned(*xs, jnp.asarray(labels), j_sb, jnp.asarray(tl),
+                                        jnp.asarray(ul), 3, t_chunk=16)
+        return jnp.sum(jnp.asarray(W) * nll), nll
+
+    j_g, j_nll = jax.grad(j_fn, argnums=(0, 1, 2, 3), has_aux=True)(*jx)
+    tx = [_t(a, True) for a in (enc, pred, w, b)]
+    nll = p_pruned.rnnt_loss_pruned(*tx, _t(labels), _t(np.asarray(j_sb)).long(), _t(tl),
+                                    _t(ul), 3, t_chunk=16)
+    (_t(W) * nll).sum().backward()
+    _close(nll, j_nll)
+    for got, want in zip(tx, j_g):
+        _close(got.grad, want)
+
+    full = p_rnnt.rnnt_loss_fused(*(_t(a) for a in (enc, pred, w, b)), _t(labels), _t(tl),
+                                  _t(ul), reduction="none", t_chunk=8)
+    wide = p_pruned.rnnt_loss_pruned(*(_t(a) for a in (enc, pred, w, b)), _t(labels),
+                                     torch.zeros(B, T, dtype=torch.long), _t(tl), _t(ul), U + 1)
+    _close(wide, full)
+
+
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+def test_rnnt_loss_fused_matches_jax(impl):
+    _, _, enc, pred, w, b, labels, tl, ul = _pruned_inputs(16)
+    jx = [jnp.asarray(a) for a in (enc, pred, w, b)]
+    jimpl = "pallas" if impl == "kernel" else "xla"
+
+    def j_fn(*xs):
+        nll = j_rnnt.rnnt_loss_fused(*xs, jnp.asarray(labels), jnp.asarray(tl), jnp.asarray(ul),
+                                     reduction="none", t_chunk=8, lattice_impl=jimpl)
+        return jnp.sum(jnp.asarray(W) * nll), nll
+
+    j_g, j_nll = jax.grad(j_fn, argnums=(0, 1, 2, 3), has_aux=True)(*jx)
+    tx = [_t(a, True) for a in (enc, pred, w, b)]
+    nll = p_rnnt.rnnt_loss_fused(*tx, _t(labels), _t(tl), _t(ul), reduction="none", t_chunk=8,
+                                 lattice_impl=impl)
+    (_t(W) * nll).sum().backward()
+    _close(nll, j_nll)
+    for got, want in zip(tx, j_g):
+        _close(got.grad, want)
+    with pytest.raises(NotImplementedError):
+        p_rnnt.rnnt_loss_fused(*tx, _t(labels), _t(tl), _t(ul), joint_impl="kernel")
