@@ -10,7 +10,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build   - nvcc builds every kernel library from csrc/, in parallel;
   3. kernels - each serving kernel against its plain PyTorch version at the
                decode shapes (B=48, T'=374, D=256, H=4) plus edge cases, in
-               float32 and bfloat16; each of the six training kernels
+               float32 and bfloat16; the attention kernels of training
+               (forward with dropout 0.1, dq, dkv) in float32 and bfloat16
+               at the training shape (B=32, T'=374) and at a ragged edge
+               shape with a dynamic-chunk mask, against their plain
+               versions and against autograd through the plain forward,
+               the dropout keep-mask bit for bit, its keep share, and
+               bitwise repeatability; each of the six loss kernels
                (simple lattice, RNN-T lattice DP, CTC DP; forward and
                backward) against its plain version in float32 at the
                training shape (B=32, T'=374, U=64, V=5002) and at a tiny
@@ -28,21 +34,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
                hypotheses), then a bfloat16 decode of 48 x 15 s:
                audio-seconds per second and token agreement with the
                plain path;
-  6. train   - the recipe (configs/conformer_m.json as it stands: pruned
-               RNN-T + CTC, the RNN-T and CTC kernel flags on, bf16) on
-               random weights from its seed through the port's Trainer:
-               batches of 32 x 15 s random-normal features with 64 random
-               labels, accum_grad 2, one warm-up step and three timed
-               steps, each with a finite loss and gradient norm, changed
-               weights and an unchanged pos_table; each training kernel
-               must count its launches per microbatch (simple lattice
-               fwd 1 / bwd 1, RNN-T lattice 2 / 2, CTC 1 / 1). Then float32
-               parity of the kernel path against the plain path on one
-               8 x 15 s microbatch: the band starts and occupancy argmaxes
-               that differ are counted and held to BAND_LIMITS, then the
-               plain path runs on the kernel path's band: loss terms within
-               1e-4 relative, every gradient leaf within 1e-3 of its own
-               max-abs.
+  6. train   - the recipe as shipped (configs/conformer_m.json: pruned
+               RNN-T + CTC, the RNN-T and CTC kernel flags on, the attention
+               flag off, bf16) on random weights from its seed through the
+               port's Trainer: batches of 32 x 15 s random-normal features
+               with 64 random labels, accum_grad 2, one warm-up step and
+               three timed steps, each with a finite loss and gradient norm,
+               changed weights and an unchanged pos_table; each kernel must
+               count its launches per microbatch (simple lattice fwd 1 / bwd
+               1 grid, RNN-T lattice 2 / 2, CTC 1 / 1, attention 0). Then
+               float32 parity of the kernel path, with the attention kernel
+               on, against the plain path on one 8 x 15 s microbatch: the
+               band starts and occupancy argmaxes that differ are counted
+               and held to BAND_LIMITS, then the plain path runs on the
+               kernel path's band: loss terms within 1e-4 relative, every
+               gradient leaf within 1e-3 of its own max-abs;
+  7. fit     - the user's command, ``conformer_tpu_torch.main.main`` with
+               --train, on a synthetic corpus written from a seed (40 wavs
+               of 2-15 s, 8 dev wavs, a 5002-piece vocab) at full
+               Conformer-M width, attention and conv kernel flags on, the
+               recipe's data pipeline as it stands: 4 steps, validations at
+               0 (sanity), 2 and 4, checkpoints step_2-wer_*, step_4-wer_*,
+               step_4 and last, and the run's launches of every kernel as
+               its steps and validation batches give them; then
+               --resume_from last to step 6 and --eval (a WER). The trainer's
+               metrics.jsonl must hold steps 1-6 with finite losses and
+               gradient norms and finite WERs at 2, 4 and 6; a new Trainer
+               restores the last checkpoint and must equal the file.
 The last two lines are the kernels JSON line and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -54,6 +72,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -249,6 +268,209 @@ def check_kernels(dev) -> dict:
     return entries
 
 
+# ------------------------------------------------- attention, training side
+
+ATTN_RATE = 0.1          # the recipe's attention_dropout
+ATTN_SEED = 20240917
+
+
+def attention_train_inputs(dev, dtype, gen, b, t, dk=64, d=256, h=4, chunk=False,
+                           identity=False):
+    """Inputs of the attention kernels at one training shape, with dO: key
+    padding to random lengths (the first rows T, T-11, 1), a fully masked
+    row (zero length) and a dead query row; ``chunk`` adds a dynamic-chunk
+    mask (chunk 4, 2 chunks of left context). ``identity`` makes v the
+    identity (T <= dk), so that each output column is one key's dropped
+    probability, and dO the identity, so that dV is the dropped
+    probabilities' transpose."""
+    import torch
+
+    lens = torch.randint(t // 2, t + 1, (b,), generator=gen)
+    lens[: min(b, 3)] = torch.tensor([t, max(t - 11, 1), 1])[: min(b, 3)]
+    pos = torch.arange(t)
+    mask = (pos[None, None, :] < lens[:, None, None]).expand(b, t, t).clone()
+    if chunk:
+        ci, cj = pos[:, None] // 4, pos[None, :] // 4
+        mask &= (cj <= ci) & (cj >= ci - 2)
+    if b > 3:
+        mask[3] = False
+    mask[0, t // 2, :] = False
+    q_u, k, v, g = (torch.randn(b, h, t, dk, generator=gen) for _ in range(4))
+    if identity:
+        v = torch.eye(t, dk).expand(b, h, t, dk).clone()
+        g = torch.eye(t, dk).expand(b, h, t, dk).clone()
+    ab = 0.2 * torch.randn(b, h, t, d, generator=gen)
+    feats = torch.randn(t, d, generator=gen)
+    cast = [x.to(dev, dtype).contiguous() for x in (q_u, ab, k, v, feats)]
+    seed = torch.tensor([ATTN_SEED], dtype=torch.int32, device=dev)
+    return (*cast, mask.to(dev)), seed, g.to(dev, dtype).contiguous()
+
+
+def _grads_by_autograd(args, seed, g, scale):
+    """dQu, dAB, dK, dV by autograd through the plain forward."""
+    import torch
+
+    from conformer_tpu_torch.ops.rel_attention import rel_attention_plain
+
+    leaves = [x.detach().clone().requires_grad_() for x in args[:4]]
+    out, _ = rel_attention_plain(*leaves, *args[4:], scale=scale, dropout_rate=ATTN_RATE,
+                                 seed=seed)
+    return torch.autograd.grad((out.float() * g.float()).sum(), leaves)
+
+
+def check_attention_train_kernels(dev):
+    """The attention kernels of training against their plain versions, in
+    float32 and bfloat16, at the training shape (B=32, T'=374) and at a
+    ragged edge shape with a dynamic-chunk mask: the forward with dropout
+    0.1, and dQu, dAB, dK, dV of the dq and dkv kernels against
+    ``rel_attention_bwd_plain`` and against autograd through the plain
+    forward. The keep-mask is checked bit for bit with identity v and dO
+    (T <= dk): the forward's output and dV are then the dropped
+    probabilities, so one flipped element shows. Bitwise repeatability for
+    one seed. Times, plain and library times and bounds at the training
+    shape in bf16. Returns the JSON entries without ``launches``."""
+    import torch
+
+    from conformer_tpu_torch.ops import rel_attention as ra
+
+    big, edge, keep_shape = (32, 374), (3, 37), (32, 64)      # (B, T')
+    gen = torch.Generator().manual_seed(2)
+    scale = 1 / 8
+    errs = {"rel_flash_attention": 0.0, "rel_flash_attention_bwd_dq": 0.0,
+            "rel_flash_attention_bwd_dkv": 0.0}
+    kept = total = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = TOL[name]
+        for (b, t), chunk in ((big, False), (edge, True)):
+            args, seed, g = attention_train_inputs(dev, dtype, gen, b, t, chunk=chunk)
+            kw = dict(scale=scale, dropout_rate=ATTN_RATE)
+            out, lse = ra.rel_attention(*args, seed=seed, **kw)
+            out2, lse2 = ra.rel_attention(*args, seed=seed, **kw)
+            ref_out, ref_lse = ra.rel_attention_plain(*args, seed=seed, **kw)
+            e_f = compare(f"rel_flash_attention {name} B={b} T={t}", (out, lse),
+                          (ref_out, ref_lse), tol)
+            delta = (g.float() * ref_out.float()).sum(dim=-1)
+            bargs = (*args, seed, g, ref_lse, delta)
+            dq = ra.rel_attention_bwd_dq(*bargs, **kw)
+            dkv = ra.rel_attention_bwd_dkv(*bargs, **kw)
+            same = (torch.equal(out, out2) and torch.equal(lse, lse2)
+                    and all(torch.equal(x, y) for x, y in zip(
+                        (*dq, *dkv), (*ra.rel_attention_bwd_dq(*bargs, **kw),
+                                      *ra.rel_attention_bwd_dkv(*bargs, **kw)))))
+            torch.cuda.synchronize()
+            check(same, f"attention kernels {name} B={b} T={t}: not bitwise repeatable")
+            plain = ra.rel_attention_bwd_plain(*bargs, **kw)
+            e_q = compare(f"rel_flash_attention_bwd_dq {name} B={b} T={t}", dq, plain[:2], tol)
+            e_kv = compare(f"rel_flash_attention_bwd_dkv {name} B={b} T={t}", dkv, plain[2:],
+                           tol)
+            # autograd differentiates the float32 output, where the kernels'
+            # delta reads the output rounded to the input dtype: give them
+            # the float32 delta for this comparison
+            out32, _ = ra.rel_attention_plain(*[x.float() for x in args[:5]], args[5],
+                                              seed=seed, **kw)
+            bargs32 = (*args, seed, g, ref_lse, (g.float() * out32).sum(dim=-1))
+            auto = _grads_by_autograd(args, seed, g, scale)
+            e_aq = compare(f"rel_flash_attention_bwd_dq {name} B={b} T={t} vs autograd",
+                           [x.to(dtype) for x in ra.rel_attention_bwd_dq(*bargs32, **kw)],
+                           auto[:2], tol)
+            e_akv = compare(f"rel_flash_attention_bwd_dkv {name} B={b} T={t} vs autograd",
+                            [x.to(dtype) for x in ra.rel_attention_bwd_dkv(*bargs32, **kw)],
+                            auto[2:], tol)
+            errs["rel_flash_attention"] = max(errs["rel_flash_attention"], e_f)
+            errs["rel_flash_attention_bwd_dq"] = max(errs["rel_flash_attention_bwd_dq"], e_q,
+                                                     e_aq)
+            errs["rel_flash_attention_bwd_dkv"] = max(errs["rel_flash_attention_bwd_dkv"],
+                                                      e_kv, e_akv)
+            print(f"kernels: attention training {name} B={b} T'={t}{' chunked' if chunk else ''}"
+                  f", dropout {ATTN_RATE}: max_abs_err fwd {e_f:.3g}, dq/dAB {e_q:.3g} "
+                  f"(autograd {e_aq:.3g}), dK/dV {e_kv:.3g} (autograd {e_akv:.3g}) "
+                  f"(tol {tol} abs + rel), bitwise repeatable {same}")
+        # the keep-mask, bit for bit, through the forward's output and dV
+        for (b, t) in (keep_shape, edge):
+            args, seed, g = attention_train_inputs(dev, dtype, gen, b, t, chunk=(b, t) == edge,
+                                                   identity=True)
+            out, lse = ra.rel_attention(*args, seed=seed, scale=scale, dropout_rate=ATTN_RATE)
+            delta = (g.float() * out.float()).sum(dim=-1)
+            _, d_v = ra.rel_attention_bwd_dkv(*args, seed, g, lse, delta, scale=scale,
+                                              dropout_rate=ATTN_RATE)
+            torch.cuda.synchronize()
+            mask = args[5][:, None, :, :].expand(b, 4, t, t)
+            want = ra.keep_mask(seed, b, 4, t, t, ATTN_RATE, dev) & mask
+            got_f = out[..., :t] != 0
+            got_v = d_v[..., :t].transpose(-1, -2) != 0
+            check(torch.equal(got_f, want) and torch.equal(got_v, want),
+                  f"attention keep-mask {name} B={b} T={t}: {int((got_f != want).sum())} "
+                  f"(forward) and {int((got_v != want).sum())} (dV) elements differ")
+            if dtype == torch.float32 and (b, t) == keep_shape:
+                kept, total = int(want.sum()), int(mask.sum())
+        print(f"kernels: attention keep-mask {name}: forward and dV equal the hash bit for bit")
+    share = kept / total
+    print(f"kernels: attention keep share {share:.5f} over {total} live probabilities "
+          f"(want {1 - ATTN_RATE} within 0.005)")
+    check(abs(share - (1 - ATTN_RATE)) <= 0.005, f"attention keep share {share}")
+
+    # --- times and bounds at the training shape, bf16 (the recipe's dtype)
+    b, t = big
+    args, seed, g = attention_train_inputs(dev, torch.bfloat16, gen, b, t)
+    q_u, ab, k, v, feats, mask = args
+    _, h, _, dk = q_u.shape
+    d = ab.shape[-1]
+    kw = dict(scale=scale, dropout_rate=ATTN_RATE)
+    out, lse = ra.rel_attention(*args, seed=seed, **kw)
+    delta = (g.float() * out.float()).sum(dim=-1)
+    bargs = (*args, seed, g, lse, delta)
+    dq = ra.rel_attention_bwd_dq(*bargs, **kw)
+    dkv = ra.rel_attention_bwd_dkv(*bargs, **kw)
+    live = float(mask.sum())            # the (query, key) pairs this run's data needs
+    rate = BF16_TFLOPS * 1e12
+    f_bound = bound_ms(nbytes(*args, seed, out, lse), 2.0 * h * live * (2 * dk + d) / rate)
+    # dq: scores (dk + D), dP (dk), dQu (dk), dAB (D); dkv: scores, dP, dK, dV
+    q_bound = bound_ms(nbytes(*args, seed, g, lse, delta, *dq),
+                       2.0 * h * live * (3 * dk + 2 * d) / rate)
+    kv_bound = bound_ms(nbytes(*args, seed, g, lse, delta, *dkv),
+                        2.0 * h * live * (4 * dk + d) / rate)
+    bias = (torch.matmul(ab.float(), feats.float().T) * scale).masked_fill(
+        ~mask[:, None], float("-inf")).to(torch.bfloat16)
+    # a fully masked row makes SDPA's softmax NaN: give it one key
+    bias[:, :, :, 0] = torch.where(mask.any(-1)[:, None], bias[:, :, :, 0], 0)
+    leaves = [x.detach().clone().requires_grad_() for x in (q_u, k, v, bias)]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *leaves[:3], attn_mask=leaves[3], dropout_p=ATTN_RATE, scale=scale)
+
+    with torch.no_grad():
+        lib_fwd = time_ms(sdpa)
+    sdpa_out = sdpa()
+    lib_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True))
+    plain_bwd = time_ms(lambda: ra.rel_attention_bwd_plain(*bargs, **kw))
+    specs = [
+        ("rel_flash_attention", "rel_flash_attention.cu", "attention_kernel.py:283",
+         lambda: ra.rel_attention(*args, seed=seed, **kw),
+         lambda: ra.rel_attention_plain(*args, seed=seed, **kw), lib_fwd, f_bound),
+        ("rel_flash_attention_bwd_dq", "rel_flash_attention_bwd.cu", "attention_kernel.py:396",
+         lambda: ra.rel_attention_bwd_dq(*bargs, **kw), None, lib_bwd, q_bound),
+        ("rel_flash_attention_bwd_dkv", "rel_flash_attention_bwd.cu",
+         "attention_kernel.py:436", lambda: ra.rel_attention_bwd_dkv(*bargs, **kw), None,
+         lib_bwd, kv_bound),
+    ]
+    entries = {}
+    for name, src, rep, kern, plain, lib, (bnd, by) in specs:
+        entries[name] = {
+            "name": name, "route": "cuda", "source": f"conformer_tpu_torch/csrc/{src}",
+            "replaces": f"conformer_tpu/ops/pallas/{rep}", "max_abs_err": errs[name],
+            "ms": time_ms(kern), "plain_ms": time_ms(plain) if plain else plain_bwd,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+        }
+        e = entries[name]
+        print(f"kernels: {name} bf16 B={b} T'={t} dropout {ATTN_RATE}: kernel {e['ms']:.4f} ms, "
+              f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms (SDPA "
+              f"{'forward' if plain else 'backward, dq and dkv together'}, bias precomputed), "
+              f"bound {bnd * 1e3:.2f} us ({by})")
+    return entries
+
+
 # -------------------------------------------------------- training kernels
 
 
@@ -304,11 +526,14 @@ def compare(name, got, want, tol=TOL["float32"]) -> float:
     return err
 
 
-def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (5, 37, 6, 37))) -> dict:
+def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002),
+                                        (5, 37, 6, 37))) -> dict:
     """The six training kernels against their plain versions in float32 at
-    the training shape (B=32, T'=374, U=64, V=5002) and at a tiny ragged
-    one, edge rows included; times, plain and library times and bounds at
-    the training shape. Returns the JSON entries without ``launches``."""
+    the training shape (B=32, T'=374, U=64, V=5002), at the recipe's
+    longest bucket with labels padded to ``max_label_len`` (B=4, T'=412,
+    U=200) and at a tiny ragged one, edge rows included; times, plain and
+    library times and bounds at the training shape. Returns the JSON
+    entries without ``launches``."""
     import torch
     import torch.nn.functional as F
 
@@ -425,16 +650,10 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (5, 37, 6, 37))) ->
 
 
 def synthetic_wav(seed: int, seconds: float, sr: int = 16000) -> np.ndarray:
-    """Seeded speech-like audio: harmonic tones whose pitch changes every
-    120 ms, amplitude-modulated, over low noise; float32 in [-1, 1]."""
-    rng = np.random.default_rng(seed)
-    n = int(seconds * sr)
-    t = np.arange(n) / sr
-    f0 = np.repeat(rng.uniform(90, 260, n // 1920 + 1), 1920)[:n]
-    phase = 2 * np.pi * np.cumsum(f0) / sr
-    wav = sum(rng.uniform(0.05, 0.2) * np.sin(k * phase) for k in (1, 2, 3, 5))
-    wav = wav * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t)) + 0.01 * rng.standard_normal(n)
-    return np.clip(wav, -1, 1).astype(np.float32)
+    """Seeded speech-like audio (``conformer_tpu_torch.data.synthetic``)."""
+    from conformer_tpu_torch.data.synthetic import synthetic_wav as make
+
+    return make(seed, seconds, sr)
 
 
 def wav_bytes(wav: np.ndarray, sr: int = 16000) -> bytes:
@@ -644,20 +863,54 @@ def decode_bf16_batch(runner, raw_params, device, batch=48, seconds=15.0) -> dic
 BAND_LIMITS = {"s_begin_diff_share": 0.02, "occupancy_max_abs_err": 2e-3, "flip_max_gap": 5e-4}
 
 # kernel launches per microbatch of the recipe's step: the simple lattice
-# once; the lattice DP twice (the occupancies and the simple NLL), each
-# with its backward; the CTC DP once
+# once (its backward one grid per chunk of u); the lattice DP twice (the
+# occupancies and the simple NLL), each with its backward; the CTC DP once;
+# with the attention flag on, the attention kernels once per encoder layer
+# (forward, dq, dkv). The conv kernel runs only in deterministic forwards
+# (validation), one launch per layer and batch.
 PER_MICROBATCH = {"simple_lattice_fwd": 1, "simple_lattice_bwd": 1, "rnnt_lattice_fwd": 2,
                   "rnnt_lattice_bwd": 2, "ctc_dp_fwd": 1, "ctc_dp_bwd": 1}
+ATTENTION_KERNELS = ("rel_flash_attention", "rel_flash_attention_bwd_dq",
+                     "rel_flash_attention_bwd_dkv")
 
 
-def training_wrappers() -> dict:
+def simple_lattice_bwd_grids(u1: int) -> int:
+    """Grids of one ``simple_lattice_bwd`` call at U+1 = ``u1``: 8 u rows
+    per warp, at most 12 warps per block (``csrc/simple_lattice.cu``)."""
+    need = -(-u1 // 8)
+    return -(-need // 12)
+
+
+def per_microbatch(layers: int, attention: bool, labels: int) -> dict:
+    """Launches per microbatch of ``labels`` (padded) labels per row."""
+    return {**dict.fromkeys(ATTENTION_KERNELS, layers if attention else 0), "conv_block": 0,
+            **PER_MICROBATCH, "simple_lattice_bwd": simple_lattice_bwd_grids(labels + 1)}
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by the name in the kernels line."""
     from conformer_tpu_torch.ops import ctc_dp, rnnt_lattice, simple_lattice
+    from conformer_tpu_torch.ops import rel_attention as ra
+    from conformer_tpu_torch.ops.conv_block import conv_block
 
-    return {"simple_lattice_fwd": simple_lattice.simple_lattice_fwd,
+    return {"rel_flash_attention": ra.rel_attention,
+            "rel_flash_attention_bwd_dq": ra.rel_attention_bwd_dq,
+            "rel_flash_attention_bwd_dkv": ra.rel_attention_bwd_dkv,
+            "conv_block": conv_block,
+            "simple_lattice_fwd": simple_lattice.simple_lattice_fwd,
             "simple_lattice_bwd": simple_lattice.simple_lattice_bwd,
             "rnnt_lattice_fwd": rnnt_lattice.rnnt_lattice_fwd,
             "rnnt_lattice_bwd": rnnt_lattice.rnnt_lattice_bwd,
             "ctc_dp_fwd": ctc_dp.ctc_dp_fwd, "ctc_dp_bwd": ctc_dp.ctc_dp_bwd}
+
+
+def launch_counts() -> dict:
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
 
 
 def random_batch(cfg, seed: int, batch: int, seconds: float, labels: int = 64,
@@ -687,7 +940,6 @@ def train_steps(trainer, steps: int = 3, batch: int = 32, seconds: float = 15.0)
     accum = cfg.train.accum_grad
     data = [[random_batch(cfg, 1000 * s + i, batch, seconds) for i in range(accum)]
             for s in range(steps + 1)]
-    wrappers = training_wrappers()
 
     def one(mbs):
         before = {k: v.detach().clone() for k, v in leaf_paths(trainer.params)}
@@ -708,13 +960,14 @@ def train_steps(trainer, steps: int = 3, batch: int = 32, seconds: float = 15.0)
         return res
 
     warm = one(data[0])
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launch_counts()
     timed = [one(mbs) for mbs in data[1:]]
-    launches = {k: w.launches for k, w in wrappers.items()}
-    for k, n in launches.items():
-        want = PER_MICROBATCH[k] * accum * steps
-        check(n == want, f"{k} launched {n} times in {steps} steps, expected {want}")
+    launches = launch_counts()
+    for k, n in per_microbatch(cfg.model.encoder_num_layers, cfg.model.use_pallas_attention,
+                               labels=64).items():
+        want = n * accum * steps
+        check(launches[k] == want, f"{k} launched {launches[k]} times in {steps} steps, "
+              f"expected {want}")
     step_s = sum(r["step_s"] for r in timed) / steps
     return {"warmup": warm, "steps": timed, "launches": launches, "step_s": step_s,
             "audio_s_per_s": accum * batch * seconds / step_s,
@@ -736,7 +989,8 @@ def band_hook(hook):
 
 
 def train_parity(trainer, batch: int = 8, seconds: float = 15.0) -> dict:
-    """Float32 kernel path vs plain path on one deterministic microbatch of
+    """Float32 kernel path (the trainer's kernel flags and the attention
+    kernel) vs plain path on one deterministic microbatch of
     ragged lengths. The band starts of the two paths are compared, and the
     occupancies' argmax over u where they differ; then the plain path is
     run again on the kernel path's band, so that loss terms and gradients
@@ -748,7 +1002,8 @@ def train_parity(trainer, batch: int = 8, seconds: float = 15.0) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg_k = dataclasses.replace(trainer.cfg.model, compute_dtype="float32")
+    cfg_k = dataclasses.replace(trainer.cfg.model, compute_dtype="float32",
+                                use_pallas_attention=True)
     cfg_p = plain_model_config(cfg_k)
     frames = [int(seconds * 100 * f) for f in np.linspace(1.0, 0.55, batch)]
     mb = random_batch(trainer.cfg, 77, batch, seconds, feat_frames=frames)
@@ -799,6 +1054,125 @@ def train_parity(trainer, batch: int = 8, seconds: float = 15.0) -> dict:
             "finite": all(bool(torch.isfinite(g).all()) for g in g_k.values())}
 
 
+# --------------------------------------------------------------------- fit
+
+FIT_DIR = os.path.join(REPO, "build", "chip_smoke_fit")   # build/ is git-ignored
+FIT_TRAIN, FIT_DEV = 40, 8          # synthetic utterances of 2-15 s
+FIT_STEPS, FIT_RESUME_TO = 4, 6
+
+
+def fit_phase() -> dict:
+    """The user's training command on a synthetic corpus from a seed:
+    ``conformer_tpu_torch.main.main`` with ``--train`` on
+    configs/conformer_m.json at full width (attention and conv kernel flags
+    on; the recipe's dither, speed perturbation, SpecAugment, bucket
+    batching, dropout 0.1 and accum_grad 2 as they stand), validating every
+    ``FIT_STEPS // 2`` steps; the launch counts are set to 0 just before it
+    and read just after. Then ``--resume_from last`` to ``FIT_RESUME_TO``
+    steps and ``--eval``; then a new trainer restores the last checkpoint,
+    to be compared with the file."""
+    import torch
+
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.data.synthetic import write_corpus
+    from conformer_tpu_torch.main import main as port_main
+    from conformer_tpu_torch.train import checkpoint as ckpt_mod
+    from conformer_tpu_torch.train.loop import Trainer
+    from conformer_tpu_torch.train.optimizer import leaf_paths
+
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    corpus = write_corpus(os.path.join(FIT_DIR, "corpus"), seed=0, n_train=FIT_TRAIN,
+                          n_dev=FIT_DEV)
+    corpus_s = time.perf_counter() - t0
+    ckpt = os.path.join(FIT_DIR, "ckpt")
+    config = os.path.join(REPO, "configs", "conformer_m.json")
+    sets = ["model.use_pallas_attention=true", "model.use_pallas_conv=true",
+            f"train.val_check_interval={FIT_STEPS // 2}", "train.log_every=1",
+            f"train.checkpoint_dir={ckpt}", f"data.train_data_list_path={corpus['train']}",
+            f"data.dev_data_list_path={corpus['dev']}",
+            f"data.test_data_list_path={corpus['dev']}", f"data.vocab_path={corpus['vocab']}",
+            "data.bpe_model=null", "data.cmvn_path="]
+    base = ["--config", config, "--set", *sets]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    port_main(["--train", *base, f"train.max_steps={FIT_STEPS}"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts()
+    first = {"names": sorted(os.listdir(ckpt)), "last": open(os.path.join(ckpt, "last")).read()}
+    port_main(["--train", *base, f"train.max_steps={FIT_RESUME_TO}", "--resume_from", "last"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        port_main(["--eval", "--resume", "--resume_from", "last", *base])
+    print(out.getvalue().strip())
+    cfg = Config.from_json_file(config).apply_overrides(sets)
+    trainer = Trainer(cfg, device="cuda")
+    trainer.restore("last")
+    saved = ckpt_mod.restore_checkpoint(ckpt_mod.latest_checkpoint(ckpt), trainer.device)
+    want = dict(leaf_paths(saved["params"]))
+    restored = {"step": trainer.step, "saved_step": saved["step"],
+                "params_equal": all(torch.equal(v, want[k]) for k, v in leaf_paths(trainer.params))}
+    records = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
+    eval_wer = [float(line.split()[-1]) for line in out.getvalue().splitlines()
+                if line.startswith("WER:")]
+    result = {"cfg": cfg, "corpus_s": corpus_s, "fit_s": fit_s, "launches": launches,
+              "first": first, "records": records, "eval_wer": eval_wer, "restored": restored,
+              "names": sorted(os.listdir(ckpt)), "last": open(os.path.join(ckpt, "last")).read(),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    del trainer
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    return result
+
+
+def validation_batches(cfg) -> int:
+    """Batches decoded in the fit phase's first run: the sanity check's,
+    then a whole dev set at every ``val_check_interval`` steps."""
+    from conformer_tpu_torch.data.dataset import eval_config
+
+    per_set = -(-FIT_DEV // eval_config(cfg.data).batch_size)
+    return (min(cfg.train.num_sanity_val_steps, per_set)
+            + FIT_STEPS // cfg.train.val_check_interval * per_set)
+
+
+def check_fit(fit: dict) -> None:
+    cfg = fit["cfg"]
+    layers, accum = cfg.model.encoder_num_layers, cfg.train.accum_grad
+    train = [r for r in fit["records"] if "train_loss" in r]
+    valid = [r for r in fit["records"] if "valid_wer" in r]
+    steps = [r["step"] for r in train]
+    check(steps == list(range(1, FIT_RESUME_TO + 1)),
+          f"metrics.jsonl holds steps {steps} (the resume must go on at {FIT_STEPS + 1})")
+    for r in train:
+        check(np.isfinite(r["train_loss"]) and np.isfinite(r["train_grad_norm"]),
+              f"fit step {r['step']}: loss {r['train_loss']}, grad norm {r['train_grad_norm']}")
+    vals = [r["step"] for r in valid]
+    interval = cfg.train.val_check_interval
+    check(vals == list(range(interval, FIT_RESUME_TO + 1, interval))
+          and all(np.isfinite(r["valid_wer"]) for r in valid),
+          f"validations {[(r['step'], r['valid_wer']) for r in valid]}")
+    # the first run: FIT_STEPS steps of accum microbatches, and the
+    # validations' deterministic encoders (attention forward and conv)
+    n_val = validation_batches(cfg)
+    want = {k: n * accum * FIT_STEPS for k, n in
+            per_microbatch(layers, True, cfg.data.max_label_len).items()}
+    want["rel_flash_attention"] += layers * n_val
+    want["conv_block"] += layers * n_val
+    check(fit["launches"] == want, f"fit launches {fit['launches']}, expected {want}")
+    names = fit["first"]["names"]
+    for prefix in (f"step_{FIT_STEPS // 2}-wer_", f"step_{FIT_STEPS}-wer_"):
+        check(any(n.startswith(prefix) for n in names), f"no checkpoint {prefix}* in {names}")
+    check(f"step_{FIT_STEPS}" in names and fit["first"]["last"] == f"step_{FIT_STEPS}",
+          f"checkpoints {names}, last -> {fit['first']['last']}")
+    check(fit["last"] == f"step_{FIT_RESUME_TO}", f"after the resume last -> {fit['last']}")
+    r = fit["restored"]
+    check(r["params_equal"] and r["step"] == r["saved_step"] == FIT_RESUME_TO,
+          f"restore of the last checkpoint: {r}")
+    check(len(fit["eval_wer"]) == 1 and np.isfinite(fit["eval_wer"][0]),
+          f"--eval printed {fit['eval_wer']}")
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -814,8 +1188,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from conformer_tpu_torch.ops import cuda_build
-    from conformer_tpu_torch.ops.conv_block import conv_block
-    from conformer_tpu_torch.ops.rel_attention import rel_attention
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -841,6 +1213,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     entries = check_kernels(dev)
+    decode_attention = entries.pop("rel_flash_attention")
+    entries.update(check_attention_train_kernels(dev))
+    entries["rel_flash_attention"]["max_abs_err"] = max(
+        entries["rel_flash_attention"]["max_abs_err"], decode_attention["max_abs_err"])
     entries.update(check_training_kernels(dev))
 
     # 4. serve: the main path, counts set to 0 just before each request
@@ -848,7 +1224,6 @@ def main() -> int:
     runner, raw_params = make_runner(cfg, dev)
     layers = cfg.model.encoder_num_layers
     results = serve_requests(runner)
-    launches = {"rel_flash_attention": 0, "conv_block": 0}
     for r in results:
         resp = r["response"]
         n_tok = len(resp.get("message", "").split())
@@ -857,9 +1232,6 @@ def main() -> int:
         check(resp["status"] == "success", f"request failed: {resp.get('message')}")
         for name, n in r["launches"].items():
             check(n == layers, f"{name} launched {n} times in a request, expected {layers}")
-            launches[name] += n
-    for name, n in launches.items():
-        entries[name]["launches"] = n
 
     # 5. parity: the served weights, and the unbiased ones, whose
     # hypotheses are long enough to make "identical" a real check
@@ -880,10 +1252,13 @@ def main() -> int:
         print(f"parity: bf16 kernel path vs plain path, {name} weights: {same}/{bat['batch']} "
               f"rows identical, token agreement {agree:.4f} over {n_ref} tokens")
 
-    # 6. train: the main path of the training kernels, counts set to 0 just
-    # before the timed steps (inside train_steps) and read just after
+    # 6. train: the shipped recipe (loss kernel flags on, attention flag
+    # off), counts set to 0 just before the timed steps (inside train_steps)
+    # and read just after; then the f32 parity with the attention kernel on
     from conformer_tpu_torch.train.loop import Trainer
 
+    del runner, raw_params
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tcfg = recipe_config(os.path.join(REPO, "configs", "conformer_m.json"))
     trainer = Trainer(tcfg, device=dev)
@@ -896,8 +1271,6 @@ def main() -> int:
     print(f"train: B=32 x 15 s, accum_grad {tcfg.train.accum_grad}: {tr['step_s'] * 1e3:.1f} ms "
           f"per step, {tr['audio_s_per_s']:.1f} training audio-s/s, peak memory "
           f"{tr['peak_mem_gb']:.2f} GiB, launches in 3 steps {tr['launches']}")
-    for name, n in tr["launches"].items():
-        entries[name]["launches"] = n
     par = train_parity(trainer)
     worst = ", ".join(f"{k} {e:.3g}" for k, e in par["grad_worst_leaves"])
     print(f"train parity: f32 kernel path vs plain path, B=8 x 15 s: losses {par['losses']}, "
@@ -915,8 +1288,40 @@ def main() -> int:
           "the kernel path's pruning band differs from the plain path's beyond its limits")
     check(par["finite"] and par["loss_max_rel_err"] <= 1e-4 and par["grad_max_rel_err"] <= 1e-3,
           "f32 training kernel path disagrees with the plain path")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 7. fit: the main path of this slice, through the user's entry point;
+    # counts set to 0 just before the first training run and read just after
+    fit = fit_phase()
+    check_fit(fit)
+    train_recs = [r for r in fit["records"] if "train_loss" in r]
+    for r in fit["records"]:
+        if "valid_wer" in r:
+            print(f"fit: validation at step {r['step']}: WER {r['valid_wer']:.4f}")
+        else:
+            print(f"fit: step {r['step']}: {r['train_step_s'] * 1e3:.1f} ms, "
+                  f"{r['train_audio_s']:.1f} audio s, loss {r['train_loss']:.4f} (ctc "
+                  f"{r['train_loss_ctc']:.4f}, rnnt {r['train_loss_rnnt']:.4f}), grad norm "
+                  f"{r['train_grad_norm']:.4g}, lr {r['train_lr']:.4g}")
+    step_s = sum(r["train_step_s"] for r in train_recs)
+    wait_s = sum(r["train_data_wait_s"] for r in train_recs)
+    audio_s = sum(r["train_audio_s"] for r in train_recs)
+    # functional readings of a 40-utterance corpus, not a throughput
+    # measure: each epoch's first batch waits for all its features
+    print(f"fit: corpus {fit['corpus_s']:.1f} s; first run {fit['fit_s']:.1f} s; over "
+          f"{len(train_recs)} steps: {step_s / len(train_recs) * 1e3:.1f} ms per step, "
+          f"{audio_s / step_s:.1f} training audio-s/s, waiting on the prefetcher "
+          f"{wait_s / (wait_s + step_s):.1%} of the loop's step + wait time; peak memory "
+          f"{fit['peak_mem_gb']:.2f} GiB; checkpoints {fit['names']}; eval WER "
+          f"{fit['eval_wer'][0]:.4f}; restore {fit['restored']}; "
+          f"{validation_batches(fit['cfg'])} validation batches and launches in the first "
+          f"run {fit['launches']}")
+    for name, n in fit["launches"].items():
+        entries[name]["launches"] = n
+
     print(f"total: {time.perf_counter() - t_start:.1f} s")
-    order = ["rel_flash_attention", "conv_block", *PER_MICROBATCH]
+    order = [*ATTENTION_KERNELS, "conv_block", *PER_MICROBATCH]
     print(json.dumps({"kernels": [entries[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,14 @@
 
 An own copy of the JAX package's ``config.py`` (the port imports nothing of
 ``conformer_tpu``): the same fields and defaults, so both packages read the
-same ``configs/*.json``. Fields the port does not use yet (training, the
-other decode modes) are kept so a config round-trips unchanged.
+same ``configs/*.json`` and take the same ``--set`` overrides. Fields the
+port does not use yet (the other decode modes, the mesh) are kept so a
+config round-trips unchanged.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from dataclasses import dataclass, field, fields
 from typing import Any, Sequence
@@ -34,8 +36,10 @@ class ModelConfig:
     max_len: int = 5000
     use_relative: bool = True
     rel_mode: str = "skew"
-    # Hand-written CUDA kernels (ops/rel_attention.py, ops/conv_block.py)
-    # for the inference forward; off means the plain PyTorch modules.
+    # Hand-written CUDA kernels: attention (ops/rel_attention.py; forward,
+    # dropout and backward, so training too) and the conv block
+    # (ops/conv_block.py; deterministic forwards only); off means the plain
+    # PyTorch modules.
     use_pallas_attention: bool = False
     use_pallas_conv: bool = False
     conv_norm: str = "layer_norm"
@@ -184,6 +188,9 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
 
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=list)
+
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Config":
         def build(tp, sub):
@@ -201,3 +208,27 @@ class Config:
     def from_json_file(cls, path: str) -> "Config":
         with open(path) as f:
             return cls.from_dict(json.load(f))
+
+    def apply_overrides(self, overrides: Sequence[str]) -> "Config":
+        """A new config with dotted ``section.key=value`` overrides applied,
+        each value parsed by the type of the field's current value (bools
+        from 1/true/yes, lists as JSON, ``null`` for None)."""
+        d = dataclasses.asdict(self)
+        for ov in overrides:
+            key, _, raw = ov.partition("=")
+            section, _, name = key.partition(".")
+            if section not in d or name not in d[section]:
+                raise KeyError(f"unknown config override: {ov!r}")
+            cur = d[section][name]
+            if isinstance(cur, bool):
+                val: Any = raw.lower() in ("1", "true", "yes")
+            elif isinstance(cur, int):
+                val = int(raw)
+            elif isinstance(cur, float):
+                val = float(raw)
+            elif isinstance(cur, (list, tuple)):
+                val = json.loads(raw)
+            else:
+                val = None if raw == "null" else raw
+            d[section][name] = val
+        return Config.from_dict(d)

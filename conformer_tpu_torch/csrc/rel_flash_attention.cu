@@ -3,13 +3,17 @@
 // Replaces the Pallas TPU kernel conformer_tpu/ops/pallas/attention_kernel.py
 // (_attn_fwd_kernel, _fwd_impl). Computes per (batch, head)
 //
-//   out = softmax(((q+u) K^T + AB F^T) * scale, mask) V,   lse = log-sum-exp
+//   out = dropout(softmax(((q+u) K^T + AB F^T) * scale, mask)) V,   lse
 //
 // where AB [B,H,Tq,D] and F [Tk,D] are the factorised relative-position
 // bias (D = d_model, four times dk at Conformer-M). Semantics kept from the
-// TPU kernel: masked scores are -1e30; the normaliser comes from the
-// un-dropped probabilities; a fully masked row gives out = 0, lse = 1e30.
-// No dropout (inference); the backward comes with the training slice.
+// TPU kernel: masked scores are -1e30; the normaliser and the lse come from
+// the un-dropped probabilities, and only the PV sum sees p * keep / (1 -
+// rate); a fully masked row gives out = 0, lse = 1e30. The keep-mask is the
+// counter hash of rel_attention_common.cuh on global (row, column), seeded
+// from a one-element int32 tensor read on the device; at rate 0 the hash is
+// not evaluated and the result is that of the kernel without dropout. The
+// backward is rel_flash_attention_bwd.cu.
 //
 // Bound: at the decode shape (B=48, H=4, T=374, dk=64, D=256, bf16) the
 // inputs and outputs move about 81 MB (AB alone 37 MB) and the three
@@ -26,26 +30,15 @@
 // of queries and keys is masked in the block instead of padded copies.
 // Tensor-core MMA, TMA and warp specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rel_attention_common.cuh"
 
 namespace {
+
+using namespace rel_attn;
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
-constexpr float NEG_INF = -1e30f;
-constexpr float LSE_BIG = 1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // reduce over the 16 lanes that share a query row (one half-warp)
 __device__ __forceinline__ float row_max16(float x) {
@@ -63,8 +56,9 @@ template <typename T>
 __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
     const T* __restrict__ qu, const T* __restrict__ ab, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ feats,
-    const uint8_t* __restrict__ mask, T* __restrict__ out, float* __restrict__ lse,
-    int H, int Tq, int Tk, int dk, int D, float scale) {
+    const uint8_t* __restrict__ mask, const int* __restrict__ seed, T* __restrict__ out,
+    float* __restrict__ lse, int H, int Tq, int Tk, int dk, int D, float scale, int drop,
+    uint32_t thr, float inv_keep) {
   extern __shared__ float smem[];
   const int dkp = dk + 1, Dp = D + 1, BKp = BK + 1;  // +1: no bank conflicts
   float* sQ = smem;               // [BQ][dkp]
@@ -82,6 +76,7 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
   const T* kg = k + bh * Tk * dk;
   const T* vg = v + bh * Tk * dk;
   const uint8_t* mg = mask + (size_t)b * Tq * Tk;
+  const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
 
   for (int e = tid; e < BQ * dk; e += NT) {
     const int r = e / dk, c = e - r * dk, i = q0 + r;
@@ -167,7 +162,12 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
       for (int c = 0; c < 4; ++c) {
         const float p = ok[c] ? expf(s[r][c] - m_new) : 0.f;
         rs += p;
-        sP[(ty + 16 * r) * BKp + tx + 16 * c] = p;
+        float pd = p;
+        if (drop)
+          pd = keep_prob(sd, (uint32_t)bh, (uint32_t)i, (uint32_t)(k0 + tx + 16 * c), thr)
+                   ? p * inv_keep
+                   : 0.f;
+        sP[(ty + 16 * r) * BKp + tx + 16 * c] = pd;
       }
       l[r] = l[r] * corr + row_sum16(rs);
       m[r] = m_new;
@@ -210,9 +210,9 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
 
 template <typename T>
 cudaError_t launch(const void* qu, const void* ab, const void* k, const void* v,
-                   const void* feats, const void* mask, void* out, void* lse,
-                   cudaStream_t stream, int B, int H, int Tq, int Tk, int dk, int D,
-                   float scale) {
+                   const void* feats, const void* mask, const void* seed, void* out,
+                   void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
+                   int D, float scale, int drop, uint32_t thr, float inv_keep) {
   const size_t smem =
       sizeof(float) * ((size_t)BQ * (dk + 1) + (size_t)BQ * (D + 1) +
                        2 * (size_t)BK * (dk + 1) + (size_t)BK * (D + 1) +
@@ -224,26 +224,30 @@ cudaError_t launch(const void* qu, const void* ab, const void* k, const void* v,
   rel_flash_fwd_kernel<T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(qu), static_cast<const T*>(ab), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(feats),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out),
-      static_cast<float*>(lse), H, Tq, Tk, dk, D, scale);
+      static_cast<const uint8_t*>(mask), static_cast<const int*>(seed), static_cast<T*>(out),
+      static_cast<float*>(lse), H, Tq, Tk, dk, D, scale, drop, thr, inv_keep);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q_u, k, v [B,H,Tq|Tk,dk]; ab [B,H,Tq,D]; feats [Tk,D]; mask uint8 [B,Tq,Tk];
+// seed int32 [1] (read only when drop != 0; may be null otherwise);
 // out [B,H,Tq,dk] (input dtype); lse float32 [B,H,Tq]. All contiguous.
+// thr_bits is the uint32 keep threshold's bit pattern, inv_keep 1/(1-rate).
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int rel_flash_attention_fwd(const void* qu, const void* ab, const void* k,
                                        const void* v, const void* feats,
-                                       const void* mask, void* out, void* lse,
-                                       void* stream, int B, int H, int Tq, int Tk,
-                                       int dk, int D, int is_bf16, float scale) {
+                                       const void* mask, const void* seed, void* out,
+                                       void* lse, void* stream, int B, int H, int Tq,
+                                       int Tk, int dk, int D, int is_bf16, int drop,
+                                       int thr_bits, float scale, float inv_keep) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t thr = static_cast<uint32_t>(thr_bits);
   cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(qu, ab, k, v, feats, mask, out, lse, s, B, H, Tq,
-                                      Tk, dk, D, scale)
-              : launch<float>(qu, ab, k, v, feats, mask, out, lse, s, B, H, Tq, Tk, dk,
-                              D, scale);
+      is_bf16 ? launch<__nv_bfloat16>(qu, ab, k, v, feats, mask, seed, out, lse, s, B, H,
+                                      Tq, Tk, dk, D, scale, drop, thr, inv_keep)
+              : launch<float>(qu, ab, k, v, feats, mask, seed, out, lse, s, B, H, Tq, Tk,
+                              dk, D, scale, drop, thr, inv_keep);
   return static_cast<int>(err);
 }

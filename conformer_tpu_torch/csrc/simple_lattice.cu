@@ -41,12 +41,17 @@
 //
 // Backward design: one block per (b, tile of 64 v) loops over every t, so
 // both sums are complete inside the block and nothing needs atomics (the
-// result is deterministic): warp w owns u rows [8w, 8w+8), lane l the
-// columns v0+l and v0+32+l. lm's values for the block's (u, v) stay in
+// result is deterministic): warp w owns u rows [u0+8w, u0+8w+8), lane l
+// the columns v0+l and v0+32+l. lm's values for the block's (u, v) stay in
 // registers, as does the d lm accumulator; per t the per-(t,u) constants
 // (logZ, g_b, g_e) are one broadcast float4 read from shared memory, and
 // d am[t, v] is the sum of the warps' partial sums over their u rows,
-// reduced through shared memory per tile of 8 t rows. U+1 <= 256.
+// reduced through shared memory per tile of 8 t rows. A block has at most
+// 12 warps: up to U+1 = 96 one launch covers u; above, one launch per
+// equal chunk of u (three at the recipe's 200 padded labels), each adding
+// its d am to the previous chunk's, in stream order. U+1 <= 256. (One warp
+// per 8 rows of all of u asked 832 threads at U+1 = 201, more registers
+// than an SM has: the launch was refused.)
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -179,15 +184,17 @@ constexpr int BWD_UPW = 8;               // u rows per warp
 constexpr int BWD_RV = 2;                // v columns per lane
 constexpr int BWD_VT = 32 * BWD_RV;      // v columns per block
 constexpr int BWD_TT = 8;                // t rows per staged tile
+constexpr int BWD_MAXW = 12;             // warps per block at most
 
-__global__ void simple_lattice_bwd_kernel(const float* __restrict__ am,
-                                          const float* __restrict__ lm,
-                                          const int* __restrict__ lab,
-                                          const float* __restrict__ logz,
-                                          const float* __restrict__ gb,
-                                          const float* __restrict__ ge, float* __restrict__ dam,
-                                          float* __restrict__ dlm, int T, int U1, int V,
-                                          int blank) {
+// rows u0 .. u0 + 8 * warps of u; kAccumulate adds d am to the previous
+// chunk's instead of writing it
+template <bool kAccumulate>
+__global__ void __launch_bounds__(BWD_MAXW * 32)
+simple_lattice_bwd_kernel(const float* __restrict__ am, const float* __restrict__ lm,
+                          const int* __restrict__ lab, const float* __restrict__ logz,
+                          const float* __restrict__ gb, const float* __restrict__ ge,
+                          float* __restrict__ dam, float* __restrict__ dlm, int T, int U1,
+                          int V, int blank, int u0) {
   extern __shared__ float4 smem4[];
   const int nw = blockDim.x / 32;
   const int up = nw * BWD_UPW;
@@ -206,7 +213,7 @@ __global__ void simple_lattice_bwd_kernel(const float* __restrict__ am,
   for (int j = 0; j < BWD_RV; ++j) mb[j] = (v0 + lane + 32 * j == blank) ? 1.f : 0.f;
 #pragma unroll
   for (int q = 0; q < BWD_UPW; ++q) {
-    const int u = w * BWD_UPW + q;
+    const int u = u0 + w * BWD_UPW + q;
     const int lb = u < U1 ? lab[(size_t)b * U1 + u] : -1;
 #pragma unroll
     for (int j = 0; j < BWD_RV; ++j) {
@@ -220,7 +227,7 @@ __global__ void simple_lattice_bwd_kernel(const float* __restrict__ am,
 
   for (int t0 = 0; t0 < T; t0 += BWD_TT) {
     for (int i = tid; i < BWD_TT * up; i += blockDim.x) {
-      const int r = i / up, u = i % up, t = t0 + r;
+      const int r = i / up, u = u0 + i % up, t = t0 + r;
       float4 c = make_float4(0.f, 0.f, 0.f, 0.f);
       if (t < T && u < U1) {
         const size_t o = lat0 + (size_t)t * U1 + u;
@@ -262,14 +269,18 @@ __global__ void simple_lattice_bwd_kernel(const float* __restrict__ am,
       if (t < T && v < V) {
         float sum = 0.f;
         for (int k = 0; k < nw; ++k) sum += part[(k * BWD_TT + r) * BWD_VT + c];
-        dam[(size_t)b * T * V + (size_t)t * V + v] = sum;
+        float* d = dam + (size_t)b * T * V + (size_t)t * V + v;
+        if (kAccumulate)
+          *d += sum;
+        else
+          *d = sum;
       }
     }
     __syncthreads();
   }
 #pragma unroll
   for (int q = 0; q < BWD_UPW; ++q) {
-    const int u = w * BWD_UPW + q;
+    const int u = u0 + w * BWD_UPW + q;
     if (u >= U1) continue;
 #pragma unroll
     for (int j = 0; j < BWD_RV; ++j) {
@@ -307,25 +318,50 @@ extern "C" int simple_lattice_fwd(const void* am, const void* lm, const void* la
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int simple_lattice_bwd(const void* am, const void* lm, const void* lab,
-                                  const void* logz, const void* gb, const void* ge, void* dam,
-                                  void* dlm, void* stream, int B, int T, int U1, int V,
-                                  int blank) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nw = (U1 + BWD_UPW - 1) / BWD_UPW;
+namespace {
+
+template <bool kAccumulate>
+cudaError_t launch_bwd(const void* am, const void* lm, const void* lab, const void* logz,
+                       const void* gb, const void* ge, void* dam, void* dlm, cudaStream_t st,
+                       int B, int T, int U1, int V, int blank, int nw, int u0) {
   const size_t smem = sizeof(float4) * BWD_TT * nw * BWD_UPW +
                       sizeof(float) * BWD_TT * BWD_VT * (1 + nw);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(simple_lattice_bwd_kernel,
+    cudaError_t e = cudaFuncSetAttribute(simple_lattice_bwd_kernel<kAccumulate>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) return e;
   }
   dim3 grid((V + BWD_VT - 1) / BWD_VT, B);
-  simple_lattice_bwd_kernel<<<grid, nw * 32, smem, st>>>(
+  simple_lattice_bwd_kernel<kAccumulate><<<grid, nw * 32, smem, st>>>(
       static_cast<const float*>(am), static_cast<const float*>(lm), static_cast<const int*>(lab),
       static_cast<const float*>(logz), static_cast<const float*>(gb),
       static_cast<const float*>(ge), static_cast<float*>(dam), static_cast<float*>(dlm), T, U1,
-      V, blank);
-  return static_cast<int>(cudaGetLastError());
+      V, blank, u0);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// *grids: the number of grids launched (one per chunk of u).
+extern "C" int simple_lattice_bwd(const void* am, const void* lm, const void* lab,
+                                  const void* logz, const void* gb, const void* ge, void* dam,
+                                  void* dlm, void* grids, void* stream, int B, int T, int U1,
+                                  int V, int blank) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int need = (U1 + BWD_UPW - 1) / BWD_UPW;          // warps for every u row
+  const int chunks = (need + BWD_MAXW - 1) / BWD_MAXW;
+  const int nw = (need + chunks - 1) / chunks;
+  int* launched = static_cast<int*>(grids);
+  for (int c = 0; c < chunks; ++c) {
+    *launched = c;
+    const int u0 = c * nw * BWD_UPW;
+    cudaError_t e = c == 0 ? launch_bwd<false>(am, lm, lab, logz, gb, ge, dam, dlm, st, B, T,
+                                               U1, V, blank, nw, u0)
+                           : launch_bwd<true>(am, lm, lab, logz, gb, ge, dam, dlm, st, B, T,
+                                              U1, V, blank, nw, u0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  *launched = chunks;
+  return 0;
 }

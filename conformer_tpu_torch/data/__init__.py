@@ -1,1 +1,1 @@
-"""Host-side audio IO."""
+"""Host-side data: audio IO, tokenizer, pipeline stages, dataset, prefetch."""

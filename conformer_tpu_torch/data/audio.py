@@ -1,6 +1,7 @@
-"""Audio IO and resampling on the host, in NumPy and SciPy (the port's own
-copy of the JAX package's ``data/audio.py``). Audio is float32 in [-1, 1];
-fbank callers scale by 2**15. WAV only: other formats raise.
+"""Audio IO, resampling and speed perturbation on the host, in NumPy and
+SciPy (the port's own copy of the JAX package's ``data/audio.py``). Audio
+is float32 in [-1, 1]; fbank callers scale by 2**15. WAV only: other
+formats raise.
 """
 
 from __future__ import annotations
@@ -63,4 +64,14 @@ def resample(waveform: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
         return waveform
     frac = Fraction(new_sr, orig_sr)
     out = resample_poly(waveform.astype(np.float64), frac.numerator, frac.denominator)
+    return out.astype(np.float32)
+
+
+def speed_perturb(waveform: np.ndarray, sample_rate: int, speed: float) -> np.ndarray:
+    """sox-style ``speed`` (tempo and pitch): resample by 1/speed, then read
+    the result at the original rate."""
+    if speed == 1.0:
+        return waveform
+    frac = Fraction(speed).limit_denominator(100)
+    out = resample_poly(waveform.astype(np.float64), frac.denominator, frac.numerator)
     return out.astype(np.float32)

@@ -1,0 +1,90 @@
+"""Command line of the port: train and evaluate (JAX ``main.py``).
+
+    python -m conformer_tpu_torch.main --config configs/conformer_m.json --train \
+        --set train.checkpoint_dir=experiments/run1
+
+    python -m conformer_tpu_torch.main --config ... --eval --resume --resume_from last
+
+Runs on the card; ``--device cpu`` takes the CPU instead (the port's
+counterpart of ``JAX_PLATFORMS=cpu``). One process: the multi-host flags
+and the WeNet checkpoint import are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+
+from .config import Config
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="conformer_tpu_torch",
+        description="Conformer CTC/RNN-T ASR on PyTorch and CUDA",
+    )
+    ap.add_argument("--config", type=str, default=None, help="JSON config file")
+    ap.add_argument("--set", nargs="*", default=[], metavar="SECTION.KEY=VALUE",
+                    help="dotted config overrides")
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--eval", action="store_true")
+    ap.add_argument("--streaming_eval", action="store_true")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--resume_from", type=str, default=None)
+    ap.add_argument("--wenet_ckpt_path", type=str, default=None)
+    ap.add_argument("--wandb", action="store_true")
+    ap.add_argument("--print_config", action="store_true")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="torch device; cuda (the default) raises without a card")
+    ap.add_argument("--coordinator", type=str, default=None)
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
+    return ap
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_argparser().parse_args(argv)
+    if args.coordinator or args.num_processes is not None or args.process_id is not None:
+        raise NotImplementedError(
+            "multi-process training is not ported yet (ROADMAP.md queue A, item 'Parallel')")
+    if args.wenet_ckpt_path:
+        raise NotImplementedError(
+            "the WeNet checkpoint import is not ported yet (ROADMAP.md queue A, item 7)")
+
+    cfg = Config.from_json_file(args.config) if args.config else Config()
+    if args.set:
+        cfg = cfg.apply_overrides(args.set)
+    if args.resume_from:
+        cfg.train.resume_from = args.resume_from
+    if args.streaming_eval:
+        cfg.decode.streaming = True
+    if args.print_config:
+        print(cfg.to_json())
+        return 0
+
+    from .train.loop import Trainer
+
+    trainer = Trainer(cfg, device=args.device, use_wandb=args.wandb)
+    try:
+        if args.train:
+            previous = trainer.install_preemption_handler()
+            try:
+                trainer.fit()
+            finally:
+                signal.signal(signal.SIGTERM, previous)
+        if args.eval:
+            if args.resume and cfg.train.resume_from:
+                trainer.restore(cfg.train.resume_from)
+            from .data.dataset import AsrDataset, eval_config
+
+            ds = AsrDataset(eval_config(cfg.data), mode="test", tokenizer=trainer.tokenizer)
+            wer = trainer.validate(ds)
+            print(f"WER: {wer:.6f}")
+    finally:
+        trainer.logger.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,10 +6,12 @@ The relative paths of the JAX ``mhsa`` for a full-utterance forward:
   - decomposed: the exact angle-addition factorisation of the same bias,
     bd = AB F^T with (AB, F) from ``rel_features``;
   - kernel: the same factorisation inside the fused flash-attention kernel
-    (``ops/rel_attention.py``), taken as in JAX when ``use_pallas`` is set
-    and both ``rel_positions`` and a mask are given.
-Training adds dropout on the attention probabilities in the plain paths.
-The KV cache of streaming and the reference-parity modes come later.
+    (``ops/rel_attention.py``, differentiable), taken as in JAX when
+    ``use_pallas`` is set and both ``rel_positions`` and a mask are given.
+Training adds dropout on the attention probabilities: drawn from the
+generator in the plain paths, inside the kernel from a seed drawn on the
+device in the kernel path. The KV cache of streaming and the
+reference-parity modes come later.
 """
 
 from __future__ import annotations
@@ -107,19 +109,13 @@ def mhsa(
     [B,Tq,D]. attn_mask bool [B|1, Tq, Tk] (True = attend) or None;
     pos_emb [Tq+Tk-1, D] is the descending-distance table slice (skew);
     rel_positions (q_pos [Tq], k_pos [Tk]) feed the factorised bias.
-    ``use_pallas`` keeps the JAX flag's name: it selects the CUDA kernel,
-    which has no backward and no dropout yet, so a training call
-    (``deterministic=False``) with it raises. Dropout at ``dropout_rate``
-    on the attention probabilities draws from ``gen``.
+    ``use_pallas`` keeps the JAX flag's name: it selects the CUDA kernel.
+    Dropout at ``dropout_rate`` on the attention probabilities draws from
+    ``gen``: in the kernel path one int32 seed, drawn on the device as JAX
+    draws it from ``rng``, from which the kernels hash the keep-mask.
     """
     if rel_positions is None and pos_emb is None:
         raise NotImplementedError("absolute-position attention is not ported yet")
-    if use_pallas and not deterministic:
-        raise NotImplementedError(
-            "use_pallas_attention in training: the attention kernel's backward and "
-            "its in-kernel dropout (attention_kernel.py _flash_bwd) are the next slice "
-            "of the port; turn the flag off to train"
-        )
     d_model = x_q.shape[-1]
     head_dim = d_model // num_heads
     q = _split_heads(layers.dense(p["linear_q"], x_q), num_heads)
@@ -130,13 +126,21 @@ def mhsa(
     q_v = q + p["pos_bias_v"].to(q.dtype)[None, :, None, :]
 
     if use_pallas and rel_positions is not None and attn_mask is not None:
-        from ..ops.rel_attention import rel_attention
+        from ..ops.rel_attention import rel_flash_attention
 
         ab, k_feats = rel_features(p, q_v, *rel_positions, num_heads)
         mask_b = attn_mask.expand(q.shape[0], *attn_mask.shape[1:])
-        out, _ = rel_attention(
+        live = not deterministic and dropout_rate > 0.0
+        seed = None
+        if live:
+            if gen is None:
+                raise ValueError("attention dropout in training needs a torch.Generator")
+            seed = torch.randint(0, 2**31 - 1, (1,), generator=gen, device=q.device,
+                                 dtype=torch.int32)
+        out = rel_flash_attention(
             q_u.contiguous(), ab.contiguous(), k.contiguous(), v.contiguous(),
             k_feats.contiguous(), mask_b.contiguous(), scale=scale,
+            dropout_rate=dropout_rate if live else 0.0, seed=seed,
         )
         return layers.dense(p["linear_out"], _merge_heads(out))
 

@@ -93,9 +93,11 @@ def encoder_layer(
 
     In training (``deterministic=False``) the seven dropout sites of the
     JAX layer draw from ``gen`` in order: the macaron FFN's inner and
-    output dropout, the attention probabilities, the attention output, the
-    conv output, the second FFN's inner and output dropout. The conv
-    kernel has no backward, so it runs only when ``deterministic``."""
+    output dropout, the attention probabilities (with ``use_pallas``, one
+    seed for the attention kernel's own keep-mask), the attention output,
+    the conv output, the second FFN's inner and output dropout. The conv
+    kernel has no backward, so it runs only when ``deterministic``, as in
+    JAX (``models/encoder.py:308``)."""
     def drop(t):
         return layers.dropout(gen, t, cfg.dropout, deterministic)
 

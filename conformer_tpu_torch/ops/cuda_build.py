@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface (pointers, ints, the stream)
 and compiles on its own into ``build/kernels/lib<name>-<hash>.so`` at the
 root of the checkout (``build/`` is git-ignored). The hash covers the
-source and the flags, so an edited source never loads a stale library.
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source never loads a stale library.
 Nothing is built when a module is imported: the first launch builds, or a
 caller builds every kernel up front with ``build``.
 """
@@ -20,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("rel_flash_attention", "conv_block", "simple_lattice", "rnnt_lattice", "ctc_dp")
+KERNELS = ("rel_flash_attention", "rel_flash_attention_bwd", "conv_block", "simple_lattice",
+           "rnnt_lattice", "ctc_dp")
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on Hopper
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,7 +46,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

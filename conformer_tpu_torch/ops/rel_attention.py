@@ -1,11 +1,25 @@
-"""Relative-position flash attention, forward: CUDA kernel and plain version.
+"""Relative-position flash attention with in-kernel dropout, forward and
+backward: CUDA kernels, their plain versions and the autograd Function.
 
-Replaces the Pallas TPU kernel ``conformer_tpu/ops/pallas/attention_kernel.py``
-(``rel_flash_attention`` forward: ``_attn_fwd_kernel``, ``_fwd_impl``).
-The kernel is ``csrc/rel_flash_attention.cu``; its source note gives the
-bound and the design. ``rel_attention`` launches it for CUDA tensors and
-takes ``rel_attention_plain`` only for CPU tensors (the tests' path).
-Inference only: no dropout, no backward (the training slice adds both).
+Replaces the Pallas TPU kernels of ``conformer_tpu/ops/pallas/
+attention_kernel.py``: the forward (``_attn_fwd_kernel``, ``_fwd_impl``),
+the dropout keep-mask hash (``_tile_keep_mask``) and the backward
+(``_flash_bwd``: ``_attn_bwd_dq_kernel``, ``_attn_bwd_dkv_kernel``). The
+kernels are ``csrc/rel_flash_attention.cu`` (forward) and
+``csrc/rel_flash_attention_bwd.cu`` (dq and dkv); their source notes give
+the bounds and the designs. Each wrapper launches its kernel for CUDA
+tensors and takes the plain version only for CPU tensors (the tests' path);
+each counts its launches in ``<wrapper>.launches``.
+
+``rel_flash_attention`` is the differentiable entry point (the JAX
+``rel_flash_attention`` with its custom VJP): the forward saves the per-row
+log-sum-exp, and the backward recomputes the score tiles from it.
+
+Dropout on the attention probabilities: the keep-mask is a counter hash of
+(seed, b*H + h, global query row, global key column), ``tile_keep_mask``,
+bit for bit the JAX ``_tile_keep_mask``; the seed is a one-element int32
+tensor that the kernels read on the device. The normaliser comes from the
+un-dropped probabilities; only the PV sum sees p * keep / (1 - rate).
 """
 
 from __future__ import annotations
@@ -16,23 +30,90 @@ from . import cuda_build
 
 NEG_INF = -1e30
 LSE_BIG = 1e30      # lse of a fully masked row
-_BQ = _BK = 64      # query and key tile of the kernel
+_BQ = _BK = 64      # query and key tile of the forward kernel
+_M32 = 0xFFFFFFFF
 
 
-def rel_attention_plain(q_u, ab, k, v, k_feats, mask, *, scale: float):
-    """softmax(((q+u)K^T + AB F^T) * scale, mask) V in float32.
+# ------------------------------------------------------------ keep-mask hash
 
-    q_u, k, v [B,H,Tq|Tk,dk]; ab [B,H,Tq,D]; k_feats [Tk,D]; mask bool
-    [B,Tq,Tk] (True = attend). Returns (out [B,H,Tq,dk] in v's dtype,
-    lse float32 [B,H,Tq]); a fully masked row gives out 0 and lse 1e30.
-    """
+
+def keep_threshold(rate: float) -> int:
+    """uint32(rate * 2^32), as the JAX kernel's ``np.uint32`` of it."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    return int(rate * 4294967296.0)
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for int64 ``a`` in [0, 2^32): the constant is split
+    in 16-bit halves so that no product leaves int64."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def tile_keep_mask(seed, bh, rows, cols, rate: float) -> torch.Tensor:
+    """Keep-mask of the probabilities at (``bh`` = b*H + h, ``rows``,
+    ``cols``), int64 tensors that broadcast together, for the int32
+    ``seed`` (a tensor or an int): the uint32 hash of the JAX
+    ``_tile_keep_mask`` in int64 arithmetic masked to 32 bits. True where
+    the probability is kept (share 1 - rate)."""
+    seed = torch.as_tensor(seed, device=rows.device).long() & _M32
+    x = (_mul32(seed, 0x9E3779B9) + _mul32(bh & _M32, 0x85EBCA6B)) & _M32
+    x = x ^ _mul32(rows & _M32, 0xC2B2AE35)
+    x = x ^ _mul32(cols & _M32, 0x27D4EB2F)
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x >= keep_threshold(rate)
+
+
+def keep_mask(seed, b: int, h: int, tq: int, tk: int, rate: float, device) -> torch.Tensor:
+    """bool [B, H, Tq, Tk] keep-mask of the whole attention of ``seed``."""
+    ar = lambda n: torch.arange(n, device=device, dtype=torch.int64)  # noqa: E731
+    bh = (ar(b)[:, None] * h + ar(h)[None, :])[:, :, None, None]
+    return tile_keep_mask(seed, bh, ar(tq)[:, None], ar(tk)[None, :], rate)
+
+
+def _inv_keep(rate: float) -> torch.Tensor:
+    """1 / (1 - rate) as float32, the factor the kernels multiply by."""
+    return torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _probs(q_u, ab, k, k_feats, mask, scale, lse=None):
+    """Scaled scores [B,H,Tq,Tk] in float32 (masked entries -1e30) or, given
+    ``lse``, the probabilities exp(s - lse) where the mask allows, else 0."""
     s = torch.matmul(q_u.float(), k.float().transpose(-1, -2))
     s = s + torch.matmul(ab.float(), k_feats.float().transpose(-1, -2))
     m4 = mask[:, None, :, :]
-    s = torch.where(m4, s * scale, torch.full_like(s, NEG_INF))
+    if lse is None:
+        return torch.where(m4, s * scale, torch.full_like(s, NEG_INF))
+    return torch.where(m4, torch.exp(s * scale - lse[..., None]), torch.zeros_like(s))
+
+
+def rel_attention_plain(q_u, ab, k, v, k_feats, mask, *, scale: float,
+                        dropout_rate: float = 0.0, seed=None):
+    """dropout(softmax(((q+u)K^T + AB F^T) * scale, mask)) V in float32.
+
+    q_u, k, v [B,H,Tq|Tk,dk]; ab [B,H,Tq,D]; k_feats [Tk,D]; mask bool
+    [B,Tq,Tk] (True = attend); ``seed`` int32 [1] when ``dropout_rate`` >
+    0. Returns (out [B,H,Tq,dk] in v's dtype, lse float32 [B,H,Tq] of the
+    un-dropped probabilities); a fully masked row gives out 0 and lse 1e30.
+    """
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("dropout_rate > 0 requires a seed")
+    s = _probs(q_u, ab, k, k_feats, mask, scale)
+    m4 = mask[:, None, :, :]
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(m4, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
+    if dropout_rate > 0.0:
+        b, h, tq, tk = p.shape
+        keep = keep_mask(seed, b, h, tq, tk, dropout_rate, p.device)
+        p = torch.where(keep, p * _inv_keep(dropout_rate).to(p.device), torch.zeros_like(p))
     out = torch.matmul(p, v.float()) / l.clamp_min(1e-30)
     live = l > 0.0
     out = torch.where(live, out, torch.zeros_like(out))
@@ -40,27 +121,51 @@ def rel_attention_plain(q_u, ab, k, v, k_feats, mask, *, scale: float):
     return out.to(v.dtype), lse[..., 0]
 
 
-def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float):
-    """Kernel wrapper with the contract of ``rel_attention_plain``.
+def rel_attention_bwd_plain(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, *,
+                            scale: float, dropout_rate: float = 0.0):
+    """The backward of ``rel_attention_plain`` written out, as the two
+    kernels compute it from the saved ``lse`` and ``delta`` = rowsum(dO *
+    O) [B,H,Tq] float32: returns float32 (dQu, dAB, dK, dV)."""
+    p = _probs(q_u, ab, k, k_feats, mask, scale, lse.float())
+    g = dout.float()
+    dp = torch.matmul(g, v.float().transpose(-1, -2))
+    pd = p
+    if dropout_rate > 0.0:
+        b, h, tq, tk = p.shape
+        keep = keep_mask(seed, b, h, tq, tk, dropout_rate, p.device)
+        inv = _inv_keep(dropout_rate).to(p.device)
+        dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
+        pd = torch.where(keep, p * inv, torch.zeros_like(p))
+    ds = p * (dp - delta.float()[..., None]) * scale
+    d_q = torch.matmul(ds, k.float())
+    d_ab = torch.matmul(ds, k_feats.float())
+    d_k = torch.matmul(ds.transpose(-1, -2), q_u.float())
+    d_v = torch.matmul(pd.transpose(-1, -2), g)
+    return d_q, d_ab, d_k, d_v
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise: float32 or bfloat16 inputs of one dtype, contiguous, dk <= 64.
-    ``rel_attention.launches`` counts kernel launches.
-    """
-    if q_u.device.type == "cpu":
-        return rel_attention_plain(q_u, ab, k, v, k_feats, mask, scale=scale)
-    tensors = (q_u, ab, k, v, k_feats, mask)
+
+# ------------------------------------------------------------ kernel wrappers
+
+
+def _check(name, q_u, ab, k, v, k_feats, mask, seed, dropout_rate, dout=None, lse=None,
+           delta=None):
+    tensors = [t for t in (q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta)
+               if t is not None]
     if q_u.device.type != "cuda" or any(t.device != q_u.device for t in tensors):
-        raise ValueError("rel_attention: all inputs must be on one CUDA device")
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
     dtype = q_u.dtype
     if dtype not in (torch.float32, torch.bfloat16) or any(
-        t.dtype != dtype for t in (ab, k, v, k_feats)
+        t.dtype != dtype for t in (ab, k, v, k_feats, dout) if t is not None
     ):
-        raise TypeError("rel_attention: inputs must all be float32 or all bfloat16")
+        raise TypeError(f"{name}: inputs must all be float32 or all bfloat16")
     if mask.dtype != torch.bool:
-        raise TypeError("rel_attention: mask must be bool")
+        raise TypeError(f"{name}: mask must be bool")
+    if any(t is not None and t.dtype != torch.float32 for t in (lse, delta)):
+        raise TypeError(f"{name}: lse and delta must be float32")
+    if dropout_rate > 0.0 and (seed is None or seed.dtype != torch.int32 or seed.numel() != 1):
+        raise ValueError(f"{name}: dropout needs an int32 seed tensor of one element")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("rel_attention: inputs must be contiguous")
+        raise ValueError(f"{name}: inputs must be contiguous")
     b, h, tq, dk = q_u.shape
     tk, d = k_feats.shape
     if (
@@ -68,27 +173,147 @@ def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float):
         or k.shape != (b, h, tk, dk)
         or v.shape != (b, h, tk, dk)
         or mask.shape != (b, tq, tk)
+        or any(t is not None and t.shape != q_u.shape for t in (dout,))
+        or any(t is not None and t.shape != (b, h, tq) for t in (lse, delta))
     ):
-        raise ValueError("rel_attention: inconsistent shapes")
+        raise ValueError(f"{name}: inconsistent shapes")
+    if dk > 64 or min(b, h, tq, tk) == 0:
+        raise ValueError(f"{name}: shape {tuple(q_u.shape)}, D={d} outside the kernel's tiles")
+    return b, h, tq, tk, dk, d
+
+
+def _drop_args(dropout_rate: float):
+    """(drop flag, keep threshold as an int32 bit pattern, 1/(1-rate))."""
+    thr = keep_threshold(dropout_rate)
+    thr_bits = thr - (1 << 32) if thr >= 1 << 31 else thr
+    return int(dropout_rate > 0.0), thr_bits, float(_inv_keep(dropout_rate))
+
+
+def _seed_ptr(seed, dropout_rate):
+    return cuda_build.ptr(seed) if dropout_rate > 0.0 else None
+
+
+def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float, dropout_rate: float = 0.0,
+                  seed=None):
+    """Forward kernel wrapper with the contract of ``rel_attention_plain``.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise: float32 or bfloat16 inputs of one dtype, contiguous, dk <= 64;
+    ``seed`` an int32 CUDA tensor of one element when ``dropout_rate`` > 0.
+    """
+    keep_threshold(dropout_rate)
+    if q_u.device.type == "cpu":
+        return rel_attention_plain(q_u, ab, k, v, k_feats, mask, scale=scale,
+                                   dropout_rate=dropout_rate, seed=seed)
+    b, h, tq, tk, dk, d = _check("rel_attention", q_u, ab, k, v, k_feats, mask, seed,
+                                 dropout_rate)
     smem = 4 * (_BQ * (dk + 1) + _BQ * (d + 1) + 2 * _BK * (dk + 1)
                 + _BK * (d + 1) + _BQ * (_BK + 1))
-    if dk > 64 or smem > cuda_build.SMEM_LIMIT or min(b, h, tq, tk) == 0:
-        raise ValueError(f"rel_attention: shape {tuple(q_u.shape)}, D={d} "
-                         "outside the kernel's tiles")
-
+    if smem > cuda_build.SMEM_LIMIT:
+        raise ValueError(f"rel_attention: D={d} needs {smem} B of shared memory")
     fn = cuda_build.load_function("rel_flash_attention", "rel_flash_attention_fwd",
-                                  n_ptrs=9, n_ints=7, n_floats=1)
-    out = torch.empty((b, h, tq, dk), dtype=dtype, device=q_u.device)
+                                  n_ptrs=10, n_ints=9, n_floats=2)
+    out = torch.empty((b, h, tq, dk), dtype=q_u.dtype, device=q_u.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q_u.device)
+    drop, thr_bits, inv_keep = _drop_args(dropout_rate)
     P = cuda_build.ptr
     err = fn(
-        P(q_u), P(ab), P(k), P(v), P(k_feats), P(mask), P(out), P(lse),
-        cuda_build.stream_ptr(q_u), b, h, tq, tk, dk, d,
-        int(dtype == torch.bfloat16), float(scale),
+        P(q_u), P(ab), P(k), P(v), P(k_feats), P(mask), _seed_ptr(seed, dropout_rate),
+        P(out), P(lse), cuda_build.stream_ptr(q_u), b, h, tq, tk, dk, d,
+        int(q_u.dtype == torch.bfloat16), drop, thr_bits, float(scale), inv_keep,
     )
     cuda_build.check(err, "rel_flash_attention")
     rel_attention.launches += 1
     return out, lse
 
 
+def _bwd_kernel(symbol, q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, scale,
+                dropout_rate, out_shapes):
+    b, h, tq, tk, dk, d = _check(symbol, q_u, ab, k, v, k_feats, mask, seed, dropout_rate,
+                                 dout, lse, delta)
+    if d > 256:
+        raise ValueError(f"{symbol}: D={d} > 256 outside the kernel's tiles")
+    fn = cuda_build.load_function("rel_flash_attention_bwd", symbol, n_ptrs=13, n_ints=9,
+                                  n_floats=2)
+    outs = [torch.empty(s, dtype=torch.float32, device=q_u.device) for s in out_shapes]
+    drop, thr_bits, inv_keep = _drop_args(dropout_rate)
+    P = cuda_build.ptr
+    err = fn(
+        P(q_u), P(ab), P(k), P(v), P(k_feats), P(mask), _seed_ptr(seed, dropout_rate),
+        P(dout), P(lse), P(delta), P(outs[0]), P(outs[1]), cuda_build.stream_ptr(q_u),
+        b, h, tq, tk, dk, d, int(q_u.dtype == torch.bfloat16), drop, thr_bits,
+        float(scale), inv_keep,
+    )
+    cuda_build.check(err, symbol)
+    return tuple(outs)
+
+
+def rel_attention_bwd_dq(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, *,
+                         scale: float, dropout_rate: float = 0.0):
+    """(dQu [B,H,Tq,dk], dAB [B,H,Tq,D]) in float32: the dq kernel for CUDA
+    tensors (D <= 256), the plain backward's for CPU tensors."""
+    if q_u.device.type == "cpu":
+        return rel_attention_bwd_plain(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta,
+                                       scale=scale, dropout_rate=dropout_rate)[:2]
+    outs = _bwd_kernel("rel_flash_attention_bwd_dq", q_u, ab, k, v, k_feats, mask, seed,
+                       dout, lse, delta, scale, dropout_rate, [q_u.shape, ab.shape])
+    rel_attention_bwd_dq.launches += 1
+    return outs
+
+
+def rel_attention_bwd_dkv(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, *,
+                          scale: float, dropout_rate: float = 0.0):
+    """(dK, dV [B,H,Tk,dk]) in float32: the dkv kernel for CUDA tensors,
+    the plain backward's for CPU tensors."""
+    if q_u.device.type == "cpu":
+        return rel_attention_bwd_plain(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta,
+                                       scale=scale, dropout_rate=dropout_rate)[2:]
+    outs = _bwd_kernel("rel_flash_attention_bwd_dkv", q_u, ab, k, v, k_feats, mask, seed,
+                       dout, lse, delta, scale, dropout_rate, [k.shape, v.shape])
+    rel_attention_bwd_dkv.launches += 1
+    return outs
+
+
 rel_attention.launches = 0
+rel_attention_bwd_dq.launches = 0
+rel_attention_bwd_dkv.launches = 0
+
+
+# ------------------------------------------------------------ autograd
+
+
+class _RelFlash(torch.autograd.Function):
+    """The JAX ``_flash`` custom VJP: the forward saves (inputs, seed, out,
+    lse); the backward computes delta = rowsum(dO * O) as a torch op and
+    runs the dq and dkv kernels. ``k_feats``, ``mask`` and ``seed`` carry
+    no gradient (sinusoids of positions, a mask, a seed)."""
+
+    @staticmethod
+    def forward(ctx, q_u, ab, k, v, k_feats, mask, seed, scale, dropout_rate):
+        out, lse = rel_attention(q_u, ab, k, v, k_feats, mask, scale=scale,
+                                 dropout_rate=dropout_rate, seed=seed)
+        ctx.save_for_backward(q_u, ab, k, v, k_feats, mask, seed, out, lse)
+        ctx.scale, ctx.dropout_rate = scale, dropout_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q_u, ab, k, v, k_feats, mask, seed, out, lse = ctx.saved_tensors
+        g = g.to(q_u.dtype).contiguous()
+        delta = (g.float() * out.float()).sum(dim=-1)
+        args = (q_u, ab, k, v, k_feats, mask, seed, g, lse, delta)
+        kw = dict(scale=ctx.scale, dropout_rate=ctx.dropout_rate)
+        d_q, d_ab = rel_attention_bwd_dq(*args, **kw)
+        d_k, d_v = rel_attention_bwd_dkv(*args, **kw)
+        return (d_q.to(q_u.dtype), d_ab.to(ab.dtype), d_k.to(k.dtype), d_v.to(v.dtype),
+                None, None, None, None, None)
+
+
+def rel_flash_attention(q_u, ab, k, v, k_feats, mask, *, scale: float,
+                        dropout_rate: float = 0.0, seed=None) -> torch.Tensor:
+    """Differentiable attention output [B,H,Tq,dk] in v's dtype (the JAX
+    ``rel_flash_attention``); ``seed`` int32 [1] on the inputs' device is
+    required when ``dropout_rate`` > 0."""
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("dropout_rate > 0 requires a seed")
+    return _RelFlash.apply(q_u, ab, k, v, k_feats, mask, seed, scale, dropout_rate)

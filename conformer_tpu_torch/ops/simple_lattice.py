@@ -14,12 +14,14 @@ they build [B, t_chunk, U+1, V] at a time and never the whole lattice.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from . import cuda_build
 
-_MAX_U1 = 256       # the backward kernel's block: one warp per 8 rows of u
+_MAX_U1 = 256       # the forward kernel's block holds every u row
 
 
 def _picks(am, lm, lab, blank):
@@ -109,7 +111,9 @@ def simple_lattice_fwd(am, lm, lab, blank: int):
 
 def simple_lattice_bwd(am, lm, lab, logz, g_blank, g_emit, blank: int):
     """Kernel wrapper with the contract of ``simple_lattice_plain_bwd``; the
-    sum over t into d lm is taken in a fixed order (no atomics)."""
+    sums into d lm and d am are taken in a fixed order (no atomics). Above
+    U+1 = 96 the kernel runs as one grid per chunk of u; ``.launches``
+    counts the grids, as the C entry reports them."""
     if am.device.type == "cpu":
         return simple_lattice_plain_bwd(am, lm, lab, logz, g_blank, g_emit, blank)
     _check("simple_lattice_bwd", (am, lm, logz, g_blank, g_emit), lab)
@@ -118,12 +122,13 @@ def simple_lattice_bwd(am, lm, lab, logz, g_blank, g_emit, blank: int):
         raise ValueError("simple_lattice_bwd: inconsistent shapes")
     dam = torch.empty_like(am)
     dlm = torch.empty_like(lm)
-    fn = cuda_build.load_function("simple_lattice", "simple_lattice_bwd", n_ptrs=9, n_ints=5)
+    fn = cuda_build.load_function("simple_lattice", "simple_lattice_bwd", n_ptrs=10, n_ints=5)
     P = cuda_build.ptr
+    grids = ctypes.c_int(0)
     err = fn(P(am), P(lm), P(lab), P(logz), P(g_blank), P(g_emit), P(dam), P(dlm),
-             cuda_build.stream_ptr(am), b, t, u1, v, blank)
+             ctypes.addressof(grids), cuda_build.stream_ptr(am), b, t, u1, v, blank)
+    simple_lattice_bwd.launches += grids.value
     cuda_build.check(err, "simple_lattice_bwd")
-    simple_lattice_bwd.launches += 1
     return dam, dlm
 
 

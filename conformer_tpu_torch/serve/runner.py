@@ -2,9 +2,10 @@
 weights, turn audio into fbank features, and decode full utterances with
 greedy RNN-T on the card.
 
-Streaming sessions, the micro-batching scheduler, int8 serving and the
-tokenizer come in later slices: without a vocab the transcript is the
-space-joined token ids, as in JAX.
+With ``data.vocab_path`` set the transcript is the tokenizer's text (the
+port's ``data/tokenizer.py``); without a vocab it is the space-joined
+token ids, as in JAX. Streaming sessions, the micro-batching scheduler and
+int8 serving come in later slices.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from ..config import Config
 from ..data.audio import load_audio, resample
+from ..data.tokenizer import Tokenizer, load_vocab
 from ..decode.greedy import greedy_search_batch
 from ..models import cmvn as cmvn_mod
 from ..models.transducer import encode, init_transducer
@@ -47,11 +49,6 @@ class ModelRunner:
     arrays), or the path of a JAX ``save_params_npz`` file."""
 
     def __init__(self, cfg: Config, params=None, device=None):
-        if cfg.data.vocab_path:
-            raise NotImplementedError(
-                "data.vocab_path is set, but the tokenizer is not ported yet "
-                "(ROADMAP.md queue A, item 'Tokenizer'); clear it to get token ids"
-            )
         if cfg.decode.quantize_int8:
             raise NotImplementedError("int8 serving is not ported yet (ROADMAP.md queue A)")
         self.cfg = cfg
@@ -64,6 +61,10 @@ class ModelRunner:
             self.params = from_jax_params(params, self.device)
         if cfg.data.cmvn_path:
             self.params["cmvn"] = cmvn_mod.init_cmvn_from_file(cfg.data.cmvn_path, self.device)
+        self.tokenizer: Tokenizer | None = None
+        if cfg.data.vocab_path:
+            self.tokenizer = Tokenizer(load_vocab(cfg.data.vocab_path),
+                                       bpe_model=cfg.data.bpe_model)
         self._decode_lock = threading.Lock()
 
     # --------------------------------------------------------- preprocessing
@@ -104,7 +105,12 @@ class ModelRunner:
         lens = np.full((feats.shape[0],), feats.shape[1], np.int32)
         hyps, hyp_lens = self.decode_batch(feats, lens)
         ids = hyps[0, : int(hyp_lens[0])].tolist()
-        return Recognition(text=" ".join(map(str, ids)), tokens=ids)
+        return Recognition(text=self._ids_to_text(ids), tokens=ids)
 
     def recognize_file(self, path: str) -> Recognition:
         return self.recognize(self.preprocess_file(path))
+
+    def _ids_to_text(self, ids: list[int]) -> str:
+        if self.tokenizer is None:
+            return " ".join(map(str, ids))
+        return self.tokenizer.decode_ids(ids, stop_id=self.cfg.model.sos_eos_id)

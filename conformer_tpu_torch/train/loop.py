@@ -1,11 +1,15 @@
-"""Training step (JAX ``train/loop.py`` ``Trainer.__init__`` and
-``train_step``) on one card.
+"""Training loop on one card (JAX ``train/loop.py``): the step, greedy-WER
+validation, ``fit`` over the host data pipeline, and checkpoints.
 
 A step takes ``accum_grad`` microbatches: each one's gradients are divided
 by their number and summed, then one clipped Adam update runs in place on
 the device (``train/optimizer.py``). The step syncs with the host once, to
-read its metrics. ``fit``, ``validate``, checkpoints and the data pipeline
-come in later slices.
+read its metrics. ``fit`` streams batches from ``data/dataset.py`` through
+a background ``Prefetcher``, validates every ``val_check_interval`` steps
+(checkpoint ``step_{n}-wer_{x}``), checkpoints at each epoch's end and at
+``max_steps``, and resumes from ``train.resume_from``. One process: the
+multi-process paths, ``remat``, the other decode modes and streaming
+evaluation are not ported yet (ROADMAP.md queue A).
 
 Each phase of the step (``encoder_fwd``, ``losses_fwd``, ``backward``,
 ``optimizer``) is a ``torch.profiler`` range, a few microseconds of host
@@ -16,16 +20,26 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import signal
+import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ..config import Config, ModelConfig
+from ..data.dataset import AsrDataset, eval_config
+from ..data.tokenizer import Tokenizer, load_vocab
+from ..decode.greedy import greedy_search_batch
 from ..models import cmvn as cmvn_mod
 from ..models import encoder
-from ..models.transducer import init_transducer, transducer_losses
+from ..models.transducer import encode, init_transducer, transducer_losses
 from ..params import tree_map
 from ..serve.runner import resolve_device
+from . import checkpoint as ckpt_mod
+from .logging_util import MetricLogger
+from .metrics import WordErrorRate
 from .optimizer import is_trainable, leaf_paths, make_optimizer
 
 _METRICS = ("loss", "loss_ctc", "loss_rnnt")
@@ -35,13 +49,15 @@ class Trainer:
     """Params (``init_transducer`` from ``cfg.train.seed``, or ``params``: a
     tree of tensors or arrays in the JAX layout, which the trainer copies
     to its device and then owns), the optimizer state, a generator on the
-    device for dropout and one on the host for the dynamic chunk masks.
+    device for dropout and one on the host for the dynamic chunk masks, the
+    tokenizer of ``data.vocab_path`` and the metric logger.
     Runs on the card unless ``device="cpu"``; raises when CUDA is asked
     for and absent. ``phase_end``, when set, is called with each phase's
     name as the phase closes (a profile synchronizes there, so that each
     phase's kernels run inside its range)."""
 
-    def __init__(self, cfg: Config, params: Any = None, device=None):
+    def __init__(self, cfg: Config, params: Any = None, device=None, *,
+                 use_wandb: bool = False):
         if cfg.train.remat or cfg.model.remat:
             raise NotImplementedError("remat is not ported yet (ROADMAP.md queue A)")
         self.cfg = cfg
@@ -63,6 +79,15 @@ class Trainer:
         self.host_gen = torch.Generator().manual_seed(cfg.train.seed + 2)
         self.step = 0
         self.phase_end: Callable[[str], None] | None = None
+        self.tokenizer: Tokenizer | None = None
+        if cfg.data.vocab_path:
+            self.tokenizer = Tokenizer(load_vocab(cfg.data.vocab_path),
+                                       bpe_model=cfg.data.bpe_model,
+                                       split_with_space=cfg.data.split_with_space)
+        self.logger = MetricLogger(cfg.train.checkpoint_dir, use_wandb=use_wandb)
+        self._preempted = False
+
+    # ------------------------------------------------------------ train step
 
     @contextlib.contextmanager
     def _phase(self, name: str):
@@ -115,6 +140,181 @@ class Trainer:
         self.step += 1
         host = torch.cat([torch.stack(metrics).mean(dim=0), norm[None]]).tolist()
         return {**dict(zip(_METRICS, host)), "lr": lr, "grad_norm": host[-1]}
+
+    # ------------------------------------------------------------ validation
+
+    def validate(self, dataset: AsrDataset, max_batches: int | None = None) -> float:
+        """Greedy RNN-T decode of ``dataset`` (at most ``max_batches``) ->
+        WER; the (key, prediction, truth) triples go to
+        ``<checkpoint_dir>/tmp_prediction.txt``."""
+        dcfg, mcfg = self.cfg.decode, self.cfg.model
+        if dcfg.streaming:
+            raise NotImplementedError(
+                "streaming evaluation is not ported yet (ROADMAP.md queue A, item 'Streaming')")
+        if dcfg.mode != "greedy_rnnt":
+            raise NotImplementedError(
+                f"decode.mode {dcfg.mode!r} is not ported yet (ROADMAP.md queue A, item "
+                "'Other decode modes'); greedy_rnnt is")
+        wer = WordErrorRate()
+        os.makedirs(self.cfg.train.checkpoint_dir, exist_ok=True)
+        out_path = os.path.join(self.cfg.train.checkpoint_dir, "tmp_prediction.txt")
+        with open(out_path, "w") as out_stream, torch.inference_mode():
+            for bi, b in enumerate(dataset):
+                if max_batches is not None and bi >= max_batches:
+                    break
+                feats = torch.as_tensor(b["feats"], device=self.device)
+                lens = torch.as_tensor(b["feat_lengths"], device=self.device)
+                enc, enc_lens = encode(self.params, feats, lens, mcfg)
+                hyps, hyp_lens, _ = greedy_search_batch(
+                    self.params, enc, enc_lens, mcfg, n_steps=dcfg.n_steps,
+                    max_hyp_len=dcfg.max_hyp_len)
+                hyps, hyp_lens = hyps.cpu().numpy(), hyp_lens.cpu().numpy()
+                preds = []
+                for i, key in enumerate(b["keys"]):
+                    ids = hyps[i, : hyp_lens[i]].tolist()
+                    text = (self.tokenizer.decode_ids(ids, stop_id=mcfg.sos_eos_id)
+                            if self.tokenizer else " ".join(map(str, ids)))
+                    preds.append(text)
+                    out_stream.write(f"Key: {key}\nPred: {text}\nTruth: {b['transcripts'][i]}\n")
+                wer.update(preds, b["transcripts"])
+        return wer.compute()
+
+    # ------------------------------------------------------------------ fit
+
+    def install_preemption_handler(self):
+        """On SIGTERM, checkpoint at the next step boundary and leave
+        ``fit`` (resumable with ``--resume_from last``). Returns the handler
+        it replaced, for the caller to put back."""
+        def on_sigterm(signum, frame):
+            self._preempted = True
+
+        return signal.signal(signal.SIGTERM, on_sigterm)
+
+    def _maybe_handle_preemption(self) -> bool:
+        if not self._preempted:
+            return False
+        path = self.save()
+        self.logger.log(self.step, {"preempted": 1.0}, prefix="train_")
+        print(f"SIGTERM: checkpointed to {path}; exiting for resume.")
+        return True
+
+    def fit(self) -> None:
+        """Train from ``data.train_data_list_path`` until ``max_steps`` or
+        ``max_epochs``, validating on ``data.dev_data_list_path``."""
+        cfg = self.cfg
+        train_ds = AsrDataset(cfg.data, mode="train", tokenizer=self.tokenizer)
+        dev_ds = AsrDataset(eval_config(cfg.data), mode="dev", tokenizer=self.tokenizer)
+        if cfg.train.resume_from:
+            self.restore(cfg.train.resume_from)
+        if cfg.train.num_sanity_val_steps > 0:
+            self.validate(dev_ds, max_batches=cfg.train.num_sanity_val_steps)
+        stream = self._train_stream(train_ds)
+        if cfg.data.prefetch_depth > 0:
+            from ..data.prefetch import Prefetcher
+
+            stream = Prefetcher(stream, depth=cfg.data.prefetch_depth)
+        try:
+            self._fit_loop(stream, train_ds, dev_ds)
+        finally:
+            if hasattr(stream, "close"):
+                stream.close()
+
+    def _fit_loop(self, stream, train_ds: AsrDataset, dev_ds: AsrDataset) -> None:
+        """Steps over ``stream``. Every ``log_every`` steps it logs the mean
+        metrics and, for the interval: wall seconds, seconds in
+        ``train_step``, seconds waiting for the next batch, audio seconds
+        trained."""
+        cfg = self.cfg
+        accum: list[dict] = []
+        running: dict[str, float] = {}
+        frame_s = cfg.data.frame_shift / 1000.0
+        interval = dict(step_s=0.0, data_wait_s=0.0, audio_s=0.0)
+        t_interval = time.perf_counter()
+        it = iter(stream)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                epoch, batch = next(it)
+            except StopIteration:
+                return
+            interval["data_wait_s"] += time.perf_counter() - t0
+            if epoch is None:    # the end of an epoch
+                self.save()
+                continue
+            accum.append(batch)
+            if len(accum) < cfg.train.accum_grad:
+                continue
+            t0 = time.perf_counter()
+            metrics = self.train_step(accum)
+            interval["step_s"] += time.perf_counter() - t0
+            interval["audio_s"] += frame_s * sum(float(np.sum(b["feat_lengths"])) for b in accum)
+            accum = []
+            if self._maybe_handle_preemption():
+                return
+            for k, v in metrics.items():
+                running[k] = running.get(k, 0.0) + v
+            if self.step % cfg.train.log_every == 0:
+                logs = {k: v / cfg.train.log_every for k, v in running.items()}
+                if train_ds.padding_stats.total_frames:
+                    logs["padding_efficiency"] = train_ds.padding_stats.efficiency
+                now = time.perf_counter()
+                logs.update(interval, interval_s=now - t_interval)
+                self.logger.log(self.step, logs, prefix="train_")
+                running = {}
+                interval = dict.fromkeys(interval, 0.0)
+                t_interval = now
+            if self.step % cfg.train.val_check_interval == 0:
+                wer = self.validate(dev_ds)
+                self.logger.log(self.step, {"wer": wer}, prefix="valid_")
+                self.save(wer=wer)
+            if self.step >= cfg.train.max_steps:
+                self.save()
+                return
+
+    def _train_stream(self, train_ds: AsrDataset):
+        """(epoch, batch) pairs for ``max_epochs`` epochs; (None, None)
+        marks the end of each epoch."""
+        for epoch in range(self.cfg.train.max_epochs):
+            train_ds.set_epoch(epoch)
+            for batch in train_ds:
+                yield epoch, batch
+            yield None, None
+
+    # ----------------------------------------------------------- checkpoints
+
+    def save(self, wer: float | None = None) -> str:
+        opt = self.opt_state
+        state = {"params": self.params,
+                 "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
+                 "step": self.step}
+        return ckpt_mod.save_checkpoint(self.cfg.train.checkpoint_dir, state, step=self.step,
+                                        wer=wer, keep=self.cfg.train.keep_checkpoints)
+
+    def restore(self, path_or_dir: str) -> None:
+        """Load params, optimizer state and step in place from a checkpoint
+        file, a directory (its newest checkpoint), or a name under
+        ``checkpoint_dir`` such as ``last``."""
+        path = path_or_dir
+        ckpt_dir = self.cfg.train.checkpoint_dir
+        if not os.path.exists(path) and os.path.exists(os.path.join(ckpt_dir, path)):
+            path = os.path.join(ckpt_dir, path)
+        if os.path.isdir(path):
+            path = ckpt_mod.latest_checkpoint(path)
+        elif os.path.basename(path) == "last":
+            path = ckpt_mod.latest_checkpoint(os.path.dirname(path))
+        if path is None or not os.path.isfile(path):
+            raise FileNotFoundError(f"no checkpoint at {path_or_dir!r}")
+        state = ckpt_mod.restore_checkpoint(path, self.device)
+        saved = dict(leaf_paths(state["params"]))
+        with torch.no_grad():
+            for k, v in leaf_paths(self.params):
+                v.copy_(saved[k])
+            opt = state["opt_state"]
+            self.opt_state.count = int(opt["count"])
+            for k in self.opt_state.mu:
+                self.opt_state.mu[k].copy_(opt["mu"][k])
+                self.opt_state.nu[k].copy_(opt["nu"][k])
+        self.step = int(state["step"])
 
 
 def plain_model_config(cfg: ModelConfig) -> ModelConfig:

@@ -3,6 +3,7 @@
 PyTorch/CUDA port (``conformer_tpu_torch``).
 
     python3 scripts/torch_profile_train.py [--batch 32] [--seconds 15] [--iters 3]
+        [--set model.use_pallas_attention=true ...]
 
 Conformer-M as configs/conformer_m.json trains it (pruned RNN-T + CTC, the
 RNN-T and CTC kernel flags on, bf16, accum_grad 2) on random weights from
@@ -114,12 +115,14 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=15.0)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--set", nargs="*", default=[], metavar="SECTION.KEY=VALUE",
+                    help="config overrides, as conformer_tpu_torch.main takes them")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_train: needs a CUDA device", file=sys.stderr)
         return 2
 
-    cfg = Config.from_json_file(args.config)
+    cfg = Config.from_json_file(args.config).apply_overrides(args.set)
     cfg.data.cmvn_path = cfg.data.vocab_path = ""
     trainer = Trainer(cfg, device="cuda")
     mbs = [random_batch(cfg, 10 + i, args.batch, args.seconds)

@@ -100,10 +100,29 @@ def test_runner_defaults_to_cuda(monkeypatch):
 
 
 def test_runner_refuses_vocab_until_tokenizer_port():
+    """The tokenizer is ported: a vocab is read, and a missing one raises."""
     _, pcfg = _configs()
-    pcfg.data.vocab_path = "vocab.txt"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    pcfg.data.vocab_path = "no/such/vocab.txt"
+    with pytest.raises(FileNotFoundError):
         ModelRunner(pcfg, device="cpu")
+
+
+def test_runner_returns_text_through_tokenizer(wav_path, tmp_path):
+    """With data.vocab_path set, the runner's text is the JAX runner's:
+    the tokenizer's decode of the same ids (cut at <sos/eos>)."""
+    jcfg, pcfg = _configs()
+    vocab = ["<blank>", "<unk>", *(f"▁W{i}" for i in range(jcfg.model.vocab_size - 3)),
+             "<sos/eos>"]
+    path = tmp_path / "vocab.txt"
+    path.write_text("".join(f"{w} {i}\n" for i, w in enumerate(vocab)))
+    jcfg.data.vocab_path = pcfg.data.vocab_path = str(path)
+    jcfg.data.bpe_model = pcfg.data.bpe_model = None
+    jrunner = JaxRunner(jcfg)
+    want = jrunner.recognize_file(wav_path)
+    runner = ModelRunner(pcfg, params=jax.tree.map(np.asarray, jrunner.params), device="cpu")
+    got = runner.recognize_file(wav_path)
+    assert got.tokens == want.tokens and len(got.tokens) > 0
+    assert got.text == want.text and got.text.startswith("W")
 
 
 def test_load_jax_npz_matches_jax_loader():

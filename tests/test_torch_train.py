@@ -124,14 +124,16 @@ def test_dropout_keep_rate_and_rate_zero():
 
 
 def test_attention_kernel_in_training_raises():
+    """The kernel path trains (tests/test_torch_attention_train.py), but
+    live attention dropout without a generator raises."""
     cfg = tiny_test_config().model
     p = p_att.init_mhsa(torch.Generator().manual_seed(0), cfg.encoder_dim, cfg.num_heads)
     x = torch.randn(1, 5, cfg.encoder_dim)
     pos = torch.arange(5)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="Generator"):
         p_att.mhsa(p, x, x, torch.ones(1, 5, 5, dtype=torch.bool), num_heads=cfg.num_heads,
                    rel_positions=(pos, pos), use_pallas=True, dropout_rate=0.1,
-                   gen=torch.Generator(), deterministic=False)
+                   gen=None, deterministic=False)
 
 
 # ----------------------------------------------------------- predictor
