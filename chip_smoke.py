@@ -21,19 +21,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
                backward) against its plain version in float32 at the
                training shape (B=32, T'=374, U=64, V=5002) and at a tiny
                ragged one, with edge rows (t_len 1, u_len 0, a
-               bucket-padding row); times of kernel, plain version and
-               library call beside the bound;
+               bucket-padding row); the two int8 serving kernels at route
+               B's rows (M = 48 x 374), route A's (374), a ragged M and
+               M = 1 with an all-zero row, in float32 and bfloat16:
+               int8_matmul bit for bit, int8_ffn within JAX's tolerances;
+               times of kernel, plain version and library call (for the
+               int8 kernels two yardsticks: torch._int_mm and the float
+               work they replace) beside the bound;
   4. serve   - Conformer-M at full width (configs/conformer_m.json, both
                kernel flags on, random weights from a seed, +6 on the joint's
                blank bias) behind the port's REST server on 127.0.0.1: three
                synthetic wav requests must answer "success", and each kernel
                wrapper must count one launch per encoder layer per request;
+               then route A of int8 serving: a runner with
+               decode.quantize_int8 behind the same server, two requests,
+               int8_matmul 24 launches each, int8_ffn none;
   5. parity  - float32 kernel path vs plain path on the served weights and
                on the same weights without the blank bias, which emit on
                most frames (encoder outputs within 1e-3, identical
-               hypotheses), then a bfloat16 decode of 48 x 15 s:
-               audio-seconds per second and token agreement with the
-               plain path;
+               hypotheses); the same for route A's int8 weights and route
+               B's (both FFN matmuls int8, quantize_tree(fuse_ffn=True)),
+               the plain path through the plain int8 versions (encoder
+               outputs within INT8_ENC_TOL; hypotheses identical on the
+               served weights, agreement >= INT8_AGREE_MIN on the
+               unbiased ones); then bfloat16 decodes of 48 x 15 s, float
+               and route B (int8_ffn 24 launches per batch): audio-seconds
+               per second, token agreement with the plain path, and
+               route B's agreement with the float path;
   6. train   - the recipe as shipped (configs/conformer_m.json: pruned
                RNN-T + CTC, the RNN-T and CTC kernel flags on, the attention
                flag off, bf16) on random weights from its seed through the
@@ -84,6 +98,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 BF16_TFLOPS = 989.0      # H100 SXM dense bf16 tensor rate
+INT8_TOPS = 1979.0       # H100 SXM dense int8 tensor rate
 F32_TFLOPS = 67.0        # H100 SXM float32 outside the tensor cores
 HBM_TBPS = 3.35          # H100 SXM device memory rate
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # abs and rel; bf16: ~1 ulp at |x| < 4
@@ -646,6 +661,166 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
     return entries
 
 
+# ------------------------------------------------------------ int8 kernels
+
+INT8_TOL = {"float32": (1e-2, 2e-3), "bfloat16": (2e-2, 2e-2)}   # (rtol, atol), JAX's own
+INT8_ROWS = (17952, 374, 37, 1)   # route B's batch (48 x 374), one request of 15 s, ragged, one
+# f32 int8 kernel path vs plain path, encoder outputs. The f32 kernels
+# differ from their plain versions by ~1e-6 (attention, conv) or take their
+# sums in another order (the fused FFN's LayerNorm), which flips an int8
+# value wherever an input lies that close to a rounding boundary. One step
+# of an FFN input (s_x ~ max|LN(x)| / 127 ~ 0.03) moves the hidden by up to
+# s_x * max|W1| ~ 2e-3 and, summed over 2048 hidden units through W2 and
+# halved, an FFN output by ~2e-4 at Conformer-M's init; the next layer
+# quantizes that difference again, so flips breed flips, and over 12
+# layers the two paths part by a share of the quantization's own error
+# (on an H100, PERF.md §6, route A: 4.5e-3 max, 4.7e-4 mean, against
+# 1.1e-2 and 1.9e-3 between the int8 and the float encoder). Two int8
+# encoders whose rounding has fully parted differ by up to sqrt(2) times
+# that error. The limits: the max within 5e-2 (some 250 single steps), the
+# mean within 1.5 times the quantization's own mean in the same run (int8
+# against float weights, plain path). A wrong scale, row or product moves
+# outputs by O(1).
+INT8_ENC_TOL = 5e-2
+INT8_ENC_MEAN_SHARE = 1.5
+# the same paths' token agreement on the unbiased weights (every row runs
+# to max_hyp_len). bf16 rounding of the float path (~1e-2) left its
+# hypotheses identical over 12,288 tokens in earlier runs; a broken kernel
+# would agree by chance only. On the served weights (no emission) the
+# hypotheses must be identical.
+INT8_AGREE_MIN = 0.9
+
+
+def int8_ffn_weights(dev, gen, d=256, h=2048):
+    """Conformer-M FFN weights from ``gen`` as the port initialises them,
+    and their int8 form: (LayerNorm params, float w_1, float w_2, int8 w_1,
+    int8 w_2), on ``dev``."""
+    import torch
+
+    from conformer_tpu_torch.ops.quant import quantize_dense_params
+
+    def u(*shape, bound):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * bound).to(dev)
+
+    f1 = {"kernel": u(d, h, bound=d ** -0.5), "bias": u(h, bound=d ** -0.5)}
+    f2 = {"kernel": u(h, d, bound=h ** -0.5), "bias": u(d, bound=h ** -0.5)}
+    ln = {"scale": 1 + u(d, bound=0.1), "bias": u(d, bound=0.05)}
+    return ln, f1, f2, quantize_dense_params(f1), quantize_dense_params(f2)
+
+
+def check_int8_kernels(dev) -> dict:
+    """The two int8 serving kernels against their plain versions at route
+    B's rows (M = 17952), route A's (M = 374), a ragged M and M = 1, with an
+    all-zero row, in float32 and bfloat16: ``int8_matmul`` bit for bit (its
+    int32 sums are exact and its rescale has no add), ``int8_ffn`` within
+    JAX's tolerances, both bitwise repeatable. Times, two yardsticks each
+    and bounds at M = 17952 in bf16. Returns the JSON entries without
+    ``launches``."""
+    import torch
+
+    from conformer_tpu_torch.models import feedforward, layers
+    from conformer_tpu_torch.ops.int8_ffn import int8_ffn_fused, int8_ffn_plain
+    from conformer_tpu_torch.ops.int8_matmul import (
+        int8_matmul_dynamic,
+        int8_matmul_dynamic_plain,
+        quant_rows,
+    )
+
+    gen = torch.Generator().manual_seed(4)
+    ln, f1, f2, w1, w2 = int8_ffn_weights(dev, gen)
+    d, h = w1["kernel_q"].shape
+    mm_args = (w1["kernel_q"], w1["kernel_scale"])
+    ffn_args = (ln, w1["kernel_q"], w1["kernel_scale"], w1["bias"], w2["kernel_q"],
+                w2["kernel_scale"], w2["bias"])
+    err_mm = err_ffn = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        rtol, atol = INT8_TOL[name]
+        for m in INT8_ROWS:
+            x = torch.randn(m, d, generator=gen)
+            if m > 2:
+                x[m // 2] = 0.0                       # a bucket-padding row
+            x = x.to(dev, dtype)
+            y, y2 = (int8_matmul_dynamic(x, *mm_args) for _ in range(2))
+            out, out2 = (int8_ffn_fused(x, *ffn_args) for _ in range(2))
+            torch.cuda.synchronize()
+            ref = int8_matmul_dynamic_plain(x, *mm_args)
+            differ = int((y != ref).sum())
+            e_mm = float((y.float() - ref.float()).abs().max())
+            zero_ok = m <= 2 or bool((y[m // 2] == 0).all())
+            ref_f = int8_ffn_plain(x, *ffn_args)
+            diff = (out.float() - ref_f.float()).abs()
+            ok_f = bool((diff <= atol + rtol * ref_f.float().abs()).all())
+            e_ffn = float(diff.max())
+            share = float((diff > 1e-5).float().mean())
+            print(f"kernels: int8 {name} M={m}: int8_matmul {differ} of {y.numel()} elements "
+                  f"differ from plain (max abs err {e_mm:.3g}; want bit for bit), zero row "
+                  f"zero {zero_ok}; int8_ffn max abs err {e_ffn:.3g} (rtol {rtol}, atol {atol}), "
+                  f"{share:.4%} of elements differ by more than 1e-5")
+            check(differ == 0 and zero_ok,
+                  f"int8_matmul {name} M={m} disagrees with its plain version")
+            check(ok_f, f"int8_ffn {name} M={m} disagrees with its plain version")
+            check(torch.equal(y, y2) and torch.equal(out, out2),
+                  f"int8 kernels {name} M={m}: not bitwise repeatable")
+            err_mm, err_ffn = max(err_mm, e_mm), max(err_ffn, e_ffn)
+
+    # --- times at route B's rows, bf16 (the serving dtype)
+    m = INT8_ROWS[0]
+    x = torch.randn(m, d, generator=gen).to(dev, torch.bfloat16)
+    y = int8_matmul_dynamic(x, *mm_args)
+    out = int8_ffn_fused(x, *ffn_args)
+    x_q, _ = quant_rows(x.float())
+    h_q, _ = quant_rows(torch.randn(m, h, generator=gen).to(dev))
+    w1_bf = f1["kernel"].to(torch.bfloat16)
+    f_ffn = {"w_1": f1, "w_2": f2}
+    mm_bound = bound_ms(nbytes(x, *mm_args, y), 2.0 * m * d * h / (INT8_TOPS * 1e12))
+    ffn_bound = bound_ms(nbytes(x, out, *ffn_args[1:], ln["scale"], ln["bias"]),
+                         4.0 * m * d * h / (INT8_TOPS * 1e12))
+    mm_lib = time_ms(lambda: torch._int_mm(x_q, w1["kernel_q"]))
+    w2_lib = time_ms(lambda: torch._int_mm(h_q, w2["kernel_q"]))
+    specs = [
+        ("int8_matmul", "int8_matmul.cu", "quant_kernel.py:48", err_mm,
+         lambda: int8_matmul_dynamic(x, *mm_args), lambda: int8_matmul_dynamic_plain(x, *mm_args),
+         {"torch._int_mm, the int8 product alone": mm_lib,
+          "bf16 torch.matmul, the float product it replaces": time_ms(
+              lambda: torch.matmul(x, w1_bf))}, mm_bound),
+        ("int8_ffn", "int8_ffn.cu", "ffn_kernel.py:78", err_ffn,
+         lambda: int8_ffn_fused(x, *ffn_args), lambda: int8_ffn_plain(x, *ffn_args),
+         {"torch._int_mm x 2, the two int8 products alone": mm_lib + w2_lib,
+          "bf16 float FFN half as the port runs it (LN, dense, swish, dense, residual)":
+              time_ms(lambda: x + 0.5 * feedforward.ffn(f_ffn, layers.layer_norm(ln, x)))},
+         ffn_bound),
+    ]
+    entries = {}
+    for name, src, rep, err, kern, plain, yard, (bnd, by) in specs:
+        entries[name] = {
+            "name": name, "route": "cuda", "source": f"conformer_tpu_torch/csrc/{src}",
+            "replaces": f"conformer_tpu/ops/pallas/{rep}", "max_abs_err": err,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": bnd, "bound_by": by,
+            "library_ms": None,          # no one PyTorch call computes the function
+            "yardsticks_ms": yard,
+        }
+        e = entries[name]
+        print(f"kernels: {name} bf16 M={m} D={d} H={h}: kernel {e['ms']:.4f} ms, plain "
+              f"{e['plain_ms']:.4f} ms, yardsticks {yard} ms, bound {bnd * 1e3:.2f} us ({by})")
+    return entries
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Inside, the int8 layers take the plain versions of the int8 kernels
+    on CUDA tensors too: the plain path of the parity phase."""
+    from conformer_tpu_torch.ops import int8_ffn, int8_matmul, quant
+
+    saved = quant.int8_matmul_dynamic, int8_ffn.int8_ffn_fused
+    quant.int8_matmul_dynamic = int8_matmul.int8_matmul_dynamic_plain
+    int8_ffn.int8_ffn_fused = int8_ffn.int8_ffn_plain
+    try:
+        yield
+    finally:
+        quant.int8_matmul_dynamic, int8_ffn.int8_ffn_fused = saved
+
+
 # ------------------------------------------------------------------- serve
 
 
@@ -720,11 +895,10 @@ def make_runner(cfg, device):
 def serve_requests(runner, seconds=(4.0, 9.5, 15.0)) -> list[dict]:
     """Start the port's REST server on an ephemeral localhost port, POST one
     wav per entry of ``seconds``, and stop the server. Each result holds the
-    response and each wrapper's launches during that request."""
+    response and each wrapper's launches during that request (the counts
+    set to 0 just before it)."""
     from http.server import ThreadingHTTPServer
 
-    from conformer_tpu_torch.ops.conv_block import conv_block
-    from conformer_tpu_torch.ops.rel_attention import rel_attention
     from conformer_tpu_torch.serve.rest_server import make_handler
 
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(runner))
@@ -734,14 +908,11 @@ def serve_requests(runner, seconds=(4.0, 9.5, 15.0)) -> list[dict]:
     try:
         url = f"http://127.0.0.1:{httpd.server_address[1]}/recognize/"
         for i, secs in enumerate(seconds):
-            rel_attention.launches = conv_block.launches = 0
+            reset_launch_counts()
             t0 = time.perf_counter()
             resp = post_wav(url, wav_bytes(synthetic_wav(100 + i, secs)))
-            results.append({
-                "seconds": secs, "latency_s": time.perf_counter() - t0, "response": resp,
-                "launches": {"rel_flash_attention": rel_attention.launches,
-                             "conv_block": conv_block.launches},
-            })
+            results.append({"seconds": secs, "latency_s": time.perf_counter() - t0,
+                            "response": resp, "launches": launch_counts()})
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -795,20 +966,42 @@ def plain_cfg(model_cfg):
     return dataclasses.replace(model_cfg, use_pallas_attention=False, use_pallas_conv=False)
 
 
-def parity_f32(runner, params, device, seconds=(3.0, 7.5, 15.0, 11.0)) -> dict:
-    """Kernel path vs plain path in float32 on ``params``."""
+def parity_f32(runner, params, device, seconds=(3.0, 7.5, 15.0, 11.0), float_params=None) -> dict:
+    """Kernel path vs plain path in float32 on ``params`` (float or int8:
+    the plain path takes the plain int8 versions too). With
+    ``float_params`` (the weights ``params`` quantize), also what the
+    quantization itself moves: the plain encoder's outputs on the int8
+    weights against those on the float ones."""
     import torch
+
+    from conformer_tpu_torch.models.masks import subsampled_lengths
+    from conformer_tpu_torch.models.transducer import encode
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg_k = dataclasses.replace(runner.cfg.model, compute_dtype="float32")
     feats, lens = batch_feats(runner, seconds, seed=200)
     enc_k, hyps_k, hl_k = decode(params, cfg_k, runner.cfg.decode, feats, lens, device)
-    enc_p, hyps_p, hl_p = decode(params, plain_cfg(cfg_k), runner.cfg.decode, feats, lens, device)
-    err = float((enc_k - enc_p).abs().max())
-    same = hyp_lists(hyps_k, hl_k) == hyp_lists(hyps_p, hl_p)
-    return {"encoder_max_abs_err": err, "hyps_identical": same,
-            "hyp_lens": hl_k.tolist(), "finite": bool(torch.isfinite(enc_k).all())}
+    with plain_int8():
+        enc_p, hyps_p, hl_p = decode(params, plain_cfg(cfg_k), runner.cfg.decode, feats, lens,
+                                     device)
+    enc_lens = subsampled_lengths(torch.as_tensor(lens, device=enc_k.device))
+    valid = (torch.arange(enc_k.shape[1], device=enc_k.device)[None, :]
+             < enc_lens[:, None])[..., None]
+    diff = torch.where(valid, enc_k - enc_p, 0).abs()
+    k, p = hyp_lists(hyps_k, hl_k), hyp_lists(hyps_p, hl_p)
+    res = {"encoder_max_abs_err": float(diff.max()),
+           "encoder_mean_abs_err": float(diff.sum() / (valid.sum() * diff.shape[-1])),
+           "hyps_identical": k == p, "token_agreement": token_agreement(k, p),
+           "hyp_lens": hl_k.tolist(), "finite": bool(torch.isfinite(enc_k).all())}
+    if float_params is not None:
+        with torch.inference_mode():
+            enc_f, _ = encode(float_params, torch.as_tensor(feats, device=device),
+                              torch.as_tensor(lens, device=device), plain_cfg(cfg_k))
+        q = torch.where(valid, enc_p - enc_f, 0).abs()
+        res["quant_max_abs_err"] = float(q.max())
+        res["quant_mean_abs_err"] = float(q.sum() / (valid.sum() * q.shape[-1]))
+    return res
 
 
 def token_agreement(a: list[list[int]], b: list[list[int]]) -> tuple[float, int, int]:
@@ -818,40 +1011,66 @@ def token_agreement(a: list[list[int]], b: list[list[int]]) -> tuple[float, int,
     return 1.0 - errs / max(n_ref, 1), sum(x == y for x, y in zip(a, b)), n_ref
 
 
-def decode_bf16_batch(runner, raw_params, device, batch=48, seconds=15.0) -> dict:
-    """bf16 batched decode of the served weights, kernel path timed (the
-    encoder apart from the whole); the plain path's hypotheses on the
-    served and on the unbiased weights give the token agreement."""
+def timed_decodes(params, cfg_k, dcfg, feats, lens, device, audio_s: float,
+                  runs: int = 3) -> dict:
+    """A warm-up, then ``runs`` timed decodes of the kernel path (the
+    encoder timed apart) of ``audio_s`` seconds of audio; the launch
+    counts are set to 0 just before the first timed decode and read just
+    after it."""
     import torch
 
     from conformer_tpu_torch.models.transducer import encode
 
-    cfg_k, dcfg = runner.cfg.model, runner.cfg.decode
-    feats, lens = batch_feats(runner, [seconds] * batch, seed=300)
-    decode(runner.params, cfg_k, dcfg, feats, lens, device)       # warm-up
-    times, enc_times = [], []
-    for _ in range(3):
+    decode(params, cfg_k, dcfg, feats, lens, device)       # warm-up
+    times, enc_times, launches = [], [], None
+    for _ in range(runs):
         torch.cuda.synchronize()
+        if launches is None:
+            reset_launch_counts()
         t0 = time.perf_counter()
-        _, hyps_k, hl_k = decode(runner.params, cfg_k, dcfg, feats, lens, device)
+        _, hyps, hl = decode(params, cfg_k, dcfg, feats, lens, device)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        if launches is None:
+            launches = launch_counts()
         with torch.inference_mode():
             t0 = time.perf_counter()
-            encode(runner.params, torch.as_tensor(feats, device=device),
+            encode(params, torch.as_tensor(feats, device=device),
                    torch.as_tensor(lens, device=device), cfg_k)
             torch.cuda.synchronize()
             enc_times.append(time.perf_counter() - t0)
+    return {"decode_s": times, "encode_s": enc_times, "hyps": hyp_lists(hyps, hl),
+            "audio_s_per_s": audio_s / (sum(times) / runs),
+            "launches": launches}
+
+
+def decode_bf16_batch(runner, raw_params, device, feats, lens, audio_s) -> dict:
+    """bf16 batched decode of the served weights, kernel path timed (the
+    encoder apart from the whole); the plain path's hypotheses on the
+    served and on the unbiased weights give the token agreement."""
+    cfg_k, dcfg = runner.cfg.model, runner.cfg.decode
+    res = timed_decodes(runner.params, cfg_k, dcfg, feats, lens, device, audio_s)
     _, hyps_p, hl_p = decode(runner.params, plain_cfg(cfg_k), dcfg, feats, lens, device)
-    served = token_agreement(hyp_lists(hyps_k, hl_k), hyp_lists(hyps_p, hl_p))
+    res["served"] = token_agreement(res["hyps"], hyp_lists(hyps_p, hl_p))
     _, hyps_rk, hl_rk = decode(raw_params, cfg_k, dcfg, feats, lens, device)
     _, hyps_rp, hl_rp = decode(raw_params, plain_cfg(cfg_k), dcfg, feats, lens, device)
-    raw = token_agreement(hyp_lists(hyps_rk, hl_rk), hyp_lists(hyps_rp, hl_rp))
-    return {
-        "batch": batch, "seconds": seconds, "decode_s": times, "encode_s": enc_times,
-        "audio_s_per_s": batch * seconds / (sum(times) / len(times)),
-        "served": served, "unbiased": raw,
-    }
+    res["unbiased_hyps"] = hyp_lists(hyps_rk, hl_rk)
+    res["unbiased"] = token_agreement(res["unbiased_hyps"], hyp_lists(hyps_rp, hl_rp))
+    return res
+
+
+def decode_int8_batch(runner, fused, fused_raw, float_unbiased_hyps, device, feats, lens,
+                      audio_s) -> dict:
+    """Route B: bf16 batched decode with both FFN matmuls int8 (the fused
+    FFN kernel) on the served weights, timed as ``decode_bf16_batch``
+    times the float path; the launches of the first timed batch; the token
+    agreement of int8 against the float kernel path on the unbiased
+    weights (a quality reading: int8 is lossy)."""
+    cfg_k, dcfg = runner.cfg.model, runner.cfg.decode
+    res = timed_decodes(fused, cfg_k, dcfg, feats, lens, device, audio_s)
+    _, hyps, hl = decode(fused_raw, cfg_k, dcfg, feats, lens, device)
+    res["unbiased_vs_float"] = token_agreement(hyp_lists(hyps, hl), float_unbiased_hyps)
+    return res
 
 
 # ------------------------------------------------------------------- train
@@ -872,6 +1091,7 @@ PER_MICROBATCH = {"simple_lattice_fwd": 1, "simple_lattice_bwd": 1, "rnnt_lattic
                   "rnnt_lattice_bwd": 2, "ctc_dp_fwd": 1, "ctc_dp_bwd": 1}
 ATTENTION_KERNELS = ("rel_flash_attention", "rel_flash_attention_bwd_dq",
                      "rel_flash_attention_bwd_dkv")
+INT8_KERNELS = ("int8_matmul", "int8_ffn")     # serving only: never launched in training
 
 
 def simple_lattice_bwd_grids(u1: int) -> int:
@@ -884,7 +1104,8 @@ def simple_lattice_bwd_grids(u1: int) -> int:
 def per_microbatch(layers: int, attention: bool, labels: int) -> dict:
     """Launches per microbatch of ``labels`` (padded) labels per row."""
     return {**dict.fromkeys(ATTENTION_KERNELS, layers if attention else 0), "conv_block": 0,
-            **PER_MICROBATCH, "simple_lattice_bwd": simple_lattice_bwd_grids(labels + 1)}
+            **PER_MICROBATCH, "simple_lattice_bwd": simple_lattice_bwd_grids(labels + 1),
+            **dict.fromkeys(INT8_KERNELS, 0)}
 
 
 def kernel_wrappers() -> dict:
@@ -892,6 +1113,8 @@ def kernel_wrappers() -> dict:
     from conformer_tpu_torch.ops import ctc_dp, rnnt_lattice, simple_lattice
     from conformer_tpu_torch.ops import rel_attention as ra
     from conformer_tpu_torch.ops.conv_block import conv_block
+    from conformer_tpu_torch.ops.int8_ffn import int8_ffn_fused
+    from conformer_tpu_torch.ops.int8_matmul import int8_matmul_dynamic
 
     return {"rel_flash_attention": ra.rel_attention,
             "rel_flash_attention_bwd_dq": ra.rel_attention_bwd_dq,
@@ -901,7 +1124,8 @@ def kernel_wrappers() -> dict:
             "simple_lattice_bwd": simple_lattice.simple_lattice_bwd,
             "rnnt_lattice_fwd": rnnt_lattice.rnnt_lattice_fwd,
             "rnnt_lattice_bwd": rnnt_lattice.rnnt_lattice_bwd,
-            "ctc_dp_fwd": ctc_dp.ctc_dp_fwd, "ctc_dp_bwd": ctc_dp.ctc_dp_bwd}
+            "ctc_dp_fwd": ctc_dp.ctc_dp_fwd, "ctc_dp_bwd": ctc_dp.ctc_dp_bwd,
+            "int8_matmul": int8_matmul_dynamic, "int8_ffn": int8_ffn_fused}
 
 
 def launch_counts() -> dict:
@@ -1218,39 +1442,89 @@ def main() -> int:
     entries["rel_flash_attention"]["max_abs_err"] = max(
         entries["rel_flash_attention"]["max_abs_err"], decode_attention["max_abs_err"])
     entries.update(check_training_kernels(dev))
+    entries.update(check_int8_kernels(dev))
 
-    # 4. serve: the main path, counts set to 0 just before each request
+    # 4. serve: the main path, counts set to 0 just before each request;
+    # then route A, int8 serving (decode.quantize_int8), behind the same server
+    from conformer_tpu_torch.ops.quant import quantize_tree
+    from conformer_tpu_torch.serve.runner import INT8_SKIP_KEYS
+
     cfg = serving_config(os.path.join(REPO, "configs", "conformer_m.json"))
     runner, raw_params = make_runner(cfg, dev)
     layers = cfg.model.encoder_num_layers
-    results = serve_requests(runner)
-    for r in results:
-        resp = r["response"]
-        n_tok = len(resp.get("message", "").split())
-        print(f"serve: {r['seconds']} s wav -> {resp['status']} in {r['latency_s']:.3f} s, "
-              f"{n_tok} tokens, launches {r['launches']}")
-        check(resp["status"] == "success", f"request failed: {resp.get('message')}")
-        for name, n in r["launches"].items():
-            check(n == layers, f"{name} launched {n} times in a request, expected {layers}")
+    cfg8 = serving_config(os.path.join(REPO, "configs", "conformer_m.json"))
+    cfg8.decode.quantize_int8 = True
+    runner8, raw8 = make_runner(cfg8, dev)
+    per_request = {**dict.fromkeys(kernel_wrappers(), 0), "rel_flash_attention": layers,
+                   "conv_block": layers}
+    route_a_launches = 0
+    for label, srv, seconds, extra in (
+            ("serve", runner, (4.0, 9.5, 15.0), {}),
+            ("serve int8 route A", runner8, (4.0, 15.0), {"int8_matmul": 2 * layers})):
+        for r in serve_requests(srv, seconds):
+            resp = r["response"]
+            n_tok = len(resp.get("message", "").split())
+            print(f"{label}: {r['seconds']} s wav -> {resp['status']} in {r['latency_s']:.3f} s, "
+                  f"{n_tok} tokens, launches {r['launches']}")
+            check(resp["status"] == "success", f"{label}: request failed: {resp.get('message')}")
+            want = {**per_request, **extra}
+            check(r["launches"] == want, f"{label}: launches {r['launches']} in a request, "
+                  f"expected {want}")
+            route_a_launches += r["launches"]["int8_matmul"]
 
     # 5. parity: the served weights, and the unbiased ones, whose
-    # hypotheses are long enough to make "identical" a real check
-    for name, params in (("served", runner.params), ("unbiased", raw_params)):
-        par = parity_f32(runner, params, dev)
-        print(f"parity: f32 kernel path vs plain path, {name} weights: encoder max_abs_err "
-              f"{par['encoder_max_abs_err']:.3g} (tol 1e-3), hyps identical "
-              f"{par['hyps_identical']}, hyp lens {par['hyp_lens']}")
-        check(par["finite"] and par["encoder_max_abs_err"] <= 1e-3 and par["hyps_identical"],
-              f"f32 kernel path disagrees with the plain path on the {name} weights")
-    check(max(par["hyp_lens"]) > 0, "the unbiased weights emitted no token")
-    bat = decode_bf16_batch(runner, raw_params, dev)
-    print(f"parity: bf16 decode B={bat['batch']} x {bat['seconds']} s, served weights: "
-          f"{bat['audio_s_per_s']:.1f} audio-s/s (decode s {bat['decode_s']}, of which "
-          f"encoder s {bat['encode_s']})")
+    # hypotheses are long enough to make "identical" a real check; float
+    # weights, route A's int8 weights, route B's (both FFN matmuls int8)
+    fused_raw = quantize_tree(raw_params, skip_keys=INT8_SKIP_KEYS, fuse_ffn=True)
+    fused = blank_biased(fused_raw, cfg.model.blank_id, 6.0)
+    for label, served, unbiased, tol in (
+            ("float", runner.params, raw_params, 1e-3),
+            ("int8 route A", runner8.params, raw8, INT8_ENC_TOL),
+            ("int8 route B", fused, fused_raw, INT8_ENC_TOL)):
+        int8 = label != "float"
+        for name, params in (("served", served), ("unbiased", unbiased)):
+            par = parity_f32(runner, params, dev,
+                             float_params=raw_params if int8 else None)
+            agree, same, n_ref = par["token_agreement"]
+            quant = (f", quantization itself: max {par['quant_max_abs_err']:.3g} mean "
+                     f"{par['quant_mean_abs_err']:.3g}" if int8 else "")
+            print(f"parity: {label} f32 kernel path vs plain path, {name} weights: encoder "
+                  f"max_abs_err {par['encoder_max_abs_err']:.3g} (tol {tol}), mean "
+                  f"{par['encoder_mean_abs_err']:.3g}{quant}; hyps identical "
+                  f"{par['hyps_identical']}, token agreement {agree:.4f} over {n_ref} tokens, "
+                  f"hyp lens {par['hyp_lens']}")
+            check(par["finite"] and par["encoder_max_abs_err"] <= tol and (
+                not int8 or par["encoder_mean_abs_err"]
+                <= INT8_ENC_MEAN_SHARE * par["quant_mean_abs_err"]),
+                f"{label} f32 kernel path disagrees with the plain path on the {name} weights")
+            # float: identical everywhere; int8: identical on the served
+            # weights, held to INT8_AGREE_MIN on the unbiased ones
+            check(par["hyps_identical"] or (int8 and name == "unbiased"
+                                            and agree >= INT8_AGREE_MIN),
+                  f"{label} f32 hypotheses differ on the {name} weights (agreement {agree:.4f})")
+        check(max(par["hyp_lens"]) > 0, f"the unbiased {label} weights emitted no token")
+    batch, seconds = 48, 15.0
+    feats, lens = batch_feats(runner, [seconds] * batch, seed=300)
+    bat = decode_bf16_batch(runner, raw_params, dev, feats, lens, batch * seconds)
+    b8 = decode_int8_batch(runner, fused, fused_raw, bat["unbiased_hyps"], dev, feats, lens,
+                           batch * seconds)
+    for label, res in (("float", bat), ("int8 route B", b8)):
+        print(f"parity: {label} bf16 decode B={batch} x {seconds} s, served weights: "
+              f"{res['audio_s_per_s']:.1f} audio-s/s (decode s {res['decode_s']}, of which "
+              f"encoder s {res['encode_s']}), launches in one batch {res['launches']}")
     for name in ("served", "unbiased"):
         agree, same, n_ref = bat[name]
-        print(f"parity: bf16 kernel path vs plain path, {name} weights: {same}/{bat['batch']} "
+        print(f"parity: float bf16 kernel path vs plain path, {name} weights: {same}/{batch} "
               f"rows identical, token agreement {agree:.4f} over {n_ref} tokens")
+    agree, same, n_ref = b8["unbiased_vs_float"]
+    print(f"parity: int8 route B vs float, bf16 kernel paths, unbiased weights (a quality "
+          f"reading): {same}/{batch} rows identical, token agreement {agree:.4f} over {n_ref} "
+          f"tokens")
+    want = {**per_request, "int8_ffn": 2 * layers}
+    check(b8["launches"] == want, f"route B: launches {b8['launches']} in one batch, "
+          f"expected {want}")
+    route_b_launches = b8["launches"]["int8_ffn"]
+    del runner8, raw8, fused, fused_raw
 
     # 6. train: the shipped recipe (loss kernel flags on, attention flag
     # off), counts set to 0 just before the timed steps (inside train_steps)
@@ -1319,9 +1593,12 @@ def main() -> int:
           f"run {fit['launches']}")
     for name, n in fit["launches"].items():
         entries[name]["launches"] = n
+    # the int8 kernels' main paths: route A's requests, route B's batch
+    entries["int8_matmul"]["launches"] = route_a_launches
+    entries["int8_ffn"]["launches"] = route_b_launches
 
     print(f"total: {time.perf_counter() - t_start:.1f} s")
-    order = [*ATTENTION_KERNELS, "conv_block", *PER_MICROBATCH]
+    order = [*ATTENTION_KERNELS, "conv_block", *PER_MICROBATCH, *INT8_KERNELS]
     print(json.dumps({"kernels": [entries[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -69,7 +69,16 @@ def _check_supported(cfg: ModelConfig) -> None:
 def _ffn_residual(norm_p: Params, ffn_p: Params, x: torch.Tensor, cfg: ModelConfig,
                   gen, deterministic: bool) -> torch.Tensor:
     """x + 0.5 * dropout(FFN(LN(x))): one macaron half, with the FFN's inner
-    dropout and the dropout of its output."""
+    dropout and the dropout of its output. With both FFN matmuls int8
+    (``ops/quant.quantize_tree(fuse_ffn=True)``) at inference, the half is
+    one ``int8_ffn_fused`` call: the kernel on CUDA tensors, its plain
+    version on CPU tensors (JAX ``models/encoder.py`` ``_ffn_residual``)."""
+    w1, w2 = ffn_p["w_1"], ffn_p["w_2"]
+    if deterministic and "kernel_q" in w1 and "kernel_q" in w2:
+        from ..ops.int8_ffn import int8_ffn_fused
+
+        return int8_ffn_fused(x, norm_p, w1["kernel_q"], w1["kernel_scale"], w1["bias"],
+                              w2["kernel_q"], w2["kernel_scale"], w2["bias"], half=0.5)
     y = feedforward.ffn(ffn_p, layers.layer_norm(norm_p, x), dropout_rate=cfg.dropout,
                         gen=gen, deterministic=deterministic)
     return x + 0.5 * layers.dropout(gen, y, cfg.dropout, deterministic)

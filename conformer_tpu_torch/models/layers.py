@@ -65,7 +65,12 @@ def init_conv2d(gen, in_ch: int, out_ch: int, kernel: tuple[int, int]) -> Params
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x @ kernel (+ bias), product and bias add in the activation dtype."""
+    """x @ kernel (+ bias), product and bias add in the activation dtype;
+    int8 serving params ("kernel_q", ``ops/quant.py``) take ``int8_dense``."""
+    if "kernel_q" in p:
+        from ..ops.quant import int8_dense
+
+        return int8_dense(p, x)
     y = torch.matmul(x, p["kernel"].to(x.dtype))
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)

@@ -1,0 +1,80 @@
+"""Fused int8 feed-forward half of a macaron layer, inference: CUDA kernel
+and plain version.
+
+Replaces the Pallas TPU kernel ``conformer_tpu/ops/pallas/ffn_kernel.py``
+(``int8_ffn_fused``, ``_kernel``; its oracle ``int8_ffn_reference``):
+
+    out = x + half * (dequant(q(swish(dequant(q(LN(x)) @ W1) + b1)) @ W2) + b2)
+
+with per-row dynamic int8 ``q`` (``int8_matmul.quant_rows``) and int8
+weights with per-column scales, as ``ops/quant.quantize_tree(...,
+fuse_ffn=True)`` makes them. The kernel is ``csrc/int8_ffn.cu``; its source
+note gives the bound and the design. ``int8_ffn_fused`` launches it for
+CUDA tensors and takes ``int8_ffn_plain`` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.layers import layer_norm
+from . import cuda_build
+from .int8_matmul import int_matmul, pack_k4, quant_rows
+
+
+def int8_ffn_plain(x, ln, w1q, s1, b1, w2q, s2, b2, *, half: float = 0.5,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """x [..., D] float -> same shape and dtype; float32 math with the
+    rounding points of the JAX ``int8_ffn_reference``."""
+    xn = layer_norm(ln, x.float(), eps=eps)
+    xq, xs = quant_rows(xn)
+    h = int_matmul(xq, w1q) * xs * s1 + b1
+    h = h * torch.sigmoid(h)
+    hq, hs = quant_rows(h)
+    y = int_matmul(hq, w2q) * hs * s2 + b2
+    return (x.float() + half * y).to(x.dtype)
+
+
+def int8_ffn_fused(x, ln, w1q, s1, b1, w2q, s2, b2, *, half: float = 0.5,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Kernel wrapper with the contract of ``int8_ffn_plain``.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel or
+    raise: float32 or bfloat16 x [..., D], int8 W1 [D, H] and W2 [H, D]
+    whose block fits in shared memory (D = 256: H up to ~2500; the C entry
+    refuses larger), everything on x's device. ``int8_ffn_fused.launches``
+    counts calls that launched the kernel."""
+    if x.device.type == "cpu":
+        return int8_ffn_plain(x, ln, w1q, s1, b1, w2q, s2, b2, half=half, eps=eps)
+    f32 = torch.float32
+    vecs = [t.to(f32).contiguous() for t in (ln["scale"], ln["bias"], s1, b1, s2, b2)]
+    if x.device.type != "cuda" or any(t.device != x.device for t in (w1q, w2q, *vecs)):
+        raise ValueError("int8_ffn_fused: inputs must be on one CUDA device")
+    if x.dtype not in (f32, torch.bfloat16):
+        raise TypeError("int8_ffn_fused: x must be float32 or bfloat16")
+    if w1q.dtype != torch.int8 or w2q.dtype != torch.int8:
+        raise TypeError("int8_ffn_fused: W1 and W2 must be int8")
+    d = x.shape[-1]
+    h = w1q.shape[-1]
+    shapes = [t.shape for t in vecs]
+    if (w1q.shape != (d, h) or w2q.shape != (h, d)
+            or shapes != [(d,), (d,), (h,), (h,), (d,), (d,)]):
+        raise ValueError(f"int8_ffn_fused: x [..., {d}], W1 {tuple(w1q.shape)}, W2 "
+                         f"{tuple(w2q.shape)} and the vectors {shapes} do not match")
+    x2 = x.reshape(-1, d).contiguous()
+    out = torch.empty_like(x2)
+    if x2.shape[0] == 0:
+        return out.reshape(x.shape)
+    fn = cuda_build.load_function("int8_ffn", "int8_ffn_fwd", n_ptrs=11, n_ints=4, n_floats=2)
+    P = cuda_build.ptr
+    ln_s, ln_b, s1, b1, s2, b2 = vecs
+    w1p, w2p = pack_k4(w1q), pack_k4(w2q)
+    err = fn(P(x2), P(ln_s), P(ln_b), P(w1p), P(s1), P(b1), P(w2p), P(s2), P(b2), P(out),
+             cuda_build.stream_ptr(x2), x2.shape[0], d, h, int(x.dtype == torch.bfloat16),
+             half, eps)
+    cuda_build.check(err, "int8_ffn")
+    int8_ffn_fused.launches += 1
+    return out.reshape(x.shape)
+
+
+int8_ffn_fused.launches = 0

@@ -4,8 +4,9 @@ greedy RNN-T on the card.
 
 With ``data.vocab_path`` set the transcript is the tokenizer's text (the
 port's ``data/tokenizer.py``); without a vocab it is the space-joined
-token ids, as in JAX. Streaming sessions, the micro-batching scheduler and
-int8 serving come in later slices.
+token ids, as in JAX. With ``decode.quantize_int8`` the runner serves int8
+weights as the JAX runner does (``ops/quant.py``). Streaming sessions and
+the micro-batching scheduler come in later slices.
 """
 
 from __future__ import annotations
@@ -23,7 +24,11 @@ from ..decode.greedy import greedy_search_batch
 from ..models import cmvn as cmvn_mod
 from ..models.transducer import encode, init_transducer
 from ..ops.fbank import fbank_numpy
+from ..ops.quant import quantize_tree
 from ..params import from_jax_params, load_jax_npz
+
+
+INT8_SKIP_KEYS = ("predictor", "cmvn", "joint", "ctc")   # the JAX runner's
 
 
 @dataclass
@@ -46,11 +51,21 @@ def resolve_device(device=None) -> torch.device:
 class ModelRunner:
     """Serves one model. ``params`` is None (random init from
     ``cfg.train.seed``), a JAX params tree (nested dicts and lists of
-    arrays), or the path of a JAX ``save_params_npz`` file."""
+    arrays, int8 leaves of a JAX-quantized tree included), or the path of a
+    JAX ``save_params_npz`` file.
+
+    With ``cfg.decode.quantize_int8`` the params are quantized after any
+    CMVN load exactly as the JAX runner does: ``quantize_tree`` with the
+    skip keys ``("predictor", "cmvn", "joint", "ctc")`` and the defaults
+    (``min_dim=64``, ``expand_only=True``, ``fuse_ffn=False``), so the
+    expanding FFN matmul ``w_1`` of every encoder layer runs through
+    ``int8_matmul_dynamic`` (route A). The fused int8 FFN (route B, JAX's
+    ``bench.py --int8``) has no config flag in JAX either: a caller builds
+    the tree with ``quantize_tree(runner.params, skip_keys=INT8_SKIP_KEYS,
+    fuse_ffn=True)`` and assigns it to ``runner.params`` after
+    construction."""
 
     def __init__(self, cfg: Config, params=None, device=None):
-        if cfg.decode.quantize_int8:
-            raise NotImplementedError("int8 serving is not ported yet (ROADMAP.md queue A)")
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
@@ -61,6 +76,10 @@ class ModelRunner:
             self.params = from_jax_params(params, self.device)
         if cfg.data.cmvn_path:
             self.params["cmvn"] = cmvn_mod.init_cmvn_from_file(cfg.data.cmvn_path, self.device)
+        if cfg.decode.quantize_int8:
+            # the LSTM predictor stays float (a latency-bound recurrence);
+            # CMVN holds statistics, not weights
+            self.params = quantize_tree(self.params, skip_keys=INT8_SKIP_KEYS)
         self.tokenizer: Tokenizer | None = None
         if cfg.data.vocab_path:
             self.tokenizer = Tokenizer(load_vocab(cfg.data.vocab_path),

@@ -2,11 +2,14 @@
 """Where the time of one batched greedy RNN-T decode goes on the GPU, for
 the PyTorch/CUDA port (``conformer_tpu_torch``).
 
-    python3 scripts/torch_profile_decode.py [--batch 48] [--seconds 15] [--iters 5]
+    python3 scripts/torch_profile_decode.py [--batch 48] [--seconds 15] [--iters 5] [--int8]
 
 Conformer-M (configs/conformer_m.json, bf16, both kernel flags on) on random
 weights from the config's seed with +6 on the joint's blank bias, fed
-seeded random-normal features, as bench.py's decode phase sets it up. For
+seeded random-normal features, as bench.py's decode phase sets it up.
+``--int8`` mirrors ``bench.py --int8``: both FFN matmuls of every encoder
+layer int8 (``quantize_tree(..., fuse_ffn=True)``), so each macaron half runs
+as one fused int8 FFN kernel (route B of int8 serving). For
 the encoder and for the greedy search apart it prints the host time (each
 ended by a synchronize, median of ``--iters``) and, from a torch.profiler
 trace of one run, the device's busy share, the kernel launches and the
@@ -33,7 +36,8 @@ sys.path.insert(0, REPO)
 from conformer_tpu_torch.config import Config  # noqa: E402
 from conformer_tpu_torch.decode.greedy import greedy_search_batch  # noqa: E402
 from conformer_tpu_torch.models.transducer import encode  # noqa: E402
-from conformer_tpu_torch.serve.runner import ModelRunner  # noqa: E402
+from conformer_tpu_torch.ops.quant import quantize_tree  # noqa: E402
+from conformer_tpu_torch.serve.runner import INT8_SKIP_KEYS, ModelRunner  # noqa: E402
 
 
 def timed(fn, iters: int) -> tuple[float, object]:
@@ -90,6 +94,8 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=15.0)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--int8", action="store_true",
+                    help="both FFN matmuls int8: the fused int8 FFN kernel (bench.py --int8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_decode: needs a CUDA device", file=sys.stderr)
@@ -100,6 +106,8 @@ def main() -> int:
     cfg.data.cmvn_path = cfg.data.vocab_path = ""
     runner = ModelRunner(cfg, device="cuda")
     runner.params["joint"]["ffn_out"]["bias"][cfg.model.blank_id] += 6.0
+    if args.int8:
+        runner.params = quantize_tree(runner.params, skip_keys=INT8_SKIP_KEYS, fuse_ffn=True)
     mcfg, dcfg, p = cfg.model, cfg.decode, runner.params
     frames = int(args.seconds * 100)        # 10 ms frame shift
     rng = np.random.default_rng(1)
@@ -123,7 +131,7 @@ def main() -> int:
             "card": subprocess.run(
                 ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                 capture_output=True, text=True, timeout=60).stdout.strip(),
-            "batch": args.batch, "seconds": args.seconds, "frames": frames,
+            "int8": args.int8, "batch": args.batch, "seconds": args.seconds, "frames": frames,
             "encoder_frames": int(enc_out.shape[1]),
             "tokens_emitted": int(hyp_lens.sum()),
             "encode_s": enc_s, "greedy_s": greedy_s,

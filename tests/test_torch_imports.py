@@ -16,6 +16,9 @@ import conformer_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(conformer_tpu_torch.__path__, "conformer_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+new = {"conformer_tpu_torch.ops.quant", "conformer_tpu_torch.ops.int8_matmul",
+       "conformer_tpu_torch.ops.int8_ffn"}
+assert new <= set(names), new - set(names)
 import chip_smoke
 from conformer_tpu_torch.ops import cuda_build
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "conformer_tpu."))
@@ -36,7 +39,7 @@ def _run(args, cwd):
 def test_port_imports_no_jax():
     proc = _run(["-c", _CHECK], REPO)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 35       # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 38       # every module was walked
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
