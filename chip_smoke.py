@@ -25,9 +25,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
                B's rows (M = 48 x 374), route A's (374), a ragged M and
                M = 1 with an all-zero row, in float32 and bfloat16:
                int8_matmul bit for bit, int8_ffn within JAX's tolerances;
-               times of kernel, plain version and library call (for the
-               int8 kernels two yardsticks: torch._int_mm and the float
-               work they replace) beside the bound;
+               the three joint kernels (forward, bwd_xp, bwd_w) in float32
+               and bfloat16 at (B, T', U, V) = (32, 374, 64, 5002), (4, 412,
+               200, 5002) and a tiny ragged shape with edge rows, against
+               their plain versions and in float32 against autograd through
+               the plain forward, the backward bitwise repeatable; the
+               fbank kernel at 48 x 15 s against its plain version with
+               dither 0 and 1 and against the host fbank_numpy, and its
+               dither's statistics; times of kernel, plain version and
+               library call (where none exists, labelled yardsticks: for
+               the int8 kernels torch._int_mm and the float work they
+               replace, for the joint the bf16 product alone, for fbank
+               torch.stft's power spectrum) beside the bound;
   4. serve   - Conformer-M at full width (configs/conformer_m.json, both
                kernel flags on, random weights from a seed, +6 on the joint's
                blank bias) behind the port's REST server on 127.0.0.1: three
@@ -63,6 +72,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
                and held to BAND_LIMITS, then the plain path runs on the
                kernel path's band: loss terms within 1e-4 relative, every
                gradient leaf within 1e-3 of its own max-abs;
+  6b. train full lattice - the recipe with the full-lattice loss
+               (use_pruned_loss false) and its joint through the joint
+               kernels (use_pallas_joint), B=24 x 15 s, 64 labels, accum_grad
+               2: one warm-up and three timed steps, each finite with
+               changed weights and an unchanged pos_table, launches per
+               microbatch (joint fwd 1, bwd_xp 2 and bwd_w 3 grids, RNN-T
+               lattice 1 / 1, CTC 1 / 1, simple lattice 0); ms per step,
+               audio-s/s, the model's TFLOP/s (train/flops.py) and share of
+               the bf16 peak; then the kernel path against the plain path on
+               one ragged 8 x 15 s microbatch, in float32 (losses within
+               1e-4 relative, gradients within 1e-3 of max-abs) and in
+               bfloat16 (FULL_PARITY_LIMITS);
   7. fit     - the user's command, ``conformer_tpu_torch.main.main`` with
                --train, on a synthetic corpus written from a seed (40 wavs
                of 2-15 s, 8 dev wavs, a 5002-piece vocab) at full
@@ -74,7 +95,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
                --resume_from last to step 6 and --eval (a WER). The trainer's
                metrics.jsonl must hold steps 1-6 with finite losses and
                gradient norms and finite WERs at 2, 4 and 6; a new Trainer
-               restores the last checkpoint and must equal the file.
+               restores the last checkpoint and must equal the file; then
+               the same command with the full-lattice loss and the joint
+               kernels (labels padded to 200: U+1 = 201), its own
+               checkpoints, 2 steps, no validation: finite losses and the
+               joint kernels' launches of 2 steps x accum_grad 2.
 The last two lines are the kernels JSON line and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -541,6 +566,17 @@ def compare(name, got, want, tol=TOL["float32"]) -> float:
     return err
 
 
+def compare_sums(name, got, want, tol) -> float:
+    """``compare`` for sums over many terms: each tensor's max abs
+    difference within ``tol`` of its own max-abs."""
+    errs = [(float((x.float() - y.float()).abs().max()), float(y.float().abs().max()))
+            for x, y in zip(got, want)]
+    err = max(e for e, _ in errs)
+    check(all(e <= tol * s for e, s in errs), f"{name} disagrees with its plain version "
+          f"(max abs err {err:.3g}, tol {tol} of max-abs {[s for _, s in errs]})")
+    return err
+
+
 def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002),
                                         (5, 37, 6, 37))) -> dict:
     """The six training kernels against their plain versions in float32 at
@@ -804,6 +840,272 @@ def check_int8_kernels(dev) -> dict:
         print(f"kernels: {name} bf16 M={m} D={d} H={h}: kernel {e['ms']:.4f} ms, plain "
               f"{e['plain_ms']:.4f} ms, yardsticks {yard} ms, bound {bnd * 1e3:.2f} us ({by})")
     return entries
+
+
+# ------------------------------------------------------ joint and fbank
+
+JOINT_SHAPES = ((32, 374, 64, 5002), (4, 412, 200, 5002), (5, 37, 6, 37))   # (B, T', U, V)
+JOINT_J = 512                # Conformer-M's join_dim
+JOINT_T_CHUNK = 16           # t rows per product of the plain path and of the yardstick
+# dW and dbias sum over every cell of the lattice. In float32, above this
+# many cells (the big shapes: 3.3e5 and 7.8e5) kernel and plain version are
+# compared against each tensor's max-abs (compare_sums): two float32 orders
+# of ~1e5 terms part by ~1e-5 of a column's scale (on an H100: 3.7e-3 at
+# 3.3e5 cells, where the elementwise rule allowed 2.2e-3), not of each
+# element's value; the tiny shape keeps the elementwise rule. In bf16 the
+# kernels round dl to bf16 as the tensor cores' operand (2^-9 relative, per
+# term), which the plain version keeps in float32: every sum of the
+# backward (d enc, d pred, dW, dbias) parts by that rounding's noise (on an
+# H100, dW by 9.0e-2 at the tiny shape, where the elementwise 2e-2 rule
+# failed), so bf16 backward outputs are compared against their max-abs at
+# every shape.
+JOINT_SUM_CELLS = 10000
+# (name, enc dtype, pred dtype): float32; the model's bf16 (bf16 enc, float32
+# pred: the predictor runs in float32); both bf16
+JOINT_DTYPES = (("float32", "float32", "float32"), ("bfloat16", "bfloat16", "float32"),
+                ("bfloat16 (pred bf16)", "bfloat16", "bfloat16"))
+
+
+def joint_inputs(dev, dtype, pred_dtype, gen, b, t, u, v, j=JOINT_J):
+    """Inputs of the joint kernels at one shape: enc [B,T,J] in ``dtype`` and
+    pred [B,U+1,J] in ``pred_dtype``, float32 W [J,V] (0.1 N(0,1), logits of a few
+    units) and bias, the padded labels [B,U+1] (blank past each row's
+    u_len and at U) and float32 cotangents, zero outside each row's
+    lattice as the DP's backward leaves them (``lattice_lengths``: edge rows
+    t_len 1, u_len 0 and a bucket-padding row)."""
+    import torch
+    import torch.nn.functional as F
+
+    t_len, u_len = lattice_lengths(gen, b, t, u)
+    labels = torch.randint(1, v, (b, u), generator=gen)
+    labels = torch.where(torch.arange(u)[None, :] < u_len[:, None].long(), labels, 0)
+    live = ((torch.arange(t)[None, :, None] < t_len[:, None, None].long())
+            & (torch.arange(u + 1)[None, None, :] <= u_len[:, None, None].long()))
+    x = {
+        "enc": torch.randn(b, t, j, generator=gen).to(dtype),
+        "pred": torch.randn(b, u + 1, j, generator=gen).to(pred_dtype),
+        "w": 0.1 * torch.randn(j, v, generator=gen),
+        "b": 0.1 * torch.randn(v, generator=gen),
+        "lab": F.pad(labels, (0, 1), value=0).to(torch.int32),
+        "g_blank": torch.where(live, torch.randn(b, t, u + 1, generator=gen), 0.0),
+        "g_emit": torch.where(live, torch.randn(b, t, u + 1, generator=gen), 0.0),
+    }
+    return {k: a.to(dev).contiguous() for k, a in x.items()}
+
+
+def joint_grads_by_autograd(x):
+    """d enc, d pred, dW, dbias of sum(g_b lp_blank + g_e lp_emit) by
+    autograd through the port's plain joint (chunked over t, each chunk
+    recomputed in the backward)."""
+    import torch
+
+    from conformer_tpu_torch.ops.rnnt import rnnt_lattice_log_probs_fused
+
+    leaves = [x[k].detach().clone().requires_grad_() for k in ("enc", "pred", "w", "b")]
+    lpb, lpe = rnnt_lattice_log_probs_fused(*leaves, x["lab"][:, :-1], 0, JOINT_T_CHUNK)
+    loss = (x["g_blank"] * lpb + x["g_emit"] * lpe).sum()
+    return torch.autograd.grad(loss, leaves)
+
+
+def joint_yardstick(x, dtype):
+    """The plain path's product alone: ``torch.matmul`` of [B JOINT_T_CHUNK
+    (U+1), J] x [J, V] in ``dtype`` once per chunk of t (all T' at once
+    would not fit), into a preallocated output."""
+    import torch
+
+    b, t, j = x["enc"].shape
+    rows = b * JOINT_T_CHUNK * x["pred"].shape[1]
+    xc = torch.randn(rows, j, device=x["enc"].device).to(dtype)
+    wc = x["w"].to(dtype)
+    out = torch.empty(rows, wc.shape[1], device=xc.device, dtype=dtype)
+    n = -(-t // JOINT_T_CHUNK)
+
+    def run():
+        for _ in range(n):
+            torch.matmul(xc, wc, out=out)
+    return run
+
+
+def check_joint_kernels(dev, shapes=JOINT_SHAPES) -> dict:
+    """The three joint kernels against their plain versions in float32, in
+    the model's bf16 (bf16 enc, float32 pred) and with both bf16
+    (``JOINT_DTYPES``) at the training shape (B=32, T'=374, U=64, V=5002), at the
+    fit's longest bucket with labels padded to 200 (B=4, T'=412, U+1=201)
+    and at a tiny ragged one; in float32 also against autograd through the
+    plain forward; the backward bitwise repeatable. Times of kernel, plain
+    version and the bf16 product alone (a yardstick: no one PyTorch call
+    computes the function) beside the bounds, at the training shape in both
+    dtypes (bf16, the recipe's, in the entries' main keys). Returns the
+    JSON entries without ``launches``."""
+    import torch
+
+    from conformer_tpu_torch.ops import joint_lattice as jl
+
+    gen = torch.Generator().manual_seed(5)
+    names = ("joint_lattice_fwd", "joint_lattice_bwd_xp", "joint_lattice_bwd_w")
+    errs = dict.fromkeys(names, 0.0)
+    times = {}
+    for name, dt, pdt in JOINT_DTYPES:
+        dtype = getattr(torch, dt)
+        tol = TOL[dt]
+        for b, t, u, v in shapes:
+            x = joint_inputs(dev, dtype, getattr(torch, pdt), gen, b, t, u, v)
+            args = (x["enc"], x["pred"], x["w"], x["b"], x["lab"])
+            fwd = jl.joint_lattice_fwd(*args, 0)
+            e_f = compare(f"joint_lattice_fwd {name} B={b} T'={t} U={u}", fwd,
+                          jl.joint_lattice_plain_fwd(*args, 0), tol)
+            bargs = (*args, fwd[2], x["g_blank"], x["g_emit"], 0)
+            xp, xp2 = (jl.joint_lattice_bwd_xp(*bargs) for _ in range(2))
+            wg, wg2 = (jl.joint_lattice_bwd_w(*bargs) for _ in range(2))
+            torch.cuda.synchronize()
+            same = all(torch.equal(p, q) for p, q in zip((*xp, *wg), (*xp2, *wg2)))
+            check(same, f"joint backward {name} B={b} T'={t} U={u}: not bitwise repeatable")
+            m = b * t * (u + 1)
+            bf16 = dtype == torch.bfloat16
+            xcmp = compare_sums if bf16 else compare
+            wcmp = compare if m <= JOINT_SUM_CELLS and not bf16 else compare_sums
+            e_xp = xcmp(f"joint_lattice_bwd_xp {name} B={b} T'={t} U={u}", xp,
+                        jl.joint_lattice_plain_bwd_xp(*bargs), tol)
+            e_w = wcmp(f"joint_lattice_bwd_w {name} B={b} T'={t} U={u}", wg,
+                       jl.joint_lattice_plain_bwd_w(*bargs), tol)
+            auto = ""
+            if dtype == torch.float32:
+                ag = joint_grads_by_autograd(x)
+                e_xp = max(e_xp, compare(f"joint_lattice_bwd_xp f32 B={b} vs autograd", xp,
+                                         ag[:2], tol))
+                e_w = max(e_w, wcmp(f"joint_lattice_bwd_w f32 B={b} vs autograd", wg,
+                                    ag[2:], tol))
+                auto = " (and against autograd through the plain forward)"
+            for k, e in zip(names, (e_f, e_xp, e_w)):
+                errs[k] = max(errs[k], e)
+            rule = lambda c: "abs + rel" if c is compare else "of max-abs"   # noqa: E731
+            print(f"kernels: joint {name} B={b} T'={t} U+1={u + 1} V={v}: max_abs_err fwd "
+                  f"{e_f:.3g} (tol {tol} abs + rel), bwd_xp {e_xp:.3g} (tol {tol} "
+                  f"{rule(xcmp)}), bwd_w {e_w:.3g} (tol {tol} {rule(wcmp)}){auto}; backward "
+                  f"bitwise repeatable {same}")
+            if (b, t, u, v) != shapes[0] or name not in ("float32", "bfloat16"):
+                continue
+            # --- times and bounds at the training shape
+            j = x["enc"].shape[2]
+            product = 2.0 * m * j * v
+            rate = (BF16_TFLOPS if dtype == torch.bfloat16 else F32_TFLOPS) * 1e12
+            exp_rate = EXP_PER_CLK_SM * H100_SMS * H100_CLOCK_HZ
+            ops = lambda n: max(n * product / rate, m * v / exp_rate)   # noqa: E731
+            lat = (fwd[2], x["g_blank"], x["g_emit"])
+            iters = 5 if dtype == torch.bfloat16 else 2
+            yard = time_ms(joint_yardstick(x, dtype), iters)
+            for k, kern, plain, n_prod, outs, ins in (
+                    ("joint_lattice_fwd", lambda: jl.joint_lattice_fwd(*args, 0),
+                     lambda: jl.joint_lattice_plain_fwd(*args, 0), 1, fwd, ()),
+                    ("joint_lattice_bwd_xp", lambda: jl.joint_lattice_bwd_xp(*bargs),
+                     lambda: jl.joint_lattice_plain_bwd_xp(*bargs), 2, xp, lat),
+                    ("joint_lattice_bwd_w", lambda: jl.joint_lattice_bwd_w(*bargs),
+                     lambda: jl.joint_lattice_plain_bwd_w(*bargs), 2, wg, lat)):
+                bnd, by = bound_ms(nbytes(*args, *ins, *outs), ops(n_prod))
+                times[(k, name)] = {"ms": time_ms(kern, iters), "plain_ms": time_ms(plain, iters),
+                                    "bound_ms": bnd, "bound_by": by, "yardstick_ms": yard}
+            pair, _ = bound_ms(nbytes(*args, *lat, *xp, *wg), ops(3))
+            print(f"kernels: joint {name} B={b} T'={t} U+1={u + 1} V={v} (M={m} cells, one "
+                  f"product {product:.3g} flops): " + "; ".join(
+                      f"{k} kernel {times[(k, name)]['ms']:.3f} ms, plain "
+                      f"{times[(k, name)]['plain_ms']:.3f} ms, bound "
+                      f"{times[(k, name)]['bound_ms']:.3f} ms ({times[(k, name)]['bound_by']})"
+                      for k in names)
+                  + f"; backward pair bound {pair:.3f} ms (three products); yardstick {name} "
+                  f"torch.matmul of the product over {-(-t // JOINT_T_CHUNK)} chunks of "
+                  f"{JOINT_T_CHUNK} t: {yard:.3f} ms")
+    entries = {}
+    for k, rep in zip(names, ("joint_kernel.py:260", "joint_kernel.py:329",
+                              "joint_kernel.py:367")):
+        bf, f32 = times[(k, "bfloat16")], times[(k, "float32")]
+        entries[k] = {
+            "name": k, "route": "cuda", "source": "conformer_tpu_torch/csrc/joint_lattice.cu",
+            "replaces": f"conformer_tpu/ops/pallas/{rep}", "max_abs_err": errs[k],
+            "ms": bf["ms"], "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
+            "bound_by": bf["bound_by"],
+            "library_ms": None,          # no one PyTorch call computes the function
+            "yardsticks_ms": {"bf16 torch.matmul of the product, in t chunks": bf["yardstick_ms"]},
+            "float32": {"ms": f32["ms"], "plain_ms": f32["plain_ms"],
+                        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+                        "yardstick_ms": f32["yardstick_ms"]},
+        }
+    return entries
+
+
+FBANK_BATCH, FBANK_SECONDS = 48, 15.0
+FBANK_TOL = 1e-2             # abs and rel, kernel vs plain: float32 sums in other orders
+FBANK_HOST_TOL = (1e-3, 0.15)   # (rtol, atol) vs the host fbank_numpy, the JAX test's own
+
+
+def check_fbank_kernel(dev) -> dict:
+    """``fbank_kernel`` against its plain version at 48 x 15 s of seeded
+    speech-like audio, with dither 0 and 1 (the same hash in both), against
+    the host ``fbank_numpy`` (the serving path's features) at dither 0;
+    the dither's statistics (two seeds differ, loud bins within 0.5 of the
+    clean features, as tests/test_pallas_fbank.py holds the TPU kernel);
+    times, bound and a labelled yardstick. Returns the JSON entry without
+    ``launches``."""
+    import torch
+
+    from conformer_tpu_torch.ops.fbank import fbank_numpy, frame_params
+    from conformer_tpu_torch.ops.fbank_kernel import fbank_kernel, fbank_plain
+
+    wavs = np.stack([synthetic_wav(400 + i, FBANK_SECONDS) for i in range(FBANK_BATCH)])
+    wavs = (wavs * (1 << 15)).astype(np.float32)
+    wave = torch.as_tensor(wavs, device=dev)
+    err = 0.0
+    outs = {}
+    for dither in (0.0, 1.0):
+        got = fbank_kernel(wave, dither=dither, seed=7)
+        torch.cuda.synchronize()
+        e = compare(f"fbank dither {dither}", (got,), (fbank_plain(wave, dither=dither, seed=7),),
+                    FBANK_TOL)
+        err = max(err, e)
+        outs[dither] = got
+        print(f"kernels: fbank B={FBANK_BATCH} x {FBANK_SECONDS} s, dither {dither}: max_abs_err "
+              f"{e:.3g} vs plain (tol {FBANK_TOL} abs + rel)")
+    clean = outs[0.0].cpu().numpy()
+    host = np.stack([fbank_numpy(w) for w in wavs])
+    rtol, atol = FBANK_HOST_TOL
+    host_err = float(np.abs(clean - host).max())
+    print(f"kernels: fbank dither 0 vs host fbank_numpy: max_abs_err {host_err:.3g} "
+          f"(rtol {rtol}, atol {atol})")
+    check(clean.shape == host.shape and np.allclose(clean, host, rtol=rtol, atol=atol),
+          "fbank disagrees with the host fbank_numpy")
+    other = fbank_kernel(wave, dither=1.0, seed=8).cpu().numpy()
+    dith = outs[1.0].cpu().numpy()
+    loud = clean > clean.mean()
+    loud_err = float(np.abs(dith[loud] - clean[loud]).max())
+    print(f"kernels: fbank dither 1: seeds 7 and 8 differ in {np.mean(dith != other):.2%} of "
+          f"features; loud bins within {loud_err:.3g} of clean (limit 0.5)")
+    check(not np.allclose(dith, other) and loud_err <= 0.5, "fbank dither statistics")
+
+    frames = clean.shape[0] * clean.shape[1]
+    ws, shift, padded = frame_params(16000.0, 25.0, 10.0)
+    nf, nmel = padded // 2, clean.shape[2]
+    flops = frames * (2.0 * ws * nf * 2 + 2.0 * nf * nmel)
+    bnd, by = bound_ms(nbytes(wave, outs[0.0]), flops / (F32_TFLOPS * 1e12))
+    window = torch.nn.functional.pad(torch.hann_window(ws, periodic=False, device=dev) ** 0.85,
+                                     (0, padded - ws))
+
+    def stft_power():
+        return torch.stft(wave, n_fft=padded, hop_length=shift, window=window, center=False,
+                          return_complex=True).abs() ** 2
+
+    entry = {
+        "name": "fbank", "route": "cuda", "source": "conformer_tpu_torch/csrc/fbank.cu",
+        "replaces": "conformer_tpu/ops/pallas/fbank_kernel.py:74", "max_abs_err": err,
+        "ms": time_ms(lambda: fbank_kernel(wave)), "plain_ms": time_ms(lambda: fbank_plain(wave)),
+        "bound_ms": bnd, "bound_by": by,
+        "library_ms": None,              # no one PyTorch call computes the function
+        "yardsticks_ms": {"torch.stft power spectrum (512-sample frames; no dither, DC "
+                          "removal, preemphasis, mel or log)": time_ms(stft_power)},
+        "path": "no caller (as in the JAX package)",
+    }
+    print(f"kernels: fbank B={FBANK_BATCH} x {FBANK_SECONDS} s ({frames} frames, {flops:.3g} "
+          f"flops): kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, yardsticks "
+          f"{entry['yardsticks_ms']} ms, bound {bnd * 1e3:.2f} us ({by})")
+    return entry
 
 
 @contextlib.contextmanager
@@ -1081,17 +1383,24 @@ def decode_int8_batch(runner, fused, fused_raw, float_unbiased_hyps, device, fea
 # more. Readings behind each limit: PERF.md, section 6.
 BAND_LIMITS = {"s_begin_diff_share": 0.02, "occupancy_max_abs_err": 2e-3, "flip_max_gap": 5e-4}
 
-# kernel launches per microbatch of the recipe's step: the simple lattice
-# once (its backward one grid per chunk of u); the lattice DP twice (the
-# occupancies and the simple NLL), each with its backward; the CTC DP once;
-# with the attention flag on, the attention kernels once per encoder layer
-# (forward, dq, dkv). The conv kernel runs only in deterministic forwards
-# (validation), one launch per layer and batch.
+# kernel launches per microbatch of the recipe's step (pruned loss): the
+# simple lattice once (its backward one grid per chunk of u); the lattice DP
+# twice (the occupancies and the simple NLL), each with its backward; the
+# CTC DP once; with the attention flag on, the attention kernels once per
+# encoder layer (forward, dq, dkv). The conv kernel runs only in
+# deterministic forwards (validation), one launch per layer and batch.
 PER_MICROBATCH = {"simple_lattice_fwd": 1, "simple_lattice_bwd": 1, "rnnt_lattice_fwd": 2,
                   "rnnt_lattice_bwd": 2, "ctc_dp_fwd": 1, "ctc_dp_bwd": 1}
+# the full-lattice loss (use_pruned_loss false): the lattice DP once, the
+# CTC DP once and, with use_pallas_joint, the joint kernels once (their
+# backwards in 2 and 3 grids: csrc/joint_lattice.cu); no simple lattice
+PER_MICROBATCH_FULL = {"simple_lattice_fwd": 0, "simple_lattice_bwd": 0, "rnnt_lattice_fwd": 1,
+                       "rnnt_lattice_bwd": 1, "ctc_dp_fwd": 1, "ctc_dp_bwd": 1}
+JOINT_GRIDS = {"joint_lattice_fwd": 1, "joint_lattice_bwd_xp": 2, "joint_lattice_bwd_w": 3}
 ATTENTION_KERNELS = ("rel_flash_attention", "rel_flash_attention_bwd_dq",
                      "rel_flash_attention_bwd_dkv")
 INT8_KERNELS = ("int8_matmul", "int8_ffn")     # serving only: never launched in training
+FBANK_KERNELS = ("fbank",)                     # no caller, as in the JAX package
 
 
 def simple_lattice_bwd_grids(u1: int) -> int:
@@ -1101,18 +1410,25 @@ def simple_lattice_bwd_grids(u1: int) -> int:
     return -(-need // 12)
 
 
-def per_microbatch(layers: int, attention: bool, labels: int) -> dict:
-    """Launches per microbatch of ``labels`` (padded) labels per row."""
+def per_microbatch(layers: int, attention: bool, labels: int, pruned: bool = True,
+                   joint: bool = False) -> dict:
+    """Launches per microbatch of ``labels`` (padded) labels per row, with
+    the pruned loss or the full lattice (its joint through the kernels with
+    ``joint``)."""
+    loss = ({**PER_MICROBATCH, "simple_lattice_bwd": simple_lattice_bwd_grids(labels + 1)}
+            if pruned else PER_MICROBATCH_FULL)
     return {**dict.fromkeys(ATTENTION_KERNELS, layers if attention else 0), "conv_block": 0,
-            **PER_MICROBATCH, "simple_lattice_bwd": simple_lattice_bwd_grids(labels + 1),
-            **dict.fromkeys(INT8_KERNELS, 0)}
+            **loss, **dict.fromkeys(INT8_KERNELS, 0),
+            **{k: n if joint and not pruned else 0 for k, n in JOINT_GRIDS.items()},
+            **dict.fromkeys(FBANK_KERNELS, 0)}
 
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by the name in the kernels line."""
-    from conformer_tpu_torch.ops import ctc_dp, rnnt_lattice, simple_lattice
+    from conformer_tpu_torch.ops import ctc_dp, joint_lattice, rnnt_lattice, simple_lattice
     from conformer_tpu_torch.ops import rel_attention as ra
     from conformer_tpu_torch.ops.conv_block import conv_block
+    from conformer_tpu_torch.ops.fbank_kernel import fbank_kernel
     from conformer_tpu_torch.ops.int8_ffn import int8_ffn_fused
     from conformer_tpu_torch.ops.int8_matmul import int8_matmul_dynamic
 
@@ -1125,7 +1441,11 @@ def kernel_wrappers() -> dict:
             "rnnt_lattice_fwd": rnnt_lattice.rnnt_lattice_fwd,
             "rnnt_lattice_bwd": rnnt_lattice.rnnt_lattice_bwd,
             "ctc_dp_fwd": ctc_dp.ctc_dp_fwd, "ctc_dp_bwd": ctc_dp.ctc_dp_bwd,
-            "int8_matmul": int8_matmul_dynamic, "int8_ffn": int8_ffn_fused}
+            "int8_matmul": int8_matmul_dynamic, "int8_ffn": int8_ffn_fused,
+            "joint_lattice_fwd": joint_lattice.joint_lattice_fwd,
+            "joint_lattice_bwd_xp": joint_lattice.joint_lattice_bwd_xp,
+            "joint_lattice_bwd_w": joint_lattice.joint_lattice_bwd_w,
+            "fbank": fbank_kernel}
 
 
 def launch_counts() -> dict:
@@ -1158,6 +1478,7 @@ def train_steps(trainer, steps: int = 3, batch: int = 32, seconds: float = 15.0)
     microbatches each; the launch counts cover the timed steps only."""
     import torch
 
+    from conformer_tpu_torch.train.flops import transducer_step_flops
     from conformer_tpu_torch.train.optimizer import leaf_paths
 
     cfg = trainer.cfg
@@ -1187,14 +1508,19 @@ def train_steps(trainer, steps: int = 3, batch: int = 32, seconds: float = 15.0)
     reset_launch_counts()
     timed = [one(mbs) for mbs in data[1:]]
     launches = launch_counts()
-    for k, n in per_microbatch(cfg.model.encoder_num_layers, cfg.model.use_pallas_attention,
-                               labels=64).items():
+    m = cfg.model
+    for k, n in per_microbatch(m.encoder_num_layers, m.use_pallas_attention, labels=64,
+                               pruned=m.use_pruned_loss, joint=m.use_pallas_joint).items():
         want = n * accum * steps
         check(launches[k] == want, f"{k} launched {launches[k]} times in {steps} steps, "
               f"expected {want}")
     step_s = sum(r["step_s"] for r in timed) / steps
+    # the model's matrix flops of a step (train/flops.py: forward and
+    # backward, no recomputation credited) over the step time
+    flops = accum * transducer_step_flops(m, batch, int(seconds * 100), 64)["total"]
     return {"warmup": warm, "steps": timed, "launches": launches, "step_s": step_s,
             "audio_s_per_s": accum * batch * seconds / step_s,
+            "model_tflops": flops / step_s / 1e12,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -1229,11 +1555,7 @@ def train_parity(trainer, batch: int = 8, seconds: float = 15.0) -> dict:
     cfg_k = dataclasses.replace(trainer.cfg.model, compute_dtype="float32",
                                 use_pallas_attention=True)
     cfg_p = plain_model_config(cfg_k)
-    frames = [int(seconds * 100 * f) for f in np.linspace(1.0, 0.55, batch)]
-    mb = random_batch(trainer.cfg, 77, batch, seconds, feat_frames=frames)
-    mb["label_lengths"] = np.linspace(64, 5, batch).astype(np.int32)
-    mb["labels"] = np.where(np.arange(64)[None, :] < mb["label_lengths"][:, None],
-                            mb["labels"], 0).astype(np.int32)
+    mb = parity_batch(trainer.cfg, batch, seconds)
     occ = {}
 
     def record(key):
@@ -1257,25 +1579,93 @@ def train_parity(trainer, batch: int = 8, seconds: float = 15.0) -> dict:
     flips = live & (u_k != u_p)
     # at a flip: how far apart the two cells are in the plain occupancy
     gap = (o_p.gather(2, u_p[..., None]) - o_p.gather(2, u_k[..., None]))[..., 0]
-    losses = {k: (float(out_k[k].detach()), float(out_p[k].detach()))
-              for k in ("loss", "loss_ctc", "loss_rnnt", "loss_simple")}
-    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in losses.values())
-    # each leaf against its own max-abs, floored at 1e-6 of the largest
-    # leaf's: a gradient that is zero in exact arithmetic (the key bias:
-    # softmax ignores a shift of every key) holds only rounding noise
-    scales = {k: float(g.abs().max()) for k, g in g_p.items()}
-    floor = 1e-6 * max(scales.values())
-    grad_rel = {k: float((g_k[k] - g_p[k]).abs().max()) / max(scales[k], floor) for k in g_p}
-    top = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]
-    return {"losses": losses, "loss_max_rel_err": loss_rel, "grad_worst_leaves": top,
-            "grad_max_rel_err": top[0][1],
+    return {**loss_grad_errors(out_k, out_p, g_k, g_p, ("loss", "loss_ctc", "loss_rnnt",
+                                                         "loss_simple")),
             "s_begin_diff": int((s_k != s_plain).sum()),
             "s_begin_entries": int(s_k.numel()),
             "occupancy_max_abs_err": float(torch.where(live[..., None], o_k - o_p, 0).abs().max()),
             "argmax_flips": int(flips.sum()),
-            "flip_max_gap": float(gap[flips].max()) if bool(flips.any()) else 0.0,
+            "flip_max_gap": float(gap[flips].max()) if bool(flips.any()) else 0.0}
+
+
+def parity_batch(cfg, batch: int, seconds: float) -> dict:
+    """One microbatch of ragged lengths: features from the full length down
+    to 55 % of it, labels from 64 down to 5."""
+    frames = [int(seconds * 100 * f) for f in np.linspace(1.0, 0.55, batch)]
+    mb = random_batch(cfg, 77, batch, seconds, feat_frames=frames)
+    mb["label_lengths"] = np.linspace(64, 5, batch).astype(np.int32)
+    mb["labels"] = np.where(np.arange(64)[None, :] < mb["label_lengths"][:, None],
+                            mb["labels"], 0).astype(np.int32)
+    return mb
+
+
+def loss_grad_errors(out_k, out_p, g_k, g_p, keys, floor_share: float = 1e-6) -> dict:
+    """Loss terms ``keys`` of the kernel and plain paths and their largest
+    relative difference; each gradient leaf's max difference against its
+    own max-abs, floored at ``floor_share`` of the largest leaf's (a
+    gradient that is zero in exact arithmetic, such as the key bias's,
+    whose shift softmax ignores, holds only rounding noise), the three
+    worst leaves."""
+    import torch
+
+    losses = {k: (float(out_k[k].detach()), float(out_p[k].detach())) for k in keys}
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in losses.values())
+    scales = {k: float(g.abs().max()) for k, g in g_p.items()}
+    floor = floor_share * max(scales.values())
+    grad_rel = {k: float((g_k[k] - g_p[k]).float().abs().max()) / max(scales[k], floor)
+                for k in g_p}
+    top = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]
+    return {"losses": losses, "loss_max_rel_err": loss_rel, "grad_worst_leaves": top,
+            "grad_max_rel_err": top[0][1],
             "grad_floored_leaves": [k for k in g_p if scales[k] < floor],
             "finite": all(bool(torch.isfinite(g).all()) for g in g_k.values())}
+
+
+# -------------------------------------------------------- train full lattice
+
+FULL_BATCH = 24              # bench.py --full-lattice's default train batch (bench.py:423)
+# limits of the full-lattice parity, kernel path vs plain path, per dtype:
+# (loss terms, relative; every gradient leaf, against its own max-abs;
+# the floor of that max-abs, a share of the largest leaf's). In float32
+# those of the pruned parity. In bf16 both paths round x and W to bf16 and
+# sum in float32; the kernels' backward also rounds dl to bf16 (the tensor
+# cores' operand), 2^-9 relative, and the encoder's bf16 activations carry
+# that on through the backward: a few bf16 ulps. A gradient that is zero in
+# exact arithmetic (the key bias) keeps bf16 rounding noise of ~1e-3 of the
+# sums it comes from, hence the bf16 floor.
+FULL_PARITY_LIMITS = {"float32": (1e-4, 1e-3, 1e-6), "bfloat16": (1e-3, 5e-2, 1e-3)}
+
+
+def full_lattice_config(path: str):
+    """The recipe as shipped but for the loss: the full lattice
+    (``use_pruned_loss`` false, the JAX ModelConfig default) with its joint
+    through the kernels (``use_pallas_joint``), as ``bench.py --full-lattice
+    --pallas-joint`` trains it; the RNN-T and CTC kernel flags on and the
+    attention flag off, as shipped."""
+    cfg = recipe_config(path)
+    cfg.model.use_pruned_loss = False
+    cfg.model.use_pallas_joint = True
+    return cfg
+
+
+def full_lattice_parity(trainer, dtype: str, floor_share: float, batch: int = 8,
+                        seconds: float = 15.0) -> dict:
+    """The full-lattice loss's kernel path (the trainer's kernel flags) vs
+    its plain path in ``dtype`` on one deterministic microbatch of ragged
+    lengths: loss terms and gradients (``loss_grad_errors``)."""
+    import torch
+
+    from conformer_tpu_torch.train.loop import plain_model_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg_k = dataclasses.replace(trainer.cfg.model, compute_dtype=dtype)
+    mb = parity_batch(trainer.cfg, batch, seconds)
+    g_k, out_k = trainer.compute_grads(mb, deterministic=True, model_cfg=cfg_k)
+    g_p, out_p = trainer.compute_grads(mb, deterministic=True,
+                                       model_cfg=plain_model_config(cfg_k))
+    return loss_grad_errors(out_k, out_p, g_k, g_p, ("loss", "loss_ctc", "loss_rnnt"),
+                            floor_share)
 
 
 # --------------------------------------------------------------------- fit
@@ -1283,6 +1673,7 @@ def train_parity(trainer, batch: int = 8, seconds: float = 15.0) -> dict:
 FIT_DIR = os.path.join(REPO, "build", "chip_smoke_fit")   # build/ is git-ignored
 FIT_TRAIN, FIT_DEV = 40, 8          # synthetic utterances of 2-15 s
 FIT_STEPS, FIT_RESUME_TO = 4, 6
+FIT_FULL_STEPS = 2                  # the full-lattice run: steps, no validation
 
 
 def fit_phase() -> dict:
@@ -1338,14 +1729,28 @@ def fit_phase() -> dict:
     want = dict(leaf_paths(saved["params"]))
     restored = {"step": trainer.step, "saved_step": saved["step"],
                 "params_equal": all(torch.equal(v, want[k]) for k, v in leaf_paths(trainer.params))}
+    del trainer
+    # the full lattice through the same command on the same corpus: its own
+    # checkpoints, FIT_FULL_STEPS steps, no validation; counts set to 0
+    # just before it and read just after
+    ckpt_full = os.path.join(FIT_DIR, "ckpt_full")
+    full_sets = [*sets, f"train.checkpoint_dir={ckpt_full}", "train.num_sanity_val_steps=0",
+                 f"train.val_check_interval={FIT_FULL_STEPS + 1}", "model.use_pruned_loss=false",
+                 "model.use_pallas_joint=true", f"train.max_steps={FIT_FULL_STEPS}"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    port_main(["--train", "--config", config, "--set", *full_sets])
+    torch.cuda.synchronize()
+    full = {"fit_s": time.perf_counter() - t0, "launches": launch_counts(),
+            "records": [json.loads(line) for line in open(os.path.join(ckpt_full, "metrics.jsonl"))],
+            "names": sorted(os.listdir(ckpt_full))}
     records = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
     eval_wer = [float(line.split()[-1]) for line in out.getvalue().splitlines()
                 if line.startswith("WER:")]
     result = {"cfg": cfg, "corpus_s": corpus_s, "fit_s": fit_s, "launches": launches,
               "first": first, "records": records, "eval_wer": eval_wer, "restored": restored,
               "names": sorted(os.listdir(ckpt)), "last": open(os.path.join(ckpt, "last")).read(),
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
-    del trainer
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "full_lattice": full}
     shutil.rmtree(FIT_DIR, ignore_errors=True)
     return result
 
@@ -1395,6 +1800,17 @@ def check_fit(fit: dict) -> None:
           f"restore of the last checkpoint: {r}")
     check(len(fit["eval_wer"]) == 1 and np.isfinite(fit["eval_wer"][0]),
           f"--eval printed {fit['eval_wer']}")
+    # the full-lattice run: its steps, finite, no validation, its launches
+    # (labels padded to max_label_len: U+1 = 201 in the joint)
+    full = fit["full_lattice"]
+    recs = [r for r in full["records"] if "train_loss" in r]
+    check([r["step"] for r in recs] == list(range(1, FIT_FULL_STEPS + 1))
+          and all(np.isfinite(r["train_loss"]) and np.isfinite(r["train_grad_norm"]) for r in recs)
+          and not any("valid_wer" in r for r in full["records"]),
+          f"full-lattice fit records {full['records']}")
+    want = {k: n * accum * FIT_FULL_STEPS for k, n in per_microbatch(
+        layers, True, cfg.data.max_label_len, pruned=False, joint=True).items()}
+    check(full["launches"] == want, f"full-lattice fit launches {full['launches']}, expected {want}")
 
 
 # -------------------------------------------------------------------- main
@@ -1443,6 +1859,8 @@ def main() -> int:
         entries["rel_flash_attention"]["max_abs_err"], decode_attention["max_abs_err"])
     entries.update(check_training_kernels(dev))
     entries.update(check_int8_kernels(dev))
+    entries.update(check_joint_kernels(dev))
+    entries["fbank"] = check_fbank_kernel(dev)
 
     # 4. serve: the main path, counts set to 0 just before each request;
     # then route A, int8 serving (decode.quantize_int8), behind the same server
@@ -1565,6 +1983,35 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
 
+    # 6b. train full lattice: the loss of the JAX ModelConfig default, its
+    # joint through the joint kernels; counts set to 0 just before the timed
+    # steps and read just after; then the kernel path's parity, f32 and bf16
+    torch.cuda.reset_peak_memory_stats()
+    fcfg = full_lattice_config(os.path.join(REPO, "configs", "conformer_m.json"))
+    trainer = Trainer(fcfg, device=dev)
+    fl = train_steps(trainer, batch=FULL_BATCH)
+    for r in (fl["warmup"], *fl["steps"]):
+        print(f"train full lattice: step {r['step_s'] * 1e3:.1f} ms, loss {r['loss']:.4f} (ctc "
+              f"{r['loss_ctc']:.4f}, rnnt {r['loss_rnnt']:.4f}), grad norm {r['grad_norm']:.4g}, "
+              f"{r['leaves_changed']}/{r['leaves']} leaves changed")
+    print(f"train full lattice: B={FULL_BATCH} x 15 s, U=64, accum_grad {fcfg.train.accum_grad}: "
+          f"{fl['step_s'] * 1e3:.1f} ms per step, {fl['audio_s_per_s']:.1f} training audio-s/s, "
+          f"model {fl['model_tflops']:.1f} TFLOP/s ({fl['model_tflops'] / BF16_TFLOPS:.2%} of the "
+          f"{BF16_TFLOPS:.0f} bf16 peak; train/flops.py), peak memory {fl['peak_mem_gb']:.2f} GiB, "
+          f"launches in 3 steps {fl['launches']}")
+    for dtype, (loss_lim, grad_lim, floor_share) in FULL_PARITY_LIMITS.items():
+        par = full_lattice_parity(trainer, dtype, floor_share)
+        worst = ", ".join(f"{k} {e:.3g}" for k, e in par["grad_worst_leaves"])
+        print(f"train full lattice parity: {dtype} kernel path vs plain path, B=8 x 15 s: losses "
+              f"{par['losses']}, max rel err {par['loss_max_rel_err']:.3g} (limit {loss_lim}); "
+              f"gradients max err / max-abs, worst leaves: {worst} (limit {grad_lim}; scale "
+              f"floored at {floor_share:g} of the largest for {par['grad_floored_leaves']})")
+        check(par["finite"] and par["loss_max_rel_err"] <= loss_lim
+              and par["grad_max_rel_err"] <= grad_lim,
+              f"{dtype} full-lattice kernel path disagrees with the plain path")
+    del trainer
+    torch.cuda.empty_cache()
+
     # 7. fit: the main path of this slice, through the user's entry point;
     # counts set to 0 just before the first training run and read just after
     fit = fit_phase()
@@ -1583,6 +2030,13 @@ def main() -> int:
     audio_s = sum(r["train_audio_s"] for r in train_recs)
     # functional readings of a 40-utterance corpus, not a throughput
     # measure: each epoch's first batch waits for all its features
+    full = fit["full_lattice"]
+    for r in full["records"]:
+        print(f"fit full lattice: step {r['step']}: {r['train_step_s'] * 1e3:.1f} ms, "
+              f"{r['train_audio_s']:.1f} audio s, loss {r['train_loss']:.4f}, grad norm "
+              f"{r['train_grad_norm']:.4g}")
+    print(f"fit full lattice: {full['fit_s']:.1f} s, checkpoints {full['names']}, launches "
+          f"{full['launches']}")
     print(f"fit: corpus {fit['corpus_s']:.1f} s; first run {fit['fit_s']:.1f} s; over "
           f"{len(train_recs)} steps: {step_s / len(train_recs) * 1e3:.1f} ms per step, "
           f"{audio_s / step_s:.1f} training audio-s/s, waiting on the prefetcher "
@@ -1593,12 +2047,17 @@ def main() -> int:
           f"run {fit['launches']}")
     for name, n in fit["launches"].items():
         entries[name]["launches"] = n
-    # the int8 kernels' main paths: route A's requests, route B's batch
+    # the int8 kernels' main paths: route A's requests, route B's batch;
+    # the joint kernels': the full-lattice run of the user's command; the
+    # fbank kernel has none (no caller, as in the JAX package)
     entries["int8_matmul"]["launches"] = route_a_launches
     entries["int8_ffn"]["launches"] = route_b_launches
+    for name in JOINT_GRIDS:
+        entries[name]["launches"] = full["launches"][name]
 
     print(f"total: {time.perf_counter() - t_start:.1f} s")
-    order = [*ATTENTION_KERNELS, "conv_block", *PER_MICROBATCH, *INT8_KERNELS]
+    order = [*ATTENTION_KERNELS, "conv_block", *PER_MICROBATCH, *INT8_KERNELS, *JOINT_GRIDS,
+             *FBANK_KERNELS]
     print(json.dumps({"kernels": [entries[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

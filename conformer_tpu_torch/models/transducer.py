@@ -3,9 +3,11 @@ inference encoder pass, and the training forward with its losses
 
     loss = ctc_weight * ctc + transducer_weight * rnnt,
 
-where rnnt is the full-lattice transducer loss or, with
-``use_pruned_loss``, the pruned loss plus ``simple_loss_scale`` times the
-simple-lattice loss. The attention-decoder branch is not ported yet.
+where rnnt is the full-lattice transducer loss (its joint through the
+fused joint kernels with ``use_pallas_joint``, ``ops/joint_lattice.py``)
+or, with ``use_pruned_loss``, the pruned loss plus ``simple_loss_scale``
+times the simple-lattice loss. The attention-decoder branch is not ported
+yet.
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("rel_flash_attention", "rel_flash_attention_bwd", "conv_block", "simple_lattice",
-           "rnnt_lattice", "ctc_dp", "int8_matmul", "int8_ffn")
+           "rnnt_lattice", "ctc_dp", "int8_matmul", "int8_ffn", "joint_lattice", "fbank")
 SMEM_LIMIT = 232448     # bytes of shared memory one block may use on Hopper
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -113,3 +113,14 @@ def fbank_numpy(
     )
     mel_e = power @ banks.T
     return np.log(np.maximum(mel_e, np.float32(_EPSILON))).astype(np.float32)
+
+
+def dft_matrices(window_size: int, padded: int) -> tuple[np.ndarray, np.ndarray]:
+    """The real DFT as two products: (cos, sin) each [window_size,
+    padded // 2] float64; frames @ cos and frames @ sin are the real and
+    imaginary parts of the zero-padded rFFT for bins 0 .. padded/2 - 1
+    (the mel banks drop the Nyquist bin)."""
+    n = np.arange(window_size)[:, None]
+    k = np.arange(padded // 2)[None, :]
+    ang = 2.0 * math.pi * n * k / padded
+    return np.cos(ang), -np.sin(ang)

@@ -1,0 +1,275 @@
+"""Fused transducer joint over the full lattice: CUDA kernels, forward and
+backward, and their plain versions.
+
+Replaces the Pallas TPU kernel ``conformer_tpu/ops/pallas/joint_kernel.py``
+(``_forward`` / ``_fwd_kernel``; ``_backward``'s ``_bwd_xp_kernel`` and
+``_bwd_w_kernel``; wrapped by ``joint_lattice_log_probs_pallas``). The
+kernels are ``csrc/joint_lattice.cu``; its source note gives the math, the
+bound and the design. ``joint_lattice_fwd``, ``joint_lattice_bwd_xp`` and
+``joint_lattice_bwd_w`` launch them for CUDA tensors and take the plain
+versions only for CPU tensors; each counts in ``.launches`` the grids it
+launched (1, 2 and 3 per call: the backwards sum across blocks in extra
+grids, in a fixed order). The plain versions are chunked over T, so they
+build [B, t_chunk, U+1, V] at a time and never the whole lattice.
+
+Inputs everywhere: enc [B, T, J] and pred [B, U+1, J], each float32 or
+bfloat16 (the model gives bf16 enc and float32 pred: the predictor runs in
+float32), W [J, V] and bias [V] of any float dtype, lab [B, U+1] (the
+padded labels: label u+1 at row u, blank at row U). As in the TPU kernel,
+x = tanh(enc + pred) takes the sum in the wider dtype (rounded to bf16
+when both are bf16) and is rounded to enc's dtype, W is cast to enc's
+dtype, and the logits' sums, the logsumexp and every result are float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+
+_V_TILE = 64            # the kernels' V tile: W and the bias are padded to a multiple of it
+_MAX_J = 512
+_BWD_W_BLOCKS = 4 * 132   # bwd_w's grid: at least four blocks per SM of an H100
+_BWD_W_ROWS = 8192        # bwd_w: cells summed in float32 into one partial dW, at most
+_MAX_CHUNKS = 128
+
+
+def _picks_index(lab, v: int):
+    """(index, valid) of each row's label; a label outside [0, V) picks nothing."""
+    ok = (lab >= 0) & (lab < v)
+    return torch.where(ok, lab, 0).long(), ok
+
+
+def _chunk(enc, pred, wf, bf, sl):
+    """(x, logits) of the t rows ``sl``: x = tanh(enc + pred) rounded to
+    enc's dtype, widened; logits float32."""
+    x = torch.tanh(enc[:, sl, None, :] + pred[:, None, :, :]).to(enc.dtype).float()
+    return x, torch.matmul(x, wf) + bf
+
+
+def joint_lattice_plain_fwd(enc, pred, w, b, lab, blank: int, t_chunk: int = 16):
+    """-> (lp_blank, lp_emit, logZ) [B, T, U+1] float32."""
+    bsz, t, _ = enc.shape
+    u1, v = pred.shape[1], w.shape[1]
+    wf, bf = w.to(enc.dtype).float(), b.float()
+    idx, ok = _picks_index(lab, v)
+    lpb, lpe, lzs = [], [], []
+    for t0 in range(0, t, t_chunk):
+        _, logits = _chunk(enc, pred, wf, bf, slice(t0, t0 + t_chunk))
+        logz = torch.logsumexp(logits, dim=-1)
+        tc = logits.shape[1]
+        em = logits.gather(3, idx[:, None, :, None].expand(bsz, tc, u1, 1))[..., 0]
+        lpb.append(logits[..., blank] - logz)
+        lpe.append(torch.where(ok[:, None, :], em, 0.0) - logz)
+        lzs.append(logz)
+    return torch.cat(lpb, dim=1), torch.cat(lpe, dim=1), torch.cat(lzs, dim=1)
+
+
+def _plain_bwd(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int, t_chunk: int,
+               want_xp: bool, want_w: bool):
+    """The backward written out (the TPU kernel's K_A and K_B): from the
+    saved logZ, dl = -(g_b + g_e) p + g_b [v=blank] + g_e [v=lab]; dpre =
+    (dl W^T)(1 - x^2) summed over u (d enc) and t (d pred); dW = x^T dl,
+    dbias = sum dl. Everything float32."""
+    bsz, t, j = enc.shape
+    u1, v = pred.shape[1], w.shape[1]
+    wf, bf = w.to(enc.dtype).float(), b.float()
+    idx, ok = _picks_index(lab, v)
+    d_enc = torch.zeros((bsz, t, j), dtype=torch.float32, device=enc.device)
+    d_pred = torch.zeros((bsz, u1, j), dtype=torch.float32, device=enc.device)
+    dw = torch.zeros((j, v), dtype=torch.float32, device=enc.device)
+    db = torch.zeros((v,), dtype=torch.float32, device=enc.device)
+    for t0 in range(0, t, t_chunk):
+        sl = slice(t0, t0 + t_chunk)
+        x, logits = _chunk(enc, pred, wf, bf, sl)
+        gb, ge = g_blank[:, sl].float(), g_emit[:, sl].float()
+        tc = gb.shape[1]
+        dl = -(gb + ge)[..., None] * torch.exp(logits - logz[:, sl, :, None])
+        dl[..., blank] += gb
+        dl.scatter_add_(3, idx[:, None, :, None].expand(bsz, tc, u1, 1),
+                        torch.where(ok[:, None, :], ge, 0.0)[..., None])
+        if want_xp:
+            dpre = torch.matmul(dl, wf.T) * (1.0 - x * x)
+            d_enc[:, sl] = dpre.sum(dim=2)
+            d_pred += dpre.sum(dim=1)
+        if want_w:
+            dw += x.reshape(-1, j).T @ dl.reshape(-1, v)
+            db += dl.sum(dim=(0, 1, 2))
+    return d_enc, d_pred, dw, db
+
+
+def joint_lattice_plain_bwd_xp(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int,
+                               t_chunk: int = 16):
+    """-> (d enc [B, T, J], d pred [B, U+1, J]) float32."""
+    return _plain_bwd(enc, pred, w, b, lab, logz, g_blank, g_emit, blank, t_chunk, True,
+                      False)[:2]
+
+
+def joint_lattice_plain_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int,
+                              t_chunk: int = 16):
+    """-> (dW [J, V], dbias [V]) float32."""
+    return _plain_bwd(enc, pred, w, b, lab, logz, g_blank, g_emit, blank, t_chunk, False,
+                      True)[2:]
+
+
+# ------------------------------------------------------------------ kernels
+
+
+def _check(name, enc, pred, w, b, lab, blank, lattice=()):
+    dev = enc.device
+    tensors = (enc, pred, w, b, lab, *lattice)
+    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    if any(x.dtype not in (torch.float32, torch.bfloat16) for x in (enc, pred)):
+        raise TypeError(f"{name}: enc and pred must be float32 or bfloat16")
+    if lab.dtype != torch.int32 or any(x.dtype != torch.float32 for x in lattice):
+        raise TypeError(f"{name}: int32 labels and float32 lattice tensors expected")
+    if not all(x.is_contiguous() for x in (enc, pred, lab, *lattice)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    bsz, t, j = enc.shape
+    u1, v = pred.shape[1], w.shape[1]
+    if pred.shape != (bsz, u1, j) or w.shape != (j, v) or b.shape != (v,) or lab.shape != (bsz, u1):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if any(x.shape != (bsz, t, u1) for x in lattice):
+        raise ValueError(f"{name}: lattice tensors must be [B, T, U+1]")
+    if j % 128 or j > _MAX_J or min(bsz, t, u1, v) == 0 or not 0 <= blank < v:
+        raise ValueError(f"{name}: enc {tuple(enc.shape)}, pred {tuple(pred.shape)}, "
+                         f"W {tuple(w.shape)} outside the kernel (J a multiple of 128 up to 512)")
+    return bsz, t, u1, j, v
+
+
+def _operands(enc, w, b):
+    """W in the inputs' dtype and the float32 bias, padded to a multiple of
+    the V tile (the kernels read no padded column into a result)."""
+    v = w.shape[1]
+    pad = (-v) % _V_TILE
+    wk = F.pad(w.to(enc.dtype), (0, pad)).contiguous()
+    bk = F.pad(b.float(), (0, pad)).contiguous()
+    return wk, bk, v + pad
+
+
+def _dtypes(enc, pred):
+    """The C entries' (is_bf16, pred_bf16)."""
+    return int(enc.dtype == torch.bfloat16), int(pred.dtype == torch.bfloat16)
+
+
+def joint_lattice_fwd(enc, pred, w, b, lab, blank: int):
+    """Kernel wrapper with the contract of ``joint_lattice_plain_fwd``: CPU
+    tensors take the plain version, CUDA tensors launch the kernel or raise
+    (float32 or bfloat16 contiguous enc and pred, int32 labels, J a
+    multiple of 128 up to 512)."""
+    if enc.device.type == "cpu":
+        return joint_lattice_plain_fwd(enc, pred, w, b, lab, blank)
+    bsz, t, u1, j, v = _check("joint_lattice_fwd", enc, pred, w, b, lab, blank)
+    wk, bk, vp = _operands(enc, w, b)
+    lpb, lpe, logz = (torch.empty((bsz, t, u1), dtype=torch.float32, device=enc.device)
+                      for _ in range(3))
+    fn = cuda_build.load_function("joint_lattice", "joint_lattice_fwd", n_ptrs=9, n_ints=9)
+    P = cuda_build.ptr
+    err = fn(P(enc), P(pred), P(wk), P(bk), P(lab), P(lpb), P(lpe), P(logz),
+             cuda_build.stream_ptr(enc), bsz, t, u1, j, v, vp, blank, *_dtypes(enc, pred))
+    cuda_build.check(err, "joint_lattice_fwd")
+    joint_lattice_fwd.launches += 1
+    return lpb, lpe, logz
+
+
+def joint_lattice_bwd_xp(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int):
+    """Kernel wrapper with the contract of ``joint_lattice_plain_bwd_xp``:
+    one grid computes dpre = (dl W^T)(1 - x^2) per cell into a float32
+    scratch [B T (U+1), J], a second sums it over u and over t."""
+    if enc.device.type == "cpu":
+        return joint_lattice_plain_bwd_xp(enc, pred, w, b, lab, logz, g_blank, g_emit, blank)
+    lattice = (logz, g_blank, g_emit)
+    bsz, t, u1, j, v = _check("joint_lattice_bwd_xp", enc, pred, w, b, lab, blank, lattice)
+    wk, bk, vp = _operands(enc, w, b)
+    dev = enc.device
+    dpre = torch.empty((bsz * t * u1, j), dtype=torch.float32, device=dev)
+    d_enc = torch.empty((bsz, t, j), dtype=torch.float32, device=dev)
+    d_pred = torch.empty((bsz, u1, j), dtype=torch.float32, device=dev)
+    fn = cuda_build.load_function("joint_lattice", "joint_lattice_bwd_xp", n_ptrs=13, n_ints=9)
+    P = cuda_build.ptr
+    grids = ctypes.c_int(0)
+    err = fn(P(enc), P(pred), P(wk), P(bk), P(lab), P(logz), P(g_blank), P(g_emit), P(dpre),
+             P(d_enc), P(d_pred), ctypes.addressof(grids), cuda_build.stream_ptr(enc),
+             bsz, t, u1, j, v, vp, blank, *_dtypes(enc, pred))
+    joint_lattice_bwd_xp.launches += grids.value
+    cuda_build.check(err, "joint_lattice_bwd_xp")
+    return d_enc, d_pred
+
+
+def _bwd_w_chunks(m: int, v: int) -> int:
+    """Chunks of the M cells in ``joint_lattice_bwd_w``'s main grid (one
+    block per V tile and chunk): enough for ``_BWD_W_BLOCKS`` blocks, and
+    for at most ``_BWD_W_ROWS`` cells per chunk, whose sequential float32
+    sum into a partial dW then parts from an exact sum by ~1e-5 of its
+    scale (the chunks' partials are summed in a further grid)."""
+    n_vt = -(-v // _V_TILE)
+    return max(1, min(_MAX_CHUNKS, max(-(-_BWD_W_BLOCKS // n_vt), -(-m // _BWD_W_ROWS))))
+
+
+def joint_lattice_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int):
+    """Kernel wrapper with the contract of ``joint_lattice_plain_bwd_w``:
+    one grid writes x = tanh(enc + pred) [B T (U+1), J], the main grid the
+    partial dW and dbias of each (V tile, chunk of rows), a third sums the
+    chunks in order."""
+    if enc.device.type == "cpu":
+        return joint_lattice_plain_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank)
+    lattice = (logz, g_blank, g_emit)
+    bsz, t, u1, j, v = _check("joint_lattice_bwd_w", enc, pred, w, b, lab, blank, lattice)
+    wk, bk, vp = _operands(enc, w, b)
+    dev = enc.device
+    n_chunks = _bwd_w_chunks(bsz * t * u1, v)
+    xbuf = torch.empty((bsz * t * u1, j), dtype=enc.dtype, device=dev)
+    part = torch.empty((n_chunks, j, vp), dtype=torch.float32, device=dev)
+    dbpart = torch.empty((n_chunks, vp), dtype=torch.float32, device=dev)
+    dw = torch.empty((j, vp), dtype=torch.float32, device=dev)
+    db = torch.empty((vp,), dtype=torch.float32, device=dev)
+    fn = cuda_build.load_function("joint_lattice", "joint_lattice_bwd_w", n_ptrs=15, n_ints=10)
+    P = cuda_build.ptr
+    grids = ctypes.c_int(0)
+    err = fn(P(enc), P(pred), P(wk), P(bk), P(lab), P(logz), P(g_blank), P(g_emit), P(xbuf),
+             P(part), P(dbpart), P(dw), P(db), ctypes.addressof(grids),
+             cuda_build.stream_ptr(enc), bsz, t, u1, j, v, vp, blank, n_chunks,
+             *_dtypes(enc, pred))
+    joint_lattice_bwd_w.launches += grids.value
+    cuda_build.check(err, "joint_lattice_bwd_w")
+    return dw[:, :v], db[:v]
+
+
+joint_lattice_fwd.launches = 0
+joint_lattice_bwd_xp.launches = 0
+joint_lattice_bwd_w.launches = 0
+
+
+class _JointLattice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, enc, pred, w, b, lab, blank):
+        lpb, lpe, logz = joint_lattice_fwd(enc, pred, w, b, lab, blank)
+        ctx.save_for_backward(enc, pred, w, b, lab, logz)
+        ctx.blank = blank
+        return lpb, lpe
+
+    @staticmethod
+    def backward(ctx, g_blank, g_emit):
+        enc, pred, w, b, lab, logz = ctx.saved_tensors
+        g = [torch.zeros_like(logz) if x is None else x.float().contiguous()
+             for x in (g_blank, g_emit)]
+        args = (enc, pred, w, b, lab, logz, *g, ctx.blank)
+        d_enc, d_pred = joint_lattice_bwd_xp(*args)
+        dw, db = joint_lattice_bwd_w(*args)
+        return (d_enc.to(enc.dtype), d_pred.to(pred.dtype), dw.to(w.dtype), db.to(b.dtype),
+                None, None)
+
+
+def joint_lattice_log_probs(enc_proj, pred_proj, w_out, b_out, labels_padded, blank: int = 0):
+    """(lp_blank, lp_emit) [B, T, U+1] float32 of the full-lattice joint
+    through the kernels, differentiable with respect to enc_proj,
+    pred_proj, w_out and b_out (the JAX ``joint_lattice_log_probs_pallas``;
+    gradients in their inputs' dtypes). ``labels_padded`` [B, U+1]: label
+    u+1 at row u, blank at row U."""
+    lab = labels_padded.to(torch.int32).contiguous()
+    return _JointLattice.apply(enc_proj.contiguous(), pred_proj.contiguous(), w_out, b_out, lab,
+                               blank)

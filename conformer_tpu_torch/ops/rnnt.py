@@ -10,7 +10,10 @@
 - ``rnnt_lattice_log_probs_fused``: the full-lattice joint chunked over T
   and recomputed in the backward (``torch.utils.checkpoint``, as
   ``jax.checkpoint`` there), so [B, T, U+1, V] never exists at once.
-- ``rnnt_loss_fused``: joint + DP, the transducer loss of the full lattice.
+- ``rnnt_loss_fused``: joint + DP, the transducer loss of the full lattice;
+  ``joint_impl="kernel"`` takes the fused joint kernels
+  (``ops/joint_lattice.py``, JAX's ``joint_impl="pallas"``) in place of
+  the chunked joint.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from .joint_lattice import joint_lattice_log_probs
 
 NEG_INF = -1e30
 
@@ -85,12 +90,14 @@ def gather_lattice_log_probs(logits: torch.Tensor, labels: torch.Tensor, blank: 
 def joint_log_probs_chunk(enc_c, pred, w_out, b_out, lab, blank: int):
     """(lp_blank, lp_emit) of one chunk of the joint: enc_c [B,tc,J] against
     pred [B,(tc,)U1,J] (broadcast over t, or one row per t as in the band
-    joint), logits = tanh(enc+pred) W + b. The product runs in the
-    activation dtype; the logsumexp and the picks in float32. ``lab`` is
-    the label index per (b, t, u) or per (b, u)."""
+    joint), logits = tanh(enc+pred) W + b. x and W take the activation
+    dtype, the product's sums float32 (JAX's preferred_element_type: the
+    operands are widened, and a product of two bf16 values is exact in
+    float32), and the logsumexp and the picks are float32. ``lab`` is the
+    label index per (b, t, u) or per (b, u)."""
     pred = pred if pred.dim() == 4 else pred[:, None]
     x = torch.tanh(enc_c[:, :, None, :] + pred)
-    logits = torch.matmul(x, w_out.to(x.dtype)).float() + b_out.float()
+    logits = torch.matmul(x.float(), w_out.to(x.dtype).float()) + b_out.float()
     denom = torch.logsumexp(logits, dim=-1)
     lab = lab if lab.dim() == 3 else lab[:, None, :].expand(logits.shape[:3])
     emit = logits.gather(3, lab[..., None].long())[..., 0]
@@ -143,14 +150,18 @@ def rnnt_loss_fused(
     lattice_impl: str = "plain",
     joint_impl: str = "plain",
 ) -> torch.Tensor:
-    """Transducer loss of the full lattice from the joint projections."""
-    if joint_impl != "plain":
-        raise NotImplementedError(
-            "the fused joint kernel (joint_kernel.py, use_pallas_joint) is not ported yet"
+    """Transducer loss of the full lattice from the joint projections; the
+    joint through the fused kernels (``joint_impl="kernel"``) or the
+    chunked plain joint (``"plain"``)."""
+    if joint_impl == "kernel":
+        lab = F.pad(labels, (0, 1), value=blank)
+        lp_blank, lp_emit = joint_lattice_log_probs(enc_proj, pred_proj, w_out, b_out, lab, blank)
+    elif joint_impl == "plain":
+        lp_blank, lp_emit = rnnt_lattice_log_probs_fused(
+            enc_proj, pred_proj, w_out, b_out, labels, blank, t_chunk
         )
-    lp_blank, lp_emit = rnnt_lattice_log_probs_fused(
-        enc_proj, pred_proj, w_out, b_out, labels, blank, t_chunk
-    )
+    else:
+        raise ValueError(f"joint_impl {joint_impl!r}: 'kernel' or 'plain'")
     nll = _lattice_nll(lp_blank, lp_emit, t_lengths, u_lengths, lattice_impl)
     if reduction == "mean":
         return nll.mean()

@@ -8,6 +8,9 @@ unless a test says otherwise: both sides compute in float32 with sums in
 different orders.
 """
 
+import functools
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,11 +21,14 @@ import torch.nn.functional as F
 from conformer_tpu.ops import ctc as j_ctc
 from conformer_tpu.ops import rnnt as j_rnnt
 from conformer_tpu.ops import rnnt_pruned as j_pruned
+from conformer_tpu.ops.pallas import joint_kernel as jk
 from conformer_tpu.ops.pallas.ctc_kernel import ctc_loss_pallas
 from conformer_tpu.ops.pallas.rnnt_kernel import rnnt_loss_from_log_probs_pallas
 from conformer_tpu.ops.pallas.simple_lattice_kernel import simple_lattice_log_probs_pallas
 from conformer_tpu_torch.ops import ctc as p_ctc
 from conformer_tpu_torch.ops import ctc_dp as p_ctc_dp
+from conformer_tpu_torch.ops import fbank_kernel as p_fbank
+from conformer_tpu_torch.ops import joint_lattice as p_joint
 from conformer_tpu_torch.ops import rnnt as p_rnnt
 from conformer_tpu_torch.ops import rnnt_lattice as p_lat
 from conformer_tpu_torch.ops import rnnt_pruned as p_pruned
@@ -331,8 +337,12 @@ def test_wrappers_take_plain_on_cpu_and_count_no_launch():
     skip = torch.where(p_ctc.skip_allowed(ext, 0), 0.0, p_ctc.NEG_INF)
     emit = _t(lp).gather(2, ext[:, None, :].expand(B, T, ext.shape[1])).contiguous()
     g = _t(W)
+    _, _, enc, pred, w, b, _, _, _ = _pruned_inputs(13)
+    wave = _t(np.sin(np.arange(4000, dtype=np.float32) / 7.0)[None] * 3000.0)
     wrappers = (p_simple.simple_lattice_fwd, p_simple.simple_lattice_bwd, p_lat.rnnt_lattice_fwd,
-                p_lat.rnnt_lattice_bwd, p_ctc_dp.ctc_dp_fwd, p_ctc_dp.ctc_dp_bwd)
+                p_lat.rnnt_lattice_bwd, p_ctc_dp.ctc_dp_fwd, p_ctc_dp.ctc_dp_bwd,
+                p_joint.joint_lattice_fwd, p_joint.joint_lattice_bwd_xp,
+                p_joint.joint_lattice_bwd_w, p_fbank.fbank_kernel)
     before = [w.launches for w in wrappers]
 
     s_out = p_simple.simple_lattice_fwd(_t(am), _t(lm), lab, 0)
@@ -346,9 +356,18 @@ def test_wrappers_take_plain_on_cpu_and_count_no_launch():
     c_out = p_ctc_dp.ctc_dp_fwd(emit, skip, _t(ctl), _t(cul))
     c_ref = p_ctc_dp.ctc_dp_plain_fwd(emit, skip, _t(ctl), _t(cul))
     c_args = (emit, skip, c_ref[1], _t(ctl), _t(cul), c_ref[0], g)
+    j_in = (_t(enc), _t(pred), _t(w), _t(b), lab)
+    j_out = p_joint.joint_lattice_fwd(*j_in, 0)
+    j_ref = p_joint.joint_lattice_plain_fwd(*j_in, 0)
+    j_args = (*j_in, j_ref[2], gb, ge, 0)
     pairs = [(s_out, s_ref), (s_bwd, s_bwd_ref), (r_out, r_ref),
              (p_lat.rnnt_lattice_bwd(*r_args), p_lat.rnnt_lattice_plain_bwd(*r_args)),
-             (c_out, c_ref), ((p_ctc_dp.ctc_dp_bwd(*c_args),), (p_ctc_dp.ctc_dp_plain_bwd(*c_args),))]
+             (c_out, c_ref), ((p_ctc_dp.ctc_dp_bwd(*c_args),), (p_ctc_dp.ctc_dp_plain_bwd(*c_args),)),
+             (j_out, j_ref),
+             (p_joint.joint_lattice_bwd_xp(*j_args), p_joint.joint_lattice_plain_bwd_xp(*j_args)),
+             (p_joint.joint_lattice_bwd_w(*j_args), p_joint.joint_lattice_plain_bwd_w(*j_args)),
+             ((p_fbank.fbank_kernel(wave, dither=1.0, seed=3),),
+              (p_fbank.fbank_plain(wave, dither=1.0, seed=3),))]
     for got, want in pairs:
         assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert [w.launches for w in wrappers] == before
@@ -461,24 +480,32 @@ def test_rnnt_loss_pruned_given_bounds_and_full_band_equals_full_loss():
     _close(wide, full)
 
 
-@pytest.mark.parametrize("impl", ["plain", "kernel"])
-def test_rnnt_loss_fused_matches_jax(impl):
+@pytest.mark.parametrize("impl,joint", [("plain", "plain"), ("kernel", "plain"),
+                                        ("plain", "kernel"), ("kernel", "kernel")],
+                         ids=["plain", "kernel", "plain-joint_kernel", "kernel-joint_kernel"])
+def test_rnnt_loss_fused_matches_jax(impl, joint):
+    """The lattice DP (``impl``) and the joint (``joint``: the chunked plain
+    joint, or the joint kernels' path, JAX's joint_impl="pallas" with its
+    kernel in interpret mode at small tiles)."""
     _, _, enc, pred, w, b, labels, tl, ul = _pruned_inputs(16)
     jx = [jnp.asarray(a) for a in (enc, pred, w, b)]
     jimpl = "pallas" if impl == "kernel" else "xla"
+    jjoint = "pallas" if joint == "kernel" else "xla"
 
     def j_fn(*xs):
         nll = j_rnnt.rnnt_loss_fused(*xs, jnp.asarray(labels), jnp.asarray(tl), jnp.asarray(ul),
-                                     reduction="none", t_chunk=8, lattice_impl=jimpl)
+                                     reduction="none", t_chunk=8, lattice_impl=jimpl,
+                                     joint_impl=jjoint)
         return jnp.sum(jnp.asarray(W) * nll), nll
 
-    j_g, j_nll = jax.grad(j_fn, argnums=(0, 1, 2, 3), has_aux=True)(*jx)
+    small = functools.partial(jk.joint_lattice_log_probs_pallas, t_tile=8, v_tile=128,
+                              v_tile_bwd=128, interpret=True)
+    with mock.patch.object(jk, "joint_lattice_log_probs_pallas", small):
+        j_g, j_nll = jax.grad(j_fn, argnums=(0, 1, 2, 3), has_aux=True)(*jx)
     tx = [_t(a, True) for a in (enc, pred, w, b)]
     nll = p_rnnt.rnnt_loss_fused(*tx, _t(labels), _t(tl), _t(ul), reduction="none", t_chunk=8,
-                                 lattice_impl=impl)
+                                 lattice_impl=impl, joint_impl=joint)
     (_t(W) * nll).sum().backward()
     _close(nll, j_nll)
     for got, want in zip(tx, j_g):
         _close(got.grad, want)
-    with pytest.raises(NotImplementedError):
-        p_rnnt.rnnt_loss_fused(*tx, _t(labels), _t(tl), _t(ul), joint_impl="kernel")
