@@ -16,13 +16,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
                shape with a dynamic-chunk mask, against their plain
                versions and against autograd through the plain forward,
                the dropout keep-mask bit for bit, its keep share, and
-               bitwise repeatability; each of the six loss kernels
-               (simple lattice, RNN-T lattice DP, CTC DP; forward and
-               backward) against its plain version in float32 at the
+               bitwise repeatability; the same at Conformer-L's and -S's
+               head widths (H=8, dk=64, D=512; H=4, dk=36, D=144), every
+               output poisoned with NaN first, and the float32 wrappers'
+               ValueError where they do not take the width; each of the
+               six loss kernels (simple lattice, RNN-T lattice DP, CTC DP;
+               forward and backward) against its plain version in float32 at the
                training shape (B=32, T'=374, U=64, V=5002) and at a tiny
                ragged one, with edge rows (t_len 1, u_len 0, a
-               bucket-padding row); the two int8 serving kernels at route
-               B's rows (M = 48 x 374), route A's (374), a ragged M and
+               bucket-padding row), and the CTC and RNN-T DPs at long
+               labels (U = 400-1100) with their wrappers' limits; the
+               two int8 serving kernels at route B's rows (M = 48 x 374),
+               route A's (374), a ragged M and
                M = 1 with an all-zero row, in float32 and bfloat16:
                int8_matmul bit for bit, int8_ffn within JAX's tolerances;
                the three joint kernels (forward, bwd_xp, bwd_w) in float32
@@ -511,6 +516,122 @@ def check_attention_train_kernels(dev):
     return entries
 
 
+# ------------------------------------ attention at the other shipped widths
+
+# Conformer-L (configs/conformer_l.json: d=512, 8 heads) and Conformer-S
+# (configs/conformer_s.json: d=144, 4 heads) at T'=374; the keep-mask
+# shape has T' <= dk (identity v and dO)
+ATTN_WIDTHS = {"conformer_l": dict(b=4, h=8, dk=64, d=512, keep=(4, 64)),
+               "conformer_s": dict(b=8, h=4, dk=36, d=144, keep=(8, 36))}
+
+
+def poison(*like) -> None:
+    """Allocate and free a NaN-filled tensor of each given (shape, dtype),
+    so that the caching allocator hands those blocks to the next outputs
+    of the same sizes: an element a kernel never writes then reads NaN and
+    fails the comparison with the plain version."""
+    import torch
+
+    blocks = [torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+              for shape, dtype in like]
+    del blocks
+
+
+def check_attention_widths(dev) -> dict:
+    """The attention kernels at Conformer-L's and Conformer-S's head
+    widths (T'=374): the forward without and with dropout 0.1, dq and dkv,
+    against their plain versions in every dtype whose kernels take the
+    width, with outputs poisoned beforehand (no element left unwritten);
+    the backward bitwise repeatable and the keep-mask bit for bit. Where
+    the float32 kernels do not take the width, all three wrappers must
+    raise ValueError before any launch. Returns the largest error of each
+    kernel."""
+    import torch
+
+    from conformer_tpu_torch.ops import rel_attention as ra
+
+    gen = torch.Generator().manual_seed(3)
+    errs = dict.fromkeys(ATTENTION_KERNELS, 0.0)
+    counters = (ra.rel_attention, ra.rel_attention_bwd_dq, ra.rel_attention_bwd_dkv)
+    t = 374
+    for label, w in ATTN_WIDTHS.items():
+        b, h, dk, d = w["b"], w["h"], w["dk"], w["d"]
+        scale = dk ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            tol = TOL[name]
+            args, seed, g = attention_train_inputs(dev, dtype, gen, b, t, dk=dk, d=d, h=h)
+            why = ra.width_error(dtype, dk, d)
+            if why is not None:
+                before = [f.launches for f in counters]
+                kw = dict(scale=scale, dropout_rate=ATTN_RATE)
+                lse = torch.zeros((b, h, t), device=dev)
+                refused = 0
+                for call in (lambda: ra.rel_attention(*args, seed=seed, **kw),
+                             lambda: ra.rel_attention_bwd_dq(*args, seed, g, lse, lse, **kw),
+                             lambda: ra.rel_attention_bwd_dkv(*args, seed, g, lse, lse, **kw)):
+                    try:
+                        call()
+                    except ValueError:
+                        refused += 1
+                check(refused == 3 and [f.launches for f in counters] == before,
+                      f"attention {label} {name}: {refused} of 3 wrappers refused ({why})")
+                print(f"kernels: attention {label} {name} H={h} dk={dk} D={d}: all three "
+                      f"wrappers raise ValueError before any launch ({why})")
+                continue
+            for rate in (0.0, ATTN_RATE):
+                kw = dict(scale=scale, dropout_rate=rate)
+                poison(((b, h, t, dk), dtype), ((b, h, t), torch.float32))
+                out, lse = ra.rel_attention(*args, seed=seed, **kw)
+                ref_out, ref_lse = ra.rel_attention_plain(*args, seed=seed, **kw)
+                e_f = compare(f"rel_flash_attention {name} {label}", (out, lse),
+                              (ref_out, ref_lse), tol)
+                delta = (g.float() * ref_out.float()).sum(dim=-1)
+                bargs = (*args, seed, g, ref_lse, delta)
+                poison(((b, h, t, dk), torch.float32), ((b, h, t, d), torch.float32))
+                dq = ra.rel_attention_bwd_dq(*bargs, **kw)
+                poison(((b, h, t, dk), torch.float32), ((b, h, t, dk), torch.float32))
+                dkv = ra.rel_attention_bwd_dkv(*bargs, **kw)
+                same = all(torch.equal(x, y) for x, y in zip(
+                    (*dq, *dkv), (*ra.rel_attention_bwd_dq(*bargs, **kw),
+                                  *ra.rel_attention_bwd_dkv(*bargs, **kw))))
+                torch.cuda.synchronize()
+                check(same, f"attention {label} {name} rate {rate}: not bitwise repeatable")
+                plain = ra.rel_attention_bwd_plain(*bargs, **kw)
+                e_q = compare(f"rel_flash_attention_bwd_dq {name} {label}", dq, plain[:2], tol)
+                e_kv = compare(f"rel_flash_attention_bwd_dkv {name} {label}", dkv, plain[2:],
+                               tol)
+                for key, e in zip(ATTENTION_KERNELS, (e_f, e_q, e_kv)):
+                    errs[key] = max(errs[key], e)
+                line = (f"kernels: attention {label} {name} B={b} H={h} T'={t} dk={dk} D={d}, "
+                        f"dropout {rate}: max_abs_err fwd {e_f:.3g}, dq/dAB {e_q:.3g}, dK/dV "
+                        f"{e_kv:.3g} (tol {tol} abs + rel; outputs poisoned with NaN "
+                        f"beforehand), bitwise repeatable {same}")
+                if dtype == torch.bfloat16:
+                    line += (f"; kernel ms fwd "
+                             f"{time_ms(lambda: ra.rel_attention(*args, seed=seed, **kw)):.4f}"
+                             f", dq {time_ms(lambda: ra.rel_attention_bwd_dq(*bargs, **kw)):.4f}"
+                             f", dkv "
+                             f"{time_ms(lambda: ra.rel_attention_bwd_dkv(*bargs, **kw)):.4f}")
+                print(line)
+            kb, kt = w["keep"]
+            args, seed, g = attention_train_inputs(dev, dtype, gen, kb, kt, dk=dk, d=d, h=h,
+                                                   identity=True)
+            out, lse = ra.rel_attention(*args, seed=seed, scale=scale, dropout_rate=ATTN_RATE)
+            delta = (g.float() * out.float()).sum(dim=-1)
+            _, d_v = ra.rel_attention_bwd_dkv(*args, seed, g, lse, delta, scale=scale,
+                                              dropout_rate=ATTN_RATE)
+            torch.cuda.synchronize()
+            want = ra.keep_mask(seed, kb, h, kt, kt, ATTN_RATE, dev) & args[5][:, None]
+            got_f, got_v = out[..., :kt] != 0, d_v[..., :kt].transpose(-1, -2) != 0
+            check(torch.equal(got_f, want) and torch.equal(got_v, want),
+                  f"attention keep-mask {label} {name}: {int((got_f != want).sum())} "
+                  f"(forward) and {int((got_v != want).sum())} (dV) elements differ")
+            print(f"kernels: attention keep-mask {label} {name} B={kb} T'={kt}: forward and dV "
+                  "equal the hash bit for bit")
+    return errs
+
+
 # -------------------------------------------------------- training kernels
 
 
@@ -695,6 +816,58 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
                   f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']} ms, bound "
                   f"{bnd * 1e3:.2f} us ({by}; {note})")
     return entries
+
+
+# DP kernels at label lengths past one thread per state (B, T', U): CTC
+# S = 801 and 1201, the lattice U+1 = 601 and 1101
+DP_LONG = {"ctc_dp": ((2, 1300, 400), (2, 1300, 600)),
+           "rnnt_lattice": ((2, 374, 600), (2, 374, 1100))}
+
+
+def check_dp_long_labels(dev) -> dict:
+    """The CTC and RNN-T DP kernels against their plain versions in
+    float32 at the long label lengths of ``DP_LONG`` (V=64: the DPs do not
+    see V), and their wrappers' limits, which must pass 1024. Returns the
+    largest error of each kernel."""
+    import torch
+
+    from conformer_tpu_torch.ops import ctc_dp as cd
+    from conformer_tpu_torch.ops import rnnt_lattice as rl
+
+    print(f"kernels: DP wrapper limits (shared memory): ctc_dp S <= {cd.max_states()}; "
+          f"rnnt_lattice U+1 <= {rl.max_u1(374)} at T'=374, {rl.max_u1(1300)} at T'=1300")
+    check(cd.max_states() > 1024 and rl.max_u1(1300) > 1024, "a DP wrapper caps at 1024")
+    gen = torch.Generator().manual_seed(4)
+    errs = dict.fromkeys(("ctc_dp_fwd", "ctc_dp_bwd", "rnnt_lattice_fwd", "rnnt_lattice_bwd"),
+                         0.0)
+    for kind, shapes in DP_LONG.items():
+        for b, t, u in shapes:
+            x = training_kernel_inputs(dev, gen, b, t, u, 64)
+            tl, ul = x["t_len"], x["u_len"]
+            if kind == "ctc_dp":
+                fargs = (x["emit"], x["skip"], tl, ul)
+                fwd, fwd_p = cd.ctc_dp_fwd(*fargs), cd.ctc_dp_plain_fwd(*fargs)
+                bargs = (x["emit"], x["skip"], fwd_p[1], tl, ul, fwd_p[0], x["g"])
+                bwd, bwd_p = (cd.ctc_dp_bwd(*bargs),), (cd.ctc_dp_plain_bwd(*bargs),)
+                f_ms = time_ms(lambda: cd.ctc_dp_fwd(*fargs), iters=5)
+                b_ms = time_ms(lambda: cd.ctc_dp_bwd(*bargs), iters=5)
+                width = f"S={2 * u + 1}"
+            else:
+                fargs = (x["lp_blank"], x["lp_emit"], tl, ul)
+                fwd, fwd_p = rl.rnnt_lattice_fwd(*fargs), rl.rnnt_lattice_plain_fwd(*fargs)
+                bargs = (x["lp_blank"], x["lp_emit"], fwd_p[1], tl, ul, fwd_p[0], x["g"])
+                bwd, bwd_p = rl.rnnt_lattice_bwd(*bargs), rl.rnnt_lattice_plain_bwd(*bargs)
+                f_ms = time_ms(lambda: rl.rnnt_lattice_fwd(*fargs), iters=5)
+                b_ms = time_ms(lambda: rl.rnnt_lattice_bwd(*bargs), iters=5)
+                width = f"U+1={u + 1}"
+            e_f = compare(f"{kind}_fwd B={b} T'={t} U={u}", fwd, fwd_p)
+            e_b = compare(f"{kind}_bwd B={b} T'={t} U={u}", bwd, bwd_p)
+            errs[f"{kind}_fwd"] = max(errs[f"{kind}_fwd"], e_f)
+            errs[f"{kind}_bwd"] = max(errs[f"{kind}_bwd"], e_b)
+            print(f"kernels: {kind} f32 long labels B={b} T'={t} U={u} ({width}): max_abs_err "
+                  f"fwd {e_f:.3g}, bwd {e_b:.3g} (tol {TOL['float32']} abs + rel); kernel ms "
+                  f"fwd {f_ms:.4f}, bwd {b_ms:.4f}")
+    return errs
 
 
 # ------------------------------------------------------------ int8 kernels
@@ -1857,7 +2030,11 @@ def main() -> int:
     entries.update(check_attention_train_kernels(dev))
     entries["rel_flash_attention"]["max_abs_err"] = max(
         entries["rel_flash_attention"]["max_abs_err"], decode_attention["max_abs_err"])
+    for name, e in check_attention_widths(dev).items():
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
     entries.update(check_training_kernels(dev))
+    for name, e in check_dp_long_labels(dev).items():
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
     entries.update(check_int8_kernels(dev))
     entries.update(check_joint_kernels(dev))
     entries["fbank"] = check_fbank_kernel(dev)

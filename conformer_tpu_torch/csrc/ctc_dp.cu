@@ -36,47 +36,54 @@
 //
 // Design: the TPU kernel streams time-major [T_TILE, 8|32, 128-lane] slabs
 // with the wavefront carried across sequential grid steps. Here one block
-// per batch row walks all of T with one thread per state s, reading
-// emit[b,t,:] straight from [B,T,S] (coalesced over s) and exchanging the
-// s-1 and s-2 neighbours through a double-buffered shared array, one
-// barrier per step. The next 16 steps' emissions are loaded into
-// registers while the current 16 are computed. S <= 1024. After the beta
-// walk, a second pass gives each thread whole frames: it sums the frame's
-// S occupancies and scales them by -g / sum.
+// per batch row walks all of T. Its threads (at most 512) walk the states
+// with a block stride: thread tid owns s = tid + i * blockDim for i < NS,
+// so any S whose two shared rows fit in shared memory runs (S <= 29056).
+// Each step reads emit[b,t,:] straight from [B,T,S] (coalesced over s) and
+// exchanges the s-1 and s-2 neighbours through a double-buffered shared
+// array, one barrier per step. The next CH = 16 / NS steps' emissions are
+// loaded into registers while the current CH are computed (16 steps at
+// NS = 1, the recipe's S <= 512). After the beta walk, a second pass gives
+// each thread whole frames: it sums the frame's S occupancies and scales
+// them by -g / sum.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "lattice_dp_common.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr int CH = 16;   // time steps per register-staged chunk
+using namespace lattice_dp;
 
-__device__ __forceinline__ float lae(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
-}
-
-__global__ void ctc_dp_fwd_kernel(const float* __restrict__ emit, const float* __restrict__ skip,
-                                  const int* __restrict__ tlen, const int* __restrict__ ulen,
-                                  float* __restrict__ nll, float* __restrict__ alpha, int T,
-                                  int S) {
+template <int NS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    ctc_dp_fwd_kernel(const float* __restrict__ emit, const float* __restrict__ skip,
+                      const int* __restrict__ tlen, const int* __restrict__ ulen,
+                      float* __restrict__ nll, float* __restrict__ alpha, int T, int S) {
+  constexpr int CH = chunk<NS>();
   extern __shared__ float sh[];     // [2][S]
-  const int b = blockIdx.x, s = threadIdx.x;
-  const bool live = s < S;
+  const int b = blockIdx.x, nt = blockDim.x;
   const int tl = tlen[b], ul = ulen[b];
   const size_t base = (size_t)b * T * S;
-  const float sk = live ? skip[(size_t)b * S + s] : kNeg;
-  float ce[CH], ne[CH];
-  auto load = [&](int t0, float (&xs)[CH]) {
+  int st[NS];
+  bool live[NS];
+  float sk[NS], al[NS];
 #pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      const int t = t0 + k;
-      xs[k] = (live && t < T) ? emit[base + (size_t)t * S + s] : kNeg;
-    }
+  for (int i = 0; i < NS; ++i) {
+    st[i] = threadIdx.x + i * nt;
+    live[i] = st[i] < S;
+    sk[i] = live[i] ? skip[(size_t)b * S + st[i]] : kNeg;
+    al[i] = kNeg;
+  }
+  float ce[NS][CH], ne[NS][CH];
+  auto load = [&](int t0, float (&xs)[NS][CH]) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        const int t = t0 + k;
+        xs[i][k] = (live[i] && t < T) ? emit[base + (size_t)t * S + st[i]] : kNeg;
+      }
   };
   load(0, ce);
-  float al = kNeg;
   for (int t0 = 0; t0 < T; t0 += CH) {
     load(t0 + CH, ne);
 #pragma unroll
@@ -84,77 +91,116 @@ __global__ void ctc_dp_fwd_kernel(const float* __restrict__ emit, const float* _
       const int t = t0 + k;
       if (t >= T) break;
       if (t == 0) {
-        al = (s < 2 && !(s == 1 && ul == 0)) ? ce[k] : kNeg;
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          al[i] = (st[i] < 2 && !(st[i] == 1 && ul == 0)) ? ce[i][k] : kNeg;
       } else {
-        if (live) sh[(t & 1) * S + s] = al;
+        float* cur = sh + (t & 1) * S;
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+          if (live[i]) cur[st[i]] = al[i];
         __syncthreads();
-        const float f1 = (live && s >= 1) ? sh[(t & 1) * S + s - 1] : kNeg;
-        const float f2 = (live && s >= 2) ? sh[(t & 1) * S + s - 2] + sk : kNeg;
-        const float upd = fmaxf(lae(lae(al, f1), f2) + ce[k], kNeg);
-        if (t < tl) al = upd;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          const int s = st[i];
+          const float f1 = (live[i] && s >= 1) ? cur[s - 1] : kNeg;
+          const float f2 = (live[i] && s >= 2) ? cur[s - 2] + sk[i] : kNeg;
+          const float upd = fmaxf(lae(lae(al[i], f1), f2) + ce[i][k], kNeg);
+          if (t < tl) al[i] = upd;
+        }
       }
-      if (live) alpha[base + (size_t)t * S + s] = al;
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        if (live[i]) alpha[base + (size_t)t * S + st[i]] = al[i];
     }
 #pragma unroll
-    for (int k = 0; k < CH; ++k) ce[k] = ne[k];
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int k = 0; k < CH; ++k) ce[i][k] = ne[i][k];
   }
   __syncthreads();
-  if (live) sh[s] = al;
+#pragma unroll
+  for (int i = 0; i < NS; ++i)
+    if (live[i]) sh[st[i]] = al[i];
   __syncthreads();
-  if (s == 0) {
+  if (threadIdx.x == 0) {
     const float fb = sh[2 * ul];
     const float fl = ul > 0 ? sh[2 * ul - 1] : kNeg;
     nll[b] = -lae(fb, fl);
   }
 }
 
-__global__ void ctc_dp_bwd_kernel(const float* __restrict__ emit, const float* __restrict__ skip,
-                                  const float* __restrict__ alpha, const int* __restrict__ tlen,
-                                  const int* __restrict__ ulen, const float* __restrict__ nll,
-                                  const float* __restrict__ g, float* __restrict__ gemit, int T,
-                                  int S) {
+template <int NS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    ctc_dp_bwd_kernel(const float* __restrict__ emit, const float* __restrict__ skip,
+                      const float* __restrict__ alpha, const int* __restrict__ tlen,
+                      const int* __restrict__ ulen, const float* __restrict__ nll,
+                      const float* __restrict__ g, float* __restrict__ gemit, int T, int S) {
+  constexpr int CH = chunk<NS>();
   extern __shared__ float sh[];     // [2][S]
-  const int b = blockIdx.x, s = threadIdx.x;
-  const bool live = s < S;
+  const int b = blockIdx.x, nt = blockDim.x;
   const int tl = tlen[b], ul = ulen[b];
   const size_t base = (size_t)b * T * S;
   const float logz = -nll[b];
   const float gg = g[b];
-  const float sk2 = (s + 2 < S) ? skip[(size_t)b * S + s + 2] : kNeg;
-  const float term = (s == 2 * ul || (s == 2 * ul - 1 && ul > 0)) ? 0.f : kNeg;
-  float ce[CH], ca[CH], ne[CH], na[CH];
-  // chunks walk time downwards: slot k holds step t0 - k
-  auto load = [&](int t0, float (&xs)[CH], float (&ys)[CH]) {
+  int st[NS];
+  bool live[NS];
+  float sk2[NS], term[NS], beta[NS];
 #pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      const int t = t0 - k;
-      const bool ok = live && t >= 0;
-      xs[k] = ok ? emit[base + (size_t)t * S + s] : kNeg;
-      ys[k] = ok ? alpha[base + (size_t)t * S + s] : kNeg;
-    }
+  for (int i = 0; i < NS; ++i) {
+    const int s = threadIdx.x + i * nt;
+    st[i] = s;
+    live[i] = s < S;
+    sk2[i] = (s + 2 < S) ? skip[(size_t)b * S + s + 2] : kNeg;
+    term[i] = (s == 2 * ul || (s == 2 * ul - 1 && ul > 0)) ? 0.f : kNeg;
+    beta[i] = kNeg;
+  }
+  float ce[NS][CH], ca[NS][CH], ne[NS][CH], na[NS][CH];
+  // chunks walk time downwards: slot k holds step t0 - k
+  auto load = [&](int t0, float (&xs)[NS][CH], float (&ys)[NS][CH]) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        const int t = t0 - k;
+        const bool ok = live[i] && t >= 0;
+        xs[i][k] = ok ? emit[base + (size_t)t * S + st[i]] : kNeg;
+        ys[i][k] = ok ? alpha[base + (size_t)t * S + st[i]] : kNeg;
+      }
   };
   load(T - 1, ce, ca);
-  float beta = kNeg;
   for (int t0 = T - 1; t0 >= 0; t0 -= CH) {
     load(t0 - CH, ne, na);
 #pragma unroll
     for (int k = 0; k < CH; ++k) {
       const int t = t0 - k;
       if (t < 0) break;
-      const float bh = (t >= tl - 1) ? term : beta;
-      if (live) gemit[base + (size_t)t * S + s] = t < tl ? expf(ca[k] + bh - logz) : 0.f;
-      const float v = ce[k] + bh;
-      if (live) sh[(t & 1) * S + s] = v;
+      float* cur = sh + (t & 1) * S;
+      float v[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const float bh = (t >= tl - 1) ? term[i] : beta[i];
+        if (live[i])
+          gemit[base + (size_t)t * S + st[i]] = t < tl ? expf(ca[i][k] + bh - logz) : 0.f;
+        v[i] = ce[i][k] + bh;
+        if (live[i]) cur[st[i]] = v[i];
+      }
       __syncthreads();
-      const float n1 = (s + 1 < S) ? sh[(t & 1) * S + s + 1] : kNeg;
-      const float n2 = (s + 2 < S) ? sh[(t & 1) * S + s + 2] + sk2 : kNeg;
-      beta = fmaxf(lae(lae(v, n1), n2), kNeg);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int s = st[i];
+        const float n1 = (s + 1 < S) ? cur[s + 1] : kNeg;
+        const float n2 = (s + 2 < S) ? cur[s + 2] + sk2[i] : kNeg;
+        beta[i] = fmaxf(lae(lae(v[i], n1), n2), kNeg);
+      }
     }
 #pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      ce[k] = ne[k];
-      ca[k] = na[k];
-    }
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        ce[i][k] = ne[i][k];
+        ca[i][k] = na[i][k];
+      }
   }
   // each live frame's occupancies, divided by their sum, times -g
   __syncthreads();
@@ -169,28 +215,40 @@ __global__ void ctc_dp_bwd_kernel(const float* __restrict__ emit, const float* _
   }
 }
 
-int threads_for(int S) { return ((S + 31) / 32) * 32; }
-
 }  // namespace
 
+// Shared memory of one block: two rows of S floats, the limit on S that
+// the wrapper checks (ops/ctc_dp.py).
 extern "C" int ctc_dp_fwd(const void* emit, const void* skip, const void* tlen, const void* ulen,
                           void* nll, void* alpha, void* stream, int B, int T, int S) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ctc_dp_fwd_kernel<<<B, threads_for(S), sizeof(float) * 2 * S, st>>>(
-      static_cast<const float*>(emit), static_cast<const float*>(skip),
-      static_cast<const int*>(tlen), static_cast<const int*>(ulen), static_cast<float*>(nll),
-      static_cast<float*>(alpha), T, S);
-  return static_cast<int>(cudaGetLastError());
+  int ns, threads;
+  shape_for(S, &ns, &threads);
+  const size_t smem = sizeof(float) * 2 * (size_t)S;
+  auto run = [&](auto kernel) {
+    return run_kernel(kernel, B, threads, smem, st, static_cast<const float*>(emit),
+                      static_cast<const float*>(skip), static_cast<const int*>(tlen),
+                      static_cast<const int*>(ulen), static_cast<float*>(nll),
+                      static_cast<float*>(alpha), T, S);
+  };
+  auto dispatch = [&]() -> cudaError_t { LATTICE_DP_DISPATCH(ctc_dp_fwd_kernel) };
+  return static_cast<int>(dispatch());
 }
 
 extern "C" int ctc_dp_bwd(const void* emit, const void* skip, const void* alpha,
                           const void* tlen, const void* ulen, const void* nll, const void* g,
                           void* gemit, void* stream, int B, int T, int S) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ctc_dp_bwd_kernel<<<B, threads_for(S), sizeof(float) * 2 * S, st>>>(
-      static_cast<const float*>(emit), static_cast<const float*>(skip),
-      static_cast<const float*>(alpha), static_cast<const int*>(tlen),
-      static_cast<const int*>(ulen), static_cast<const float*>(nll),
-      static_cast<const float*>(g), static_cast<float*>(gemit), T, S);
-  return static_cast<int>(cudaGetLastError());
+  int ns, threads;
+  shape_for(S, &ns, &threads);
+  const size_t smem = sizeof(float) * 2 * (size_t)S;
+  auto run = [&](auto kernel) {
+    return run_kernel(kernel, B, threads, smem, st, static_cast<const float*>(emit),
+                      static_cast<const float*>(skip), static_cast<const float*>(alpha),
+                      static_cast<const int*>(tlen), static_cast<const int*>(ulen),
+                      static_cast<const float*>(nll), static_cast<const float*>(g),
+                      static_cast<float*>(gemit), T, S);
+  };
+  auto dispatch = [&]() -> cudaError_t { LATTICE_DP_DISPATCH(ctc_dp_bwd_kernel) };
+  return static_cast<int>(dispatch());
 }

@@ -6,29 +6,56 @@
 //   out = dropout(softmax(((q+u) K^T + AB F^T) * scale, mask)) V,   lse
 //
 // where AB [B,H,Tq,D] and F [Tk,D] are the factorised relative-position
-// bias (D = d_model, four times dk at Conformer-M). Semantics kept from the
-// TPU kernel: masked scores are -1e30; the normaliser and the lse come from
-// the un-dropped probabilities, and only the PV sum sees p * keep / (1 -
-// rate); a fully masked row gives out = 0, lse = 1e30. The keep-mask is the
-// counter hash of rel_attention_common.cuh on global (row, column), seeded
-// from a one-element int32 tensor read on the device; at rate 0 the hash is
-// not evaluated and the result is that of the kernel without dropout. The
-// backward is rel_flash_attention_bwd.cu.
+// bias (D = d_model: four times dk at Conformer-M, eight at L). Semantics
+// kept from the TPU kernel: masked scores are -1e30; the normaliser and the
+// lse come from the un-dropped probabilities, and only the PV sum sees p *
+// keep / (1 - rate); a fully masked row gives out = 0, lse = 1e30. The
+// keep-mask is the counter hash of rel_attention_common.cuh on global (row,
+// column), seeded from a one-element int32 tensor read on the device; at
+// rate 0 the hash is not evaluated. The backward is
+// rel_flash_attention_bwd.cu.
 //
-// Bound: at the decode shape (B=48, H=4, T=374, dk=64, D=256, bf16) the
-// inputs and outputs move about 81 MB (AB alone 37 MB) and the three
-// products need about 20.6 GFLOP, so the card's memory rate bounds it
-// (~24 us at 3.35 TB/s) only just above its bf16 tensor rate (~21 us).
+// Bound: at the training shape (B=32, H=4, T=374, dk=64, D=256, bf16) the
+// inputs and outputs move about 54 MB (AB alone 24.5 MB) and the products
+// need about 13.7 GFLOP on the tensor cores, so the card's memory rate
+// bounds it (~16 us at 3.35 TB/s), just above its bf16 tensor rate (~14
+// us).
 //
-// Design (simple and right first): the TPU kernel kept a whole 384-row
-// sequence in VMEM; here one block of 256 threads owns a 64-row query tile
-// of one (batch, head), keeps Q and AB in shared memory as float32, and
-// streams 64-key tiles of K, V and F through shared memory with an online
-// softmax. Each thread owns a 4x4 register tile of the scores (rows
-// ty+16r, keys tx+16c) and of the output (rows ty+16r, dims tx+16c), so
-// dk <= 64. Products are float32 FMAs on the CUDA cores; the ragged tail
-// of queries and keys is masked in the block instead of padded copies.
-// Tensor-core MMA, TMA and warp specialisation are later work.
+// bf16 design (the model's path), on the tensor cores with mma.sync:
+//  - The two score terms are one product of depth KD = dk + D (rounded up
+//    to 64): s = [q+u | AB] . [K | F]^T, bf16 operands, float32
+//    accumulators; dk = 36 (Conformer-S) is zero-padded to 48.
+//  - A block of NW warps owns 16 NW query rows of one (batch, head), each
+//    warp 16 rows; the [q+u | AB] tile stays in shared memory, and key
+//    tiles of 8 NW keys of [K | F] and V stream through a 2-stage ring
+//    filled by cp.async (16-byte copies where the widths allow, zero-fill
+//    past the ragged tail), so the next tile's copy overlaps the current
+//    tile's products. NW = 8 where the block fits shared memory (Conformer-
+//    M: 182 KB, S: 114 KB), else 4 (L, D=512: 155 KB); one block per SM.
+//  - mma.sync.m16n8k16 with ldmatrix from rows padded by 16 bytes (no bank
+//    conflicts); the next 16-deep step's fragments load while the current
+//    step multiplies. The online softmax runs on the accumulator fragment
+//    (quad shuffles for the row max), dropout per fragment element by its
+//    global (row, column), and P goes to the P.V product as a bf16 A
+//    operand straight from the accumulator registers, never through
+//    shared memory. The mask bytes of a tile are loaded one tile ahead.
+//  - F [Tk, D] is the same for every block; each block starts at another
+//    key tile (rotated), so that the blocks do not all read the same rows
+//    of F from L2 at once.
+//  - A key tile that the mask hides from every row of the block is skipped
+//    (a vote at the barrier the tile needs anyway): the result is the same,
+//    since such a tile adds nothing. Padded keys past a row's length cost
+//    nothing then. exp2 runs on the special-function unit alone
+//    (ex2.approx, subnormals kept, so that no probability flushes to 0).
+//  wgmma (warpgroup MMA from shared-memory descriptors) and TMA are the
+//  next step: mma.sync with ldmatrix and cp.async came first because its
+//  fragment layouts need no descriptor or swizzle set-up to be right.
+//
+// float32 design (the parity path): one block of 256 threads owns a 64-row
+// query tile, keeps Q and AB in shared memory as float32, and streams
+// 64-key tiles of K, V and F with an online softmax; each thread owns a 4x4
+// register tile of the scores and of the output, so dk <= 64, and products
+// are float32 FMAs on the CUDA cores. Its shared memory holds D <= 256.
 
 #include "rel_attention_common.cuh"
 
@@ -52,11 +79,10 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
-    const T* __restrict__ qu, const T* __restrict__ ab, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ feats,
-    const uint8_t* __restrict__ mask, const int* __restrict__ seed, T* __restrict__ out,
+__global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
+    const float* __restrict__ qu, const float* __restrict__ ab, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ feats,
+    const uint8_t* __restrict__ mask, const int* __restrict__ seed, float* __restrict__ out,
     float* __restrict__ lse, int H, int Tq, int Tk, int dk, int D, float scale, int drop,
     uint32_t thr, float inv_keep) {
   extern __shared__ float smem[];
@@ -71,20 +97,20 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  const T* qg = qu + bh * Tq * dk;
-  const T* abg = ab + bh * Tq * D;
-  const T* kg = k + bh * Tk * dk;
-  const T* vg = v + bh * Tk * dk;
+  const float* qg = qu + bh * Tq * dk;
+  const float* abg = ab + bh * Tq * D;
+  const float* kg = k + bh * Tk * dk;
+  const float* vg = v + bh * Tk * dk;
   const uint8_t* mg = mask + (size_t)b * Tq * Tk;
   const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
 
   for (int e = tid; e < BQ * dk; e += NT) {
     const int r = e / dk, c = e - r * dk, i = q0 + r;
-    sQ[r * dkp + c] = i < Tq ? to_f(qg[(size_t)i * dk + c]) : 0.f;
+    sQ[r * dkp + c] = i < Tq ? qg[(size_t)i * dk + c] : 0.f;
   }
   for (int e = tid; e < BQ * D; e += NT) {
     const int r = e / D, c = e - r * D, i = q0 + r;
-    sAB[r * Dp + c] = i < Tq ? to_f(abg[(size_t)i * D + c]) : 0.f;
+    sAB[r * Dp + c] = i < Tq ? abg[(size_t)i * D + c] : 0.f;
   }
 
   float m[4], l[4], acc[4][4];
@@ -100,12 +126,12 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
     for (int e = tid; e < BK * dk; e += NT) {
       const int r = e / dk, c = e - r * dk, j = k0 + r;
       const bool ok = j < Tk;
-      sK[r * dkp + c] = ok ? to_f(kg[(size_t)j * dk + c]) : 0.f;
-      sV[r * dkp + c] = ok ? to_f(vg[(size_t)j * dk + c]) : 0.f;
+      sK[r * dkp + c] = ok ? kg[(size_t)j * dk + c] : 0.f;
+      sV[r * dkp + c] = ok ? vg[(size_t)j * dk + c] : 0.f;
     }
     for (int e = tid; e < BK * D; e += NT) {
       const int r = e / D, c = e - r * D, j = k0 + r;
-      sF[r * Dp + c] = j < Tk ? to_f(feats[(size_t)j * D + c]) : 0.f;
+      sF[r * Dp + c] = j < Tk ? feats[(size_t)j * D + c] : 0.f;
     }
     __syncthreads();
 
@@ -202,31 +228,278 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_kernel(
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int d = tx + 16 * c;
-      if (d < dk) out[(bh * Tq + i) * dk + d] = from_f<T>(live ? acc[r][c] * inv : 0.f);
+      if (d < dk) out[(bh * Tq + i) * dk + d] = live ? acc[r][c] * inv : 0.f;
     }
     if (tx == 0) lse[bh * Tq + i] = live ? m[r] + logf(fmaxf(l[r], 1e-30f)) : LSE_BIG;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* qu, const void* ab, const void* k, const void* v,
-                   const void* feats, const void* mask, const void* seed, void* out,
-                   void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
-                   int D, float scale, int drop, uint32_t thr, float inv_keep) {
+// NW warps own MQ = 16 NW query rows and stream key tiles of MK = 8 NW
+// keys; DKP = dk rounded up to 16
+template <int DKP, int NW>
+__global__ void __launch_bounds__(NW * 32) rel_flash_fwd_bf16_kernel(
+    const bf16* __restrict__ qu, const bf16* __restrict__ ab, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ feats,
+    const uint8_t* __restrict__ mask, const int* __restrict__ seed, bf16* __restrict__ out,
+    float* __restrict__ lse, int H, int Tq, int Tk, int dk, int D, int KD, float scale,
+    int drop, uint32_t thr, float inv_keep) {
+  constexpr int MQ = 16 * NW, MK = 8 * NW, MNT = 32 * NW;
+  constexpr int NKT = MK / 8;   // 8-key tiles of a warp's scores
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int LDA = KD + 8, LDV = DKP + 8;
+  bf16* sA = reinterpret_cast<bf16*>(smem_raw);        // [MQ][LDA]  [q+u | AB]
+  bf16* sB = sA + MQ * LDA;                            // [2][MK][LDA]  [K | F]
+  bf16* sV = sB + 2 * MK * LDA;                        // [2][MK][LDV]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c4 = lane & 3;
+  const int q0 = blockIdx.x * MQ, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const bf16* qg = qu + bh * Tq * dk;
+  const bf16* abg = ab + bh * Tq * D;
+  const bf16* kg = k + bh * Tk * dk;
+  const bf16* vg = v + bh * Tk * dk;
+  const uint8_t* mg = mask + (size_t)b * Tq * Tk;
+  const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
+  const float sl2 = scale * LOG2E;
+
+  // zero everything once: the padding columns are never copied into
+  {
+    uint4* z = reinterpret_cast<uint4*>(smem_raw);
+    const int n = (MQ * LDA + 2 * MK * (LDA + LDV)) * 2 / 16;
+    for (int e = tid; e < n; e += MNT) z[e] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  load_rows_async(sA, LDA, qg, q0, MQ, Tq, dk, tid, MNT);
+  load_rows_async(sA + DKP, LDA, abg, q0, MQ, Tq, D, tid, MNT);
+  auto load_keys = [&](int stage, int k0) {
+    bf16* b_ = sB + stage * MK * LDA;
+    load_rows_async(b_, LDA, kg, k0, MK, Tk, dk, tid, MNT);
+    load_rows_async(b_ + DKP, LDA, feats, k0, MK, Tk, D, tid, MNT);
+    load_rows_async(sV + stage * MK * LDV, LDV, vg, k0, MK, Tk, dk, tid, MNT);
+  };
+  // blocks start at different key tiles (see rotated)
+  const int n_tiles = (Tk + MK - 1) / MK;
+  const int rot = (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) % n_tiles;
+  load_keys(0, rotated(0, rot, n_tiles) * MK);
+  cp_async_commit();
+
+  constexpr int NO = DKP / 8;   // 8-column tiles of the output
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // m in log2 units
+  const int r0 = warp * 16;                              // the warp's rows in the tile
+  int qi[2];
+  qi[0] = q0 + r0 + g;
+  qi[1] = qi[0] + 8;
+
+  // the mask bytes of this thread's 4 NKT scores, loaded one tile ahead
+  const bool even = Tk % 2 == 0 && reinterpret_cast<uintptr_t>(mask) % 2 == 0;
+  uint32_t mk[2][NKT], mk_next[2][NKT];
+  auto load_mask = [&](int k0, uint32_t (&m_)[2][NKT]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < NKT; ++n)
+        m_[r][n] = mask_pair(mg, qi[r], k0 + n * 8 + 2 * c4, Tq, Tk, even);
+  };
+  load_mask(rotated(0, rot, n_tiles) * MK, mk);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = rotated(t, rot, n_tiles) * MK, stage = t & 1;
+    if (t + 1 < n_tiles) {
+      const int k1 = rotated(t + 1, rot, n_tiles) * MK;
+      load_keys(stage ^ 1, k1);
+      load_mask(k1, mk_next);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    // a tile that the mask hides from every row of the block adds nothing
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < NKT; ++n) any |= mk[r][n] != 0u;
+    if (__syncthreads_or(any)) {
+      const bf16* tB = sB + stage * MK * LDA;
+      const bf16* tV = sV + stage * MK * LDV;
+      float s[NKT][4];
+#pragma unroll
+      for (int n = 0; n < NKT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      // fragments of step kk + 16 load while step kk multiplies (KD % 32 == 0):
+      // f[0] of [q+u | AB], f[1 + j] of keys 16 j .. 16 j + 15 of [K | F]
+      uint32_t fx[1 + NKT / 2][4], fy[1 + NKT / 2][4];
+      auto frags = [&](uint32_t (&f)[1 + NKT / 2][4], int kk) {
+        load_a(f[0], sA, LDA, r0, kk, lane);
+#pragma unroll
+        for (int j = 0; j < NKT / 2; ++j) load_b(f[1 + j], tB, LDA, 16 * j, kk, lane);
+      };
+      auto step = [&](const uint32_t (&f)[1 + NKT / 2][4]) {
+#pragma unroll
+        for (int j = 0; j < NKT / 2; ++j) {
+          mma(s[2 * j], f[0], f[1 + j][0], f[1 + j][1]);
+          mma(s[2 * j + 1], f[0], f[1 + j][2], f[1 + j][3]);
+        }
+      };
+      frags(fx, 0);
+      for (int kk = 0; kk < KD; kk += 32) {
+        frags(fy, kk + 16);
+        step(fx);
+        if (kk + 32 < KD) frags(fx, kk + 32);
+        step(fy);
+      }
+
+      // online softmax on the fragment: rows g (r = 0) and g + 8 (r = 1)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < NKT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[n][2 * r + e];
+            x = mask_bit(mk[r][n], e) ? x * sl2 : NEG_INF;
+            mx = fmaxf(mx, x);
+          }
+        const float m_new = fmaxf(m[r], quad_max(mx));
+        // rows with every score masked so far: exp2(m - m_new) would be 1
+        const float corr = m[r] > 0.5f * NEG_INF ? exp2_approx(m[r] - m_new) : 0.f;
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < NKT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[n][2 * r + e];
+            const float p = x > 0.5f * NEG_INF ? exp2_approx(x - m_new) : 0.f;
+            rs += p;
+            x = p;
+            if (drop)
+              x = keep_prob(sd, (uint32_t)bh, (uint32_t)qi[r],
+                            (uint32_t)(k0 + n * 8 + 2 * c4 + e), thr)
+                      ? p * inv_keep
+                      : 0.f;
+          }
+        l[r] = l[r] * corr + rs;      // this lane's share; the quad's sum at the end
+        m[r] = m_new;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          o[n][2 * r] *= corr;
+          o[n][2 * r + 1] *= corr;
+        }
+      }
+
+      // o += P V: P from the accumulators as bf16, V by transposing loads
+#pragma unroll
+      for (int kk = 0; kk < NKT / 2; ++kk) {
+        uint32_t a[4];
+        acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t bv[4];
+          load_bt(bv, tV, LDV, kk * 16, n * 8, lane);
+          mma(o[n], a, bv[0], bv[1]);
+          mma(o[n + 1], a, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();   // this stage is refilled by the next iteration
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < NKT; ++n) mk[r][n] = mk_next[r][n];
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lt = quad_sum(l[r]);
+    const int i = qi[r];
+    if (i >= Tq) continue;
+    const bool live = lt > 0.f;
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    bf16* orow = out + (bh * Tq + i) * dk;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = n * 8 + 2 * c4 + e;
+        if (d < dk) orow[d] = __float2bfloat16(live ? o[n][2 * r + e] * inv : 0.f);
+      }
+    if (c4 == 0) lse[bh * Tq + i] = live ? m[r] * LN2 + logf(fmaxf(lt, 1e-30f)) : LSE_BIG;
+  }
+}
+
+// Shared memory of one block of the bf16 kernel of NW warps, in bytes; the
+// wrapper (ops/rel_attention.py) computes the same for NW = 4 to refuse
+// what does not fit.
+size_t fwd_bf16_smem(int dk, int D, int nw) {
+  const int kd = kd_pad(dk, D), ldv = dk_pad(dk) + 8;
+  return 2 * ((size_t)16 * nw * (kd + 8) + 2 * (size_t)8 * nw * (kd + 8 + ldv));
+}
+
+cudaError_t launch_f32(const void* qu, const void* ab, const void* k, const void* v,
+                       const void* feats, const void* mask, const void* seed, void* out,
+                       void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
+                       int D, float scale, int drop, uint32_t thr, float inv_keep) {
   const size_t smem =
       sizeof(float) * ((size_t)BQ * (dk + 1) + (size_t)BQ * (D + 1) +
                        2 * (size_t)BK * (dk + 1) + (size_t)BK * (D + 1) +
                        (size_t)BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      rel_flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      rel_flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  rel_flash_fwd_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(qu), static_cast<const T*>(ab), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(feats),
-      static_cast<const uint8_t*>(mask), static_cast<const int*>(seed), static_cast<T*>(out),
-      static_cast<float*>(lse), H, Tq, Tk, dk, D, scale, drop, thr, inv_keep);
+  rel_flash_fwd_f32_kernel<<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(qu), static_cast<const float*>(ab),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(feats), static_cast<const uint8_t*>(mask),
+      static_cast<const int*>(seed), static_cast<float*>(out), static_cast<float*>(lse), H,
+      Tq, Tk, dk, D, scale, drop, thr, inv_keep);
   return cudaGetLastError();
+}
+
+template <int DKP, int NW>
+cudaError_t launch_bf16_dkp(const void* qu, const void* ab, const void* k, const void* v,
+                            const void* feats, const void* mask, const void* seed, void* out,
+                            void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk,
+                            int dk, int D, float scale, int drop, uint32_t thr,
+                            float inv_keep) {
+  const size_t smem = fwd_bf16_smem(dk, D, NW);
+  cudaError_t err = cudaFuncSetAttribute(rel_flash_fwd_bf16_kernel<DKP, NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tq + 16 * NW - 1) / (16 * NW), H, B);
+  rel_flash_fwd_bf16_kernel<DKP, NW><<<grid, 32 * NW, smem, stream>>>(
+      static_cast<const bf16*>(qu), static_cast<const bf16*>(ab), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(feats),
+      static_cast<const uint8_t*>(mask), static_cast<const int*>(seed), static_cast<bf16*>(out),
+      static_cast<float*>(lse), H, Tq, Tk, dk, D, kd_pad(dk, D), scale, drop, thr, inv_keep);
+  return cudaGetLastError();
+}
+
+// 8 warps (128 query rows) where their tile fits shared memory, else 4
+constexpr size_t SMEM_LIMIT = 232448;
+
+cudaError_t launch_bf16(const void* qu, const void* ab, const void* k, const void* v,
+                        const void* feats, const void* mask, const void* seed, void* out,
+                        void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
+                        int D, float scale, int drop, uint32_t thr, float inv_keep) {
+  const bool wide = fwd_bf16_smem(dk, D, 8) <= SMEM_LIMIT;
+  switch (dk_pad(dk)) {
+#define CASE(P)                                                                              \
+  case P:                                                                                    \
+    return wide ? launch_bf16_dkp<P, 8>(qu, ab, k, v, feats, mask, seed, out, lse, stream, B, \
+                                        H, Tq, Tk, dk, D, scale, drop, thr, inv_keep)         \
+                : launch_bf16_dkp<P, 4>(qu, ab, k, v, feats, mask, seed, out, lse, stream, B, \
+                                        H, Tq, Tk, dk, D, scale, drop, thr, inv_keep);
+    CASE(16) CASE(32) CASE(48) CASE(64)
+#undef CASE
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -234,8 +507,10 @@ cudaError_t launch(const void* qu, const void* ab, const void* k, const void* v,
 // q_u, k, v [B,H,Tq|Tk,dk]; ab [B,H,Tq,D]; feats [Tk,D]; mask uint8 [B,Tq,Tk];
 // seed int32 [1] (read only when drop != 0; may be null otherwise);
 // out [B,H,Tq,dk] (input dtype); lse float32 [B,H,Tq]. All contiguous.
-// thr_bits is the uint32 keep threshold's bit pattern, inv_keep 1/(1-rate).
-// Returns the CUDA error code of the launch (0 on success).
+// dk <= 64; bf16: fwd_bf16_smem(dk, D, 4) within a block's shared memory,
+// float32: D <= 256. thr_bits is the uint32 keep threshold's bit pattern,
+// inv_keep 1/(1-rate). Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int rel_flash_attention_fwd(const void* qu, const void* ab, const void* k,
                                        const void* v, const void* feats,
                                        const void* mask, const void* seed, void* out,
@@ -245,9 +520,9 @@ extern "C" int rel_flash_attention_fwd(const void* qu, const void* ab, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t thr = static_cast<uint32_t>(thr_bits);
   cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(qu, ab, k, v, feats, mask, seed, out, lse, s, B, H,
-                                      Tq, Tk, dk, D, scale, drop, thr, inv_keep)
-              : launch<float>(qu, ab, k, v, feats, mask, seed, out, lse, s, B, H, Tq, Tk,
-                              dk, D, scale, drop, thr, inv_keep);
+      is_bf16 ? launch_bf16(qu, ab, k, v, feats, mask, seed, out, lse, s, B, H, Tq, Tk, dk,
+                            D, scale, drop, thr, inv_keep)
+              : launch_f32(qu, ab, k, v, feats, mask, seed, out, lse, s, B, H, Tq, Tk, dk,
+                           D, scale, drop, thr, inv_keep);
   return static_cast<int>(err);
 }

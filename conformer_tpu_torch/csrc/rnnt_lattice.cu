@@ -38,50 +38,35 @@
 //
 // Design: the TPU kernel skews the lattice to diagonal-major order in
 // memory and runs the wavefront on (8, 128)-lane slabs through a
-// barrel shifter; none of that is needed here. One block per batch row,
-// one thread per u: at diagonal d, thread u holds cell (d-u, u), reads it
-// straight from [B,T,U+1], and takes its left neighbour's value through a
-// double-buffered shared array (one barrier per diagonal). The cells of the
-// next 16 diagonals are loaded into registers while the current 16 are
-// computed, which hides the loads' latency behind the chain. In the
-// backward, thread u keeps its column's sum of oe in a register and adds
-// ob into a shared row sum (the threads of one diagonal touch distinct
+// barrel shifter; none of that is needed here. One block per batch row;
+// its threads (at most 512) walk u with a block stride: thread tid owns
+// u = tid + i * blockDim for i < NS, so any U+1 whose shared arrays fit in
+// shared memory runs. At diagonal d the thread holds cells (d-u, u), reads
+// them straight from [B,T,U+1], and takes each left neighbour's value
+// through a double-buffered shared array (one barrier per diagonal). The
+// cells of the next CH = 16 / NS diagonals are loaded into registers while
+// the current CH are computed, which hides the loads' latency behind the
+// chain (16 diagonals at NS = 1, the recipe's U+1 <= 512). In the
+// backward, each thread keeps its columns' sums of oe in registers and
+// adds ob into a shared row sum (the cells of one diagonal lie in distinct
 // rows, and a barrier separates diagonals); a last pass over the lattice,
-// coalesced over u, scales both outputs. T + 2(U+1) floats of shared
-// memory.
+// coalesced over u, scales both outputs. 2(U+1) + 1 floats of shared
+// memory in the forward, 2(U+1) + T in the backward.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "lattice_dp_common.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr int CH = 16;   // diagonals per register-staged chunk
+using namespace lattice_dp;
 
-__device__ __forceinline__ float lae(float a, float b) {
-  const float m = fmaxf(a, b);
-  return m + log1pf(expf(-fabsf(a - b)));
-}
-
-__device__ __forceinline__ void load_chunk(const float* __restrict__ x,
-                                           const float* __restrict__ y, int d0, int u, int T,
-                                           int U1, float (&xs)[CH], float (&ys)[CH]) {
-#pragma unroll
-  for (int k = 0; k < CH; ++k) {
-    const int t = d0 + k - u;
-    const bool ok = u < U1 && t >= 0 && t < T;
-    xs[k] = ok ? x[(size_t)t * U1 + u] : kNeg;
-    ys[k] = ok ? y[(size_t)t * U1 + u] : kNeg;
-  }
-}
-
-__global__ void rnnt_lattice_fwd_kernel(const float* __restrict__ lpb,
-                                        const float* __restrict__ lpe,
-                                        const int* __restrict__ tlen,
-                                        const int* __restrict__ ulen, float* __restrict__ nll,
-                                        float* __restrict__ alpha, int T, int U1) {
+template <int NS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    rnnt_lattice_fwd_kernel(const float* __restrict__ lpb, const float* __restrict__ lpe,
+                            const int* __restrict__ tlen, const int* __restrict__ ulen,
+                            float* __restrict__ nll, float* __restrict__ alpha, int T, int U1) {
+  constexpr int CH = chunk<NS>();
   extern __shared__ float sh[];     // [2][U1] neighbour exchange, then [1] readout
-  const int b = blockIdx.x, u = threadIdx.x;
+  const int b = blockIdx.x, nt = blockDim.x;
   const int tl = tlen[b], ul = ulen[b];
   const int dterm = tl + ul - 1;
   const int D = T + U1 - 1;
@@ -89,47 +74,74 @@ __global__ void rnnt_lattice_fwd_kernel(const float* __restrict__ lpb,
   const float* xe = lpe + (size_t)b * T * U1;
   float* ab = alpha + (size_t)b * T * U1;
   float* fin = sh + 2 * U1;
-  if (u == 0) *fin = kNeg;
-  float al = (u == 0) ? 0.f : kNeg;
-  float cb[CH], ce[CH], nb[CH], ne[CH];
-  load_chunk(xb, xe, 0, u, T, U1, cb, ce);
+  if (threadIdx.x == 0) *fin = kNeg;
+  int us[NS];
+  float al[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    us[i] = threadIdx.x + i * nt;
+    al[i] = us[i] == 0 ? 0.f : kNeg;
+  }
+  float cb[NS][CH], ce[NS][CH], nb[NS][CH], ne[NS][CH];
+  auto load = [&](int d0, float (&xs)[NS][CH], float (&ys)[NS][CH]) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        const int u = us[i], t = d0 + k - u;
+        const bool ok = u < U1 && t >= 0 && t < T;
+        xs[i][k] = ok ? xb[(size_t)t * U1 + u] : kNeg;
+        ys[i][k] = ok ? xe[(size_t)t * U1 + u] : kNeg;
+      }
+  };
+  load(0, cb, ce);
   for (int d0 = 0; d0 < D; d0 += CH) {
-    load_chunk(xb, xe, d0 + CH, u, T, U1, nb, ne);
+    load(d0 + CH, nb, ne);
 #pragma unroll
     for (int k = 0; k < CH; ++k) {
       const int d = d0 + k;
       if (d >= D) break;
-      const int t = d - u;
-      const bool ok = u < U1 && t >= 0 && t < T;
-      if (ok) ab[(size_t)t * U1 + u] = al;
-      const float cand = al + cb[k];
-      if (u < U1) sh[(d & 1) * U1 + u] = al + ce[k];
-      if (d == dterm && u == ul) *fin = cand;
+      float* cur = sh + (d & 1) * U1;
+      float cand[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int u = us[i], t = d - u;
+        if (u < U1 && t >= 0 && t < T) ab[(size_t)t * U1 + u] = al[i];
+        cand[i] = al[i] + cb[i][k];
+        if (u < U1) cur[u] = al[i] + ce[i][k];
+        if (d == dterm && u == ul) *fin = cand[i];
+      }
       __syncthreads();
-      const float left = (u > 0 && u < U1) ? sh[(d & 1) * U1 + u - 1] : kNeg;
-      al = fmaxf(lae(cand, left), kNeg);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int u = us[i];
+        const float left = (u > 0 && u < U1) ? cur[u - 1] : kNeg;
+        al[i] = fmaxf(lae(cand[i], left), kNeg);
+      }
     }
 #pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      cb[k] = nb[k];
-      ce[k] = ne[k];
-    }
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        cb[i][k] = nb[i][k];
+        ce[i][k] = ne[i][k];
+      }
   }
   __syncthreads();
-  if (u == 0) nll[b] = -*fin;
+  if (threadIdx.x == 0) nll[b] = -*fin;
 }
 
-__global__ void rnnt_lattice_bwd_kernel(const float* __restrict__ lpb,
-                                        const float* __restrict__ lpe,
-                                        const float* __restrict__ alpha,
-                                        const int* __restrict__ tlen,
-                                        const int* __restrict__ ulen,
-                                        const float* __restrict__ nll,
-                                        const float* __restrict__ g, float* __restrict__ gblank,
-                                        float* __restrict__ gemit, int T, int U1) {
+template <int NS>
+__global__ void __launch_bounds__(MAX_THREADS)
+    rnnt_lattice_bwd_kernel(const float* __restrict__ lpb, const float* __restrict__ lpe,
+                            const float* __restrict__ alpha, const int* __restrict__ tlen,
+                            const int* __restrict__ ulen, const float* __restrict__ nll,
+                            const float* __restrict__ g, float* __restrict__ gblank,
+                            float* __restrict__ gemit, int T, int U1) {
+  constexpr int CH = chunk<NS>();
   extern __shared__ float sh[];     // [2][U1] neighbour exchange, then [T] row sums
   float* srow = sh + 2 * U1;
-  const int b = blockIdx.x, u = threadIdx.x;
+  const int b = blockIdx.x, nt = blockDim.x;
   const int tl = tlen[b], ul = ulen[b];
   const int dterm = tl + ul - 1;
   const int D = T + U1 - 1;
@@ -137,20 +149,29 @@ __global__ void rnnt_lattice_bwd_kernel(const float* __restrict__ lpb,
   const float gg = g[b];
   const size_t base = (size_t)b * T * U1;
   // zeroed before any thread's first barrier, added to only after it
-  for (int t = u; t < T; t += blockDim.x) srow[t] = 0.f;
-  float csum = 0.f;                 // this thread's column sum of oe
-  float be = kNeg;                  // beta of this thread's cell on diagonal d+1
-  float cb[CH], ce[CH], ca[CH], nb[CH], ne[CH], na[CH];
-  // chunks walk the diagonals downwards: slot k holds diagonal d0 - k
-  auto load_rev = [&](int d0, float (&xs)[CH], float (&ys)[CH], float (&zs)[CH]) {
+  for (int t = threadIdx.x; t < T; t += nt) srow[t] = 0.f;
+  int us[NS];
+  float csum[NS], be[NS];           // column sums of oe; beta on diagonal d+1
 #pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      const int t = d0 - k - u;
-      const bool ok = u < U1 && t >= 0 && t < T;
-      xs[k] = ok ? lpb[base + (size_t)t * U1 + u] : kNeg;
-      ys[k] = ok ? lpe[base + (size_t)t * U1 + u] : kNeg;
-      zs[k] = ok ? alpha[base + (size_t)t * U1 + u] : kNeg;
-    }
+  for (int i = 0; i < NS; ++i) {
+    us[i] = threadIdx.x + i * nt;
+    csum[i] = 0.f;
+    be[i] = kNeg;
+  }
+  float cb[NS][CH], ce[NS][CH], ca[NS][CH], nb[NS][CH], ne[NS][CH], na[NS][CH];
+  // chunks walk the diagonals downwards: slot k holds diagonal d0 - k
+  auto load_rev = [&](int d0, float (&xs)[NS][CH], float (&ys)[NS][CH],
+                      float (&zs)[NS][CH]) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        const int u = us[i], t = d0 - k - u;
+        const bool ok = u < U1 && t >= 0 && t < T;
+        xs[i][k] = ok ? lpb[base + (size_t)t * U1 + u] : kNeg;
+        ys[i][k] = ok ? lpe[base + (size_t)t * U1 + u] : kNeg;
+        zs[i][k] = ok ? alpha[base + (size_t)t * U1 + u] : kNeg;
+      }
   };
   load_rev(D - 1, cb, ce, ca);
   for (int d0 = D - 1; d0 >= 0; d0 -= CH) {
@@ -159,57 +180,74 @@ __global__ void rnnt_lattice_bwd_kernel(const float* __restrict__ lpb,
     for (int k = 0; k < CH; ++k) {
       const int d = d0 - k;
       if (d < 0) break;
-      const int t = d - u;
-      const bool ok = u < U1 && t >= 0 && t < T;
-      if (u < U1) sh[(d & 1) * U1 + u] = be;
+      float* cur = sh + (d & 1) * U1;
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        if (us[i] < U1) cur[us[i]] = be[i];
       __syncthreads();
-      const float b1 = (d == dterm && u == ul) ? 0.f : be;
-      const float b2 = (u + 1 < U1) ? sh[(d & 1) * U1 + u + 1] : kNeg;
-      be = fmaxf(lae(cb[k] + b1, ce[k] + b2), kNeg);
-      if (ok) {
-        const float ob = expf(ca[k] + cb[k] + b1 - logz);
-        const float oe = expf(ca[k] + ce[k] + b2 - logz);
-        gblank[base + (size_t)t * U1 + u] = ob;
-        gemit[base + (size_t)t * U1 + u] = oe;
-        srow[t] += ob;
-        csum += oe;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int u = us[i], t = d - u;
+        const float b1 = (d == dterm && u == ul) ? 0.f : be[i];
+        const float b2 = (u + 1 < U1) ? cur[u + 1] : kNeg;
+        be[i] = fmaxf(lae(cb[i][k] + b1, ce[i][k] + b2), kNeg);
+        if (u < U1 && t >= 0 && t < T) {
+          const float ob = expf(ca[i][k] + cb[i][k] + b1 - logz);
+          const float oe = expf(ca[i][k] + ce[i][k] + b2 - logz);
+          gblank[base + (size_t)t * U1 + u] = ob;
+          gemit[base + (size_t)t * U1 + u] = oe;
+          srow[t] += ob;
+          csum[i] += oe;
+        }
       }
     }
 #pragma unroll
-    for (int k = 0; k < CH; ++k) {
-      cb[k] = nb[k];
-      ce[k] = ne[k];
-      ca[k] = na[k];
-    }
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        cb[i][k] = nb[i][k];
+        ce[i][k] = ne[i][k];
+        ca[i][k] = na[i][k];
+      }
   }
   // row and column sums -> scales, then one coalesced pass over the lattice
   __syncthreads();
-  for (int t = u; t < T; t += blockDim.x)
+  for (int t = threadIdx.x; t < T; t += nt)
     srow[t] = (t < tl && srow[t] > 0.f) ? -gg / srow[t] : 0.f;
   __syncthreads();
-  if (u >= U1) return;
-  const float sc_e = (u < ul && csum > 0.f) ? -gg / csum : 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int u = us[i];
+    if (u >= U1) continue;
+    const float sc_e = (u < ul && csum[i] > 0.f) ? -gg / csum[i] : 0.f;
 #pragma unroll 8
-  for (int t = 0; t < T; ++t) {
-    const size_t o = base + (size_t)t * U1 + u;
-    gblank[o] *= srow[t];
-    gemit[o] *= sc_e;
+    for (int t = 0; t < T; ++t) {
+      const size_t o = base + (size_t)t * U1 + u;
+      gblank[o] *= srow[t];
+      gemit[o] *= sc_e;
+    }
   }
 }
 
-int threads_for(int U1) { return ((U1 + 31) / 32) * 32; }
-
 }  // namespace
 
+// Shared memory of one block, the limit on U1 that the wrapper checks
+// (ops/rnnt_lattice.py): 2 U1 + 1 floats forward, 2 U1 + T backward.
 extern "C" int rnnt_lattice_fwd(const void* lpb, const void* lpe, const void* tlen,
                                 const void* ulen, void* nll, void* alpha, void* stream, int B,
                                 int T, int U1) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  rnnt_lattice_fwd_kernel<<<B, threads_for(U1), sizeof(float) * (2 * U1 + 1), st>>>(
-      static_cast<const float*>(lpb), static_cast<const float*>(lpe),
-      static_cast<const int*>(tlen), static_cast<const int*>(ulen), static_cast<float*>(nll),
-      static_cast<float*>(alpha), T, U1);
-  return static_cast<int>(cudaGetLastError());
+  int ns, threads;
+  shape_for(U1, &ns, &threads);
+  const size_t smem = sizeof(float) * (2 * (size_t)U1 + 1);
+  auto run = [&](auto kernel) {
+    return run_kernel(kernel, B, threads, smem, st, static_cast<const float*>(lpb),
+                      static_cast<const float*>(lpe), static_cast<const int*>(tlen),
+                      static_cast<const int*>(ulen), static_cast<float*>(nll),
+                      static_cast<float*>(alpha), T, U1);
+  };
+  auto dispatch = [&]() -> cudaError_t { LATTICE_DP_DISPATCH(rnnt_lattice_fwd_kernel) };
+  return static_cast<int>(dispatch());
 }
 
 extern "C" int rnnt_lattice_bwd(const void* lpb, const void* lpe, const void* alpha,
@@ -217,18 +255,16 @@ extern "C" int rnnt_lattice_bwd(const void* lpb, const void* lpe, const void* al
                                 const void* g, void* gblank, void* gemit, void* stream, int B,
                                 int T, int U1) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int ns, threads;
+  shape_for(U1, &ns, &threads);
   const size_t smem = sizeof(float) * (2 * (size_t)U1 + T);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(rnnt_lattice_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  rnnt_lattice_bwd_kernel<<<B, threads_for(U1), smem, st>>>(
-      static_cast<const float*>(lpb), static_cast<const float*>(lpe),
-      static_cast<const float*>(alpha), static_cast<const int*>(tlen),
-      static_cast<const int*>(ulen), static_cast<const float*>(nll),
-      static_cast<const float*>(g), static_cast<float*>(gblank), static_cast<float*>(gemit), T,
-      U1);
-  return static_cast<int>(cudaGetLastError());
+  auto run = [&](auto kernel) {
+    return run_kernel(kernel, B, threads, smem, st, static_cast<const float*>(lpb),
+                      static_cast<const float*>(lpe), static_cast<const float*>(alpha),
+                      static_cast<const int*>(tlen), static_cast<const int*>(ulen),
+                      static_cast<const float*>(nll), static_cast<const float*>(g),
+                      static_cast<float*>(gblank), static_cast<float*>(gemit), T, U1);
+  };
+  auto dispatch = [&]() -> cudaError_t { LATTICE_DP_DISPATCH(rnnt_lattice_bwd_kernel) };
+  return static_cast<int>(dispatch());
 }

@@ -23,7 +23,11 @@ import torch.nn.functional as F
 from . import cuda_build
 from .ctc import NEG_INF, _extended_labels, skip_allowed
 
-_MAX_S = 1024       # one thread per state in the kernel's block
+
+def max_states() -> int:
+    """The largest S the kernels take: their block keeps two rows of S
+    float32 in shared memory (csrc/ctc_dp.cu); JAX's kernel has no cap."""
+    return cuda_build.SMEM_LIMIT // (2 * 4)
 
 
 def ctc_dp_plain_fwd(emit, skip, t_lens, u_lens):
@@ -86,18 +90,27 @@ def _check(name, tensors, lens):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def _check_shape(name, emit):
+    b, t, s = emit.shape
+    if min(b, t, s) == 0:
+        raise ValueError(f"{name}: empty shape {tuple(emit.shape)}")
+    if s > max_states():
+        raise ValueError(f"{name}: S = {s} extended labels need {8 * s} B of shared memory, "
+                         f"more than a block has ({cuda_build.SMEM_LIMIT} B); at most "
+                         f"{max_states()}")
+
+
 def ctc_dp_fwd(emit, skip, t_lens, u_lens):
     """Kernel wrapper with the contract of ``ctc_dp_plain_fwd``: CPU
     tensors take the plain version, CUDA tensors launch the kernel or
-    raise (float32 contiguous, int32 lengths, S <= 1024)."""
+    raise (float32 contiguous, int32 lengths, S <= ``max_states()``)."""
     if emit.device.type == "cpu":
         return ctc_dp_plain_fwd(emit, skip, t_lens, u_lens)
     _check("ctc_dp_fwd", (emit, skip), (t_lens, u_lens))
     b, t, s = emit.shape
     if skip.shape != (b, s) or t_lens.shape != (b,) or u_lens.shape != (b,):
         raise ValueError("ctc_dp_fwd: inconsistent shapes")
-    if s > _MAX_S or min(b, t, s) == 0:
-        raise ValueError(f"ctc_dp_fwd: shape {tuple(emit.shape)} outside the kernel")
+    _check_shape("ctc_dp_fwd", emit)
     nll = torch.empty((b,), dtype=torch.float32, device=emit.device)
     alpha = torch.empty_like(emit)
     fn = cuda_build.load_function("ctc_dp", "ctc_dp_fwd", n_ptrs=7, n_ints=3)
@@ -117,6 +130,7 @@ def ctc_dp_bwd(emit, skip, alpha, t_lens, u_lens, nll, g):
     b, t, s = emit.shape
     if alpha.shape != emit.shape or nll.shape != (b,) or g.shape != (b,):
         raise ValueError("ctc_dp_bwd: inconsistent shapes")
+    _check_shape("ctc_dp_bwd", emit)
     g_emit = torch.empty_like(emit)
     fn = cuda_build.load_function("ctc_dp", "ctc_dp_bwd", n_ptrs=9, n_ints=3)
     P = cuda_build.ptr

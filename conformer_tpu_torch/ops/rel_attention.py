@@ -30,8 +30,9 @@ from . import cuda_build
 
 NEG_INF = -1e30
 LSE_BIG = 1e30      # lse of a fully masked row
-_BQ = _BK = 64      # query and key tile of the forward kernel
 _M32 = 0xFFFFFFFF
+MAX_DK = 64         # head width of every kernel's register tiles
+MAX_D_F32 = 256     # the float32 dq kernel keeps 16 dAB columns a thread
 
 
 # ------------------------------------------------------------ keep-mask hash
@@ -147,6 +148,45 @@ def rel_attention_bwd_plain(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta
 # ------------------------------------------------------------ kernel wrappers
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def bf16_smem(dk: int, d: int) -> dict[str, int]:
+    """Shared memory, in bytes, of one block of each bf16 kernel at head
+    width ``dk`` and bias width ``d``: the formulas of the launches
+    (``fwd_bf16_smem`` at 4 warps and ``dq_bf16_smem`` at 32 rows, their
+    smallest blocks; ``dkv_bf16_smem``). Rows of [q+u | AB] and [K | F] are
+    kd = round64(round16(dk) + d) wide, plus 8."""
+    ldv = _round_up(dk, 16) + 8
+    lda = _round_up(_round_up(dk, 16) + d, 64) + 8
+    return {
+        "rel_flash_attention": 2 * (64 * lda + 2 * 32 * (lda + ldv)),
+        "rel_flash_attention_bwd_dq": 2 * (32 * (lda + ldv) + 2 * 64 * (lda + ldv) + 32 * 72),
+        "rel_flash_attention_bwd_dkv": 2 * (64 * (lda + ldv) + 2 * 32 * (lda + ldv)) + 4 * 128,
+    }
+
+
+def width_error(dtype, dk: int, d: int) -> str | None:
+    """Why the kernels refuse head width ``dk`` and bias width ``d`` in
+    ``dtype``, or None where all three take them. bf16: dk <= 64, the
+    score product's depth round64(round16(dk) + d) <= 576 (D <= 512 at dk
+    = 64) and each block within shared memory. float32 (the parity path):
+    dk <= 64 and D <= 256."""
+    if dk > MAX_DK:
+        return f"dk={dk} > {MAX_DK}"
+    if dtype == torch.bfloat16:
+        if _round_up(_round_up(dk, 16) + d, 64) > 576:
+            return f"dk={dk}, D={d}: the score depth {_round_up(dk, 16) + d} > 576"
+        for name, need in bf16_smem(dk, d).items():
+            if need > cuda_build.SMEM_LIMIT:
+                return f"{name} at dk={dk}, D={d} needs {need} B of shared memory"
+        return None
+    if d > MAX_D_F32:
+        return f"the float32 kernels take D <= {MAX_D_F32}, got D={d}"
+    return None
+
+
 def _check(name, q_u, ab, k, v, k_feats, mask, seed, dropout_rate, dout=None, lse=None,
            delta=None):
     tensors = [t for t in (q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta)
@@ -177,8 +217,11 @@ def _check(name, q_u, ab, k, v, k_feats, mask, seed, dropout_rate, dout=None, ls
         or any(t is not None and t.shape != (b, h, tq) for t in (lse, delta))
     ):
         raise ValueError(f"{name}: inconsistent shapes")
-    if dk > 64 or min(b, h, tq, tk) == 0:
-        raise ValueError(f"{name}: shape {tuple(q_u.shape)}, D={d} outside the kernel's tiles")
+    if min(b, h, tq, tk, dk, d) == 0:
+        raise ValueError(f"{name}: empty shape {tuple(q_u.shape)}, D={d}")
+    why = width_error(dtype, dk, d)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
     return b, h, tq, tk, dk, d
 
 
@@ -198,7 +241,8 @@ def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float, dropout_rate: f
     """Forward kernel wrapper with the contract of ``rel_attention_plain``.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise: float32 or bfloat16 inputs of one dtype, contiguous, dk <= 64;
+    raise: float32 or bfloat16 inputs of one dtype, contiguous, widths that
+    ``width_error`` passes (bf16 up to D = 512, float32 up to D = 256);
     ``seed`` an int32 CUDA tensor of one element when ``dropout_rate`` > 0.
     """
     keep_threshold(dropout_rate)
@@ -207,10 +251,6 @@ def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float, dropout_rate: f
                                    dropout_rate=dropout_rate, seed=seed)
     b, h, tq, tk, dk, d = _check("rel_attention", q_u, ab, k, v, k_feats, mask, seed,
                                  dropout_rate)
-    smem = 4 * (_BQ * (dk + 1) + _BQ * (d + 1) + 2 * _BK * (dk + 1)
-                + _BK * (d + 1) + _BQ * (_BK + 1))
-    if smem > cuda_build.SMEM_LIMIT:
-        raise ValueError(f"rel_attention: D={d} needs {smem} B of shared memory")
     fn = cuda_build.load_function("rel_flash_attention", "rel_flash_attention_fwd",
                                   n_ptrs=10, n_ints=9, n_floats=2)
     out = torch.empty((b, h, tq, dk), dtype=q_u.dtype, device=q_u.device)
@@ -231,8 +271,6 @@ def _bwd_kernel(symbol, q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, sc
                 dropout_rate, out_shapes):
     b, h, tq, tk, dk, d = _check(symbol, q_u, ab, k, v, k_feats, mask, seed, dropout_rate,
                                  dout, lse, delta)
-    if d > 256:
-        raise ValueError(f"{symbol}: D={d} > 256 outside the kernel's tiles")
     fn = cuda_build.load_function("rel_flash_attention_bwd", symbol, n_ptrs=13, n_ints=9,
                                   n_floats=2)
     outs = [torch.empty(s, dtype=torch.float32, device=q_u.device) for s in out_shapes]
@@ -251,7 +289,8 @@ def _bwd_kernel(symbol, q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, sc
 def rel_attention_bwd_dq(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, *,
                          scale: float, dropout_rate: float = 0.0):
     """(dQu [B,H,Tq,dk], dAB [B,H,Tq,D]) in float32: the dq kernel for CUDA
-    tensors (D <= 256), the plain backward's for CPU tensors."""
+    tensors (widths as ``rel_attention``), the plain backward's for CPU
+    tensors."""
     if q_u.device.type == "cpu":
         return rel_attention_bwd_plain(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta,
                                        scale=scale, dropout_rate=dropout_rate)[:2]

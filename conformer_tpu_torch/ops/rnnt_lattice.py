@@ -23,7 +23,25 @@ import torch.nn.functional as F
 from . import cuda_build
 
 NEG_INF = -1e30
-_MAX_U1 = 1024      # one thread per u in the kernel's block
+
+
+def max_u1(t_max: int) -> int:
+    """The largest U+1 both kernels take at ``t_max`` frames: the backward's
+    block keeps 2(U+1) + T float32 in shared memory, the forward's 2(U+1) +
+    1 (csrc/rnnt_lattice.cu); JAX's kernel has no cap."""
+    return (cuda_build.SMEM_LIMIT // 4 - max(t_max, 1)) // 2
+
+
+def _check_shape(name, lp, n_extra):
+    """Raise unless the lattice [B,T,U+1] is non-empty and the kernel's
+    2(U+1) + ``n_extra`` floats of shared memory fit a block."""
+    b, t, u1 = lp.shape
+    if min(b, t, u1) == 0:
+        raise ValueError(f"{name}: empty shape {tuple(lp.shape)}")
+    need = 4 * (2 * u1 + n_extra)
+    if need > cuda_build.SMEM_LIMIT:
+        raise ValueError(f"{name}: U+1 = {u1} at T = {t} needs {need} B of shared memory, "
+                         f"more than a block has ({cuda_build.SMEM_LIMIT} B)")
 
 
 def _diagonal(d: int, t_max: int, u1: int, device):
@@ -110,15 +128,14 @@ def _check(name, tensors, lens):
 def rnnt_lattice_fwd(lp_blank, lp_emit, t_lens, u_lens):
     """Kernel wrapper with the contract of ``rnnt_lattice_plain_fwd``: CPU
     tensors take the plain version, CUDA tensors launch the kernel or raise
-    (float32 contiguous, int32 lengths, U+1 <= 1024)."""
+    (float32 contiguous, int32 lengths, U+1 within shared memory: ``max_u1``)."""
     if lp_blank.device.type == "cpu":
         return rnnt_lattice_plain_fwd(lp_blank, lp_emit, t_lens, u_lens)
     _check("rnnt_lattice_fwd", (lp_blank, lp_emit), (t_lens, u_lens))
     b, t, u1 = lp_blank.shape
     if lp_emit.shape != lp_blank.shape or t_lens.shape != (b,) or u_lens.shape != (b,):
         raise ValueError("rnnt_lattice_fwd: inconsistent shapes")
-    if u1 > _MAX_U1 or min(b, t, u1) == 0:
-        raise ValueError(f"rnnt_lattice_fwd: shape {tuple(lp_blank.shape)} outside the kernel")
+    _check_shape("rnnt_lattice_fwd", lp_blank, 1)
     nll = torch.empty((b,), dtype=torch.float32, device=lp_blank.device)
     alpha = torch.empty_like(lp_blank)
     fn = cuda_build.load_function("rnnt_lattice", "rnnt_lattice_fwd", n_ptrs=7, n_ints=3)
@@ -138,6 +155,7 @@ def rnnt_lattice_bwd(lp_blank, lp_emit, alpha, t_lens, u_lens, nll, g):
     b, t, u1 = lp_blank.shape
     if alpha.shape != lp_blank.shape or nll.shape != (b,) or g.shape != (b,):
         raise ValueError("rnnt_lattice_bwd: inconsistent shapes")
+    _check_shape("rnnt_lattice_bwd", lp_blank, t)
     g_blank = torch.empty_like(lp_blank)
     g_emit = torch.empty_like(lp_blank)
     fn = cuda_build.load_function("rnnt_lattice", "rnnt_lattice_bwd", n_ptrs=10, n_ints=3)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from conformer_tpu.config import tiny_test_config
 from conformer_tpu.models import attention as j_att
 from conformer_tpu.ops.pallas.attention_kernel import _tile_keep_mask, rel_flash_attention
@@ -93,12 +94,17 @@ def test_plain_forward_with_dropout_matches_jax(rate):
         assert torch.equal(out, ref)
 
 
-@pytest.mark.parametrize("chunk", [False, True])
-def test_backward_matches_jax_grad(chunk):
+@pytest.mark.parametrize(
+    "chunk,dk,d,t",
+    [(False, 8, 16, 37), (True, 8, 16, 37), (True, 36, 144, 21), (False, 64, 512, 21)],
+    ids=["False", "True", "conformer_s-dk36-D144", "conformer_l-dk64-D512"])
+def test_backward_matches_jax_grad(chunk, dk, d, t):
     """dQu, dAB, dK, dV of the written-out backward and of the autograd
-    Function against jax.grad, dropout 0.1, ragged T=37, a fully masked
-    row, with and without a dynamic-chunk mask."""
-    q, ab, k, v, feats, mask, g = _inputs(1, b=3, chunk=chunk)
+    Function against jax.grad, dropout 0.1, ragged T, a fully masked row,
+    with and without a dynamic-chunk mask; at a tiny width and at
+    Conformer-S's and Conformer-L's head widths (dk=36, D=144; dk=64,
+    D=512)."""
+    q, ab, k, v, feats, mask, g = _inputs(1, b=3, t=t, dk=dk, d=d, chunk=chunk)
     rate, seed = 0.1, 4321
 
     def loss(q, ab, k, v):
@@ -119,6 +125,57 @@ def test_backward_matches_jax_grad(chunk):
     for leaf, p_grad, w in zip(leaves, plain, want):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(p_grad.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dk,d,h", [(64, 256, 4), (64, 512, 8), (36, 144, 4)],
+                         ids=["conformer_m", "conformer_l", "conformer_s"])
+def test_bf16_operand_rounding_within_card_tolerance(dk, d, h):
+    """The bf16 kernels round float32 intermediates to bf16 where they
+    become tensor-core operands: the dropped probabilities pd before P.V
+    (forward) and before dV (backward), and dS before dQu, dAB and dK.
+    Rounding the float32 plain version at those points, on bf16 inputs of
+    the smoke's training distribution (T=374, dropout 0.1), keeps every
+    output within chip_smoke's TOL["bfloat16"] (abs + rel) of the unrounded
+    one: the card's tolerance covers the rounding. Scores, the softmax
+    statistics and every sum stay float32, as in the kernels."""
+    rng = np.random.default_rng(17)
+    b, t, rate, scale = 2, 374, 0.1, 1 / 8
+
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+
+    q, k, v, g = (bf(torch.from_numpy(rng.standard_normal((b, h, t, dk)).astype(np.float32)))
+                  for _ in range(4))
+    ab = bf(torch.from_numpy((0.2 * rng.standard_normal((b, h, t, d))).astype(np.float32)))
+    feats = bf(torch.from_numpy(rng.standard_normal((t, d)).astype(np.float32)))
+    lens = torch.tensor([t, t - 11])
+    mask = (torch.arange(t)[None, None, :] < lens[:, None, None]).expand(b, t, t).clone()
+    mask[0, t // 2] = False
+    seed = torch.tensor([20240917], dtype=torch.int32)
+    kw = dict(scale=scale, dropout_rate=rate)
+    out, lse = ra.rel_attention_plain(q, ab, k, v, feats, mask, seed=seed, **kw)
+    delta = (g * out).sum(-1)
+    want_bwd = ra.rel_attention_bwd_plain(q, ab, k, v, feats, mask, seed, g, lse, delta, **kw)
+
+    m4 = mask[:, None]
+    s = (q @ k.transpose(-1, -2) + ab @ feats.T) * scale
+    s = torch.where(m4, s, torch.full_like(s, ra.NEG_INF))
+    p = torch.where(m4, torch.exp(s - s.amax(-1, keepdim=True)), torch.zeros_like(s))
+    keep = ra.keep_mask(seed, b, h, t, t, rate, "cpu")
+    inv = 1.0 / (1.0 - rate)
+    pd = torch.where(keep, p * inv, torch.zeros_like(p))
+    out_r = (bf(pd) @ v) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    p = torch.where(m4, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.where(keep, (g @ v.transpose(-1, -2)) * inv, torch.zeros_like(s))
+    ds = bf(p * (dp - delta[..., None]) * scale)
+    pd = bf(torch.where(keep, p * inv, torch.zeros_like(p)))
+    got_bwd = (ds @ k, ds @ feats, ds.transpose(-1, -2) @ q, pd.transpose(-1, -2) @ g)
+
+    tol = chip_smoke.TOL["bfloat16"]
+    for name, got, want in zip(("out", "dQu", "dAB", "dK", "dV"), (out_r, *got_bwd),
+                               (out, *want_bwd)):
+        err, ok = chip_smoke.max_err(got, want, tol)
+        assert ok, f"{name}: max abs err {err:.3g} beyond {tol} abs + rel"
 
 
 def test_wrappers_take_plain_on_cpu_and_count_no_launch():

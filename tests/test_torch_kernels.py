@@ -14,7 +14,9 @@ import torch
 from conformer_tpu.ops.pallas import attention_kernel as ak
 from conformer_tpu.ops.pallas import conv_kernel as ck
 from conformer_tpu_torch.ops import conv_block as pcb
+from conformer_tpu_torch.ops import ctc_dp as pcd
 from conformer_tpu_torch.ops import rel_attention as pra
+from conformer_tpu_torch.ops import rnnt_lattice as prl
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -34,15 +36,19 @@ def _attn_inputs(seed, b, h, tq, tk, dk, d, lengths, dead_rows=()):
 
 
 @pytest.mark.parametrize(
-    "tq,tk,lengths,dead_rows",
+    "tq,tk,lengths,dead_rows,dk,d",
     [
-        (37, 37, [37, 30, 1], [(0, 5)]),        # T a multiple of no tile; a dead row
-        (29, 37, [37, 12, 37], [(2, 28)]),      # Tq != Tk (keys include a left cache)
-        (16, 16, [16, 16, 16], [(1, 0), (1, 15)]),
+        (37, 37, [37, 30, 1], [(0, 5)], 8, 16),      # T a multiple of no tile; a dead row
+        (29, 37, [37, 12, 37], [(2, 28)], 8, 16),    # Tq != Tk (keys include a left cache)
+        (16, 16, [16, 16, 16], [(1, 0), (1, 15)], 8, 16),
+        (21, 21, [21, 9, 1], [(0, 3)], 36, 144),     # Conformer-S: d=144, 4 heads
+        (21, 21, [21, 14, 21], [(2, 20)], 64, 512),  # Conformer-L: d=512, 8 heads
     ],
+    ids=["37-37-lengths0-dead_rows0", "29-37-lengths1-dead_rows1",
+         "16-16-lengths2-dead_rows2", "conformer_s-dk36-D144", "conformer_l-dk64-D512"],
 )
-def test_rel_attention_plain_matches_pallas(tq, tk, lengths, dead_rows):
-    b, h, dk, d = 3, 2, 8, 16
+def test_rel_attention_plain_matches_pallas(tq, tk, lengths, dead_rows, dk, d):
+    b, h = 3, 2
     q_u, ab, k, v, feats, mask = _attn_inputs(0, b, h, tq, tk, dk, d, lengths, dead_rows)
     scale = 1.0 / np.sqrt(dk)
     j_out, j_lse = ak._fwd_impl(
@@ -67,6 +73,21 @@ def test_rel_attention_wrapper_takes_plain_on_cpu():
     ref_out, ref_lse = pra.rel_attention_plain(*args, scale=0.3)
     assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
     assert pra.rel_attention.launches == before
+
+
+def test_kernel_width_limits():
+    """The widths the CUDA wrappers take, checked before any launch: every
+    shipped attention width (Conformer-S, M, L) in bf16, float32 up to
+    D = 256; the DP kernels past 1024 states (their shared-memory limits)."""
+    for dk, d in ((36, 144), (64, 256), (64, 512)):
+        assert pra.width_error(torch.bfloat16, dk, d) is None
+    assert pra.width_error(torch.float32, 36, 144) is None
+    assert pra.width_error(torch.float32, 64, 256) is None
+    assert "D <= 256" in pra.width_error(torch.float32, 64, 512)
+    assert pra.width_error(torch.bfloat16, 64, 1024) is not None
+    assert pra.width_error(torch.bfloat16, 80, 256) is not None
+    assert pcd.max_states() == 29056
+    assert prl.max_u1(374) == 28869 and prl.max_u1(1300) > 1024
 
 
 def _conv_params(seed, d, k):

@@ -269,6 +269,59 @@ def test_ctc_plain_scan_matches_jax_and_dp_bwd_matches_autograd():
     _close(grad, x.grad)
 
 
+@pytest.mark.parametrize("dp,u", [("ctc", 400), ("rnnt", 600)])
+def test_dp_plain_at_long_labels_matches_jax_oracle(dp, u):
+    """Label lengths at which a launch of one thread per state runs out of
+    registers (CTC above U ~ 330, the lattice above U ~ 500), which the DP
+    kernels now walk with a block stride: CTC at U=400 (S=801; B=2, T=810,
+    V=32) against the JAX ``ctc_loss`` scan, the transducer lattice at
+    U=600 (B=2, T=40) against the JAX ``rnnt_loss_from_log_probs`` scan;
+    NLL and gradients of sum(W * nll). Tolerance 1e-4 abs and rel as above (float32 on both
+    sides, the NLL in the thousands, the gradients occupancies in [0, 1]),
+    but for CTC's gradients: at T=810, JAX's float32 scan gradient is itself
+    8.3e-4 off the float64 one, and the port's plain backward 1.4e-4, so
+    they are held to 1e-3 of JAX's and 2e-4 of the float64 plain scan's."""
+    rng = np.random.default_rng(11)
+    w = W[:2]
+    if dp == "ctc":
+        t, v = 2 * u + 10, 32
+        x = rng.standard_normal((2, t, v)).astype(np.float32)
+        lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+        labels = rng.integers(1, v, (2, u)).astype(np.int32)
+        tl, ul = np.array([t, t - 5], np.int32), np.array([u, u - 50], np.int32)
+        labels = np.where(np.arange(u)[None, :] < ul[:, None], labels, 0).astype(np.int32)
+        jargs = (jnp.asarray(tl), jnp.asarray(labels), jnp.asarray(ul))
+        j_nll = j_ctc.ctc_loss(jnp.asarray(lp), *jargs)
+        j_g = (jax.grad(lambda a: jnp.sum(jnp.asarray(w) * j_ctc.ctc_loss(a, *jargs)))(
+            jnp.asarray(lp)),)
+        leaves = [_t(lp, True)]
+        nll = p_ctc_dp.ctc_loss_dp(*leaves, _t(tl), _t(labels), _t(ul))
+        assert p_ctc_dp.max_states() >= 2 * u + 1
+    else:
+        t = 40
+        sig = lambda z: np.log(1 / (1 + np.exp(-z)))  # noqa: E731
+        lpb, lpe = (sig(rng.standard_normal((2, t, u + 1))).astype(np.float32)
+                    for _ in range(2))
+        tl, ul = np.array([t, t - 7], np.int32), np.array([u, u - 45], np.int32)
+        jargs = (jnp.asarray(tl), jnp.asarray(ul))
+        j_nll = j_rnnt.rnnt_loss_from_log_probs(jnp.asarray(lpb), jnp.asarray(lpe), *jargs)
+        j_g = jax.grad(lambda a, b: jnp.sum(jnp.asarray(w) * j_rnnt.rnnt_loss_from_log_probs(
+            a, b, *jargs)), argnums=(0, 1))(jnp.asarray(lpb), jnp.asarray(lpe))
+        leaves = [_t(lpb, True), _t(lpe, True)]
+        nll = p_lat.rnnt_lattice_nll(*leaves, _t(tl), _t(ul))
+        assert p_lat.max_u1(t) >= u + 1
+    (nll * _t(w)).sum().backward()
+    _close(nll, j_nll)
+    if dp == "ctc":
+        _close(leaves[0].grad, j_g[0], atol=1e-3)
+        g64, = _float64_grad(lambda a: _t(w).double() * p_ctc.ctc_loss(
+            a, _t(tl), _t(labels), _t(ul)), _t(lp))
+        _close(leaves[0].grad, g64, atol=2e-4)
+    else:
+        for leaf, want in zip(leaves, j_g):
+            _close(leaf.grad, want)
+
+
 def _float64_grad(fn, *inputs):
     """Gradients of sum(fn(*inputs)) with float64 as the default dtype (the
     plain forwards allocate their carries in it)."""
