@@ -18,20 +18,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
                the dropout keep-mask bit for bit, its keep share, and
                bitwise repeatability; the same at Conformer-L's and -S's
                head widths (H=8, dk=64, D=512; H=4, dk=36, D=144), every
-               output poisoned with NaN first, and the float32 wrappers'
-               ValueError where they do not take the width; each of the
+               output poisoned with NaN first, in both dtypes, and every
+               wrapper's ValueError above D = 512; each of the
                six loss kernels (simple lattice, RNN-T lattice DP, CTC DP;
                forward and backward) against its plain version in float32 at the
                training shape (B=32, T'=374, U=64, V=5002) and at a tiny
                ragged one, with edge rows (t_len 1, u_len 0, a
-               bucket-padding row), and the CTC and RNN-T DPs at long
+               bucket-padding row), the simple lattice's two also at
+               U = 300 (B=2, T'=412), and the CTC and RNN-T DPs at long
                labels (U = 400-1100) with their wrappers' limits; the
                two int8 serving kernels at route B's rows (M = 48 x 374),
                route A's (374), a ragged M and
                M = 1 with an all-zero row, in float32 and bfloat16:
                int8_matmul bit for bit, int8_ffn within JAX's tolerances;
-               the three joint kernels (forward, bwd_xp, bwd_w) in float32
-               and bfloat16 at (B, T', U, V) = (32, 374, 64, 5002), (4, 412,
+               the three joint kernels (forward, bwd_xp, bwd_w; the bf16
+               backward on wgmma with TMA) in float32 and bfloat16 at (B, T', U, V) = (32, 374, 64, 5002), (4, 412,
                200, 5002) and a tiny ragged shape with edge rows, against
                their plain versions and in float32 against autograd through
                the plain forward, the backward bitwise repeatable; the
@@ -522,7 +523,9 @@ def check_attention_train_kernels(dev):
 # (configs/conformer_s.json: d=144, 4 heads) at T'=374; the keep-mask
 # shape has T' <= dk (identity v and dO)
 ATTN_WIDTHS = {"conformer_l": dict(b=4, h=8, dk=64, d=512, keep=(4, 64)),
-               "conformer_s": dict(b=8, h=4, dk=36, d=144, keep=(8, 36))}
+               "conformer_s": dict(b=8, h=4, dk=36, d=144, keep=(8, 36)),
+               # past every kernel's limit (D <= 512): all wrappers must refuse
+               "above the limit": dict(b=1, h=1, dk=64, d=576, keep=None)}
 
 
 def poison(*like) -> None:
@@ -542,10 +545,10 @@ def check_attention_widths(dev) -> dict:
     widths (T'=374): the forward without and with dropout 0.1, dq and dkv,
     against their plain versions in every dtype whose kernels take the
     width, with outputs poisoned beforehand (no element left unwritten);
-    the backward bitwise repeatable and the keep-mask bit for bit. Where
-    the float32 kernels do not take the width, all three wrappers must
-    raise ValueError before any launch. Returns the largest error of each
-    kernel."""
+    the backward bitwise repeatable and the keep-mask bit for bit. Past
+    the kernels' widths (D = 576), all three wrappers must raise
+    ValueError before any launch, in both dtypes. Returns the largest
+    error of each kernel."""
     import torch
 
     from conformer_tpu_torch.ops import rel_attention as ra
@@ -698,12 +701,19 @@ def compare_sums(name, got, want, tol) -> float:
     return err
 
 
+# the simple lattice past one u tile of its forward (128 rows) and two
+# chunks of its backward (96 rows): U+1 = 301, where the wrappers once
+# refused anything above 256 (B, T', U, V)
+SIMPLE_LONG = ((2, 412, 300, 5002),)
+
+
 def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002),
-                                        (5, 37, 6, 37))) -> dict:
+                                        (5, 37, 6, 37)), simple_long=SIMPLE_LONG) -> dict:
     """The six training kernels against their plain versions in float32 at
     the training shape (B=32, T'=374, U=64, V=5002), at the recipe's
     longest bucket with labels padded to ``max_label_len`` (B=4, T'=412,
-    U=200) and at a tiny ragged one, edge rows included; times, plain and
+    U=200) and at a tiny ragged one, edge rows included; the simple
+    lattice's two also at ``simple_long`` (U=300); times, plain and
     library times and bounds at the training shape. Returns the JSON
     entries without ``launches``."""
     import torch
@@ -715,7 +725,7 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
 
     gen = torch.Generator().manual_seed(1)
     entries = {}
-    for b, t, u, v in shapes:
+    for b, t, u, v in (*shapes, *simple_long):
         x = training_kernel_inputs(dev, gen, b, t, u, v)
         tl, ul = x["t_len"], x["u_len"]
         errs = {}
@@ -727,6 +737,12 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
         sbwd_p = sl.simple_lattice_plain_bwd(x["am"], x["lm"], x["lab"], logz, x["g_blank"],
                                              x["g_emit"], 0)
         errs["simple_lattice_bwd"] = compare("simple_lattice_bwd", sbwd, sbwd_p)
+        if (b, t, u, v) in simple_long:
+            torch.cuda.synchronize()
+            print(f"kernels: simple lattice f32 B={b} T'={t} U={u} V={v}: max_abs_err "
+                  + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
+                  + f" (tol {TOL['float32']} abs + rel; max_u1 {sl.max_u1()})")
+            continue
         rfwd = rl.rnnt_lattice_fwd(x["lp_blank"], x["lp_emit"], tl, ul)
         rfwd_p = rl.rnnt_lattice_plain_fwd(x["lp_blank"], x["lp_emit"], tl, ul)
         errs["rnnt_lattice_fwd"] = compare("rnnt_lattice_fwd", rfwd, rfwd_p)

@@ -34,15 +34,54 @@
 // M rows and a block owns a fixed tile of BM rows (64 in bf16, 32 in
 // float32) whatever U is: the block shape never depends on U (a block that
 // held every u was refused at U+1 = 201 in the simple lattice's backward).
-// The block keeps its x tile in shared memory and walks V in tiles of 64
-// columns; W's column tile [J x 64] is staged in shared memory per step
-// (W, 5 MB in bf16, stays in the 50 MB L2). Products: in bf16 on the tensor
-// cores through nvcuda::wmma (16x16x16, float32 accumulators); in float32 as
-// FMAs on the CUDA cores (no TF32), through the same 16x16 fragment shape.
-// Each logits tile goes to shared memory for the epilogue: an online
-// logsumexp per row and the blank and label picks (forward), or dl
-// (backward, rounded to the inputs' dtype as the product's operand).
 //
+// The forward, and both backward kernels in float32 (the parity path, not
+// the model's): the block keeps its x tile in shared memory and walks V in
+// tiles of 64 columns; W's column tile [J x 64] is staged in shared memory
+// per step (W, 5 MB in bf16, stays in the 50 MB L2). Products: in bf16 on
+// the tensor cores through nvcuda::wmma (16x16x16, float32 accumulators);
+// in float32 as FMAs on the CUDA cores (no TF32), through the same 16x16
+// fragment shape. Each logits tile goes to shared memory for the epilogue:
+// an online logsumexp per row and the blank and label picks (forward), or
+// dl (backward, rounded to the inputs' dtype as the product's operand).
+//
+// The backward in bf16 (bf16 enc, float32 or bf16 pred: the model's path),
+// joint_bwd_xp_wg_kernel and joint_bwd_w_wg_kernel, redesigned for Hopper:
+//  - wgmma (m64nNk16, bf16 operands from 128-byte-swizzled shared memory,
+//    float32 accumulators in registers) for both products. One W tile
+//    [J x 64] serves both: MN-major (transposed) as x W's B operand, K-major
+//    as dl W^T's; in bwd_w the x tile is x W's K-major A and x^T dl's
+//    MN-major A, and dl is K-major A (bwd_xp) or MN-major B (bwd_w).
+//  - A producer warpgroup (one thread, setmaxnreg 40) fills a 2-stage ring
+//    by TMA (tensor maps built per call through the driver entry point),
+//    completing on mbarriers; two consumer warpgroups (setmaxnreg 232) run
+//    the products and the epilogue and release each stage with an arrive.
+//    bwd_xp streams W tiles past its x tile (computed in the block from enc
+//    and pred); bwd_w keeps its W tile and streams 64-row x tiles of the x
+//    buffer.
+//  - The logits tile never leaves registers: each consumer warpgroup
+//    computes half of its V columns (m64n32k16, depth J), turns them into
+//    dl on the accumulators (exp, picks), and writes dl as bf16 into its
+//    half of a swizzled 64 x 64 tile; after a named barrier between the
+//    two warpgroups (dl double-buffered, so one barrier per step orders
+//    everything) each runs its half of the second product on the whole dl
+//    tile: bwd_xp the 256 columns of dX it owns (m64n256k16, 128 float32
+//    accumulators a thread), bwd_w 256 rows of the dW tile (4 x m64n64k16).
+//  - Bytes: per call at B=32 (M = 777,920, Vp = 5056) bwd_xp streams W
+//    12,155 times (62.9 GB) and bwd_w its x buffer 79 times (62.9 GB), both
+//    from L2; the dpre scratch adds 1.6 GB each way and bwd_w's x buffer
+//    and partials ~1.8 GB of device memory. Against the products' bound
+//    (two products, 8.06 ms at 989 TFLOP/s) the re-reads need ~2.9 TB/s
+//    of L2 at 22 ms. Taking the TMA copies out of a copy of the kernel saves
+//    0.1 ms (scripts/torch_joint_ablation.py): the ring hides them, so
+//    cluster multicast, which would halve those bytes, would not move the
+//    time, and none is used. What holds the kernels is the serial order
+//    within a V step (logits product, exp epilogue, hand-off barrier,
+//    second product), each stage waiting on the last; overlapping the next
+//    step's logits with this step's epilogue needs a third ring stage
+//    (272 KB), and with two it exposed the TMA latency (slower: PERF.md).
+//  - The exps: M V per pass (3.9e9), ~0.9 ms on the special-function units.
+
 // Reductions across blocks take no atomics, so the backward is bitwise
 // repeatable. bwd_xp: each block accumulates its rows' dX = dl W^T over all
 // of V in registers, writes dpre [M, J] float32, and a second grid sums it
@@ -53,8 +92,11 @@
 // The C entries report the grids they launched (1, 2 and 3).
 //
 // Limits: J a multiple of 128 up to 512; V padded by the caller to Vp, a
-// multiple of 64 (W's padded columns are never read into a result).
+// multiple of 64 (W's padded columns are never read into a result). The
+// bf16 backward kernels use 214 KB of shared memory at J = 512.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -555,6 +597,670 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// ------------------------------------------------------------ Hopper pieces
+// wgmma (warpgroup MMA: bf16 operands from 128-byte-swizzled shared memory,
+// float32 accumulators in registers), TMA copies into shared memory that
+// complete on mbarriers, and the named barriers and fences around them.
+
+namespace hop {
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Matrix descriptor of an operand tile at shared address a, 128-byte
+// swizzle. Every tile is built of 8-row groups of 128-byte rows (1024 B,
+// 1024-aligned), the layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
+// the 16-byte chunk c of row r sits at chunk c ^ (r % 8). The stride
+// between 8-row groups (1024 B) goes in both offset fields: K-major
+// operands step it along M/N, MN-major ones along K, and no operand here
+// is wider than one 64-element row in its contiguous dimension. A start
+// inside a row (+32, +64, +96 B) selects a K slice (K-major) or an N
+// slice (MN-major); the swizzle applies to the full address, so the
+// base-offset field stays 0.
+__device__ __forceinline__ uint64_t desc(uint32_t a) {
+  constexpr uint64_t kGroup = 1024 >> 4;
+  return static_cast<uint64_t>((a >> 4) & 0x3FFF) | (kGroup << 16) | (kGroup << 32) |
+         (1ull << 62);
+}
+
+// byte offset of bf16 element (r, c), c < 64, in a swizzled tile of 128-byte rows
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>(r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2);
+}
+
+__device__ __forceinline__ void fence_view_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(bar)) : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = saddr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (c0 inner, c1 outer) of `map` into shared memory at dst
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x N, float32) = [d +] A (64 x 16) B (16 x N); TA / TB: A / B
+// MN-major (1) or K-major (0). The accumulator's element (row, col) of
+// warp w, lane l: row 16 w + l / 4 (+8 for d[4i+2], d[4i+3]), column
+// 8 i + 2 (l % 4) (+1 for d[4i+1], d[4i+3]).
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, %99, %100;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 32) wgmma_n32<TA, TB>(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_n64<TA, TB>(d, a, b, scale_d);
+  else if constexpr (N == 128) wgmma_n128<TA, TB>(d, a, b, scale_d);
+  else if constexpr (N == 192) wgmma_n192<TA, TB>(d, a, b, scale_d);
+  else wgmma_n256<TA, TB>(d, a, b, scale_d);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (saddr(p) & 1023)) & 1023);
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+}  // namespace hop
+
+// ------------------------------------------------ bf16 backward on wgmma
+//
+// One block = 3 warpgroups: warpgroup 0 is the producer (one thread issues
+// the TMA copies, 40 registers), warpgroups 1 and 2 the consumers (232
+// registers). Per 64-row tile of cells and 64-column V tile v0 each consumer
+// warpgroup c computes half of the logits tile, S[:, 32c, 32c + 32) = x W
+// (m64n32k16, depth J; x K-major, W's tile MN-major through the +64 B
+// N slice), turns it into dl in registers (the epilogue on the
+// accumulators; no float32 round trip through shared memory), writes dl
+// as bf16 into its half of a swizzled 64 x 64 tile, and after a named
+// barrier between the two consumer warpgroups runs its half of the second
+// product on the whole dl tile. dl is double-buffered, so one barrier per
+// V step orders everything.
+
+constexpr int WG_THREADS = 384;
+constexpr int WG_CONSUMERS = 256;
+constexpr int WG_REG_PRODUCER = 40, WG_REG_CONSUMER = 232;
+constexpr uint32_t ATOM = 8192;   // bytes of one 64 x 64 bf16 swizzled tile
+
+// shared memory of the wgmma kernels: three J x 64 bf16 tiles (x and two
+// ring stages, or W and two ring stages), two dl tiles, mbarriers, and
+// room to align the base to 1024 B
+__host__ __device__ constexpr size_t wg_smem(int J) {
+  return 3 * (size_t)J * 128 + 2 * ATOM + 64 + 1024;
+}
+
+// the row constants of cell m: logZ, g_b, g_e, label (g = 0 and no label
+// past `end`)
+struct RowC {
+  float lz, gb, ge;
+  int lb;
+};
+__device__ __forceinline__ RowC row_consts(const float* __restrict__ logz,
+                                           const float* __restrict__ gb,
+                                           const float* __restrict__ ge,
+                                           const int* __restrict__ lab, int m, int end, int Tn,
+                                           int U1) {
+  if (m >= end) return {0.f, 0.f, 0.f, -1};
+  return {logz[m], gb[m], ge[m], cell_label(lab, m, Tn, U1)};
+}
+
+// S = this warpgroup's 64 x 32 half of the logits, bias not yet added: x
+// (K-major, J / 64 swizzled atoms at xa) times columns [32 c, 32 c + 32)
+// of the W tile at wa (J rows of 128 B, MN-major)
+template <int J>
+__device__ __forceinline__ void logits_half(float (&s)[16], uint32_t xa, uint32_t wa, int c) {
+  hop::fence_regs(s);
+  hop::wg_fence();
+#pragma unroll
+  for (int k = 0; k < J / 16; ++k)
+    hop::wgmma<32, 0, 1>(s, hop::desc(xa + (k >> 2) * ATOM + (k & 3) * 32),
+                         hop::desc(wa + k * 2048 + c * 64), k > 0);
+  hop::wg_commit();
+  hop::wg_wait0();
+  hop::fence_regs(s);
+}
+
+// dl of this thread's logits (rows r0 and r0 + 8, columns 32 c + 8 i +
+// 2 (l % 4) + e) into the swizzled bf16 tile at dl; with `dbias`, the
+// float32 dl added to the thread's column sums db[2 i + e]
+template <bool kSum>
+__device__ __forceinline__ void dl_half(const float (&s)[16], unsigned char* dl,
+                                        const RowC (&rc)[2], const float (&bias)[8], int r0,
+                                        int c, int v0, int V, int blank, float (&db)[8]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const RowC& q = rc[h];
+    const int r = r0 + 8 * h;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = 32 * c + 8 * i + 2 * (lane & 3);
+      float d[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int v = v0 + col + e;
+        d[e] = 0.f;
+        if (v < V) {
+          const float p = __expf(s[4 * i + 2 * h + e] + bias[2 * i + e] - q.lz);
+          d[e] = -(q.gb + q.ge) * p + (v == blank ? q.gb : 0.f) + (v == q.lb ? q.ge : 0.f);
+        }
+        if (kSum) db[2 * i + e] += d[e];
+      }
+      __nv_bfloat162 pr = __floats2bfloat162_rn(d[0], d[1]);
+      *reinterpret_cast<__nv_bfloat162*>(dl + hop::swz(r, col)) = pr;
+    }
+  }
+}
+
+// d enc / d pred: block = one 64-row tile of cells; dpre [M][J] float32
+template <int NJ, typename TP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+joint_bwd_xp_wg_kernel(const __grid_constant__ CUtensorMap wmap, const bf16* __restrict__ enc,
+                       const TP* __restrict__ pred, const float* __restrict__ bias,
+                       const int* __restrict__ lab, const float* __restrict__ logz,
+                       const float* __restrict__ gb, const float* __restrict__ ge,
+                       float* __restrict__ dpre, int M, int Tn, int U1, int V, int Vp,
+                       int blank) {
+  constexpr int J = 128 * NJ, JH = J / 2;   // dX columns of each consumer warpgroup
+  constexpr uint32_t TILE = J * 128;        // bytes of a J x 64 bf16 tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align1024(smem_raw);
+  unsigned char* xs = smem;                 // x [64][J]: J / 64 atoms
+  unsigned char* ws = xs + TILE;            // W ring [2][J][64]
+  unsigned char* dls = ws + 2 * TILE;       // dl [2][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(dls + 2 * ATOM);
+  uint64_t* empty = full + 2;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.x * 64, nv = Vp / 64;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hop::mbar_init(&full[i], 1);
+      hop::mbar_init(&empty[i], WG_CONSUMERS);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hop::setmaxnreg_dec<WG_REG_PRODUCER>();
+    if (tid == 0) {
+      for (int s = 0; s < nv; ++s) {
+        const int st = s & 1;
+        hop::mbar_wait(&empty[st], ((s >> 1) & 1) ^ 1);
+        hop::mbar_expect(&full[st], TILE);
+        unsigned char* dst = ws + st * TILE;
+        hop::tma_load(dst, &wmap, &full[st], s * 64, 0);
+        hop::tma_load(dst + JH * 128, &wmap, &full[st], s * 64, JH);
+      }
+    }
+  } else {
+    hop::setmaxnreg_inc<WG_REG_CONSUMER>();
+    const int ct = tid - 128, c = wg - 1;
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int r0 = 16 * warp + (lane >> 2);
+    // x = tanh(enc + pred) of the tile's rows into the swizzled x atoms
+    for (int r = ct >> 5; r < 64; r += WG_CONSUMERS / 32) {
+      const int m = m0 + r;
+      int bt = 0, u = 0, b = 0;
+      if (m < M) {
+        bt = m / U1;
+        u = m - bt * U1;
+        b = bt / Tn;
+      }
+#pragma unroll
+      for (int a = 0; a < J / 64; ++a) {
+        const int j = 64 * a + 2 * lane;
+        float x0 = 0.f, x1 = 0.f;
+        if (m < M) {
+          const bf16* e = enc + (size_t)bt * J + j;
+          const TP* p = pred + ((size_t)b * U1 + u) * J + j;
+          x0 = to_f(joint_x<bf16, TP>(e[0], p[0]));
+          x1 = to_f(joint_x<bf16, TP>(e[1], p[1]));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(xs + a * ATOM + hop::swz(r, 2 * lane)) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    }
+    RowC rc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rc[h] = row_consts(logz, gb, ge, lab, m0 + r0 + 8 * h, M, Tn, U1);
+    hop::fence_view_async();
+    hop::bar_sync(1, WG_CONSUMERS);
+
+    const uint32_t xa = hop::saddr(xs);
+    float acc[JH / 2];
+#pragma unroll
+    for (int i = 0; i < JH / 2; ++i) acc[i] = 0.f;
+    float db[8];   // unused: no bias sums here
+    for (int s = 0; s < nv; ++s) {
+      const int st = s & 1, v0 = s * 64;
+      float bv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int v = v0 + 32 * c + 8 * i + 2 * (lane & 3) + e;
+          bv[2 * i + e] = v < V ? bias[v] : 0.f;
+        }
+      hop::mbar_wait(&full[st], (s >> 1) & 1);
+      const uint32_t wa = hop::saddr(ws + st * TILE);
+      float sl[16] = {};
+      logits_half<J>(sl, xa, wa, c);
+      unsigned char* dl = dls + st * ATOM;
+      dl_half<false>(sl, dl, rc, bv, r0, c, v0, V, blank, db);
+      hop::fence_view_async();
+      hop::bar_sync(1, WG_CONSUMERS);
+      // dX[:, JH c, JH c + JH) += dl (64 x 64, K-major) W_tile^T (K-major rows JH c ..)
+      hop::fence_regs(acc);
+      hop::wg_fence();
+      const uint32_t da = hop::saddr(dl);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        hop::wgmma<JH, 0, 0>(acc, hop::desc(da + k * 32), hop::desc(wa + c * JH * 128 + k * 32),
+                             1);
+      hop::wg_commit();
+      hop::wg_wait0();
+      hop::fence_regs(acc);
+      hop::mbar_arrive(&empty[st]);
+    }
+    // dpre = dX (1 - x^2)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, m = m0 + r;
+      if (m >= M) continue;
+#pragma unroll
+      for (int i = 0; i < JH / 8; ++i) {
+        const int j = JH * c + 8 * i + 2 * (lane & 3);
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            xs + (j >> 6) * ATOM + hop::swz(r, j & 63)));
+        *reinterpret_cast<float2*>(dpre + (size_t)m * J + j) =
+            make_float2(acc[4 * i + 2 * h] * (1.f - x.x * x.x),
+                        acc[4 * i + 2 * h + 1] * (1.f - x.y * x.y));
+      }
+    }
+  }
+}
+
+// dW / dbias: block = (V tile, chunk of rows); part [n_chunks][J][Vp],
+// dbpart [n_chunks][Vp] float32
+template <int NJ>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+joint_bwd_w_wg_kernel(const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap xmap, const float* __restrict__ bias,
+                      const int* __restrict__ lab, const float* __restrict__ logz,
+                      const float* __restrict__ gb, const float* __restrict__ ge,
+                      float* __restrict__ part, float* __restrict__ dbpart, int M, int Tn,
+                      int U1, int V, int Vp, int blank, int rows_per_chunk) {
+  constexpr int J = 128 * NJ, JH = J / 2;   // dW rows of each consumer warpgroup
+  constexpr uint32_t TILE = J * 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align1024(smem_raw);
+  unsigned char* ws = smem;                 // W tile [J][64], resident
+  unsigned char* xs = ws + TILE;            // x ring [2][64][J]: J / 64 atoms each
+  unsigned char* dls = xs + 2 * TILE;       // dl [2][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(dls + 2 * ATOM);
+  uint64_t* empty = full + 2;
+  uint64_t* wbar = empty + 2;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int v0 = blockIdx.x * 64, chunk = blockIdx.y;
+  const int begin = chunk * rows_per_chunk, end = min(M, begin + rows_per_chunk);
+  const int ntile = end > begin ? (end - begin + 63) / 64 : 0;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hop::mbar_init(&full[i], 1);
+      hop::mbar_init(&empty[i], WG_CONSUMERS);
+    }
+    hop::mbar_init(wbar, 1);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hop::setmaxnreg_dec<WG_REG_PRODUCER>();
+    if (tid == 0) {
+      hop::mbar_expect(wbar, TILE);
+      hop::tma_load(ws, &wmap, wbar, v0, 0);
+      hop::tma_load(ws + JH * 128, &wmap, wbar, v0, JH);
+      for (int s = 0; s < ntile; ++s) {
+        const int st = s & 1;
+        hop::mbar_wait(&empty[st], ((s >> 1) & 1) ^ 1);
+        hop::mbar_expect(&full[st], TILE);
+        unsigned char* dst = xs + st * TILE;
+#pragma unroll
+        for (int a = 0; a < J / 64; ++a)
+          hop::tma_load(dst + a * ATOM, &xmap, &full[st], 64 * a, begin + 64 * s);
+      }
+    }
+  } else {
+    hop::setmaxnreg_inc<WG_REG_CONSUMER>();
+    const int c = wg - 1;
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int r0 = 16 * warp + (lane >> 2);
+    float bv[8], db[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int v = v0 + 32 * c + 8 * i + 2 * (lane & 3) + e;
+        bv[2 * i + e] = v < V ? bias[v] : 0.f;
+        db[2 * i + e] = 0.f;
+      }
+    float acc[NJ][32];   // dW rows JH c + 64 mb + ..., the V tile's 64 columns
+#pragma unroll
+    for (int mb = 0; mb < NJ; ++mb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[mb][i] = 0.f;
+    const uint32_t wa = hop::saddr(ws);
+    hop::mbar_wait(wbar, 0);
+    for (int s = 0; s < ntile; ++s) {
+      const int st = s & 1, m0 = begin + 64 * s;
+      RowC rc[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rc[h] = row_consts(logz, gb, ge, lab, m0 + r0 + 8 * h, end, Tn, U1);
+      hop::mbar_wait(&full[st], (s >> 1) & 1);
+      const uint32_t xa = hop::saddr(xs + st * TILE);
+      float sl[16] = {};
+      logits_half<J>(sl, xa, wa, c);
+      unsigned char* dl = dls + st * ATOM;
+      dl_half<true>(sl, dl, rc, bv, r0, c, v0, V, blank, db);
+      hop::fence_view_async();
+      hop::bar_sync(1, WG_CONSUMERS);
+      // dW[JH c + 64 mb .., :] += x^T (MN-major: x's atom, rows as K) dl (MN-major)
+      const uint32_t da = hop::saddr(dl);
+#pragma unroll
+      for (int mb = 0; mb < NJ; ++mb) hop::fence_regs(acc[mb]);
+      hop::wg_fence();
+#pragma unroll
+      for (int mb = 0; mb < NJ; ++mb)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          hop::wgmma<64, 1, 1>(acc[mb], hop::desc(xa + (c * NJ + mb) * ATOM + k * 2048),
+                               hop::desc(da + k * 2048), 1);
+      hop::wg_commit();
+      hop::wg_wait0();
+#pragma unroll
+      for (int mb = 0; mb < NJ; ++mb) hop::fence_regs(acc[mb]);
+      hop::mbar_arrive(&empty[st]);
+    }
+    float* pc = part + (size_t)chunk * J * Vp;
+#pragma unroll
+    for (int mb = 0; mb < NJ; ++mb)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = JH * c + 64 * mb + r0 + 8 * h;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          *reinterpret_cast<float2*>(pc + (size_t)j * Vp + v0 + 8 * i + 2 * (lane & 3)) =
+              make_float2(acc[mb][4 * i + 2 * h], acc[mb][4 * i + 2 * h + 1]);
+      }
+    // dbias: the column sums over the 8 rows of the lanes that share l % 4,
+    // then over the four warps in order, through the (now idle) dl tiles
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) db[i] += __shfl_xor_sync(0xffffffffu, db[i], o);
+    hop::bar_sync(1, WG_CONSUMERS);
+    float* red = reinterpret_cast<float*>(dls);   // [2 warpgroups][4 warps][32 columns]
+    if (lane < 4)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) red[(c * 4 + warp) * 32 + 8 * i + 2 * lane + e] = db[2 * i + e];
+    hop::bar_sync(1, WG_CONSUMERS);
+    const int ct = tid - 128;
+    if (ct < 64) {
+      const int cc = ct >> 5, col = ct & 31;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) sum += red[(cc * 4 + w) * 32 + col];
+      dbpart[(size_t)chunk * Vp + v0 + 32 * cc + col] = sum;
+    }
+  }
+}
+
+// ------------------------------------------------ host side of the wgmma kernels
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library links no -lcuda
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// map of a row-major bf16 matrix [rows][cols], boxes of 64 columns x
+// box_rows rows, 128-byte swizzle; rows past the end read as zero
+cudaError_t bf16_map(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
+                     uint32_t box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  cuuint64_t dims[2] = {cols, rows};
+  cuuint64_t strides[1] = {cols * sizeof(bf16)};
+  cuuint32_t box[2] = {64, box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int NJ, typename TP>
+cudaError_t launch_bwd_xp_wg(const void* enc, const void* pred, const void* w, const void* bias,
+                             const void* lab, const void* logz, const void* gb, const void* ge,
+                             void* dpre, cudaStream_t st, int M, int Tn, int U1, int V, int Vp,
+                             int blank) {
+  constexpr int J = 128 * NJ;
+  CUtensorMap wmap;
+  cudaError_t e = bf16_map(&wmap, w, J, Vp, J / 2);
+  if (e != cudaSuccess) return e;
+  const size_t smem = wg_smem(J);
+  e = set_smem(joint_bwd_xp_wg_kernel<NJ, TP>, smem);
+  if (e != cudaSuccess) return e;
+  joint_bwd_xp_wg_kernel<NJ, TP><<<(M + 63) / 64, WG_THREADS, smem, st>>>(
+      wmap, static_cast<const bf16*>(enc), static_cast<const TP*>(pred),
+      static_cast<const float*>(bias), static_cast<const int*>(lab),
+      static_cast<const float*>(logz), static_cast<const float*>(gb),
+      static_cast<const float*>(ge), static_cast<float*>(dpre), M, Tn, U1, V, Vp, blank);
+  return cudaGetLastError();
+}
+
+template <int NJ>
+cudaError_t launch_bwd_w_wg(const void* xbuf, const void* w, const void* bias, const void* lab,
+                            const void* logz, const void* gb, const void* ge, void* part,
+                            void* dbpart, cudaStream_t st, int M, int Tn, int U1, int V, int Vp,
+                            int blank, int n_chunks, int rows_per_chunk) {
+  constexpr int J = 128 * NJ;
+  CUtensorMap wmap, xmap;
+  cudaError_t e = bf16_map(&wmap, w, J, Vp, J / 2);
+  if (e == cudaSuccess) e = bf16_map(&xmap, xbuf, M, J, 64);
+  if (e != cudaSuccess) return e;
+  const size_t smem = wg_smem(J);
+  e = set_smem(joint_bwd_w_wg_kernel<NJ>, smem);
+  if (e != cudaSuccess) return e;
+  joint_bwd_w_wg_kernel<NJ><<<dim3(Vp / 64, n_chunks), WG_THREADS, smem, st>>>(
+      wmap, xmap, static_cast<const float*>(bias), static_cast<const int*>(lab),
+      static_cast<const float*>(logz), static_cast<const float*>(gb),
+      static_cast<const float*>(ge), static_cast<float*>(part), static_cast<float*>(dbpart), M,
+      Tn, U1, V, Vp, blank, rows_per_chunk);
+  return cudaGetLastError();
+}
+
 template <typename T, typename TP>
 cudaError_t launch_fwd(const void* enc, const void* pred, const void* w, const void* bias,
                        const void* lab, void* lpb, void* lpe, void* logz, cudaStream_t st, int M,
@@ -576,16 +1282,30 @@ cudaError_t launch_bwd_xp(const void* enc, const void* pred, const void* w, cons
                           void* dpre, void* d_enc, void* d_pred, int* launched, cudaStream_t st,
                           int B, int Tn, int U1, int J, int V, int Vp, int blank) {
   const int M = B * Tn * U1;
-  const Smem<T> S(J);
-  cudaError_t e = set_smem(joint_bwd_xp_kernel<T, TP>, S.total);
-  if (e != cudaSuccess) return e;
-  const int grid = (M + Tile<T>::BM - 1) / Tile<T>::BM;
-  joint_bwd_xp_kernel<T, TP><<<grid, kThreads, S.total, st>>>(
-      static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<const int*>(lab),
-      static_cast<const float*>(logz), static_cast<const float*>(gb),
-      static_cast<const float*>(ge), static_cast<float*>(dpre), M, Tn, U1, J, V, Vp, blank);
-  e = cudaGetLastError();
+  cudaError_t e;
+  if constexpr (std::is_same<T, bf16>::value) {
+    switch (J / 128) {
+#define XP_WG(NJ)                                                                               \
+  case NJ:                                                                                      \
+    e = launch_bwd_xp_wg<NJ, TP>(enc, pred, w, bias, lab, logz, gb, ge, dpre, st, M, Tn, U1, V, \
+                                 Vp, blank);                                                    \
+    break;
+      XP_WG(1) XP_WG(2) XP_WG(3) XP_WG(4)
+#undef XP_WG
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    const Smem<T> S(J);
+    e = set_smem(joint_bwd_xp_kernel<T, TP>, S.total);
+    if (e != cudaSuccess) return e;
+    const int grid = (M + Tile<T>::BM - 1) / Tile<T>::BM;
+    joint_bwd_xp_kernel<T, TP><<<grid, kThreads, S.total, st>>>(
+        static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<const T*>(w),
+        static_cast<const float*>(bias), static_cast<const int*>(lab),
+        static_cast<const float*>(logz), static_cast<const float*>(gb),
+        static_cast<const float*>(ge), static_cast<float*>(dpre), M, Tn, U1, J, V, Vp, blank);
+    e = cudaGetLastError();
+  }
   if (e != cudaSuccess) return e;
   *launched = 1;
   joint_reduce_xp_kernel<<<B * Tn + B * U1, 128, 0, st>>>(
@@ -609,17 +1329,30 @@ cudaError_t launch_bwd_w(const void* enc, const void* pred, const void* w, const
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   *launched = 1;
-  const Smem<T> S(J);
-  e = set_smem(joint_bwd_w_kernel<T>, S.total);
-  if (e != cudaSuccess) return e;
   const int tiles = (M + Tile<T>::BM - 1) / Tile<T>::BM;
   const int rows_per_chunk = (tiles + n_chunks - 1) / n_chunks * Tile<T>::BM;
-  joint_bwd_w_kernel<T><<<dim3(Vp / BN, n_chunks), kThreads, S.total, st>>>(
-      static_cast<const T*>(xbuf), static_cast<const T*>(w), static_cast<const float*>(bias),
-      static_cast<const int*>(lab), static_cast<const float*>(logz),
-      static_cast<const float*>(gb), static_cast<const float*>(ge), static_cast<float*>(part),
-      static_cast<float*>(dbpart), M, Tn, U1, J, V, Vp, blank, rows_per_chunk);
-  e = cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    switch (J / 128) {
+#define W_WG(NJ)                                                                              \
+  case NJ:                                                                                    \
+    e = launch_bwd_w_wg<NJ>(xbuf, w, bias, lab, logz, gb, ge, part, dbpart, st, M, Tn, U1, V, \
+                            Vp, blank, n_chunks, rows_per_chunk);                             \
+    break;
+      W_WG(1) W_WG(2) W_WG(3) W_WG(4)
+#undef W_WG
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    const Smem<T> S(J);
+    e = set_smem(joint_bwd_w_kernel<T>, S.total);
+    if (e != cudaSuccess) return e;
+    joint_bwd_w_kernel<T><<<dim3(Vp / BN, n_chunks), kThreads, S.total, st>>>(
+        static_cast<const T*>(xbuf), static_cast<const T*>(w), static_cast<const float*>(bias),
+        static_cast<const int*>(lab), static_cast<const float*>(logz),
+        static_cast<const float*>(gb), static_cast<const float*>(ge), static_cast<float*>(part),
+        static_cast<float*>(dbpart), M, Tn, U1, J, V, Vp, blank, rows_per_chunk);
+    e = cudaGetLastError();
+  }
   if (e != cudaSuccess) return e;
   *launched = 2;
   const size_t jv = (size_t)J * Vp;

@@ -52,10 +52,15 @@
 //  fragment layouts need no descriptor or swizzle set-up to be right.
 //
 // float32 design (the parity path): one block of 256 threads owns a 64-row
-// query tile, keeps Q and AB in shared memory as float32, and streams
-// 64-key tiles of K, V and F with an online softmax; each thread owns a 4x4
-// register tile of the scores and of the output, so dk <= 64, and products
-// are float32 FMAs on the CUDA cores. Its shared memory holds D <= 256.
+// query tile, keeps Q in shared memory as float32, and streams 64-key tiles
+// of K, V and F with an online softmax; each thread owns a 4x4 register
+// tile of the scores and of the output, so dk <= 64, and products are
+// float32 FMAs on the CUDA cores. The position term's depth D streams in
+// chunks of F32_DC = 256 columns of AB and F: at D <= 256 (one chunk) AB
+// stays in shared memory for the whole block and F comes with each key
+// tile, as one product; above (Conformer-L, D = 512: 198 KB) each key tile
+// loads the chunks of AB and F in turn. The sums over d run in the same
+// order either way.
 
 #include "rel_attention_common.cuh"
 
@@ -66,6 +71,17 @@ using namespace rel_attn;
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;
+constexpr int F32_DC = 256;   // columns of AB and F per chunk of the float32 kernel
+
+// rows [row0, row0 + rows) and columns [c0, c0 + dc) of src [n_rows][width]
+// into dst (row stride ld); rows at or past n_rows are zero
+__device__ __forceinline__ void load_cols(float* dst, int ld, const float* src, int row0,
+                                          int rows, int n_rows, int width, int c0, int dc) {
+  for (int e = threadIdx.x; e < rows * dc; e += NT) {
+    const int r = e / dc, c = e - r * dc, i = row0 + r;
+    dst[r * ld + c] = i < n_rows ? src[(size_t)i * width + c0 + c] : 0.f;
+  }
+}
 
 // reduce over the 16 lanes that share a query row (one half-warp)
 __device__ __forceinline__ float row_max16(float x) {
@@ -86,13 +102,14 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
     float* __restrict__ lse, int H, int Tq, int Tk, int dk, int D, float scale, int drop,
     uint32_t thr, float inv_keep) {
   extern __shared__ float smem[];
-  const int dkp = dk + 1, Dp = D + 1, BKp = BK + 1;  // +1: no bank conflicts
+  const int DC = min(D, F32_DC), DCp = DC + 1, dkp = dk + 1, BKp = BK + 1;  // +1: no bank conflicts
+  const bool one_chunk = D <= F32_DC;
   float* sQ = smem;               // [BQ][dkp]
-  float* sAB = sQ + BQ * dkp;     // [BQ][Dp]
-  float* sK = sAB + BQ * Dp;      // [BK][dkp]
+  float* sAB = sQ + BQ * dkp;     // [BQ][DCp]  a chunk of AB's columns
+  float* sK = sAB + BQ * DCp;     // [BK][dkp]
   float* sV = sK + BK * dkp;      // [BK][dkp]
-  float* sF = sV + BK * dkp;      // [BK][Dp]
-  float* sP = sF + BK * Dp;       // [BQ][BKp]
+  float* sF = sV + BK * dkp;      // [BK][DCp]  the same chunk of F's columns
+  float* sP = sF + BK * DCp;      // [BQ][BKp]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -104,14 +121,8 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
   const uint8_t* mg = mask + (size_t)b * Tq * Tk;
   const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
 
-  for (int e = tid; e < BQ * dk; e += NT) {
-    const int r = e / dk, c = e - r * dk, i = q0 + r;
-    sQ[r * dkp + c] = i < Tq ? qg[(size_t)i * dk + c] : 0.f;
-  }
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D, c = e - r * D, i = q0 + r;
-    sAB[r * Dp + c] = i < Tq ? abg[(size_t)i * D + c] : 0.f;
-  }
+  load_cols(sQ, dkp, qg, q0, BQ, Tq, dk, 0, dk);
+  if (one_chunk) load_cols(sAB, DCp, abg, q0, BQ, Tq, D, 0, D);
 
   float m[4], l[4], acc[4][4];
 #pragma unroll
@@ -129,10 +140,7 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
       sK[r * dkp + c] = ok ? kg[(size_t)j * dk + c] : 0.f;
       sV[r * dkp + c] = ok ? vg[(size_t)j * dk + c] : 0.f;
     }
-    for (int e = tid; e < BK * D; e += NT) {
-      const int r = e / D, c = e - r * D, j = k0 + r;
-      sF[r * Dp + c] = j < Tk ? feats[(size_t)j * D + c] : 0.f;
-    }
+    if (one_chunk) load_cols(sF, DCp, feats, k0, BK, Tk, D, 0, D);
     __syncthreads();
 
     float s[4][4];
@@ -156,16 +164,25 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
     for (int r = 0; r < 4; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) sb[r][c] = 0.f;
-    for (int d = 0; d < D; ++d) {  // position term AB F^T
-      float a[4], bb[4];
+    for (int c0 = 0; c0 < D; c0 += DC) {  // position term AB F^T, chunk by chunk
+      const int dc = min(DC, D - c0);
+      if (!one_chunk) {
+        __syncthreads();
+        load_cols(sAB, DCp, abg, q0, BQ, Tq, D, c0, dc);
+        load_cols(sF, DCp, feats, k0, BK, Tk, D, c0, dc);
+        __syncthreads();
+      }
+      for (int d = 0; d < dc; ++d) {
+        float a[4], bb[4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = sAB[(ty + 16 * r) * Dp + d];
+        for (int r = 0; r < 4; ++r) a[r] = sAB[(ty + 16 * r) * DCp + d];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) bb[c] = sF[(tx + 16 * c) * Dp + d];
+        for (int c = 0; c < 4; ++c) bb[c] = sF[(tx + 16 * c) * DCp + d];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) sb[r][c] = fmaf(a[r], bb[c], sb[r][c]);
+          for (int c = 0; c < 4; ++c) sb[r][c] = fmaf(a[r], bb[c], sb[r][c]);
+      }
     }
 
 #pragma unroll
@@ -445,10 +462,10 @@ cudaError_t launch_f32(const void* qu, const void* ab, const void* k, const void
                        const void* feats, const void* mask, const void* seed, void* out,
                        void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
                        int D, float scale, int drop, uint32_t thr, float inv_keep) {
-  const size_t smem =
-      sizeof(float) * ((size_t)BQ * (dk + 1) + (size_t)BQ * (D + 1) +
-                       2 * (size_t)BK * (dk + 1) + (size_t)BK * (D + 1) +
-                       (size_t)BQ * (BK + 1));
+  const size_t dcp = (size_t)min(D, F32_DC) + 1;
+  const size_t smem = sizeof(float) * ((size_t)BQ * (dk + 1) + (size_t)BQ * dcp +
+                                       2 * (size_t)BK * (dk + 1) + (size_t)BK * dcp +
+                                       (size_t)BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
       rel_flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -508,7 +525,8 @@ cudaError_t launch_bf16(const void* qu, const void* ab, const void* k, const voi
 // seed int32 [1] (read only when drop != 0; may be null otherwise);
 // out [B,H,Tq,dk] (input dtype); lse float32 [B,H,Tq]. All contiguous.
 // dk <= 64; bf16: fwd_bf16_smem(dk, D, 4) within a block's shared memory,
-// float32: D <= 256. thr_bits is the uint32 keep threshold's bit pattern,
+// float32: D <= 512 (any D fits; the float32 dq kernel's registers set the
+// limit). thr_bits is the uint32 keep threshold's bit pattern,
 // inv_keep 1/(1-rate). Returns the CUDA error code of the launch (0 on
 // success).
 extern "C" int rel_flash_attention_fwd(const void* qu, const void* ab, const void* k,

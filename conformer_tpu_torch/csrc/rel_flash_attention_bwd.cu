@@ -50,14 +50,18 @@
 //  wgmma and TMA are the next step (see rel_flash_attention.cu).
 //
 // float32 design (the parity path): float32 FMAs on the CUDA cores, with
-// float32 tiles in shared memory:
-//  - dq: 256 threads own a 32-row query tile; Q, AB and dO stay in shared
+// float32 tiles in shared memory. The position depth D streams in chunks of
+// F32_DC = 256 columns of AB and F, as in the forward: at D <= 256 one chunk
+// stays in shared memory, above (Conformer-L, D = 512) the chunks are loaded
+// in turn wherever the position term or dAB needs them.
+//  - dq: 256 threads own a 32-row query tile; Q and dO stay in shared
 //    memory while 64-key tiles of K, V and F stream through. Each thread
-//    keeps a 2 x 16 slice of dAB (rows ty+16r, columns tx+16c) and a 2 x 4
-//    slice of dQ in registers, so D <= 256 and dk <= 64.
-//  - dkv: 256 threads own a 64-key tile; K, V and F stay in shared memory
-//    while 32-row query tiles stream through; each thread holds a 4 x 4
-//    slice of dK and of dV.
+//    keeps a 2 x 32 slice of dAB (rows ty+16r, columns tx+16c, 16 per
+//    chunk) and a 2 x 4 slice of dQ in registers, so D <= 512 and dk <= 64
+//    (157 KB of shared memory at L).
+//  - dkv: 256 threads own a 64-key tile; K and V stay in shared memory (F
+//    too at D <= 256) while 32-row query tiles stream through; each thread
+//    holds a 4 x 4 slice of dK and of dV (165 KB at L).
 
 #include "rel_attention_common.cuh"
 
@@ -70,13 +74,23 @@ constexpr int DQ_BQ = 32;    // query rows of a dq block
 constexpr int DQ_BK = 64;    // key tile streamed by a dq block
 constexpr int KV_BK = 64;    // keys of a dkv block
 constexpr int KV_BQ = 32;    // query tile streamed by a dkv block
+constexpr int F32_DC = 256;  // columns of AB and F per chunk
+constexpr int F32_NCH = 2;   // chunks at most: D <= 512
+
+// rows [row0, row0 + rows) and columns [c0, c0 + dc) of src [n_rows][width]
+// into dst (row stride ld); rows at or past n_rows are zero
+__device__ __forceinline__ void load_cols(float* dst, int ld, const float* src, int row0,
+                                          int rows, int n_rows, int width, int c0, int dc,
+                                          int tid) {
+  for (int e = tid; e < rows * dc; e += NT) {
+    const int r = e / dc, c = e - r * dc, i = row0 + r;
+    dst[r * ld + c] = i < n_rows ? src[(size_t)i * width + c0 + c] : 0.f;
+  }
+}
 
 __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, int row0,
                                           int rows, int n_rows, int width, int tid) {
-  for (int e = tid; e < rows * width; e += NT) {
-    const int r = e / width, c = e - r * width, i = row0 + r;
-    dst[r * ld + c] = i < n_rows ? src[(size_t)i * width + c] : 0.f;
-  }
+  load_cols(dst, ld, src, row0, rows, n_rows, width, 0, width, tid);
 }
 
 __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
@@ -88,23 +102,26 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
     int H, int Tq, int Tk, int dk, int D, float scale, int drop, uint32_t thr,
     float inv_keep) {
   extern __shared__ float smem[];
-  const int dkp = dk + 1, Dp = D + 1, BKp = DQ_BK + 1;   // +1: no bank conflicts
+  const int DC = min(D, F32_DC), DCp = DC + 1;
+  const int dkp = dk + 1, BKp = DQ_BK + 1;   // +1: no bank conflicts
+  const bool one_chunk = D <= F32_DC;
   float* sQ = smem;                  // [DQ_BQ][dkp]
-  float* sAB = sQ + DQ_BQ * dkp;     // [DQ_BQ][Dp]
-  float* sdO = sAB + DQ_BQ * Dp;     // [DQ_BQ][dkp]
+  float* sAB = sQ + DQ_BQ * dkp;     // [DQ_BQ][DCp]  a chunk of AB's columns
+  float* sdO = sAB + DQ_BQ * DCp;    // [DQ_BQ][dkp]
   float* sK = sdO + DQ_BQ * dkp;     // [DQ_BK][dkp]
   float* sV = sK + DQ_BK * dkp;      // [DQ_BK][dkp]
-  float* sF = sV + DQ_BK * dkp;      // [DQ_BK][Dp]
-  float* sDS = sF + DQ_BK * Dp;      // [DQ_BQ][BKp]
+  float* sF = sV + DQ_BK * dkp;      // [DQ_BK][DCp]  a chunk of F's columns
+  float* sDS = sF + DQ_BK * DCp;     // [DQ_BQ][BKp]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * DQ_BQ, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
+  const float* abg = ab + bh * Tq * D;
   const uint8_t* mg = mask + (size_t)b * Tq * Tk;
   const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
 
   load_rows(sQ, dkp, qu + bh * Tq * dk, q0, DQ_BQ, Tq, dk, tid);
-  load_rows(sAB, Dp, ab + bh * Tq * D, q0, DQ_BQ, Tq, D, tid);
+  if (one_chunk) load_rows(sAB, DCp, abg, q0, DQ_BQ, Tq, D, tid);
   load_rows(sdO, dkp, dout + bh * Tq * dk, q0, DQ_BQ, Tq, dk, tid);
   float row_lse[2], row_delta[2];
 #pragma unroll
@@ -114,19 +131,20 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
     row_delta[r] = i < Tq ? delta[bh * Tq + i] : 0.f;
   }
 
-  float acc_q[2][4], acc_ab[2][16];
+  // dAB columns ch F32_DC + tx + 16c of chunk ch in acc_ab[r][16 ch + c]
+  float acc_q[2][4], acc_ab[2][16 * F32_NCH];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc_q[r][c] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) acc_ab[r][c] = 0.f;
+    for (int c = 0; c < 16 * F32_NCH; ++c) acc_ab[r][c] = 0.f;
   }
 
   for (int k0 = 0; k0 < Tk; k0 += DQ_BK) {
     load_rows(sK, dkp, k + bh * Tk * dk, k0, DQ_BK, Tk, dk, tid);
     load_rows(sV, dkp, v + bh * Tk * dk, k0, DQ_BK, Tk, dk, tid);
-    load_rows(sF, Dp, feats, k0, DQ_BK, Tk, D, tid);
+    if (one_chunk) load_rows(sF, DCp, feats, k0, DQ_BK, Tk, D, tid);
     __syncthreads();
 
     float s[2][4], dp[2][4];
@@ -159,16 +177,25 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
     for (int r = 0; r < 2; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) sb[r][c] = 0.f;
-    for (int d = 0; d < D; ++d) {    // AB F^T
-      float a[2], bb[4];
+    for (int c0 = 0; c0 < D; c0 += DC) {    // AB F^T, chunk by chunk
+      const int dc = min(DC, D - c0);
+      if (!one_chunk) {
+        __syncthreads();
+        load_cols(sAB, DCp, abg, q0, DQ_BQ, Tq, D, c0, dc, tid);
+        load_cols(sF, DCp, feats, k0, DQ_BK, Tk, D, c0, dc, tid);
+        __syncthreads();
+      }
+      for (int d = 0; d < dc; ++d) {
+        float a[2], bb[4];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) a[r] = sAB[(ty + 16 * r) * Dp + d];
+        for (int r = 0; r < 2; ++r) a[r] = sAB[(ty + 16 * r) * DCp + d];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) bb[c] = sF[(tx + 16 * c) * Dp + d];
+        for (int c = 0; c < 4; ++c) bb[c] = sF[(tx + 16 * c) * DCp + d];
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) sb[r][c] = fmaf(a[r], bb[c], sb[r][c]);
+          for (int c = 0; c < 4; ++c) sb[r][c] = fmaf(a[r], bb[c], sb[r][c]);
+      }
     }
 
 #pragma unroll
@@ -188,7 +215,7 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
     }
     __syncthreads();
 
-    for (int j = 0; j < DQ_BK; ++j) {   // dQu += dS K, dAB += dS F
+    for (int j = 0; j < DQ_BK; ++j) {   // dQu += dS K
       float ds[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) ds[r] = sDS[(ty + 16 * r) * BKp + j];
@@ -199,12 +226,27 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
 #pragma unroll
         for (int r = 0; r < 2; ++r) acc_q[r][c] = fmaf(ds[r], kk, acc_q[r][c]);
       }
+    }
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int d = tx + 16 * c;
-        const float ff = d < D ? sF[j * Dp + d] : 0.f;
+    for (int ch = 0; ch < F32_NCH; ++ch) {   // dAB += dS F, chunk by chunk
+      const int c0 = ch * F32_DC;
+      if (c0 >= D) break;
+      if (!one_chunk) {
+        __syncthreads();
+        load_cols(sF, DCp, feats, k0, DQ_BK, Tk, D, c0, min(DC, D - c0), tid);
+        __syncthreads();
+      }
+      for (int j = 0; j < DQ_BK; ++j) {
+        float ds[2];
 #pragma unroll
-        for (int r = 0; r < 2; ++r) acc_ab[r][c] = fmaf(ds[r], ff, acc_ab[r][c]);
+        for (int r = 0; r < 2; ++r) ds[r] = sDS[(ty + 16 * r) * BKp + j];
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const int d = c0 + tx + 16 * c;
+          const float ff = d < D ? sF[j * DCp + tx + 16 * c] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) acc_ab[r][16 * ch + c] = fmaf(ds[r], ff, acc_ab[r][16 * ch + c]);
+        }
       }
     }
     __syncthreads();
@@ -220,8 +262,8 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
       if (d < dk) dq[(bh * Tq + i) * dk + d] = acc_q[r][c];
     }
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      const int d = tx + 16 * c;
+    for (int c = 0; c < 16 * F32_NCH; ++c) {
+      const int d = (c / 16) * F32_DC + tx + 16 * (c % 16);
       if (d < D) dab[(bh * Tq + i) * D + d] = acc_ab[r][c];
     }
   }
@@ -236,13 +278,15 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
     float* __restrict__ dv_out, int H, int Tq, int Tk, int dk, int D, float scale,
     int drop, uint32_t thr, float inv_keep) {
   extern __shared__ float smem[];
-  const int dkp = dk + 1, Dp = D + 1, BKp = KV_BK + 1;
+  const int DC = min(D, F32_DC), DCp = DC + 1;
+  const int dkp = dk + 1, BKp = KV_BK + 1;
+  const bool one_chunk = D <= F32_DC;
   float* sK = smem;                  // [KV_BK][dkp]
   float* sV = sK + KV_BK * dkp;      // [KV_BK][dkp]
-  float* sF = sV + KV_BK * dkp;      // [KV_BK][Dp]
-  float* sQ = sF + KV_BK * Dp;       // [KV_BQ][dkp]
-  float* sAB = sQ + KV_BQ * dkp;     // [KV_BQ][Dp]
-  float* sdO = sAB + KV_BQ * Dp;     // [KV_BQ][dkp]
+  float* sF = sV + KV_BK * dkp;      // [KV_BK][DCp]  a chunk of F's columns
+  float* sQ = sF + KV_BK * DCp;      // [KV_BQ][dkp]
+  float* sAB = sQ + KV_BQ * dkp;     // [KV_BQ][DCp]  the same chunk of AB's
+  float* sdO = sAB + KV_BQ * DCp;    // [KV_BQ][dkp]
   float* sPd = sdO + KV_BQ * dkp;    // [KV_BQ][BKp]
   float* sDS = sPd + KV_BQ * BKp;    // [KV_BQ][BKp]
   float* sLse = sDS + KV_BQ * BKp;   // [KV_BQ]
@@ -256,7 +300,8 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
 
   load_rows(sK, dkp, k + bh * Tk * dk, k0, KV_BK, Tk, dk, tid);
   load_rows(sV, dkp, v + bh * Tk * dk, k0, KV_BK, Tk, dk, tid);
-  load_rows(sF, Dp, feats, k0, KV_BK, Tk, D, tid);
+  if (one_chunk) load_rows(sF, DCp, feats, k0, KV_BK, Tk, D, tid);
+  const float* abg = ab + bh * Tq * D;
 
   float acc_k[4][4], acc_v[4][4];
 #pragma unroll
@@ -266,7 +311,7 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
 
   for (int q0 = 0; q0 < Tq; q0 += KV_BQ) {
     load_rows(sQ, dkp, qu + bh * Tq * dk, q0, KV_BQ, Tq, dk, tid);
-    load_rows(sAB, Dp, ab + bh * Tq * D, q0, KV_BQ, Tq, D, tid);
+    if (one_chunk) load_rows(sAB, DCp, abg, q0, KV_BQ, Tq, D, tid);
     load_rows(sdO, dkp, dout + bh * Tq * dk, q0, KV_BQ, Tq, dk, tid);
     if (tid < KV_BQ) {
       const int i = q0 + tid;
@@ -301,16 +346,25 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
           dp[r][c] = fmaf(g[r], bv[c], dp[r][c]);
         }
     }
-    for (int d = 0; d < D; ++d) {
-      float a[2], bb[4];
+    for (int c0 = 0; c0 < D; c0 += DC) {   // AB F^T, chunk by chunk
+      const int dc = min(DC, D - c0);
+      if (!one_chunk) {
+        __syncthreads();
+        load_cols(sAB, DCp, abg, q0, KV_BQ, Tq, D, c0, dc, tid);
+        load_cols(sF, DCp, feats, k0, KV_BK, Tk, D, c0, dc, tid);
+        __syncthreads();
+      }
+      for (int d = 0; d < dc; ++d) {
+        float a[2], bb[4];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) a[r] = sAB[(ty + 16 * r) * Dp + d];
+        for (int r = 0; r < 2; ++r) a[r] = sAB[(ty + 16 * r) * DCp + d];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) bb[c] = sF[(tx + 16 * c) * Dp + d];
+        for (int c = 0; c < 4; ++c) bb[c] = sF[(tx + 16 * c) * DCp + d];
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
+        for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) sb[r][c] = fmaf(a[r], bb[c], sb[r][c]);
+          for (int c = 0; c < 4; ++c) sb[r][c] = fmaf(a[r], bb[c], sb[r][c]);
+      }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -791,14 +845,16 @@ constexpr size_t SMEM_LIMIT = 232448;   // bytes of shared memory a block may us
 // Shared memory of one block, in bytes; the wrapper (ops/rel_attention.py)
 // computes the same to refuse what does not fit.
 size_t dq_f32_smem(int dk, int D) {
-  return sizeof(float) * ((size_t)2 * DQ_BQ * (dk + 1) + (size_t)DQ_BQ * (D + 1) +
-                          (size_t)2 * DQ_BK * (dk + 1) + (size_t)DQ_BK * (D + 1) +
+  const size_t dcp = (size_t)min(D, F32_DC) + 1;
+  return sizeof(float) * ((size_t)2 * DQ_BQ * (dk + 1) + (size_t)DQ_BQ * dcp +
+                          (size_t)2 * DQ_BK * (dk + 1) + (size_t)DQ_BK * dcp +
                           (size_t)DQ_BQ * (DQ_BK + 1));
 }
 
 size_t dkv_f32_smem(int dk, int D) {
-  return sizeof(float) * ((size_t)2 * KV_BK * (dk + 1) + (size_t)KV_BK * (D + 1) +
-                          (size_t)2 * KV_BQ * (dk + 1) + (size_t)KV_BQ * (D + 1) +
+  const size_t dcp = (size_t)min(D, F32_DC) + 1;
+  return sizeof(float) * ((size_t)2 * KV_BK * (dk + 1) + (size_t)KV_BK * dcp +
+                          (size_t)2 * KV_BQ * (dk + 1) + (size_t)KV_BQ * dcp +
                           (size_t)2 * KV_BQ * (KV_BK + 1) + 2 * KV_BQ);
 }
 
@@ -906,7 +962,7 @@ cudaError_t launch_dkv(const Args& a, bool bf16_) {
 // [B,H,Tq]. dq_kernel writes dq [B,H,Tq,dk] and dab [B,H,Tq,D]; dkv_kernel
 // writes dk, dv [B,H,Tk,dk]; all float32, contiguous. dk <= 64; bf16:
 // KD <= 576 (D <= 512 at dk = 64) with dq_bf16_smem(dk, D, 32) and
-// dkv_bf16_smem(dk, D) within a block's shared memory; float32: D <= 256.
+// dkv_bf16_smem(dk, D) within a block's shared memory; float32: D <= 512.
 // Each returns the CUDA error code of its launch (0 on success).
 extern "C" int rel_flash_attention_bwd_dq(
     const void* qu, const void* ab, const void* k, const void* v, const void* feats,

@@ -30,7 +30,10 @@
 // (forward) or three FMAs (backward). A product-based design is the way to
 // the bound (ROADMAP.md queue B).
 //
-// Forward design: one block per (b, tile of t rows) holds every u. Each
+// Forward design: one block per (b, tile of t rows, tile of u rows). A u
+// tile holds at most FWD_MAX_UG * 4 = 128 rows, so the block's shape and
+// shared memory never depend on U: up to U+1 = 128 one tile covers u, above
+// it the rows are cut into equal tiles (the grid's third dimension). Each
 // thread owns a 4x4 register tile of (t, u) pairs; rows of u are
 // interleaved across threads so that neighbouring threads read
 // neighbouring rows of the staged lm tile (row stride padded to 36 floats:
@@ -49,9 +52,13 @@
 // reduced through shared memory per tile of 8 t rows. A block has at most
 // 12 warps: up to U+1 = 96 one launch covers u; above, one launch per
 // equal chunk of u (three at the recipe's 200 padded labels), each adding
-// its d am to the previous chunk's, in stream order. U+1 <= 256. (One warp
-// per 8 rows of all of u asked 832 threads at U+1 = 201, more registers
-// than an SM has: the launch was refused.)
+// its d am to the previous chunk's, in stream order. (One warp per 8 rows
+// of all of u asked 832 threads at U+1 = 201, more registers than an SM
+// has: the launch was refused.)
+//
+// Limits: none from shared memory in either direction. The forward's grid
+// has at most 65535 u tiles (U+1 <= 65535 * 128, ops/simple_lattice.py
+// max_u1); the backward runs one grid per chunk of 96 u rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,6 +73,7 @@ constexpr int FWD_RT = 4;            // t rows per thread
 constexpr int FWD_RU = 4;            // u rows per thread
 constexpr int FWD_VT = 32;           // v columns per staged tile
 constexpr int FWD_LD = FWD_VT + 4;   // padded row stride of the staged tiles
+constexpr int FWD_MAX_UG = 32;       // threads over u per block, at most (128 u rows)
 
 __global__ void simple_lattice_fwd_kernel(const float* __restrict__ am,
                                           const float* __restrict__ lm,
@@ -81,12 +89,13 @@ __global__ void simple_lattice_fwd_kernel(const float* __restrict__ am,
   float* lm_s = smem + tt * FWD_LD;    // [up][FWD_LD], log2 units
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * tt;
+  const int u0 = blockIdx.z * up;   // this block's first u row
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int ug = tid % n_ug;
   const int tg = tid / n_ug;
   const float* amb = am + (size_t)b * T * V;
-  const float* lmb = lm + (size_t)b * U1 * V;
+  const float* lmb = lm + (size_t)b * U1 * V + (size_t)u0 * V;
 
   float m[FWD_RT][FWD_RU], s[FWD_RT][FWD_RU];
 #pragma unroll
@@ -104,7 +113,7 @@ __global__ void simple_lattice_fwd_kernel(const float* __restrict__ am,
     }
     for (int i = tid; i < up * FWD_VT; i += nthr) {
       const int r = i / FWD_VT, c = i % FWD_VT, v = v0 + c;
-      lm_s[r * FWD_LD + c] = (r < U1 && v < V) ? lmb[(size_t)r * V + v] * kLog2e : kNeg;
+      lm_s[r * FWD_LD + c] = (u0 + r < U1 && v < V) ? lmb[(size_t)r * V + v] * kLog2e : kNeg;
     }
     __syncthreads();
     if (tg < n_tg) {
@@ -166,12 +175,12 @@ __global__ void simple_lattice_fwd_kernel(const float* __restrict__ am,
     const float a_blank = amb[(size_t)t * V + blank];
 #pragma unroll
     for (int q = 0; q < FWD_RU; ++q) {
-      const int u = ug + q * n_ug;
+      const int ul = ug + q * n_ug, u = u0 + ul;   // row in the tile, row of the lattice
       if (u >= U1) continue;
       const float lz = (m[r][q] + log2f(s[r][q])) * kLn2;
-      const float bl = a_blank + lmb[(size_t)u * V + blank];
+      const float bl = a_blank + lmb[(size_t)ul * V + blank];
       const int lb = lab[(size_t)b * U1 + u];
-      const float em = (lb >= 0 && lb < V) ? amb[(size_t)t * V + lb] + lmb[(size_t)u * V + lb] : 0.f;
+      const float em = (lb >= 0 && lb < V) ? amb[(size_t)t * V + lb] + lmb[(size_t)ul * V + lb] : 0.f;
       const size_t o = ((size_t)b * T + t) * U1 + u;
       lpb[o] = bl - lz;
       lpe[o] = em - lz;
@@ -292,13 +301,16 @@ simple_lattice_bwd_kernel(const float* __restrict__ am, const float* __restrict_
 
 }  // namespace
 
-// Block shape of the forward: n_ug threads over u (4 rows each), n_tg over
-// t (4 rows each), about 128 threads in all.
+// Block shape of the forward: n_ug <= FWD_MAX_UG threads over u (4 rows
+// each), n_tg over t (4 rows each), about 128 threads in all; n_ut tiles of
+// u, equal but for the last.
 extern "C" int simple_lattice_fwd(const void* am, const void* lm, const void* lab, void* lpb,
                                   void* lpe, void* logz, void* stream, int B, int T, int U1,
                                   int V, int blank) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_ug = (U1 + FWD_RU - 1) / FWD_RU;
+  const int n_ut = (U1 + FWD_MAX_UG * FWD_RU - 1) / (FWD_MAX_UG * FWD_RU);
+  if (n_ut > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_ug = ((U1 + n_ut - 1) / n_ut + FWD_RU - 1) / FWD_RU;
   int n_tg = 128 / n_ug;
   if (n_tg < 1) n_tg = 1;
   if (n_tg > 8) n_tg = 8;
@@ -310,7 +322,7 @@ extern "C" int simple_lattice_fwd(const void* am, const void* lm, const void* la
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  dim3 grid((T + tt - 1) / tt, B);
+  dim3 grid((T + tt - 1) / tt, B, n_ut);
   simple_lattice_fwd_kernel<<<grid, n_ug * n_tg, smem, st>>>(
       static_cast<const float*>(am), static_cast<const float*>(lm), static_cast<const int*>(lab),
       static_cast<float*>(lpb), static_cast<float*>(lpe), static_cast<float*>(logz), T, U1, V,

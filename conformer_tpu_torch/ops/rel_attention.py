@@ -32,7 +32,7 @@ NEG_INF = -1e30
 LSE_BIG = 1e30      # lse of a fully masked row
 _M32 = 0xFFFFFFFF
 MAX_DK = 64         # head width of every kernel's register tiles
-MAX_D_F32 = 256     # the float32 dq kernel keeps 16 dAB columns a thread
+MAX_D_F32 = 512     # the float32 dq kernel keeps 32 dAB columns a thread
 
 
 # ------------------------------------------------------------ keep-mask hash
@@ -172,7 +172,7 @@ def width_error(dtype, dk: int, d: int) -> str | None:
     ``dtype``, or None where all three take them. bf16: dk <= 64, the
     score product's depth round64(round16(dk) + d) <= 576 (D <= 512 at dk
     = 64) and each block within shared memory. float32 (the parity path):
-    dk <= 64 and D <= 256."""
+    dk <= 64 and D <= 512."""
     if dk > MAX_DK:
         return f"dk={dk} > {MAX_DK}"
     if dtype == torch.bfloat16:
@@ -242,7 +242,7 @@ def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float, dropout_rate: f
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise: float32 or bfloat16 inputs of one dtype, contiguous, widths that
-    ``width_error`` passes (bf16 up to D = 512, float32 up to D = 256);
+    ``width_error`` passes (both dtypes up to D = 512);
     ``seed`` an int32 CUDA tensor of one element when ``dropout_rate`` > 0.
     """
     keep_threshold(dropout_rate)

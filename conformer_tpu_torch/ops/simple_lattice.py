@@ -21,7 +21,16 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-_MAX_U1 = 256       # the forward kernel's block holds every u row
+_U_TILE = 128       # the forward kernel's u rows per block, at most
+_MAX_U_TILES = 65535   # the forward's grid: one block row per u tile
+
+
+def max_u1() -> int:
+    """The largest U+1 both kernels take. Neither block's shape nor its
+    shared memory depends on U (the forward tiles u by 128 rows, the
+    backward runs one grid per chunk of 96), so the limit is the forward
+    grid's third dimension, 65535 tiles; JAX's kernel has no cap."""
+    return _MAX_U_TILES * _U_TILE
 
 
 def _picks(am, lm, lab, blank):
@@ -85,7 +94,7 @@ def _shape(name, am, lm, lab, blank):
     u1 = lm.shape[1]
     if lm.shape != (b, u1, v) or lab.shape != (b, u1):
         raise ValueError(f"{name}: inconsistent shapes")
-    if u1 > _MAX_U1 or min(b, t, u1, v) == 0 or not 0 <= blank < v:
+    if u1 > max_u1() or min(b, t, u1, v) == 0 or not 0 <= blank < v:
         raise ValueError(f"{name}: am {tuple(am.shape)}, lm {tuple(lm.shape)} outside the kernel")
     return b, t, u1, v
 
@@ -93,7 +102,7 @@ def _shape(name, am, lm, lab, blank):
 def simple_lattice_fwd(am, lm, lab, blank: int):
     """Kernel wrapper with the contract of ``simple_lattice_plain_fwd``: CPU
     tensors take the plain version, CUDA tensors launch the kernel or raise
-    (float32 contiguous, int32 labels, U+1 <= 256)."""
+    (float32 contiguous, int32 labels, U+1 <= ``max_u1()``)."""
     if am.device.type == "cpu":
         return simple_lattice_plain_fwd(am, lm, lab, blank)
     _check("simple_lattice_fwd", (am, lm), lab)

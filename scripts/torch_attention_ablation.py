@@ -80,12 +80,13 @@ def variant_source(src: str, subs) -> str:
     return src
 
 
-def build(cuda_build) -> dict:
-    """Compile every ablated copy in parallel; return {(name, source): lib}."""
+def build(cuda_build, ablations=ABLATIONS, out="ablation") -> dict:
+    """Compile every ablated copy in parallel into build/<out>/; return
+    {(name, source): lib}."""
     csrc = cuda_build.CSRC
-    out_dir = os.path.join(REPO, "build", "ablation")
+    out_dir = os.path.join(REPO, "build", out)
     procs = []
-    for i, (name, source, subs) in enumerate(ABLATIONS):
+    for i, (name, source, subs) in enumerate(ablations):
         d = os.path.join(out_dir, f"{i:02d}")
         os.makedirs(d, exist_ok=True)
         text = variant_source((csrc / f"{source}.cu").read_text(), subs)

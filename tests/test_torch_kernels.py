@@ -77,17 +77,42 @@ def test_rel_attention_wrapper_takes_plain_on_cpu():
 
 def test_kernel_width_limits():
     """The widths the CUDA wrappers take, checked before any launch: every
-    shipped attention width (Conformer-S, M, L) in bf16, float32 up to
-    D = 256; the DP kernels past 1024 states (their shared-memory limits)."""
+    shipped attention width (Conformer-S, M, L) in bf16 and in float32,
+    which refuses D > 512; the DP kernels past 1024 states (their
+    shared-memory limits)."""
     for dk, d in ((36, 144), (64, 256), (64, 512)):
         assert pra.width_error(torch.bfloat16, dk, d) is None
     assert pra.width_error(torch.float32, 36, 144) is None
     assert pra.width_error(torch.float32, 64, 256) is None
-    assert "D <= 256" in pra.width_error(torch.float32, 64, 512)
+    assert pra.width_error(torch.float32, 64, 512) is None
+    assert "D <= 512" in pra.width_error(torch.float32, 64, 576)
     assert pra.width_error(torch.bfloat16, 64, 1024) is not None
     assert pra.width_error(torch.bfloat16, 80, 256) is not None
     assert pcd.max_states() == 29056
     assert prl.max_u1(374) == 28869 and prl.max_u1(1300) > 1024
+
+
+@pytest.mark.parametrize("script", ["torch_attention_ablation", "torch_joint_ablation"])
+def test_ablation_texts_apply_to_the_kernels(script):
+    """Every stage that an ablation script takes out of a kernel is a text
+    substitution in that kernel's source; each must still apply to the
+    source as it stands, or the script fails on the card."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    scripts = Path(__file__).resolve().parents[1] / "scripts"
+    sys.path.insert(0, str(scripts))
+    try:
+        mod = importlib.import_module(script)
+        base = importlib.import_module("torch_attention_ablation")
+    finally:
+        sys.path.remove(str(scripts))
+    csrc = Path(pra.__file__).resolve().parents[1] / "csrc"
+    for name, source, subs in mod.ABLATIONS:
+        text = (csrc / f"{source}.cu").read_text()
+        out = base.variant_source(text, subs)
+        assert (out == text) == (not subs), name
 
 
 def _conv_params(seed, d, k):

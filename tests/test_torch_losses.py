@@ -161,6 +161,34 @@ def test_simple_lattice_plain_matches_pallas():
     _close(tm.grad, j_g[1])
 
 
+def test_simple_lattice_plain_at_long_labels_matches_pallas():
+    """U+1 = 301, past the 128-row u tile of the forward kernel and the
+    96-row chunk of its backward (the wrappers take it: ``max_u1``), at a
+    small T and V (B=1, T=3, V=40): forward and both gradients against
+    JAX's kernel in interpret mode, 1e-4 abs and rel."""
+    b, t, u, v = 1, 3, 300, 40
+    rng = np.random.default_rng(11)
+    am = (2 * rng.standard_normal((b, t, v))).astype(np.float32)
+    lm = (2 * rng.standard_normal((b, u + 1, v))).astype(np.float32)
+    labels = rng.integers(1, v, (b, u)).astype(np.int32)
+    assert p_simple.max_u1() >= u + 1
+
+    def j_fn(a, m):
+        return _sincos(*simple_lattice_log_probs_pallas(a, m, jnp.asarray(labels),
+                                                        interpret=True), jnp)
+
+    j_b, j_e = simple_lattice_log_probs_pallas(jnp.asarray(am), jnp.asarray(lm),
+                                               jnp.asarray(labels), interpret=True)
+    j_g = jax.grad(j_fn, argnums=(0, 1))(jnp.asarray(am), jnp.asarray(lm))
+    ta, tm = _t(am, True), _t(lm, True)
+    lpb, lpe = p_simple.simple_lattice_log_probs_fused(ta, tm, _t(labels))
+    _sincos(lpb, lpe, torch).backward()
+    _close(lpb, j_b)
+    _close(lpe, j_e)
+    _close(ta.grad, j_g[0])
+    _close(tm.grad, j_g[1])
+
+
 def test_simple_lattice_plain_matches_xla_oracle_and_logz():
     am, lm, labels = _simple_inputs(5)
     j_b, j_e = j_pruned.simple_lattice_log_probs(jnp.asarray(am), jnp.asarray(lm),
