@@ -19,7 +19,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                bitwise repeatability; the same at Conformer-L's and -S's
                head widths (H=8, dk=64, D=512; H=4, dk=36, D=144), every
                output poisoned with NaN first, in both dtypes, and every
-               wrapper's ValueError above D = 512; each of the
+               wrapper's ValueError above D = 512; the conv block at
+               Conformer-S's and -L's widths (D = 144, 512; B=4, T'=374
+               and T'=9 < K-1) in both dtypes, outputs poisoned with NaN
+               first, and its ValueError past D = 512; each of the
                six loss kernels (simple lattice, RNN-T lattice DP, CTC DP;
                forward and backward) against its plain version in float32 at the
                training shape (B=32, T'=374, U=64, V=5002) and at a tiny
@@ -36,7 +39,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
                200, 5002) and a tiny ragged shape with edge rows, against
                their plain versions and in float32 against autograd through
                the plain forward, the backward bitwise repeatable; the
-               fbank kernel at 48 x 15 s against its plain version with
+               three also at Conformer-S's and -L's join widths (J = 320,
+               640; B=2, T'=200, U=30, V=5002) in bf16 (both pred dtypes)
+               and float32 at J = 320, outputs poisoned with NaN first,
+               float32 at J = 640 refused with ValueError before any
+               launch; the fbank kernel at 48 x 15 s against its plain version with
                dither 0 and 1 and against the host fbank_numpy, and its
                dither's statistics; times of kernel, plain version and
                library call (where none exists, labelled yardsticks: for
@@ -312,6 +319,56 @@ def check_kernels(dev) -> dict:
               f"{e['plain_ms']:.4f} ms, library {e['library_ms']} ms, bound "
               f"{e['bound_ms'] * 1e3:.2f} us ({e['bound_by']})")
     return entries
+
+
+CONV_WIDTHS = {"conformer_s": 144, "conformer_l": 512,
+               # past the kernel's widths (D <= 512, a multiple of 16): refused
+               "above the limit": 528}
+
+
+def check_conv_widths(dev) -> float:
+    """The conv block at Conformer-S's and -L's widths (K = 15, B=4,
+    T'=374, and B=3, T'=9 < K-1) in both dtypes, where the wrapper takes
+    them, against its plain version, outputs and cache poisoned with NaN
+    beforehand; past the kernel's width (D = 528) the wrapper must raise
+    ValueError before any launch, in both dtypes. Returns the largest error."""
+    import torch
+
+    from conformer_tpu_torch.ops import conv_block as cb
+
+    gen = torch.Generator().manual_seed(11)
+    k_size, worst = 15, 0.0
+    for label, d in CONV_WIDTHS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            tol = TOL[name]
+            why = cb.width_error(dtype, d, k_size)
+            if why is not None:
+                x, lens, pn, pc = conv_inputs(dev, dtype, gen, b=3, t=20, d=d, k=k_size)
+                before = cb.conv_block.launches
+                try:
+                    cb.conv_block(x, lens, pn, pc, kernel_size=k_size)
+                    refused = False
+                except ValueError:
+                    refused = True
+                check(refused and cb.conv_block.launches == before,
+                      f"conv_block {label} {name} D={d}: not refused before launch ({why})")
+                print(f"kernels: conv_block {label} {name} D={d}: ValueError before any launch "
+                      f"({why})")
+                continue
+            errs = []
+            for b, t in ((4, 374), (3, 9)):
+                x, lens, pn, pc = conv_inputs(dev, dtype, gen, b=b, t=t, d=d, k=k_size)
+                poison(((b, t, d), dtype), ((b, k_size - 1, d), dtype))
+                got = cb.conv_block(x, lens, pn, pc, kernel_size=k_size)
+                torch.cuda.synchronize()
+                errs.append(compare(f"conv_block {label} {name} D={d} B={b} T'={t}", got,
+                                    cb.conv_block_plain(x, lens, pn, pc, kernel_size=k_size), tol))
+            worst = max(worst, *errs)
+            print(f"kernels: conv_block {label} {name} D={d} K={k_size}: max_abs_err B=4 T'=374 "
+                  f"{errs[0]:.3g}, B=3 T'=9 {errs[1]:.3g} (tol {tol} abs + rel; outputs poisoned "
+                  "with NaN beforehand)")
+    return worst
 
 
 # ------------------------------------------------- attention, training side
@@ -1221,6 +1278,82 @@ def check_joint_kernels(dev, shapes=JOINT_SHAPES) -> dict:
     return entries
 
 
+# Conformer-S's and -L's join_dim (configs/conformer_s.json, conformer_l.json)
+# at a small shape (B, T', U, V); float32 refuses J past 512 (after padding
+# J to a multiple of 128)
+JOINT_WIDTHS = {"conformer_s": 320, "conformer_l": 640}
+JOINT_WIDTH_SHAPE = (2, 200, 30, 5002)
+
+
+def check_joint_widths(dev) -> dict:
+    """The three joint kernels at Conformer-S's and -L's join widths in every
+    row of ``JOINT_DTYPES`` whose kernels take the width (``width_error``),
+    against their plain versions under ``check_joint_kernels``'s tolerance
+    rules, every output poisoned with NaN beforehand; where the kernels
+    refuse the width (float32 at J = 640), all three wrappers must raise
+    ValueError before any launch. Returns the largest error of each kernel."""
+    import torch
+
+    from conformer_tpu_torch.ops import joint_lattice as jl
+
+    gen = torch.Generator().manual_seed(13)
+    counters = (jl.joint_lattice_fwd, jl.joint_lattice_bwd_xp, jl.joint_lattice_bwd_w)
+    errs = dict.fromkeys(JOINT_GRIDS, 0.0)
+    b, t, u, v = JOINT_WIDTH_SHAPE
+    m = b * t * (u + 1)
+    for label, j in JOINT_WIDTHS.items():
+        jp = -(-j // jl.J_TILE) * jl.J_TILE
+        vp = -(-v // 64) * 64     # bwd_w's padded V
+        for name, dt, pdt in JOINT_DTYPES:
+            dtype = getattr(torch, dt)
+            tol = TOL[dt]
+            x = joint_inputs(dev, dtype, getattr(torch, pdt), gen, b, t, u, v, j=j)
+            args = (x["enc"], x["pred"], x["w"], x["b"], x["lab"])
+            why = jl.width_error(dtype, j)
+            if why is not None:
+                lat = torch.zeros((b, t, u + 1), device=dev)
+                before = [f.launches for f in counters]
+                refused = 0
+                for call in (lambda: jl.joint_lattice_fwd(*args, 0),
+                             lambda: jl.joint_lattice_bwd_xp(*args, lat, lat, lat, 0),
+                             lambda: jl.joint_lattice_bwd_w(*args, lat, lat, lat, 0)):
+                    try:
+                        call()
+                    except ValueError:
+                        refused += 1
+                check(refused == 3 and [f.launches for f in counters] == before,
+                      f"joint {label} {name} J={j}: {refused} of 3 wrappers refused ({why})")
+                print(f"kernels: joint {label} {name} J={j}: all three wrappers raise ValueError "
+                      f"before any launch ({why})")
+                continue
+            poison(*([((b, t, u + 1), torch.float32)] * 3))
+            fwd = jl.joint_lattice_fwd(*args, 0)
+            e_f = compare(f"joint_lattice_fwd {name} {label} J={j}", fwd,
+                          jl.joint_lattice_plain_fwd(*args, 0), tol)
+            bargs = (*args, fwd[2], x["g_blank"], x["g_emit"], 0)
+            poison(((m, jp), torch.float32), ((b, t, jp), torch.float32),
+                   ((b, u + 1, jp), torch.float32))
+            xp = jl.joint_lattice_bwd_xp(*bargs)
+            poison(((jp, vp), torch.float32), ((vp,), torch.float32))
+            wg = jl.joint_lattice_bwd_w(*bargs)
+            torch.cuda.synchronize()
+            bf16 = dtype == torch.bfloat16
+            xcmp = compare_sums if bf16 else compare
+            wcmp = compare if m <= JOINT_SUM_CELLS and not bf16 else compare_sums
+            e_xp = xcmp(f"joint_lattice_bwd_xp {name} {label} J={j}", xp,
+                        jl.joint_lattice_plain_bwd_xp(*bargs), tol)
+            e_w = wcmp(f"joint_lattice_bwd_w {name} {label} J={j}", wg,
+                       jl.joint_lattice_plain_bwd_w(*bargs), tol)
+            for k, e in zip(JOINT_GRIDS, (e_f, e_xp, e_w)):
+                errs[k] = max(errs[k], e)
+            rule = lambda c: "abs + rel" if c is compare else "of max-abs"   # noqa: E731
+            print(f"kernels: joint {label} {name} B={b} T'={t} U+1={u + 1} V={v} J={j} (padded "
+                  f"to {jp}): max_abs_err fwd {e_f:.3g} (tol {tol} abs + rel), bwd_xp {e_xp:.3g} "
+                  f"(tol {tol} {rule(xcmp)}), bwd_w {e_w:.3g} (tol {tol} {rule(wcmp)}); outputs "
+                  "poisoned with NaN beforehand")
+    return errs
+
+
 FBANK_BATCH, FBANK_SECONDS = 48, 15.0
 FBANK_TOL = 1e-2             # abs and rel, kernel vs plain: float32 sums in other orders
 FBANK_HOST_TOL = (1e-3, 0.15)   # (rtol, atol) vs the host fbank_numpy, the JAX test's own
@@ -2053,6 +2186,10 @@ def main() -> int:
         entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
     entries.update(check_int8_kernels(dev))
     entries.update(check_joint_kernels(dev))
+    for name, e in check_joint_widths(dev).items():
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
+    entries["conv_block"]["max_abs_err"] = max(entries["conv_block"]["max_abs_err"],
+                                               check_conv_widths(dev))
     entries["fbank"] = check_fbank_kernel(dev)
 
     # 4. serve: the main path, counts set to 0 just before each request;

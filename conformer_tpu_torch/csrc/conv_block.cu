@@ -11,43 +11,59 @@
 //   out = x + mask(pw2(swish(LN(z))))  (swish output rounded to x's dtype)
 //   cache = the trailing K-1 frames of g, zero-left-padded when T < K-1
 //
-// with float32 math throughout, as the TPU kernel does.
+// with float32 math and sums throughout, as the TPU kernel does: the two
+// products' operands are y and swish(LN(z)) rounded to x's dtype (the TPU
+// kernel's rounding points), g and the depthwise taps stay float32.
 //
 // Bound: at the decode shape (B=48, T=374, D=256, K=15, bf16) the two
 // pointwise products need about 7.1 GFLOP (~7 us at the bf16 tensor rate)
 // and the inputs and outputs move about 18 MB (~5.5 us at 3.35 TB/s).
 //
-// Design (simple and right first): the TPU kernel kept a whole sequence
-// and its [T, 2D] pw1 result in VMEM. Here it is two launches. The first
-// computes LN_pre + pw1 + GLU for a tile of 64 frames and 32 GLU channels
-// (the matching a and b columns of W1) and writes g to a float32 scratch
-// [B,T,D]. The second takes a 32-frame tile with its K-1 frame halo of g
-// into shared memory, runs the depthwise taps, LN, swish, the pw2 product
-// with W2 streamed through shared memory in 16-row slices, the length mask
-// and the residual. Products are float32 FMAs on the CUDA cores; D must be
-// a multiple of 32 and at most 256.
+// Design. The TPU kernel kept a whole sequence and its [T, 2D] pw1 result
+// in VMEM; here it is two launches, with g [B, T, D] float32 between them
+// (it stays in the 50 MB L2 at the decode shape).
+//
+// bf16 (the model's dtype), on the tensor cores: mma.sync m16n8k16, bf16
+// operands by ldmatrix from padded shared rows, float32 accumulators.
+//  - Launch 1: a block owns 64 rows of the flattened [B T, D] frames and
+//    128 GLU channels (the matching a and b columns of W1). Its rows of x
+//    arrive by cp.async with the first W1 slices (a ring of 16-row slices
+//    [16, a 128 | b 128]); its warps take LN_pre in place into a bf16 tile
+//    [64, D]; 8 warps = 2 row halves x 4 groups of 32 channels, each warp
+//    holding the a and b accumulators of its channels, so the GLU is taken
+//    on the accumulators and g written as float32 pairs.
+//  - Launch 2: a block owns 32 frames of one sequence. Each thread takes a
+//    channel and runs the K taps over its 32 frames from registers (a
+//    window of 32 + K - 1 frames of g read once from L2); the float32 z
+//    tile goes to shared memory, each warp takes LN and swish of four
+//    frames at once into a bf16 tile [32, D], and the pw2 product runs
+//    against W2 streamed in 32-row slices (16 where D % 32 != 0; cp.async
+//    ring), each warp owning every 8th 8-column tile of the output;
+//    z W2 + b2 (masked) goes back to the float32 tile and the block
+//    writes x + z row by row, 16 B a thread.
+// float32 (the parity path): the same two launches with FMA products on
+// the CUDA cores (no TF32: it would break the parity limit), launch 2
+// staging g with its K-1 frame halo in shared memory.
+//
+// No limit depends on T. D must be a multiple of 16, at most 512 (the
+// shipped widths: Conformer-S 144, M 256, L 512); bf16 takes K <= 32 (the
+// register window), float32 what fits shared memory (K <= 17 at D = 512).
+// The C entry refuses other shapes before any launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rel_attention_common.cuh"
+
 namespace {
+
+using rel_attn::bf16;
 
 constexpr int NT = 256;
 constexpr float LN_EPS = 1e-5f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// round a float32 value through the activation dtype
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
+constexpr int MAX_D = 512;
+constexpr int SMEM_LIMIT = 232448;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -56,17 +72,352 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+// the bf16 kernels' sigmoid: exp and reciprocal on the special-function unit
+// (relative error ~2^-21, far below the bf16 rounding of what it feeds)
+__device__ __forceinline__ float sigmoid_fast(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
+
+// the trailing ctx frames of g of sequence b, zero-left-padded, as the cache
+template <typename T>
+__device__ void write_cache(T* __restrict__ cache, const float* __restrict__ gb, int b, int Tlen,
+                            int D, int ctx) {
+  for (int e = threadIdx.x; e < ctx * D; e += NT) {
+    const int j = e / D, c = e - j * D, t = Tlen - ctx + j;
+    cache[(size_t)b * ctx * D + e] = from_f<T>(t >= 0 ? gb[(size_t)t * D + c] : 0.f);
+  }
+}
+
+// ============================================================ bf16 kernels
+
+// ---------------------------------------------------------------- launch 1
+constexpr int Q1_M = 64;              // frames per block
+constexpr int Q1_C = 128;             // GLU channels per block (4 warp columns x 32)
+constexpr int Q1_K = 16;              // W1 rows per ring stage
+constexpr int Q1_S = 4;               // ring stages
+constexpr int Q1_LDW = 2 * Q1_C + 8;  // a | b columns of a stage row, padded
+
+__host__ __device__ constexpr size_t q1_smem(int D) {
+  return 2 * ((size_t)Q1_M * (D + 8) + (size_t)Q1_S * Q1_K * Q1_LDW);
+}
+
+__global__ void __launch_bounds__(NT) pw1_glu_bf16_kernel(
+    const bf16* __restrict__ x, const int* __restrict__ lengths,
+    const float* __restrict__ pre_s, const float* __restrict__ pre_b,
+    const bf16* __restrict__ w1, const float* __restrict__ b1, float* __restrict__ glu, int M,
+    int Tlen, int D) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldy = D + 8;
+  bf16* ys = reinterpret_cast<bf16*>(smem);   // y [Q1_M][ldy]
+  bf16* ws = ys + Q1_M * ldy;                 // W1 ring [Q1_S][Q1_K][Q1_LDW]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.x * Q1_M, c0 = blockIdx.y * Q1_C, nk = D / Q1_K;
+
+  // stage of W1 rows [16 kc, 16 kc + 16): 16 rows x 2 halves x 16 pieces of
+  // 16 B, two pieces per thread; channels past D read as zero
+  auto load_w = [&](int kc) {
+    bf16* dst = ws + (kc % Q1_S) * Q1_K * Q1_LDW;
+#pragma unroll
+    for (int p = tid; p < Q1_K * 2 * (Q1_C / 8); p += NT) {
+      const int r = p >> 5, half = (p >> 4) & 1, cc = (p & 15) * 8, ch = c0 + cc;
+      const bool ok = ch < D;
+      rel_attn::cp_async<16>(dst + r * Q1_LDW + half * Q1_C + cc,
+                             w1 + (size_t)(kc * Q1_K + r) * 2 * D + half * D + (ok ? ch : 0), ok);
+    }
+  };
+  // the block's rows of x into the y tile (rows past M zero), with W1's
+  // first stage as one group, then the other stages
+  rel_attn::load_rows_async(ys, ldy, x, m0, Q1_M, M, D, tid, NT);
+#pragma unroll
+  for (int s = 0; s < Q1_S - 1; ++s) {
+    if (s < nk) load_w(s);
+    rel_attn::cp_async_commit();
+  }
+  rel_attn::cp_async_wait<Q1_S - 2>();
+  __syncthreads();
+
+  // y = LN_pre(x) rounded to bf16 in place, zero for frames past the
+  // length: one warp per row, lane holding columns 64 i + 2 lane, + 1
+  for (int r = warp; r < Q1_M; r += NT / 32) {
+    const int m = m0 + r;
+    bool valid = false;
+    if (m < M) {
+      const int b = m / Tlen;
+      valid = m - b * Tlen < lengths[b];
+    }
+    bf16* yr = ys + r * ldy;
+    if (!valid) {
+      for (int c = 2 * lane; c < D; c += 64)
+        *reinterpret_cast<__nv_bfloat162*>(yr + c) = __floats2bfloat162_rn(0.f, 0.f);
+      continue;
+    }
+    float v[MAX_D / 32];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAX_D / 64; ++i) {
+      const int c = 64 * i + 2 * lane;
+      float2 f = make_float2(0.f, 0.f);
+      if (c < D) f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(yr + c));
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+      s += f.x + f.y;
+    }
+    const float mean = warp_sum(s) / D;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAX_D / 64; ++i)
+      if (64 * i + 2 * lane < D) {
+        const float d0 = v[2 * i] - mean, d1 = v[2 * i + 1] - mean;
+        q += d0 * d0 + d1 * d1;
+      }
+    const float rstd = rsqrtf(warp_sum(q) / D + LN_EPS);
+#pragma unroll
+    for (int i = 0; i < MAX_D / 64; ++i) {
+      const int c = 64 * i + 2 * lane;
+      if (c < D)
+        *reinterpret_cast<__nv_bfloat162*>(yr + c) = __floats2bfloat162_rn(
+            (v[2 * i] - mean) * rstd * pre_s[c] + pre_b[c],
+            (v[2 * i + 1] - mean) * rstd * pre_s[c + 1] + pre_b[c + 1]);
+    }
+  }
+
+  // h = y W1: warp (wr, wc) owns rows 32 wr .. 32 wr + 31 and channels
+  // c0 + 32 wc .. + 31: n8 tiles 0-3 of the a half, 4-7 of the b half
+  const int wr = warp >> 2, wc = warp & 3;
+  const int live = min(4, max(0, (D - c0 - 32 * wc) / 8));   // n8 tiles of channels < D
+  float acc[2][8][4] = {};
+  for (int kc = 0; kc < nk; ++kc) {
+    rel_attn::cp_async_wait<Q1_S - 2>();
+    __syncthreads();
+    if (kc + Q1_S - 1 < nk) load_w(kc + Q1_S - 1);
+    rel_attn::cp_async_commit();
+    if (live == 0) continue;
+    const bf16* wt = ws + (kc % Q1_S) * Q1_K * Q1_LDW;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      rel_attn::load_a(a[mi], ys, ldy, 32 * wr + 16 * mi, kc * Q1_K, lane);
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t bf[4];
+        rel_attn::load_bt(bf, wt, Q1_LDW, 0, half * Q1_C + 32 * wc + 16 * p, lane);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          rel_attn::mma(acc[mi][4 * half + 2 * p], a[mi], bf[0], bf[1]);
+          rel_attn::mma(acc[mi][4 * half + 2 * p + 1], a[mi], bf[2], bf[3]);
+        }
+      }
+  }
+  // g = (h_a + b1_a) sigmoid(h_b + b1_b) on the accumulators
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 32 * wr + 16 * mi + (lane >> 2) + 8 * h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (nt >= live) continue;
+        const int ch = c0 + 32 * wc + 8 * nt + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(glu + (size_t)m * D + ch) = make_float2(
+            (acc[mi][nt][2 * h] + b1[ch]) * sigmoid_fast(acc[mi][4 + nt][2 * h] + b1[D + ch]),
+            (acc[mi][nt][2 * h + 1] + b1[ch + 1]) *
+                sigmoid_fast(acc[mi][4 + nt][2 * h + 1] + b1[D + ch + 1]));
+      }
+    }
+}
+
+// ---------------------------------------------------------------- launch 2
+constexpr int Q2_T = 32;   // frames per block
+constexpr int Q2_K = 32;   // W2 rows per ring stage (16 where D is not a multiple of 32)
+constexpr int Q2_S = 3;    // ring stages
+constexpr int Q2_NT = MAX_D / 8 / (NT / 32);   // 8-column output tiles per warp, at most
+static_assert(Q2_T == 4 * (NT / 32) && Q1_M % (4 * (NT / 32)) == 0,
+              "the LayerNorms take four rows per warp at a time");
+
+__host__ __device__ constexpr size_t q2_smem(int D) {
+  return 4 * (size_t)Q2_T * D + 2 * (size_t)(Q2_T + Q2_S * Q2_K) * (D + 8);
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(NT) dw_ln_pw2_bf16_kernel(
+    const bf16* __restrict__ x, const int* __restrict__ lengths, const float* __restrict__ glu,
+    const float* __restrict__ wd, const float* __restrict__ bd, const float* __restrict__ ln_s,
+    const float* __restrict__ ln_b, const bf16* __restrict__ w2, const float* __restrict__ b2,
+    bf16* __restrict__ out, bf16* __restrict__ cache, int Tlen, int D, int K) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldz = D + 8;
+  float* zs = reinterpret_cast<float*>(smem);                // z [Q2_T][D] float32
+  bf16* zq = reinterpret_cast<bf16*>(zs + Q2_T * D);         // swish(LN(z)) [Q2_T][ldz]
+  bf16* ws = zq + Q2_T * ldz;                                // W2 ring [Q2_S][Q2_K][ldz]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kq = D % 32 ? 16 : Q2_K, nk = D / kq;            // W2 rows per stage, stages
+  const int t0 = blockIdx.x * Q2_T, b = blockIdx.y;
+  const int ctx = K - 1, lpad = ctx / 2;
+  const int len = lengths[b];
+  const float* gb = glu + (size_t)b * Tlen * D;
+  const bf16* xb = x + (size_t)b * Tlen * D;
+
+  auto load_w = [&](int kc) {
+    bf16* dst = ws + (kc % Q2_S) * Q2_K * ldz;
+    const int per_row = D / 8;   // pieces of 16 B
+    for (int i = tid; i < kq * per_row; i += NT) {
+      const int r = i / per_row, cc = (i - r * per_row) * 8;
+      rel_attn::cp_async<16>(dst + r * ldz + cc, w2 + (size_t)(kc * kq + r) * D + cc, true);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < Q2_S - 1; ++s) {
+    if (s < nk) load_w(s);
+    rel_attn::cp_async_commit();
+  }
+
+  // depthwise taps: a thread per channel, its 32 frames from a register
+  // window of 32 + K - 1 frames of g (zeros outside [0, T))
+  for (int c = tid; c < D; c += NT) {
+    float w[KMAX], gv[Q2_T + KMAX - 1];
+#pragma unroll
+    for (int tap = 0; tap < KMAX; ++tap) w[tap] = tap < K ? wd[tap * D + c] : 0.f;
+#pragma unroll
+    for (int i = 0; i < Q2_T + KMAX - 1; ++i) {
+      const int t = t0 - lpad + i;
+      gv[i] = (i < Q2_T + ctx && t >= 0 && t < Tlen) ? gb[(size_t)t * D + c] : 0.f;
+    }
+    const float bias = bd[c];
+#pragma unroll
+    for (int r = 0; r < Q2_T; ++r) {
+      float a = 0.f;
+#pragma unroll
+      for (int tap = 0; tap < KMAX; ++tap)
+        if (tap < K) a = fmaf(gv[r + tap], w[tap], a);
+      zs[r * D + c] = a + bias;
+    }
+  }
+  __syncthreads();
+
+  // LN, swish, rounded to bf16: warp w takes frames w + 8 q (q < 4), the
+  // four reductions in flight together, lane holding columns lane + 32 i
+  {
+    float v[4][MAX_D / 32], mean[4], rstd[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* zr = zs + (warp + 8 * q) * D;
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < MAX_D / 32; ++i) {
+        const int c = lane + 32 * i;
+        v[q][i] = c < D ? zr[c] : 0.f;
+        s += v[q][i];
+      }
+      mean[q] = s;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mean[q] = warp_sum(mean[q]) / D;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < MAX_D / 32; ++i)
+        if (lane + 32 * i < D) sq += (v[q][i] - mean[q]) * (v[q][i] - mean[q]);
+      rstd[q] = sq;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) rstd[q] = rsqrtf(warp_sum(rstd[q]) / D + LN_EPS);
+#pragma unroll
+    for (int i = 0; i < MAX_D / 32; ++i) {
+      const int c = lane + 32 * i;
+      if (c >= D) continue;
+      const float s_c = ln_s[c], b_c = ln_b[c];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float z = (v[q][i] - mean[q]) * rstd[q] * s_c + b_c;
+        zq[(warp + 8 * q) * ldz + c] = __float2bfloat16(z * sigmoid_fast(z));
+      }
+    }
+  }
+
+  // pw2: warp w owns the 8-column output tiles w, w + 8, ...; rows 0-15, 16-31
+  const int ntiles = D / 8;
+  float acc[2][Q2_NT][4] = {};
+  for (int kc = 0; kc < nk; ++kc) {
+    rel_attn::cp_async_wait<Q2_S - 2>();
+    __syncthreads();
+    if (kc + Q2_S - 1 < nk) load_w(kc + Q2_S - 1);
+    rel_attn::cp_async_commit();
+    const bf16* wt = ws + (kc % Q2_S) * Q2_K * ldz;
+    for (int k16 = 0; k16 < kq; k16 += 16) {
+      uint32_t a[2][4];
+      rel_attn::load_a(a[0], zq, ldz, 0, kc * kq + k16, lane);
+      rel_attn::load_a(a[1], zq, ldz, 16, kc * kq + k16, lane);
+#pragma unroll
+      for (int j = 0; j < Q2_NT; ++j) {
+        const int nt = warp + 8 * j;
+        if (nt < ntiles) {
+          uint32_t bf[2];
+          rel_attn::load_bt1(bf, wt, ldz, k16, 8 * nt, lane);
+          rel_attn::mma(acc[0][j], a[0], bf[0], bf[1]);
+          rel_attn::mma(acc[1][j], a[1], bf[0], bf[1]);
+        }
+      }
+    }
+  }
+
+  // z = mask(acc + b2) into the float32 tile (unread since the LN), then
+  // out = x + z row by row, 16 B a thread
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * mi + (lane >> 2) + 8 * h;
+      const bool on = t0 + r < len;
+#pragma unroll
+      for (int j = 0; j < Q2_NT; ++j) {
+        const int nt = warp + 8 * j;
+        if (nt >= ntiles) continue;
+        const int c = 8 * nt + 2 * (lane & 3);
+        *reinterpret_cast<float2*>(zs + r * D + c) =
+            on ? make_float2(acc[mi][j][2 * h] + b2[c], acc[mi][j][2 * h + 1] + b2[c + 1])
+               : make_float2(0.f, 0.f);
+      }
+    }
+  __syncthreads();
+  bf16* ob = out + (size_t)b * Tlen * D;
+  const int per_row = D / 8;
+  for (int i = tid; i < Q2_T * per_row; i += NT) {
+    const int r = i / per_row, c = (i - r * per_row) * 8, t = t0 + r;
+    if (t >= Tlen) continue;
+    const uint4 xv = *reinterpret_cast<const uint4*>(xb + (size_t)t * D + c);
+    const float4 za = *reinterpret_cast<const float4*>(zs + r * D + c);
+    const float4 zb = *reinterpret_cast<const float4*>(zs + r * D + c + 4);
+    const float z[8] = {za.x, za.y, za.z, za.w, zb.x, zb.y, zb.z, zb.w};
+    const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
+    uint4 ov;
+    __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&ov);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 xf = __bfloat1622float2(xp[q]);
+      op[q] = __floats2bfloat162_rn(xf.x + z[2 * q], xf.y + z[2 * q + 1]);
+    }
+    *reinterpret_cast<uint4*>(ob + (size_t)t * D + c) = ov;
+  }
+  if (blockIdx.x == 0) write_cache<bf16>(cache, gb, b, Tlen, D, ctx);
+}
+
+// ========================================================= float32 kernels
 
 // ---------------------------------------------------------------- launch 1
 constexpr int P1_M = 64;   // frames per block
 constexpr int P1_C = 32;   // GLU channels per block (64 columns of W1)
 constexpr int P1_K = 32;   // k-slice
 
-template <typename T>
-__global__ void __launch_bounds__(NT) pw1_glu_kernel(
-    const T* __restrict__ x, const int* __restrict__ lengths,
+__global__ void __launch_bounds__(NT) pw1_glu_f32_kernel(
+    const float* __restrict__ x, const int* __restrict__ lengths,
     const float* __restrict__ pre_s, const float* __restrict__ pre_b,
-    const T* __restrict__ w1, const float* __restrict__ b1, float* __restrict__ glu,
+    const float* __restrict__ w1, const float* __restrict__ b1, float* __restrict__ glu,
     int Tlen, int D) {
   __shared__ float sMean[P1_M], sRstd[P1_M];
   __shared__ float sA[P1_M][P1_K + 1];
@@ -75,18 +426,18 @@ __global__ void __launch_bounds__(NT) pw1_glu_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t0 = blockIdx.x * P1_M, c0 = blockIdx.y * P1_C, b = blockIdx.z;
   const int len = lengths[b];
-  const T* xb = x + (size_t)b * Tlen * D;
+  const float* xb = x + (size_t)b * Tlen * D;
 
   for (int r = warp; r < P1_M; r += NT / 32) {  // LN_pre statistics
     const int t = t0 + r;
     float mean = 0.f, rstd = 0.f;
     if (t < Tlen) {
       float s = 0.f;
-      for (int c = lane; c < D; c += 32) s += to_f(xb[(size_t)t * D + c]);
+      for (int c = lane; c < D; c += 32) s += xb[(size_t)t * D + c];
       mean = warp_sum(s) / D;
       float q = 0.f;
       for (int c = lane; c < D; c += 32) {
-        const float dv = to_f(xb[(size_t)t * D + c]) - mean;
+        const float dv = xb[(size_t)t * D + c] - mean;
         q += dv * dv;
       }
       rstd = rsqrtf(warp_sum(q) / D + LN_EPS);
@@ -109,16 +460,17 @@ __global__ void __launch_bounds__(NT) pw1_glu_kernel(
     for (int e = tid; e < P1_M * P1_K; e += NT) {
       const int r = e / P1_K, kk = e - r * P1_K, t = t0 + r, kc = k0 + kk;
       float val = 0.f;
-      if (t < Tlen && t < len) {
-        const float xv = to_f(xb[(size_t)t * D + kc]);
-        val = round_to<T>((xv - sMean[r]) * sRstd[r] * pre_s[kc] + pre_b[kc]);
+      if (t < Tlen && t < len && kc < D) {
+        const float xv = xb[(size_t)t * D + kc];
+        val = (xv - sMean[r]) * sRstd[r] * pre_s[kc] + pre_b[kc];
       }
       sA[r][kk] = val;
     }
     for (int e = tid; e < P1_K * 2 * P1_C; e += NT) {
       const int kk = e / (2 * P1_C), q = e - kk * 2 * P1_C;
-      const int col = q < P1_C ? c0 + q : D + c0 + (q - P1_C);
-      sW[kk][q] = to_f(w1[(size_t)(k0 + kk) * 2 * D + col]);
+      const int ch = c0 + (q < P1_C ? q : q - P1_C);
+      const int col = q < P1_C ? ch : D + ch;
+      sW[kk][q] = (k0 + kk < D && ch < D) ? w1[(size_t)(k0 + kk) * 2 * D + col] : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -149,6 +501,7 @@ __global__ void __launch_bounds__(NT) pw1_glu_kernel(
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int c = c0 + tx + 16 * q;
+      if (c >= D) continue;
       const float ha = acc_a[r][q] + b1[c];
       const float hb = acc_b[r][q] + b1[D + c];
       glu[((size_t)b * Tlen + t) * D + c] = ha * sigmoidf(hb);
@@ -159,18 +512,22 @@ __global__ void __launch_bounds__(NT) pw1_glu_kernel(
 // ---------------------------------------------------------------- launch 2
 constexpr int P2_T = 32;   // frames per block
 constexpr int P2_K = 16;   // W2 k-slice
+constexpr int P2_CC = MAX_D / 32;   // output columns per lane, at most
 
-template <typename T>
-__global__ void __launch_bounds__(NT) dw_ln_pw2_kernel(
-    const T* __restrict__ x, const int* __restrict__ lengths,
+__host__ __device__ constexpr size_t p2_smem(int D, int K) {
+  return sizeof(float) * (size_t)D * (P2_T + (K - 1) + P2_T + P2_K + K);
+}
+
+__global__ void __launch_bounds__(NT) dw_ln_pw2_f32_kernel(
+    const float* __restrict__ x, const int* __restrict__ lengths,
     const float* __restrict__ glu, const float* __restrict__ wd,
     const float* __restrict__ bd, const float* __restrict__ ln_s,
-    const float* __restrict__ ln_b, const T* __restrict__ w2,
-    const float* __restrict__ b2, T* __restrict__ out, T* __restrict__ cache,
+    const float* __restrict__ ln_b, const float* __restrict__ w2,
+    const float* __restrict__ b2, float* __restrict__ out, float* __restrict__ cache,
     int Tlen, int D, int K) {
-  extern __shared__ float smem[];
+  extern __shared__ float smem_f[];
   const int ctx = K - 1, lpad = ctx / 2;
-  float* sG = smem;                    // [P2_T + ctx][D] g with halo
+  float* sG = smem_f;                  // [P2_T + ctx][D] g with halo
   float* sZ = sG + (P2_T + ctx) * D;   // [P2_T][D]
   float* sW = sZ + P2_T * D;           // [P2_K][D]
   float* sWd = sW + P2_K * D;          // [K][D] taps
@@ -198,7 +555,7 @@ __global__ void __launch_bounds__(NT) dw_ln_pw2_kernel(
   }
   __syncthreads();
 
-  for (int r = warp; r < P2_T; r += NT / 32) {  // LN, swish, round
+  for (int r = warp; r < P2_T; r += NT / 32) {  // LN, swish
     float s = 0.f;
     for (int c = lane; c < D; c += 32) s += sZ[r * D + c];
     const float mean = warp_sum(s) / D;
@@ -210,108 +567,149 @@ __global__ void __launch_bounds__(NT) dw_ln_pw2_kernel(
     const float rstd = rsqrtf(warp_sum(q) / D + LN_EPS);
     for (int c = lane; c < D; c += 32) {
       const float z = (sZ[r * D + c] - mean) * rstd * ln_s[c] + ln_b[c];
-      sZ[r * D + c] = round_to<T>(z * sigmoidf(z));
+      sZ[r * D + c] = z * sigmoidf(z);
     }
   }
   __syncthreads();
 
-  // pw2: rows warp + 8r (r < 4), columns lane + 32cc (cc < 8)
-  float acc[4][8];
+  // pw2: rows warp + 8r (r < 4), columns lane + 32cc (cc < D / 32)
+  float acc[4][P2_CC];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int cc = 0; cc < 8; ++cc) acc[r][cc] = 0.f;
+    for (int cc = 0; cc < P2_CC; ++cc) acc[r][cc] = 0.f;
   for (int k0 = 0; k0 < D; k0 += P2_K) {
-    for (int e = tid; e < P2_K * D; e += NT) sW[e] = to_f(w2[(size_t)k0 * D + e]);
+    for (int e = tid; e < P2_K * D; e += NT) sW[e] = w2[(size_t)k0 * D + e];
     __syncthreads();
 #pragma unroll 4
     for (int kk = 0; kk < P2_K; ++kk) {
-      float a[4], w[8];
+      float a[4], w[P2_CC];
 #pragma unroll
       for (int r = 0; r < 4; ++r) a[r] = sZ[(warp + 8 * r) * D + k0 + kk];
 #pragma unroll
-      for (int cc = 0; cc < 8; ++cc) {
+      for (int cc = 0; cc < P2_CC; ++cc) {
         const int c = lane + 32 * cc;
         w[cc] = c < D ? sW[kk * D + c] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int cc = 0; cc < 8; ++cc) acc[r][cc] = fmaf(a[r], w[cc], acc[r][cc]);
+        for (int cc = 0; cc < P2_CC; ++cc) acc[r][cc] = fmaf(a[r], w[cc], acc[r][cc]);
     }
     __syncthreads();
   }
 
-  const T* xb = x + (size_t)b * Tlen * D;
-  T* ob = out + (size_t)b * Tlen * D;
+  const float* xb = x + (size_t)b * Tlen * D;
+  float* ob = out + (size_t)b * Tlen * D;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int t = t0 + warp + 8 * r;
     if (t >= Tlen) continue;
 #pragma unroll
-    for (int cc = 0; cc < 8; ++cc) {
+    for (int cc = 0; cc < P2_CC; ++cc) {
       const int c = lane + 32 * cc;
       if (c >= D) continue;
       const float z = t < len ? acc[r][cc] + b2[c] : 0.f;
-      ob[(size_t)t * D + c] = from_f<T>(to_f(xb[(size_t)t * D + c]) + z);
+      ob[(size_t)t * D + c] = xb[(size_t)t * D + c] + z;
     }
   }
-
-  if (blockIdx.x == 0) {  // trailing ctx GLU frames, zero-left-padded
-    for (int e = tid; e < ctx * D; e += NT) {
-      const int j = e / D, c = e - j * D, t = Tlen - ctx + j;
-      cache[(size_t)b * ctx * D + e] = from_f<T>(t >= 0 ? gb[(size_t)t * D + c] : 0.f);
-    }
-  }
+  if (blockIdx.x == 0) write_cache<float>(cache, gb, b, Tlen, D, ctx);
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* lengths, const void* pre_s,
-                   const void* pre_b, const void* w1, const void* b1, const void* wd,
-                   const void* bd, const void* ln_s, const void* ln_b, const void* w2,
-                   const void* b2, void* out, void* cache, void* glu,
-                   cudaStream_t stream, int B, int Tlen, int D, int K) {
-  dim3 grid1((Tlen + P1_M - 1) / P1_M, D / P1_C, B);
-  pw1_glu_kernel<T><<<grid1, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int*>(lengths),
+// ------------------------------------------------------------------- host
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+bool shape_ok(int D, int K, int is_bf16) {
+  if (D < 16 || D % 16 || D > MAX_D || K < 1) return false;
+  return is_bf16 ? K <= 32 : p2_smem(D, K) <= (size_t)SMEM_LIMIT;
+}
+
+cudaError_t launch_bf16(const void* x, const void* lengths, const void* pre_s, const void* pre_b,
+                        const void* w1, const void* b1, const void* wd, const void* bd,
+                        const void* ln_s, const void* ln_b, const void* w2, const void* b2,
+                        void* out, void* cache, void* glu, cudaStream_t stream, int B, int Tlen,
+                        int D, int K) {
+  const int M = B * Tlen;
+  cudaError_t err = set_smem(pw1_glu_bf16_kernel, q1_smem(D));
+  if (err != cudaSuccess) return err;
+  dim3 grid1((M + Q1_M - 1) / Q1_M, (D + Q1_C - 1) / Q1_C);
+  pw1_glu_bf16_kernel<<<grid1, NT, q1_smem(D), stream>>>(
+      static_cast<const bf16*>(x), static_cast<const int*>(lengths),
       static_cast<const float*>(pre_s), static_cast<const float*>(pre_b),
-      static_cast<const T*>(w1), static_cast<const float*>(b1),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<float*>(glu), M,
+      Tlen, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto kernel = K <= 16 ? dw_ln_pw2_bf16_kernel<16> : dw_ln_pw2_bf16_kernel<32>;
+  err = set_smem(kernel, q2_smem(D));
+  if (err != cudaSuccess) return err;
+  dim3 grid2((Tlen + Q2_T - 1) / Q2_T, B);
+  kernel<<<grid2, NT, q2_smem(D), stream>>>(
+      static_cast<const bf16*>(x), static_cast<const int*>(lengths),
+      static_cast<const float*>(glu), static_cast<const float*>(wd),
+      static_cast<const float*>(bd), static_cast<const float*>(ln_s),
+      static_cast<const float*>(ln_b), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<bf16*>(out), static_cast<bf16*>(cache), Tlen, D,
+      K);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const void* x, const void* lengths, const void* pre_s, const void* pre_b,
+                       const void* w1, const void* b1, const void* wd, const void* bd,
+                       const void* ln_s, const void* ln_b, const void* w2, const void* b2,
+                       void* out, void* cache, void* glu, cudaStream_t stream, int B, int Tlen,
+                       int D, int K) {
+  dim3 grid1((Tlen + P1_M - 1) / P1_M, (D + P1_C - 1) / P1_C, B);
+  pw1_glu_f32_kernel<<<grid1, NT, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const int*>(lengths),
+      static_cast<const float*>(pre_s), static_cast<const float*>(pre_b),
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<float*>(glu), Tlen, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem = sizeof(float) * (size_t)D * (P2_T + (K - 1) + P2_T + P2_K + K);
-  err = cudaFuncSetAttribute(dw_ln_pw2_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = p2_smem(D, K);
+  err = set_smem(dw_ln_pw2_f32_kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid2((Tlen + P2_T - 1) / P2_T, B);
-  dw_ln_pw2_kernel<T><<<grid2, NT, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int*>(lengths),
+  dw_ln_pw2_f32_kernel<<<grid2, NT, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const int*>(lengths),
       static_cast<const float*>(glu), static_cast<const float*>(wd),
       static_cast<const float*>(bd), static_cast<const float*>(ln_s),
-      static_cast<const float*>(ln_b), static_cast<const T*>(w2),
-      static_cast<const float*>(b2), static_cast<T*>(out), static_cast<T*>(cache),
+      static_cast<const float*>(ln_b), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<float*>(out), static_cast<float*>(cache),
       Tlen, D, K);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x [B,T,D] (dtype T); lengths int32 [B]; pre_s, pre_b, b2, bd, ln_s, ln_b
-// float32 [D]; w1 [D,2D] and w2 [D,D] (dtype T); b1 float32 [2D]; wd float32
-// [K,D]; out [B,T,D] and cache [B,K-1,D] (dtype T); glu float32 scratch
-// [B,T,D]. All contiguous. Returns the CUDA error code (0 on success).
+// x [B,T,D] (float32 or bf16: is_bf16); lengths int32 [B]; pre_s, pre_b,
+// b2, bd, ln_s, ln_b float32 [D]; w1 [D,2D] and w2 [D,D] in x's dtype
+// (16-byte aligned); b1 float32 [2D]; wd float32 [K,D]; out [B,T,D] and
+// cache [B,K-1,D] in x's dtype; glu float32 scratch [B,T,D]. All
+// contiguous. D a multiple of 16 up to 512; bf16: K <= 32; float32: the
+// second launch's shared memory, 4 D (79 + 2 K) bytes, within a block's.
+// Returns the CUDA error code (0 on success; cudaErrorInvalidValue before
+// any launch for a shape outside these).
 extern "C" int conv_block_fwd(const void* x, const void* lengths, const void* pre_s,
                               const void* pre_b, const void* w1, const void* b1,
                               const void* wd, const void* bd, const void* ln_s,
                               const void* ln_b, const void* w2, const void* b2,
                               void* out, void* cache, void* glu, void* stream, int B,
                               int Tlen, int D, int K, int is_bf16) {
+  if (!shape_ok(D, K, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(x, lengths, pre_s, pre_b, w1, b1, wd, bd, ln_s,
-                                      ln_b, w2, b2, out, cache, glu, s, B, Tlen, D, K)
-              : launch<float>(x, lengths, pre_s, pre_b, w1, b1, wd, bd, ln_s, ln_b, w2,
-                              b2, out, cache, glu, s, B, Tlen, D, K);
+      is_bf16 ? launch_bf16(x, lengths, pre_s, pre_b, w1, b1, wd, bd, ln_s, ln_b, w2, b2, out,
+                            cache, glu, s, B, Tlen, D, K)
+              : launch_f32(x, lengths, pre_s, pre_b, w1, b1, wd, bd, ln_s, ln_b, w2, b2, out,
+                           cache, glu, s, B, Tlen, D, K);
   return static_cast<int>(err);
 }

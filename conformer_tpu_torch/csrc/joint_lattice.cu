@@ -31,19 +31,40 @@
 //
 // Design. The TPU kernel kept a (16 t x 128-padded u) x J tile and all of W
 // in VMEM; neither fits a block's 227 KB here. The cells are flattened into
-// M rows and a block owns a fixed tile of BM rows (64 in bf16, 32 in
+// M rows and a block owns a fixed tile of rows (64 or 128 in bf16, 32 in
 // float32) whatever U is: the block shape never depends on U (a block that
 // held every u was refused at U+1 = 201 in the simple lattice's backward).
 //
-// The forward, and both backward kernels in float32 (the parity path, not
-// the model's): the block keeps its x tile in shared memory and walks V in
-// tiles of 64 columns; W's column tile [J x 64] is staged in shared memory
-// per step (W, 5 MB in bf16, stays in the 50 MB L2). Products: in bf16 on
-// the tensor cores through nvcuda::wmma (16x16x16, float32 accumulators);
-// in float32 as FMAs on the CUDA cores (no TF32), through the same 16x16
-// fragment shape. Each logits tile goes to shared memory for the epilogue:
-// an online logsumexp per row and the blank and label picks (forward), or
-// dl (backward, rounded to the inputs' dtype as the product's operand).
+// The float32 kernels (the parity path, not the model's), and the bf16
+// backward at J = 640: the block keeps its x tile in shared memory and
+// walks V in tiles of 64 columns; W's column tile [J x 64] is staged in
+// shared memory per step (W, 5 MB in bf16, stays in the 50 MB L2).
+// Products: in bf16 on the tensor cores through nvcuda::wmma (16x16x16,
+// float32 accumulators); in float32 as FMAs on the CUDA cores (no TF32),
+// through the same 16x16 fragment shape. Each logits tile goes to shared
+// memory for the epilogue: an online logsumexp per row and the blank and
+// label picks (forward), or dl (backward, rounded to the inputs' dtype as
+// the product's operand).
+//
+// The forward in bf16 (bf16 enc, float32 or bf16 pred), joint_fwd_wg_kernel,
+// redesigned for Hopper: one block = 128 cells, two consumer warpgroups
+// with a 64-row x tile each (x computed in the block, 128-byte swizzled)
+// and a producer warpgroup whose one thread streams W by TMA into a ring
+// that both consumers read. W streams in V tiles of 128 columns, each in
+// J / 64 stages of [64 rows x 128 columns] (16 KB), so the stage does not
+// grow with J: the two x tiles take 128 KB at J = 512 and 160 KB at
+// J = 640, and the ring the rest of 224 KB (6 stages at J = 512, 4 at 640;
+// a [J x 64] stage would be 80 KB at J = 640, and two of them and the x
+// tiles would not fit). A consumer accumulates its 64 x 128 logits tile in
+// registers (wgmma m64n128k16, x K-major, W MN-major, float32 sums),
+// releasing each stage when the products that read it are done, and runs
+// the epilogue on the accumulators: the bias, a per-thread online max and
+// rescaled sum of exps per row (the four lanes of a row combine once, at
+// the end), the blank and label picks. Logits never reach shared memory.
+// The consumers share stages but not a barrier, so one's epilogue can run
+// while the other's products do. The 128-row block reads W from L2 once
+// for 128 cells: 32 GB at B=32 (M = 777,920), where 64-row blocks would
+// read 64 GB. Bound: one product, 2 M J V flops (4.03 ms at B=32).
 //
 // The backward in bf16 (bf16 enc, float32 or bf16 pred: the model's path),
 // joint_bwd_xp_wg_kernel and joint_bwd_w_wg_kernel, redesigned for Hopper:
@@ -91,9 +112,15 @@
 // registers; a last grid sums the chunks' partial dW and dbias in order.
 // The C entries report the grids they launched (1, 2 and 3).
 //
-// Limits: J a multiple of 128 up to 512; V padded by the caller to Vp, a
-// multiple of 64 (W's padded columns are never read into a result). The
-// bf16 backward kernels use 214 KB of shared memory at J = 512.
+// Limits: J a multiple of 128 (the wrapper pads J with zeros, which is
+// exact: x = tanh(0) = 0 in the padded columns and W's padded rows are 0),
+// up to 640 in bf16 and 512 in float32; V padded by the caller to Vp, a
+// multiple of 64, and of 128 for the forward (W's padded columns are never
+// read into a result). Routes by shape, bf16: the forward on wgmma at every
+// J; the backward on wgmma up to J = 512 (214 KB of shared memory there;
+// at J = 640 its x tile, a 2-stage ring of [J x 64] W tiles and the dl
+// tiles would need 240 KB) and on the wmma kernels at J = 640 (198 KB:
+// slower, but right). float32: the wmma/FMA kernels (218 KB at J = 512).
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -115,7 +142,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int BN = 64;                 // V columns per tile
 constexpr int NCF = BN / 16;           // 16-wide fragments across a V tile
 constexpr int LDL = BN + 4;            // row stride of the float32 logits tile
-constexpr int kMaxNJ = 512 / 128;      // 16-wide fragments of J per warp, at most
+constexpr int kMaxNJ = 640 / 128;      // 16-wide fragments of J per warp, at most
 
 template <typename T> struct Tile;
 template <> struct Tile<bf16> {
@@ -682,6 +709,20 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// wait until at most N committed groups of products are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Descriptor of an MN-major operand wider than one 128-byte row: 64-element
+// column blocks `lbo` bytes apart (the leading-byte-offset field), 8-row
+// groups 1024 B apart along K, 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t a, uint32_t lbo) {
+  constexpr uint64_t kGroup = 1024 >> 4;
+  return static_cast<uint64_t>((a >> 4) & 0x3FFF) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (kGroup << 32) | (1ull << 62);
+}
 // keep the compiler from moving accumulator reads or writes across the
 // asynchronous products
 template <int N>
@@ -1182,6 +1223,208 @@ joint_bwd_w_wg_kernel(const __grid_constant__ CUtensorMap wmap,
   }
 }
 
+// ------------------------------------------------ bf16 forward on wgmma
+//
+// One block = 128 cells and 3 warpgroups: warpgroup 0 the producer (one
+// thread issues the TMA copies of W), warpgroups 1 and 2 the consumers,
+// each with its own 64-row x tile. Stage g of the ring holds rows
+// [64 k, 64 k + 64) of W's V tile t (g = t J / 64 + k) as two swizzled
+// 64 x 64 atoms (columns 0-63, then 64-127); its empty barrier counts the
+// threads of both consumers.
+
+constexpr int FWD_VT = 128;                 // V columns per tile
+constexpr uint32_t FWD_STAGE = 2 * ATOM;    // bytes of one ring stage
+constexpr int FWD_SMEM = 229376;            // x tiles and ring, at most (224 KB)
+
+__host__ __device__ constexpr int fwd_stages(int J) {
+  return (FWD_SMEM - 2 * J * 128) / (int)FWD_STAGE > 8 ? 8
+                                                        : (FWD_SMEM - 2 * J * 128) / (int)FWD_STAGE;
+}
+__host__ __device__ constexpr size_t fwd_smem(int J) {
+  return 2 * (size_t)J * 128 + (size_t)fwd_stages(J) * FWD_STAGE + 2 * 8 * 8 + 1024;
+}
+
+// the logit of relative column `col` (< FWD_VT) of row half h, if this
+// thread holds it (lanes with l % 4 == (col % 8) / 2), else 0
+__device__ __forceinline__ float fwd_pick(const float (&acc)[64], int col, int h) {
+  const int lane = threadIdx.x & 31;
+  float v = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (8 * i + 2 * (lane & 3) + e == col) v = acc[4 * i + 2 * h + e];
+  return v;
+}
+
+// lp_blank, lp_emit, logZ of the block's 128 cells
+template <int NJ, typename TP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+joint_fwd_wg_kernel(const __grid_constant__ CUtensorMap wmap, const bf16* __restrict__ enc,
+                    const TP* __restrict__ pred, const float* __restrict__ bias,
+                    const int* __restrict__ lab, float* __restrict__ lpb,
+                    float* __restrict__ lpe, float* __restrict__ logz, int M, int Tn, int U1,
+                    int V, int Vp, int blank) {
+  constexpr int J = 128 * NJ, KCH = J / 64, S = fwd_stages(J);
+  constexpr uint32_t XT = J * 128;          // bytes of a 64-row x tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align1024(smem_raw);
+  unsigned char* xs = smem;                 // x [2][64][J]: J / 64 atoms each
+  unsigned char* ring = xs + 2 * XT;        // W stages [S][64][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * FWD_STAGE);
+  uint64_t* empty = full + S;
+  const int tid = threadIdx.x, wg = tid >> 7, nvt = Vp / FWD_VT;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      hop::mbar_init(&full[i], 1);
+      hop::mbar_init(&empty[i], WG_CONSUMERS);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hop::setmaxnreg_dec<WG_REG_PRODUCER>();
+    if (tid == 0) {
+      int g = 0;
+      for (int t = 0; t < nvt; ++t)
+        for (int k = 0; k < KCH; ++k, ++g) {
+          const int st = g % S;
+          hop::mbar_wait(&empty[st], ((g / S) & 1) ^ 1);
+          hop::mbar_expect(&full[st], FWD_STAGE);
+          unsigned char* stage = ring + st * FWD_STAGE;
+          hop::tma_load(stage, &wmap, &full[st], t * FWD_VT, 64 * k);
+          hop::tma_load(stage + ATOM, &wmap, &full[st], t * FWD_VT + 64, 64 * k);
+        }
+    }
+  } else {
+    hop::setmaxnreg_inc<WG_REG_CONSUMER>();
+    const int c = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int r0 = 16 * warp + (lane >> 2);
+    const int m0 = blockIdx.x * 128 + 64 * c;
+    unsigned char* xt = xs + c * XT;
+    // x = tanh(enc + pred) of this consumer's 64 rows into its swizzled atoms
+    for (int r = warp; r < 64; r += 4) {
+      const int m = m0 + r;
+      int bt = 0, u = 0, b = 0;
+      if (m < M) {
+        bt = m / U1;
+        u = m - bt * U1;
+        b = bt / Tn;
+      }
+#pragma unroll
+      for (int a = 0; a < KCH; ++a) {
+        const int j = 64 * a + 2 * lane;
+        float x0 = 0.f, x1 = 0.f;
+        if (m < M) {
+          const bf16* e = enc + (size_t)bt * J + j;
+          const TP* p = pred + ((size_t)b * U1 + u) * J + j;
+          x0 = to_f(joint_x<bf16, TP>(e[0], p[0]));
+          x1 = to_f(joint_x<bf16, TP>(e[1], p[1]));
+        }
+        *reinterpret_cast<__nv_bfloat162*>(xt + a * ATOM + hop::swz(r, 2 * lane)) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    }
+    int lb[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + r0 + 8 * h;
+      lb[h] = m < M ? cell_label(lab, m, Tn, U1) : -1;
+    }
+    hop::fence_view_async();
+    hop::bar_sync(1 + c, 128);
+
+    const uint32_t xa = hop::saddr(xt);
+    float acc[64];
+    float rm[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f}, bl[2] = {0.f, 0.f},
+          em[2] = {0.f, 0.f};
+    int g = 0, prev = 0;
+    for (int t = 0; t < nvt; ++t) {
+      const int v0 = t * FWD_VT;
+      float bv[32];   // bias of this thread's columns 8 i + 2 (l % 4) + e; -inf past V
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int v = v0 + 8 * i + 2 * (lane & 3) + e;
+          bv[2 * i + e] = v < V ? bias[v] : -INFINITY;
+        }
+      hop::fence_regs(acc);
+      hop::wg_fence();
+#pragma unroll
+      for (int k = 0; k < KCH; ++k, ++g) {
+        const int st = g % S;
+        hop::mbar_wait(&full[st], (g / S) & 1);
+        const uint32_t wa = hop::saddr(ring + st * FWD_STAGE);
+        if (k > 0) hop::wg_fence();
+        // 16 rows of the stage a step: one m64n128k16 over both atoms, the
+        // second one ATOM bytes on (the leading-byte offset)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma<128, 0, 1>(acc, hop::desc(xa + k * ATOM + kk * 32),
+                                hop::desc_mn(wa + kk * 2048, ATOM), k + kk > 0);
+        hop::wg_commit();
+        if (k > 0) {
+          hop::wg_wait<1>();
+          hop::mbar_arrive(&empty[prev]);
+        }
+        prev = st;
+      }
+      hop::wg_wait0();
+      hop::fence_regs(acc);
+      hop::mbar_arrive(&empty[prev]);
+
+      // epilogue on the accumulators: logits = acc + bias, then per row
+      // half h (rows r0 and r0 + 8) the online max and rescaled sum
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[4 * i + x] += bv[2 * i + (x & 1)];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          tmax = fmaxf(tmax, fmaxf(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]));
+        const float mn = fmaxf(rm[h], tmax);
+        if (mn != -INFINITY) {
+          float s = 0.f;
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            s += __expf(acc[4 * i + 2 * h] - mn) + __expf(acc[4 * i + 2 * h + 1] - mn);
+          rs[h] = rs[h] * __expf(rm[h] - mn) + s;
+          rm[h] = mn;
+        }
+        if (blank >= v0 && blank < v0 + FWD_VT) bl[h] = fwd_pick(acc, blank - v0, h);
+        if (lb[h] >= v0 && lb[h] < v0 + FWD_VT && lb[h] < V) em[h] = fwd_pick(acc, lb[h] - v0, h);
+      }
+    }
+    // combine the four lanes of each row (l % 4), in a fixed order
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mh = rm[h], sh = rs[h], bh = bl[h], eh = em[h];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, mh, off);
+        const float os = __shfl_xor_sync(0xffffffffu, sh, off);
+        const float mn = fmaxf(mh, om);
+        sh = mn == -INFINITY ? 0.f : sh * __expf(mh - mn) + os * __expf(om - mn);
+        mh = mn;
+        bh += __shfl_xor_sync(0xffffffffu, bh, off);   // one lane of the four holds each pick
+        eh += __shfl_xor_sync(0xffffffffu, eh, off);
+      }
+      const int m = m0 + r0 + 8 * h;
+      if ((lane & 3) == 0 && m < M) {
+        const float lz = mh + logf(sh);
+        lpb[m] = bh - lz;
+        lpe[m] = eh - lz;
+        logz[m] = lz;
+      }
+    }
+  }
+}
+
 // ------------------------------------------------ host side of the wgmma kernels
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so the
@@ -1261,18 +1504,82 @@ cudaError_t launch_bwd_w_wg(const void* xbuf, const void* w, const void* bias, c
   return cudaGetLastError();
 }
 
+template <int NJ, typename TP>
+cudaError_t launch_fwd_wg(const void* enc, const void* pred, const void* w, const void* bias,
+                          const void* lab, void* lpb, void* lpe, void* logz, cudaStream_t st,
+                          int M, int Tn, int U1, int V, int Vp, int blank) {
+  constexpr int J = 128 * NJ;
+  CUtensorMap wmap;
+  cudaError_t e = bf16_map(&wmap, w, J, Vp, 64);
+  if (e != cudaSuccess) return e;
+  const size_t smem = fwd_smem(J);
+  e = set_smem(joint_fwd_wg_kernel<NJ, TP>, smem);
+  if (e != cudaSuccess) return e;
+  joint_fwd_wg_kernel<NJ, TP><<<(M + 127) / 128, WG_THREADS, smem, st>>>(
+      wmap, static_cast<const bf16*>(enc), static_cast<const TP*>(pred),
+      static_cast<const float*>(bias), static_cast<const int*>(lab), static_cast<float*>(lpb),
+      static_cast<float*>(lpe), static_cast<float*>(logz), M, Tn, U1, V, Vp, blank);
+  return cudaGetLastError();
+}
+
 template <typename T, typename TP>
 cudaError_t launch_fwd(const void* enc, const void* pred, const void* w, const void* bias,
                        const void* lab, void* lpb, void* lpe, void* logz, cudaStream_t st, int M,
                        int Tn, int U1, int J, int V, int Vp, int blank) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    switch (J / 128) {
+#define FWD_WG(NJ)                                                                              \
+  case NJ:                                                                                      \
+    return launch_fwd_wg<NJ, TP>(enc, pred, w, bias, lab, lpb, lpe, logz, st, M, Tn, U1, V, Vp, \
+                                 blank);
+      FWD_WG(1) FWD_WG(2) FWD_WG(3) FWD_WG(4) FWD_WG(5)
+#undef FWD_WG
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    const Smem<T> S(J);
+    cudaError_t e = set_smem(joint_fwd_kernel<T, TP>, S.total);
+    if (e != cudaSuccess) return e;
+    const int grid = (M + Tile<T>::BM - 1) / Tile<T>::BM;
+    joint_fwd_kernel<T, TP><<<grid, kThreads, S.total, st>>>(
+        static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<const T*>(w),
+        static_cast<const float*>(bias), static_cast<const int*>(lab), static_cast<float*>(lpb),
+        static_cast<float*>(lpe), static_cast<float*>(logz), M, Tn, U1, J, V, Vp, blank);
+    return cudaGetLastError();
+  }
+}
+
+// the wmma/FMA kernels of the backward: float32, and bf16 at J = 640
+template <typename T, typename TP>
+cudaError_t launch_bwd_xp_mma(const void* enc, const void* pred, const void* w, const void* bias,
+                              const void* lab, const void* logz, const void* gb, const void* ge,
+                              void* dpre, cudaStream_t st, int M, int Tn, int U1, int J, int V,
+                              int Vp, int blank) {
   const Smem<T> S(J);
-  cudaError_t e = set_smem(joint_fwd_kernel<T, TP>, S.total);
+  cudaError_t e = set_smem(joint_bwd_xp_kernel<T, TP>, S.total);
   if (e != cudaSuccess) return e;
   const int grid = (M + Tile<T>::BM - 1) / Tile<T>::BM;
-  joint_fwd_kernel<T, TP><<<grid, kThreads, S.total, st>>>(
+  joint_bwd_xp_kernel<T, TP><<<grid, kThreads, S.total, st>>>(
       static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<const int*>(lab), static_cast<float*>(lpb),
-      static_cast<float*>(lpe), static_cast<float*>(logz), M, Tn, U1, J, V, Vp, blank);
+      static_cast<const float*>(bias), static_cast<const int*>(lab),
+      static_cast<const float*>(logz), static_cast<const float*>(gb),
+      static_cast<const float*>(ge), static_cast<float*>(dpre), M, Tn, U1, J, V, Vp, blank);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_w_mma(const void* xbuf, const void* w, const void* bias, const void* lab,
+                             const void* logz, const void* gb, const void* ge, void* part,
+                             void* dbpart, cudaStream_t st, int M, int Tn, int U1, int J, int V,
+                             int Vp, int blank, int n_chunks, int rows_per_chunk) {
+  const Smem<T> S(J);
+  cudaError_t e = set_smem(joint_bwd_w_kernel<T>, S.total);
+  if (e != cudaSuccess) return e;
+  joint_bwd_w_kernel<T><<<dim3(Vp / BN, n_chunks), kThreads, S.total, st>>>(
+      static_cast<const T*>(xbuf), static_cast<const T*>(w), static_cast<const float*>(bias),
+      static_cast<const int*>(lab), static_cast<const float*>(logz),
+      static_cast<const float*>(gb), static_cast<const float*>(ge), static_cast<float*>(part),
+      static_cast<float*>(dbpart), M, Tn, U1, J, V, Vp, blank, rows_per_chunk);
   return cudaGetLastError();
 }
 
@@ -1292,19 +1599,15 @@ cudaError_t launch_bwd_xp(const void* enc, const void* pred, const void* w, cons
     break;
       XP_WG(1) XP_WG(2) XP_WG(3) XP_WG(4)
 #undef XP_WG
+      case 5:
+        e = launch_bwd_xp_mma<T, TP>(enc, pred, w, bias, lab, logz, gb, ge, dpre, st, M, Tn, U1,
+                                     J, V, Vp, blank);
+        break;
       default: return cudaErrorInvalidValue;
     }
   } else {
-    const Smem<T> S(J);
-    e = set_smem(joint_bwd_xp_kernel<T, TP>, S.total);
-    if (e != cudaSuccess) return e;
-    const int grid = (M + Tile<T>::BM - 1) / Tile<T>::BM;
-    joint_bwd_xp_kernel<T, TP><<<grid, kThreads, S.total, st>>>(
-        static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<const T*>(w),
-        static_cast<const float*>(bias), static_cast<const int*>(lab),
-        static_cast<const float*>(logz), static_cast<const float*>(gb),
-        static_cast<const float*>(ge), static_cast<float*>(dpre), M, Tn, U1, J, V, Vp, blank);
-    e = cudaGetLastError();
+    e = launch_bwd_xp_mma<T, TP>(enc, pred, w, bias, lab, logz, gb, ge, dpre, st, M, Tn, U1, J,
+                                 V, Vp, blank);
   }
   if (e != cudaSuccess) return e;
   *launched = 1;
@@ -1340,18 +1643,15 @@ cudaError_t launch_bwd_w(const void* enc, const void* pred, const void* w, const
     break;
       W_WG(1) W_WG(2) W_WG(3) W_WG(4)
 #undef W_WG
+      case 5:
+        e = launch_bwd_w_mma<T>(xbuf, w, bias, lab, logz, gb, ge, part, dbpart, st, M, Tn, U1, J,
+                                V, Vp, blank, n_chunks, rows_per_chunk);
+        break;
       default: return cudaErrorInvalidValue;
     }
   } else {
-    const Smem<T> S(J);
-    e = set_smem(joint_bwd_w_kernel<T>, S.total);
-    if (e != cudaSuccess) return e;
-    joint_bwd_w_kernel<T><<<dim3(Vp / BN, n_chunks), kThreads, S.total, st>>>(
-        static_cast<const T*>(xbuf), static_cast<const T*>(w), static_cast<const float*>(bias),
-        static_cast<const int*>(lab), static_cast<const float*>(logz),
-        static_cast<const float*>(gb), static_cast<const float*>(ge), static_cast<float*>(part),
-        static_cast<float*>(dbpart), M, Tn, U1, J, V, Vp, blank, rows_per_chunk);
-    e = cudaGetLastError();
+    e = launch_bwd_w_mma<T>(xbuf, w, bias, lab, logz, gb, ge, part, dbpart, st, M, Tn, U1, J, V,
+                            Vp, blank, n_chunks, rows_per_chunk);
   }
   if (e != cudaSuccess) return e;
   *launched = 2;
@@ -1365,16 +1665,28 @@ cudaError_t launch_bwd_w(const void* enc, const void* pred, const void* w, const
   return e;
 }
 
+// J that the entries route (J a multiple of 128: bf16 up to 640, float32 up to 512)
+bool j_routed(int J, int is_bf16) { return J > 0 && J % 128 == 0 && J <= (is_bf16 ? 640 : 512); }
+
 }  // namespace
 
 // The C entries: enc in bf16 or float32 (is_bf16), pred likewise
 // (pred_bf16); w [J,Vp] in enc's dtype, bias [Vp] float32, lab [B,U1] int32.
+// J a multiple of 128; each entry returns cudaErrorInvalidValue before any
+// launch for J outside its routes. Routes by shape and dtype:
+//   forward   bf16 J <= 640: joint_fwd_wg_kernel (wgmma, TMA; Vp a multiple of 128)
+//             float32 J <= 512: joint_fwd_kernel (FMAs)
+//   backward  bf16 J <= 512: joint_bwd_xp_wg_kernel, joint_bwd_w_wg_kernel (wgmma, TMA)
+//             bf16 J = 640: joint_bwd_xp_kernel, joint_bwd_w_kernel (wmma; 198 KB of
+//             shared memory, where the wgmma kernels would need 240 KB)
+//             float32 J <= 512: joint_bwd_xp_kernel, joint_bwd_w_kernel (FMAs)
 
 // -> lpb, lpe, logz [B,T,U1] float32.
 extern "C" int joint_lattice_fwd(const void* enc, const void* pred, const void* w,
                                  const void* bias, const void* lab, void* lpb, void* lpe,
                                  void* logz, void* stream, int B, int T, int U1, int J, int V,
                                  int Vp, int blank, int is_bf16, int pred_bf16) {
+  if (!j_routed(J, is_bf16) || (is_bf16 && Vp % FWD_VT)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * T * U1;
 #define JOINT_FWD(T_, TP_) \
@@ -1394,6 +1706,7 @@ extern "C" int joint_lattice_bwd_xp(const void* enc, const void* pred, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* launched = static_cast<int*>(grids);
   *launched = 0;
+  if (!j_routed(J, is_bf16)) return cudaErrorInvalidValue;
 #define JOINT_XP(T_, TP_)                                                                     \
   launch_bwd_xp<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, dpre, d_enc, d_pred, launched, \
                          st, B, T, U1, J, V, Vp, blank)
@@ -1414,6 +1727,7 @@ extern "C" int joint_lattice_bwd_w(const void* enc, const void* pred, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* launched = static_cast<int*>(grids);
   *launched = 0;
+  if (!j_routed(J, is_bf16)) return cudaErrorInvalidValue;
 #define JOINT_W(T_, TP_)                                                                      \
   launch_bwd_w<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, xbuf, part, dbpart, dw, db,     \
                         launched, st, B, T, U1, J, V, Vp, blank, n_chunks)

@@ -8,8 +8,10 @@ Replaces the Pallas TPU kernel ``conformer_tpu/ops/pallas/conv_kernel.py``
 
 plus the trailing K-1 GLU frames as the conv cache for a later streaming
 switch. The kernel is ``csrc/conv_block.cu``; its source note gives the
-bound and the design. ``conv_block`` launches it for CUDA tensors and takes
-``conv_block_plain`` only for CPU tensors. LayerNorm, non-causal only.
+bound and the design (bf16 on the tensor cores, float32 on FMAs).
+``conv_block`` launches it for CUDA tensors and takes ``conv_block_plain``
+only for CPU tensors; ``width_error`` says which widths it takes.
+LayerNorm, non-causal only.
 """
 
 from __future__ import annotations
@@ -19,7 +21,30 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-_P2_T, _P2_K = 32, 16   # time tile and W2 k-slice of the kernel's second launch
+MAX_D = 512             # channels, a multiple of 16 (Conformer-S 144, M 256, L 512)
+MAX_K_BF16 = 32         # the bf16 depthwise's register window
+
+
+def width_error(dtype, d: int, kernel_size: int) -> str | None:
+    """Why the kernel refuses width ``d`` and kernel size ``kernel_size``
+    in ``dtype``, or None where it takes them: D a multiple of 16 up to
+    512; bf16 K <= 32; float32 (the parity path) K such that its second
+    launch's shared memory, 4 D (79 + 2 K) bytes (g with its K-1 halo, z,
+    a W2 slice and the taps), fits a block's."""
+    if d < 16 or d % 16 or d > MAX_D:
+        return f"D={d}: the kernel takes D a multiple of 16 up to {MAX_D}"
+    if kernel_size < 1:
+        return f"K={kernel_size} < 1"
+    if dtype == torch.bfloat16:
+        if kernel_size > MAX_K_BF16:
+            return f"K={kernel_size} > {MAX_K_BF16} (bf16)"
+        return None
+    if dtype != torch.float32:
+        return f"x must be float32 or bfloat16, got {dtype}"
+    smem = 4 * d * (79 + 2 * kernel_size)
+    if smem > cuda_build.SMEM_LIMIT:
+        return f"D={d}, K={kernel_size}: float32 needs {smem} B of shared memory"
+    return None
 
 
 def _ln(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tensor:
@@ -75,9 +100,9 @@ def conv_block(x, lengths, p_norm, p_conv, *, kernel_size: int):
     """Kernel wrapper with the contract of ``conv_block_plain``.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise: float32 or bfloat16 x [B,T,D] with D a multiple of 32 and at
-    most 256. ``conv_block.launches`` counts calls that launched the
-    kernel (one per call, though the kernel runs as two launches).
+    raise: float32 or bfloat16 x [B,T,D] with D and K that ``width_error``
+    passes. ``conv_block.launches`` counts calls that launched the kernel
+    (one per call, though the kernel runs as two launches).
     """
     if x.device.type == "cpu":
         return conv_block_plain(x, lengths, p_norm, p_conv, kernel_size=kernel_size)
@@ -87,15 +112,18 @@ def conv_block(x, lengths, p_norm, p_conv, *, kernel_size: int):
         raise TypeError("conv_block: x must be float32 or bfloat16")
     b, t, d = x.shape
     k = kernel_size
-    smem = 4 * d * (_P2_T + (k - 1) + _P2_T + _P2_K + k)
-    if d % 32 or d > 256 or k < 1 or smem > cuda_build.SMEM_LIMIT or b == 0 or t == 0:
-        raise ValueError(f"conv_block: shape {tuple(x.shape)}, K={k} outside the kernel")
+    why = width_error(x.dtype, d, k)
+    if why is not None or b == 0 or t == 0:
+        raise ValueError(f"conv_block: shape {tuple(x.shape)}, K={k} outside the kernel"
+                         + (f": {why}" if why else ""))
     w = kernel_weights(p_norm, p_conv, x.dtype)
     if any(v.device != x.device for v in w.values()):
         raise ValueError("conv_block: parameters must be on x's device")
     if w["w1"].shape != (d, 2 * d) or w["w2"].shape != (d, d) or w["wd"].shape != (k, d):
         raise ValueError("conv_block: parameter shapes do not match x")
     x = x.contiguous()
+    if any(a.data_ptr() % 16 for a in (x, w["w1"], w["w2"])):
+        raise ValueError("conv_block: x, W1 and W2 must be 16-byte aligned")
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(x)
     cache = torch.empty((b, k - 1, d), dtype=x.dtype, device=x.device)

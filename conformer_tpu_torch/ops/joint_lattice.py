@@ -10,7 +10,10 @@ bound and the design. ``joint_lattice_fwd``, ``joint_lattice_bwd_xp`` and
 versions only for CPU tensors; each counts in ``.launches`` the grids it
 launched (1, 2 and 3 per call: the backwards sum across blocks in extra
 grids, in a fixed order). The plain versions are chunked over T, so they
-build [B, t_chunk, U+1, V] at a time and never the whole lattice.
+build [B, t_chunk, U+1, V] at a time and never the whole lattice. The
+kernels take J in multiples of 128: the wrappers zero-pad J
+(``pad_join``, exact) and slice the gradients back; ``width_error`` says
+which J each dtype takes (bf16 up to 640, float32 up to 512).
 
 Inputs everywhere: enc [B, T, J] and pred [B, U+1, J], each float32 or
 bfloat16 (the model gives bf16 enc and float32 pred: the predictor runs in
@@ -30,8 +33,10 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-_V_TILE = 64            # the kernels' V tile: W and the bias are padded to a multiple of it
-_MAX_J = 512
+_V_TILE = 64            # the backward's V tile: W and the bias are padded to a multiple of it
+_FWD_V_TILE = 128       # the forward's
+J_TILE = 128            # the kernels take J in multiples of it: the wrappers pad J with zeros
+MAX_J = {torch.bfloat16: 640, torch.float32: 512}   # padded J the kernels take, by enc's dtype
 _BWD_W_BLOCKS = 4 * 132   # bwd_w's grid: at least four blocks per SM of an H100
 _BWD_W_ROWS = 8192        # bwd_w: cells summed in float32 into one partial dW, at most
 _MAX_CHUNKS = 128
@@ -118,6 +123,35 @@ def joint_lattice_plain_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank
 # ------------------------------------------------------------------ kernels
 
 
+def width_error(dtype, j: int) -> str | None:
+    """Why the kernels refuse join width ``j`` with enc in ``dtype``, or
+    None where all three take it. J is first padded to a multiple of
+    ``J_TILE``. bf16 (the model's): padded J <= 640 (Conformer-S 320 ->
+    384, M 512, L 640); the forward's two x tiles and ring fit 224 KB up to
+    there, the backward runs on wgmma up to 512 and on the wmma kernels at
+    640. float32 (the parity path): padded J <= 512, where the FMA
+    kernels' tiles fill shared memory."""
+    limit = MAX_J.get(dtype)
+    if limit is None:
+        return f"enc must be float32 or bfloat16, got {dtype}"
+    jp = -(-j // J_TILE) * J_TILE
+    if j <= 0 or jp > limit:
+        return f"J={j} (padded to {jp}) outside the {dtype} kernels' J <= {limit}"
+    return None
+
+
+def pad_join(enc, pred, w):
+    """(enc, pred, W) with J zero-padded to a multiple of ``J_TILE``, each in
+    its own dtype (the model passes bf16 enc and float32 pred). Exact: in
+    the padded columns x = tanh(0 + 0) = 0 and W's padded rows are 0, so
+    the logits do not change, and dpre, d enc, d pred and dW come out 0
+    there (the wrappers slice them away)."""
+    pad = (-enc.shape[-1]) % J_TILE
+    if pad == 0:
+        return enc, pred, w
+    return F.pad(enc, (0, pad)), F.pad(pred, (0, pad)), F.pad(w, (0, 0, 0, pad))
+
+
 def _check(name, enc, pred, w, b, lab, blank, lattice=()):
     dev = enc.device
     tensors = (enc, pred, w, b, lab, *lattice)
@@ -135,17 +169,20 @@ def _check(name, enc, pred, w, b, lab, blank, lattice=()):
         raise ValueError(f"{name}: inconsistent shapes")
     if any(x.shape != (bsz, t, u1) for x in lattice):
         raise ValueError(f"{name}: lattice tensors must be [B, T, U+1]")
-    if j % 128 or j > _MAX_J or min(bsz, t, u1, v) == 0 or not 0 <= blank < v:
+    why = width_error(enc.dtype, j)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
+    if min(bsz, t, u1, v) == 0 or not 0 <= blank < v:
         raise ValueError(f"{name}: enc {tuple(enc.shape)}, pred {tuple(pred.shape)}, "
-                         f"W {tuple(w.shape)} outside the kernel (J a multiple of 128 up to 512)")
+                         f"W {tuple(w.shape)}, blank {blank} outside the kernel")
     return bsz, t, u1, j, v
 
 
-def _operands(enc, w, b):
+def _operands(enc, w, b, v_tile=_V_TILE):
     """W in the inputs' dtype and the float32 bias, padded to a multiple of
     the V tile (the kernels read no padded column into a result)."""
     v = w.shape[1]
-    pad = (-v) % _V_TILE
+    pad = (-v) % v_tile
     wk = F.pad(w.to(enc.dtype), (0, pad)).contiguous()
     bk = F.pad(b.float(), (0, pad)).contiguous()
     return wk, bk, v + pad
@@ -159,12 +196,14 @@ def _dtypes(enc, pred):
 def joint_lattice_fwd(enc, pred, w, b, lab, blank: int):
     """Kernel wrapper with the contract of ``joint_lattice_plain_fwd``: CPU
     tensors take the plain version, CUDA tensors launch the kernel or raise
-    (float32 or bfloat16 contiguous enc and pred, int32 labels, J a
-    multiple of 128 up to 512)."""
+    (float32 or bfloat16 contiguous enc and pred, int32 labels, J that
+    ``width_error`` passes; J is zero-padded to a multiple of 128)."""
     if enc.device.type == "cpu":
         return joint_lattice_plain_fwd(enc, pred, w, b, lab, blank)
-    bsz, t, u1, j, v = _check("joint_lattice_fwd", enc, pred, w, b, lab, blank)
-    wk, bk, vp = _operands(enc, w, b)
+    bsz, t, u1, _, v = _check("joint_lattice_fwd", enc, pred, w, b, lab, blank)
+    enc, pred, w = pad_join(enc, pred, w)
+    j = enc.shape[2]
+    wk, bk, vp = _operands(enc, w, b, _FWD_V_TILE)
     lpb, lpe, logz = (torch.empty((bsz, t, u1), dtype=torch.float32, device=enc.device)
                       for _ in range(3))
     fn = cuda_build.load_function("joint_lattice", "joint_lattice_fwd", n_ptrs=9, n_ints=9)
@@ -183,7 +222,9 @@ def joint_lattice_bwd_xp(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int
     if enc.device.type == "cpu":
         return joint_lattice_plain_bwd_xp(enc, pred, w, b, lab, logz, g_blank, g_emit, blank)
     lattice = (logz, g_blank, g_emit)
-    bsz, t, u1, j, v = _check("joint_lattice_bwd_xp", enc, pred, w, b, lab, blank, lattice)
+    bsz, t, u1, j0, v = _check("joint_lattice_bwd_xp", enc, pred, w, b, lab, blank, lattice)
+    enc, pred, w = pad_join(enc, pred, w)
+    j = enc.shape[2]
     wk, bk, vp = _operands(enc, w, b)
     dev = enc.device
     dpre = torch.empty((bsz * t * u1, j), dtype=torch.float32, device=dev)
@@ -197,7 +238,7 @@ def joint_lattice_bwd_xp(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int
              bsz, t, u1, j, v, vp, blank, *_dtypes(enc, pred))
     joint_lattice_bwd_xp.launches += grids.value
     cuda_build.check(err, "joint_lattice_bwd_xp")
-    return d_enc, d_pred
+    return d_enc[..., :j0], d_pred[..., :j0]
 
 
 def _bwd_w_chunks(m: int, v: int) -> int:
@@ -218,7 +259,9 @@ def joint_lattice_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int)
     if enc.device.type == "cpu":
         return joint_lattice_plain_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank)
     lattice = (logz, g_blank, g_emit)
-    bsz, t, u1, j, v = _check("joint_lattice_bwd_w", enc, pred, w, b, lab, blank, lattice)
+    bsz, t, u1, j0, v = _check("joint_lattice_bwd_w", enc, pred, w, b, lab, blank, lattice)
+    enc, pred, w = pad_join(enc, pred, w)
+    j = enc.shape[2]
     wk, bk, vp = _operands(enc, w, b)
     dev = enc.device
     n_chunks = _bwd_w_chunks(bsz * t * u1, v)
@@ -236,7 +279,7 @@ def joint_lattice_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int)
              *_dtypes(enc, pred))
     joint_lattice_bwd_w.launches += grids.value
     cuda_build.check(err, "joint_lattice_bwd_w")
-    return dw[:, :v], db[:v]
+    return dw[:j0, :v], db[:v]
 
 
 joint_lattice_fwd.launches = 0

@@ -47,11 +47,12 @@ from conformer_tpu_torch.train.optimizer import leaf_paths
 
 # (B, T, U, J, V): T and U+1 that the kernel's tiles (8 t, 128 u) divide
 # and do not, V below and above one 128 tile, an utterance of one frame
-# with no label
+# with no label, a J that the CUDA kernels take only after padding
 SHAPES = {
     "divisible": (2, 16, 7, 16, 128),
     "ragged": (3, 13, 6, 8, 45),
     "edges": (2, 1, 0, 16, 130),
+    "j40": (2, 9, 4, 40, 70),   # J a multiple of neither 16 nor 128 (the kernels pad it)
 }
 # bf16, plain version vs the TPU kernel: both round x and W to bf16 and sum
 # in float32, so they differ only where XLA's and PyTorch's float32 tanh
@@ -135,6 +136,47 @@ def test_joint_plain_bwd_matches_pallas_vjp(case, dtype):
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=1e-2, atol=2e-3)
     for name, g, wnt in zip(("d_enc", "d_pred", "d_w", "d_bias"), got, want):
         np.testing.assert_allclose(_np(g), _np(wnt), **tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "mixed"])
+@pytest.mark.parametrize("j", [40, 320])
+def test_pad_join_is_exact(j, dtype):
+    """The CUDA wrappers zero-pad J to a multiple of 128 (``pad_join``): each
+    plain version on padded inputs, sliced back, equals it on the unpadded
+    ones, and the padded parts of d enc, d pred and dW are exactly 0. Equal
+    up to the float32 summation order of the CPU's matrix product, which
+    blocks a longer J otherwise (4.8e-6 at J = 320 here; bit for bit at
+    J = 40): 1e-5 abs and rel."""
+    rng = np.random.default_rng(7)
+    b, t, u, v = 2, 5, 3, 37
+    dts = DTYPES[dtype]
+    enc, pred = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(getattr(torch, d))
+                 for s, d in zip(((b, t, j), (b, u + 1, j)), dts))
+    w = torch.from_numpy((0.3 * rng.standard_normal((j, v))).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.standard_normal(v)).astype(np.float32))
+    lab = torch.from_numpy(np.pad(rng.integers(1, v, (b, u)), ((0, 0), (0, 1))).astype(np.int32))
+    g = [torch.from_numpy(rng.standard_normal((b, t, u + 1)).astype(np.float32)) for _ in range(2)]
+    padded = p_joint.pad_join(enc, pred, w)
+    jp = padded[0].shape[-1]
+    assert jp % p_joint.J_TILE == 0 and jp - j < p_joint.J_TILE
+    assert [x.dtype for x in padded] == [enc.dtype, pred.dtype, w.dtype]
+    tol = dict(rtol=1e-5, atol=1e-5)
+    want = p_joint.joint_lattice_plain_fwd(enc, pred, w, bias, lab, 0)
+    got = p_joint.joint_lattice_plain_fwd(*padded, bias, lab, 0)
+    for gt, wt in zip(got, want):
+        np.testing.assert_allclose(gt.numpy(), wt.numpy(), **tol)
+    args = (bias, lab, want[2], *g, 0)
+    for fn in (p_joint.joint_lattice_plain_bwd_xp, p_joint.joint_lattice_plain_bwd_w):
+        want_g = fn(enc, pred, w, *args)
+        got_g = fn(*padded, *args)
+        for name, gt, wt in zip(("first", "second"), got_g, want_g):
+            if gt.shape == wt.shape:      # dbias: no J axis
+                np.testing.assert_allclose(gt.numpy(), wt.numpy(), **tol, err_msg=name)
+                continue
+            axis = 0 if fn is p_joint.joint_lattice_plain_bwd_w else -1
+            kept, rest = gt.split([j, jp - j], dim=axis)
+            np.testing.assert_allclose(kept.numpy(), wt.numpy(), **tol, err_msg=name)
+            assert not rest.any(), f"{fn.__name__} {name}: padded part not zero"
 
 
 def _port_model(model_cfg):

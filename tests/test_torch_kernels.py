@@ -15,6 +15,7 @@ from conformer_tpu.ops.pallas import attention_kernel as ak
 from conformer_tpu.ops.pallas import conv_kernel as ck
 from conformer_tpu_torch.ops import conv_block as pcb
 from conformer_tpu_torch.ops import ctc_dp as pcd
+from conformer_tpu_torch.ops import joint_lattice as pjl
 from conformer_tpu_torch.ops import rel_attention as pra
 from conformer_tpu_torch.ops import rnnt_lattice as prl
 
@@ -79,7 +80,28 @@ def test_kernel_width_limits():
     """The widths the CUDA wrappers take, checked before any launch: every
     shipped attention width (Conformer-S, M, L) in bf16 and in float32,
     which refuses D > 512; the DP kernels past 1024 states (their
-    shared-memory limits)."""
+    shared-memory limits); the conv block at every shipped width (D 144,
+    256, 512 with K = 15) in both dtypes, refusing D past 512 or not a
+    multiple of 16, and in float32 a K whose shared memory does not fit;
+    the joint kernels at every shipped join width (J 320, 512, 640) in
+    bf16, float32 up to its stated limit J <= 512 (after padding J to a
+    multiple of 128), one width past each limit refused."""
+    for d in (144, 256, 512):
+        for dtype in (torch.bfloat16, torch.float32):
+            assert pcb.width_error(dtype, d, 15) is None
+    for dtype in (torch.bfloat16, torch.float32):
+        assert pcb.width_error(dtype, 528, 15) is not None
+        assert pcb.width_error(dtype, 150, 15) is not None
+    assert pcb.width_error(torch.bfloat16, 512, 32) is None
+    assert pcb.width_error(torch.bfloat16, 512, 33) is not None
+    assert "shared memory" in pcb.width_error(torch.float32, 512, 31)
+    for j in (320, 512, 640):
+        assert pjl.width_error(torch.bfloat16, j) is None
+    assert pjl.width_error(torch.bfloat16, 641) is not None
+    assert pjl.width_error(torch.float32, 320) is None
+    assert pjl.width_error(torch.float32, 512) is None
+    assert "J <= 512" in pjl.width_error(torch.float32, 513)
+    assert "J <= 512" in pjl.width_error(torch.float32, 640)
     for dk, d in ((36, 144), (64, 256), (64, 512)):
         assert pra.width_error(torch.bfloat16, dk, d) is None
     assert pra.width_error(torch.float32, 36, 144) is None
@@ -92,7 +114,8 @@ def test_kernel_width_limits():
     assert prl.max_u1(374) == 28869 and prl.max_u1(1300) > 1024
 
 
-@pytest.mark.parametrize("script", ["torch_attention_ablation", "torch_joint_ablation"])
+@pytest.mark.parametrize("script", ["torch_attention_ablation", "torch_joint_ablation",
+                                    "torch_conv_ablation"])
 def test_ablation_texts_apply_to_the_kernels(script):
     """Every stage that an ablation script takes out of a kernel is a text
     substitution in that kernel's source; each must still apply to the
@@ -136,15 +159,21 @@ def _tree(fn, tree):
 
 
 @pytest.mark.parametrize(
-    "t,k,lengths",
+    "t,k,lengths,d",
     [
-        (29, 15, [29, 17, 1]),    # T a multiple of no tile
-        (9, 15, [9, 6, 1]),       # T < K-1: zero-left-padded cache
-        (40, 7, [40, 40, 33]),
+        (29, 15, [29, 17, 1], 32),    # T a multiple of no tile
+        (9, 15, [9, 6, 1], 32),       # T < K-1: zero-left-padded cache
+        (40, 7, [40, 40, 33], 32),
+        (21, 15, [21, 14, 1], 144),   # Conformer-S's width
+        (9, 15, [9, 9, 4], 144),
+        (21, 15, [21, 9, 21], 512),   # Conformer-L's width
+        (9, 15, [9, 2, 9], 512),
     ],
+    ids=["29-15-lengths0", "9-15-lengths1", "40-7-lengths2", "conformer_s-D144-T21",
+         "conformer_s-D144-T9", "conformer_l-D512-T21", "conformer_l-D512-T9"],
 )
-def test_conv_block_plain_matches_pallas(t, k, lengths):
-    b, d = 3, 32
+def test_conv_block_plain_matches_pallas(t, k, lengths, d):
+    b = 3
     p_norm, p_conv = _conv_params(2, d, k)
     x = np.random.default_rng(3).standard_normal((b, t, d)).astype(np.float32)
     lens = np.asarray(lengths, np.int32)
