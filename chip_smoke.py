@@ -28,7 +28,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                training shape (B=32, T'=374, U=64, V=5002) and at a tiny
                ragged one, with edge rows (t_len 1, u_len 0, a
                bucket-padding row), the simple lattice's two also at
-               U = 300 (B=2, T'=412), and the CTC and RNN-T DPs at long
+               U = 300 (B=2, T'=412) and on inputs whose maxima of am and lm
+               lie 200 nats apart on different v (B=4, T'=374, U=64, outputs
+               poisoned with NaN first), where their guard must take cells
+               (and none on the random inputs), and the CTC and RNN-T DPs at long
                labels (U = 400-1100) with their wrappers' limits; the
                two int8 serving kernels at route B's rows (M = 48 x 374),
                route A's (374), a ragged M and
@@ -48,8 +51,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                dither's statistics; times of kernel, plain version and
                library call (where none exists, labelled yardsticks: for
                the int8 kernels torch._int_mm and the float work they
-               replace, for the joint the bf16 product alone, for fbank
-               torch.stft's power spectrum) beside the bound;
+               replace, for the joint the bf16 product alone, for the
+               simple lattice its factored products alone by float32
+               torch.matmul, for fbank torch.stft's power spectrum) beside
+               the bound;
   4. serve   - Conformer-M at full width (configs/conformer_m.json, both
                kernel flags on, random weights from a seed, +6 on the joint's
                blank bias) behind the port's REST server on 127.0.0.1: three
@@ -77,8 +82,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                with 64 random labels, accum_grad 2, one warm-up step and
                three timed steps, each with a finite loss and gradient norm,
                changed weights and an unchanged pos_table; each kernel must
-               count its launches per microbatch (simple lattice fwd 1 / bwd
-               1 grid, RNN-T lattice 2 / 2, CTC 1 / 1, attention 0). Then
+               count its launches per microbatch (simple lattice fwd 2 / bwd
+               4 kernels, RNN-T lattice 2 / 2, CTC 1 / 1, attention 0). Then
                float32 parity of the kernel path, with the attention kernel
                on, against the plain path on one 8 x 15 s microbatch: the
                band starts and occupancy argmaxes that differ are counted
@@ -138,6 +143,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BF16_TFLOPS = 989.0      # H100 SXM dense bf16 tensor rate
 INT8_TOPS = 1979.0       # H100 SXM dense int8 tensor rate
 F32_TFLOPS = 67.0        # H100 SXM float32 outside the tensor cores
+TF32_TFLOPS = 495.0      # H100 SXM dense TF32 tensor rate (3xTF32 products: a third of it)
 HBM_TBPS = 3.35          # H100 SXM device memory rate
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # abs and rel; bf16: ~1 ulp at |x| < 4
 H100_SMS = 132
@@ -758,10 +764,46 @@ def compare_sums(name, got, want, tol) -> float:
     return err
 
 
-# the simple lattice past one u tile of its forward (128 rows) and two
-# chunks of its backward (96 rows): U+1 = 301, where the wrappers once
-# refused anything above 256 (B, T', U, V)
+# the simple lattice past one u tile of its forward and one chunk of its
+# backward (72 rows each): U+1 = 301, where the wrappers once refused
+# anything above 256 (B, T', U, V)
 SIMPLE_LONG = ((2, 412, 300, 5002),)
+# the simple lattice's guard: am's maxima at v = 5 on the first half of t,
+# lm's at v = 9 on the second half of u, 200 nats high, so that on the cells
+# where both meet the factored sum underflows (B, T', U, V)
+SIMPLE_APART = (4, 374, 64, 5002)
+
+
+def check_simple_lattice_guard(dev, gen) -> dict:
+    """Both simple-lattice kernels on the "maxima apart" inputs, outputs
+    poisoned with NaN first, against the plain versions at TOL["float32"];
+    the guard must take cells in both directions. Returns the guarded-cell
+    counts."""
+    import torch
+
+    from conformer_tpu_torch.ops import simple_lattice as sl
+
+    b, t, u, v = SIMPLE_APART
+    x = training_kernel_inputs(dev, gen, b, t, u, v)
+    am, lm = x["am"].clone(), x["lm"].clone()
+    am[:, :t // 2, 5] += 200.0
+    lm[:, (u + 1) // 2:, 9] += 200.0
+    poison(*[((b, t, u + 1), torch.float32)] * 3)
+    fwd = sl.simple_lattice_fwd(am, lm, x["lab"], 0)
+    guarded_f = int(sl.simple_lattice_fwd.guarded.sum())
+    fwd_p = sl.simple_lattice_plain_fwd(am, lm, x["lab"], 0)
+    e_f = compare("simple_lattice_fwd (maxima apart)", fwd, fwd_p)
+    bargs = (am, lm, x["lab"], fwd_p[2], x["g_blank"], x["g_emit"], 0)
+    poison(((b, t, v), torch.float32), ((b, u + 1, v), torch.float32))
+    bwd = sl.simple_lattice_bwd(*bargs)
+    guarded_b = int(sl.simple_lattice_bwd.guarded.sum())
+    e_b = compare("simple_lattice_bwd (maxima apart)", bwd, sl.simple_lattice_plain_bwd(*bargs))
+    check(guarded_f > 0 and guarded_b > 0,
+          f"simple lattice guard took no cell on the maxima-apart inputs ({guarded_f}, {guarded_b})")
+    print(f"kernels: simple lattice f32 maxima 200 nats apart B={b} T'={t} U={u} V={v}: "
+          f"guarded cells fwd {guarded_f}, bwd {guarded_b} of {b * t * (u + 1)}; max_abs_err fwd "
+          f"{e_f:.3g}, bwd {e_b:.3g} (tol {TOL['float32']} abs + rel; outputs poisoned with NaN)")
+    return {"forward": guarded_f, "backward": guarded_b}
 
 
 def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002),
@@ -770,8 +812,10 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
     the training shape (B=32, T'=374, U=64, V=5002), at the recipe's
     longest bucket with labels padded to ``max_label_len`` (B=4, T'=412,
     U=200) and at a tiny ragged one, edge rows included; the simple
-    lattice's two also at ``simple_long`` (U=300); times, plain and
-    library times and bounds at the training shape. Returns the JSON
+    lattice's two also at ``simple_long`` (U=300) and on the "maxima apart"
+    inputs that reach their guard; times, plain and library times (for the
+    simple lattice a labelled yardstick: its products alone by float32
+    ``torch.matmul``) and bounds at the training shape. Returns the JSON
     entries without ``launches``."""
     import torch
     import torch.nn.functional as F
@@ -794,11 +838,14 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
         sbwd_p = sl.simple_lattice_plain_bwd(x["am"], x["lm"], x["lab"], logz, x["g_blank"],
                                              x["g_emit"], 0)
         errs["simple_lattice_bwd"] = compare("simple_lattice_bwd", sbwd, sbwd_p)
+        guarded = (int(sl.simple_lattice_fwd.guarded.sum()),
+                   int(sl.simple_lattice_bwd.guarded.sum()))
+        check(guarded == (0, 0), f"simple lattice guard took cells of random inputs: {guarded}")
         if (b, t, u, v) in simple_long:
             torch.cuda.synchronize()
             print(f"kernels: simple lattice f32 B={b} T'={t} U={u} V={v}: max_abs_err "
                   + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
-                  + f" (tol {TOL['float32']} abs + rel; max_u1 {sl.max_u1()})")
+                  + f" (tol {TOL['float32']} abs + rel; max_u1 {sl.max_u1()}; guarded cells 0)")
             continue
         rfwd = rl.rnnt_lattice_fwd(x["lp_blank"], x["lp_emit"], tl, ul)
         rfwd_p = rl.rnnt_lattice_plain_fwd(x["lp_blank"], x["lp_emit"], tl, ul)
@@ -816,7 +863,7 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
         torch.cuda.synchronize()
         print(f"kernels: training f32 B={b} T'={t} U={u} V={v}: max_abs_err "
               + ", ".join(f"{k} {e:.3g}" for k, e in errs.items())
-              + f" (tol {TOL['float32']} abs + rel)")
+              + f" (tol {TOL['float32']} abs + rel; simple lattice guarded cells 0)")
         if (b, t, u, v) != shapes[0]:
             continue
         # --- times and bounds at the training shape
@@ -826,13 +873,26 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
         # max_am + max_lm + log(exp(am - max_am) @ exp(lm - max_lm)^T), one
         # float32 product of 2*lat*V flops; the backward's d am = exp(am) *
         # (W @ exp(lm)) and d lm = exp(lm) * (W^T @ exp(am)), W = (g_b+g_e)/Z,
-        # are two such products. Either way, (T+U+1)*V exps per row.
+        # are two such products. Either way, (T+U+1)*V exps per row. The
+        # kernels run the products as 3xTF32 on the tensor cores: three TF32
+        # products each, at the TF32 rate.
         s_flops = 2.0 * lat * v
         s_exps = float(b) * (t + u + 1) * v + lat
         n_b = nbytes(x["am"], x["lm"], x["lab"], *sfwd)
-        fwd_bound = bound_ms(n_b, max(s_flops / (F32_TFLOPS * 1e12), s_exps / exp_rate))
+        fwd_bound = bound_ms(n_b, max(3 * s_flops / (TF32_TFLOPS * 1e12), s_exps / exp_rate))
         n_b = nbytes(x["am"], x["lm"], x["lab"], logz, x["g_blank"], x["g_emit"], *sbwd)
-        bwd_bound = bound_ms(n_b, max(2 * s_flops / (F32_TFLOPS * 1e12), s_exps / exp_rate))
+        bwd_bound = bound_ms(n_b, max(6 * s_flops / (TF32_TFLOPS * 1e12), s_exps / exp_rate))
+        # yardsticks: the factored products alone by float32 torch.matmul
+        ea = torch.exp(x["am"] - x["am"].amax(-1, keepdim=True))
+        el = torch.exp(x["lm"] - x["lm"].amax(-1, keepdim=True))
+        w_lat = torch.rand(b, t, u + 1, device=x["am"].device)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        s_yard = {"simple_lattice_fwd": time_ms(lambda: torch.matmul(ea, el.transpose(1, 2))),
+                  "simple_lattice_bwd": time_ms(lambda: (torch.matmul(w_lat, el),
+                                                         torch.matmul(w_lat.transpose(1, 2), ea)))}
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        del ea, el, w_lat
         sargs = (x["am"], x["lm"], x["lab"], 0)
         bargs = (x["am"], x["lm"], x["lab"], logz, x["g_blank"], x["g_emit"], 0)
         # transcendentals of the DP kernels: two per cell (exp, log1p) and
@@ -855,10 +915,10 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
         specs = [
             ("simple_lattice_fwd", "simple_lattice.cu", "simple_lattice_kernel.py:163",
              lambda: sl.simple_lattice_fwd(*sargs), lambda: sl.simple_lattice_plain_fwd(*sargs),
-             None, fwd_bound, f"factored: {s_flops:.3g} f32 flops, {s_exps:.3g} exps"),
+             None, fwd_bound, f"factored: {s_flops:.3g} f32 flops as 3xTF32, {s_exps:.3g} exps"),
             ("simple_lattice_bwd", "simple_lattice.cu", "simple_lattice_kernel.py:196",
              lambda: sl.simple_lattice_bwd(*bargs), lambda: sl.simple_lattice_plain_bwd(*bargs),
-             None, bwd_bound, f"factored: {2 * s_flops:.3g} f32 flops, {s_exps:.3g} exps"),
+             None, bwd_bound, f"factored: {2 * s_flops:.3g} f32 flops as 3xTF32, {s_exps:.3g} exps"),
             ("rnnt_lattice_fwd", "rnnt_lattice.cu", "rnnt_kernel.py:240",
              lambda: rl.rnnt_lattice_fwd(x["lp_blank"], x["lp_emit"], tl, ul),
              lambda: rl.rnnt_lattice_plain_fwd(x["lp_blank"], x["lp_emit"], tl, ul),
@@ -885,9 +945,13 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
                 "library_ms": time_ms(lib) if lib is not None else None,
             }
             e = entries[name]
+            if name in s_yard:    # no one PyTorch call computes the function
+                e["yardsticks_ms"] = {"float32 torch.matmul of the factored product(s), "
+                                      "allow_tf32 False": s_yard[name]}
             print(f"kernels: {name} f32 B={b} T'={t} U={u} V={v}: kernel {e['ms']:.4f} ms, "
-                  f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']} ms, bound "
-                  f"{bnd * 1e3:.2f} us ({by}; {note})")
+                  f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']} ms, yardsticks "
+                  f"{e.get('yardsticks_ms')} ms, bound {bnd * 1e3:.2f} us ({by}; {note})")
+    check_simple_lattice_guard(dev, gen)
     return entries
 
 
@@ -1706,12 +1770,13 @@ def decode_int8_batch(runner, fused, fused_raw, float_unbiased_hyps, device, fea
 BAND_LIMITS = {"s_begin_diff_share": 0.02, "occupancy_max_abs_err": 2e-3, "flip_max_gap": 5e-4}
 
 # kernel launches per microbatch of the recipe's step (pruned loss): the
-# simple lattice once (its backward one grid per chunk of u); the lattice DP
+# simple lattice once (its forward two kernels, the V-split products and
+# their merge; its backward four: row maxima, W, products, guard); the lattice DP
 # twice (the occupancies and the simple NLL), each with its backward; the
 # CTC DP once; with the attention flag on, the attention kernels once per
 # encoder layer (forward, dq, dkv). The conv kernel runs only in
 # deterministic forwards (validation), one launch per layer and batch.
-PER_MICROBATCH = {"simple_lattice_fwd": 1, "simple_lattice_bwd": 1, "rnnt_lattice_fwd": 2,
+PER_MICROBATCH = {"simple_lattice_fwd": 2, "simple_lattice_bwd": 4, "rnnt_lattice_fwd": 2,
                   "rnnt_lattice_bwd": 2, "ctc_dp_fwd": 1, "ctc_dp_bwd": 1}
 # the full-lattice loss (use_pruned_loss false): the lattice DP once, the
 # CTC DP once and, with use_pallas_joint, the joint kernels once (their
@@ -1725,20 +1790,11 @@ INT8_KERNELS = ("int8_matmul", "int8_ffn")     # serving only: never launched in
 FBANK_KERNELS = ("fbank",)                     # no caller, as in the JAX package
 
 
-def simple_lattice_bwd_grids(u1: int) -> int:
-    """Grids of one ``simple_lattice_bwd`` call at U+1 = ``u1``: 8 u rows
-    per warp, at most 12 warps per block (``csrc/simple_lattice.cu``)."""
-    need = -(-u1 // 8)
-    return -(-need // 12)
-
-
-def per_microbatch(layers: int, attention: bool, labels: int, pruned: bool = True,
+def per_microbatch(layers: int, attention: bool, pruned: bool = True,
                    joint: bool = False) -> dict:
-    """Launches per microbatch of ``labels`` (padded) labels per row, with
-    the pruned loss or the full lattice (its joint through the kernels with
-    ``joint``)."""
-    loss = ({**PER_MICROBATCH, "simple_lattice_bwd": simple_lattice_bwd_grids(labels + 1)}
-            if pruned else PER_MICROBATCH_FULL)
+    """Launches per microbatch with the pruned loss or the full lattice (its
+    joint through the kernels with ``joint``); none depends on the labels."""
+    loss = PER_MICROBATCH if pruned else PER_MICROBATCH_FULL
     return {**dict.fromkeys(ATTENTION_KERNELS, layers if attention else 0), "conv_block": 0,
             **loss, **dict.fromkeys(INT8_KERNELS, 0),
             **{k: n if joint and not pruned else 0 for k, n in JOINT_GRIDS.items()},
@@ -1831,7 +1887,7 @@ def train_steps(trainer, steps: int = 3, batch: int = 32, seconds: float = 15.0)
     timed = [one(mbs) for mbs in data[1:]]
     launches = launch_counts()
     m = cfg.model
-    for k, n in per_microbatch(m.encoder_num_layers, m.use_pallas_attention, labels=64,
+    for k, n in per_microbatch(m.encoder_num_layers, m.use_pallas_attention,
                                pruned=m.use_pruned_loss, joint=m.use_pallas_joint).items():
         want = n * accum * steps
         check(launches[k] == want, f"{k} launched {launches[k]} times in {steps} steps, "
@@ -2107,7 +2163,7 @@ def check_fit(fit: dict) -> None:
     # validations' deterministic encoders (attention forward and conv)
     n_val = validation_batches(cfg)
     want = {k: n * accum * FIT_STEPS for k, n in
-            per_microbatch(layers, True, cfg.data.max_label_len).items()}
+            per_microbatch(layers, True).items()}
     want["rel_flash_attention"] += layers * n_val
     want["conv_block"] += layers * n_val
     check(fit["launches"] == want, f"fit launches {fit['launches']}, expected {want}")
@@ -2131,7 +2187,7 @@ def check_fit(fit: dict) -> None:
           and not any("valid_wer" in r for r in full["records"]),
           f"full-lattice fit records {full['records']}")
     want = {k: n * accum * FIT_FULL_STEPS for k, n in per_microbatch(
-        layers, True, cfg.data.max_label_len, pruned=False, joint=True).items()}
+        layers, True, pruned=False, joint=True).items()}
     check(full["launches"] == want, f"full-lattice fit launches {full['launches']}, expected {want}")
 
 

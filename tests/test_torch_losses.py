@@ -162,8 +162,8 @@ def test_simple_lattice_plain_matches_pallas():
 
 
 def test_simple_lattice_plain_at_long_labels_matches_pallas():
-    """U+1 = 301, past the 128-row u tile of the forward kernel and the
-    96-row chunk of its backward (the wrappers take it: ``max_u1``), at a
+    """U+1 = 301, past the 72-row u tile of the forward kernel and the
+    72-row u chunk of its backward (the wrappers take it: ``max_u1``), at a
     small T and V (B=1, T=3, V=40): forward and both gradients against
     JAX's kernel in interpret mode, 1e-4 abs and rel."""
     b, t, u, v = 1, 3, 300, 40
@@ -187,6 +187,93 @@ def test_simple_lattice_plain_at_long_labels_matches_pallas():
     _close(lpe, j_e)
     _close(ta.grad, j_g[0])
     _close(tm.grad, j_g[1])
+
+
+def _long_label_inputs(seed=11, b=1, t=3, u=300, v=40):
+    rng = np.random.default_rng(seed)
+    am = (2 * rng.standard_normal((b, t, v))).astype(np.float32)
+    lm = (2 * rng.standard_normal((b, u + 1, v))).astype(np.float32)
+    return am, lm, rng.integers(1, v, (b, u)).astype(np.int32)
+
+
+def _maxima_apart(seed):
+    """am's maxima at v = 5 on the first half of t, lm's at v = 9 on the
+    second half of u, each spike 200 nats high: on the cells where both
+    meet, every term of the factored sum is ~e^-200 (0 in float32)."""
+    am, lm, labels = _simple_inputs(seed)
+    am[:, :T // 2, 5] += 200.0
+    lm[:, (U + 1) // 2:, 9] += 200.0
+    return am, lm, labels
+
+
+FACTORED_CASES = {
+    "random": lambda: _simple_inputs(4),
+    "long_labels": _long_label_inputs,
+    "maxima_apart": lambda: _maxima_apart(12),
+}
+
+
+def _off_or_nonfinite(got, want, tol=1e-2):
+    got = _np(got)
+    return not np.isfinite(got).all() or np.abs(got - _np(want)).max() > tol
+
+
+@pytest.mark.parametrize("case", sorted(FACTORED_CASES))
+def test_simple_lattice_factored_matches_pallas(case):
+    """The CUDA kernels' arithmetic (``simple_lattice_factored_fwd``/``_bwd``:
+    maxima, exps, float32 products, the guard) against JAX's kernel in
+    interpret mode, forward and both gradients (its VJP at random
+    cotangents, from the factored logZ), 1e-4 abs and rel: the random
+    inputs, U+1 = 301, and the maxima 200 nats apart on different v, where
+    the guard must take cells and the factored form without it is off by
+    more than 1e-2 or not finite. On the first two the guard takes none."""
+    am, lm, labels = FACTORED_CASES[case]()
+    b, t, u1 = am.shape[0], am.shape[1], lm.shape[1]
+    rng = np.random.default_rng(21)
+    gb, ge = (rng.standard_normal((b, t, u1)).astype(np.float32) for _ in range(2))
+    (j_b, j_e), vjp = jax.vjp(
+        lambda a, m: simple_lattice_log_probs_pallas(a, m, jnp.asarray(labels), interpret=True),
+        jnp.asarray(am), jnp.asarray(lm))
+    j_dam, j_dlm = vjp((jnp.asarray(gb), jnp.asarray(ge)))
+    lab = F.pad(_t(labels), (0, 1)).to(torch.int32)
+    lpb, lpe, logz, guarded = p_simple.simple_lattice_factored_fwd(_t(am), _t(lm), lab, 0)
+    dam, dlm, g_bwd = p_simple.simple_lattice_factored_bwd(_t(am), _t(lm), lab, logz, _t(gb),
+                                                           _t(ge), 0)
+    _close(lpb, j_b)
+    _close(lpe, j_e)
+    _close(dam, j_dam)
+    _close(dlm, j_dlm)
+    assert torch.equal(guarded, g_bwd)
+    if case != "maxima_apart":
+        assert not guarded.any()
+        return
+    assert int(guarded.sum()) > 0
+    _, _, z_raw, _ = p_simple.simple_lattice_factored_fwd(_t(am), _t(lm), lab, 0, guard=False)
+    assert _off_or_nonfinite(z_raw[guarded], logz[guarded])
+    dam_raw, dlm_raw, _ = p_simple.simple_lattice_factored_bwd(_t(am), _t(lm), lab, logz,
+                                                               _t(gb), _t(ge), 0, guard=False)
+    assert _off_or_nonfinite(dam_raw, j_dam) and _off_or_nonfinite(dlm_raw, j_dlm)
+
+
+@pytest.mark.parametrize("scale", [1.0, 2.0, 4.0])
+def test_simple_lattice_guard_idle_on_recipe_like_inputs(scale):
+    """At the recipe's vocabulary (V = 5002) and random-normal am, lm of
+    standard deviation 1-4 (2 is the smoke run's), the guard takes no cell,
+    forward or backward, and the factored arithmetic matches the direct
+    plain versions within 1e-4."""
+    b, t, u, v = 2, 12, 8, 5002
+    rng = np.random.default_rng(31)
+    am = _t((scale * rng.standard_normal((b, t, v))).astype(np.float32))
+    lm = _t((scale * rng.standard_normal((b, u + 1, v))).astype(np.float32))
+    lab = F.pad(_t(rng.integers(1, v - 1, (b, u)).astype(np.int32)), (0, 1)).to(torch.int32)
+    gb, ge = (_t(rng.standard_normal((b, t, u + 1)).astype(np.float32)) for _ in range(2))
+    *fwd, guarded = p_simple.simple_lattice_factored_fwd(am, lm, lab, 0)
+    *bwd, g_bwd = p_simple.simple_lattice_factored_bwd(am, lm, lab, fwd[2], gb, ge, 0)
+    assert not guarded.any() and not g_bwd.any()
+    for got, want in zip(fwd, p_simple.simple_lattice_plain_fwd(am, lm, lab, 0)):
+        _close(got, want)
+    for got, want in zip(bwd, p_simple.simple_lattice_plain_bwd(am, lm, lab, fwd[2], gb, ge, 0)):
+        _close(got, want)
 
 
 def test_simple_lattice_plain_matches_xla_oracle_and_logz():
