@@ -37,6 +37,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                route A's (374), a ragged M and
                M = 1 with an all-zero row, in float32 and bfloat16:
                int8_matmul bit for bit, int8_ffn within JAX's tolerances;
+               both also at Conformer-S's and -L's widths (D / H = 144 /
+               576, 512 / 2048; M = 374 and 37, outputs poisoned with NaN
+               first) and refused past their widths before any launch;
                the three joint kernels (forward, bwd_xp, bwd_w; the bf16
                backward on wgmma with TMA) in float32 and bfloat16 at (B, T', U, V) = (32, 374, 64, 5002), (4, 412,
                200, 5002) and a tiny ragged shape with edge rows, against
@@ -62,7 +65,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                wrapper must count one launch per encoder layer per request;
                then route A of int8 serving: a runner with
                decode.quantize_int8 behind the same server, two requests,
-               int8_matmul 24 launches each, int8_ffn none;
+               int8_matmul 24 launches each, int8_ffn none, no int8 weight
+               layout made after the first request;
   5. parity  - float32 kernel path vs plain path on the served weights and
                on the same weights without the blank bias, which emit on
                most frames (encoder outputs within 1e-3, identical
@@ -72,7 +76,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                outputs within INT8_ENC_TOL; hypotheses identical on the
                served weights, agreement >= INT8_AGREE_MIN on the
                unbiased ones); then bfloat16 decodes of 48 x 15 s, float
-               and route B (int8_ffn 24 launches per batch): audio-seconds
+               and route B (int8_ffn 24 launches per batch, no weight
+               layout made after the first batch): audio-seconds
                per second, token agreement with the plain path, and
                route B's agreement with the float path;
   6. train   - the recipe as shipped (configs/conformer_m.json: pruned
@@ -176,6 +181,30 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, name: str, iters: int = 20, tries: int = 3):
+    """Mean device time of the kernel launch whose name holds ``name`` (one
+    a call of ``fn``), by torch.profiler over ``iters`` calls after a
+    warm-up: the mean over the launches the trace recorded. A trace that
+    recorded none of them is taken again, up to ``tries`` times; then the
+    time is None (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+    return None
 
 
 def nbytes(*tensors) -> int:
@@ -1059,9 +1088,11 @@ def check_int8_kernels(dev) -> dict:
     B's rows (M = 17952), route A's (M = 374), a ragged M and M = 1, with an
     all-zero row, in float32 and bfloat16: ``int8_matmul`` bit for bit (its
     int32 sums are exact and its rescale has no add), ``int8_ffn`` within
-    JAX's tolerances, both bitwise repeatable. Times, two yardsticks each
-    and bounds at M = 17952 in bf16. Returns the JSON entries without
-    ``launches``."""
+    JAX's tolerances, both bitwise repeatable. Times (CUDA events around
+    the wrapper and the kernel's device time by torch.profiler), two
+    yardsticks each and bounds in bf16 at M = 17952 (the JSON entries) and
+    at M = 374 (under "M=374" in each entry). Returns the JSON entries
+    without ``launches``."""
     import torch
 
     from conformer_tpu_torch.models import feedforward, layers
@@ -1110,46 +1141,176 @@ def check_int8_kernels(dev) -> dict:
                   f"int8 kernels {name} M={m}: not bitwise repeatable")
             err_mm, err_ffn = max(err_mm, e_mm), max(err_ffn, e_ffn)
 
-    # --- times at route B's rows, bf16 (the serving dtype)
-    m = INT8_ROWS[0]
-    x = torch.randn(m, d, generator=gen).to(dev, torch.bfloat16)
-    y = int8_matmul_dynamic(x, *mm_args)
-    out = int8_ffn_fused(x, *ffn_args)
-    x_q, _ = quant_rows(x.float())
-    h_q, _ = quant_rows(torch.randn(m, h, generator=gen).to(dev))
+    # --- times at route B's rows (M = 17952) and route A's (M = 374), bf16
+    # (the serving dtype): CUDA events around the wrapper and the kernel's
+    # device time by torch.profiler; the JSON entry is route B's row
     w1_bf = f1["kernel"].to(torch.bfloat16)
     f_ffn = {"w_1": f1, "w_2": f2}
-    mm_bound = bound_ms(nbytes(x, *mm_args, y), 2.0 * m * d * h / (INT8_TOPS * 1e12))
-    ffn_bound = bound_ms(nbytes(x, out, *ffn_args[1:], ln["scale"], ln["bias"]),
-                         4.0 * m * d * h / (INT8_TOPS * 1e12))
-    mm_lib = time_ms(lambda: torch._int_mm(x_q, w1["kernel_q"]))
-    w2_lib = time_ms(lambda: torch._int_mm(h_q, w2["kernel_q"]))
-    specs = [
-        ("int8_matmul", "int8_matmul.cu", "quant_kernel.py:48", err_mm,
-         lambda: int8_matmul_dynamic(x, *mm_args), lambda: int8_matmul_dynamic_plain(x, *mm_args),
-         {"torch._int_mm, the int8 product alone": mm_lib,
-          "bf16 torch.matmul, the float product it replaces": time_ms(
-              lambda: torch.matmul(x, w1_bf))}, mm_bound),
-        ("int8_ffn", "int8_ffn.cu", "ffn_kernel.py:78", err_ffn,
-         lambda: int8_ffn_fused(x, *ffn_args), lambda: int8_ffn_plain(x, *ffn_args),
-         {"torch._int_mm x 2, the two int8 products alone": mm_lib + w2_lib,
-          "bf16 float FFN half as the port runs it (LN, dense, swish, dense, residual)":
-              time_ms(lambda: x + 0.5 * feedforward.ffn(f_ffn, layers.layer_norm(ln, x)))},
-         ffn_bound),
-    ]
     entries = {}
-    for name, src, rep, err, kern, plain, yard, (bnd, by) in specs:
-        entries[name] = {
-            "name": name, "route": "cuda", "source": f"conformer_tpu_torch/csrc/{src}",
-            "replaces": f"conformer_tpu/ops/pallas/{rep}", "max_abs_err": err,
-            "ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": bnd, "bound_by": by,
-            "library_ms": None,          # no one PyTorch call computes the function
-            "yardsticks_ms": yard,
-        }
-        e = entries[name]
-        print(f"kernels: {name} bf16 M={m} D={d} H={h}: kernel {e['ms']:.4f} ms, plain "
-              f"{e['plain_ms']:.4f} ms, yardsticks {yard} ms, bound {bnd * 1e3:.2f} us ({by})")
+    for m in (INT8_ROWS[0], INT8_ROWS[1]):
+        x = torch.randn(m, d, generator=gen).to(dev, torch.bfloat16)
+        y = int8_matmul_dynamic(x, *mm_args)
+        out = int8_ffn_fused(x, *ffn_args)
+        x_q, _ = quant_rows(x.float())
+        h_q, _ = quant_rows(torch.randn(m, h, generator=gen).to(dev))
+        mm_bound = bound_ms(nbytes(x, *mm_args, y), 2.0 * m * d * h / (INT8_TOPS * 1e12))
+        ffn_bound = bound_ms(nbytes(x, out, *ffn_args[1:], ln["scale"], ln["bias"]),
+                             4.0 * m * d * h / (INT8_TOPS * 1e12))
+        mm_lib = time_ms(lambda: torch._int_mm(x_q, w1["kernel_q"]))
+        w2_lib = time_ms(lambda: torch._int_mm(h_q, w2["kernel_q"]))
+        specs = [
+            ("int8_matmul", "int8_matmul.cu", "quant_kernel.py:48", err_mm,
+             lambda: int8_matmul_dynamic(x, *mm_args),
+             lambda: int8_matmul_dynamic_plain(x, *mm_args),
+             {"torch._int_mm, the int8 product alone": mm_lib,
+              "bf16 torch.matmul, the float product it replaces": time_ms(
+                  lambda: torch.matmul(x, w1_bf))}, mm_bound),
+            ("int8_ffn", "int8_ffn.cu", "ffn_kernel.py:78", err_ffn,
+             lambda: int8_ffn_fused(x, *ffn_args), lambda: int8_ffn_plain(x, *ffn_args),
+             {"torch._int_mm x 2, the two int8 products alone": mm_lib + w2_lib,
+              "bf16 float FFN half as the port runs it (LN, dense, swish, dense, residual)":
+                  time_ms(lambda: x + 0.5 * feedforward.ffn(f_ffn, layers.layer_norm(ln, x)))},
+             ffn_bound),
+        ]
+        for name, src, rep_, err, kern, plain, yard, (bnd, by) in specs:
+            e = {"ms": time_ms(kern), "device_ms": device_ms(kern, f"{name}_kernel"),
+                 "plain_ms": time_ms(plain), "bound_ms": bnd, "bound_by": by,
+                 "yardsticks_ms": yard}
+            dev_ms = "not measured" if e["device_ms"] is None else f"{e['device_ms']:.4f} ms"
+            print(f"kernels: {name} bf16 M={m} D={d} H={h}: kernel {e['ms']:.4f} ms (events "
+                  f"around the wrapper), device {dev_ms} (profiler), plain "
+                  f"{e['plain_ms']:.4f} ms, yardsticks {yard} ms, bound {bnd * 1e3:.2f} us ({by})")
+            if m != INT8_ROWS[0]:
+                entries[name][f"M={m}"] = e
+                continue
+            entries[name] = {
+                "name": name, "route": "cuda", "source": f"conformer_tpu_torch/csrc/{src}",
+                "replaces": f"conformer_tpu/ops/pallas/{rep_}", "max_abs_err": err,
+                "library_ms": None,          # no one PyTorch call computes the function
+                **e}
     return entries
+
+
+INT8_WIDTHS = {"conformer_s": (144, 576), "conformer_l": (512, 2048)}
+# edge shapes (D, H) of each kernel's other paths: the matmul at K = 1000
+# (the K > 512 quantization, K padded to 1024) and K = 70 (x read element
+# by element), both with N = 130 (rows not whole 16 bytes: the epilogue
+# without TMA stores); the FFN at D = 70 (x, out and the vectors element
+# by element) and H = 130 (a cluster block with no hidden column)
+INT8_EDGES = {"int8_matmul": ((1000, 130), (70, 130)), "int8_ffn": ((70, 130), (144, 130))}
+# past the kernels' widths: the matmul's K (its A tiles), the FFN's D and H
+INT8_BEYOND = {"int8_matmul K": 1056, "int8_ffn D": (544, 2048), "int8_ffn H": (512, 2080)}
+
+
+def check_int8_widths(dev) -> tuple[float, float]:
+    """The two int8 kernels at Conformer-S's and -L's widths (D / H = 144 /
+    576 and 512 / 2048; the matmul as route A runs it, K = D, N = H) in
+    float32 and bfloat16, at M = 374 (one request of 15 s) and a ragged M
+    = 37 with an all-zero row, outputs poisoned with NaN beforehand:
+    ``int8_matmul`` bit for bit against its plain version, ``int8_ffn``
+    within INT8_TOL; past the kernels' widths each wrapper must raise
+    ValueError before any launch; then each kernel at INT8_EDGES in both
+    dtypes, the same way. Returns the largest errors (matmul, FFN)."""
+    import torch
+
+    from conformer_tpu_torch.ops import int8_ffn as f8
+    from conformer_tpu_torch.ops import int8_matmul as m8
+    from conformer_tpu_torch.ops.quant import quantize_dense_params
+
+    gen = torch.Generator().manual_seed(12)
+    worst_mm = worst_ffn = 0.0
+    for label, (d, h) in INT8_WIDTHS.items():
+        ln, _, _, w1, w2 = int8_ffn_weights(dev, gen, d=d, h=h)
+        mm_args = (w1["kernel_q"], w1["kernel_scale"])
+        ffn_args = (ln, w1["kernel_q"], w1["kernel_scale"], w1["bias"], w2["kernel_q"],
+                    w2["kernel_scale"], w2["bias"])
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            rtol, atol = INT8_TOL[name]
+            for m in (374, 37):
+                x = torch.randn(m, d, generator=gen)
+                x[m // 2] = 0.0
+                x = x.to(dev, dtype)
+                poison(((m, h), dtype), ((m, d), dtype))
+                y = m8.int8_matmul_dynamic(x, *mm_args)
+                out = f8.int8_ffn_fused(x, *ffn_args)
+                torch.cuda.synchronize()
+                ref = m8.int8_matmul_dynamic_plain(x, *mm_args)
+                differ = int((y != ref).sum()) + int(torch.isnan(y).sum())
+                ref_f = f8.int8_ffn_plain(x, *ffn_args)
+                diff = (out.float() - ref_f.float()).abs()
+                ok_f = bool((diff <= atol + rtol * ref_f.float().abs()).all())
+                e_mm = float((y.float() - ref.float()).abs().max())
+                e_ffn = float(diff.max())
+                print(f"kernels: int8 {label} {name} D={d} H={h} M={m}: int8_matmul {differ} "
+                      f"of {y.numel()} elements differ from plain (want bit for bit); int8_ffn "
+                      f"max abs err {e_ffn:.3g} (rtol {rtol}, atol {atol}); outputs poisoned "
+                      "with NaN beforehand")
+                check(differ == 0 and bool((y[m // 2] == 0).all()),
+                      f"int8_matmul {label} {name} M={m} disagrees with its plain version")
+                check(ok_f, f"int8_ffn {label} {name} M={m} disagrees with its plain version")
+                worst_mm, worst_ffn = max(worst_mm, e_mm), max(worst_ffn, e_ffn)
+    for kernel, shapes in INT8_EDGES.items():
+        for d, h in shapes:
+            ln, _, _, w1, w2 = int8_ffn_weights(dev, gen, d=d, h=h)
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[-1]
+                rtol, atol = INT8_TOL[name]
+                for m in (374, 37):
+                    x = torch.randn(m, d, generator=gen)
+                    x[m // 2] = 0.0
+                    x = x.to(dev, dtype)
+                    if kernel == "int8_matmul":
+                        poison(((m, h), dtype))
+                        y = m8.int8_matmul_dynamic(x, w1["kernel_q"], w1["kernel_scale"])
+                        torch.cuda.synchronize()
+                        ref = m8.int8_matmul_dynamic_plain(x, w1["kernel_q"], w1["kernel_scale"])
+                        err = float((y.float() - ref.float()).abs().max())
+                        ok = bool(torch.equal(y, ref))
+                        worst_mm = max(worst_mm, err)
+                    else:
+                        args = (ln, w1["kernel_q"], w1["kernel_scale"], w1["bias"],
+                                w2["kernel_q"], w2["kernel_scale"], w2["bias"])
+                        poison(((m, d), dtype))
+                        out = f8.int8_ffn_fused(x, *args)
+                        torch.cuda.synchronize()
+                        ref = f8.int8_ffn_plain(x, *args)
+                        diff = (out.float() - ref.float()).abs()
+                        err = float(diff.max())
+                        ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+                        worst_ffn = max(worst_ffn, err)
+                    print(f"kernels: {kernel} edge {name} D={d} H={h} M={m}: max abs err {err:.3g}"
+                          f" ({'bit for bit' if kernel == 'int8_matmul' else 'INT8_TOL'}); "
+                          "outputs poisoned with NaN beforehand")
+                    check(ok, f"{kernel} edge {name} D={d} H={h} M={m} disagrees with its plain "
+                          "version")
+    for label, width in INT8_BEYOND.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            if label == "int8_matmul K":
+                why = m8.width_error(width)
+                x = torch.randn(5, width, generator=gen).to(dev, dtype)
+                wq = quantize_dense_params({"kernel": torch.randn(width, 64, generator=gen).to(dev)})
+                wrapper = m8.int8_matmul_dynamic
+                call = lambda: wrapper(x, wq["kernel_q"], wq["kernel_scale"])  # noqa: E731
+            else:
+                d, h = width
+                why = f8.width_error(d, h)
+                ln, _, _, w1, w2 = int8_ffn_weights(dev, gen, d=d, h=h)
+                x = torch.randn(5, d, generator=gen).to(dev, dtype)
+                wrapper = f8.int8_ffn_fused
+                call = lambda: wrapper(x, ln, w1["kernel_q"], w1["kernel_scale"], w1["bias"],  # noqa: E731
+                                       w2["kernel_q"], w2["kernel_scale"], w2["bias"])
+            before = wrapper.launches
+            try:
+                call()
+                refused = False
+            except ValueError:
+                refused = True
+            check(why is not None and refused and wrapper.launches == before,
+                  f"{label} = {width} {dtype}: not refused before launch ({why})")
+            print(f"kernels: {label} = {width} {str(dtype).split('.')[-1]}: ValueError before "
+                  f"any launch ({why})")
+    return worst_mm, worst_ffn
 
 
 # ------------------------------------------------------ joint and fbank
@@ -1600,7 +1761,8 @@ def serve_requests(runner, seconds=(4.0, 9.5, 15.0)) -> list[dict]:
             t0 = time.perf_counter()
             resp = post_wav(url, wav_bytes(synthetic_wav(100 + i, secs)))
             results.append({"seconds": secs, "latency_s": time.perf_counter() - t0,
-                            "response": resp, "launches": launch_counts()})
+                            "response": resp, "launches": launch_counts(),
+                            "layout_builds": layout_builds()})
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1710,6 +1872,7 @@ def timed_decodes(params, cfg_k, dcfg, feats, lens, device, audio_s: float,
     from conformer_tpu_torch.models.transducer import encode
 
     decode(params, cfg_k, dcfg, feats, lens, device)       # warm-up
+    builds = layout_builds()
     times, enc_times, launches = [], [], None
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -1729,7 +1892,7 @@ def timed_decodes(params, cfg_k, dcfg, feats, lens, device, audio_s: float,
             enc_times.append(time.perf_counter() - t0)
     return {"decode_s": times, "encode_s": enc_times, "hyps": hyp_lists(hyps, hl),
             "audio_s_per_s": audio_s / (sum(times) / runs),
-            "launches": launches}
+            "launches": launches, "layout_builds": (builds, layout_builds())}
 
 
 def decode_bf16_batch(runner, raw_params, device, feats, lens, audio_s) -> dict:
@@ -1828,6 +1991,13 @@ def kernel_wrappers() -> dict:
 
 def launch_counts() -> dict:
     return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def layout_builds() -> int:
+    """The int8 weights' kernel layouts made so far (ops/int8_matmul.py)."""
+    from conformer_tpu_torch.ops.int8_matmul import kernel_layout
+
+    return kernel_layout.builds
 
 
 def reset_launch_counts() -> None:
@@ -2241,6 +2411,8 @@ def main() -> int:
     for name, e in check_dp_long_labels(dev).items():
         entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
     entries.update(check_int8_kernels(dev))
+    for name, e in zip(INT8_KERNELS, check_int8_widths(dev)):
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
     entries.update(check_joint_kernels(dev))
     for name, e in check_joint_widths(dev).items():
         entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
@@ -2265,7 +2437,12 @@ def main() -> int:
     for label, srv, seconds, extra in (
             ("serve", runner, (4.0, 9.5, 15.0), {}),
             ("serve int8 route A", runner8, (4.0, 15.0), {"int8_matmul": 2 * layers})):
-        for r in serve_requests(srv, seconds):
+        results = serve_requests(srv, seconds)
+        builds = [r["layout_builds"] for r in results]
+        print(f"{label}: int8 weight layouts made by the end of each request {builds}")
+        check(builds[-1] == builds[0], f"{label}: weight layouts made after the first request "
+              f"({builds})")
+        for r in results:
             resp = r["response"]
             n_tok = len(resp.get("message", "").split())
             print(f"{label}: {r['seconds']} s wav -> {resp['status']} in {r['latency_s']:.3f} s, "
@@ -2327,6 +2504,10 @@ def main() -> int:
     want = {**per_request, "int8_ffn": 2 * layers}
     check(b8["launches"] == want, f"route B: launches {b8['launches']} in one batch, "
           f"expected {want}")
+    print(f"parity: int8 route B: weight layouts made by the end of the first batch and of the "
+          f"last {b8['layout_builds']}")
+    check(b8["layout_builds"][1] == b8["layout_builds"][0],
+          f"route B: weight layouts made after the first batch {b8['layout_builds']}")
     route_b_launches = b8["launches"]["int8_ffn"]
     del runner8, raw8, fused, fused_raw
 

@@ -19,7 +19,7 @@ import torch
 
 from ..models.layers import layer_norm
 from . import cuda_build
-from .int8_matmul import int_matmul, pack_k4, quant_rows
+from .int8_matmul import int_matmul, kernel_layout, quant_rows
 
 
 def int8_ffn_plain(x, ln, w1q, s1, b1, w2q, s2, b2, *, half: float = 0.5,
@@ -35,15 +35,30 @@ def int8_ffn_plain(x, ln, w1q, s1, b1, w2q, s2, b2, *, half: float = 0.5,
     return (x.float() + half * y).to(x.dtype)
 
 
+DMAX, HMAX = 512, 2048     # the kernel's widths (csrc/int8_ffn.cu)
+
+
+def width_error(d: int, h: int) -> str | None:
+    """Why the CUDA kernel does not take the widths D and H, or None where
+    it does: a cluster of 4 blocks holds each row's H hidden values in
+    registers, at most 512 columns a block, and a block's A tile holds D
+    <= 512 (every shipped width: S 144 / 576, M 256 / 2048, L 512 / 2048)."""
+    if d > DMAX or h > HMAX:
+        return f"int8_ffn_fused takes D <= {DMAX} and H <= {HMAX} (got D = {d}, H = {h})"
+    return None
+
+
 def int8_ffn_fused(x, ln, w1q, s1, b1, w2q, s2, b2, *, half: float = 0.5,
                    eps: float = 1e-5) -> torch.Tensor:
     """Kernel wrapper with the contract of ``int8_ffn_plain``.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise: float32 or bfloat16 x [..., D], int8 W1 [D, H] and W2 [H, D]
-    whose block fits in shared memory (D = 256: H up to ~2500; the C entry
-    refuses larger), everything on x's device. ``int8_ffn_fused.launches``
-    counts calls that launched the kernel."""
+    within ``width_error``'s limits, everything on x's device. The kernel
+    reads both weights as their ``kernel_layout``, made at the first call
+    with each weight; the six vectors are float32 on the served path, where
+    ``to`` and ``contiguous`` return them as they are.
+    ``int8_ffn_fused.launches`` counts calls that launched the kernel."""
     if x.device.type == "cpu":
         return int8_ffn_plain(x, ln, w1q, s1, b1, w2q, s2, b2, half=half, eps=eps)
     f32 = torch.float32
@@ -61,6 +76,9 @@ def int8_ffn_fused(x, ln, w1q, s1, b1, w2q, s2, b2, *, half: float = 0.5,
             or shapes != [(d,), (d,), (h,), (h,), (d,), (d,)]):
         raise ValueError(f"int8_ffn_fused: x [..., {d}], W1 {tuple(w1q.shape)}, W2 "
                          f"{tuple(w2q.shape)} and the vectors {shapes} do not match")
+    why = width_error(d, h)
+    if why is not None:
+        raise ValueError(why)
     x2 = x.reshape(-1, d).contiguous()
     out = torch.empty_like(x2)
     if x2.shape[0] == 0:
@@ -68,8 +86,8 @@ def int8_ffn_fused(x, ln, w1q, s1, b1, w2q, s2, b2, *, half: float = 0.5,
     fn = cuda_build.load_function("int8_ffn", "int8_ffn_fwd", n_ptrs=11, n_ints=4, n_floats=2)
     P = cuda_build.ptr
     ln_s, ln_b, s1, b1, s2, b2 = vecs
-    w1p, w2p = pack_k4(w1q), pack_k4(w2q)
-    err = fn(P(x2), P(ln_s), P(ln_b), P(w1p), P(s1), P(b1), P(w2p), P(s2), P(b2), P(out),
+    w1t, w2t = kernel_layout(w1q), kernel_layout(w2q)
+    err = fn(P(x2), P(ln_s), P(ln_b), P(w1t), P(s1), P(b1), P(w2t), P(s2), P(b2), P(out),
              cuda_build.stream_ptr(x2), x2.shape[0], d, h, int(x.dtype == torch.bfloat16),
              half, eps)
     cuda_build.check(err, "int8_ffn")

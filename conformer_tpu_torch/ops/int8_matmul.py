@@ -17,6 +17,9 @@ the caller's (``ops/quant.int8_dense``). The kernel is
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+
 import torch
 import torch.nn.functional as F
 
@@ -46,15 +49,50 @@ def int_matmul(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a_q.double(), w_q.double()).float()
 
 
-def pack_k4(w_q: torch.Tensor) -> torch.Tensor:
-    """int8 w_q [K, N] -> int32 [KW, N], the layout the kernels' ``__dp4a``
-    reads: word (kw, n) holds w_q[4 kw + j, n] in byte j (zero past K), KW
-    = ceil(K / 16) * 4 (whole 16-byte groups of words). One coalesced
-    32-bit load then brings four rows of a column."""
-    k, n = w_q.shape
-    kw = -(-k // 16) * 4
-    w = F.pad(w_q, (0, 0, 0, 4 * kw - k))
-    return w.view(kw, 4, n).transpose(1, 2).contiguous().view(torch.int32).view(kw, n)
+def pad_transpose(w_q: torch.Tensor) -> torch.Tensor:
+    """int8 w_q [K, N] -> int8 [N, K_pad], the kernels' layout of a weight:
+    K-major, as integer ``wgmma`` takes its operands, with K zero-padded to
+    a multiple of 32 (one product step; zeros add nothing to the int32
+    sums, and K_pad bytes are the 16-byte row stride TMA needs)."""
+    k = w_q.shape[0]
+    return F.pad(w_q.t(), (0, -(-k // 32) * 32 - k)).contiguous()
+
+
+def unpad_transpose(w_t: torch.Tensor, k: int) -> torch.Tensor:
+    """The inverse of ``pad_transpose``: int8 [N, K_pad] -> [K, N]."""
+    return w_t[:, :k].t()
+
+
+LAYOUT_CACHE_SIZE = 256
+_layouts: OrderedDict = OrderedDict()
+_layouts_lock = threading.Lock()
+
+
+def kernel_layout(w_q: torch.Tensor) -> torch.Tensor:
+    """``pad_transpose(w_q)``, made once per weight: cached by the int8
+    weight's device, address, shape, strides and version counter (an
+    in-place change of the weight makes a new layout). Each entry holds
+    the weight itself, so that its memory is not reused by another tensor
+    while the entry lives; the cache keeps the ``LAYOUT_CACHE_SIZE`` last
+    used. An inference tensor has no version counter: its layout is taken
+    as unchanged. ``kernel_layout.builds`` counts the layouts made."""
+    version = -1 if w_q.is_inference() else w_q._version
+    key = (w_q.device, w_q.data_ptr(), tuple(w_q.shape), w_q.stride(), version)
+    with _layouts_lock:
+        hit = _layouts.get(key)
+        if hit is not None:
+            _layouts.move_to_end(key)
+            return hit[1]
+    w_t = pad_transpose(w_q)
+    with _layouts_lock:
+        kernel_layout.builds += 1
+        _layouts[key] = (w_q, w_t)
+        while len(_layouts) > LAYOUT_CACHE_SIZE:
+            _layouts.popitem(last=False)
+    return w_t
+
+
+kernel_layout.builds = 0
 
 
 def int8_matmul_dynamic_plain(x: torch.Tensor, w_q: torch.Tensor,
@@ -65,15 +103,28 @@ def int8_matmul_dynamic_plain(x: torch.Tensor, w_q: torch.Tensor,
     return (int_matmul(x_q, w_q) * x_scale * w_scale.float()).to(x.dtype)
 
 
+KMAX = 1024      # K the kernel's shared-memory A tiles hold (csrc/int8_matmul.cu)
+
+
+def width_error(k: int) -> str | None:
+    """Why the CUDA kernel does not take K, or None where it does: it
+    holds each 128-row tile's int8 activations, K_pad bytes a row, in
+    shared memory (every shipped width, K = D <= 512, fits)."""
+    if k > KMAX:
+        return f"int8_matmul_dynamic takes K <= {KMAX} (got K = {k})"
+    return None
+
+
 def int8_matmul_dynamic(x: torch.Tensor, w_q: torch.Tensor,
                         w_scale: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper with the contract of ``int8_matmul_dynamic_plain``.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel or
-    raise: float32 or bfloat16 x [M, K], any M and K >= 1, int8 w_q [K, N]
-    and float32 w_scale [N] on x's device. ``int8_matmul_dynamic.launches``
-    counts calls that launched the kernel (one per call, though the kernel
-    runs as two launches: the row quantization, then the product)."""
+    CPU tensors take the plain version. CUDA tensors launch the kernel (one
+    launch) or raise: float32 or bfloat16 x [M, K], any M, 1 <= K <= KMAX
+    (``width_error``), int8 w_q [K, N] and float32 w_scale [N] on x's
+    device. The kernel reads w_q as its ``kernel_layout``, made at the
+    first call with each weight. ``int8_matmul_dynamic.launches`` counts
+    calls that launched the kernel."""
     if x.device.type == "cpu":
         return int8_matmul_dynamic_plain(x, w_q, w_scale)
     if x.device.type != "cuda" or w_q.device != x.device or w_scale.device != x.device:
@@ -87,19 +138,19 @@ def int8_matmul_dynamic(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"int8_matmul_dynamic: shapes x {tuple(x.shape)}, w_q "
                          f"{tuple(w_q.shape)}, w_scale {tuple(w_scale.shape)} do not match")
     m, k = x.shape
+    why = width_error(k)
+    if why is not None:
+        raise ValueError(why)
     n = w_q.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
     x, w_scale = x.contiguous(), w_scale.contiguous()
-    w_p = pack_k4(w_q)
-    kw = (k + 3) // 4
-    x_q = torch.empty((m, kw), dtype=torch.int32, device=x.device)        # scratch
-    x_scale = torch.empty((m,), dtype=torch.float32, device=x.device)     # scratch
-    fn = cuda_build.load_function("int8_matmul", "int8_matmul_fwd", n_ptrs=7, n_ints=4)
+    w_t = kernel_layout(w_q)
+    fn = cuda_build.load_function("int8_matmul", "int8_matmul_fwd", n_ptrs=5, n_ints=4)
     P = cuda_build.ptr
-    err = fn(P(x), P(w_p), P(w_scale), P(out), P(x_q), P(x_scale), cuda_build.stream_ptr(x),
-             m, k, n, int(x.dtype == torch.bfloat16))
+    err = fn(P(x), P(w_t), P(w_scale), P(out), cuda_build.stream_ptr(x), m, k, n,
+             int(x.dtype == torch.bfloat16))
     cuda_build.check(err, "int8_matmul")
     int8_matmul_dynamic.launches += 1
     return out

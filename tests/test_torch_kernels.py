@@ -15,6 +15,8 @@ from conformer_tpu.ops.pallas import attention_kernel as ak
 from conformer_tpu.ops.pallas import conv_kernel as ck
 from conformer_tpu_torch.ops import conv_block as pcb
 from conformer_tpu_torch.ops import ctc_dp as pcd
+from conformer_tpu_torch.ops import int8_ffn as pif
+from conformer_tpu_torch.ops import int8_matmul as pim
 from conformer_tpu_torch.ops import joint_lattice as pjl
 from conformer_tpu_torch.ops import rel_attention as pra
 from conformer_tpu_torch.ops import rnnt_lattice as prl
@@ -85,7 +87,10 @@ def test_kernel_width_limits():
     multiple of 16, and in float32 a K whose shared memory does not fit;
     the joint kernels at every shipped join width (J 320, 512, 640) in
     bf16, float32 up to its stated limit J <= 512 (after padding J to a
-    multiple of 128), one width past each limit refused."""
+    multiple of 128), one width past each limit refused; the int8 kernels
+    at every shipped width (the matmul's K = D: 144, 256, 512; the FFN's
+    D / H: 144 / 576, 256 / 2048, 512 / 2048), refusing K past 1024 and D
+    past 512 or H past 2048."""
     for d in (144, 256, 512):
         for dtype in (torch.bfloat16, torch.float32):
             assert pcb.width_error(dtype, d, 15) is None
@@ -110,12 +115,20 @@ def test_kernel_width_limits():
     assert "D <= 512" in pra.width_error(torch.float32, 64, 576)
     assert pra.width_error(torch.bfloat16, 64, 1024) is not None
     assert pra.width_error(torch.bfloat16, 80, 256) is not None
+    for k in (144, 256, 512, 1024):
+        assert pim.width_error(k) is None
+    assert "K <= 1024" in pim.width_error(1056)
+    for d, h in ((144, 576), (256, 2048), (512, 2048)):
+        assert pif.width_error(d, h) is None
+    assert "D <= 512" in pif.width_error(544, 2048)
+    assert "H <= 2048" in pif.width_error(512, 2080)
     assert pcd.max_states() == 29056
     assert prl.max_u1(374) == 28869 and prl.max_u1(1300) > 1024
 
 
 @pytest.mark.parametrize("script", ["torch_attention_ablation", "torch_joint_ablation",
-                                    "torch_conv_ablation", "torch_simple_lattice_ablation"])
+                                    "torch_conv_ablation", "torch_simple_lattice_ablation",
+                                    "torch_int8_ablation"])
 def test_ablation_texts_apply_to_the_kernels(script):
     """Every stage that an ablation script takes out of a kernel is a text
     substitution in that kernel's source; each must still apply to the

@@ -37,6 +37,7 @@ from conformer_tpu_torch.ops import cuda_build
 from conformer_tpu_torch.ops import quant as pq
 from conformer_tpu_torch.ops.fbank import fbank_numpy
 from conformer_tpu_torch.ops.int8_ffn import int8_ffn_fused, int8_ffn_plain
+from conformer_tpu_torch.ops import int8_matmul as pim
 from conformer_tpu_torch.ops.int8_matmul import int8_matmul_dynamic, int8_matmul_dynamic_plain
 from conformer_tpu_torch.models.transducer import init_transducer as p_init
 from conformer_tpu_torch.params import from_jax_params, tree_map
@@ -135,11 +136,12 @@ def test_from_jax_params_carries_a_quantized_tree():
 # -------------------------------------------------------------- kernels' plain versions
 
 
-@pytest.mark.parametrize("m,k,n", [(37, 64, 128), (1, 64, 96), (20, 70, 200)])
+@pytest.mark.parametrize("m,k,n", [(37, 64, 128), (1, 64, 96), (20, 70, 200), (37, 144, 576)])
 def test_int8_matmul_plain_matches_jax(m, k, n):
     """Port plain vs JAX's Pallas kernel (interpret) and XLA route, M not a
-    multiple of any tile, M = 1 and a zero row (its output is exactly the
-    bias). Both JAX routes under jit, as JAX serves (``INV_127`` in
+    multiple of any tile, M = 1, K = 70 and Conformer-S's K = 144 (not a
+    multiple of the int8 tensor cores' depth of 32), and a zero row (its
+    output is exactly the bias). Both JAX routes under jit, as JAX serves (``INV_127`` in
     ``ops/int8_matmul.py``): the kernel bit for bit, the XLA route within 1
     ulp of the product and one of the result (the int32 sums are exact on
     both sides; XLA may contract the bias add into an FMA)."""
@@ -185,13 +187,15 @@ def _ffn_args(seed, d=64, h=256, m=50):
     return j_args, p_args
 
 
-@pytest.mark.parametrize("m", [50, 1])
-def test_int8_ffn_plain_matches_jax(m):
+@pytest.mark.parametrize("m,d,h", [(50, 64, 256), (1, 64, 256), (37, 144, 576)],
+                         ids=["50", "1", "conformer_s-D144-H576"])
+def test_int8_ffn_plain_matches_jax(m, d, h):
     """Port plain vs JAX's reference and its Pallas kernel (interpret,
     tile_m=32), float32, at JAX's own tolerance (tests/test_int8_ffn.py):
     rtol 1e-2, atol 2e-3 (an ulp of difference in the LayerNorm or the
-    sigmoid may flip one int8 value at a rounding boundary)."""
-    j_args, p_args = _ffn_args(7, m=m)
+    sigmoid may flip one int8 value at a rounding boundary); also at
+    Conformer-S's widths (D = 144, not a multiple of 32, H = 576)."""
+    j_args, p_args = _ffn_args(7, d=d, h=h, m=m)
     got = int8_ffn_plain(*p_args, half=0.5).numpy()
     for want in (j_ffn_ref(*j_args, half=0.5),
                  j_ffn_kernel(*j_args, half=0.5, tile_m=32, interpret=True)):
@@ -225,6 +229,40 @@ def test_wrappers_on_cpu_build_and_count_nothing():
     with pytest.raises(ValueError, match="CUDA device"):
         int8_matmul_dynamic(torch.ones(3, 64, device="meta"), w_q, torch.ones(8))
     assert {"int8_matmul", "int8_ffn"} <= set(cuda_build.KERNELS)
+
+
+@pytest.mark.parametrize("k", [144, 256, 70])
+def test_kernel_layout_is_exact(k):
+    """The kernels' layout of an int8 weight [K, N] is its transpose with K
+    zero-padded to a multiple of 32, contiguous; unpadded it gives back
+    kernel_q bit for bit."""
+    rng = np.random.default_rng(k)
+    w_q = torch.from_numpy(rng.integers(-127, 128, (k, 40)).astype(np.int8))
+    w_t = pim.pad_transpose(w_q)
+    k_pad = -(-k // 32) * 32
+    assert w_t.shape == (40, k_pad) and w_t.dtype == torch.int8 and w_t.is_contiguous()
+    assert (w_t[:, k:] == 0).all()
+    assert torch.equal(pim.unpad_transpose(w_t, k), w_q)
+
+
+def test_kernel_layout_is_made_once_per_weight():
+    """``kernel_layout`` makes a weight's layout at its first use and takes
+    it from its cache afterwards (``builds`` counts the layouts made); each
+    layer of a stacked weight has its own; an in-place change of the weight
+    makes a new one."""
+    rng = np.random.default_rng(3)
+    stacked = torch.from_numpy(rng.integers(-127, 128, (3, 144, 64)).astype(np.int8))
+    before = pim.kernel_layout.builds
+    first = [pim.kernel_layout(stacked[i]) for i in range(3)]
+    assert pim.kernel_layout.builds == before + 3
+    again = [pim.kernel_layout(stacked[i]) for i in range(3)]
+    assert all(a is b for a, b in zip(first, again)) and pim.kernel_layout.builds == before + 3
+    for i in range(3):
+        assert torch.equal(pim.unpad_transpose(first[i], 144), stacked[i])
+    stacked[1].neg_()
+    changed = pim.kernel_layout(stacked[1])
+    assert pim.kernel_layout.builds == before + 4
+    assert torch.equal(pim.unpad_transpose(changed, 144), stacked[1])
 
 
 # -------------------------------------------------------------- encoder
