@@ -977,9 +977,15 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
             if name in s_yard:    # no one PyTorch call computes the function
                 e["yardsticks_ms"] = {"float32 torch.matmul of the factored product(s), "
                                       "allow_tf32 False": s_yard[name]}
-            print(f"kernels: {name} f32 B={b} T'={t} U={u} V={v}: kernel {e['ms']:.4f} ms, "
-                  f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']} ms, yardsticks "
-                  f"{e.get('yardsticks_ms')} ms, bound {bnd * 1e3:.2f} us ({by}; {note})")
+            dev_note = ""
+            if name.startswith(("rnnt_lattice", "ctc_dp")):   # one launch a call
+                e["device_ms"] = device_ms(kern, name)
+                dev_note = (" (device not measured)" if e["device_ms"] is None
+                            else f" (device {e['device_ms']:.4f} ms, torch.profiler)")
+            print(f"kernels: {name} f32 B={b} T'={t} U={u} V={v}: kernel {e['ms']:.4f} ms"
+                  f"{dev_note}, plain {e['plain_ms']:.4f} ms, library {e['library_ms']} ms, "
+                  f"yardsticks {e.get('yardsticks_ms')} ms, bound {bnd * 1e3:.2f} us ({by}; "
+                  f"{note})")
     check_simple_lattice_guard(dev, gen)
     return entries
 
@@ -1854,6 +1860,51 @@ def parity_f32(runner, params, device, seconds=(3.0, 7.5, 15.0, 11.0), float_par
     return res
 
 
+def int8_expand_all_parity(runner, raw_params, device, seconds=(3.0, 7.5, 15.0, 11.0)) -> dict:
+    """The encoder on ``quantize_tree(expand_only=False)`` of ``raw_params``
+    (every dense of the encoder int8: the attention projections and both
+    FFN matmuls through the int8 kernels, the subsampling's output dense,
+    K = 19 D above the matmul kernel's K <= 1024, through ``int8_dense``'s
+    XLA route), float32, kernel path against the plain path, and what the
+    quantization itself moves (plain int8 against plain float). Counts
+    ``int8_dense.xla_routes`` and the int8 kernels' launches of the kernel
+    path's one call."""
+    import torch
+
+    from conformer_tpu_torch.models.masks import subsampled_lengths
+    from conformer_tpu_torch.models.transducer import encode
+    from conformer_tpu_torch.ops import quant
+    from conformer_tpu_torch.serve.runner import INT8_SKIP_KEYS
+
+    params = quant.quantize_tree(raw_params, skip_keys=INT8_SKIP_KEYS, expand_only=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg_k = dataclasses.replace(runner.cfg.model, compute_dtype="float32")
+    feats, lens = batch_feats(runner, seconds, seed=200)
+    f = torch.as_tensor(feats, device=device)
+    fl = torch.as_tensor(lens, device=device)
+    with torch.inference_mode():
+        reset_launch_counts()
+        routes = quant.int8_dense.xla_routes
+        enc_k, _ = encode(params, f, fl, cfg_k)
+        torch.cuda.synchronize()
+        routes = quant.int8_dense.xla_routes - routes
+        launches = launch_counts()
+        with plain_int8():
+            enc_p, _ = encode(params, f, fl, plain_cfg(cfg_k))
+        enc_f, _ = encode(raw_params, f, fl, plain_cfg(cfg_k))
+    enc_lens = subsampled_lengths(fl)
+    valid = (torch.arange(enc_k.shape[1], device=enc_k.device)[None, :]
+             < enc_lens[:, None])[..., None]
+    n = valid.sum() * enc_k.shape[-1]
+    diff = torch.where(valid, enc_k - enc_p, 0).abs()
+    q = torch.where(valid, enc_p - enc_f, 0).abs()
+    return {"encoder_max_abs_err": float(diff.max()), "encoder_mean_abs_err": float(diff.sum() / n),
+            "quant_max_abs_err": float(q.max()), "quant_mean_abs_err": float(q.sum() / n),
+            "finite": bool(torch.isfinite(enc_k).all()), "xla_routes": routes,
+            "launches": {k: launches[k] for k in INT8_KERNELS}}
+
+
 def token_agreement(a: list[list[int]], b: list[list[int]]) -> tuple[float, int, int]:
     """(1 - edit distance / tokens of ``b``, identical rows, tokens of ``b``)."""
     n_ref = sum(len(x) for x in b)
@@ -2484,6 +2535,20 @@ def main() -> int:
                                             and agree >= INT8_AGREE_MIN),
                   f"{label} f32 hypotheses differ on the {name} weights (agreement {agree:.4f})")
         check(max(par["hyp_lens"]) > 0, f"the unbiased {label} weights emitted no token")
+    # every encoder dense int8 (expand_only=False): the subsampling's output
+    # dense, K = 19 D = 4864, goes round the matmul kernel's K <= 1024
+    par = int8_expand_all_parity(runner, raw_params, dev)
+    print(f"parity: int8 expand_only=False f32 kernel path vs plain path, encoder: max_abs_err "
+          f"{par['encoder_max_abs_err']:.3g} (tol {INT8_ENC_TOL}), mean "
+          f"{par['encoder_mean_abs_err']:.3g}, quantization itself: max "
+          f"{par['quant_max_abs_err']:.3g} mean {par['quant_mean_abs_err']:.3g}; "
+          f"int8_dense.xla_routes {par['xla_routes']}; int8 launches {par['launches']}")
+    check(par["finite"] and par["encoder_max_abs_err"] <= INT8_ENC_TOL
+          and par["encoder_mean_abs_err"] <= INT8_ENC_MEAN_SHARE * par["quant_mean_abs_err"],
+          "int8 expand_only=False f32 kernel path disagrees with the plain path")
+    check(par["xla_routes"] >= 1 and par["launches"]["int8_matmul"] > 0
+          and par["launches"]["int8_ffn"] == 2 * layers,
+          f"int8 expand_only=False: XLA routes {par['xla_routes']}, launches {par['launches']}")
     batch, seconds = 48, 15.0
     feats, lens = batch_feats(runner, [seconds] * batch, seed=300)
     bat = decode_bf16_batch(runner, raw_params, dev, feats, lens, batch * seconds)

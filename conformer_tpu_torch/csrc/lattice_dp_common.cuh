@@ -6,6 +6,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <mutex>
+#include <set>
+#include <utility>
+
 namespace lattice_dp {
 
 constexpr float kNeg = -1e30f;
@@ -31,12 +35,29 @@ inline void shape_for(int n, int* ns, int* threads) {
   *threads = ((n + k - 1) / k + 31) / 32 * 32;
 }
 
+constexpr int SMEM_OPT_IN = 232448;     // bytes of shared memory a block may use on Hopper
+
+// Lets ``kernel`` take up to SMEM_OPT_IN bytes of dynamic shared memory on
+// the current device: once per kernel and device, not at every launch (a
+// runtime call at every launch costs host time in a loop of launches).
+inline cudaError_t allow_large_smem(const void* kernel) {
+  static std::mutex mu;
+  static std::set<std::pair<int, const void*>> done;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({dev, kernel})) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_OPT_IN);
+  if (e == cudaSuccess) done.insert({dev, kernel});
+  return e;
+}
+
 template <typename F, typename... Args>
 cudaError_t run_kernel(F kernel, int B, int threads, size_t smem, cudaStream_t st,
                        Args... args) {
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+    cudaError_t e = allow_large_smem(reinterpret_cast<const void*>(kernel));
     if (e != cudaSuccess) return e;
   }
   kernel<<<B, threads, smem, st>>>(args...);

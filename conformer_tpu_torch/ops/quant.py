@@ -17,7 +17,7 @@ from typing import Any
 
 import torch
 
-from .int8_matmul import int8_matmul_dynamic
+from .int8_matmul import int8_matmul_dynamic, int_matmul, quant_rows, width_error
 
 Params = dict[str, Any]
 
@@ -36,22 +36,47 @@ def quantize_dense_params(p: Params) -> Params:
     return out
 
 
+def int8_dense_route(k: int) -> str:
+    """Which route ``int8_dense`` takes for a contraction of width ``k``:
+    "kernel" (``int8_matmul_dynamic``) where its CUDA kernel takes K
+    (``int8_matmul.width_error``: K <= 1024, every shipped K = D), "xla"
+    above it, as JAX's ``int8_dense`` takes XLA outside its kernel's rule.
+    A function of the shape alone, on every device."""
+    return "kernel" if width_error(k) is None else "xla"
+
+
 def int8_dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W + b with W int8 per channel and x quantized per row.
 
-    The product is ``int8_matmul_dynamic`` for every shape: its kernel on
-    CUDA tensors, its plain version on CPU tensors. The JAX package takes
-    its kernel only when K % 128 == 0 and N >= K, a rule measured on the
-    TPU v5e (retiling the activation tile to int8 in VMEM costs O(K) per
-    row); the CUDA kernel takes any K >= 1 and needs no such rule. The bias
-    is added outside the kernel in the activation dtype, as JAX's kernel
-    route does; in float32 that equals JAX's XLA route."""
+    Route "kernel" (``int8_dense_route``): ``int8_matmul_dynamic``, its
+    kernel on CUDA tensors and its plain version on CPU tensors; the bias is
+    added outside in the activation dtype, as JAX's kernel route does (in
+    float32 that equals JAX's XLA route). Route "xla", for K above the
+    kernel's limit (``quantize_tree(expand_only=False)`` quantizes the
+    subsampling's output dense, K = 2736 / 4864 / 9728 at Conformer-S / M /
+    L): JAX's XLA route, the rows quantized as ``quant_rows`` does over all
+    of K, the int8 product summed exactly (``int_matmul``: float64 products
+    of integers, as JAX's int32 ``dot_general``), rescaled and the bias
+    added in float32, then cast to x's dtype; ``int8_dense.xla_routes``
+    counts the calls that took it. The JAX package takes its kernel only
+    when K % 128 == 0 and N >= K, a rule measured on the TPU v5e; the port's
+    route follows the CUDA kernel's limit alone."""
     k = x.shape[-1]
+    if int8_dense_route(k) == "xla":
+        int8_dense.xla_routes += 1
+        x_q, x_scale = quant_rows(x.float())
+        y = int_matmul(x_q, p["kernel_q"]) * x_scale * p["kernel_scale"].float()
+        if "bias" in p:
+            y = y + p["bias"].float()
+        return y.to(x.dtype)
     y = int8_matmul_dynamic(x.reshape(-1, k), p["kernel_q"], p["kernel_scale"])
     y = y.reshape(*x.shape[:-1], y.shape[-1])
     if "bias" in p:
         y = y + p["bias"].to(y.dtype)
     return y
+
+
+int8_dense.xla_routes = 0
 
 
 def _is_dense(p: Any) -> bool:

@@ -26,9 +26,11 @@ NEG_INF = -1e30
 
 
 def max_u1(t_max: int) -> int:
-    """The largest U+1 both kernels take at ``t_max`` frames: the backward's
-    block keeps 2(U+1) + T float32 in shared memory, the forward's 2(U+1) +
-    1 (csrc/rnnt_lattice.cu); JAX's kernel has no cap."""
+    """The largest U+1 both kernels take at ``t_max`` frames: above the
+    one-warp kernels' U+1 <= 320 (or where their rings and row sums do not
+    fit) the block path runs, whose backward keeps 2(U+1) + T float32 in
+    shared memory, its forward 2(U+1) + 1 (csrc/rnnt_lattice.cu); JAX's
+    kernel has no cap."""
     return (cuda_build.SMEM_LIMIT // 4 - max(t_max, 1)) // 2
 
 

@@ -72,10 +72,30 @@ LENGTHS = {
 # ------------------------------------------------------------ RNN-T lattice
 
 
-@pytest.mark.parametrize("case", sorted(LENGTHS))
+# the CUDA kernels' dispatch edges in U+1 (csrc/rnnt_lattice.cu): C =
+# ceil((U+1)/32) cells a lane of the one-warp kernels, which take U+1 <= 320;
+# the block path above. (T, U+1) per case; the rows: (T, U) (u_len = U),
+# (1, 0) (t_len = 1, u_len = 0: a bucket-padding row) and a ragged one.
+ONE_WARP_MAX_U1 = 320
+WIDTHS = {"u1_32": (21, 32), "u1_33": (21, 33), "u1_65": (19, 65),
+          "u1_past_one_warp": (9, ONE_WARP_MAX_U1 + 1), "u1_201": (13, 201)}
+
+
+def _lattice_case(case):
+    """(lp_blank, lp_emit, t_len, u_len) of a LENGTHS or WIDTHS case."""
+    if case in LENGTHS:
+        return (*_lattice(1), *(np.array(x, np.int32) for x in LENGTHS[case]))
+    t, u1 = WIDTHS[case]
+    rng = np.random.default_rng(u1)
+    sig = lambda x: np.log(1 / (1 + np.exp(-x)))  # noqa: E731
+    lpb, lpe = (sig(rng.standard_normal((3, t, u1))).astype(np.float32) for _ in range(2))
+    return (lpb, lpe, np.array([t, 1, t - 3], np.int32),
+            np.array([u1 - 1, 0, (u1 - 1) // 2], np.int32))
+
+
+@pytest.mark.parametrize("case", [*sorted(LENGTHS), *WIDTHS])
 def test_rnnt_lattice_plain_matches_pallas_and_oracle(case):
-    lpb, lpe = _lattice(1)
-    tl, ul = (np.array(x, np.int32) for x in LENGTHS[case])
+    lpb, lpe, tl, ul = _lattice_case(case)
     args = (jnp.asarray(tl), jnp.asarray(ul))
 
     def j_loss(fn):
@@ -97,8 +117,89 @@ def test_rnnt_lattice_plain_matches_pallas_and_oracle(case):
     _close(b.grad, j_g[1])
     _close(a.grad, o_g[0])
     _close(b.grad, o_g[1])
-    if case == "edges":     # u_len = 0, t_len = 1: nll = -lp_blank[0, 0]
+    if case == "edges" or case in WIDTHS:   # u_len = 0, t_len = 1: nll = -lp_blank[0, 0]
         assert float(nll[1].detach()) == pytest.approx(-lpb[1, 0, 0], abs=1e-6)
+
+
+# The one-warp kernels' arithmetic (csrc/rnnt_lattice.cu): logaddexp as
+# max + lg2(1 + ex2(-|a - b| log2 e)) ln 2 on the MUFU approximations, the
+# occupancies as ex2(x log2 e). Their documented bounds (CUDA Math API:
+# __logf, which is lg2.approx times ln 2, within 2^-21.41 absolute on [0.5,
+# 2]; __expf, which is ex2.approx of x log2 e, within 2 + 1.173 |x| ulp)
+# put the logaddexp's small term within LAE_ERR of the exact one (2^-21.41
+# plus 2 ulp of y <= 1 plus the rounding of 1 + y) and an occupancy within
+# (2 + 1.173 |x|) 2^-23 of it, relatively.
+LAE_ERR = 6.6e-7
+
+
+def _fast_torch(mode, seed=0):
+    """``torch`` for ``ops/rnnt_lattice.py``'s plain versions with the
+    kernels' arithmetic: each logaddexp's small term and each occupancy
+    moved by their whole error bound, up ("high"), down ("low") or by a
+    seeded uniform draw within it ("random")."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def within(x, bound):
+        if mode == "high":
+            return bound
+        if mode == "low":
+            return -bound
+        return (2 * torch.rand(x.shape, generator=gen) - 1) * bound
+
+    class FastTorch:
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def logaddexp(a, b):
+            small = torch.log1p(torch.exp(-(a - b).abs()))
+            return torch.maximum(a, b) + (small + within(small, LAE_ERR))
+
+        @staticmethod
+        def exp(x):
+            y = torch.exp(x)
+            return y * (1 + within(y, (2 + 1.173 * x.abs()) * 2.0 ** -23))
+
+    return FastTorch()
+
+
+@pytest.mark.parametrize("mode", ["random", "high", "low"])
+def test_rnnt_lattice_fast_arithmetic_matches_jax(mode):
+    """The one-warp kernels' approximate logaddexp and exps, emulated step
+    for step on the plain versions' wavefront (each result moved by its
+    whole documented error bound, ``_fast_torch``), forward then backward
+    from the emulated alpha and NLL, at |logZ| ~ 2700 (T=300, U=30,
+    near-uniform log-probs, as on random weights at full width). The NLL
+    against JAX's kernel (interpret mode) within ``chip_smoke.TOL
+    ["float32"]`` (2e-4 abs and rel). The gradients: JAX's own float32
+    gradients are 4.8e-4 (its kernel) and 7.0e-4 (its scan) from the
+    float64 gradient at this logZ (unnormalised occupancies), so they are
+    held to the float64 gradient of the plain forward within 2e-4 absolute,
+    and no further from it than JAX's kernel. A bias the same at every step
+    moves alpha + beta - logZ by nothing ("high", "low")."""
+    rng = np.random.default_rng(17)
+    b, t, u = 2, 300, 30
+    lpb, lpe = ((-8.5 + 0.1 * rng.standard_normal((b, t, u + 1))).astype(np.float32)
+                for _ in range(2))
+    tl, ul = np.array([t, 200], np.int32), np.array([u, 15], np.int32)
+    g = np.array([1.0, 0.5], np.float32)
+    jargs = (jnp.asarray(tl), jnp.asarray(ul))
+    pallas = functools.partial(rnnt_loss_from_log_probs_pallas, interpret=True)
+    j_nll = pallas(jnp.asarray(lpb), jnp.asarray(lpe), *jargs)
+    j_g = jax.grad(lambda x, y: jnp.sum(jnp.asarray(g) * pallas(x, y, *jargs)),
+                   argnums=(0, 1))(jnp.asarray(lpb), jnp.asarray(lpe))
+    assert float(jnp.min(j_nll)) > 1700
+    args = (_t(lpb), _t(lpe), _t(tl), _t(ul))
+    with mock.patch.object(p_lat, "torch", _fast_torch(mode)):
+        nll, alpha = p_lat.rnnt_lattice_plain_fwd(*args)
+        grads = p_lat.rnnt_lattice_plain_bwd(*args[:2], alpha, *args[2:], nll, _t(g))
+    _close(nll, j_nll, rtol=2e-4, atol=2e-4)
+    want = _float64_grad(lambda x, y: p_lat.rnnt_lattice_plain_fwd(
+        x, y, args[2].long(), args[3].long())[0] * _t(g).double(), *args[:2])
+    for got, exact, jax_g in zip(grads, want, j_g):
+        err = float((got.double() - exact).abs().max())
+        assert err <= 2e-4, err
+        assert err <= float(np.abs(np.asarray(jax_g, np.float64) - exact.numpy()).max())
 
 
 def test_rnnt_lattice_plain_bwd_matches_autograd_through_frozen_scan():
@@ -425,6 +526,9 @@ def test_dp_plain_at_long_labels_matches_jax_oracle(dp, u):
         leaves = [_t(lpb, True), _t(lpe, True)]
         nll = p_lat.rnnt_lattice_nll(*leaves, _t(tl), _t(ul))
         assert p_lat.max_u1(t) >= u + 1
+        # the limit the kernels have taken since they walk u with a block
+        # stride: no redesign may lower it
+        assert p_lat.max_u1(374) >= 28869
     (nll * _t(w)).sum().backward()
     _close(nll, j_nll)
     if dp == "ctc":

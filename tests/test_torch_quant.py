@@ -12,6 +12,7 @@ import functools
 import json
 import threading
 import urllib.request
+from pathlib import Path
 from http.server import ThreadingHTTPServer
 
 import jax
@@ -168,6 +169,59 @@ def test_int8_matmul_plain_matches_jax(m, k, n):
     assert torch.equal(p_layers.dense(pp, x3)[0], got_dense)
 
 
+# the subsampling's output dense [19 D, D] that quantize_tree(expand_only=False)
+# quantizes: K = 2736 / 4864 / 9728 at Conformer-S / M / L (D = 144 / 256 / 512)
+EMBED_OUT_K = {"conformer_s": 2736, "conformer_m": 4864, "conformer_l": 9728}
+
+
+def test_int8_dense_route_is_a_function_of_k():
+    """``int8_dense`` takes the kernel where ``int8_matmul.width_error``
+    takes K (K <= KMAX) and the XLA route above it: a function of K alone,
+    the same on every device; the shipped widths of the subsampling's
+    output dense are all above the kernel's limit."""
+    for k in (1, 64, 144, 256, 512, pim.KMAX):
+        assert pq.int8_dense_route(k) == "kernel" and pim.width_error(k) is None
+    for k in (pim.KMAX + 1, 1216, *EMBED_OUT_K.values()):
+        assert pq.int8_dense_route(k) == "xla" and pim.width_error(k) is not None
+    for name, k in EMBED_OUT_K.items():
+        with open(Path(__file__).resolve().parents[1] / "configs" / f"{name}.json") as f:
+            cfg = PConfig.from_dict(json.load(f)).model
+        assert k == 19 * cfg.encoder_dim and cfg.input_dim == 80, name
+
+
+def test_int8_dense_above_kernel_width_matches_jax():
+    """An ``expand_only=False`` tree quantizes the subsampling's output dense
+    (K = 19 * 64 = 1216 on the tiny params, above the kernel's K <= 1024);
+    ``int8_dense`` on it against JAX's ``int8_dense`` (its XLA route under
+    jit, ``use_kernel=False``), float32: bit for bit without the bias (the
+    int8 values, scales and exact int32 sums equal), and with it within one
+    ulp of the product and one of the result, as
+    ``test_int8_matmul_plain_matches_jax`` holds the XLA route (XLA may
+    contract the bias add into an FMA); a zero row gives exactly the bias.
+    Each call counts one call of the XLA route. A 3-D activation takes the
+    same route through ``layers.dense``."""
+    jp = jq.quantize_tree(_tiny_jax_params(), skip_keys=SKIP, expand_only=False)
+    pp = from_jax_params(jax.tree.map(np.asarray, jp))
+    jd, pd = jp["encoder"]["embed"]["out"], pp["encoder"]["embed"]["out"]
+    k = pd["kernel_q"].shape[0]
+    assert k == 1216 and pq.int8_dense_route(k) == "xla"
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 9, k)).astype(np.float32)
+    x[1, 4] = 0.0
+    xla = jax.jit(lambda p, v: jq.int8_dense(p, v, use_kernel=False))
+    before = pq.int8_dense.xla_routes
+    no_bias = pq.int8_dense({kk: v for kk, v in pd.items() if kk != "bias"}, torch.from_numpy(x))
+    want = xla({kk: v for kk, v in jd.items() if kk != "bias"}, jnp.asarray(x))
+    np.testing.assert_array_equal(no_bias.numpy(), np.asarray(want))
+    got = pq.int8_dense(pd, torch.from_numpy(x))
+    assert pq.int8_dense.xla_routes == before + 2
+    want = np.asarray(xla(jd, jnp.asarray(x)))
+    bound = np.spacing(np.abs(no_bias.numpy())) + np.spacing(np.abs(want))
+    assert (np.abs(got.numpy() - want) <= bound).all()
+    np.testing.assert_array_equal(got[1, 4].numpy(), pd["bias"].numpy())
+    assert torch.equal(p_layers.dense(pd, torch.from_numpy(x)), got)
+
+
 def _ffn_args(seed, d=64, h=256, m=50):
     rng = np.random.default_rng(seed)
     w1 = {"kernel": (rng.standard_normal((d, h)) * 0.05).astype(np.float32),
@@ -268,7 +322,7 @@ def test_kernel_layout_is_made_once_per_weight():
 # -------------------------------------------------------------- encoder
 
 
-@pytest.mark.parametrize("route", ["A", "B"])
+@pytest.mark.parametrize("route", ["A", "B", "expand_all"])
 def test_encoder_forward_quantized_matches_jax(route):
     """The encoder on quantized params, port vs JAX, float32. Route A
     (``w_1`` int8, through ``int8_dense``) quantizes the same LayerNorm
@@ -280,18 +334,24 @@ def test_encoder_forward_quantized_matches_jax(route):
     and the final LayerNorm. atol 5e-3 allows a few such steps, and a
     tenth of the 1.8e-2 by which quantization moves the outputs from the
     float encoder; the mean difference must stay below 1e-4, and at most
-    10 % of the outputs may differ by more than 1e-5."""
+    10 % of the outputs may differ by more than 1e-5. "expand_all"
+    (``quantize_tree(expand_only=False)``): every dense of the encoder int8,
+    the FFN halves fused as in route B (so route B's limits), and the
+    subsampling's output dense (K = 1216) through ``int8_dense``'s XLA
+    route, once per call."""
     cfg, pcfg = _tiny()
     jp = _tiny_jax_params()
     pp = from_jax_params(jax.tree.map(np.asarray, jp), "cpu")
-    flags = {"fuse_ffn": True} if route == "B" else {}
+    flags = {"A": {}, "B": {"fuse_ffn": True}, "expand_all": {"expand_only": False}}[route]
     jqp = jq.quantize_tree(jp, skip_keys=SKIP, **flags)["encoder"]
     pqp = pq.quantize_tree(pp, skip_keys=SKIP, **flags)["encoder"]
     rng = np.random.default_rng(0)
     feats = rng.standard_normal((2, 96, 80)).astype(np.float32)
     lens = np.array([96, 64], np.int32)
     want, mask = jax.jit(lambda p: j_encoder(p, jnp.asarray(feats), jnp.asarray(lens), cfg))(jqp)
+    before = pq.int8_dense.xla_routes
     got, p_mask = p_encoder(pqp, torch.from_numpy(feats), torch.from_numpy(lens), pcfg)
+    assert pq.int8_dense.xla_routes - before == (route == "expand_all")
     np.testing.assert_array_equal(p_mask.numpy(), np.asarray(mask))
     diff = np.abs(got.numpy() - np.asarray(want)) * np.asarray(mask)[..., None]
     if route == "A":
