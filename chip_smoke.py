@@ -32,7 +32,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                lie 200 nats apart on different v (B=4, T'=374, U=64, outputs
                poisoned with NaN first), where their guard must take cells
                (and none on the random inputs), and the CTC and RNN-T DPs at long
-               labels (U = 400-1100) with their wrappers' limits; the
+               labels (U = 400-1100) with their wrappers' limits, the CTC DP
+               at its dispatch edges (S = 31, 33, 63, 65, 511, 513; rows of
+               very different lengths, t_len 1, u_len 0 and U; outputs
+               poisoned with NaN first); the
                two int8 serving kernels at route B's rows (M = 48 x 374),
                route A's (374), a ragged M and
                M = 1 with an all-zero row, in float32 and bfloat16:
@@ -1039,6 +1042,75 @@ def check_dp_long_labels(dev) -> dict:
             print(f"kernels: {kind} f32 long labels B={b} T'={t} U={u} ({width}): max_abs_err "
                   f"fwd {e_f:.3g}, bwd {e_b:.3g} (tol {TOL['float32']} abs + rel); kernel ms "
                   f"fwd {f_ms:.4f}, bwd {b_ms:.4f}")
+    return errs
+
+
+def ctc_edge_shapes() -> tuple:
+    """The CTC DP's dispatch edges (csrc/ctc_dp.cu, ops/ctc_dp.py route),
+    (B, T', U): its chain kernels on one warp and two (S = 31, 33), two and
+    three (63, 65), the last S they take and the first the block path takes
+    (511, 513), there at T' = 1100, many hand-over chunks long."""
+    from conformer_tpu_torch.ops import ctc_dp as cd
+
+    u_last = (cd.CHAIN_MAX_STATES - 1) // 2
+    return ((6, 300, 15), (6, 300, 16), (6, 300, 31), (6, 300, 32), (6, 1100, u_last),
+            (6, 1100, u_last + 1))
+
+
+def ctc_edge_inputs(dev, gen, t, u, v=64):
+    """(emit, skip, t_len, u_len, g) of six rows whose lengths differ
+    widely, so that the kernels skip many dead steps: (T', U), (1, 0), (T'/2,
+    T'/4), (2, 1), (T'-1, U/2), (T'/7, T'/14), the last four capped at U;
+    row 0's first label repeated (no skip there)."""
+    import torch
+
+    from conformer_tpu_torch.ops.ctc import NEG_INF, _extended_labels, skip_allowed
+
+    t_len = torch.tensor([t, 1, t // 2, 2, t - 1, max(t // 7, 1)], dtype=torch.int32)
+    u_len = torch.tensor([u, 0, min(u, t // 4), min(u, 1), u // 2, min(u, t // 14)],
+                         dtype=torch.int32)
+    b = len(t_len)
+    labels = torch.randint(1, v - 1, (b, u), generator=gen)
+    labels[0, 1] = labels[0, 0]
+    labels = torch.where(torch.arange(u)[None, :] < u_len[:, None].long(), labels, 0)
+    log_probs = torch.log_softmax(torch.randn(b, t, v, generator=gen), dim=-1)
+    ext = _extended_labels(labels, 0)
+    skip = torch.where(skip_allowed(ext, 0), 0.0, NEG_INF)
+    emit = log_probs.gather(2, ext[:, None, :].expand(b, t, ext.shape[1]))
+    g = 0.5 + 1.5 * torch.rand(b, generator=gen)
+    return [x.to(dev).contiguous() for x in (emit, skip, t_len, u_len, g)]
+
+
+def check_ctc_dispatch_edges(dev) -> dict:
+    """Both CTC DP kernels against their plain versions in float32 at
+    ``ctc_edge_shapes``, outputs poisoned with NaN first; which path each
+    shape takes must be the one ``route`` names. Returns the largest error
+    of each kernel."""
+    import torch
+
+    from conformer_tpu_torch.ops import ctc_dp as cd
+
+    gen = torch.Generator().manual_seed(5)
+    errs = {"ctc_dp_fwd": 0.0, "ctc_dp_bwd": 0.0}
+    routes = []
+    for b, t, u in ctc_edge_shapes():
+        emit, skip, tl, ul, g = ctc_edge_inputs(dev, gen, t, u)
+        s = emit.shape[2]
+        routes.append(cd.route(s))
+        poison(((b,), torch.float32), ((b, t, s), torch.float32))
+        fwd = cd.ctc_dp_fwd(emit, skip, tl, ul)
+        fwd_p = cd.ctc_dp_plain_fwd(emit, skip, tl, ul)
+        bargs = (emit, skip, fwd_p[1], tl, ul, fwd_p[0], g)
+        poison(((b, t, s), torch.float32))
+        bwd = (cd.ctc_dp_bwd(*bargs),)
+        e_f = compare(f"ctc_dp_fwd S={s}", fwd, fwd_p)
+        e_b = compare(f"ctc_dp_bwd S={s}", bwd, (cd.ctc_dp_plain_bwd(*bargs),))
+        errs["ctc_dp_fwd"] = max(errs["ctc_dp_fwd"], e_f)
+        errs["ctc_dp_bwd"] = max(errs["ctc_dp_bwd"], e_b)
+        print(f"kernels: ctc_dp f32 dispatch edge B={b} T'={t} U={u} (S={s}, {cd.route(s)} path; "
+              f"t_len {tl.tolist()}): max_abs_err fwd {e_f:.3g}, bwd {e_b:.3g} "
+              f"(tol {TOL['float32']} abs + rel; outputs poisoned with NaN)")
+    check(routes == ["chain"] * 5 + ["block"], f"ctc_dp routes at the dispatch edges: {routes}")
     return errs
 
 
@@ -2460,6 +2532,8 @@ def main() -> int:
         entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
     entries.update(check_training_kernels(dev))
     for name, e in check_dp_long_labels(dev).items():
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
+    for name, e in check_ctc_dispatch_edges(dev).items():
         entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
     entries.update(check_int8_kernels(dev))
     for name, e in zip(INT8_KERNELS, check_int8_widths(dev)):

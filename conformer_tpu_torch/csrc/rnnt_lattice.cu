@@ -100,8 +100,6 @@
 // backward: that is the limit the wrappers check (ops/rnnt_lattice.py
 // max_u1).
 
-#include <stdint.h>
-
 #include "lattice_dp_common.cuh"
 
 namespace {
@@ -127,42 +125,6 @@ __host__ __device__ constexpr int ring_s(int c) { return 32 * c + 1; }
 size_t fwd_warp_smem(int c) { return sizeof(float) * 8 * ring_r(c) * ring_s(c); }
 size_t bwd_warp_smem(int c, int T) {
   return sizeof(float) * (13 * (size_t)ring_r(c) * ring_s(c) + 32 * c + T);
-}
-
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-// the MUFU operations behind __expf and __logf, without their fix-ups for
-// subnormal numbers (none reaches them here: lg2 takes 1 + y in [1, 2], and
-// an ex2 result below 2^-126, flushed to 0, adds nothing to 1 + y or to a
-// gradient)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float exp_fast(float x) { return ex2(x * LOG2E); }
-
-__device__ __forceinline__ float lae_fast(float a, float b) {
-  const float m = fmaxf(a, b);
-  return fmaf(lg2(1.f + ex2(fabsf(a - b) * -LOG2E)), LN2, m);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const float* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // wait until at most the newest group of copies is in flight

@@ -4,8 +4,9 @@ plain versions.
 Replaces the Pallas TPU kernel ``conformer_tpu/ops/pallas/ctc_kernel.py``
 (``_forward`` / ``_fwd_kernel``, ``_backward`` / ``_bwd_kernel``, wrapped
 by ``ctc_loss_pallas``). The kernels are ``csrc/ctc_dp.cu``; its source
-note gives the semantics, the bound and the design. ``ctc_dp_fwd`` and
-``ctc_dp_bwd`` launch them for CUDA tensors and take
+note gives the semantics, the bound and the design: the chain kernels up
+to ``CHAIN_MAX_STATES`` states, the block path above (``route``).
+``ctc_dp_fwd`` and ``ctc_dp_bwd`` launch them for CUDA tensors and take
 ``ctc_dp_plain_fwd``/``ctc_dp_plain_bwd`` only for CPU tensors; each counts
 its launches in ``.launches``.
 
@@ -24,8 +25,19 @@ from . import cuda_build
 from .ctc import NEG_INF, _extended_labels, skip_allowed
 
 
+# the largest S the chain kernels take: 32 lanes x 4 warps x 4 states a
+# lane (csrc/ctc_dp.cu CHAIN_WARPS, CHAIN_MAX_C)
+CHAIN_MAX_STATES = 512
+
+
+def route(s: int) -> str:
+    """Which kernels run at S states, as the C entries choose: "chain" or
+    "block"."""
+    return "chain" if s <= CHAIN_MAX_STATES else "block"
+
+
 def max_states() -> int:
-    """The largest S the kernels take: their block keeps two rows of S
+    """The largest S the kernels take: the block path keeps two rows of S
     float32 in shared memory (csrc/ctc_dp.cu); JAX's kernel has no cap."""
     return cuda_build.SMEM_LIMIT // (2 * 4)
 

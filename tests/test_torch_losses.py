@@ -411,21 +411,28 @@ def test_simple_lattice_plain_bwd_matches_autograd():
 # ---------------------------------------------------------------------- CTC
 
 
-def _ctc_inputs(seed, t_lens, u_lens):
+def _ctc_inputs(seed, t_lens, u_lens, u=U, t=T):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((B, T, V)).astype(np.float32)
+    x = rng.standard_normal((B, t, V)).astype(np.float32)
     lp = (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
-    labels = rng.integers(1, V, (B, U)).astype(np.int32)
+    labels = rng.integers(1, V, (B, u)).astype(np.int32)
     labels[0, 1] = labels[0, 0]                     # a repeat: no skip there
     labels[2, 3] = labels[2, 2]
     u_lens = np.asarray(u_lens, np.int32)
-    labels = np.where(np.arange(U)[None, :] < u_lens[:, None], labels, 0).astype(np.int32)
+    labels = np.where(np.arange(u)[None, :] < u_lens[:, None], labels, 0).astype(np.int32)
     return lp, np.asarray(t_lens, np.int32), labels, u_lens
 
 
+# (t_lens, u_lens[, U, T]): the rows t_len = 1 / u_len = 0 (a
+# bucket-padding row) and u_len = U; and the CUDA kernels' dispatch edges in
+# S = 2U+1 (csrc/ctc_dp.cu): the chain kernels on one warp (S = 31) and two
+# (33), two and three (63 and 65 = 2 x 32 + 1)
 CTC_LENGTHS = {
     "ragged": ([37, 30, 20], [6, 3, 5]),
     "edges": ([37, 1, 2], [6, 0, 1]),
+    "s31": ([40, 1, 25], [15, 0, 8], 15, 40),
+    "s33": ([40, 1, 30], [16, 0, 10], 16, 40),
+    "s63": ([70, 1, 45], [31, 0, 20], 31, 70),
 }
 
 
@@ -485,6 +492,61 @@ def test_ctc_plain_scan_matches_jax_and_dp_bwd_matches_autograd():
     _close(grad, x.grad)
 
 
+def test_ctc_dp_route_is_a_function_of_s():
+    """The C entries take the chain kernels up to 32 lanes x CHAIN_WARPS x
+    CHAIN_MAX_C states and the block path above, by S alone;
+    ``route`` mirrors that limit and the source's constants give it."""
+    import re
+    from pathlib import Path
+
+    src = (Path(p_ctc_dp.__file__).resolve().parents[1] / "csrc" / "ctc_dp.cu").read_text()
+    warps = int(re.search(r"constexpr int CHAIN_WARPS = (\d+);", src).group(1))
+    max_c = int(re.search(r"constexpr int CHAIN_MAX_C = (\d+);", src).group(1))
+    assert p_ctc_dp.CHAIN_MAX_STATES == 32 * warps * max_c
+    s_max = p_ctc_dp.CHAIN_MAX_STATES
+    assert [p_ctc_dp.route(s) for s in (1, 31, 33, 129, 401, s_max - 1, s_max, s_max + 1, 29056)] \
+        == ["chain"] * 7 + ["block"] * 2
+
+
+@pytest.mark.parametrize("mode", ["random", "high", "low"])
+def test_ctc_dp_fast_arithmetic_matches_jax(mode):
+    """The chain kernels' approximate logaddexp (two nested, in the plain
+    version's order) and occupancy exps, emulated step for step on the plain
+    versions (each result moved by its whole documented error bound,
+    ``_fast_torch``), forward then backward from the emulated alpha and NLL,
+    at |logZ| in the thousands (T=300, U=30, near-uniform log-probs of
+    -8.5, as on random weights at full width). The NLL against JAX's kernel
+    (interpret mode) within 2e-4 abs and rel; the gradient with respect to
+    the log-probs within 2e-4 absolute of the float64 gradient of the plain
+    forward, and no further from it than JAX's own kernel's."""
+    rng = np.random.default_rng(19)
+    b, t, u, v = 2, 300, 30, 40
+    lp = (-8.5 + 0.1 * rng.standard_normal((b, t, v))).astype(np.float32)
+    tl, ul = np.array([t, 200], np.int32), np.array([u, 15], np.int32)
+    labels = rng.integers(1, v, (b, u)).astype(np.int32)
+    labels = np.where(np.arange(u)[None, :] < ul[:, None], labels, 0).astype(np.int32)
+    g = np.array([1.0, 0.5], np.float32)
+    jargs = (jnp.asarray(tl), jnp.asarray(labels), jnp.asarray(ul))
+    pallas = functools.partial(ctc_loss_pallas, interpret=True)
+    j_nll = pallas(jnp.asarray(lp), *jargs)
+    j_g = jax.grad(lambda x: jnp.sum(jnp.asarray(g) * pallas(x, *jargs)))(jnp.asarray(lp))
+    assert float(jnp.min(j_nll)) > 1500
+    ext = p_ctc._extended_labels(_t(labels).long(), 0)
+    skip = torch.where(p_ctc.skip_allowed(ext, 0), 0.0, p_ctc.NEG_INF)
+    idx = ext[:, None, :].expand(b, t, ext.shape[1])
+    emit = _t(lp).gather(2, idx).contiguous()
+    with mock.patch.object(p_ctc_dp, "torch", _fast_torch(mode)):
+        nll, alpha = p_ctc_dp.ctc_dp_plain_fwd(emit, skip, _t(tl), _t(ul))
+        g_emit = p_ctc_dp.ctc_dp_plain_bwd(emit, skip, alpha, _t(tl), _t(ul), nll, _t(g))
+    _close(nll, j_nll, rtol=2e-4, atol=2e-4)
+    got = torch.zeros(b, t, v, dtype=torch.float64).scatter_add_(2, idx, g_emit.double())
+    (exact,) = _float64_grad(lambda y: p_ctc_dp.ctc_dp_plain_fwd(
+        y.gather(2, idx), skip.double(), _t(tl).long(), _t(ul).long())[0] * _t(g).double(), _t(lp))
+    err = float((got - exact).abs().max())
+    assert err <= 2e-4, err
+    assert err <= float(np.abs(np.asarray(j_g, np.float64) - exact.numpy()).max())
+
+
 @pytest.mark.parametrize("dp,u", [("ctc", 400), ("rnnt", 600)])
 def test_dp_plain_at_long_labels_matches_jax_oracle(dp, u):
     """Label lengths at which a launch of one thread per state runs out of
@@ -513,6 +575,9 @@ def test_dp_plain_at_long_labels_matches_jax_oracle(dp, u):
         leaves = [_t(lp, True)]
         nll = p_ctc_dp.ctc_loss_dp(*leaves, _t(tl), _t(labels), _t(ul))
         assert p_ctc_dp.max_states() >= 2 * u + 1
+        # the limit the kernels have taken since they walk the states with a
+        # block stride: no redesign may lower it
+        assert p_ctc_dp.max_states() >= 29056
     else:
         t = 40
         sig = lambda z: np.log(1 / (1 + np.exp(-z)))  # noqa: E731
