@@ -53,8 +53,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
                and float32 at J = 320, outputs poisoned with NaN first,
                float32 at J = 640 refused with ValueError before any
                launch; the fbank kernel at 48 x 15 s against its plain version with
-               dither 0 and 1 and against the host fbank_numpy, and its
-               dither's statistics; times of kernel, plain version and
+               dither 0 and 1 and against the host fbank_numpy, its
+               dither's statistics, its distance from a float64 fbank
+               within 2x the plain version's, at edge shapes (N odd, T = 1,
+               padded 256 and 1024, 40 mel bins) and at every window of
+               1-1024 samples; times of kernel, plain version and
                library call (where none exists, labelled yardsticks: for
                the int8 kernels torch._int_mm and the float work they
                replace, for the joint the bf16 product alone, for the
@@ -136,6 +139,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -1660,6 +1664,163 @@ def check_joint_widths(dev) -> dict:
 FBANK_BATCH, FBANK_SECONDS = 48, 15.0
 FBANK_TOL = 1e-2             # abs and rel, kernel vs plain: float32 sums in other orders
 FBANK_HOST_TOL = (1e-3, 0.15)   # (rtol, atol) vs the host fbank_numpy, the JAX test's own
+FBANK_F64_RATIO = 2.0        # the kernel's max abs distance from float64 over the plain version's
+# edge shapes: (label, sample_rate, mel bins, frame_length ms, B, N, waveforms):
+# rows that start unaligned (N odd, N % 4 = 2), one frame (N = ws; 64
+# waveforms of one launch each, so that the float64 criterion's maximum is
+# taken over more than one frame: over single frames either version's
+# maximum rests on one bin), padded 256 and 1024, 40 mel bins
+FBANK_EDGES = (("N odd", 16000.0, 80, 25.0, 3, 32001, 1),
+               ("B=1, N=ws (T=1)", 16000.0, 80, 25.0, 1, 400, 64),
+               ("8 kHz (padded 256)", 8000.0, 80, 25.0, 2, 24002, 1),
+               ("50 ms frames (padded 1024)", 16000.0, 80, 50.0, 2, 48000, 1),
+               ("40 mel bins", 16000.0, 40, 25.0, 2, 48003, 1))
+
+
+def fbank_float64(wave, dither: float, seed: int, sample_rate: float = 16000.0,
+                  num_mel_bins: int = 80, frame_length: float = 25.0):
+    """The fbank in float64 by torch.fft.rfft, from the float32 frames that
+    the plain version dithers (the same hash) and the same float32
+    constants (window, mel^T, 0.97): the truth that the kernel and the
+    plain version are both held to."""
+    import torch
+
+    from conformer_tpu_torch.ops.fbank import frame_params, num_frames, povey_window
+    from conformer_tpu_torch.ops.fbank_kernel import _EPS, dither_normal, mel_t32
+
+    ws, shift, padded = frame_params(sample_rate, frame_length, 10.0)
+    bsz, n = wave.shape
+    t = num_frames(n, ws, shift)
+    idx = (torch.arange(ws, device=wave.device)[None, :]
+           + shift * torch.arange(t, device=wave.device)[:, None])
+    frames = wave[:, idx]
+    if dither != 0.0:
+        frames = frames + dither * dither_normal(seed, bsz, t, ws, wave.device)
+    x = frames.double()
+    x = x - x.mean(dim=-1, keepdim=True)
+    prev = torch.cat([x[..., :1], x[..., :-1]], dim=-1)
+    win = torch.as_tensor(povey_window(ws).astype(np.float32), device=wave.device).double()
+    y = (x - float(np.float32(0.97)) * prev) * win
+    spec = torch.fft.rfft(y, n=padded)[..., : padded // 2]
+    mel_t = torch.as_tensor(mel_t32(num_mel_bins, padded, sample_rate), device=wave.device)
+    mel = (spec.real ** 2 + spec.imag ** 2) @ mel_t.double()
+    return torch.log(torch.clamp_min(mel, _EPS))
+
+
+def fbank_f64_distances(pairs) -> tuple[float, float]:
+    """(kernel, plain) max abs distances from ``fbank_float64`` over
+    ``pairs`` of (waveform, kwargs) at dither 0 and 1."""
+    from conformer_tpu_torch.ops.fbank_kernel import fbank_kernel, fbank_plain
+
+    d_k = d_p = 0.0
+    for wave, kw in pairs:
+        for dither in (0.0, 1.0):
+            truth = fbank_float64(wave, dither, 7, **kw)
+            got = fbank_kernel(wave, dither=dither, seed=7, **kw).double()
+            plain = fbank_plain(wave, dither=dither, seed=7, **kw).double()
+            d_k = max(d_k, float((got - truth).abs().max()))
+            d_p = max(d_p, float((plain - truth).abs().max()))
+    return d_k, d_p
+
+
+def check_fbank_edges(dev) -> float:
+    """``fbank_kernel`` at ``FBANK_EDGES``: against its plain version at
+    dither 0 and 1, the host ``fbank_numpy`` at dither 0, and the float64
+    criterion; outputs poisoned with NaN first (the wrapper allocates them:
+    the cache is filled with NaN beforehand). Returns the largest error
+    against the plain version."""
+    import torch
+
+    from conformer_tpu_torch.ops.fbank import fbank_numpy, frame_params, num_frames
+    from conformer_tpu_torch.ops.fbank_kernel import fbank_kernel, fbank_plain
+
+    err = 0.0
+    rtol, atol = FBANK_HOST_TOL
+    for label, sr, bins, fl, b, n, waves in FBANK_EDGES:
+        kw = dict(sample_rate=sr, num_mel_bins=bins, frame_length=fl)
+        ws, shift, _ = frame_params(sr, fl, 10.0)
+        pairs = []
+        e_label = 0.0
+        for w in range(waves):
+            seeds = [600 + 10 * w + i for i in range(b)]
+            wavs = np.stack([synthetic_wav(s, n / sr + 0.1, int(sr))[:n] for s in seeds])
+            wavs = (wavs * (1 << 15)).astype(np.float32)
+            wave = torch.as_tensor(wavs, device=dev)
+            pairs.append((wave, kw))
+            for dither in (0.0, 1.0):
+                poison(((b, num_frames(n, ws, shift), bins), torch.float32))
+                got = fbank_kernel(wave, dither=dither, seed=7, **kw)
+                torch.cuda.synchronize()
+                e = compare(f"fbank {label} dither {dither}", (got,),
+                            (fbank_plain(wave, dither=dither, seed=7, **kw),), FBANK_TOL)
+                e_label = max(e_label, e)
+                if dither == 0.0:
+                    host = np.stack([fbank_numpy(x, **kw) for x in wavs])
+                    clean = got.cpu().numpy()
+                    check(clean.shape == host.shape and np.allclose(clean, host, rtol=rtol,
+                                                                    atol=atol),
+                          f"fbank {label} disagrees with the host fbank_numpy")
+        err = max(err, e_label)
+        d_k, d_p = fbank_f64_distances(pairs)
+        print(f"kernels: fbank {label}: B={b} N={n} x {waves} waveform(s), {bins} mel bins, "
+              f"shape {tuple(got.shape)}: max_abs_err vs plain {e_label:.3g} (tol {FBANK_TOL}); "
+              f"host fbank_numpy within (rtol {rtol}, atol {atol}); from float64 kernel "
+              f"{d_k:.3g}, plain {d_p:.3g} (limit {FBANK_F64_RATIO}x the plain version's)")
+        check(d_k <= FBANK_F64_RATIO * d_p, f"fbank {label}: the kernel is {d_k:.3g} from float64, "
+              f"over {FBANK_F64_RATIO}x the plain version's {d_p:.3g}")
+    return err
+
+
+# every window the kernel takes, one of each padded length 1 .. 1024 (an FFT
+# template each), at 16 kHz: ws samples, 8 frames of an odd-length row
+FBANK_WINDOWS = (1, 2, 3, 5, 9, 17, 33, 65, 129, 257, 513, 1024)
+
+
+def check_fbank_windows(dev) -> float:
+    """``fbank_kernel`` at every ``FBANK_WINDOWS`` against its plain version
+    at dither 0 and 1, outputs poisoned with NaN first. Returns the largest
+    error."""
+    import torch
+
+    from conformer_tpu_torch.ops.fbank import frame_params, num_frames
+    from conformer_tpu_torch.ops.fbank_kernel import fbank_kernel, fbank_plain
+
+    err = 0.0
+    for ws in FBANK_WINDOWS:
+        kw = dict(frame_length=ws / 16.0)
+        _, shift, padded = frame_params(16000.0, ws / 16.0, 10.0)
+        n = ws + 7 * shift + 3 - (ws + 7 * shift) % 2
+        wavs = np.stack([synthetic_wav(700 + i, n / 16000 + 0.1)[:n] for i in range(2)])
+        wave = torch.as_tensor((wavs * (1 << 15)).astype(np.float32), device=dev)
+        for dither in (0.0, 1.0):
+            poison(((2, num_frames(n, ws, shift), 80), torch.float32))
+            got = fbank_kernel(wave, dither=dither, seed=7, **kw)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"fbank ws={ws} dither {dither}", (got,),
+                                   (fbank_plain(wave, dither=dither, seed=7, **kw),), FBANK_TOL))
+    print(f"kernels: fbank windows of {FBANK_WINDOWS} samples (padded 1 .. 1024), B=2, 8 "
+          f"frames, dither 0 and 1: max_abs_err vs plain {err:.3g} (tol {FBANK_TOL}); outputs "
+          "poisoned with NaN beforehand")
+    return err
+
+
+def fbank_bound(frames: int, ws: int, nf: int, nmel: int, nnz: int, n_bytes: int) -> dict:
+    """The fbank kernel's bound: the larger of the bytes (waveform in,
+    features out) over the memory rate and the FFT design's float32
+    operations over the card's float32 rate; beside it, labelled, the first
+    design's DFT-product count. Operations a frame: the complex FFT of nf =
+    padded / 2 points, 5 nf log2 nf; the split pass and the power, 12 nf;
+    the DC removal, preemphasis and window, 5 ws; the mel sum, 2 nnz (its
+    non-zero weights); the log, nmel."""
+    fft_flops = frames * (5.0 * nf * math.log2(max(nf, 1)) + 12.0 * nf + 5.0 * ws
+                          + 2.0 * nnz + nmel)
+    product_flops = frames * (2.0 * ws * nf * 2 + 2.0 * nf * nmel)
+    bnd, by = bound_ms(n_bytes, fft_flops / (F32_TFLOPS * 1e12))
+    return {"bound_ms": bnd, "bound_by": by, "bound_counts": {
+        "bytes": n_bytes, "bytes_ms": n_bytes / (HBM_TBPS * 1e12) * 1e3,
+        "fft_flops": fft_flops, "fft_flops_ms": fft_flops / (F32_TFLOPS * 1e12) * 1e3,
+        "first_design_dft_product_flops": product_flops,
+        "first_design_dft_product_ms": product_flops / (F32_TFLOPS * 1e12) * 1e3}}
 
 
 def check_fbank_kernel(dev) -> dict:
@@ -1668,12 +1829,17 @@ def check_fbank_kernel(dev) -> dict:
     the host ``fbank_numpy`` (the serving path's features) at dither 0;
     the dither's statistics (two seeds differ, loud bins within 0.5 of the
     clean features, as tests/test_pallas_fbank.py holds the TPU kernel);
-    times, bound and a labelled yardstick. Returns the JSON entry without
-    ``launches``."""
+    both versions' max abs distance from a float64 fbank of the same
+    dithered frames (the kernel's within ``FBANK_F64_RATIO`` of the plain
+    version's); the edge shapes (``check_fbank_edges``) and every window
+    length (``check_fbank_windows``); times by CUDA events and device times
+    by torch.profiler, the bound and a labelled yardstick. Returns the JSON
+    entry without ``launches``."""
     import torch
 
     from conformer_tpu_torch.ops.fbank import fbank_numpy, frame_params
-    from conformer_tpu_torch.ops.fbank_kernel import fbank_kernel, fbank_plain
+    from conformer_tpu_torch.ops.fbank_kernel import (_kernel_tables, fbank_kernel,
+                                                      fbank_plain)
 
     wavs = np.stack([synthetic_wav(400 + i, FBANK_SECONDS) for i in range(FBANK_BATCH)])
     wavs = (wavs * (1 << 15)).astype(np.float32)
@@ -1704,12 +1870,19 @@ def check_fbank_kernel(dev) -> dict:
     print(f"kernels: fbank dither 1: seeds 7 and 8 differ in {np.mean(dith != other):.2%} of "
           f"features; loud bins within {loud_err:.3g} of clean (limit 0.5)")
     check(not np.allclose(dith, other) and loud_err <= 0.5, "fbank dither statistics")
+    d_k, d_p = fbank_f64_distances([(wave, {})])
+    print(f"kernels: fbank B={FBANK_BATCH} x {FBANK_SECONDS} s, dither 0 and 1: max abs distance "
+          f"from float64: kernel {d_k:.3g}, plain {d_p:.3g} (limit {FBANK_F64_RATIO}x the plain "
+          "version's)")
+    check(d_k <= FBANK_F64_RATIO * d_p, f"fbank: the kernel is {d_k:.3g} from float64, over "
+          f"{FBANK_F64_RATIO}x the plain version's {d_p:.3g}")
+    err = max(err, check_fbank_edges(dev), check_fbank_windows(dev))
 
     frames = clean.shape[0] * clean.shape[1]
     ws, shift, padded = frame_params(16000.0, 25.0, 10.0)
     nf, nmel = padded // 2, clean.shape[2]
-    flops = frames * (2.0 * ws * nf * 2 + 2.0 * nf * nmel)
-    bnd, by = bound_ms(nbytes(wave, outs[0.0]), flops / (F32_TFLOPS * 1e12))
+    nnz = int(_kernel_tables(16000.0, nmel, 25.0, 10.0, str(wave.device))[2][:, 1].sum())
+    bound = fbank_bound(frames, ws, nf, nmel, nnz, nbytes(wave, outs[0.0]))
     window = torch.nn.functional.pad(torch.hann_window(ws, periodic=False, device=dev) ** 0.85,
                                      (0, padded - ws))
 
@@ -1717,19 +1890,31 @@ def check_fbank_kernel(dev) -> dict:
         return torch.stft(wave, n_fft=padded, hop_length=shift, window=window, center=False,
                           return_complex=True).abs() ** 2
 
+    kernel = lambda d: lambda: fbank_kernel(wave, dither=d, seed=7)   # noqa: E731
     entry = {
         "name": "fbank", "route": "cuda", "source": "conformer_tpu_torch/csrc/fbank.cu",
         "replaces": "conformer_tpu/ops/pallas/fbank_kernel.py:74", "max_abs_err": err,
-        "ms": time_ms(lambda: fbank_kernel(wave)), "plain_ms": time_ms(lambda: fbank_plain(wave)),
-        "bound_ms": bnd, "bound_by": by,
+        "ms": time_ms(kernel(0.0)), "device_ms": device_ms(kernel(0.0), "fbank_fft_kernel"),
+        "dither_1_ms": time_ms(kernel(1.0)),
+        "dither_1_device_ms": device_ms(kernel(1.0), "fbank_fft_kernel"),
+        "plain_ms": time_ms(lambda: fbank_plain(wave)), **bound,
         "library_ms": None,              # no one PyTorch call computes the function
         "yardsticks_ms": {"torch.stft power spectrum (512-sample frames; no dither, DC "
                           "removal, preemphasis, mel or log)": time_ms(stft_power)},
+        "f64_distance": {"kernel": d_k, "plain": d_p},
         "path": "no caller (as in the JAX package)",
     }
-    print(f"kernels: fbank B={FBANK_BATCH} x {FBANK_SECONDS} s ({frames} frames, {flops:.3g} "
-          f"flops): kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, yardsticks "
-          f"{entry['yardsticks_ms']} ms, bound {bnd * 1e3:.2f} us ({by})")
+    dev_ms = lambda k: "not measured" if entry[k] is None else f"{entry[k]:.4f} ms"  # noqa: E731
+    counts = bound["bound_counts"]
+    print(f"kernels: fbank B={FBANK_BATCH} x {FBANK_SECONDS} s ({frames} frames): kernel "
+          f"{entry['ms']:.4f} ms (device {dev_ms('device_ms')}), dither 1 "
+          f"{entry['dither_1_ms']:.4f} ms (device {dev_ms('dither_1_device_ms')}), plain "
+          f"{entry['plain_ms']:.4f} ms, yardsticks {entry['yardsticks_ms']} ms; bound "
+          f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}: {counts['bytes']} bytes "
+          f"{counts['bytes_ms'] * 1e3:.2f} us, FFT {counts['fft_flops']:.4g} flops "
+          f"{counts['fft_flops_ms'] * 1e3:.2f} us; the first design's DFT products "
+          f"{counts['first_design_dft_product_flops']:.4g} flops "
+          f"{counts['first_design_dft_product_ms'] * 1e3:.2f} us)")
     return entry
 
 

@@ -9,6 +9,12 @@ tensors; ``fbank_kernel.launches`` counts its launches. As in the JAX
 package, no serving or training path calls it: the runner and the data
 pipeline featurize on the host (``ops/fbank.py`` ``fbank_numpy``).
 
+The kernel computes the DFT as a float32 FFT, not as the plain version's
+products. Its host tables are made here: the twiddles (``twiddles``,
+laid out as the kernel reads them by ``pass_twiddles``) and the mel
+weights packed per mel bin (``sparse_mel``); ``radix_plan`` is the FFT's
+order of radix passes, the same rule as the kernel's ``plan_radix``.
+
 The TPU kernel dithers with the TPU's own random bits, which nothing else
 reproduces. Here each (seed, utterance, frame, sample) is hashed into two
 uniforms (``dither_normal``) and Box-Muller makes the normal, the same in
@@ -54,6 +60,15 @@ def dither_normal(seed: int, bsz: int, t: int, ws: int, device) -> torch.Tensor:
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(np.float32(2 * math.pi) * u2)
 
 
+def _to(a, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+
+def mel_t32(num_mel_bins: int, padded: int, sample_rate: float) -> np.ndarray:
+    """The mel banks transposed, [F, M] float32 (F = padded // 2)."""
+    return np.ascontiguousarray(mel_banks(num_mel_bins, padded, sample_rate).T, dtype=np.float32)
+
+
 @functools.lru_cache(maxsize=8)
 def _constants(sample_rate: float, num_mel_bins: int, frame_length: float, frame_shift: float,
                device: str):
@@ -61,9 +76,101 @@ def _constants(sample_rate: float, num_mel_bins: int, frame_length: float, frame
     float32 on ``device``."""
     ws, shift, padded = frame_params(sample_rate, frame_length, frame_shift)
     cos_m, sin_m = dft_matrices(ws, padded)
-    mel_t = mel_banks(num_mel_bins, padded, sample_rate).T
-    to = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)  # noqa: E731
-    return ws, shift, to(povey_window(ws)), to(cos_m), to(sin_m), to(mel_t)
+    mel_t = mel_t32(num_mel_bins, padded, sample_rate)
+    return (ws, shift, _to(povey_window(ws), device), _to(cos_m, device), _to(sin_m, device),
+            _to(mel_t, device))
+
+
+# ----------------------------------------------------- the kernel's tables
+
+MAX_WS = 1024           # samples a frame: padded <= 1024, 16 complex points a lane
+
+
+def radix_plan(n: int) -> list[int]:
+    """The radices of the kernel's FFT passes over ``n`` = padded / 2
+    complex points, in order: 8 while 8 divides what is left, then 4, then
+    2 (the kernel's ``plan_radix``): 512 -> 8, 8, 8; 256 -> 8, 8, 4;
+    128 -> 8, 8, 2."""
+    out = []
+    while n > 1:
+        r = 8 if n % 8 == 0 else 4 if n % 4 == 0 else 2
+        out.append(r)
+        n //= r
+    return out
+
+
+def twiddles(padded: int) -> np.ndarray:
+    """[padded, 2] float32: exp(-2 pi i k / padded) for k < padded, made in
+    float64 and rounded once."""
+    ang = -2.0 * math.pi * np.arange(padded, dtype=np.float64) / padded
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+def pass_twiddles(padded: int) -> np.ndarray:
+    """The kernel's twiddle table, [n_tw, 2] float32, entries of
+    ``twiddles(padded)`` laid out in the order the kernel reads them (its
+    ``tw_offset``): for each FFT pass after the first, P points combined
+    and radix R, W_{RP}^{jk} at row k (R - 1) + j - 1 (k < P, 1 <= j < R),
+    so that the lanes of a warp read consecutive rows; then the split
+    pass's W_padded^k, k <= padded / 4."""
+    n = padded // 2
+    tw = twiddles(padded)
+    rows = []
+    p = 1
+    for r in radix_plan(n):
+        if p > 1:
+            jk = np.arange(p)[:, None] * np.arange(1, r)[None, :]
+            rows.append(tw[(jk * (padded // (r * p))).ravel()])
+        p *= r
+    rows.append(tw[: n // 2 + 1])
+    return np.concatenate(rows)
+
+
+def sparse_mel(mel_t: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The float32 mel^T [F, M] packed per mel bin: info int32 [M, 3] of
+    (first FFT bin, count, offset into ``weights``) and ``weights`` float32,
+    each bin's run from its first to its last non-zero weight (the
+    triangles have no zero inside the run), starting at a multiple of 4
+    (the kernel reads four weights at a time; zeros between runs). A bin
+    with no non-zero weight has count 0.
+    mel_t[info[m, 0] + j, m] == weights[info[m, 2] + j] for j < count."""
+    f, m = mel_t.shape
+    info = np.zeros((m, 3), np.int32)
+    runs = []
+    off = 0
+    for b in range(m):
+        nz = np.nonzero(mel_t[:, b])[0]
+        lo, cnt = (int(nz[0]), int(nz[-1]) - int(nz[0]) + 1) if len(nz) else (0, 0)
+        info[b] = (lo, cnt, off)
+        run = np.zeros(-(-cnt // 4) * 4, np.float32)
+        run[:cnt] = mel_t[lo:lo + cnt, b]
+        runs.append(run)
+        off += len(run)
+    weights = np.concatenate(runs) if off else np.zeros(4, np.float32)
+    return info, weights
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_tables(sample_rate: float, num_mel_bins: int, frame_length: float,
+                   frame_shift: float, device: str):
+    """(window [ws], pass twiddles [n_tw, 2], mel info [M, 3] int32, mel
+    weights), float32 where not said, on ``device``."""
+    ws, _, padded = frame_params(sample_rate, frame_length, frame_shift)
+    info, weights = sparse_mel(mel_t32(num_mel_bins, padded, sample_rate))
+    return (_to(povey_window(ws), device), _to(pass_twiddles(padded), device),
+            _to(info, device, torch.int32), _to(weights, device))
+
+
+def width_error(ws: int, bsz: int, t: int) -> str | None:
+    """Why the kernel refuses a window of ``ws`` samples over ``bsz``
+    waveforms of ``t`` frames, or None where it takes them: ws <= 1024
+    (padded <= 1024: a lane holds at most 16 of a frame's 512 complex
+    points), at least one waveform and one frame."""
+    if ws > MAX_WS:
+        return f"fbank_kernel takes a window of at most {MAX_WS} samples (got {ws})"
+    if bsz == 0 or t == 0:
+        return f"fbank_kernel: {bsz} waveforms of {t} frames: nothing to compute"
+    return None
 
 
 def fbank_plain(waveform, *, sample_rate: float = 16000.0, num_mel_bins: int = 80,
@@ -93,28 +200,29 @@ def fbank_kernel(waveform, *, sample_rate: float = 16000.0, num_mel_bins: int = 
                  seed: int = 0) -> torch.Tensor:
     """Kernel wrapper with the contract of ``fbank_plain`` (the JAX
     ``fbank_pallas``): CPU tensors take the plain version, CUDA tensors
-    launch the kernel or raise (float32 [B, N], a window of at most 1024
-    samples)."""
+    launch the kernel or raise (float32 [B, N] within ``width_error``'s
+    limits)."""
     kw = dict(sample_rate=sample_rate, num_mel_bins=num_mel_bins, frame_length=frame_length,
               frame_shift=frame_shift, dither=dither, seed=seed)
     if waveform.device.type == "cpu":
         return fbank_plain(waveform, **kw)
     if waveform.device.type != "cuda" or waveform.dtype != torch.float32 or waveform.dim() != 2:
         raise ValueError("fbank_kernel: a float32 [B, N] CUDA tensor expected")
-    ws, shift, window, cos_m, sin_m, mel_t = _constants(
-        sample_rate, num_mel_bins, frame_length, frame_shift, str(waveform.device))
+    ws, shift, padded = frame_params(sample_rate, frame_length, frame_shift)
     bsz, n = waveform.shape
     t = num_frames(n, ws, shift)
-    if ws > 1024 or bsz == 0 or t == 0:
-        raise ValueError(f"fbank_kernel: window {ws}, waveform {tuple(waveform.shape)} outside "
-                         "the kernel")
+    why = width_error(ws, bsz, t)
+    if why:
+        raise ValueError(why)
+    window, tw, info, weights = _kernel_tables(sample_rate, num_mel_bins, frame_length,
+                                               frame_shift, str(waveform.device))
     wave = waveform.contiguous()
     out = torch.empty((bsz, t, num_mel_bins), dtype=torch.float32, device=wave.device)
-    fn = cuda_build.load_function("fbank", "fbank_features", n_ptrs=7, n_ints=8, n_floats=1)
+    fn = cuda_build.load_function("fbank", "fbank_features", n_ptrs=7, n_ints=9, n_floats=1)
     P = cuda_build.ptr
     seed32 = int(seed) & _M32                 # the hash's uint32 seed, passed as a C int
-    err = fn(P(wave), P(window), P(cos_m), P(sin_m), P(mel_t), P(out), cuda_build.stream_ptr(wave),
-             bsz, n, t, ws, shift, cos_m.shape[1], num_mel_bins,
+    err = fn(P(wave), P(window), P(tw), P(info), P(weights), P(out), cuda_build.stream_ptr(wave),
+             bsz, n, t, ws, shift, padded, tw.shape[0], num_mel_bins,
              seed32 - (1 << 32) if seed32 >> 31 else seed32, float(dither))
     cuda_build.check(err, "fbank_kernel")
     fbank_kernel.launches += 1

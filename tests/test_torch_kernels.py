@@ -129,7 +129,7 @@ def test_kernel_width_limits():
 @pytest.mark.parametrize("script", ["torch_attention_ablation", "torch_joint_ablation",
                                     "torch_conv_ablation", "torch_simple_lattice_ablation",
                                     "torch_int8_ablation", "torch_rnnt_lattice_ablation",
-                                    "torch_ctc_dp_ablation"])
+                                    "torch_ctc_dp_ablation", "torch_fbank_ablation"])
 def test_ablation_texts_apply_to_the_kernels(script):
     """Every stage that an ablation script takes out of a kernel is a text
     substitution in that kernel's source; each must still apply to the
