@@ -86,6 +86,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
                layout made after the first batch): audio-seconds
                per second, token agreement with the plain path, and
                route B's agreement with the float path;
+  5b. stream - streaming at full width (Conformer-M, chunk 16, both
+               kernel flags on): (a) the attention forward at every
+               chunk shape the stream paths run: the scheduler's and
+               streaming validation's (Tq = 16, Tk = 64 + 16 and 512 + 16;
+               B = 1 and 16) and a live session's, each 640 ms piece one
+               chunk of its own fbank (B = 1, Tq = 14, Tk = 78, and the
+               last piece of 15 s, Tq = 5, Tk = 69: odd, the bf16 kernel's
+               unaligned mask pair); B = 1 with a cache length of 0, 1, 37
+               or full, B = 16 mixing them; float32 and bfloat16, outputs
+               poisoned with NaN first) within TOL of its plain version,
+               with kernel, plain and SDPA times beside the bound; (b) f32
+               streaming_greedy_search
+               and the chunk-by-chunk encoder, kernel path vs plain path on
+               the unbiased weights, 4 utterances, caches 512 and 64
+               (encoder within 1e-3, identical hypotheses, tokens emitted);
+               (c) live sessions (runner.new_session / accept_chunk) over a
+               15 s wav in 640 ms pieces: f32 kernel path = plain path
+               token for token, bf16 per-piece latency p50 / p95, the
+               attention kernel's launches (12 a piece, counts set to 0
+               just before); (d) runner.make_scheduler(16): 16 streams
+               from 16 threads, a piece apart (at 15 s stream i opens
+               once stream 0 has fed i pieces); f32, streams of 5 s (they
+               join and leave while others run): each final transcript
+               equals its B=1
+               stream's; bf16, streams of 15 s: chunk latency p50 / p99,
+               ticks, mean active
+               slots, audio-s per wall s, launches (12 a tick). (c)-(e)
+               check in f32 on the unbiased weights at STREAM_N_STEPS
+               emissions a frame (the served ones emit nothing) and read
+               bf16 on the served ones; (e) both
+               WebSocket handlers driven in process with a stand-in socket
+               (no fail reply; $final$ equals the session's or scheduler's
+               transcript); (f), after the fit phase, Trainer.validate
+               with decode.streaming on the fit corpus;
   6. train   - the recipe as shipped (configs/conformer_m.json: pruned
                RNN-T + CTC, the RNN-T and CTC kernel flags on, the attention
                flag off, bf16) on random weights from its seed through the
@@ -2232,6 +2266,467 @@ def decode_int8_batch(runner, fused, fused_raw, float_unbiased_hyps, device, fea
     return res
 
 
+# ------------------------------------------------------------------ stream
+
+STREAM_CHUNK = 16                # decoding_chunk_size of configs/conformer_m.json
+STREAM_CACHES = (64, 512)        # the runner's and scheduler's cache; streaming validation's
+STREAM_ATTN_LENS = (0, 1, 37)    # a row's valid cache slots, beside a full cache
+STREAM_PIECE_MS = 640            # clients.stream_client's chunk_ms
+STREAM_SECONDS = 15.0
+STREAM_F32_SECONDS = 5.0         # the f32 scheduler check's streams (joins, leaves, padded ends)
+STREAM_SLOTS = 16
+STREAM_SEED = 500
+# the emitting runs' decode settings (sessions, scheduler, handlers): the
+# served weights (+6 on the blank bias) emit no token, and the unbiased
+# ones run into the config's per-frame cap of 64 emissions, which turns
+# every tick into a loop of hundreds of greedy steps; at 2 a frame they
+# emit on most frames of a 15 s stream and stay below 1024 tokens
+STREAM_N_STEPS = 2
+STREAM_MAX_HYP = 1024
+
+
+def stream_attention_inputs(dev, dtype, gen, b, tq, cache, lens=None, h=4, dk=64, d=256):
+    """Attention inputs at a streaming chunk shape: Tq = ``tq`` queries, Tk
+    = cache + tq keys (the cache slots, then the chunk); row r's cache
+    slots are valid only in its last ``lens[r]`` (default: 0, 1, 37 and a
+    full cache in turn; 0 is a fresh session, whose every cache tile is
+    masked from every row), by the encoder's own ``cache_valid_mask``."""
+    import torch
+
+    from conformer_tpu_torch.models.attention import AttnCache, cache_valid_mask
+
+    tk = cache + tq
+    attn_len = (torch.tensor([*STREAM_ATTN_LENS, cache])[torch.arange(b) % 4]
+                if lens is None else torch.tensor(lens))
+    q_u = torch.randn(b, h, tq, dk, generator=gen)
+    k, v = (torch.randn(b, h, tk, dk, generator=gen) for _ in range(2))
+    ab = 0.2 * torch.randn(b, h, tq, d, generator=gen)
+    feats = torch.randn(tk, d, generator=gen)
+    mask = cache_valid_mask(AttnCache(k=k[:, :, :cache], v=v[:, :, :cache], length=attn_len),
+                            tq).contiguous()
+    cast = [x.to(dev, dtype) for x in (q_u, ab, k, v, feats)]
+    return (*cast, mask.to(dev))
+
+
+def stream_chunk_shapes(runner) -> list[tuple[tuple[int, ...], int, int]]:
+    """(batch sizes, Tq, cache) of every attention call the stream paths
+    make: the scheduler's and streaming validation's full chunks (Tq =
+    STREAM_CHUNK; B = 1 and STREAM_SLOTS; caches 64 and 512), and a live
+    session's, where each piece is one chunk of its own fbank: a whole
+    STREAM_PIECE_MS piece and the last, shorter piece of a STREAM_SECONDS
+    stream, at the runner's session cache."""
+    import torch
+
+    from conformer_tpu_torch.models.masks import subsampled_lengths
+    from conformer_tpu_torch.ops.fbank import frame_params, num_frames
+
+    d = runner.cfg.data
+    size, shift, _ = frame_params(d.resample_rate, d.frame_length, d.frame_shift)
+    piece = d.resample_rate * STREAM_PIECE_MS // 1000
+    last = int(STREAM_SECONDS * d.resample_rate) % piece or piece
+    cache = runner.new_session().enc.attn_k.shape[3]
+    tqs = [int(subsampled_lengths(torch.tensor(num_frames(n, size, shift)))) for n in (piece, last)]
+    return ([((1, STREAM_SLOTS), STREAM_CHUNK, c) for c in STREAM_CACHES]
+            + [((1,), tq, cache) for tq in tqs])
+
+
+def check_stream_attention(runner, dev) -> dict:
+    """(a) The attention forward at the chunk shapes (``stream_chunk_shapes``),
+    through the wrapper the encoder calls: float32 and bfloat16, B = 1
+    (each attn_len alone) and 16 (mixed), outputs poisoned with NaN first,
+    against the plain version at TOL. In bf16 at each (B, Tq, cache):
+    kernel ms by events and by the profiler, the plain version's ms, one
+    SDPA call on the same scores given as a float mask, and the bound.
+    Returns {"max_abs_err", "shapes", "times": [...]}."""
+    import torch
+
+    from conformer_tpu_torch.ops import rel_attention as ra
+
+    gen = torch.Generator().manual_seed(7)
+    scale = 1 / 8
+    shapes = stream_chunk_shapes(runner)
+    worst, times = 0.0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for bs, tq, cache in shapes:
+            for b in bs:
+                lens_sets = [[n] for n in (*STREAM_ATTN_LENS, cache)] if b == 1 else [None]
+                for lens in lens_sets:
+                    args = stream_attention_inputs(dev, dtype, gen, b, tq, cache, lens)
+                    poison(((b, 4, tq, 64), dtype), ((b, 4, tq), torch.float32))
+                    got = ra.rel_attention(*args, scale=scale)
+                    torch.cuda.synchronize()
+                    want = ra.rel_attention_plain(*args, scale=scale)
+                    label = (f"rel_flash_attention {name} chunk B={b} Tq={tq} cache={cache} "
+                             f"attn_len {lens or 'mixed'}")
+                    worst = max(worst, compare(label, got, want, TOL[name]))
+                if dtype != torch.bfloat16:
+                    continue
+                q_u, ab, k, v, feats, mask = args
+                bias = (torch.matmul(ab.float(), feats.float().T) * scale).masked_fill(
+                    ~mask[:, None], float("-inf")).to(dtype)
+                ops = 2.0 * 4 * float(mask.sum()) * (64 + ab.shape[-1] + 64)
+                bnd, by = bound_ms(nbytes(*args, *got), ops / (BF16_TFLOPS * 1e12))
+                times.append({
+                    "b": b, "tq": tq, "cache": cache, "tk": cache + tq,
+                    "ms": time_ms(lambda: ra.rel_attention(*args, scale=scale)),
+                    "device_ms": device_ms(lambda: ra.rel_attention(*args, scale=scale),
+                                           "rel_flash_fwd"),
+                    "plain_ms": time_ms(lambda: ra.rel_attention_plain(*args, scale=scale)),
+                    "sdpa_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q_u, k, v, attn_mask=bias, scale=scale)),
+                    "bound_ms": bnd, "bound_by": by})
+        at = ", ".join(f"Tq={tq} Tk={c + tq} B={'/'.join(map(str, bs))}" for bs, tq, c in shapes)
+        print(f"stream: rel_flash_attention {name} at {at} (B=1: attn_len 0, 1, 37, full; "
+              f"B=16 mixed): within TOL {TOL[name]} abs + rel of the plain version, outputs "
+              "poisoned with NaN beforehand")
+    for t in times:
+        print(f"stream: rel_flash_attention bf16 B={t['b']} Tq={t['tq']} Tk={t['tk']}: kernel "
+              f"{t['ms']:.4f} ms (device {t['device_ms']}), plain {t['plain_ms']:.4f} ms, SDPA "
+              f"{t['sdpa_ms']:.4f} ms, bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
+    return {"max_abs_err": worst, "shapes": shapes, "times": times}
+
+
+def runner_variant(runner, params, model_cfg, **decode):
+    """A copy of ``runner`` serving ``params`` with ``model_cfg`` (and the
+    decode settings in ``decode``); the weights are shared."""
+    import copy
+
+    r = copy.copy(runner)
+    r.params = params
+    r.cfg = dataclasses.replace(runner.cfg, model=model_cfg,
+                                decode=dataclasses.replace(runner.cfg.decode, **decode))
+    return r
+
+
+def stream_parity_f32(runner, raw_params, dev) -> dict:
+    """(b) streaming_greedy_search and the chunk-by-chunk encoder in f32,
+    kernel path against plain path, on the unbiased weights (which emit),
+    4 utterances of 3, 7.5, 15 and 11 s, left chunks -1 (cache 512) and 4
+    (cache 64). Each path's launch counts are set to 0 just before it and
+    read just after."""
+    import torch
+
+    from conformer_tpu_torch.decode.streaming import streaming_greedy_search
+    from conformer_tpu_torch.models.encoder import encoder_forward_chunk_by_chunk
+    from conformer_tpu_torch.models.masks import subsampled_lengths
+
+    cfg_k = dataclasses.replace(runner.cfg.model, compute_dtype="float32")
+    feats, lens = batch_feats(runner, (3.0, 7.5, 15.0, 11.0), seed=200)
+    f, fl = torch.as_tensor(feats, device=dev), torch.as_tensor(lens, device=dev)
+    enc_lens = subsampled_lengths(fl)
+    out = {}
+    for left in (-1, 4):
+        paths = {}
+        for name, mcfg in (("kernel", cfg_k), ("plain", plain_cfg(cfg_k))):
+            with torch.inference_mode():
+                reset_launch_counts()
+                enc, _ = encoder_forward_chunk_by_chunk(
+                    raw_params["encoder"], f, mcfg, decoding_chunk_size=STREAM_CHUNK,
+                    num_decoding_left_chunks=left, cmvn=raw_params.get("cmvn"))
+                hyps, hl = streaming_greedy_search(
+                    raw_params, f, fl, mcfg, decoding_chunk_size=STREAM_CHUNK,
+                    num_decoding_left_chunks=left, n_steps=runner.cfg.decode.n_steps,
+                    max_hyp_len=runner.cfg.decode.max_hyp_len)
+                torch.cuda.synchronize()
+                paths[name] = (enc, hyp_lists(hyps, hl), launch_counts())
+        (enc_k, hyp_k, n_k), (enc_p, hyp_p, n_p) = paths["kernel"], paths["plain"]
+        valid = (torch.arange(enc_k.shape[1], device=dev)[None, :] < enc_lens[:, None])[..., None]
+        diff = torch.where(valid, enc_k - enc_p, 0).abs()
+        out[left] = {"cache": 512 if left < 0 else STREAM_CHUNK * left,
+                     "encoder_max_abs_err": float(diff.max()),
+                     "finite": bool(torch.isfinite(enc_k).all()),
+                     "hyps_identical": hyp_k == hyp_p, "hyp_lens": [len(h) for h in hyp_k],
+                     "launches_kernel": n_k, "launches_plain": n_p,
+                     "chunks": (int(lens.max()) - 7) // (4 * STREAM_CHUNK) + 1}
+    return out
+
+
+def stream_pieces(seed: int, seconds: float = STREAM_SECONDS):
+    """A synthetic wav as int16 PCM pieces of STREAM_PIECE_MS (what a
+    client sends) and the same pieces as float32 in [-1, 1) (what the
+    server decodes)."""
+    wav = synthetic_wav(seed, seconds)
+    pcm = (np.clip(wav, -1, 1) * 32767).astype(np.int16)
+    n = 16000 * STREAM_PIECE_MS // 1000
+    ints = [pcm[i:i + n] for i in range(0, len(pcm), n)]
+    return ints, [p.astype(np.float32) / 32768.0 for p in ints]
+
+
+def session_feed(runner, pieces) -> dict:
+    """(c) One live session fed piece by piece through the runner:
+    per-piece host latency (the transcript is on the host when
+    accept_chunk returns) and the final tokens."""
+    s = runner.new_session()
+    lat = []
+    for p in pieces:
+        t0 = time.perf_counter()
+        s, rec = runner.accept_chunk(s, p, 16000)
+        lat.append(time.perf_counter() - t0)
+    return {"tokens": rec.tokens, "latency_s": lat}
+
+
+def drive_scheduler(sched, streams) -> dict:
+    """(d) One thread a stream, each feeding its float pieces with ``feed``
+    then ``flush_wait`` (as the pooled WebSocket handler does) and then
+    closing. The streams start a piece apart: stream i opens once stream
+    i - m has fed m pieces, m = min(i, pieces in a stream - 1), so with
+    16 streams of 24 pieces stream i opens once stream 0 has fed i, and
+    shorter streams still open while earlier ones run. Returns the final
+    tokens, the wall seconds and the scheduler's counters."""
+    progress = threading.Condition()
+    fed = [0] * len(streams)
+    lag = len(streams[0]) - 1
+    finals, errors = [None] * len(streams), []
+
+    def client(i):
+        try:
+            m = min(i, lag)
+            with progress:
+                check(progress.wait_for(lambda: fed[i - m] >= m, timeout=600),
+                      f"stream {i} never started")
+            slot = sched.open()
+            for k, p in enumerate(streams[i]):
+                sched.feed(slot, p, 16000)
+                sched.flush_wait(slot, timeout=600)
+                with progress:
+                    fed[i] = k + 1
+                    progress.notify_all()
+            finals[i] = sched.close(slot, timeout=600)
+        except Exception as e:  # noqa: BLE001 (collected, then fails the smoke)
+            errors.append(f"stream {i}: {type(e).__name__}: {e}")
+            with progress:
+                fed[:] = [len(s) for s in streams]   # release the waiting streams
+                progress.notify_all()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(streams))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads) and not errors,
+          f"scheduler streams failed: {errors or 'a client thread did not finish'}")
+    return {"finals": finals, "wall_s": wall, "stats": sched.stats(),
+            "latencies": list(sched.chunk_latencies), "steps": list(sched.step_records)}
+
+
+def b1_stream(runner, pieces, cache_size: int) -> list[int]:
+    """A stream's B=1 decode: the featurizer's frames of the same pieces
+    through streaming_greedy_search at B=1, whose chunks are the
+    scheduler's (the padded final chunk included), at the scheduler's
+    cache."""
+    import torch
+
+    from conformer_tpu_torch.decode.streaming import streaming_greedy_search
+    from conformer_tpu_torch.serve.scheduler import StreamFeaturizer
+
+    fz = StreamFeaturizer(runner.cfg.data)
+    feats = np.concatenate([fz.feed(p) for p in pieces])
+    d = runner.cfg.decode
+    with torch.inference_mode():
+        hyps, hl = streaming_greedy_search(
+            runner.params, torch.as_tensor(feats[None], device=runner.device),
+            torch.tensor([len(feats)], device=runner.device), runner.cfg.model,
+            decoding_chunk_size=d.decoding_chunk_size,
+            num_decoding_left_chunks=cache_size // d.decoding_chunk_size,
+            n_steps=d.n_steps, max_hyp_len=d.max_hyp_len)
+    return hyp_lists(hyps, hl)[0]
+
+
+class StandInSocket:
+    """A WebSocket stand-in for the handlers: an async iterator over the
+    client's frames and a ``send`` that records the replies."""
+
+    def __init__(self, frames):
+        self.frames, self.sent = frames, []
+
+    def __aiter__(self):
+        return self._frames()
+
+    async def _frames(self):
+        for f in self.frames:
+            yield f
+
+    async def send(self, message):
+        self.sent.append(message)
+
+
+def run_handler(handler, runner, *extra, pcm_pieces) -> list:
+    """(e) Drive a WebSocket handler in process, ``handler(runner, socket,
+    *extra)``: the start signal, the int16 pieces, the end signal. Returns
+    the replies."""
+    import asyncio
+
+    ws = StandInSocket([json.dumps({"signal": 1}), *(p.tobytes() for p in pcm_pieces),
+                        json.dumps({"signal": 0})])
+    asyncio.run(handler(runner, ws, *extra))
+    return ws.sent
+
+
+def check_handler_replies(label: str, replies: list, n_pieces: int, want: str) -> None:
+    fails = [r for r in replies if isinstance(r, str) and r.startswith("{")]
+    check(not fails, f"{label}: fail replies {fails[:3]}")
+    check(replies[0] == "$start$" and len(replies) == n_pieces + 2
+          and replies[-1] == "$final$" + want,
+          f"{label}: replies {replies[:2]} ... {replies[-1][:80]!r} ({len(replies)}), want "
+          f"$final${want[:80]!r}")
+
+
+def pct(xs, q) -> float:
+    """The q-th percentile of seconds ``xs``, in ms."""
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def stream_phase(runner, raw_params, dev, layers: int) -> dict:
+    """(a)-(e) of the stream phase. The f32 checks run on the unbiased
+    weights ((c)-(e) at STREAM_N_STEPS emissions a frame: "emitting"),
+    since the served ones (+6) emit no token; the bf16 readings run on the
+    served weights as the serve phase serves them, and these main paths
+    have their counts set to 0 just before and read just after. Each step
+    prints its seconds."""
+    import torch
+
+    from conformer_tpu_torch.serve import websocket_server as ws_srv
+
+    clock = [time.perf_counter()]
+
+    def lap() -> float:
+        now = time.perf_counter()
+        dt, clock[0] = now - clock[0], now
+        return dt
+
+    res = {"attention": check_stream_attention(runner, dev)}
+    print(f"stream: (a) in {lap():.1f} s")
+    zero = dict.fromkeys(kernel_wrappers(), 0)
+
+    par = stream_parity_f32(runner, raw_params, dev)
+    for left, p in par.items():
+        print(f"stream: f32 streaming_greedy_search, kernel path vs plain path, left chunks "
+              f"{left} (cache {p['cache']}, Tk {p['cache'] + STREAM_CHUNK}), unbiased weights, "
+              f"3 / 7.5 / 15 / 11 s: chunk-by-chunk encoder max_abs_err "
+              f"{p['encoder_max_abs_err']:.3g} (tol 1e-3), hyps identical {p['hyps_identical']}, "
+              f"hyp lens {p['hyp_lens']}; attention launches kernel path "
+              f"{p['launches_kernel']['rel_flash_attention']} ({p['chunks']} chunks x {layers} "
+              f"layers x 2 calls), plain path {p['launches_plain']['rel_flash_attention']}")
+        check(p["finite"] and p["encoder_max_abs_err"] <= 1e-3 and p["hyps_identical"],
+              f"f32 streaming kernel path disagrees with the plain path (left chunks {left})")
+        check(max(p["hyp_lens"]) > 0, f"the f32 streaming decode emitted no token (left {left})")
+        want = {**zero, "rel_flash_attention": 2 * p["chunks"] * layers}
+        check(p["launches_kernel"] == want and p["launches_plain"] == zero,
+              f"streaming launches {p['launches_kernel']} / {p['launches_plain']}, expected "
+              f"{want} / none")
+    res["parity"] = par
+    print(f"stream: (b) in {lap():.1f} s")
+
+    # (c) live sessions: 640 ms pieces of one 15 s wav
+    ints, floats = stream_pieces(STREAM_SEED)
+    emit = dict(n_steps=STREAM_N_STEPS, max_hyp_len=STREAM_MAX_HYP)
+    m32 = dataclasses.replace(runner.cfg.model, compute_dtype="float32")
+    r32k = runner_variant(runner, raw_params, m32, **emit)
+    r32p = runner_variant(runner, raw_params, plain_cfg(m32), **emit)
+    s_k, s_p = session_feed(r32k, floats), session_feed(r32p, floats)
+    print(f"stream: f32 session, {len(floats)} pieces of {STREAM_PIECE_MS} ms, emitting "
+          f"weights: kernel path {len(s_k['tokens'])} tokens, plain path {len(s_p['tokens'])}, "
+          f"identical {s_k['tokens'] == s_p['tokens']}")
+    check(s_k["tokens"] == s_p["tokens"] and len(s_k["tokens"]) > 0,
+          "f32 session: the kernel and plain paths' transcripts differ (or are empty)")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    sess = session_feed(runner, floats)
+    torch.cuda.synchronize()
+    sess["launches"] = launch_counts()
+    print(f"stream: bf16 session, served weights: per-piece latency p50 "
+          f"{pct(sess['latency_s'], 50):.2f} ms, p95 {pct(sess['latency_s'], 95):.2f} ms, max "
+          f"{pct(sess['latency_s'], 100):.2f} ms (host clock, transcript on the host), "
+          f"{len(sess['tokens'])} tokens; launches {sess['launches']} ({len(floats)} pieces)")
+    want = {**zero, "rel_flash_attention": layers * len(floats)}
+    check(sess["launches"] == want, f"session launches {sess['launches']}, expected {want}")
+    res["session"] = sess
+    print(f"stream: (c) in {lap():.1f} s")
+
+    # (d) the scheduler: 16 streams, each starting a piece after the last,
+    # of STREAM_F32_SECONDS in f32 (so that they join and leave the pool
+    # while others run) and of STREAM_SECONDS in bf16; (e) the pooled
+    # handler on the f32 scheduler, its stream 0's audio
+    streams32 = [stream_pieces(STREAM_SEED + i, STREAM_F32_SECONDS) for i in range(STREAM_SLOTS)]
+    s32 = r32k.make_scheduler(n_slots=STREAM_SLOTS)
+    try:
+        d32 = drive_scheduler(s32, [f for _, f in streams32])
+        pooled = run_handler(ws_srv.handle_connection_pooled, r32k, s32,
+                             pcm_pieces=streams32[0][0])
+    finally:
+        s32.shutdown()
+    print(f"stream: (d) f32 scheduler in {lap():.1f} s")
+    refs = [b1_stream(r32k, f, s32.cache_size) for _, f in streams32]
+    same = [g == w for g, w in zip(d32["finals"], refs)]
+    print(f"stream: f32 scheduler, {STREAM_SLOTS} slots, {STREAM_SLOTS} streams x "
+          f"{STREAM_F32_SECONDS} s a piece apart, emitting weights: {sum(same)}/{len(same)} "
+          f"final transcripts equal their B=1 streams', tokens "
+          f"{[len(g) for g in d32['finals']]}; the B=1 streams in {lap():.1f} s")
+    check(all(same) and min(len(g) for g in refs) > 0,
+          f"f32 scheduler transcripts differ from their B=1 streams (streams "
+          f"{[i for i, s in enumerate(same) if not s]})")
+    streams = [stream_pieces(STREAM_SEED + i) for i in range(STREAM_SLOTS)]
+    sched = runner.make_scheduler(n_slots=STREAM_SLOTS)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        d = drive_scheduler(sched, [f for _, f in streams])
+        torch.cuda.synchronize()
+        d["launches"] = launch_counts()
+    finally:
+        sched.shutdown()
+    active = sum(n for _, n in d["steps"]) / len(d["steps"])
+    print(f"stream: bf16 scheduler, served weights: chunk latency p50 "
+          f"{pct(d['latencies'], 50):.2f} ms, p99 {pct(d['latencies'], 99):.2f} ms over "
+          f"{len(d['latencies'])} chunks; {len(d['steps'])} ticks, step host ms p50 "
+          f"{pct([t for t, _ in d['steps']], 50):.2f}, mean {d['stats']['step_ms_mean']}; mean "
+          f"active slots {active:.2f}; {STREAM_SLOTS * STREAM_SECONDS / d['wall_s']:.1f} audio-s "
+          f"per wall s ({d['wall_s']:.2f} s wall); launches {d['launches']}")
+    want = {**zero, "rel_flash_attention": layers * len(d["steps"])}
+    check(d["launches"] == want, f"scheduler launches {d['launches']}, expected {want}")
+    res["scheduler"] = d
+    print(f"stream: (d) bf16 scheduler in {lap():.1f} s")
+
+    # (e) the B=1 handler against the f32 session's transcript, the pooled
+    # one against the f32 scheduler's (same audio, same weights)
+    replies = run_handler(ws_srv.handle_connection, r32k, pcm_pieces=ints)
+    check_handler_replies("handle_connection", replies, len(ints),
+                          r32k._ids_to_text(s_k["tokens"]))
+    check_handler_replies("handle_connection_pooled", pooled, len(streams32[0][0]),
+                          r32k._ids_to_text(d32["finals"][0]))
+    print(f"stream: WebSocket handlers in process (stand-in socket), f32, emitting weights: "
+          f"$start$, {len(ints)} partials and $final$ from each, no fail reply; $final$ equals "
+          f"the session's ({len(s_k['tokens'])} tokens) and the scheduler's "
+          f"({len(d32['finals'][0])} tokens); (e) in {lap():.1f} s")
+    return res
+
+
+def streaming_validation(fit_cfg) -> dict:
+    """(f) Trainer.validate(max_batches=1) with decode.streaming on the fit
+    phase's dev set and its last checkpoint; the counts are set to 0 just
+    before and read just after."""
+    import torch
+
+    from conformer_tpu_torch.data.dataset import AsrDataset, eval_config
+    from conformer_tpu_torch.train.loop import Trainer
+
+    cfg = dataclasses.replace(fit_cfg, decode=dataclasses.replace(fit_cfg.decode, streaming=True))
+    trainer = Trainer(cfg, device="cuda")
+    trainer.restore("last")
+    dev_set = AsrDataset(eval_config(cfg.data), mode="dev", tokenizer=trainer.tokenizer)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    wer = trainer.validate(dev_set, max_batches=1)
+    torch.cuda.synchronize()
+    out = {"wer": wer, "s": time.perf_counter() - t0, "launches": launch_counts()}
+    trainer.logger.close()
+    return out
+
+
 # ------------------------------------------------------------------- train
 
 # limits of the f32 training parity's band check. The two paths' occupancies
@@ -2603,12 +3098,10 @@ def fit_phase() -> dict:
     records = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
     eval_wer = [float(line.split()[-1]) for line in out.getvalue().splitlines()
                 if line.startswith("WER:")]
-    result = {"cfg": cfg, "corpus_s": corpus_s, "fit_s": fit_s, "launches": launches,
-              "first": first, "records": records, "eval_wer": eval_wer, "restored": restored,
-              "names": sorted(os.listdir(ckpt)), "last": open(os.path.join(ckpt, "last")).read(),
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "full_lattice": full}
-    shutil.rmtree(FIT_DIR, ignore_errors=True)
-    return result
+    return {"cfg": cfg, "corpus_s": corpus_s, "fit_s": fit_s, "launches": launches,
+            "first": first, "records": records, "eval_wer": eval_wer, "restored": restored,
+            "names": sorted(os.listdir(ckpt)), "last": open(os.path.join(ckpt, "last")).read(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "full_lattice": full}
 
 
 def validation_batches(cfg) -> int:
@@ -2835,6 +3328,15 @@ def main() -> int:
     route_b_launches = b8["launches"]["int8_ffn"]
     del runner8, raw8, fused, fused_raw
 
+    # 5b. stream: (a) the attention kernel at the chunk shapes, (b) f32
+    # streaming parity, (c) live sessions, (d) the scheduler, (e) the
+    # WebSocket handlers; (f) comes after the fit phase, on its corpus
+    t0 = time.perf_counter()
+    stream = stream_phase(runner, raw_params, dev, layers)
+    entries["rel_flash_attention"]["max_abs_err"] = max(
+        entries["rel_flash_attention"]["max_abs_err"], stream["attention"]["max_abs_err"])
+    print(f"stream: (a)-(e) in {time.perf_counter() - t0:.1f} s")
+
     # 6. train: the shipped recipe (loss kernel flags on, attention flag
     # off), counts set to 0 just before the timed steps (inside train_steps)
     # and read just after; then the f32 parity with the attention kernel on
@@ -2907,6 +3409,19 @@ def main() -> int:
     # counts set to 0 just before the first training run and read just after
     fit = fit_phase()
     check_fit(fit)
+    # 7b. stream (f): streaming validation on the fit phase's corpus, counts
+    # set to 0 just before it and read just after
+    sv = streaming_validation(fit["cfg"])
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    attn = sv["launches"]["rel_flash_attention"]
+    print(f"stream: streaming validation (decode.streaming, chunk "
+          f"{fit['cfg'].decode.decoding_chunk_size}, cache 512), one dev batch of the fit corpus "
+          f"from the last checkpoint: WER {sv['wer']:.4f} in {sv['s']:.2f} s, launches "
+          f"{sv['launches']}")
+    check(np.isfinite(sv["wer"]) and attn > 0 and attn % layers == 0
+          and sv["launches"] == {**dict.fromkeys(kernel_wrappers(), 0),
+                                 "rel_flash_attention": attn},
+          f"streaming validation: WER {sv['wer']}, launches {sv['launches']}")
     train_recs = [r for r in fit["records"] if "train_loss" in r]
     for r in fit["records"]:
         if "valid_wer" in r:

@@ -10,18 +10,41 @@ The relative paths of the JAX ``mhsa`` for a full-utterance forward:
     ``use_pallas`` is set and both ``rel_positions`` and a mask are given.
 Training adds dropout on the attention probabilities: drawn from the
 generator in the plain paths, inside the kernel from a seed drawn on the
-device in the kernel path. The KV cache of streaming and the
-reference-parity modes come later.
+device in the kernel path.
+
+Streaming passes a right-aligned KV cache (``AttnCache``): keys and values
+are ``cache ++ new`` in every path, the kernel's included, and the mask
+and positions cover the cache slots. The reference-parity modes are not
+ported.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import embedding, layers
 from .layers import Params
+
+
+class AttnCache(NamedTuple):
+    """Right-aligned KV cache: the newest frame sits at index size-1."""
+
+    k: torch.Tensor        # [B, H, C, dk]
+    v: torch.Tensor        # [B, H, C, dk]
+    length: torch.Tensor   # int32, scalar or [B]: valid trailing slots
+
+
+def init_attn_cache(batch: int, heads: int, cache_size: int, head_dim: int,
+                    dtype=torch.float32, device=None) -> AttnCache:
+    shape = (batch, heads, cache_size, head_dim)
+    return AttnCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device),
+    )
 
 
 def init_mhsa(gen, dim: int, num_heads: int) -> Params:
@@ -101,14 +124,19 @@ def mhsa(
     pos_emb: torch.Tensor | None = None,
     rel_positions: tuple[torch.Tensor, torch.Tensor] | None = None,
     use_pallas: bool = False,
+    cache: AttnCache | None = None,
     dropout_rate: float = 0.0,
     gen: torch.Generator | None = None,
     deterministic: bool = True,
-) -> torch.Tensor:
-    """Relative multi-head attention, x_q [B,Tq,D], x_kv [B,Tk,D] ->
-    [B,Tq,D]. attn_mask bool [B|1, Tq, Tk] (True = attend) or None;
+) -> tuple[torch.Tensor, AttnCache | None]:
+    """Relative multi-head attention, x_q [B,Tq,D], x_kv [B,Tkv,D] ->
+    (out [B,Tq,D], new cache or None), as in JAX. attn_mask bool [B|1, Tq, Tk] (True = attend) or None;
     pos_emb [Tq+Tk-1, D] is the descending-distance table slice (skew);
     rel_positions (q_pos [Tq], k_pos [Tk]) feed the factorised bias.
+    With ``cache`` (C slots), Tk = C + Tkv: keys and values are ``cache ++
+    new``, the mask and positions must cover the cache slots
+    (``cache_valid_mask``), and the new cache holds the trailing C
+    frames, ``length = min(length + Tkv, C)``.
     ``use_pallas`` keeps the JAX flag's name: it selects the CUDA kernel.
     Dropout at ``dropout_rate`` on the attention probabilities draws from
     ``gen``: in the kernel path one int32 seed, drawn on the device as JAX
@@ -121,6 +149,15 @@ def mhsa(
     q = _split_heads(layers.dense(p["linear_q"], x_q), num_heads)
     k = _split_heads(layers.dense(p["linear_k"], x_kv), num_heads)
     v = _split_heads(layers.dense(p["linear_v"], x_kv), num_heads)
+    new_cache = None
+    if cache is not None:
+        size = cache.k.shape[2]
+        k = torch.cat([cache.k.to(k.dtype), k], dim=2)
+        v = torch.cat([cache.v.to(v.dtype), v], dim=2)
+        new_cache = AttnCache(
+            k=k[:, :, k.shape[2] - size:], v=v[:, :, v.shape[2] - size:],
+            length=torch.clamp(cache.length + x_kv.shape[1], max=size),
+        )
     scale = 1.0 / math.sqrt(head_dim)
     q_u = q + p["pos_bias_u"].to(q.dtype)[None, :, None, :]
     q_v = q + p["pos_bias_v"].to(q.dtype)[None, :, None, :]
@@ -142,7 +179,7 @@ def mhsa(
             k_feats.contiguous(), mask_b.contiguous(), scale=scale,
             dropout_rate=dropout_rate if live else 0.0, seed=seed,
         )
-        return layers.dense(p["linear_out"], _merge_heads(out))
+        return _finish(p, out, new_cache)
 
     ac = torch.matmul(q_u.float(), k.float().transpose(-1, -2))
     if rel_positions is not None and pos_emb is None:
@@ -158,5 +195,19 @@ def mhsa(
     mask = attn_mask[:, None, :, :] if attn_mask is not None else None
     attn = _masked_softmax(scores, mask)
     attn = layers.dropout(gen, attn, dropout_rate, deterministic)
-    out = torch.matmul(attn.to(v.dtype), v)
-    return layers.dense(p["linear_out"], _merge_heads(out))
+    return _finish(p, torch.matmul(attn.to(v.dtype), v), new_cache)
+
+
+def _finish(p: Params, out: torch.Tensor, new_cache: AttnCache | None):
+    return layers.dense(p["linear_out"], _merge_heads(out)), new_cache
+
+
+def cache_valid_mask(cache: AttnCache, q_len: int) -> torch.Tensor:
+    """bool [B|1, q_len, C + q_len]: cache slot j is valid iff j >= C -
+    length (right-aligned, ``length`` scalar or per row); every chunk
+    position is valid."""
+    size = cache.k.shape[2]
+    j = torch.arange(size + q_len, device=cache.k.device)
+    length = cache.length.reshape(-1, 1)
+    valid = torch.where(j[None, :] < size, j[None, :] >= size - length, True)
+    return valid[:, None, :].expand(valid.shape[0], q_len, size + q_len)

@@ -1,8 +1,8 @@
-"""Conformer convolution module (full-utterance) and x4 conv subsampling.
+"""Conformer convolution module and x4 conv subsampling.
 
-Counterpart of the JAX package's ``models/convolution.py``. The streaming
-variant of ``conv_module`` (a carried left-context cache) and the
-BatchNorm and causal options come with the streaming slice.
+Counterpart of the JAX package's ``models/convolution.py``: the
+full-utterance conv module, its causal option, and its streaming form with
+a carried left-context cache. The BatchNorm option is not ported.
 """
 
 from __future__ import annotations
@@ -24,29 +24,47 @@ def init_conv_module(gen, dim: int, kernel_size: int) -> Params:
 
 
 def conv_module(
-    p: Params, x: torch.Tensor, pad_mask: torch.Tensor | None, *, kernel_size: int
+    p: Params, x: torch.Tensor, pad_mask: torch.Tensor | None, *, kernel_size: int,
+    causal: bool = False, cache: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """pw-expand -> GLU -> depthwise (SAME) -> LayerNorm -> swish -> pw.
+    """pw-expand -> GLU -> depthwise -> LayerNorm -> swish -> pw.
 
     x [B, T, D]; pad_mask bool [B, T] (True = valid) or None. Returns
-    (y [B, T, D], cache [B, kernel_size-1, D]): the trailing K-1 GLU frames,
-    zero-left-padded when T < K-1. Padding frames are zeroed on the way in
-    and on the way out.
+    (y [B, T, D], cache [B, K-1, D]). Padding frames are zeroed on the way
+    in and on the way out.
+
+    Without ``cache`` (a full utterance) the depthwise conv is SAME, or
+    left-padded by K-1 when ``causal``; the returned cache is the trailing
+    K-1 GLU frames, zero-left-padded when T < K-1. With ``cache`` [B, K-1,
+    D] (the previous chunk's, zeros at the start) the left context comes
+    from it: a causal conv reads ``cache ++ y`` unpadded; otherwise the
+    first (K-1)//2 frames of ``cache ++ y`` are dropped and the right edge
+    is zero-padded by (K-1)//2, since future frames are not there yet. The
+    next cache is the trailing K-1 frames of the whole history, even when
+    the chunk is shorter than K-1.
     """
     if pad_mask is not None:
         x = torch.where(pad_mask[..., None], x, torch.zeros_like(x))
     y = layers.glu(layers.conv1d(p["pointwise_conv1"], x))
     context = kernel_size - 1
-    cache = F.pad(y, (0, 0, context, 0))[:, y.shape[1]:, :]
-    y = layers.conv1d(
-        p["depthwise_conv"], y, padding=(context // 2, context - context // 2),
-        groups=y.shape[-1],
-    )
+    if cache is not None:
+        y_ext = torch.cat([cache.to(y.dtype), y], dim=1)
+        new_cache = y_ext[:, y_ext.shape[1] - context:, :]
+        if causal:
+            pad = (0, 0)
+        else:
+            pad = (0, context // 2)
+            y_ext = y_ext[:, context // 2:, :]
+    else:
+        new_cache = F.pad(y, (0, 0, context, 0))[:, y.shape[1]:, :]
+        y_ext = y
+        pad = (context, 0) if causal else (context // 2, context - context // 2)
+    y = layers.conv1d(p["depthwise_conv"], y_ext, padding=pad, groups=y.shape[-1])
     y = layers.swish(layers.layer_norm(p["norm"], y))
     y = layers.conv1d(p["pointwise_conv2"], y)
     if pad_mask is not None:
         y = torch.where(pad_mask[..., None], y, torch.zeros_like(y))
-    return y, cache
+    return y, new_cache
 
 
 def init_subsampling(gen, input_dim: int, output_dim: int) -> Params:

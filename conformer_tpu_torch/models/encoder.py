@@ -1,19 +1,41 @@
-"""Conformer encoder, full-utterance forward (JAX ``models/encoder.py``),
-for inference and for training (dropout, dynamic chunk masks).
+"""Conformer encoder (JAX ``models/encoder.py``): the full-utterance
+forward, for inference and for training (dropout, dynamic chunk masks),
+and the streaming forward, chunk by chunk with carried attention and conv
+caches (``EncoderState``).
 
 Layer parameters stay STACKED on a leading [L] axis, as in the JAX pytree;
-``encoder_forward`` walks them with a Python loop over per-layer views
-(the JAX ``lax.scan``). The streaming half (chunked forward with carried
-caches) and ``remat`` come in later slices.
+both forwards walk them with a Python loop over per-layer views (the JAX
+``lax.scan``). ``remat`` is not ported.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..config import ModelConfig
 from . import attention, convolution, embedding, feedforward, layers, masks
+from .attention import AttnCache
 from .layers import Params
+
+
+class EncoderState(NamedTuple):
+    """Streaming state of chunked execution.
+
+    attn_k/attn_v: [L, B, H, C, dk] right-aligned KV caches
+    attn_len:      int32 [B], valid trailing cache slots per row (shared by
+                   the layers; per row, so that a slot pool can hold
+                   streams that joined at different times)
+    conv_cache:    [L, B, K-1, D] post-GLU left context
+    offset:        int32 [B], subsampled frames seen per row
+    """
+
+    attn_k: torch.Tensor
+    attn_v: torch.Tensor
+    attn_len: torch.Tensor
+    conv_cache: torch.Tensor
+    offset: torch.Tensor
 
 
 def init_encoder_layer(gen, cfg: ModelConfig) -> Params:
@@ -62,8 +84,8 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"use_relative={cfg.use_relative}, rel_mode={cfg.rel_mode!r}: only the "
             "relative skew and decomposed modes are ported"
         )
-    if cfg.conv_norm != "layer_norm" or cfg.causal_conv:
-        raise NotImplementedError("only the non-causal LayerNorm conv module is ported")
+    if cfg.conv_norm != "layer_norm":
+        raise NotImplementedError("only the LayerNorm conv module is ported")
 
 
 def _ffn_residual(norm_p: Params, ffn_p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -93,33 +115,38 @@ def encoder_layer(
     cfg: ModelConfig,
     *,
     rel_positions: tuple[torch.Tensor, torch.Tensor] | None = None,
+    attn_cache: AttnCache | None = None,
+    conv_cache: torch.Tensor | None = None,
     use_pallas: bool = False,
     use_pallas_conv: bool = False,
     gen: torch.Generator | None = None,
     deterministic: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """One macaron Conformer layer; returns (x, conv cache [B, K-1, D]).
+):
+    """One macaron Conformer layer; returns (x, new attention cache or
+    None, conv cache [B, K-1, D]), as in JAX.
 
     In training (``deterministic=False``) the seven dropout sites of the
     JAX layer draw from ``gen`` in order: the macaron FFN's inner and
     output dropout, the attention probabilities (with ``use_pallas``, one
     seed for the attention kernel's own keep-mask), the attention output,
     the conv output, the second FFN's inner and output dropout. The conv
-    kernel has no backward, so it runs only when ``deterministic``, as in
-    JAX (``models/encoder.py:308``)."""
+    kernel has no backward, so it runs only when ``deterministic``, and
+    only without a conv cache and for the non-causal conv, as in JAX
+    (``models/encoder.py:145-150``)."""
     def drop(t):
         return layers.dropout(gen, t, cfg.dropout, deterministic)
 
     x = _ffn_residual(p["norm_ff_macaron"], p["feed_forward_macaron"], x, cfg, gen,
                       deterministic)
     y = layers.layer_norm(p["norm_mha"], x)
-    y = attention.mhsa(
+    y, new_attn_cache = attention.mhsa(
         p["self_attn"], y, y, attn_mask, num_heads=cfg.num_heads,
         pos_emb=pos_emb, rel_positions=rel_positions, use_pallas=use_pallas,
-        dropout_rate=cfg.attention_dropout, gen=gen, deterministic=deterministic,
+        cache=attn_cache, dropout_rate=cfg.attention_dropout, gen=gen,
+        deterministic=deterministic,
     )
     x = x + drop(y)
-    if use_pallas_conv and deterministic:
+    if use_pallas_conv and deterministic and conv_cache is None and not cfg.causal_conv:
         from ..ops.conv_block import conv_block
 
         lengths = (
@@ -133,11 +160,12 @@ def encoder_layer(
     else:
         y, conv_cache = convolution.conv_module(
             p["conv_module"], layers.layer_norm(p["norm_conv"], x), pad_mask,
-            kernel_size=cfg.kernel_size,
+            kernel_size=cfg.kernel_size, causal=cfg.causal_conv, cache=conv_cache,
         )
         x = x + drop(y)
     x = _ffn_residual(p["norm_ff"], p["feed_forward"], x, cfg, gen, deterministic)
-    return layers.layer_norm(p["norm_final"], x), conv_cache
+    x = layers.layer_norm(p["norm_final"], x)
+    return x, new_attn_cache, conv_cache
 
 
 def _embed(p: Params, feats: torch.Tensor, cfg: ModelConfig):
@@ -161,6 +189,7 @@ def encoder_forward(
     cfg: ModelConfig,
     *,
     cmvn: Params | None = None,
+    decoding_chunk_size: int = 0,
     num_decoding_left_chunks: int = -1,
     gen: torch.Generator | None = None,
     host_gen: torch.Generator | None = None,
@@ -170,10 +199,14 @@ def encoder_forward(
     (encoder_out [B, T', D], pad_mask bool [B, T'] True = valid).
 
     Deterministic: full context, or a static chunk mask when
-    ``cfg.static_chunk_size > 0``. Training (``deterministic=False``):
-    dropout draws from ``gen`` (on the feats' device) and, with
-    ``cfg.use_dynamic_chunk``, one chunk mask per batch is drawn on the
-    host generator ``host_gen``."""
+    ``cfg.static_chunk_size > 0``; ``decoding_chunk_size`` is ignored
+    there, as in JAX, which reads it only under live dynamic chunks.
+    Training (``deterministic=False``): dropout draws from ``gen`` (on the
+    feats' device) and, with ``cfg.use_dynamic_chunk``, the chunk mask is
+    full context when ``decoding_chunk_size`` < 0, chunks of
+    ``decoding_chunk_size`` with ``num_decoding_left_chunks`` when it is >
+    0, and otherwise drawn once per batch on the host generator
+    ``host_gen``."""
     from . import cmvn as cmvn_mod
 
     if cmvn is not None:
@@ -183,17 +216,132 @@ def encoder_forward(
     pad_mask = masks.make_non_pad_mask(masks.subsampled_lengths(feat_lengths), x.shape[1])
     dynamic = None
     if cfg.use_dynamic_chunk and not deterministic:
-        if host_gen is None:
+        if decoding_chunk_size < 0:
+            dynamic = (x.shape[1], -1)
+        elif decoding_chunk_size > 0:
+            dynamic = (decoding_chunk_size, num_decoding_left_chunks)
+        elif host_gen is None:
             raise ValueError("dynamic chunk training needs a host torch.Generator")
-        dynamic = masks.sample_dynamic_chunk(host_gen, x.shape[1], cfg.use_dynamic_left_chunk)
+        else:
+            dynamic = masks.sample_dynamic_chunk(host_gen, x.shape[1],
+                                                 cfg.use_dynamic_left_chunk)
     attn_mask = masks.make_attn_mask(
         pad_mask, static_chunk_size=cfg.static_chunk_size,
         num_decoding_left_chunks=num_decoding_left_chunks, dynamic_chunk=dynamic,
     ).contiguous()
     for i in range(cfg.encoder_num_layers):
-        x, _ = encoder_layer(
+        x, _, _ = encoder_layer(
             layer_params(p["layers"], i), x, attn_mask, pos_emb, pad_mask, cfg,
             rel_positions=rel_positions, use_pallas=cfg.use_pallas_attention,
             use_pallas_conv=cfg.use_pallas_conv, gen=gen, deterministic=deterministic,
         )
     return layers.layer_norm(p["after_norm"], x), pad_mask
+
+
+# ------------------------------------------------------------- streaming
+
+
+def init_encoder_state(cfg: ModelConfig, batch: int, cache_size: int, dtype=None,
+                       device=None) -> EncoderState:
+    """Fresh streaming state with an attention cache of ``cache_size``
+    subsampled frames; the caches in ``dtype`` (default: the compute
+    dtype), ``attn_len`` and ``offset`` int32."""
+    dtype = dtype or getattr(torch, cfg.compute_dtype)
+    n_layers, h, dk = cfg.encoder_num_layers, cfg.num_heads, cfg.head_dim
+    kv = (n_layers, batch, h, cache_size, dk)
+    return EncoderState(
+        attn_k=torch.zeros(kv, dtype=dtype, device=device),
+        attn_v=torch.zeros(kv, dtype=dtype, device=device),
+        attn_len=torch.zeros(batch, dtype=torch.int32, device=device),
+        conv_cache=torch.zeros((n_layers, batch, cfg.kernel_size - 1, cfg.encoder_dim),
+                               dtype=dtype, device=device),
+        offset=torch.zeros(batch, dtype=torch.int32, device=device),
+    )
+
+
+def encoder_forward_chunk(
+    p: Params,
+    chunk_feats: torch.Tensor,
+    state: EncoderState,
+    cfg: ModelConfig,
+    *,
+    cmvn: Params | None = None,
+) -> tuple[torch.Tensor, EncoderState]:
+    """One chunk of raw feature frames [B, Tc_in, F] (Tc_in = 4 (chunk - 1)
+    + 7 for ``chunk`` subsampled frames) -> (chunk_out [B, Tc, D], new
+    state). Queries attend to every valid cache slot of their row and to
+    the whole chunk. Relative positions: queries at C + i, keys at j over
+    the C cache slots and the chunk (the kernel and the decomposed bias),
+    or the table slice for (Tc, C + Tc) (skew)."""
+    from . import cmvn as cmvn_mod
+
+    _check_supported(cfg)
+    if cmvn is not None:
+        chunk_feats = cmvn_mod.global_cmvn(cmvn, chunk_feats)
+    chunk_feats = chunk_feats.to(getattr(torch, cfg.compute_dtype))
+    cache_size = state.attn_k.shape[3]
+    x = convolution.subsampling(p["embed"], chunk_feats)
+    q_len = x.shape[1]
+    k_len = cache_size + q_len
+    j = torch.arange(k_len, device=x.device)
+    rel_positions = pos_emb = None
+    if cfg.rel_mode == "decomposed" or cfg.use_pallas_attention:
+        rel_positions = (cache_size + torch.arange(q_len, device=x.device), j)
+    else:
+        pos_emb = embedding.relative_pos_embed(p["pos_table"], q_len, k_len)
+    caches = [AttnCache(k=state.attn_k[i], v=state.attn_v[i], length=state.attn_len)
+              for i in range(cfg.encoder_num_layers)]
+    attn_mask = attention.cache_valid_mask(caches[0], q_len).contiguous()
+    new_k, new_v, new_conv = [], [], []
+    for i, cache in enumerate(caches):
+        x, attn, conv = encoder_layer(
+            layer_params(p["layers"], i), x, attn_mask, pos_emb, None, cfg,
+            rel_positions=rel_positions, attn_cache=cache, conv_cache=state.conv_cache[i],
+            use_pallas=cfg.use_pallas_attention,
+        )
+        new_k.append(attn.k)
+        new_v.append(attn.v)
+        new_conv.append(conv)
+    new_state = EncoderState(
+        attn_k=torch.stack(new_k), attn_v=torch.stack(new_v),
+        attn_len=torch.clamp(state.attn_len + q_len, max=cache_size),
+        conv_cache=torch.stack(new_conv), offset=state.offset + q_len,
+    )
+    return layers.layer_norm(p["after_norm"], x), new_state
+
+
+def chunk_window_params(decoding_chunk_size: int) -> tuple[int, int, int]:
+    """(stride, window, context) in raw frames for a chunk of
+    ``decoding_chunk_size`` subsampled frames: subsampling x4, context 7."""
+    subsampling_rate, context = 4, 7
+    stride = subsampling_rate * decoding_chunk_size
+    window = (decoding_chunk_size - 1) * subsampling_rate + context
+    return stride, window, context
+
+
+def encoder_forward_chunk_by_chunk(
+    p: Params,
+    feats: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    decoding_chunk_size: int,
+    num_decoding_left_chunks: int = -1,
+    cmvn: Params | None = None,
+    max_cache_size: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked forward of whole utterances feats [B, T, F] by a Python
+    loop over windows -> (out [B, T', D], pad_mask all True). The cache
+    holds ``decoding_chunk_size * num_decoding_left_chunks`` frames, or
+    ``max_cache_size`` when the left chunks are unlimited (< 0)."""
+    stride, window, context = chunk_window_params(decoding_chunk_size)
+    if num_decoding_left_chunks >= 0:
+        cache_size = decoding_chunk_size * num_decoding_left_chunks
+    else:
+        cache_size = max_cache_size
+    state = init_encoder_state(cfg, feats.shape[0], cache_size, device=feats.device)
+    outs = []
+    for cur in range(0, feats.shape[1] - context + 1, stride):
+        y, state = encoder_forward_chunk(p, feats[:, cur:cur + window], state, cfg, cmvn=cmvn)
+        outs.append(y)
+    out = torch.cat(outs, dim=1)
+    return out, torch.ones(out.shape[:2], dtype=torch.bool, device=out.device)

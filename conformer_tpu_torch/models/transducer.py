@@ -139,11 +139,15 @@ def encode(
     feat_lengths: torch.Tensor,
     cfg: ModelConfig,
     *,
+    decoding_chunk_size: int = 0,
     num_decoding_left_chunks: int = -1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Inference encoder pass -> (encoder_out [B, T', D], lengths [B])."""
+    """Inference encoder pass -> (encoder_out [B, T', D], lengths [B]):
+    full context or static-chunk masked (``decoding_chunk_size`` is read
+    only by a training forward, as in JAX)."""
     out, mask = encoder.encoder_forward(
         p["encoder"], feats, feat_lengths, cfg, cmvn=p.get("cmvn"),
+        decoding_chunk_size=decoding_chunk_size,
         num_decoding_left_chunks=num_decoding_left_chunks,
     )
     return out, mask.sum(dim=1, dtype=torch.int32)

@@ -1,12 +1,14 @@
 """Model runner for serving (JAX ``serve/runner.py``): load a config and
-weights, turn audio into fbank features, and decode full utterances with
-greedy RNN-T on the card.
+weights, turn audio into fbank features, decode full utterances with
+greedy RNN-T on the card, and stream: live B=1 sessions
+(``new_session`` / ``accept_chunk``) and the micro-batching scheduler
+(``make_scheduler``), both on the runner's device.
 
 With ``data.vocab_path`` set the transcript is the tokenizer's text (the
 port's ``data/tokenizer.py``); without a vocab it is the space-joined
 token ids, as in JAX. With ``decode.quantize_int8`` the runner serves int8
-weights as the JAX runner does (``ops/quant.py``). Streaming sessions and
-the micro-batching scheduler come in later slices.
+weights as the JAX runner does (``ops/quant.py``), to sessions and the
+scheduler too.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from ..config import Config
 from ..data.audio import load_audio, resample
 from ..data.tokenizer import Tokenizer, load_vocab
 from ..decode.greedy import greedy_search_batch
+from ..decode.streaming import StreamingSession, new_session, session_accept_chunk
+from ..device import resolve_device
 from ..models import cmvn as cmvn_mod
 from ..models.transducer import encode, init_transducer
 from ..ops.fbank import fbank_numpy
@@ -35,17 +39,6 @@ INT8_SKIP_KEYS = ("predictor", "cmvn", "joint", "ctc")   # the JAX runner's
 class Recognition:
     text: str
     tokens: list[int]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` or, when None, the card. Raises when the card is asked
-    for and CUDA is absent: the CPU is taken only on request."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 class ModelRunner:
@@ -128,6 +121,43 @@ class ModelRunner:
 
     def recognize_file(self, path: str) -> Recognition:
         return self.recognize(self.preprocess_file(path))
+
+    # ------------------------------------------------------------- streaming
+
+    @torch.inference_mode()
+    def new_session(self) -> StreamingSession:
+        """A fresh live stream whose attention cache holds chunk x max(left
+        chunks, 1) frames, at least 64 (the scheduler's rule too)."""
+        d = self.cfg.decode
+        return new_session(
+            self.params, self.cfg.model,
+            cache_size=max(d.decoding_chunk_size * max(d.num_decoding_left_chunks, 1), 64),
+            device=self.device)
+
+    @torch.inference_mode()
+    def accept_chunk(self, session: StreamingSession, wav: np.ndarray,
+                     sr: int) -> tuple[StreamingSession, Recognition]:
+        """Feed raw audio samples: their fbank is one chunk of the session.
+        Returns (the next session, the running transcript)."""
+        feats = torch.as_tensor(self.preprocess_waveform(wav, sr), device=self.device)
+        with self._decode_lock:
+            session = session_accept_chunk(self.params, session, feats, self.cfg.model,
+                                           n_steps=self.cfg.decode.n_steps)
+        ids = self.session_ids(session)
+        return session, Recognition(text=self._ids_to_text(ids), tokens=ids)
+
+    @staticmethod
+    def session_ids(session: StreamingSession) -> list[int]:
+        return session.hyps[0, : int(session.hyp_len[0])].tolist()
+
+    def make_scheduler(self, n_slots: int = 16, max_wait_ms: float = 2.0):
+        """The micro-batching scheduler over this model and device
+        (``serve/scheduler.py``): N connections share one [n_slots, Tc, F]
+        chunk step per tick."""
+        from .scheduler import StreamScheduler
+
+        return StreamScheduler(self.params, self.cfg, n_slots=n_slots,
+                               max_wait_ms=max_wait_ms, device=self.device)
 
     def _ids_to_text(self, ids: list[int]) -> str:
         if self.tokenizer is None:

@@ -8,8 +8,8 @@ read its metrics. ``fit`` streams batches from ``data/dataset.py`` through
 a background ``Prefetcher``, validates every ``val_check_interval`` steps
 (checkpoint ``step_{n}-wer_{x}``), checkpoints at each epoch's end and at
 ``max_steps``, and resumes from ``train.resume_from``. One process: the
-multi-process paths, ``remat``, the other decode modes and streaming
-evaluation are not ported yet (ROADMAP.md queue A).
+multi-process paths, ``remat`` and the other decode modes are not ported
+yet (ROADMAP.md queue A).
 
 Each phase of the step (``encoder_fwd``, ``losses_fwd``, ``backward``,
 ``optimizer``) is a ``torch.profiler`` range, a few microseconds of host
@@ -32,11 +32,12 @@ from ..config import Config, ModelConfig
 from ..data.dataset import AsrDataset, eval_config
 from ..data.tokenizer import Tokenizer, load_vocab
 from ..decode.greedy import greedy_search_batch
+from ..decode.streaming import streaming_greedy_search
+from ..device import resolve_device
 from ..models import cmvn as cmvn_mod
 from ..models import encoder
 from ..models.transducer import encode, init_transducer, transducer_losses
 from ..params import tree_map
-from ..serve.runner import resolve_device
 from . import checkpoint as ckpt_mod
 from .logging_util import MetricLogger
 from .metrics import WordErrorRate
@@ -146,12 +147,12 @@ class Trainer:
     def validate(self, dataset: AsrDataset, max_batches: int | None = None) -> float:
         """Greedy RNN-T decode of ``dataset`` (at most ``max_batches``) ->
         WER; the (key, prediction, truth) triples go to
-        ``<checkpoint_dir>/tmp_prediction.txt``."""
+        ``<checkpoint_dir>/tmp_prediction.txt``. With ``decode.streaming``
+        the decode is ``streaming_greedy_search`` at
+        ``decode.decoding_chunk_size`` and ``num_decoding_left_chunks``,
+        whatever ``decode.mode`` says, as in JAX."""
         dcfg, mcfg = self.cfg.decode, self.cfg.model
-        if dcfg.streaming:
-            raise NotImplementedError(
-                "streaming evaluation is not ported yet (ROADMAP.md queue A, item 'Streaming')")
-        if dcfg.mode != "greedy_rnnt":
+        if not dcfg.streaming and dcfg.mode != "greedy_rnnt":
             raise NotImplementedError(
                 f"decode.mode {dcfg.mode!r} is not ported yet (ROADMAP.md queue A, item "
                 "'Other decode modes'); greedy_rnnt is")
@@ -164,10 +165,17 @@ class Trainer:
                     break
                 feats = torch.as_tensor(b["feats"], device=self.device)
                 lens = torch.as_tensor(b["feat_lengths"], device=self.device)
-                enc, enc_lens = encode(self.params, feats, lens, mcfg)
-                hyps, hyp_lens, _ = greedy_search_batch(
-                    self.params, enc, enc_lens, mcfg, n_steps=dcfg.n_steps,
-                    max_hyp_len=dcfg.max_hyp_len)
+                if dcfg.streaming:
+                    hyps, hyp_lens = streaming_greedy_search(
+                        self.params, feats, lens, mcfg,
+                        decoding_chunk_size=dcfg.decoding_chunk_size,
+                        num_decoding_left_chunks=dcfg.num_decoding_left_chunks,
+                        n_steps=dcfg.n_steps, max_hyp_len=dcfg.max_hyp_len)
+                else:
+                    enc, enc_lens = encode(self.params, feats, lens, mcfg)
+                    hyps, hyp_lens, _ = greedy_search_batch(
+                        self.params, enc, enc_lens, mcfg, n_steps=dcfg.n_steps,
+                        max_hyp_len=dcfg.max_hyp_len)
                 hyps, hyp_lens = hyps.cpu().numpy(), hyp_lens.cpu().numpy()
                 preds = []
                 for i, key in enumerate(b["keys"]):

@@ -229,7 +229,7 @@ def test_mhsa_kernel_path_training_matches_jax_at_rate_zero():
         leaf.requires_grad_()
     xt = torch.from_numpy(x).requires_grad_()
     tpos = torch.from_numpy(pos)
-    out = p_att.mhsa(pp, xt, xt, torch.from_numpy(mask), num_heads=cfg.num_heads,
+    out, _ = p_att.mhsa(pp, xt, xt, torch.from_numpy(mask), num_heads=cfg.num_heads,
                      rel_positions=(tpos, tpos), use_pallas=True, dropout_rate=0.0,
                      gen=torch.Generator().manual_seed(0), deterministic=False)
     (out * torch.from_numpy(g)).sum().backward()
@@ -251,13 +251,13 @@ def test_mhsa_kernel_path_dropout_draws_from_the_generator():
 
     def run(gen):
         return p_att.mhsa(pp, xt, xt, tmask, num_heads=cfg.num_heads, rel_positions=(tpos, tpos),
-                          use_pallas=True, dropout_rate=0.3, gen=gen, deterministic=False)
+                          use_pallas=True, dropout_rate=0.3, gen=gen, deterministic=False)[0]
 
     a = run(torch.Generator().manual_seed(11))
     b = run(torch.Generator().manual_seed(11))
     c = run(torch.Generator().manual_seed(12))
     assert torch.equal(a, b) and not torch.allclose(a, c)
-    det = p_att.mhsa(pp, xt, xt, tmask, num_heads=cfg.num_heads, rel_positions=(tpos, tpos),
+    det, _ = p_att.mhsa(pp, xt, xt, tmask, num_heads=cfg.num_heads, rel_positions=(tpos, tpos),
                      use_pallas=True, dropout_rate=0.3, deterministic=True)
     assert not torch.allclose(a, det)
     seed = torch.randint(0, 2**31 - 1, (1,), generator=torch.Generator().manual_seed(11),

@@ -18,12 +18,15 @@ for name in names:
     importlib.import_module(name)
 new = {"conformer_tpu_torch.ops.quant", "conformer_tpu_torch.ops.int8_matmul",
        "conformer_tpu_torch.ops.int8_ffn", "conformer_tpu_torch.ops.joint_lattice",
-       "conformer_tpu_torch.ops.fbank_kernel", "conformer_tpu_torch.train.flops"}
+       "conformer_tpu_torch.ops.fbank_kernel", "conformer_tpu_torch.train.flops",
+       "conformer_tpu_torch.decode.streaming", "conformer_tpu_torch.decode.stream_batch",
+       "conformer_tpu_torch.serve.scheduler", "conformer_tpu_torch.serve.websocket_server",
+       "conformer_tpu_torch.serve.clients"}
 assert new <= set(names), new - set(names)
 import chip_smoke
 from conformer_tpu_torch.ops import cuda_build
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "conformer_tpu."))
-             or m == "conformer_tpu")
+bad = sorted(m for m in sys.modules if m in ("jax", "conformer_tpu", "websockets")
+             or m.startswith(("jax.", "jaxlib", "conformer_tpu.", "websockets.")))
 assert not bad, bad
 assert not cuda_build._libs
 print(len(names))

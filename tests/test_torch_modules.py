@@ -96,7 +96,7 @@ def test_mhsa_matches(mode):
     want, _ = j_att.mhsa(jp, jnp.asarray(x), jnp.asarray(x), jnp.asarray(mask), num_heads=h,
                          pos_emb=pos_emb, rel_positions=rel, use_pallas=mode == "kernel")
     pt = torch.from_numpy(x)
-    got = p_att.mhsa(
+    got, _ = p_att.mhsa(
         _to_torch(jp), pt, pt, torch.from_numpy(mask), num_heads=h,
         pos_emb=None if pos_emb is None else torch.from_numpy(np.array(pos_emb)),
         rel_positions=None if rel is None else (torch.arange(t), torch.arange(t)),
@@ -120,7 +120,7 @@ def test_encoder_layer_matches(kernels):
         rel_positions=(jnp.arange(23), jnp.arange(23)) if kernels else None,
         use_pallas=kernels, use_pallas_conv=kernels,
     )
-    got, got_cache = p_enc.encoder_layer(
+    got, _, got_cache = p_enc.encoder_layer(
         _to_torch(jp), torch.from_numpy(x), torch.from_numpy(mask),
         torch.from_numpy(np.array(pos_emb)), torch.from_numpy(pad), _port_cfg(cfg),
         rel_positions=(torch.arange(23), torch.arange(23)) if kernels else None,
