@@ -120,6 +120,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
                (no fail reply; $final$ equals the session's or scheduler's
                transcript); (f), after the fit phase, Trainer.validate
                with decode.streaming on the fit corpus;
+  5c. decode modes - the other decode modes at full width (Conformer-M,
+               both kernel flags on) with the JAX bench's settings (beam 8,
+               2 expansion rounds, 256 tokens; the CTC prefix beam's top_c
+               16; rescoring with a random 3-layer attention decoder from a
+               seed, ctc_weight 0.5, 64 tokens): (a) beam_rnnt with blank
+               skip 0 and 8, greedy_ctc, prefix_beam_ctc and
+               attention_rescoring, f32 kernel path vs plain path on the
+               unbiased weights (the beam's joint output kernel x32,
+               BEAM_SHARPEN: on the flat random joint the beam emits
+               nothing), 4 utterances of 3, 7.5, 15 and 11 s
+               (encoders within 1e-3, every top hypothesis identical, a
+               token emitted, the share of all K rows identical printed);
+               (b) bf16 at B=48 x 15 s on the bench's weights (+6 on the
+               joint's blank bias, and on the CTC head's for the CTC modes
+               and rescoring): ms a batch (median of 3 after a warm-up),
+               audio-s/s, tokens, launches (attention 12, conv 12, nothing
+               else) and the beam's host syncs a batch; (c), after the fit
+               phase, ``--eval --set decode.mode=`` beam_rnnt, greedy_ctc
+               and prefix_beam_ctc on the fit checkpoint (a finite WER,
+               attention and conv layers x batches launches each), and
+               attention_rescoring, which must raise ValueError there (the
+               checkpoint has no decoder);
   6. train   - the recipe as shipped (configs/conformer_m.json: pruned
                RNN-T + CTC, the RNN-T and CTC kernel flags on, the attention
                flag off, bf16) on random weights from its seed through the
@@ -2017,13 +2039,16 @@ def serving_config(path: str):
     return cfg
 
 
-def blank_biased(params: dict, blank_id: int, delta: float) -> dict:
-    """A copy of ``params`` with ``delta`` added to the joint's output bias
-    at ``blank_id``; every other tensor is shared."""
-    out = dict(params["joint"]["ffn_out"])
+def blank_biased(params: dict, blank_id: int, delta: float,
+                 head: tuple[str, str] = ("joint", "ffn_out")) -> dict:
+    """A copy of ``params`` with ``delta`` added to the output bias of
+    ``head`` (the joint's, or ("ctc", "ctc_lo") the CTC head's) at
+    ``blank_id``; every other tensor is shared."""
+    group, name = head
+    out = dict(params[group][name])
     out["bias"] = out["bias"].clone()
     out["bias"][blank_id] += delta
-    return {**params, "joint": {**params["joint"], "ffn_out": out}}
+    return {**params, group: {**params[group], name: out}}
 
 
 def make_runner(cfg, device):
@@ -2727,6 +2752,247 @@ def streaming_validation(fit_cfg) -> dict:
     return out
 
 
+# ------------------------------------------------------------ decode modes
+
+# the JAX bench's settings of each mode (bench.py:175-265): the beams at 8
+# with 2 expansion rounds, hypotheses of up to 256 tokens, 16 labels a
+# frame in the CTC prefix beam; rescoring with 3 decoder layers
+# (attention_weight 0.1), ctc_weight 0.5 and hypotheses of up to 64
+MODES = (("beam_rnnt", 0), ("beam_rnnt", 8), ("greedy_ctc", 0), ("prefix_beam_ctc", 0),
+         ("attention_rescoring", 0))
+MODE_BEAM, MODE_EXPANSIONS, MODE_MAX_HYP, MODE_TOP_C = 8, 2, 256, 16
+RESCORE_LAYERS, RESCORE_ATTENTION_WEIGHT, RESCORE_CTC_WEIGHT, RESCORE_MAX_HYP = 3, 0.1, 0.5, 64
+DECODER_SEED = 15
+# the unbiased weights emit on most frames in the greedy search, but not in
+# the beam: every hypothesis pays a blank a frame, an emission adds its own
+# cost, and the flat random joint (best token ~ -7.6, blank ~ -8.6 nats)
+# never repays it, so the beam's best row stays empty. The f32 beam check
+# sharpens the joint's output kernel by this factor (best token ~ -0.4,
+# blank ~ -35): the beam then emits ~13 tokens in 200 frames, as a CPU run
+# of the full-width joint and predictor on random encoder rows shows
+BEAM_SHARPEN = 32.0
+EVAL_MODES = ("beam_rnnt", "greedy_ctc", "prefix_beam_ctc")
+
+
+def mode_label(mode: str, skip: int) -> str:
+    return f"{mode} (blank skip {skip})" if mode == "beam_rnnt" else mode
+
+
+def with_decoder(params: dict, model_cfg, device) -> dict:
+    """``params`` plus a random attention decoder of the bench's rescoring
+    settings (L2R only, RESCORE_LAYERS layers), drawn from DECODER_SEED."""
+    import torch
+
+    from conformer_tpu_torch.models import decoder
+    from conformer_tpu_torch.params import tree_map
+
+    cfg = dataclasses.replace(model_cfg, decoder_num_layers=RESCORE_LAYERS,
+                              attention_weight=RESCORE_ATTENTION_WEIGHT)
+    dec = decoder.init_bi_decoder(torch.Generator().manual_seed(DECODER_SEED), cfg)
+    return {**params, "decoder": tree_map(lambda t: t.to(device), dec)}
+
+
+def sharpened(params: dict, factor: float) -> dict:
+    """A copy of ``params`` with the joint's output kernel times ``factor``."""
+    out = dict(params["joint"]["ffn_out"])
+    out["kernel"] = out["kernel"] * factor
+    return {**params, "joint": {**params["joint"], "ffn_out": out}}
+
+
+def mode_search(params, model_cfg, decode_cfg, mode: str, skip: int, enc, enc_lens):
+    """The mode's search on an encoder output as ``Trainer.validate`` runs
+    it (``train.loop.decode_search``), at the bench's settings ->
+    (tokens [B, K, L] or [B, L], lengths [B, K] or [B])."""
+    from conformer_tpu_torch.train.loop import decode_search
+
+    dcfg = dataclasses.replace(
+        decode_cfg, mode=mode, beam_blank_skip_window=skip, beam_size=MODE_BEAM,
+        beam_expansions=MODE_EXPANSIONS, prefix_beam_top_c=MODE_TOP_C,
+        rescore_ctc_weight=RESCORE_CTC_WEIGHT,
+        max_hyp_len=RESCORE_MAX_HYP if mode == "attention_rescoring" else MODE_MAX_HYP)
+    return decode_search(params, enc, enc_lens, model_cfg, dcfg)
+
+
+def beam_rows(toks, lens) -> list[list[list[int]]]:
+    """Each utterance's rows (K of a beam, one otherwise) as token lists."""
+    toks, lens = toks.cpu(), lens.cpu()
+    if toks.ndim == 2:
+        toks, lens = toks[:, None], lens[:, None]
+    return [[t[k, : int(n[k])].tolist() for k in range(t.shape[0])] for t, n in zip(toks, lens)]
+
+
+def decode_modes_parity(runner, raw_params, dev) -> list[dict]:
+    """(a) Each mode in float32, kernel path against plain path, on the
+    unbiased weights (the beam's with its joint sharpened by BEAM_SHARPEN;
+    a random decoder for rescoring), 4 utterances of 3, 7.5, 15 and 11 s:
+    the encoders within 1e-3 (parity_f32's limit), then each path's search
+    on its own encoder output."""
+    import torch
+
+    from conformer_tpu_torch.models.masks import subsampled_lengths
+    from conformer_tpu_torch.models.transducer import encode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg_k = dataclasses.replace(runner.cfg.model, compute_dtype="float32")
+    params = with_decoder(raw_params, cfg_k, dev)
+    feats, lens = batch_feats(runner, (3.0, 7.5, 15.0, 11.0), seed=200)
+    f, fl = torch.as_tensor(feats, device=dev), torch.as_tensor(lens, device=dev)
+    out = []
+    with torch.inference_mode():
+        enc_k, el_k = encode(params, f, fl, cfg_k)
+        enc_p, el_p = encode(params, f, fl, plain_cfg(cfg_k))
+        valid = (torch.arange(enc_k.shape[1], device=dev)[None, :]
+                 < subsampled_lengths(fl)[:, None])[..., None]
+        enc_err = float(torch.where(valid, enc_k - enc_p, 0).abs().max())
+        beam_params = sharpened(params, BEAM_SHARPEN)
+        for mode, skip in MODES:
+            t0 = time.perf_counter()
+            pm = beam_params if mode == "beam_rnnt" else params
+            dcfg = runner.cfg.decode
+            rk = beam_rows(*mode_search(pm, cfg_k, dcfg, mode, skip, enc_k, el_k))
+            rp = beam_rows(*mode_search(pm, plain_cfg(cfg_k), dcfg, mode, skip, enc_p, el_p))
+            pairs = [(a, b) for xs, ys in zip(rk, rp) for a, b in zip(xs, ys)]
+            out.append({"mode": mode, "skip": skip, "encoder_max_abs_err": enc_err,
+                        "finite": bool(torch.isfinite(enc_k).all()),
+                        "top_identical": [r[0] for r in rk] == [r[0] for r in rp],
+                        "rows_agree": sum(a == b for a, b in pairs) / len(pairs),
+                        "rows": len(pairs), "top_lens": [len(r[0]) for r in rk],
+                        "s": time.perf_counter() - t0})
+    return out
+
+
+def decode_modes_bf16(runner, dev, feats, lens, audio_s: float, runs: int = 3) -> list[dict]:
+    """(b) Each mode in bfloat16 on the bench's weights (+6 on the joint's
+    blank bias; for the CTC modes and rescoring also on the CTC head's),
+    B x 15 s: a warm-up, then ``runs`` timed decodes (encoder and search,
+    the host clock after synchronize); the launch counts and the beam's
+    host syncs are set to 0 just before the first timed decode and read
+    just after it."""
+    import torch
+
+    from conformer_tpu_torch.decode.beam_batched import beam_search_batch
+    from conformer_tpu_torch.models.transducer import encode
+
+    cfg_k = runner.cfg.model
+    ctc_params = with_decoder(blank_biased(runner.params, cfg_k.blank_id, 6.0, ("ctc", "ctc_lo")),
+                              cfg_k, dev)
+    f, fl = torch.as_tensor(feats, device=dev), torch.as_tensor(lens, device=dev)
+    out = []
+    for mode, skip in MODES:
+        params = runner.params if mode == "beam_rnnt" else ctc_params
+
+        def run():
+            with torch.inference_mode():
+                enc, el = encode(params, f, fl, cfg_k)
+                return mode_search(params, cfg_k, runner.cfg.decode, mode, skip, enc, el)
+
+        run()                                                # warm-up
+        times, launches, syncs = [], None, None
+        for r in range(runs):
+            torch.cuda.synchronize()
+            if r == 0:
+                reset_launch_counts()
+                beam_search_batch.host_syncs = 0
+            t0 = time.perf_counter()
+            toks, tl = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if r == 0:
+                launches, syncs = launch_counts(), beam_search_batch.host_syncs
+        ms = sorted(times)[len(times) // 2] * 1e3
+        top = tl[:, 0] if tl.ndim == 2 else tl
+        out.append({"mode": mode, "skip": skip, "ms": ms, "times_s": times,
+                    "audio_s_per_s": audio_s / (ms / 1e3), "tokens": int(top.sum()),
+                    "launches": launches, "host_syncs": syncs})
+    return out
+
+
+def eval_modes(fit: dict) -> dict:
+    """(c) ``conformer_tpu_torch.main --eval --resume`` on the fit corpus and
+    its last checkpoint with each of EVAL_MODES (the counts set to 0 just
+    before each and read just after), then attention_rescoring, which
+    must raise ValueError: the fit checkpoint has no decoder."""
+    import torch
+
+    from conformer_tpu_torch.main import main as port_main
+
+    args = ["--eval", "--resume", "--resume_from", "last", *fit["eval_args"]]
+    res = {}
+    for mode in EVAL_MODES:
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            port_main([*args, f"decode.mode={mode}"])
+        torch.cuda.synchronize()
+        res[mode] = {"s": time.perf_counter() - t0, "launches": launch_counts(),
+                     "wer": [float(line.split()[-1]) for line in out.getvalue().splitlines()
+                             if line.startswith("WER:")]}
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            port_main([*args, "decode.mode=attention_rescoring"])
+        res["attention_rescoring"] = "no error"
+    except ValueError as e:
+        res["attention_rescoring"] = f"ValueError: {e}"
+    except Exception as e:                                 # any other outcome fails
+        res["attention_rescoring"] = f"{type(e).__name__}: {e}"
+    return res
+
+
+def check_decode_modes(par: list[dict], bf: list[dict], layers: int, card: str,
+                       batch: int, seconds: float) -> None:
+    per_batch = {**dict.fromkeys(kernel_wrappers(), 0), "rel_flash_attention": layers,
+                 "conv_block": layers}
+    for r in par:
+        label = mode_label(r["mode"], r["skip"])
+        weights = (f"unbiased weights, joint x{BEAM_SHARPEN:g}" if r["mode"] == "beam_rnnt"
+                   else "unbiased weights")
+        print(f"decode modes: (a) {label}, f32 kernel path vs plain path, {weights}, 4 "
+              f"utterances: encoder max_abs_err {r['encoder_max_abs_err']:.3g} (tol 1e-3); top "
+              f"hypotheses identical {r['top_identical']}, {r['rows_agree']:.2%} of {r['rows']} "
+              f"rows identical, top lengths {r['top_lens']} ({r['s']:.1f} s)")
+        check(r["finite"] and r["encoder_max_abs_err"] <= 1e-3,
+              f"decode modes: {label}: the f32 encoders disagree")
+        check(r["top_identical"], f"decode modes: {label}: f32 top hypotheses differ")
+        check(max(r["top_lens"]) > 0, f"decode modes: {label}: no token emitted")
+    for r in bf:
+        label = mode_label(r["mode"], r["skip"])
+        syncs = (f", host syncs {r['host_syncs']} a batch" if r["mode"] == "beam_rnnt" else "")
+        print(f"decode modes: (b) {label}, bf16, B={batch} x {seconds} s, bench weights: "
+              f"{r['ms']:.1f} ms a batch (median of {len(r['times_s'])}: "
+              f"{[round(t * 1e3, 1) for t in r['times_s']]}), {r['audio_s_per_s']:.1f} audio-s/s, "
+              f"{r['tokens']} tokens, launches {r['launches']}{syncs} [{card}]")
+        check(r["launches"] == per_batch, f"decode modes: {label}: launches {r['launches']} in a "
+              f"batch, expected {per_batch}")
+        check(r["mode"] != "beam_rnnt" or (r["skip"] > 0) == (r["host_syncs"] > 0),
+              f"decode modes: {label}: {r['host_syncs']} host syncs")
+
+
+def check_eval_modes(ev: dict, fit: dict) -> None:
+    from conformer_tpu_torch.data.dataset import eval_config
+
+    cfg = fit["cfg"]
+    layers = cfg.model.encoder_num_layers
+    n_batches = -(-FIT_DEV // eval_config(cfg.data).batch_size)
+    want = {**dict.fromkeys(kernel_wrappers(), 0), "rel_flash_attention": layers * n_batches,
+            "conv_block": layers * n_batches}
+    for mode in EVAL_MODES:
+        r = ev[mode]
+        print(f"decode modes: (c) --eval --set decode.mode={mode} on the fit checkpoint: WER "
+              f"{r['wer']} in {r['s']:.1f} s, {n_batches} batches, launches {r['launches']}")
+        check(len(r["wer"]) == 1 and np.isfinite(r["wer"][0]),
+              f"--eval decode.mode={mode} printed {r['wer']}")
+        check(r["launches"] == want,
+              f"--eval decode.mode={mode}: launches {r['launches']}, expected {want}")
+    msg = ev["attention_rescoring"]
+    print(f"decode modes: (c) --eval --set decode.mode=attention_rescoring on the fit checkpoint "
+          f"(no decoder): {msg}")
+    check(msg == "ValueError: attention_rescoring needs an attention decoder head",
+          f"--eval decode.mode=attention_rescoring without a decoder: {msg}")
+
+
 # ------------------------------------------------------------------- train
 
 # limits of the f32 training parity's band check. The two paths' occupancies
@@ -3098,7 +3364,8 @@ def fit_phase() -> dict:
     records = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
     eval_wer = [float(line.split()[-1]) for line in out.getvalue().splitlines()
                 if line.startswith("WER:")]
-    return {"cfg": cfg, "corpus_s": corpus_s, "fit_s": fit_s, "launches": launches,
+    return {"cfg": cfg, "eval_args": base, "corpus_s": corpus_s, "fit_s": fit_s,
+            "launches": launches,
             "first": first, "records": records, "eval_wer": eval_wer, "restored": restored,
             "names": sorted(os.listdir(ckpt)), "last": open(os.path.join(ckpt, "last")).read(),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "full_lattice": full}
@@ -3337,6 +3604,15 @@ def main() -> int:
         entries["rel_flash_attention"]["max_abs_err"], stream["attention"]["max_abs_err"])
     print(f"stream: (a)-(e) in {time.perf_counter() - t0:.1f} s")
 
+    # 5c. decode modes: (a) f32 parity of each mode, (b) bf16 times at
+    # B=48 x 15 s, counts set to 0 just before the first timed batch of
+    # each mode and read just after; (c) comes after the fit phase
+    t0 = time.perf_counter()
+    dm_par = decode_modes_parity(runner, raw_params, dev)
+    dm_bf = decode_modes_bf16(runner, dev, feats, lens, batch * seconds)
+    check_decode_modes(dm_par, dm_bf, layers, card, batch, seconds)
+    print(f"decode modes: (a)-(b) in {time.perf_counter() - t0:.1f} s")
+
     # 6. train: the shipped recipe (loss kernel flags on, attention flag
     # off), counts set to 0 just before the timed steps (inside train_steps)
     # and read just after; then the f32 parity with the attention kernel on
@@ -3412,6 +3688,10 @@ def main() -> int:
     # 7b. stream (f): streaming validation on the fit phase's corpus, counts
     # set to 0 just before it and read just after
     sv = streaming_validation(fit["cfg"])
+    # 7c. decode modes (c): --eval in each mode on the fit checkpoint
+    t0 = time.perf_counter()
+    check_eval_modes(eval_modes(fit), fit)
+    print(f"decode modes: (c) in {time.perf_counter() - t0:.1f} s")
     shutil.rmtree(FIT_DIR, ignore_errors=True)
     attn = sv["launches"]["rel_flash_attention"]
     print(f"stream: streaming validation (decode.streaming, chunk "

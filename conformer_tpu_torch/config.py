@@ -3,8 +3,8 @@
 An own copy of the JAX package's ``config.py`` (the port imports nothing of
 ``conformer_tpu``): the same fields and defaults, so both packages read the
 same ``configs/*.json`` and take the same ``--set`` overrides. Fields the
-port does not use yet (the other decode modes, the mesh) are kept so a
-config round-trips unchanged.
+port does not use yet (the mesh) are kept so a config round-trips
+unchanged.
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ device in the kernel path.
 
 Streaming passes a right-aligned KV cache (``AttnCache``): keys and values
 are ``cache ++ new`` in every path, the kernel's included, and the mask
-and positions cover the cache slots. The reference-parity modes are not
-ported.
+and positions cover the cache slots. With neither positions nor a table
+the attention is absolute (the attention decoder's): no position term,
+float32 scores. The encoder's absolute and reference-parity position
+modes are not ported (``encoder._check_supported`` refuses them).
 """
 
 from __future__ import annotations
@@ -47,18 +49,22 @@ def init_attn_cache(batch: int, heads: int, cache_size: int, head_dim: int,
     )
 
 
-def init_mhsa(gen, dim: int, num_heads: int) -> Params:
-    head_dim = dim // num_heads
-    bound = math.sqrt(6.0 / (num_heads + head_dim))   # xavier_uniform
-    return {
+def init_mhsa(gen, dim: int, num_heads: int, relative: bool = True) -> Params:
+    """The four projections and, when ``relative``, ``linear_pos`` and the
+    position biases (the attention decoder's layers are absolute)."""
+    p: Params = {
         "linear_q": layers.init_dense(gen, dim, dim),
         "linear_k": layers.init_dense(gen, dim, dim),
         "linear_v": layers.init_dense(gen, dim, dim),
         "linear_out": layers.init_dense(gen, dim, dim),
-        "linear_pos": layers.init_dense(gen, dim, dim, use_bias=False),
-        "pos_bias_u": layers.uniform(gen, (num_heads, head_dim), bound),
-        "pos_bias_v": layers.uniform(gen, (num_heads, head_dim), bound),
     }
+    if relative:
+        head_dim = dim // num_heads
+        bound = math.sqrt(6.0 / (num_heads + head_dim))   # xavier_uniform
+        p["linear_pos"] = layers.init_dense(gen, dim, dim, use_bias=False)
+        p["pos_bias_u"] = layers.uniform(gen, (num_heads, head_dim), bound)
+        p["pos_bias_v"] = layers.uniform(gen, (num_heads, head_dim), bound)
+    return p
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -129,10 +135,11 @@ def mhsa(
     gen: torch.Generator | None = None,
     deterministic: bool = True,
 ) -> tuple[torch.Tensor, AttnCache | None]:
-    """Relative multi-head attention, x_q [B,Tq,D], x_kv [B,Tkv,D] ->
+    """Multi-head attention, x_q [B,Tq,D], x_kv [B,Tkv,D] ->
     (out [B,Tq,D], new cache or None), as in JAX. attn_mask bool [B|1, Tq, Tk] (True = attend) or None;
     pos_emb [Tq+Tk-1, D] is the descending-distance table slice (skew);
-    rel_positions (q_pos [Tq], k_pos [Tk]) feed the factorised bias.
+    rel_positions (q_pos [Tq], k_pos [Tk]) feed the factorised bias;
+    neither: absolute attention, scores = q k^T / sqrt(dk).
     With ``cache`` (C slots), Tk = C + Tkv: keys and values are ``cache ++
     new``, the mask and positions must cover the cache slots
     (``cache_valid_mask``), and the new cache holds the trailing C
@@ -142,8 +149,6 @@ def mhsa(
     ``gen``: in the kernel path one int32 seed, drawn on the device as JAX
     draws it from ``rng``, from which the kernels hash the keep-mask.
     """
-    if rel_positions is None and pos_emb is None:
-        raise NotImplementedError("absolute-position attention is not ported yet")
     d_model = x_q.shape[-1]
     head_dim = d_model // num_heads
     q = _split_heads(layers.dense(p["linear_q"], x_q), num_heads)
@@ -159,6 +164,9 @@ def mhsa(
             length=torch.clamp(cache.length + x_kv.shape[1], max=size),
         )
     scale = 1.0 / math.sqrt(head_dim)
+    if rel_positions is None and pos_emb is None:
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        return _attend(p, scores, attn_mask, v, dropout_rate, gen, deterministic, new_cache)
     q_u = q + p["pos_bias_u"].to(q.dtype)[None, :, None, :]
     q_v = q + p["pos_bias_v"].to(q.dtype)[None, :, None, :]
 
@@ -191,7 +199,15 @@ def mhsa(
         # the position term stays in the compute dtype, as in JAX
         bd_full = torch.einsum("bhid,phd->bhip", q_v, p_proj)
         bd = _rel_skew(bd_full, k.shape[2]).float()
-    scores = (ac + bd) * scale
+    return _attend(p, (ac + bd) * scale, attn_mask, v, dropout_rate, gen, deterministic,
+                   new_cache)
+
+
+def _attend(p: Params, scores: torch.Tensor, attn_mask: torch.Tensor | None,
+            v: torch.Tensor, dropout_rate: float, gen: torch.Generator | None,
+            deterministic: bool, new_cache: AttnCache | None):
+    """Masked float32 softmax, dropout, the product with v in v's dtype,
+    the output projection."""
     mask = attn_mask[:, None, :, :] if attn_mask is not None else None
     attn = _masked_softmax(scores, mask)
     attn = layers.dropout(gen, attn, dropout_rate, deterministic)

@@ -1,4 +1,5 @@
-"""Sinusoidal relative-position encodings (JAX ``models/embedding.py``)."""
+"""Sinusoidal position encodings (JAX ``models/embedding.py``): the
+encoder's relative table and the attention decoder's absolute one."""
 
 from __future__ import annotations
 
@@ -13,6 +14,24 @@ def rel_freqs(d_model: int, device=None) -> torch.Tensor:
         torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
         * (-math.log(10000.0) / d_model)
     )
+
+
+def sinusoid_table(max_len: int, d_model: int, device=None) -> torch.Tensor:
+    """Absolute table [max_len, d] of positions 0..max_len-1, sin at even
+    dims and cos at odd dims."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)
+    ang = pos[:, None] * rel_freqs(d_model, device)[None, :]
+    pe = torch.zeros((max_len, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
+
+
+def absolute_pos_embed(table: torch.Tensor, offset: int, size: int) -> torch.Tensor:
+    """table[offset : offset + size], the offset clamped so that the slice
+    fits, as ``lax.dynamic_slice`` clamps it."""
+    start = max(0, min(int(offset), table.shape[0] - size))
+    return table[start:start + size]
 
 
 def signed_sinusoid_table(max_len: int, d_model: int, device=None) -> torch.Tensor:

@@ -77,8 +77,12 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(ids, p["embedding"])
+def embedding(p: Params, ids: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Rows ``ids`` of the table, cast to ``dtype`` first when given."""
+    table = p["embedding"]
+    if dtype is not None:
+        table = table.to(dtype)
+    return F.embedding(ids, table)
 
 
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

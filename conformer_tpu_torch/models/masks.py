@@ -1,7 +1,9 @@
 """Pad and attention masks (JAX ``models/masks.py``): full context, a
 static chunk mask, and the dynamic-chunk mask of training, whose chunk
 size and left-chunk count are drawn on a host ``torch.Generator`` (a
-device draw would need a host sync to build the mask).
+device draw would need a host sync to build the mask); the attention
+decoder's causal mask and its target helpers (``add_sos_eos``,
+``reverse_sequence``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,12 @@ def subsequent_chunk_mask(
     else:
         start = ((row_chunk - num_left_chunks) * chunk_size).clamp(min=0)
     return (col >= start) & (col < ending)
+
+
+def make_subsequent_mask(length: int, device=None) -> torch.Tensor:
+    """Lower-triangular causal mask [length, length], True = may attend."""
+    pos = torch.arange(length, device=device)
+    return pos[None, :] <= pos[:, None]
 
 
 def sample_dynamic_chunk(
@@ -92,3 +100,27 @@ def add_blank(targets: torch.Tensor, blank: int, ignore_id: int) -> torch.Tensor
     """[B, U] -> [B, U+1]: prepend blank and replace ignore_id with blank."""
     out = torch.cat([torch.full_like(targets[:, :1], blank), targets], dim=1)
     return torch.where(out == ignore_id, blank, out)
+
+
+def add_sos_eos(
+    targets: torch.Tensor, lengths: torch.Tensor, sos: int, eos: int, ignore_id: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """targets [B, U] (padded with ignore_id), lengths [B] -> (ys_in [B, U+1]
+    = [sos, y...] padded with eos, ys_out [B, U+1] = [y..., eos] padded
+    with ignore_id)."""
+    clean = torch.where(targets == ignore_id, 0, targets)
+    pos = torch.arange(targets.shape[1] + 1, device=targets.device)[None, :]
+    n = lengths[:, None]
+    ys_in = torch.cat([torch.full_like(targets[:, :1], sos), clean], dim=1)
+    ys_in = torch.where(pos <= n, ys_in, eos)
+    ys_out = torch.cat([clean, torch.zeros_like(targets[:, :1])], dim=1)
+    ys_out = torch.where(pos == n, eos, torch.where(pos < n, ys_out, ignore_id))
+    return ys_in, ys_out
+
+
+def reverse_sequence(targets: torch.Tensor, lengths: torch.Tensor,
+                     ignore_id: int) -> torch.Tensor:
+    """Each row's first ``lengths`` tokens reversed, the rest ignore_id."""
+    pos = torch.arange(targets.shape[1], device=targets.device)[None, :]
+    idx = (lengths[:, None] - 1 - pos).clamp(min=0).long()
+    return torch.where(pos < lengths[:, None], torch.gather(targets, 1, idx), ignore_id)

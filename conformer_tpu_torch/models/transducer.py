@@ -1,13 +1,14 @@
 """Transducer model (JAX ``models/transducer.py``): random init, the
 inference encoder pass, and the training forward with its losses
 
-    loss = ctc_weight * ctc + transducer_weight * rnnt,
+    loss = ctc_weight * ctc + transducer_weight * rnnt (+ attention_weight * attn),
 
 where rnnt is the full-lattice transducer loss (its joint through the
 fused joint kernels with ``use_pallas_joint``, ``ops/joint_lattice.py``)
 or, with ``use_pruned_loss``, the pruned loss plus ``simple_loss_scale``
-times the simple-lattice loss. The attention-decoder branch is not ported
-yet.
+times the simple-lattice loss, and attn the attention decoder's
+label-smoothed loss (``models/decoder.py``) when the params hold a
+``decoder`` and ``attention_weight`` > 0.
 """
 
 from __future__ import annotations
@@ -18,14 +19,16 @@ from ..config import ModelConfig
 from ..params import tree_map
 from ..ops.rnnt import rnnt_loss_fused
 from ..ops.rnnt_pruned import rnnt_loss_pruned_full
-from . import ctc_head, encoder, joint, layers, masks, predictor
+from . import ctc_head, decoder, encoder, joint, layers, masks, predictor
 from .layers import Params
 
 
 def init_transducer(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Random parameters of the JAX ``init_transducer`` shapes (encoder,
-    predictor, joint, the CTC head and, with ``use_pruned_loss``, the
-    simple-lattice projections), drawn on the CPU from a
+    predictor, joint, the CTC head, with ``use_pruned_loss`` the
+    simple-lattice projections, with ``decoder_num_layers`` > 0 the
+    attention decoder, and its R2L half when ``reverse_weight`` > 0),
+    drawn on the CPU from a
     ``torch.Generator`` seeded with ``seed`` and moved to ``device``.
     The values differ from ``jax.random``'s for the same seed."""
     gen = torch.Generator().manual_seed(seed)
@@ -38,6 +41,9 @@ def init_transducer(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     if cfg.use_pruned_loss:
         p["simple_am_proj"] = layers.init_dense(gen, cfg.encoder_dim, cfg.vocab_size)
         p["simple_lm_proj"] = layers.init_dense(gen, cfg.predictor_dim, cfg.vocab_size)
+    if cfg.decoder_num_layers > 0:
+        r_layers = cfg.decoder_num_layers if cfg.reverse_weight > 0 else 0
+        p["decoder"] = decoder.init_bi_decoder(gen, cfg, r_layers)
     return tree_map(lambda t: t.to(device), p)
 
 
@@ -84,9 +90,9 @@ def transducer_losses(
     deterministic: bool = False,
 ) -> dict:
     """The part of ``transducer_forward`` after the encoder: predictor,
-    joint projections, the transducer and CTC losses."""
-    if cfg.attention_weight > 0 and "decoder" in p:
-        raise NotImplementedError("the attention-decoder loss is not ported yet")
+    joint projections, the transducer and CTC losses and, when the params
+    hold a decoder and ``attention_weight`` > 0, the attention loss
+    (reported as loss_attn)."""
     encoder_out_lens = encoder_mask.sum(dim=1, dtype=torch.int32)
     labels_in = masks.add_blank(labels, cfg.blank_id, cfg.ignore_id)
     pred_out = predictor.predictor_forward(p["predictor"], labels_in, cfg, gen=gen,
@@ -125,11 +131,14 @@ def transducer_losses(
         p["ctc"], encoder_out, t_lens, rnnt_text, label_lengths, cfg, gen=gen,
         deterministic=deterministic, row_valid=row_valid,
     )
-    out.update(
-        loss=cfg.ctc_weight * loss_ctc + cfg.transducer_weight * loss_rnnt,
-        loss_ctc=loss_ctc, loss_rnnt=loss_rnnt, encoder_out=encoder_out,
-        encoder_out_lens=encoder_out_lens,
-    )
+    loss = cfg.ctc_weight * loss_ctc + cfg.transducer_weight * loss_rnnt
+    if cfg.attention_weight > 0 and "decoder" in p:
+        out["loss_attn"] = decoder.attention_loss(
+            p["decoder"], encoder_out, encoder_mask, rnnt_text, label_lengths, cfg, gen=gen,
+            deterministic=deterministic)
+        loss = loss + cfg.attention_weight * out["loss_attn"]
+    out.update(loss=loss, loss_ctc=loss_ctc, loss_rnnt=loss_rnnt, encoder_out=encoder_out,
+               encoder_out_lens=encoder_out_lens)
     return out
 
 

@@ -4,8 +4,8 @@ as nested dicts of torch tensors.
 The port keeps the JAX layouts unchanged (dense kernels [in, out], encoder
 layers stacked on a leading [L] axis, ``pos_table`` [2*max_len-1, D],
 depthwise kernels [L, K, 1, D], the predictor's ``rnn`` as a list of
-per-layer dicts), so a JAX tree carries over leaf by leaf. Subtrees the
-port does not use yet (``ctc``, ``simple_*_proj``, ``decoder``) are kept.
+per-layer dicts, the attention decoder's layers stacked on [L]), so a JAX
+tree carries over leaf by leaf.
 """
 
 from __future__ import annotations

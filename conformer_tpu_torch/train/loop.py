@@ -1,5 +1,6 @@
-"""Training loop on one card (JAX ``train/loop.py``): the step, greedy-WER
-validation, ``fit`` over the host data pipeline, and checkpoints.
+"""Training loop on one card (JAX ``train/loop.py``): the step, WER
+validation in each of JAX's five decode modes, ``fit`` over the host data
+pipeline, and checkpoints.
 
 A step takes ``accum_grad`` microbatches: each one's gradients are divided
 by their number and summed, then one clipped Adam update runs in place on
@@ -8,8 +9,8 @@ read its metrics. ``fit`` streams batches from ``data/dataset.py`` through
 a background ``Prefetcher``, validates every ``val_check_interval`` steps
 (checkpoint ``step_{n}-wer_{x}``), checkpoints at each epoch's end and at
 ``max_steps``, and resumes from ``train.resume_from``. One process: the
-multi-process paths, ``remat`` and the other decode modes are not ported
-yet (ROADMAP.md queue A).
+multi-process paths and ``remat`` are not ported yet (ROADMAP.md queue
+A).
 
 Each phase of the step (``encoder_fwd``, ``losses_fwd``, ``backward``,
 ``optimizer``) is a ``torch.profiler`` range, a few microseconds of host
@@ -28,10 +29,14 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..config import Config, ModelConfig
+from ..config import Config, DecodeConfig, ModelConfig
 from ..data.dataset import AsrDataset, eval_config
 from ..data.tokenizer import Tokenizer, load_vocab
+from ..decode.beam_batched import beam_search_batch
+from ..decode.ctc_beam_batched import ctc_prefix_beam_decode_batch
+from ..decode.ctc_decode import ctc_greedy_decode
 from ..decode.greedy import greedy_search_batch
+from ..decode.rescoring import attention_rescoring_batch
 from ..decode.streaming import streaming_greedy_search
 from ..device import resolve_device
 from ..models import cmvn as cmvn_mod
@@ -44,6 +49,8 @@ from .metrics import WordErrorRate
 from .optimizer import is_trainable, leaf_paths, make_optimizer
 
 _METRICS = ("loss", "loss_ctc", "loss_rnnt")
+DECODE_MODES = ("greedy_rnnt", "beam_rnnt", "greedy_ctc", "prefix_beam_ctc",
+                "attention_rescoring")
 
 
 class Trainer:
@@ -145,17 +152,18 @@ class Trainer:
     # ------------------------------------------------------------ validation
 
     def validate(self, dataset: AsrDataset, max_batches: int | None = None) -> float:
-        """Greedy RNN-T decode of ``dataset`` (at most ``max_batches``) ->
-        WER; the (key, prediction, truth) triples go to
-        ``<checkpoint_dir>/tmp_prediction.txt``. With ``decode.streaming``
-        the decode is ``streaming_greedy_search`` at
-        ``decode.decoding_chunk_size`` and ``num_decoding_left_chunks``,
-        whatever ``decode.mode`` says, as in JAX."""
+        """Decode ``dataset`` (at most ``max_batches``) -> WER; the (key,
+        prediction, truth) triples go to ``<checkpoint_dir>/tmp_prediction.txt``.
+        Each batch is encoded and searched in ``decode.mode`` as JAX's
+        ``_decode_fn`` does (``decode_search``, the top row of the beams);
+        with ``decode.streaming`` the decode is ``streaming_greedy_search``
+        at ``decode.decoding_chunk_size`` and ``num_decoding_left_chunks``,
+        whatever ``decode.mode`` says, as in JAX. Otherwise an unknown mode
+        raises ValueError before any batch, and ``attention_rescoring``
+        without a decoder in the params raises ValueError."""
         dcfg, mcfg = self.cfg.decode, self.cfg.model
-        if not dcfg.streaming and dcfg.mode != "greedy_rnnt":
-            raise NotImplementedError(
-                f"decode.mode {dcfg.mode!r} is not ported yet (ROADMAP.md queue A, item "
-                "'Other decode modes'); greedy_rnnt is")
+        if not dcfg.streaming:
+            check_mode(dcfg.mode)
         wer = WordErrorRate()
         os.makedirs(self.cfg.train.checkpoint_dir, exist_ok=True)
         out_path = os.path.join(self.cfg.train.checkpoint_dir, "tmp_prediction.txt")
@@ -173,9 +181,9 @@ class Trainer:
                         n_steps=dcfg.n_steps, max_hyp_len=dcfg.max_hyp_len)
                 else:
                     enc, enc_lens = encode(self.params, feats, lens, mcfg)
-                    hyps, hyp_lens, _ = greedy_search_batch(
-                        self.params, enc, enc_lens, mcfg, n_steps=dcfg.n_steps,
-                        max_hyp_len=dcfg.max_hyp_len)
+                    hyps, hyp_lens = decode_search(self.params, enc, enc_lens, mcfg, dcfg)
+                    if hyps.ndim == 3:                 # a beam: its best row
+                        hyps, hyp_lens = hyps[:, 0], hyp_lens[:, 0]
                 hyps, hyp_lens = hyps.cpu().numpy(), hyp_lens.cpu().numpy()
                 preds = []
                 for i, key in enumerate(b["keys"]):
@@ -323,6 +331,38 @@ class Trainer:
                 self.opt_state.mu[k].copy_(opt["mu"][k])
                 self.opt_state.nu[k].copy_(opt["nu"][k])
         self.step = int(state["step"])
+
+
+def check_mode(mode: str) -> None:
+    if mode not in DECODE_MODES:
+        raise ValueError(f"unknown decode.mode {mode!r}: expected greedy_rnnt | beam_rnnt | "
+                         "greedy_ctc | prefix_beam_ctc | attention_rescoring")
+
+
+def decode_search(p, enc: torch.Tensor, enc_lens: torch.Tensor, mcfg: ModelConfig,
+                  dcfg: DecodeConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The search of ``dcfg.mode`` on an encoder output, with JAX's
+    ``_decode_fn`` settings -> (tokens [B, K, L], lengths [B, K]) for the
+    beams (``beam_rnnt``, ``prefix_beam_ctc``; best first), (tokens [B, L],
+    lengths [B]) for the others."""
+    check_mode(dcfg.mode)
+    mode, max_hyp = dcfg.mode, dcfg.max_hyp_len
+    top_c = dcfg.prefix_beam_top_c or mcfg.vocab_size
+    if mode == "greedy_rnnt":
+        return greedy_search_batch(p, enc, enc_lens, mcfg, n_steps=dcfg.n_steps,
+                                   max_hyp_len=max_hyp)[:2]
+    if mode == "beam_rnnt":
+        return beam_search_batch(p, enc, enc_lens, mcfg, beam_size=dcfg.beam_size,
+                                 max_hyp_len=max_hyp, max_expansions=dcfg.beam_expansions,
+                                 blank_skip_window=dcfg.beam_blank_skip_window)[:2]
+    if mode == "greedy_ctc":
+        return ctc_greedy_decode(p, enc, enc_lens, mcfg)
+    if mode == "prefix_beam_ctc":
+        return ctc_prefix_beam_decode_batch(p, enc, enc_lens, mcfg, beam_size=dcfg.beam_size,
+                                            max_hyp_len=max_hyp, top_c=top_c)[:2]
+    return attention_rescoring_batch(p, enc, enc_lens, mcfg, beam_size=dcfg.beam_size,
+                                     ctc_weight=dcfg.rescore_ctc_weight, max_hyp_len=max_hyp,
+                                     top_c=top_c)
 
 
 def plain_model_config(cfg: ModelConfig) -> ModelConfig:

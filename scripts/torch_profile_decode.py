@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""Where the time of one batched greedy RNN-T decode goes on the GPU, for
-the PyTorch/CUDA port (``conformer_tpu_torch``).
+"""Where the time of one batched decode goes on the GPU, for the
+PyTorch/CUDA port (``conformer_tpu_torch``).
 
     python3 scripts/torch_profile_decode.py [--batch 48] [--seconds 15] [--iters 5] [--int8]
+        [--modes greedy_rnnt,beam_rnnt,beam_rnnt:8,greedy_ctc,prefix_beam_ctc,attention_rescoring]
 
 Conformer-M (configs/conformer_m.json, bf16, both kernel flags on) on random
 weights from the config's seed with +6 on the joint's blank bias, fed
 seeded random-normal features, as bench.py's decode phase sets it up.
 ``--int8`` mirrors ``bench.py --int8``: both FFN matmuls of every encoder
 layer int8 (``quantize_tree(..., fuse_ffn=True)``), so each macaron half runs
-as one fused int8 FFN kernel (route B of int8 serving). For
-the encoder and for the greedy search apart it prints the host time (each
-ended by a synchronize, median of ``--iters``) and, from a torch.profiler
-trace of one run, the device's busy share, the kernel launches and the
-kernels that take the most device time. The last line is one JSON object
-with all of it. Needs a CUDA device; imports nothing of JAX.
+as one fused int8 FFN kernel (route B of int8 serving). ``--modes``
+names the searches, each run on the same encoder output: ``greedy_rnnt``
+(the default), ``beam_rnnt`` (``beam_rnnt:W`` with a blank-skip window of
+W), ``greedy_ctc``, ``prefix_beam_ctc`` and ``attention_rescoring``, with
+the JAX bench's settings (bench.py:175-265: beam 8, 2 expansion rounds,
+256 tokens, top_c 16; rescoring with a random 3-layer decoder from seed
+15, ctc_weight 0.5, 64 tokens) and, for the CTC modes and rescoring, +6
+on the CTC head's blank bias too. For the encoder and for each search
+apart it prints the host time (each ended by a synchronize, median of
+``--iters``) and, from a torch.profiler trace of one run, the device's
+busy share, the kernel launches and the kernels that take the most device
+time. The last line is one JSON object with all of it. Needs a CUDA
+device; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -34,10 +43,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from conformer_tpu_torch.config import Config  # noqa: E402
-from conformer_tpu_torch.decode.greedy import greedy_search_batch  # noqa: E402
+from conformer_tpu_torch.models import decoder  # noqa: E402
 from conformer_tpu_torch.models.transducer import encode  # noqa: E402
+from conformer_tpu_torch.params import tree_map  # noqa: E402
 from conformer_tpu_torch.ops.quant import quantize_tree  # noqa: E402
 from conformer_tpu_torch.serve.runner import INT8_SKIP_KEYS, ModelRunner  # noqa: E402
+from conformer_tpu_torch.train.loop import decode_search  # noqa: E402
 
 
 def timed(fn, iters: int) -> tuple[float, object]:
@@ -87,6 +98,27 @@ def profiled(fn, top: int) -> dict:
     }
 
 
+def searches(p: dict, mcfg, dcfg, modes: list[str]) -> dict:
+    """mode -> (params, its decode config) for ``decode_search``."""
+    ctc = dict(p["ctc"]["ctc_lo"])
+    ctc["bias"] = ctc["bias"].clone()
+    ctc["bias"][mcfg.blank_id] += 6.0
+    p_ctc = {**p, "ctc": {"ctc_lo": ctc}}
+    if "attention_rescoring" in modes:
+        dec = decoder.init_bi_decoder(torch.Generator().manual_seed(15),
+                                      dataclasses.replace(mcfg, decoder_num_layers=3))
+        p_ctc["decoder"] = tree_map(lambda t: t.to("cuda"), dec)
+    bench = dict(beam_size=8, beam_expansions=2, prefix_beam_top_c=16, rescore_ctc_weight=0.5)
+    out = {}
+    for mode in modes:
+        name, _, window = mode.partition(":")
+        dc = dataclasses.replace(dcfg, mode=name, beam_blank_skip_window=int(window or 0),
+                                 max_hyp_len=64 if name == "attention_rescoring" else 256,
+                                 **bench)
+        out[mode] = (p if name.endswith("rnnt") else p_ctc, dc)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default=os.path.join(REPO, "configs", "conformer_m.json"))
@@ -96,6 +128,8 @@ def main() -> int:
     ap.add_argument("--top", type=int, default=8)
     ap.add_argument("--int8", action="store_true",
                     help="both FFN matmuls int8: the fused int8 FFN kernel (bench.py --int8)")
+    ap.add_argument("--modes", default="greedy_rnnt",
+                    help="comma-separated searches; beam_rnnt:W sets a blank-skip window")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_decode: needs a CUDA device", file=sys.stderr)
@@ -121,11 +155,6 @@ def main() -> int:
     with torch.inference_mode():
         enc_s, (enc_out, enc_lens) = timed(run_encode, args.iters)
 
-        def run_greedy():
-            return greedy_search_batch(p, enc_out, enc_lens, mcfg, n_steps=dcfg.n_steps,
-                                       max_hyp_len=dcfg.max_hyp_len)
-
-        greedy_s, (_, hyp_lens, _) = timed(run_greedy, args.iters)
         result = {
             "device": torch.cuda.get_device_name(0),
             "card": subprocess.run(
@@ -133,15 +162,20 @@ def main() -> int:
                 capture_output=True, text=True, timeout=60).stdout.strip(),
             "int8": args.int8, "batch": args.batch, "seconds": args.seconds, "frames": frames,
             "encoder_frames": int(enc_out.shape[1]),
-            "tokens_emitted": int(hyp_lens.sum()),
-            "encode_s": enc_s, "greedy_s": greedy_s,
-            "audio_s_per_s": args.batch * args.seconds / (enc_s + greedy_s),
-            "encode_trace": profiled(run_encode, args.top),
-            "greedy_trace": profiled(run_greedy, args.top),
+            "encode_s": enc_s, "encode_trace": profiled(run_encode, args.top),
         }
-    for phase in ("encode", "greedy"):
-        tr = result[f"{phase}_trace"]
-        print(f"{phase}: {result[f'{phase}_s'] * 1e3:.3f} ms host; trace {json.dumps(tr)}")
+        print(f"encode: {enc_s * 1e3:.3f} ms host; trace {json.dumps(result['encode_trace'])}")
+        for mode, (q, dc) in searches(p, mcfg, dcfg, args.modes.split(",")).items():
+            def run_search():
+                return decode_search(q, enc_out, enc_lens, mcfg, dc)
+
+            search_s, (_, hyp_lens) = timed(run_search, args.iters)
+            hyp_lens = hyp_lens[:, 0] if hyp_lens.ndim == 2 else hyp_lens
+            trace = profiled(run_search, args.top)
+            result[mode] = {"s": search_s, "tokens_emitted": int(hyp_lens.sum()),
+                            "audio_s_per_s": args.batch * args.seconds / (enc_s + search_s),
+                            "trace": trace}
+            print(f"{mode}: {search_s * 1e3:.3f} ms host; trace {json.dumps(trace)}")
     print(json.dumps(result))
     return 0
 

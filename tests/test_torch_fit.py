@@ -292,15 +292,24 @@ def test_fit_validates_checkpoints_and_resumes(corpus, tmp_path):
 
 
 def test_validate_refuses_unported_modes(corpus):
+    """Every decode mode of JAX is ported (tests/test_torch_rescoring.py
+    holds each to JAX's); an unknown mode is refused with JAX's ValueError,
+    and attention rescoring on params without a decoder raises."""
     _, pcfg = _tiny_cfgs(corpus)
     pcfg.decode.mode = "beam_rnnt"
     trainer = Trainer(pcfg, device="cpu")
     dev = p_ds.AsrDataset(p_ds.eval_config(pcfg.data), "dev", tokenizer=trainer.tokenizer)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert np.isfinite(trainer.validate(dev, max_batches=1))
+    pcfg.decode.mode = "no_such_mode"
+    with pytest.raises(ValueError, match="unknown decode.mode"):
         trainer.validate(dev)
-    # streaming evaluation is ported: it decodes whatever decode.mode says,
-    # as in JAX (tests/test_torch_stream_serve.py holds it to JAX's decode)
+    pcfg.decode.mode = "attention_rescoring"
+    with pytest.raises(ValueError, match="needs an attention decoder head"):
+        trainer.validate(dev, max_batches=1)
+    # streaming evaluation decodes whatever decode.mode says, as in JAX
+    # (tests/test_torch_stream_serve.py holds it to JAX's decode)
     pcfg.decode.streaming = True
+    pcfg.decode.mode = "no_such_mode"
     assert np.isfinite(trainer.validate(dev, max_batches=1))
 
 

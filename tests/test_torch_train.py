@@ -224,7 +224,12 @@ def test_schedule_matches_jax():
 
 @pytest.mark.parametrize("grad_scale", [1e-3, 10.0])        # below and above the clip
 def test_optimizer_updates_match_optax(grad_scale):
+    """Every leaf moves as optax moves it, but the sinusoid tables: the
+    encoder's pos_table and both attention decoders' (a decoder of one
+    layer each way), which the port freezes, while the JAX package's
+    optax.masked adds their raw gradients."""
     cfg = tiny_test_config()
+    cfg.model = dataclasses.replace(cfg.model, decoder_num_layers=1, reverse_weight=0.3)
     jp = j_tr.init_transducer(jax.random.PRNGKey(7), cfg.model)
     tx, _ = j_opt.make_optimizer(cfg.train, jp)
     j_state = tx.init(jp)
@@ -232,7 +237,10 @@ def test_optimizer_updates_match_optax(grad_scale):
     opt, _ = p_opt.make_optimizer(_port_cfg(cfg).train)
     p_state = opt.init(pp)
     rng = np.random.default_rng(8)
-    pos0 = pp["encoder"]["pos_table"].clone()
+    tables = sorted(k for k in _paths(pp) if k.endswith("pos_table"))
+    assert tables == ["decoder.left_decoder.pos_table", "decoder.right_decoder.pos_table",
+                      "encoder.pos_table"]
+    pos0 = {k: _paths(pp)[k].clone() for k in tables}
     for _ in range(2):                                         # bias correction, schedule
         j_grads = jax.tree.map(
             lambda a: jnp.asarray(grad_scale * rng.standard_normal(a.shape).astype(np.float32)),
@@ -243,14 +251,17 @@ def test_optimizer_updates_match_optax(grad_scale):
         lr, norm = opt.update(pp, {k: g[k] for k in p_state.mu}, p_state)
         want = _paths(_to_torch(j_new))
         for k, leaf in _paths(pp).items():
-            if k != "encoder.pos_table":
+            if k not in tables:
                 _close(leaf, want[k], rtol=1e-5, atol=1e-6, err_msg=k)
-        # the JAX package's optax.masked adds pos_table's raw gradient
-        _close(want["encoder.pos_table"] - _paths(_to_torch(jp))["encoder.pos_table"],
-               g["encoder.pos_table"], atol=1e-6)
+        # the JAX package's optax.masked adds each table's raw gradient
+        old = _paths(_to_torch(jp))
+        for k in tables:
+            _close(want[k] - old[k], g[k], atol=1e-6)
         jp = j_new
-    assert torch.equal(pp["encoder"]["pos_table"], pos0)
-    assert not p_opt.is_trainable("encoder.pos_table") and p_opt.is_trainable("ctc.ctc_lo.kernel")
+    for k in tables:
+        assert torch.equal(_paths(pp)[k], pos0[k])
+        assert not p_opt.is_trainable(k)
+    assert p_opt.is_trainable("ctc.ctc_lo.kernel")
 
 
 # --------------------------------------------------------------- trainer
