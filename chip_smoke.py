@@ -72,7 +72,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                then route A of int8 serving: a runner with
                decode.quantize_int8 behind the same server, two requests,
                int8_matmul 24 launches each, int8_ffn none, no int8 weight
-               layout made after the first request;
+               layout made after the first request; then fault C2: a
+               runner given an .npz whose CMVN statistics differ from
+               data.cmvn_path's file must serve the .npz's (its stats, and
+               the tree's hypotheses);
   5. parity  - float32 kernel path vs plain path on the served weights and
                on the same weights without the blank bias, which emit on
                most frames (encoder outputs within 1e-3, identical
@@ -142,6 +145,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
                attention and conv layers x batches launches each), and
                attention_rescoring, which must raise ValueError there (the
                checkpoint has no decoder);
+  5d. ref modes - the reference-parity encoder modes at Conformer-M's
+               width, both encoder kernel flags on, random weights from a
+               seed with BatchNorm running statistics off the identity:
+               ref_batch and ref_abs with the BatchNorm conv, ref_abs and
+               absolute positions with the LayerNorm conv; f32 kernel path
+               vs plain path on 4 utterances of 3, 7.5, 15 and 11 s
+               (encoders within 1e-3, identical hypotheses, tokens emitted),
+               launches: attention 0 in every mode, conv 12 with the
+               LayerNorm conv and 0 with BatchNorm; then one live f32
+               session under ref_abs, kernel path = plain path token for
+               token, no launch;
   6. train   - the recipe as shipped (configs/conformer_m.json: pruned
                RNN-T + CTC, the RNN-T and CTC kernel flags on, the attention
                flag off, bf16) on random weights from its seed through the
@@ -169,6 +183,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
                one ragged 8 x 15 s microbatch, in float32 (losses within
                1e-4 relative, gradients within 1e-3 of max-abs) and in
                bfloat16 (FULL_PARITY_LIMITS);
+  6c. train Conformer-L remat - configs/conformer_l.json at full width
+               (17 layers, d=512, 8 heads, FFN 2048, join 640; pruned loss,
+               bf16, model.remat and train.remat on) through the Trainer,
+               CMVN cleared: (a) B=32 x 15 s, 64 labels, accum_grad 2, one
+               warm-up and two timed steps with remat, then without: each
+               finite with changed weights and an unchanged pos_table, ms
+               per step, audio-s/s, peak memory (remat's must be lower),
+               launches per microbatch as in phase 6; (b) the attention
+               kernel on, dropout 0.1, float32, one 8 x 15 s microbatch:
+               gradients with remat and without from the same generator
+               states, PyTorch's deterministic algorithms on (losses within
+               1e-6 relative, every leaf within 1e-5 of its max-abs, the
+               generator in the same state after both; two runs without
+               remat equal; one with the default algorithms read as the
+               noise of the backward's atomic sums),
+               attention forward launches 2 x 17 with remat and 17 without,
+               dq and dkv 17 each; then the three attention kernels' times
+               at Conformer-L's training shape (bf16, B=32, T'=374, H=8,
+               D=512, dropout 0.1) beside their plain versions, SDPA and
+               their bounds;
   7. fit     - the user's command, ``conformer_tpu_torch.main.main`` with
                --train, on a synthetic corpus written from a seed (40 wavs
                of 2-15 s, 8 dev wavs, a 5002-piece vocab) at full
@@ -184,7 +218,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
                the same command with the full-lattice loss and the joint
                kernels (labels padded to 200: U+1 = 201), its own
                checkpoints, 2 steps, no validation: finite losses and the
-               joint kernels' launches of 2 steps x accum_grad 2.
+               joint kernels' launches of 2 steps x accum_grad 2;
+  7b. wenet  - the fit's last checkpoint written as a reference / WeNet
+               state dict (reference_state_dict, torch.save, .pt):
+               ``main --eval --wenet_ckpt_path`` must print the WER of
+               ``--eval --resume``, and a runner given the .pt must answer
+               the serve phase's three requests as one given the
+               checkpoint's tree, one launch of each encoder kernel per
+               layer per request.
+Every time and memory size printed stands beside the card's name and
+power limit (phase 1's line) or follows it in the same run.
 The last two lines are the kernels JSON line and the result line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
@@ -612,11 +655,26 @@ def check_attention_train_kernels(dev):
     check(abs(share - (1 - ATTN_RATE)) <= 0.005, f"attention keep share {share}")
 
     # --- times and bounds at the training shape, bf16 (the recipe's dtype)
-    b, t = big
-    args, seed, g = attention_train_inputs(dev, torch.bfloat16, gen, b, t)
+    entries = {}
+    for name, e in attention_train_times(dev, gen, *big).items():
+        entries[name] = {"name": name, "route": "cuda", "max_abs_err": errs[name], **e}
+    return entries
+
+
+def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
+                          d: int = 256) -> dict:
+    """Kernel, plain and SDPA times (CUDA events) of the three attention
+    kernels of training in bf16 with dropout ATTN_RATE at (B, T', H, dk,
+    D), and each one's bound from this run's inputs (the live (query, key)
+    pairs of its mask). Returns each kernel's source, the TPU kernel it
+    replaces, ms, plain_ms, library_ms, bound_ms and bound_by."""
+    import torch
+
+    from conformer_tpu_torch.ops import rel_attention as ra
+
+    scale = 1 / math.sqrt(dk)
+    args, seed, g = attention_train_inputs(dev, torch.bfloat16, gen, b, t, dk=dk, d=d, h=h)
     q_u, ab, k, v, feats, mask = args
-    _, h, _, dk = q_u.shape
-    d = ab.shape[-1]
     kw = dict(scale=scale, dropout_rate=ATTN_RATE)
     out, lse = ra.rel_attention(*args, seed=seed, **kw)
     delta = (g.float() * out.float()).sum(dim=-1)
@@ -656,20 +714,21 @@ def check_attention_train_kernels(dev):
          "attention_kernel.py:436", lambda: ra.rel_attention_bwd_dkv(*bargs, **kw), None,
          lib_bwd, kv_bound),
     ]
-    entries = {}
+    times = {}
     for name, src, rep, kern, plain, lib, (bnd, by) in specs:
-        entries[name] = {
-            "name": name, "route": "cuda", "source": f"conformer_tpu_torch/csrc/{src}",
-            "replaces": f"conformer_tpu/ops/pallas/{rep}", "max_abs_err": errs[name],
+        times[name] = {
+            "source": f"conformer_tpu_torch/csrc/{src}",
+            "replaces": f"conformer_tpu/ops/pallas/{rep}",
             "ms": time_ms(kern), "plain_ms": time_ms(plain) if plain else plain_bwd,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib,
         }
-        e = entries[name]
-        print(f"kernels: {name} bf16 B={b} T'={t} dropout {ATTN_RATE}: kernel {e['ms']:.4f} ms, "
+        e = times[name]
+        print(f"kernels: {name} bf16 B={b} T'={t} H={h} D={d} dropout {ATTN_RATE}: kernel "
+              f"{e['ms']:.4f} ms, "
               f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms (SDPA "
               f"{'forward' if plain else 'backward, dq and dkv together'}, bias precomputed), "
               f"bound {bnd * 1e3:.2f} us ({by})")
-    return entries
+    return times
 
 
 # ------------------------------------ attention at the other shipped widths
@@ -2092,6 +2151,45 @@ def serve_requests(runner, seconds=(4.0, 9.5, 15.0)) -> list[dict]:
     return results
 
 
+C2_DIR = os.path.join(REPO, "build", "chip_smoke_c2")     # build/ is git-ignored
+
+
+def check_c2(runner, raw_params, dev) -> dict:
+    """Fault C2 on the card: a runner given an ``.npz`` whose CMVN
+    statistics differ from those of ``data.cmvn_path``'s file keeps the
+    ``.npz``'s and decodes as the same tree does (JAX restores the
+    checkpoint over its init, file stats included)."""
+    import torch
+
+    from conformer_tpu_torch.serve.runner import ModelRunner
+    from conformer_tpu_torch.train.checkpoint import save_params_npz
+
+    dim = runner.cfg.model.input_dim
+    rng = np.random.default_rng(16)
+    own = {"mean": (0.1 * rng.standard_normal(dim)).astype(np.float32),
+           "istd": rng.uniform(0.8, 1.2, dim).astype(np.float32)}
+    tree = {**raw_params, "cmvn": {k: torch.as_tensor(v, device=dev) for k, v in own.items()}}
+    shutil.rmtree(C2_DIR, ignore_errors=True)
+    os.makedirs(C2_DIR)
+    npz, stats = os.path.join(C2_DIR, "weights.npz"), os.path.join(C2_DIR, "global_cmvn")
+    t0 = time.perf_counter()
+    save_params_npz(npz, tree)
+    with open(stats, "w") as f:
+        json.dump({"mean_stat": [3.0] * dim, "var_stat": [20.0] * dim, "frame_num": 2}, f)
+    cfg = dataclasses.replace(runner.cfg, data=dataclasses.replace(runner.cfg.data,
+                                                                   cmvn_path=stats))
+    served = ModelRunner(cfg, npz, dev)
+    feats, lens = batch_feats(runner, (3.0, 7.5), seed=210)
+    got = served.decode_batch(feats, lens)
+    want = runner_variant(runner, tree, cfg.model).decode_batch(feats, lens)
+    out = {"stats_equal": all(np.array_equal(served.params["cmvn"][k].cpu().numpy(), v)
+                              for k, v in own.items()),
+           "hyps_identical": hyp_lists(*got) == hyp_lists(*want),
+           "tokens": [len(h) for h in hyp_lists(*got)], "s": time.perf_counter() - t0}
+    shutil.rmtree(C2_DIR, ignore_errors=True)
+    return out
+
+
 # ------------------------------------------------------------------ parity
 
 
@@ -2993,6 +3091,106 @@ def check_eval_modes(ev: dict, fit: dict) -> None:
           f"--eval decode.mode=attention_rescoring without a decoder: {msg}")
 
 
+# ------------------------------------------------- reference-parity modes
+
+# the encoder modes of reference-checkpoint parity (5d): label -> model
+# overrides. The BatchNorm conv never takes the conv kernel; no mode takes
+# the attention kernel (the ref modes' plain products; absolute positions
+# have no position term)
+REF_MODES = {"ref_batch+batch_norm": dict(rel_mode="ref_batch", conv_norm="batch_norm"),
+             "ref_abs+batch_norm": dict(rel_mode="ref_abs", conv_norm="batch_norm"),
+             "ref_abs+layer_norm": dict(rel_mode="ref_abs"),
+             "absolute+layer_norm": dict(use_relative=False)}
+REF_SEED = 16
+
+
+def ref_mode_params(model_cfg, seed: int, dev) -> dict:
+    """Random weights of ``model_cfg`` from ``seed``, with BatchNorm running
+    statistics off the identity (mean ~ N(0, 0.1), var in [0.5, 2])."""
+    import torch
+
+    from conformer_tpu_torch.models.transducer import init_transducer
+
+    params = init_transducer(model_cfg, seed, dev)
+    norm = params["encoder"]["layers"]["conv_module"]["norm"]
+    if "mean" in norm:
+        g = torch.Generator().manual_seed(seed)
+        norm["mean"] = (0.1 * torch.randn(norm["mean"].shape, generator=g)).to(dev)
+        norm["var"] = (0.5 + 1.5 * torch.rand(norm["var"].shape, generator=g)).to(dev)
+    return params
+
+
+def ref_modes_phase(runner, dev, layers: int) -> dict:
+    """5d: Conformer-M at full width, both encoder kernel flags on, in each
+    of REF_MODES: the f32 kernel path against the plain path on 4
+    utterances (parity_f32; the counts set to 0 just before, read just
+    after: attention 0, conv ``layers`` with the LayerNorm conv, 0 with
+    BatchNorm); then one live f32 session of STREAM_F32_SECONDS under
+    ref_abs, kernel path against plain path (no launch)."""
+    import torch
+
+    zero = dict.fromkeys(kernel_wrappers(), 0)
+    out = {}
+    for label, over in REF_MODES.items():
+        t0 = time.perf_counter()
+        mcfg = dataclasses.replace(runner.cfg.model, **over)
+        params = ref_mode_params(mcfg, REF_SEED, dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        par = parity_f32(runner_variant(runner, params, mcfg), params, dev)
+        torch.cuda.synchronize()
+        par["launches"] = launch_counts()
+        bn = mcfg.conv_norm == "batch_norm"
+        par["want_launches"] = {**zero, "conv_block": 0 if bn else layers}
+        par["s"] = time.perf_counter() - t0
+        out[label] = par
+        del params
+    t0 = time.perf_counter()
+    mcfg = dataclasses.replace(runner.cfg.model, compute_dtype="float32", **REF_MODES[
+        "ref_abs+layer_norm"])
+    params = ref_mode_params(mcfg, REF_SEED, dev)
+    _, floats = stream_pieces(STREAM_SEED, STREAM_F32_SECONDS)
+    emit = dict(n_steps=STREAM_N_STEPS, max_hyp_len=STREAM_MAX_HYP)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    s_k = session_feed(runner_variant(runner, params, mcfg, **emit), floats)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    s_p = session_feed(runner_variant(runner, params, plain_cfg(mcfg), **emit), floats)
+    out["session"] = {"kernel": s_k["tokens"], "plain": s_p["tokens"], "pieces": len(floats),
+                      "launches": launches, "want_launches": zero,
+                      "s": time.perf_counter() - t0}
+    return out
+
+
+def nonzero(launches: dict) -> dict | str:
+    return {k: n for k, n in launches.items() if n} or "none"
+
+
+def check_ref_modes(res: dict, card: str) -> None:
+    for label in REF_MODES:
+        par = res[label]
+        agree, _, n_ref = par["token_agreement"]
+        print(f"ref modes: {label}, f32 kernel path vs plain path, 3 / 7.5 / 15 / 11 s: encoder "
+              f"max_abs_err {par['encoder_max_abs_err']:.3g} (tol 1e-3), hyps identical "
+              f"{par['hyps_identical']} over {n_ref} tokens, hyp lens {par['hyp_lens']}; "
+              f"launches {nonzero(par['launches'])}; {par['s']:.1f} s ({card})")
+        check(par["finite"] and par["encoder_max_abs_err"] <= 1e-3 and par["hyps_identical"],
+              f"{label}: the f32 kernel path disagrees with the plain path")
+        check(max(par["hyp_lens"]) > 0, f"{label}: no token emitted")
+        check(par["launches"] == par["want_launches"],
+              f"{label}: launches {par['launches']}, expected {par['want_launches']}")
+    ses = res["session"]
+    print(f"ref modes: ref_abs f32 session, {ses['pieces']} pieces of {STREAM_PIECE_MS} ms: "
+          f"kernel path {len(ses['kernel'])} tokens, plain path {len(ses['plain'])}, identical "
+          f"{ses['kernel'] == ses['plain']}; kernel path launches {nonzero(ses['launches'])}; "
+          f"{ses['s']:.1f} s ({card})")
+    check(ses["kernel"] == ses["plain"] and len(ses["kernel"]) > 0,
+          "ref_abs session: the kernel and plain paths' transcripts differ (or are empty)")
+    check(ses["launches"] == ses["want_launches"],
+          f"ref_abs session launches {ses['launches']}, expected none")
+
+
 # ------------------------------------------------------------------- train
 
 # limits of the f32 training parity's band check. The two paths' occupancies
@@ -3238,6 +3436,144 @@ def loss_grad_errors(out_k, out_p, g_k, g_p, keys, floor_share: float = 1e-6) ->
             "finite": all(bool(torch.isfinite(g).all()) for g in g_k.values())}
 
 
+# ---------------------------------------------------- train Conformer-L remat
+
+REMAT_STEPS = 2
+# the remat gradient check (6c (b)): loss terms within this relative
+# difference, every gradient leaf within this share of its own max-abs;
+# both runs draw the same masks and kernel seeds, so only the order of
+# float32 sums may differ (the recompute runs the same kernels on the same
+# inputs: in practice none)
+REMAT_LIMITS = (1e-6, 1e-5)
+
+
+def remat_config(remat: bool):
+    """configs/conformer_l.json as shipped (pruned loss, RNN-T and CTC
+    kernel flags, attention flag off, bf16, model.remat and train.remat
+    on), CMVN and vocabulary cleared as in phase 6; ``remat`` False turns
+    both remat flags off."""
+    cfg = recipe_config(os.path.join(REPO, "configs", "conformer_l.json"))
+    check(cfg.model.remat and cfg.train.remat, "configs/conformer_l.json no longer sets remat")
+    cfg.model.remat = cfg.train.remat = remat
+    return cfg
+
+
+def remat_train(dev) -> dict:
+    """6c (a): one warm-up and REMAT_STEPS timed steps of B=32 x 15 s with
+    remat, then without (train_steps: counts set to 0 just before the
+    timed steps, read just after); each run's peak memory from a reset
+    just before its trainer is built."""
+    import torch
+
+    from conformer_tpu_torch.train.loop import Trainer
+
+    out = {}
+    for remat in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(remat_config(remat), device=dev)
+        check(trainer.cfg.model.remat is remat, "the trainer's model.remat")
+        out[remat] = train_steps(trainer, steps=REMAT_STEPS)
+        del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_grad_parity(dev, batch: int = 8, seconds: float = 15.0) -> dict:
+    """6c (b): the attention kernel on, dropout 0.1 (attention and
+    elsewhere), float32: one microbatch's gradients with remat and without,
+    from the same generator states (the trainer's device and host
+    generators set back before each run); each run's counts set to 0 just
+    before it and read just after. PyTorch's deterministic algorithms are
+    on for these runs: the backward of a gather sums by atomics otherwise,
+    in an order that changes from run to run. A second run without remat
+    must equal the first (the control); a last one without remat and with
+    PyTorch's default algorithms reads that noise (printed, not checked)."""
+    import torch
+
+    from conformer_tpu_torch.train.loop import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trainer = Trainer(remat_config(True), device=dev)
+    mb = parity_batch(trainer.cfg, batch, seconds)
+    start = (trainer.gen.get_state(), trainer.host_gen.get_state())
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    runs = []
+    try:
+        for remat, det in ((True, True), (False, True), (False, True), (False, False)):
+            torch.use_deterministic_algorithms(det, warn_only=True)
+            trainer.gen.set_state(start[0])
+            trainer.host_gen.set_state(start[1])
+            mcfg = dataclasses.replace(trainer.cfg.model, compute_dtype="float32",
+                                       use_pallas_attention=True, remat=remat)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            g, o = trainer.compute_grads(mb, model_cfg=mcfg)
+            torch.cuda.synchronize()
+            runs.append((g, o, launch_counts(), trainer.gen.get_state()))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    (g1, o1, n1, s1), (g0, o0, n0, s0), (gc, oc, _, sc), (gn, on, _, _) = runs
+    keys = ("loss", "loss_ctc", "loss_rnnt", "loss_simple")
+    res = loss_grad_errors(o1, o0, g1, g0, keys)
+    res.update(launches_remat=n1, launches_plain=n0,
+               gen_equal=torch.equal(s1, s0) and torch.equal(sc, s0),
+               control=loss_grad_errors(oc, o0, gc, g0, keys),
+               noise=loss_grad_errors(on, o0, gn, g0, keys),
+               layers=trainer.cfg.model.encoder_num_layers, live=float(trainer.cfg.model.dropout))
+    del trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_remat_train(tr: dict, card: str) -> None:
+    for remat, r in tr.items():
+        label = "remat" if remat else "no remat"
+        for st in (r["warmup"], *r["steps"]):
+            print(f"train Conformer-L, {label}: step {st['step_s'] * 1e3:.1f} ms, loss "
+                  f"{st['loss']:.4f}, grad norm {st['grad_norm']:.4g}, {st['leaves_changed']}/"
+                  f"{st['leaves']} leaves changed ({card})")
+        print(f"train Conformer-L, {label}: B=32 x 15 s, accum_grad 2: {r['step_s'] * 1e3:.1f} "
+              f"ms per step, {r['audio_s_per_s']:.1f} training audio-s/s, peak memory "
+              f"{r['peak_mem_gb']:.2f} GiB, launches in {REMAT_STEPS} steps "
+              f"{nonzero(r['launches'])} ({card})")
+    check(tr[True]["peak_mem_gb"] < tr[False]["peak_mem_gb"],
+          f"remat's peak memory {tr[True]['peak_mem_gb']:.2f} GiB is not below "
+          f"{tr[False]['peak_mem_gb']:.2f} GiB")
+
+
+def check_remat_parity(par: dict) -> None:
+    worst = ", ".join(f"{k} {e:.3g}" for k, e in par["grad_worst_leaves"])
+    print(f"train Conformer-L remat parity: f32, attention kernel on, dropout {par['live']}, "
+          f"B=8 x 15 s, remat vs no remat from the same generator states: losses "
+          f"{par['losses']}, max rel err {par['loss_max_rel_err']:.3g} (limit "
+          f"{REMAT_LIMITS[0]}); gradients max err / max-abs, worst leaves: {worst} (limit "
+          f"{REMAT_LIMITS[1]}; scale floored at 1e-6 of the largest for "
+          f"{par['grad_floored_leaves']}); generator states equal {par['gen_equal']}; launches "
+          f"with remat {nonzero(par['launches_remat'])}, without "
+          f"{nonzero(par['launches_plain'])}")
+    for label, key in (("control, no remat twice", "control"),
+                       ("no remat, default against deterministic algorithms", "noise")):
+        ctl = par[key]
+        worst = ", ".join(f"{k} {e:.3g}" for k, e in ctl["grad_worst_leaves"])
+        print(f"train Conformer-L remat parity: {label}: loss max rel err "
+              f"{ctl['loss_max_rel_err']:.3g}; gradients, worst leaves: {worst}")
+    check(par["finite"] and par["loss_max_rel_err"] <= REMAT_LIMITS[0]
+          and par["grad_max_rel_err"] <= REMAT_LIMITS[1] and par["gen_equal"],
+          "remat and no-remat gradients differ: the recompute drew other masks")
+    ctl = par["control"]
+    check(ctl["loss_max_rel_err"] == 0 and ctl["grad_max_rel_err"] == 0,
+          "two deterministic runs without remat differ")
+    n = par["layers"]
+    for name, runs, want in (("remat", par["launches_remat"], 2 * n),
+                             ("no remat", par["launches_plain"], n)):
+        got = (runs["rel_flash_attention"], runs["rel_flash_attention_bwd_dq"],
+               runs["rel_flash_attention_bwd_dkv"])
+        check(got == (want, n, n), f"{name}: attention fwd / dq / dkv launches {got}, "
+              f"expected {(want, n, n)}")
+
+
 # -------------------------------------------------------- train full lattice
 
 FULL_BATCH = 24              # bench.py --full-lattice's default train batch (bench.py:423)
@@ -3429,6 +3765,136 @@ def check_fit(fit: dict) -> None:
     check(full["launches"] == want, f"full-lattice fit launches {full['launches']}, expected {want}")
 
 
+# ------------------------------------------------------------ WeNet import
+
+
+def reference_state_dict(params: dict, model_cfg) -> dict:
+    """The params tree (the JAX layout) as a reference / WeNet
+    ``state_dict``: the inverse of ``train/checkpoint.import_torch_checkpoint``
+    (linear weights [out, in], Conv2d [O, I, kh, kw], Conv1d [O, I, K], one
+    tensor per encoder layer, LSTM weights per layer, BatchNorm running
+    statistics where the tree has them). CMVN, ``pos_table`` and the
+    pruned loss's projections have no key there."""
+    import torch
+
+    sd = {}
+
+    def put(key, t):
+        sd[key] = t.detach().float().cpu().contiguous()
+
+    def linear(prefix, p):
+        put(prefix + ".weight", p["kernel"].T)
+        if "bias" in p:
+            put(prefix + ".bias", p["bias"])
+
+    def norm(prefix, p):
+        put(prefix + ".weight", p["scale"])
+        put(prefix + ".bias", p["bias"])
+        if "mean" in p:
+            put(prefix + ".running_mean", p["mean"])
+            put(prefix + ".running_var", p["var"])
+            sd[prefix + ".num_batches_tracked"] = torch.tensor(0)
+
+    enc = params["encoder"]
+    for i, name in ((0, "conv1"), (2, "conv2")):
+        put(f"encoder.embed.conv.{i}.weight", enc["embed"][name]["kernel"].permute(3, 2, 0, 1))
+        put(f"encoder.embed.conv.{i}.bias", enc["embed"][name]["bias"])
+    linear("encoder.embed.out.0", enc["embed"]["out"])
+    norm("encoder.after_norm", enc["after_norm"])
+    lay = enc["layers"]
+
+    def at(p, i):
+        return {n: t[i] for n, t in p.items()}
+
+    for i in range(model_cfg.encoder_num_layers):
+        pre = f"encoder.encoders.{i}."
+        for ffn in ("feed_forward", "feed_forward_macaron"):
+            for w in ("w_1", "w_2"):
+                linear(f"{pre}{ffn}.{w}", at(lay[ffn][w], i))
+        attn = lay["self_attn"]
+        for lin in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+            if lin in attn:
+                linear(f"{pre}self_attn.{lin}", at(attn[lin], i))
+        for bias in ("pos_bias_u", "pos_bias_v"):
+            if bias in attn:
+                put(f"{pre}self_attn.{bias}", attn[bias][i])
+        conv = lay["conv_module"]
+        for name in ("pointwise_conv1", "pointwise_conv2", "depthwise_conv"):
+            put(f"{pre}conv_module.{name}.weight", conv[name]["kernel"][i].permute(2, 1, 0))
+            put(f"{pre}conv_module.{name}.bias", conv[name]["bias"][i])
+        norm(f"{pre}conv_module.norm", at(conv["norm"], i))
+        for ln in ("norm_ff", "norm_ff_macaron", "norm_mha", "norm_conv", "norm_final"):
+            norm(pre + ln, at(lay[ln], i))
+    pred = params["predictor"]
+    put("predictor.embed.weight", pred["embed"]["embedding"])
+    for k, lp in enumerate(pred["rnn"]):
+        put(f"predictor.rnn.weight_ih_l{k}", lp["w_ih"].T)
+        put(f"predictor.rnn.weight_hh_l{k}", lp["w_hh"].T)
+        put(f"predictor.rnn.bias_ih_l{k}", lp["b_ih"])
+        put(f"predictor.rnn.bias_hh_l{k}", lp["b_hh"])
+    linear("predictor.projection", pred["projection"])
+    for name in ("enc_ffn", "pred_ffn", "ffn_out"):
+        linear(f"joint.{name}", params["joint"][name])
+    linear("ctc.ctc_lo", params["ctc"]["ctc_lo"])
+    return sd
+
+
+def wenet_phase(fit: dict) -> dict:
+    """7b: the fit's last checkpoint written out as a reference-layout
+    state dict (``reference_state_dict``, ``torch.save`` to ``.pt``);
+    ``main --eval --wenet_ckpt_path`` on the fit corpus (its WER against
+    the fit's ``--eval --resume``); a runner given the ``.pt`` against one
+    given the checkpoint's tree on the serve phase's three requests (the
+    counts set to 0 just before each request, read just after)."""
+    import torch
+
+    from conformer_tpu_torch.main import main as port_main
+    from conformer_tpu_torch.serve.runner import ModelRunner
+    from conformer_tpu_torch.train import checkpoint as ckpt_mod
+
+    t0 = time.perf_counter()
+    cfg = fit["cfg"]
+    ckpt = ckpt_mod.latest_checkpoint(cfg.train.checkpoint_dir)
+    params = ckpt_mod.restore_checkpoint(ckpt)["params"]
+    pt = os.path.join(FIT_DIR, "reference.pt")
+    sd = reference_state_dict(params, cfg.model)
+    torch.save(sd, pt)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        port_main(["--eval", "--wenet_ckpt_path", pt, *fit["eval_args"]])
+    wer = [float(line.split()[-1]) for line in out.getvalue().splitlines()
+           if line.startswith("WER:")]
+    texts = {}
+    for name, weights in (("pt", pt), ("tree", params)):
+        runner = ModelRunner(cfg, weights, device="cuda")
+        texts[name] = serve_requests(runner)
+        del runner
+    torch.cuda.empty_cache()
+    return {"checkpoint": os.path.basename(ckpt), "eval_wer": wer, "requests": texts,
+            "keys": len(sd),
+            "s": time.perf_counter() - t0}
+
+
+def check_wenet(wn: dict, fit: dict, card: str) -> None:
+    layers = fit["cfg"].model.encoder_num_layers
+    want = {**dict.fromkeys(kernel_wrappers(), 0), "rel_flash_attention": layers,
+            "conv_block": layers}
+    print(f"wenet: {wn['keys']} reference keys from {wn['checkpoint']}; --eval "
+          f"--wenet_ckpt_path WER {wn['eval_wer']}, --eval --resume WER {fit['eval_wer']}; "
+          f"{wn['s']:.1f} s ({card})")
+    check(len(wn["eval_wer"]) == 1 and wn["eval_wer"] == fit["eval_wer"],
+          f"--wenet_ckpt_path WER {wn['eval_wer']} != --resume WER {fit['eval_wer']}")
+    for a, b in zip(wn["requests"]["pt"], wn["requests"]["tree"]):
+        ra, rb = a["response"], b["response"]
+        print(f"wenet: {a['seconds']} s wav -> .pt runner {ra['status']} "
+              f"{len(ra.get('message', '').split())} words, tree runner "
+              f"{len(rb.get('message', '').split())} words, same {ra == rb}; launches "
+              f"{nonzero(a['launches'])}")
+        check(ra["status"] == "success" and ra == rb,
+              f"the .pt runner answered {ra}, the checkpoint tree's {rb}")
+        check(a["launches"] == want, f".pt runner launches {a['launches']}, expected {want}")
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -3522,6 +3988,13 @@ def main() -> int:
             check(r["launches"] == want, f"{label}: launches {r['launches']} in a request, "
                   f"expected {want}")
             route_a_launches += r["launches"]["int8_matmul"]
+    # fault C2: a given .npz keeps its CMVN against data.cmvn_path's file
+    c2 = check_c2(runner, raw_params, dev)
+    print(f"serve: C2, a runner given an .npz and a cmvn_path with other stats: serves the "
+          f".npz's stats {c2['stats_equal']}, hyps identical to the tree's {c2['hyps_identical']} "
+          f"(tokens {c2['tokens']}); {c2['s']:.1f} s ({card})")
+    check(c2["stats_equal"] and c2["hyps_identical"], "C2: the runner did not serve the .npz's "
+          "CMVN statistics")
 
     # 5. parity: the served weights, and the unbiased ones, whose
     # hypotheses are long enough to make "identical" a real check; float
@@ -3613,6 +4086,12 @@ def main() -> int:
     check_decode_modes(dm_par, dm_bf, layers, card, batch, seconds)
     print(f"decode modes: (a)-(b) in {time.perf_counter() - t0:.1f} s")
 
+    # 5d. reference-parity modes: f32 kernel path = plain path in each, the
+    # counts set to 0 just before each mode's decodes and read just after
+    t0 = time.perf_counter()
+    check_ref_modes(ref_modes_phase(runner, dev, layers), card)
+    print(f"ref modes: in {time.perf_counter() - t0:.1f} s ({card})")
+
     # 6. train: the shipped recipe (loss kernel flags on, attention flag
     # off), counts set to 0 just before the timed steps (inside train_steps)
     # and read just after; then the f32 parity with the attention kernel on
@@ -3681,17 +4160,33 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
 
+    # 6c. train Conformer-L with remat: (a) the recipe as shipped with and
+    # without remat, counts set to 0 just before the timed steps (inside
+    # train_steps) and read just after; (b) remat's gradients against no
+    # remat's, the attention kernel on, counts set to 0 before each run
+    t0 = time.perf_counter()
+    check_remat_train(remat_train(dev), card)
+    check_remat_parity(remat_grad_parity(dev))
+    # the attention kernels at Conformer-L's training shape (6c (b) runs
+    # them there: 2 x 17 forwards, 17 dq and 17 dkv a microbatch)
+    attention_train_times(dev, torch.Generator().manual_seed(12), 32, 374, h=8, dk=64, d=512)
+    print(f"train Conformer-L remat: in {time.perf_counter() - t0:.1f} s ({card})")
+
     # 7. fit: the main path of this slice, through the user's entry point;
     # counts set to 0 just before the first training run and read just after
     fit = fit_phase()
     check_fit(fit)
-    # 7b. stream (f): streaming validation on the fit phase's corpus, counts
+    # stream (f): streaming validation on the fit phase's corpus, counts
     # set to 0 just before it and read just after
     sv = streaming_validation(fit["cfg"])
-    # 7c. decode modes (c): --eval in each mode on the fit checkpoint
+    # decode modes (c): --eval in each mode on the fit checkpoint
     t0 = time.perf_counter()
     check_eval_modes(eval_modes(fit), fit)
     print(f"decode modes: (c) in {time.perf_counter() - t0:.1f} s")
+    # 7b. wenet: the WeNet import of the fit's last checkpoint: --eval
+    # --wenet_ckpt_path and the runner's .pt route, counts set to 0 just
+    # before each request and read just after
+    check_wenet(wenet_phase(fit), fit, card)
     shutil.rmtree(FIT_DIR, ignore_errors=True)
     attn = sv["launches"]["rel_flash_attention"]
     print(f"stream: streaming validation (decode.streaming, chunk "

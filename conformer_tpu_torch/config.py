@@ -232,3 +232,30 @@ class Config:
                 val = None if raw == "null" else raw
             d[section][name] = val
         return Config.from_dict(d)
+
+
+def tiny_test_config() -> Config:
+    """A small config for tests (JAX ``config.tiny_test_config``):
+    Conformer-S-like, 2 layers of width 64, float32, no dynamic chunks."""
+    cfg = Config()
+    cfg.model = ModelConfig(
+        input_dim=80,
+        vocab_size=64,
+        sos_eos_id=63,
+        encoder_dim=64,
+        encoder_num_layers=2,
+        num_heads=4,
+        hidden_dim=128,
+        kernel_size=7,
+        predictor_embed_size=32,
+        predictor_hidden_size=32,
+        predictor_dim=32,
+        predictor_num_layers=1,
+        join_dim=64,
+        compute_dtype="float32",
+        use_dynamic_chunk=False,
+        use_dynamic_left_chunk=False,
+    )
+    cfg.train.accum_grad = 1
+    cfg.train.warmup_steps = 10
+    return cfg

@@ -5,9 +5,13 @@
 
     python -m conformer_tpu_torch.main --config ... --eval --resume --resume_from last
 
+    python -m conformer_tpu_torch.main --config ... --eval --wenet_ckpt_path model.pt
+
 Runs on the card; ``--device cpu`` takes the CPU instead (the port's
-counterpart of ``JAX_PLATFORMS=cpu``). One process: the multi-host flags
-and the WeNet checkpoint import are not ported yet and raise.
+counterpart of ``JAX_PLATFORMS=cpu``). ``--wenet_ckpt_path`` imports a
+reference / WeNet state dict into the trainer before ``--train`` and
+``--eval``. One process: the multi-host flags are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -48,9 +52,6 @@ def main(argv: list[str] | None = None) -> int:
     if args.coordinator or args.num_processes is not None or args.process_id is not None:
         raise NotImplementedError(
             "multi-process training is not ported yet (ROADMAP.md queue A, item 'Parallel')")
-    if args.wenet_ckpt_path:
-        raise NotImplementedError(
-            "the WeNet checkpoint import is not ported yet (ROADMAP.md queue A, item 7)")
 
     cfg = Config.from_json_file(args.config) if args.config else Config()
     if args.set:
@@ -67,6 +68,8 @@ def main(argv: list[str] | None = None) -> int:
 
     trainer = Trainer(cfg, device=args.device, use_wandb=args.wandb)
     try:
+        if args.wenet_ckpt_path:
+            trainer.load_torch_checkpoint(args.wenet_ckpt_path)
         if args.train:
             previous = trainer.install_preemption_handler()
             try:

@@ -15,9 +15,13 @@ device in the kernel path.
 Streaming passes a right-aligned KV cache (``AttnCache``): keys and values
 are ``cache ++ new`` in every path, the kernel's included, and the mask
 and positions cover the cache slots. With neither positions nor a table
-the attention is absolute (the attention decoder's): no position term,
-float32 scores. The encoder's absolute and reference-parity position
-modes are not ported (``encoder._check_supported`` refuses them).
+the attention is absolute (the attention decoder's and the encoder's
+``use_relative=False`` mode): no position term, float32 scores.
+
+The reference-parity modes (``rel_mode`` "ref_abs" / "ref_batch") pass
+``pos_ref``, a matrix of absolute position rows: the bias is q_v .
+linear_pos(pos_ref) with no relative shift, by plain products, never
+through the kernel.
 """
 
 from __future__ import annotations
@@ -129,6 +133,7 @@ def mhsa(
     num_heads: int,
     pos_emb: torch.Tensor | None = None,
     rel_positions: tuple[torch.Tensor, torch.Tensor] | None = None,
+    pos_ref: torch.Tensor | None = None,
     use_pallas: bool = False,
     cache: AttnCache | None = None,
     dropout_rate: float = 0.0,
@@ -139,7 +144,11 @@ def mhsa(
     (out [B,Tq,D], new cache or None), as in JAX. attn_mask bool [B|1, Tq, Tk] (True = attend) or None;
     pos_emb [Tq+Tk-1, D] is the descending-distance table slice (skew);
     rel_positions (q_pos [Tq], k_pos [Tk]) feed the factorised bias;
-    neither: absolute attention, scores = q k^T / sqrt(dk).
+    pos_ref [Bp, P, D] (the reference-parity modes) takes precedence over
+    both: the bias is q_v . linear_pos(pos_ref), P = Tk (absolute key
+    positions, Bp = 1 or B) or P = 1 with Bp = B (pe[batch index],
+    broadcast over the keys), in float32 sums, never through the kernel;
+    none of the three: absolute attention, scores = q k^T / sqrt(dk).
     With ``cache`` (C slots), Tk = C + Tkv: keys and values are ``cache ++
     new``, the mask and positions must cover the cache slots
     (``cache_valid_mask``), and the new cache holds the trailing C
@@ -164,6 +173,15 @@ def mhsa(
             length=torch.clamp(cache.length + x_kv.shape[1], max=size),
         )
     scale = 1.0 / math.sqrt(head_dim)
+    if pos_ref is not None:
+        q_u = q + p["pos_bias_u"].to(q.dtype)[None, :, None, :]
+        q_v = q + p["pos_bias_v"].to(q.dtype)[None, :, None, :]
+        ac = torch.matmul(q_u.float(), k.float().transpose(-1, -2))
+        p_proj = layers.dense(p["linear_pos"], pos_ref.to(x_q.dtype))
+        p_proj = p_proj.reshape(*p_proj.shape[:2], num_heads, head_dim)   # [Bp, P, H, dk]
+        bd = torch.einsum("bhid,bphd->bhip", q_v.float(), p_proj.float())
+        return _attend(p, (ac + bd) * scale, attn_mask, v, dropout_rate, gen, deterministic,
+                       new_cache)
     if rel_positions is None and pos_emb is None:
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
         return _attend(p, scores, attn_mask, v, dropout_rate, gen, deterministic, new_cache)

@@ -30,5 +30,13 @@ def init_cmvn_from_file(path: str, device=None) -> dict:
     }
 
 
+def init_cmvn_identity(dim: int, device=None) -> dict:
+    """Mean 0, istd 1: CMVN that leaves the features as they are."""
+    return {
+        "mean": torch.zeros(dim, dtype=torch.float32, device=device),
+        "istd": torch.ones(dim, dtype=torch.float32, device=device),
+    }
+
+
 def global_cmvn(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (x - p["mean"].to(x.dtype)) * p["istd"].to(x.dtype)

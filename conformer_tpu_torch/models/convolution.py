@@ -1,8 +1,11 @@
 """Conformer convolution module and x4 conv subsampling.
 
 Counterpart of the JAX package's ``models/convolution.py``: the
-full-utterance conv module, its causal option, and its streaming form with
-a carried left-context cache. The BatchNorm option is not ported.
+full-utterance conv module, its causal option, its streaming form with a
+carried left-context cache, and its norm: LayerNorm, or the reference's
+BatchNorm (``norm_type="batch_norm"``), which applies its running
+statistics in training too, as in JAX: they never update, and the
+optimizer freezes them (``train/optimizer.is_trainable``).
 """
 
 from __future__ import annotations
@@ -14,20 +17,23 @@ from . import layers
 from .layers import Params
 
 
-def init_conv_module(gen, dim: int, kernel_size: int) -> Params:
+def init_conv_module(gen, dim: int, kernel_size: int, norm_type: str = "layer_norm") -> Params:
     return {
         "pointwise_conv1": layers.init_conv1d(gen, dim, dim * 2, 1),
         "depthwise_conv": layers.init_conv1d(gen, dim, dim, kernel_size, groups=dim),
         "pointwise_conv2": layers.init_conv1d(gen, dim, dim, 1),
-        "norm": layers.init_layer_norm(dim),
+        "norm": (layers.init_batch_norm(dim) if norm_type == "batch_norm"
+                 else layers.init_layer_norm(dim)),
     }
 
 
 def conv_module(
     p: Params, x: torch.Tensor, pad_mask: torch.Tensor | None, *, kernel_size: int,
-    causal: bool = False, cache: torch.Tensor | None = None,
+    norm_type: str = "layer_norm", causal: bool = False, cache: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """pw-expand -> GLU -> depthwise -> LayerNorm -> swish -> pw.
+    """pw-expand -> GLU -> depthwise -> norm -> swish -> pw; the norm is
+    LayerNorm, or BatchNorm with its running statistics when ``norm_type``
+    is "batch_norm".
 
     x [B, T, D]; pad_mask bool [B, T] (True = valid) or None. Returns
     (y [B, T, D], cache [B, K-1, D]). Padding frames are zeroed on the way
@@ -60,7 +66,8 @@ def conv_module(
         y_ext = y
         pad = (context, 0) if causal else (context // 2, context - context // 2)
     y = layers.conv1d(p["depthwise_conv"], y_ext, padding=pad, groups=y.shape[-1])
-    y = layers.swish(layers.layer_norm(p["norm"], y))
+    norm = layers.batch_norm_inference if norm_type == "batch_norm" else layers.layer_norm
+    y = layers.swish(norm(p["norm"], y))
     y = layers.conv1d(p["pointwise_conv2"], y)
     if pad_mask is not None:
         y = torch.where(pad_mask[..., None], y, torch.zeros_like(y))

@@ -1,5 +1,7 @@
 """Sinusoidal position encodings (JAX ``models/embedding.py``): the
-encoder's relative table and the attention decoder's absolute one."""
+encoder's relative table, the absolute one (the attention decoder's and
+the encoder's absolute mode), and the rows of any integer positions for
+the reference-parity modes."""
 
 from __future__ import annotations
 
@@ -32,6 +34,18 @@ def absolute_pos_embed(table: torch.Tensor, offset: int, size: int) -> torch.Ten
     fits, as ``lax.dynamic_slice`` clamps it."""
     start = max(0, min(int(offset), table.shape[0] - size))
     return table[start:start + size]
+
+
+def abs_pos_vectors(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """pe(pos) rows [P, d_model] for integer positions [P], negative ones
+    included (a stream's key positions before its first frame), sin at
+    even dims and cos at odd dims, float32."""
+    ang = positions.float()[:, None] * rel_freqs(d_model, positions.device)[None, :]
+    pe = torch.zeros((positions.shape[0], d_model), dtype=torch.float32,
+                     device=positions.device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
 
 
 def signed_sinusoid_table(max_len: int, d_model: int, device=None) -> torch.Tensor:

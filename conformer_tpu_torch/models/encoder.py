@@ -5,7 +5,16 @@ caches (``EncoderState``).
 
 Layer parameters stay STACKED on a leading [L] axis, as in the JAX pytree;
 both forwards walk them with a Python loop over per-layer views (the JAX
-``lax.scan``). ``remat`` is not ported.
+``lax.scan``). With ``cfg.remat`` the full-utterance forward recomputes
+each layer in the backward (``torch.utils.checkpoint``; JAX's
+``jax.checkpoint`` of the scan body), drawing the same dropout masks.
+
+Positions, by ``cfg.use_relative`` and ``cfg.rel_mode``: relative
+("skew", "decomposed"), the reference-parity modes ("ref_abs": absolute
+key positions; "ref_batch": the reference's batched-training pe[batch
+index]), or absolute sinusoids added to the subsampled frames
+(``use_relative=False``). ``cfg.conv_norm`` picks the conv module's
+LayerNorm or the reference's BatchNorm.
 """
 
 from __future__ import annotations
@@ -13,6 +22,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from . import attention, convolution, embedding, feedforward, layers, masks
@@ -42,8 +52,8 @@ def init_encoder_layer(gen, cfg: ModelConfig) -> Params:
     d = cfg.encoder_dim
     return {
         "feed_forward_macaron": feedforward.init_ffn(gen, d, cfg.hidden_dim),
-        "self_attn": attention.init_mhsa(gen, d, cfg.num_heads),
-        "conv_module": convolution.init_conv_module(gen, d, cfg.kernel_size),
+        "self_attn": attention.init_mhsa(gen, d, cfg.num_heads, cfg.use_relative),
+        "conv_module": convolution.init_conv_module(gen, d, cfg.kernel_size, cfg.conv_norm),
         "feed_forward": feedforward.init_ffn(gen, d, cfg.hidden_dim),
         "norm_ff_macaron": layers.init_layer_norm(d),
         "norm_mha": layers.init_layer_norm(d),
@@ -67,25 +77,20 @@ def layer_params(stacked: Params, i: int) -> Params:
 
 
 def init_encoder(gen, cfg: ModelConfig) -> Params:
-    _check_supported(cfg)
+    """The subsampling, the stacked layers, the final LayerNorm and the
+    frozen ``pos_table``: the signed relative table, or the absolute one
+    when ``use_relative`` is off (the ref modes build their rows from the
+    positions and read no table)."""
     embed = convolution.init_subsampling(gen, cfg.input_dim, cfg.encoder_dim)
     stacked = _stack([init_encoder_layer(gen, cfg) for _ in range(cfg.encoder_num_layers)])
+    table = (embedding.signed_sinusoid_table if cfg.use_relative
+             else embedding.sinusoid_table)(cfg.max_len, cfg.encoder_dim)
     return {
         "embed": embed,
         "layers": stacked,
         "after_norm": layers.init_layer_norm(cfg.encoder_dim),
-        "pos_table": embedding.signed_sinusoid_table(cfg.max_len, cfg.encoder_dim),
+        "pos_table": table,
     }
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if not cfg.use_relative or cfg.rel_mode not in ("skew", "decomposed"):
-        raise NotImplementedError(
-            f"use_relative={cfg.use_relative}, rel_mode={cfg.rel_mode!r}: only the "
-            "relative skew and decomposed modes are ported"
-        )
-    if cfg.conv_norm != "layer_norm":
-        raise NotImplementedError("only the LayerNorm conv module is ported")
 
 
 def _ffn_residual(norm_p: Params, ffn_p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -115,6 +120,7 @@ def encoder_layer(
     cfg: ModelConfig,
     *,
     rel_positions: tuple[torch.Tensor, torch.Tensor] | None = None,
+    pos_ref: torch.Tensor | None = None,
     attn_cache: AttnCache | None = None,
     conv_cache: torch.Tensor | None = None,
     use_pallas: bool = False,
@@ -131,8 +137,9 @@ def encoder_layer(
     seed for the attention kernel's own keep-mask), the attention output,
     the conv output, the second FFN's inner and output dropout. The conv
     kernel has no backward, so it runs only when ``deterministic``, and
-    only without a conv cache and for the non-causal conv, as in JAX
-    (``models/encoder.py:145-150``)."""
+    only without a conv cache and for the non-causal LayerNorm conv, as in
+    JAX (``models/encoder.py:145-150``). With ``pos_ref`` (the ref modes)
+    the attention takes its plain products, never the kernel."""
     def drop(t):
         return layers.dropout(gen, t, cfg.dropout, deterministic)
 
@@ -141,12 +148,13 @@ def encoder_layer(
     y = layers.layer_norm(p["norm_mha"], x)
     y, new_attn_cache = attention.mhsa(
         p["self_attn"], y, y, attn_mask, num_heads=cfg.num_heads,
-        pos_emb=pos_emb, rel_positions=rel_positions, use_pallas=use_pallas,
+        pos_emb=pos_emb, rel_positions=rel_positions, pos_ref=pos_ref, use_pallas=use_pallas,
         cache=attn_cache, dropout_rate=cfg.attention_dropout, gen=gen,
         deterministic=deterministic,
     )
     x = x + drop(y)
-    if use_pallas_conv and deterministic and conv_cache is None and not cfg.causal_conv:
+    if (use_pallas_conv and deterministic and conv_cache is None
+            and cfg.conv_norm == "layer_norm" and not cfg.causal_conv):
         from ..ops.conv_block import conv_block
 
         lengths = (
@@ -160,7 +168,8 @@ def encoder_layer(
     else:
         y, conv_cache = convolution.conv_module(
             p["conv_module"], layers.layer_norm(p["norm_conv"], x), pad_mask,
-            kernel_size=cfg.kernel_size, causal=cfg.causal_conv, cache=conv_cache,
+            kernel_size=cfg.kernel_size, norm_type=cfg.conv_norm, causal=cfg.causal_conv,
+            cache=conv_cache,
         )
         x = x + drop(y)
     x = _ffn_residual(p["norm_ff"], p["feed_forward"], x, cfg, gen, deterministic)
@@ -169,17 +178,55 @@ def encoder_layer(
 
 
 def _embed(p: Params, feats: torch.Tensor, cfg: ModelConfig):
-    """Subsample; return (x [B,T',D], pos_emb or None, rel_positions or None)
-    as the JAX ``_embed`` does for the relative modes at offset 0."""
-    _check_supported(cfg)
+    """Subsample and attach positions at offset 0, as the JAX ``_embed``:
+    (x [B,T',D], pos_emb, rel_positions, pos_ref), each None where the
+    mode has none. "ref_batch": pos_ref = pe[0:B] [B,1,D]; "ref_abs":
+    pe[0:T'] [1,T',D]; absolute: the table's rows 0..T'-1 added to x in
+    its dtype."""
     x = convolution.subsampling(p["embed"], feats)
-    t = x.shape[1]
+    b, t = x.shape[:2]
     pos = torch.arange(t, device=x.device)
+    if not cfg.use_relative:
+        pe = embedding.absolute_pos_embed(p["pos_table"], 0, t).to(x.dtype)
+        return x + pe[None], None, None, None
+    if cfg.rel_mode == "ref_batch":
+        pos_ref = embedding.abs_pos_vectors(torch.arange(b, device=x.device), cfg.encoder_dim)
+        return x, None, None, pos_ref[:, None, :]
+    if cfg.rel_mode == "ref_abs":
+        return x, None, None, embedding.abs_pos_vectors(pos, cfg.encoder_dim)[None]
     rel_positions = (pos, pos)
     if cfg.rel_mode == "decomposed":
-        return x, None, rel_positions
+        return x, None, rel_positions, None
     pos_emb = embedding.relative_pos_embed(p["pos_table"], t, t)
-    return x, pos_emb, rel_positions if cfg.use_pallas_attention else None
+    return x, pos_emb, rel_positions if cfg.use_pallas_attention else None, None
+
+
+def _checkpointed(layer, lp: Params, x: torch.Tensor,
+                  gen: torch.Generator | None) -> torch.Tensor:
+    """``layer(lp, x, gen)`` under ``torch.utils.checkpoint``: its
+    activations are dropped and recomputed in the backward. The recompute
+    must draw the masks and the attention kernel's seed of the first run,
+    and ``torch.utils.checkpoint`` restores only the default generators,
+    not ``gen``. So both runs draw from a generator of their own set to
+    ``gen``'s state at entry, and ``gen`` then takes that generator's
+    state at the end of the first run: the stream of draws is the one
+    without remat."""
+    if gen is None:
+        return checkpoint(layer, lp, x, None, use_reentrant=False)
+    start = gen.get_state()
+    end: list[torch.Tensor] = []
+
+    def run(lp, x):
+        g = torch.Generator(device=gen.device)
+        g.set_state(start)
+        y = layer(lp, x, g)
+        if not end:
+            end.append(g.get_state())
+        return y
+
+    y = checkpoint(run, lp, x, use_reentrant=False)
+    gen.set_state(end[0])
+    return y
 
 
 def encoder_forward(
@@ -206,13 +253,14 @@ def encoder_forward(
     full context when ``decoding_chunk_size`` < 0, chunks of
     ``decoding_chunk_size`` with ``num_decoding_left_chunks`` when it is >
     0, and otherwise drawn once per batch on the host generator
-    ``host_gen``."""
+    ``host_gen``. With ``cfg.remat``, and only while autograd records,
+    each layer is recomputed in the backward (``_checkpointed``)."""
     from . import cmvn as cmvn_mod
 
     if cmvn is not None:
         feats = cmvn_mod.global_cmvn(cmvn, feats)
     feats = feats.to(getattr(torch, cfg.compute_dtype))
-    x, pos_emb, rel_positions = _embed(p, feats, cfg)
+    x, pos_emb, rel_positions, pos_ref = _embed(p, feats, cfg)
     pad_mask = masks.make_non_pad_mask(masks.subsampled_lengths(feat_lengths), x.shape[1])
     dynamic = None
     if cfg.use_dynamic_chunk and not deterministic:
@@ -229,12 +277,18 @@ def encoder_forward(
         pad_mask, static_chunk_size=cfg.static_chunk_size,
         num_decoding_left_chunks=num_decoding_left_chunks, dynamic_chunk=dynamic,
     ).contiguous()
+
+    def layer(lp, x, g):
+        return encoder_layer(
+            lp, x, attn_mask, pos_emb, pad_mask, cfg, rel_positions=rel_positions,
+            pos_ref=pos_ref, use_pallas=cfg.use_pallas_attention,
+            use_pallas_conv=cfg.use_pallas_conv, gen=g, deterministic=deterministic,
+        )[0]
+
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.encoder_num_layers):
-        x, _, _ = encoder_layer(
-            layer_params(p["layers"], i), x, attn_mask, pos_emb, pad_mask, cfg,
-            rel_positions=rel_positions, use_pallas=cfg.use_pallas_attention,
-            use_pallas_conv=cfg.use_pallas_conv, gen=gen, deterministic=deterministic,
-        )
+        lp = layer_params(p["layers"], i)
+        x = _checkpointed(layer, lp, x, gen) if remat else layer(lp, x, gen)
     return layers.layer_norm(p["after_norm"], x), pad_mask
 
 
@@ -272,10 +326,12 @@ def encoder_forward_chunk(
     state). Queries attend to every valid cache slot of their row and to
     the whole chunk. Relative positions: queries at C + i, keys at j over
     the C cache slots and the chunk (the kernel and the decomposed bias),
-    or the table slice for (Tc, C + Tc) (skew)."""
+    or the table slice for (Tc, C + Tc) (skew). The ref modes: key j of
+    row b at absolute position offset[b] - C + j (negative before the
+    stream's start); absolute positions: row b's frames at offset[b] + i,
+    clipped to the table."""
     from . import cmvn as cmvn_mod
 
-    _check_supported(cfg)
     if cmvn is not None:
         chunk_feats = cmvn_mod.global_cmvn(cmvn, chunk_feats)
     chunk_feats = chunk_feats.to(getattr(torch, cfg.compute_dtype))
@@ -284,8 +340,16 @@ def encoder_forward_chunk(
     q_len = x.shape[1]
     k_len = cache_size + q_len
     j = torch.arange(k_len, device=x.device)
-    rel_positions = pos_emb = None
-    if cfg.rel_mode == "decomposed" or cfg.use_pallas_attention:
+    rel_positions = pos_emb = pos_ref = None
+    if not cfg.use_relative:
+        idx = (state.offset[:, None] + torch.arange(q_len, device=x.device)[None, :]).clamp(
+            0, p["pos_table"].shape[0] - 1)
+        x = x + p["pos_table"][idx.long()].to(x.dtype)
+    elif cfg.rel_mode in ("ref_abs", "ref_batch"):
+        pos_idx = state.offset[:, None] - cache_size + j[None, :]          # [B, k_len]
+        pos_ref = embedding.abs_pos_vectors(pos_idx.reshape(-1), cfg.encoder_dim).reshape(
+            x.shape[0], k_len, cfg.encoder_dim)
+    elif cfg.rel_mode == "decomposed" or cfg.use_pallas_attention:
         rel_positions = (cache_size + torch.arange(q_len, device=x.device), j)
     else:
         pos_emb = embedding.relative_pos_embed(p["pos_table"], q_len, k_len)
@@ -296,7 +360,8 @@ def encoder_forward_chunk(
     for i, cache in enumerate(caches):
         x, attn, conv = encoder_layer(
             layer_params(p["layers"], i), x, attn_mask, pos_emb, None, cfg,
-            rel_positions=rel_positions, attn_cache=cache, conv_cache=state.conv_cache[i],
+            rel_positions=rel_positions, pos_ref=pos_ref, attn_cache=cache,
+            conv_cache=state.conv_cache[i],
             use_pallas=cfg.use_pallas_attention,
         )
         new_k.append(attn.k)

@@ -45,6 +45,12 @@ def init_layer_norm(dim: int) -> Params:
     return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
 
 
+def init_batch_norm(dim: int) -> Params:
+    """BatchNorm's affine parameters and its running statistics."""
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim),
+            "mean": torch.zeros(dim), "var": torch.ones(dim)}
+
+
 def init_conv1d(gen, in_ch: int, out_ch: int, kernel: int, groups: int = 1) -> Params:
     bound = 1.0 / math.sqrt((in_ch // groups) * kernel)
     return {
@@ -91,6 +97,13 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def batch_norm_inference(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm over the last (channel) axis with the running statistics,
+    in float32 whatever the activation dtype."""
+    y = (x.float() - p["mean"]) * torch.rsqrt(p["var"] + eps)
     return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 

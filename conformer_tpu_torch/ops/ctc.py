@@ -63,3 +63,15 @@ def ctc_loss(
     final_label = alpha.gather(1, (s_last - 1).clamp_min(0)[:, None])[:, 0]
     final_label = torch.where(label_lengths > 0, final_label, NEG_INF)
     return -torch.logaddexp(final_blank, final_label)
+
+
+def ctc_loss_from_logits(
+    logits: torch.Tensor,
+    input_lengths: torch.Tensor,
+    labels: torch.Tensor,
+    label_lengths: torch.Tensor,
+    blank: int = 0,
+) -> torch.Tensor:
+    """``ctc_loss`` of the float32 log-softmax of logits [B, T, V]."""
+    return ctc_loss(torch.log_softmax(logits.float(), dim=-1), input_lengths, labels,
+                    label_lengths, blank)

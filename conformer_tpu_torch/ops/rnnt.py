@@ -14,6 +14,11 @@
   ``joint_impl="kernel"`` takes the fused joint kernels
   (``ops/joint_lattice.py``, JAX's ``joint_impl="pallas"``) in place of
   the chunked joint.
+- ``rnnt_loss``: the loss from whole joint logits [B, T, U+1, V].
+
+``lattice_impl="kernel"`` is JAX's ``"pallas"``: the DP kernel on CUDA
+tensors, its plain version on CPU tensors; ``"plain"`` (JAX's ``"xla"``)
+is the plain scan everywhere.
 """
 
 from __future__ import annotations
@@ -126,6 +131,14 @@ def rnnt_lattice_log_probs_fused(
     return torch.cat(lpb, dim=1), torch.cat(lpe, dim=1)
 
 
+def _reduce(nll: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return nll.mean()
+    if reduction == "sum":
+        return nll.sum()
+    return nll
+
+
 def _lattice_nll(lp_blank, lp_emit, t_lengths, u_lengths, lattice_impl: str):
     """NLL [B] through the DP kernel (``lattice_impl="kernel"``) or the
     plain scan (``"plain"``)."""
@@ -162,9 +175,22 @@ def rnnt_loss_fused(
         )
     else:
         raise ValueError(f"joint_impl {joint_impl!r}: 'kernel' or 'plain'")
-    nll = _lattice_nll(lp_blank, lp_emit, t_lengths, u_lengths, lattice_impl)
-    if reduction == "mean":
-        return nll.mean()
-    if reduction == "sum":
-        return nll.sum()
-    return nll
+    return _reduce(_lattice_nll(lp_blank, lp_emit, t_lengths, u_lengths, lattice_impl),
+                   reduction)
+
+
+def rnnt_loss(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    t_lengths: torch.Tensor,
+    u_lengths: torch.Tensor,
+    blank: int = 0,
+    reduction: str = "mean",
+    lattice_impl: str = "plain",
+) -> torch.Tensor:
+    """Transducer loss from joint logits [B, T, U+1, V] (row u has consumed
+    u labels) and labels [B, U], with torchaudio's ``rnnt_loss``
+    semantics; ``reduction`` "mean", "sum" or "none"."""
+    lp_blank, lp_emit = gather_lattice_log_probs(logits, labels, blank)
+    return _reduce(_lattice_nll(lp_blank, lp_emit, t_lengths, u_lengths, lattice_impl),
+                   reduction)

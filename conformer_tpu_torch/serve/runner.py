@@ -30,9 +30,11 @@ from ..models.transducer import encode, init_transducer
 from ..ops.fbank import fbank_numpy
 from ..ops.quant import quantize_tree
 from ..params import from_jax_params, load_jax_npz
+from ..train.checkpoint import import_torch_checkpoint
 
 
 INT8_SKIP_KEYS = ("predictor", "cmvn", "joint", "ctc")   # the JAX runner's
+TORCH_CHECKPOINT_SUFFIXES = (".pt", ".ckpt", ".pth")     # the JAX runner's state-dict route
 
 
 @dataclass
@@ -44,8 +46,15 @@ class Recognition:
 class ModelRunner:
     """Serves one model. ``params`` is None (random init from
     ``cfg.train.seed``), a JAX params tree (nested dicts and lists of
-    arrays, int8 leaves of a JAX-quantized tree included), or the path of a
-    JAX ``save_params_npz`` file.
+    arrays, int8 leaves of a JAX-quantized tree included), the path of a
+    JAX ``save_params_npz`` file, or the path of a reference / WeNet state
+    dict (``.pt``, ``.ckpt``, ``.pth``), imported onto the random init as
+    the JAX runner does (``train/checkpoint.import_torch_checkpoint``).
+
+    The CMVN statistics of ``data.cmvn_path`` go into params that carry
+    none: the random init, and so the state-dict route, whose mapping has
+    no CMVN key. Given weights keep their own, as a JAX restore over the
+    init keeps the checkpoint's.
 
     With ``cfg.decode.quantize_int8`` the params are quantized after any
     CMVN load exactly as the JAX runner does: ``quantize_tree`` with the
@@ -61,14 +70,17 @@ class ModelRunner:
     def __init__(self, cfg: Config, params=None, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if params is None:
+        state_dict = isinstance(params, str) and params.endswith(TORCH_CHECKPOINT_SUFFIXES)
+        if params is None or state_dict:
             self.params = init_transducer(cfg.model, cfg.train.seed, self.device)
         elif isinstance(params, str):
             self.params = load_jax_npz(params, self.device)
         else:
             self.params = from_jax_params(params, self.device)
-        if cfg.data.cmvn_path:
+        if cfg.data.cmvn_path and "cmvn" not in self.params:
             self.params["cmvn"] = cmvn_mod.init_cmvn_from_file(cfg.data.cmvn_path, self.device)
+        if state_dict:
+            self.params = import_torch_checkpoint(params, self.params, cfg.model, self.device)
         if cfg.decode.quantize_int8:
             # the LSTM predictor stays float (a latency-bound recurrence);
             # CMVN holds statistics, not weights

@@ -166,7 +166,8 @@ def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", type=str, default=None)
     ap.add_argument("--checkpoint", type=str, default=None,
-                    help="JAX params .npz (save_params_npz format); random init if omitted")
+                    help="JAX params .npz (save_params_npz format) or a reference / WeNet "
+                         "state dict (.pt, .ckpt, .pth); random init if omitted")
     ap.add_argument("--device", type=str, default=None, help="default: cuda")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)

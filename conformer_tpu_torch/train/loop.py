@@ -8,9 +8,10 @@ the device (``train/optimizer.py``). The step syncs with the host once, to
 read its metrics. ``fit`` streams batches from ``data/dataset.py`` through
 a background ``Prefetcher``, validates every ``val_check_interval`` steps
 (checkpoint ``step_{n}-wer_{x}``), checkpoints at each epoch's end and at
-``max_steps``, and resumes from ``train.resume_from``. One process: the
-multi-process paths and ``remat`` are not ported yet (ROADMAP.md queue
-A).
+``max_steps``, and resumes from ``train.resume_from``. ``train.remat``
+(or ``model.remat``) recomputes each encoder layer in the backward
+(``models/encoder.py``). One process: the multi-process paths are not
+ported yet (ROADMAP.md queue A).
 
 Each phase of the step (``encoder_fwd``, ``losses_fwd``, ``backward``,
 ``optimizer``) is a ``torch.profiler`` range, a few microseconds of host
@@ -53,12 +54,20 @@ DECODE_MODES = ("greedy_rnnt", "beam_rnnt", "greedy_ctc", "prefix_beam_ctc",
                 "attention_rescoring")
 
 
+def make_train_state(params, opt_state, step: int = 0) -> dict:
+    """The train state a checkpoint holds: {params, opt_state, step}."""
+    return {"params": params, "opt_state": opt_state, "step": int(step)}
+
+
 class Trainer:
     """Params (``init_transducer`` from ``cfg.train.seed``, or ``params``: a
     tree of tensors or arrays in the JAX layout, which the trainer copies
     to its device and then owns), the optimizer state, a generator on the
     device for dropout and one on the host for the dynamic chunk masks, the
-    tokenizer of ``data.vocab_path`` and the metric logger.
+    tokenizer of ``data.vocab_path`` and the metric logger. The CMVN
+    statistics of ``data.cmvn_path`` go into params that carry none (the
+    random init); given params keep their own, as a JAX restore does.
+    ``train.remat`` sets ``model.remat`` in ``cfg``, as in JAX.
     Runs on the card unless ``device="cpu"``; raises when CUDA is asked
     for and absent. ``phase_end``, when set, is called with each phase's
     name as the phase closes (a profile synchronizes there, so that each
@@ -66,8 +75,9 @@ class Trainer:
 
     def __init__(self, cfg: Config, params: Any = None, device=None, *,
                  use_wandb: bool = False):
-        if cfg.train.remat or cfg.model.remat:
-            raise NotImplementedError("remat is not ported yet (ROADMAP.md queue A)")
+        if cfg.train.remat and not cfg.model.remat:
+            # train.remat is the user's flag; the encoder reads model.remat
+            cfg.model.remat = True
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
@@ -75,7 +85,7 @@ class Trainer:
         else:
             params = tree_map(
                 lambda a: torch.as_tensor(a, dtype=torch.float32).clone().to(self.device), params)
-        if cfg.data.cmvn_path:
+        if cfg.data.cmvn_path and "cmvn" not in params:
             params["cmvn"] = cmvn_mod.init_cmvn_from_file(cfg.data.cmvn_path, self.device)
         self.params = params
         self.trainable = [(k, v) for k, v in leaf_paths(params) if is_trainable(k)]
@@ -300,9 +310,8 @@ class Trainer:
 
     def save(self, wer: float | None = None) -> str:
         opt = self.opt_state
-        state = {"params": self.params,
-                 "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
-                 "step": self.step}
+        state = make_train_state(self.params, {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
+                                 self.step)
         return ckpt_mod.save_checkpoint(self.cfg.train.checkpoint_dir, state, step=self.step,
                                         wer=wer, keep=self.cfg.train.keep_checkpoints)
 
@@ -331,6 +340,16 @@ class Trainer:
                 self.opt_state.mu[k].copy_(opt["mu"][k])
                 self.opt_state.nu[k].copy_(opt["nu"][k])
         self.step = int(state["step"])
+
+    def load_torch_checkpoint(self, path: str) -> None:
+        """Copy a reference / WeNet state dict (``.pt``, ``.pth``, or a
+        Lightning ``.ckpt``) into the params in place, by JAX's mapping
+        (``train/checkpoint.import_torch_checkpoint``); leaves the file
+        does not name keep their values."""
+        imported = ckpt_mod.import_torch_checkpoint(path, self.params, self.cfg.model)
+        with torch.no_grad():
+            for (_, v), (_, w) in zip(leaf_paths(self.params), leaf_paths(imported)):
+                v.copy_(w)
 
 
 def check_mode(mode: str) -> None:

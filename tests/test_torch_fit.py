@@ -342,7 +342,6 @@ def test_main_runs_on_the_card_unless_asked(monkeypatch, corpus):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         p_main.main(["--set", f"data.vocab_path={corpus['vocab']}", "--eval"])
-    for flag in (["--coordinator", "localhost:1"], ["--num_processes", "2"],
-                 ["--wenet_ckpt_path", "x.pt"]):
+    for flag in (["--coordinator", "localhost:1"], ["--num_processes", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             p_main.main(flag + ["--print_config"])

@@ -24,7 +24,8 @@ new = {"conformer_tpu_torch.ops.quant", "conformer_tpu_torch.ops.int8_matmul",
        "conformer_tpu_torch.serve.clients", "conformer_tpu_torch.decode.beam",
        "conformer_tpu_torch.decode.beam_batched", "conformer_tpu_torch.decode.ctc_decode",
        "conformer_tpu_torch.decode.ctc_beam_batched", "conformer_tpu_torch.decode.rescoring",
-       "conformer_tpu_torch.decode.search", "conformer_tpu_torch.models.decoder"}
+       "conformer_tpu_torch.decode.search", "conformer_tpu_torch.models.decoder",
+       "conformer_tpu_torch.train.profiling"}
 assert new <= set(names), new - set(names)
 import chip_smoke
 from conformer_tpu_torch.ops import cuda_build

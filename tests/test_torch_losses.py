@@ -846,3 +846,44 @@ def test_rnnt_loss_fused_matches_jax(impl, joint):
     _close(nll, j_nll)
     for got, want in zip(tx, j_g):
         _close(got.grad, want)
+
+
+# ------------------------------------------------------- losses from logits
+
+
+def test_ctc_loss_from_logits_matches_jax():
+    rng = np.random.default_rng(21)
+    logits = (3 * rng.standard_normal((3, 17, 11))).astype(np.float32)
+    t_lens = np.array([17, 9, 1], np.int32)
+    labels = rng.integers(1, 11, (3, 4)).astype(np.int32)
+    u_lens = np.array([4, 2, 0], np.int32)
+    want = j_ctc.ctc_loss_from_logits(*(jnp.asarray(a) for a in (logits, t_lens, labels, u_lens)))
+    got = p_ctc.ctc_loss_from_logits(*(torch.from_numpy(a) for a in (logits, t_lens, labels,
+                                                                      u_lens)))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
+@pytest.mark.parametrize("impl", ["plain", "kernel"])
+def test_rnnt_loss_from_logits_matches_jax(reduction, impl):
+    """``lattice_impl="kernel"`` (JAX's "pallas", its kernel in interpret
+    mode; the port's wrapper takes its plain version on the CPU) and
+    "plain" (JAX's "xla"); logits [B, T, U+1, V]."""
+    rng = np.random.default_rng(22)
+    logits = (2 * rng.standard_normal((3, 7, 5, 9))).astype(np.float32)
+    labels = rng.integers(1, 9, (3, 4)).astype(np.int32)
+    t_lens = np.array([7, 4, 1], np.int32)
+    u_lens = np.array([4, 1, 0], np.int32)
+    j_impl = {"plain": "xla", "kernel": "pallas"}[impl]
+    want = j_rnnt.rnnt_loss(*(jnp.asarray(a) for a in (logits, labels, t_lens, u_lens)),
+                            reduction=reduction, lattice_impl=j_impl)
+    x = _t(logits, grad=True)
+    got = p_rnnt.rnnt_loss(x, *(torch.from_numpy(a) for a in (labels, t_lens, u_lens)),
+                           reduction=reduction, lattice_impl=impl)
+    _close(got, want)
+    assert got.shape == tuple(np.shape(want))
+    got.sum().backward()
+    j_grad = jax.grad(lambda z: j_rnnt.rnnt_loss(
+        z, *(jnp.asarray(a) for a in (labels, t_lens, u_lens)), reduction=reduction,
+        lattice_impl=j_impl).sum())(jnp.asarray(logits))
+    _close(x.grad, j_grad)

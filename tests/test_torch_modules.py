@@ -132,7 +132,8 @@ def test_encoder_layer_matches(kernels):
 
 @pytest.mark.parametrize(
     "kernels,rel_mode,chunk",
-    [(False, "skew", -1), (True, "skew", -1), (False, "decomposed", -1), (True, "skew", 4)],
+    [(False, "skew", -1), (True, "skew", -1), (False, "decomposed", -1), (True, "skew", 4),
+     (True, "ref_abs", -1), (True, "ref_batch", 4)],
 )
 def test_encoder_forward_matches(kernels, rel_mode, chunk):
     cfg = dataclasses.replace(CFG, use_pallas_attention=kernels, use_pallas_conv=kernels,
@@ -203,3 +204,13 @@ def test_fbank_and_cmvn_match(tmp_path):
     want = j_cmvn.global_cmvn(j_cmvn.init_cmvn_from_file(str(path)), jnp.asarray(x))
     got = p_cmvn.global_cmvn(p_cmvn.init_cmvn_from_file(str(path)), torch.from_numpy(x))
     _close(got, want)
+
+
+def test_cmvn_identity_matches_jax():
+    want = j_cmvn.init_cmvn_identity(80)
+    got = p_cmvn.init_cmvn_identity(80)
+    for k in ("mean", "istd"):
+        assert got[k].dtype == torch.float32
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    x = _randn(12, 2, 5, 80)
+    _close(p_cmvn.global_cmvn(got, torch.from_numpy(x)), j_cmvn.global_cmvn(want, jnp.asarray(x)))

@@ -17,6 +17,7 @@ import torch
 from conformer_tpu.config import tiny_test_config
 from conformer_tpu.data import audio as j_audio
 from conformer_tpu.serve.runner import ModelRunner as JaxRunner
+from conformer_tpu.train import checkpoint as j_ckpt
 from conformer_tpu.train.checkpoint import load_params_npz, save_params_npz
 from conformer_tpu_torch.config import Config as PConfig
 from conformer_tpu_torch.data import audio as p_audio
@@ -90,6 +91,36 @@ def test_preprocessing_matches_jax(wav_path):
     got = runner.preprocess_waveform(wav, 8000)
     want = JaxRunner.preprocess_waveform(type("R", (), {"cfg": jcfg})(), j_wav, 8000)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_runner_keeps_given_cmvn_as_jax_does(tmp_path, wav_path):
+    """Weights that carry CMVN statistics keep them when ``data.cmvn_path``
+    names others: JAX builds its init with the file's stats, then restores
+    the checkpoint over the whole tree. The port once overwrote the given
+    stats with the file's (fault C2)."""
+    jcfg, pcfg = _configs()
+    rng = np.random.default_rng(5)
+    own = {"mean": rng.standard_normal(80).astype(np.float32),
+           "istd": rng.uniform(0.5, 2.0, 80).astype(np.float32)}
+    tree = jax.tree.map(np.asarray, JaxRunner(jcfg).params)
+    tree["cmvn"] = own
+    npz = str(tmp_path / "weights.npz")
+    save_params_npz(npz, tree)
+    stats = tmp_path / "global_cmvn"
+    stats.write_text(json.dumps({"mean_stat": [3.0] * 80, "var_stat": [20.0] * 80,
+                                 "frame_num": 2}))
+    jcfg.data.cmvn_path = pcfg.data.cmvn_path = str(stats)
+    ckpt_dir = str(tmp_path / "ckpt")
+    j_ckpt.save_checkpoint(ckpt_dir, {"params": tree}, step=0)
+    jrunner = JaxRunner(jcfg, checkpoint=ckpt_dir)
+    for params in (npz, tree):
+        runner = ModelRunner(pcfg, params=params, device="cpu")
+        for k in ("mean", "istd"):
+            np.testing.assert_array_equal(runner.params["cmvn"][k].numpy(), own[k])
+            np.testing.assert_array_equal(np.asarray(jrunner.params["cmvn"][k]), own[k])
+    assert runner.recognize_file(wav_path).tokens == jrunner.recognize_file(wav_path).tokens
+    fresh = ModelRunner(pcfg, device="cpu")          # the random init takes the file's
+    np.testing.assert_allclose(fresh.params["cmvn"]["mean"].numpy(), 1.5)
 
 
 def test_runner_defaults_to_cuda(monkeypatch):

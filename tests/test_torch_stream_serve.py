@@ -101,9 +101,9 @@ def test_sessions_match_jax(setup):
 
 def test_pool_matches_single_sessions_staggered(setup):
     """Three streams joining and leaving at different ticks of one pool give
-    their B=1 session transcripts exactly. Default (relative) positions
-    only: the port refuses ref_abs and absolute positions, whose pool rows
-    JAX's tests/test_scheduler.py also covers."""
+    their B=1 session transcripts exactly, with the default (relative)
+    positions; tests/test_torch_ref_modes.py runs the same schedule under
+    ref_abs and absolute positions, as JAX's tests/test_scheduler.py does."""
     cfg, pcfg, jp, pp = setup
     streams = {0: _windows(10, 3), 1: _windows(11, 4), 2: _windows(12, 2)}
     expect = {k: _port_single(pp, pcfg, v) for k, v in streams.items()}

@@ -11,6 +11,7 @@ rate 0 and at a given (chunk, left) pair. Tolerance 1e-4 abs and rel.
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -349,3 +350,50 @@ def test_pruned_training_overfits_one_batch():
             break
     assert hyps == texts, hyps
     assert losses[-1] < 0.5 * losses[0], (losses[0], losses[-1])
+
+
+# ---------------------------------------------------- profiling, config
+
+
+def test_step_timer_matches_jax(monkeypatch):
+    """Both timers on the same clock readings: the warm-up step left out,
+    the same summary."""
+    from conformer_tpu.train import profiling as j_prof
+    from conformer_tpu_torch.train import profiling as p_prof
+
+    ticks = [0.0, 0.5, 1.0, 1.25, 2.0, 2.5, 3.0, 3.125]
+    summaries = []
+    for mod in (j_prof, p_prof):
+        clock = iter(ticks)
+        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(clock))
+        timer = mod.StepTimer(warmup_steps=1)
+        dts = []
+        for audio in (10.0, 20.0, 30.0, 40.0):
+            timer.start()
+            dts.append(timer.stop(audio_seconds=audio))
+        summaries.append((dts, timer.summary(), timer.steps_per_sec))
+    assert summaries[1] == summaries[0]
+    assert summaries[1][1] == {"steps": 4, "steps_per_sec": round(3 / 0.875, 4),
+                               "audio_seconds_per_sec": round(90 / 0.875, 2)}
+    with pytest.raises(RuntimeError):
+        p_prof.StepTimer().stop()
+
+
+def test_trace_writes_a_file_and_device_sync(tmp_path):
+    from conformer_tpu.train import profiling as j_prof
+    from conformer_tpu_torch.train import profiling as p_prof
+
+    with p_prof.trace(str(tmp_path / "trace")):
+        y = torch.ones(4, 4) @ torch.ones(4, 4)
+    path = tmp_path / "trace" / "trace.json"
+    assert path.stat().st_size > 0 and "traceEvents" in path.read_text()
+    tree = {"b": np.arange(3.0, dtype=np.float32), "a": np.full(2, 2.0, np.float32)}
+    assert p_prof.device_sync({k: torch.from_numpy(v) for k, v in tree.items()}) == \
+        j_prof.device_sync({k: jnp.asarray(v) for k, v in tree.items()}) == 4.0
+    assert p_prof.device_sync(y) == 64.0
+
+
+def test_tiny_test_config_matches_jax():
+    from conformer_tpu_torch.config import tiny_test_config as p_tiny
+
+    assert json.loads(p_tiny().to_json()) == json.loads(tiny_test_config().to_json())
