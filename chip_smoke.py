@@ -203,22 +203,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
                at Conformer-L's training shape (bf16, B=32, T'=374, H=8,
                D=512, dropout 0.1) beside their plain versions, SDPA and
                their bounds;
-  7. fit     - the user's command, ``conformer_tpu_torch.main.main`` with
+  7. host    - the host audio runtime (conformer_tpu_torch/runtime/
+               audio_runtime.cc) built with g++ from a clean library path
+               (the compiler's first line and the build's seconds), then on
+               the card machine's CPU: its fbank of 48 x 15 s synthetic wavs
+               within (rtol 1e-3, atol 0.15) of fbank_numpy, fbank_batch at
+               1, 2 and 8 threads equal bit for bit to the single calls,
+               decode_wav within 1e-4 of the stdlib parser, resample 16 k ->
+               8 k against scipy (99th percentile below 5e-3 off the edges),
+               dither 0.1 repeatable in its seed and not across seeds; host
+               ms (median of 5) of fbank_numpy, the native fbank and
+               fbank_batch on 8 threads over that batch, and the training
+               pipeline's audio-s/s (AsrDataset in train mode at the
+               recipe's data settings over the fit corpus) with the native
+               path on and off;
+  7a. fit    - the corpus's CMVN statistics from ``python -m
+               conformer_tpu_torch.tools.compute_cmvn_stats`` in a process
+               of its own, then the user's command,
+               ``conformer_tpu_torch.main.main`` with
                --train, on a synthetic corpus written from a seed (40 wavs
                of 2-15 s, 8 dev wavs, a 5002-piece vocab) at full
                Conformer-M width, attention and conv kernel flags on, the
-               recipe's data pipeline as it stands: 4 steps, validations at
+               recipe's data pipeline as it stands, global CMVN from those
+               statistics, features from the host runtime: 4 steps, validations at
                0 (sanity), 2 and 4, checkpoints step_2-wer_*, step_4-wer_*,
                step_4 and last, and the run's launches of every kernel as
                its steps and validation batches give them; then
                --resume_from last to step 6 and --eval (a WER). The trainer's
                metrics.jsonl must hold steps 1-6 with finite losses and
                gradient norms and finite WERs at 2, 4 and 6; a new Trainer
-               restores the last checkpoint and must equal the file; then
+               restores the last checkpoint and must equal the file, its
+               CMVN the statistics' (init_cmvn_from_file), and
+               Trainer.validate on the dev set as an eager AsrDataset must
+               give the lazy set's WER and launches; then
                the same command with the full-lattice loss and the joint
                kernels (labels padded to 200: U+1 = 201), its own
                checkpoints, 2 steps, no validation: finite losses and the
-               joint kernels' launches of 2 steps x accum_grad 2;
+               joint kernels' launches of 2 steps x accum_grad 2; then with
+               MFCC features (data.feat_type=mfcc, 40 cepstra as
+               model.input_dim, CMVN cleared), 2 steps, no validation:
+               finite losses and the launches of 2 steps x accum_grad 2;
   7b. wenet  - the fit's last checkpoint written as a reference / WeNet
                state dict (reference_state_dict, torch.save, .pt):
                ``main --eval --wenet_ckpt_path`` must print the WER of
@@ -3621,38 +3645,211 @@ def full_lattice_parity(trainer, dtype: str, floor_share: float, batch: int = 8,
                             floor_share)
 
 
-# --------------------------------------------------------------------- fit
+# -------------------------------------------------------------------- host
 
 FIT_DIR = os.path.join(REPO, "build", "chip_smoke_fit")   # build/ is git-ignored
 FIT_TRAIN, FIT_DEV = 40, 8          # synthetic utterances of 2-15 s
-FIT_STEPS, FIT_RESUME_TO = 4, 6
-FIT_FULL_STEPS = 2                  # the full-lattice run: steps, no validation
+HOST_UTTS, HOST_SECONDS = 48, 15.0  # the fbank batch of the host phase
+HOST_THREADS = (1, 2, 8)            # fbank_batch's threads, each equal to the single calls
+HOST_RUNS = 5                       # host times: median of this many runs
+HOST_DECODE_TOL = 1e-4              # decode_wav vs the stdlib parser (the JAX test's)
+HOST_RESAMPLE_P99 = 5e-3            # resample vs scipy, 99th percentile off the edges (JAX's)
 
 
-def fit_phase() -> dict:
-    """The user's training command on a synthetic corpus from a seed:
-    ``conformer_tpu_torch.main.main`` with ``--train`` on
-    configs/conformer_m.json at full width (attention and conv kernel flags
-    on; the recipe's dither, speed perturbation, SpecAugment, bucket
-    batching, dropout 0.1 and accum_grad 2 as they stand), validating every
-    ``FIT_STEPS // 2`` steps; the launch counts are set to 0 just before it
-    and read just after. Then ``--resume_from last`` to ``FIT_RESUME_TO``
-    steps and ``--eval``; then a new trainer restores the last checkpoint,
-    to be compared with the file."""
-    import torch
-
-    from conformer_tpu_torch.config import Config
+def fit_corpus() -> tuple[dict, float]:
+    """The fit phase's synthetic corpus, written anew from seed 0 under
+    ``FIT_DIR``; returns its paths and the seconds it took."""
     from conformer_tpu_torch.data.synthetic import write_corpus
-    from conformer_tpu_torch.main import main as port_main
-    from conformer_tpu_torch.train import checkpoint as ckpt_mod
-    from conformer_tpu_torch.train.loop import Trainer
-    from conformer_tpu_torch.train.optimizer import leaf_paths
 
     shutil.rmtree(FIT_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     corpus = write_corpus(os.path.join(FIT_DIR, "corpus"), seed=0, n_train=FIT_TRAIN,
                           n_dev=FIT_DEV)
-    corpus_s = time.perf_counter() - t0
+    return corpus, time.perf_counter() - t0
+
+
+def median_ms(fn, runs: int = HOST_RUNS) -> float:
+    """Host wall time of ``fn()``, median of ``runs``."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+@contextlib.contextmanager
+def numpy_features():
+    """The data pipeline on its numpy path, as without g++."""
+    from conformer_tpu_torch.data import native
+
+    saved = native.native_available
+    native.native_available = lambda: False
+    try:
+        yield
+    finally:
+        native.native_available = saved
+
+
+def pipeline_rate(corpus: dict) -> float:
+    """Audio-seconds per second of the training pipeline: ``AsrDataset``
+    in train mode at configs/conformer_m.json's data settings (dither 0.1,
+    speed perturbation, SpecAugment, shuffle, sort, bucket batching) over
+    the corpus's train list, one epoch a run, median of ``HOST_RUNS``;
+    audio-seconds are the batches' frames x frame shift, as the trainer
+    counts them."""
+    from conformer_tpu_torch.data.dataset import AsrDataset
+
+    cfg = recipe_config(os.path.join(REPO, "configs", "conformer_m.json")).data
+    cfg = dataclasses.replace(cfg, train_data_list_path=corpus["train"],
+                              vocab_path=corpus["vocab"], bpe_model=None)
+    ds = AsrDataset(cfg, "train")
+    rates = []
+    for epoch in range(HOST_RUNS):
+        ds.set_epoch(epoch)
+        t0 = time.perf_counter()
+        frames = sum(int(b["feat_lengths"].sum()) for b in ds)
+        rates.append(frames * cfg.frame_shift / 1000 / (time.perf_counter() - t0))
+    return float(np.median(rates))
+
+
+def host_phase(corpus: dict) -> dict:
+    """The host audio runtime on the card machine's CPU: build it with g++
+    (timed, from a clean library path), then native against numpy (fbank
+    of HOST_UTTS x HOST_SECONDS synthetic wavs within FBANK_HOST_TOL of
+    fbank_numpy, fbank_batch at HOST_THREADS bit for bit equal to the
+    single calls, decode_wav against the stdlib parser, resample 16 k ->
+    8 k against scipy, dither 0.1 repeatable in its seed), then host times
+    and the training pipeline's audio-s/s with native on and off."""
+    from conformer_tpu_torch.data import audio, native
+    from conformer_tpu_torch.ops.fbank import fbank_numpy
+
+    native.reset()
+    cxx = native.compiler()
+    check(cxx is not None, "host: g++ is not on PATH, the audio runtime cannot be built")
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                             check=True).stdout.splitlines()[0]
+    native.library_path(cxx).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    available = native.native_available()      # raises with g++'s output if the build fails
+    res = {"compiler": version, "build_s": time.perf_counter() - t0,
+           "library": os.path.relpath(native.library_path(cxx), REPO)}
+    check(available, "host: native_available() is False")
+
+    waves = [synthetic_wav(700 + i, HOST_SECONDS) * (1 << 15) for i in range(HOST_UTTS)]
+    nat = [native.fbank(w) for w in waves]
+    ref = [fbank_numpy(w) for w in waves]
+    rtol, atol = FBANK_HOST_TOL
+    check(all(a.shape == b.shape == (1498, 80) for a, b in zip(nat, ref)),
+          f"host: fbank shapes {nat[0].shape}, {ref[0].shape}")
+    res["fbank_max_abs_err"] = max(float(np.abs(a - b).max()) for a, b in zip(nat, ref))
+    res["fbank_excess"] = max(float((np.abs(a - b) - atol - rtol * np.abs(b)).max())
+                              for a, b in zip(nat, ref))
+    res["batch_equal"] = {t: all(np.array_equal(a, b) for a, b in
+                                 zip(native.fbank_batch(waves, num_threads=t), nat))
+                          for t in HOST_THREADS}
+    wav = synthetic_wav(800, 4.0)
+    os.makedirs(FIT_DIR, exist_ok=True)
+    path = os.path.join(FIT_DIR, "host.wav")
+    with open(path, "wb") as f:
+        f.write(wav_bytes(wav))
+    with open(path, "rb") as f:
+        got, sr = native.decode_wav(f.read())
+    want, want_sr = audio._load_wav_stdlib(path)
+    res["decode"] = {"sr": (sr, want_sr), "n": (len(got), len(want)),
+                     "max_abs_err": float(np.abs(got - want).max())}
+    tone = (0.4 * np.sin(2 * np.pi * 440.0 * np.arange(8000) / 16000)).astype(np.float32)
+    ours, theirs = native.resample(tone, 16000, 8000), audio.resample(tone, 16000, 8000)
+    n = min(len(ours), len(theirs))
+    res["resample_p99"] = float(np.percentile(np.abs(ours[200:n - 200] - theirs[200:n - 200]),
+                                              99))
+    a, b, c = (native.fbank(waves[0], dither=0.1, seed=s) for s in (42, 42, 43))
+    res["dither"] = {"same_seed_equal": bool(np.array_equal(a, b)),
+                     "other_seed_differs": not np.array_equal(a, c)}
+
+    res["ms"] = {
+        "fbank_numpy": median_ms(lambda: [fbank_numpy(w) for w in waves]),
+        "native fbank": median_ms(lambda: [native.fbank(w) for w in waves]),
+        f"fbank_batch {HOST_THREADS[-1]} threads": median_ms(
+            lambda: native.fbank_batch(waves, num_threads=HOST_THREADS[-1])),
+    }
+    res["pipeline_native"] = pipeline_rate(corpus)
+    with numpy_features():
+        res["pipeline_numpy"] = pipeline_rate(corpus)
+    return res
+
+
+def check_host(res: dict, card: str) -> None:
+    d = res["decode"]
+    print(f"host: {res['compiler']}; audio runtime built in {res['build_s']:.2f} s "
+          f"({res['library']})")
+    print(f"host: native fbank vs fbank_numpy, {HOST_UTTS} x {HOST_SECONDS:g} s: max abs err "
+          f"{res['fbank_max_abs_err']:.3g} (rtol {FBANK_HOST_TOL[0]}, atol "
+          f"{FBANK_HOST_TOL[1]}: largest excess {res['fbank_excess']:.3g}); fbank_batch equal to "
+          f"the single calls at threads {res['batch_equal']}; decode_wav vs the stdlib parser "
+          f"max abs err {d['max_abs_err']:.3g} (tol {HOST_DECODE_TOL}); resample 16 k -> 8 k vs "
+          f"scipy p99 {res['resample_p99']:.3g} (limit {HOST_RESAMPLE_P99}); dither 0.1 "
+          f"{res['dither']}")
+    check(res["fbank_excess"] <= 0, "host: native fbank outside the tolerance of fbank_numpy")
+    check(all(res["batch_equal"].values()), f"host: fbank_batch {res['batch_equal']}")
+    check(d["sr"] == (16000, 16000) and d["n"][0] == d["n"][1]
+          and d["max_abs_err"] <= HOST_DECODE_TOL, f"host: decode_wav {d}")
+    check(res["resample_p99"] < HOST_RESAMPLE_P99, f"host: resample p99 {res['resample_p99']}")
+    check(all(res["dither"].values()), f"host: dither {res['dither']}")
+    times = ", ".join(f"{k} {v:.1f} ms" for k, v in res["ms"].items())
+    print(f"host: on the card machine's CPU ({os.cpu_count()} cores; {card}), "
+          f"{HOST_UTTS} x {HOST_SECONDS:g} s, median of {HOST_RUNS}: {times}")
+    print(f"host: training pipeline (AsrDataset train, the recipe's data settings, the fit "
+          f"corpus), median of {HOST_RUNS} epochs: native {res['pipeline_native']:.1f} "
+          f"audio-s/s, numpy {res['pipeline_numpy']:.1f} audio-s/s ({card})")
+
+
+# --------------------------------------------------------------------- fit
+
+FIT_STEPS, FIT_RESUME_TO = 4, 6
+FIT_FULL_STEPS = 2                  # the full-lattice run: steps, no validation
+FIT_MFCC_STEPS = 2                  # the MFCC run: steps, no validation
+MFCC_CEPS = 40                      # DataConfig.num_ceps's default: the model's input_dim
+
+
+def compute_cmvn(corpus: dict) -> dict:
+    """``python -m conformer_tpu_torch.tools.compute_cmvn_stats`` over the
+    corpus's train list, as a user runs it: in a process of its own, so
+    its worker pool forks no process that holds CUDA."""
+    path = os.path.join(FIT_DIR, "global_cmvn")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "conformer_tpu_torch.tools.compute_cmvn_stats",
+                           "--data_list", corpus["train"], "--output", path],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"compute_cmvn_stats failed:\n{proc.stderr[-3000:]}")
+    return {"path": path, "s": time.perf_counter() - t0, "stdout": proc.stdout.strip()}
+
+
+def fit_phase(corpus: dict, corpus_s: float) -> dict:
+    """The user's training command on the synthetic corpus (``fit_corpus``):
+    first ``compute_cmvn`` makes the corpus's CMVN statistics; then
+    ``conformer_tpu_torch.main.main`` with ``--train`` on
+    configs/conformer_m.json at full width (attention and conv kernel flags
+    on; the recipe's global CMVN from those statistics, dither, speed
+    perturbation, SpecAugment, bucket batching, dropout 0.1 and accum_grad
+    2 as they stand, features from the host audio runtime), validating
+    every ``FIT_STEPS // 2`` steps; the launch counts are set to 0 just
+    before it and read just after. Then ``--resume_from last`` to
+    ``FIT_RESUME_TO`` steps and ``--eval``; then a new trainer restores the
+    last checkpoint, to be compared with the file (its CMVN with the
+    statistics'), and validates the dev set lazy and eager. Then the
+    full-lattice run and the MFCC run, counts set to 0 just before each."""
+    import torch
+
+    from conformer_tpu_torch.config import Config
+    from conformer_tpu_torch.data.dataset import AsrDataset, eval_config
+    from conformer_tpu_torch.main import main as port_main
+    from conformer_tpu_torch.models.cmvn import init_cmvn_from_file
+    from conformer_tpu_torch.train import checkpoint as ckpt_mod
+    from conformer_tpu_torch.train.loop import Trainer
+    from conformer_tpu_torch.train.optimizer import leaf_paths
+
+    cmvn = compute_cmvn(corpus)
     ckpt = os.path.join(FIT_DIR, "ckpt")
     config = os.path.join(REPO, "configs", "conformer_m.json")
     sets = ["model.use_pallas_attention=true", "model.use_pallas_conv=true",
@@ -3660,7 +3857,7 @@ def fit_phase() -> dict:
             f"train.checkpoint_dir={ckpt}", f"data.train_data_list_path={corpus['train']}",
             f"data.dev_data_list_path={corpus['dev']}",
             f"data.test_data_list_path={corpus['dev']}", f"data.vocab_path={corpus['vocab']}",
-            "data.bpe_model=null", "data.cmvn_path="]
+            "data.bpe_model=null", f"data.cmvn_path={cmvn['path']}"]
     base = ["--config", config, "--set", *sets]
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
@@ -3682,6 +3879,21 @@ def fit_phase() -> dict:
     want = dict(leaf_paths(saved["params"]))
     restored = {"step": trainer.step, "saved_step": saved["step"],
                 "params_equal": all(torch.equal(v, want[k]) for k, v in leaf_paths(trainer.params))}
+    stats = init_cmvn_from_file(cmvn["path"], trainer.device)
+    cmvn["checkpoint_equal"] = {k: torch.equal(saved["params"]["cmvn"][k], stats[k])
+                                for k in ("mean", "istd")}
+    # the dev set lazy and eager through Trainer.validate, counts set to 0
+    # just before each and read just after
+    eager = {}
+    for label, kw in (("lazy", {}), ("eager", {"eager": True})):
+        dev_set = AsrDataset(eval_config(cfg.data), "dev", tokenizer=trainer.tokenizer, **kw)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        wer = trainer.validate(dev_set)
+        torch.cuda.synchronize()
+        eager[label] = {"wer": wer, "launches": launch_counts()}
+    eager["batches"] = len(dev_set)
+    trainer.logger.close()
     del trainer
     # the full lattice through the same command on the same corpus: its own
     # checkpoints, FIT_FULL_STEPS steps, no validation; counts set to 0
@@ -3697,11 +3909,27 @@ def fit_phase() -> dict:
     full = {"fit_s": time.perf_counter() - t0, "launches": launch_counts(),
             "records": [json.loads(line) for line in open(os.path.join(ckpt_full, "metrics.jsonl"))],
             "names": sorted(os.listdir(ckpt_full))}
+    # MFCC features (the config's num_ceps as the model's input width), the
+    # same command, its own checkpoints, no validation; CMVN cleared, the
+    # statistics being the fbank's; counts set to 0 just before and read
+    # just after
+    ckpt_mfcc = os.path.join(FIT_DIR, "ckpt_mfcc")
+    mfcc_sets = [*sets, f"train.checkpoint_dir={ckpt_mfcc}", "train.num_sanity_val_steps=0",
+                 f"train.val_check_interval={FIT_MFCC_STEPS + 1}", "data.feat_type=mfcc",
+                 f"data.num_ceps={MFCC_CEPS}", f"model.input_dim={MFCC_CEPS}", "data.cmvn_path=",
+                 f"train.max_steps={FIT_MFCC_STEPS}"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    port_main(["--train", "--config", config, "--set", *mfcc_sets])
+    torch.cuda.synchronize()
+    mfcc = {"fit_s": time.perf_counter() - t0, "launches": launch_counts(),
+            "records": [json.loads(line) for line in open(os.path.join(ckpt_mfcc,
+                                                                        "metrics.jsonl"))]}
     records = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
     eval_wer = [float(line.split()[-1]) for line in out.getvalue().splitlines()
                 if line.startswith("WER:")]
     return {"cfg": cfg, "eval_args": base, "corpus_s": corpus_s, "fit_s": fit_s,
-            "launches": launches,
+            "launches": launches, "cmvn": cmvn, "eager": eager, "mfcc": mfcc,
             "first": first, "records": records, "eval_wer": eval_wer, "restored": restored,
             "names": sorted(os.listdir(ckpt)), "last": open(os.path.join(ckpt, "last")).read(),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "full_lattice": full}
@@ -3763,6 +3991,26 @@ def check_fit(fit: dict) -> None:
     want = {k: n * accum * FIT_FULL_STEPS for k, n in per_microbatch(
         layers, True, pruned=False, joint=True).items()}
     check(full["launches"] == want, f"full-lattice fit launches {full['launches']}, expected {want}")
+    # CMVN as shipped: the checkpoint's statistics are the tool's file's
+    check(all(fit["cmvn"]["checkpoint_equal"].values()),
+          f"the checkpoint's CMVN differs from {fit['cmvn']['path']}: "
+          f"{fit['cmvn']['checkpoint_equal']}")
+    # the eager dev set validates as the lazy one, with the same launches
+    ev = fit["eager"]
+    want = {**dict.fromkeys(kernel_wrappers(), 0), "rel_flash_attention": layers * ev["batches"],
+            "conv_block": layers * ev["batches"]}
+    check(np.isfinite(ev["lazy"]["wer"]) and ev["eager"]["wer"] == ev["lazy"]["wer"]
+          and ev["lazy"]["launches"] == ev["eager"]["launches"] == want,
+          f"eager validation {ev['eager']} against lazy {ev['lazy']}, launches expected {want}")
+    # the MFCC run: its steps, finite, no validation, its launches
+    mfcc = fit["mfcc"]
+    recs = [r for r in mfcc["records"] if "train_loss" in r]
+    check([r["step"] for r in recs] == list(range(1, FIT_MFCC_STEPS + 1))
+          and all(np.isfinite(r["train_loss"]) and np.isfinite(r["train_grad_norm"]) for r in recs)
+          and not any("valid_wer" in r for r in mfcc["records"]),
+          f"MFCC fit records {mfcc['records']}")
+    want = {k: n * accum * FIT_MFCC_STEPS for k, n in per_microbatch(layers, True).items()}
+    check(mfcc["launches"] == want, f"MFCC fit launches {mfcc['launches']}, expected {want}")
 
 
 # ------------------------------------------------------------ WeNet import
@@ -4172,9 +4420,16 @@ def main() -> int:
     attention_train_times(dev, torch.Generator().manual_seed(12), 32, 374, h=8, dk=64, d=512)
     print(f"train Conformer-L remat: in {time.perf_counter() - t0:.1f} s ({card})")
 
-    # 7. fit: the main path of this slice, through the user's entry point;
+    # 7. host: the audio runtime built with g++ and held against the numpy
+    # path on the card machine's CPU; host times on the fit corpus
+    t0 = time.perf_counter()
+    corpus, corpus_s = fit_corpus()
+    check_host(host_phase(corpus), card)
+    print(f"host: in {time.perf_counter() - t0:.1f} s ({card})")
+
+    # 7a. fit: the main path of this slice, through the user's entry point;
     # counts set to 0 just before the first training run and read just after
-    fit = fit_phase()
+    fit = fit_phase(corpus, corpus_s)
     check_fit(fit)
     # stream (f): streaming validation on the fit phase's corpus, counts
     # set to 0 just before it and read just after
@@ -4218,10 +4473,26 @@ def main() -> int:
               f"{r['train_grad_norm']:.4g}")
     print(f"fit full lattice: {full['fit_s']:.1f} s, checkpoints {full['names']}, launches "
           f"{full['launches']}")
+    cm = fit["cmvn"]
+    print(f"fit: CMVN from `python -m conformer_tpu_torch.tools.compute_cmvn_stats` over the "
+          f"train list ({cm['stdout']}) in {cm['s']:.1f} s; the checkpoint's mean and istd equal "
+          f"the file's {cm['checkpoint_equal']}")
+    ev = fit["eager"]
+    print(f"fit: Trainer.validate on the dev set, lazy WER {ev['lazy']['wer']:.4f}, eager "
+          f"({ev['batches']} batches) WER {ev['eager']['wer']:.4f}; launches "
+          f"{nonzero(ev['eager']['launches'])}")
+    mfcc = fit["mfcc"]
+    for r in mfcc["records"]:
+        print(f"fit MFCC: step {r['step']}: {r['train_step_s'] * 1e3:.1f} ms, "
+              f"{r['train_audio_s']:.1f} audio s, loss {r['train_loss']:.4f}, grad norm "
+              f"{r['train_grad_norm']:.4g}")
+    print(f"fit MFCC ({MFCC_CEPS} cepstra, input_dim {MFCC_CEPS}, CMVN cleared): "
+          f"{mfcc['fit_s']:.1f} s, launches {nonzero(mfcc['launches'])}")
     print(f"fit: corpus {fit['corpus_s']:.1f} s; first run {fit['fit_s']:.1f} s; over "
           f"{len(train_recs)} steps: {step_s / len(train_recs) * 1e3:.1f} ms per step, "
           f"{audio_s / step_s:.1f} training audio-s/s, waiting on the prefetcher "
-          f"{wait_s / (wait_s + step_s):.1%} of the loop's step + wait time; peak memory "
+          f"{wait_s / (wait_s + step_s):.1%} of the loop's step + wait time (native features, "
+          f"CMVN from the corpus); peak memory "
           f"{fit['peak_mem_gb']:.2f} GiB; checkpoints {fit['names']}; eval WER "
           f"{fit['eval_wer'][0]:.4f}; restore {fit['restored']}; "
           f"{validation_batches(fit['cfg'])} validation batches and launches in the first "

@@ -1,7 +1,8 @@
 """Audio IO, resampling and speed perturbation on the host, in NumPy and
 SciPy (the port's own copy of the JAX package's ``data/audio.py``). Audio
 is float32 in [-1, 1]; fbank callers scale by 2**15. WAV only: other
-formats raise.
+formats raise. Where the host audio runtime is available (``native``),
+``load_audio`` decodes with it, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -19,6 +20,14 @@ def load_audio(path: str) -> tuple[np.ndarray, int]:
     Multi-channel audio is averaged to mono."""
     if not path.lower().endswith(".wav"):
         raise RuntimeError(f"cannot load {path!r}: only wav is supported")
+    from . import native
+
+    if native.native_available():
+        with open(path, "rb") as f:
+            try:
+                return native.decode_wav(f.read())
+            except ValueError:
+                pass        # a header the runtime refuses: the parsers below
     try:
         sr, data = _scipy_wav.read(path)
     except ValueError:

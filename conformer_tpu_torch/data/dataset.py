@@ -48,7 +48,9 @@ class AsrDataset:
 
     mode "train" applies the configured augmentation, shuffling and
     batching; "dev"/"test" read their list without perturbation, in static
-    batches (see ``eval_config``).
+    batches (see ``eval_config``). ``eager=True`` makes every batch at
+    init (epoch -1) and serves that list: ``len``, indexing and iteration;
+    a lazy set refuses ``len`` and indexing with TypeError.
     """
 
     def __init__(
@@ -59,12 +61,8 @@ class AsrDataset:
         tokenizer: Tokenizer | None = None,
         shard_id: int = 0,
         num_shards: int = 1,
+        eager: bool = False,
     ):
-        if cfg.feat_type != "fbank":
-            raise NotImplementedError(
-                f"feat_type {cfg.feat_type!r}: only fbank features are ported "
-                "(ROADMAP.md queue A, item 8)"
-            )
         self.cfg = cfg
         self.mode = mode
         self.train = mode == "train"
@@ -82,11 +80,33 @@ class AsrDataset:
         self.shard_id, self.num_shards = shard_id, num_shards
         # padded-vs-valid frames of bucket batching; the trainer logs it
         self.padding_stats = P.PaddingStats()
+        self._eager_batches = list(self._pipeline()) if eager else None
 
     def set_epoch(self, epoch: int) -> None:
+        """The epoch that seeds shuffling and augmentation. An eager set's
+        batches are made once, so it raises there (the JAX package's is a
+        silent no-op that keeps the first batches)."""
+        if self._eager_batches is not None:
+            raise RuntimeError("set_epoch on an eager AsrDataset: its batches were made at "
+                               "init and do not change with the epoch")
         self.epoch = epoch
 
+    def __len__(self) -> int:
+        if self._eager_batches is None:
+            raise TypeError("len() requires eager=True (a lazy dataset streams)")
+        return len(self._eager_batches)
+
+    def __getitem__(self, i: int) -> P.Batch:
+        if self._eager_batches is None:
+            raise TypeError("indexing requires eager=True (a lazy dataset streams)")
+        return self._eager_batches[i]
+
     def __iter__(self) -> Iterator[P.Batch]:
+        if self._eager_batches is not None:
+            return iter(self._eager_batches)
+        return self._pipeline()
+
+    def _pipeline(self) -> Iterator[P.Batch]:
         cfg = self.cfg
         rng = np.random.default_rng(
             (max(self.epoch, 0) * 7919 + self.shard_id) if self.train else 1234
@@ -109,14 +129,29 @@ class AsrDataset:
         it = P.resample(it, resample_rate=cfg.resample_rate)
         if self.train and cfg.speed_perturb:
             it = P.speed_perturb(it, speeds=tuple(cfg.speeds), rng=rng)
-        it = P.compute_fbank(
-            it,
-            num_mel_bins=cfg.num_mel_bins,
-            frame_length=cfg.frame_length,
-            frame_shift=cfg.frame_shift,
-            dither=cfg.dither if self.train else 0.0,
-            rng=rng,
-        )
+        if cfg.feat_type == "fbank":
+            it = P.compute_fbank(
+                it,
+                num_mel_bins=cfg.num_mel_bins,
+                frame_length=cfg.frame_length,
+                frame_shift=cfg.frame_shift,
+                dither=cfg.dither if self.train else 0.0,
+                rng=rng,
+            )
+        elif cfg.feat_type == "mfcc":
+            it = P.compute_mfcc(
+                it,
+                num_mel_bins=cfg.num_mel_bins,
+                frame_length=cfg.frame_length,
+                frame_shift=cfg.frame_shift,
+                dither=cfg.dither if self.train else 0.0,
+                num_ceps=cfg.num_ceps,
+                high_freq=cfg.high_freq,
+                low_freq=cfg.low_freq,
+                rng=rng,
+            )
+        else:
+            raise ValueError(f"unknown feat_type {cfg.feat_type!r}")
         if self.train and cfg.spec_aug:
             it = P.spec_aug(it, num_t_mask=cfg.num_t_mask, num_f_mask=cfg.num_f_mask,
                             max_t=cfg.max_t, max_f=cfg.max_f, rng=rng)

@@ -3,13 +3,14 @@ port's own copy of the JAX package's ``data/processor.py``).
 
 Each stage is ``stage(iterable, **knobs) -> iterator`` over sample dicts
 (key, waveform, sample_rate, transcript, tokens, label, feat): parse_raw,
-filter_data, resample, speed_perturb, tokenize, compute_fbank, spec_aug,
-shuffle, sort_by_length, static / dynamic / bucket batching and padding.
+filter_data, resample, speed_perturb, tokenize, compute_fbank, compute_mfcc,
+spec_aug, shuffle, sort_by_length, static / dynamic / bucket batching and padding.
 ``bucket_batch`` and ``padding`` give a small closed set of padded shapes
 (length buckets x fixed rows per bucket). All randomness draws from an
 explicit ``np.random.Generator``, so a seed gives the JAX package's batches
-exactly. Features come from the numpy ``fbank_numpy``; the JAX package's
-C++ runtime (``data/native.py``) and MFCC features are not ported yet.
+exactly. ``compute_fbank`` takes the host C++ runtime (``native``) where it
+is available and the numpy ``fbank_numpy`` where it is not, by the JAX
+package's rule and with its draws; ``compute_mfcc`` is numpy only, as there.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Any, Iterable, Iterator
 
 import numpy as np
 
-from ..ops.fbank import fbank_numpy
+from ..ops.fbank import fbank_numpy, mfcc_numpy
 from . import audio as audio_ops
 from .tokenizer import Tokenizer
 
@@ -121,16 +122,68 @@ def compute_fbank(
     dither: float = 0.0,
     rng: np.random.Generator | None = None,
 ) -> Iterator[Sample]:
-    """Log-mel fbank of each waveform (``fbank_numpy``; dither drawn from
-    ``rng``, as the JAX package's numpy path draws it)."""
+    """Log-mel fbank of each waveform. With the host runtime (decided once
+    per call) each utterance dithers from one seed drawn from ``rng``
+    (none at dither 0); without it ``fbank_numpy`` draws its noise from
+    ``rng``: the JAX package's two paths and their draws."""
+    from . import native
+
+    use_native = native.native_available()
+    rng_native = rng or np.random.default_rng()
     for sample in data:
-        feat = fbank_numpy(
+        wave = sample["waveform"] * (1 << 15)
+        if use_native:
+            feat = native.fbank(
+                wave,
+                sample_rate=sample["sample_rate"],
+                num_mel_bins=num_mel_bins,
+                frame_length=frame_length,
+                frame_shift=frame_shift,
+                dither=dither,
+                seed=int(rng_native.integers(0, 2**63)) if dither else 0,
+            )
+        else:
+            feat = fbank_numpy(
+                wave,
+                sample_rate=sample["sample_rate"],
+                num_mel_bins=num_mel_bins,
+                frame_length=frame_length,
+                frame_shift=frame_shift,
+                dither=dither,
+                rng=rng,
+            )
+        yield dict(
+            key=sample["key"],
+            label=sample["label"],
+            feat=feat,
+            transcript=sample["transcript"],
+            tokens=sample["tokens"],
+        )
+
+
+def compute_mfcc(
+    data: Iterable[Sample],
+    num_mel_bins: int = 23,
+    frame_length: float = 25.0,
+    frame_shift: float = 10.0,
+    dither: float = 0.0,
+    num_ceps: int = 13,
+    high_freq: float = 0.0,
+    low_freq: float = 20.0,
+    rng: np.random.Generator | None = None,
+) -> Iterator[Sample]:
+    """Kaldi-style MFCC of each waveform (``mfcc_numpy``)."""
+    for sample in data:
+        feat = mfcc_numpy(
             sample["waveform"] * (1 << 15),
             sample_rate=sample["sample_rate"],
             num_mel_bins=num_mel_bins,
+            num_ceps=num_ceps,
             frame_length=frame_length,
             frame_shift=frame_shift,
             dither=dither,
+            low_freq=low_freq,
+            high_freq=high_freq,
             rng=rng,
         )
         yield dict(

@@ -1,5 +1,6 @@
-"""Kaldi-compatible log-mel fbank on the host, in NumPy (the port's own copy
-of the JAX package's ``ops/fbank.py`` ``fbank_numpy`` and its helpers).
+"""Kaldi-compatible log-mel fbank and MFCC on the host, in NumPy (the port's
+own copy of the JAX package's ``ops/fbank.py`` ``fbank_numpy``,
+``mfcc_numpy`` and their helpers).
 
 Semantics of Kaldi's compute-fbank-feats with the recipe's settings:
 waveform pre-scaled by 2**15 by the caller; snip_edges framing; optional
@@ -113,6 +114,37 @@ def fbank_numpy(
     )
     mel_e = power @ banks.T
     return np.log(np.maximum(mel_e, np.float32(_EPSILON))).astype(np.float32)
+
+
+def mfcc_numpy(
+    waveform: np.ndarray,
+    sample_rate: float = 16000.0,
+    num_mel_bins: int = 23,
+    num_ceps: int = 13,
+    frame_length: float = 25.0,
+    frame_shift: float = 10.0,
+    dither: float = 0.0,
+    low_freq: float = 20.0,
+    high_freq: float = 0.0,
+    cepstral_lifter: float = 22.0,
+    rng: np.random.Generator | None = None,
+) -> np.ndarray:
+    """Kaldi-style MFCC: the orthonormal DCT-II of the log-mel fbank in
+    float64, its first ``num_ceps`` coefficients, then the sine lifter
+    (none at ``cepstral_lifter`` 0) -> [T, num_ceps] float32."""
+    logmel = fbank_numpy(waveform, sample_rate, num_mel_bins, frame_length, frame_shift,
+                         dither, low_freq=low_freq, high_freq=high_freq,
+                         rng=rng).astype(np.float64)
+    m = num_mel_bins
+    k = np.arange(num_ceps)[:, None]
+    n = np.arange(m)[None, :]
+    dct = np.cos(math.pi * k * (2 * n + 1) / (2 * m)) * math.sqrt(2.0 / m)
+    dct[0] *= 1.0 / math.sqrt(2.0)
+    ceps = logmel @ dct.T
+    if cepstral_lifter != 0.0:
+        ceps = ceps * (1.0 + 0.5 * cepstral_lifter
+                       * np.sin(math.pi * np.arange(num_ceps) / cepstral_lifter))
+    return ceps.astype(np.float32)
 
 
 def dft_matrices(window_size: int, padded: int) -> tuple[np.ndarray, np.ndarray]:

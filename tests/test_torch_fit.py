@@ -4,9 +4,9 @@ at tiny size: tokenizer, processing stages and ``AsrDataset`` batches,
 with validation and resume, and ``main``'s config handling.
 
 Audio comes from ``conformer_tpu_torch.data.synthetic`` (seeded speech-like
-wavs, a '▁'-piece vocab). The JAX pipeline is held to its numpy path (its
-C++ runtime turned off in the test), which the port copies: for one seed
-the batches must be equal.
+wavs, a '▁'-piece vocab). Here both pipelines are held to their numpy
+paths (the C++ runtimes turned off in the test): for one seed the batches
+must be equal. ``test_torch_features.py`` holds them on their C++ runtimes.
 """
 
 import dataclasses
@@ -34,6 +34,7 @@ from conformer_tpu.train import metrics as j_metrics
 from conformer_tpu_torch import main as p_main
 from conformer_tpu_torch.config import Config as PConfig
 from conformer_tpu_torch.data import dataset as p_ds
+from conformer_tpu_torch.data import native as p_native
 from conformer_tpu_torch.data import spm_reader as p_spm
 from conformer_tpu_torch.data import tokenizer as p_tok
 from conformer_tpu_torch.data.prefetch import Prefetcher
@@ -152,6 +153,7 @@ def test_asr_dataset_batches_match_jax(corpus, monkeypatch):
     sort, bucket batching) for two epochs, and dev batches, equal JAX's
     numpy path element for element."""
     monkeypatch.setattr(j_native, "native_available", lambda: False)
+    monkeypatch.setattr(p_native, "native_available", lambda: False)
     jcfg, pcfg = _tiny_cfgs(corpus, bucket_boundaries=(128, 256), max_frames_in_batch=512,
                             max_label_len=40, shuffle_size=4, sort_size=3)
     j_train = j_ds.AsrDataset(jcfg.data, "train", shard_id=0, num_shards=1)
@@ -165,8 +167,8 @@ def test_asr_dataset_batches_match_jax(corpus, monkeypatch):
     p_dev = p_ds.AsrDataset(p_ds.eval_config(pcfg.data), "dev")
     _assert_batches_equal(list(p_dev), list(j_dev))
     assert p_ds.shard_list(list(range(10)), 3, 1, 3) == j_ds.shard_list(list(range(10)), 3, 1, 3)
-    with pytest.raises(NotImplementedError):
-        p_ds.AsrDataset(dataclasses.replace(pcfg.data, feat_type="mfcc"), "train")
+    with pytest.raises(ValueError, match="unknown feat_type"):
+        list(p_ds.AsrDataset(dataclasses.replace(pcfg.data, feat_type="plp"), "train"))
 
 
 def test_prefetcher_order_errors_and_close():

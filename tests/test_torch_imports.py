@@ -25,7 +25,10 @@ new = {"conformer_tpu_torch.ops.quant", "conformer_tpu_torch.ops.int8_matmul",
        "conformer_tpu_torch.decode.beam_batched", "conformer_tpu_torch.decode.ctc_decode",
        "conformer_tpu_torch.decode.ctc_beam_batched", "conformer_tpu_torch.decode.rescoring",
        "conformer_tpu_torch.decode.search", "conformer_tpu_torch.models.decoder",
-       "conformer_tpu_torch.train.profiling"}
+       "conformer_tpu_torch.train.profiling", "conformer_tpu_torch.data.native",
+       "conformer_tpu_torch.tools.collect_librispeech",
+       "conformer_tpu_torch.tools.compute_cmvn_stats", "conformer_tpu_torch.tools.convert_vocab",
+       "conformer_tpu_torch.tools.gen_golden_fbank"}
 assert new <= set(names), new - set(names)
 import chip_smoke
 from conformer_tpu_torch.ops import cuda_build
@@ -33,6 +36,8 @@ bad = sorted(m for m in sys.modules if m in ("jax", "conformer_tpu", "websockets
              or m.startswith(("jax.", "jaxlib", "conformer_tpu.", "websockets.")))
 assert not bad, bad
 assert not cuda_build._libs
+from conformer_tpu_torch.data import native
+assert not native._state
 print(len(names))
 """
 
