@@ -249,7 +249,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
                ``--eval --resume``, and a runner given the .pt must answer
                the serve phase's three requests as one given the
                checkpoint's tree, one launch of each encoder kernel per
-               layer per request.
+               layer per request;
+  8. parallel - (a) ``python -m conformer_tpu_torch.main --train`` on the
+               fit corpus and config with ``--coordinator 127.0.0.1:<port>
+               --num_processes 1 --process_id 0``: NCCL's init and the
+               one-process step through main, in this process (at world
+               size 1 no collective runs: the step's all-reduce, the
+               rank-0 save's barrier and the pipeline's link broadcasts
+               wait for two cards), 2 steps: the same losses as the fit's
+               first steps and the launches of 2 steps; which collectives gloo takes on
+               CUDA tensors (all_reduce, all_gather, broadcast, send/recv),
+               2 ranks on this card; (b) data parallelism, 2 ranks on this
+               card over gloo, Conformer-M at full width in f32 with both
+               kernel flags on, no dropout, 8 x 15 s a rank: the step's loss
+               and all-reduced gradients against one process on the joined
+               16 rows; (c) sequence (seq 2: T' = 374, 187 a rank) and
+               pipeline parallelism (pipe 2, 6 layers a stage, 2
+               microbatches) on 8 x 15 s: the deterministic encoder output
+               (attention and conv kernels) and the step's gradients against
+               one process; a path whose collective gloo refuses on CUDA
+               tensors is not run, and a line names it; each rank's launches
+               of its step and forward must be the path's; (d) the three
+               attention kernels at the sequence-parallel shape (B=32, Tq =
+               187 at positions 187-373, Tk = 374) in f32 and bf16, dropout
+               0.1, outputs poisoned with NaN first, against the plain
+               versions, with times beside SDPA's.
 Every time and memory size printed stands beside the card's name and
 power limit (phase 1's line) or follows it in the same run.
 The last two lines are the kernels JSON line and the result line
@@ -686,18 +710,20 @@ def check_attention_train_kernels(dev):
 
 
 def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
-                          d: int = 256) -> dict:
+                          d: int = 256, inputs=None, label: str | None = None) -> dict:
     """Kernel, plain and SDPA times (CUDA events) of the three attention
     kernels of training in bf16 with dropout ATTN_RATE at (B, T', H, dk,
-    D), and each one's bound from this run's inputs (the live (query, key)
-    pairs of its mask). Returns each kernel's source, the TPU kernel it
+    D), or on ``inputs`` ((args, seed, dO) in bf16, of any Tq and Tk), and
+    each one's bound from this run's inputs (the live (query, key) pairs
+    of its mask). Returns each kernel's source, the TPU kernel it
     replaces, ms, plain_ms, library_ms, bound_ms and bound_by."""
     import torch
 
     from conformer_tpu_torch.ops import rel_attention as ra
 
     scale = 1 / math.sqrt(dk)
-    args, seed, g = attention_train_inputs(dev, torch.bfloat16, gen, b, t, dk=dk, d=d, h=h)
+    args, seed, g = inputs or attention_train_inputs(dev, torch.bfloat16, gen, b, t, dk=dk,
+                                                     d=d, h=h)
     q_u, ab, k, v, feats, mask = args
     kw = dict(scale=scale, dropout_rate=ATTN_RATE)
     out, lse = ra.rel_attention(*args, seed=seed, **kw)
@@ -739,6 +765,7 @@ def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
          lib_bwd, kv_bound),
     ]
     times = {}
+    where = label or f"B={b} T'={t}"
     for name, src, rep, kern, plain, lib, (bnd, by) in specs:
         times[name] = {
             "source": f"conformer_tpu_torch/csrc/{src}",
@@ -747,7 +774,7 @@ def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib,
         }
         e = times[name]
-        print(f"kernels: {name} bf16 B={b} T'={t} H={h} D={d} dropout {ATTN_RATE}: kernel "
+        print(f"kernels: {name} bf16 {where} H={h} D={d} dropout {ATTN_RATE}: kernel "
               f"{e['ms']:.4f} ms, "
               f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms (SDPA "
               f"{'forward' if plain else 'backward, dq and dkv together'}, bias precomputed), "
@@ -4146,9 +4173,444 @@ def check_wenet(wn: dict, fit: dict, card: str) -> None:
 # -------------------------------------------------------------------- main
 
 
+# -------------------------------------------------------------- 8. parallel
+
+PAR_SECONDS = 15.0
+PAR_LOCAL_B = 8              # (b): each rank's rows; (c): the rows of the seq / pipe group
+PAR_TIMEOUT = 420            # s, for one set of ranks, start to end
+PAR_FIT_STEPS = 2            # (a): steps of the world-size-1 NCCL run through main
+PAR_LABELS = 4               # (b)-(c): tokens a row; configs/conformer_m.json's prune_range is 5
+PAR_ENC_TOL = 1e-3           # (c): encoder output, kernel path of the mesh vs of one process
+PAR_LOSS_TOL, PAR_GRAD_TOL = 1e-4, 1e-3     # relative; gradients: of each leaf's max-abs
+PAR_RANK_FLAG = "--parallel-rank"           # chip_smoke.py's own worker mode: one rank
+GLOO_OPS = ("all_reduce", "all_gather", "broadcast")    # what the port's paths call
+NEEDS = {"data": ("all_reduce",), "seq": ("all_reduce", "all_gather"),
+         "pipe": ("all_reduce", "all_gather", "broadcast")}
+# (d): the attention kernels at the sequence-parallel shape, seq 2 at T' =
+# 374: rank 1's 187 queries at positions 187-373 against all 374 keys
+SEQ_SHAPE = dict(b=32, h=4, dk=64, d=256, tq=187, q0=187, tk=374)
+
+
+def parallel_config(**train):
+    """configs/conformer_m.json at full width in float32 with both kernel
+    flags on and dropout and the dynamic chunk off (parity is checked
+    deterministic); ``train`` sets TrainConfig fields."""
+    cfg = recipe_config(os.path.join(REPO, "configs", "conformer_m.json"))
+    m = cfg.model
+    m.compute_dtype, m.use_pallas_attention, m.use_pallas_conv = "float32", True, True
+    m.dropout = m.attention_dropout = m.pos_enc_dropout = 0.0
+    m.predictor_embed_dropout = m.predictor_dropout = 0.0
+    m.use_dynamic_chunk = m.use_dynamic_left_chunk = False
+    for k, v in train.items():
+        setattr(cfg.train, k, v)
+    return cfg
+
+
+def parallel_batch(cfg, seed: int, rows: int) -> dict:
+    """``rows`` x 15 s of ragged lengths (full down to 60 %) with labels of
+    PAR_LABELS tokens: U + 1 <= prune_range, so that the pruned loss's band
+    covers every label and no band start can flip on an argmax near-tie
+    between the mesh and one process (phase 6 holds the band itself)."""
+    frames = [int(PAR_SECONDS * 100 * f) for f in np.linspace(1.0, 0.6, rows)]
+    return random_batch(cfg, seed, rows, PAR_SECONDS, labels=PAR_LABELS, feat_frames=frames)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(kind: str, world: int, out: str, **spec) -> subprocess.Popen:
+    """Start ``world`` ranks of this script in its worker mode on the one
+    card (gloo), on a free port; their output goes to ``out.rank<r>.log``."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        s = {"kind": kind, "world": world, "rank": rank, "port": port, "out": out, **spec}
+        log = open(f"{out}.rank{rank}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                        PAR_RANK_FLAG, json.dumps(s)], cwd=REPO, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def wait_ranks(procs, timeout: float = PAR_TIMEOUT) -> list[dict | None]:
+    """Each rank's result (None for a rank that failed or ran out of time;
+    every process is ended here)."""
+    deadline = time.monotonic() + timeout
+    results = []
+    for rank, (proc, log) in enumerate(procs):
+        try:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        res_path = log.name.replace(".log", ".json")
+        if proc.returncode == 0 and os.path.exists(res_path):
+            with open(res_path) as f:
+                results.append(json.load(f))
+        else:
+            with open(log.name) as f:
+                tail = f.read()[-2000:]
+            print(f"parallel: rank {rank} of {log.name} exited {proc.returncode}:\n{tail}")
+            results.append(None)
+    return results
+
+
+def parallel_rank(spec: dict) -> int:
+    """One rank of phase 8: joins a gloo group on cuda:0 and runs
+    ``spec["kind"]``; writes its result to ``<out>.rank<r>.json``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from conformer_tpu_torch.parallel import distributed as pdist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pdist.maybe_initialize_distributed(f"127.0.0.1:{spec['port']}", spec["world"],
+                                       spec["rank"], device="cuda:0", backend="gloo")
+    try:
+        res = (probe_rank if spec["kind"] == "probe" else train_rank)(spec)
+    finally:
+        pdist.destroy()
+    with open(f"{spec['out']}.rank{spec['rank']}.json", "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def probe_rank(spec: dict) -> dict:
+    """Which of ``spec["ops"]`` gloo takes on CUDA tensors, each checked
+    for the right values: {op: "ok" | "wrong values" | "refused: ..."}."""
+    import torch
+    import torch.distributed as dist
+
+    r, n = spec["rank"], spec["world"]
+    res = {}
+    for op in spec["ops"]:
+        x = torch.full((1024,), float(r + 1), device="cuda")
+        try:
+            if op == "all_reduce":
+                dist.all_reduce(x)
+                good = bool((x == n * (n + 1) / 2).all())
+            elif op == "all_gather":
+                parts = [torch.empty_like(x) for _ in range(n)]
+                dist.all_gather(parts, x)
+                good = all(bool((p == i + 1).all()) for i, p in enumerate(parts))
+            elif op == "broadcast":
+                dist.broadcast(x, src=0)
+                good = bool((x == 1).all())
+            else:           # send_recv: rank 0 to rank 1
+                if r == 0:
+                    dist.send(x, dst=1)
+                    good = True
+                else:
+                    dist.recv(x, src=0)
+                    good = bool((x == 1).all())
+            torch.cuda.synchronize()
+            res[op] = "ok" if good else "wrong values"
+        except RuntimeError as e:       # gloo refuses the device or the op
+            res[op] = f"refused: {str(e).splitlines()[0][:160]}"
+    return res
+
+
+def train_rank(spec: dict) -> dict:
+    """(b)-(c) on this rank: a ``Trainer`` over the mesh of ``spec["train"]``
+    on its rows of the seeded global batch; with ``forward``, the
+    deterministic encoder forward (both kernel flags) and the step's
+    reduced gradients (dropout 0) with the ms of its ``all_reduce`` phase,
+    both after a warm-up step; counts set to 0 before each, read after.
+    Rank 0 writes the output and the whole gradients (a pipeline's stages
+    gathered) to ``<out>.npz``."""
+    import torch
+
+    from conformer_tpu_torch.parallel import distributed as pdist
+    from conformer_tpu_torch.train.loop import Trainer
+
+    cfg = parallel_config(**spec["train"])
+    tr = Trainer(cfg, device="cuda:0")
+    rows = spec["rows"][spec["rank"]]
+    mb = {k: v[rows[0]:rows[1]] for k, v in parallel_batch(cfg, spec["seed"],
+                                                            spec["global_rows"]).items()}
+    res, save = {}, {}
+    tr.step_grads([mb])             # a warm-up: the rank's first launches and allocations
+    if spec.get("forward"):
+        b = tr._batch(mb)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out, _ = tr.encoder_fn(tr.params["encoder"], b["feats"], b["feat_lengths"],
+                                   cfg.model, cmvn=tr.params.get("cmvn"), deterministic=True)
+        torch.cuda.synchronize()
+        res["fwd_ms"] = (time.perf_counter() - t0) * 1e3
+        res["fwd_launches"] = launch_counts()
+        save["out"] = out.float().cpu().numpy()
+    marks = []      # (phase, its end): the trainer's phases, each closed by a sync
+    tr.phase_end = lambda name: (torch.cuda.synchronize(),
+                                 marks.append((name, time.perf_counter())))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, metrics, norm = tr.step_grads([mb])
+    torch.cuda.synchronize()
+    res["step_ms"] = (time.perf_counter() - t0) * 1e3
+    res["launches"] = launch_counts()
+    check(marks[-1][0] == "all_reduce", f"the step's last phase is {marks[-1][0]}")
+    res["all_reduce_ms"] = (marks[-1][1] - marks[-2][1]) * 1e3
+    res["metrics"] = metrics.tolist()
+    res["norm"] = float(norm)
+    host = pdist.gather_tree_to_host(grads, tr.mesh)
+    if spec["rank"] == 0:
+        np.savez(spec["out"] + ".npz", **save, **{f"g:{k}": v for k, v in host.items()})
+    return res
+
+
+def mesh_parity(kind: str, results: list, out: str, ref: dict, layers: int, card: str) -> dict:
+    """(b)-(c): every rank ran and launched the path's kernels; the step's
+    losses and gradients (and, for (c), the encoder output) against the
+    one-process ``ref`` on the same rows."""
+    import torch
+
+    check(all(r is not None for r in results), f"parallel {kind}: a rank failed")
+    want = per_microbatch(layers, True, pruned=parallel_config().model.use_pruned_loss)
+    for r, res in enumerate(results):
+        check(res["launches"] == want, f"parallel {kind}: rank {r} launched {res['launches']} "
+              f"in its step, expected {want}")
+        if "fwd_launches" in res:
+            fwd = {**dict.fromkeys(want, 0), "rel_flash_attention": layers, "conv_block": layers}
+            check(res["fwd_launches"] == fwd, f"parallel {kind}: rank {r} launched "
+                  f"{res['fwd_launches']} in its forward, expected {fwd}")
+    z = np.load(out + ".npz")
+    g_k = {k[2:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("g:")}
+    check(set(g_k) == set(ref["grads"]), f"parallel {kind}: gradient leaves differ")
+    err = loss_grad_errors({"loss": torch.tensor(results[0]["metrics"][0])},
+                           {"loss": torch.tensor(ref["loss"])}, g_k, ref["grads"], ("loss",))
+    res = {"loss_rel": err["loss_max_rel_err"], "grad_rel": err["grad_max_rel_err"],
+           "worst": err["grad_worst_leaves"], "finite": err["finite"],
+           "step_ms": [r["step_ms"] for r in results], "launches": results[0]["launches"],
+           "all_reduce_ms": [r["all_reduce_ms"] for r in results], "one_ms": ref["step_ms"]}
+    worst = ", ".join(f"{k} {e:.3g}" for k, e in err["grad_worst_leaves"])
+    line = (f"parallel {kind}: 2 ranks on one card over gloo vs one process, f32: loss "
+            f"{results[0]['metrics'][0]:.6f} vs {ref['loss']:.6f} (rel {res['loss_rel']:.3g}, "
+            f"tol {PAR_LOSS_TOL}), gradients max err / max-abs, worst leaves: {worst} (tol "
+            f"{PAR_GRAD_TOL}); the second step's ms by rank (two ranks sharing the card) "
+            f"{[round(x, 1) for x in res['step_ms']]} against one process's {ref['step_ms']:.1f} "
+            f"on the mesh's global rows, of "
+            f"which the step's all-reduce {[round(x, 1) for x in res['all_reduce_ms']]} "
+            f"({max(a / t for a, t in zip(res['all_reduce_ms'], res['step_ms'])):.1%} at most)")
+    if "out" in z.files:
+        res["enc_err"] = float(np.abs(z["out"] - ref["out"]).max())
+        res["fwd_ms"] = [r["fwd_ms"] for r in results]
+        line += (f"; deterministic encoder output max_abs_err {res['enc_err']:.3g} (tol "
+                 f"{PAR_ENC_TOL}), forward ms by rank {[round(x, 1) for x in res['fwd_ms']]}")
+        check(res["enc_err"] <= PAR_ENC_TOL, f"parallel {kind}: encoder output disagrees")
+    print(f"{line} ({card})")
+    check(res["finite"] and res["loss_rel"] <= PAR_LOSS_TOL and res["grad_rel"] <= PAR_GRAD_TOL,
+          f"parallel {kind}: the mesh's step disagrees with one process")
+    return res
+
+
+def one_process_reference(cfg, mb: dict, forward: bool) -> dict:
+    """The step's loss and gradients (and the deterministic encoder
+    output) of one process on ``mb``."""
+    import torch
+
+    from conformer_tpu_torch.train.loop import Trainer
+
+    tr = Trainer(cfg, device="cuda")
+    ref = {}
+    if forward:
+        b = tr._batch(mb)
+        with torch.no_grad():
+            out, _ = tr.encoder_fn(tr.params["encoder"], b["feats"], b["feat_lengths"],
+                                   cfg.model, cmvn=tr.params.get("cmvn"), deterministic=True)
+        ref["out"] = out.float().cpu().numpy()
+    tr.step_grads([mb])             # a warm-up, as each rank has
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, metrics, _ = tr.step_grads([mb])
+    torch.cuda.synchronize()
+    ref["step_ms"] = (time.perf_counter() - t0) * 1e3
+    ref["grads"] = {k: g.detach().cpu() for k, g in grads.items()}
+    ref["loss"] = float(metrics[0])
+    del tr
+    torch.cuda.empty_cache()
+    return ref
+
+
+def nccl_fit(fit: dict) -> dict:
+    """(a): ``main --train`` with ``--coordinator 127.0.0.1:<port>
+    --num_processes 1 --process_id 0`` (NCCL's init on this card, then the
+    one-process step: no collective runs at world size 1) on the fit
+    corpus and config, PAR_FIT_STEPS steps, no validation; counts set to 0
+    just before and read just after."""
+    import torch
+
+    from conformer_tpu_torch.main import main as port_main
+
+    ckpt = os.path.join(FIT_DIR, "ckpt_nccl")
+    cfg = fit["cfg"]
+    path = os.path.join(FIT_DIR, "nccl.json")
+    with open(path, "w") as f:
+        f.write(cfg.to_json())
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    port_main(["--train", "--config", path, "--coordinator", f"127.0.0.1:{free_port()}",
+               "--num_processes", "1", "--process_id", "0", "--set",
+               f"train.checkpoint_dir={ckpt}", f"train.max_steps={PAR_FIT_STEPS}",
+               "train.num_sanity_val_steps=0", "train.val_check_interval=1000000",
+               "train.log_every=1"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = launch_counts()
+    import torch.distributed as dist
+
+    check(not dist.is_initialized(), "main left its process group behind")
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f if "train_loss" in line]
+    return {"records": recs, "launches": launches, "s": run_s, "names": sorted(os.listdir(ckpt))}
+
+
+def check_seq_attention(dev) -> dict:
+    """(d): the three attention kernels at the sequence-parallel shape
+    (SEQ_SHAPE: Tq = 187 queries at positions 187-373, Tk = 374; the bias
+    factors from ``rel_features`` at those positions, the rows of a
+    padded full-context mask, one dead row) in float32 and bfloat16 with
+    dropout 0.1, outputs poisoned with NaN first, against the plain
+    versions; times in bf16 beside SDPA's. Returns {"errs", "times"}."""
+    import torch
+
+    from conformer_tpu_torch.models.attention import rel_features
+    from conformer_tpu_torch.ops import rel_attention as ra
+
+    s = SEQ_SHAPE
+    b, h, dk, d, tq, q0, tk = (s[k] for k in ("b", "h", "dk", "d", "tq", "q0", "tk"))
+    gen = torch.Generator().manual_seed(18)
+    scale = 1 / math.sqrt(dk)
+    lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen)
+    lens[:3] = torch.tensor([tk, q0 + 5, 1])
+    mask = (torch.arange(tk)[None, None, :] < lens[:, None, None]).expand(b, tq, tk).clone()
+    mask[1, 7, :] = False
+    errs = dict.fromkeys(ATTENTION_KERNELS, 0.0)
+    kw = dict(scale=scale, dropout_rate=ATTN_RATE)
+    made = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q_u, q_v, k, v, g = (torch.randn(b, h, n, dk, generator=gen)
+                             for n in (tq, tq, tk, tk, tq))
+        w = 0.05 * torch.randn(d, d, generator=gen)
+        ab, feats = rel_features({"linear_pos": {"kernel": w}}, q_v, q0 + torch.arange(tq),
+                                 torch.arange(tk), h)
+        args = (*[x.to(dev, dtype).contiguous() for x in (q_u, ab, k, v, feats)], mask.to(dev))
+        seed = torch.tensor([ATTN_SEED], dtype=torch.int32, device=dev)
+        g = g.to(dev, dtype).contiguous()
+        made[name] = (args, seed, g)
+        poison(((b, h, tq, dk), dtype), ((b, h, tq), torch.float32))
+        got = ra.rel_attention(*args, seed=seed, **kw)
+        want = ra.rel_attention_plain(*args, seed=seed, **kw)
+        tol = TOL[name]
+        e_f = compare(f"rel_flash_attention {name} seq shape", got, want, tol)
+        delta = (g.float() * want[0].float()).sum(dim=-1)
+        bargs = (*args, seed, g, want[1], delta)
+        poison(((b, h, tq, dk), torch.float32), ((b, h, tq, d), torch.float32))
+        dq = ra.rel_attention_bwd_dq(*bargs, **kw)
+        poison(((b, h, tk, dk), torch.float32), ((b, h, tk, dk), torch.float32))
+        dkv = ra.rel_attention_bwd_dkv(*bargs, **kw)
+        plain = ra.rel_attention_bwd_plain(*bargs, **kw)
+        e_q = compare(f"rel_flash_attention_bwd_dq {name} seq shape", dq, plain[:2], tol)
+        e_kv = compare(f"rel_flash_attention_bwd_dkv {name} seq shape", dkv, plain[2:], tol)
+        for kname, e in zip(ATTENTION_KERNELS, (e_f, e_q, e_kv)):
+            errs[kname] = max(errs[kname], e)
+        print(f"parallel (d): attention {name} at the sequence-parallel shape B={b} H={h} "
+              f"Tq={tq} (positions {q0}-{q0 + tq - 1}) Tk={tk} D={d}, dropout {ATTN_RATE}: "
+              f"max_abs_err fwd {e_f:.3g}, dq/dAB {e_q:.3g}, dK/dV {e_kv:.3g} (tol {tol} abs + "
+              f"rel), outputs poisoned with NaN first")
+    times = attention_train_times(dev, gen, b, tk, h=h, dk=dk, d=d, inputs=made["bfloat16"],
+                                  label=f"at the sequence-parallel shape B={b} Tq={tq} Tk={tk}")
+    return {"errs": errs, "times": times}
+
+
+def parallel_phase(fit: dict, dev, layers: int, card: str) -> dict:
+    """Phase 8: (a) ``nccl_fit``; gloo's collectives on CUDA tensors; (b)
+    data parallelism and (c) sequence and pipeline parallelism, 2 ranks on
+    this card over gloo, against one process; (d) ``check_seq_attention``."""
+    import torch
+
+    res = {}
+    # (a) NCCL's init and the one-process step through the user's entry
+    # point, beside the fit's steps
+    a = nccl_fit(fit)
+    fit_steps = [r for r in fit["records"] if "train_loss" in r][:PAR_FIT_STEPS]
+    for r, f in zip(a["records"], fit_steps):
+        print(f"parallel (a): NCCL init and the one-process step through main (world size "
+              f"1, no collective), step {r['step']}: "
+              f"{r['train_step_s'] * 1e3:.1f} ms, loss {r['train_loss']:.6f}; the one-process "
+              f"fit's step {f['step']}: {f['train_step_s'] * 1e3:.1f} ms, loss "
+              f"{f['train_loss']:.6f} ({card})")
+    accum = fit["cfg"].train.accum_grad
+    want = {k: n * accum * PAR_FIT_STEPS for k, n in per_microbatch(
+        layers, True, pruned=fit["cfg"].model.use_pruned_loss).items()}
+    print(f"parallel (a): {a['s']:.1f} s, checkpoints {a['names']}, launches {a['launches']}")
+    check(len(a["records"]) == PAR_FIT_STEPS and a["launches"] == want
+          and all(abs(r["train_loss"] - f["train_loss"]) <= 1e-3 * abs(f["train_loss"])
+                  for r, f in zip(a["records"], fit_steps)),
+          f"parallel (a): the NCCL run's steps or launches ({a['launches']}, expected {want}) "
+          "differ from the one-process fit's")
+    res["nccl"] = a
+
+    # which collectives gloo takes on CUDA tensors: the port's three, and
+    # send/recv in a set of its own (a refusal there may end the process)
+    base = os.path.join(FIT_DIR, "par")
+    probe = wait_ranks(run_ranks("probe", 2, base + "_probe", ops=list(GLOO_OPS)), 120)
+    sr = wait_ranks(run_ranks("probe", 2, base + "_sendrecv", ops=["send_recv"]), 120)
+    taken = {op: (probe[0] or {}).get(op, "rank failed") for op in GLOO_OPS}
+    taken["send_recv"] = (sr[1] or {}).get("send_recv", "rank failed")
+    print(f"parallel: gloo on CUDA tensors, 2 ranks on this card: {taken}")
+    res["gloo"] = taken
+
+    def runnable(kind):
+        refused = [op for op in NEEDS[kind] if taken[op] != "ok"]
+        if refused:
+            print(f"parallel: {kind} parallelism NOT run on the card: gloo does not take "
+                  f"{refused} on CUDA tensors here; it is held on the CPU tests only and waits "
+                  "for a machine with two cards (NCCL)")
+        return not refused
+
+    # (b) data, (c) seq and pipe: 2 ranks each on this card over gloo
+    runs = {"data": dict(train={}, global_rows=2 * PAR_LOCAL_B, seed=801,
+                         rows=[[0, PAR_LOCAL_B], [PAR_LOCAL_B, 2 * PAR_LOCAL_B]]),
+            "seq": dict(train={"mesh_seq": 2}, global_rows=PAR_LOCAL_B, seed=802,
+                        rows=[[0, PAR_LOCAL_B]] * 2, forward=True),
+            "pipe": dict(train={"mesh_pipe": 2, "pipeline_microbatches": 2},
+                         global_rows=PAR_LOCAL_B, seed=803, rows=[[0, PAR_LOCAL_B]] * 2,
+                         forward=True)}
+    live = [k for k in runs if runnable(k)]
+    done = {}
+    # the data set alone (its ranks hold the most), then seq and pipe together
+    for group in (["data"], ["seq", "pipe"]):
+        sets = {k: run_ranks("train", 2, f"{base}_{k}", **runs[k]) for k in group if k in live}
+        done.update({k: wait_ranks(p) for k, p in sets.items()})
+    for kind in live:
+        spec = runs[kind]
+        cfg = parallel_config()
+        mb = parallel_batch(cfg, spec["seed"], spec["global_rows"])
+        ref = one_process_reference(cfg, mb, spec.get("forward", False))
+        res[kind] = mesh_parity(kind, done[kind], f"{base}_{kind}", ref, layers, card)
+    # (d) the attention kernels at the sequence-parallel query shape
+    res["seq_attention"] = check_seq_attention(dev)
+    return res
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == [PAR_RANK_FLAG]:       # one rank of phase 8, started by the smoke
+        return parallel_rank(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs an NVIDIA GPU",
               file=sys.stderr)
@@ -4442,6 +4904,18 @@ def main() -> int:
     # --wenet_ckpt_path and the runner's .pt route, counts set to 0 just
     # before each request and read just after
     check_wenet(wenet_phase(fit), fit, card)
+    # 8. parallel: (a) NCCL's init and the one-process step through main on
+    # the fit corpus, counts set to 0 just before and read just after; which collectives gloo
+    # takes on CUDA tensors; (b) data, (c) sequence and pipeline
+    # parallelism, 2 ranks on this card over gloo against one process, each
+    # rank's counts set to 0 just before its step and read just after; (d)
+    # the attention kernels at the sequence-parallel shape
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    par = parallel_phase(fit, dev, layers, card)
+    for name, e in par["seq_attention"]["errs"].items():
+        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
+    print(f"parallel: in {time.perf_counter() - t0:.1f} s ({card})")
     shutil.rmtree(FIT_DIR, ignore_errors=True)
     attn = sv["launches"]["rel_flash_attention"]
     print(f"stream: streaming validation (decode.streaming, chunk "

@@ -4,9 +4,10 @@ stages (the port's own copy of the JAX package's ``data/dataset.py``).
 Randomness is an explicit epoch-seeded ``np.random.Generator``: every
 shard draws the same shuffle permutation before taking its part, and a
 seed gives the JAX package's batches exactly. The shard comes from the
-``shard_id``/``num_shards`` arguments, else (0, 1): the port trains in one
-process (multi-process data parallelism is ROADMAP.md queue A, item
-'Parallel').
+``shard_id``/``num_shards`` arguments, else (0, 1). In a multi-process run
+the trainer passes them (``train/loop.py``): the train list over the data
+shards, which the ranks of one seq or pipe group share, and the dev and
+test lists over every rank. JAX keys them on ``jax.process_index()``.
 """
 
 from __future__ import annotations

@@ -139,6 +139,7 @@ def mhsa(
     dropout_rate: float = 0.0,
     gen: torch.Generator | None = None,
     deterministic: bool = True,
+    kv_gather=None,
 ) -> tuple[torch.Tensor, AttnCache | None]:
     """Multi-head attention, x_q [B,Tq,D], x_kv [B,Tkv,D] ->
     (out [B,Tq,D], new cache or None), as in JAX. attn_mask bool [B|1, Tq, Tk] (True = attend) or None;
@@ -157,12 +158,17 @@ def mhsa(
     Dropout at ``dropout_rate`` on the attention probabilities draws from
     ``gen``: in the kernel path one int32 seed, drawn on the device as JAX
     draws it from ``rng``, from which the kernels hash the keep-mask.
+    ``kv_gather`` maps a time shard's K or V [B, H, Tkv, dk] to the whole
+    sequence's (sequence parallelism, ``parallel/sequence.py``); the mask
+    and positions then cover every key.
     """
     d_model = x_q.shape[-1]
     head_dim = d_model // num_heads
     q = _split_heads(layers.dense(p["linear_q"], x_q), num_heads)
     k = _split_heads(layers.dense(p["linear_k"], x_kv), num_heads)
     v = _split_heads(layers.dense(p["linear_v"], x_kv), num_heads)
+    if kv_gather is not None:
+        k, v = kv_gather(k), kv_gather(v)
     new_cache = None
     if cache is not None:
         size = cache.k.shape[2]

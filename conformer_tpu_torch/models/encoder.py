@@ -127,6 +127,7 @@ def encoder_layer(
     use_pallas_conv: bool = False,
     gen: torch.Generator | None = None,
     deterministic: bool = True,
+    seq_shard=None,
 ):
     """One macaron Conformer layer; returns (x, new attention cache or
     None, conv cache [B, K-1, D]), as in JAX.
@@ -139,7 +140,13 @@ def encoder_layer(
     kernel has no backward, so it runs only when ``deterministic``, and
     only without a conv cache and for the non-causal LayerNorm conv, as in
     JAX (``models/encoder.py:145-150``). With ``pos_ref`` (the ref modes)
-    the attention takes its plain products, never the kernel."""
+    the attention takes its plain products, never the kernel.
+
+    ``seq_shard`` (``parallel/sequence.SeqShard``): x is one rank's time
+    shard of a sequence-parallel forward; the attention gathers K and V
+    over the seq group, and the conv module reads the halo its depthwise
+    kernel needs from the neighbouring shards (the conv cache returned is
+    then meaningless). Everything else is per frame."""
     def drop(t):
         return layers.dropout(gen, t, cfg.dropout, deterministic)
 
@@ -151,26 +158,33 @@ def encoder_layer(
         pos_emb=pos_emb, rel_positions=rel_positions, pos_ref=pos_ref, use_pallas=use_pallas,
         cache=attn_cache, dropout_rate=cfg.attention_dropout, gen=gen,
         deterministic=deterministic,
+        kv_gather=seq_shard.gather_kv if seq_shard is not None else None,
     )
     x = x + drop(y)
+    # a time shard's conv reads its halo: the window, cropped afterwards
+    xc, conv_mask = (x, pad_mask) if seq_shard is None else seq_shard.window(x)
     if (use_pallas_conv and deterministic and conv_cache is None
             and cfg.conv_norm == "layer_norm" and not cfg.causal_conv):
         from ..ops.conv_block import conv_block
 
         lengths = (
-            pad_mask.sum(dim=1, dtype=torch.int32)
-            if pad_mask is not None
-            else torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
+            conv_mask.sum(dim=1, dtype=torch.int32)
+            if conv_mask is not None
+            else torch.full((xc.shape[0],), xc.shape[1], dtype=torch.int32, device=x.device)
         )
         x, conv_cache = conv_block(
-            x, lengths, p["norm_conv"], p["conv_module"], kernel_size=cfg.kernel_size
+            xc, lengths, p["norm_conv"], p["conv_module"], kernel_size=cfg.kernel_size
         )
+        if seq_shard is not None:
+            x = seq_shard.crop(x)
     else:
         y, conv_cache = convolution.conv_module(
-            p["conv_module"], layers.layer_norm(p["norm_conv"], x), pad_mask,
+            p["conv_module"], layers.layer_norm(p["norm_conv"], xc), conv_mask,
             kernel_size=cfg.kernel_size, norm_type=cfg.conv_norm, causal=cfg.causal_conv,
             cache=conv_cache,
         )
+        if seq_shard is not None:
+            y = seq_shard.crop(y)
         x = x + drop(y)
     x = _ffn_residual(p["norm_ff"], p["feed_forward"], x, cfg, gen, deterministic)
     x = layers.layer_norm(p["norm_final"], x)
@@ -255,28 +269,11 @@ def encoder_forward(
     0, and otherwise drawn once per batch on the host generator
     ``host_gen``. With ``cfg.remat``, and only while autograd records,
     each layer is recomputed in the backward (``_checkpointed``)."""
-    from . import cmvn as cmvn_mod
-
-    if cmvn is not None:
-        feats = cmvn_mod.global_cmvn(cmvn, feats)
-    feats = feats.to(getattr(torch, cfg.compute_dtype))
-    x, pos_emb, rel_positions, pos_ref = _embed(p, feats, cfg)
-    pad_mask = masks.make_non_pad_mask(masks.subsampled_lengths(feat_lengths), x.shape[1])
-    dynamic = None
-    if cfg.use_dynamic_chunk and not deterministic:
-        if decoding_chunk_size < 0:
-            dynamic = (x.shape[1], -1)
-        elif decoding_chunk_size > 0:
-            dynamic = (decoding_chunk_size, num_decoding_left_chunks)
-        elif host_gen is None:
-            raise ValueError("dynamic chunk training needs a host torch.Generator")
-        else:
-            dynamic = masks.sample_dynamic_chunk(host_gen, x.shape[1],
-                                                 cfg.use_dynamic_left_chunk)
-    attn_mask = masks.make_attn_mask(
-        pad_mask, static_chunk_size=cfg.static_chunk_size,
-        num_decoding_left_chunks=num_decoding_left_chunks, dynamic_chunk=dynamic,
-    ).contiguous()
+    x, pos_emb, rel_positions, pos_ref = _embed(p, input_feats(feats, cfg, cmvn), cfg)
+    pad_mask, attn_mask = encoder_masks(
+        feat_lengths, x.shape[1], cfg, deterministic=deterministic,
+        decoding_chunk_size=decoding_chunk_size,
+        num_decoding_left_chunks=num_decoding_left_chunks, host_gen=host_gen)
 
     def layer(lp, x, g):
         return encoder_layer(
@@ -290,6 +287,47 @@ def encoder_forward(
         lp = layer_params(p["layers"], i)
         x = _checkpointed(layer, lp, x, gen) if remat else layer(lp, x, gen)
     return layers.layer_norm(p["after_norm"], x), pad_mask
+
+
+def input_feats(feats: torch.Tensor, cfg: ModelConfig, cmvn: Params | None) -> torch.Tensor:
+    """The features the subsampling takes: CMVN'd when ``cmvn`` is given,
+    in the compute dtype."""
+    from . import cmvn as cmvn_mod
+
+    if cmvn is not None:
+        feats = cmvn_mod.global_cmvn(cmvn, feats)
+    return feats.to(getattr(torch, cfg.compute_dtype))
+
+
+def encoder_masks(
+    feat_lengths: torch.Tensor,
+    t: int,
+    cfg: ModelConfig,
+    *,
+    deterministic: bool,
+    decoding_chunk_size: int = 0,
+    num_decoding_left_chunks: int = -1,
+    host_gen: torch.Generator | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pad_mask [B, t], attn_mask [B, t, t]) of ``encoder_forward`` at
+    ``t`` subsampled frames; a training forward's dynamic chunk is drawn
+    here, on ``host_gen``."""
+    pad_mask = masks.make_non_pad_mask(masks.subsampled_lengths(feat_lengths), t)
+    dynamic = None
+    if cfg.use_dynamic_chunk and not deterministic:
+        if decoding_chunk_size < 0:
+            dynamic = (t, -1)
+        elif decoding_chunk_size > 0:
+            dynamic = (decoding_chunk_size, num_decoding_left_chunks)
+        elif host_gen is None:
+            raise ValueError("dynamic chunk training needs a host torch.Generator")
+        else:
+            dynamic = masks.sample_dynamic_chunk(host_gen, t, cfg.use_dynamic_left_chunk)
+    attn_mask = masks.make_attn_mask(
+        pad_mask, static_chunk_size=cfg.static_chunk_size,
+        num_decoding_left_chunks=num_decoding_left_chunks, dynamic_chunk=dynamic,
+    ).contiguous()
+    return pad_mask, attn_mask
 
 
 # ------------------------------------------------------------- streaming
@@ -330,11 +368,7 @@ def encoder_forward_chunk(
     row b at absolute position offset[b] - C + j (negative before the
     stream's start); absolute positions: row b's frames at offset[b] + i,
     clipped to the table."""
-    from . import cmvn as cmvn_mod
-
-    if cmvn is not None:
-        chunk_feats = cmvn_mod.global_cmvn(cmvn, chunk_feats)
-    chunk_feats = chunk_feats.to(getattr(torch, cfg.compute_dtype))
+    chunk_feats = input_feats(chunk_feats, cfg, cmvn)
     cache_size = state.attn_k.shape[3]
     x = convolution.subsampling(p["embed"], chunk_feats)
     q_len = x.shape[1]

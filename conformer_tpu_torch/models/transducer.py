@@ -88,11 +88,20 @@ def transducer_losses(
     *,
     gen: torch.Generator | None = None,
     deterministic: bool = False,
+    n_valid: torch.Tensor | None = None,
+    row_share: float = 1.0,
 ) -> dict:
     """The part of ``transducer_forward`` after the encoder: predictor,
     joint projections, the transducer and CTC losses and, when the params
     hold a decoder and ``attention_weight`` > 0, the attention loss
-    (reported as loss_attn)."""
+    (reported as loss_attn).
+
+    Data parallelism: each rank holds a part of the global batch and
+    passes ``n_valid``, the global batch's valid rows, by which the
+    transducer losses divide (JAX's global masked mean); the CTC loss is a
+    sum over rows, and the attention loss's mean over this rank's rows is
+    scaled by ``row_share``, its share of the global batch's rows. The
+    ranks' losses then sum to the global batch's."""
     encoder_out_lens = encoder_mask.sum(dim=1, dtype=torch.int32)
     labels_in = masks.add_blank(labels, cfg.blank_id, cfg.ignore_id)
     pred_out = predictor.predictor_forward(p["predictor"], labels_in, cfg, gen=gen,
@@ -100,7 +109,7 @@ def transducer_losses(
     enc_proj, pred_proj = joint.joint_project(p["joint"], encoder_out, pred_out)
     rnnt_text = torch.where(labels == cfg.ignore_id, cfg.blank_id, labels).to(torch.int32)
     row_valid = feat_lengths > 0
-    n_valid = row_valid.float().sum().clamp_min(1.0)
+    n_valid = (row_valid.float().sum() if n_valid is None else n_valid).clamp_min(1.0)
     t_lens = encoder_out_lens.clamp_min(1)
     u_lens = label_lengths.to(torch.int32)
     impl = "kernel" if cfg.use_pallas_rnnt else "plain"
@@ -133,7 +142,7 @@ def transducer_losses(
     )
     loss = cfg.ctc_weight * loss_ctc + cfg.transducer_weight * loss_rnnt
     if cfg.attention_weight > 0 and "decoder" in p:
-        out["loss_attn"] = decoder.attention_loss(
+        out["loss_attn"] = row_share * decoder.attention_loss(
             p["decoder"], encoder_out, encoder_mask, rnnt_text, label_lengths, cfg, gen=gen,
             deterministic=deterministic)
         loss = loss + cfg.attention_weight * out["loss_attn"]

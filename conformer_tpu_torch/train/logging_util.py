@@ -1,7 +1,7 @@
 """Metric logging (the JAX package's ``train/logging_util.py``): one line
 per record on stderr, and either Weights & Biases, when asked for and
-importable, or a JSONL file ``<log_dir>/metrics.jsonl`` of {step, time,
-**metrics} objects. The file is opened at the first record.
+importable, or a JSONL file ``<log_dir>/<name>`` (``metrics.jsonl``) of
+{step, time, **metrics} objects. The file is opened at the first record.
 """
 
 from __future__ import annotations
@@ -14,8 +14,9 @@ from typing import Any
 
 
 class MetricLogger:
-    def __init__(self, log_dir: str, project: str = "conformer-rnnt", use_wandb: bool = False):
-        self.path = os.path.join(log_dir, "metrics.jsonl")
+    def __init__(self, log_dir: str, project: str = "conformer-rnnt", use_wandb: bool = False,
+                 name: str = "metrics.jsonl"):
+        self.path = os.path.join(log_dir, name)
         self._f = None
         self._t0 = time.time()
         self._wandb = None

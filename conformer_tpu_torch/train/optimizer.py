@@ -86,16 +86,19 @@ class Optimizer:
         )
 
     @torch.no_grad()
-    def update(self, params: Any, grads: dict[str, torch.Tensor],
-               state: AdamState) -> tuple[float, torch.Tensor]:
+    def update(self, params: Any, grads: dict[str, torch.Tensor], state: AdamState,
+               norm: torch.Tensor | None = None) -> tuple[float, torch.Tensor]:
         """Apply one update from ``grads`` ({path: gradient} of the
         trainable leaves) to ``params`` in place; returns (the lr used,
-        the global gradient norm before clipping, on the device)."""
+        the global gradient norm before clipping, on the device). ``norm``,
+        when given, is that norm (a pipeline stage holds only some of the
+        leaves the norm covers)."""
         cfg = self.cfg
         leaves = {k: v for k, v in leaf_paths(params) if k in state.mu}
         if set(grads) != set(leaves):
             raise ValueError("grads must hold exactly the trainable leaves")
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+        if norm is None:
+            norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
         lr = self.schedule(state.count)
         state.count += 1
         bc1 = 1.0 - cfg.adam_b1 ** state.count

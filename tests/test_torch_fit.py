@@ -344,6 +344,12 @@ def test_main_runs_on_the_card_unless_asked(monkeypatch, corpus):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         p_main.main(["--set", f"data.vocab_path={corpus['vocab']}", "--eval"])
+    # the multi-process flags (tests/test_torch_distributed.py runs them):
+    # --print_config joins no group; a process count without a coordinator
+    # raises before anything is built
     for flag in (["--coordinator", "localhost:1"], ["--num_processes", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            p_main.main(flag + ["--print_config"])
+        assert p_main.main(flag + ["--print_config"]) == 0
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="--coordinator"):
+        p_main.main(["--num_processes", "2", "--device", "cpu", "--set",
+                     f"data.vocab_path={corpus['vocab']}", "--eval"])

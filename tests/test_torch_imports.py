@@ -1,6 +1,7 @@
-"""Import hygiene of the port: every module of conformer_tpu_torch, and
-chip_smoke.py, import without pulling in JAX or the JAX package, and
-importing builds nothing. This suite's conftest imports JAX in-process,
+"""Import hygiene of the port: every module of conformer_tpu_torch (the
+parallel package's included), and chip_smoke.py, import without pulling
+in JAX or the JAX package, importing builds nothing, and no process group
+is made. This suite's conftest imports JAX in-process,
 so the check runs in a fresh interpreter.
 """
 
@@ -28,7 +29,9 @@ new = {"conformer_tpu_torch.ops.quant", "conformer_tpu_torch.ops.int8_matmul",
        "conformer_tpu_torch.train.profiling", "conformer_tpu_torch.data.native",
        "conformer_tpu_torch.tools.collect_librispeech",
        "conformer_tpu_torch.tools.compute_cmvn_stats", "conformer_tpu_torch.tools.convert_vocab",
-       "conformer_tpu_torch.tools.gen_golden_fbank"}
+       "conformer_tpu_torch.tools.gen_golden_fbank", "conformer_tpu_torch.parallel",
+       "conformer_tpu_torch.parallel.distributed", "conformer_tpu_torch.parallel.mesh",
+       "conformer_tpu_torch.parallel.sequence", "conformer_tpu_torch.parallel.pipeline"}
 assert new <= set(names), new - set(names)
 import chip_smoke
 from conformer_tpu_torch.ops import cuda_build
@@ -38,6 +41,8 @@ assert not bad, bad
 assert not cuda_build._libs
 from conformer_tpu_torch.data import native
 assert not native._state
+import torch.distributed
+assert not torch.distributed.is_initialized()
 print(len(names))
 """
 
