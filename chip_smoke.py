@@ -273,7 +273,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
                attention kernels at the sequence-parallel shape (B=32, Tq =
                187 at positions 187-373, Tk = 374) in f32 and bf16, dropout
                0.1, outputs poisoned with NaN first, against the plain
-               versions, with times beside SDPA's.
+               versions, with times beside SDPA's; (e) the model axis
+               (tensor parallelism), ranks on this card over gloo: (e1)
+               model 2, Conformer-M at full width (2 of 4 heads, FFN 1024,
+               V 2501 a rank) and PAR_MODEL_LAYERS layers, f32, every
+               kernel flag on but the joint's, 8 x 15 s: the deterministic
+               encoder output and the step's gathered gradients, then a
+               step with every dropout at 0.1, against one process seeded
+               alike; (e3) the full lattice through the joint kernels (W
+               gathered) at model 2, one step; (e2) seq 2 x model 2, four
+               ranks, PAR_SEQ_MODEL_LAYERS layers, against one process;
+               each rank's step ms and the share of its collectives
+               (host-staged gloo, several ranks on one card); (e4) the
+               three attention kernels at the head-shard shape (B=32, T' =
+               374, heads 2-3 of 4, dropout 0.1) in f32 and bf16, outputs
+               poisoned, against the plain versions and bit for bit against
+               those heads of the whole 4-head attention, times beside
+               SDPA's.
 Every time and memory size printed stands beside the card's name and
 power limit (phase 1's line) or follows it in the same run.
 The last two lines are the kernels JSON line and the result line
@@ -710,12 +726,14 @@ def check_attention_train_kernels(dev):
 
 
 def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
-                          d: int = 256, inputs=None, label: str | None = None) -> dict:
+                          d: int = 256, inputs=None, label: str | None = None,
+                          heads: dict | None = None) -> dict:
     """Kernel, plain and SDPA times (CUDA events) of the three attention
     kernels of training in bf16 with dropout ATTN_RATE at (B, T', H, dk,
     D), or on ``inputs`` ((args, seed, dO) in bf16, of any Tq and Tk), and
     each one's bound from this run's inputs (the live (query, key) pairs
-    of its mask). Returns each kernel's source, the TPU kernel it
+    of its mask); ``heads``: the keep-mask's h_total and h_offset (a model
+    rank's heads). Returns each kernel's source, the TPU kernel it
     replaces, ms, plain_ms, library_ms, bound_ms and bound_by."""
     import torch
 
@@ -725,7 +743,7 @@ def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
     args, seed, g = inputs or attention_train_inputs(dev, torch.bfloat16, gen, b, t, dk=dk,
                                                      d=d, h=h)
     q_u, ab, k, v, feats, mask = args
-    kw = dict(scale=scale, dropout_rate=ATTN_RATE)
+    kw = dict(scale=scale, dropout_rate=ATTN_RATE, **(heads or {}))
     out, lse = ra.rel_attention(*args, seed=seed, **kw)
     delta = (g.float() * out.float()).sum(dim=-1)
     bargs = (*args, seed, g, lse, delta)
@@ -4189,21 +4207,36 @@ NEEDS = {"data": ("all_reduce",), "seq": ("all_reduce", "all_gather"),
 # (d): the attention kernels at the sequence-parallel shape, seq 2 at T' =
 # 374: rank 1's 187 queries at positions 187-373 against all 374 keys
 SEQ_SHAPE = dict(b=32, h=4, dk=64, d=256, tq=187, q0=187, tk=374)
+# (e4): at the head-shard shape, model 2: rank 1's heads 2-3 of 4
+HEAD_SHAPE = dict(b=32, h=2, dk=64, d=256, tq=374, q0=0, tk=374, h_total=4, h_offset=2)
+NEEDS["model"] = ("all_reduce", "all_gather")
+PAR_MODEL_LAYERS = 6         # (e1), (e3): Conformer-M's widths, its depth cut to fit the limit
+PAR_SEQ_MODEL_LAYERS = 4     # (e2)
+PAR_DROPOUT = 0.1            # (e1): every dropout of the model in the dropout step
 
 
-def parallel_config(**train):
+def parallel_config(model: dict | None = None, **train):
     """configs/conformer_m.json at full width in float32 with both kernel
     flags on and dropout and the dynamic chunk off (parity is checked
-    deterministic); ``train`` sets TrainConfig fields."""
+    deterministic); ``model`` sets ModelConfig fields over that, ``train``
+    TrainConfig fields."""
     cfg = recipe_config(os.path.join(REPO, "configs", "conformer_m.json"))
     m = cfg.model
     m.compute_dtype, m.use_pallas_attention, m.use_pallas_conv = "float32", True, True
     m.dropout = m.attention_dropout = m.pos_enc_dropout = 0.0
     m.predictor_embed_dropout = m.predictor_dropout = 0.0
     m.use_dynamic_chunk = m.use_dynamic_left_chunk = False
+    for k, v in (model or {}).items():
+        setattr(m, k, v)
     for k, v in train.items():
         setattr(cfg.train, k, v)
     return cfg
+
+
+def dropout_model(rate: float) -> dict:
+    """ModelConfig fields setting every dropout of the model to ``rate``."""
+    return dict.fromkeys(("dropout", "attention_dropout", "pos_enc_dropout",
+                          "predictor_embed_dropout", "predictor_dropout"), rate)
 
 
 def parallel_batch(cfg, seed: int, rows: int) -> dict:
@@ -4319,19 +4352,36 @@ def probe_rank(spec: dict) -> dict:
 
 
 def train_rank(spec: dict) -> dict:
-    """(b)-(c) on this rank: a ``Trainer`` over the mesh of ``spec["train"]``
-    on its rows of the seeded global batch; with ``forward``, the
-    deterministic encoder forward (both kernel flags) and the step's
-    reduced gradients (dropout 0) with the ms of its ``all_reduce`` phase,
-    both after a warm-up step; counts set to 0 before each, read after.
-    Rank 0 writes the output and the whole gradients (a pipeline's stages
-    gathered) to ``<out>.npz``."""
+    """``train_run`` of the spec or, with ``runs``, of each run in turn in
+    this process (a run's keys over the spec's, its files ``<out>_<name>``),
+    the results by run name."""
+    import torch
+
+    if "runs" not in spec:
+        return train_run(spec)
+    res = {}
+    for run in spec["runs"]:
+        res[run["name"]] = train_run({**spec, **run, "out": f"{spec['out']}_{run['name']}"})
+        torch.cuda.empty_cache()
+    return res
+
+
+def train_run(spec: dict) -> dict:
+    """(b)-(c), (e) on this rank: a ``Trainer`` over the mesh of
+    ``spec["train"]`` (``spec["model"]``'s model fields set) on its rows of
+    the seeded global batch; with ``forward``, the deterministic encoder
+    forward (both kernel flags) and the step's reduced gradients with the
+    ms of its ``all_reduce`` phase, both after a warm-up step; counts set to
+    0 before each, read after. Under a model axis one more step with the
+    model axis's collectives clocked (``ModelShard.clock``). Rank 0 writes the output
+    and the whole gradients (a pipeline's stages and the model axis's
+    shards gathered) to ``<out>.npz``."""
     import torch
 
     from conformer_tpu_torch.parallel import distributed as pdist
     from conformer_tpu_torch.train.loop import Trainer
 
-    cfg = parallel_config(**spec["train"])
+    cfg = parallel_config(spec.get("model"), **spec["train"])
     tr = Trainer(cfg, device="cuda:0")
     rows = spec["rows"][spec["rank"]]
     mb = {k: v[rows[0]:rows[1]] for k, v in parallel_batch(cfg, spec["seed"],
@@ -4367,17 +4417,28 @@ def train_rank(spec: dict) -> dict:
     host = pdist.gather_tree_to_host(grads, tr.mesh)
     if spec["rank"] == 0:
         np.savez(spec["out"] + ".npz", **save, **{f"g:{k}": v for k, v in host.items()})
+    if tr.model_shard is not None:
+        del grads, host
+        clock = tr.model_shard.clock = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step_grads([mb])
+        torch.cuda.synchronize()
+        res["clocked_ms"] = (time.perf_counter() - t0) * 1e3
+        res["collective_ms"], res["collectives"] = sum(clock), len(clock)
+    del tr
     return res
 
 
-def mesh_parity(kind: str, results: list, out: str, ref: dict, layers: int, card: str) -> dict:
-    """(b)-(c): every rank ran and launched the path's kernels; the step's
-    losses and gradients (and, for (c), the encoder output) against the
-    one-process ``ref`` on the same rows."""
+def mesh_parity(kind: str, results: list, out: str, ref: dict, layers: int, card: str,
+                pruned: bool = True, joint: bool = False) -> dict:
+    """(b)-(c), (e): every rank ran and launched the path's kernels; the
+    step's losses and gradients (and, with a forward, the encoder output)
+    against the one-process ``ref`` on the same rows."""
     import torch
 
     check(all(r is not None for r in results), f"parallel {kind}: a rank failed")
-    want = per_microbatch(layers, True, pruned=parallel_config().model.use_pruned_loss)
+    want = per_microbatch(layers, True, pruned=pruned, joint=joint)
     for r, res in enumerate(results):
         check(res["launches"] == want, f"parallel {kind}: rank {r} launched {res['launches']} "
               f"in its step, expected {want}")
@@ -4395,10 +4456,11 @@ def mesh_parity(kind: str, results: list, out: str, ref: dict, layers: int, card
            "step_ms": [r["step_ms"] for r in results], "launches": results[0]["launches"],
            "all_reduce_ms": [r["all_reduce_ms"] for r in results], "one_ms": ref["step_ms"]}
     worst = ", ".join(f"{k} {e:.3g}" for k, e in err["grad_worst_leaves"])
-    line = (f"parallel {kind}: 2 ranks on one card over gloo vs one process, f32: loss "
+    line = (f"parallel {kind}: {len(results)} ranks on one card over gloo vs one process, "
+            f"f32: loss "
             f"{results[0]['metrics'][0]:.6f} vs {ref['loss']:.6f} (rel {res['loss_rel']:.3g}, "
             f"tol {PAR_LOSS_TOL}), gradients max err / max-abs, worst leaves: {worst} (tol "
-            f"{PAR_GRAD_TOL}); the second step's ms by rank (two ranks sharing the card) "
+            f"{PAR_GRAD_TOL}); the second step's ms by rank (the ranks sharing the card) "
             f"{[round(x, 1) for x in res['step_ms']]} against one process's {ref['step_ms']:.1f} "
             f"on the mesh's global rows, of "
             f"which the step's all-reduce {[round(x, 1) for x in res['all_reduce_ms']]} "
@@ -4409,6 +4471,17 @@ def mesh_parity(kind: str, results: list, out: str, ref: dict, layers: int, card
         line += (f"; deterministic encoder output max_abs_err {res['enc_err']:.3g} (tol "
                  f"{PAR_ENC_TOL}), forward ms by rank {[round(x, 1) for x in res['fwd_ms']]}")
         check(res["enc_err"] <= PAR_ENC_TOL, f"parallel {kind}: encoder output disagrees")
+    if "collective_ms" in results[0]:
+        res["collective_ms"] = [r["collective_ms"] for r in results]
+        res["clocked_ms"] = [r["clocked_ms"] for r in results]
+        res["collectives"] = results[0]["collectives"]
+        line += (f"; a third step with each of the model axis's {res['collectives']} "
+                 "collectives between two syncs: its ms by rank "
+                 f"{[round(x, 1) for x in res['clocked_ms']]}, of which those collectives "
+                 f"(gloo, host-staged, ranks sharing the card) "
+                 f"{[round(x, 1) for x in res['collective_ms']]} ("
+                 f"{max(c / t for c, t in zip(res['collective_ms'], res['clocked_ms'])):.1%} "
+                 "at most)")
     print(f"{line} ({card})")
     check(res["finite"] and res["loss_rel"] <= PAR_LOSS_TOL and res["grad_rel"] <= PAR_GRAD_TOL,
           f"parallel {kind}: the mesh's step disagrees with one process")
@@ -4476,45 +4549,74 @@ def nccl_fit(fit: dict) -> dict:
     return {"records": recs, "launches": launches, "s": run_s, "names": sorted(os.listdir(ckpt))}
 
 
-def check_seq_attention(dev) -> dict:
-    """(d): the three attention kernels at the sequence-parallel shape
-    (SEQ_SHAPE: Tq = 187 queries at positions 187-373, Tk = 374; the bias
-    factors from ``rel_features`` at those positions, the rows of a
-    padded full-context mask, one dead row) in float32 and bfloat16 with
-    dropout 0.1, outputs poisoned with NaN first, against the plain
-    versions; times in bf16 beside SDPA's. Returns {"errs", "times"}."""
+def check_attention_at(dev, s: dict, part: str, where: str, seed: int) -> dict:
+    """The three attention kernels at shape ``s`` (the bias factors from
+    ``rel_features`` at its query positions, the rows of a padded
+    full-context mask, one dead row; with ``h_total``, a model rank's
+    heads [h_offset, h_offset + h) of h_total, then also held bit for bit
+    to those heads of the whole attention's kernels) in float32 and
+    bfloat16 with dropout 0.1, outputs poisoned with NaN first, against
+    the plain versions: elementwise within TOL, but at a model rank's heads
+    the bf16 gradients, sums over 374 rounded terms, within TOL of their
+    max-abs (``compare_sums``; the elements past the elementwise rule are
+    counted and printed); times in bf16 beside SDPA's. Returns {"errs",
+    "times"}."""
     import torch
 
     from conformer_tpu_torch.models.attention import rel_features
     from conformer_tpu_torch.ops import rel_attention as ra
 
-    s = SEQ_SHAPE
     b, h, dk, d, tq, q0, tk = (s[k] for k in ("b", "h", "dk", "d", "tq", "q0", "tk"))
-    gen = torch.Generator().manual_seed(18)
+    heads = {k: s[k] for k in ("h_total", "h_offset") if k in s}
+    hw = heads.get("h_total", h)            # the heads the inputs are drawn for
+    gen = torch.Generator().manual_seed(seed)
     scale = 1 / math.sqrt(dk)
     lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen)
     lens[:3] = torch.tensor([tk, q0 + 5, 1])
     mask = (torch.arange(tk)[None, None, :] < lens[:, None, None]).expand(b, tq, tk).clone()
     mask[1, 7, :] = False
     errs = dict.fromkeys(ATTENTION_KERNELS, 0.0)
-    kw = dict(scale=scale, dropout_rate=ATTN_RATE)
+    kw = dict(scale=scale, dropout_rate=ATTN_RATE, **heads)
     made = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        q_u, q_v, k, v, g = (torch.randn(b, h, n, dk, generator=gen)
+        q_u, q_v, k, v, g = (torch.randn(b, hw, n, dk, generator=gen)
                              for n in (tq, tq, tk, tk, tq))
-        w = 0.05 * torch.randn(d, d, generator=gen)
+        w = 0.05 * torch.randn(d, hw * dk, generator=gen)
         ab, feats = rel_features({"linear_pos": {"kernel": w}}, q_v, q0 + torch.arange(tq),
-                                 torch.arange(tk), h)
+                                 torch.arange(tk), hw)
+        whole = (*[x.to(dev, dtype).contiguous() for x in (q_u, ab, k, v, feats)], mask.to(dev))
+        if heads:           # this rank's heads of the whole attention's inputs
+            lo = heads["h_offset"]
+            q_u, ab, k, v, g = (x[:, lo:lo + h] for x in (q_u, ab, k, v, g))
         args = (*[x.to(dev, dtype).contiguous() for x in (q_u, ab, k, v, feats)], mask.to(dev))
         seed = torch.tensor([ATTN_SEED], dtype=torch.int32, device=dev)
         g = g.to(dev, dtype).contiguous()
         made[name] = (args, seed, g)
         poison(((b, h, tq, dk), dtype), ((b, h, tq), torch.float32))
         got = ra.rel_attention(*args, seed=seed, **kw)
+        same = ""
+        if heads:       # the same heads of the whole attention, through the same kernels
+            lo = heads["h_offset"]
+            p_b = (*args, seed, g, got[1], (g.float() * got[0].float()).sum(dim=-1))
+            mine = (*got, *ra.rel_attention_bwd_dq(*p_b, **kw),
+                    *ra.rel_attention_bwd_dkv(*p_b, **kw))
+            w_out = ra.rel_attention(*whole, seed=seed, scale=scale, dropout_rate=ATTN_RATE)
+            g_w = torch.zeros_like(whole[0])
+            g_w[:, lo:lo + h] = g
+            w_delta = (g_w.float() * w_out[0].float()).sum(dim=-1)
+            wb = (*whole, seed, g_w, w_out[1], w_delta)
+            wkw = dict(scale=scale, dropout_rate=ATTN_RATE)
+            w_all = (*w_out, *ra.rel_attention_bwd_dq(*wb, **wkw),
+                     *ra.rel_attention_bwd_dkv(*wb, **wkw))
+            equal = all(torch.equal(x, y[:, lo:lo + h]) for x, y in zip(mine, w_all))
+            check(equal, f"attention {name} at heads {lo}-{lo + h - 1} of {hw}: the kernels "
+                  "differ from those heads of the whole attention's")
+            same = (f"; bit for bit heads {lo}-{lo + h - 1} of the whole {hw}-head attention's "
+                    "kernels (fwd, lse, dQu, dAB, dK, dV)")
         want = ra.rel_attention_plain(*args, seed=seed, **kw)
         tol = TOL[name]
-        e_f = compare(f"rel_flash_attention {name} seq shape", got, want, tol)
+        e_f = compare(f"rel_flash_attention {name} at {where}", got, want, tol)
         delta = (g.float() * want[0].float()).sum(dim=-1)
         bargs = (*args, seed, g, want[1], delta)
         poison(((b, h, tq, dk), torch.float32), ((b, h, tq, d), torch.float32))
@@ -4522,23 +4624,32 @@ def check_seq_attention(dev) -> dict:
         poison(((b, h, tk, dk), torch.float32), ((b, h, tk, dk), torch.float32))
         dkv = ra.rel_attention_bwd_dkv(*bargs, **kw)
         plain = ra.rel_attention_bwd_plain(*bargs, **kw)
-        e_q = compare(f"rel_flash_attention_bwd_dq {name} seq shape", dq, plain[:2], tol)
-        e_kv = compare(f"rel_flash_attention_bwd_dkv {name} seq shape", dkv, plain[2:], tol)
+        rule = compare_sums if heads and dtype == torch.bfloat16 else compare
+        e_q = rule(f"rel_flash_attention_bwd_dq {name} at {where}", dq, plain[:2], tol)
+        e_kv = rule(f"rel_flash_attention_bwd_dkv {name} at {where}", dkv, plain[2:], tol)
+        past = sum(int((x.float() - y.float()).abs().gt(tol + tol * y.float().abs()).sum())
+                   for x, y in zip((*dq, *dkv), plain))
+        if rule is compare_sums:
+            same += (f"; gradients within {tol} of each one's max-abs, {past} element(s) past "
+                     f"{tol} abs + rel")
         for kname, e in zip(ATTENTION_KERNELS, (e_f, e_q, e_kv)):
             errs[kname] = max(errs[kname], e)
-        print(f"parallel (d): attention {name} at the sequence-parallel shape B={b} H={h} "
+        print(f"parallel ({part}): attention {name} at {where} B={b} H={h} "
+              f"{'of ' + str(hw) + ' from head ' + str(heads['h_offset']) + ' ' if heads else ''}"
               f"Tq={tq} (positions {q0}-{q0 + tq - 1}) Tk={tk} D={d}, dropout {ATTN_RATE}: "
               f"max_abs_err fwd {e_f:.3g}, dq/dAB {e_q:.3g}, dK/dV {e_kv:.3g} (tol {tol} abs + "
-              f"rel), outputs poisoned with NaN first")
+              f"rel), outputs poisoned with NaN first{same}")
     times = attention_train_times(dev, gen, b, tk, h=h, dk=dk, d=d, inputs=made["bfloat16"],
-                                  label=f"at the sequence-parallel shape B={b} Tq={tq} Tk={tk}")
+                                  label=f"at {where} B={b} Tq={tq} Tk={tk}", heads=heads)
     return {"errs": errs, "times": times}
 
 
 def parallel_phase(fit: dict, dev, layers: int, card: str) -> dict:
     """Phase 8: (a) ``nccl_fit``; gloo's collectives on CUDA tensors; (b)
     data parallelism and (c) sequence and pipeline parallelism, 2 ranks on
-    this card over gloo, against one process; (d) ``check_seq_attention``."""
+    this card over gloo, against one process; (d) ``check_attention_at``
+    the sequence-parallel shape; (e) ``model_axis_phase`` and the
+    attention at the head-shard shape."""
     import torch
 
     res = {}
@@ -4602,7 +4713,46 @@ def parallel_phase(fit: dict, dev, layers: int, card: str) -> dict:
         ref = one_process_reference(cfg, mb, spec.get("forward", False))
         res[kind] = mesh_parity(kind, done[kind], f"{base}_{kind}", ref, layers, card)
     # (d) the attention kernels at the sequence-parallel query shape
-    res["seq_attention"] = check_seq_attention(dev)
+    res["seq_attention"] = check_attention_at(dev, SEQ_SHAPE, "d", "the sequence-parallel shape",
+                                              18)
+    if runnable("model"):
+        res.update(model_axis_phase(base, card))
+    # (e4) the attention kernels at the head-shard shape
+    res["head_attention"] = check_attention_at(dev, HEAD_SHAPE, "e4", "the head-shard shape", 19)
+    return res
+
+
+def model_axis_phase(base: str, card: str) -> dict:
+    """(e1)-(e3): the model axis, ranks on this card over gloo, each run
+    against one process on the same rows: (e1) model 2 deterministic (the
+    encoder output too) and with every dropout at PAR_DROPOUT, and (e3)
+    the full lattice through the joint kernels, in one set of 2 ranks;
+    (e2) seq 2 x model 2, 4 ranks."""
+    depth = {"encoder_num_layers": PAR_MODEL_LAYERS}
+    runs = [{"name": "model", "model": depth, "forward": True},
+            {"name": "model_dropout", "model": {**depth, **dropout_model(PAR_DROPOUT)}},
+            {"name": "model_full", "model": {**depth, "use_pruned_loss": False,
+                                             "use_pallas_joint": True}}]
+    spec = dict(train={"mesh_model": 2}, global_rows=PAR_LOCAL_B, seed=804,
+                rows=[[0, PAR_LOCAL_B]] * 2, runs=runs)
+    done = wait_ranks(run_ranks("train", 2, f"{base}_m", **spec))
+    sm_model = {"encoder_num_layers": PAR_SEQ_MODEL_LAYERS}
+    sm = dict(train={"mesh_seq": 2, "mesh_model": 2}, model=sm_model, global_rows=PAR_LOCAL_B,
+              seed=805, rows=[[0, PAR_LOCAL_B]] * 4, forward=True)
+    sm_done = wait_ranks(run_ranks("train", 4, f"{base}_sm", **sm))
+    res = {}
+    for run in runs:
+        cfg = parallel_config(run["model"])
+        mb = parallel_batch(cfg, spec["seed"], spec["global_rows"])
+        ref = one_process_reference(cfg, mb, run.get("forward", False))
+        full = run["name"] == "model_full"
+        res[run["name"]] = mesh_parity(
+            run["name"], [r and r[run["name"]] for r in done], f"{base}_m_{run['name']}", ref,
+            PAR_MODEL_LAYERS, card, pruned=not full, joint=full)
+    cfg = parallel_config(sm_model)
+    ref = one_process_reference(cfg, parallel_batch(cfg, sm["seed"], sm["global_rows"]), True)
+    res["seq_model"] = mesh_parity("seq_model", sm_done, f"{base}_sm", ref,
+                                   PAR_SEQ_MODEL_LAYERS, card)
     return res
 
 
@@ -4909,12 +5059,16 @@ def main() -> int:
     # takes on CUDA tensors; (b) data, (c) sequence and pipeline
     # parallelism, 2 ranks on this card over gloo against one process, each
     # rank's counts set to 0 just before its step and read just after; (d)
-    # the attention kernels at the sequence-parallel shape
+    # the attention kernels at the sequence-parallel shape; (e) the model
+    # axis: model 2 (deterministic, dropout, full lattice) and seq 2 x
+    # model 2 against one process, counts as (b)-(c), and the attention
+    # kernels at the head-shard shape
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     par = parallel_phase(fit, dev, layers, card)
-    for name, e in par["seq_attention"]["errs"].items():
-        entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
+    for part in ("seq_attention", "head_attention"):
+        for name, e in par[part]["errs"].items():
+            entries[name]["max_abs_err"] = max(entries[name]["max_abs_err"], e)
     print(f"parallel: in {time.perf_counter() - t0:.1f} s ({card})")
     shutil.rmtree(FIT_DIR, ignore_errors=True)
     attn = sv["launches"]["rel_flash_attention"]

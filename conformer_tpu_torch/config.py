@@ -3,10 +3,9 @@
 An own copy of the JAX package's ``config.py`` (the port imports nothing of
 ``conformer_tpu``): the same fields and defaults, so both packages read the
 same ``configs/*.json`` and take the same ``--set`` overrides. The mesh
-fields route a multi-process trainer (``train/loop.make_trainer_mesh``);
-``mesh_model`` > 1 raises until the model axis is ported (ROADMAP.md item
-A12). Fields the port does not read (``donate_state``) are kept so a
-config round-trips unchanged.
+fields route a multi-process trainer (``train/loop.make_trainer_mesh``).
+Fields the port does not read (``donate_state``) are kept so a config
+round-trips unchanged.
 """
 
 from __future__ import annotations

@@ -15,7 +15,10 @@ constexpr float LSE_BIG = 1e30f;   // lse of a fully masked row: exp(s - lse) = 
 // Dropout keep-mask of one attention probability, the counter hash of the
 // TPU kernel's _tile_keep_mask (conformer_tpu/ops/pallas/attention_kernel.py
 // :41) in uint32 arithmetic: a function of (seed, b*H + h, global query row,
-// global key column) alone, so the forward and both backward kernels, which
+// global key column) alone, with b*H + h the head's index in the whole
+// attention (b*Ht + Ho + h for a model rank's heads [Ho, Ho + H) of Ht,
+// which then draw the whole attention's mask for those heads), so the
+// forward and both backward kernels, which
 // walk the tiles in different orders, regenerate the same mask, and the
 // probability matrix never exists in memory. Keep where x >= thr, thr =
 // uint32(rate * 2^32), so the keep rate is 1 - rate within 2^-32.

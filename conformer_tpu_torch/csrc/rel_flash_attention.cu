@@ -100,7 +100,7 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
     const float* __restrict__ v, const float* __restrict__ feats,
     const uint8_t* __restrict__ mask, const int* __restrict__ seed, float* __restrict__ out,
     float* __restrict__ lse, int H, int Tq, int Tk, int dk, int D, float scale, int drop,
-    uint32_t thr, float inv_keep) {
+    uint32_t thr, int Ht, int Ho, float inv_keep) {
   extern __shared__ float smem[];
   const int DC = min(D, F32_DC), DCp = DC + 1, dkp = dk + 1, BKp = BK + 1;  // +1: no bank conflicts
   const bool one_chunk = D <= F32_DC;
@@ -114,6 +114,7 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
+  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
   const float* qg = qu + bh * Tq * dk;
   const float* abg = ab + bh * Tq * D;
   const float* kg = k + bh * Tk * dk;
@@ -207,7 +208,7 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
         rs += p;
         float pd = p;
         if (drop)
-          pd = keep_prob(sd, (uint32_t)bh, (uint32_t)i, (uint32_t)(k0 + tx + 16 * c), thr)
+          pd = keep_prob(sd, hbh, (uint32_t)i, (uint32_t)(k0 + tx + 16 * c), thr)
                    ? p * inv_keep
                    : 0.f;
         sP[(ty + 16 * r) * BKp + tx + 16 * c] = pd;
@@ -259,7 +260,7 @@ __global__ void __launch_bounds__(NW * 32) rel_flash_fwd_bf16_kernel(
     const bf16* __restrict__ v, const bf16* __restrict__ feats,
     const uint8_t* __restrict__ mask, const int* __restrict__ seed, bf16* __restrict__ out,
     float* __restrict__ lse, int H, int Tq, int Tk, int dk, int D, int KD, float scale,
-    int drop, uint32_t thr, float inv_keep) {
+    int drop, uint32_t thr, int Ht, int Ho, float inv_keep) {
   constexpr int MQ = 16 * NW, MK = 8 * NW, MNT = 32 * NW;
   constexpr int NKT = MK / 8;   // 8-key tiles of a warp's scores
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -272,6 +273,7 @@ __global__ void __launch_bounds__(NW * 32) rel_flash_fwd_bf16_kernel(
   const int g = lane >> 2, c4 = lane & 3;
   const int q0 = blockIdx.x * MQ, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
+  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
   const bf16* qg = qu + bh * Tq * dk;
   const bf16* abg = ab + bh * Tq * D;
   const bf16* kg = k + bh * Tk * dk;
@@ -395,7 +397,7 @@ __global__ void __launch_bounds__(NW * 32) rel_flash_fwd_bf16_kernel(
             rs += p;
             x = p;
             if (drop)
-              x = keep_prob(sd, (uint32_t)bh, (uint32_t)qi[r],
+              x = keep_prob(sd, hbh, (uint32_t)qi[r],
                             (uint32_t)(k0 + n * 8 + 2 * c4 + e), thr)
                       ? p * inv_keep
                       : 0.f;
@@ -461,7 +463,8 @@ size_t fwd_bf16_smem(int dk, int D, int nw) {
 cudaError_t launch_f32(const void* qu, const void* ab, const void* k, const void* v,
                        const void* feats, const void* mask, const void* seed, void* out,
                        void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
-                       int D, float scale, int drop, uint32_t thr, float inv_keep) {
+                       int D, float scale, int drop, uint32_t thr, int Ht, int Ho,
+                       float inv_keep) {
   const size_t dcp = (size_t)min(D, F32_DC) + 1;
   const size_t smem = sizeof(float) * ((size_t)BQ * (dk + 1) + (size_t)BQ * dcp +
                                        2 * (size_t)BK * (dk + 1) + (size_t)BK * dcp +
@@ -475,7 +478,7 @@ cudaError_t launch_f32(const void* qu, const void* ab, const void* k, const void
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(feats), static_cast<const uint8_t*>(mask),
       static_cast<const int*>(seed), static_cast<float*>(out), static_cast<float*>(lse), H,
-      Tq, Tk, dk, D, scale, drop, thr, inv_keep);
+      Tq, Tk, dk, D, scale, drop, thr, Ht, Ho, inv_keep);
   return cudaGetLastError();
 }
 
@@ -483,7 +486,7 @@ template <int DKP, int NW>
 cudaError_t launch_bf16_dkp(const void* qu, const void* ab, const void* k, const void* v,
                             const void* feats, const void* mask, const void* seed, void* out,
                             void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk,
-                            int dk, int D, float scale, int drop, uint32_t thr,
+                            int dk, int D, float scale, int drop, uint32_t thr, int Ht, int Ho,
                             float inv_keep) {
   const size_t smem = fwd_bf16_smem(dk, D, NW);
   cudaError_t err = cudaFuncSetAttribute(rel_flash_fwd_bf16_kernel<DKP, NW>,
@@ -494,7 +497,8 @@ cudaError_t launch_bf16_dkp(const void* qu, const void* ab, const void* k, const
       static_cast<const bf16*>(qu), static_cast<const bf16*>(ab), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(feats),
       static_cast<const uint8_t*>(mask), static_cast<const int*>(seed), static_cast<bf16*>(out),
-      static_cast<float*>(lse), H, Tq, Tk, dk, D, kd_pad(dk, D), scale, drop, thr, inv_keep);
+      static_cast<float*>(lse), H, Tq, Tk, dk, D, kd_pad(dk, D), scale, drop, thr, Ht, Ho,
+      inv_keep);
   return cudaGetLastError();
 }
 
@@ -504,15 +508,18 @@ constexpr size_t SMEM_LIMIT = 232448;
 cudaError_t launch_bf16(const void* qu, const void* ab, const void* k, const void* v,
                         const void* feats, const void* mask, const void* seed, void* out,
                         void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
-                        int D, float scale, int drop, uint32_t thr, float inv_keep) {
+                        int D, float scale, int drop, uint32_t thr, int Ht, int Ho,
+                        float inv_keep) {
   const bool wide = fwd_bf16_smem(dk, D, 8) <= SMEM_LIMIT;
   switch (dk_pad(dk)) {
 #define CASE(P)                                                                              \
   case P:                                                                                    \
     return wide ? launch_bf16_dkp<P, 8>(qu, ab, k, v, feats, mask, seed, out, lse, stream, B, \
-                                        H, Tq, Tk, dk, D, scale, drop, thr, inv_keep)         \
+                                        H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho,           \
+                                        inv_keep)                                             \
                 : launch_bf16_dkp<P, 4>(qu, ab, k, v, feats, mask, seed, out, lse, stream, B, \
-                                        H, Tq, Tk, dk, D, scale, drop, thr, inv_keep);
+                                        H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho,           \
+                                        inv_keep);
     CASE(16) CASE(32) CASE(48) CASE(64)
 #undef CASE
     default: return cudaErrorInvalidValue;
@@ -527,20 +534,23 @@ cudaError_t launch_bf16(const void* qu, const void* ab, const void* k, const voi
 // dk <= 64; bf16: fwd_bf16_smem(dk, D, 4) within a block's shared memory,
 // float32: D <= 512 (any D fits; the float32 dq kernel's registers set the
 // limit). thr_bits is the uint32 keep threshold's bit pattern,
-// inv_keep 1/(1-rate). Returns the CUDA error code of the launch (0 on
-// success).
+// inv_keep 1/(1-rate). The keep-mask hashes head h of row b as
+// b * Ht + Ho + h: the heads' place among the Ht heads of the whole
+// attention under tensor parallelism ((H, 0) without it). Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int rel_flash_attention_fwd(const void* qu, const void* ab, const void* k,
                                        const void* v, const void* feats,
                                        const void* mask, const void* seed, void* out,
                                        void* lse, void* stream, int B, int H, int Tq,
                                        int Tk, int dk, int D, int is_bf16, int drop,
-                                       int thr_bits, float scale, float inv_keep) {
+                                       int thr_bits, int Ht, int Ho, float scale,
+                                       float inv_keep) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t thr = static_cast<uint32_t>(thr_bits);
   cudaError_t err =
       is_bf16 ? launch_bf16(qu, ab, k, v, feats, mask, seed, out, lse, s, B, H, Tq, Tk, dk,
-                            D, scale, drop, thr, inv_keep)
+                            D, scale, drop, thr, Ht, Ho, inv_keep)
               : launch_f32(qu, ab, k, v, feats, mask, seed, out, lse, s, B, H, Tq, Tk, dk,
-                           D, scale, drop, thr, inv_keep);
+                           D, scale, drop, thr, Ht, Ho, inv_keep);
   return static_cast<int>(err);
 }

@@ -99,8 +99,8 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
     const uint8_t* __restrict__ mask, const int* __restrict__ seed,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dab,
-    int H, int Tq, int Tk, int dk, int D, float scale, int drop, uint32_t thr,
-    float inv_keep) {
+    int H, int Tq, int Tk, int dk, int D, float scale, int drop, uint32_t thr, int Ht,
+    int Ho, float inv_keep) {
   extern __shared__ float smem[];
   const int DC = min(D, F32_DC), DCp = DC + 1;
   const int dkp = dk + 1, BKp = DQ_BK + 1;   // +1: no bank conflicts
@@ -116,6 +116,7 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * DQ_BQ, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
+  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
   const float* abg = ab + bh * Tq * D;
   const uint8_t* mg = mask + (size_t)b * Tq * Tk;
   const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
@@ -208,8 +209,7 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
         const float p = ok ? expf((s[r][c] + sb[r][c]) * scale - row_lse[r]) : 0.f;
         float dpv = dp[r][c];
         if (drop)
-          dpv = keep_prob(sd, (uint32_t)bh, (uint32_t)i, (uint32_t)j, thr) ? dpv * inv_keep
-                                                                          : 0.f;
+          dpv = keep_prob(sd, hbh, (uint32_t)i, (uint32_t)j, thr) ? dpv * inv_keep : 0.f;
         sDS[(ty + 16 * r) * BKp + tx + 16 * c] = p * (dpv - row_delta[r]) * scale;
       }
     }
@@ -276,7 +276,7 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk_out,
     float* __restrict__ dv_out, int H, int Tq, int Tk, int dk, int D, float scale,
-    int drop, uint32_t thr, float inv_keep) {
+    int drop, uint32_t thr, int Ht, int Ho, float inv_keep) {
   extern __shared__ float smem[];
   const int DC = min(D, F32_DC), DCp = DC + 1;
   const int dkp = dk + 1, BKp = KV_BK + 1;
@@ -295,6 +295,7 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int k0 = blockIdx.x * KV_BK, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
+  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
   const uint8_t* mg = mask + (size_t)b * Tq * Tk;
   const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
 
@@ -376,7 +377,7 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
         const float p = ok ? expf((s[r][c] + sb[r][c]) * scale - sLse[qi]) : 0.f;
         float pd = p, dpv = dp[r][c];
         if (drop) {
-          const bool kp = keep_prob(sd, (uint32_t)bh, (uint32_t)i, (uint32_t)j, thr);
+          const bool kp = keep_prob(sd, hbh, (uint32_t)i, (uint32_t)j, thr);
           pd = kp ? p * inv_keep : 0.f;
           dpv = kp ? dpv * inv_keep : 0.f;
         }
@@ -441,8 +442,8 @@ __global__ void __launch_bounds__(QB * 8) rel_flash_bwd_dq_bf16_kernel(
     const uint8_t* __restrict__ mask, const int* __restrict__ seed,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dab, int H,
-    int Tq, int Tk, int dk, int D, int DKP, float scale, int drop, uint32_t thr,
-    float inv_keep) {
+    int Tq, int Tk, int dk, int D, int DKP, float scale, int drop, uint32_t thr, int Ht,
+    int Ho, float inv_keep) {
   constexpr int QNT = QB * 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int KD = NT8 * 64, LDA = KD + 8, LDV = DKP + 8, LDS = QK + 8;
@@ -456,6 +457,7 @@ __global__ void __launch_bounds__(QB * 8) rel_flash_bwd_dq_bf16_kernel(
   const int g = lane >> 2, c4 = lane & 3;
   const int q0 = blockIdx.x * QB, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
+  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
   const bf16* kg = k + bh * Tk * dk;
   const bf16* vg = v + bh * Tk * dk;
   const uint8_t* mg = mask + (size_t)b * Tq * Tk;
@@ -575,7 +577,7 @@ __global__ void __launch_bounds__(QB * 8) rel_flash_bwd_dq_bf16_kernel(
                 mask_bit(mk[r][n], e) ? exp2_approx(s[n][2 * r + e] * sl2 - lse2[r]) : 0.f;
             float dpv = dp[n][2 * r + e];
             if (drop)
-              dpv = keep_prob(sd, (uint32_t)bh, (uint32_t)qi[r],
+              dpv = keep_prob(sd, hbh, (uint32_t)qi[r],
                               (uint32_t)(k0 + kg0 + n * 8 + 2 * c4 + e), thr)
                         ? dpv * inv_keep
                         : 0.f;
@@ -646,7 +648,7 @@ __global__ void __launch_bounds__(VNT) rel_flash_bwd_dkv_bf16_kernel(
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk_out,
     float* __restrict__ dv_out, int H, int Tq, int Tk, int dk, int D, int KD, float scale,
-    int drop, uint32_t thr, float inv_keep) {
+    int drop, uint32_t thr, int Ht, int Ho, float inv_keep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int LDA = KD + 8, LDV = DKP + 8;
   bf16* sKF = reinterpret_cast<bf16*>(smem_raw);  // [VK][LDA]  [K | F]
@@ -660,6 +662,7 @@ __global__ void __launch_bounds__(VNT) rel_flash_bwd_dkv_bf16_kernel(
   const int g = lane >> 2, c4 = lane & 3;
   const int k0 = blockIdx.x * VK, h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
+  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
   const bf16* qg = qu + bh * Tq * dk;
   const bf16* abg = ab + bh * Tq * D;
   const bf16* og = dout + bh * Tq * dk;
@@ -789,7 +792,7 @@ __global__ void __launch_bounds__(VNT) rel_flash_bwd_dkv_bf16_kernel(
                 mk[r][n * 2 + e] != 0u ? exp2_approx(st[n][2 * r + e] * sl2 - tL[qc] * LOG2E) : 0.f;
             float pd = p, dpv = dpt[n][2 * r + e];
             if (drop) {
-              const bool kp = keep_prob(sd, (uint32_t)bh, (uint32_t)(q0 + qc), (uint32_t)kj[r], thr);
+              const bool kp = keep_prob(sd, hbh, (uint32_t)(q0 + qc), (uint32_t)kj[r], thr);
               pd = kp ? p * inv_keep : 0.f;
               dpv = kp ? dpv * inv_keep : 0.f;
             }
@@ -884,6 +887,7 @@ struct Args {
   cudaStream_t stream;
   int B, H, Tq, Tk, dk, D, drop;
   uint32_t thr;
+  int Ht, Ho;
   float scale, inv_keep;
 };
 
@@ -897,14 +901,14 @@ cudaError_t run(K kernel, size_t smem, dim3 grid, int threads, const Args& a, in
                 static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
                 static_cast<const float*>(a.delta), static_cast<float*>(a.o1),
                 static_cast<float*>(a.o2), a.H, a.Tq, a.Tk, a.dk, a.D, extra, a.scale, a.drop,
-                a.thr, a.inv_keep);
+                a.thr, a.Ht, a.Ho, a.inv_keep);
 }
 
 // the float32 kernels take no extra int: wrap them to the common signature
 cudaError_t run_f32(void (*kernel)(const float*, const float*, const float*, const float*,
                                    const float*, const uint8_t*, const int*, const float*,
                                    const float*, const float*, float*, float*, int, int, int,
-                                   int, int, float, int, uint32_t, float),
+                                   int, int, float, int, uint32_t, int, int, float),
                     size_t smem, dim3 grid, const Args& a) {
   return launch(kernel, smem, grid, NT, a.stream, static_cast<const float*>(a.qu),
                 static_cast<const float*>(a.ab), static_cast<const float*>(a.k),
@@ -913,7 +917,7 @@ cudaError_t run_f32(void (*kernel)(const float*, const float*, const float*, con
                 static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
                 static_cast<const float*>(a.delta), static_cast<float*>(a.o1),
                 static_cast<float*>(a.o2), a.H, a.Tq, a.Tk, a.dk, a.D, a.scale, a.drop, a.thr,
-                a.inv_keep);
+                a.Ht, a.Ho, a.inv_keep);
 }
 
 cudaError_t launch_dq(const Args& a, bool bf16_) {
@@ -963,15 +967,17 @@ cudaError_t launch_dkv(const Args& a, bool bf16_) {
 // writes dk, dv [B,H,Tk,dk]; all float32, contiguous. dk <= 64; bf16:
 // KD <= 576 (D <= 512 at dk = 64) with dq_bf16_smem(dk, D, 32) and
 // dkv_bf16_smem(dk, D) within a block's shared memory; float32: D <= 512.
+// Ht, Ho: the keep-mask's head total and offset, as the forward's.
 // Each returns the CUDA error code of its launch (0 on success).
 extern "C" int rel_flash_attention_bwd_dq(
     const void* qu, const void* ab, const void* k, const void* v, const void* feats,
     const void* mask, const void* seed, const void* dout, const void* lse,
     const void* delta, void* dq, void* dab, void* stream, int B, int H, int Tq, int Tk,
-    int dk, int D, int is_bf16, int drop, int thr_bits, float scale, float inv_keep) {
+    int dk, int D, int is_bf16, int drop, int thr_bits, int Ht, int Ho, float scale,
+    float inv_keep) {
   const Args a{qu, ab, k, v, feats, mask, seed, dout, lse, delta, dq, dab,
                static_cast<cudaStream_t>(stream), B, H, Tq, Tk, dk, D, drop,
-               static_cast<uint32_t>(thr_bits), scale, inv_keep};
+               static_cast<uint32_t>(thr_bits), Ht, Ho, scale, inv_keep};
   return static_cast<int>(launch_dq(a, is_bf16 != 0));
 }
 
@@ -979,10 +985,10 @@ extern "C" int rel_flash_attention_bwd_dkv(
     const void* qu, const void* ab, const void* k, const void* v, const void* feats,
     const void* mask, const void* seed, const void* dout, const void* lse,
     const void* delta, void* dk_out, void* dv_out, void* stream, int B, int H, int Tq,
-    int Tk, int dk, int D, int is_bf16, int drop, int thr_bits, float scale,
-    float inv_keep) {
+    int Tk, int dk, int D, int is_bf16, int drop, int thr_bits, int Ht, int Ho,
+    float scale, float inv_keep) {
   const Args a{qu, ab, k, v, feats, mask, seed, dout, lse, delta, dk_out, dv_out,
                static_cast<cudaStream_t>(stream), B, H, Tq, Tk, dk, D, drop,
-               static_cast<uint32_t>(thr_bits), scale, inv_keep};
+               static_cast<uint32_t>(thr_bits), Ht, Ho, scale, inv_keep};
   return static_cast<int>(launch_dkv(a, is_bf16 != 0));
 }

@@ -106,10 +106,12 @@ def rel_features(
     num_heads: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(ab [B,H,Tq,D], k_feats [Tk,D]) such that the relative bias is
-    ab @ k_feats^T; D = d_model, not the head width."""
+    ab @ k_feats^T; D = d_model, not the head width. Under a model axis
+    q_v holds this rank's heads and ``linear_pos`` their columns; D stays
+    the model width, its input axis."""
     bsz, h, tq, dk = q_v.shape
-    d_model = h * dk
-    w = p["linear_pos"]["kernel"].to(q_v.dtype).reshape(d_model, num_heads, dk)
+    d_model = p["linear_pos"]["kernel"].shape[0]
+    w = p["linear_pos"]["kernel"].to(q_v.dtype).reshape(d_model, h, dk)
     c = torch.einsum("bhtd,ihd->bhti", q_v, w)
     ce, co = c[..., 0::2], c[..., 1::2]
     freqs = embedding.rel_freqs(d_model, q_v.device)
@@ -140,6 +142,7 @@ def mhsa(
     gen: torch.Generator | None = None,
     deterministic: bool = True,
     kv_gather=None,
+    model_shard=None,
 ) -> tuple[torch.Tensor, AttnCache | None]:
     """Multi-head attention, x_q [B,Tq,D], x_kv [B,Tkv,D] ->
     (out [B,Tq,D], new cache or None), as in JAX. attn_mask bool [B|1, Tq, Tk] (True = attend) or None;
@@ -161,12 +164,23 @@ def mhsa(
     ``kv_gather`` maps a time shard's K or V [B, H, Tkv, dk] to the whole
     sequence's (sequence parallelism, ``parallel/sequence.py``); the mask
     and positions then cover every key.
+    ``model_shard`` (``parallel/tensor.py``): this rank computes its heads
+    only (q, k, v and pos columns, pos_bias rows, linear_out rows), the
+    kernel hashing its dropout mask at the global head index, the plain
+    paths drawing the whole mask and keeping its heads; linear_out's bias
+    is added once, after the sum over "model".
     """
     d_model = x_q.shape[-1]
     head_dim = d_model // num_heads
-    q = _split_heads(layers.dense(p["linear_q"], x_q), num_heads)
-    k = _split_heads(layers.dense(p["linear_k"], x_kv), num_heads)
-    v = _split_heads(layers.dense(p["linear_v"], x_kv), num_heads)
+    heads, h_off = num_heads, 0
+    if model_shard is not None:
+        heads, h_off = model_shard.heads(num_heads)
+        same = x_kv is x_q
+        x_q = model_shard.copy_in(x_q)
+        x_kv = x_q if same else model_shard.copy_in(x_kv)
+    q = _split_heads(layers.dense(p["linear_q"], x_q), heads)
+    k = _split_heads(layers.dense(p["linear_k"], x_kv), heads)
+    v = _split_heads(layers.dense(p["linear_v"], x_kv), heads)
     if kv_gather is not None:
         k, v = kv_gather(k), kv_gather(v)
     new_cache = None
@@ -179,25 +193,29 @@ def mhsa(
             length=torch.clamp(cache.length + x_kv.shape[1], max=size),
         )
     scale = 1.0 / math.sqrt(head_dim)
+    attend = dict(dropout_rate=dropout_rate, gen=gen, deterministic=deterministic,
+                  new_cache=new_cache, model_shard=model_shard)
+    if pos_ref is not None or rel_positions is not None or pos_emb is not None:
+        bias_u = p["pos_bias_u"].narrow(0, h_off, heads).to(q.dtype)[None, :, None, :]
+        bias_v = p["pos_bias_v"].narrow(0, h_off, heads).to(q.dtype)[None, :, None, :]
     if pos_ref is not None:
-        q_u = q + p["pos_bias_u"].to(q.dtype)[None, :, None, :]
-        q_v = q + p["pos_bias_v"].to(q.dtype)[None, :, None, :]
+        q_u = q + bias_u
+        q_v = q + bias_v
         ac = torch.matmul(q_u.float(), k.float().transpose(-1, -2))
         p_proj = layers.dense(p["linear_pos"], pos_ref.to(x_q.dtype))
-        p_proj = p_proj.reshape(*p_proj.shape[:2], num_heads, head_dim)   # [Bp, P, H, dk]
+        p_proj = p_proj.reshape(*p_proj.shape[:2], heads, head_dim)   # [Bp, P, H, dk]
         bd = torch.einsum("bhid,bphd->bhip", q_v.float(), p_proj.float())
-        return _attend(p, (ac + bd) * scale, attn_mask, v, dropout_rate, gen, deterministic,
-                       new_cache)
+        return _attend(p, (ac + bd) * scale, attn_mask, v, **attend)
     if rel_positions is None and pos_emb is None:
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-        return _attend(p, scores, attn_mask, v, dropout_rate, gen, deterministic, new_cache)
-    q_u = q + p["pos_bias_u"].to(q.dtype)[None, :, None, :]
-    q_v = q + p["pos_bias_v"].to(q.dtype)[None, :, None, :]
+        return _attend(p, scores, attn_mask, v, **attend)
+    q_u = q + bias_u
+    q_v = q + bias_v
 
     if use_pallas and rel_positions is not None and attn_mask is not None:
         from ..ops.rel_attention import rel_flash_attention
 
-        ab, k_feats = rel_features(p, q_v, *rel_positions, num_heads)
+        ab, k_feats = rel_features(p, q_v, *rel_positions, heads)
         mask_b = attn_mask.expand(q.shape[0], *attn_mask.shape[1:])
         live = not deterministic and dropout_rate > 0.0
         seed = None
@@ -210,35 +228,40 @@ def mhsa(
             q_u.contiguous(), ab.contiguous(), k.contiguous(), v.contiguous(),
             k_feats.contiguous(), mask_b.contiguous(), scale=scale,
             dropout_rate=dropout_rate if live else 0.0, seed=seed,
+            h_total=num_heads, h_offset=h_off,
         )
-        return _finish(p, out, new_cache)
+        return _finish(p, out, new_cache, model_shard)
 
     ac = torch.matmul(q_u.float(), k.float().transpose(-1, -2))
     if rel_positions is not None and pos_emb is None:
-        ab, k_feats = rel_features(p, q_v, *rel_positions, num_heads)
+        ab, k_feats = rel_features(p, q_v, *rel_positions, heads)
         bd = torch.matmul(ab.float(), k_feats.float().transpose(-1, -2))
     else:
         p_proj = layers.dense(p["linear_pos"], pos_emb.to(x_q.dtype))
-        p_proj = p_proj.reshape(-1, num_heads, head_dim)             # [P, H, dk]
+        p_proj = p_proj.reshape(-1, heads, head_dim)                 # [P, H, dk]
         # the position term stays in the compute dtype, as in JAX
         bd_full = torch.einsum("bhid,phd->bhip", q_v, p_proj)
         bd = _rel_skew(bd_full, k.shape[2]).float()
-    return _attend(p, (ac + bd) * scale, attn_mask, v, dropout_rate, gen, deterministic,
-                   new_cache)
+    return _attend(p, (ac + bd) * scale, attn_mask, v, **attend)
 
 
 def _attend(p: Params, scores: torch.Tensor, attn_mask: torch.Tensor | None,
-            v: torch.Tensor, dropout_rate: float, gen: torch.Generator | None,
-            deterministic: bool, new_cache: AttnCache | None):
+            v: torch.Tensor, *, dropout_rate: float, gen: torch.Generator | None,
+            deterministic: bool, new_cache: AttnCache | None, model_shard):
     """Masked float32 softmax, dropout, the product with v in v's dtype,
     the output projection."""
     mask = attn_mask[:, None, :, :] if attn_mask is not None else None
     attn = _masked_softmax(scores, mask)
-    attn = layers.dropout(gen, attn, dropout_rate, deterministic)
-    return _finish(p, torch.matmul(attn.to(v.dtype), v), new_cache)
+    if model_shard is None:
+        attn = layers.dropout(gen, attn, dropout_rate, deterministic)
+    else:
+        attn = model_shard.dropout(gen, attn, dropout_rate, deterministic, dim=1)
+    return _finish(p, torch.matmul(attn.to(v.dtype), v), new_cache, model_shard)
 
 
-def _finish(p: Params, out: torch.Tensor, new_cache: AttnCache | None):
+def _finish(p: Params, out: torch.Tensor, new_cache: AttnCache | None, model_shard=None):
+    if model_shard is not None:
+        return model_shard.dense_rows(p["linear_out"], _merge_heads(out)), new_cache
     return layers.dense(p["linear_out"], _merge_heads(out)), new_cache
 
 

@@ -8,7 +8,11 @@ encoder output -> FFN, all absolute-position attention in plain PyTorch
 (JAX computes it in XLA, outside any Pallas kernel). The layers are
 stacked on a leading [L] axis as in JAX and run in a loop over
 ``layer_params(stacked, i)``. Dropout draws from the caller's
-``torch.Generator``; its draws differ from ``jax.random``'s.
+``torch.Generator``; its draws differ from ``jax.random``'s. Under a
+model axis (``model_shard``, ``parallel/tensor.py``) the self-attention
+and the FFN run this rank's heads and hidden columns, as JAX's rules
+split them; the cross-attention, the embedding and the output layer are
+replicated.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ def transformer_decoder_forward(
     *,
     gen: torch.Generator | None = None,
     deterministic: bool = True,
+    model_shard=None,
 ) -> torch.Tensor:
     """targets_in [B, U] (sos-prefixed), memory [B, T, D] with its pad mask
     [B, T] (True = valid) -> logits [B, U, V]."""
@@ -78,14 +83,14 @@ def transformer_decoder_forward(
     for i in range(p["layers"]["norm1"]["scale"].shape[0]):
         lp = layer_params(p["layers"], i)
         y = layers.layer_norm(lp["norm1"], x)
-        y, _ = attention.mhsa(lp["self_attn"], y, y, self_mask, **kw)
+        y, _ = attention.mhsa(lp["self_attn"], y, y, self_mask, model_shard=model_shard, **kw)
         x = x + layers.dropout(gen, y, cfg.dropout, deterministic)
         y = layers.layer_norm(lp["norm2"], x)
         y, _ = attention.mhsa(lp["src_attn"], y, mem, cross_mask, **kw)
         x = x + layers.dropout(gen, y, cfg.dropout, deterministic)
         y = layers.layer_norm(lp["norm3"], x)
         y = feedforward.ffn(lp["feed_forward"], y, dropout_rate=cfg.dropout, gen=gen,
-                            deterministic=deterministic)
+                            deterministic=deterministic, model_shard=model_shard)
         x = x + layers.dropout(gen, y, cfg.dropout, deterministic)
     x = layers.layer_norm(p["after_norm"], x)
     return layers.dense(p["output_layer"], x)
@@ -124,13 +129,14 @@ def attention_loss(
     *,
     gen: torch.Generator | None = None,
     deterministic: bool = True,
+    model_shard=None,
 ) -> torch.Tensor:
     """The L2R decoder's smoothed loss, blended with the R2L decoder's by
     ``reverse_weight`` when that is > 0 and the R2L decoder exists."""
     ys_in, ys_out = masks.add_sos_eos(labels, label_lengths, cfg.sos_eos_id,
                                       cfg.sos_eos_id, cfg.ignore_id)
     lens_in = label_lengths + 1
-    kw = dict(gen=gen, deterministic=deterministic)
+    kw = dict(gen=gen, deterministic=deterministic, model_shard=model_shard)
     logits = transformer_decoder_forward(p["left_decoder"], memory, memory_pad_mask, ys_in,
                                          lens_in, cfg, **kw)
     loss = label_smoothing_loss(logits, ys_out, cfg.lsm_weight, cfg.ignore_id)

@@ -94,7 +94,7 @@ def init_encoder(gen, cfg: ModelConfig) -> Params:
 
 
 def _ffn_residual(norm_p: Params, ffn_p: Params, x: torch.Tensor, cfg: ModelConfig,
-                  gen, deterministic: bool) -> torch.Tensor:
+                  gen, deterministic: bool, model_shard=None) -> torch.Tensor:
     """x + 0.5 * dropout(FFN(LN(x))): one macaron half, with the FFN's inner
     dropout and the dropout of its output. With both FFN matmuls int8
     (``ops/quant.quantize_tree(fuse_ffn=True)``) at inference, the half is
@@ -107,7 +107,7 @@ def _ffn_residual(norm_p: Params, ffn_p: Params, x: torch.Tensor, cfg: ModelConf
         return int8_ffn_fused(x, norm_p, w1["kernel_q"], w1["kernel_scale"], w1["bias"],
                               w2["kernel_q"], w2["kernel_scale"], w2["bias"], half=0.5)
     y = feedforward.ffn(ffn_p, layers.layer_norm(norm_p, x), dropout_rate=cfg.dropout,
-                        gen=gen, deterministic=deterministic)
+                        gen=gen, deterministic=deterministic, model_shard=model_shard)
     return x + 0.5 * layers.dropout(gen, y, cfg.dropout, deterministic)
 
 
@@ -128,6 +128,7 @@ def encoder_layer(
     gen: torch.Generator | None = None,
     deterministic: bool = True,
     seq_shard=None,
+    model_shard=None,
 ):
     """One macaron Conformer layer; returns (x, new attention cache or
     None, conv cache [B, K-1, D]), as in JAX.
@@ -146,12 +147,17 @@ def encoder_layer(
     shard of a sequence-parallel forward; the attention gathers K and V
     over the seq group, and the conv module reads the halo its depthwise
     kernel needs from the neighbouring shards (the conv cache returned is
-    then meaningless). Everything else is per frame."""
+    then meaningless). Everything else is per frame.
+
+    ``model_shard`` (``parallel/tensor.ModelShard``): the attention runs
+    this rank's heads and the FFNs its hidden columns, each joined over
+    "model"; x, the LayerNorms and the conv module (its kernel included)
+    stay whole on every rank of the model group."""
     def drop(t):
         return layers.dropout(gen, t, cfg.dropout, deterministic)
 
     x = _ffn_residual(p["norm_ff_macaron"], p["feed_forward_macaron"], x, cfg, gen,
-                      deterministic)
+                      deterministic, model_shard)
     y = layers.layer_norm(p["norm_mha"], x)
     y, new_attn_cache = attention.mhsa(
         p["self_attn"], y, y, attn_mask, num_heads=cfg.num_heads,
@@ -159,6 +165,7 @@ def encoder_layer(
         cache=attn_cache, dropout_rate=cfg.attention_dropout, gen=gen,
         deterministic=deterministic,
         kv_gather=seq_shard.gather_kv if seq_shard is not None else None,
+        model_shard=model_shard,
     )
     x = x + drop(y)
     # a time shard's conv reads its halo: the window, cropped afterwards
@@ -186,7 +193,7 @@ def encoder_layer(
         if seq_shard is not None:
             y = seq_shard.crop(y)
         x = x + drop(y)
-    x = _ffn_residual(p["norm_ff"], p["feed_forward"], x, cfg, gen, deterministic)
+    x = _ffn_residual(p["norm_ff"], p["feed_forward"], x, cfg, gen, deterministic, model_shard)
     x = layers.layer_norm(p["norm_final"], x)
     return x, new_attn_cache, conv_cache
 
@@ -255,6 +262,7 @@ def encoder_forward(
     gen: torch.Generator | None = None,
     host_gen: torch.Generator | None = None,
     deterministic: bool = True,
+    model_shard=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-utterance forward. feats [B, T, F], feat_lengths [B] ->
     (encoder_out [B, T', D], pad_mask bool [B, T'] True = valid).
@@ -268,7 +276,8 @@ def encoder_forward(
     ``decoding_chunk_size`` with ``num_decoding_left_chunks`` when it is >
     0, and otherwise drawn once per batch on the host generator
     ``host_gen``. With ``cfg.remat``, and only while autograd records,
-    each layer is recomputed in the backward (``_checkpointed``)."""
+    each layer is recomputed in the backward (``_checkpointed``).
+    ``model_shard``: tensor parallelism over "model" (``encoder_layer``)."""
     x, pos_emb, rel_positions, pos_ref = _embed(p, input_feats(feats, cfg, cmvn), cfg)
     pad_mask, attn_mask = encoder_masks(
         feat_lengths, x.shape[1], cfg, deterministic=deterministic,
@@ -280,6 +289,7 @@ def encoder_forward(
             lp, x, attn_mask, pos_emb, pad_mask, cfg, rel_positions=rel_positions,
             pos_ref=pos_ref, use_pallas=cfg.use_pallas_attention,
             use_pallas_conv=cfg.use_pallas_conv, gen=g, deterministic=deterministic,
+            model_shard=model_shard,
         )[0]
 
     remat = cfg.remat and torch.is_grad_enabled()

@@ -80,13 +80,19 @@ def predictor_forward(
     *,
     gen: torch.Generator | None = None,
     deterministic: bool = True,
+    model_shard=None,
 ) -> torch.Tensor:
     """Full-sequence forward from a zero state: tokens [B, U] -> [B, U,
     predictor_dim]. In training, dropout (from ``gen``) on the embeddings
     and between LSTM layers, not after the last (torch.nn.LSTM's
     ``dropout``). The input product of each layer is taken for the whole
-    sequence at once; the recurrence is a loop over U."""
-    x = layers.embedding(p["embed"], tokens)
+    sequence at once; the recurrence is a loop over U. ``model_shard``
+    (``parallel/tensor.py``): the embedding holds this rank's vocabulary
+    rows and is looked up vocabulary-parallel; the rest runs whole."""
+    if model_shard is None:
+        x = layers.embedding(p["embed"], tokens)
+    else:
+        x = model_shard.embedding(p["embed"]["embedding"], tokens)
     x = layers.dropout(gen, x, cfg.predictor_embed_dropout, deterministic)
     bsz, u, _ = x.shape
     n = len(p["rnn"])

@@ -58,6 +58,7 @@ def transducer_forward(
     gen: torch.Generator | None = None,
     host_gen: torch.Generator | None = None,
     deterministic: bool = False,
+    model_shard=None,
 ) -> dict:
     """Training forward: feats [B, T, F], feat_lengths [B], labels [B, U]
     (padded with 0 or ignore_id), label_lengths [B] -> {loss, loss_ctc,
@@ -68,13 +69,16 @@ def transducer_forward(
     from the host generator ``host_gen``. Rows with feat_length 0 are
     bucket-padding dummies: they count in no loss. The transducer losses
     are means over the valid rows; the lattice DPs take
-    ``max(encoder_out_lens, 1)`` frames."""
+    ``max(encoder_out_lens, 1)`` frames. ``model_shard``
+    (``parallel/tensor.py``): params split over "model" by
+    ``parallel/mesh.model_axis``, this rank's shards."""
     encoder_out, encoder_mask = encoder.encoder_forward(
         p["encoder"], feats, feat_lengths, cfg, cmvn=p.get("cmvn"), gen=gen,
-        host_gen=host_gen, deterministic=deterministic,
+        host_gen=host_gen, deterministic=deterministic, model_shard=model_shard,
     )
     return transducer_losses(p, encoder_out, encoder_mask, feat_lengths, labels,
-                             label_lengths, cfg, gen=gen, deterministic=deterministic)
+                             label_lengths, cfg, gen=gen, deterministic=deterministic,
+                             model_shard=model_shard)
 
 
 def transducer_losses(
@@ -90,6 +94,7 @@ def transducer_losses(
     deterministic: bool = False,
     n_valid: torch.Tensor | None = None,
     row_share: float = 1.0,
+    model_shard=None,
 ) -> dict:
     """The part of ``transducer_forward`` after the encoder: predictor,
     joint projections, the transducer and CTC losses and, when the params
@@ -101,11 +106,17 @@ def transducer_losses(
     transducer losses divide (JAX's global masked mean); the CTC loss is a
     sum over rows, and the attention loss's mean over this rank's rows is
     scaled by ``row_share``, its share of the global batch's rows. The
-    ranks' losses then sum to the global batch's."""
+    ranks' losses then sum to the global batch's.
+
+    Tensor parallelism (``model_shard``): the predictor's embedding, the
+    CTC head, the joint's ffn_out and the decoder's self-attention and
+    FFNs run this rank's shards; every loss comes out whole and the same
+    on every rank of the model group."""
     encoder_out_lens = encoder_mask.sum(dim=1, dtype=torch.int32)
     labels_in = masks.add_blank(labels, cfg.blank_id, cfg.ignore_id)
     pred_out = predictor.predictor_forward(p["predictor"], labels_in, cfg, gen=gen,
-                                           deterministic=deterministic)
+                                           deterministic=deterministic,
+                                           model_shard=model_shard)
     enc_proj, pred_proj = joint.joint_project(p["joint"], encoder_out, pred_out)
     rnnt_text = torch.where(labels == cfg.ignore_id, cfg.blank_id, labels).to(torch.int32)
     row_valid = feat_lengths > 0
@@ -125,7 +136,7 @@ def transducer_losses(
         simple_nll, pruned_nll, s_begin = rnnt_loss_pruned_full(
             am, lm, enc_proj, pred_proj, w_out, b_out, rnnt_text, t_lens, u_lens,
             s_range=cfg.prune_range, blank=cfg.blank_id, lattice_impl=impl,
-            simple_impl=impl, t_chunk=cfg.rnnt_t_chunk,
+            simple_impl=impl, t_chunk=cfg.rnnt_t_chunk, model_shard=model_shard,
         )
         out["loss_simple"] = masked_mean(simple_nll)
         out["s_begin"] = s_begin
@@ -135,16 +146,17 @@ def transducer_losses(
             enc_proj, pred_proj, w_out, b_out, rnnt_text, t_lens, u_lens,
             blank=cfg.blank_id, reduction="none", t_chunk=cfg.rnnt_t_chunk,
             lattice_impl=impl, joint_impl="kernel" if cfg.use_pallas_joint else "plain",
+            model_shard=model_shard,
         ))
     loss_ctc = ctc_head.ctc_head_loss(
         p["ctc"], encoder_out, t_lens, rnnt_text, label_lengths, cfg, gen=gen,
-        deterministic=deterministic, row_valid=row_valid,
+        deterministic=deterministic, row_valid=row_valid, model_shard=model_shard,
     )
     loss = cfg.ctc_weight * loss_ctc + cfg.transducer_weight * loss_rnnt
     if cfg.attention_weight > 0 and "decoder" in p:
         out["loss_attn"] = row_share * decoder.attention_loss(
             p["decoder"], encoder_out, encoder_mask, rnnt_text, label_lengths, cfg, gen=gen,
-            deterministic=deterministic)
+            deterministic=deterministic, model_shard=model_shard)
         loss = loss + cfg.attention_weight * out["loss_attn"]
     out.update(loss=loss, loss_ctc=loss_ctc, loss_rnnt=loss_rnnt, encoder_out=encoder_out,
                encoder_out_lens=encoder_out_lens)

@@ -39,13 +39,32 @@ def ctc_loss(
 ) -> torch.Tensor:
     """Per-sequence CTC NLL [B] (float32) from log_probs [B, T, V]; alpha
     freezes at t >= input_length."""
-    log_probs = log_probs.float()
+    ext = _extended_labels(labels.long(), blank)
+    return ctc_loss_emit(ext_emissions(log_probs.float(), ext), input_lengths, labels,
+                         label_lengths, blank)
+
+
+def ext_emissions(log_probs: torch.Tensor, ext: torch.Tensor) -> torch.Tensor:
+    """log_probs [B, T, V] at the extended labels ext [B, S] -> [B, T, S]."""
     bsz, t_max, _ = log_probs.shape
-    s_max = 2 * labels.shape[1] + 1
+    return log_probs.gather(2, ext[:, None, :].expand(bsz, t_max, ext.shape[1]))
+
+
+def ctc_loss_emit(
+    emit: torch.Tensor,
+    input_lengths: torch.Tensor,
+    labels: torch.Tensor,
+    label_lengths: torch.Tensor,
+    blank: int = 0,
+) -> torch.Tensor:
+    """``ctc_loss`` from the emissions of the extended labels, emit [B, T,
+    2U+1] float32 (``ext_emissions``; under a model axis
+    ``ModelShard.log_probs`` of the vocabulary shards)."""
+    emit = emit.float()
+    t_max, s_max = emit.shape[1], 2 * labels.shape[1] + 1
     ext = _extended_labels(labels.long(), blank)
     can_skip = skip_allowed(ext, blank)
-    s_idx = torch.arange(s_max, device=log_probs.device)
-    emit = log_probs.gather(2, ext[:, None, :].expand(bsz, t_max, s_max))
+    s_idx = torch.arange(s_max, device=emit.device)
 
     alpha = torch.where(s_idx[None, :] < 2, emit[:, 0, :], NEG_INF)
     alpha = torch.where((s_idx[None, :] == 1) & (label_lengths[:, None] == 0), NEG_INF, alpha)

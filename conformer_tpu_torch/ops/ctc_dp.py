@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .ctc import NEG_INF, _extended_labels, skip_allowed
+from .ctc import NEG_INF, _extended_labels, ext_emissions, skip_allowed
 
 
 # the largest S the chain kernels take: 32 lanes x 4 warps x 4 states a
@@ -180,11 +180,22 @@ def ctc_loss_dp(
 ) -> torch.Tensor:
     """Per-sequence CTC NLL [B] through the DP kernel, with the contract of
     ``ops.ctc.ctc_loss`` (the JAX ``ctc_loss_pallas``)."""
-    log_probs = log_probs.float()
-    bsz, t_max, _ = log_probs.shape
     ext = _extended_labels(labels.long(), blank)
-    s_max = ext.shape[1]
+    return ctc_loss_dp_emit(ext_emissions(log_probs.float(), ext), input_lengths, labels,
+                            label_lengths, blank)
+
+
+def ctc_loss_dp_emit(
+    emit: torch.Tensor,
+    input_lengths: torch.Tensor,
+    labels: torch.Tensor,
+    label_lengths: torch.Tensor,
+    blank: int = 0,
+) -> torch.Tensor:
+    """``ctc_loss_dp`` from the extended labels' emissions emit [B, T,
+    2U+1] float32, as ``ops.ctc.ctc_loss_emit``."""
+    ext = _extended_labels(labels.long(), blank)
     skip = torch.where(skip_allowed(ext, blank), 0.0, NEG_INF).float().contiguous()
-    emit = log_probs.gather(2, ext[:, None, :].expand(bsz, t_max, s_max)).contiguous()
-    return _CtcDp.apply(emit, skip, input_lengths.to(torch.int32).contiguous(),
+    return _CtcDp.apply(emit.float().contiguous(), skip,
+                        input_lengths.to(torch.int32).contiguous(),
                         label_lengths.to(torch.int32).contiguous())

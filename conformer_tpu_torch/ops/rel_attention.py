@@ -18,7 +18,11 @@ log-sum-exp, and the backward recomputes the score tiles from it.
 Dropout on the attention probabilities: the keep-mask is a counter hash of
 (seed, b*H + h, global query row, global key column), ``tile_keep_mask``,
 bit for bit the JAX ``_tile_keep_mask``; the seed is a one-element int32
-tensor that the kernels read on the device. The normaliser comes from the
+tensor that the kernels read on the device. Under tensor parallelism a
+rank holds heads [h_offset, h_offset + H) of ``h_total``: every function
+here takes (``h_total``, ``h_offset``), default (H, 0), and hashes head h
+of batch row b as b*h_total + h_offset + h, so that a rank's heads draw
+the mask the whole attention draws for them. The normaliser comes from the
 un-dropped probabilities; only the PV sum sees p * keep / (1 - rate).
 """
 
@@ -69,10 +73,14 @@ def tile_keep_mask(seed, bh, rows, cols, rate: float) -> torch.Tensor:
     return x >= keep_threshold(rate)
 
 
-def keep_mask(seed, b: int, h: int, tq: int, tk: int, rate: float, device) -> torch.Tensor:
-    """bool [B, H, Tq, Tk] keep-mask of the whole attention of ``seed``."""
+def keep_mask(seed, b: int, h: int, tq: int, tk: int, rate: float, device,
+              h_total: int | None = None, h_offset: int = 0) -> torch.Tensor:
+    """bool [B, H, Tq, Tk] keep-mask of ``seed`` at heads [h_offset,
+    h_offset + H) of an attention of ``h_total`` heads (default H: the
+    whole attention)."""
     ar = lambda n: torch.arange(n, device=device, dtype=torch.int64)  # noqa: E731
-    bh = (ar(b)[:, None] * h + ar(h)[None, :])[:, :, None, None]
+    h_total = h if h_total is None else h_total
+    bh = (ar(b)[:, None] * h_total + h_offset + ar(h)[None, :])[:, :, None, None]
     return tile_keep_mask(seed, bh, ar(tq)[:, None], ar(tk)[None, :], rate)
 
 
@@ -96,13 +104,16 @@ def _probs(q_u, ab, k, k_feats, mask, scale, lse=None):
 
 
 def rel_attention_plain(q_u, ab, k, v, k_feats, mask, *, scale: float,
-                        dropout_rate: float = 0.0, seed=None):
+                        dropout_rate: float = 0.0, seed=None, h_total: int | None = None,
+                        h_offset: int = 0):
     """dropout(softmax(((q+u)K^T + AB F^T) * scale, mask)) V in float32.
 
     q_u, k, v [B,H,Tq|Tk,dk]; ab [B,H,Tq,D]; k_feats [Tk,D]; mask bool
     [B,Tq,Tk] (True = attend); ``seed`` int32 [1] when ``dropout_rate`` >
-    0. Returns (out [B,H,Tq,dk] in v's dtype, lse float32 [B,H,Tq] of the
-    un-dropped probabilities); a fully masked row gives out 0 and lse 1e30.
+    0; (``h_total``, ``h_offset``): the heads' place in the whole
+    attention, for the keep-mask. Returns (out [B,H,Tq,dk] in v's dtype,
+    lse float32 [B,H,Tq] of the un-dropped probabilities); a fully masked
+    row gives out 0 and lse 1e30.
     """
     if dropout_rate > 0.0 and seed is None:
         raise ValueError("dropout_rate > 0 requires a seed")
@@ -113,7 +124,7 @@ def rel_attention_plain(q_u, ab, k, v, k_feats, mask, *, scale: float,
     l = p.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
         b, h, tq, tk = p.shape
-        keep = keep_mask(seed, b, h, tq, tk, dropout_rate, p.device)
+        keep = keep_mask(seed, b, h, tq, tk, dropout_rate, p.device, h_total, h_offset)
         p = torch.where(keep, p * _inv_keep(dropout_rate).to(p.device), torch.zeros_like(p))
     out = torch.matmul(p, v.float()) / l.clamp_min(1e-30)
     live = l > 0.0
@@ -123,7 +134,8 @@ def rel_attention_plain(q_u, ab, k, v, k_feats, mask, *, scale: float,
 
 
 def rel_attention_bwd_plain(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, *,
-                            scale: float, dropout_rate: float = 0.0):
+                            scale: float, dropout_rate: float = 0.0,
+                            h_total: int | None = None, h_offset: int = 0):
     """The backward of ``rel_attention_plain`` written out, as the two
     kernels compute it from the saved ``lse`` and ``delta`` = rowsum(dO *
     O) [B,H,Tq] float32: returns float32 (dQu, dAB, dK, dV)."""
@@ -133,7 +145,7 @@ def rel_attention_bwd_plain(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta
     pd = p
     if dropout_rate > 0.0:
         b, h, tq, tk = p.shape
-        keep = keep_mask(seed, b, h, tq, tk, dropout_rate, p.device)
+        keep = keep_mask(seed, b, h, tq, tk, dropout_rate, p.device, h_total, h_offset)
         inv = _inv_keep(dropout_rate).to(p.device)
         dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
         pd = torch.where(keep, p * inv, torch.zeros_like(p))
@@ -232,12 +244,21 @@ def _drop_args(dropout_rate: float):
     return int(dropout_rate > 0.0), thr_bits, float(_inv_keep(dropout_rate))
 
 
+def _heads(h: int, h_total: int | None, h_offset: int) -> tuple[int, int]:
+    """(h_total, h_offset) of the keep-mask hash, checked: heads [h_offset,
+    h_offset + h) must lie within h_total."""
+    h_total = h if h_total is None else h_total
+    if h_offset < 0 or h_offset + h > h_total:
+        raise ValueError(f"heads [{h_offset}, {h_offset + h}) do not lie in h_total={h_total}")
+    return h_total, h_offset
+
+
 def _seed_ptr(seed, dropout_rate):
     return cuda_build.ptr(seed) if dropout_rate > 0.0 else None
 
 
 def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float, dropout_rate: float = 0.0,
-                  seed=None):
+                  seed=None, h_total: int | None = None, h_offset: int = 0):
     """Forward kernel wrapper with the contract of ``rel_attention_plain``.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
@@ -246,13 +267,15 @@ def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float, dropout_rate: f
     ``seed`` an int32 CUDA tensor of one element when ``dropout_rate`` > 0.
     """
     keep_threshold(dropout_rate)
+    h_total, h_offset = _heads(q_u.shape[1], h_total, h_offset)
     if q_u.device.type == "cpu":
         return rel_attention_plain(q_u, ab, k, v, k_feats, mask, scale=scale,
-                                   dropout_rate=dropout_rate, seed=seed)
+                                   dropout_rate=dropout_rate, seed=seed, h_total=h_total,
+                                   h_offset=h_offset)
     b, h, tq, tk, dk, d = _check("rel_attention", q_u, ab, k, v, k_feats, mask, seed,
                                  dropout_rate)
     fn = cuda_build.load_function("rel_flash_attention", "rel_flash_attention_fwd",
-                                  n_ptrs=10, n_ints=9, n_floats=2)
+                                  n_ptrs=10, n_ints=11, n_floats=2)
     out = torch.empty((b, h, tq, dk), dtype=q_u.dtype, device=q_u.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q_u.device)
     drop, thr_bits, inv_keep = _drop_args(dropout_rate)
@@ -260,7 +283,8 @@ def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float, dropout_rate: f
     err = fn(
         P(q_u), P(ab), P(k), P(v), P(k_feats), P(mask), _seed_ptr(seed, dropout_rate),
         P(out), P(lse), cuda_build.stream_ptr(q_u), b, h, tq, tk, dk, d,
-        int(q_u.dtype == torch.bfloat16), drop, thr_bits, float(scale), inv_keep,
+        int(q_u.dtype == torch.bfloat16), drop, thr_bits, h_total, h_offset, float(scale),
+        inv_keep,
     )
     cuda_build.check(err, "rel_flash_attention")
     rel_attention.launches += 1
@@ -268,10 +292,10 @@ def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float, dropout_rate: f
 
 
 def _bwd_kernel(symbol, q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, scale,
-                dropout_rate, out_shapes):
+                dropout_rate, h_total, h_offset, out_shapes):
     b, h, tq, tk, dk, d = _check(symbol, q_u, ab, k, v, k_feats, mask, seed, dropout_rate,
                                  dout, lse, delta)
-    fn = cuda_build.load_function("rel_flash_attention_bwd", symbol, n_ptrs=13, n_ints=9,
+    fn = cuda_build.load_function("rel_flash_attention_bwd", symbol, n_ptrs=13, n_ints=11,
                                   n_floats=2)
     outs = [torch.empty(s, dtype=torch.float32, device=q_u.device) for s in out_shapes]
     drop, thr_bits, inv_keep = _drop_args(dropout_rate)
@@ -279,36 +303,44 @@ def _bwd_kernel(symbol, q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, sc
     err = fn(
         P(q_u), P(ab), P(k), P(v), P(k_feats), P(mask), _seed_ptr(seed, dropout_rate),
         P(dout), P(lse), P(delta), P(outs[0]), P(outs[1]), cuda_build.stream_ptr(q_u),
-        b, h, tq, tk, dk, d, int(q_u.dtype == torch.bfloat16), drop, thr_bits,
-        float(scale), inv_keep,
+        b, h, tq, tk, dk, d, int(q_u.dtype == torch.bfloat16), drop, thr_bits, h_total,
+        h_offset, float(scale), inv_keep,
     )
     cuda_build.check(err, symbol)
     return tuple(outs)
 
 
 def rel_attention_bwd_dq(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, *,
-                         scale: float, dropout_rate: float = 0.0):
+                         scale: float, dropout_rate: float = 0.0,
+                         h_total: int | None = None, h_offset: int = 0):
     """(dQu [B,H,Tq,dk], dAB [B,H,Tq,D]) in float32: the dq kernel for CUDA
     tensors (widths as ``rel_attention``), the plain backward's for CPU
     tensors."""
+    h_total, h_offset = _heads(q_u.shape[1], h_total, h_offset)
     if q_u.device.type == "cpu":
         return rel_attention_bwd_plain(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta,
-                                       scale=scale, dropout_rate=dropout_rate)[:2]
+                                       scale=scale, dropout_rate=dropout_rate,
+                                       h_total=h_total, h_offset=h_offset)[:2]
     outs = _bwd_kernel("rel_flash_attention_bwd_dq", q_u, ab, k, v, k_feats, mask, seed,
-                       dout, lse, delta, scale, dropout_rate, [q_u.shape, ab.shape])
+                       dout, lse, delta, scale, dropout_rate, h_total, h_offset,
+                       [q_u.shape, ab.shape])
     rel_attention_bwd_dq.launches += 1
     return outs
 
 
 def rel_attention_bwd_dkv(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, *,
-                          scale: float, dropout_rate: float = 0.0):
+                          scale: float, dropout_rate: float = 0.0,
+                          h_total: int | None = None, h_offset: int = 0):
     """(dK, dV [B,H,Tk,dk]) in float32: the dkv kernel for CUDA tensors,
     the plain backward's for CPU tensors."""
+    h_total, h_offset = _heads(q_u.shape[1], h_total, h_offset)
     if q_u.device.type == "cpu":
         return rel_attention_bwd_plain(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta,
-                                       scale=scale, dropout_rate=dropout_rate)[2:]
+                                       scale=scale, dropout_rate=dropout_rate,
+                                       h_total=h_total, h_offset=h_offset)[2:]
     outs = _bwd_kernel("rel_flash_attention_bwd_dkv", q_u, ab, k, v, k_feats, mask, seed,
-                       dout, lse, delta, scale, dropout_rate, [k.shape, v.shape])
+                       dout, lse, delta, scale, dropout_rate, h_total, h_offset,
+                       [k.shape, v.shape])
     rel_attention_bwd_dkv.launches += 1
     return outs
 
@@ -328,11 +360,13 @@ class _RelFlash(torch.autograd.Function):
     no gradient (sinusoids of positions, a mask, a seed)."""
 
     @staticmethod
-    def forward(ctx, q_u, ab, k, v, k_feats, mask, seed, scale, dropout_rate):
+    def forward(ctx, q_u, ab, k, v, k_feats, mask, seed, scale, dropout_rate, h_total,
+                h_offset):
         out, lse = rel_attention(q_u, ab, k, v, k_feats, mask, scale=scale,
-                                 dropout_rate=dropout_rate, seed=seed)
+                                 dropout_rate=dropout_rate, seed=seed, h_total=h_total,
+                                 h_offset=h_offset)
         ctx.save_for_backward(q_u, ab, k, v, k_feats, mask, seed, out, lse)
-        ctx.scale, ctx.dropout_rate = scale, dropout_rate
+        ctx.scale, ctx.dropout_rate, ctx.heads = scale, dropout_rate, (h_total, h_offset)
         return out
 
     @staticmethod
@@ -341,18 +375,24 @@ class _RelFlash(torch.autograd.Function):
         g = g.to(q_u.dtype).contiguous()
         delta = (g.float() * out.float()).sum(dim=-1)
         args = (q_u, ab, k, v, k_feats, mask, seed, g, lse, delta)
-        kw = dict(scale=ctx.scale, dropout_rate=ctx.dropout_rate)
+        kw = dict(scale=ctx.scale, dropout_rate=ctx.dropout_rate, h_total=ctx.heads[0],
+                  h_offset=ctx.heads[1])
         d_q, d_ab = rel_attention_bwd_dq(*args, **kw)
         d_k, d_v = rel_attention_bwd_dkv(*args, **kw)
         return (d_q.to(q_u.dtype), d_ab.to(ab.dtype), d_k.to(k.dtype), d_v.to(v.dtype),
-                None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def rel_flash_attention(q_u, ab, k, v, k_feats, mask, *, scale: float,
-                        dropout_rate: float = 0.0, seed=None) -> torch.Tensor:
+                        dropout_rate: float = 0.0, seed=None, h_total: int | None = None,
+                        h_offset: int = 0) -> torch.Tensor:
     """Differentiable attention output [B,H,Tq,dk] in v's dtype (the JAX
     ``rel_flash_attention``); ``seed`` int32 [1] on the inputs' device is
-    required when ``dropout_rate`` > 0."""
+    required when ``dropout_rate`` > 0; (``h_total``, ``h_offset``): the
+    heads' place in the whole attention, for the keep-mask (default: the
+    whole attention)."""
     if dropout_rate > 0.0 and seed is None:
         raise ValueError("dropout_rate > 0 requires a seed")
-    return _RelFlash.apply(q_u, ab, k, v, k_feats, mask, seed, scale, dropout_rate)
+    h_total, h_offset = _heads(q_u.shape[1], h_total, h_offset)
+    return _RelFlash.apply(q_u, ab, k, v, k_feats, mask, seed, scale, dropout_rate, h_total,
+                           h_offset)

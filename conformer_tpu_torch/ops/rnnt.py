@@ -16,6 +16,12 @@
   the chunked joint.
 - ``rnnt_loss``: the loss from whole joint logits [B, T, U+1, V].
 
+Under a model axis (``model_shard``, ``parallel/tensor.py``) ``ffn_out``
+holds this rank's vocabulary columns: the chunked joints take the blank
+and label log-probs through the vocabulary-parallel log-softmax, the same
+on every rank, so the DPs run whole on each; the joint kernels take the
+whole W, gathered over "model", as GSPMD hands its custom call.
+
 ``lattice_impl="kernel"`` is JAX's ``"pallas"``: the DP kernel on CUDA
 tensors, its plain version on CPU tensors; ``"plain"`` (JAX's ``"xla"``)
 is the plain scan everywhere.
@@ -92,19 +98,24 @@ def gather_lattice_log_probs(logits: torch.Tensor, labels: torch.Tensor, blank: 
     return logits[..., blank] - denom, emit - denom
 
 
-def joint_log_probs_chunk(enc_c, pred, w_out, b_out, lab, blank: int):
+def joint_log_probs_chunk(enc_c, pred, w_out, b_out, lab, blank: int, model_shard=None):
     """(lp_blank, lp_emit) of one chunk of the joint: enc_c [B,tc,J] against
     pred [B,(tc,)U1,J] (broadcast over t, or one row per t as in the band
     joint), logits = tanh(enc+pred) W + b. x and W take the activation
     dtype, the product's sums float32 (JAX's preferred_element_type: the
     operands are widened, and a product of two bf16 values is exact in
     float32), and the logsumexp and the picks are float32. ``lab`` is the
-    label index per (b, t, u) or per (b, u)."""
+    label index per (b, t, u) or per (b, u). ``model_shard``: w_out and
+    b_out hold this rank's vocabulary columns, enc_c and pred come through
+    its ``copy_in``, and the picks are ``ModelShard.log_probs``."""
     pred = pred if pred.dim() == 4 else pred[:, None]
     x = torch.tanh(enc_c[:, :, None, :] + pred)
     logits = torch.matmul(x.float(), w_out.to(x.dtype).float()) + b_out.float()
-    denom = torch.logsumexp(logits, dim=-1)
     lab = lab if lab.dim() == 3 else lab[:, None, :].expand(logits.shape[:3])
+    if model_shard is not None:
+        lp = model_shard.log_probs(logits, torch.stack([torch.full_like(lab, blank), lab], -1))
+        return lp[..., 0], lp[..., 1]
+    denom = torch.logsumexp(logits, dim=-1)
     emit = logits.gather(3, lab[..., None].long())[..., 0]
     return logits[..., blank] - denom, emit - denom
 
@@ -117,15 +128,18 @@ def rnnt_lattice_log_probs_fused(
     labels: torch.Tensor,
     blank: int = 0,
     t_chunk: int = 32,
+    model_shard=None,
 ):
     """(lp_blank, lp_emit) [B, T, U+1] of the full-lattice joint, chunk by
     chunk over T, each chunk recomputed in the backward: peak memory is
-    O(B * t_chunk * (U+1) * V)."""
+    O(B * t_chunk * (U+1) * V) (V/m under a model axis)."""
     lab = F.pad(labels, (0, 1), value=blank)
+    if model_shard is not None:
+        enc_proj, pred_proj = model_shard.copy_in(enc_proj), model_shard.copy_in(pred_proj)
     lpb, lpe = [], []
     for t0 in range(0, enc_proj.shape[1], t_chunk):
         b_c, e_c = checkpoint(joint_log_probs_chunk, enc_proj[:, t0:t0 + t_chunk], pred_proj,
-                              w_out, b_out, lab, blank, use_reentrant=False)
+                              w_out, b_out, lab, blank, model_shard, use_reentrant=False)
         lpb.append(b_c)
         lpe.append(e_c)
     return torch.cat(lpb, dim=1), torch.cat(lpe, dim=1)
@@ -162,16 +176,22 @@ def rnnt_loss_fused(
     t_chunk: int = 32,
     lattice_impl: str = "plain",
     joint_impl: str = "plain",
+    model_shard=None,
 ) -> torch.Tensor:
     """Transducer loss of the full lattice from the joint projections; the
     joint through the fused kernels (``joint_impl="kernel"``) or the
-    chunked plain joint (``"plain"``)."""
+    chunked plain joint (``"plain"``). ``model_shard``: w_out and b_out
+    hold this rank's vocabulary columns; the kernels get them gathered
+    (backward: each rank keeps its columns of the gradient every rank
+    computed alike), the plain joint runs vocabulary-parallel."""
     if joint_impl == "kernel":
         lab = F.pad(labels, (0, 1), value=blank)
+        if model_shard is not None:
+            w_out, b_out = model_shard.gather(w_out, 1), model_shard.gather(b_out, 0)
         lp_blank, lp_emit = joint_lattice_log_probs(enc_proj, pred_proj, w_out, b_out, lab, blank)
     elif joint_impl == "plain":
         lp_blank, lp_emit = rnnt_lattice_log_probs_fused(
-            enc_proj, pred_proj, w_out, b_out, labels, blank, t_chunk
+            enc_proj, pred_proj, w_out, b_out, labels, blank, t_chunk, model_shard
         )
     else:
         raise ValueError(f"joint_impl {joint_impl!r}: 'kernel' or 'plain'")

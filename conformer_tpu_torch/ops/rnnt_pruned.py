@@ -101,18 +101,24 @@ def _band_scan(base, weights):
 def rnnt_loss_pruned(
     enc_proj, pred_proj, w_out, b_out, labels, s_begin, t_lengths, u_lengths,
     s_range: int, blank: int = 0, reduction: str = "none", t_chunk: int = 128,
+    model_shard=None,
 ):
     """Transducer NLL over the pruned band: enc_proj [B,T,J], pred_proj
-    [B,U+1,J], labels [B,U], s_begin [B,T] (``prune_bounds_from_occupancy``)."""
+    [B,U+1,J], labels [B,U], s_begin [B,T] (``prune_bounds_from_occupancy``).
+    ``model_shard``: w_out and b_out hold this rank's vocabulary columns;
+    the band's picks come from the vocabulary-parallel log-softmax
+    (``ops/rnnt.joint_log_probs_chunk``), the same on every rank."""
     bsz, t_max, _ = enc_proj.shape
     lab = F.pad(labels, (0, 1), value=blank)
+    if model_shard is not None:
+        enc_proj, pred_proj = model_shard.copy_in(enc_proj), model_shard.copy_in(pred_proj)
     pred_band = _gather_band(pred_proj, s_begin, s_range)              # [B,T,S,J]
     lab_band = _gather_band(lab[:, :, None], s_begin, s_range)[..., 0]  # [B,T,S]
     lpb, lpe = [], []
     for t0 in range(0, t_max, t_chunk):
         sl = slice(t0, t0 + t_chunk)
         b_c, e_c = checkpoint(joint_log_probs_chunk, enc_proj[:, sl], pred_band[:, sl], w_out,
-                              b_out, lab_band[:, sl], blank, use_reentrant=False)
+                              b_out, lab_band[:, sl], blank, model_shard, use_reentrant=False)
         lpb.append(b_c)
         lpe.append(e_c)
     lp_blank, lp_emit = torch.cat(lpb, dim=1), torch.cat(lpe, dim=1)
@@ -149,14 +155,16 @@ def rnnt_loss_pruned(
 def rnnt_loss_pruned_full(
     am, lm, enc_proj, pred_proj, w_out, b_out, labels, t_lengths, u_lengths,
     s_range: int = 5, blank: int = 0, lattice_impl: str = "plain",
-    simple_impl: str = "plain", t_chunk: int = 128,
+    simple_impl: str = "plain", t_chunk: int = 128, model_shard=None,
 ):
     """(simple_nll [B], pruned_nll [B]), the two-pass recipe, and the band
     starts s_begin [B, T]. am/lm are the V-wide simple projections,
     enc_proj/pred_proj the J-wide joint projections. The occupancy is the
     negated gradient of the simple NLL of DETACHED log-probs with respect
     to lp_blank; the bounds take no gradient. ``simple_impl`` and
-    ``lattice_impl`` are "kernel" or "plain"."""
+    ``lattice_impl`` are "kernel" or "plain". ``model_shard``: the band
+    joint runs vocabulary-parallel (``rnnt_loss_pruned``); am and lm are
+    replicated, so the simple pass runs whole on every rank."""
     if simple_impl == "kernel":
         from .simple_lattice import simple_lattice_log_probs_fused
 
@@ -172,6 +180,6 @@ def rnnt_loss_pruned_full(
     s_begin = prune_bounds_from_occupancy(-occ_grad, t_lengths, u_lengths, s_range)
     pruned_nll = rnnt_loss_pruned(
         enc_proj, pred_proj, w_out, b_out, labels, s_begin, t_lengths, u_lengths, s_range,
-        blank, t_chunk=t_chunk,
+        blank, t_chunk=t_chunk, model_shard=model_shard,
     )
     return simple_nll, pruned_nll, s_begin

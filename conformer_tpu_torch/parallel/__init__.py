@@ -1,8 +1,8 @@
-"""Data, sequence and pipeline parallelism over ``torch.distributed``
-(JAX ``parallel/``): the process group and the host reductions
-(``distributed``), the rank grid (``mesh``), the time-sharded encoder
-(``sequence``) and the GPipe encoder (``pipeline``). The model axis (JAX's
-tensor parallelism) is ROADMAP.md item A12, model axis, and raises."""
+"""Data, sequence, pipeline and tensor parallelism over
+``torch.distributed`` (JAX ``parallel/``): the process group and the host
+reductions (``distributed``), the rank grid and the parameter layout
+(``mesh``), the time-sharded encoder (``sequence``), the GPipe encoder
+(``pipeline``) and the model axis's collectives (``tensor``)."""
 
 from .distributed import (  # noqa: F401
     allsum_host_scalars,
@@ -11,4 +11,4 @@ from .distributed import (  # noqa: F401
     is_multiprocess,
     maybe_initialize_distributed,
 )
-from .mesh import batch_sharding, make_mesh, shard_batch  # noqa: F401
+from .mesh import batch_sharding, make_mesh, shard_batch, shard_params  # noqa: F401

@@ -128,30 +128,23 @@ def gather_tree_to_host(tree, mesh=None):
     (``mesh.is_stage_leaf``) holds this stage's slice: the whole [L, ...]
     leaf is gathered from every stage (``pipeline.gather_stacked_layers``,
     a collective of the pipe group, which every process of it must call).
-    Other leaves are replicated and are copied as they are."""
-    from ..train.optimizer import leaf_paths
-    from .mesh import is_stage_leaf
+    Under a "model" axis a leaf that ``mesh.model_axis`` splits is gathered
+    from the model group (``mesh.gather_leaf``) the same way. Other leaves
+    are replicated and are copied as they are."""
+    from .mesh import gather_leaf, is_stage_leaf, map_tensors
     from .pipeline import gather_stacked_layers
 
     piped = mesh is not None and mesh.size("pipe") > 1
-    flat = {}
-    for path, leaf in leaf_paths(tree):
-        if not isinstance(leaf, torch.Tensor):
-            flat[path] = leaf
-            continue
-        t = leaf.detach()
+
+    def host(path, t):
+        t = t.detach()
         if piped and is_stage_leaf(path):
             t = gather_stacked_layers(t, mesh)
-        flat[path] = t.cpu().numpy()
+        if mesh is not None:
+            t = gather_leaf(path, t, mesh)
+        return t.cpu().numpy()
 
-    def rebuild(node, prefix=""):
-        if isinstance(node, dict):
-            return {k: rebuild(v, f"{prefix}.{k}" if prefix else str(k)) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [rebuild(v, f"{prefix}.{i}" if prefix else str(i)) for i, v in enumerate(node)]
-        return flat[prefix]
-
-    return rebuild(tree)
+    return map_tensors(tree, host)
 
 
 def barrier() -> None:

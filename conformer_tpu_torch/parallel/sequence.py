@@ -30,41 +30,20 @@ first and takes the second once by it.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from ..models import encoder as enc
 from ..models import layers
-from .mesh import MODEL_AXIS_TODO, Mesh, grid
+from .mesh import Mesh, grid
+from .tensor import Gather as _Gather
 
 
 def make_seq_mesh(data: int = -1, seq: int = 2, model: int = 1) -> Mesh:
-    """The ("data", "seq") mesh: batch over "data", time over "seq". The
-    model axis (JAX's third axis) is ROADMAP.md item A12 and raises."""
+    """The ("data", "seq") mesh: batch over "data", time over "seq"; with
+    ``model`` > 1 JAX's 3-axis ("data", "seq", "model") mesh, the params
+    split over "model" by ``mesh.model_axis`` (``parallel/tensor.py``)."""
     if model > 1:
-        raise NotImplementedError(MODEL_AXIS_TODO)
+        return grid({"data": data, "seq": seq, "model": model})
     return grid({"data": data, "seq": seq})
-
-
-class _Gather(torch.autograd.Function):
-    """All-gather along ``dim`` over ``group``, in rank order. Backward:
-    with ``sum_grads`` the gradient of this rank's piece summed over the
-    group (every rank used every piece in its own computation); without,
-    this rank's piece of its own gradient (every rank computed the same
-    thing from the gathered tensor)."""
-
-    @staticmethod
-    def forward(ctx, x, dim, group, size, rank, sum_grads):
-        ctx.dim, ctx.group, ctx.rank, ctx.sum, ctx.n = dim, group, rank, sum_grads, x.shape[dim]
-        parts = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=dim)
-
-    @staticmethod
-    def backward(ctx, g):
-        if ctx.sum:
-            g = g.contiguous().clone()      # all_reduce works in place: on a copy of our own
-            dist.all_reduce(g, group=ctx.group)
-        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, None, None, None
 
 
 class SeqShard:
@@ -95,7 +74,8 @@ class SeqShard:
         return x.narrow(dim, self.offset, self.t_local)
 
     def gather_kv(self, t: torch.Tensor) -> torch.Tensor:
-        """K or V [B, H, T'/S, dk] of this shard -> the sequence's [B, H, T', dk]."""
+        """K or V [B, H, T'/S, dk] of this shard -> the sequence's [B, H, T', dk]
+        (H: this rank's heads under a model axis)."""
         return _Gather.apply(t, 2, self.group, self.size, self.rank, True)
 
     def gather_output(self, x: torch.Tensor) -> torch.Tensor:
@@ -149,10 +129,12 @@ def encoder_forward_seq(
     gen: torch.Generator | None = None,
     host_gen: torch.Generator | None = None,
     deterministic: bool = True,
+    model_shard=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``encoder_forward`` with the time axis split over ``mesh``'s "seq"
     group -> (encoder_out [B, T', D], pad_mask [B, T']), both whole on
-    every rank of the group.
+    every rank of the group. ``model_shard`` (``parallel/tensor.py``):
+    the layers' heads and FFN columns split over "model" as well.
 
     As in JAX, the raw features are right-padded by whole subsampling
     strides (4 frames a subsampled frame) until T' divides the group, the
@@ -181,7 +163,7 @@ def encoder_forward_seq(
             lp, x, attn_mask, pos_emb, shard.local(pad_mask), cfg,
             rel_positions=rel_positions, pos_ref=pos_ref, use_pallas=cfg.use_pallas_attention,
             use_pallas_conv=cfg.use_pallas_conv, gen=g, deterministic=deterministic,
-            seq_shard=shard,
+            seq_shard=shard, model_shard=model_shard,
         )[0]
 
     remat = cfg.remat and torch.is_grad_enabled()

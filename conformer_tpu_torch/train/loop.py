@@ -15,7 +15,10 @@ a background ``Prefetcher``, validates every ``val_check_interval`` steps
 
 Several processes (``parallel/``): the ranks form the mesh of
 ``train.mesh_data`` x ``mesh_seq`` (the time-sharded encoder,
-``parallel/sequence.py``) or x ``mesh_pipe`` (the GPipe encoder,
+``parallel/sequence.py``) x ``mesh_model`` (tensor parallelism,
+``parallel/tensor.py``: each rank holds its shards of the params JAX's
+rules split, ``parallel/mesh.model_axis``, and their Adam moments), or
+``mesh_data`` x ``mesh_pipe`` (the GPipe encoder,
 ``parallel/pipeline.py``). Each data shard reads its own part of the
 train list. The losses are JAX's masked means over the valid rows of the
 *global* batch (its count summed over the data shards, which must present
@@ -24,10 +27,14 @@ all-reduce a step sums the gradients after the microbatches and before
 the clip (a second, over the data group, for a pipeline stage's layers).
 Every rank of a seq or pipe group computes the same losses; which
 gradients count once, from the group's owner (seq rank 0 on the last
-stage), is ``parallel/mesh.owned_leaves``.
+stage), is ``parallel/mesh.owned_leaves``; how the model axis's leaves
+sum (a split leaf over the ranks that share its shard, a replicated one
+once per model group) is ``parallel/mesh.model_leaves``.
 The dynamic chunk's host generator is seeded alike on every rank, so all
 draw the same chunk sizes, as JAX draws one for the global batch; the
-dropout generator is seeded by rank. ``fit`` runs endless epochs, driven
+dropout generator is seeded by rank, with the model coordinate set to 0:
+the ranks of a model group draw alike, as their replicated activations
+and weights must. ``fit`` runs endless epochs, driven
 by ``max_steps``; ``validate`` decodes each rank's shard of the dev set
 and sums the counts; ``save`` writes the one-process layout once, from
 rank 0.
@@ -66,11 +73,13 @@ from ..models import cmvn as cmvn_mod
 from ..models import encoder
 from ..models.transducer import encode, init_transducer, transducer_losses
 from ..parallel import distributed as pdist
-from ..parallel.mesh import (MODEL_AXIS_TODO, Mesh, is_owner, is_stage_leaf, make_mesh,
-                             owned_leaves)
+from ..parallel.mesh import (MODEL_PEERS, Mesh, gather_leaf, is_owner, is_stage_leaf,
+                             make_mesh, map_tensors, model_leaves, owned_leaves, shard_leaf,
+                             shard_params)
 from ..parallel.pipeline import (encoder_forward_pipelined, gather_stacked_layers,
                                  make_pipeline_mesh, shard_stacked_layers, stage_layers)
 from ..parallel.sequence import encoder_forward_seq, make_seq_mesh
+from ..parallel.tensor import ModelShard
 from ..params import tree_map
 from . import checkpoint as ckpt_mod
 from .logging_util import MetricLogger
@@ -90,18 +99,17 @@ def make_train_state(params, opt_state, step: int = 0) -> dict:
 
 def make_trainer_mesh(tcfg) -> Mesh:
     """JAX's routing (``train/loop.py:63-91``): a pipeline when
-    ``mesh_pipe`` > 1, else the time-sharded encoder when ``mesh_seq`` >
-    1, else data parallelism, each over every process."""
+    ``mesh_pipe`` > 1 (not with ``mesh_model`` > 1), else the time-sharded
+    encoder when ``mesh_seq`` > 1, else data parallelism, each with the
+    model axis of ``mesh_model``, over every process."""
     if tcfg.mesh_pipe > 1 and tcfg.mesh_model > 1:
         raise ValueError("mesh_pipe composes with data parallelism; tensor parallelism "
                          "(mesh_model) uses another path — pick one")
-    if tcfg.mesh_model > 1:
-        raise NotImplementedError(MODEL_AXIS_TODO)
     if tcfg.mesh_pipe > 1:
         return make_pipeline_mesh(tcfg.mesh_data, tcfg.mesh_pipe)
     if tcfg.mesh_seq > 1:
-        return make_seq_mesh(tcfg.mesh_data, tcfg.mesh_seq)
-    return make_mesh(tcfg.mesh_data)
+        return make_seq_mesh(tcfg.mesh_data, tcfg.mesh_seq, tcfg.mesh_model)
+    return make_mesh(tcfg.mesh_data, tcfg.mesh_model)
 
 
 class Trainer:
@@ -116,7 +124,8 @@ class Trainer:
     Runs on the card unless ``device="cpu"``; raises when CUDA is asked
     for and absent. In a multi-process run (``parallel/distributed.py``)
     the ranks form ``make_trainer_mesh(cfg.train)``; a pipeline stage
-    keeps only its layers and their Adam moments. ``phase_end``, when set,
+    keeps only its layers and their Adam moments, a model rank its shards
+    of the split leaves and theirs. ``phase_end``, when set,
     is called with each phase's name as the phase closes (a profile synchronizes there, so that each
     phase's kernels run inside its range)."""
 
@@ -131,14 +140,17 @@ class Trainer:
         self.rank, self.world = pdist.process_index(), pdist.process_count()
         self.pipe = self.mesh.size("pipe") > 1
         self.owner = is_owner(self.mesh)
+        self.model_shard = ModelShard(self.mesh) if self.mesh.size("model") > 1 else None
         if self.pipe:
             self.encoder_fn = functools.partial(
                 encoder_forward_pipelined, mesh=self.mesh,
                 num_microbatches=cfg.train.pipeline_microbatches)
         elif self.mesh.size("seq") > 1:
-            self.encoder_fn = functools.partial(encoder_forward_seq, mesh=self.mesh)
+            self.encoder_fn = functools.partial(encoder_forward_seq, mesh=self.mesh,
+                                                model_shard=self.model_shard)
         else:
-            self.encoder_fn = encoder.encoder_forward
+            self.encoder_fn = functools.partial(encoder.encoder_forward,
+                                                model_shard=self.model_shard)
         if params is None:
             params = init_transducer(cfg.model, cfg.train.seed, self.device)
         else:
@@ -147,6 +159,8 @@ class Trainer:
         if self.pipe:
             params["encoder"]["layers"] = shard_stacked_layers(params["encoder"]["layers"],
                                                                self.mesh)
+        if self.model_shard is not None:
+            params = shard_params(params, self.mesh)
         if cfg.data.cmvn_path and "cmvn" not in params:
             params["cmvn"] = cmvn_mod.init_cmvn_from_file(cfg.data.cmvn_path, self.device)
         self.params = params
@@ -156,7 +170,7 @@ class Trainer:
         self.optimizer, self.lr_schedule = make_optimizer(cfg.train)
         self.opt_state = self.optimizer.init(params)
         self.gen = torch.Generator(device=self.device).manual_seed(
-            cfg.train.seed + 1 + RANK_SEED_STRIDE * self.rank)
+            cfg.train.seed + 1 + RANK_SEED_STRIDE * self.mesh.rank_at(model=0))
         # the losses' draws: one stream for the ranks of a seq or pipe group,
         # which compute the same losses
         self.loss_gen = self.gen
@@ -207,7 +221,8 @@ class Trainer:
                                     b["label_lengths"], cfg, gen=self.loss_gen,
                                     deterministic=deterministic,
                                     n_valid=n_valid,
-                                    row_share=1.0 / self.mesh.size("data"))
+                                    row_share=1.0 / self.mesh.size("data"),
+                                    model_shard=self.model_shard)
         with self._phase("backward"):
             leaves = [v for _, v in self.trainable]
             grads = torch.autograd.grad(out["loss"], leaves, allow_unused=True)
@@ -265,18 +280,27 @@ class Trainer:
             return self._reduce(acc, metrics)
 
     def _reduce(self, acc: dict, metrics: torch.Tensor):
-        """The step's all-reduce, by ``mesh.owned_leaves``: the leaves
-        computed alike across a seq or pipe group, and the metrics, count
-        from the owner only; every leaf but a stage's layers, the metrics
-        and the SIGTERM flag are summed over every rank in one flat
-        buffer; a stage's layers over its data group. The norm takes each
-        leaf once: the summed ones, plus every stage's layers."""
+        """The step's all-reduce, by ``mesh.owned_leaves`` and
+        ``mesh.model_leaves``: the leaves computed alike across a seq or
+        pipe group count from the owner only, the replicated leaves once
+        per model group (from model coordinate 0), the metrics from the
+        owner at model coordinate 0; every leaf but a stage's layers and
+        the model axis's split leaves, the metrics and the SIGTERM flag are
+        summed over every rank in one flat buffer; a stage's layers over
+        its data group; a split leaf over the ranks that share its shard.
+        The norm takes each leaf once: the summed ones, every stage's
+        layers and every model rank's shards."""
         once, staged = owned_leaves(self.mesh, list(acc))
-        if not self.owner:
-            for k in once:
-                acc[k] = torch.zeros_like(acc[k])
+        split, rows = model_leaves(self.mesh, acc)
+        lead = self.mesh.coord("model") == 0
+        zero = set() if self.owner else set(once)
+        if not lead:
+            zero |= {k for k in acc if k not in split and k not in rows}
+        for k in zero:
+            acc[k] = torch.zeros_like(acc[k])
+        if not (self.owner and lead):
             metrics = torch.zeros_like(metrics)
-        shared = [k for k in acc if k not in staged]
+        shared = [k for k in acc if k not in staged and k not in split]
         flag = torch.tensor([float(self._preempted)], device=metrics.device)
         flat = torch.cat([*(acc[k].reshape(-1) for k in shared), metrics, flag])
         dist.all_reduce(flat)
@@ -285,6 +309,15 @@ class Trainer:
             acc[k] = g.view_as(acc[k])
         metrics, flag = parts[-2], parts[-1]
         sq = sum(acc[k].square().sum() for k in shared)
+        if split:
+            flat = torch.cat([acc[k].reshape(-1) for k in split])
+            if self.mesh.group(MODEL_PEERS) is not None:
+                dist.all_reduce(flat, group=self.mesh.group(MODEL_PEERS))
+            for k, g in zip(split, flat.split([acc[k].numel() for k in split])):
+                acc[k] = g.view_as(acc[k])
+            sq_shard = flat.square().sum().reshape(1)
+            dist.all_reduce(sq_shard, group=self.mesh.group("model"))
+            sq = sq + sq_shard[0]
         if staged:
             flat = torch.cat([acc[k].reshape(-1) for k in staged])
             if self.mesh.size("data") > 1:
@@ -324,8 +357,8 @@ class Trainer:
         without a decoder in the params raises ValueError.
 
         Several processes: each decodes ``dataset``, its own shard
-        (``eval_shard``), with the whole params (a pipeline's stages
-        gathered), writes ``tmp_prediction.rank{r}.txt``, and the error and
+        (``eval_shard``), with the whole params (a pipeline's stages and
+        the model axis's shards gathered), writes ``tmp_prediction.rank{r}.txt``, and the error and
         word counts are summed over the ranks before the WER."""
         dcfg, mcfg = self.cfg.decode, self.cfg.model
         if not dcfg.streaming:
@@ -367,8 +400,11 @@ class Trainer:
         return wer.compute()
 
     def full_params(self) -> dict:
-        """The params with the whole encoder stack: a pipeline stage's
-        layers gathered from every stage (a collective), else the params."""
+        """The whole params: a pipeline stage's layers gathered from every
+        stage, a model rank's shards from its model group (collectives),
+        else the params."""
+        if self.model_shard is not None:
+            return map_tensors(self.params, lambda k, v: gather_leaf(k, v, self.mesh))
         if not self.pipe:
             return self.params
         layers = gather_stacked_layers(self.params["encoder"]["layers"], self.mesh)
@@ -504,7 +540,8 @@ class Trainer:
     def save(self, wer: float | None = None) -> str:
         """Checkpoint the train state; returns its path. Several processes:
         every rank must call this; the state is assembled in the
-        one-process layout (a pipeline's stages gathered), rank 0 writes
+        one-process layout (a pipeline's stages and the model axis's shards
+        gathered), rank 0 writes
         it behind a barrier, and the other ranks return ""."""
         opt = self.opt_state
         state = make_train_state(self.params, {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
@@ -526,12 +563,14 @@ class Trainer:
 
     def _copy_in(self, dst: dict, src: dict) -> None:
         """Copy a whole tree's leaves ({path: tensor}) into ``dst``'s in
-        place; a pipeline stage takes its slice of the stacked layers."""
+        place; a pipeline stage takes its slice of the stacked layers, a
+        model rank its shard of a split leaf."""
         sl = stage_layers(self.cfg.model.encoder_num_layers, self.mesh) if self.pipe else None
         with torch.no_grad():
             for k, v in dst.items():
                 w = src[k]
-                v.copy_(w[sl] if sl is not None and is_stage_leaf(k) else w)
+                v.copy_(shard_leaf(k, w[sl] if sl is not None and is_stage_leaf(k) else w,
+                                   self.mesh))
 
     def restore(self, path_or_dir: str) -> None:
         """Load params, optimizer state and step in place from a checkpoint

@@ -318,11 +318,13 @@ def test_initialization_flags_and_environment(monkeypatch):
 
 
 def test_model_axis_raises():
+    """Pipeline x model raises "pick one" (JAX's assertion); a model or
+    seq mesh raises ValueError where the processes do not fill it."""
     cfg = PConfig()
     cfg.train.mesh_model = 2
-    with pytest.raises(NotImplementedError, match="A12, model axis"):
+    with pytest.raises(ValueError, match="needs a multiple of 2 processes, have 1"):
         make_trainer_mesh(cfg.train)
-    with pytest.raises(NotImplementedError, match="A12, model axis"):
+    with pytest.raises(ValueError, match="needs a multiple of 2 processes, have 1"):
         Trainer(cfg, device="cpu")
     cfg.train.mesh_pipe = 2
     with pytest.raises(ValueError, match="pick one"):
@@ -330,4 +332,7 @@ def test_model_axis_raises():
     cfg = PConfig()
     cfg.train.mesh_seq = 2
     with pytest.raises(ValueError, match="needs a multiple of 2 processes, have 1"):
+        make_trainer_mesh(cfg.train)
+    cfg.train.mesh_model = 2
+    with pytest.raises(ValueError, match="needs a multiple of 4 processes, have 1"):
         make_trainer_mesh(cfg.train)

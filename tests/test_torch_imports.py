@@ -31,7 +31,8 @@ new = {"conformer_tpu_torch.ops.quant", "conformer_tpu_torch.ops.int8_matmul",
        "conformer_tpu_torch.tools.compute_cmvn_stats", "conformer_tpu_torch.tools.convert_vocab",
        "conformer_tpu_torch.tools.gen_golden_fbank", "conformer_tpu_torch.parallel",
        "conformer_tpu_torch.parallel.distributed", "conformer_tpu_torch.parallel.mesh",
-       "conformer_tpu_torch.parallel.sequence", "conformer_tpu_torch.parallel.pipeline"}
+       "conformer_tpu_torch.parallel.sequence", "conformer_tpu_torch.parallel.pipeline",
+       "conformer_tpu_torch.parallel.tensor"}
 assert new <= set(names), new - set(names)
 import chip_smoke
 from conformer_tpu_torch.ops import cuda_build

@@ -1,5 +1,6 @@
 """One rank of the port's multi-process tests (tests/test_torch_distributed.py,
-test_torch_sequence_parallel.py, test_torch_pipeline.py). Not collected by
+test_torch_sequence_parallel.py, test_torch_pipeline.py,
+test_torch_tensor_parallel.py). Not collected by
 pytest (no test_ prefix); launched as
 
     python tests/torch_mp_worker.py '<json spec>'
@@ -211,6 +212,65 @@ def case_pipe(spec, case, mesh_mod, pdist):
     return res
 
 
+def _full(tr, tree) -> dict:
+    """{path: whole numpy leaf} of a tree of this rank's model shards."""
+    from conformer_tpu_torch.parallel.mesh import gather_leaf
+    from conformer_tpu_torch.train.optimizer import leaf_paths
+
+    return {k: gather_leaf(k, v, tr.mesh).detach().numpy().copy() for k, v in leaf_paths(tree)
+            if hasattr(v, "ndim")}
+
+
+def case_tp(spec, case, mesh_mod, pdist):
+    """A ``Trainer`` on the mesh of ``case["config"]``'s train.mesh_* (the
+    model axis among them), each rank on its data shard of the global
+    batch. In order, as the case asks: ``grads``, the step's reduced
+    gradients (``step_grads``, deterministic) gathered over "model", its
+    metrics and norm; ``step``, one ``train_step`` and the whole params
+    after it; ``ckpt_in``, a restore of that checkpoint, a step, a
+    ``save`` (its path) and one more step, with the whole params and Adam
+    moments after the restore and after the first step, and each step's
+    loss; ``validate``, the WER of ``Trainer.validate`` in
+    each of ``modes`` on this rank's batch of ``validate``, and the
+    predictions it wrote."""
+    from conformer_tpu_torch.train.loop import Trainer
+
+    cfg = _cfg(case["config"])
+    tr = Trainer(cfg, params=_params(case["params"]), device="cpu")
+    local = mesh_mod.shard_batch(_batch(case["batch"]), tr.mesh)
+    out = {"coords": np.asarray([tr.mesh.coord(a) for a in ("data", "seq", "model")])}
+    if case.get("grads"):
+        grads, metrics, norm = tr.step_grads([local], deterministic=True)
+        out.update({f"g:{k}": v for k, v in _full(tr, grads).items()})
+        out["metrics"], out["norm"] = metrics.numpy(), norm.numpy()
+    if case.get("step"):
+        m = tr.train_step([local])
+        out["step_loss"], out["step_norm"] = np.float64(m["loss"]), np.float64(m["grad_norm"])
+        out.update({f"p:{k}": v for k, v in _full(tr, tr.params).items()})
+    if case.get("ckpt_in"):
+        tr.restore(case["ckpt_in"])
+        out.update({f"r:{k}": v for k, v in _full(tr, tr.params).items()})
+        out.update({f"rmu:{k}": v for k, v in _full(tr, tr.opt_state.mu).items()})
+        out["loss2"] = np.float64(tr.train_step([local])["loss"])
+        out.update({f"p2:{k}": v for k, v in _full(tr, tr.params).items()})
+        out.update({f"mu2:{k}": v for k, v in _full(tr, tr.opt_state.mu).items()})
+        out["ckpt"] = np.str_(tr.save())
+        out["loss3"] = np.float64(tr.train_step([local])["loss"])
+    if case.get("validate"):
+        with np.load(case["validate"]) as z:
+            dev = [{"feats": z[f"feats{r}"], "feat_lengths": z[f"lens{r}"],
+                    "keys": [f"r{r}u{i}" for i in range(len(z[f"lens{r}"]))],
+                    "transcripts": [str(t) for t in z[f"text{r}"]]}
+                   for r in range(spec["world"]) if f"feats{r}" in z.files]
+        for mode in case["modes"]:
+            tr.cfg.decode.mode = mode
+            out[f"wer:{mode}"] = np.float64(tr.validate(dev[tr.rank:tr.rank + 1]))
+            name = f"tmp_prediction.rank{tr.rank}.txt"
+            with open(os.path.join(cfg.train.checkpoint_dir, name)) as f:
+                out[f"pred:{mode}"] = np.str_(f.read())
+    return out
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -260,7 +320,7 @@ def join(procs: list, timeout: float) -> list[str]:
 
 
 CASES = {"host": case_host, "trainer_grads": case_trainer_grads, "chunks": case_chunks,
-         "mismatch": case_mismatch, "seq": case_seq, "pipe": case_pipe}
+         "mismatch": case_mismatch, "seq": case_seq, "pipe": case_pipe, "tp": case_tp}
 
 
 def main() -> None:
