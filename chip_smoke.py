@@ -250,6 +250,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
                the serve phase's three requests as one given the
                checkpoint's tree, one launch of each encoder kernel per
                layer per request;
+  7c. micro  - the micro model (scripts/torch_train_micro_wer.py's config:
+               3 layers, d=96, 4 heads of 24, K=7, V=24, f32): (a) the
+               micro corpus by the port's tool
+               (conformer_tpu_torch/tools/make_micro_corpus.py) from 4
+               seeded synthetic recordings of 8 s, 600 train and 80 eval
+               utterances; (b) tests/fixtures/micro_trained.npz through the
+               script's eval_decode_modes in all 10 modes: the encoder
+               kernel flags on against off with rel_mode "decomposed" (the
+               kernel path's relative bias: identical hypotheses in every
+               mode, tokens emitted), and off as the script's config has it
+               (the skew path reads the fixture's stored pos_table, which
+               is not the sinusoid table: tokens and agreement printed);
+               attention and conv 3 launches a batch, each mode encoding 5
+               batches of 16; (c) two f32 training steps of the micro config
+               (pruned loss, dropout 0) from one init with the RNN-T, CTC
+               and attention kernel flags on, then off, on the corpus's
+               first two batches (B=32, T'=69, U <= 40): losses within 1e-4
+               relative, gradients within 1e-3 of each leaf's max-abs (the
+               plain path on the kernel path's band; band starts that
+               differ held to BAND_LIMITS), launches per step as phase 6
+               counts them at 3 layers; (d) the Gradio demo's wiring
+               (serve/gradio_server.build_app with a stand-in gradio
+               module): the longest eval wav in 640 ms int16 pieces through
+               the microphone callback, each transcript equal to
+               runner.accept_chunk's on the card, then "Reset Model" ("",
+               and the first piece's transcript again); then every kernel
+               of (b) and (c) at the shapes they gave it, f32, outputs
+               poisoned with NaN first, against its plain version, with
+               kernel, plain and library times beside the bound. The
+               kernels line's launches add (b)-(d)'s;
   8. parallel - (a) ``python -m conformer_tpu_torch.main --train`` on the
                fit corpus and config with ``--coordinator 127.0.0.1:<port>
                --num_processes 1 --process_id 0``: NCCL's init and the
@@ -727,14 +757,15 @@ def check_attention_train_kernels(dev):
 
 def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
                           d: int = 256, inputs=None, label: str | None = None,
-                          heads: dict | None = None) -> dict:
+                          heads: dict | None = None, dropout: float = ATTN_RATE) -> dict:
     """Kernel, plain and SDPA times (CUDA events) of the three attention
-    kernels of training in bf16 with dropout ATTN_RATE at (B, T', H, dk,
-    D), or on ``inputs`` ((args, seed, dO) in bf16, of any Tq and Tk), and
-    each one's bound from this run's inputs (the live (query, key) pairs
-    of its mask); ``heads``: the keep-mask's h_total and h_offset (a model
-    rank's heads). Returns each kernel's source, the TPU kernel it
-    replaces, ms, plain_ms, library_ms, bound_ms and bound_by."""
+    kernels of training in bf16 with ``dropout`` at (B, T', H, dk, D), or
+    on ``inputs`` ((args, seed, dO) in bf16 or float32, of any Tq and Tk),
+    and each one's bound from this run's inputs (the live (query, key)
+    pairs of its mask, at the tensor rate of bf16 or the float32 rate);
+    ``heads``: the keep-mask's h_total and h_offset (a model rank's heads).
+    Returns each kernel's source, the TPU kernel it replaces, ms,
+    plain_ms, library_ms, bound_ms and bound_by."""
     import torch
 
     from conformer_tpu_torch.ops import rel_attention as ra
@@ -743,14 +774,14 @@ def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
     args, seed, g = inputs or attention_train_inputs(dev, torch.bfloat16, gen, b, t, dk=dk,
                                                      d=d, h=h)
     q_u, ab, k, v, feats, mask = args
-    kw = dict(scale=scale, dropout_rate=ATTN_RATE, **(heads or {}))
+    kw = dict(scale=scale, dropout_rate=dropout, **(heads or {}))
     out, lse = ra.rel_attention(*args, seed=seed, **kw)
     delta = (g.float() * out.float()).sum(dim=-1)
     bargs = (*args, seed, g, lse, delta)
     dq = ra.rel_attention_bwd_dq(*bargs, **kw)
     dkv = ra.rel_attention_bwd_dkv(*bargs, **kw)
     live = float(mask.sum())            # the (query, key) pairs this run's data needs
-    rate = BF16_TFLOPS * 1e12
+    rate = (BF16_TFLOPS if q_u.dtype == torch.bfloat16 else F32_TFLOPS) * 1e12
     f_bound = bound_ms(nbytes(*args, seed, out, lse), 2.0 * h * live * (2 * dk + d) / rate)
     # dq: scores (dk + D), dP (dk), dQu (dk), dAB (D); dkv: scores, dP, dK, dV
     q_bound = bound_ms(nbytes(*args, seed, g, lse, delta, *dq),
@@ -758,14 +789,14 @@ def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
     kv_bound = bound_ms(nbytes(*args, seed, g, lse, delta, *dkv),
                         2.0 * h * live * (4 * dk + d) / rate)
     bias = (torch.matmul(ab.float(), feats.float().T) * scale).masked_fill(
-        ~mask[:, None], float("-inf")).to(torch.bfloat16)
+        ~mask[:, None], float("-inf")).to(q_u.dtype)
     # a fully masked row makes SDPA's softmax NaN: give it one key
     bias[:, :, :, 0] = torch.where(mask.any(-1)[:, None], bias[:, :, :, 0], 0)
     leaves = [x.detach().clone().requires_grad_() for x in (q_u, k, v, bias)]
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
-            *leaves[:3], attn_mask=leaves[3], dropout_p=ATTN_RATE, scale=scale)
+            *leaves[:3], attn_mask=leaves[3], dropout_p=dropout, scale=scale)
 
     with torch.no_grad():
         lib_fwd = time_ms(sdpa)
@@ -792,7 +823,8 @@ def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib,
         }
         e = times[name]
-        print(f"kernels: {name} bf16 {where} H={h} D={d} dropout {ATTN_RATE}: kernel "
+        print(f"kernels: {name} {str(q_u.dtype).split('.')[-1]} {where} H={h} D={d} "
+              f"dropout {dropout}: kernel "
               f"{e['ms']:.4f} ms, "
               f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms (SDPA "
               f"{'forward' if plain else 'backward, dq and dkv together'}, bias precomputed), "
@@ -1027,13 +1059,14 @@ def check_simple_lattice_guard(dev, gen) -> dict:
 
 
 def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002),
-                                        (5, 37, 6, 37)), simple_long=SIMPLE_LONG) -> dict:
+                                        (5, 37, 6, 37)), simple_long=SIMPLE_LONG,
+                           guard: bool = True) -> dict:
     """The six training kernels against their plain versions in float32 at
     the training shape (B=32, T'=374, U=64, V=5002), at the recipe's
     longest bucket with labels padded to ``max_label_len`` (B=4, T'=412,
     U=200) and at a tiny ragged one, edge rows included; the simple
     lattice's two also at ``simple_long`` (U=300) and on the "maxima apart"
-    inputs that reach their guard; times, plain and library times (for the
+    inputs that reach their guard (``guard``); times, plain and library times (for the
     simple lattice a labelled yardstick: its products alone by float32
     ``torch.matmul``) and bounds at the training shape. Returns the JSON
     entries without ``launches``."""
@@ -1177,7 +1210,8 @@ def check_training_kernels(dev, shapes=((32, 374, 64, 5002), (4, 412, 200, 5002)
                   f"{dev_note}, plain {e['plain_ms']:.4f} ms, library {e['library_ms']} ms, "
                   f"yardsticks {e.get('yardsticks_ms')} ms, bound {bnd * 1e3:.2f} us ({by}; "
                   f"{note})")
-    check_simple_lattice_guard(dev, gen)
+    if guard:
+        check_simple_lattice_guard(dev, gen)
     return entries
 
 
@@ -4188,7 +4222,361 @@ def check_wenet(wn: dict, fit: dict, card: str) -> None:
         check(a["launches"] == want, f".pt runner launches {a['launches']}, expected {want}")
 
 
-# -------------------------------------------------------------------- main
+# ----------------------------------------------------------------- 7c. micro
+
+MICRO_DIR = os.path.join(REPO, "build", "chip_smoke_micro")     # build/ is git-ignored
+MICRO_FIXTURE = os.path.join(REPO, "tests", "fixtures", "micro_trained.npz")
+MICRO_SAMPLES = 4            # recordings (the reference shipped four, about 33 s in all)
+MICRO_SAMPLE_S = 8.0         # 64 segments of 0.5 s: the fixture's 24-entry vocab
+MICRO_SEED = 900
+MICRO_STEPS = 2              # (c): training steps of each path
+
+
+def micro_script():
+    """``scripts/torch_train_micro_wer.py`` as a module."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_train_micro_wer
+
+    return torch_train_micro_wer
+
+
+def stub_gradio():
+    """A stand-in ``gradio`` module (the card machine has none) whose
+    Blocks record the microphone's stream callback and the button's click
+    callback in the returned dict."""
+    import types
+
+    got = {}
+
+    class Component:
+        def __init__(self, *a, **k):
+            pass
+
+    class Audio(Component):
+        def stream(self, fn, inputs=None, outputs=None):
+            got["stream"] = fn
+
+    class Button(Component):
+        def click(self, fn, inputs=None, outputs=None):
+            got["click"] = fn
+
+    class Blocks(Component):
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    mod = types.ModuleType("gradio")
+    mod.Blocks, mod.Textbox, mod.Audio, mod.Button = Blocks, Component, Audio, Button
+    return mod, got
+
+
+def micro_sweeps(drv, meta: dict, dev) -> dict:
+    """(b): the fixture through ``eval_decode_modes`` in float32, every
+    mode: with the encoder kernel flags on; off with the decomposed
+    relative bias (the kernel path's function: sinusoids of the relative
+    positions); off as the script's config has it (the skew path reads the
+    stored ``pos_table``, which in the fixture is not the sinusoid table
+    the other two compute). The counts set to 0 just before each sweep and
+    read just after."""
+    from conformer_tpu_torch.train.checkpoint import load_params_npz
+
+    params = load_params_npz(MICRO_FIXTURE, dev)
+    base = drv.build_config(meta, os.path.join(MICRO_DIR, "exp"), pruned=True, steps=0)
+    out = {}
+    for path, flags in (("kernel", dict(use_pallas_attention=True, use_pallas_conv=True)),
+                        ("plain", dict(rel_mode="decomposed")), ("skew", {})):
+        cfg = dataclasses.replace(base)
+        cfg.model = dataclasses.replace(base.model, **flags)
+        details = {}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        drv.eval_decode_modes(cfg, params, meta, details=details)
+        out[path] = {"details": details, "launches": launch_counts(),
+                     "s": time.perf_counter() - t0}
+    return out
+
+
+def micro_batches(cfg, n: int) -> list[dict]:
+    """The first ``n`` batches of the micro corpus's train pipeline."""
+    from conformer_tpu_torch.data.dataset import AsrDataset
+
+    ds = AsrDataset(cfg.data, mode="train")
+    ds.set_epoch(0)
+    it = iter(ds)
+    return [next(it) for _ in range(n)]
+
+
+def micro_train(drv, meta: dict, dev) -> dict:
+    """(c): ``MICRO_STEPS`` float32 training steps of the micro config with
+    the pruned loss, dropout 0, from one init: a trainer with the recipe's
+    kernel flags (RNN-T, CTC, attention) on and one with them off, on the
+    same batches of the corpus. Each step: the kernel path's gradients
+    (counts set to 0 just before, read just after), the plain path's on the
+    kernel path's band (its own band's differing starts counted), their
+    losses and gradients compared, then each trainer's Adam update with its
+    own gradients."""
+    import torch
+
+    from conformer_tpu_torch.train.loop import Trainer
+
+    base = drv.build_config(meta, os.path.join(MICRO_DIR, "exp"), pruned=True,
+                            steps=MICRO_STEPS)
+    base.model = dataclasses.replace(base.model, **dropout_model(0.0))
+    trainers = {}
+    for path, on in (("kernel", True), ("plain", False)):
+        cfg = dataclasses.replace(base)
+        cfg.model = dataclasses.replace(base.model, use_pallas_rnnt=on, use_pallas_ctc=on,
+                                        use_pallas_attention=on)
+        trainers[path] = Trainer(cfg, device=dev)
+    launches = dict.fromkeys(kernel_wrappers(), 0)
+    steps = []
+    for mb in micro_batches(base, MICRO_STEPS):
+        s_k = {}
+
+        def record(orig, o, *a):
+            s_k["band"] = orig(o, *a)
+            return s_k["band"]
+
+        def force(orig, o, *a):
+            s_k["plain"] = orig(o, *a)
+            return s_k["band"]
+
+        reset_launch_counts()
+        with band_hook(record):
+            g_k, out_k = trainers["kernel"].compute_grads(mb, deterministic=True)
+        torch.cuda.synchronize()
+        for k, n in launch_counts().items():
+            launches[k] += n
+        with band_hook(force):
+            g_p, out_p = trainers["plain"].compute_grads(mb, deterministic=True)
+        res = loss_grad_errors(out_k, out_p, g_k, g_p, ("loss", "loss_ctc", "loss_rnnt",
+                                                         "loss_simple"))
+        res.update(s_begin_diff=int((s_k["plain"] != s_k["band"]).sum()),
+                   s_begin_entries=int(s_k["band"].numel()), shape=tuple(s_k["band"].shape),
+                   labels=int(np.shape(mb["labels"])[1]))
+        for t, g in ((trainers["kernel"], g_k), (trainers["plain"], g_p)):
+            t.optimizer.update(t.params, g, t.opt_state)
+            t.step += 1
+        steps.append(res)
+    del trainers
+    torch.cuda.empty_cache()
+    return {"steps": steps, "launches": launches}
+
+
+def micro_demo(drv, meta: dict, dev) -> dict:
+    """(d): the Gradio demo's wiring (``serve/gradio_server.build_app`` with
+    the stand-in module) on the fixture, both encoder kernel flags on: the
+    longest eval wav streamed through the microphone callback in 640 ms
+    int16 pieces (the counts set to 0 just before, read just after), then
+    "Reset Model" and the first piece again; beside it a session driven
+    with ``runner.accept_chunk`` directly."""
+    from conformer_tpu_torch.data.audio import load_audio
+    from conformer_tpu_torch.serve import gradio_server
+    from conformer_tpu_torch.serve.runner import ModelRunner
+
+    cfg = drv.build_config(meta, os.path.join(MICRO_DIR, "exp"), pruned=True, steps=0)
+    cfg.model = dataclasses.replace(cfg.model, use_pallas_attention=True, use_pallas_conv=True)
+    runner = ModelRunner(cfg, MICRO_FIXTURE, dev)
+    mod, got = stub_gradio()
+    saved = sys.modules.get("gradio")
+    sys.modules["gradio"] = mod
+    try:
+        gradio_server.build_app(runner)
+    finally:
+        if saved is None:
+            del sys.modules["gradio"]
+        else:
+            sys.modules["gradio"] = saved
+    with open(meta["eval_list"]) as f:
+        path = max((json.loads(line)["wav_path"] for line in f), key=os.path.getsize)
+    wav, sr = load_audio(path)
+    n = sr * STREAM_PIECE_MS // 1000
+    pcm = np.round(wav * 32767.0).astype(np.int16)
+    pieces = [pcm[i:i + n] for i in range(0, len(pcm), n)]
+    reset_launch_counts()
+    demo = [got["stream"]((sr, p)) for p in pieces]
+    launches = launch_counts()
+    session, direct = runner.new_session(), []
+    for p in pieces:
+        session, rec = runner.accept_chunk(session, p.astype(np.float32) / 32768.0, sr)
+        direct.append(rec.text)
+    reset = got["click"]()
+    return {"demo": demo, "direct": direct, "reset": reset,
+            "after_reset": got["stream"]((sr, pieces[0])), "launches": launches,
+            "seconds": len(wav) / sr, "none": got["stream"](None)}
+
+
+def check_micro_kernels(dev, eval_shape: tuple, train_shape: tuple, v: int,
+                        heads: int, dk: int, d: int, kernel_size: int) -> dict:
+    """The kernels of the micro paths at the shapes those paths gave them,
+    float32, against their plain versions (outputs poisoned with NaN
+    first): the attention forward and the conv block at the sweep's
+    encoder shape (B, T') = ``eval_shape``; the attention kernels of
+    training (dropout 0) and the six loss kernels at the training shape
+    (B, T', U) = ``train_shape``, V = ``v``. Times of kernel, plain version
+    and library call (SDPA) beside the bound. Returns a list of entries,
+    each with the kernel's ``name`` and its ``shape``."""
+    import torch
+
+    from conformer_tpu_torch.ops import rel_attention as ra
+    from conformer_tpu_torch.ops.conv_block import conv_block, conv_block_plain, kernel_weights
+
+    gen = torch.Generator().manual_seed(21)
+    scale = 1 / math.sqrt(dk)
+    out = []
+    for label, (b, t), kinds in (("sweep", eval_shape, ATTENTION_KERNELS[:1]),
+                                 ("training", train_shape[:2], ATTENTION_KERNELS)):
+        args, seed, g = attention_train_inputs(dev, torch.float32, gen, b, t, dk=dk, d=d,
+                                               h=heads)
+        kw = dict(scale=scale, dropout_rate=0.0)
+        poison(((b, heads, t, dk), torch.float32), ((b, heads, t), torch.float32))
+        fwd = ra.rel_attention(*args, seed=seed, **kw)
+        want = ra.rel_attention_plain(*args, seed=seed, **kw)
+        errs = {"rel_flash_attention": compare(f"micro rel_flash_attention at {label}", fwd,
+                                               want)}
+        bargs = (*args, seed, g, want[1], (g.float() * want[0].float()).sum(dim=-1))
+        plain = ra.rel_attention_bwd_plain(*bargs, **kw)
+        poison(((b, heads, t, dk), torch.float32), ((b, heads, t, d), torch.float32))
+        errs["rel_flash_attention_bwd_dq"] = compare(
+            f"micro rel_flash_attention_bwd_dq at {label}", ra.rel_attention_bwd_dq(*bargs, **kw),
+            plain[:2])
+        poison(((b, heads, t, dk), torch.float32), ((b, heads, t, dk), torch.float32))
+        errs["rel_flash_attention_bwd_dkv"] = compare(
+            f"micro rel_flash_attention_bwd_dkv at {label}",
+            ra.rel_attention_bwd_dkv(*bargs, **kw), plain[2:])
+        times = attention_train_times(dev, gen, b, t, h=heads, dk=dk, d=d, dropout=0.0,
+                                      inputs=(args, seed, g), label=f"micro {label} B={b} T'={t}")
+        out += [{**times[name], "name": name, "max_abs_err": errs[name],
+                 "shape": f"{label}, B={b} T'={t}"} for name in kinds]
+    b, t = eval_shape
+    x, lens, p_norm, p_conv = conv_inputs(dev, torch.float32, gen, b=b, t=t, d=d, k=kernel_size)
+    poison(((b, t, d), torch.float32))
+    got = conv_block(x, lens, p_norm, p_conv, kernel_size=kernel_size)
+    want = conv_block_plain(x, lens, p_norm, p_conv, kernel_size=kernel_size)
+    frames = float(lens.sum())
+    ops = 2.0 * frames * d * (3 * d) + 2.0 * frames * d * kernel_size
+    bnd, by = bound_ms(nbytes(x, *got, lens, *kernel_weights(p_norm, p_conv, x.dtype).values()),
+                       ops / (F32_TFLOPS * 1e12))
+    out.append({
+        "name": "conv_block", "source": "conformer_tpu_torch/csrc/conv_block.cu",
+        "replaces": "conformer_tpu/ops/pallas/conv_kernel.py:107",
+        "max_abs_err": compare("micro conv_block", got, want), "shape": f"sweep, B={b} T'={t}",
+        "ms": time_ms(lambda: conv_block(x, lens, p_norm, p_conv, kernel_size=kernel_size)),
+        "plain_ms": time_ms(lambda: conv_block_plain(x, lens, p_norm, p_conv,
+                                                     kernel_size=kernel_size)),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None})
+    b, t, u = train_shape
+    out += [{**e, "shape": f"training, B={b} T'={t} U={u} V={v}"} for e in check_training_kernels(
+        dev, shapes=((b, t, u, v),), simple_long=(), guard=False).values()]
+    for e in out:
+        print(f"micro: kernel {e['name']} f32 {e['shape']}: max_abs_err {e['max_abs_err']:.3g} (tol "
+              f"{TOL['float32']} abs + rel), kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} "
+              f"ms, library {e['library_ms']} ms, bound {e['bound_ms'] * 1e3:.2f} us "
+              f"({e['bound_by']})")
+    return out
+
+
+def micro_phase(dev, card: str) -> dict:
+    """7c: (a) the micro corpus from seeded recordings, (b) the decode
+    sweep on the trained fixture, kernel path vs plain path, (c) two
+    training steps, kernel path vs plain path, (d) the Gradio demo's
+    wiring, and the kernels at the shapes (b)-(c) gave them. Returns the
+    launches of the kernel paths of (b)-(d), and the kernels' entries."""
+    import torch
+
+    from conformer_tpu_torch.data.synthetic import write_recordings
+    from conformer_tpu_torch.tools.make_micro_corpus import build_micro_corpus
+
+    t_phase = time.perf_counter()
+    drv = micro_script()
+    shutil.rmtree(MICRO_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    samples = write_recordings(os.path.join(MICRO_DIR, "samples"), MICRO_SAMPLES,
+                               MICRO_SAMPLE_S, MICRO_SEED)
+    meta = build_micro_corpus(os.path.join(MICRO_DIR, "corpus"), samples)
+    print(f"micro: (a) corpus from {MICRO_SAMPLES} recordings of {MICRO_SAMPLE_S} s: "
+          f"{meta['n_segments']} segments, {meta['n_train']} train and {meta['n_eval']} eval "
+          f"utterances, vocab {meta['vocab_size']}; {time.perf_counter() - t0:.1f} s")
+    with np.load(MICRO_FIXTURE) as fx:
+        v_fixture = fx["joint/ffn_out/kernel"].shape[-1]
+    check(meta["vocab_size"] == v_fixture, f"micro corpus vocab {meta['vocab_size']}, the "
+          f"fixture's {v_fixture}")
+
+    sw = micro_sweeps(drv, meta, dev)
+    k_det, p_det, s_det = (sw[k]["details"] for k in ("kernel", "plain", "skew"))
+    m = drv.build_config(meta, "", pruned=True, steps=0).model
+    layers = m.encoder_num_layers
+    batches = -(-meta["n_eval"] // 16)
+    for mode, k in k_det.items():
+        p, sk = p_det[mode], s_det[mode]
+        same = sum(a == b for a, b in zip(k["hyps"], sk["hyps"]))
+        print(f"micro: (b) {mode}: {k['tokens']} tokens, WER {k['wer']:.4f} (a corpus the "
+              f"fixture never learned); plain path {p['tokens']} tokens, hypotheses identical "
+              f"{k['hyps'] == p['hyps']}; skew path (the stored pos_table) {sk['tokens']} "
+              f"tokens, WER {sk['wer']:.4f}, {same}/{len(k['hyps'])} hypotheses as the "
+              "kernel path's")
+        check(k["hyps"] == p["hyps"], f"micro (b) {mode}: kernel path hypotheses differ from "
+              "the plain path's")
+        check(k["tokens"] > 0 and sk["tokens"] > 0, f"micro (b) {mode}: no token emitted")
+    want = {**dict.fromkeys(kernel_wrappers(), 0),
+            **dict.fromkeys(("rel_flash_attention", "conv_block"), layers * batches * len(k_det))}
+    print(f"micro: (b) 10 modes over {meta['n_eval']} utterances in {sw['kernel']['s']:.1f} s "
+          f"(plain path {sw['plain']['s']:.1f} s, skew path {sw['skew']['s']:.1f} s); launches "
+          f"{nonzero(sw['kernel']['launches'])} ({card})")
+    check(len(k_det) == 10 and sw["kernel"]["launches"] == want,
+          f"micro (b): launches {sw['kernel']['launches']}, expected {want}")
+    check(not any(sw["plain"]["launches"].values()) and not any(sw["skew"]["launches"].values()),
+          f"micro (b): the plain paths launched {nonzero(sw['plain']['launches'])}, "
+          f"{nonzero(sw['skew']['launches'])}")
+
+    tr = micro_train(drv, meta, dev)
+    for i, r in enumerate(tr["steps"]):
+        worst = ", ".join(f"{k} {e:.3g}" for k, e in r["grad_worst_leaves"])
+        print(f"micro: (c) step {i + 1}, B x T' {r['shape']}, U {r['labels']}: losses "
+              f"{r['losses']}, max rel err {r['loss_max_rel_err']:.3g} (tol 1e-4); gradients "
+              f"worst leaves {worst} (tol 1e-3 of max-abs); s_begin differs in "
+              f"{r['s_begin_diff']} of {r['s_begin_entries']}")
+        check(r["finite"] and r["loss_max_rel_err"] <= 1e-4 and r["grad_max_rel_err"] <= 1e-3,
+              f"micro (c) step {i + 1}: the kernel path disagrees with the plain path")
+        check(r["s_begin_diff"] <= BAND_LIMITS["s_begin_diff_share"] * r["s_begin_entries"],
+              f"micro (c) step {i + 1}: the pruning bands differ in {r['s_begin_diff']} starts")
+    want = {k: n * MICRO_STEPS for k, n in per_microbatch(layers, attention=True).items()}
+    print(f"micro: (c) launches in {MICRO_STEPS} steps {nonzero(tr['launches'])}")
+    check(tr["launches"] == want, f"micro (c): launches {tr['launches']}, expected {want}")
+
+    demo = micro_demo(drv, meta, dev)
+    print(f"micro: (d) Gradio demo (stand-in gradio), {demo['seconds']:.2f} s wav in "
+          f"{len(demo['demo'])} pieces of {STREAM_PIECE_MS} ms: transcripts {demo['demo']}, "
+          f"accept_chunk {demo['direct']} (lengths {[len(t) for t in demo['direct']]}); reset "
+          f"{demo['reset']!r}, then {demo['after_reset']!r}; launches "
+          f"{nonzero(demo['launches'])}")
+    check(demo["demo"] == demo["direct"], "micro (d): the demo's transcripts differ from "
+          "accept_chunk's")
+    # a transcript that grows past its first piece's, so that a Reset which
+    # kept the old session would show in the transcript after it
+    check(demo["direct"][-1] != "" and demo["direct"][-1] != demo["direct"][0],
+          f"micro (d): accept_chunk's transcripts {demo['direct']} do not grow from the first "
+          "piece's, so the demo's and the Reset's checks cannot see a fault")
+    check(demo["reset"] == "" and demo["none"] == "" and demo["after_reset"] == demo["direct"][0],
+          "micro (d): Reset Model did not start a fresh session")
+    attn = demo["launches"]["rel_flash_attention"]
+    check(attn > 0 and attn % layers == 0 and demo["launches"] == {
+        **dict.fromkeys(kernel_wrappers(), 0), "rel_flash_attention": attn},
+        f"micro (d): launches {demo['launches']}")
+
+    step = tr["steps"][0]
+    eval_t = k_det["greedy_rnnt"]["enc_shape"]
+    kernels = check_micro_kernels(dev, (eval_t[0], eval_t[1]),
+                                  (*step["shape"], step["labels"]), m.vocab_size, m.num_heads,
+                                  m.encoder_dim // m.num_heads, m.encoder_dim, m.kernel_size)
+    launches = {k: sw["kernel"]["launches"][k] + tr["launches"][k] + demo["launches"][k]
+                for k in kernel_wrappers()}
+    shutil.rmtree(MICRO_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"micro: in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"launches": launches, "kernels": kernels}
 
 
 # -------------------------------------------------------------- 8. parallel
@@ -5054,6 +5442,15 @@ def main() -> int:
     # --wenet_ckpt_path and the runner's .pt route, counts set to 0 just
     # before each request and read just after
     check_wenet(wenet_phase(fit), fit, card)
+    # 7c. micro: the micro corpus tool, the micro-WER script's decode sweep
+    # on the trained fixture and two training steps, kernel path vs plain
+    # path, and the Gradio demo's wiring; the counts set to 0 just before
+    # each kernel path's run and read just after; the kernels at the
+    # shapes those paths gave them
+    micro = micro_phase(dev, card)
+    for e in micro["kernels"]:
+        entries[e["name"]]["max_abs_err"] = max(entries[e["name"]]["max_abs_err"],
+                                                e["max_abs_err"])
     # 8. parallel: (a) NCCL's init and the one-process step through main on
     # the fit corpus, counts set to 0 just before and read just after; which collectives gloo
     # takes on CUDA tensors; (b) data, (c) sequence and pipeline
@@ -5134,6 +5531,10 @@ def main() -> int:
     entries["int8_ffn"]["launches"] = route_b_launches
     for name in JOINT_GRIDS:
         entries[name]["launches"] = full["launches"][name]
+    # and the micro phase's kernel paths: the decode sweep, the training
+    # steps and the demo's stream
+    for name, n in micro["launches"].items():
+        entries[name]["launches"] += n
 
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     order = [*ATTENTION_KERNELS, "conv_block", *PER_MICROBATCH, *INT8_KERNELS, *JOINT_GRIDS,

@@ -36,6 +36,18 @@ def synthetic_wav(seed: int, seconds: float, sr: int = SAMPLE_RATE) -> np.ndarra
     return np.clip(wav, -1, 1).astype(np.float32)
 
 
+def write_recordings(out_dir: str, n: int = 4, seconds: float = 8.0, seed: int = 900) -> str:
+    """``n`` seeded speech-like recordings of ``seconds`` s,
+    ``out_dir``/sample_{i}.wav from seed ``seed + i``: a stand-in for the
+    micro corpus tool's ``--samples`` (at the defaults, 64 segments of 0.5
+    s, the trained micro fixture's vocabulary of 24). Returns ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    for i in range(n):
+        save_wav(os.path.join(out_dir, f"sample_{i}.wav"), synthetic_wav(seed + i, seconds),
+                 SAMPLE_RATE)
+    return str(out_dir)
+
+
 def synthetic_vocab(vocab_size: int, seed: int) -> list[str]:
     """<blank>, <unk>, every letter with and without '▁', random pieces of
     2-5 letters, <sos/eos>: ``vocab_size`` entries, index order."""

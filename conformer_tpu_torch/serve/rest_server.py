@@ -10,7 +10,7 @@ calls take its lock.
 
 Usage:
     python -m conformer_tpu_torch.serve.rest_server --config cfg.json \
-        --params params.npz --port 9000
+        --checkpoint params.npz --port 9000
 """
 
 from __future__ import annotations
@@ -93,18 +93,18 @@ def serve(runner: ModelRunner, host: str = "0.0.0.0", port: int = 9000):
     httpd.serve_forever()
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", type=str, default=None)
-    ap.add_argument("--params", type=str, default=None,
+    ap.add_argument("--checkpoint", type=str, default=None,
                     help="JAX params .npz (save_params_npz format) or a reference / WeNet "
                          "state dict (.pt, .ckpt, .pth); random init if omitted")
     ap.add_argument("--device", type=str, default=None, help="default: cuda")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=9000)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     cfg = Config.from_json_file(args.config) if args.config else Config()
-    serve(ModelRunner(cfg, args.params, args.device), args.host, args.port)
+    serve(ModelRunner(cfg, args.checkpoint, args.device), args.host, args.port)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Import hygiene of the port: every module of conformer_tpu_torch (the
-parallel package's included), and chip_smoke.py, import without pulling
-in JAX or the JAX package, importing builds nothing, and no process group
-is made. This suite's conftest imports JAX in-process,
+parallel package's included), chip_smoke.py and
+scripts/torch_train_micro_wer.py import without pulling in JAX, the JAX
+package or gradio, importing builds nothing, and no process group is
+made. This suite's conftest imports JAX in-process,
 so the check runs in a fresh interpreter.
 """
 
@@ -32,12 +33,17 @@ new = {"conformer_tpu_torch.ops.quant", "conformer_tpu_torch.ops.int8_matmul",
        "conformer_tpu_torch.tools.gen_golden_fbank", "conformer_tpu_torch.parallel",
        "conformer_tpu_torch.parallel.distributed", "conformer_tpu_torch.parallel.mesh",
        "conformer_tpu_torch.parallel.sequence", "conformer_tpu_torch.parallel.pipeline",
-       "conformer_tpu_torch.parallel.tensor"}
+       "conformer_tpu_torch.parallel.tensor", "conformer_tpu_torch.tools.make_micro_corpus",
+       "conformer_tpu_torch.serve.gradio_server"}
 assert new <= set(names), new - set(names)
 import chip_smoke
+import importlib.util
+spec = importlib.util.spec_from_file_location("torch_train_micro_wer",
+                                              "scripts/torch_train_micro_wer.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from conformer_tpu_torch.ops import cuda_build
-bad = sorted(m for m in sys.modules if m in ("jax", "conformer_tpu", "websockets")
-             or m.startswith(("jax.", "jaxlib", "conformer_tpu.", "websockets.")))
+bad = sorted(m for m in sys.modules if m in ("jax", "conformer_tpu", "websockets", "gradio")
+             or m.startswith(("jax.", "jaxlib", "conformer_tpu.", "websockets.", "gradio.")))
 assert not bad, bad
 assert not cuda_build._libs
 from conformer_tpu_torch.data import native
