@@ -17,12 +17,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
                versions and against autograd through the plain forward,
                the dropout keep-mask bit for bit, its keep share, and
                bitwise repeatability; the same at Conformer-L's and -S's
-               head widths (H=8, dk=64, D=512; H=4, dk=36, D=144), every
-               output poisoned with NaN first, in both dtypes, and every
-               wrapper's ValueError above D = 512; the conv block at
-               Conformer-S's and -L's widths (D = 144, 512; B=4, T'=374
-               and T'=9 < K-1) in both dtypes, outputs poisoned with NaN
-               first, and its ValueError past D = 512; each of the
+               head widths (H=8, dk=64, D=512; H=4, dk=36, D=144: the
+               narrow kernels) and the 1024-wide Conformer's (H=8, dk=128,
+               D=1024 at B=32, T'=374 and at a chunk shape B=16, Tq=16,
+               Tk=528: the wide kernels), every output poisoned with NaN
+               first, in both dtypes, and every wrapper's ValueError at dk
+               = 136; the conv block at Conformer-S's and -L's widths (D =
+               144, 512 at K = 15; D = 512 at K = 31 too) and the 1024-wide
+               Conformer's (D = 1024 at K = 15, 31, 32, 64; B=4, T'=374 and
+               T'=9 < K-1) in both dtypes, outputs poisoned with NaN first,
+               and its ValueError at D = 2064 and K = 65; each of the
                six loss kernels (simple lattice, RNN-T lattice DP, CTC DP;
                forward and backward) against its plain version in float32 at the
                training shape (B=32, T'=374, U=64, V=5002) and at a tiny
@@ -203,6 +207,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
                at Conformer-L's training shape (bf16, B=32, T'=374, H=8,
                D=512, dropout 0.1) beside their plain versions, SDPA and
                their bounds;
+  6d. wide   - the 1024-wide Conformer: configs/conformer_l.json at
+               d=1024, 8 heads of 128, FFN 4096 (Conformer XL's widths),
+               4 of its 17 layers, on the attention and conv kernels' wide
+               path: (a) a ModelRunner on random weights from the config's
+               seed, both encoder kernel flags, bf16: decode_batch of 8 x 15
+               s (ms a batch, audio-s/s, tokens, attention and conv 4
+               launches a batch), then f32 kernel path vs plain path on 8 x
+               15 s (encoders within 1e-3, identical hypotheses, tokens
+               emitted); (b) the recipe's Trainer with the attention
+               kernel (dropout 0.1, remat, bf16): a warm-up and two timed
+               steps of B=8 x 15 s, 64 labels (finite, changed weights,
+               launches per microbatch, ms per step, peak memory), then f32
+               at dropout 0, kernel path vs plain path, under BAND_LIMITS
+               and the float32 FULL_PARITY_LIMITS; (c) the attention
+               kernels' times at its training shape (B=32, T'=374) and the
+               conv block's at its decode shape, beside plain, SDPA and the
+               bound;
   7. host    - the host audio runtime (conformer_tpu_torch/runtime/
                audio_runtime.cc) built with g++ from a clean library path
                (the compiler's first line and the build's seconds), then on
@@ -468,7 +489,7 @@ def check_kernels(dev) -> dict:
     without ``launches``."""
     import torch
 
-    from conformer_tpu_torch.ops.conv_block import conv_block, conv_block_plain, kernel_weights
+    from conformer_tpu_torch.ops.conv_block import conv_block, conv_block_plain
     from conformer_tpu_torch.ops.rel_attention import rel_attention, rel_attention_plain
 
     gen = torch.Generator().manual_seed(0)
@@ -529,26 +550,8 @@ def check_kernels(dev) -> dict:
             "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q_u, k, v, attn_mask=bias, scale=scale)),
         }
-        # frames past a row's length need no product: their pw1 input is
-        # zero (bias-only GLU) and their output is masked
-        d = x.shape[-1]
-        frames = float(lens.sum())
-        mm_ops = 2.0 * frames * d * (2 * d) + 2.0 * frames * d * d
-        dw_ops = 2.0 * frames * d * k_size
-        c_bytes = nbytes(x, out, cache, lens, *kernel_weights(p_norm, p_conv, x.dtype).values())
-        c_bound, c_by = bound_ms(
-            c_bytes, mm_ops / (BF16_TFLOPS * 1e12) + dw_ops / (F32_TFLOPS * 1e12))
-        entries["conv_block"] = {
-            "name": "conv_block", "route": "cuda",
-            "source": "conformer_tpu_torch/csrc/conv_block.cu",
-            "replaces": "conformer_tpu/ops/pallas/conv_kernel.py:107",
-            "max_abs_err": max(err_c, err_k, err_s, err_cs),
-            "ms": time_ms(lambda: conv_block(x, lens, p_norm, p_conv, kernel_size=k_size)),
-            "plain_ms": time_ms(lambda: conv_block_plain(x, lens, p_norm, p_conv,
-                                                         kernel_size=k_size)),
-            "bound_ms": c_bound, "bound_by": c_by,
-            "library_ms": None,
-        }
+        entries["conv_block"] = {**conv_block_times(x, lens, p_norm, p_conv, k_size),
+                                 "max_abs_err": max(err_c, err_k, err_s, err_cs)}
     for e in entries.values():
         print(f"kernels: {e['name']} bf16 B=48 T'=374: kernel {e['ms']:.4f} ms, plain "
               f"{e['plain_ms']:.4f} ms, library {e['library_ms']} ms, bound "
@@ -556,53 +559,63 @@ def check_kernels(dev) -> dict:
     return entries
 
 
-CONV_WIDTHS = {"conformer_s": 144, "conformer_l": 512,
-               # past the kernel's widths (D <= 512, a multiple of 16): refused
-               "above the limit": 528}
+# label -> (D, kernel sizes): Conformer-S's and -L's widths (K = 15 as
+# shipped; K = 31, WeNet's and ESPnet's, at L's width takes float32's wide
+# path), the 1024-wide Conformer's (Conformer XL's width) at K = 15, 31,
+# 32 and 64 (the wide path's largest), and past the kernel's limits (D <=
+# 2048, a multiple of 16; K <= 64): refused
+CONV_WIDTHS = {"conformer_s": (144, (15,)), "conformer_l": (512, (15, 31)),
+               "conformer_xl": (1024, (15, 31, 32, 64)),
+               "above the limit": (2064, (15,)), "above the limit K": (1024, (65,))}
 
 
 def check_conv_widths(dev) -> float:
-    """The conv block at Conformer-S's and -L's widths (K = 15, B=4,
-    T'=374, and B=3, T'=9 < K-1) in both dtypes, where the wrapper takes
-    them, against its plain version, outputs and cache poisoned with NaN
-    beforehand; past the kernel's width (D = 528) the wrapper must raise
-    ValueError before any launch, in both dtypes. Returns the largest error."""
+    """The conv block at each of CONV_WIDTHS (B=4, T'=374, and B=3, T'=9 <
+    K-1) in both dtypes, where the wrapper takes them, against its plain
+    version, outputs and cache poisoned with NaN beforehand; past the
+    kernel's widths the wrapper must raise ValueError before any launch,
+    in both dtypes. Returns the largest error."""
     import torch
 
     from conformer_tpu_torch.ops import conv_block as cb
 
     gen = torch.Generator().manual_seed(11)
-    k_size, worst = 15, 0.0
-    for label, d in CONV_WIDTHS.items():
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype).split(".")[-1]
-            tol = TOL[name]
-            why = cb.width_error(dtype, d, k_size)
-            if why is not None:
-                x, lens, pn, pc = conv_inputs(dev, dtype, gen, b=3, t=20, d=d, k=k_size)
-                before = cb.conv_block.launches
-                try:
-                    cb.conv_block(x, lens, pn, pc, kernel_size=k_size)
-                    refused = False
-                except ValueError:
-                    refused = True
-                check(refused and cb.conv_block.launches == before,
-                      f"conv_block {label} {name} D={d}: not refused before launch ({why})")
-                print(f"kernels: conv_block {label} {name} D={d}: ValueError before any launch "
-                      f"({why})")
-                continue
-            errs = []
-            for b, t in ((4, 374), (3, 9)):
-                x, lens, pn, pc = conv_inputs(dev, dtype, gen, b=b, t=t, d=d, k=k_size)
-                poison(((b, t, d), dtype), ((b, k_size - 1, d), dtype))
-                got = cb.conv_block(x, lens, pn, pc, kernel_size=k_size)
-                torch.cuda.synchronize()
-                errs.append(compare(f"conv_block {label} {name} D={d} B={b} T'={t}", got,
-                                    cb.conv_block_plain(x, lens, pn, pc, kernel_size=k_size), tol))
-            worst = max(worst, *errs)
-            print(f"kernels: conv_block {label} {name} D={d} K={k_size}: max_abs_err B=4 T'=374 "
-                  f"{errs[0]:.3g}, B=3 T'=9 {errs[1]:.3g} (tol {tol} abs + rel; outputs poisoned "
-                  "with NaN beforehand)")
+    worst = 0.0
+    for label, (d, sizes) in CONV_WIDTHS.items():
+        for k_size in sizes:
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[-1]
+                tol = TOL[name]
+                why = cb.width_error(dtype, d, k_size)
+                if why is not None:
+                    x, lens, pn, pc = conv_inputs(dev, dtype, gen, b=3, t=20, d=d, k=k_size)
+                    before = cb.conv_block.launches
+                    try:
+                        cb.conv_block(x, lens, pn, pc, kernel_size=k_size)
+                        refused = False
+                    except ValueError:
+                        refused = True
+                    check(refused and cb.conv_block.launches == before,
+                          f"conv_block {label} {name} D={d} K={k_size}: not refused before "
+                          f"launch ({why})")
+                    print(f"kernels: conv_block {label} {name} D={d} K={k_size}: ValueError "
+                          f"before any launch ({why})")
+                    continue
+                errs = []
+                for b, t in ((4, 374), (3, 9)):
+                    x, lens, pn, pc = conv_inputs(dev, dtype, gen, b=b, t=t, d=d, k=k_size)
+                    poison(((b, t, d), dtype), ((b, k_size - 1, d), dtype))
+                    got = cb.conv_block(x, lens, pn, pc, kernel_size=k_size)
+                    torch.cuda.synchronize()
+                    errs.append(compare(f"conv_block {label} {name} D={d} K={k_size} B={b} "
+                                        f"T'={t}", got,
+                                        cb.conv_block_plain(x, lens, pn, pc, kernel_size=k_size),
+                                        tol))
+                worst = max(worst, *errs)
+                print(f"kernels: conv_block {label} {name} D={d} K={k_size} "
+                      f"({cb.route(dtype, d, k_size)} path): max_abs_err B=4 T'=374 "
+                      f"{errs[0]:.3g}, B=3 T'=9 {errs[1]:.3g} (tol {tol} abs + rel; outputs "
+                      "poisoned with NaN beforehand)")
     return worst
 
 
@@ -613,32 +626,34 @@ ATTN_SEED = 20240917
 
 
 def attention_train_inputs(dev, dtype, gen, b, t, dk=64, d=256, h=4, chunk=False,
-                           identity=False):
+                           identity=False, tk=None):
     """Inputs of the attention kernels at one training shape, with dO: key
-    padding to random lengths (the first rows T, T-11, 1), a fully masked
+    padding to random lengths (the first rows Tk, Tk-11, 1), a fully masked
     row (zero length) and a dead query row; ``chunk`` adds a dynamic-chunk
     mask (chunk 4, 2 chunks of left context). ``identity`` makes v the
-    identity (T <= dk), so that each output column is one key's dropped
+    identity (Tk <= dk), so that each output column is one key's dropped
     probability, and dO the identity, so that dV is the dropped
-    probabilities' transpose."""
+    probabilities' transpose. ``tk``: keys, when not T (a streaming
+    chunk's queries against its cache and itself)."""
     import torch
 
-    lens = torch.randint(t // 2, t + 1, (b,), generator=gen)
-    lens[: min(b, 3)] = torch.tensor([t, max(t - 11, 1), 1])[: min(b, 3)]
+    tk = t if tk is None else tk
+    lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen)
+    lens[: min(b, 3)] = torch.tensor([tk, max(tk - 11, 1), 1])[: min(b, 3)]
     pos = torch.arange(t)
-    mask = (pos[None, None, :] < lens[:, None, None]).expand(b, t, t).clone()
+    mask = (torch.arange(tk)[None, None, :] < lens[:, None, None]).expand(b, t, tk).clone()
     if chunk:
         ci, cj = pos[:, None] // 4, pos[None, :] // 4
         mask &= (cj <= ci) & (cj >= ci - 2)
     if b > 3:
         mask[3] = False
     mask[0, t // 2, :] = False
-    q_u, k, v, g = (torch.randn(b, h, t, dk, generator=gen) for _ in range(4))
+    q_u, k, v, g = (torch.randn(b, h, n, dk, generator=gen) for n in (t, tk, tk, t))
     if identity:
-        v = torch.eye(t, dk).expand(b, h, t, dk).clone()
+        v = torch.eye(tk, dk).expand(b, h, tk, dk).clone()
         g = torch.eye(t, dk).expand(b, h, t, dk).clone()
     ab = 0.2 * torch.randn(b, h, t, d, generator=gen)
-    feats = torch.randn(t, d, generator=gen)
+    feats = torch.randn(tk, d, generator=gen)
     cast = [x.to(dev, dtype).contiguous() for x in (q_u, ab, k, v, feats)]
     seed = torch.tensor([ATTN_SEED], dtype=torch.int32, device=dev)
     return (*cast, mask.to(dev)), seed, g.to(dev, dtype).contiguous()
@@ -835,12 +850,18 @@ def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
 # ------------------------------------ attention at the other shipped widths
 
 # Conformer-L (configs/conformer_l.json: d=512, 8 heads) and Conformer-S
-# (configs/conformer_s.json: d=144, 4 heads) at T'=374; the keep-mask
-# shape has T' <= dk (identity v and dO)
+# (configs/conformer_s.json: d=144, 4 heads) at T'=374 (the narrow
+# kernels); the 1024-wide Conformer (Conformer XL's widths: d=1024, 8
+# heads of 128; the wide kernels) at its training shape and at a
+# streaming chunk shape (Tq = 16 queries against a 512-frame cache and
+# themselves); the keep-mask shape has T' <= dk (identity v and dO)
 ATTN_WIDTHS = {"conformer_l": dict(b=4, h=8, dk=64, d=512, keep=(4, 64)),
                "conformer_s": dict(b=8, h=4, dk=36, d=144, keep=(8, 36)),
-               # past every kernel's limit (D <= 512): all wrappers must refuse
-               "above the limit": dict(b=1, h=1, dk=64, d=576, keep=None)}
+               "conformer_xl": dict(b=32, h=8, dk=128, d=1024, keep=(4, 128)),
+               "conformer_xl chunk": dict(b=16, h=8, dk=128, d=1024, tq=16, tk=528,
+                                          keep=None),
+               # past every kernel's limit (dk <= 128): all wrappers must refuse
+               "above the limit": dict(b=1, h=1, dk=136, d=1024, keep=None)}
 
 
 def poison(*like) -> None:
@@ -856,12 +877,12 @@ def poison(*like) -> None:
 
 
 def check_attention_widths(dev) -> dict:
-    """The attention kernels at Conformer-L's and Conformer-S's head
-    widths (T'=374): the forward without and with dropout 0.1, dq and dkv,
+    """The attention kernels at each of ATTN_WIDTHS (T'=374, or the entry's
+    Tq and Tk): the forward without and with dropout 0.1, dq and dkv,
     against their plain versions in every dtype whose kernels take the
     width, with outputs poisoned beforehand (no element left unwritten);
     the backward bitwise repeatable and the keep-mask bit for bit. Past
-    the kernels' widths (D = 576), all three wrappers must raise
+    the kernels' widths (dk = 136), all three wrappers must raise
     ValueError before any launch, in both dtypes. Returns the largest
     error of each kernel."""
     import torch
@@ -871,14 +892,15 @@ def check_attention_widths(dev) -> dict:
     gen = torch.Generator().manual_seed(3)
     errs = dict.fromkeys(ATTENTION_KERNELS, 0.0)
     counters = (ra.rel_attention, ra.rel_attention_bwd_dq, ra.rel_attention_bwd_dkv)
-    t = 374
     for label, w in ATTN_WIDTHS.items():
         b, h, dk, d = w["b"], w["h"], w["dk"], w["d"]
+        t, tk = w.get("tq", 374), w.get("tk", w.get("tq", 374))
         scale = dk ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             tol = TOL[name]
-            args, seed, g = attention_train_inputs(dev, dtype, gen, b, t, dk=dk, d=d, h=h)
+            args, seed, g = attention_train_inputs(dev, dtype, gen, b, t, dk=dk, d=d, h=h,
+                                                   tk=tk)
             why = ra.width_error(dtype, dk, d)
             if why is not None:
                 before = [f.launches for f in counters]
@@ -908,7 +930,7 @@ def check_attention_widths(dev) -> dict:
                 bargs = (*args, seed, g, ref_lse, delta)
                 poison(((b, h, t, dk), torch.float32), ((b, h, t, d), torch.float32))
                 dq = ra.rel_attention_bwd_dq(*bargs, **kw)
-                poison(((b, h, t, dk), torch.float32), ((b, h, t, dk), torch.float32))
+                poison(((b, h, tk, dk), torch.float32), ((b, h, tk, dk), torch.float32))
                 dkv = ra.rel_attention_bwd_dkv(*bargs, **kw)
                 same = all(torch.equal(x, y) for x, y in zip(
                     (*dq, *dkv), (*ra.rel_attention_bwd_dq(*bargs, **kw),
@@ -921,7 +943,8 @@ def check_attention_widths(dev) -> dict:
                                tol)
                 for key, e in zip(ATTENTION_KERNELS, (e_f, e_q, e_kv)):
                     errs[key] = max(errs[key], e)
-                line = (f"kernels: attention {label} {name} B={b} H={h} T'={t} dk={dk} D={d}, "
+                line = (f"kernels: attention {label} {name} B={b} H={h} Tq={t} Tk={tk} dk={dk} "
+                        f"D={d} ({ra.route(dtype, dk, d)} kernels), "
                         f"dropout {rate}: max_abs_err fwd {e_f:.3g}, dq/dAB {e_q:.3g}, dK/dV "
                         f"{e_kv:.3g} (tol {tol} abs + rel; outputs poisoned with NaN "
                         f"beforehand), bitwise repeatable {same}")
@@ -932,6 +955,8 @@ def check_attention_widths(dev) -> dict:
                              f", dkv "
                              f"{time_ms(lambda: ra.rel_attention_bwd_dkv(*bargs, **kw)):.4f}")
                 print(line)
+            if w["keep"] is None:
+                continue
             kb, kt = w["keep"]
             args, seed, g = attention_train_inputs(dev, dtype, gen, kb, kt, dk=dk, d=d, h=h,
                                                    identity=True)
@@ -3324,11 +3349,14 @@ FBANK_KERNELS = ("fbank",)                     # no caller, as in the JAX packag
 
 
 def per_microbatch(layers: int, attention: bool, pruned: bool = True,
-                   joint: bool = False) -> dict:
+                   joint: bool = False, remat: bool = False) -> dict:
     """Launches per microbatch with the pruned loss or the full lattice (its
-    joint through the kernels with ``joint``); none depends on the labels."""
+    joint through the kernels with ``joint``); none depends on the labels.
+    With ``remat`` the backward reruns each layer's attention forward."""
     loss = PER_MICROBATCH if pruned else PER_MICROBATCH_FULL
-    return {**dict.fromkeys(ATTENTION_KERNELS, layers if attention else 0), "conv_block": 0,
+    n = layers if attention else 0
+    return {"rel_flash_attention": 2 * n if remat else n, "rel_flash_attention_bwd_dq": n,
+            "rel_flash_attention_bwd_dkv": n, "conv_block": 0,
             **loss, **dict.fromkeys(INT8_KERNELS, 0),
             **{k: n if joint and not pruned else 0 for k, n in JOINT_GRIDS.items()},
             **dict.fromkeys(FBANK_KERNELS, 0)}
@@ -3428,7 +3456,8 @@ def train_steps(trainer, steps: int = 3, batch: int = 32, seconds: float = 15.0)
     launches = launch_counts()
     m = cfg.model
     for k, n in per_microbatch(m.encoder_num_layers, m.use_pallas_attention,
-                               pruned=m.use_pruned_loss, joint=m.use_pallas_joint).items():
+                               pruned=m.use_pruned_loss, joint=m.use_pallas_joint,
+                               remat=m.remat).items():
         want = n * accum * steps
         check(launches[k] == want, f"{k} launched {launches[k]} times in {steps} steps, "
               f"expected {want}")
@@ -3675,6 +3704,177 @@ def check_remat_parity(par: dict) -> None:
                runs["rel_flash_attention_bwd_dkv"])
         check(got == (want, n, n), f"{name}: attention fwd / dq / dkv launches {got}, "
               f"expected {(want, n, n)}")
+
+
+# ------------------------------------------------ the 1024-wide Conformer
+
+# configs/conformer_l.json at the widths of Conformer XL (Zhang et al. 2020,
+# arXiv:2010.10504: d=1024, 8 heads, so dk=128; FFN 4096), which the
+# attention and conv kernels take on their wide path; its 17 layers cut to
+# WIDE_LAYERS to fit the smoke's time
+WIDE_MODEL = dict(encoder_dim=1024, num_heads=8, hidden_dim=4096)
+WIDE_LAYERS = 4
+WIDE_BATCH = 8               # (a), (b): B=8 x 15 s
+WIDE_SECONDS = 15.0
+WIDE_STEPS = 2               # (b): timed training steps after a warm-up
+WIDE_DECODES = 3             # (a): timed bf16 decodes after a warm-up
+
+
+def wide_config(**model):
+    """configs/conformer_l.json as shipped (pruned loss + CTC, dropout 0.1,
+    remat, bf16), CMVN and vocabulary cleared as in phase 6, at WIDE_MODEL's
+    widths and WIDE_LAYERS layers; ``model`` sets more fields."""
+    cfg = recipe_config(os.path.join(REPO, "configs", "conformer_l.json"))
+    cfg.model = dataclasses.replace(cfg.model, **WIDE_MODEL, encoder_num_layers=WIDE_LAYERS,
+                                    **model)
+    return cfg
+
+
+def conv_block_times(x, lens, p_norm, p_conv, k: int) -> dict:
+    """Kernel and plain times (CUDA events) of the conv block on these
+    inputs, and its bound from them: the bytes of inputs, weights and
+    outputs against the pointwise products of the valid frames (frames
+    past a row's length need none: their pw1 input is zero, their output
+    masked; on the tensor cores in bf16) and the depthwise taps
+    (float32). Returns the JSON entry without ``max_abs_err`` and
+    ``launches``."""
+    import torch
+
+    from conformer_tpu_torch.ops.conv_block import conv_block, conv_block_plain, kernel_weights
+
+    out = conv_block(x, lens, p_norm, p_conv, kernel_size=k)
+    frames, d = float(lens.sum()), x.shape[-1]
+    mm_rate = (BF16_TFLOPS if x.dtype == torch.bfloat16 else F32_TFLOPS) * 1e12
+    ops_s = (2.0 * frames * d * 3 * d) / mm_rate + 2.0 * frames * d * k / (F32_TFLOPS * 1e12)
+    bnd, by = bound_ms(nbytes(x, *out, lens, *kernel_weights(p_norm, p_conv, x.dtype).values()),
+                       ops_s)
+    return {"name": "conv_block", "route": "cuda",
+            "source": "conformer_tpu_torch/csrc/conv_block.cu",
+            "replaces": "conformer_tpu/ops/pallas/conv_kernel.py:107",
+            "ms": time_ms(lambda: conv_block(x, lens, p_norm, p_conv, kernel_size=k)),
+            "plain_ms": time_ms(lambda: conv_block_plain(x, lens, p_norm, p_conv, kernel_size=k)),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+
+
+def wide_phase(dev, card: str) -> dict:
+    """6d: the 1024-wide Conformer on the wide kernels. (a) serve: a
+    ModelRunner (both encoder kernel flags, bf16, random weights from the
+    config's seed, which emit on most frames) decodes B=8 x 15 s through
+    ``decode_batch``: a warm-up, then WIDE_DECODES timed batches, the
+    counts set to 0 just before the first and read just after it; then the
+    f32 kernel path against the plain path on 8 utterances of 15 s
+    (encoders within 1e-3, identical hypotheses, tokens emitted). (b)
+    train: the recipe's Trainer with the attention kernel on (dropout 0.1,
+    remat): a warm-up and WIDE_STEPS timed steps of B=8 x 15 s (counts set
+    to 0 just before the timed steps and read just after), step ms and
+    peak memory; then f32 at dropout 0, kernel path vs plain path, under
+    BAND_LIMITS and the float32 FULL_PARITY_LIMITS. (c) the kernels' times
+    at the shapes these paths give them: the attention kernels at the
+    training shape (B=32, T'=374) and the conv block at the decode shape.
+    Returns the launches of the counted runs and the kernels' times."""
+    import torch
+
+    from conformer_tpu_torch.serve.runner import ModelRunner
+    from conformer_tpu_torch.train.loop import Trainer
+
+    layers, res = WIDE_LAYERS, {}
+    # (a) serve
+    cfg = wide_config(use_pallas_attention=True, use_pallas_conv=True)
+    runner = ModelRunner(cfg, device=dev)
+    feats, lens = batch_feats(runner, [WIDE_SECONDS] * WIDE_BATCH, seed=600)
+    runner.decode_batch(feats, lens)                 # warm-up
+    times, launches = [], None
+    for _ in range(WIDE_DECODES):
+        torch.cuda.synchronize()
+        if launches is None:
+            reset_launch_counts()
+        t0 = time.perf_counter()
+        hyps, hl = runner.decode_batch(feats, lens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if launches is None:
+            launches = launch_counts()
+    want = {**dict.fromkeys(kernel_wrappers(), 0), "rel_flash_attention": layers,
+            "conv_block": layers}
+    check(launches == want, f"wide decode: launches {launches} in a batch, expected {want}")
+    audio_s = WIDE_BATCH * WIDE_SECONDS
+    res["decode"] = {"ms": sorted(times)[len(times) // 2] * 1e3, "launches": launches,
+                     "audio_s_per_s": audio_s / (sum(times) / len(times)),
+                     "tokens": int(hl.sum())}
+    res["decode_parity"] = parity_f32(runner, runner.params, dev,
+                                      seconds=(WIDE_SECONDS,) * WIDE_BATCH)
+    del runner
+    torch.cuda.empty_cache()
+
+    # (b) train
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(wide_config(use_pallas_attention=True), device=dev)
+    check(trainer.cfg.model.remat and trainer.cfg.model.attention_dropout > 0,
+          "the wide recipe lost remat or attention dropout")
+    tr = train_steps(trainer, steps=WIDE_STEPS, batch=WIDE_BATCH, seconds=WIDE_SECONDS)
+    res["train"] = tr
+    res["train_parity"] = train_parity(trainer, batch=WIDE_BATCH, seconds=WIDE_SECONDS)
+    del trainer
+    torch.cuda.empty_cache()
+    res["launches"] = {k: launches[k] + tr["launches"][k] for k in launches}
+
+    # (c) the kernels' times at the paths' shapes
+    gen = torch.Generator().manual_seed(13)
+    res["times"] = attention_train_times(dev, gen, 32, 374, h=8, dk=128, d=1024,
+                                         label="1024-wide B=32 T'=374")
+    k = cfg.model.kernel_size
+    x, lens, p_norm, p_conv = conv_inputs(dev, torch.bfloat16, gen, b=WIDE_BATCH, t=374,
+                                          d=WIDE_MODEL["encoder_dim"], k=k)
+    res["times"]["conv_block"] = conv_block_times(x, lens, p_norm, p_conv, k)
+    res["conv_shape"] = f"B={WIDE_BATCH} T'=374 D={x.shape[-1]} K={k}"
+    return res
+
+
+def check_wide(res: dict, card: str) -> None:
+    dec, par = res["decode"], res["decode_parity"]
+    m = WIDE_MODEL
+    print(f"wide: {WIDE_LAYERS} layers, d={m['encoder_dim']}, {m['num_heads']} heads of "
+          f"{m['encoder_dim'] // m['num_heads']}, FFN {m['hidden_dim']}, "
+          f"bf16 decode B={WIDE_BATCH} x {WIDE_SECONDS:g} s through ModelRunner.decode_batch: "
+          f"{dec['ms']:.1f} ms a batch (median of {WIDE_DECODES}), {dec['audio_s_per_s']:.1f} "
+          f"audio-s/s, {dec['tokens']} tokens, launches in one batch {nonzero(dec['launches'])} "
+          f"({card})")
+    print(f"wide: f32 kernel path vs plain path, {WIDE_BATCH} x {WIDE_SECONDS:g} s: encoder "
+          f"max_abs_err {par['encoder_max_abs_err']:.3g} (tol 1e-3), mean "
+          f"{par['encoder_mean_abs_err']:.3g}; hyps identical {par['hyps_identical']}, hyp lens "
+          f"{par['hyp_lens']}")
+    check(par["finite"] and par["encoder_max_abs_err"] <= 1e-3 and par["hyps_identical"]
+          and max(par["hyp_lens"]) > 0,
+          "wide: the f32 kernel path's decode differs from the plain path's")
+    tr = res["train"]
+    for st in (tr["warmup"], *tr["steps"]):
+        print(f"wide train: step {st['step_s'] * 1e3:.1f} ms, loss {st['loss']:.4f} (ctc "
+              f"{st['loss_ctc']:.4f}, rnnt {st['loss_rnnt']:.4f}), grad norm "
+              f"{st['grad_norm']:.4g}, {st['leaves_changed']}/{st['leaves']} leaves changed")
+    print(f"wide train: recipe (pruned + CTC, dropout 0.1, remat, attention kernel), B="
+          f"{WIDE_BATCH} x {WIDE_SECONDS:g} s, accum_grad 2: {tr['step_s'] * 1e3:.1f} ms per step, "
+          f"{tr['audio_s_per_s']:.1f} training audio-s/s, peak memory {tr['peak_mem_gb']:.2f} "
+          f"GiB, launches in {WIDE_STEPS} steps {nonzero(tr['launches'])} ({card})")
+    par = res["train_parity"]
+    loss_lim, grad_lim, _ = FULL_PARITY_LIMITS["float32"]
+    worst = ", ".join(f"{k} {e:.3g}" for k, e in par["grad_worst_leaves"])
+    print(f"wide train parity: f32, dropout 0, kernel path vs plain path, B={WIDE_BATCH} x "
+          f"{WIDE_SECONDS:g} s: losses {par['losses']}, max rel err "
+          f"{par['loss_max_rel_err']:.3g} (limit {loss_lim}); gradients max err / max-abs, worst "
+          f"leaves: {worst} (limit {grad_lim}); s_begin differs in {par['s_begin_diff']} of "
+          f"{par['s_begin_entries']}, occupancy max abs err {par['occupancy_max_abs_err']:.3g}, "
+          f"argmax flips {par['argmax_flips']} (max gap {par['flip_max_gap']:.3g})")
+    check(par["s_begin_diff"] <= BAND_LIMITS["s_begin_diff_share"] * par["s_begin_entries"]
+          and par["occupancy_max_abs_err"] <= BAND_LIMITS["occupancy_max_abs_err"]
+          and par["flip_max_gap"] <= BAND_LIMITS["flip_max_gap"],
+          "wide: the kernel path's pruning band differs from the plain path's beyond its limits")
+    check(par["finite"] and par["loss_max_rel_err"] <= loss_lim
+          and par["grad_max_rel_err"] <= grad_lim,
+          "wide: the f32 training kernel path disagrees with the plain path")
+    e = res["times"]["conv_block"]
+    print(f"kernels: conv_block bf16 {res['conv_shape']}: kernel "
+          f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound {e['bound_ms'] * 1e3:.2f} us "
+          f"({e['bound_by']}) ({card})")
 
 
 # -------------------------------------------------------- train full lattice
@@ -4421,7 +4621,7 @@ def check_micro_kernels(dev, eval_shape: tuple, train_shape: tuple, v: int,
     import torch
 
     from conformer_tpu_torch.ops import rel_attention as ra
-    from conformer_tpu_torch.ops.conv_block import conv_block, conv_block_plain, kernel_weights
+    from conformer_tpu_torch.ops.conv_block import conv_block, conv_block_plain
 
     gen = torch.Generator().manual_seed(21)
     scale = 1 / math.sqrt(dk)
@@ -4455,18 +4655,9 @@ def check_micro_kernels(dev, eval_shape: tuple, train_shape: tuple, v: int,
     poison(((b, t, d), torch.float32))
     got = conv_block(x, lens, p_norm, p_conv, kernel_size=kernel_size)
     want = conv_block_plain(x, lens, p_norm, p_conv, kernel_size=kernel_size)
-    frames = float(lens.sum())
-    ops = 2.0 * frames * d * (3 * d) + 2.0 * frames * d * kernel_size
-    bnd, by = bound_ms(nbytes(x, *got, lens, *kernel_weights(p_norm, p_conv, x.dtype).values()),
-                       ops / (F32_TFLOPS * 1e12))
-    out.append({
-        "name": "conv_block", "source": "conformer_tpu_torch/csrc/conv_block.cu",
-        "replaces": "conformer_tpu/ops/pallas/conv_kernel.py:107",
-        "max_abs_err": compare("micro conv_block", got, want), "shape": f"sweep, B={b} T'={t}",
-        "ms": time_ms(lambda: conv_block(x, lens, p_norm, p_conv, kernel_size=kernel_size)),
-        "plain_ms": time_ms(lambda: conv_block_plain(x, lens, p_norm, p_conv,
-                                                     kernel_size=kernel_size)),
-        "bound_ms": bnd, "bound_by": by, "library_ms": None})
+    out.append({**conv_block_times(x, lens, p_norm, p_conv, kernel_size),
+                "max_abs_err": compare("micro conv_block", got, want),
+                "shape": f"sweep, B={b} T'={t}"})
     b, t, u = train_shape
     out += [{**e, "shape": f"training, B={b} T'={t} U={u} V={v}"} for e in check_training_kernels(
         dev, shapes=((b, t, u, v),), simple_long=(), guard=False).values()]
@@ -5420,6 +5611,14 @@ def main() -> int:
     attention_train_times(dev, torch.Generator().manual_seed(12), 32, 374, h=8, dk=64, d=512)
     print(f"train Conformer-L remat: in {time.perf_counter() - t0:.1f} s ({card})")
 
+    # 6d. the 1024-wide Conformer on the wide kernels: (a) serve, (b)
+    # train, counts set to 0 just before each counted run and read just
+    # after; (c) the kernels' times at those paths' shapes
+    t0 = time.perf_counter()
+    wide = wide_phase(dev, card)
+    check_wide(wide, card)
+    print(f"wide: in {time.perf_counter() - t0:.1f} s ({card})")
+
     # 7. host: the audio runtime built with g++ and held against the numpy
     # path on the card machine's CPU; host times on the fit corpus
     t0 = time.perf_counter()
@@ -5534,6 +5733,9 @@ def main() -> int:
     # and the micro phase's kernel paths: the decode sweep, the training
     # steps and the demo's stream
     for name, n in micro["launches"].items():
+        entries[name]["launches"] += n
+    # and the 1024-wide paths': one decode batch and the timed training steps
+    for name, n in wide["launches"].items():
         entries[name]["launches"] += n
 
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -45,10 +45,14 @@
 // the CUDA cores (no TF32: it would break the parity limit), launch 2
 // staging g with its K-1 frame halo in shared memory.
 //
-// No limit depends on T. D must be a multiple of 16, at most 512 (the
-// shipped widths: Conformer-S 144, M 256, L 512); bf16 takes K <= 32 (the
-// register window), float32 what fits shared memory (K <= 17 at D = 512).
-// The C entry refuses other shapes before any launch.
+// No limit depends on T. The designs above are the narrow path: D a
+// multiple of 16 up to 512 (the shipped widths: Conformer-S 144, M 256, L
+// 512), bf16 K <= 32 (the register window), float32 what fits shared
+// memory (K <= 17 at D = 512). Wider D (to 2048: Conformer XL's 1024 among
+// them) or larger K (to 64) take the wide path (see its note below), whose
+// launch 1 takes 32 frames a block and two-pass LayerNorms over shared
+// memory, and whose launch 2 takes 16 frames, streams the depthwise taps
+// and pw2's columns. The C entry refuses other shapes before any launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +80,24 @@ __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x
 // (relative error ~2^-21, far below the bf16 rounding of what it feeds)
 __device__ __forceinline__ float sigmoid_fast(float x) { return __fdividef(1.f, 1.f + __expf(-x)); }
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// (mean, rstd) of the D values of a row in shared memory, by one warp, in
+// two passes (the mean, then the squares about it) as the plain LayerNorm
+template <typename T>
+__device__ __forceinline__ float2 row_stats(const T* row, int D, int lane) {
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32) s += to_f(row[c]);
+  const float mean = warp_sum(s) / D;
+  float q = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float d = to_f(row[c]) - mean;
+    q += d * d;
+  }
+  return make_float2(mean, rsqrtf(warp_sum(q) / D + LN_EPS));
+}
+
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
@@ -99,21 +121,26 @@ constexpr int Q1_K = 16;              // W1 rows per ring stage
 constexpr int Q1_S = 4;               // ring stages
 constexpr int Q1_LDW = 2 * Q1_C + 8;  // a | b columns of a stage row, padded
 
-__host__ __device__ constexpr size_t q1_smem(int D) {
-  return 2 * ((size_t)Q1_M * (D + 8) + (size_t)Q1_S * Q1_K * Q1_LDW);
+__host__ __device__ constexpr int q1_rows(bool wide) { return wide ? 32 : Q1_M; }
+__host__ __device__ constexpr size_t q1_smem(int D, bool wide) {
+  return 2 * ((size_t)q1_rows(wide) * (D + 8) + (size_t)Q1_S * Q1_K * Q1_LDW);
 }
 
+// WIDE: 32 frames a block (one 16-row tile a warp) and LN_pre in two passes
+// over the bf16 row in shared memory, so no register array grows with D
+template <bool WIDE>
 __global__ void __launch_bounds__(NT) pw1_glu_bf16_kernel(
     const bf16* __restrict__ x, const int* __restrict__ lengths,
     const float* __restrict__ pre_s, const float* __restrict__ pre_b,
     const bf16* __restrict__ w1, const float* __restrict__ b1, float* __restrict__ glu, int M,
     int Tlen, int D) {
+  constexpr int RM = q1_rows(WIDE), MI = RM / 32;   // frames; 16-row tiles a warp
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldy = D + 8;
-  bf16* ys = reinterpret_cast<bf16*>(smem);   // y [Q1_M][ldy]
-  bf16* ws = ys + Q1_M * ldy;                 // W1 ring [Q1_S][Q1_K][Q1_LDW]
+  bf16* ys = reinterpret_cast<bf16*>(smem);   // y [RM][ldy]
+  bf16* ws = ys + RM * ldy;                   // W1 ring [Q1_S][Q1_K][Q1_LDW]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.x * Q1_M, c0 = blockIdx.y * Q1_C, nk = D / Q1_K;
+  const int m0 = blockIdx.x * RM, c0 = blockIdx.y * Q1_C, nk = D / Q1_K;
 
   // stage of W1 rows [16 kc, 16 kc + 16): 16 rows x 2 halves x 16 pieces of
   // 16 B, two pieces per thread; channels past D read as zero
@@ -129,7 +156,7 @@ __global__ void __launch_bounds__(NT) pw1_glu_bf16_kernel(
   };
   // the block's rows of x into the y tile (rows past M zero), with W1's
   // first stage as one group, then the other stages
-  rel_attn::load_rows_async(ys, ldy, x, m0, Q1_M, M, D, tid, NT);
+  rel_attn::load_rows_async(ys, ldy, x, m0, RM, M, D, tid, NT);
 #pragma unroll
   for (int s = 0; s < Q1_S - 1; ++s) {
     if (s < nk) load_w(s);
@@ -140,7 +167,7 @@ __global__ void __launch_bounds__(NT) pw1_glu_bf16_kernel(
 
   // y = LN_pre(x) rounded to bf16 in place, zero for frames past the
   // length: one warp per row, lane holding columns 64 i + 2 lane, + 1
-  for (int r = warp; r < Q1_M; r += NT / 32) {
+  for (int r = warp; r < RM; r += NT / 32) {
     const int m = m0 + r;
     bool valid = false;
     if (m < M) {
@@ -151,6 +178,16 @@ __global__ void __launch_bounds__(NT) pw1_glu_bf16_kernel(
     if (!valid) {
       for (int c = 2 * lane; c < D; c += 64)
         *reinterpret_cast<__nv_bfloat162*>(yr + c) = __floats2bfloat162_rn(0.f, 0.f);
+      continue;
+    }
+    if constexpr (WIDE) {
+      const float2 st = row_stats(yr, D, lane);
+      for (int c = 2 * lane; c < D; c += 64) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(yr + c));
+        *reinterpret_cast<__nv_bfloat162*>(yr + c) = __floats2bfloat162_rn(
+            (f.x - st.x) * st.y * pre_s[c] + pre_b[c],
+            (f.y - st.x) * st.y * pre_s[c + 1] + pre_b[c + 1]);
+      }
       continue;
     }
     float v[MAX_D / 32];
@@ -183,11 +220,12 @@ __global__ void __launch_bounds__(NT) pw1_glu_bf16_kernel(
     }
   }
 
-  // h = y W1: warp (wr, wc) owns rows 32 wr .. 32 wr + 31 and channels
-  // c0 + 32 wc .. + 31: n8 tiles 0-3 of the a half, 4-7 of the b half
+  // h = y W1: warp (wr, wc) owns rows 16 MI wr .. 16 MI wr + 16 MI - 1
+  // and channels c0 + 32 wc .. + 31: n8 tiles 0-3 of the a half, 4-7 of
+  // the b half
   const int wr = warp >> 2, wc = warp & 3;
   const int live = min(4, max(0, (D - c0 - 32 * wc) / 8));   // n8 tiles of channels < D
-  float acc[2][8][4] = {};
+  float acc[MI][8][4] = {};
   for (int kc = 0; kc < nk; ++kc) {
     rel_attn::cp_async_wait<Q1_S - 2>();
     __syncthreads();
@@ -195,10 +233,10 @@ __global__ void __launch_bounds__(NT) pw1_glu_bf16_kernel(
     rel_attn::cp_async_commit();
     if (live == 0) continue;
     const bf16* wt = ws + (kc % Q1_S) * Q1_K * Q1_LDW;
-    uint32_t a[2][4];
+    uint32_t a[MI][4];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-      rel_attn::load_a(a[mi], ys, ldy, 32 * wr + 16 * mi, kc * Q1_K, lane);
+    for (int mi = 0; mi < MI; ++mi)
+      rel_attn::load_a(a[mi], ys, ldy, 16 * MI * wr + 16 * mi, kc * Q1_K, lane);
 #pragma unroll
     for (int half = 0; half < 2; ++half)
 #pragma unroll
@@ -206,7 +244,7 @@ __global__ void __launch_bounds__(NT) pw1_glu_bf16_kernel(
         uint32_t bf[4];
         rel_attn::load_bt(bf, wt, Q1_LDW, 0, half * Q1_C + 32 * wc + 16 * p, lane);
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
+        for (int mi = 0; mi < MI; ++mi) {
           rel_attn::mma(acc[mi][4 * half + 2 * p], a[mi], bf[0], bf[1]);
           rel_attn::mma(acc[mi][4 * half + 2 * p + 1], a[mi], bf[2], bf[3]);
         }
@@ -214,10 +252,10 @@ __global__ void __launch_bounds__(NT) pw1_glu_bf16_kernel(
   }
   // g = (h_a + b1_a) sigmoid(h_b + b1_b) on the accumulators
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = m0 + 32 * wr + 16 * mi + (lane >> 2) + 8 * h;
+      const int m = m0 + 16 * MI * wr + 16 * mi + (lane >> 2) + 8 * h;
       if (m >= M) continue;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
@@ -616,6 +654,253 @@ __global__ void __launch_bounds__(NT) dw_ln_pw2_f32_kernel(
   if (blockIdx.x == 0) write_cache<float>(cache, gb, b, Tlen, D, ctx);
 }
 
+// ============================================================ wide path
+// D above 512 (up to MAX_D_WIDE) or K above the narrow kernels' (up to
+// MAX_K), in both dtypes. Launch 1 is pw1_glu_bf16_kernel<true> (32 frames
+// a block, LN_pre in two passes over shared memory) or the float32
+// pw1_glu_f32_kernel, which has no width limit. Launch 2 takes W2_T = 16
+// frames a block:
+//  - the depthwise taps: a thread per channel, its 16 frames' sums in
+//    registers, the taps streamed in windows of TAPS (16 + TAPS - 1 frames
+//    of g from L2 a window), so that no register array grows with K;
+//  - z [16, D] float32 in shared memory, LN and swish a warp per frame in
+//    two passes over it (into a bf16 tile [16, D] for the tensor cores, or
+//    in place in float32);
+//  - pw2 in column passes: W2's columns stream in [W2_K rows x NC columns]
+//    slices through a 2-stage cp.async ring, each warp owning NC / 8 of a
+//    pass's columns (bf16: mma.sync, 8 n8 tiles; float32: FMAs, 8 columns
+//    a lane for two frames), and out = x + mask(z W2 + b2) is written from
+//    the accumulators.
+// Shared memory: bf16 4 D 16 + 2 (D + 8) 16 + 2 (2 W2_K (512 + 8)) bytes
+// (225 KB at D = 2048), float32 4 D 16 + 2 (4 W2_K 256) bytes.
+constexpr int MAX_D_WIDE = 2048;
+constexpr int MAX_K = 64;
+constexpr int W2_T = 16;            // frames per block
+constexpr int W2_K = 16;            // W2 rows per ring stage
+constexpr int TAPS = 16;            // depthwise taps per register window
+constexpr int W2_NC_BF16 = 512;     // pw2 columns per pass, bf16
+constexpr int W2_NC_F32 = 256;      // pw2 columns per pass, float32
+
+__host__ __device__ constexpr size_t w2_smem(int D, bool bf16_) {
+  return bf16_ ? 4 * (size_t)W2_T * D + 2 * (size_t)W2_T * (D + 8) +
+                     2 * 2 * (size_t)W2_K * (W2_NC_BF16 + 8)
+               : 4 * (size_t)W2_T * D + 2 * 4 * (size_t)W2_K * W2_NC_F32;
+}
+
+// z = depthwise_K(g) + bd for frames [t0, t0 + W2_T) of one sequence into
+// zs [W2_T][D]: taps in ascending order, as the narrow kernels sum them
+__device__ __forceinline__ void depthwise_streamed(float* __restrict__ zs,
+                                                   const float* __restrict__ gb,
+                                                   const float* __restrict__ wd,
+                                                   const float* __restrict__ bd, int t0,
+                                                   int Tlen, int D, int K) {
+  const int lpad = (K - 1) / 2;
+  for (int c = threadIdx.x; c < D; c += NT) {
+    float a[W2_T];
+#pragma unroll
+    for (int r = 0; r < W2_T; ++r) a[r] = 0.f;
+    for (int tb = 0; tb < K; tb += TAPS) {
+      float w[TAPS], gv[W2_T + TAPS - 1];
+#pragma unroll
+      for (int i = 0; i < TAPS; ++i) w[i] = tb + i < K ? wd[(tb + i) * D + c] : 0.f;
+#pragma unroll
+      for (int i = 0; i < W2_T + TAPS - 1; ++i) {
+        const int t = t0 - lpad + tb + i;
+        gv[i] = (tb + i < K + W2_T - 1 && t >= 0 && t < Tlen) ? gb[(size_t)t * D + c] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < W2_T; ++r)
+#pragma unroll
+        for (int i = 0; i < TAPS; ++i)
+          if (tb + i < K) a[r] = fmaf(gv[r + i], w[i], a[r]);
+    }
+    const float bias = bd[c];
+#pragma unroll
+    for (int r = 0; r < W2_T; ++r) zs[r * D + c] = a[r] + bias;
+  }
+}
+
+// rows [row0, row0 + W2_K) and columns [c0, c0 + cols) of W2 [D][D] into
+// dst (rows ld apart) by 16-byte cp.async, columns >= D zero
+template <typename T>
+__device__ __forceinline__ void load_w2_slice(T* dst, int ld, const T* __restrict__ w2, int row0,
+                                              int D, int c0, int cols) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int per_row = cols / V;
+  for (int p = threadIdx.x; p < W2_K * per_row; p += NT) {
+    const int r = p / per_row, c = (p - r * per_row) * V, j = c0 + c;
+    const bool ok = j < D;
+    rel_attn::cp_async<16>(dst + r * ld + c, w2 + (size_t)(row0 + r) * D + (ok ? j : 0), ok);
+  }
+}
+
+__global__ void __launch_bounds__(NT) dw_ln_pw2_bf16_wide_kernel(
+    const bf16* __restrict__ x, const int* __restrict__ lengths, const float* __restrict__ glu,
+    const float* __restrict__ wd, const float* __restrict__ bd, const float* __restrict__ ln_s,
+    const float* __restrict__ ln_b, const bf16* __restrict__ w2, const float* __restrict__ b2,
+    bf16* __restrict__ out, bf16* __restrict__ cache, int Tlen, int D, int K) {
+  constexpr int NC = W2_NC_BF16, LDW = NC + 8, NT8 = NC / 8 / (NT / 32);   // 8 tiles a warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldq = D + 8;
+  float* zs = reinterpret_cast<float*>(smem);            // z [W2_T][D] float32
+  bf16* zq = reinterpret_cast<bf16*>(zs + W2_T * D);     // swish(LN(z)) [W2_T][ldq]
+  bf16* ws = zq + W2_T * ldq;                            // W2 ring [2][W2_K][LDW]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = blockIdx.x * W2_T, b = blockIdx.y;
+  const int len = lengths[b];
+  const float* gb = glu + (size_t)b * Tlen * D;
+  const bf16* xb = x + (size_t)b * Tlen * D;
+  bf16* ob = out + (size_t)b * Tlen * D;
+  const int nk = D / W2_K, steps = (D + NC - 1) / NC * nk;
+  auto load_w = [&](int st) {
+    load_w2_slice(ws + (st & 1) * W2_K * LDW, LDW, w2, (st % nk) * W2_K, D, (st / nk) * NC, NC);
+  };
+  load_w(0);
+  rel_attn::cp_async_commit();
+
+  depthwise_streamed(zs, gb, wd, bd, t0, Tlen, D, K);
+  __syncthreads();
+  for (int r = warp; r < W2_T; r += NT / 32) {   // LN, swish, rounded to bf16
+    const float* zr = zs + r * D;
+    const float2 st = row_stats(zr, D, lane);
+    for (int c = lane; c < D; c += 32) {
+      const float z = (zr[c] - st.x) * st.y * ln_s[c] + ln_b[c];
+      zq[r * ldq + c] = __float2bfloat16(z * sigmoid_fast(z));
+    }
+  }
+
+  float acc[NT8][4];
+  for (int st = 0; st < steps; ++st) {
+    const int kc = st % nk, n0 = (st / nk) * NC;
+    if (st + 1 < steps) {
+      load_w(st + 1);
+      rel_attn::cp_async_commit();
+      rel_attn::cp_async_wait<1>();
+    } else {
+      rel_attn::cp_async_wait<0>();
+    }
+    __syncthreads();   // the slice has landed (and, at the first step, zq)
+    if (kc == 0) {
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    }
+    const bf16* wt = ws + (st & 1) * W2_K * LDW;
+    uint32_t a[4];
+    rel_attn::load_a(a, zq, ldq, 0, kc * W2_K, lane);
+#pragma unroll
+    for (int j = 0; j < NT8; j += 2) {
+      uint32_t bf[4];
+      rel_attn::load_bt(bf, wt, LDW, 0, warp * 8 * NT8 + 8 * j, lane);
+      rel_attn::mma(acc[j], a, bf[0], bf[1]);
+      rel_attn::mma(acc[j + 1], a, bf[2], bf[3]);
+    }
+    __syncthreads();   // this stage is refilled two steps on
+    if (kc == nk - 1) {   // out = x + mask(z W2 + b2) for this pass's columns
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + (lane >> 2) + 8 * h;
+        if (t >= Tlen) continue;
+#pragma unroll
+        for (int j = 0; j < NT8; ++j) {
+          const int c = n0 + warp * 8 * NT8 + 8 * j + 2 * (lane & 3);
+          if (c >= D) continue;
+          const float2 xf =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xb + (size_t)t * D + c));
+          const bool on = t < len;
+          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)t * D + c) = __floats2bfloat162_rn(
+              xf.x + (on ? acc[j][2 * h] + b2[c] : 0.f),
+              xf.y + (on ? acc[j][2 * h + 1] + b2[c + 1] : 0.f));
+        }
+      }
+    }
+  }
+  if (blockIdx.x == 0) write_cache<bf16>(cache, gb, b, Tlen, D, K - 1);
+}
+
+__global__ void __launch_bounds__(NT) dw_ln_pw2_f32_wide_kernel(
+    const float* __restrict__ x, const int* __restrict__ lengths, const float* __restrict__ glu,
+    const float* __restrict__ wd, const float* __restrict__ bd, const float* __restrict__ ln_s,
+    const float* __restrict__ ln_b, const float* __restrict__ w2, const float* __restrict__ b2,
+    float* __restrict__ out, float* __restrict__ cache, int Tlen, int D, int K) {
+  constexpr int NC = W2_NC_F32, CC = NC / 32;   // a lane's columns of a pass
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* zs = reinterpret_cast<float*>(smem);   // z, then swish(LN(z)) [W2_T][D]
+  float* ws = zs + W2_T * D;                    // W2 ring [2][W2_K][NC]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = blockIdx.x * W2_T, b = blockIdx.y;
+  const int len = lengths[b];
+  const float* gb = glu + (size_t)b * Tlen * D;
+  const float* xb = x + (size_t)b * Tlen * D;
+  float* ob = out + (size_t)b * Tlen * D;
+  const int nk = D / W2_K, steps = (D + NC - 1) / NC * nk;
+  auto load_w = [&](int st) {
+    load_w2_slice(ws + (st & 1) * W2_K * NC, NC, w2, (st % nk) * W2_K, D, (st / nk) * NC, NC);
+  };
+  load_w(0);
+  rel_attn::cp_async_commit();
+
+  depthwise_streamed(zs, gb, wd, bd, t0, Tlen, D, K);
+  __syncthreads();
+  for (int r = warp; r < W2_T; r += NT / 32) {   // LN, swish, in place
+    float* zr = zs + r * D;
+    const float2 st = row_stats(zr, D, lane);
+    for (int c = lane; c < D; c += 32) {
+      const float z = (zr[c] - st.x) * st.y * ln_s[c] + ln_b[c];
+      zr[c] = z * sigmoidf(z);
+    }
+  }
+
+  // pw2: frames warp and warp + 8, columns n0 + lane + 32 cc of a pass
+  float acc[2][CC];
+  for (int st = 0; st < steps; ++st) {
+    const int kc = st % nk, n0 = (st / nk) * NC;
+    if (st + 1 < steps) {
+      load_w(st + 1);
+      rel_attn::cp_async_commit();
+      rel_attn::cp_async_wait<1>();
+    } else {
+      rel_attn::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kc == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int cc = 0; cc < CC; ++cc) acc[r][cc] = 0.f;
+    }
+    const float* wt = ws + (st & 1) * W2_K * NC;
+#pragma unroll 4
+    for (int kk = 0; kk < W2_K; ++kk) {
+      const float a0 = zs[warp * D + kc * W2_K + kk];
+      const float a1 = zs[(warp + 8) * D + kc * W2_K + kk];
+#pragma unroll
+      for (int cc = 0; cc < CC; ++cc) {
+        const float w = wt[kk * NC + lane + 32 * cc];
+        acc[0][cc] = fmaf(a0, w, acc[0][cc]);
+        acc[1][cc] = fmaf(a1, w, acc[1][cc]);
+      }
+    }
+    __syncthreads();
+    if (kc == nk - 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = t0 + warp + 8 * r;
+        if (t >= Tlen) continue;
+#pragma unroll
+        for (int cc = 0; cc < CC; ++cc) {
+          const int c = n0 + lane + 32 * cc;
+          if (c >= D) continue;
+          const float z = t < len ? acc[r][cc] + b2[c] : 0.f;
+          ob[(size_t)t * D + c] = xb[(size_t)t * D + c] + z;
+        }
+      }
+    }
+  }
+  if (blockIdx.x == 0) write_cache<float>(cache, gb, b, Tlen, D, K - 1);
+}
+
 // ------------------------------------------------------------------- host
 
 template <typename K>
@@ -624,9 +909,14 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-bool shape_ok(int D, int K, int is_bf16) {
-  if (D < 16 || D % 16 || D > MAX_D || K < 1) return false;
+// the narrow kernels: every shipped width (D <= 512, K = 15)
+bool narrow_shape(int D, int K, int is_bf16) {
+  if (D > MAX_D) return false;
   return is_bf16 ? K <= 32 : p2_smem(D, K) <= (size_t)SMEM_LIMIT;
+}
+
+bool shape_ok(int D, int K) {
+  return D >= 16 && D % 16 == 0 && D <= MAX_D_WIDE && K >= 1 && K <= MAX_K;
 }
 
 cudaError_t launch_bf16(const void* x, const void* lengths, const void* pre_s, const void* pre_b,
@@ -635,10 +925,12 @@ cudaError_t launch_bf16(const void* x, const void* lengths, const void* pre_s, c
                         void* out, void* cache, void* glu, cudaStream_t stream, int B, int Tlen,
                         int D, int K) {
   const int M = B * Tlen;
-  cudaError_t err = set_smem(pw1_glu_bf16_kernel, q1_smem(D));
+  const bool wide = !narrow_shape(D, K, 1);
+  auto kernel1 = wide ? pw1_glu_bf16_kernel<true> : pw1_glu_bf16_kernel<false>;
+  cudaError_t err = set_smem(kernel1, q1_smem(D, wide));
   if (err != cudaSuccess) return err;
-  dim3 grid1((M + Q1_M - 1) / Q1_M, (D + Q1_C - 1) / Q1_C);
-  pw1_glu_bf16_kernel<<<grid1, NT, q1_smem(D), stream>>>(
+  dim3 grid1((M + q1_rows(wide) - 1) / q1_rows(wide), (D + Q1_C - 1) / Q1_C);
+  kernel1<<<grid1, NT, q1_smem(D, wide), stream>>>(
       static_cast<const bf16*>(x), static_cast<const int*>(lengths),
       static_cast<const float*>(pre_s), static_cast<const float*>(pre_b),
       static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<float*>(glu), M,
@@ -646,11 +938,14 @@ cudaError_t launch_bf16(const void* x, const void* lengths, const void* pre_s, c
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto kernel = K <= 16 ? dw_ln_pw2_bf16_kernel<16> : dw_ln_pw2_bf16_kernel<32>;
-  err = set_smem(kernel, q2_smem(D));
+  auto kernel = wide ? dw_ln_pw2_bf16_wide_kernel
+                     : K <= 16 ? dw_ln_pw2_bf16_kernel<16> : dw_ln_pw2_bf16_kernel<32>;
+  const size_t smem2 = wide ? w2_smem(D, true) : q2_smem(D);
+  err = set_smem(kernel, smem2);
   if (err != cudaSuccess) return err;
-  dim3 grid2((Tlen + Q2_T - 1) / Q2_T, B);
-  kernel<<<grid2, NT, q2_smem(D), stream>>>(
+  const int t2 = wide ? W2_T : Q2_T;
+  dim3 grid2((Tlen + t2 - 1) / t2, B);
+  kernel<<<grid2, NT, smem2, stream>>>(
       static_cast<const bf16*>(x), static_cast<const int*>(lengths),
       static_cast<const float*>(glu), static_cast<const float*>(wd),
       static_cast<const float*>(bd), static_cast<const float*>(ln_s),
@@ -674,11 +969,14 @@ cudaError_t launch_f32(const void* x, const void* lengths, const void* pre_s, co
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem = p2_smem(D, K);
-  err = set_smem(dw_ln_pw2_f32_kernel, smem);
+  const bool wide = !narrow_shape(D, K, 0);
+  auto kernel = wide ? dw_ln_pw2_f32_wide_kernel : dw_ln_pw2_f32_kernel;
+  const size_t smem = wide ? w2_smem(D, false) : p2_smem(D, K);
+  err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid2((Tlen + P2_T - 1) / P2_T, B);
-  dw_ln_pw2_f32_kernel<<<grid2, NT, smem, stream>>>(
+  const int t2 = wide ? W2_T : P2_T;
+  dim3 grid2((Tlen + t2 - 1) / t2, B);
+  kernel<<<grid2, NT, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const int*>(lengths),
       static_cast<const float*>(glu), static_cast<const float*>(wd),
       static_cast<const float*>(bd), static_cast<const float*>(ln_s),
@@ -694,17 +992,17 @@ cudaError_t launch_f32(const void* x, const void* lengths, const void* pre_s, co
 // b2, bd, ln_s, ln_b float32 [D]; w1 [D,2D] and w2 [D,D] in x's dtype
 // (16-byte aligned); b1 float32 [2D]; wd float32 [K,D]; out [B,T,D] and
 // cache [B,K-1,D] in x's dtype; glu float32 scratch [B,T,D]. All
-// contiguous. D a multiple of 16 up to 512; bf16: K <= 32; float32: the
-// second launch's shared memory, 4 D (79 + 2 K) bytes, within a block's.
-// Returns the CUDA error code (0 on success; cudaErrorInvalidValue before
-// any launch for a shape outside these).
+// contiguous. D a multiple of 16 up to 2048 and 1 <= K <= 64: the narrow
+// kernels where narrow_shape holds, else the wide path. Returns the CUDA
+// error code (0 on success; cudaErrorInvalidValue before any launch for a
+// shape outside these).
 extern "C" int conv_block_fwd(const void* x, const void* lengths, const void* pre_s,
                               const void* pre_b, const void* w1, const void* b1,
                               const void* wd, const void* bd, const void* ln_s,
                               const void* ln_b, const void* w2, const void* b2,
                               void* out, void* cache, void* glu, void* stream, int B,
                               int Tlen, int D, int K, int is_bf16) {
-  if (!shape_ok(D, K, is_bf16)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(D, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       is_bf16 ? launch_bf16(x, lengths, pre_s, pre_b, w1, b1, wd, bd, ln_s, ln_b, w2, b2, out,

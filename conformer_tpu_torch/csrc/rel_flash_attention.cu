@@ -54,13 +54,28 @@
 // float32 design (the parity path): one block of 256 threads owns a 64-row
 // query tile, keeps Q in shared memory as float32, and streams 64-key tiles
 // of K, V and F with an online softmax; each thread owns a 4x4 register
-// tile of the scores and of the output, so dk <= 64, and products are
-// float32 FMAs on the CUDA cores. The position term's depth D streams in
-// chunks of F32_DC = 256 columns of AB and F: at D <= 256 (one chunk) AB
+// tile of the scores and a 4 x OC tile of the output (dk <= 16 OC), and
+// products are float32 FMAs on the CUDA cores. The position term's depth D
+// streams in chunks of DCM columns of AB and F: at D <= DCM (one chunk) AB
 // stays in shared memory for the whole block and F comes with each key
 // tile, as one product; above (Conformer-L, D = 512: 198 KB) each key tile
 // loads the chunks of AB and F in turn. The sums over d run in the same
-// order either way.
+// order either way. Narrow widths take OC = 4, DCM = 256; wide ones OC = 8,
+// DCM = 128 (182 KB at dk = 128), so no D is refused.
+//
+// Two paths by width (narrow_width, rel_attention_common.cuh): the designs
+// above are the narrow path, which every shipped width takes (dk <= 64,
+// bf16 score depth KD <= 576). The wide path takes dk up to 128 and any D
+// (Conformer XL / XXL, FastConformer-XL: d = 1024, 8 heads of 128), where
+// the bf16 tile [q+u | AB] of KD = 1152 would need 314 KB at 4 warps. Its
+// bf16 kernel (rel_flash_fwd_bf16_wide_kernel) keeps only q+u in shared
+// memory (DKM = 64 or 128 columns), takes the content term (q+u) K^T as one
+// product per 64-key tile and streams the position term's depth through a
+// 2-stage ring of 64-column chunks of AB and F: 89 KB at DKM = 128, for
+// any D, two blocks an SM. AB's rows are read once per key tile (from L2).
+// Bound at the 1024-wide training shape (B=32, H=8, T=374, dk=128, D=1024,
+// bf16): AB alone moves 196 MB (~59 us at 3.35 TB/s) against ~92 GFLOP of
+// products (~93 us at the bf16 tensor rate), so the products bound it.
 
 #include "rel_attention_common.cuh"
 
@@ -95,6 +110,9 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
+// OC output columns a thread (tx + 16 c, c < OC: dk <= 16 OC); AB and F's
+// columns in chunks of DCM
+template <int OC, int DCM>
 __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
     const float* __restrict__ qu, const float* __restrict__ ab, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ feats,
@@ -102,8 +120,8 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
     float* __restrict__ lse, int H, int Tq, int Tk, int dk, int D, float scale, int drop,
     uint32_t thr, int Ht, int Ho, float inv_keep) {
   extern __shared__ float smem[];
-  const int DC = min(D, F32_DC), DCp = DC + 1, dkp = dk + 1, BKp = BK + 1;  // +1: no bank conflicts
-  const bool one_chunk = D <= F32_DC;
+  const int DC = min(D, DCM), DCp = DC + 1, dkp = dk + 1, BKp = BK + 1;  // +1: no bank conflicts
+  const bool one_chunk = D <= DCM;
   float* sQ = smem;               // [BQ][dkp]
   float* sAB = sQ + BQ * dkp;     // [BQ][DCp]  a chunk of AB's columns
   float* sK = sAB + BQ * DCp;     // [BK][dkp]
@@ -125,13 +143,13 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
   load_cols(sQ, dkp, qg, q0, BQ, Tq, dk, 0, dk);
   if (one_chunk) load_cols(sAB, DCp, abg, q0, BQ, Tq, D, 0, D);
 
-  float m[4], l[4], acc[4][4];
+  float m[4], l[4], acc[4][OC];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < OC; ++c) acc[r][c] = 0.f;
   }
 
   for (int k0 = 0; k0 < Tk; k0 += BK) {
@@ -216,23 +234,23 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
       l[r] = l[r] * corr + row_sum16(rs);
       m[r] = m_new;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] *= corr;
+      for (int c = 0; c < OC; ++c) acc[r][c] *= corr;
     }
     __syncthreads();
 
     for (int j = 0; j < BK; ++j) {  // acc += P V
-      float p[4], vv[4];
+      float p[4], vv[OC];
 #pragma unroll
       for (int r = 0; r < 4; ++r) p[r] = sP[(ty + 16 * r) * BKp + j];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < OC; ++c) {
         const int d = tx + 16 * c;
         vv[c] = d < dk ? sV[j * dkp + d] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(p[r], vv[c], acc[r][c]);
+        for (int c = 0; c < OC; ++c) acc[r][c] = fmaf(p[r], vv[c], acc[r][c]);
     }
     __syncthreads();
   }
@@ -244,7 +262,7 @@ __global__ void __launch_bounds__(NT) rel_flash_fwd_f32_kernel(
     const bool live = l[r] > 0.f;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < OC; ++c) {
       const int d = tx + 16 * c;
       if (d < dk) out[(bh * Tq + i) * dk + d] = live ? acc[r][c] * inv : 0.f;
     }
@@ -452,34 +470,232 @@ __global__ void __launch_bounds__(NW * 32) rel_flash_fwd_bf16_kernel(
   }
 }
 
-// Shared memory of one block of the bf16 kernel of NW warps, in bytes; the
-// wrapper (ops/rel_attention.py) computes the same for NW = 4 to refuse
-// what does not fit.
-size_t fwd_bf16_smem(int dk, int D, int nw) {
-  const int kd = kd_pad(dk, D), ldv = dk_pad(dk) + 8;
-  return 2 * ((size_t)16 * nw * (kd + 8) + 2 * (size_t)8 * nw * (kd + 8 + ldv));
+// The wide path (dk up to 128, any D; see narrow_width): 4 warps own
+// W_MQ = 64 query rows, each warp 16, and stream key tiles of W_MK = 64
+// keys. q+u stays in shared memory, DKM columns wide; per key tile K and
+// V are loaded, the content term (q+u) K^T is one product of depth DKM,
+// and the position term AB F^T streams its depth through a 2-stage ring of
+// WCH-column chunks of AB's rows and F's, so that shared memory does not
+// grow with D. The softmax, dropout and P.V are the narrow kernel's, on a
+// 16 x 64 score fragment a warp and o[DKM / 8][4] in registers.
+constexpr int W_MQ = 64;
+constexpr int W_MK = 64;
+constexpr int W_NT = 128;
+
+template <int DKM>
+__global__ void __launch_bounds__(W_NT) rel_flash_fwd_bf16_wide_kernel(
+    const bf16* __restrict__ qu, const bf16* __restrict__ ab, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ feats,
+    const uint8_t* __restrict__ mask, const int* __restrict__ seed, bf16* __restrict__ out,
+    float* __restrict__ lse, int H, int Tq, int Tk, int dk, int D, float scale, int drop,
+    uint32_t thr, int Ht, int Ho, float inv_keep) {
+  constexpr int NKT = W_MK / 8, NO = DKM / 8, LDH = DKM + 8, STAGE = (W_MQ + W_MK) * WLDC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [W_MQ][LDH]  q+u
+  bf16* sK = sQ + W_MQ * LDH;                     // [W_MK][LDH]
+  bf16* sV = sK + W_MK * LDH;                     // [W_MK][LDH]
+  bf16* sC = sV + W_MK * LDH;                     // [2][W_MQ + W_MK][WLDC]  AB | F chunks
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c4 = lane & 3;
+  const int q0 = blockIdx.x * W_MQ, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
+  const bf16* abg = ab + bh * Tq * D;
+  const bf16* kg = k + bh * Tk * dk;
+  const bf16* vg = v + bh * Tk * dk;
+  const uint8_t* mg = mask + (size_t)b * Tq * Tk;
+  const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
+  const float sl2 = scale * LOG2E;
+  const int n_chunks = (D + WCH - 1) / WCH;
+
+  load_tile16(sQ, LDH, qu + bh * Tq * dk, q0, W_MQ, Tq, dk, 0, DKM, tid, W_NT);
+  cp_async_commit();
+  auto load_chunk = [&](int c, int k0) {
+    bf16* st = sC + (c & 1) * STAGE;
+    load_tile16(st, WLDC, abg, q0, W_MQ, Tq, D, c * WCH, WCH, tid, W_NT);
+    load_tile16(st + W_MQ * WLDC, WLDC, feats, k0, W_MK, Tk, D, c * WCH, WCH, tid, W_NT);
+  };
+  // s += A rows r0 .. r0 + 15 times B^T, B's 64 rows, depth [0, depth)
+  auto product = [&](float (&s)[NKT][4], const bf16* A, const bf16* B, int ld, int depth,
+                     int r0) {
+#pragma unroll 4
+    for (int kk = 0; kk < depth; kk += 16) {
+      uint32_t a[4];
+      load_a(a, A, ld, r0, kk, lane);
+#pragma unroll
+      for (int j = 0; j < NKT / 2; ++j) {
+        uint32_t bb[4];
+        load_b(bb, B, ld, 16 * j, kk, lane);
+        mma(s[2 * j], a, bb[0], bb[1]);
+        mma(s[2 * j + 1], a, bb[2], bb[3]);
+      }
+    }
+  };
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // m in log2 units
+  const int r0 = warp * 16;
+  int qi[2];
+  qi[0] = q0 + r0 + g;
+  qi[1] = qi[0] + 8;
+  const bool even = Tk % 2 == 0 && reinterpret_cast<uintptr_t>(mask) % 2 == 0;
+
+  for (int k0 = 0; k0 < Tk; k0 += W_MK) {
+    uint32_t mk[2][NKT];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < NKT; ++n) {
+        mk[r][n] = mask_pair(mg, qi[r], k0 + n * 8 + 2 * c4, Tq, Tk, even);
+        any |= mk[r][n] != 0u;
+      }
+    // a tile that the mask hides from every row of the block adds nothing;
+    // the vote is also the barrier after the last tile's reads
+    if (!__syncthreads_or(any)) continue;
+    load_tile16(sK, LDH, kg, k0, W_MK, Tk, dk, 0, DKM, tid, W_NT);
+    load_tile16(sV, LDH, vg, k0, W_MK, Tk, dk, 0, DKM, tid, W_NT);
+    cp_async_commit();
+    load_chunk(0, k0);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[NKT][4];
+#pragma unroll
+    for (int n = 0; n < NKT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    product(s, sQ, sK, LDH, DKM, r0);                    // (q+u) K^T
+    for (int c = 0; c < n_chunks; ++c) {                 // AB F^T, chunk by chunk
+      if (c + 1 < n_chunks) {
+        load_chunk(c + 1, k0);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* st = sC + (c & 1) * STAGE;
+      product(s, st, st + W_MQ * WLDC, WLDC, WCH, r0);
+      __syncthreads();   // this stage is refilled two chunks on
+    }
+
+    // online softmax on the fragment: rows g (r = 0) and g + 8 (r = 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < NKT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * r + e];
+          x = mask_bit(mk[r][n], e) ? x * sl2 : NEG_INF;
+          mx = fmaxf(mx, x);
+        }
+      const float m_new = fmaxf(m[r], quad_max(mx));
+      const float corr = m[r] > 0.5f * NEG_INF ? exp2_approx(m[r] - m_new) : 0.f;
+      float rs = 0.f;
+#pragma unroll
+      for (int n = 0; n < NKT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[n][2 * r + e];
+          const float p = x > 0.5f * NEG_INF ? exp2_approx(x - m_new) : 0.f;
+          rs += p;
+          x = p;
+          if (drop)
+            x = keep_prob(sd, hbh, (uint32_t)qi[r], (uint32_t)(k0 + n * 8 + 2 * c4 + e), thr)
+                    ? p * inv_keep
+                    : 0.f;
+        }
+      l[r] = l[r] * corr + rs;
+      m[r] = m_new;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][2 * r] *= corr;
+        o[n][2 * r + 1] *= corr;
+      }
+    }
+    // o += P V
+#pragma unroll
+    for (int kk = 0; kk < NKT / 2; ++kk) {
+      uint32_t a[4];
+      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t bv[4];
+        load_bt(bv, sV, LDH, kk * 16, n * 8, lane);
+        mma(o[n], a, bv[0], bv[1]);
+        mma(o[n + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lt = quad_sum(l[r]);
+    const int i = qi[r];
+    if (i >= Tq) continue;
+    const bool live = lt > 0.f;
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    bf16* orow = out + (bh * Tq + i) * dk;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = n * 8 + 2 * c4 + e;
+        if (d < dk) orow[d] = __float2bfloat16(live ? o[n][2 * r + e] * inv : 0.f);
+      }
+    if (c4 == 0) lse[bh * Tq + i] = live ? m[r] * LN2 + logf(fmaxf(lt, 1e-30f)) : LSE_BIG;
+  }
 }
 
-cudaError_t launch_f32(const void* qu, const void* ab, const void* k, const void* v,
-                       const void* feats, const void* mask, const void* seed, void* out,
-                       void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
-                       int D, float scale, int drop, uint32_t thr, int Ht, int Ho,
-                       float inv_keep) {
-  const size_t dcp = (size_t)min(D, F32_DC) + 1;
+constexpr size_t wide_fwd_smem(int dkm) {
+  return 2 * ((size_t)(W_MQ + 2 * W_MK) * (dkm + 8) + 2 * (size_t)(W_MQ + W_MK) * WLDC);
+}
+
+template <int OC, int DCM>
+cudaError_t launch_f32_oc(const void* qu, const void* ab, const void* k, const void* v,
+                          const void* feats, const void* mask, const void* seed, void* out,
+                          void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
+                          int D, float scale, int drop, uint32_t thr, int Ht, int Ho,
+                          float inv_keep) {
+  const size_t dcp = (size_t)min(D, DCM) + 1;
   const size_t smem = sizeof(float) * ((size_t)BQ * (dk + 1) + (size_t)BQ * dcp +
                                        2 * (size_t)BK * (dk + 1) + (size_t)BK * dcp +
                                        (size_t)BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      rel_flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      rel_flash_fwd_f32_kernel<OC, DCM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  rel_flash_fwd_f32_kernel<<<grid, NT, smem, stream>>>(
+  rel_flash_fwd_f32_kernel<OC, DCM><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(qu), static_cast<const float*>(ab),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(feats), static_cast<const uint8_t*>(mask),
       static_cast<const int*>(seed), static_cast<float*>(out), static_cast<float*>(lse), H,
       Tq, Tk, dk, D, scale, drop, thr, Ht, Ho, inv_keep);
   return cudaGetLastError();
+}
+
+// narrow: 4 output columns a thread, chunks of 256; wide: 8 and 128
+cudaError_t launch_f32(const void* qu, const void* ab, const void* k, const void* v,
+                       const void* feats, const void* mask, const void* seed, void* out,
+                       void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
+                       int D, float scale, int drop, uint32_t thr, int Ht, int Ho,
+                       float inv_keep) {
+  if (narrow_width(dk, D, false))
+    return launch_f32_oc<4, F32_DC>(qu, ab, k, v, feats, mask, seed, out, lse, stream, B, H,
+                                    Tq, Tk, dk, D, scale, drop, thr, Ht, Ho, inv_keep);
+  if (!wide_width(dk, D, false)) return cudaErrorInvalidValue;
+  return launch_f32_oc<8, 128>(qu, ab, k, v, feats, mask, seed, out, lse, stream, B, H, Tq,
+                               Tk, dk, D, scale, drop, thr, Ht, Ho, inv_keep);
 }
 
 template <int DKP, int NW>
@@ -502,24 +718,53 @@ cudaError_t launch_bf16_dkp(const void* qu, const void* ab, const void* k, const
   return cudaGetLastError();
 }
 
-// 8 warps (128 query rows) where their tile fits shared memory, else 4
-constexpr size_t SMEM_LIMIT = 232448;
+template <int DKM>
+cudaError_t launch_bf16_wide(const void* qu, const void* ab, const void* k, const void* v,
+                             const void* feats, const void* mask, const void* seed, void* out,
+                             void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk,
+                             int dk, int D, float scale, int drop, uint32_t thr, int Ht, int Ho,
+                             float inv_keep) {
+  constexpr size_t smem = wide_fwd_smem(DKM);
+  cudaError_t err = cudaFuncSetAttribute(rel_flash_fwd_bf16_wide_kernel<DKM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tq + W_MQ - 1) / W_MQ, H, B);
+  rel_flash_fwd_bf16_wide_kernel<DKM><<<grid, W_NT, smem, stream>>>(
+      static_cast<const bf16*>(qu), static_cast<const bf16*>(ab), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(feats),
+      static_cast<const uint8_t*>(mask), static_cast<const int*>(seed), static_cast<bf16*>(out),
+      static_cast<float*>(lse), H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho, inv_keep);
+  return cudaGetLastError();
+}
 
+// narrow: 8 warps (128 query rows) where their tile fits shared memory,
+// else 4; wide: DKM = 64 or 128
 cudaError_t launch_bf16(const void* qu, const void* ab, const void* k, const void* v,
                         const void* feats, const void* mask, const void* seed, void* out,
                         void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
                         int D, float scale, int drop, uint32_t thr, int Ht, int Ho,
                         float inv_keep) {
-  const bool wide = fwd_bf16_smem(dk, D, 8) <= SMEM_LIMIT;
+  if (!narrow_width(dk, D, true)) {
+    if (!wide_width(dk, D, true) || !aligned16(qu) || !aligned16(ab) || !aligned16(k) ||
+        !aligned16(v) || !aligned16(feats))
+      return cudaErrorInvalidValue;
+    return dk <= 64 ? launch_bf16_wide<64>(qu, ab, k, v, feats, mask, seed, out, lse, stream,
+                                           B, H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho,
+                                           inv_keep)
+                    : launch_bf16_wide<128>(qu, ab, k, v, feats, mask, seed, out, lse, stream,
+                                            B, H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho,
+                                            inv_keep);
+  }
+  const bool eight = fwd_bf16_smem(dk, D, 8) <= SMEM_LIMIT;
   switch (dk_pad(dk)) {
-#define CASE(P)                                                                              \
-  case P:                                                                                    \
-    return wide ? launch_bf16_dkp<P, 8>(qu, ab, k, v, feats, mask, seed, out, lse, stream, B, \
-                                        H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho,           \
-                                        inv_keep)                                             \
-                : launch_bf16_dkp<P, 4>(qu, ab, k, v, feats, mask, seed, out, lse, stream, B, \
-                                        H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho,           \
-                                        inv_keep);
+#define CASE(P)                                                                               \
+  case P:                                                                                     \
+    return eight ? launch_bf16_dkp<P, 8>(qu, ab, k, v, feats, mask, seed, out, lse, stream, B, \
+                                         H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho,           \
+                                         inv_keep)                                             \
+                 : launch_bf16_dkp<P, 4>(qu, ab, k, v, feats, mask, seed, out, lse, stream, B, \
+                                         H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho,           \
+                                         inv_keep);
     CASE(16) CASE(32) CASE(48) CASE(64)
 #undef CASE
     default: return cudaErrorInvalidValue;
@@ -531,13 +776,14 @@ cudaError_t launch_bf16(const void* qu, const void* ab, const void* k, const voi
 // q_u, k, v [B,H,Tq|Tk,dk]; ab [B,H,Tq,D]; feats [Tk,D]; mask uint8 [B,Tq,Tk];
 // seed int32 [1] (read only when drop != 0; may be null otherwise);
 // out [B,H,Tq,dk] (input dtype); lse float32 [B,H,Tq]. All contiguous.
-// dk <= 64; bf16: fwd_bf16_smem(dk, D, 4) within a block's shared memory,
-// float32: D <= 512 (any D fits; the float32 dq kernel's registers set the
-// limit). thr_bits is the uint32 keep threshold's bit pattern,
+// Widths: narrow_width or wide_width of rel_attention_common.cuh (dk <=
+// 128; bf16's wide path dk and D multiples of 8, inputs 16-byte aligned).
+// thr_bits is the uint32 keep threshold's bit pattern,
 // inv_keep 1/(1-rate). The keep-mask hashes head h of row b as
 // b * Ht + Ho + h: the heads' place among the Ht heads of the whole
 // attention under tensor parallelism ((H, 0) without it). Returns the
-// CUDA error code of the launch (0 on success).
+// CUDA error code of the launch (0 on success; cudaErrorInvalidValue
+// before any launch for widths outside both paths).
 extern "C" int rel_flash_attention_fwd(const void* qu, const void* ab, const void* k,
                                        const void* v, const void* feats,
                                        const void* mask, const void* seed, void* out,

@@ -51,17 +51,32 @@
 //
 // float32 design (the parity path): float32 FMAs on the CUDA cores, with
 // float32 tiles in shared memory. The position depth D streams in chunks of
-// F32_DC = 256 columns of AB and F, as in the forward: at D <= 256 one chunk
-// stays in shared memory, above (Conformer-L, D = 512) the chunks are loaded
-// in turn wherever the position term or dAB needs them.
+// DCM columns of AB and F, as in the forward: at D <= DCM one chunk stays
+// in shared memory, above (Conformer-L, D = 512) the chunks are loaded in
+// turn wherever the position term or dAB needs them.
 //  - dq: 256 threads own a 32-row query tile; Q and dO stay in shared
 //    memory while 64-key tiles of K, V and F stream through. Each thread
-//    keeps a 2 x 32 slice of dAB (rows ty+16r, columns tx+16c, 16 per
-//    chunk) and a 2 x 4 slice of dQ in registers, so D <= 512 and dk <= 64
-//    (157 KB of shared memory at L).
+//    keeps a 2 x 32 slice of dAB (rows ty+16r, columns tx+16c over NCH
+//    chunks) and a 2 x QC slice of dQ in registers (157 KB of shared memory
+//    at L).
 //  - dkv: 256 threads own a 64-key tile; K and V stay in shared memory (F
-//    too at D <= 256) while 32-row query tiles stream through; each thread
-//    holds a 4 x 4 slice of dK and of dV (165 KB at L).
+//    too at D <= DCM) while 32-row query tiles stream through; each thread
+//    holds a 4 x OC slice of dK and of dV (165 KB at L).
+//  Narrow widths: QC = OC = 4, DCM = 256, NCH = 2 (D <= 512). Wide: QC = OC
+//  = 8 (dk <= 128), DCM = 128, NCH = 4, and dq's grid splits dAB's columns
+//  into groups of 512, each block recomputing its tile's scores, so that no
+//  D is refused (157 and 166 KB at dk = 128).
+//
+// The wide bf16 path (dk up to 128, any D; rel_attention_common.cuh's
+// narrow_width decides, as in the forward): the dq kernel keeps a thread's
+// KD / 8 float32 accumulators of [dQu | dAB] (144 at KD = 1152, which
+// would spill) by splitting the output columns over the grid: a block owns
+// 32 query rows and 512 columns, recomputes S, dP and dS for them (three
+// groups at d = 1024, dk = 128), and holds 64 accumulators a thread. Both
+// kernels stream the score product's depth through a ring of 64-column
+// chunks of AB and F, as the forward's wide kernel (151 KB and 80 KB at
+// DKM = 128). Each output element still belongs to one block and is
+// summed in a fixed order: bitwise repeatable. See the kernels' notes.
 
 #include "rel_attention_common.cuh"
 
@@ -74,8 +89,8 @@ constexpr int DQ_BQ = 32;    // query rows of a dq block
 constexpr int DQ_BK = 64;    // key tile streamed by a dq block
 constexpr int KV_BK = 64;    // keys of a dkv block
 constexpr int KV_BQ = 32;    // query tile streamed by a dkv block
-constexpr int F32_DC = 256;  // columns of AB and F per chunk
-constexpr int F32_NCH = 2;   // chunks at most: D <= 512
+constexpr int F32_DC = 256;  // columns of AB and F per chunk (narrow)
+constexpr int F32_NCH = 2;   // chunks a dq block's dAB columns span (narrow: D <= 512)
 
 // rows [row0, row0 + rows) and columns [c0, c0 + dc) of src [n_rows][width]
 // into dst (row stride ld); rows at or past n_rows are zero
@@ -93,6 +108,11 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src, 
   load_cols(dst, ld, src, row0, rows, n_rows, width, 0, width, tid);
 }
 
+// QC dQ columns a thread (tx + 16 c: dk <= 16 QC); AB and F's columns in
+// chunks of DCM; a block's dAB columns span NCH chunks: with SPLIT the grid's
+// x holds ceil(D / (NCH DCM)) such column groups per query tile, each
+// recomputing the scores, so that D has no limit (dQ from group 0)
+template <int QC, int DCM, int NCH, bool SPLIT>
 __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
     const float* __restrict__ qu, const float* __restrict__ ab, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ feats,
@@ -102,9 +122,10 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
     int H, int Tq, int Tk, int dk, int D, float scale, int drop, uint32_t thr, int Ht,
     int Ho, float inv_keep) {
   extern __shared__ float smem[];
-  const int DC = min(D, F32_DC), DCp = DC + 1;
+  constexpr int CPC = DCM / 16;              // a thread's dAB columns per chunk
+  const int DC = min(D, DCM), DCp = DC + 1;
   const int dkp = dk + 1, BKp = DQ_BK + 1;   // +1: no bank conflicts
-  const bool one_chunk = D <= F32_DC;
+  const bool one_chunk = D <= DCM;
   float* sQ = smem;                  // [DQ_BQ][dkp]
   float* sAB = sQ + DQ_BQ * dkp;     // [DQ_BQ][DCp]  a chunk of AB's columns
   float* sdO = sAB + DQ_BQ * DCp;    // [DQ_BQ][dkp]
@@ -114,7 +135,9 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
   float* sDS = sF + DQ_BK * DCp;     // [DQ_BQ][BKp]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * DQ_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int nq = (Tq + DQ_BQ - 1) / DQ_BQ, grp = SPLIT ? blockIdx.x / nq : 0;
+  const int q0 = (blockIdx.x - grp * nq) * DQ_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int ab0 = grp * NCH * DCM;           // the block's first dAB column
   const size_t bh = (size_t)b * H + h;
   const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
   const float* abg = ab + bh * Tq * D;
@@ -132,14 +155,14 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
     row_delta[r] = i < Tq ? delta[bh * Tq + i] : 0.f;
   }
 
-  // dAB columns ch F32_DC + tx + 16c of chunk ch in acc_ab[r][16 ch + c]
-  float acc_q[2][4], acc_ab[2][16 * F32_NCH];
+  // dAB columns ab0 + ch DCM + tx + 16c of chunk ch in acc_ab[r][CPC ch + c]
+  float acc_q[2][QC], acc_ab[2][CPC * NCH];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc_q[r][c] = 0.f;
+    for (int c = 0; c < QC; ++c) acc_q[r][c] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 16 * F32_NCH; ++c) acc_ab[r][c] = 0.f;
+    for (int c = 0; c < CPC * NCH; ++c) acc_ab[r][c] = 0.f;
   }
 
   for (int k0 = 0; k0 < Tk; k0 += DQ_BK) {
@@ -220,7 +243,7 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
 #pragma unroll
       for (int r = 0; r < 2; ++r) ds[r] = sDS[(ty + 16 * r) * BKp + j];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < QC; ++c) {
         const int d = tx + 16 * c;
         const float kk = d < dk ? sK[j * dkp + d] : 0.f;
 #pragma unroll
@@ -228,8 +251,8 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
       }
     }
 #pragma unroll
-    for (int ch = 0; ch < F32_NCH; ++ch) {   // dAB += dS F, chunk by chunk
-      const int c0 = ch * F32_DC;
+    for (int ch = 0; ch < NCH; ++ch) {   // dAB += dS F, chunk by chunk
+      const int c0 = ab0 + ch * DCM;
       if (c0 >= D) break;
       if (!one_chunk) {
         __syncthreads();
@@ -241,11 +264,12 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
 #pragma unroll
         for (int r = 0; r < 2; ++r) ds[r] = sDS[(ty + 16 * r) * BKp + j];
 #pragma unroll
-        for (int c = 0; c < 16; ++c) {
+        for (int c = 0; c < CPC; ++c) {
           const int d = c0 + tx + 16 * c;
           const float ff = d < D ? sF[j * DCp + tx + 16 * c] : 0.f;
 #pragma unroll
-          for (int r = 0; r < 2; ++r) acc_ab[r][16 * ch + c] = fmaf(ds[r], ff, acc_ab[r][16 * ch + c]);
+          for (int r = 0; r < 2; ++r)
+            acc_ab[r][CPC * ch + c] = fmaf(ds[r], ff, acc_ab[r][CPC * ch + c]);
         }
       }
     }
@@ -257,18 +281,20 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dq_f32_kernel(
     const int i = q0 + ty + 16 * r;
     if (i >= Tq) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < QC; ++c) {
       const int d = tx + 16 * c;
-      if (d < dk) dq[(bh * Tq + i) * dk + d] = acc_q[r][c];
+      if (grp == 0 && d < dk) dq[(bh * Tq + i) * dk + d] = acc_q[r][c];
     }
 #pragma unroll
-    for (int c = 0; c < 16 * F32_NCH; ++c) {
-      const int d = (c / 16) * F32_DC + tx + 16 * (c % 16);
+    for (int c = 0; c < CPC * NCH; ++c) {
+      const int d = ab0 + (c / CPC) * DCM + tx + 16 * (c % CPC);
       if (d < D) dab[(bh * Tq + i) * D + d] = acc_ab[r][c];
     }
   }
 }
 
+// OC dK and dV columns a thread (tx + 16 c: dk <= 16 OC); chunks of DCM
+template <int OC, int DCM>
 __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
     const float* __restrict__ qu, const float* __restrict__ ab, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ feats,
@@ -278,9 +304,9 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
     float* __restrict__ dv_out, int H, int Tq, int Tk, int dk, int D, float scale,
     int drop, uint32_t thr, int Ht, int Ho, float inv_keep) {
   extern __shared__ float smem[];
-  const int DC = min(D, F32_DC), DCp = DC + 1;
+  const int DC = min(D, DCM), DCp = DC + 1;
   const int dkp = dk + 1, BKp = KV_BK + 1;
-  const bool one_chunk = D <= F32_DC;
+  const bool one_chunk = D <= DCM;
   float* sK = smem;                  // [KV_BK][dkp]
   float* sV = sK + KV_BK * dkp;      // [KV_BK][dkp]
   float* sF = sV + KV_BK * dkp;      // [KV_BK][DCp]  a chunk of F's columns
@@ -304,11 +330,11 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
   if (one_chunk) load_rows(sF, DCp, feats, k0, KV_BK, Tk, D, tid);
   const float* abg = ab + bh * Tq * D;
 
-  float acc_k[4][4], acc_v[4][4];
+  float acc_k[4][OC], acc_v[4][OC];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
+    for (int c = 0; c < OC; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
 
   for (int q0 = 0; q0 < Tq; q0 += KV_BQ) {
     load_rows(sQ, dkp, qu + bh * Tq * dk, q0, KV_BQ, Tq, dk, tid);
@@ -388,14 +414,14 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
     __syncthreads();
 
     for (int q = 0; q < KV_BQ; ++q) {   // dV += pd^T dO, dK += dS^T (q+u)
-      float pk[4], dsk[4], go[4], qq[4];
+      float pk[4], dsk[4], go[OC], qq[OC];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         pk[r] = sPd[q * BKp + ty + 16 * r];
         dsk[r] = sDS[q * BKp + ty + 16 * r];
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < OC; ++c) {
         const int d = tx + 16 * c;
         go[c] = d < dk ? sdO[q * dkp + d] : 0.f;
         qq[c] = d < dk ? sQ[q * dkp + d] : 0.f;
@@ -403,7 +429,7 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < OC; ++c) {
           acc_v[r][c] = fmaf(pk[r], go[c], acc_v[r][c]);
           acc_k[r][c] = fmaf(dsk[r], qq[c], acc_k[r][c]);
         }
@@ -416,7 +442,7 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
     const int j = k0 + ty + 16 * r;
     if (j >= Tk) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < OC; ++c) {
       const int d = tx + 16 * c;
       if (d < dk) {
         dk_out[(bh * Tk + j) * dk + d] = acc_k[r][c];
@@ -841,34 +867,414 @@ __global__ void __launch_bounds__(VNT) rel_flash_bwd_dkv_bf16_kernel(
   }
 }
 
+// ------------------------------------------------------------ wide, bf16
+// dk up to 128 and any D (see narrow_width). The score product's depth
+// streams as in the forward's wide kernel: the head columns (DKM wide) of
+// the block's own rows stay in shared memory, the other side's head
+// columns come per tile, and AB F^T's depth goes through a 2-stage ring of
+// WCH-column chunks.
+
+// dq: 8 warps own WQ_QB = 32 query rows and WQ_CW output columns of
+// [dQu (DKM) | dAB (D)] (column group grp of the grid's x: ceil((DKM + D) /
+// WQ_CW) groups a query tile, each recomputing S, dP and dS); per 64-key
+// tile, warp (rg, kg0) computes 16 rows x 16 keys of S, dP and dS, dS goes
+// to shared memory as bf16, and [dQu | dAB] (group columns) += dS . [K | F]
+// (the tile's group columns, loaded with K and V): each warp owns 64
+// columns for the 32 rows, acc[2][8][4] in registers.
+constexpr int WQ_QB = 32;
+constexpr int WQ_MK = 64;
+constexpr int WQ_CW = 512;
+constexpr int WQ_NT = 256;
+
+template <int DKM>
+__global__ void __launch_bounds__(WQ_NT) rel_flash_bwd_dq_bf16_wide_kernel(
+    const bf16* __restrict__ qu, const bf16* __restrict__ ab, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ feats,
+    const uint8_t* __restrict__ mask, const int* __restrict__ seed,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dab, int H,
+    int Tq, int Tk, int dk, int D, int nq, float scale, int drop, uint32_t thr, int Ht,
+    int Ho, float inv_keep) {
+  constexpr int LDH = DKM + 8, LDG = WQ_CW + 8, LDS = WQ_MK + 8;
+  constexpr int STAGE = (WQ_QB + WQ_MK) * WLDC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [WQ_QB][LDH]  q+u
+  bf16* sO = sQ + WQ_QB * LDH;                    // [WQ_QB][LDH]  dO
+  bf16* sK = sO + WQ_QB * LDH;                    // [WQ_MK][LDH]
+  bf16* sV = sK + WQ_MK * LDH;                    // [WQ_MK][LDH]
+  bf16* sG = sV + WQ_MK * LDH;                    // [WQ_MK][LDG]  [K | F], group columns
+  bf16* sC = sG + WQ_MK * LDG;                    // [2][WQ_QB + WQ_MK][WLDC]  AB | F chunks
+  bf16* sS = sC + 2 * STAGE;                      // [WQ_QB][LDS]  dS
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c4 = lane & 3;
+  const int grp = blockIdx.x / nq, q0 = (blockIdx.x - grp * nq) * WQ_QB;
+  const int col0 = grp * WQ_CW;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
+  const bf16* abg = ab + bh * Tq * D;
+  const bf16* kg = k + bh * Tk * dk;
+  const bf16* vg = v + bh * Tk * dk;
+  const uint8_t* mg = mask + (size_t)b * Tq * Tk;
+  const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
+  const float sl2 = scale * LOG2E;
+  const int n_chunks = (D + WCH - 1) / WCH;
+
+  load_tile16(sQ, LDH, qu + bh * Tq * dk, q0, WQ_QB, Tq, dk, 0, DKM, tid, WQ_NT);
+  load_tile16(sO, LDH, dout + bh * Tq * dk, q0, WQ_QB, Tq, dk, 0, DKM, tid, WQ_NT);
+  cp_async_commit();
+  auto load_chunk = [&](int c, int k0) {
+    bf16* st = sC + (c & 1) * STAGE;
+    load_tile16(st, WLDC, abg, q0, WQ_QB, Tq, D, c * WCH, WCH, tid, WQ_NT);
+    load_tile16(st + WQ_QB * WLDC, WLDC, feats, k0, WQ_MK, Tk, D, c * WCH, WCH, tid, WQ_NT);
+  };
+  // s (16 rows from rg x 16 keys from kg0) += A B^T over depth [0, depth)
+  auto product = [&](float (&s)[2][4], const bf16* A, const bf16* B, int ld, int depth,
+                     int rg, int kg0) {
+#pragma unroll 4
+    for (int kk = 0; kk < depth; kk += 16) {
+      uint32_t a[4], bb[4];
+      load_a(a, A, ld, rg, kk, lane);
+      load_b(bb, B, ld, kg0, kk, lane);
+      mma(s[0], a, bb[0], bb[1]);
+      mma(s[1], a, bb[2], bb[3]);
+    }
+  };
+
+  const int rg = (warp & 1) * 16, kg0 = (warp >> 1) * 16;
+  int qi[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qi[r] = q0 + rg + g + 8 * r;
+    lse2[r] = qi[r] < Tq ? lse[bh * Tq + qi[r]] * LOG2E : LSE_BIG;
+    dl[r] = qi[r] < Tq ? delta[bh * Tq + qi[r]] : 0.f;
+  }
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+  const bool even = Tk % 2 == 0 && reinterpret_cast<uintptr_t>(mask) % 2 == 0;
+
+  for (int k0 = 0; k0 < Tk; k0 += WQ_MK) {
+    uint32_t mk[2][2];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        mk[r][n] = mask_pair(mg, qi[r], k0 + kg0 + n * 8 + 2 * c4, Tq, Tk, even);
+        any |= mk[r][n] != 0u;
+      }
+    // a tile that the mask hides from every row of the block adds nothing;
+    // the vote is also the barrier after the last tile's reads
+    if (!__syncthreads_or(any)) continue;
+    load_tile16(sK, LDH, kg, k0, WQ_MK, Tk, dk, 0, DKM, tid, WQ_NT);
+    load_tile16(sV, LDH, vg, k0, WQ_MK, Tk, dk, 0, DKM, tid, WQ_NT);
+    if (col0 < DKM) {   // group 0: K's columns, then F's first WQ_CW - DKM
+      load_tile16(sG, LDG, kg, k0, WQ_MK, Tk, dk, 0, DKM, tid, WQ_NT);
+      load_tile16(sG + DKM, LDG, feats, k0, WQ_MK, Tk, D, 0, WQ_CW - DKM, tid, WQ_NT);
+    } else {
+      load_tile16(sG, LDG, feats, k0, WQ_MK, Tk, D, col0 - DKM, WQ_CW, tid, WQ_NT);
+    }
+    cp_async_commit();
+    load_chunk(0, k0);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float s[2][4], dp[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    product(s, sQ, sK, LDH, DKM, rg, kg0);               // (q+u) K^T
+    product(dp, sO, sV, LDH, DKM, rg, kg0);              // dO V^T
+    for (int c = 0; c < n_chunks; ++c) {                 // AB F^T, chunk by chunk
+      if (c + 1 < n_chunks) {
+        load_chunk(c + 1, k0);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* st = sC + (c & 1) * STAGE;
+      product(s, st, st + WQ_QB * WLDC, WLDC, WCH, rg, kg0);
+      __syncthreads();   // this stage is refilled two chunks on
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p =
+              mask_bit(mk[r][n], e) ? exp2_approx(s[n][2 * r + e] * sl2 - lse2[r]) : 0.f;
+          float dpv = dp[n][2 * r + e];
+          if (drop)
+            dpv = keep_prob(sd, hbh, (uint32_t)qi[r],
+                            (uint32_t)(k0 + kg0 + n * 8 + 2 * c4 + e), thr)
+                      ? dpv * inv_keep
+                      : 0.f;
+          ds[e] = p * (dpv - dl[r]) * scale;
+        }
+        *reinterpret_cast<uint32_t*>(sS + (rg + g + 8 * r) * LDS + kg0 + n * 8 + 2 * c4) =
+            pack_bf16(ds[0], ds[1]);
+      }
+    __syncthreads();
+
+    // [dQu | dAB] (group columns) += dS . [K | F]
+#pragma unroll
+    for (int kk = 0; kk < WQ_MK; kk += 16) {
+      uint32_t a0[4], a1[4];
+      load_a(a0, sS, LDS, 0, kk, lane);
+      load_a(a1, sS, LDS, 16, kk, lane);
+#pragma unroll
+      for (int n = 0; n < 8; n += 2) {
+        uint32_t bb[4];
+        load_bt(bb, sG, LDG, kk, warp * 64 + n * 8, lane);
+        mma(acc[0][n], a0, bb[0], bb[1]);
+        mma(acc[1][n], a1, bb[0], bb[1]);
+        mma(acc[0][n + 1], a0, bb[2], bb[3]);
+        mma(acc[1][n + 1], a1, bb[2], bb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + mt * 16 + g + 8 * r;
+      if (i >= Tq) continue;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = col0 + warp * 64 + n * 8 + 2 * c4 + e;
+          const float x = acc[mt][n][2 * r + e];
+          if (c < dk)
+            dq[(bh * Tq + i) * dk + c] = x;
+          else if (c >= DKM && c < DKM + D)
+            dab[(bh * Tq + i) * D + c - DKM] = x;
+        }
+    }
+}
+
+// dkv: 4 warps own WV_K = 64 keys, each warp 16; K and V stay in shared
+// memory while query tiles of WV_Q = 32 rows stream through: per tile q+u,
+// dO, lse and delta are loaded, S^T's content term is one product of depth
+// DKM and its position term streams F's and AB's chunks through the ring;
+// then, as the narrow kernel, dV += pd^T dO and dK += dS^T (q+u) with pd^T
+// and dS^T taken from the accumulator registers as bf16 A operands.
+constexpr int WV_K = 64;
+constexpr int WV_Q = 32;
+constexpr int WV_NT = 128;
+
+template <int DKM>
+__global__ void __launch_bounds__(WV_NT) rel_flash_bwd_dkv_bf16_wide_kernel(
+    const bf16* __restrict__ qu, const bf16* __restrict__ ab, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ feats,
+    const uint8_t* __restrict__ mask, const int* __restrict__ seed,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk_out,
+    float* __restrict__ dv_out, int H, int Tq, int Tk, int dk, int D, int unused,
+    float scale, int drop, uint32_t thr, int Ht, int Ho, float inv_keep) {
+  constexpr int LDH = DKM + 8, NO = DKM / 8, STAGE = (WV_K + WV_Q) * WLDC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // [WV_K][LDH]
+  bf16* sV = sK + WV_K * LDH;                     // [WV_K][LDH]
+  bf16* sQ = sV + WV_K * LDH;                     // [WV_Q][LDH]  q+u of the tile
+  bf16* sO = sQ + WV_Q * LDH;                     // [WV_Q][LDH]  dO of the tile
+  bf16* sC = sO + WV_Q * LDH;                     // [2][WV_K + WV_Q][WLDC]  F | AB chunks
+  float* sL = reinterpret_cast<float*>(sC + 2 * STAGE);   // [WV_Q] lse
+  float* sD = sL + WV_Q;                                  // [WV_Q] delta
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c4 = lane & 3;
+  const int k0 = blockIdx.x * WV_K, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
+  const bf16* qg = qu + bh * Tq * dk;
+  const bf16* abg = ab + bh * Tq * D;
+  const bf16* og = dout + bh * Tq * dk;
+  const uint8_t* mg = mask + (size_t)b * Tq * Tk;
+  const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
+  const float sl2 = scale * LOG2E;
+  const int n_chunks = (D + WCH - 1) / WCH;
+
+  load_tile16(sK, LDH, k + bh * Tk * dk, k0, WV_K, Tk, dk, 0, DKM, tid, WV_NT);
+  load_tile16(sV, LDH, v + bh * Tk * dk, k0, WV_K, Tk, dk, 0, DKM, tid, WV_NT);
+  cp_async_commit();
+  auto load_chunk = [&](int c, int q0) {
+    bf16* st = sC + (c & 1) * STAGE;
+    load_tile16(st, WLDC, feats, k0, WV_K, Tk, D, c * WCH, WCH, tid, WV_NT);
+    load_tile16(st + WV_K * WLDC, WLDC, abg, q0, WV_Q, Tq, D, c * WCH, WCH, tid, WV_NT);
+  };
+  // st (16 keys from r0 x 32 queries) += A B^T over depth [0, depth)
+  auto product = [&](float (&st)[4][4], const bf16* A, const bf16* B, int ld, int depth,
+                     int r0) {
+#pragma unroll 4
+    for (int kk = 0; kk < depth; kk += 16) {
+      uint32_t a[4], b0[4], b1[4];
+      load_a(a, A, ld, r0, kk, lane);
+      load_b(b0, B, ld, 0, kk, lane);
+      load_b(b1, B, ld, 16, kk, lane);
+      mma(st[0], a, b0[0], b0[1]);
+      mma(st[1], a, b0[2], b0[3]);
+      mma(st[2], a, b1[0], b1[1]);
+      mma(st[3], a, b1[2], b1[3]);
+    }
+  };
+
+  float acc_k[NO][4], acc_v[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  const int r0 = warp * 16;        // the warp's keys in the tile
+  int kj[2];
+  kj[0] = k0 + r0 + g;
+  kj[1] = kj[0] + 8;
+
+  for (int q0 = 0; q0 < Tq; q0 += WV_Q) {
+    // fragment element (r, n, e): key kj[r], query q0 + 8n + 2c4 + e
+    uint32_t mk[2][8];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int i = q0 + (c >> 1) * 8 + 2 * c4 + (c & 1);
+        mk[r][c] = i < Tq && kj[r] < Tk ? mg[(size_t)i * Tk + kj[r]] : 0u;
+        any |= mk[r][c] != 0u;
+      }
+    // a tile that the mask hides from every key of the block adds nothing;
+    // the vote is also the barrier after the last tile's reads
+    if (!__syncthreads_or(any)) continue;
+    load_tile16(sQ, LDH, qg, q0, WV_Q, Tq, dk, 0, DKM, tid, WV_NT);
+    load_tile16(sO, LDH, og, q0, WV_Q, Tq, dk, 0, DKM, tid, WV_NT);
+    if (tid < WV_Q) {
+      const int i = q0 + tid;
+      sL[tid] = i < Tq ? lse[bh * Tq + i] : LSE_BIG;
+      sD[tid] = i < Tq ? delta[bh * Tq + i] : 0.f;
+    }
+    cp_async_commit();
+    load_chunk(0, q0);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    product(st, sK, sQ, LDH, DKM, r0);                   // K (q+u)^T
+    product(dpt, sV, sO, LDH, DKM, r0);                  // V dO^T
+    for (int c = 0; c < n_chunks; ++c) {                 // F AB^T, chunk by chunk
+      if (c + 1 < n_chunks) {
+        load_chunk(c + 1, q0);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bf16* cs = sC + (c & 1) * STAGE;
+      product(st, cs, cs + WV_K * WLDC, WLDC, WCH, r0);
+      __syncthreads();   // this stage is refilled two chunks on
+    }
+    // st becomes pd^T, dpt becomes dS^T
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qc = n * 8 + 2 * c4 + e;
+          const float p = mk[r][n * 2 + e] != 0u
+                              ? exp2_approx(st[n][2 * r + e] * sl2 - sL[qc] * LOG2E)
+                              : 0.f;
+          float pd = p, dpv = dpt[n][2 * r + e];
+          if (drop) {
+            const bool kp = keep_prob(sd, hbh, (uint32_t)(q0 + qc), (uint32_t)kj[r], thr);
+            pd = kp ? p * inv_keep : 0.f;
+            dpv = kp ? dpv * inv_keep : 0.f;
+          }
+          st[n][2 * r + e] = pd;
+          dpt[n][2 * r + e] = p * (dpv - sD[qc]) * scale;
+        }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {           // dV += pd^T dO, dK += dS^T (q+u)
+      uint32_t ap[4], as[4];
+      acc_to_a(ap, st[2 * kk], st[2 * kk + 1]);
+      acc_to_a(as, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t bo[4], bq[4];
+        load_bt(bo, sO, LDH, kk * 16, n * 8, lane);
+        load_bt(bq, sQ, LDH, kk * 16, n * 8, lane);
+        mma(acc_v[n], ap, bo[0], bo[1]);
+        mma(acc_v[n + 1], ap, bo[2], bo[3]);
+        mma(acc_k[n], as, bq[0], bq[1]);
+        mma(acc_k[n + 1], as, bq[2], bq[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = kj[r];
+    if (j >= Tk) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = n * 8 + 2 * c4 + e;
+        if (d < dk) {
+          dk_out[(bh * Tk + j) * dk + d] = acc_k[n][2 * r + e];
+          dv_out[(bh * Tk + j) * dk + d] = acc_v[n][2 * r + e];
+        }
+      }
+  }
+}
+
 // ------------------------------------------------------------ launches
 
-constexpr size_t SMEM_LIMIT = 232448;   // bytes of shared memory a block may use
-
-// Shared memory of one block, in bytes; the wrapper (ops/rel_attention.py)
-// computes the same to refuse what does not fit.
+// Shared memory of one block, in bytes.
+template <int DCM>
 size_t dq_f32_smem(int dk, int D) {
-  const size_t dcp = (size_t)min(D, F32_DC) + 1;
+  const size_t dcp = (size_t)min(D, DCM) + 1;
   return sizeof(float) * ((size_t)2 * DQ_BQ * (dk + 1) + (size_t)DQ_BQ * dcp +
                           (size_t)2 * DQ_BK * (dk + 1) + (size_t)DQ_BK * dcp +
                           (size_t)DQ_BQ * (DQ_BK + 1));
 }
 
+template <int DCM>
 size_t dkv_f32_smem(int dk, int D) {
-  const size_t dcp = (size_t)min(D, F32_DC) + 1;
+  const size_t dcp = (size_t)min(D, DCM) + 1;
   return sizeof(float) * ((size_t)2 * KV_BK * (dk + 1) + (size_t)KV_BK * dcp +
                           (size_t)2 * KV_BQ * (dk + 1) + (size_t)KV_BQ * dcp +
                           (size_t)2 * KV_BQ * (KV_BK + 1) + 2 * KV_BQ);
 }
 
-size_t dq_bf16_smem(int dk, int D, int qb) {
-  const size_t lda = kd_pad(dk, D) + 8, ldv = dk_pad(dk) + 8;
-  return 2 * (qb * (lda + ldv) + 2 * QK * (lda + ldv) + qb * (QK + 8));
+constexpr size_t wide_dq_smem(int dkm) {
+  return 2 * ((size_t)(2 * WQ_QB + 2 * WQ_MK) * (dkm + 8) + (size_t)WQ_MK * (WQ_CW + 8) +
+              2 * (size_t)(WQ_QB + WQ_MK) * WLDC + (size_t)WQ_QB * (WQ_MK + 8));
 }
 
-size_t dkv_bf16_smem(int dk, int D) {
-  const size_t lda = kd_pad(dk, D) + 8, ldv = dk_pad(dk) + 8;
-  return 2 * (VK * (lda + ldv) + 2 * VQ * (lda + ldv)) + sizeof(float) * 4 * VQ;
+constexpr size_t wide_dkv_smem(int dkm) {
+  return 2 * ((size_t)(2 * WV_K + 2 * WV_Q) * (dkm + 8) + 2 * (size_t)(WV_K + WV_Q) * WLDC) +
+         sizeof(float) * 2 * WV_Q;
 }
 
 template <typename K, typename... Args>
@@ -891,7 +1297,8 @@ struct Args {
   float scale, inv_keep;
 };
 
-// a bf16 kernel: its extra int (dq: round16(dk); dkv: KD) follows D
+// a bf16 kernel: its extra int (narrow dq: round16(dk); narrow dkv: KD;
+// wide dq: query tiles; wide dkv: unused) follows D
 template <typename K>
 cudaError_t run(K kernel, size_t smem, dim3 grid, int threads, const Args& a, int extra) {
   return launch(kernel, smem, grid, threads, a.stream, static_cast<const bf16*>(a.qu),
@@ -920,21 +1327,44 @@ cudaError_t run_f32(void (*kernel)(const float*, const float*, const float*, con
                 a.Ht, a.Ho, a.inv_keep);
 }
 
+// the wide bf16 path's operands must be 16-byte aligned
+bool wide_ok(const Args& a) {
+  return wide_width(a.dk, a.D, true) && aligned16(a.qu) && aligned16(a.ab) && aligned16(a.k) &&
+         aligned16(a.v) && aligned16(a.feats) && aligned16(a.dout);
+}
+
 cudaError_t launch_dq(const Args& a, bool bf16_) {
-  if (!bf16_)
-    return run_f32(rel_flash_bwd_dq_f32_kernel, dq_f32_smem(a.dk, a.D),
-                          dim3((a.Tq + DQ_BQ - 1) / DQ_BQ, a.H, a.B), a);
+  const int nq32 = (a.Tq + DQ_BQ - 1) / DQ_BQ;
+  if (!bf16_) {
+    if (narrow_width(a.dk, a.D, false))
+      return run_f32(rel_flash_bwd_dq_f32_kernel<4, F32_DC, F32_NCH, false>,
+                     dq_f32_smem<F32_DC>(a.dk, a.D), dim3(nq32, a.H, a.B), a);
+    if (!wide_width(a.dk, a.D, false)) return cudaErrorInvalidValue;
+    const int groups = (a.D + 4 * 128 - 1) / (4 * 128);
+    return run_f32(rel_flash_bwd_dq_f32_kernel<8, 128, 4, true>, dq_f32_smem<128>(a.dk, a.D),
+                   dim3(nq32 * groups, a.H, a.B), a);
+  }
+  if (!narrow_width(a.dk, a.D, true)) {
+    if (!wide_ok(a)) return cudaErrorInvalidValue;
+    const int dkm = a.dk <= 64 ? 64 : 128;
+    const int nq = (a.Tq + WQ_QB - 1) / WQ_QB, groups = (dkm + a.D + WQ_CW - 1) / WQ_CW;
+    const dim3 grid(nq * groups, a.H, a.B);
+    return dkm == 64
+               ? run(rel_flash_bwd_dq_bf16_wide_kernel<64>, wide_dq_smem(64), grid, WQ_NT, a, nq)
+               : run(rel_flash_bwd_dq_bf16_wide_kernel<128>, wide_dq_smem(128), grid, WQ_NT, a,
+                     nq);
+  }
   // 64 rows (16 warps) where the block fits shared memory, else 32 (8 warps)
   const int kd = kd_pad(a.dk, a.D), dkp = dk_pad(a.dk);
-  const bool wide = kd <= 7 * 64 && dq_bf16_smem(a.dk, a.D, 64) <= SMEM_LIMIT;
-  const int qb = wide ? 64 : 32;
+  const bool rows64 = kd <= 7 * 64 && dq_bf16_smem(a.dk, a.D, 64) <= SMEM_LIMIT;
+  const int qb = rows64 ? 64 : 32;
   const dim3 grid((a.Tq + qb - 1) / qb, a.H, a.B);
   const size_t smem = dq_bf16_smem(a.dk, a.D, qb);
   switch (kd / 64) {
 #define CASE(N)                                                                            \
   case N:                                                                                  \
-    return wide ? run(rel_flash_bwd_dq_bf16_kernel<N, 64>, smem, grid, 512, a, dkp)  \
-                : run(rel_flash_bwd_dq_bf16_kernel<N, 32>, smem, grid, 256, a, dkp);
+    return rows64 ? run(rel_flash_bwd_dq_bf16_kernel<N, 64>, smem, grid, 512, a, dkp)      \
+                  : run(rel_flash_bwd_dq_bf16_kernel<N, 32>, smem, grid, 256, a, dkp);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7)
 #undef CASE
     case 8: return run(rel_flash_bwd_dq_bf16_kernel<8, 32>, smem, grid, 256, a, dkp);
@@ -944,9 +1374,23 @@ cudaError_t launch_dq(const Args& a, bool bf16_) {
 }
 
 cudaError_t launch_dkv(const Args& a, bool bf16_) {
-  if (!bf16_)
-    return run_f32(rel_flash_bwd_dkv_f32_kernel, dkv_f32_smem(a.dk, a.D),
-                          dim3((a.Tk + KV_BK - 1) / KV_BK, a.H, a.B), a);
+  const int nk64 = (a.Tk + KV_BK - 1) / KV_BK;
+  if (!bf16_) {
+    if (narrow_width(a.dk, a.D, false))
+      return run_f32(rel_flash_bwd_dkv_f32_kernel<4, F32_DC>, dkv_f32_smem<F32_DC>(a.dk, a.D),
+                     dim3(nk64, a.H, a.B), a);
+    if (!wide_width(a.dk, a.D, false)) return cudaErrorInvalidValue;
+    return run_f32(rel_flash_bwd_dkv_f32_kernel<8, 128>, dkv_f32_smem<128>(a.dk, a.D),
+                   dim3(nk64, a.H, a.B), a);
+  }
+  if (!narrow_width(a.dk, a.D, true)) {
+    if (!wide_ok(a)) return cudaErrorInvalidValue;
+    const dim3 grid((a.Tk + WV_K - 1) / WV_K, a.H, a.B);
+    return a.dk <= 64
+               ? run(rel_flash_bwd_dkv_bf16_wide_kernel<64>, wide_dkv_smem(64), grid, WV_NT, a, 0)
+               : run(rel_flash_bwd_dkv_bf16_wide_kernel<128>, wide_dkv_smem(128), grid, WV_NT,
+                     a, 0);
+  }
   const dim3 grid((a.Tk + VK - 1) / VK, a.H, a.B);
   const size_t smem = dkv_bf16_smem(a.dk, a.D);
   const int kd = kd_pad(a.dk, a.D);
@@ -964,11 +1408,11 @@ cudaError_t launch_dkv(const Args& a, bool bf16_) {
 // Inputs as rel_flash_attention_fwd's (q_u, ab, k, v, feats, mask, seed),
 // plus dout [B,H,Tq,dk] in the inputs' dtype and lse, delta float32
 // [B,H,Tq]. dq_kernel writes dq [B,H,Tq,dk] and dab [B,H,Tq,D]; dkv_kernel
-// writes dk, dv [B,H,Tk,dk]; all float32, contiguous. dk <= 64; bf16:
-// KD <= 576 (D <= 512 at dk = 64) with dq_bf16_smem(dk, D, 32) and
-// dkv_bf16_smem(dk, D) within a block's shared memory; float32: D <= 512.
-// Ht, Ho: the keep-mask's head total and offset, as the forward's.
-// Each returns the CUDA error code of its launch (0 on success).
+// writes dk, dv [B,H,Tk,dk]; all float32, contiguous. Widths as the
+// forward's: narrow_width or wide_width (dout 16-byte aligned too on bf16's
+// wide path). Ht, Ho: the keep-mask's head total and offset, as the
+// forward's. Each returns the CUDA error code of its launch (0 on success;
+// cudaErrorInvalidValue before any launch for widths outside both paths).
 extern "C" int rel_flash_attention_bwd_dq(
     const void* qu, const void* ab, const void* k, const void* v, const void* feats,
     const void* mask, const void* seed, const void* dout, const void* lse,

@@ -21,29 +21,36 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-MAX_D = 512             # channels, a multiple of 16 (Conformer-S 144, M 256, L 512)
-MAX_K_BF16 = 32         # the bf16 depthwise's register window
+NARROW_D = 512          # the narrow kernels' channels (Conformer-S 144, M 256, L 512)
+NARROW_K_BF16 = 32      # the narrow bf16 depthwise's register window
+MAX_D = 2048            # channels of the wide path, a multiple of 16; its pw2 tiles' shared memory
+MAX_K = 64              # the wide path's depthwise: at most four windows of 16 taps
+
+
+def route(dtype, d: int, kernel_size: int) -> str:
+    """Which kernels run width ``d`` and kernel size ``kernel_size`` in
+    ``dtype`` (``narrow_shape`` of ``csrc/conv_block.cu``): "narrow", the
+    designs every shipped width takes (D <= 512; bf16 K <= 32; float32 the
+    second launch's shared memory, 4 D (79 + 2 K) bytes, within a
+    block's), else "wide" (16 frames a block, taps and pw2 columns
+    streamed)."""
+    if d > NARROW_D:
+        return "wide"
+    if dtype == torch.bfloat16:
+        return "narrow" if kernel_size <= NARROW_K_BF16 else "wide"
+    return "narrow" if 4 * d * (79 + 2 * kernel_size) <= cuda_build.SMEM_LIMIT else "wide"
 
 
 def width_error(dtype, d: int, kernel_size: int) -> str | None:
     """Why the kernel refuses width ``d`` and kernel size ``kernel_size``
     in ``dtype``, or None where it takes them: D a multiple of 16 up to
-    512; bf16 K <= 32; float32 (the parity path) K such that its second
-    launch's shared memory, 4 D (79 + 2 K) bytes (g with its K-1 halo, z,
-    a W2 slice and the taps), fits a block's."""
+    2048 and 1 <= K <= 64, in float32 and bfloat16."""
     if d < 16 or d % 16 or d > MAX_D:
         return f"D={d}: the kernel takes D a multiple of 16 up to {MAX_D}"
-    if kernel_size < 1:
-        return f"K={kernel_size} < 1"
-    if dtype == torch.bfloat16:
-        if kernel_size > MAX_K_BF16:
-            return f"K={kernel_size} > {MAX_K_BF16} (bf16)"
-        return None
-    if dtype != torch.float32:
+    if not 1 <= kernel_size <= MAX_K:
+        return f"K={kernel_size}: the kernel takes 1 <= K <= {MAX_K}"
+    if dtype not in (torch.float32, torch.bfloat16):
         return f"x must be float32 or bfloat16, got {dtype}"
-    smem = 4 * d * (79 + 2 * kernel_size)
-    if smem > cuda_build.SMEM_LIMIT:
-        return f"D={d}, K={kernel_size}: float32 needs {smem} B of shared memory"
     return None
 
 

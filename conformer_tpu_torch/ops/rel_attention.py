@@ -35,8 +35,10 @@ from . import cuda_build
 NEG_INF = -1e30
 LSE_BIG = 1e30      # lse of a fully masked row
 _M32 = 0xFFFFFFFF
-MAX_DK = 64         # head width of every kernel's register tiles
-MAX_D_F32 = 512     # the float32 dq kernel keeps 32 dAB columns a thread
+MAX_DK = 128        # head width of the wide kernels' register tiles
+NARROW_DK = 64      # head width of the narrow kernels' register tiles
+NARROW_KD = 576     # the narrow bf16 kernels' score depth round64(round16(dk) + D)
+NARROW_D_F32 = 512  # the narrow float32 dq kernel keeps 32 dAB columns a thread
 
 
 # ------------------------------------------------------------ keep-mask hash
@@ -165,8 +167,8 @@ def _round_up(x: int, m: int) -> int:
 
 
 def bf16_smem(dk: int, d: int) -> dict[str, int]:
-    """Shared memory, in bytes, of one block of each bf16 kernel at head
-    width ``dk`` and bias width ``d``: the formulas of the launches
+    """Shared memory, in bytes, of one block of each narrow bf16 kernel at
+    head width ``dk`` and bias width ``d``: the formulas of the launches
     (``fwd_bf16_smem`` at 4 warps and ``dq_bf16_smem`` at 32 rows, their
     smallest blocks; ``dkv_bf16_smem``). Rows of [q+u | AB] and [K | F] are
     kd = round64(round16(dk) + d) wide, plus 8."""
@@ -179,24 +181,41 @@ def bf16_smem(dk: int, d: int) -> dict[str, int]:
     }
 
 
+def route(dtype, dk: int, d: int) -> str:
+    """Which path of the three kernels runs head width ``dk`` and bias
+    width ``d`` in ``dtype`` (``narrow_width`` of
+    ``csrc/rel_attention_common.cuh``): "narrow", the designs every shipped
+    width takes (dk <= 64; bf16: the score depth round64(round16(dk) + D)
+    <= 576 with each block within shared memory; float32: D <= 512), else
+    "wide" (dk <= 128, D streamed in chunks)."""
+    if dk > NARROW_DK:
+        return "wide"
+    if dtype == torch.bfloat16:
+        narrow = _round_up(_round_up(dk, 16) + d, 64) <= NARROW_KD and all(
+            need <= cuda_build.SMEM_LIMIT for need in bf16_smem(dk, d).values())
+    else:
+        narrow = d <= NARROW_D_F32
+    return "narrow" if narrow else "wide"
+
+
 def width_error(dtype, dk: int, d: int) -> str | None:
     """Why the kernels refuse head width ``dk`` and bias width ``d`` in
-    ``dtype``, or None where all three take them. bf16: dk <= 64, the
-    score product's depth round64(round16(dk) + d) <= 576 (D <= 512 at dk
-    = 64) and each block within shared memory. float32 (the parity path):
-    dk <= 64 and D <= 512."""
+    ``dtype``, or None where all three take them: dk <= 128 and any D; the
+    bf16 wide path (``route``) copies 16-byte pieces, so there dk and D are
+    multiples of 8."""
     if dk > MAX_DK:
         return f"dk={dk} > {MAX_DK}"
-    if dtype == torch.bfloat16:
-        if _round_up(_round_up(dk, 16) + d, 64) > 576:
-            return f"dk={dk}, D={d}: the score depth {_round_up(dk, 16) + d} > 576"
-        for name, need in bf16_smem(dk, d).items():
-            if need > cuda_build.SMEM_LIMIT:
-                return f"{name} at dk={dk}, D={d} needs {need} B of shared memory"
-        return None
-    if d > MAX_D_F32:
-        return f"the float32 kernels take D <= {MAX_D_F32}, got D={d}"
+    if (dtype == torch.bfloat16 and route(dtype, dk, d) == "wide"
+            and (dk % 8 or d % 8)):
+        return f"dk={dk}, D={d}: the bf16 wide kernels take dk and D multiples of 8"
     return None
+
+
+def _aligned(*tensors):
+    """The tensors, each copied to a fresh (16-byte aligned) block where its
+    data does not start on 16 bytes: the bf16 wide kernels copy 16-byte
+    pieces."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
 
 
 def _check(name, q_u, ab, k, v, k_feats, mask, seed, dropout_rate, dout=None, lse=None,
@@ -263,7 +282,7 @@ def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float, dropout_rate: f
 
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise: float32 or bfloat16 inputs of one dtype, contiguous, widths that
-    ``width_error`` passes (both dtypes up to D = 512);
+    ``width_error`` passes (``route`` says which kernels);
     ``seed`` an int32 CUDA tensor of one element when ``dropout_rate`` > 0.
     """
     keep_threshold(dropout_rate)
@@ -274,6 +293,8 @@ def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float, dropout_rate: f
                                    h_offset=h_offset)
     b, h, tq, tk, dk, d = _check("rel_attention", q_u, ab, k, v, k_feats, mask, seed,
                                  dropout_rate)
+    if q_u.dtype == torch.bfloat16 and route(q_u.dtype, dk, d) == "wide":
+        q_u, ab, k, v, k_feats = _aligned(q_u, ab, k, v, k_feats)
     fn = cuda_build.load_function("rel_flash_attention", "rel_flash_attention_fwd",
                                   n_ptrs=10, n_ints=11, n_floats=2)
     out = torch.empty((b, h, tq, dk), dtype=q_u.dtype, device=q_u.device)
@@ -295,6 +316,8 @@ def _bwd_kernel(symbol, q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, sc
                 dropout_rate, h_total, h_offset, out_shapes):
     b, h, tq, tk, dk, d = _check(symbol, q_u, ab, k, v, k_feats, mask, seed, dropout_rate,
                                  dout, lse, delta)
+    if q_u.dtype == torch.bfloat16 and route(q_u.dtype, dk, d) == "wide":
+        q_u, ab, k, v, k_feats, dout = _aligned(q_u, ab, k, v, k_feats, dout)
     fn = cuda_build.load_function("rel_flash_attention_bwd", symbol, n_ptrs=13, n_ints=11,
                                   n_floats=2)
     outs = [torch.empty(s, dtype=torch.float32, device=q_u.device) for s in out_shapes]

@@ -37,7 +37,7 @@ SRC = "conv_block"
 ABLATIONS = [
     ("base", SRC, []),
     ("launch 1: no LN", SRC,
-     [("  for (int r = warp; r < Q1_M; r += NT / 32) {\n    const int m = m0 + r;",
+     [("  for (int r = warp; r < RM; r += NT / 32) {\n    const int m = m0 + r;",
        "  for (int r = warp; r < 0; r += NT / 32) {\n    const int m = m0 + r;")]),
     ("launch 1: no pw1 product", SRC, [("    if (live == 0) continue;", "    if (true) continue;")]),
     ("launch 1: no W1 copies", SRC,

@@ -80,26 +80,38 @@ def test_rel_attention_wrapper_takes_plain_on_cpu():
 
 def test_kernel_width_limits():
     """The widths the CUDA wrappers take, checked before any launch: every
-    shipped attention width (Conformer-S, M, L) in bf16 and in float32,
-    which refuses D > 512; the DP kernels past 1024 states (their
-    shared-memory limits); the conv block at every shipped width (D 144,
-    256, 512 with K = 15) in both dtypes, refusing D past 512 or not a
-    multiple of 16, and in float32 a K whose shared memory does not fit;
-    the joint kernels at every shipped join width (J 320, 512, 640) in
-    bf16, float32 up to its stated limit J <= 512 (after padding J to a
-    multiple of 128), one width past each limit refused; the int8 kernels
-    at every shipped width (the matmul's K = D: 144, 256, 512; the FFN's
-    D / H: 144 / 576, 256 / 2048, 512 / 2048), refusing K past 1024 and D
-    past 512 or H past 2048."""
+    shipped attention width (Conformer-S, M, L) in bf16 and in float32 on
+    the narrow kernels, and the 1024-wide Conformer's (dk 128, D 1024; dk
+    64, D 1024) and D 2048 on the wide ones, refusing dk past 128 and, in
+    bf16's wide path, dk or D not a multiple of 8; the DP kernels past 1024
+    states (their shared-memory limits); the conv block at every shipped
+    width (D 144, 256, 512 with K = 15) on the narrow kernels and at D 1024
+    (K 15, 32, 64), D 2048 and float32 D 512 with K 31 on the wide ones,
+    refusing D past 2048 or not a multiple of 16 and K past 64; the joint
+    kernels at every shipped join width (J 320, 512, 640) in bf16, float32
+    up to its stated limit J <= 512 (after padding J to a multiple of 128),
+    one width past each limit refused; the int8 kernels at every shipped
+    width (the matmul's K = D: 144, 256, 512; the FFN's D / H: 144 / 576,
+    256 / 2048, 512 / 2048), refusing K past 1024 and D past 512 or H past
+    2048."""
     for d in (144, 256, 512):
         for dtype in (torch.bfloat16, torch.float32):
             assert pcb.width_error(dtype, d, 15) is None
+            assert pcb.route(dtype, d, 15) == "narrow"
     for dtype in (torch.bfloat16, torch.float32):
-        assert pcb.width_error(dtype, 528, 15) is not None
+        for k in (15, 32, 64):
+            assert pcb.width_error(dtype, 1024, k) is None
+            assert pcb.route(dtype, 1024, k) == "wide"
+        assert pcb.width_error(dtype, 2048, 31) is None
+        assert pcb.width_error(dtype, 528, 15) is None
+        assert "up to 2048" in pcb.width_error(dtype, 2064, 15)
         assert pcb.width_error(dtype, 150, 15) is not None
+        assert "K <= 64" in pcb.width_error(dtype, 1024, 65)
     assert pcb.width_error(torch.bfloat16, 512, 32) is None
-    assert pcb.width_error(torch.bfloat16, 512, 33) is not None
-    assert "shared memory" in pcb.width_error(torch.float32, 512, 31)
+    assert pcb.route(torch.bfloat16, 512, 33) == "wide"
+    assert pcb.width_error(torch.float32, 512, 31) is None
+    assert pcb.route(torch.float32, 512, 31) == "wide"
+    assert pcb.route(torch.float32, 512, 17) == "narrow"
     for j in (320, 512, 640):
         assert pjl.width_error(torch.bfloat16, j) is None
     assert pjl.width_error(torch.bfloat16, 641) is not None
@@ -107,14 +119,17 @@ def test_kernel_width_limits():
     assert pjl.width_error(torch.float32, 512) is None
     assert "J <= 512" in pjl.width_error(torch.float32, 513)
     assert "J <= 512" in pjl.width_error(torch.float32, 640)
-    for dk, d in ((36, 144), (64, 256), (64, 512)):
-        assert pra.width_error(torch.bfloat16, dk, d) is None
-    assert pra.width_error(torch.float32, 36, 144) is None
-    assert pra.width_error(torch.float32, 64, 256) is None
-    assert pra.width_error(torch.float32, 64, 512) is None
-    assert "D <= 512" in pra.width_error(torch.float32, 64, 576)
-    assert pra.width_error(torch.bfloat16, 64, 1024) is not None
-    assert pra.width_error(torch.bfloat16, 80, 256) is not None
+    for dtype in (torch.bfloat16, torch.float32):
+        for dk, d in ((36, 144), (64, 256), (64, 512)):
+            assert pra.width_error(dtype, dk, d) is None
+            assert pra.route(dtype, dk, d) == "narrow"
+        for dk, d in ((128, 1024), (64, 1024), (128, 2048), (96, 768), (64, 576)):
+            assert pra.width_error(dtype, dk, d) is None
+            assert pra.route(dtype, dk, d) == "wide"
+        assert "dk=136 > 128" in pra.width_error(dtype, 136, 1024)
+    assert "multiples of 8" in pra.width_error(torch.bfloat16, 68, 1024)
+    assert "multiples of 8" in pra.width_error(torch.bfloat16, 64, 1028)
+    assert pra.width_error(torch.float32, 68, 1028) is None
     for k in (144, 256, 512, 1024):
         assert pim.width_error(k) is None
     assert "K <= 1024" in pim.width_error(1056)

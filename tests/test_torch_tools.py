@@ -135,3 +135,33 @@ def test_golden_signals_and_torchaudio_gate(monkeypatch, tmp_path):
     with pytest.raises(ImportError, match="needs torchaudio"):
         p_golden.main(["--out", str(tmp_path / "g.npz")])
     assert not (tmp_path / "g.npz").exists()
+
+
+@pytest.mark.parametrize("driver", ["train", "eval", "preprocess_data"])
+def test_shell_drivers(driver, libri, tmp_path):
+    """scripts/torch_<driver>.sh as a user runs it, on the CPU: train and
+    eval with ``--print_config --device cpu`` (the config main would run,
+    with the driver's checkpoint directory; train copies the config there),
+    preprocess_data on the tiny corpus (its data list and CMVN statistics
+    equal the JAX tools')."""
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable) + os.pathsep + os.environ["PATH"],
+               CKPT_DIR=str(tmp_path / "ckpt"), LIBRISPEECH=str(libri),
+               OUT=str(tmp_path / "out"))
+    extra = (["--audio_ext", "wav"] if driver == "preprocess_data"
+             else ["--print_config", "--device", "cpu"])
+    proc = subprocess.run(["bash", os.path.join(REPO, "scripts", f"torch_{driver}.sh"), *extra],
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    if driver != "preprocess_data":
+        cfg = json.loads(proc.stdout)
+        assert cfg["train"]["checkpoint_dir"] == str(tmp_path / "ckpt")
+        assert cfg["model"]["encoder_num_layers"] == 12        # configs/conformer_m.json
+        assert (tmp_path / "ckpt" / "conformer_m.json").exists() == (driver == "train")
+        return
+    j_collect.collect(str(libri), str(tmp_path / "jax"), audio_ext="wav")
+    for name in ("data.list", "transcripts.txt"):
+        assert (tmp_path / "out" / name).read_text() == (tmp_path / "jax" / name).read_text()
+    want = j_cmvn.compute(str(tmp_path / "jax" / "data.list"), str(tmp_path / "jax" / "cmvn"),
+                          num_workers=1)
+    with open(tmp_path / "out" / "global_cmvn") as f:
+        assert json.load(f) == want
