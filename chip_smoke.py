@@ -20,9 +20,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                head widths (H=8, dk=64, D=512; H=4, dk=36, D=144: the
                narrow kernels) and the 1024-wide Conformer's (H=8, dk=128,
                D=1024 at B=32, T'=374 and at a chunk shape B=16, Tq=16,
-               Tk=528: the wide kernels), every output poisoned with NaN
-               first, in both dtypes, and every wrapper's ValueError at dk
-               = 136; the conv block at Conformer-S's and -L's widths (D =
+               Tk=528: the wide kernels; there in bf16 also at heads 8-15
+               of 16, the keep-mask's global head), every output poisoned
+               with NaN first, in both dtypes, and every wrapper's
+               ValueError at dk = 136; the conv block at Conformer-S's and -L's widths (D =
                144, 512 at K = 15; D = 512 at K = 31 too) and the 1024-wide
                Conformer's (D = 1024 at K = 15, 31, 32, 64; B=4, T'=374 and
                T'=9 < K-1) in both dtypes, outputs poisoned with NaN first,
@@ -46,17 +47,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
                int8_matmul bit for bit, int8_ffn within JAX's tolerances;
                both also at Conformer-S's and -L's widths (D / H = 144 /
                576, 512 / 2048; M = 374 and 37, outputs poisoned with NaN
-               first) and refused past their widths before any launch;
+               first), the FFN on its wide route at D / H = 1024 / 4096 and
+               2048 / 8192 (M = 2992 and 37), the matmul refused past K =
+               1024 before any launch;
                the three joint kernels (forward, bwd_xp, bwd_w; the bf16
                backward on wgmma with TMA) in float32 and bfloat16 at (B, T', U, V) = (32, 374, 64, 5002), (4, 412,
                200, 5002) and a tiny ragged shape with edge rows, against
                their plain versions and in float32 against autograd through
                the plain forward, the backward bitwise repeatable; the
                three also at Conformer-S's and -L's join widths (J = 320,
-               640; B=2, T'=200, U=30, V=5002) in bf16 (both pred dtypes)
-               and float32 at J = 320, outputs poisoned with NaN first,
-               float32 at J = 640 refused with ValueError before any
-               launch; the fbank kernel at 48 x 15 s against its plain version with
+               640) and at J = 1024 and a ragged 700 (B=2, T'=200, U=30,
+               V=5002; the wide kernels in float32 from 640, in bf16 past
+               640) in float32 and bf16 (both pred dtypes), outputs
+               poisoned with NaN first, the backward bitwise repeatable;
+               the fbank kernel at 48 x 15 s against its plain version with
                dither 0 and 1 and against the host fbank_numpy, its
                dither's statistics, its distance from a float64 fbank
                within 2x the plain version's, at edge shapes (N odd, T = 1,
@@ -223,7 +227,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
                and the float32 FULL_PARITY_LIMITS; (c) the attention
                kernels' times at its training shape (B=32, T'=374) and the
                conv block's at its decode shape, beside plain, SDPA and the
-               bound;
+               bound, the wide dq beside its first design's time; (d) int8
+               route B (both FFN matmuls through the fused int8 FFN at D
+               1024 / H 4096, its wide route): timed bf16 decodes of the
+               same 8 x 15 s batch (int8_ffn 8 launches a batch, no weight
+               layout made after the first), then f32 kernel path vs
+               plain path under INT8_ENC_TOL;
+  6e. full L - configs/conformer_l.json's full lattice in float32 (join
+               640: the joint kernels' wide route), 4 layers, kernel path
+               vs plain path on one ragged microbatch of 4 x 15 s under the
+               float32 FULL_PARITY_LIMITS, the joint kernels launched;
   7. host    - the host audio runtime (conformer_tpu_torch/runtime/
                audio_runtime.cc) built with g++ from a clean library path
                (the compiler's first line and the build's seconds), then on
@@ -311,12 +324,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
                first steps and the launches of 2 steps; which collectives gloo takes on
                CUDA tensors (all_reduce, all_gather, broadcast, send/recv),
                2 ranks on this card; (b) data parallelism, 2 ranks on this
-               card over gloo, Conformer-M at full width in f32 with both
-               kernel flags on, no dropout, 8 x 15 s a rank: the step's loss
+               card over gloo, Conformer-M at full width and PAR_LAYERS
+               layers in f32 with both kernel flags on, no dropout, 8 x 15
+               s a rank: the step's loss
                and all-reduced gradients against one process on the joined
                16 rows; (c) sequence (seq 2: T' = 374, 187 a rank) and
-               pipeline parallelism (pipe 2, 6 layers a stage, 2
-               microbatches) on 8 x 15 s: the deterministic encoder output
+               pipeline parallelism (pipe 2, PAR_LAYERS / 2 layers a
+               stage, 2 microbatches) on 8 x 15 s: the deterministic
+               encoder output
                (attention and conv kernels) and the step's gradients against
                one process; a path whose collective gloo refuses on CUDA
                tensors is not run, and a line names it; each rank's launches
@@ -860,6 +875,13 @@ ATTN_WIDTHS = {"conformer_l": dict(b=4, h=8, dk=64, d=512, keep=(4, 64)),
                "conformer_xl": dict(b=32, h=8, dk=128, d=1024, keep=(4, 128)),
                "conformer_xl chunk": dict(b=16, h=8, dk=128, d=1024, tq=16, tk=528,
                                           keep=None),
+               # the wide kernels as a model rank runs them: heads 8-15 of 16
+               # (the keep-mask hash at the global head, h_total / h_offset)
+               "conformer_xl heads 8-15 of 16": dict(b=32, h=8, dk=128, d=1024, keep=None,
+                                                     heads=dict(h_total=16, h_offset=8)),
+               "conformer_xl chunk heads 8-15 of 16": dict(
+                   b=16, h=8, dk=128, d=1024, tq=16, tk=528, keep=None,
+                   heads=dict(h_total=16, h_offset=8)),
                # past every kernel's limit (dk <= 128): all wrappers must refuse
                "above the limit": dict(b=1, h=1, dk=136, d=1024, keep=None)}
 
@@ -876,11 +898,17 @@ def poison(*like) -> None:
     del blocks
 
 
+def heads_note(w: dict) -> str:
+    heads = w.get("heads")
+    return f", h_total {heads['h_total']} h_offset {heads['h_offset']}" if heads else ""
+
+
 def check_attention_widths(dev) -> dict:
     """The attention kernels at each of ATTN_WIDTHS (T'=374, or the entry's
     Tq and Tk): the forward without and with dropout 0.1, dq and dkv,
     against their plain versions in every dtype whose kernels take the
-    width, with outputs poisoned beforehand (no element left unwritten);
+    width (an entry with ``heads``: bf16 with dropout, at that head
+    offset), with outputs poisoned beforehand (no element left unwritten);
     the backward bitwise repeatable and the keep-mask bit for bit. Past
     the kernels' widths (dk = 136), all three wrappers must raise
     ValueError before any launch, in both dtypes. Returns the largest
@@ -920,7 +948,9 @@ def check_attention_widths(dev) -> dict:
                       f"wrappers raise ValueError before any launch ({why})")
                 continue
             for rate in (0.0, ATTN_RATE):
-                kw = dict(scale=scale, dropout_rate=rate)
+                if "heads" in w and (rate == 0.0 or dtype != torch.bfloat16):
+                    continue    # the head offset moves only the bf16 keep-mask
+                kw = dict(scale=scale, dropout_rate=rate, **w.get("heads", {}))
                 poison(((b, h, t, dk), dtype), ((b, h, t), torch.float32))
                 out, lse = ra.rel_attention(*args, seed=seed, **kw)
                 ref_out, ref_lse = ra.rel_attention_plain(*args, seed=seed, **kw)
@@ -944,7 +974,7 @@ def check_attention_widths(dev) -> dict:
                 for key, e in zip(ATTENTION_KERNELS, (e_f, e_q, e_kv)):
                     errs[key] = max(errs[key], e)
                 line = (f"kernels: attention {label} {name} B={b} H={h} Tq={t} Tk={tk} dk={dk} "
-                        f"D={d} ({ra.route(dtype, dk, d)} kernels), "
+                        f"D={d} ({ra.route(dtype, dk, d)} kernels{heads_note(w)}), "
                         f"dropout {rate}: max_abs_err fwd {e_f:.3g}, dq/dAB {e_q:.3g}, dK/dV "
                         f"{e_kv:.3g} (tol {tol} abs + rel; outputs poisoned with NaN "
                         f"beforehand), bitwise repeatable {same}")
@@ -1523,8 +1553,12 @@ INT8_WIDTHS = {"conformer_s": (144, 576), "conformer_l": (512, 2048)}
 # without TMA stores); the FFN at D = 70 (x, out and the vectors element
 # by element) and H = 130 (a cluster block with no hidden column)
 INT8_EDGES = {"int8_matmul": ((1000, 130), (70, 130)), "int8_ffn": ((70, 130), (144, 130))}
-# past the kernels' widths: the matmul's K (its A tiles), the FFN's D and H
-INT8_BEYOND = {"int8_matmul K": 1056, "int8_ffn D": (544, 2048), "int8_ffn H": (512, 2080)}
+# the fused FFN on its wide route (D > 512 or H > 2048): Conformer XL's
+# widths (the 1024-wide model of 6d) and twice them
+INT8_FFN_WIDE = {"conformer_xl": (1024, 4096), "2048 / 8192": (2048, 8192)}
+INT8_FFN_WIDE_ROWS = (2992, 37)     # 6d (d)'s batch (8 x 374) and a ragged M
+# past the kernels' widths: the matmul's K (its A tiles); the FFN has none
+INT8_BEYOND = {"int8_matmul K": 1056}
 
 
 def check_int8_widths(dev) -> tuple[float, float]:
@@ -1533,9 +1567,10 @@ def check_int8_widths(dev) -> tuple[float, float]:
     float32 and bfloat16, at M = 374 (one request of 15 s) and a ragged M
     = 37 with an all-zero row, outputs poisoned with NaN beforehand:
     ``int8_matmul`` bit for bit against its plain version, ``int8_ffn``
-    within INT8_TOL; past the kernels' widths each wrapper must raise
-    ValueError before any launch; then each kernel at INT8_EDGES in both
-    dtypes, the same way. Returns the largest errors (matmul, FFN)."""
+    within INT8_TOL; the FFN alone the same way at INT8_FFN_WIDE (its wide
+    route) and INT8_FFN_WIDE_ROWS; past the matmul's K it must
+    raise ValueError before any launch; then each kernel at INT8_EDGES in
+    both dtypes, the same way. Returns the largest errors (matmul, FFN)."""
     import torch
 
     from conformer_tpu_torch.ops import int8_ffn as f8
@@ -1575,6 +1610,28 @@ def check_int8_widths(dev) -> tuple[float, float]:
                       f"int8_matmul {label} {name} M={m} disagrees with its plain version")
                 check(ok_f, f"int8_ffn {label} {name} M={m} disagrees with its plain version")
                 worst_mm, worst_ffn = max(worst_mm, e_mm), max(worst_ffn, e_ffn)
+    for label, (d, h) in INT8_FFN_WIDE.items():
+        ln, _, _, w1, w2 = int8_ffn_weights(dev, gen, d=d, h=h)
+        ffn_args = (ln, w1["kernel_q"], w1["kernel_scale"], w1["bias"], w2["kernel_q"],
+                    w2["kernel_scale"], w2["bias"])
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            rtol, atol = INT8_TOL[name]
+            for m in INT8_FFN_WIDE_ROWS:
+                x = torch.randn(m, d, generator=gen)
+                x[m // 2] = 0.0
+                x = x.to(dev, dtype)
+                poison(((m, d), dtype))
+                out = f8.int8_ffn_fused(x, *ffn_args)
+                torch.cuda.synchronize()
+                ref = f8.int8_ffn_plain(x, *ffn_args)
+                diff = (out.float() - ref.float()).abs()
+                ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+                worst_ffn = max(worst_ffn, float(diff.max()))
+                print(f"kernels: int8_ffn {label} {name} D={d} H={h} M={m} ({f8.route(d, h)} "
+                      f"route): max abs err {float(diff.max()):.3g} (rtol {rtol}, atol {atol}); "
+                      "outputs poisoned with NaN beforehand")
+                check(ok, f"int8_ffn {label} {name} M={m} disagrees with its plain version")
     for kernel, shapes in INT8_EDGES.items():
         for d, h in shapes:
             ln, _, _, w1, w2 = int8_ffn_weights(dev, gen, d=d, h=h)
@@ -1611,20 +1668,11 @@ def check_int8_widths(dev) -> tuple[float, float]:
                           "version")
     for label, width in INT8_BEYOND.items():
         for dtype in (torch.float32, torch.bfloat16):
-            if label == "int8_matmul K":
-                why = m8.width_error(width)
-                x = torch.randn(5, width, generator=gen).to(dev, dtype)
-                wq = quantize_dense_params({"kernel": torch.randn(width, 64, generator=gen).to(dev)})
-                wrapper = m8.int8_matmul_dynamic
-                call = lambda: wrapper(x, wq["kernel_q"], wq["kernel_scale"])  # noqa: E731
-            else:
-                d, h = width
-                why = f8.width_error(d, h)
-                ln, _, _, w1, w2 = int8_ffn_weights(dev, gen, d=d, h=h)
-                x = torch.randn(5, d, generator=gen).to(dev, dtype)
-                wrapper = f8.int8_ffn_fused
-                call = lambda: wrapper(x, ln, w1["kernel_q"], w1["kernel_scale"], w1["bias"],  # noqa: E731
-                                       w2["kernel_q"], w2["kernel_scale"], w2["bias"])
+            why = m8.width_error(width)
+            x = torch.randn(5, width, generator=gen).to(dev, dtype)
+            wq = quantize_dense_params({"kernel": torch.randn(width, 64, generator=gen).to(dev)})
+            wrapper = m8.int8_matmul_dynamic
+            call = lambda: wrapper(x, wq["kernel_q"], wq["kernel_scale"])  # noqa: E731
             before = wrapper.launches
             try:
                 call()
@@ -1829,25 +1877,24 @@ def check_joint_kernels(dev, shapes=JOINT_SHAPES) -> dict:
 
 
 # Conformer-S's and -L's join_dim (configs/conformer_s.json, conformer_l.json)
-# at a small shape (B, T', U, V); float32 refuses J past 512 (after padding
-# J to a multiple of 128)
-JOINT_WIDTHS = {"conformer_s": 320, "conformer_l": 640}
+# at a small shape (B, T', U, V): the narrow kernels but float32 at L's 640;
+# J 1024 and a ragged J 700 (padded to 768) on the wide kernels in every
+# dtype. No J is refused (JAX's kernel takes any J)
+JOINT_WIDTHS = {"conformer_s": 320, "conformer_l": 640, "1024": 1024, "ragged 700": 700}
 JOINT_WIDTH_SHAPE = (2, 200, 30, 5002)
 
 
 def check_joint_widths(dev) -> dict:
-    """The three joint kernels at Conformer-S's and -L's join widths in every
-    row of ``JOINT_DTYPES`` whose kernels take the width (``width_error``),
-    against their plain versions under ``check_joint_kernels``'s tolerance
-    rules, every output poisoned with NaN beforehand; where the kernels
-    refuse the width (float32 at J = 640), all three wrappers must raise
-    ValueError before any launch. Returns the largest error of each kernel."""
+    """The three joint kernels at each of JOINT_WIDTHS in every row of
+    ``JOINT_DTYPES``, on the route ``route`` names, against their plain
+    versions under ``check_joint_kernels``'s tolerance rules, every output
+    poisoned with NaN beforehand, the backward bitwise repeatable. Returns
+    the largest error of each kernel."""
     import torch
 
     from conformer_tpu_torch.ops import joint_lattice as jl
 
     gen = torch.Generator().manual_seed(13)
-    counters = (jl.joint_lattice_fwd, jl.joint_lattice_bwd_xp, jl.joint_lattice_bwd_w)
     errs = dict.fromkeys(JOINT_GRIDS, 0.0)
     b, t, u, v = JOINT_WIDTH_SHAPE
     m = b * t * (u + 1)
@@ -1859,23 +1906,7 @@ def check_joint_widths(dev) -> dict:
             tol = TOL[dt]
             x = joint_inputs(dev, dtype, getattr(torch, pdt), gen, b, t, u, v, j=j)
             args = (x["enc"], x["pred"], x["w"], x["b"], x["lab"])
-            why = jl.width_error(dtype, j)
-            if why is not None:
-                lat = torch.zeros((b, t, u + 1), device=dev)
-                before = [f.launches for f in counters]
-                refused = 0
-                for call in (lambda: jl.joint_lattice_fwd(*args, 0),
-                             lambda: jl.joint_lattice_bwd_xp(*args, lat, lat, lat, 0),
-                             lambda: jl.joint_lattice_bwd_w(*args, lat, lat, lat, 0)):
-                    try:
-                        call()
-                    except ValueError:
-                        refused += 1
-                check(refused == 3 and [f.launches for f in counters] == before,
-                      f"joint {label} {name} J={j}: {refused} of 3 wrappers refused ({why})")
-                print(f"kernels: joint {label} {name} J={j}: all three wrappers raise ValueError "
-                      f"before any launch ({why})")
-                continue
+            check(jl.width_error(dtype, j) is None, f"joint {label} {name}: J={j} refused")
             poison(*([((b, t, u + 1), torch.float32)] * 3))
             fwd = jl.joint_lattice_fwd(*args, 0)
             e_f = compare(f"joint_lattice_fwd {name} {label} J={j}", fwd,
@@ -1886,7 +1917,10 @@ def check_joint_widths(dev) -> dict:
             xp = jl.joint_lattice_bwd_xp(*bargs)
             poison(((jp, vp), torch.float32), ((vp,), torch.float32))
             wg = jl.joint_lattice_bwd_w(*bargs)
+            same = all(torch.equal(p, q) for p, q in zip(
+                (*xp, *wg), (*jl.joint_lattice_bwd_xp(*bargs), *jl.joint_lattice_bwd_w(*bargs))))
             torch.cuda.synchronize()
+            check(same, f"joint {label} {name} J={j}: backward not bitwise repeatable")
             bf16 = dtype == torch.bfloat16
             xcmp = compare_sums if bf16 else compare
             wcmp = compare if m <= JOINT_SUM_CELLS and not bf16 else compare_sums
@@ -1898,9 +1932,10 @@ def check_joint_widths(dev) -> dict:
                 errs[k] = max(errs[k], e)
             rule = lambda c: "abs + rel" if c is compare else "of max-abs"   # noqa: E731
             print(f"kernels: joint {label} {name} B={b} T'={t} U+1={u + 1} V={v} J={j} (padded "
-                  f"to {jp}): max_abs_err fwd {e_f:.3g} (tol {tol} abs + rel), bwd_xp {e_xp:.3g} "
-                  f"(tol {tol} {rule(xcmp)}), bwd_w {e_w:.3g} (tol {tol} {rule(wcmp)}); outputs "
-                  "poisoned with NaN beforehand")
+                  f"to {jp}, {jl.route(dtype, j)} kernels): max_abs_err fwd {e_f:.3g} (tol {tol} "
+                  f"abs + rel), bwd_xp {e_xp:.3g} (tol {tol} {rule(xcmp)}), bwd_w {e_w:.3g} (tol "
+                  f"{tol} {rule(wcmp)}); outputs poisoned with NaN beforehand; backward bitwise "
+                  "repeatable")
     return errs
 
 
@@ -3717,7 +3752,8 @@ WIDE_LAYERS = 4
 WIDE_BATCH = 8               # (a), (b): B=8 x 15 s
 WIDE_SECONDS = 15.0
 WIDE_STEPS = 2               # (b): timed training steps after a warm-up
-WIDE_DECODES = 3             # (a): timed bf16 decodes after a warm-up
+WIDE_DECODES = 3             # (a), (d): timed bf16 decodes after a warm-up
+WIDE_DQ_FIRST_MS = 4.1960    # (c): the first wide dq design at B=32 (PERF.md, run CN)
 
 
 def wide_config(**model):
@@ -3771,10 +3807,15 @@ def wide_phase(dev, card: str) -> dict:
     BAND_LIMITS and the float32 FULL_PARITY_LIMITS. (c) the kernels' times
     at the shapes these paths give them: the attention kernels at the
     training shape (B=32, T'=374) and the conv block at the decode shape.
+    (d) serve on int8 route B (``quantize_tree(fuse_ffn=True)`` of the
+    runner's weights: the fused int8 FFN at D 1024 / H 4096): timed bf16
+    decodes of the same batch and the launches of the first; f32 kernel
+    path vs plain path (INT8_ENC_TOL, INT8_ENC_MEAN_SHARE, INT8_AGREE_MIN).
     Returns the launches of the counted runs and the kernels' times."""
     import torch
 
-    from conformer_tpu_torch.serve.runner import ModelRunner
+    from conformer_tpu_torch.ops.quant import quantize_tree
+    from conformer_tpu_torch.serve.runner import INT8_SKIP_KEYS, ModelRunner
     from conformer_tpu_torch.train.loop import Trainer
 
     layers, res = WIDE_LAYERS, {}
@@ -3803,7 +3844,17 @@ def wide_phase(dev, card: str) -> dict:
                      "tokens": int(hl.sum())}
     res["decode_parity"] = parity_f32(runner, runner.params, dev,
                                       seconds=(WIDE_SECONDS,) * WIDE_BATCH)
-    del runner
+    # (d) int8 route B (both FFN matmuls through the fused int8 FFN at D
+    # 1024 / H 4096: its wide route): a warm-up, then timed bf16 decodes of
+    # the same batch, counts set to 0 just before the first and read just
+    # after it; then f32 kernel path vs plain path as phase 5 holds
+    # Conformer-M's route B
+    fused = quantize_tree(runner.params, skip_keys=INT8_SKIP_KEYS, fuse_ffn=True)
+    res["int8"] = timed_decodes(fused, cfg.model, cfg.decode, feats, lens, dev,
+                                WIDE_BATCH * WIDE_SECONDS, runs=WIDE_DECODES)
+    res["int8_parity"] = parity_f32(runner, fused, dev, seconds=(WIDE_SECONDS,) * WIDE_BATCH,
+                                    float_params=runner.params)
+    del runner, fused
     torch.cuda.empty_cache()
 
     # (b) train
@@ -3816,7 +3867,8 @@ def wide_phase(dev, card: str) -> dict:
     res["train_parity"] = train_parity(trainer, batch=WIDE_BATCH, seconds=WIDE_SECONDS)
     del trainer
     torch.cuda.empty_cache()
-    res["launches"] = {k: launches[k] + tr["launches"][k] for k in launches}
+    res["launches"] = {k: launches[k] + tr["launches"][k] + res["int8"]["launches"][k]
+                       for k in launches}
 
     # (c) the kernels' times at the paths' shapes
     gen = torch.Generator().manual_seed(13)
@@ -3875,6 +3927,35 @@ def check_wide(res: dict, card: str) -> None:
     print(f"kernels: conv_block bf16 {res['conv_shape']}: kernel "
           f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound {e['bound_ms'] * 1e3:.2f} us "
           f"({e['bound_by']}) ({card})")
+    t = res["times"]
+    dq, dkv = t["rel_flash_attention_bwd_dq"], t["rel_flash_attention_bwd_dkv"]
+    print(f"wide: dq (S, dP, dS once, then dS [K | F]) {dq['ms']:.4f} ms (the first design, "
+          f"S recomputed per 512-column group: {WIDE_DQ_FIRST_MS} ms, PERF.md run CN), dkv "
+          f"{dkv['ms']:.4f} ms, SDPA's whole backward {dq['library_ms']:.4f} ms, dq's bound "
+          f"{dq['bound_ms']:.4f} ms ({dq['bound_by']}) at B=32 T'=374 H=8 dk=128 D=1024 ({card})")
+    i8, par = res["int8"], res["int8_parity"]
+    want = {**dict.fromkeys(kernel_wrappers(), 0), "rel_flash_attention": WIDE_LAYERS,
+            "conv_block": WIDE_LAYERS, "int8_ffn": 2 * WIDE_LAYERS}
+    ms = sorted(i8["decode_s"])[len(i8["decode_s"]) // 2] * 1e3
+    print(f"wide int8 route B: bf16 decode B={WIDE_BATCH} x {WIDE_SECONDS:g} s: {ms:.1f} ms a "
+          f"batch (median of {WIDE_DECODES}; encoder {min(i8['encode_s']) * 1e3:.1f} ms), "
+          f"{i8['audio_s_per_s']:.1f} audio-s/s, launches in one batch {nonzero(i8['launches'])}, "
+          f"weight layouts made by the end of the first batch and of the last "
+          f"{i8['layout_builds']} ({card})")
+    check(i8["launches"] == want, f"wide int8 route B: launches {i8['launches']}, expected {want}")
+    check(i8["layout_builds"][1] == i8["layout_builds"][0],
+          f"wide int8 route B: weight layouts made after the first batch {i8['layout_builds']}")
+    agree, same, n_ref = par["token_agreement"]
+    print(f"wide int8 route B: f32 kernel path vs plain path: encoder max_abs_err "
+          f"{par['encoder_max_abs_err']:.3g} (tol {INT8_ENC_TOL}), mean "
+          f"{par['encoder_mean_abs_err']:.3g} (limit {INT8_ENC_MEAN_SHARE} x the quantization's "
+          f"own mean {par['quant_mean_abs_err']:.3g}; its max {par['quant_max_abs_err']:.3g}); "
+          f"hyps identical {par['hyps_identical']}, token agreement {agree:.4f} over {n_ref} "
+          f"tokens, hyp lens {par['hyp_lens']}")
+    check(par["finite"] and par["encoder_max_abs_err"] <= INT8_ENC_TOL
+          and par["encoder_mean_abs_err"] <= INT8_ENC_MEAN_SHARE * par["quant_mean_abs_err"]
+          and (par["hyps_identical"] or agree >= INT8_AGREE_MIN) and max(par["hyp_lens"]) > 0,
+          "wide int8 route B: the f32 kernel path disagrees with the plain path")
 
 
 # -------------------------------------------------------- train full lattice
@@ -3902,6 +3983,38 @@ def full_lattice_config(path: str):
     cfg.model.use_pruned_loss = False
     cfg.model.use_pallas_joint = True
     return cfg
+
+
+FULL_L_LAYERS = 4            # 6e: Conformer-L's 17 layers cut to fit the smoke's time
+FULL_L_BATCH = 4             # 6e: B=4 x 15 s, 64 labels
+
+
+def full_lattice_l_parity(dev) -> dict:
+    """6e: configs/conformer_l.json (join_dim 640: the joint kernels' wide
+    route in float32) with the full-lattice loss through the joint kernels,
+    FULL_L_LAYERS layers, float32 kernel path vs plain path on one ragged
+    microbatch (``full_lattice_parity``); the counts set to 0 just before
+    and read just after."""
+    import torch
+
+    from conformer_tpu_torch.ops import joint_lattice as jl
+    from conformer_tpu_torch.train.loop import Trainer
+
+    cfg = full_lattice_config(os.path.join(REPO, "configs", "conformer_l.json"))
+    cfg.model = dataclasses.replace(cfg.model, encoder_num_layers=FULL_L_LAYERS)
+    check(jl.route(torch.float32, cfg.model.join_dim) == "wide",
+          f"6e: join_dim {cfg.model.join_dim} is not on the joint kernels' wide route")
+    trainer = Trainer(cfg, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    par = full_lattice_parity(trainer, "float32", FULL_PARITY_LIMITS["float32"][2],
+                              batch=FULL_L_BATCH)
+    torch.cuda.synchronize()
+    par["launches"] = launch_counts()
+    par["join_dim"] = cfg.model.join_dim
+    del trainer
+    torch.cuda.empty_cache()
+    return par
 
 
 def full_lattice_parity(trainer, dtype: str, floor_share: float, batch: int = 8,
@@ -4789,6 +4902,7 @@ SEQ_SHAPE = dict(b=32, h=4, dk=64, d=256, tq=187, q0=187, tk=374)
 # (e4): at the head-shard shape, model 2: rank 1's heads 2-3 of 4
 HEAD_SHAPE = dict(b=32, h=2, dk=64, d=256, tq=374, q0=0, tk=374, h_total=4, h_offset=2)
 NEEDS["model"] = ("all_reduce", "all_gather")
+PAR_LAYERS = 6               # (b)-(c): Conformer-M's widths, its depth cut to fit the limit
 PAR_MODEL_LAYERS = 6         # (e1), (e3): Conformer-M's widths, its depth cut to fit the limit
 PAR_SEQ_MODEL_LAYERS = 4     # (e2)
 PAR_DROPOUT = 0.1            # (e1): every dropout of the model in the dropout step
@@ -5272,11 +5386,12 @@ def parallel_phase(fit: dict, dev, layers: int, card: str) -> dict:
         return not refused
 
     # (b) data, (c) seq and pipe: 2 ranks each on this card over gloo
-    runs = {"data": dict(train={}, global_rows=2 * PAR_LOCAL_B, seed=801,
+    depth = {"encoder_num_layers": PAR_LAYERS}
+    runs = {"data": dict(train={}, model=depth, global_rows=2 * PAR_LOCAL_B, seed=801,
                          rows=[[0, PAR_LOCAL_B], [PAR_LOCAL_B, 2 * PAR_LOCAL_B]]),
-            "seq": dict(train={"mesh_seq": 2}, global_rows=PAR_LOCAL_B, seed=802,
+            "seq": dict(train={"mesh_seq": 2}, model=depth, global_rows=PAR_LOCAL_B, seed=802,
                         rows=[[0, PAR_LOCAL_B]] * 2, forward=True),
-            "pipe": dict(train={"mesh_pipe": 2, "pipeline_microbatches": 2},
+            "pipe": dict(train={"mesh_pipe": 2, "pipeline_microbatches": 2}, model=depth,
                          global_rows=PAR_LOCAL_B, seed=803, rows=[[0, PAR_LOCAL_B]] * 2,
                          forward=True)}
     live = [k for k in runs if runnable(k)]
@@ -5287,10 +5402,10 @@ def parallel_phase(fit: dict, dev, layers: int, card: str) -> dict:
         done.update({k: wait_ranks(p) for k, p in sets.items()})
     for kind in live:
         spec = runs[kind]
-        cfg = parallel_config()
+        cfg = parallel_config(depth)
         mb = parallel_batch(cfg, spec["seed"], spec["global_rows"])
         ref = one_process_reference(cfg, mb, spec.get("forward", False))
-        res[kind] = mesh_parity(kind, done[kind], f"{base}_{kind}", ref, layers, card)
+        res[kind] = mesh_parity(kind, done[kind], f"{base}_{kind}", ref, PAR_LAYERS, card)
     # (d) the attention kernels at the sequence-parallel query shape
     res["seq_attention"] = check_attention_at(dev, SEQ_SHAPE, "d", "the sequence-parallel shape",
                                               18)
@@ -5367,7 +5482,7 @@ def main() -> int:
     print(f"build: {len(logs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line:
+            if "registers" in line or line.startswith("nvcc:"):
                 print(f"build: {name}: {line.strip()}")
 
     # 3. kernels
@@ -5619,6 +5734,25 @@ def main() -> int:
     check_wide(wide, card)
     print(f"wide: in {time.perf_counter() - t0:.1f} s ({card})")
 
+    # 6e. Conformer-L's float32 full lattice (join 640, the joint kernels'
+    # wide route): kernel path vs plain path, counts set to 0 just before
+    # and read just after
+    t0 = time.perf_counter()
+    full_l = full_lattice_l_parity(dev)
+    loss_lim, grad_lim, _ = FULL_PARITY_LIMITS["float32"]
+    worst = ", ".join(f"{k} {e:.3g}" for k, e in full_l["grad_worst_leaves"])
+    joint = {k: full_l["launches"][k] for k in JOINT_GRIDS}
+    print(f"train full lattice Conformer-L: float32, join {full_l['join_dim']}, {FULL_L_LAYERS} "
+          f"layers, kernel path vs plain path, B={FULL_L_BATCH} x 15 s: losses "
+          f"{full_l['losses']}, max rel err {full_l['loss_max_rel_err']:.3g} (limit {loss_lim}); "
+          f"gradients max err / max-abs, worst leaves: {worst} (limit {grad_lim}); joint launches "
+          f"{joint}; in {time.perf_counter() - t0:.1f} s ({card})")
+    check(full_l["finite"] and full_l["loss_max_rel_err"] <= loss_lim
+          and full_l["grad_max_rel_err"] <= grad_lim,
+          "Conformer-L float32 full-lattice kernel path disagrees with the plain path")
+    check(all(full_l["launches"][k] > 0 for k in JOINT_GRIDS),
+          f"6e: the joint kernels did not run ({full_l['launches']})")
+
     # 7. host: the audio runtime built with g++ and held against the numpy
     # path on the card machine's CPU; host times on the fit corpus
     t0 = time.perf_counter()
@@ -5734,9 +5868,12 @@ def main() -> int:
     # steps and the demo's stream
     for name, n in micro["launches"].items():
         entries[name]["launches"] += n
-    # and the 1024-wide paths': one decode batch and the timed training steps
+    # and the 1024-wide paths': one decode batch, the timed training steps
+    # and one route-B batch; and 6e's Conformer-L full lattice
     for name, n in wide["launches"].items():
         entries[name]["launches"] += n
+    for name in JOINT_GRIDS:
+        entries[name]["launches"] += full_l["launches"][name]
 
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     order = [*ATTENTION_KERNELS, "conv_block", *PER_MICROBATCH, *INT8_KERNELS, *JOINT_GRIDS,

@@ -63,7 +63,8 @@
 // rsqrtf) or expf and the fast division of the swish differ from
 // torch.sigmoid by an ulp or two, and near a rounding boundary that flips
 // one int8 value.
-// Limits: D <= 512, H <= 2048 (a quarter of at most 512 columns), any M.
+// Limits: D <= 512, H <= 2048 (a quarter of at most 512 columns), any M;
+// wider FFNs take the wide route at the end of this file.
 // Time (scripts/torch_int8_ablation.py, PERF.md): the swish and the
 // cluster's reduction and stores are the largest stages; each block's
 // phases run in series, one block per SM.
@@ -537,6 +538,243 @@ cudaError_t launch(const void* x, const void* ln_s, const void* ln_b, const void
   return two2 ? go(One{}, Two{}) : go(One{}, One{});
 }
 
+// ------------------------------------------------ wide: D > 512 or H > 2048
+//
+// Above the cluster kernel's widths (Conformer XL's D 1024 / H 4096 and
+// beyond) the function runs in four launches, h in float32 through device
+// memory. The cluster kernel holds a row's whole hidden in the registers
+// of 4 blocks; at H 4096 that would need 8 blocks of 512 columns and the
+// W2 partials of D 1024 reduced across them, more shared memory than a
+// block has at D 2048. Through device memory the hidden's scale s_h is
+// exact by construction: every h of a row is written before its absmax is
+// taken, and nothing is quantized before that (h is 49 MB in float32 at
+// M = 2992, H = 4096: ~30 us of the card's memory rate both ways, against
+// the products' 50 G integer operations, ~25 us at the int8 tensor rate).
+//   1. ffn_norm_quant_kernel: LayerNorm and the per-row int8 of x, one warp
+//      a row, into xq [M, pad32(D)] and s_x [M] (the cluster kernel's
+//      arithmetic: lane l holds columns 128 j + 4 l .. + 3, sums in that
+//      order).
+//   2. ffn_gemm_kernel<HIDDEN>: h = swish(float(xq W1) s_x s1 + b1) [M, H].
+//   3. ffn_hidden_quant_kernel: s_h = the row's absmax over all H columns,
+//      then hq [M, pad32(H)], one warp a row.
+//   4. ffn_gemm_kernel<OUT>: out = x + half (float(hq W2) s_h s2 + b2).
+// The GEMM: a block of one producer warpgroup (one thread issues TMA
+// copies of 128 x 128-byte tiles of the int8 operand and of the weight's
+// kernel layout, both K-major) and two consumer warpgroups, each a 64 x
+// 128 tile of the 128 x 128 output tile on int8 wgmma (m64n128k32), fed
+// through a 4-stage ring of 32 KB (the depth K streams: no limit on D or
+// H); the epilogue from the int32 accumulators with the plain version's
+// rounding points. Every output element is one block's: bitwise
+// repeatable. Limits: none on D, H or M.
+
+constexpr int WG_STAGES = 4;
+constexpr uint32_t WG_TILE = 16384;              // 128 rows x 128 K bytes
+constexpr uint32_t WG_STAGE = 2 * WG_TILE;       // the operand's tile and the weight's
+constexpr size_t WG_SMEM = 1024 + WG_STAGES * WG_STAGE + 2 * WG_STAGES * sizeof(uint64_t);
+constexpr int EPI_HIDDEN = 0, EPI_OUT = 1;
+
+// LayerNorm and int8 of rows of x, one warp a row: xq [M][kp], s_x [M]
+template <typename T>
+__global__ void __launch_bounds__(256)
+ffn_norm_quant_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
+                      const float* __restrict__ ln_b, int8_t* __restrict__ xq,
+                      float* __restrict__ sx, int M, int D, int kp, float eps) {
+  const int m = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (m >= M) return;
+  const T* xr = x + (size_t)m * D;
+  const float inv_d = 1.f / static_cast<float>(D);
+  auto at = [&](int k) { return k < D ? to_f(xr[k]) : 0.f; };
+  float sum = 0.f;
+  for (int j = 0; 128 * j < D; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum = __fadd_rn(sum, at(128 * j + 4 * lane + e));
+  const float mean = __fmul_rn(warp_sum(sum), inv_d);
+  float sq = 0.f;
+  for (int j = 0; 128 * j < D; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 128 * j + 4 * lane + e;
+      const float d = k < D ? __fsub_rn(at(k), mean) : 0.f;
+      sq = __fadd_rn(sq, __fmul_rn(d, d));
+    }
+  const float rs = rsqrtf(__fadd_rn(__fmul_rn(warp_sum(sq), inv_d), eps));
+  auto norm = [&](int k) {
+    return k < D ? __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(at(k), mean), rs), ln_s[k]), ln_b[k])
+                 : 0.f;
+  };
+  float am = 0.f;
+  for (int j = 0; 128 * j < D; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) am = fmaxf(am, fabsf(norm(128 * j + 4 * lane + e)));
+  const RowDiv d = row_div(row_scale(warp_max(am)));
+  if (lane == 0) sx[m] = d.s;
+  int8_t* qr = xq + (size_t)m * kp;
+  for (int j = 0; 128 * j < kp; ++j) {
+    const int k = 128 * j + 4 * lane;
+    if (k >= kp) continue;      // kp is a multiple of 32: whole words
+    *reinterpret_cast<int*>(qr + k) =
+        pack4(quant_bits(norm(k), d), quant_bits(norm(k + 1), d), quant_bits(norm(k + 2), d),
+              quant_bits(norm(k + 3), d));
+  }
+}
+
+// s_h = row_scale(max |h|) over all H columns of each row, then its int8,
+// one warp a row: hq [M][hp], sh [M]
+__global__ void __launch_bounds__(256)
+ffn_hidden_quant_kernel(const float* __restrict__ h, int8_t* __restrict__ hq,
+                        float* __restrict__ sh, int M, int H, int hp) {
+  const int m = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (m >= M) return;
+  const float* hr = h + (size_t)m * H;
+  float am = 0.f;
+  for (int k = lane; k < H; k += 32) am = fmaxf(am, fabsf(hr[k]));
+  const RowDiv d = row_div(row_scale(warp_max(am)));
+  if (lane == 0) sh[m] = d.s;
+  int8_t* qr = hq + (size_t)m * hp;
+  for (int k = 4 * lane; k < hp; k += 128) {
+    uint32_t b[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) b[e] = k + e < H ? quant_bits(hr[k + e], d) : 0u;
+    *reinterpret_cast<int*>(qr + k) = pack4(b[0], b[1], b[2], b[3]);
+  }
+}
+
+// C [M, N] = A [M, K] B^T (A int8 rows from amap, B^T the weight's kernel
+// layout [N, K] from bmap; kc 128-byte chunks of K), with the epilogue EPI:
+//   HIDDEN: hout[m, n] = swish(float(C) s_row[m] s_col[n] + bias[n])
+//   OUT:    out[m, n] = x[m, n] + half (float(C) s_row[m] s_col[n] + bias[n])
+template <int EPI, typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+                const float* __restrict__ s_row, const float* __restrict__ s_col,
+                const float* __restrict__ bias, const T* __restrict__ x, float* __restrict__ hout,
+                T* __restrict__ out, int M, int N, int kc, float half) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_STAGES * WG_STAGE);
+  uint64_t* empty = full + WG_STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * 128;
+  if (tid == 0) {
+    for (int i = 0; i < WG_STAGES; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], CONSUMERS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<REG_PRODUCER>();
+    if (tid == 0) {
+      for (int g = 0; g < kc; ++g) {
+        const int st = g % WG_STAGES;
+        hopper::mbar_wait(&empty[st], ((g / WG_STAGES) & 1) ^ 1);
+        hopper::mbar_expect(&full[st], WG_STAGE);
+        unsigned char* dst = ring + st * WG_STAGE;
+        hopper::tma_load(dst, &amap, &full[st], 128 * g, m0);
+        hopper::tma_load(dst + WG_TILE, &bmap, &full[st], 128 * g, n0);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<REG_CONSUMER>();
+  const int c = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = 16 * warp + (lane >> 2);         // this thread's accumulator rows r0, r0 + 8
+  int acc[64];
+  int prev = 0;
+  hopper::fence_regs(acc);
+  hopper::wg_fence();
+  for (int g = 0; g < kc; ++g) {
+    const int st = g % WG_STAGES;
+    hopper::mbar_wait(&full[st], (g / WG_STAGES) & 1);
+    const uint32_t a = hopper::saddr(ring + st * WG_STAGE + c * ATOM);
+    const uint32_t b = hopper::saddr(ring + st * WG_STAGE + WG_TILE);
+    if (g > 0) hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_s8_n128(acc, hopper::desc(a + kk * 32), hopper::desc(b + kk * 32),
+                            (g | kk) != 0);
+    hopper::wg_commit();
+    if (g > 0) {
+      hopper::wg_wait<1>();
+      hopper::mbar_arrive(&empty[prev]);
+    }
+    prev = st;
+  }
+  hopper::wg_wait0();
+  hopper::fence_regs(acc);
+  hopper::mbar_arrive(&empty[prev]);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int m = m0 + 64 * c + r0 + 8 * hh;
+    if (m >= M) continue;
+    const float sr = s_row[m];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = n0 + 8 * i + 2 * (lane & 3) + e;
+        if (n >= N) continue;
+        const float y = __fadd_rn(dequant(acc[4 * i + 2 * hh + e], sr, s_col[n]), bias[n]);
+        if constexpr (EPI == EPI_HIDDEN) {
+          hout[(size_t)m * N + n] = swish(y);
+        } else {
+          const size_t o = (size_t)m * N + n;
+          out[o] = from_f<T>(__fadd_rn(to_f(x[o]), __fmul_rn(half, y)));
+        }
+      }
+  }
+}
+
+template <int EPI, typename T>
+cudaError_t launch_gemm(const CUtensorMap& amap, const CUtensorMap& bmap, const void* s_row,
+                        const void* s_col, const void* bias, const void* x, void* hout,
+                        void* out, cudaStream_t s, int M, int N, int K, float half) {
+  cudaError_t err = cudaFuncSetAttribute(ffn_gemm_kernel<EPI, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)WG_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + 127) / 128, (N + 127) / 128);
+  ffn_gemm_kernel<EPI, T><<<grid, THREADS, WG_SMEM, s>>>(
+      amap, bmap, static_cast<const float*>(s_row), static_cast<const float*>(s_col),
+      static_cast<const float*>(bias), static_cast<const T*>(x), static_cast<float*>(hout),
+      static_cast<T*>(out), M, N, (pad32(K) + 127) / 128, half);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* x, const void* ln_s, const void* ln_b, const void* w1t,
+                        const void* s1, const void* b1, const void* w2t, const void* s2,
+                        const void* b2, void* out, void* xq, void* sx, void* h, void* hq,
+                        void* sh, cudaStream_t s, int M, int D, int H, float half, float eps) {
+  const int dp = pad32(D), hp = pad32(H);
+  CUtensorMap xmap, w1map, hmap, w2map;
+  cudaError_t err = hopper::int8_map(&xmap, xq, M, dp);
+  if (err == cudaSuccess) err = hopper::int8_map(&w1map, w1t, H, dp);
+  if (err == cudaSuccess) err = hopper::int8_map(&hmap, hq, M, hp);
+  if (err == cudaSuccess) err = hopper::int8_map(&w2map, w2t, D, hp);
+  if (err != cudaSuccess) return err;
+  const int rows = (M + 7) / 8;
+  ffn_norm_quant_kernel<T><<<rows, 256, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
+      static_cast<int8_t*>(xq), static_cast<float*>(sx), M, D, dp, eps);
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_gemm<EPI_HIDDEN, T>(xmap, w1map, sx, s1, b1, nullptr, h, nullptr, s, M, H, D,
+                                     half);
+  if (err != cudaSuccess) return err;
+  ffn_hidden_quant_kernel<<<rows, 256, 0, s>>>(static_cast<const float*>(h),
+                                               static_cast<int8_t*>(hq), static_cast<float*>(sh),
+                                               M, H, hp);
+  err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_gemm<EPI_OUT, T>(hmap, w2map, sh, s2, b2, x, nullptr, out, s, M, D, H, half);
+  return err;
+}
+
 }  // namespace
 
 // w1t, w2t: the kernel layouts of W1 and W2, int8 [H, D_pad] and [D, H_pad]
@@ -553,5 +791,23 @@ extern "C" int int8_ffn_fwd(const void* x, const void* ln_s, const void* ln_b, c
       is_bf16 ? launch<__nv_bfloat16>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, s, M, D, H,
                                       half, eps)
               : launch<float>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, s, M, D, H, half, eps);
+  return static_cast<int>(err);
+}
+
+// The wide route (D > 512 or H > 2048; any widths): the same inputs, and
+// scratch xq int8 [M, pad32(D)], sx float32 [M], h float32 [M, H], hq int8
+// [M, pad32(H)], sh float32 [M]. Four launches (see "wide" above).
+extern "C" int int8_ffn_wide_fwd(const void* x, const void* ln_s, const void* ln_b,
+                                 const void* w1t, const void* s1, const void* b1, const void* w2t,
+                                 const void* s2, const void* b2, void* out, void* xq, void* sx,
+                                 void* h, void* hq, void* sh, void* stream, int M, int D, int H,
+                                 int is_bf16, float half, float eps) {
+  if (M < 1 || D < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      is_bf16 ? launch_wide<__nv_bfloat16>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, xq, sx,
+                                           h, hq, sh, s, M, D, H, half, eps)
+              : launch_wide<float>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, xq, sx, h, hq,
+                                   sh, s, M, D, H, half, eps);
   return static_cast<int>(err);
 }

@@ -114,7 +114,8 @@
 //
 // Limits: J a multiple of 128 (the wrapper pads J with zeros, which is
 // exact: x = tanh(0) = 0 in the padded columns and W's padded rows are 0),
-// up to 640 in bf16 and 512 in float32; V padded by the caller to Vp, a
+// any J (up to 640 in bf16 and 512 in float32 on the kernels below, above
+// on the wide kernels: see "wide J"); V padded by the caller to Vp, a
 // multiple of 64, and of 128 for the forward (W's padded columns are never
 // read into a result). Routes by shape, bf16: the forward on wgmma at every
 // J; the backward on wgmma up to J = 512 (214 KB of shared memory there;
@@ -622,6 +623,331 @@ template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// ------------------------------------------------ wide J: J streamed in chunks
+//
+// Above the narrow kernels' widths (bf16 J > 640, float32 J > 512; JAX's
+// kernel takes the whole J as one block and has no such limit) the three
+// entries take these kernels, whose shared memory does not grow with J:
+// the block's tiles are those of the wmma/FMA kernels above, but x and W
+// pass through in chunks of JC = 128 J columns. The logits tile's
+// accumulators stay in registers while every chunk of x (recomputed as
+// tanh(enc + pred) in the forward and bwd_xp, read from the x buffer in
+// bwd_w) and of W's V tile goes by; the sums run over j in the narrow
+// kernels' order. The backward products' outputs, dX [BM x J] and the dW
+// tile [J x 64], cannot stay in registers at any J: the grid's last
+// dimension splits them into groups of JG = 512 columns (rows of dW), and
+// each group's block computes its own logits and dl (ceil(J / 512) times
+// the logits product in all, 2 at J 640 to 1024) and then streams the
+// group's chunks of W (bwd_xp) or x (bwd_w) through the product. Every
+// output element is still one block's, summed in a fixed order: bitwise
+// repeatable. Shared memory ~70 KB in float32 and ~63 KB in bf16 at every
+// J. bf16 runs on wmma, float32 on FMAs, as the kernels above; speed is
+// later work (PERF.md).
+
+constexpr int JC = 128;                // J columns of a streamed chunk
+constexpr int JG = 512;                // dX columns, or dW rows, of one block
+constexpr int kWideNJ = JG / JC;       // chunks of a group, at most
+
+template <typename T> struct WideSmem {
+  int ldx;
+  size_t x, w, l, d, rows, total;
+  __host__ __device__ WideSmem() {
+    ldx = JC + Tile<T>::PADX;
+    x = 0;
+    w = align128(x + sizeof(T) * Tile<T>::BM * ldx);
+    l = align128(w + sizeof(T) * JC * Tile<T>::LDW);
+    d = align128(l + sizeof(float) * Tile<T>::BM * LDL);
+    rows = align128(d + sizeof(T) * Tile<T>::BM * Tile<T>::LDD);
+    total = rows + sizeof(float) * 4 * Tile<T>::BM;
+  }
+};
+
+// columns [j0, j0 + JC) of rows [m0, m0 + BM) of x = tanh(enc + pred) into
+// Xs, one warp per row; rows at or past M are zero
+template <typename T, typename TP>
+__device__ void load_x_tanh_chunk(T* Xs, int ldx, const T* __restrict__ enc,
+                                  const TP* __restrict__ pred, int m0, int M, int Tn, int U1,
+                                  int J, int j0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < Tile<T>::BM; r += kWarps) {
+    const int m = m0 + r;
+    T* dst = Xs + (size_t)r * ldx;
+    if (m < M) {
+      const int bt = m / U1, u = m - bt * U1, b = bt / Tn;
+      const T* e = enc + (size_t)bt * J + j0;
+      const TP* p = pred + ((size_t)b * U1 + u) * J + j0;
+      for (int j = lane; j < JC; j += 32) dst[j] = joint_x<T, TP>(e[j], p[j]);
+    } else {
+      for (int j = lane; j < JC; j += 32) dst[j] = from_f<T>(0.f);
+    }
+  }
+}
+
+// columns [j0, j0 + JC) of rows [m0, m0 + BM) of the x buffer [M][J]; rows
+// at or past `end` are zero
+template <typename T>
+__device__ void load_x_rows_chunk(T* Xs, int ldx, const T* __restrict__ X, int m0, int end,
+                                  int J, int j0) {
+  constexpr int VEC = 16 / sizeof(T), PER_ROW = JC / VEC;
+  for (int i = threadIdx.x; i < Tile<T>::BM * PER_ROW; i += kThreads) {
+    const int r = i / PER_ROW, c = (i - r * PER_ROW) * VEC, m = m0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (m < end) val = *reinterpret_cast<const uint4*>(X + (size_t)m * J + j0 + c);
+    *reinterpret_cast<uint4*>(Xs + (size_t)r * ldx + c) = val;
+  }
+}
+
+// W[j0 : j0 + JC, v0 : v0 + BN] into Ws [JC][LDW]
+template <typename T>
+__device__ void load_w_chunk(T* Ws, const T* __restrict__ W, int Vp, int v0, int j0) {
+  load_w_tile<T>(Ws, W + (size_t)j0 * Vp, JC, Vp, v0);
+}
+
+// Ls[BM][BN] = X W[:, v0 : v0 + BN] over all J, chunk by chunk: load_x(j0)
+// fills Xs with x's columns [j0, j0 + JC); the accumulators stay in
+// registers across the chunks. The caller synchronises before reading Ls.
+template <typename T, typename LoadX>
+__device__ void logits_streamed(float* Ls, T* Xs, int ldx, T* Ws, const T* __restrict__ W,
+                                int J, int Vp, int v0, LoadX load_x) {
+  using MM = Mma<T>;
+  constexpr int NF = Tile<T>::BM / 16 * NCF / kWarps;
+  const int warp = threadIdx.x >> 5;
+  typename MM::Acc acc[NF];
+  int rf[NF], cf[NF];
+#pragma unroll
+  for (int i = 0; i < NF; ++i) {
+    const int f = warp * NF + i;
+    rf[i] = f / NCF;
+    cf[i] = f % NCF;
+    MM::zero(acc[i]);
+  }
+  for (int j0 = 0; j0 < J; j0 += JC) {
+    __syncthreads();   // the previous chunk's (or the caller's) readers are done
+    load_x(j0);
+    load_w_chunk<T>(Ws, W, Vp, v0, j0);
+    __syncthreads();
+    for (int k = 0; k < JC; k += 16) {
+#pragma unroll
+      for (int i = 0; i < NF; ++i)
+        MM::template mma<false, false>(acc[i], Xs + (size_t)rf[i] * 16 * ldx + k, ldx,
+                                       Ws + (size_t)k * Tile<T>::LDW + cf[i] * 16, Tile<T>::LDW);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NF; ++i) MM::store(Ls + rf[i] * 16 * LDL + cf[i] * 16, acc[i], LDL);
+}
+
+template <typename T, typename TP>
+__global__ void __launch_bounds__(kThreads)
+joint_fwd_wide_kernel(const T* __restrict__ enc, const TP* __restrict__ pred,
+                      const T* __restrict__ W, const float* __restrict__ bias,
+                      const int* __restrict__ lab, float* __restrict__ lpb,
+                      float* __restrict__ lpe, float* __restrict__ logz, int M, int Tn, int U1,
+                      int J, int V, int Vp, int blank) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WideSmem<T> S;
+  T* Xs = reinterpret_cast<T*>(smem + S.x);
+  T* Ws = reinterpret_cast<T*>(smem + S.w);
+  float* Ls = reinterpret_cast<float*>(smem + S.l);
+  constexpr int BM = Tile<T>::BM, TPR = kThreads / BM, CPT = BN / TPR;
+  const int m0 = blockIdx.x * BM;
+  const int r = threadIdx.x / TPR, sub = threadIdx.x % TPR, m = m0 + r;
+  const int lb = (sub == 0 && m < M) ? cell_label(lab, m, Tn, U1) : -1;
+
+  float run_m = -INFINITY, run_s = 0.f, bl = 0.f, em = 0.f;
+  for (int v0 = 0; v0 < Vp; v0 += BN) {
+    logits_streamed<T>(Ls, Xs, S.ldx, Ws, W, J, Vp, v0, [&](int j0) {
+      load_x_tanh_chunk<T, TP>(Xs, S.ldx, enc, pred, m0, M, Tn, U1, J, j0);
+    });
+    __syncthreads();
+    // online logsumexp over this thread's columns of its row, as joint_fwd_kernel
+    const float* lr = Ls + r * LDL;
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) {
+      const int c = sub + TPR * q, v = v0 + c;
+      if (v < V) tmax = fmaxf(tmax, lr[c] + bias[v]);
+    }
+    const float mn = fmaxf(run_m, tmax);
+    if (mn != -INFINITY) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) {
+        const int c = sub + TPR * q, v = v0 + c;
+        if (v < V) s += __expf(lr[c] + bias[v] - mn);
+      }
+      run_s = run_s * __expf(run_m - mn) + s;
+      run_m = mn;
+    }
+    if (sub == 0) {
+      if (blank >= v0 && blank < v0 + BN) bl = lr[blank - v0] + bias[blank];
+      if (lb >= v0 && lb < v0 + BN && lb < V) em = lr[lb - v0] + bias[lb];
+    }
+  }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1) {
+    const float om = __shfl_xor_sync(0xffffffffu, run_m, off);
+    const float os = __shfl_xor_sync(0xffffffffu, run_s, off);
+    const float mn = fmaxf(run_m, om);
+    run_s = mn == -INFINITY ? 0.f : run_s * __expf(run_m - mn) + os * __expf(om - mn);
+    run_m = mn;
+  }
+  if (sub == 0 && m < M) {
+    const float lz = run_m + logf(run_s);
+    lpb[m] = bl - lz;
+    lpe[m] = em - lz;
+    logz[m] = lz;
+  }
+}
+
+// block (tile of BM cells, group of JG columns): dpre of those cells and columns
+template <typename T, typename TP>
+__global__ void __launch_bounds__(kThreads)
+joint_bwd_xp_wide_kernel(const T* __restrict__ enc, const TP* __restrict__ pred,
+                         const T* __restrict__ W, const float* __restrict__ bias,
+                         const int* __restrict__ lab, const float* __restrict__ logz,
+                         const float* __restrict__ gb, const float* __restrict__ ge,
+                         float* __restrict__ dpre, int M, int Tn, int U1, int J, int V, int Vp,
+                         int blank) {
+  using MM = Mma<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WideSmem<T> S;
+  T* Xs = reinterpret_cast<T*>(smem + S.x);
+  T* Ws = reinterpret_cast<T*>(smem + S.w);
+  float* Ls = reinterpret_cast<float*>(smem + S.l);
+  T* Ds = reinterpret_cast<T*>(smem + S.d);
+  float* rows = reinterpret_cast<float*>(smem + S.rows);
+  constexpr int BM = Tile<T>::BM, RF = BM / 16, LDW = Tile<T>::LDW, LDD = Tile<T>::LDD;
+  const int m0 = blockIdx.x * BM, jg0 = blockIdx.y * JG;
+  const int nc = min(JG, J - jg0) / JC;    // the group's chunks
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  load_rows<T>(rows, logz, gb, ge, lab, m0, M, Tn, U1);
+  // dX [BM][group]: in chunk c warp w owns the 16 columns jg0 + JC c + 16 w ..
+  typename MM::Acc dx[RF][kWideNJ];
+#pragma unroll
+  for (int a = 0; a < RF; ++a)
+#pragma unroll
+    for (int c = 0; c < kWideNJ; ++c) MM::zero(dx[a][c]);
+
+  for (int v0 = 0; v0 < Vp; v0 += BN) {
+    logits_streamed<T>(Ls, Xs, S.ldx, Ws, W, J, Vp, v0, [&](int j0) {
+      load_x_tanh_chunk<T, TP>(Xs, S.ldx, enc, pred, m0, M, Tn, U1, J, j0);
+    });
+    __syncthreads();
+    dlogits_tile<T, false>(Ls, Ds, rows, bias, m0, M, v0, V, blank);
+    // dX += dl W^T, the group's W rows chunk by chunk: W^T's (v, j) is
+    // Ws[j][v], a column-major B operand
+#pragma unroll
+    for (int c = 0; c < kWideNJ; ++c) {
+      if (c >= nc) continue;
+      __syncthreads();   // Ds written, Ws free
+      load_w_chunk<T>(Ws, W, Vp, v0, jg0 + c * JC);
+      __syncthreads();
+#pragma unroll
+      for (int a = 0; a < RF; ++a)
+#pragma unroll
+        for (int k = 0; k < BN; k += 16)
+          MM::template mma<false, true>(dx[a][c], Ds + a * 16 * LDD + k, LDD,
+                                        Ws + (size_t)(warp * 16) * LDW + k, LDW);
+    }
+  }
+  __syncthreads();
+  // dpre = dX (1 - x^2), x recomputed; each fragment staged through Ls
+  float* stage = Ls + warp * 256;
+#pragma unroll
+  for (int a = 0; a < RF; ++a)
+#pragma unroll
+    for (int c = 0; c < kWideNJ; ++c) {
+      if (c >= nc) continue;
+      const int j0 = jg0 + c * JC + warp * 16;
+      MM::store(stage, dx[a][c], 16);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int row = a * 16 + (e >> 4), j = j0 + (e & 15), m = m0 + row;
+        if (m < M) {
+          const int bt = m / U1, u = m - bt * U1, b = bt / Tn;
+          const float xv =
+              to_f(joint_x<T, TP>(enc[(size_t)bt * J + j], pred[((size_t)b * U1 + u) * J + j]));
+          dpre[(size_t)m * J + j] = stage[e] * (1.f - xv * xv);
+        }
+      }
+      __syncwarp();
+    }
+}
+
+// block (V tile, chunk of rows, group of JG rows of dW): that chunk's
+// dW[group, tile] and, in group 0, dbias[tile]
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+joint_bwd_w_wide_kernel(const T* __restrict__ X, const T* __restrict__ W,
+                        const float* __restrict__ bias, const int* __restrict__ lab,
+                        const float* __restrict__ logz, const float* __restrict__ gb,
+                        const float* __restrict__ ge, float* __restrict__ part,
+                        float* __restrict__ dbpart, int M, int Tn, int U1, int J, int V, int Vp,
+                        int blank, int rows_per_chunk) {
+  using MM = Mma<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const WideSmem<T> S;
+  T* Xs = reinterpret_cast<T*>(smem + S.x);
+  T* Ws = reinterpret_cast<T*>(smem + S.w);
+  float* Ls = reinterpret_cast<float*>(smem + S.l);
+  T* Ds = reinterpret_cast<T*>(smem + S.d);
+  float* rows = reinterpret_cast<float*>(smem + S.rows);
+  constexpr int BM = Tile<T>::BM, LDD = Tile<T>::LDD;
+  const int v0 = blockIdx.x * BN, chunk = blockIdx.y, jg0 = blockIdx.z * JG;
+  const int nc = min(JG, J - jg0) / JC;
+  const int begin = chunk * rows_per_chunk;
+  const int end = min(M, begin + rows_per_chunk);
+  const int warp = threadIdx.x >> 5;
+
+  // dW [group][BN]: in chunk c warp w owns the 16 rows jg0 + JC c + 16 w ..
+  typename MM::Acc dw[kWideNJ][NCF];
+#pragma unroll
+  for (int c = 0; c < kWideNJ; ++c)
+#pragma unroll
+    for (int cc = 0; cc < NCF; ++cc) MM::zero(dw[c][cc]);
+  float dbacc = 0.f;
+
+  for (int m0 = begin; m0 < end; m0 += BM) {
+    __syncthreads();   // the last tile's readers of rows are done
+    load_rows<T>(rows, logz, gb, ge, lab, m0, end, Tn, U1);
+    logits_streamed<T>(Ls, Xs, S.ldx, Ws, W, J, Vp, v0, [&](int j0) {
+      load_x_rows_chunk<T>(Xs, S.ldx, X, m0, end, J, j0);
+    });
+    __syncthreads();
+    dlogits_tile<T, true>(Ls, Ds, rows, bias, m0, end, v0, V, blank);
+    __syncthreads();
+    if (blockIdx.z == 0 && threadIdx.x < BN)
+      for (int r = 0; r < BM; ++r) dbacc += Ls[r * LDL + threadIdx.x];
+    // dW += x^T dl, the group's x columns chunk by chunk: x^T's (j, row) is
+    // Xs[row][j], a column-major A operand
+#pragma unroll
+    for (int c = 0; c < kWideNJ; ++c) {
+      if (c >= nc) continue;
+      __syncthreads();   // Xs free
+      load_x_rows_chunk<T>(Xs, S.ldx, X, m0, end, J, jg0 + c * JC);
+      __syncthreads();
+#pragma unroll
+      for (int cc = 0; cc < NCF; ++cc)
+#pragma unroll
+        for (int k = 0; k < BM; k += 16)
+          MM::template mma<true, false>(dw[c][cc], Xs + (size_t)k * S.ldx + warp * 16, S.ldx,
+                                        Ds + k * LDD + cc * 16, LDD);
+    }
+  }
+  float* pc = part + (size_t)chunk * J * Vp;
+#pragma unroll
+  for (int c = 0; c < kWideNJ; ++c) {
+    if (c >= nc) continue;
+    const int j0 = jg0 + c * JC + warp * 16;
+#pragma unroll
+    for (int cc = 0; cc < NCF; ++cc)
+      MM::store(pc + (size_t)j0 * Vp + v0 + cc * 16, dw[c][cc], Vp);
+  }
+  if (blockIdx.z == 0 && threadIdx.x < BN) dbpart[(size_t)chunk * Vp + v0 + threadIdx.x] = dbacc;
 }
 
 // ------------------------------------------------------------ Hopper pieces
@@ -1522,11 +1848,32 @@ cudaError_t launch_fwd_wg(const void* enc, const void* pred, const void* w, cons
   return cudaGetLastError();
 }
 
+// the narrow kernels' widths (J a multiple of 128): bf16 up to 640, float32 up to 512
+bool j_narrow(int J, bool is_bf16) { return J <= (is_bf16 ? 640 : 512); }
+
+template <typename T, typename TP>
+cudaError_t launch_fwd_wide(const void* enc, const void* pred, const void* w, const void* bias,
+                            const void* lab, void* lpb, void* lpe, void* logz, cudaStream_t st,
+                            int M, int Tn, int U1, int J, int V, int Vp, int blank) {
+  const WideSmem<T> S;
+  cudaError_t e = set_smem(joint_fwd_wide_kernel<T, TP>, S.total);
+  if (e != cudaSuccess) return e;
+  joint_fwd_wide_kernel<T, TP><<<(M + Tile<T>::BM - 1) / Tile<T>::BM, kThreads, S.total, st>>>(
+      static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<const T*>(w),
+      static_cast<const float*>(bias), static_cast<const int*>(lab), static_cast<float*>(lpb),
+      static_cast<float*>(lpe), static_cast<float*>(logz), M, Tn, U1, J, V, Vp, blank);
+  return cudaGetLastError();
+}
+
 template <typename T, typename TP>
 cudaError_t launch_fwd(const void* enc, const void* pred, const void* w, const void* bias,
                        const void* lab, void* lpb, void* lpe, void* logz, cudaStream_t st, int M,
                        int Tn, int U1, int J, int V, int Vp, int blank) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  if (!j_narrow(J, kBf16))
+    return launch_fwd_wide<T, TP>(enc, pred, w, bias, lab, lpb, lpe, logz, st, M, Tn, U1, J, V,
+                                  Vp, blank);
+  if constexpr (kBf16) {
     switch (J / 128) {
 #define FWD_WG(NJ)                                                                              \
   case NJ:                                                                                      \
@@ -1590,7 +1937,18 @@ cudaError_t launch_bwd_xp(const void* enc, const void* pred, const void* w, cons
                           int B, int Tn, int U1, int J, int V, int Vp, int blank) {
   const int M = B * Tn * U1;
   cudaError_t e;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if (!j_narrow(J, std::is_same<T, bf16>::value)) {
+    const WideSmem<T> S;
+    e = set_smem(joint_bwd_xp_wide_kernel<T, TP>, S.total);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((M + Tile<T>::BM - 1) / Tile<T>::BM, (J + JG - 1) / JG);
+    joint_bwd_xp_wide_kernel<T, TP><<<grid, kThreads, S.total, st>>>(
+        static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<const T*>(w),
+        static_cast<const float*>(bias), static_cast<const int*>(lab),
+        static_cast<const float*>(logz), static_cast<const float*>(gb),
+        static_cast<const float*>(ge), static_cast<float*>(dpre), M, Tn, U1, J, V, Vp, blank);
+    e = cudaGetLastError();
+  } else if constexpr (std::is_same<T, bf16>::value) {
     switch (J / 128) {
 #define XP_WG(NJ)                                                                               \
   case NJ:                                                                                      \
@@ -1634,7 +1992,18 @@ cudaError_t launch_bwd_w(const void* enc, const void* pred, const void* w, const
   *launched = 1;
   const int tiles = (M + Tile<T>::BM - 1) / Tile<T>::BM;
   const int rows_per_chunk = (tiles + n_chunks - 1) / n_chunks * Tile<T>::BM;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if (!j_narrow(J, std::is_same<T, bf16>::value)) {
+    const WideSmem<T> S;
+    e = set_smem(joint_bwd_w_wide_kernel<T>, S.total);
+    if (e != cudaSuccess) return e;
+    joint_bwd_w_wide_kernel<T><<<dim3(Vp / BN, n_chunks, (J + JG - 1) / JG), kThreads, S.total,
+                                 st>>>(
+        static_cast<const T*>(xbuf), static_cast<const T*>(w), static_cast<const float*>(bias),
+        static_cast<const int*>(lab), static_cast<const float*>(logz),
+        static_cast<const float*>(gb), static_cast<const float*>(ge), static_cast<float*>(part),
+        static_cast<float*>(dbpart), M, Tn, U1, J, V, Vp, blank, rows_per_chunk);
+    e = cudaGetLastError();
+  } else if constexpr (std::is_same<T, bf16>::value) {
     switch (J / 128) {
 #define W_WG(NJ)                                                                              \
   case NJ:                                                                                    \
@@ -1665,8 +2034,9 @@ cudaError_t launch_bwd_w(const void* enc, const void* pred, const void* w, const
   return e;
 }
 
-// J that the entries route (J a multiple of 128: bf16 up to 640, float32 up to 512)
-bool j_routed(int J, int is_bf16) { return J > 0 && J % 128 == 0 && J <= (is_bf16 ? 640 : 512); }
+// J that the entries route: any positive multiple of 128 (the narrow
+// kernels up to 640 in bf16 and 512 in float32, the wide ones above)
+bool j_routed(int J) { return J > 0 && J % 128 == 0; }
 
 }  // namespace
 
@@ -1680,13 +2050,16 @@ bool j_routed(int J, int is_bf16) { return J > 0 && J % 128 == 0 && J <= (is_bf1
 //             bf16 J = 640: joint_bwd_xp_kernel, joint_bwd_w_kernel (wmma; 198 KB of
 //             shared memory, where the wgmma kernels would need 240 KB)
 //             float32 J <= 512: joint_bwd_xp_kernel, joint_bwd_w_kernel (FMAs)
+//   wide      bf16 J > 640, float32 J > 512, any J: joint_fwd_wide_kernel,
+//             joint_bwd_xp_wide_kernel, joint_bwd_w_wide_kernel (J streamed in
+//             chunks of 128; wmma in bf16, FMAs in float32)
 
 // -> lpb, lpe, logz [B,T,U1] float32.
 extern "C" int joint_lattice_fwd(const void* enc, const void* pred, const void* w,
                                  const void* bias, const void* lab, void* lpb, void* lpe,
                                  void* logz, void* stream, int B, int T, int U1, int J, int V,
                                  int Vp, int blank, int is_bf16, int pred_bf16) {
-  if (!j_routed(J, is_bf16) || (is_bf16 && Vp % FWD_VT)) return cudaErrorInvalidValue;
+  if (!j_routed(J) || (is_bf16 && Vp % FWD_VT)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * T * U1;
 #define JOINT_FWD(T_, TP_) \
@@ -1706,7 +2079,7 @@ extern "C" int joint_lattice_bwd_xp(const void* enc, const void* pred, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* launched = static_cast<int*>(grids);
   *launched = 0;
-  if (!j_routed(J, is_bf16)) return cudaErrorInvalidValue;
+  if (!j_routed(J)) return cudaErrorInvalidValue;
 #define JOINT_XP(T_, TP_)                                                                     \
   launch_bwd_xp<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, dpre, d_enc, d_pred, launched, \
                          st, B, T, U1, J, V, Vp, blank)
@@ -1727,7 +2100,7 @@ extern "C" int joint_lattice_bwd_w(const void* enc, const void* pred, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* launched = static_cast<int*>(grids);
   *launched = 0;
-  if (!j_routed(J, is_bf16)) return cudaErrorInvalidValue;
+  if (!j_routed(J)) return cudaErrorInvalidValue;
 #define JOINT_W(T_, TP_)                                                                      \
   launch_bwd_w<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, xbuf, part, dbpart, dw, db,     \
                         launched, st, B, T, U1, J, V, Vp, blank, n_chunks)

@@ -68,16 +68,18 @@
 //  D is refused (157 and 166 KB at dk = 128).
 //
 // The wide bf16 path (dk up to 128, any D; rel_attention_common.cuh's
-// narrow_width decides, as in the forward): the dq kernel keeps a thread's
-// KD / 8 float32 accumulators of [dQu | dAB] (144 at KD = 1152, which
-// would spill) by splitting the output columns over the grid: a block owns
-// 32 query rows and 512 columns, recomputes S, dP and dS for them (three
-// groups at d = 1024, dk = 128), and holds 64 accumulators a thread. Both
-// kernels stream the score product's depth through a ring of 64-column
-// chunks of AB and F, as the forward's wide kernel (151 KB and 80 KB at
-// DKM = 128). Each output element still belongs to one block and is
-// summed in a fixed order: bitwise repeatable. See the kernels' notes.
+// narrow_width decides, as in the forward). dq, redesigned for Hopper
+// (rel_flash_bwd_ds_wide_kernel, rel_flash_bwd_dsk_wide_kernel): S, dP and
+// dS once per (query, key) pair on wgmma fed by TMA through an mbarrier
+// ring, dS to a bf16 scratch in device memory, then [dQu | dAB] = dS [K |
+// F] as a second wgmma product (the first design split the output columns
+// over the grid and recomputed S, dP and dS for each group of 512). dkv
+// streams the score product's depth through a ring of 64-column chunks of
+// AB and F, as the forward's wide kernel (80 KB at DKM = 128). Each output
+// element still belongs to one block and is summed in a fixed order:
+// bitwise repeatable. See the kernels' notes.
 
+#include "hopper_common.cuh"
 #include "rel_attention_common.cuh"
 
 namespace {
@@ -874,198 +876,337 @@ __global__ void __launch_bounds__(VNT) rel_flash_bwd_dkv_bf16_kernel(
 // columns come per tile, and AB F^T's depth goes through a 2-stage ring of
 // WCH-column chunks.
 
-// dq: 8 warps own WQ_QB = 32 query rows and WQ_CW output columns of
-// [dQu (DKM) | dAB (D)] (column group grp of the grid's x: ceil((DKM + D) /
-// WQ_CW) groups a query tile, each recomputing S, dP and dS); per 64-key
-// tile, warp (rg, kg0) computes 16 rows x 16 keys of S, dP and dS, dS goes
-// to shared memory as bf16, and [dQu | dAB] (group columns) += dS . [K | F]
-// (the tile's group columns, loaded with K and V): each warp owns 64
-// columns for the 32 rows, acc[2][8][4] in registers.
-constexpr int WQ_QB = 32;
-constexpr int WQ_MK = 64;
-constexpr int WQ_CW = 512;
-constexpr int WQ_NT = 256;
+// dq, redesigned for Hopper: two launches, and S, dP and dS computed once
+// per (query, key) pair. The first design split [dQu | dAB]'s DKM + D
+// columns over the grid in groups of 512 and each group's block computed
+// S, dP and dS again (three times at d = 1024): 19x its bound, 4.2 ms at
+// the 1024-wide training shape (PERF.md).
+//   1. rel_flash_bwd_ds_wide_kernel: block = 128 query rows of one (batch,
+//      head); a producer warpgroup (one thread) streams TMA boxes of 64
+//      depth columns into a 4-stage ring of 32 KB stages, completing on
+//      mbarriers; two consumer warpgroups, 64 rows each, take every 128-key
+//      tile in turn: S = [q+u | AB] [K | F]^T over the depth DKM + D (q+u
+//      and K's chunks, then AB and F's) and dP = dO V^T (DKM), both on
+//      wgmma m64n128k16 with float32 accumulators in registers; then dS =
+//      p (dP keep / (1 - rate) - delta) scale from the accumulators (the
+//      keep-mask hash at the global head, b Ht + Ho + h) is written as bf16
+//      to a scratch dS [B, H, Tq, round128(Tk)] (73.5 MB at B=32, T'=374,
+//      H=8; zero past Tk and on key tiles the mask hides from all 128 rows,
+//      whose products are skipped).
+//   2. rel_flash_bwd_dsk_wide_kernel: [dQu | dAB] = dS [K | F], the product
+//      JAX's kernel body computes (82.5 GFLOP at that shape): block = 128
+//      query rows; per 128-column tile of the output, dS (K-major) and [K |
+//      F] (64 keys x 128 columns, MN-major: K's boxes for columns below DKM,
+//      F's above) stream through the same kind of ring into wgmma
+//      m64n128k16; each tile's epilogue writes its float32 columns while the
+//      producer already loads the next tile's stages.
+// Each output element is one block's, summed over the depth in a fixed
+// order: bitwise repeatable. No limit on D; dk <= 128, multiples of 8 (the
+// TMA boxes' strides), operands 16-byte aligned.
+// Bound at that shape: the bytes (AB read and dAB written dominate: 0.22
+// ms at 3.35 TB/s) over the products (S, dP and the dS product, ~0.18 ms
+// at the bf16 tensor rate). The scratch adds dS's write and re-read (0.04
+// ms) and kernel 1 re-reads AB's chunks from L2 once per key tile; the
+// time (0.72 ms, PERF.md) is about 3x the bound.
 
-template <int DKM>
-__global__ void __launch_bounds__(WQ_NT) rel_flash_bwd_dq_bf16_wide_kernel(
-    const bf16* __restrict__ qu, const bf16* __restrict__ ab, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ feats,
+namespace wq {
+
+constexpr int THREADS = 384;             // producer warpgroup + 2 consumer warpgroups
+constexpr int CONSUMERS = 256;
+constexpr int REG_PRODUCER = 40, REG_CONSUMER = 232;
+constexpr int TQ = 128;                  // query rows of a block
+constexpr int TK = 128;                  // keys of a dS tile (kernel 1)
+constexpr int TN = 128;                  // output columns of a tile (kernel 2)
+constexpr int STAGES = 4;
+constexpr uint32_t ATOM = 8192;          // 64 rows x 128 bytes, 128-byte swizzle
+constexpr uint32_t HALF = 2 * ATOM;      // a stage's A (128 rows) or B (128 rows / 2 atoms)
+constexpr uint32_t STAGE = 2 * HALF;
+constexpr size_t SMEM = 1024 + STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
+
+// K-major operand descriptor (128-byte swizzle, 8-row groups 1024 B apart)
+__device__ __forceinline__ uint64_t desc(uint32_t a) {
+  constexpr uint64_t kGroup = 1024 >> 4;
+  return static_cast<uint64_t>((a >> 4) & 0x3FFF) | (kGroup << 16) | (kGroup << 32) |
+         (1ull << 62);
+}
+// MN-major operand: 64-element column blocks `lbo` bytes apart, 8-row
+// groups 1024 B apart along K
+__device__ __forceinline__ uint64_t desc_mn(uint32_t a, uint32_t lbo) {
+  constexpr uint64_t kGroup = 1024 >> 4;
+  return static_cast<uint64_t>((a >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) | (kGroup << 32) | (1ull << 62);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 128, float32) = [d +] A (64 x 16) B (16 x 128), bf16; TB: B
+// MN-major (1) or K-major (0), A K-major. The accumulator's element (row,
+// col) of warp w, lane l: row 16 w + l / 4 (+8 for d[4i+2], d[4i+3]),
+// column 8 i + 2 (l % 4) (+1 for d[4i+1], d[4i+3]).
+template <int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// TMA: the box at (c0 inner, c1, c2 outer) of a 3-d `map` into shared memory at dst
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(hopper::saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(hopper::saddr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the ring's barriers: full (the producer's copies, by bytes), empty (both
+// consumer warpgroups' threads)
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  for (int i = 0; i < STAGES; ++i) {
+    hopper::mbar_init(&full[i], 1);
+    hopper::mbar_init(&empty[i], CONSUMERS);
+  }
+  hopper::mbar_fence_init();
+}
+
+// producer: wait for stage g's slot and arm its barrier for one stage of bytes
+__device__ __forceinline__ unsigned char* claim(unsigned char* ring, uint64_t* full,
+                                                uint64_t* empty, int g) {
+  const int st = g % STAGES;
+  hopper::mbar_wait(&empty[st], ((g / STAGES) & 1) ^ 1);
+  hopper::mbar_expect(&full[st], STAGE);
+  return ring + st * STAGE;
+}
+
+// consumer warpgroup c: acc = (its 64 rows of the stages' A) x (their B)
+// over the next n stages of the ring (g counts stages); each stage is
+// released once the products that read it are done
+template <int TB>
+__device__ __forceinline__ void ring_products(float (&acc)[64], int n, unsigned char* ring,
+                                              uint64_t* full, uint64_t* empty, int& g, int c) {
+  int prev = 0;
+  fence_regs(acc);
+  hopper::wg_fence();
+  for (int i = 0; i < n; ++i, ++g) {
+    const int st = g % STAGES;
+    hopper::mbar_wait(&full[st], (g / STAGES) & 1);
+    const uint32_t a = hopper::saddr(ring + st * STAGE) + c * ATOM;
+    const uint32_t b = hopper::saddr(ring + st * STAGE) + HALF;
+    if (i > 0) hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_n128<TB>(acc, desc(a + kk * 32), TB ? desc_mn(b + kk * 2048, ATOM) : desc(b + kk * 32),
+                     (i | kk) != 0);
+    hopper::wg_commit();
+    if (i > 0) {
+      hopper::wg_wait<1>();
+      hopper::mbar_arrive(&empty[prev]);
+    }
+    prev = st;
+  }
+  hopper::wg_wait0();
+  fence_regs(acc);
+  hopper::mbar_arrive(&empty[prev]);
+}
+
+}  // namespace wq
+
+// dS of 128 query rows of one (batch, head) against every key tile; the
+// maps: q+u, AB, dO [B H, Tq, *], K, V [B H, Tk, *] and F [1, Tk, D] in
+// boxes of 64 columns x 128 rows
+__global__ void __launch_bounds__(wq::THREADS, 1) rel_flash_bwd_ds_wide_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap abmap,
+    const __grid_constant__ CUtensorMap omap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap fmap,
     const uint8_t* __restrict__ mask, const int* __restrict__ seed,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dab, int H,
-    int Tq, int Tk, int dk, int D, int nq, float scale, int drop, uint32_t thr, int Ht,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ ds,
+    int H, int Tq, int Tk, int Tkp, int dkc, int D, float scale, int drop, uint32_t thr, int Ht,
     int Ho, float inv_keep) {
-  constexpr int LDH = DKM + 8, LDG = WQ_CW + 8, LDS = WQ_MK + 8;
-  constexpr int STAGE = (WQ_QB + WQ_MK) * WLDC;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [WQ_QB][LDH]  q+u
-  bf16* sO = sQ + WQ_QB * LDH;                    // [WQ_QB][LDH]  dO
-  bf16* sK = sO + WQ_QB * LDH;                    // [WQ_MK][LDH]
-  bf16* sV = sK + WQ_MK * LDH;                    // [WQ_MK][LDH]
-  bf16* sG = sV + WQ_MK * LDH;                    // [WQ_MK][LDG]  [K | F], group columns
-  bf16* sC = sG + WQ_MK * LDG;                    // [2][WQ_QB + WQ_MK][WLDC]  AB | F chunks
-  bf16* sS = sC + 2 * STAGE;                      // [WQ_QB][LDS]  dS
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c4 = lane & 3;
-  const int grp = blockIdx.x / nq, q0 = (blockIdx.x - grp * nq) * WQ_QB;
-  const int col0 = grp * WQ_CW;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
-  const bf16* abg = ab + bh * Tq * D;
-  const bf16* kg = k + bh * Tk * dk;
-  const bf16* vg = v + bh * Tk * dk;
+  using namespace wq;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  uint8_t* live = reinterpret_cast<uint8_t*>(empty + STAGES);   // [nkt]: a live pair in the tile
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
+  const int nkt = (Tk + TK - 1) / TK, ns = dkc + (D + 63) / 64;
   const uint8_t* mg = mask + (size_t)b * Tq * Tk;
+  if (tid == 0) init_ring(full, empty);
+  // which key tiles the mask leaves any live pair in, for all 128 rows
+  for (int kt = 0; kt < nkt; ++kt) {
+    bool any = false;
+    for (int e = tid; e < TQ * TK; e += THREADS) {
+      const int i = q0 + e / TK, j = kt * TK + e % TK;
+      any |= i < Tq && j < Tk && mg[(size_t)i * Tk + j] != 0;
+    }
+    any = __syncthreads_or(any);
+    if (tid == 0) live[kt] = any;
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<REG_PRODUCER>();
+    if (tid == 0) {
+      int g = 0;
+      for (int kt = 0; kt < nkt; ++kt) {
+        if (!live[kt]) continue;
+        const int k0 = kt * TK;
+        for (int d = 0; d < ns + dkc; ++d, ++g) {   // S's depth chunks, then dP's
+          unsigned char* dst = claim(ring, full, empty, g);
+          uint64_t* bar = &full[g % STAGES];
+          if (d < dkc) {
+            tma_load3(dst, &qmap, bar, 64 * d, q0, bh);
+            tma_load3(dst + HALF, &kmap, bar, 64 * d, k0, bh);
+          } else if (d < ns) {
+            tma_load3(dst, &abmap, bar, 64 * (d - dkc), q0, bh);
+            tma_load3(dst + HALF, &fmap, bar, 64 * (d - dkc), k0, 0);
+          } else {
+            tma_load3(dst, &omap, bar, 64 * (d - ns), q0, bh);
+            tma_load3(dst + HALF, &vmap, bar, 64 * (d - ns), k0, bh);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<REG_CONSUMER>();
+  const int c = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = 64 * c + 16 * warp + (lane >> 2);   // this thread's rows r0, r0 + 8
+  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);   // keep-mask head
   const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
   const float sl2 = scale * LOG2E;
-  const int n_chunks = (D + WCH - 1) / WCH;
-
-  load_tile16(sQ, LDH, qu + bh * Tq * dk, q0, WQ_QB, Tq, dk, 0, DKM, tid, WQ_NT);
-  load_tile16(sO, LDH, dout + bh * Tq * dk, q0, WQ_QB, Tq, dk, 0, DKM, tid, WQ_NT);
-  cp_async_commit();
-  auto load_chunk = [&](int c, int k0) {
-    bf16* st = sC + (c & 1) * STAGE;
-    load_tile16(st, WLDC, abg, q0, WQ_QB, Tq, D, c * WCH, WCH, tid, WQ_NT);
-    load_tile16(st + WQ_QB * WLDC, WLDC, feats, k0, WQ_MK, Tk, D, c * WCH, WCH, tid, WQ_NT);
-  };
-  // s (16 rows from rg x 16 keys from kg0) += A B^T over depth [0, depth)
-  auto product = [&](float (&s)[2][4], const bf16* A, const bf16* B, int ld, int depth,
-                     int rg, int kg0) {
-#pragma unroll 4
-    for (int kk = 0; kk < depth; kk += 16) {
-      uint32_t a[4], bb[4];
-      load_a(a, A, ld, rg, kk, lane);
-      load_b(bb, B, ld, kg0, kk, lane);
-      mma(s[0], a, bb[0], bb[1]);
-      mma(s[1], a, bb[2], bb[3]);
-    }
-  };
-
-  const int rg = (warp & 1) * 16, kg0 = (warp >> 1) * 16;
+  const bool even = Tk % 2 == 0 && reinterpret_cast<uintptr_t>(mask) % 2 == 0;
   int qi[2];
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    qi[r] = q0 + rg + g + 8 * r;
-    lse2[r] = qi[r] < Tq ? lse[bh * Tq + qi[r]] * LOG2E : LSE_BIG;
-    dl[r] = qi[r] < Tq ? delta[bh * Tq + qi[r]] : 0.f;
+    qi[r] = q0 + r0 + 8 * r;
+    lse2[r] = qi[r] < Tq ? lse[(size_t)bh * Tq + qi[r]] * LOG2E : LSE_BIG;
+    dl[r] = qi[r] < Tq ? delta[(size_t)bh * Tq + qi[r]] : 0.f;
   }
-  float acc[2][8][4];
+  bf16* dsg = ds + (size_t)bh * Tq * Tkp;
+  int g = 0;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * TK;
+    if (!live[kt]) {   // dS = 0 on the whole tile
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+      for (int r = 0; r < 2; ++r)
+        if (qi[r] < Tq)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
-  const bool even = Tk % 2 == 0 && reinterpret_cast<uintptr_t>(mask) % 2 == 0;
-
-  for (int k0 = 0; k0 < Tk; k0 += WQ_MK) {
-    uint32_t mk[2][2];
-    bool any = false;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        mk[r][n] = mask_pair(mg, qi[r], k0 + kg0 + n * 8 + 2 * c4, Tq, Tk, even);
-        any |= mk[r][n] != 0u;
-      }
-    // a tile that the mask hides from every row of the block adds nothing;
-    // the vote is also the barrier after the last tile's reads
-    if (!__syncthreads_or(any)) continue;
-    load_tile16(sK, LDH, kg, k0, WQ_MK, Tk, dk, 0, DKM, tid, WQ_NT);
-    load_tile16(sV, LDH, vg, k0, WQ_MK, Tk, dk, 0, DKM, tid, WQ_NT);
-    if (col0 < DKM) {   // group 0: K's columns, then F's first WQ_CW - DKM
-      load_tile16(sG, LDG, kg, k0, WQ_MK, Tk, dk, 0, DKM, tid, WQ_NT);
-      load_tile16(sG + DKM, LDG, feats, k0, WQ_MK, Tk, D, 0, WQ_CW - DKM, tid, WQ_NT);
-    } else {
-      load_tile16(sG, LDG, feats, k0, WQ_MK, Tk, D, col0 - DKM, WQ_CW, tid, WQ_NT);
+          for (int i = 0; i < 16; ++i)
+            *reinterpret_cast<uint32_t*>(dsg + (size_t)qi[r] * Tkp + k0 + 8 * i + 2 * (lane & 3)) = 0u;
+      continue;
     }
-    cp_async_commit();
-    load_chunk(0, k0);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float s[2][4], dp[2][4];
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    product(s, sQ, sK, LDH, DKM, rg, kg0);               // (q+u) K^T
-    product(dp, sO, sV, LDH, DKM, rg, kg0);              // dO V^T
-    for (int c = 0; c < n_chunks; ++c) {                 // AB F^T, chunk by chunk
-      if (c + 1 < n_chunks) {
-        load_chunk(c + 1, k0);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* st = sC + (c & 1) * STAGE;
-      product(s, st, st + WQ_QB * WLDC, WLDC, WCH, rg, kg0);
-      __syncthreads();   // this stage is refilled two chunks on
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        float ds[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p =
-              mask_bit(mk[r][n], e) ? exp2_approx(s[n][2 * r + e] * sl2 - lse2[r]) : 0.f;
-          float dpv = dp[n][2 * r + e];
-          if (drop)
-            dpv = keep_prob(sd, hbh, (uint32_t)qi[r],
-                            (uint32_t)(k0 + kg0 + n * 8 + 2 * c4 + e), thr)
-                      ? dpv * inv_keep
-                      : 0.f;
-          ds[e] = p * (dpv - dl[r]) * scale;
-        }
-        *reinterpret_cast<uint32_t*>(sS + (rg + g + 8 * r) * LDS + kg0 + n * 8 + 2 * c4) =
-            pack_bf16(ds[0], ds[1]);
-      }
-    __syncthreads();
-
-    // [dQu | dAB] (group columns) += dS . [K | F]
-#pragma unroll
-    for (int kk = 0; kk < WQ_MK; kk += 16) {
-      uint32_t a0[4], a1[4];
-      load_a(a0, sS, LDS, 0, kk, lane);
-      load_a(a1, sS, LDS, 16, kk, lane);
-#pragma unroll
-      for (int n = 0; n < 8; n += 2) {
-        uint32_t bb[4];
-        load_bt(bb, sG, LDG, kk, warp * 64 + n * 8, lane);
-        mma(acc[0][n], a0, bb[0], bb[1]);
-        mma(acc[1][n], a1, bb[0], bb[1]);
-        mma(acc[0][n + 1], a0, bb[2], bb[3]);
-        mma(acc[1][n + 1], a1, bb[2], bb[3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    float s[64], dp[64];
+    ring_products<0>(s, ns, ring, full, empty, g, c);
+    ring_products<0>(dp, dkc, ring, full, empty, g, c);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int i = q0 + mt * 16 + g + 8 * r;
-      if (i >= Tq) continue;
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int i = 0; i < 16; ++i) {
+        const int j = k0 + 8 * i + 2 * (lane & 3);
+        const uint32_t mk = mask_pair(mg, qi[r], j, Tq, Tk, even);
+        float dsv[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int c = col0 + warp * 64 + n * 8 + 2 * c4 + e;
-          const float x = acc[mt][n][2 * r + e];
-          if (c < dk)
-            dq[(bh * Tq + i) * dk + c] = x;
-          else if (c >= DKM && c < DKM + D)
-            dab[(bh * Tq + i) * D + c - DKM] = x;
+          const float p = mask_bit(mk, e) ? exp2_approx(s[4 * i + 2 * r + e] * sl2 - lse2[r]) : 0.f;
+          float dpv = dp[4 * i + 2 * r + e];
+          if (drop)
+            dpv = keep_prob(sd, hbh, (uint32_t)qi[r], (uint32_t)(j + e), thr) ? dpv * inv_keep
+                                                                              : 0.f;
+          dsv[e] = p * (dpv - dl[r]) * scale;
+        }
+        if (qi[r] < Tq)
+          *reinterpret_cast<uint32_t*>(dsg + (size_t)qi[r] * Tkp + j) = pack_bf16(dsv[0], dsv[1]);
+      }
+    }
+  }
+}
+
+// [dQu | dAB] = dS [K | F] for 128 query rows of one (batch, head): the
+// maps dS [B H, Tq, Tkp] in boxes of 64 keys x 128 rows, K [B H, Tk, dk]
+// and F [1, Tk, D] in boxes of 64 columns x 64 keys; dQu's columns are
+// [0, DKM) (zero past dk), dAB's [DKM, DKM + D)
+__global__ void __launch_bounds__(wq::THREADS, 1) rel_flash_bwd_dsk_wide_kernel(
+    const __grid_constant__ CUtensorMap dsmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap fmap, float* __restrict__ dq, float* __restrict__ dab,
+    int H, int Tq, int Tkp, int dk, int dkm, int D) {
+  using namespace wq;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
+  const int nct = (dkm + D + TN - 1) / TN, nkc = Tkp / 64;
+  if (tid == 0) init_ring(full, empty);
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<REG_PRODUCER>();
+    if (tid == 0) {
+      int g = 0;
+      for (int ct = 0; ct < nct; ++ct)
+        for (int kc = 0; kc < nkc; ++kc, ++g) {
+          unsigned char* dst = claim(ring, full, empty, g);
+          uint64_t* bar = &full[g % STAGES];
+          tma_load3(dst, &dsmap, bar, 64 * kc, q0, bh);
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int col = TN * ct + 64 * jj;
+            if (col < dkm)
+              tma_load3(dst + HALF + jj * ATOM, &kmap, bar, col, 64 * kc, bh);
+            else
+              tma_load3(dst + HALF + jj * ATOM, &fmap, bar, col - dkm, 64 * kc, 0);
+          }
         }
     }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<REG_CONSUMER>();
+  const int c = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = 64 * c + 16 * warp + (lane >> 2);
+  int g = 0;
+  for (int ct = 0; ct < nct; ++ct) {
+    float acc[64];
+    ring_products<1>(acc, nkc, ring, full, empty, g, c);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + r0 + 8 * r;
+      if (i >= Tq) continue;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int col = TN * ct + 8 * n + 2 * (lane & 3);   // dk, D: multiples of 8
+        const float2 v = make_float2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+        if (col < dk)
+          *reinterpret_cast<float2*>(dq + ((size_t)bh * Tq + i) * dk + col) = v;
+        else if (col >= dkm && col - dkm < D)
+          *reinterpret_cast<float2*>(dab + ((size_t)bh * Tq + i) * D + col - dkm) = v;
+      }
+    }
+  }
 }
 
 // dkv: 4 warps own WV_K = 64 keys, each warp 16; K and V stay in shared
@@ -1267,11 +1408,6 @@ size_t dkv_f32_smem(int dk, int D) {
                           (size_t)2 * KV_BQ * (KV_BK + 1) + 2 * KV_BQ);
 }
 
-constexpr size_t wide_dq_smem(int dkm) {
-  return 2 * ((size_t)(2 * WQ_QB + 2 * WQ_MK) * (dkm + 8) + (size_t)WQ_MK * (WQ_CW + 8) +
-              2 * (size_t)(WQ_QB + WQ_MK) * WLDC + (size_t)WQ_QB * (WQ_MK + 8));
-}
-
 constexpr size_t wide_dkv_smem(int dkm) {
   return 2 * ((size_t)(2 * WV_K + 2 * WV_Q) * (dkm + 8) + 2 * (size_t)(WV_K + WV_Q) * WLDC) +
          sizeof(float) * 2 * WV_Q;
@@ -1289,7 +1425,7 @@ cudaError_t launch(K kernel, size_t smem, dim3 grid, int threads, cudaStream_t s
 
 struct Args {
   const void *qu, *ab, *k, *v, *feats, *mask, *seed, *dout, *lse, *delta;
-  void *o1, *o2;
+  void *o1, *o2, *scratch;
   cudaStream_t stream;
   int B, H, Tq, Tk, dk, D, drop;
   uint32_t thr;
@@ -1333,6 +1469,53 @@ bool wide_ok(const Args& a) {
          aligned16(a.v) && aligned16(a.feats) && aligned16(a.dout);
 }
 
+// map of a bf16 tensor [depth][rows][cols] (cols and the strides multiples
+// of 8 elements), boxes of 64 columns x box_rows rows x 1, 128-byte
+// swizzle; a load reads zeros past any end
+cudaError_t bf16_map3(CUtensorMap* map, const void* ptr, uint64_t cols, uint64_t rows,
+                      uint64_t depth, uint32_t box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = hopper::tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  if (cols % 8 != 0 || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorInvalidValue;
+  cuuint64_t dims[3] = {cols, rows, depth};
+  cuuint64_t strides[2] = {cols * sizeof(bf16), cols * rows * sizeof(bf16)};
+  cuuint32_t box[3] = {64, box_rows, 1};
+  cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the wide bf16 dq: dS into a.scratch [B, H, Tq, round128(Tk)] bf16, then
+// [dQu | dAB] = dS [K | F] (see rel_flash_bwd_ds_wide_kernel)
+cudaError_t launch_dq_wide(const Args& a) {
+  const int dkm = a.dk <= 64 ? 64 : 128, bhn = a.B * a.H;
+  const int tkp = round_up(a.Tk, wq::TK), nkt = tkp / wq::TK;
+  CUtensorMap qm, abm, om, km, vm, fm, dsm, km2, fm2;
+  cudaError_t e = bf16_map3(&qm, a.qu, a.dk, a.Tq, bhn, wq::TQ);
+  if (e == cudaSuccess) e = bf16_map3(&abm, a.ab, a.D, a.Tq, bhn, wq::TQ);
+  if (e == cudaSuccess) e = bf16_map3(&om, a.dout, a.dk, a.Tq, bhn, wq::TQ);
+  if (e == cudaSuccess) e = bf16_map3(&km, a.k, a.dk, a.Tk, bhn, wq::TK);
+  if (e == cudaSuccess) e = bf16_map3(&vm, a.v, a.dk, a.Tk, bhn, wq::TK);
+  if (e == cudaSuccess) e = bf16_map3(&fm, a.feats, a.D, a.Tk, 1, wq::TK);
+  if (e == cudaSuccess) e = bf16_map3(&dsm, a.scratch, tkp, a.Tq, bhn, wq::TQ);
+  if (e == cudaSuccess) e = bf16_map3(&km2, a.k, a.dk, a.Tk, bhn, 64);
+  if (e == cudaSuccess) e = bf16_map3(&fm2, a.feats, a.D, a.Tk, 1, 64);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.Tq + wq::TQ - 1) / wq::TQ, a.H, a.B);
+  e = launch(rel_flash_bwd_ds_wide_kernel, wq::SMEM + nkt, grid, wq::THREADS, a.stream, qm, abm,
+             om, km, vm, fm, static_cast<const uint8_t*>(a.mask),
+             static_cast<const int*>(a.seed), static_cast<const float*>(a.lse),
+             static_cast<const float*>(a.delta), static_cast<bf16*>(a.scratch), a.H, a.Tq, a.Tk,
+             tkp, dkm / 64, a.D, a.scale, a.drop, a.thr, a.Ht, a.Ho, a.inv_keep);
+  if (e != cudaSuccess) return e;
+  return launch(rel_flash_bwd_dsk_wide_kernel, wq::SMEM, grid, wq::THREADS, a.stream, dsm, km2,
+                fm2, static_cast<float*>(a.o1), static_cast<float*>(a.o2), a.H, a.Tq, tkp, a.dk,
+                dkm, a.D);
+}
+
 cudaError_t launch_dq(const Args& a, bool bf16_) {
   const int nq32 = (a.Tq + DQ_BQ - 1) / DQ_BQ;
   if (!bf16_) {
@@ -1345,14 +1528,8 @@ cudaError_t launch_dq(const Args& a, bool bf16_) {
                    dim3(nq32 * groups, a.H, a.B), a);
   }
   if (!narrow_width(a.dk, a.D, true)) {
-    if (!wide_ok(a)) return cudaErrorInvalidValue;
-    const int dkm = a.dk <= 64 ? 64 : 128;
-    const int nq = (a.Tq + WQ_QB - 1) / WQ_QB, groups = (dkm + a.D + WQ_CW - 1) / WQ_CW;
-    const dim3 grid(nq * groups, a.H, a.B);
-    return dkm == 64
-               ? run(rel_flash_bwd_dq_bf16_wide_kernel<64>, wide_dq_smem(64), grid, WQ_NT, a, nq)
-               : run(rel_flash_bwd_dq_bf16_wide_kernel<128>, wide_dq_smem(128), grid, WQ_NT, a,
-                     nq);
+    if (!wide_ok(a) || a.scratch == nullptr) return cudaErrorInvalidValue;
+    return launch_dq_wide(a);
   }
   // 64 rows (16 warps) where the block fits shared memory, else 32 (8 warps)
   const int kd = kd_pad(a.dk, a.D), dkp = dk_pad(a.dk);
@@ -1411,15 +1588,17 @@ cudaError_t launch_dkv(const Args& a, bool bf16_) {
 // writes dk, dv [B,H,Tk,dk]; all float32, contiguous. Widths as the
 // forward's: narrow_width or wide_width (dout 16-byte aligned too on bf16's
 // wide path). Ht, Ho: the keep-mask's head total and offset, as the
-// forward's. Each returns the CUDA error code of its launch (0 on success;
-// cudaErrorInvalidValue before any launch for widths outside both paths).
+// forward's. scratch: the wide bf16 dq's dS, bf16 [B,H,Tq,round128(Tk)]
+// (null elsewhere; dkv_kernel never reads it). Each returns the CUDA error
+// code of its launches (0 on success; cudaErrorInvalidValue before any
+// launch for widths outside both paths).
 extern "C" int rel_flash_attention_bwd_dq(
     const void* qu, const void* ab, const void* k, const void* v, const void* feats,
     const void* mask, const void* seed, const void* dout, const void* lse,
-    const void* delta, void* dq, void* dab, void* stream, int B, int H, int Tq, int Tk,
-    int dk, int D, int is_bf16, int drop, int thr_bits, int Ht, int Ho, float scale,
+    const void* delta, void* dq, void* dab, void* scratch, void* stream, int B, int H, int Tq,
+    int Tk, int dk, int D, int is_bf16, int drop, int thr_bits, int Ht, int Ho, float scale,
     float inv_keep) {
-  const Args a{qu, ab, k, v, feats, mask, seed, dout, lse, delta, dq, dab,
+  const Args a{qu, ab, k, v, feats, mask, seed, dout, lse, delta, dq, dab, scratch,
                static_cast<cudaStream_t>(stream), B, H, Tq, Tk, dk, D, drop,
                static_cast<uint32_t>(thr_bits), Ht, Ho, scale, inv_keep};
   return static_cast<int>(launch_dq(a, is_bf16 != 0));
@@ -1428,10 +1607,10 @@ extern "C" int rel_flash_attention_bwd_dq(
 extern "C" int rel_flash_attention_bwd_dkv(
     const void* qu, const void* ab, const void* k, const void* v, const void* feats,
     const void* mask, const void* seed, const void* dout, const void* lse,
-    const void* delta, void* dk_out, void* dv_out, void* stream, int B, int H, int Tq,
-    int Tk, int dk, int D, int is_bf16, int drop, int thr_bits, int Ht, int Ho,
+    const void* delta, void* dk_out, void* dv_out, void* scratch, void* stream, int B, int H,
+    int Tq, int Tk, int dk, int D, int is_bf16, int drop, int thr_bits, int Ht, int Ho,
     float scale, float inv_keep) {
-  const Args a{qu, ab, k, v, feats, mask, seed, dout, lse, delta, dk_out, dv_out,
+  const Args a{qu, ab, k, v, feats, mask, seed, dout, lse, delta, dk_out, dv_out, scratch,
                static_cast<cudaStream_t>(stream), B, H, Tq, Tk, dk, D, drop,
                static_cast<uint32_t>(thr_bits), Ht, Ho, scale, inv_keep};
   return static_cast<int>(launch_dkv(a, is_bf16 != 0));

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -54,7 +55,10 @@ def library_path(name: str) -> Path:
 def build(names=KERNELS) -> dict[str, str]:
     """Compile every library of ``names`` that is not built yet, one nvcc
     process per source, all started together. Returns nvcc's output (the
-    ptxas register and shared-memory report) per name built."""
+    ptxas register and shared-memory report) per name built, after a first
+    line "nvcc: <s> s" with the seconds from the start to that process's
+    end."""
+    t0 = time.perf_counter()
     procs = []
     for name in names:
         so = library_path(name)
@@ -68,10 +72,20 @@ def build(names=KERNELS) -> dict[str, str]:
         )
         procs.append((name, so, tmp, proc))
     logs: dict[str, str] = {}
+    ends: dict[str, float] = {}
+
+    def wait(name, proc):
+        logs[name] = proc.communicate()[0]
+        ends[name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(name, proc)) for name, _, _, proc in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed = []
     for name, so, tmp, proc in procs:
-        out, _ = proc.communicate()
-        logs[name] = out
+        out = logs[name] = f"nvcc: {ends[name]:.1f} s\n{logs[name]}"
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}:\n{out}")
         else:

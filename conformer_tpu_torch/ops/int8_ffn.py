@@ -35,16 +35,24 @@ def int8_ffn_plain(x, ln, w1q, s1, b1, w2q, s2, b2, *, half: float = 0.5,
     return (x.float() + half * y).to(x.dtype)
 
 
-DMAX, HMAX = 512, 2048     # the kernel's widths (csrc/int8_ffn.cu)
+DMAX, HMAX = 512, 2048     # the cluster kernel's widths (csrc/int8_ffn.cu)
+
+
+def route(d: int, h: int) -> str:
+    """Which kernels run the widths D and H: "narrow", the cluster kernel
+    (4 blocks hold each row's H hidden values in registers, at most 512
+    columns a block, and a block's A tile holds D <= 512: every shipped
+    width, S 144 / 576, M 256 / 2048, L 512 / 2048), else "wide" (four
+    launches, the hidden in float32 through device memory: Conformer XL's
+    1024 / 4096 and any wider)."""
+    return "narrow" if d <= DMAX and h <= HMAX else "wide"
 
 
 def width_error(d: int, h: int) -> str | None:
-    """Why the CUDA kernel does not take the widths D and H, or None where
-    it does: a cluster of 4 blocks holds each row's H hidden values in
-    registers, at most 512 columns a block, and a block's A tile holds D
-    <= 512 (every shipped width: S 144 / 576, M 256 / 2048, L 512 / 2048)."""
-    if d > DMAX or h > HMAX:
-        return f"int8_ffn_fused takes D <= {DMAX} and H <= {HMAX} (got D = {d}, H = {h})"
+    """Why the CUDA kernels do not take the widths D and H, or None where
+    they do: any D, H >= 1 (``route``), as JAX's kernel."""
+    if d < 1 or h < 1:
+        return f"int8_ffn_fused needs D >= 1 and H >= 1 (got D = {d}, H = {h})"
     return None
 
 
@@ -83,13 +91,26 @@ def int8_ffn_fused(x, ln, w1q, s1, b1, w2q, s2, b2, *, half: float = 0.5,
     out = torch.empty_like(x2)
     if x2.shape[0] == 0:
         return out.reshape(x.shape)
-    fn = cuda_build.load_function("int8_ffn", "int8_ffn_fwd", n_ptrs=11, n_ints=4, n_floats=2)
     P = cuda_build.ptr
     ln_s, ln_b, s1, b1, s2, b2 = vecs
     w1t, w2t = kernel_layout(w1q), kernel_layout(w2q)
+    m, dev = x2.shape[0], x.device
+    ints = (m, d, h, int(x.dtype == torch.bfloat16))
+    if route(d, h) == "narrow":
+        fn = cuda_build.load_function("int8_ffn", "int8_ffn_fwd", n_ptrs=11, n_ints=4,
+                                      n_floats=2)
+        scratch = ()
+    else:
+        # LN(x)'s int8 and scales, the float32 hidden, its int8 and scales
+        fn = cuda_build.load_function("int8_ffn", "int8_ffn_wide_fwd", n_ptrs=16, n_ints=4,
+                                      n_floats=2)
+        scratch = (torch.empty((m, w1t.shape[1]), dtype=torch.int8, device=dev),
+                   torch.empty((m,), dtype=f32, device=dev),
+                   torch.empty((m, h), dtype=f32, device=dev),
+                   torch.empty((m, w2t.shape[1]), dtype=torch.int8, device=dev),
+                   torch.empty((m,), dtype=f32, device=dev))
     err = fn(P(x2), P(ln_s), P(ln_b), P(w1t), P(s1), P(b1), P(w2t), P(s2), P(b2), P(out),
-             cuda_build.stream_ptr(x2), x2.shape[0], d, h, int(x.dtype == torch.bfloat16),
-             half, eps)
+             *(P(t) for t in scratch), cuda_build.stream_ptr(x2), *ints, half, eps)
     cuda_build.check(err, "int8_ffn")
     int8_ffn_fused.launches += 1
     return out.reshape(x.shape)

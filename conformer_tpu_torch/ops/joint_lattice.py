@@ -12,8 +12,10 @@ launched (1, 2 and 3 per call: the backwards sum across blocks in extra
 grids, in a fixed order). The plain versions are chunked over T, so they
 build [B, t_chunk, U+1, V] at a time and never the whole lattice. The
 kernels take J in multiples of 128: the wrappers zero-pad J
-(``pad_join``, exact) and slice the gradients back; ``width_error`` says
-which J each dtype takes (bf16 up to 640, float32 up to 512).
+(``pad_join``, exact) and slice the gradients back. Every J is taken
+(``width_error``); ``route`` says which kernels run it: the narrow ones at
+every shipped width (bf16 up to 640, float32 up to 512 after padding),
+the wide ones, which stream J in chunks, above.
 
 Inputs everywhere: enc [B, T, J] and pred [B, U+1, J], each float32 or
 bfloat16 (the model gives bf16 enc and float32 pred: the predictor runs in
@@ -36,7 +38,7 @@ from . import cuda_build
 _V_TILE = 64            # the backward's V tile: W and the bias are padded to a multiple of it
 _FWD_V_TILE = 128       # the forward's
 J_TILE = 128            # the kernels take J in multiples of it: the wrappers pad J with zeros
-MAX_J = {torch.bfloat16: 640, torch.float32: 512}   # padded J the kernels take, by enc's dtype
+NARROW_J = {torch.bfloat16: 640, torch.float32: 512}   # the narrow kernels' padded J, by dtype
 _BWD_W_BLOCKS = 4 * 132   # bwd_w's grid: at least four blocks per SM of an H100
 _BWD_W_ROWS = 8192        # bwd_w: cells summed in float32 into one partial dW, at most
 _MAX_CHUNKS = 128
@@ -123,20 +125,27 @@ def joint_lattice_plain_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank
 # ------------------------------------------------------------------ kernels
 
 
+def route(dtype, j: int) -> str:
+    """Which kernels run join width ``j`` with enc in ``dtype`` (J padded
+    to a multiple of ``J_TILE`` first): "narrow" at every shipped width,
+    bf16 (the model's) padded J <= 640 (Conformer-S 320 -> 384, M 512, L
+    640: the forward on wgmma, the backward on wgmma up to 512 and on wmma
+    at 640) and float32 (the parity path) padded J <= 512 (the FMA
+    kernels, whose x tile holds all of J); else "wide" (the wide kernels
+    of ``csrc/joint_lattice.cu``: J streamed in chunks of 128, shared
+    memory that does not grow with J)."""
+    jp = -(-j // J_TILE) * J_TILE
+    return "narrow" if jp <= NARROW_J.get(dtype, 0) else "wide"
+
+
 def width_error(dtype, j: int) -> str | None:
     """Why the kernels refuse join width ``j`` with enc in ``dtype``, or
-    None where all three take it. J is first padded to a multiple of
-    ``J_TILE``. bf16 (the model's): padded J <= 640 (Conformer-S 320 ->
-    384, M 512, L 640); the forward's two x tiles and ring fit 224 KB up to
-    there, the backward runs on wgmma up to 512 and on the wmma kernels at
-    640. float32 (the parity path): padded J <= 512, where the FMA
-    kernels' tiles fill shared memory."""
-    limit = MAX_J.get(dtype)
-    if limit is None:
+    None where all three take it: enc float32 or bfloat16 and any J >= 1,
+    as JAX's kernel, which takes the whole J as one block (``route``)."""
+    if dtype not in NARROW_J:
         return f"enc must be float32 or bfloat16, got {dtype}"
-    jp = -(-j // J_TILE) * J_TILE
-    if j <= 0 or jp > limit:
-        return f"J={j} (padded to {jp}) outside the {dtype} kernels' J <= {limit}"
+    if j <= 0:
+        return f"J={j}: the join width must be positive"
     return None
 
 

@@ -39,6 +39,7 @@ MAX_DK = 128        # head width of the wide kernels' register tiles
 NARROW_DK = 64      # head width of the narrow kernels' register tiles
 NARROW_KD = 576     # the narrow bf16 kernels' score depth round64(round16(dk) + D)
 NARROW_D_F32 = 512  # the narrow float32 dq kernel keeps 32 dAB columns a thread
+DS_KEYS = 128       # the wide bf16 dq's key tile: its dS scratch rows are padded to a multiple
 
 
 # ------------------------------------------------------------ keep-mask hash
@@ -316,16 +317,22 @@ def _bwd_kernel(symbol, q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, sc
                 dropout_rate, h_total, h_offset, out_shapes):
     b, h, tq, tk, dk, d = _check(symbol, q_u, ab, k, v, k_feats, mask, seed, dropout_rate,
                                  dout, lse, delta)
+    scratch = None
     if q_u.dtype == torch.bfloat16 and route(q_u.dtype, dk, d) == "wide":
         q_u, ab, k, v, k_feats, dout = _aligned(q_u, ab, k, v, k_feats, dout)
-    fn = cuda_build.load_function("rel_flash_attention_bwd", symbol, n_ptrs=13, n_ints=11,
+        if symbol == "rel_flash_attention_bwd_dq":
+            # the wide dq's dS [B, H, Tq, round128(Tk)] in bf16 (csrc note)
+            scratch = torch.empty((b, h, tq, _round_up(tk, DS_KEYS)), dtype=torch.bfloat16,
+                                  device=q_u.device)
+    fn = cuda_build.load_function("rel_flash_attention_bwd", symbol, n_ptrs=14, n_ints=11,
                                   n_floats=2)
     outs = [torch.empty(s, dtype=torch.float32, device=q_u.device) for s in out_shapes]
     drop, thr_bits, inv_keep = _drop_args(dropout_rate)
     P = cuda_build.ptr
     err = fn(
         P(q_u), P(ab), P(k), P(v), P(k_feats), P(mask), _seed_ptr(seed, dropout_rate),
-        P(dout), P(lse), P(delta), P(outs[0]), P(outs[1]), cuda_build.stream_ptr(q_u),
+        P(dout), P(lse), P(delta), P(outs[0]), P(outs[1]),
+        None if scratch is None else P(scratch), cuda_build.stream_ptr(q_u),
         b, h, tq, tk, dk, d, int(q_u.dtype == torch.bfloat16), drop, thr_bits, h_total,
         h_offset, float(scale), inv_keep,
     )

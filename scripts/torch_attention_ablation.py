@@ -141,7 +141,7 @@ def main() -> int:
         dr, th, ik = ra._drop_args(rate)
         sp = P(seed) if rate > 0 else None
         return lambda: fn(*(P(x) for x in args), sp, P(o), P(ls), cuda_build.stream_ptr(q_u),
-                          b, h, t, t, dk, d, 1, dr, th, scale, ik)
+                          b, h, t, t, dk, d, 1, dr, th, h, 0, scale, ik)
 
     def bwd_call(fn, dq: bool):
         q_u = train[0]
@@ -150,14 +150,14 @@ def main() -> int:
         o1 = torch.empty((b, h, t, dk), device=dev)
         o2 = torch.empty((b, h, t, d if dq else dk), device=dev)
         return lambda: fn(*(P(x) for x in train), P(seed), P(g), P(lse), P(delta), P(o1),
-                          P(o2), cuda_build.stream_ptr(q_u), b, h, t, t, dk, d, 1, drop,
-                          thr_bits, scale, inv_keep)
+                          P(o2), None, cuda_build.stream_ptr(q_u), b, h, t, t, dk, d, 1, drop,
+                          thr_bits, h, 0, scale, inv_keep)
 
     times = {}
     for (name, source), lib in libs.items():
         if source == "rel_flash_attention":
             fn = lib.rel_flash_attention_fwd
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_float] * 2
             fn.restype = ctypes.c_int
             calls = {"fwd decode B=48": fwd_call(fn, decode, 0.0),
                      "fwd train B=32": fwd_call(fn, train, cs.ATTN_RATE)}
@@ -166,7 +166,7 @@ def main() -> int:
             for sym, key in (("rel_flash_attention_bwd_dq", "dq train B=32"),
                              ("rel_flash_attention_bwd_dkv", "dkv train B=32")):
                 fn = getattr(lib, sym)
-                fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+                fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11 + [ctypes.c_float] * 2
                 fn.restype = ctypes.c_int
                 calls[key] = bwd_call(fn, key.startswith("dq"))
         for key, call in calls.items():

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times of the attention and conv-block kernels on one card at the shipped
-widths (Conformer-S, -M, -L: the narrow kernels) and at the 1024-wide
-Conformer's (d=1024, 8 heads of 128: the wide kernels), bf16, for the
+"""Times of the attention, conv-block, joint and fused int8 FFN kernels on
+one card at the shipped widths (Conformer-S, -M, -L: the narrow kernels)
+and at wider ones (the 1024-wide Conformer's d=1024, 8 heads of 128, FFN
+4096; the joint at J 640 in float32 and 1024: the wide kernels), for the
 PyTorch/CUDA port (``conformer_tpu_torch``).
 
     python3 scripts/torch_width_times.py [--tree DIR] [--out FILE]
@@ -12,7 +13,15 @@ versions can run in turn within one call on one card (parent, change,
 change, parent). Shapes: the attention forward, dq and dkv at the training
 shape (B=32, T'=374, dropout 0.1) and the forward at the decode shape
 (B=48, no dropout); the conv block at the decode shape (B=48, T'=374, K=15;
-B=8 at d=1024). Inputs are seeded, with key padding to random lengths.
+B=8 at d=1024); the three joint kernels at B=8, T'=374, U=64, V=5002 (3
+calls a time) and the fused int8 FFN at route B's decode batches (M = 48
+x 374 at Conformer-M and -L, 8 x 374 at the 1024-wide), bf16 x. For the
+joint and the FFN also the plain version's time, the bound (the
+products' operations at the tensor-core or float32 rate against the
+bytes of inputs and outputs at 3.35 TB/s) and a yardstick (the joint's
+products alone by torch.matmul in t chunks; the FFN's two products by
+torch._int_mm) under " plain", " bound" and " yardstick". Inputs are
+seeded, with key padding to random lengths.
 Times: CUDA events, mean of 20 calls after a warm-up (the wrapper's host
 work included where it outlasts the kernel), and the device time of the
 kernels' launches by torch.profiler, mean per call over 20 calls (the key
@@ -40,6 +49,15 @@ ATTENTION = (("M decode", 48, 4, 374, 64, 256, 0.0), ("M train", 32, 4, 374, 64,
 # (label, B, T', D, K)
 CONV = (("M decode", 48, 374, 256, 15), ("S decode", 48, 374, 144, 15),
         ("L decode", 48, 374, 512, 15), ("1024-wide decode", 8, 374, 1024, 15))
+# (label, B, T', U, V, J, enc dtype): enc bf16 with float32 pred is the model's
+JOINT = (("M bf16 J=512", 8, 374, 64, 5002, 512, "bfloat16"),
+         ("L bf16 J=640", 8, 374, 64, 5002, 640, "bfloat16"),
+         ("L f32 J=640", 8, 374, 64, 5002, 640, "float32"),
+         ("bf16 J=1024", 8, 374, 64, 5002, 1024, "bfloat16"))
+# (label, M, D, H): route B's fused FFN half, bf16 x
+FFN = (("M route B", 17952, 256, 2048), ("L route B", 17952, 512, 2048),
+       ("1024-wide route B", 2992, 1024, 4096))
+HBM_TBPS, BF16_TFLOPS, F32_TFLOPS, INT8_TOPS = 3.35, 989.0, 67.0, 1979.0
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -146,6 +164,78 @@ def conv_times(gen, b, t, d, k) -> tuple[float | None, float | None, float | Non
     return both(lambda: conv_block(x, lens, p_norm, p_conv, kernel_size=k))
 
 
+def bound_ms(n_bytes: float, ops: float, rate_tflops: float) -> float:
+    return max(n_bytes / (HBM_TBPS * 1e9), ops / (rate_tflops * 1e9))
+
+
+def joint_times(gen, b, t, u, v, j, dt) -> dict:
+    """{kernel: (ms, device ms, host ms, plain ms, bound ms, yardstick ms)}
+    of the three joint kernels, or Nones where the tree refuses J."""
+    import torch
+
+    import chip_smoke as cs
+    from conformer_tpu_torch.ops import joint_lattice as jl
+
+    dtype = getattr(torch, dt)
+    x = cs.joint_inputs("cuda", dtype, torch.float32, gen, b, t, u, v, j=j)
+    args = (x["enc"], x["pred"], x["w"], x["b"], x["lab"])
+    names = ("fwd", "bwd_xp", "bwd_w")
+    try:
+        logz = jl.joint_lattice_fwd(*args, 0)[2]
+    except ValueError:
+        return dict.fromkeys(names, (None,) * 6)
+    bargs = (*args, logz, x["g_blank"], x["g_emit"], 0)
+    cells, rate = b * t * (u + 1), BF16_TFLOPS if dt == "bfloat16" else F32_TFLOPS
+    product = 2.0 * cells * j * v
+    in_bytes = sum(a.numel() * a.element_size() for a in args)
+    lat_bytes = 3 * cells * 4
+    yard = cs.joint_yardstick(x, dtype)
+    kernels = {"fwd": (lambda: jl.joint_lattice_fwd(*args, 0),
+                       lambda: jl.joint_lattice_plain_fwd(*args, 0), 1, in_bytes + lat_bytes),
+               "bwd_xp": (lambda: jl.joint_lattice_bwd_xp(*bargs),
+                          lambda: jl.joint_lattice_plain_bwd_xp(*bargs), 2,
+                          in_bytes + lat_bytes + (b * t + b * (u + 1)) * j * 4),
+               "bwd_w": (lambda: jl.joint_lattice_bwd_w(*bargs),
+                         lambda: jl.joint_lattice_plain_bwd_w(*bargs), 2,
+                         in_bytes + lat_bytes + (j * v + v) * 4)}
+    out = {}
+    for name, (kern, plain, n_products, n_bytes) in kernels.items():
+        ms, dev_ms, host = time_ms(kern, 3), device_ms(kern, 3), host_ms(kern, 3)
+        out[name] = (ms, dev_ms, host, time_ms(plain, 3),
+                     bound_ms(n_bytes, n_products * product, rate), time_ms(yard, 3) * n_products)
+    return out
+
+
+def ffn_times(gen, m, d, h) -> tuple:
+    """(ms, device ms, host ms, plain ms, bound ms, yardstick ms) of the
+    fused int8 FFN, or Nones where the tree refuses the widths."""
+    import torch
+
+    import chip_smoke as cs
+    from conformer_tpu_torch.ops import int8_ffn as f8
+
+    ln, _, _, w1, w2 = cs.int8_ffn_weights("cuda", gen, d=d, h=h)
+    args = (ln, w1["kernel_q"], w1["kernel_scale"], w1["bias"], w2["kernel_q"],
+            w2["kernel_scale"], w2["bias"])
+    x = torch.randn(m, d, generator=gen).to("cuda", torch.bfloat16)
+    try:
+        f8.int8_ffn_fused(x, *args)
+    except ValueError:
+        return (None,) * 6
+    xq = torch.randint(-127, 128, (m, d), generator=gen, dtype=torch.int8).to("cuda")
+    hq = torch.randint(-127, 128, (m, h), generator=gen, dtype=torch.int8).to("cuda")
+
+    def yard():
+        torch._int_mm(xq, w1["kernel_q"])
+        torch._int_mm(hq, w2["kernel_q"])
+
+    kern = lambda: f8.int8_ffn_fused(x, *args)  # noqa: E731
+    n_bytes = 2 * m * d * 2 + 2 * d * h + (3 * h + 5 * d) * 4
+    return (time_ms(kern), device_ms(kern), host_ms(kern),
+            time_ms(lambda: f8.int8_ffn_plain(x, *args)),
+            bound_ms(n_bytes, 4.0 * m * d * h, INT8_TOPS), time_ms(yard))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=REPO, help="checkout whose conformer_tpu_torch is timed")
@@ -170,6 +260,14 @@ def main() -> int:
     for label, *shape in CONV:
         for suffix, ms in zip(("", " device", " host"), conv_times(gen, *shape)):
             res[f"conv {label}{suffix}"] = ms
+    detail = ("", " device", " host", " plain", " bound", " yardstick")
+    for label, *shape in JOINT:
+        for name, times in joint_times(gen, *shape).items():
+            for suffix, ms in zip(detail, times):
+                res[f"joint {name} {label}{suffix}"] = ms
+    for label, *shape in FFN:
+        for suffix, ms in zip(detail, ffn_times(gen, *shape)):
+            res[f"int8_ffn {label}{suffix}"] = ms
     line = json.dumps(res)
     print(line)
     if args.out:

@@ -88,12 +88,15 @@ def test_kernel_width_limits():
     width (D 144, 256, 512 with K = 15) on the narrow kernels and at D 1024
     (K 15, 32, 64), D 2048 and float32 D 512 with K 31 on the wide ones,
     refusing D past 2048 or not a multiple of 16 and K past 64; the joint
-    kernels at every shipped join width (J 320, 512, 640) in bf16, float32
-    up to its stated limit J <= 512 (after padding J to a multiple of 128),
-    one width past each limit refused; the int8 kernels at every shipped
-    width (the matmul's K = D: 144, 256, 512; the FFN's D / H: 144 / 576,
-    256 / 2048, 512 / 2048), refusing K past 1024 and D past 512 or H past
-    2048."""
+    kernels at every shipped join width (J 320, 512, 640) in bf16 and up to
+    512 in float32 on the narrow kernels (J padded to a multiple of 128),
+    every wider J (float32 640, 700, 1024, 2048, bf16 641 and above) on the
+    wide ones, refusing only a J below 1 or an enc dtype other than float32
+    and bf16; the int8 kernels at every shipped width (the matmul's K = D:
+    144, 256, 512; the FFN's D / H: 144 / 576, 256 / 2048, 512 / 2048) on
+    the narrow kernels, refusing K past 1024; the FFN past D 512 or H 2048
+    (Conformer XL's 1024 / 4096, 2048 / 8192) on its wide route, refusing
+    only D or H below 1."""
     for d in (144, 256, 512):
         for dtype in (torch.bfloat16, torch.float32):
             assert pcb.width_error(dtype, d, 15) is None
@@ -114,11 +117,17 @@ def test_kernel_width_limits():
     assert pcb.route(torch.float32, 512, 17) == "narrow"
     for j in (320, 512, 640):
         assert pjl.width_error(torch.bfloat16, j) is None
-    assert pjl.width_error(torch.bfloat16, 641) is not None
-    assert pjl.width_error(torch.float32, 320) is None
-    assert pjl.width_error(torch.float32, 512) is None
-    assert "J <= 512" in pjl.width_error(torch.float32, 513)
-    assert "J <= 512" in pjl.width_error(torch.float32, 640)
+        assert pjl.route(torch.bfloat16, j) == "narrow"
+    for j in (320, 512):
+        assert pjl.width_error(torch.float32, j) is None
+        assert pjl.route(torch.float32, j) == "narrow"
+    for dtype, wide in ((torch.bfloat16, (641, 700, 1024, 2048)),
+                        (torch.float32, (513, 640, 700, 1024, 2048))):
+        for j in wide:
+            assert pjl.width_error(dtype, j) is None
+            assert pjl.route(dtype, j) == "wide"
+        assert "positive" in pjl.width_error(dtype, 0)
+    assert "float32 or bfloat16" in pjl.width_error(torch.float16, 512)
     for dtype in (torch.bfloat16, torch.float32):
         for dk, d in ((36, 144), (64, 256), (64, 512)):
             assert pra.width_error(dtype, dk, d) is None
@@ -135,8 +144,12 @@ def test_kernel_width_limits():
     assert "K <= 1024" in pim.width_error(1056)
     for d, h in ((144, 576), (256, 2048), (512, 2048)):
         assert pif.width_error(d, h) is None
-    assert "D <= 512" in pif.width_error(544, 2048)
-    assert "H <= 2048" in pif.width_error(512, 2080)
+        assert pif.route(d, h) == "narrow"
+    for d, h in ((544, 2048), (512, 2080), (1024, 4096), (2048, 8192)):
+        assert pif.width_error(d, h) is None
+        assert pif.route(d, h) == "wide"
+    assert "D >= 1 and H >= 1" in pif.width_error(0, 2048)
+    assert "D >= 1 and H >= 1" in pif.width_error(512, 0)
     assert pcd.max_states() == 29056
     assert prl.max_u1(374) == 28869 and prl.max_u1(1300) > 1024
 
