@@ -20,8 +20,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
                head widths (H=8, dk=64, D=512; H=4, dk=36, D=144: the
                narrow kernels) and the 1024-wide Conformer's (H=8, dk=128,
                D=1024 at B=32, T'=374 and at a chunk shape B=16, Tq=16,
-               Tk=528: the wide kernels; there in bf16 also at heads 8-15
-               of 16, the keep-mask's global head), every output poisoned
+               Tk=528, and dk=64, D=1024: the wide kernels; there in bf16
+               also at heads 8-15 of 16, the keep-mask's global head), the
+               combined backward (rel_attention_bwd: dS and pd once on the
+               wide bf16 path) beside dq and dkv, its dK and dV the
+               standalone dkv's bit for bit, every output poisoned
                with NaN first, in both dtypes, and every wrapper's
                ValueError at dk = 136; the conv block at Conformer-S's and -L's widths (D =
                144, 512 at K = 15; D = 512 at K = 31 too) and the 1024-wide
@@ -227,7 +230,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                and the float32 FULL_PARITY_LIMITS; (c) the attention
                kernels' times at its training shape (B=32, T'=374) and the
                conv block's at its decode shape, beside plain, SDPA and the
-               bound, the wide dq beside its first design's time; (d) int8
+               bound, each beside its earlier design's time; the whole
+               backward as training runs it and its kernels' device times
+               (dq's kernel 1 and 2, dkv's kernel 1 and product); (d) int8
                route B (both FFN matmuls through the fused int8 FFN at D
                1024 / H 4096, its wide route): timed bf16 decodes of the
                same 8 x 15 s batch (int8_ffn 8 launches a batch, no weight
@@ -875,6 +880,8 @@ ATTN_WIDTHS = {"conformer_l": dict(b=4, h=8, dk=64, d=512, keep=(4, 64)),
                "conformer_xl": dict(b=32, h=8, dk=128, d=1024, keep=(4, 128)),
                "conformer_xl chunk": dict(b=16, h=8, dk=128, d=1024, tq=16, tk=528,
                                           keep=None),
+               # the wide kernels at head width 64 (their DKM = 64 tiles)
+               "dk 64 D 1024": dict(b=8, h=8, dk=64, d=1024, keep=(4, 64)),
                # the wide kernels as a model rank runs them: heads 8-15 of 16
                # (the keep-mask hash at the global head, h_total / h_offset)
                "conformer_xl heads 8-15 of 16": dict(b=32, h=8, dk=128, d=1024, keep=None,
@@ -905,12 +912,15 @@ def heads_note(w: dict) -> str:
 
 def check_attention_widths(dev) -> dict:
     """The attention kernels at each of ATTN_WIDTHS (T'=374, or the entry's
-    Tq and Tk): the forward without and with dropout 0.1, dq and dkv,
-    against their plain versions in every dtype whose kernels take the
-    width (an entry with ``heads``: bf16 with dropout, at that head
-    offset), with outputs poisoned beforehand (no element left unwritten);
-    the backward bitwise repeatable and the keep-mask bit for bit. Past
-    the kernels' widths (dk = 136), all three wrappers must raise
+    Tq and Tk): the forward without and with dropout 0.1, dq and dkv, and
+    the combined backward (``rel_attention_bwd``, the autograd backward's
+    call: on the wide bf16 path dS and pd once for dq's and dkv's
+    products), against their plain versions in every dtype whose kernels
+    take the width (an entry with ``heads``: bf16 with dropout, at that
+    head offset), with outputs poisoned beforehand (no element left
+    unwritten); the backward bitwise repeatable, the combined backward's
+    four outputs bit for bit the two wrappers', and the keep-mask bit for
+    bit. Past the kernels' widths (dk = 136), every wrapper must raise
     ValueError before any launch, in both dtypes. Returns the largest
     error of each kernel."""
     import torch
@@ -937,14 +947,15 @@ def check_attention_widths(dev) -> dict:
                 refused = 0
                 for call in (lambda: ra.rel_attention(*args, seed=seed, **kw),
                              lambda: ra.rel_attention_bwd_dq(*args, seed, g, lse, lse, **kw),
-                             lambda: ra.rel_attention_bwd_dkv(*args, seed, g, lse, lse, **kw)):
+                             lambda: ra.rel_attention_bwd_dkv(*args, seed, g, lse, lse, **kw),
+                             lambda: ra.rel_attention_bwd(*args, seed, g, lse, lse, **kw)):
                     try:
                         call()
                     except ValueError:
                         refused += 1
-                check(refused == 3 and [f.launches for f in counters] == before,
-                      f"attention {label} {name}: {refused} of 3 wrappers refused ({why})")
-                print(f"kernels: attention {label} {name} H={h} dk={dk} D={d}: all three "
+                check(refused == 4 and [f.launches for f in counters] == before,
+                      f"attention {label} {name}: {refused} of 4 wrappers refused ({why})")
+                print(f"kernels: attention {label} {name} H={h} dk={dk} D={d}: all four "
                       f"wrappers raise ValueError before any launch ({why})")
                 continue
             for rate in (0.0, ATTN_RATE):
@@ -962,28 +973,39 @@ def check_attention_widths(dev) -> dict:
                 dq = ra.rel_attention_bwd_dq(*bargs, **kw)
                 poison(((b, h, tk, dk), torch.float32), ((b, h, tk, dk), torch.float32))
                 dkv = ra.rel_attention_bwd_dkv(*bargs, **kw)
+                poison(((b, h, t, dk), torch.float32), ((b, h, t, d), torch.float32),
+                       ((b, h, tk, dk), torch.float32), ((b, h, tk, dk), torch.float32))
+                both = ra.rel_attention_bwd(*bargs, **kw)
                 same = all(torch.equal(x, y) for x, y in zip(
                     (*dq, *dkv), (*ra.rel_attention_bwd_dq(*bargs, **kw),
                                   *ra.rel_attention_bwd_dkv(*bargs, **kw))))
+                joint = all(torch.equal(x, y) for x, y in zip(both, (*dq, *dkv)))
                 torch.cuda.synchronize()
                 check(same, f"attention {label} {name} rate {rate}: not bitwise repeatable")
+                check(joint, f"attention {label} {name} rate {rate}: the combined backward's "
+                      "dQu, dAB, dK, dV differ from dq's and dkv's")
                 plain = ra.rel_attention_bwd_plain(*bargs, **kw)
                 e_q = compare(f"rel_flash_attention_bwd_dq {name} {label}", dq, plain[:2], tol)
                 e_kv = compare(f"rel_flash_attention_bwd_dkv {name} {label}", dkv, plain[2:],
                                tol)
+                e_kv = max(e_kv, compare(f"rel_flash_attention_bwd (dK, dV) {name} {label}",
+                                         both[2:], plain[2:], tol))
                 for key, e in zip(ATTENTION_KERNELS, (e_f, e_q, e_kv)):
                     errs[key] = max(errs[key], e)
                 line = (f"kernels: attention {label} {name} B={b} H={h} Tq={t} Tk={tk} dk={dk} "
                         f"D={d} ({ra.route(dtype, dk, d)} kernels{heads_note(w)}), "
                         f"dropout {rate}: max_abs_err fwd {e_f:.3g}, dq/dAB {e_q:.3g}, dK/dV "
-                        f"{e_kv:.3g} (tol {tol} abs + rel; outputs poisoned with NaN "
-                        f"beforehand), bitwise repeatable {same}")
+                        f"{e_kv:.3g} (alone and in the combined backward; tol {tol} abs + rel; "
+                        f"outputs poisoned with NaN beforehand), bitwise repeatable {same}, "
+                        f"combined = dq's and dkv's bit for bit {joint}")
                 if dtype == torch.bfloat16:
                     line += (f"; kernel ms fwd "
                              f"{time_ms(lambda: ra.rel_attention(*args, seed=seed, **kw)):.4f}"
                              f", dq {time_ms(lambda: ra.rel_attention_bwd_dq(*bargs, **kw)):.4f}"
                              f", dkv "
-                             f"{time_ms(lambda: ra.rel_attention_bwd_dkv(*bargs, **kw)):.4f}")
+                             f"{time_ms(lambda: ra.rel_attention_bwd_dkv(*bargs, **kw)):.4f}"
+                             f", whole backward "
+                             f"{time_ms(lambda: ra.rel_attention_bwd(*bargs, **kw)):.4f}")
                 print(line)
             if w["keep"] is None:
                 continue
@@ -3754,6 +3776,10 @@ WIDE_SECONDS = 15.0
 WIDE_STEPS = 2               # (b): timed training steps after a warm-up
 WIDE_DECODES = 3             # (a), (d): timed bf16 decodes after a warm-up
 WIDE_DQ_FIRST_MS = 4.1960    # (c): the first wide dq design at B=32 (PERF.md, run CN)
+# (c): the earlier designs' times at B=32 (PERF.md, run CS): the forward
+# and dkv on mma.sync, dq's dS once then dS [K | F]
+WIDE_EARLIER_MS = {"rel_flash_attention": 0.5744, "rel_flash_attention_bwd_dq": 0.7159,
+                   "rel_flash_attention_bwd_dkv": 0.8725}
 
 
 def wide_config(**model):
@@ -3790,6 +3816,37 @@ def conv_block_times(x, lens, p_norm, p_conv, k: int) -> dict:
             "ms": time_ms(lambda: conv_block(x, lens, p_norm, p_conv, kernel_size=k)),
             "plain_ms": time_ms(lambda: conv_block_plain(x, lens, p_norm, p_conv, kernel_size=k)),
             "bound_ms": bnd, "bound_by": by, "library_ms": None}
+
+
+def wide_backward_times(inputs) -> dict:
+    """6d (c): the wide bf16 backward as training runs it (``rel_attention_bwd``:
+    dS and pd once, then dq's and dkv's products) by CUDA events, and its
+    kernels' device times by torch.profiler: dq's kernel 1 (S, dP, dS)
+    and kernel 2 (dS [K | F]), dkv's kernel 1 (with pd) and its product
+    kernel (dS^T (q+u), pd^T dO), with the product kernel's bound from
+    this run's inputs (the scratches dS and pd, q+u and dO read, dK and dV
+    written in float32; the products of the live pairs)."""
+    import torch
+
+    from conformer_tpu_torch.ops import rel_attention as ra
+
+    args, seed, g = inputs
+    q_u, mask, (b, h, tq, dk) = args[0], args[5], args[0].shape
+    kw = dict(scale=dk ** -0.5, dropout_rate=ATTN_RATE)
+    out, lse = ra.rel_attention(*args, seed=seed, **kw)
+    bargs = (*args, seed, g, lse, (g.float() * out.float()).sum(dim=-1))
+    dq = lambda: ra.rel_attention_bwd_dq(*bargs, **kw)    # noqa: E731
+    dkv = lambda: ra.rel_attention_bwd_dkv(*bargs, **kw)  # noqa: E731
+    tk = args[2].shape[2]
+    scratch = 2 * math.prod(ra.scratch_shape(b, h, tq, tk, pd=True))     # bf16 bytes
+    n_bytes = scratch + nbytes(q_u, g) + 2 * b * h * tk * dk * 4
+    bnd, by = bound_ms(n_bytes, 2.0 * 2 * h * float(mask.sum()) * dk / (BF16_TFLOPS * 1e12))
+    return {"ms": time_ms(lambda: ra.rel_attention_bwd(*bargs, **kw)),
+            "ds_ms": device_ms(dq, "rel_flash_bwd_ds_wide_kernel"),
+            "dsk_ms": device_ms(dq, "rel_flash_bwd_dsk_wide_kernel"),
+            "ds_pd_ms": device_ms(dkv, "rel_flash_bwd_ds_wide_kernel"),
+            "dkv_product_ms": device_ms(dkv, "rel_flash_bwd_dkv_wide_kernel"),
+            "dkv_product_bound_ms": bnd, "dkv_product_bound_by": by}
 
 
 def wide_phase(dev, card: str) -> dict:
@@ -3872,8 +3929,10 @@ def wide_phase(dev, card: str) -> dict:
 
     # (c) the kernels' times at the paths' shapes
     gen = torch.Generator().manual_seed(13)
-    res["times"] = attention_train_times(dev, gen, 32, 374, h=8, dk=128, d=1024,
+    inputs = attention_train_inputs(dev, torch.bfloat16, gen, 32, 374, dk=128, d=1024, h=8)
+    res["times"] = attention_train_times(dev, gen, 32, 374, h=8, dk=128, d=1024, inputs=inputs,
                                          label="1024-wide B=32 T'=374")
+    res["backward"] = wide_backward_times(inputs)
     k = cfg.model.kernel_size
     x, lens, p_norm, p_conv = conv_inputs(dev, torch.bfloat16, gen, b=WIDE_BATCH, t=374,
                                           d=WIDE_MODEL["encoder_dim"], k=k)
@@ -3927,12 +3986,29 @@ def check_wide(res: dict, card: str) -> None:
     print(f"kernels: conv_block bf16 {res['conv_shape']}: kernel "
           f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound {e['bound_ms'] * 1e3:.2f} us "
           f"({e['bound_by']}) ({card})")
-    t = res["times"]
-    dq, dkv = t["rel_flash_attention_bwd_dq"], t["rel_flash_attention_bwd_dkv"]
-    print(f"wide: dq (S, dP, dS once, then dS [K | F]) {dq['ms']:.4f} ms (the first design, "
-          f"S recomputed per 512-column group: {WIDE_DQ_FIRST_MS} ms, PERF.md run CN), dkv "
-          f"{dkv['ms']:.4f} ms, SDPA's whole backward {dq['library_ms']:.4f} ms, dq's bound "
-          f"{dq['bound_ms']:.4f} ms ({dq['bound_by']}) at B=32 T'=374 H=8 dk=128 D=1024 ({card})")
+    t, bw = res["times"], res["backward"]
+    for name, what in (("rel_flash_attention", "forward (wgmma + TMA)"),
+                       ("rel_flash_attention_bwd_dq", "dq (dS once, then dS [K | F])"),
+                       ("rel_flash_attention_bwd_dkv", "dkv (dS and pd once, then dS^T (q+u), "
+                                                       "pd^T dO)")):
+        e = t[name]
+        lib = "forward" if name == "rel_flash_attention" else "whole backward"
+        print(f"wide: {what} {e['ms']:.4f} ms (earlier design {WIDE_EARLIER_MS[name]} ms, "
+              f"PERF.md run CS), SDPA's {lib} {e['library_ms']:.4f} ms, bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}) at B=32 T'=374 H=8 dk=128 D=1024 "
+              f"({card})")
+    dq = t["rel_flash_attention_bwd_dq"]
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"   # noqa: E731
+    before = (WIDE_EARLIER_MS["rel_flash_attention_bwd_dq"]
+              + WIDE_EARLIER_MS["rel_flash_attention_bwd_dkv"])
+    print(f"wide: the whole backward as training runs it (dS and pd once, then both products) "
+          f"{bw['ms']:.4f} ms, against dq + dkv {before:.4f} ms before (PERF.md run CS) and "
+          f"SDPA's whole backward {dq['library_ms']:.4f} ms; "
+          f"device times: dq's kernel 1 (S, dP, dS) {fmt(bw['ds_ms'])}, kernel 2 (dS [K | F]) "
+          f"{fmt(bw['dsk_ms'])}; dkv's kernel 1 (with pd) {fmt(bw['ds_pd_ms'])}, product kernel "
+          f"{fmt(bw['dkv_product_ms'])} (bound {bw['dkv_product_bound_ms']:.4f} ms, "
+          f"{bw['dkv_product_bound_by']}); dq's first design {WIDE_DQ_FIRST_MS} ms (run CN) "
+          f"({card})")
     i8, par = res["int8"], res["int8_parity"]
     want = {**dict.fromkeys(kernel_wrappers(), 0), "rel_flash_attention": WIDE_LAYERS,
             "conv_block": WIDE_LAYERS, "int8_ffn": 2 * WIDE_LAYERS}

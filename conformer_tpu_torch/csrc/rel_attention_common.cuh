@@ -266,7 +266,7 @@ inline size_t dkv_bf16_smem(int dk, int D) {
 //    block of the kernels above within shared memory; in float32 D <= 512.
 //    Every shipped width (Conformer-S, -M, -L) is narrow;
 //  - wide: dk <= 128 and any D; in bf16 dk and D multiples of 8 and every
-//    operand 16-byte aligned (the wide kernels copy 16-byte pieces).
+//    operand 16-byte aligned (the TMA boxes' row strides and addresses).
 inline bool narrow_width(int dk, int D, bool bf16_) {
   if (dk > 64) return false;
   if (!bf16_) return D <= 512;
@@ -277,26 +277,5 @@ inline bool wide_width(int dk, int D, bool bf16_) {
   return dk <= 128 && (!bf16_ || (dk % 8 == 0 && D % 8 == 0));
 }
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-// The wide bf16 kernels stream the position term's depth D in chunks of
-// WCH columns of AB and F (zero past D), rows WLDC apart; head rows (q+u,
-// K, V, dO) are kept DKM = 64 or 128 wide, zero past dk.
-constexpr int WCH = 64;
-constexpr int WLDC = WCH + 8;
-
-// Rows [row0, row0 + rows) and columns [c0, c0 + cols) of the row-major
-// src [n_rows, width] into dst (rows ld apart) by 16-byte cp.async; pieces
-// at rows >= n_rows or columns >= width are zero-filled. width, c0 and
-// cols are multiples of 8, src 16-byte aligned.
-__device__ __forceinline__ void load_tile16(bf16* dst, int ld, const bf16* src, int row0,
-                                            int rows, int n_rows, int width, int c0, int cols,
-                                            int tid, int nthreads) {
-  const int per_row = cols >> 3;
-  for (int p = tid; p < rows * per_row; p += nthreads) {
-    const int r = p / per_row, c = (p - r * per_row) << 3, i = row0 + r, j = c0 + c;
-    const bool ok = i < n_rows && j < width;
-    cp_async<16>(dst + r * ld + c, src + (ok ? (size_t)i * width + j : 0), ok);
-  }
-}
 
 }  // namespace rel_attn

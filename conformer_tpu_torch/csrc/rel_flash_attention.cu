@@ -68,16 +68,22 @@
 // bf16 score depth KD <= 576). The wide path takes dk up to 128 and any D
 // (Conformer XL / XXL, FastConformer-XL: d = 1024, 8 heads of 128), where
 // the bf16 tile [q+u | AB] of KD = 1152 would need 314 KB at 4 warps. Its
-// bf16 kernel (rel_flash_fwd_bf16_wide_kernel) keeps only q+u in shared
-// memory (DKM = 64 or 128 columns), takes the content term (q+u) K^T as one
-// product per 64-key tile and streams the position term's depth through a
-// 2-stage ring of 64-column chunks of AB and F: 89 KB at DKM = 128, for
-// any D, two blocks an SM. AB's rows are read once per key tile (from L2).
+// float32 kernel is the one above at OC = 8, DCM = 128. Its bf16 kernel
+// (rel_flash_fwd_wide_kernel, below) runs on wgmma fed by TMA through an
+// mbarrier ring: 128 query rows a block, the score product's depth DKM + D
+// streamed in 64-column boxes of [q+u | AB] and [K | F], 128-key tiles,
+// P V with P from registers (129 KB of shared memory at any D, one block
+// an SM). The ring keeps the tensor cores fed without a barrier per chunk,
+// and 128-key tiles read AB's chunks from L2 half as often as the first
+// design's 64-key tiles on mma.sync did (PERF.md).
 // Bound at the 1024-wide training shape (B=32, H=8, T=374, dk=128, D=1024,
-// bf16): AB alone moves 196 MB (~59 us at 3.35 TB/s) against ~92 GFLOP of
-// products (~93 us at the bf16 tensor rate), so the products bound it.
+// bf16): the 300 MB the inputs and outputs move (~90 us at 3.35 TB/s)
+// against ~92 GFLOP of products with every pair live (~93 us at the bf16
+// tensor rate; fewer on padded keys). What limits it is the ring's
+// traffic from L2: AB's rows are read once per 128-key tile (three times
+// at T=374), F's once per 128-row block, ~1.4 GB in all.
 
-#include "rel_attention_common.cuh"
+#include "rel_attention_hopper.cuh"
 
 namespace {
 
@@ -470,195 +476,181 @@ __global__ void __launch_bounds__(NW * 32) rel_flash_fwd_bf16_kernel(
   }
 }
 
-// The wide path (dk up to 128, any D; see narrow_width): 4 warps own
-// W_MQ = 64 query rows, each warp 16, and stream key tiles of W_MK = 64
-// keys. q+u stays in shared memory, DKM columns wide; per key tile K and
-// V are loaded, the content term (q+u) K^T is one product of depth DKM,
-// and the position term AB F^T streams its depth through a 2-stage ring of
-// WCH-column chunks of AB's rows and F's, so that shared memory does not
-// grow with D. The softmax, dropout and P.V are the narrow kernel's, on a
-// 16 x 64 score fragment a warp and o[DKM / 8][4] in registers.
-constexpr int W_MQ = 64;
-constexpr int W_MK = 64;
-constexpr int W_NT = 128;
-
+// The wide bf16 path (dk up to 128, any D; see narrow_width), on wgmma fed
+// by TMA (rel_attention_hopper.cuh). A block owns TQ = 128 query rows of
+// one (batch, head): one producer thread streams TMA boxes of 64 depth
+// columns into a 4-stage ring of 32 KB stages; two consumer warpgroups
+// take 64 rows each. Per live 128-key tile:
+//  - S = [q+u | AB] [K | F]^T over the depth DKM + D (q+u and K's chunks,
+//    then AB and F's), wgmma m64n128k16 from the ring, float32
+//    accumulators (64 a thread);
+//  - the online softmax on the accumulator fragment (quad shuffles for the
+//    row max), the mask bytes loaded before the products, dropout by the
+//    keep-mask hash at the global head b Ht + Ho + h;
+//  - O += P V on wgmma m64nDKMk16 with P as bf16 A fragments straight from
+//    the accumulator registers and V's 128 keys (one stage: DKM / 64 boxes
+//    of 128 keys x 64 columns) as an MN-major B.
+// Key tiles the mask hides from all 128 rows are skipped (a vote over the
+// tile's mask bytes before the roles split), and a consumer warpgroup whose
+// 64 rows all lie past Tq issues no products (the chunk shape, Tq = 16):
+// the ring's empty barriers count only the working warpgroups.
 template <int DKM>
-__global__ void __launch_bounds__(W_NT) rel_flash_fwd_bf16_wide_kernel(
-    const bf16* __restrict__ qu, const bf16* __restrict__ ab, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ feats,
-    const uint8_t* __restrict__ mask, const int* __restrict__ seed, bf16* __restrict__ out,
-    float* __restrict__ lse, int H, int Tq, int Tk, int dk, int D, float scale, int drop,
-    uint32_t thr, int Ht, int Ho, float inv_keep) {
-  constexpr int NKT = W_MK / 8, NO = DKM / 8, LDH = DKM + 8, STAGE = (W_MQ + W_MK) * WLDC;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [W_MQ][LDH]  q+u
-  bf16* sK = sQ + W_MQ * LDH;                     // [W_MK][LDH]
-  bf16* sV = sK + W_MK * LDH;                     // [W_MK][LDH]
-  bf16* sC = sV + W_MK * LDH;                     // [2][W_MQ + W_MK][WLDC]  AB | F chunks
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c4 = lane & 3;
-  const int q0 = blockIdx.x * W_MQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
-  const bf16* abg = ab + bh * Tq * D;
-  const bf16* kg = k + bh * Tk * dk;
-  const bf16* vg = v + bh * Tk * dk;
+__global__ void __launch_bounds__(wq::THREADS, 1) rel_flash_fwd_wide_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap abmap,
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap fmap, const uint8_t* __restrict__ mask,
+    const int* __restrict__ seed, bf16* __restrict__ out, float* __restrict__ lse, int H,
+    int Tq, int Tk, int dk, int D, float scale, int drop, uint32_t thr, int Ht, int Ho,
+    float inv_keep) {
+  using namespace wq;
+  constexpr int DKC = DKM / 64;              // 64-column chunks of the head width
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  uint8_t* live = reinterpret_cast<uint8_t*>(empty + STAGES);   // [nkt]: a live pair in the tile
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
+  const int nkt = (Tk + TK - 1) / TK, ns = DKC + (D + 63) / 64;
+  const int nc = Tq - q0 > 64 ? 2 : 1;       // consumer warpgroups with a row below Tq
   const uint8_t* mg = mask + (size_t)b * Tq * Tk;
-  const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
-  const float sl2 = scale * LOG2E;
-  const int n_chunks = (D + WCH - 1) / WCH;
+  if (tid == 0) init_ring(full, empty, nc);
+  live_tiles(live, mg, q0, Tq, Tk, nkt);
 
-  load_tile16(sQ, LDH, qu + bh * Tq * dk, q0, W_MQ, Tq, dk, 0, DKM, tid, W_NT);
-  cp_async_commit();
-  auto load_chunk = [&](int c, int k0) {
-    bf16* st = sC + (c & 1) * STAGE;
-    load_tile16(st, WLDC, abg, q0, W_MQ, Tq, D, c * WCH, WCH, tid, W_NT);
-    load_tile16(st + W_MQ * WLDC, WLDC, feats, k0, W_MK, Tk, D, c * WCH, WCH, tid, W_NT);
-  };
-  // s += A rows r0 .. r0 + 15 times B^T, B's 64 rows, depth [0, depth)
-  auto product = [&](float (&s)[NKT][4], const bf16* A, const bf16* B, int ld, int depth,
-                     int r0) {
-#pragma unroll 4
-    for (int kk = 0; kk < depth; kk += 16) {
-      uint32_t a[4];
-      load_a(a, A, ld, r0, kk, lane);
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<REG_PRODUCER>();
+    if (tid == 0) {
+      int g = 0;
+      for (int kt = 0; kt < nkt; ++kt) {
+        if (!live[kt]) continue;
+        const int k0 = kt * TK;
+        for (int d = 0; d < ns; ++d, ++g) {   // S's depth chunks
+          unsigned char* dst = claim(ring, full, empty, g);
+          uint64_t* bar = &full[g % STAGES];
+          if (d < DKC) {
+            tma_load3(dst, &qmap, bar, 64 * d, q0, bh);
+            tma_load3(dst + HALF, &kmap, bar, 64 * d, k0, bh);
+          } else {
+            tma_load3(dst, &abmap, bar, 64 * (d - DKC), q0, bh);
+            tma_load3(dst + HALF, &fmap, bar, 64 * (d - DKC), k0, 0);
+          }
+        }
+        unsigned char* dst = claim(ring, full, empty, g, DKC * HALF);   // V
 #pragma unroll
-      for (int j = 0; j < NKT / 2; ++j) {
-        uint32_t bb[4];
-        load_b(bb, B, ld, 16 * j, kk, lane);
-        mma(s[2 * j], a, bb[0], bb[1]);
-        mma(s[2 * j + 1], a, bb[2], bb[3]);
+        for (int j = 0; j < DKC; ++j)
+          tma_load3(dst + j * HALF, &vmap, &full[g % STAGES], 64 * j, k0, bh);
+        ++g;
       }
     }
-  };
+    return;
+  }
 
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // m in log2 units
-  const int r0 = warp * 16;
-  int qi[2];
-  qi[0] = q0 + r0 + g;
-  qi[1] = qi[0] + 8;
+  hopper::setmaxnreg_inc<REG_CONSUMER>();
+  const int c = wg - 1;
+  if (c >= nc) return;   // all 64 rows past Tq: no products, nothing to write
+  const int warp = (tid >> 5) & 3, lane = tid & 31, c4 = lane & 3;
+  const int r0 = 64 * c + 16 * warp + (lane >> 2);   // this thread's rows r0, r0 + 8
+  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);   // keep-mask head
+  const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
+  const float sl2 = scale * LOG2E;
   const bool even = Tk % 2 == 0 && reinterpret_cast<uintptr_t>(mask) % 2 == 0;
-
-  for (int k0 = 0; k0 < Tk; k0 += W_MK) {
-    uint32_t mk[2][NKT];
-    bool any = false;
+  int qi[2];
+  qi[0] = q0 + r0;
+  qi[1] = qi[0] + 8;
+  float o[DKM / 2];
+#pragma unroll
+  for (int i = 0; i < DKM / 2; ++i) o[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};   // m in log2 units
+  int g = 0;
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (!live[kt]) continue;
+    const int k0 = kt * TK;
+    // element (r, 4 i + 2 r + e) of the fragment: row qi[r], key k0 + 8 i + 2 c4 + e
+    uint32_t mk[2][16];
 #pragma unroll
     for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int n = 0; n < NKT; ++n) {
-        mk[r][n] = mask_pair(mg, qi[r], k0 + n * 8 + 2 * c4, Tq, Tk, even);
-        any |= mk[r][n] != 0u;
-      }
-    // a tile that the mask hides from every row of the block adds nothing;
-    // the vote is also the barrier after the last tile's reads
-    if (!__syncthreads_or(any)) continue;
-    load_tile16(sK, LDH, kg, k0, W_MK, Tk, dk, 0, DKM, tid, W_NT);
-    load_tile16(sV, LDH, vg, k0, W_MK, Tk, dk, 0, DKM, tid, W_NT);
-    cp_async_commit();
-    load_chunk(0, k0);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
+      for (int i = 0; i < 16; ++i)
+        mk[r][i] = mask_pair(mg, qi[r], k0 + 8 * i + 2 * c4, Tq, Tk, even);
+    float s[64];
+    ring_products<128, 0, 0>(s, ns, ring, full, empty, g, c);
 
-    float s[NKT][4];
-#pragma unroll
-    for (int n = 0; n < NKT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    product(s, sQ, sK, LDH, DKM, r0);                    // (q+u) K^T
-    for (int c = 0; c < n_chunks; ++c) {                 // AB F^T, chunk by chunk
-      if (c + 1 < n_chunks) {
-        load_chunk(c + 1, k0);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* st = sC + (c & 1) * STAGE;
-      product(s, st, st + W_MQ * WLDC, WLDC, WCH, r0);
-      __syncthreads();   // this stage is refilled two chunks on
-    }
-
-    // online softmax on the fragment: rows g (r = 0) and g + 8 (r = 1)
+    // online softmax on the fragment: rows qi[0] (r = 0) and qi[1] (r = 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = NEG_INF;
 #pragma unroll
-      for (int n = 0; n < NKT; ++n)
+      for (int i = 0; i < 16; ++i)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * r + e];
-          x = mask_bit(mk[r][n], e) ? x * sl2 : NEG_INF;
+          float& x = s[4 * i + 2 * r + e];
+          x = mask_bit(mk[r][i], e) ? x * sl2 : NEG_INF;
           mx = fmaxf(mx, x);
         }
       const float m_new = fmaxf(m[r], quad_max(mx));
+      // rows with every score masked so far: exp2(m - m_new) would be 1
       const float corr = m[r] > 0.5f * NEG_INF ? exp2_approx(m[r] - m_new) : 0.f;
       float rs = 0.f;
 #pragma unroll
-      for (int n = 0; n < NKT; ++n)
+      for (int i = 0; i < 16; ++i)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float& x = s[n][2 * r + e];
+          float& x = s[4 * i + 2 * r + e];
           const float p = x > 0.5f * NEG_INF ? exp2_approx(x - m_new) : 0.f;
           rs += p;
           x = p;
           if (drop)
-            x = keep_prob(sd, hbh, (uint32_t)qi[r], (uint32_t)(k0 + n * 8 + 2 * c4 + e), thr)
+            x = keep_prob(sd, hbh, (uint32_t)qi[r], (uint32_t)(k0 + 8 * i + 2 * c4 + e), thr)
                     ? p * inv_keep
                     : 0.f;
         }
-      l[r] = l[r] * corr + rs;
+      l[r] = l[r] * corr + rs;      // this lane's share; the quad's sum at the end
       m[r] = m_new;
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][2 * r] *= corr;
-        o[n][2 * r + 1] *= corr;
+      for (int n = 0; n < DKM / 8; ++n) {
+        o[4 * n + 2 * r] *= corr;
+        o[4 * n + 2 * r + 1] *= corr;
       }
     }
-    // o += P V
+
+    // O += P V: P's 16-key steps as bf16 A fragments (acc_to_a's packing)
+    uint32_t pa[32];
 #pragma unroll
-    for (int kk = 0; kk < NKT / 2; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
+    for (int i = 0; i < 32; ++i) pa[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+    const uint32_t sv = await_stage(ring, full, g);
+    fence_regs(o);
+    fence_regs(pa);
+    hopper::wg_fence();
 #pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t bv[4];
-        load_bt(bv, sV, LDH, kk * 16, n * 8, lane);
-        mma(o[n], a, bv[0], bv[1]);
-        mma(o[n + 1], a, bv[2], bv[3]);
-      }
-    }
+    for (int kk = 0; kk < 8; ++kk)
+      wgmma_rs<DKM, 1>(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                       desc_mn(sv + kk * 2048, HALF), 1);
+    hopper::wg_commit();
+    hopper::wg_wait0();
+    fence_regs(o);
+    fence_regs(pa);
+    hopper::mbar_arrive(&empty[g % STAGES]);
+    ++g;
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float lt = quad_sum(l[r]);
     const int i = qi[r];
     if (i >= Tq) continue;
-    const bool live = lt > 0.f;
+    const bool live_row = lt > 0.f;
     const float inv = 1.f / fmaxf(lt, 1e-30f);
-    bf16* orow = out + (bh * Tq + i) * dk;
+    bf16* orow = out + ((size_t)bh * Tq + i) * dk;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + 2 * c4 + e;
-        if (d < dk) orow[d] = __float2bfloat16(live ? o[n][2 * r + e] * inv : 0.f);
-      }
-    if (c4 == 0) lse[bh * Tq + i] = live ? m[r] * LN2 + logf(fmaxf(lt, 1e-30f)) : LSE_BIG;
+    for (int n = 0; n < DKM / 8; ++n) {
+      const int col = 8 * n + 2 * c4;   // dk: a multiple of 8
+      if (col < dk)
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            live_row ? pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv) : 0u;
+    }
+    if (c4 == 0)
+      lse[(size_t)bh * Tq + i] = live_row ? m[r] * LN2 + logf(fmaxf(lt, 1e-30f)) : LSE_BIG;
   }
-}
-
-constexpr size_t wide_fwd_smem(int dkm) {
-  return 2 * ((size_t)(W_MQ + 2 * W_MK) * (dkm + 8) + 2 * (size_t)(W_MQ + W_MK) * WLDC);
 }
 
 template <int OC, int DCM>
@@ -718,22 +710,31 @@ cudaError_t launch_bf16_dkp(const void* qu, const void* ab, const void* k, const
   return cudaGetLastError();
 }
 
+// the wide bf16 forward: the maps q+u, AB [B H, Tq, *], K, V [B H, Tk, dk]
+// and F [1, Tk, D] in boxes of 64 columns x 128 rows
 template <int DKM>
 cudaError_t launch_bf16_wide(const void* qu, const void* ab, const void* k, const void* v,
                              const void* feats, const void* mask, const void* seed, void* out,
                              void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk,
                              int dk, int D, float scale, int drop, uint32_t thr, int Ht, int Ho,
                              float inv_keep) {
-  constexpr size_t smem = wide_fwd_smem(DKM);
-  cudaError_t err = cudaFuncSetAttribute(rel_flash_fwd_bf16_wide_kernel<DKM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tq + W_MQ - 1) / W_MQ, H, B);
-  rel_flash_fwd_bf16_wide_kernel<DKM><<<grid, W_NT, smem, stream>>>(
-      static_cast<const bf16*>(qu), static_cast<const bf16*>(ab), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(feats),
-      static_cast<const uint8_t*>(mask), static_cast<const int*>(seed), static_cast<bf16*>(out),
-      static_cast<float*>(lse), H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho, inv_keep);
+  const int bhn = B * H;
+  CUtensorMap qm, abm, km, vm, fm;
+  cudaError_t e = wq::bf16_map3(&qm, qu, dk, Tq, bhn, wq::TQ);
+  if (e == cudaSuccess) e = wq::bf16_map3(&abm, ab, D, Tq, bhn, wq::TQ);
+  if (e == cudaSuccess) e = wq::bf16_map3(&km, k, dk, Tk, bhn, wq::TK);
+  if (e == cudaSuccess) e = wq::bf16_map3(&vm, v, dk, Tk, bhn, wq::TK);
+  if (e == cudaSuccess) e = wq::bf16_map3(&fm, feats, D, Tk, 1, wq::TK);
+  if (e != cudaSuccess) return e;
+  const size_t smem = wq::SMEM + (Tk + wq::TK - 1) / wq::TK;
+  e = cudaFuncSetAttribute(rel_flash_fwd_wide_kernel<DKM>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Tq + wq::TQ - 1) / wq::TQ, H, B);
+  rel_flash_fwd_wide_kernel<DKM><<<grid, wq::THREADS, smem, stream>>>(
+      qm, abm, km, vm, fm, static_cast<const uint8_t*>(mask), static_cast<const int*>(seed),
+      static_cast<bf16*>(out), static_cast<float*>(lse), H, Tq, Tk, dk, D, scale, drop, thr, Ht,
+      Ho, inv_keep);
   return cudaGetLastError();
 }
 

@@ -68,19 +68,16 @@
 //  D is refused (157 and 166 KB at dk = 128).
 //
 // The wide bf16 path (dk up to 128, any D; rel_attention_common.cuh's
-// narrow_width decides, as in the forward). dq, redesigned for Hopper
-// (rel_flash_bwd_ds_wide_kernel, rel_flash_bwd_dsk_wide_kernel): S, dP and
-// dS once per (query, key) pair on wgmma fed by TMA through an mbarrier
-// ring, dS to a bf16 scratch in device memory, then [dQu | dAB] = dS [K |
-// F] as a second wgmma product (the first design split the output columns
-// over the grid and recomputed S, dP and dS for each group of 512). dkv
-// streams the score product's depth through a ring of 64-column chunks of
-// AB and F, as the forward's wide kernel (80 KB at DKM = 128). Each output
+// narrow_width decides, as in the forward), redesigned for Hopper: S, P and
+// dS once per (query, key) pair for the whole backward on wgmma fed by TMA
+// through an mbarrier ring (rel_flash_bwd_ds_wide_kernel), dS and pd to
+// bf16 scratches in device memory, then [dQu | dAB] = dS [K | F] (dq) and
+// dK = dS^T (q+u), dV = pd^T dO (dkv) as wgmma products of their own; the
+// autograd backward launches the first kernel once for both. Each output
 // element still belongs to one block and is summed in a fixed order:
 // bitwise repeatable. See the kernels' notes.
 
-#include "hopper_common.cuh"
-#include "rel_attention_common.cuh"
+#include "rel_attention_hopper.cuh"
 
 namespace {
 
@@ -870,177 +867,65 @@ __global__ void __launch_bounds__(VNT) rel_flash_bwd_dkv_bf16_kernel(
 }
 
 // ------------------------------------------------------------ wide, bf16
-// dk up to 128 and any D (see narrow_width). The score product's depth
-// streams as in the forward's wide kernel: the head columns (DKM wide) of
-// the block's own rows stay in shared memory, the other side's head
-// columns come per tile, and AB F^T's depth goes through a 2-stage ring of
-// WCH-column chunks.
-
-// dq, redesigned for Hopper: two launches, and S, dP and dS computed once
-// per (query, key) pair. The first design split [dQu | dAB]'s DKM + D
-// columns over the grid in groups of 512 and each group's block computed
-// S, dP and dS again (three times at d = 1024): 19x its bound, 4.2 ms at
-// the 1024-wide training shape (PERF.md).
+// dk up to 128 and any D (see narrow_width), redesigned for Hopper: S, P
+// and dS are computed once per (query, key) pair for the whole backward,
+// on wgmma fed by TMA (rel_attention_hopper.cuh), and written to bf16
+// scratches that three product kernels share:
 //   1. rel_flash_bwd_ds_wide_kernel: block = 128 query rows of one (batch,
 //      head); a producer warpgroup (one thread) streams TMA boxes of 64
 //      depth columns into a 4-stage ring of 32 KB stages, completing on
 //      mbarriers; two consumer warpgroups, 64 rows each, take every 128-key
 //      tile in turn: S = [q+u | AB] [K | F]^T over the depth DKM + D (q+u
 //      and K's chunks, then AB and F's) and dP = dO V^T (DKM), both on
-//      wgmma m64n128k16 with float32 accumulators in registers; then dS =
-//      p (dP keep / (1 - rate) - delta) scale from the accumulators (the
-//      keep-mask hash at the global head, b Ht + Ho + h) is written as bf16
-//      to a scratch dS [B, H, Tq, round128(Tk)] (73.5 MB at B=32, T'=374,
-//      H=8; zero past Tk and on key tiles the mask hides from all 128 rows,
-//      whose products are skipped).
-//   2. rel_flash_bwd_dsk_wide_kernel: [dQu | dAB] = dS [K | F], the product
-//      JAX's kernel body computes (82.5 GFLOP at that shape): block = 128
-//      query rows; per 128-column tile of the output, dS (K-major) and [K |
-//      F] (64 keys x 128 columns, MN-major: K's boxes for columns below DKM,
-//      F's above) stream through the same kind of ring into wgmma
-//      m64n128k16; each tile's epilogue writes its float32 columns while the
-//      producer already loads the next tile's stages.
-// Each output element is one block's, summed over the depth in a fixed
-// order: bitwise repeatable. No limit on D; dk <= 128, multiples of 8 (the
-// TMA boxes' strides), operands 16-byte aligned.
-// Bound at that shape: the bytes (AB read and dAB written dominate: 0.22
-// ms at 3.35 TB/s) over the products (S, dP and the dS product, ~0.18 ms
-// at the bf16 tensor rate). The scratch adds dS's write and re-read (0.04
-// ms) and kernel 1 re-reads AB's chunks from L2 once per key tile; the
-// time (0.72 ms, PERF.md) is about 3x the bound.
+//      wgmma m64n128k16 with float32 accumulators in registers; then, from
+//      the accumulators (the keep-mask hash at the global head, b Ht + Ho +
+//      h), dS = p (dP keep / (1 - rate) - delta) scale and, for dkv, pd = p
+//      keep / (1 - rate) are written as bf16 to the scratches dS and pd [B,
+//      H, Tq, round128(Tk)] (73.5 MB each at B=32, T'=374, H=8; zero past Tk
+//      and on key tiles the mask hides from all 128 rows, whose products are
+//      skipped).
+//   2. rel_flash_bwd_dsk_wide_kernel (dq): [dQu | dAB] = dS [K | F], the
+//      product JAX's dq kernel body computes (82.5 GFLOP at that shape):
+//      block = 128 query rows; per 128-column tile of the output, dS
+//      (K-major) and [K | F] (64 keys x 128 columns, MN-major: K's boxes for
+//      columns below DKM, F's above) stream through the same kind of ring
+//      into wgmma m64n128k16; each tile's epilogue writes its float32
+//      columns while the producer already loads the next tile's stages.
+//   3. rel_flash_bwd_dkv_wide_kernel (dkv): dK = dS^T (q+u) and dV = pd^T
+//      dO, the products of JAX's dkv kernel body (18.3 GFLOP): block = 128
+//      keys; per 64-row chunk of queries, one stage of dS (two boxes of 64
+//      keys x 64 rows, the A operand MN-major: wgmma's transpose of A) and
+//      q+u (the B operand, MN-major), then one of pd and dO, into
+//      wgmma m64nDKMk16; dK and dV in registers, written once.
+// dq runs 1 (without pd) and 2; dkv runs 1 and 3; the autograd backward
+// runs 1 once and then 2 and 3 (rel_flash_attention_bwd). dS and pd are
+// rounded to bf16 once, as the A operands of their products. Each output
+// element is one block's, summed over the depth in a
+// fixed order: bitwise repeatable, and dK, dV the same bits on either
+// path. No limit on D; dk <= 128, multiples of 8 (the TMA boxes' strides),
+// operands 16-byte aligned.
+// Why S is shared rather than recomputed: S's depth DKM + D (1152 at d =
+// 1024) makes it the backward's largest product, so a dkv that recomputes
+// S^T per key tile (the first design, on mma.sync) or a dq that recomputes
+// it per group of output columns does that product again; writing dS and
+// pd once costs their bytes instead (PERF.md has both designs' times).
+// Bound at that shape: dq's bytes (AB read and dAB written dominate: 0.22
+// ms at 3.35 TB/s) over its products (S, dP and the dS product, ~0.18 ms
+// at the bf16 tensor rate); dkv's bytes (~0.12 ms). The scratches add dS's
+// and pd's writes and re-reads (0.09 ms) and kernel 1 re-reads AB's chunks
+// from L2 once per key tile (PERF.md).
 
-namespace wq {
-
-constexpr int THREADS = 384;             // producer warpgroup + 2 consumer warpgroups
-constexpr int CONSUMERS = 256;
-constexpr int REG_PRODUCER = 40, REG_CONSUMER = 232;
-constexpr int TQ = 128;                  // query rows of a block
-constexpr int TK = 128;                  // keys of a dS tile (kernel 1)
-constexpr int TN = 128;                  // output columns of a tile (kernel 2)
-constexpr int STAGES = 4;
-constexpr uint32_t ATOM = 8192;          // 64 rows x 128 bytes, 128-byte swizzle
-constexpr uint32_t HALF = 2 * ATOM;      // a stage's A (128 rows) or B (128 rows / 2 atoms)
-constexpr uint32_t STAGE = 2 * HALF;
-constexpr size_t SMEM = 1024 + STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
-
-// K-major operand descriptor (128-byte swizzle, 8-row groups 1024 B apart)
-__device__ __forceinline__ uint64_t desc(uint32_t a) {
-  constexpr uint64_t kGroup = 1024 >> 4;
-  return static_cast<uint64_t>((a >> 4) & 0x3FFF) | (kGroup << 16) | (kGroup << 32) |
-         (1ull << 62);
-}
-// MN-major operand: 64-element column blocks `lbo` bytes apart, 8-row
-// groups 1024 B apart along K
-__device__ __forceinline__ uint64_t desc_mn(uint32_t a, uint32_t lbo) {
-  constexpr uint64_t kGroup = 1024 >> 4;
-  return static_cast<uint64_t>((a >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) | (kGroup << 32) | (1ull << 62);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 128, float32) = [d +] A (64 x 16) B (16 x 128), bf16; TB: B
-// MN-major (1) or K-major (0), A K-major. The accumulator's element (row,
-// col) of warp w, lane l: row 16 w + l / 4 (+8 for d[4i+2], d[4i+3]),
-// column 8 i + 2 (l % 4) (+1 for d[4i+1], d[4i+3]).
-template <int TB>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
-}
-
-// TMA: the box at (c0 inner, c1, c2 outer) of a 3-d `map` into shared memory at dst
-__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                          int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(hopper::saddr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(hopper::saddr(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// the ring's barriers: full (the producer's copies, by bytes), empty (both
-// consumer warpgroups' threads)
-__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
-  for (int i = 0; i < STAGES; ++i) {
-    hopper::mbar_init(&full[i], 1);
-    hopper::mbar_init(&empty[i], CONSUMERS);
-  }
-  hopper::mbar_fence_init();
-}
-
-// producer: wait for stage g's slot and arm its barrier for one stage of bytes
-__device__ __forceinline__ unsigned char* claim(unsigned char* ring, uint64_t* full,
-                                                uint64_t* empty, int g) {
-  const int st = g % STAGES;
-  hopper::mbar_wait(&empty[st], ((g / STAGES) & 1) ^ 1);
-  hopper::mbar_expect(&full[st], STAGE);
-  return ring + st * STAGE;
-}
-
-// consumer warpgroup c: acc = (its 64 rows of the stages' A) x (their B)
-// over the next n stages of the ring (g counts stages); each stage is
-// released once the products that read it are done
-template <int TB>
-__device__ __forceinline__ void ring_products(float (&acc)[64], int n, unsigned char* ring,
-                                              uint64_t* full, uint64_t* empty, int& g, int c) {
-  int prev = 0;
-  fence_regs(acc);
-  hopper::wg_fence();
-  for (int i = 0; i < n; ++i, ++g) {
-    const int st = g % STAGES;
-    hopper::mbar_wait(&full[st], (g / STAGES) & 1);
-    const uint32_t a = hopper::saddr(ring + st * STAGE) + c * ATOM;
-    const uint32_t b = hopper::saddr(ring + st * STAGE) + HALF;
-    if (i > 0) hopper::wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_n128<TB>(acc, desc(a + kk * 32), TB ? desc_mn(b + kk * 2048, ATOM) : desc(b + kk * 32),
-                     (i | kk) != 0);
-    hopper::wg_commit();
-    if (i > 0) {
-      hopper::wg_wait<1>();
-      hopper::mbar_arrive(&empty[prev]);
-    }
-    prev = st;
-  }
-  hopper::wg_wait0();
-  fence_regs(acc);
-  hopper::mbar_arrive(&empty[prev]);
-}
-
-}  // namespace wq
-
-// dS of 128 query rows of one (batch, head) against every key tile; the
-// maps: q+u, AB, dO [B H, Tq, *], K, V [B H, Tk, *] and F [1, Tk, D] in
-// boxes of 64 columns x 128 rows
+// dS (and pd, where pd is not null) of 128 query rows of one (batch, head)
+// against every key tile; the maps: q+u, AB, dO [B H, Tq, *], K, V [B H,
+// Tk, *] and F [1, Tk, D] in boxes of 64 columns x 128 rows
 __global__ void __launch_bounds__(wq::THREADS, 1) rel_flash_bwd_ds_wide_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap abmap,
     const __grid_constant__ CUtensorMap omap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap fmap,
     const uint8_t* __restrict__ mask, const int* __restrict__ seed,
     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ ds,
-    int H, int Tq, int Tk, int Tkp, int dkc, int D, float scale, int drop, uint32_t thr, int Ht,
-    int Ho, float inv_keep) {
+    bf16* __restrict__ pd, int H, int Tq, int Tk, int Tkp, int dkc, int D, float scale,
+    int drop, uint32_t thr, int Ht, int Ho, float inv_keep) {
   using namespace wq;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = hopper::align1024(smem_raw);
@@ -1052,17 +937,7 @@ __global__ void __launch_bounds__(wq::THREADS, 1) rel_flash_bwd_ds_wide_kernel(
   const int nkt = (Tk + TK - 1) / TK, ns = dkc + (D + 63) / 64;
   const uint8_t* mg = mask + (size_t)b * Tq * Tk;
   if (tid == 0) init_ring(full, empty);
-  // which key tiles the mask leaves any live pair in, for all 128 rows
-  for (int kt = 0; kt < nkt; ++kt) {
-    bool any = false;
-    for (int e = tid; e < TQ * TK; e += THREADS) {
-      const int i = q0 + e / TK, j = kt * TK + e % TK;
-      any |= i < Tq && j < Tk && mg[(size_t)i * Tk + j] != 0;
-    }
-    any = __syncthreads_or(any);
-    if (tid == 0) live[kt] = any;
-  }
-  __syncthreads();
+  live_tiles(live, mg, q0, Tq, Tk, nkt);
 
   if (wg == 0) {
     hopper::setmaxnreg_dec<REG_PRODUCER>();
@@ -1106,39 +981,50 @@ __global__ void __launch_bounds__(wq::THREADS, 1) rel_flash_bwd_ds_wide_kernel(
     dl[r] = qi[r] < Tq ? delta[(size_t)bh * Tq + qi[r]] : 0.f;
   }
   bf16* dsg = ds + (size_t)bh * Tq * Tkp;
+  bf16* pdg = pd == nullptr ? nullptr : pd + (size_t)bh * Tq * Tkp;
+  auto put = [&](bf16* base, int i, int j, uint32_t v) {
+    *reinterpret_cast<uint32_t*>(base + (size_t)i * Tkp + j) = v;
+  };
   int g = 0;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * TK;
-    if (!live[kt]) {   // dS = 0 on the whole tile
+    if (!live[kt]) {   // dS = pd = 0 on the whole tile
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         if (qi[r] < Tq)
 #pragma unroll
-          for (int i = 0; i < 16; ++i)
-            *reinterpret_cast<uint32_t*>(dsg + (size_t)qi[r] * Tkp + k0 + 8 * i + 2 * (lane & 3)) = 0u;
+          for (int i = 0; i < 16; ++i) {
+            put(dsg, qi[r], k0 + 8 * i + 2 * (lane & 3), 0u);
+            if (pdg != nullptr) put(pdg, qi[r], k0 + 8 * i + 2 * (lane & 3), 0u);
+          }
       continue;
     }
     float s[64], dp[64];
-    ring_products<0>(s, ns, ring, full, empty, g, c);
-    ring_products<0>(dp, dkc, ring, full, empty, g, c);
+    ring_products<128, 0, 0>(s, ns, ring, full, empty, g, c);
+    ring_products<128, 0, 0>(dp, dkc, ring, full, empty, g, c);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         const int j = k0 + 8 * i + 2 * (lane & 3);
         const uint32_t mk = mask_pair(mg, qi[r], j, Tq, Tk, even);
-        float dsv[2];
+        float dsv[2], pdv[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float p = mask_bit(mk, e) ? exp2_approx(s[4 * i + 2 * r + e] * sl2 - lse2[r]) : 0.f;
           float dpv = dp[4 * i + 2 * r + e];
-          if (drop)
-            dpv = keep_prob(sd, hbh, (uint32_t)qi[r], (uint32_t)(j + e), thr) ? dpv * inv_keep
-                                                                              : 0.f;
+          pdv[e] = p;
+          if (drop) {
+            const bool kp = keep_prob(sd, hbh, (uint32_t)qi[r], (uint32_t)(j + e), thr);
+            dpv = kp ? dpv * inv_keep : 0.f;
+            pdv[e] = kp ? p * inv_keep : 0.f;
+          }
           dsv[e] = p * (dpv - dl[r]) * scale;
         }
-        if (qi[r] < Tq)
-          *reinterpret_cast<uint32_t*>(dsg + (size_t)qi[r] * Tkp + j) = pack_bf16(dsv[0], dsv[1]);
+        if (qi[r] < Tq) {
+          put(dsg, qi[r], j, pack_bf16(dsv[0], dsv[1]));
+          if (pdg != nullptr) put(pdg, qi[r], j, pack_bf16(pdv[0], pdv[1]));
+        }
       }
     }
   }
@@ -1191,7 +1077,7 @@ __global__ void __launch_bounds__(wq::THREADS, 1) rel_flash_bwd_dsk_wide_kernel(
   int g = 0;
   for (int ct = 0; ct < nct; ++ct) {
     float acc[64];
-    ring_products<1>(acc, nkc, ring, full, empty, g, c);
+    ring_products<128, 0, 1>(acc, nkc, ring, full, empty, g, c);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = q0 + r0 + 8 * r;
@@ -1209,183 +1095,101 @@ __global__ void __launch_bounds__(wq::THREADS, 1) rel_flash_bwd_dsk_wide_kernel(
   }
 }
 
-// dkv: 4 warps own WV_K = 64 keys, each warp 16; K and V stay in shared
-// memory while query tiles of WV_Q = 32 rows stream through: per tile q+u,
-// dO, lse and delta are loaded, S^T's content term is one product of depth
-// DKM and its position term streams F's and AB's chunks through the ring;
-// then, as the narrow kernel, dV += pd^T dO and dK += dS^T (q+u) with pd^T
-// and dS^T taken from the accumulator registers as bf16 A operands.
-constexpr int WV_K = 64;
-constexpr int WV_Q = 32;
-constexpr int WV_NT = 128;
-
+// dK = dS^T (q+u), dV = pd^T dO for 128 keys of one (batch, head): the
+// maps dS, pd [B H, Tq, Tkp] in boxes of 64 keys x 64 rows (consumer
+// warpgroup c's A: keys 64 c ..), q+u, dO [B H, Tq, dk] in boxes of 64
+// columns x 64 rows; stages alternate (dS, q+u) and (pd, dO) over 64-row
+// chunks of the queries (zero past Tq)
 template <int DKM>
-__global__ void __launch_bounds__(WV_NT) rel_flash_bwd_dkv_bf16_wide_kernel(
-    const bf16* __restrict__ qu, const bf16* __restrict__ ab, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ feats,
-    const uint8_t* __restrict__ mask, const int* __restrict__ seed,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk_out,
-    float* __restrict__ dv_out, int H, int Tq, int Tk, int dk, int D, int unused,
-    float scale, int drop, uint32_t thr, int Ht, int Ho, float inv_keep) {
-  constexpr int LDH = DKM + 8, NO = DKM / 8, STAGE = (WV_K + WV_Q) * WLDC;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);   // [WV_K][LDH]
-  bf16* sV = sK + WV_K * LDH;                     // [WV_K][LDH]
-  bf16* sQ = sV + WV_K * LDH;                     // [WV_Q][LDH]  q+u of the tile
-  bf16* sO = sQ + WV_Q * LDH;                     // [WV_Q][LDH]  dO of the tile
-  bf16* sC = sO + WV_Q * LDH;                     // [2][WV_K + WV_Q][WLDC]  F | AB chunks
-  float* sL = reinterpret_cast<float*>(sC + 2 * STAGE);   // [WV_Q] lse
-  float* sD = sL + WV_Q;                                  // [WV_Q] delta
+__global__ void __launch_bounds__(wq::THREADS, 1) rel_flash_bwd_dkv_wide_kernel(
+    const __grid_constant__ CUtensorMap dsmap, const __grid_constant__ CUtensorMap pdmap,
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
+    float* __restrict__ dk_out, float* __restrict__ dv_out, int H, int Tq, int Tk, int dk) {
+  using namespace wq;
+  constexpr int DKC = DKM / 64;
+  constexpr uint32_t BYTES = HALF + DKC * ATOM;   // a stage: A's two boxes, B's DKC
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int k0 = blockIdx.x * TK, h = blockIdx.y, b = blockIdx.z, bh = b * H + h;
+  const int nqc = (Tq + 63) / 64;
+  const int nc = Tk - k0 > 64 ? 2 : 1;   // consumer warpgroups with a key below Tk
+  if (tid == 0) init_ring(full, empty, nc);
+  __syncthreads();
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c4 = lane & 3;
-  const int k0 = blockIdx.x * WV_K, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
-  const bf16* qg = qu + bh * Tq * dk;
-  const bf16* abg = ab + bh * Tq * D;
-  const bf16* og = dout + bh * Tq * dk;
-  const uint8_t* mg = mask + (size_t)b * Tq * Tk;
-  const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
-  const float sl2 = scale * LOG2E;
-  const int n_chunks = (D + WCH - 1) / WCH;
-
-  load_tile16(sK, LDH, k + bh * Tk * dk, k0, WV_K, Tk, dk, 0, DKM, tid, WV_NT);
-  load_tile16(sV, LDH, v + bh * Tk * dk, k0, WV_K, Tk, dk, 0, DKM, tid, WV_NT);
-  cp_async_commit();
-  auto load_chunk = [&](int c, int q0) {
-    bf16* st = sC + (c & 1) * STAGE;
-    load_tile16(st, WLDC, feats, k0, WV_K, Tk, D, c * WCH, WCH, tid, WV_NT);
-    load_tile16(st + WV_K * WLDC, WLDC, abg, q0, WV_Q, Tq, D, c * WCH, WCH, tid, WV_NT);
-  };
-  // st (16 keys from r0 x 32 queries) += A B^T over depth [0, depth)
-  auto product = [&](float (&st)[4][4], const bf16* A, const bf16* B, int ld, int depth,
-                     int r0) {
-#pragma unroll 4
-    for (int kk = 0; kk < depth; kk += 16) {
-      uint32_t a[4], b0[4], b1[4];
-      load_a(a, A, ld, r0, kk, lane);
-      load_b(b0, B, ld, 0, kk, lane);
-      load_b(b1, B, ld, 16, kk, lane);
-      mma(st[0], a, b0[0], b0[1]);
-      mma(st[1], a, b0[2], b0[3]);
-      mma(st[2], a, b1[0], b1[1]);
-      mma(st[3], a, b1[2], b1[3]);
-    }
-  };
-
-  float acc_k[NO][4], acc_v[NO][4];
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<REG_PRODUCER>();
+    if (tid == 0) {
+      int g = 0;
+      for (int qc = 0; qc < nqc; ++qc)
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+        for (int t = 0; t < 2; ++t, ++g) {   // (dS, q+u), then (pd, dO)
+          unsigned char* dst = claim(ring, full, empty, g, BYTES);
+          uint64_t* bar = &full[g % STAGES];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-  const int r0 = warp * 16;        // the warp's keys in the tile
-  int kj[2];
-  kj[0] = k0 + r0 + g;
-  kj[1] = kj[0] + 8;
-
-  for (int q0 = 0; q0 < Tq; q0 += WV_Q) {
-    // fragment element (r, n, e): key kj[r], query q0 + 8n + 2c4 + e
-    uint32_t mk[2][8];
-    bool any = false;
+          for (int j = 0; j < 2; ++j)
+            tma_load3(dst + j * ATOM, t ? &pdmap : &dsmap, bar, k0 + 64 * j, 64 * qc, bh);
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int i = q0 + (c >> 1) * 8 + 2 * c4 + (c & 1);
-        mk[r][c] = i < Tq && kj[r] < Tk ? mg[(size_t)i * Tk + kj[r]] : 0u;
-        any |= mk[r][c] != 0u;
-      }
-    // a tile that the mask hides from every key of the block adds nothing;
-    // the vote is also the barrier after the last tile's reads
-    if (!__syncthreads_or(any)) continue;
-    load_tile16(sQ, LDH, qg, q0, WV_Q, Tq, dk, 0, DKM, tid, WV_NT);
-    load_tile16(sO, LDH, og, q0, WV_Q, Tq, dk, 0, DKM, tid, WV_NT);
-    if (tid < WV_Q) {
-      const int i = q0 + tid;
-      sL[tid] = i < Tq ? lse[bh * Tq + i] : LSE_BIG;
-      sD[tid] = i < Tq ? delta[bh * Tq + i] : 0.f;
-    }
-    cp_async_commit();
-    load_chunk(0, q0);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-    product(st, sK, sQ, LDH, DKM, r0);                   // K (q+u)^T
-    product(dpt, sV, sO, LDH, DKM, r0);                  // V dO^T
-    for (int c = 0; c < n_chunks; ++c) {                 // F AB^T, chunk by chunk
-      if (c + 1 < n_chunks) {
-        load_chunk(c + 1, q0);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* cs = sC + (c & 1) * STAGE;
-      product(st, cs, cs + WV_K * WLDC, WLDC, WCH, r0);
-      __syncthreads();   // this stage is refilled two chunks on
-    }
-    // st becomes pd^T, dpt becomes dS^T
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qc = n * 8 + 2 * c4 + e;
-          const float p = mk[r][n * 2 + e] != 0u
-                              ? exp2_approx(st[n][2 * r + e] * sl2 - sL[qc] * LOG2E)
-                              : 0.f;
-          float pd = p, dpv = dpt[n][2 * r + e];
-          if (drop) {
-            const bool kp = keep_prob(sd, hbh, (uint32_t)(q0 + qc), (uint32_t)kj[r], thr);
-            pd = kp ? p * inv_keep : 0.f;
-            dpv = kp ? dpv * inv_keep : 0.f;
-          }
-          st[n][2 * r + e] = pd;
-          dpt[n][2 * r + e] = p * (dpv - sD[qc]) * scale;
+          for (int j = 0; j < DKC; ++j)
+            tma_load3(dst + HALF + j * ATOM, t ? &omap : &qmap, bar, 64 * j, 64 * qc, bh);
         }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<REG_CONSUMER>();
+  const int c = wg - 1;
+  if (c >= nc) return;   // all 64 keys past Tk: no products, nothing to write
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  float ak[DKM / 2], av[DKM / 2];
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {           // dV += pd^T dO, dK += dS^T (q+u)
-      uint32_t ap[4], as[4];
-      acc_to_a(ap, st[2 * kk], st[2 * kk + 1]);
-      acc_to_a(as, dpt[2 * kk], dpt[2 * kk + 1]);
+  for (int i = 0; i < DKM / 2; ++i) ak[i] = av[i] = 0.f;
+  fence_regs(ak);
+  fence_regs(av);
+  int g = 0;
+  for (int qc = 0; qc < nqc; ++qc) {
 #pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        uint32_t bo[4], bq[4];
-        load_bt(bo, sO, LDH, kk * 16, n * 8, lane);
-        load_bt(bq, sQ, LDH, kk * 16, n * 8, lane);
-        mma(acc_v[n], ap, bo[0], bo[1]);
-        mma(acc_v[n + 1], ap, bo[2], bo[3]);
-        mma(acc_k[n], as, bq[0], bq[1]);
-        mma(acc_k[n + 1], as, bq[2], bq[3]);
+    for (int t = 0; t < 2; ++t, ++g) {
+      const uint32_t s = await_stage(ring, full, g);
+      const uint32_t a = s + c * ATOM, bb = s + HALF;
+      hopper::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = desc_mn(a + kk * 2048, ATOM), db = desc_mn(bb + kk * 2048, ATOM);
+        if (t == 0)
+          wgmma_ss<DKM, 1, 1>(ak, da, db, 1);
+        else
+          wgmma_ss<DKM, 1, 1>(av, da, db, 1);
+      }
+      hopper::wg_commit();
+      if (g > 0) {   // the products of the stage before are done: release it
+        hopper::wg_wait<1>();
+        hopper::mbar_arrive(&empty[(g - 1) % STAGES]);
       }
     }
   }
-  cp_async_wait<0>();
+  hopper::wg_wait0();
+  fence_regs(ak);
+  fence_regs(av);
+  hopper::mbar_arrive(&empty[(g - 1) % STAGES]);
 
+  const int r0 = 64 * c + 16 * warp + (lane >> 2);   // this thread's keys k0 + r0, + 8
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int j = kj[r];
+    const int j = k0 + r0 + 8 * r;
     if (j >= Tk) continue;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + 2 * c4 + e;
-        if (d < dk) {
-          dk_out[(bh * Tk + j) * dk + d] = acc_k[n][2 * r + e];
-          dv_out[(bh * Tk + j) * dk + d] = acc_v[n][2 * r + e];
-        }
-      }
+    for (int n = 0; n < DKM / 8; ++n) {
+      const int col = 8 * n + 2 * (lane & 3);   // dk: a multiple of 8
+      if (col >= dk) continue;
+      const size_t at = ((size_t)bh * Tk + j) * dk + col;
+      *reinterpret_cast<float2*>(dk_out + at) =
+          make_float2(ak[4 * n + 2 * r], ak[4 * n + 2 * r + 1]);
+      *reinterpret_cast<float2*>(dv_out + at) =
+          make_float2(av[4 * n + 2 * r], av[4 * n + 2 * r + 1]);
+    }
   }
 }
 
@@ -1408,11 +1212,6 @@ size_t dkv_f32_smem(int dk, int D) {
                           (size_t)2 * KV_BQ * (KV_BK + 1) + 2 * KV_BQ);
 }
 
-constexpr size_t wide_dkv_smem(int dkm) {
-  return 2 * ((size_t)(2 * WV_K + 2 * WV_Q) * (dkm + 8) + 2 * (size_t)(WV_K + WV_Q) * WLDC) +
-         sizeof(float) * 2 * WV_Q;
-}
-
 template <typename K, typename... Args>
 cudaError_t launch(K kernel, size_t smem, dim3 grid, int threads, cudaStream_t stream,
                    Args... args) {
@@ -1431,10 +1230,10 @@ struct Args {
   uint32_t thr;
   int Ht, Ho;
   float scale, inv_keep;
+  void *o3 = nullptr, *o4 = nullptr;   // the combined backward's dK, dV
 };
 
-// a bf16 kernel: its extra int (narrow dq: round16(dk); narrow dkv: KD;
-// wide dq: query tiles; wide dkv: unused) follows D
+// a narrow bf16 kernel: its extra int (dq: round16(dk); dkv: KD) follows D
 template <typename K>
 cudaError_t run(K kernel, size_t smem, dim3 grid, int threads, const Args& a, int extra) {
   return launch(kernel, smem, grid, threads, a.stream, static_cast<const bf16*>(a.qu),
@@ -1469,51 +1268,62 @@ bool wide_ok(const Args& a) {
          aligned16(a.v) && aligned16(a.feats) && aligned16(a.dout);
 }
 
-// map of a bf16 tensor [depth][rows][cols] (cols and the strides multiples
-// of 8 elements), boxes of 64 columns x box_rows rows x 1, 128-byte
-// swizzle; a load reads zeros past any end
-cudaError_t bf16_map3(CUtensorMap* map, const void* ptr, uint64_t cols, uint64_t rows,
-                      uint64_t depth, uint32_t box_rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = hopper::tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  if (cols % 8 != 0 || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorInvalidValue;
-  cuuint64_t dims[3] = {cols, rows, depth};
-  cuuint64_t strides[2] = {cols * sizeof(bf16), cols * rows * sizeof(bf16)};
-  cuuint32_t box[3] = {64, box_rows, 1};
-  cuuint32_t estr[3] = {1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+// elements of one of the wide bf16 path's scratches, bf16 [B, H, Tq,
+// round128(Tk)]: dS, then (dkv and the combined backward) pd after it
+size_t scratch_elems(const Args& a) {
+  return (size_t)a.B * a.H * a.Tq * round_up(a.Tk, wq::TK);
 }
 
-// the wide bf16 dq: dS into a.scratch [B, H, Tq, round128(Tk)] bf16, then
-// [dQu | dAB] = dS [K | F] (see rel_flash_bwd_ds_wide_kernel)
-cudaError_t launch_dq_wide(const Args& a) {
-  const int dkm = a.dk <= 64 ? 64 : 128, bhn = a.B * a.H;
-  const int tkp = round_up(a.Tk, wq::TK), nkt = tkp / wq::TK;
-  CUtensorMap qm, abm, om, km, vm, fm, dsm, km2, fm2;
-  cudaError_t e = bf16_map3(&qm, a.qu, a.dk, a.Tq, bhn, wq::TQ);
-  if (e == cudaSuccess) e = bf16_map3(&abm, a.ab, a.D, a.Tq, bhn, wq::TQ);
-  if (e == cudaSuccess) e = bf16_map3(&om, a.dout, a.dk, a.Tq, bhn, wq::TQ);
-  if (e == cudaSuccess) e = bf16_map3(&km, a.k, a.dk, a.Tk, bhn, wq::TK);
-  if (e == cudaSuccess) e = bf16_map3(&vm, a.v, a.dk, a.Tk, bhn, wq::TK);
-  if (e == cudaSuccess) e = bf16_map3(&fm, a.feats, a.D, a.Tk, 1, wq::TK);
-  if (e == cudaSuccess) e = bf16_map3(&dsm, a.scratch, tkp, a.Tq, bhn, wq::TQ);
-  if (e == cudaSuccess) e = bf16_map3(&km2, a.k, a.dk, a.Tk, bhn, 64);
-  if (e == cudaSuccess) e = bf16_map3(&fm2, a.feats, a.D, a.Tk, 1, 64);
+// kernel 1 of the wide bf16 backward: dS into the scratch, and pd after it
+// with_pd (see rel_flash_bwd_ds_wide_kernel)
+cudaError_t launch_ds_wide(const Args& a, bool with_pd) {
+  const int bhn = a.B * a.H, tkp = round_up(a.Tk, wq::TK);
+  CUtensorMap qm, abm, om, km, vm, fm;
+  cudaError_t e = wq::bf16_map3(&qm, a.qu, a.dk, a.Tq, bhn, wq::TQ);
+  if (e == cudaSuccess) e = wq::bf16_map3(&abm, a.ab, a.D, a.Tq, bhn, wq::TQ);
+  if (e == cudaSuccess) e = wq::bf16_map3(&om, a.dout, a.dk, a.Tq, bhn, wq::TQ);
+  if (e == cudaSuccess) e = wq::bf16_map3(&km, a.k, a.dk, a.Tk, bhn, wq::TK);
+  if (e == cudaSuccess) e = wq::bf16_map3(&vm, a.v, a.dk, a.Tk, bhn, wq::TK);
+  if (e == cudaSuccess) e = wq::bf16_map3(&fm, a.feats, a.D, a.Tk, 1, wq::TK);
+  if (e != cudaSuccess) return e;
+  bf16* ds = static_cast<bf16*>(a.scratch);
+  const dim3 grid((a.Tq + wq::TQ - 1) / wq::TQ, a.H, a.B);
+  return launch(rel_flash_bwd_ds_wide_kernel, wq::SMEM + tkp / wq::TK, grid, wq::THREADS,
+                a.stream, qm, abm, om, km, vm, fm, static_cast<const uint8_t*>(a.mask),
+                static_cast<const int*>(a.seed), static_cast<const float*>(a.lse),
+                static_cast<const float*>(a.delta), ds,
+                with_pd ? ds + scratch_elems(a) : nullptr, a.H, a.Tq, a.Tk, tkp,
+                a.dk <= 64 ? 1 : 2, a.D, a.scale, a.drop, a.thr, a.Ht, a.Ho, a.inv_keep);
+}
+
+// kernel 2 (dq): [dQu | dAB] = dS [K | F] into dq, dab
+cudaError_t launch_dsk_wide(const Args& a, void* dq, void* dab) {
+  const int bhn = a.B * a.H, tkp = round_up(a.Tk, wq::TK), dkm = a.dk <= 64 ? 64 : 128;
+  CUtensorMap dsm, km, fm;
+  cudaError_t e = wq::bf16_map3(&dsm, a.scratch, tkp, a.Tq, bhn, wq::TQ);
+  if (e == cudaSuccess) e = wq::bf16_map3(&km, a.k, a.dk, a.Tk, bhn, 64);
+  if (e == cudaSuccess) e = wq::bf16_map3(&fm, a.feats, a.D, a.Tk, 1, 64);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Tq + wq::TQ - 1) / wq::TQ, a.H, a.B);
-  e = launch(rel_flash_bwd_ds_wide_kernel, wq::SMEM + nkt, grid, wq::THREADS, a.stream, qm, abm,
-             om, km, vm, fm, static_cast<const uint8_t*>(a.mask),
-             static_cast<const int*>(a.seed), static_cast<const float*>(a.lse),
-             static_cast<const float*>(a.delta), static_cast<bf16*>(a.scratch), a.H, a.Tq, a.Tk,
-             tkp, dkm / 64, a.D, a.scale, a.drop, a.thr, a.Ht, a.Ho, a.inv_keep);
-  if (e != cudaSuccess) return e;
-  return launch(rel_flash_bwd_dsk_wide_kernel, wq::SMEM, grid, wq::THREADS, a.stream, dsm, km2,
-                fm2, static_cast<float*>(a.o1), static_cast<float*>(a.o2), a.H, a.Tq, tkp, a.dk,
+  return launch(rel_flash_bwd_dsk_wide_kernel, wq::SMEM, grid, wq::THREADS, a.stream, dsm, km,
+                fm, static_cast<float*>(dq), static_cast<float*>(dab), a.H, a.Tq, tkp, a.dk,
                 dkm, a.D);
+}
+
+// kernel 3 (dkv): dK = dS^T (q+u), dV = pd^T dO into dk_out, dv_out
+cudaError_t launch_dkv_wide(const Args& a, void* dk_out, void* dv_out) {
+  const int bhn = a.B * a.H, tkp = round_up(a.Tk, wq::TK);
+  const bf16* ds = static_cast<const bf16*>(a.scratch);
+  CUtensorMap dsm, pdm, qm, om;
+  cudaError_t e = wq::bf16_map3(&dsm, ds, tkp, a.Tq, bhn, 64);
+  if (e == cudaSuccess) e = wq::bf16_map3(&pdm, ds + scratch_elems(a), tkp, a.Tq, bhn, 64);
+  if (e == cudaSuccess) e = wq::bf16_map3(&qm, a.qu, a.dk, a.Tq, bhn, 64);
+  if (e == cudaSuccess) e = wq::bf16_map3(&om, a.dout, a.dk, a.Tq, bhn, 64);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(tkp / wq::TK, a.H, a.B);
+  auto kernel = a.dk <= 64 ? rel_flash_bwd_dkv_wide_kernel<64> : rel_flash_bwd_dkv_wide_kernel<128>;
+  return launch(kernel, wq::SMEM, grid, wq::THREADS, a.stream, dsm, pdm, qm, om,
+                static_cast<float*>(dk_out), static_cast<float*>(dv_out), a.H, a.Tq, a.Tk, a.dk);
 }
 
 cudaError_t launch_dq(const Args& a, bool bf16_) {
@@ -1529,7 +1339,8 @@ cudaError_t launch_dq(const Args& a, bool bf16_) {
   }
   if (!narrow_width(a.dk, a.D, true)) {
     if (!wide_ok(a) || a.scratch == nullptr) return cudaErrorInvalidValue;
-    return launch_dq_wide(a);
+    cudaError_t e = launch_ds_wide(a, false);
+    return e != cudaSuccess ? e : launch_dsk_wide(a, a.o1, a.o2);
   }
   // 64 rows (16 warps) where the block fits shared memory, else 32 (8 warps)
   const int kd = kd_pad(a.dk, a.D), dkp = dk_pad(a.dk);
@@ -1561,12 +1372,9 @@ cudaError_t launch_dkv(const Args& a, bool bf16_) {
                    dim3(nk64, a.H, a.B), a);
   }
   if (!narrow_width(a.dk, a.D, true)) {
-    if (!wide_ok(a)) return cudaErrorInvalidValue;
-    const dim3 grid((a.Tk + WV_K - 1) / WV_K, a.H, a.B);
-    return a.dk <= 64
-               ? run(rel_flash_bwd_dkv_bf16_wide_kernel<64>, wide_dkv_smem(64), grid, WV_NT, a, 0)
-               : run(rel_flash_bwd_dkv_bf16_wide_kernel<128>, wide_dkv_smem(128), grid, WV_NT,
-                     a, 0);
+    if (!wide_ok(a) || a.scratch == nullptr) return cudaErrorInvalidValue;
+    cudaError_t e = launch_ds_wide(a, true);
+    return e != cudaSuccess ? e : launch_dkv_wide(a, a.o1, a.o2);
   }
   const dim3 grid((a.Tk + VK - 1) / VK, a.H, a.B);
   const size_t smem = dkv_bf16_smem(a.dk, a.D);
@@ -1588,10 +1396,10 @@ cudaError_t launch_dkv(const Args& a, bool bf16_) {
 // writes dk, dv [B,H,Tk,dk]; all float32, contiguous. Widths as the
 // forward's: narrow_width or wide_width (dout 16-byte aligned too on bf16's
 // wide path). Ht, Ho: the keep-mask's head total and offset, as the
-// forward's. scratch: the wide bf16 dq's dS, bf16 [B,H,Tq,round128(Tk)]
-// (null elsewhere; dkv_kernel never reads it). Each returns the CUDA error
-// code of its launches (0 on success; cudaErrorInvalidValue before any
-// launch for widths outside both paths).
+// forward's. scratch: the wide bf16 path's dS, bf16 [B,H,Tq,round128(Tk)],
+// followed for dkv by pd of the same shape (null elsewhere). Each returns
+// the CUDA error code of its launches (0 on success; cudaErrorInvalidValue
+// before any launch for widths outside both paths).
 extern "C" int rel_flash_attention_bwd_dq(
     const void* qu, const void* ab, const void* k, const void* v, const void* feats,
     const void* mask, const void* seed, const void* dout, const void* lse,
@@ -1614,4 +1422,25 @@ extern "C" int rel_flash_attention_bwd_dkv(
                static_cast<cudaStream_t>(stream), B, H, Tq, Tk, dk, D, drop,
                static_cast<uint32_t>(thr_bits), Ht, Ho, scale, inv_keep};
   return static_cast<int>(launch_dkv(a, is_bf16 != 0));
+}
+
+// The whole wide bf16 backward: dS and pd once, then dq's and dkv's
+// products (arguments as the two above, dq, dab, dk, dv and the scratch of
+// dS and pd). Returns cudaErrorInvalidValue before any launch off the wide
+// bf16 path, which the two functions above take one by one.
+extern "C" int rel_flash_attention_bwd(
+    const void* qu, const void* ab, const void* k, const void* v, const void* feats,
+    const void* mask, const void* seed, const void* dout, const void* lse,
+    const void* delta, void* dq, void* dab, void* dk_out, void* dv_out, void* scratch,
+    void* stream, int B, int H, int Tq, int Tk, int dk, int D, int is_bf16, int drop,
+    int thr_bits, int Ht, int Ho, float scale, float inv_keep) {
+  const Args a{qu, ab, k, v, feats, mask, seed, dout, lse, delta, dq, dab, scratch,
+               static_cast<cudaStream_t>(stream), B, H, Tq, Tk, dk, D, drop,
+               static_cast<uint32_t>(thr_bits), Ht, Ho, scale, inv_keep, dk_out, dv_out};
+  if (!is_bf16 || narrow_width(dk, D, true) || !wide_ok(a) || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = launch_ds_wide(a, true);
+  if (e == cudaSuccess) e = launch_dsk_wide(a, dq, dab);
+  if (e == cudaSuccess) e = launch_dkv_wide(a, dk_out, dv_out);
+  return static_cast<int>(e);
 }

@@ -6,7 +6,8 @@ attention_kernel.py``: the forward (``_attn_fwd_kernel``, ``_fwd_impl``),
 the dropout keep-mask hash (``_tile_keep_mask``) and the backward
 (``_flash_bwd``: ``_attn_bwd_dq_kernel``, ``_attn_bwd_dkv_kernel``). The
 kernels are ``csrc/rel_flash_attention.cu`` (forward) and
-``csrc/rel_flash_attention_bwd.cu`` (dq and dkv); their source notes give
+``csrc/rel_flash_attention_bwd.cu`` (dq and dkv; ``rel_attention_bwd``
+runs both, on the wide bf16 path from one dS); their source notes give
 the bounds and the designs. Each wrapper launches its kernel for CUDA
 tensors and takes the plain version only for CPU tensors (the tests' path);
 each counts its launches in ``<wrapper>.launches``.
@@ -39,7 +40,7 @@ MAX_DK = 128        # head width of the wide kernels' register tiles
 NARROW_DK = 64      # head width of the narrow kernels' register tiles
 NARROW_KD = 576     # the narrow bf16 kernels' score depth round64(round16(dk) + D)
 NARROW_D_F32 = 512  # the narrow float32 dq kernel keeps 32 dAB columns a thread
-DS_KEYS = 128       # the wide bf16 dq's key tile: its dS scratch rows are padded to a multiple
+DS_KEYS = 128       # the wide bf16 backward's key tile: its scratch rows are padded to a multiple
 
 
 # ------------------------------------------------------------ keep-mask hash
@@ -202,8 +203,8 @@ def route(dtype, dk: int, d: int) -> str:
 def width_error(dtype, dk: int, d: int) -> str | None:
     """Why the kernels refuse head width ``dk`` and bias width ``d`` in
     ``dtype``, or None where all three take them: dk <= 128 and any D; the
-    bf16 wide path (``route``) copies 16-byte pieces, so there dk and D are
-    multiples of 8."""
+    bf16 wide path (``route``) reads rows by TMA, whose row strides are
+    multiples of 16 bytes, so there dk and D are multiples of 8."""
     if dk > MAX_DK:
         return f"dk={dk} > {MAX_DK}"
     if (dtype == torch.bfloat16 and route(dtype, dk, d) == "wide"
@@ -212,10 +213,17 @@ def width_error(dtype, dk: int, d: int) -> str | None:
     return None
 
 
+def scratch_shape(b: int, h: int, tq: int, tk: int, pd: bool) -> tuple[int, ...]:
+    """Shape of the wide bf16 backward's scratch (``csrc/rel_flash_attention_bwd.cu``):
+    dS, and with ``pd`` the dropped probabilities after it, each bf16 [B,
+    H, Tq, round128(Tk)] (dq's kernels read dS alone, dkv's both)."""
+    return (2 if pd else 1, b, h, tq, _round_up(tk, DS_KEYS))
+
+
 def _aligned(*tensors):
     """The tensors, each copied to a fresh (16-byte aligned) block where its
-    data does not start on 16 bytes: the bf16 wide kernels copy 16-byte
-    pieces."""
+    data does not start on 16 bytes: the bf16 wide kernels' TMA boxes need
+    16-byte aligned addresses."""
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in tensors)
 
 
@@ -320,18 +328,17 @@ def _bwd_kernel(symbol, q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, sc
     scratch = None
     if q_u.dtype == torch.bfloat16 and route(q_u.dtype, dk, d) == "wide":
         q_u, ab, k, v, k_feats, dout = _aligned(q_u, ab, k, v, k_feats, dout)
-        if symbol == "rel_flash_attention_bwd_dq":
-            # the wide dq's dS [B, H, Tq, round128(Tk)] in bf16 (csrc note)
-            scratch = torch.empty((b, h, tq, _round_up(tk, DS_KEYS)), dtype=torch.bfloat16,
-                                  device=q_u.device)
-    fn = cuda_build.load_function("rel_flash_attention_bwd", symbol, n_ptrs=14, n_ints=11,
-                                  n_floats=2)
+        # dS (and for dkv pd) of the wide path, made once (csrc note)
+        scratch = torch.empty(scratch_shape(b, h, tq, tk, symbol != "rel_flash_attention_bwd_dq"),
+                              dtype=torch.bfloat16, device=q_u.device)
     outs = [torch.empty(s, dtype=torch.float32, device=q_u.device) for s in out_shapes]
+    fn = cuda_build.load_function("rel_flash_attention_bwd", symbol,
+                                  n_ptrs=12 + len(outs), n_ints=11, n_floats=2)
     drop, thr_bits, inv_keep = _drop_args(dropout_rate)
     P = cuda_build.ptr
     err = fn(
         P(q_u), P(ab), P(k), P(v), P(k_feats), P(mask), _seed_ptr(seed, dropout_rate),
-        P(dout), P(lse), P(delta), P(outs[0]), P(outs[1]),
+        P(dout), P(lse), P(delta), *(P(o) for o in outs),
         None if scratch is None else P(scratch), cuda_build.stream_ptr(q_u),
         b, h, tq, tk, dk, d, int(q_u.dtype == torch.bfloat16), drop, thr_bits, h_total,
         h_offset, float(scale), inv_keep,
@@ -375,6 +382,29 @@ def rel_attention_bwd_dkv(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, 
     return outs
 
 
+def rel_attention_bwd(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, *,
+                      scale: float, dropout_rate: float = 0.0,
+                      h_total: int | None = None, h_offset: int = 0):
+    """(dQu, dAB, dK, dV) in float32: ``rel_attention_bwd_dq`` and
+    ``rel_attention_bwd_dkv`` together, for CUDA tensors in one call on the
+    wide bf16 path (dS and pd made once for both, then both products: each
+    of the two counts one launch), one by one elsewhere; the plain
+    backward for CPU tensors."""
+    h_total, h_offset = _heads(q_u.shape[1], h_total, h_offset)
+    args = (q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta)
+    kw = dict(scale=scale, dropout_rate=dropout_rate, h_total=h_total, h_offset=h_offset)
+    if q_u.device.type == "cpu":
+        return rel_attention_bwd_plain(*args, **kw)
+    dk, d = q_u.shape[-1], k_feats.shape[-1]
+    if q_u.dtype != torch.bfloat16 or route(q_u.dtype, dk, d) != "wide":
+        return (*rel_attention_bwd_dq(*args, **kw), *rel_attention_bwd_dkv(*args, **kw))
+    outs = _bwd_kernel("rel_flash_attention_bwd", *args, scale, dropout_rate, h_total, h_offset,
+                       [q_u.shape, ab.shape, k.shape, v.shape])
+    rel_attention_bwd_dq.launches += 1
+    rel_attention_bwd_dkv.launches += 1
+    return outs
+
+
 rel_attention.launches = 0
 rel_attention_bwd_dq.launches = 0
 rel_attention_bwd_dkv.launches = 0
@@ -386,8 +416,9 @@ rel_attention_bwd_dkv.launches = 0
 class _RelFlash(torch.autograd.Function):
     """The JAX ``_flash`` custom VJP: the forward saves (inputs, seed, out,
     lse); the backward computes delta = rowsum(dO * O) as a torch op and
-    runs the dq and dkv kernels. ``k_feats``, ``mask`` and ``seed`` carry
-    no gradient (sinusoids of positions, a mask, a seed)."""
+    runs the dq and dkv kernels (``rel_attention_bwd``). ``k_feats``,
+    ``mask`` and ``seed`` carry no gradient (sinusoids of positions, a
+    mask, a seed)."""
 
     @staticmethod
     def forward(ctx, q_u, ab, k, v, k_feats, mask, seed, scale, dropout_rate, h_total,
@@ -407,8 +438,7 @@ class _RelFlash(torch.autograd.Function):
         args = (q_u, ab, k, v, k_feats, mask, seed, g, lse, delta)
         kw = dict(scale=ctx.scale, dropout_rate=ctx.dropout_rate, h_total=ctx.heads[0],
                   h_offset=ctx.heads[1])
-        d_q, d_ab = rel_attention_bwd_dq(*args, **kw)
-        d_k, d_v = rel_attention_bwd_dkv(*args, **kw)
+        d_q, d_ab, d_k, d_v = rel_attention_bwd(*args, **kw)
         return (d_q.to(q_u.dtype), d_ab.to(ab.dtype), d_k.to(k.dtype), d_v.to(v.dtype),
                 None, None, None, None, None, None, None)
 

@@ -10,8 +10,9 @@ PyTorch/CUDA port (``conformer_tpu_torch``).
 ``--tree`` times the ``conformer_tpu_torch`` of another checkout (its
 kernels build into that checkout's git-ignored build/), so that two
 versions can run in turn within one call on one card (parent, change,
-change, parent). Shapes: the attention forward, dq and dkv at the training
-shape (B=32, T'=374, dropout 0.1) and the forward at the decode shape
+change, parent). Shapes: the attention forward, dq, dkv and the whole
+backward as the autograd Function runs it ("bwd") at the training shape
+(B=32, T'=374, dropout 0.1) and the forward at the decode shape
 (B=48, no dropout); the conv block at the decode shape (B=48, T'=374, K=15;
 B=8 at d=1024); the three joint kernels at B=8, T'=374, U=64, V=5002 (3
 calls a time) and the fused int8 FFN at route B's decode batches (M = 48
@@ -128,11 +129,18 @@ def attention_times(gen, b, h, t, dk, d, rate) -> dict:
     try:
         out, lse = ra.rel_attention(*args, seed=seed, **kw)
     except ValueError:
-        return dict.fromkeys(("fwd", "dq", "dkv"), (None, None, None))
+        return dict.fromkeys(("fwd", "dq", "dkv", "bwd"), (None, None, None))
     bargs = (*args, seed, g, lse, (g.float() * out.float()).sum(dim=-1))
+
+    def backward():   # as the autograd backward runs it (a tree without the joint call: both)
+        if hasattr(ra, "rel_attention_bwd"):
+            return ra.rel_attention_bwd(*bargs, **kw)
+        return ra.rel_attention_bwd_dq(*bargs, **kw), ra.rel_attention_bwd_dkv(*bargs, **kw)
+
     return {"fwd": both(lambda: ra.rel_attention(*args, seed=seed, **kw)),
             "dq": both(lambda: ra.rel_attention_bwd_dq(*bargs, **kw)),
-            "dkv": both(lambda: ra.rel_attention_bwd_dkv(*bargs, **kw))}
+            "dkv": both(lambda: ra.rel_attention_bwd_dkv(*bargs, **kw)),
+            "bwd": both(backward)}
 
 
 def conv_times(gen, b, t, d, k) -> tuple[float | None, float | None, float | None]:
