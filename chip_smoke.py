@@ -59,9 +59,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                their plain versions and in float32 against autograd through
                the plain forward, the backward bitwise repeatable; the
                three also at Conformer-S's and -L's join widths (J = 320,
-               640) and at J = 1024 and a ragged 700 (B=2, T'=200, U=30,
-               V=5002; the wide kernels in float32 from 640, in bf16 past
-               640) in float32 and bf16 (both pred dtypes), outputs
+               640) and at J = 1024, 896 and a ragged 700 (B=2, T'=200,
+               U=30, V=5002; the wide kernels in float32 from 640, in bf16
+               the backward past 512 and the forward past 640) in float32
+               and bf16 (both pred dtypes), outputs
                poisoned with NaN first, the backward bitwise repeatable;
                the fbank kernel at 48 x 15 s against its plain version with
                dither 0 and 1 and against the host fbank_numpy, its
@@ -1899,10 +1900,12 @@ def check_joint_kernels(dev, shapes=JOINT_SHAPES) -> dict:
 
 
 # Conformer-S's and -L's join_dim (configs/conformer_s.json, conformer_l.json)
-# at a small shape (B, T', U, V): the narrow kernels but float32 at L's 640;
-# J 1024 and a ragged J 700 (padded to 768) on the wide kernels in every
-# dtype. No J is refused (JAX's kernel takes any J)
-JOINT_WIDTHS = {"conformer_s": 320, "conformer_l": 640, "1024": 1024, "ragged 700": 700}
+# at a small shape (B, T', U, V): the narrow kernels but the backward at L's
+# 640 and float32 at 640; J 1024, 896 (7 x 128: the dX product's 128-wide
+# tiles in bf16) and a ragged J 700 (padded to 768) on the wide kernels in
+# every dtype. No J is refused (JAX's kernel takes any J)
+JOINT_WIDTHS = {"conformer_s": 320, "conformer_l": 640, "1024": 1024, "896": 896,
+                "ragged 700": 700}
 JOINT_WIDTH_SHAPE = (2, 200, 30, 5002)
 
 
@@ -1954,7 +1957,8 @@ def check_joint_widths(dev) -> dict:
                 errs[k] = max(errs[k], e)
             rule = lambda c: "abs + rel" if c is compare else "of max-abs"   # noqa: E731
             print(f"kernels: joint {label} {name} B={b} T'={t} U+1={u + 1} V={v} J={j} (padded "
-                  f"to {jp}, {jl.route(dtype, j)} kernels): max_abs_err fwd {e_f:.3g} (tol {tol} "
+                  f"to {jp}, {jl.route(dtype, j)} forward, {jl.route(dtype, j, 'bwd')} backward "
+                  f"kernels): max_abs_err fwd {e_f:.3g} (tol {tol} "
                   f"abs + rel), bwd_xp {e_xp:.3g} (tol {tol} {rule(xcmp)}), bwd_w {e_w:.3g} (tol "
                   f"{tol} {rule(wcmp)}); outputs poisoned with NaN beforehand; backward bitwise "
                   "repeatable")
@@ -4078,7 +4082,7 @@ def full_lattice_l_parity(dev) -> dict:
 
     cfg = full_lattice_config(os.path.join(REPO, "configs", "conformer_l.json"))
     cfg.model = dataclasses.replace(cfg.model, encoder_num_layers=FULL_L_LAYERS)
-    check(jl.route(torch.float32, cfg.model.join_dim) == "wide",
+    check(jl.route(torch.float32, cfg.model.join_dim, "bwd") == "wide",
           f"6e: join_dim {cfg.model.join_dim} is not on the joint kernels' wide route")
     trainer = Trainer(cfg, device=dev)
     torch.cuda.synchronize()

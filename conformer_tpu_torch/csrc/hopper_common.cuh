@@ -1,8 +1,10 @@
 // Hopper (sm_90a) pieces shared by the int8 serving kernels (int8_matmul.cu,
-// int8_ffn.cu): TMA copies of int8 tiles into 128-byte-swizzled shared
-// memory that complete on mbarriers, the int8 warpgroup product
-// (wgmma ... s32.s8.s8), TMA stores from shared memory, the named and
-// cluster barriers around them, and on the host the tensor maps.
+// int8_ffn.cu), the simple lattice (simple_lattice.cu) and the wide joint
+// backward (joint_lattice.cu): TMA copies of tiles into 128-byte-swizzled
+// shared memory that complete on mbarriers, the int8 and tf32 warpgroup
+// products (wgmma ... s32.s8.s8, f32.tf32.tf32), the 3xTF32 split, TMA
+// stores from shared memory, the named and cluster barriers around them,
+// and on the host the tensor maps.
 //
 // Layout of an operand tile: 8-row groups of 128-byte rows (1024 B,
 // 1024-aligned), the layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: the
@@ -215,6 +217,41 @@ __device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t a, uint64_t 
         "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
         "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
         "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// 3xTF32: x = hi + lo, both rounded to tf32; hi*hi + hi*lo + lo*hi keeps
+// float32 accuracy (the dropped lo*lo and lo's rounding are ~2^-22 of x)
+__device__ __forceinline__ void split_tf32(float x, float* hi, float* lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
+  const float hf = __uint_as_float(h);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(l) : "f"(x - hf));
+  *hi = hf;
+  *lo = __uint_as_float(l);
+}
+
+// d (64 x 128, float32) [+]= A (64 x 8) B (8 x 128), tf32, both K-major in
+// shared memory (rows of 32 floats, 128-byte swizzle: a k-step is +32 B);
+// the accumulator's layout as wgmma_s8_n128's
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

@@ -35,13 +35,13 @@
 // float32) whatever U is: the block shape never depends on U (a block that
 // held every u was refused at U+1 = 201 in the simple lattice's backward).
 //
-// The float32 kernels (the parity path, not the model's), and the bf16
-// backward at J = 640: the block keeps its x tile in shared memory and
-// walks V in tiles of 64 columns; W's column tile [J x 64] is staged in
-// shared memory per step (W, 5 MB in bf16, stays in the 50 MB L2).
-// Products: in bf16 on the tensor cores through nvcuda::wmma (16x16x16,
-// float32 accumulators); in float32 as FMAs on the CUDA cores (no TF32),
-// through the same 16x16 fragment shape. Each logits tile goes to shared
+// The narrow float32 kernels (the parity path, not the model's; their
+// tiles also serve the wide forward, in both dtypes): the block keeps its
+// x tile in shared memory and walks V in tiles of 64 columns; W's column
+// tile [J x 64] is staged in shared memory per step (W, 5 MB in bf16, stays
+// in the 50 MB L2). Products: in bf16 on the tensor cores through
+// nvcuda::wmma (16x16x16, float32 accumulators); in float32 as FMAs on the
+// CUDA cores (no TF32), through the same 16x16 fragment shape. Each logits tile goes to shared
 // memory for the epilogue: an online logsumexp per row and the blank and
 // label picks (forward), or dl (backward, rounded to the inputs' dtype as
 // the product's operand).
@@ -110,18 +110,41 @@
 // writes x [M, J] in the inputs' dtype; the main grid's block owns (a V
 // tile, a chunk of rows) and accumulates that chunk's dW tile [J x 64] in
 // registers; a last grid sums the chunks' partial dW and dbias in order.
-// The C entries report the grids they launched (1, 2 and 3).
+// The C entries report the grids they launched (1, 2 and 3; the wide
+// backward 3 per chunk of cells and 2).
+//
+// The wide backward (J > 512 in either dtype; "wide backward" below): per
+// chunk of cells two products on wgmma fed by a TMA ring (3xTF32 in
+// float32), the logits product once per cell at every J, dl between them
+// in device memory. Bound at B=8, T'=374, U+1=65, V=5002 (M = 194,480):
+// two products, 2 x 2 M J V flops: bf16 J = 1024 4.03 ms at 989 TFLOP/s;
+// float32 J = 640 as 3xTF32 (three tf32 products each) 15.1 ms at 495
+// TFLOP/s (37.2 ms as FMAs at 67). Bytes, all from L2 but dl: a product's
+// 128 x BN tiles read their A and B slabs once per tile, (1/128 + 1/BN)
+// M N K operand values a product: bf16 J 1024 (BN 256) ~24 GB each, float32
+// J 640 (BN 128, hi and lo, 8 bytes a value) ~80 GB each, ~5 and ~16 ms
+// at ~5 TB/s of L2, against the products' 2.0 and 7.6 ms. dl is written
+// once and read once (W^T x chunks in the bf16 dW product read it J / 128
+// times, consecutive tiles sharing it in L2): 2.0 GB each way in bf16, 7.9
+// GB (hi and lo) in float32, 1.2 and 4.7 ms of device memory at 3.35 TB/s.
+// What it does about them: 128-row tiles, BN 256 in bf16 (the A slab read
+// once per 256 columns), consecutive blocks sharing one A tile (W or W^T,
+// 10-13 MB, stays in L2), 4-6 ring stages, no second pass over the
+// logits. Its times against these: PERF.md.
 //
 // Limits: J a multiple of 128 (the wrapper pads J with zeros, which is
 // exact: x = tanh(0) = 0 in the padded columns and W's padded rows are 0),
-// any J (up to 640 in bf16 and 512 in float32 on the kernels below, above
-// on the wide kernels: see "wide J"); V padded by the caller to Vp, a
-// multiple of 64, and of 128 for the forward (W's padded columns are never
-// read into a result). Routes by shape, bf16: the forward on wgmma at every
-// J; the backward on wgmma up to J = 512 (214 KB of shared memory there;
-// at J = 640 its x tile, a 2-stage ring of [J x 64] W tiles and the dl
-// tiles would need 240 KB) and on the wmma kernels at J = 640 (198 KB:
-// slower, but right). float32: the wmma/FMA kernels (218 KB at J = 512).
+// any J (the narrow forward up to 640 in bf16 and 512 in float32, the
+// narrow backward up to 512; above, the wide forward and the wide
+// backward); V padded by the caller to Vp, a multiple of 64, and of 128
+// for the forward (W's padded columns are never read into a result).
+// Routes by shape, bf16: the forward on wgmma up to J = 640; the backward
+// on wgmma up to J = 512 (214 KB of shared memory there; at J = 640 its x
+// tile, a 2-stage ring of [J x 64] W tiles and the dl tiles would need
+// 240 KB) and on the wide backward above (which at J = 640 replaced the
+// narrow wmma kernels: PERF.md). float32: the FMA kernels up to 512 (218
+// KB), the wide ones above. The wide backward's chunk of cells is the
+// wrapper's (dl within 512 MiB); its ring takes 192 KB of shared memory.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -133,6 +156,8 @@
 
 #include <type_traits>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -143,7 +168,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int BN = 64;                 // V columns per tile
 constexpr int NCF = BN / 16;           // 16-wide fragments across a V tile
 constexpr int LDL = BN + 4;            // row stride of the float32 logits tile
-constexpr int kMaxNJ = 640 / 128;      // 16-wide fragments of J per warp, at most
+constexpr int kMaxNJ = 512 / 128;      // 16-wide fragments of J per warp, at most
 
 template <typename T> struct Tile;
 template <> struct Tile<bf16> {
@@ -602,19 +627,20 @@ joint_bwd_w_kernel(const T* __restrict__ X, const T* __restrict__ W,
   if (threadIdx.x < BN) dbpart[(size_t)chunk * Vp + v0 + threadIdx.x] = dbacc;
 }
 
-// dW = sum over chunks of the partials, dbias likewise, in chunk order
+// dW = the sum of the n_part partials, dbias of the n_dbpart ones, in order
 __global__ void joint_reduce_w_kernel(const float* __restrict__ part,
                                       const float* __restrict__ dbpart, float* __restrict__ dw,
-                                      float* __restrict__ db, int n_chunks, size_t JV, int Vp) {
+                                      float* __restrict__ db, int n_part, int n_dbpart, size_t JV,
+                                      int Vp) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < JV) {
     float s = 0.f;
-    for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * JV + i];
+    for (int c = 0; c < n_part; ++c) s += part[(size_t)c * JV + i];
     dw[i] = s;
   } else if (i < JV + Vp) {
     const size_t v = i - JV;
     float s = 0.f;
-    for (int c = 0; c < n_chunks; ++c) s += dbpart[(size_t)c * Vp + v];
+    for (int c = 0; c < n_dbpart; ++c) s += dbpart[(size_t)c * Vp + v];
     db[v] = s;
   }
 }
@@ -625,30 +651,20 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// ------------------------------------------------ wide J: J streamed in chunks
+// ------------------------------------------------ wide J forward: J streamed in chunks
 //
-// Above the narrow kernels' widths (bf16 J > 640, float32 J > 512; JAX's
-// kernel takes the whole J as one block and has no such limit) the three
-// entries take these kernels, whose shared memory does not grow with J:
+// Above the narrow forward's widths (bf16 J > 640, float32 J > 512; JAX's
+// kernel takes the whole J as one block and has no such limit) the forward
+// takes joint_fwd_wide_kernel, whose shared memory does not grow with J:
 // the block's tiles are those of the wmma/FMA kernels above, but x and W
 // pass through in chunks of JC = 128 J columns. The logits tile's
 // accumulators stay in registers while every chunk of x (recomputed as
-// tanh(enc + pred) in the forward and bwd_xp, read from the x buffer in
-// bwd_w) and of W's V tile goes by; the sums run over j in the narrow
-// kernels' order. The backward products' outputs, dX [BM x J] and the dW
-// tile [J x 64], cannot stay in registers at any J: the grid's last
-// dimension splits them into groups of JG = 512 columns (rows of dW), and
-// each group's block computes its own logits and dl (ceil(J / 512) times
-// the logits product in all, 2 at J 640 to 1024) and then streams the
-// group's chunks of W (bwd_xp) or x (bwd_w) through the product. Every
-// output element is still one block's, summed in a fixed order: bitwise
-// repeatable. Shared memory ~70 KB in float32 and ~63 KB in bf16 at every
-// J. bf16 runs on wmma, float32 on FMAs, as the kernels above; speed is
-// later work (PERF.md).
+// tanh(enc + pred)) and of W's V tile goes by; the sums run over j in the
+// narrow kernels' order. Shared memory ~70 KB in float32 and ~63 KB in
+// bf16 at every J. bf16 runs on wmma, float32 on FMAs; speed is later work
+// (PERF.md). The wide backward is further down ("wide backward").
 
 constexpr int JC = 128;                // J columns of a streamed chunk
-constexpr int JG = 512;                // dX columns, or dW rows, of one block
-constexpr int kWideNJ = JG / JC;       // chunks of a group, at most
 
 template <typename T> struct WideSmem {
   int ldx;
@@ -682,20 +698,6 @@ __device__ void load_x_tanh_chunk(T* Xs, int ldx, const T* __restrict__ enc,
     } else {
       for (int j = lane; j < JC; j += 32) dst[j] = from_f<T>(0.f);
     }
-  }
-}
-
-// columns [j0, j0 + JC) of rows [m0, m0 + BM) of the x buffer [M][J]; rows
-// at or past `end` are zero
-template <typename T>
-__device__ void load_x_rows_chunk(T* Xs, int ldx, const T* __restrict__ X, int m0, int end,
-                                  int J, int j0) {
-  constexpr int VEC = 16 / sizeof(T), PER_ROW = JC / VEC;
-  for (int i = threadIdx.x; i < Tile<T>::BM * PER_ROW; i += kThreads) {
-    const int r = i / PER_ROW, c = (i - r * PER_ROW) * VEC, m = m0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m < end) val = *reinterpret_cast<const uint4*>(X + (size_t)m * J + j0 + c);
-    *reinterpret_cast<uint4*>(Xs + (size_t)r * ldx + c) = val;
   }
 }
 
@@ -800,154 +802,6 @@ joint_fwd_wide_kernel(const T* __restrict__ enc, const TP* __restrict__ pred,
     lpe[m] = em - lz;
     logz[m] = lz;
   }
-}
-
-// block (tile of BM cells, group of JG columns): dpre of those cells and columns
-template <typename T, typename TP>
-__global__ void __launch_bounds__(kThreads)
-joint_bwd_xp_wide_kernel(const T* __restrict__ enc, const TP* __restrict__ pred,
-                         const T* __restrict__ W, const float* __restrict__ bias,
-                         const int* __restrict__ lab, const float* __restrict__ logz,
-                         const float* __restrict__ gb, const float* __restrict__ ge,
-                         float* __restrict__ dpre, int M, int Tn, int U1, int J, int V, int Vp,
-                         int blank) {
-  using MM = Mma<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const WideSmem<T> S;
-  T* Xs = reinterpret_cast<T*>(smem + S.x);
-  T* Ws = reinterpret_cast<T*>(smem + S.w);
-  float* Ls = reinterpret_cast<float*>(smem + S.l);
-  T* Ds = reinterpret_cast<T*>(smem + S.d);
-  float* rows = reinterpret_cast<float*>(smem + S.rows);
-  constexpr int BM = Tile<T>::BM, RF = BM / 16, LDW = Tile<T>::LDW, LDD = Tile<T>::LDD;
-  const int m0 = blockIdx.x * BM, jg0 = blockIdx.y * JG;
-  const int nc = min(JG, J - jg0) / JC;    // the group's chunks
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  load_rows<T>(rows, logz, gb, ge, lab, m0, M, Tn, U1);
-  // dX [BM][group]: in chunk c warp w owns the 16 columns jg0 + JC c + 16 w ..
-  typename MM::Acc dx[RF][kWideNJ];
-#pragma unroll
-  for (int a = 0; a < RF; ++a)
-#pragma unroll
-    for (int c = 0; c < kWideNJ; ++c) MM::zero(dx[a][c]);
-
-  for (int v0 = 0; v0 < Vp; v0 += BN) {
-    logits_streamed<T>(Ls, Xs, S.ldx, Ws, W, J, Vp, v0, [&](int j0) {
-      load_x_tanh_chunk<T, TP>(Xs, S.ldx, enc, pred, m0, M, Tn, U1, J, j0);
-    });
-    __syncthreads();
-    dlogits_tile<T, false>(Ls, Ds, rows, bias, m0, M, v0, V, blank);
-    // dX += dl W^T, the group's W rows chunk by chunk: W^T's (v, j) is
-    // Ws[j][v], a column-major B operand
-#pragma unroll
-    for (int c = 0; c < kWideNJ; ++c) {
-      if (c >= nc) continue;
-      __syncthreads();   // Ds written, Ws free
-      load_w_chunk<T>(Ws, W, Vp, v0, jg0 + c * JC);
-      __syncthreads();
-#pragma unroll
-      for (int a = 0; a < RF; ++a)
-#pragma unroll
-        for (int k = 0; k < BN; k += 16)
-          MM::template mma<false, true>(dx[a][c], Ds + a * 16 * LDD + k, LDD,
-                                        Ws + (size_t)(warp * 16) * LDW + k, LDW);
-    }
-  }
-  __syncthreads();
-  // dpre = dX (1 - x^2), x recomputed; each fragment staged through Ls
-  float* stage = Ls + warp * 256;
-#pragma unroll
-  for (int a = 0; a < RF; ++a)
-#pragma unroll
-    for (int c = 0; c < kWideNJ; ++c) {
-      if (c >= nc) continue;
-      const int j0 = jg0 + c * JC + warp * 16;
-      MM::store(stage, dx[a][c], 16);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = a * 16 + (e >> 4), j = j0 + (e & 15), m = m0 + row;
-        if (m < M) {
-          const int bt = m / U1, u = m - bt * U1, b = bt / Tn;
-          const float xv =
-              to_f(joint_x<T, TP>(enc[(size_t)bt * J + j], pred[((size_t)b * U1 + u) * J + j]));
-          dpre[(size_t)m * J + j] = stage[e] * (1.f - xv * xv);
-        }
-      }
-      __syncwarp();
-    }
-}
-
-// block (V tile, chunk of rows, group of JG rows of dW): that chunk's
-// dW[group, tile] and, in group 0, dbias[tile]
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-joint_bwd_w_wide_kernel(const T* __restrict__ X, const T* __restrict__ W,
-                        const float* __restrict__ bias, const int* __restrict__ lab,
-                        const float* __restrict__ logz, const float* __restrict__ gb,
-                        const float* __restrict__ ge, float* __restrict__ part,
-                        float* __restrict__ dbpart, int M, int Tn, int U1, int J, int V, int Vp,
-                        int blank, int rows_per_chunk) {
-  using MM = Mma<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const WideSmem<T> S;
-  T* Xs = reinterpret_cast<T*>(smem + S.x);
-  T* Ws = reinterpret_cast<T*>(smem + S.w);
-  float* Ls = reinterpret_cast<float*>(smem + S.l);
-  T* Ds = reinterpret_cast<T*>(smem + S.d);
-  float* rows = reinterpret_cast<float*>(smem + S.rows);
-  constexpr int BM = Tile<T>::BM, LDD = Tile<T>::LDD;
-  const int v0 = blockIdx.x * BN, chunk = blockIdx.y, jg0 = blockIdx.z * JG;
-  const int nc = min(JG, J - jg0) / JC;
-  const int begin = chunk * rows_per_chunk;
-  const int end = min(M, begin + rows_per_chunk);
-  const int warp = threadIdx.x >> 5;
-
-  // dW [group][BN]: in chunk c warp w owns the 16 rows jg0 + JC c + 16 w ..
-  typename MM::Acc dw[kWideNJ][NCF];
-#pragma unroll
-  for (int c = 0; c < kWideNJ; ++c)
-#pragma unroll
-    for (int cc = 0; cc < NCF; ++cc) MM::zero(dw[c][cc]);
-  float dbacc = 0.f;
-
-  for (int m0 = begin; m0 < end; m0 += BM) {
-    __syncthreads();   // the last tile's readers of rows are done
-    load_rows<T>(rows, logz, gb, ge, lab, m0, end, Tn, U1);
-    logits_streamed<T>(Ls, Xs, S.ldx, Ws, W, J, Vp, v0, [&](int j0) {
-      load_x_rows_chunk<T>(Xs, S.ldx, X, m0, end, J, j0);
-    });
-    __syncthreads();
-    dlogits_tile<T, true>(Ls, Ds, rows, bias, m0, end, v0, V, blank);
-    __syncthreads();
-    if (blockIdx.z == 0 && threadIdx.x < BN)
-      for (int r = 0; r < BM; ++r) dbacc += Ls[r * LDL + threadIdx.x];
-    // dW += x^T dl, the group's x columns chunk by chunk: x^T's (j, row) is
-    // Xs[row][j], a column-major A operand
-#pragma unroll
-    for (int c = 0; c < kWideNJ; ++c) {
-      if (c >= nc) continue;
-      __syncthreads();   // Xs free
-      load_x_rows_chunk<T>(Xs, S.ldx, X, m0, end, J, jg0 + c * JC);
-      __syncthreads();
-#pragma unroll
-      for (int cc = 0; cc < NCF; ++cc)
-#pragma unroll
-        for (int k = 0; k < BM; k += 16)
-          MM::template mma<true, false>(dw[c][cc], Xs + (size_t)k * S.ldx + warp * 16, S.ldx,
-                                        Ds + k * LDD + cc * 16, LDD);
-    }
-  }
-  float* pc = part + (size_t)chunk * J * Vp;
-#pragma unroll
-  for (int c = 0; c < kWideNJ; ++c) {
-    if (c >= nc) continue;
-    const int j0 = jg0 + c * JC + warp * 16;
-#pragma unroll
-    for (int cc = 0; cc < NCF; ++cc)
-      MM::store(pc + (size_t)j0 * Vp + v0 + cc * 16, dw[c][cc], Vp);
-  }
-  if (blockIdx.z == 0 && threadIdx.x < BN) dbpart[(size_t)chunk * Vp + v0 + threadIdx.x] = dbacc;
 }
 
 // ------------------------------------------------------------ Hopper pieces
@@ -1751,6 +1605,353 @@ joint_fwd_wg_kernel(const __grid_constant__ CUtensorMap wmap, const bf16* __rest
   }
 }
 
+// ------------------------------------------------ wide backward
+//
+// Above the narrow backward's widths (J > 512 in either dtype) each backward
+// entry runs two products per chunk of cells, each on wgmma fed by a TMA
+// ring, with dl between them in device memory:
+//  - the logits product S = x W (once per cell at every J), whose epilogue
+//    turns S into dl on the accumulators (bias, exp, picks, g) and writes
+//    dl once, in the layout and precision of the second product's operand;
+//  - the second product: dX = dl W^T (bwd_xp; its epilogue writes
+//    dpre = dX (1 - x^2)) or dW = x^T dl (bwd_w; its epilogue adds the
+//    chunk's partial dW).
+// Both are one kernel, joint_gemm_kernel: C [rows x cols] = A [rows x K]
+// B [cols x K]^T, both operands K-major (tf32 wgmma takes no other), a
+// block one 128 x BN tile of C: a producer warpgroup whose one thread keeps
+// a ring of K slabs (128 bytes of K: 64 bf16 or 32 float32 values) in
+// flight by TMA, and two consumer warpgroups of 64 rows that release each
+// stage on an mbarrier once the products that read it are done, one group
+// of products in flight. bf16: m64nBNk16, one copy of each operand.
+// float32: 3xTF32, each operand as tf32 hi and lo copies (cvt.rna), and
+// hi*hi + hi*lo + lo*hi (m64n128k8) summed in float32. The operands'
+// layouts: x [cells][J] and W^T [Vp][J] for the logits; dl [cells][Vp] and
+// W [J][Vp] for dX; x^T [J][cells] and dl^T [Vp][cells] for dW.
+// joint_tile_kernel writes W^T (and, float32, W's hi / lo) once per call
+// and x (and x^T) per chunk, rounded or split as the products read them.
+
+constexpr int GM_BM = 128;               // rows of C a block computes
+constexpr int GM_RING = 196608;          // bytes of the ring, at most (192 KB)
+
+template <bool kTf32, int BN> struct Gemm {
+  static constexpr int KS = kTf32 ? 32 : 64;                  // K values of a slab
+  static constexpr uint32_t A_BYTES = GM_BM * 128, B_BYTES = BN * 128;
+  static constexpr uint32_t COPY = A_BYTES + B_BYTES;         // one copy of a slab
+  static constexpr uint32_t STAGE = (kTf32 ? 2 : 1) * COPY;   // float32: hi, then lo
+  static constexpr int STAGES = GM_RING / STAGE > 6 ? 6 : GM_RING / STAGE;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE + 2 * 8 * STAGES + 1024;
+};
+
+// v as element idx in T, or, split, as tf32 hi at out[idx] and lo at
+// out[lo + idx]
+template <typename T, bool kSplit>
+__device__ __forceinline__ void put_val(T* out, size_t idx, size_t lo, float v) {
+  if constexpr (kSplit) {
+    float h, l;
+    hopper::split_tf32(v, &h, &l);
+    out[idx] = h;
+    out[lo + idx] = l;
+  } else {
+    out[idx] = from_f<T>(v);
+  }
+}
+// (v0, v1) as elements idx and idx + 1, as put_val
+template <typename T, bool kSplit>
+__device__ __forceinline__ void put_pair(T* out, size_t idx, size_t lo, float v0, float v1) {
+  if constexpr (kSplit) {
+    float2 h, l;
+    hopper::split_tf32(v0, &h.x, &l.x);
+    hopper::split_tf32(v1, &h.y, &l.y);
+    *reinterpret_cast<float2*>(out + idx) = h;
+    *reinterpret_cast<float2*>(out + lo + idx) = l;
+  } else if constexpr (std::is_same<T, bf16>::value) {
+    *reinterpret_cast<__nv_bfloat162*>(out + idx) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    *reinterpret_cast<float2*>(out + idx) = make_float2(v0, v1);
+  }
+}
+
+// W's element (j, v)
+template <typename T> struct WSrc {
+  const T* w;
+  int Vp;
+  __device__ float operator()(int j, int v) const { return to_f(w[(size_t)j * Vp + v]); }
+};
+// x's element (cell row0 + r, j), rounded to T
+template <typename T, typename TP> struct XSrc {
+  const T* enc;
+  const TP* pred;
+  int row0, Tn, U1, J;
+  __device__ float operator()(int r, int j) const {
+    const int m = row0 + r, bt = m / U1, u = m - bt * U1, b = bt / Tn;
+    return to_f(joint_x<T, TP>(enc[(size_t)bt * J + j], pred[((size_t)b * U1 + u) * J + j]));
+  }
+};
+
+// src [R x C] into out [R][ld] and / or out_t [C][ld_t] (either may be
+// null), in T or split (the lo copies lo / lo_t elements on); 32 x 32
+// tiles, the transpose through shared memory
+template <typename T, bool kSplit, class Src>
+__global__ void __launch_bounds__(256)
+joint_tile_kernel(Src src, T* __restrict__ out, T* __restrict__ out_t, size_t lo, size_t lo_t,
+                  int R, int C, int ld, int ld_t) {
+  __shared__ float tile[32][33];
+  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int k = ty; k < 32; k += 8) {
+    const int r = r0 + k, c = c0 + tx;
+    float v = 0.f;
+    if (r < R && c < C) {
+      v = src(r, c);
+      if (out != nullptr) put_val<T, kSplit>(out, (size_t)r * ld + c, lo, v);
+    }
+    tile[k][tx] = v;
+  }
+  if (out_t == nullptr) return;
+  __syncthreads();
+  for (int k = ty; k < 32; k += 8) {
+    const int c = c0 + k, r = r0 + tx;
+    if (r < R && c < C) put_val<T, kSplit>(out_t, (size_t)c * ld_t + r, lo_t, tile[tx][k]);
+  }
+}
+
+// C = A B^T over K [k0, k0 + k_split) (k0 = blockIdx.z k_split) for the
+// tile of rows blockIdx.y * 128, columns blockIdx.x * BN; then epi(acc,
+// first row of the warpgroup's 64, first column, the freed ring)
+template <bool kTf32, int BN, class Epi>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+joint_gemm_kernel(const __grid_constant__ CUtensorMap a_hi, const __grid_constant__ CUtensorMap a_lo,
+                  const __grid_constant__ CUtensorMap b_hi, const __grid_constant__ CUtensorMap b_lo,
+                  int k_len, int k_split, Epi epi) {
+  using G = Gemm<kTf32, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = hop::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::STAGES * G::STAGE);
+  uint64_t* empty = full + G::STAGES;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * GM_BM;
+  const int k0 = blockIdx.z * k_split, k1 = min(k_len, k0 + k_split);
+  const int ns = k1 > k0 ? (k1 - k0 + G::KS - 1) / G::KS : 0;
+  if (tid == 0) {
+    for (int i = 0; i < G::STAGES; ++i) {
+      hop::mbar_init(&full[i], 1);
+      hop::mbar_init(&empty[i], WG_CONSUMERS);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hop::setmaxnreg_dec<WG_REG_PRODUCER>();
+    if (tid == 0) {
+      for (int s = 0; s < ns; ++s) {
+        const int st = s % G::STAGES, kc = k0 + s * G::KS;
+        hop::mbar_wait(&empty[st], ((s / G::STAGES) & 1) ^ 1);
+        hop::mbar_expect(&full[st], G::STAGE);
+        unsigned char* d = ring + st * G::STAGE;
+        hop::tma_load(d, &a_hi, &full[st], kc, m0);
+        hop::tma_load(d + G::A_BYTES, &b_hi, &full[st], kc, n0);
+        if constexpr (kTf32) {
+          hop::tma_load(d + G::COPY, &a_lo, &full[st], kc, m0);
+          hop::tma_load(d + G::COPY + G::A_BYTES, &b_lo, &full[st], kc, n0);
+        }
+      }
+    }
+  } else {
+    hop::setmaxnreg_inc<WG_REG_CONSUMER>();
+    const int c = wg - 1;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int prev = 0;
+    for (int s = 0; s < ns; ++s) {
+      const int st = s % G::STAGES;
+      hop::mbar_wait(&full[st], (s / G::STAGES) & 1);
+      const uint32_t a = hop::saddr(ring + st * G::STAGE) + c * 8192;
+      const uint32_t b = hop::saddr(ring + st * G::STAGE) + G::A_BYTES;
+      hop::fence_regs(acc);
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if constexpr (kTf32) {
+          hopper::wgmma_tf32_n128(acc, hop::desc(a + kk * 32), hop::desc(b + kk * 32), 1);
+          hopper::wgmma_tf32_n128(acc, hop::desc(a + kk * 32),
+                                  hop::desc(b + G::COPY + kk * 32), 1);
+          hopper::wgmma_tf32_n128(acc, hop::desc(a + G::COPY + kk * 32),
+                                  hop::desc(b + kk * 32), 1);
+        } else {
+          hop::wgmma<BN, 0, 0>(acc, hop::desc(a + kk * 32), hop::desc(b + kk * 32), 1);
+        }
+      }
+      hop::wg_commit();
+      if (s > 0) {
+        hop::wg_wait<1>();
+        hop::mbar_arrive(&empty[prev]);
+      }
+      prev = st;
+    }
+    hop::wg_wait0();
+    hop::fence_regs(acc);
+    // both consumers' products are done: the ring is free for the epilogue
+    hop::bar_sync(1, WG_CONSUMERS);
+    epi(acc, m0 + 64 * c, n0, ring);
+  }
+}
+
+// In the epilogues this thread's accumulator element acc[4 i + 2 h + e] is
+// row r0 + 8 h of the warpgroup's 64 (r0 = 16 warp + lane / 4) and column
+// 8 i + 2 (lane % 4) + e of the tile.
+
+// The logits epilogue: dl of cells row0 + m (m < rows) and columns v, in T
+// (or tf32 hi / lo) at dl[m][v] (ld = Vp) or, kTrans, dl[v][m] (ld = the
+// chunk's rows); kTrans also writes the tile's column sums of dl (float32,
+// before rounding) into dbpart[blockIdx.y][v]
+template <typename T, bool kSplit, bool kTrans> struct DlEpi {
+  const float* bias;
+  const int* lab;
+  const float* logz;
+  const float* gb;
+  const float* ge;
+  T* dl;
+  float* dbpart;
+  size_t lo;
+  int row0, rows, ld, Tn, U1, V, Vp, blank;
+
+  template <int NA>
+  __device__ void operator()(float (&acc)[NA], int m, int n0, unsigned char* smem) const {
+    constexpr int N = 2 * NA;   // the tile's columns
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, q = lane & 3;
+    const int r0 = 16 * warp + (lane >> 2);
+    RowC rc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      rc[h] = row_consts(logz, gb, ge, lab, row0 + m + r0 + 8 * h, row0 + rows, Tn, U1);
+    float* red = reinterpret_cast<float*>(smem);   // kTrans: [8 warps][N columns]
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      const int v = n0 + 8 * i + 2 * q;
+      float d[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool live = v + e < V;
+        const float bv = live ? bias[v + e] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const RowC& k = rc[h];
+          float x = 0.f;
+          if (live) {
+            const float p = __expf(acc[4 * i + 2 * h + e] + bv - k.lz);
+            x = -(k.gb + k.ge) * p + (v + e == blank ? k.gb : 0.f) + (v + e == k.lb ? k.ge : 0.f);
+          }
+          d[h][e] = x;
+        }
+      }
+      if (v < Vp) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m + r0 + 8 * h;
+          if (r >= rows) continue;
+          if constexpr (kTrans) {
+            put_val<T, kSplit>(dl, (size_t)v * ld + r, lo, d[h][0]);
+            put_val<T, kSplit>(dl, (size_t)(v + 1) * ld + r, lo, d[h][1]);
+          } else {
+            put_pair<T, kSplit>(dl, (size_t)r * ld + v, lo, d[h][0], d[h][1]);
+          }
+        }
+      }
+      if constexpr (kTrans) {
+        // the column sums of the warp's 16 rows: over h, then over the 8
+        // lanes that share lane % 4
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float cs = d[0][e] + d[1][e];
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) cs += __shfl_xor_sync(0xffffffffu, cs, o);
+          if (lane < 4) red[(threadIdx.x / 32 - 4) * N + 8 * i + 2 * q + e] = cs;
+        }
+      }
+    }
+    if constexpr (kTrans) {
+      // the 8 warps' sums in order (warps 4-7: consumer 0's rows, 8-11: consumer 1's)
+      hop::bar_sync(1, WG_CONSUMERS);
+      const int col = threadIdx.x - 128;
+      if (col < N && n0 + col < Vp) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) sum += red[w * N + col];
+        dbpart[(size_t)blockIdx.y * Vp + n0 + col] = sum;
+      }
+    }
+  }
+};
+
+// bwd_xp's second epilogue: dpre[row0 + m][j] = dX (1 - x^2), x from the
+// chunk's x buffer [rows][J] (float32: hi + lo)
+template <typename T, bool kSplit> struct DpreEpi {
+  const T* x;
+  float* dpre;
+  size_t lo;
+  int row0, rows, J;
+
+  template <int NA>
+  __device__ void operator()(float (&acc)[NA], int m, int n0, unsigned char*) const {
+    constexpr int N = 2 * NA;   // the tile's columns
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, q = lane & 3;
+    const int r0 = 16 * warp + (lane >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m + r0 + 8 * h;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i) {
+        const int j = n0 + 8 * i + 2 * q;
+        const size_t idx = (size_t)r * J + j;
+        float2 xv;
+        if constexpr (kSplit) {
+          const float2 hi = *reinterpret_cast<const float2*>(x + idx);
+          const float2 lw = *reinterpret_cast<const float2*>(x + lo + idx);
+          xv = make_float2(hi.x + lw.x, hi.y + lw.y);
+        } else {
+          xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + idx));
+        }
+        *reinterpret_cast<float2*>(dpre + (size_t)(row0 + r) * J + j) =
+            make_float2(acc[4 * i + 2 * h] * (1.f - xv.x * xv.x),
+                        acc[4 * i + 2 * h + 1] * (1.f - xv.y * xv.y));
+      }
+    }
+  }
+};
+
+// bwd_w's second epilogue: part[blockIdx.z][j][v] (+)= the chunk's partial dW
+struct PartEpi {
+  float* part;
+  int J, Vp, accumulate;
+
+  template <int NA>
+  __device__ void operator()(float (&acc)[NA], int m, int n0, unsigned char*) const {
+    constexpr int N = 2 * NA;   // the tile's columns
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, q = lane & 3;
+    const int r0 = 16 * warp + (lane >> 2);
+    float* pz = part + (size_t)blockIdx.z * J * Vp;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = m + r0 + 8 * h;
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i) {
+        const int v = n0 + 8 * i + 2 * q;
+        if (v >= Vp) continue;
+        float2* p = reinterpret_cast<float2*>(pz + (size_t)j * Vp + v);
+        float2 val = make_float2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
+        if (accumulate) {
+          const float2 old = *p;
+          val = make_float2(old.x + val.x, old.y + val.y);
+        }
+        *p = val;
+      }
+    }
+  }
+};
+
 // ------------------------------------------------ host side of the wgmma kernels
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so the
@@ -1772,21 +1973,28 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// map of a row-major bf16 matrix [rows][cols], boxes of 64 columns x
-// box_rows rows, 128-byte swizzle; rows past the end read as zero
-cudaError_t bf16_map(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
-                     uint32_t box_rows) {
+// map of a row-major matrix [rows][cols] of `elem`-byte elements, rows `ld`
+// elements apart, boxes of 128 bytes x box_rows rows, 128-byte swizzle;
+// rows and columns past the ends read as zero
+cudaError_t mat_map(CUtensorMap* map, CUtensorMapDataType type, uint32_t elem, const void* ptr,
+                    uint64_t rows, uint64_t cols, uint64_t ld, uint32_t box_rows) {
   PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   cuuint64_t dims[2] = {cols, rows};
-  cuuint64_t strides[1] = {cols * sizeof(bf16)};
-  cuuint32_t box[2] = {64, box_rows};
-  cuuint32_t elem[2] = {1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  cuuint64_t strides[1] = {ld * elem};
+  cuuint32_t box[2] = {128 / elem, box_rows};
+  cuuint32_t estr[2] = {1, 1};
+  CUresult r = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a row-major bf16 matrix [rows][cols] in boxes of 64 columns x box_rows rows
+cudaError_t bf16_map(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
+                     uint32_t box_rows) {
+  return mat_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), ptr, rows, cols, cols,
+                 box_rows);
 }
 
 template <int NJ, typename TP>
@@ -1848,8 +2056,180 @@ cudaError_t launch_fwd_wg(const void* enc, const void* pred, const void* w, cons
   return cudaGetLastError();
 }
 
-// the narrow kernels' widths (J a multiple of 128): bf16 up to 640, float32 up to 512
-bool j_narrow(int J, bool is_bf16) { return J <= (is_bf16 ? 640 : 512); }
+// ------------------------------------------------ host side of the wide backward
+
+// an operand of joint_gemm_kernel: a row-major [rows][K] matrix of T, rows
+// `ld` elements apart; float32: the tf32 lo copy `lo` elements on
+struct Operand {
+  const void* p;
+  size_t lo;
+  uint64_t rows, ld;
+};
+
+template <typename T, int BN, class Epi>
+cudaError_t launch_gemm(const Operand& a, const Operand& b, int k_len, int n_split, Epi epi,
+                        cudaStream_t st) {
+  constexpr bool kTf32 = std::is_same<T, float>::value;
+  static_assert(!kTf32 || BN == 128, "the tf32 product is m64n128k8");
+  using G = Gemm<kTf32, BN>;
+  const CUtensorMapDataType dt =
+      kTf32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap maps[4];
+  const T* ap = static_cast<const T*>(a.p);
+  const T* bp = static_cast<const T*>(b.p);
+  cudaError_t e = mat_map(&maps[0], dt, sizeof(T), ap, a.rows, k_len, a.ld, GM_BM);
+  if (e == cudaSuccess) e = mat_map(&maps[2], dt, sizeof(T), bp, b.rows, k_len, b.ld, BN);
+  if (e == cudaSuccess && kTf32) e = mat_map(&maps[1], dt, sizeof(T), ap + a.lo, a.rows, k_len, a.ld, GM_BM);
+  if (e == cudaSuccess && kTf32) e = mat_map(&maps[3], dt, sizeof(T), bp + b.lo, b.rows, k_len, b.ld, BN);
+  if (e != cudaSuccess) return e;
+  if (!kTf32) {
+    maps[1] = maps[0];
+    maps[3] = maps[2];
+  }
+  auto kernel = joint_gemm_kernel<kTf32, BN, Epi>;
+  e = set_smem(kernel, G::SMEM);
+  if (e != cudaSuccess) return e;
+  const int k_split = ((k_len + n_split - 1) / n_split + G::KS - 1) / G::KS * G::KS;
+  const dim3 grid(static_cast<unsigned>((b.rows + BN - 1) / BN),
+                  static_cast<unsigned>((a.rows + GM_BM - 1) / GM_BM), n_split);
+  kernel<<<grid, WG_THREADS, G::SMEM, st>>>(maps[0], maps[1], maps[2], maps[3], k_len, k_split,
+                                            epi);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kSplit, class Src>
+cudaError_t launch_tile(Src src, T* out, T* out_t, size_t lo, size_t lo_t, int R, int C, int ld,
+                        int ld_t, cudaStream_t st) {
+  joint_tile_kernel<T, kSplit, Src><<<dim3((C + 31) / 32, (R + 31) / 32), 256, 0, st>>>(
+      src, out, out_t, lo, lo_t, R, C, ld, ld_t);
+  return cudaGetLastError();
+}
+
+// W^T [Vp][J] (and, with wn, W [J][Vp]) in T, float32 as tf32 hi / lo
+// (lo J Vp elements on)
+template <typename T>
+cudaError_t prep_w(const void* w, void* wt, void* wn, int J, int Vp, cudaStream_t st) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  const size_t lo = (size_t)J * Vp;
+  return launch_tile<T, kSplit>(WSrc<T>{static_cast<const T*>(w), Vp}, static_cast<T*>(wn),
+                                static_cast<T*>(wt), lo, lo, J, Vp, Vp, J, st);
+}
+
+// d enc / d pred for J > 512: per chunk of `chunk` cells x, the logits
+// product with dl [rows][Vp], dX = dl W^T with dpre; then the sums over u
+// and t. wt: W^T; wn: float32 W's hi / lo (bf16: W itself is the operand);
+// xbuf [chunk][J], dlbuf [chunk][Vp] (float32: hi, then lo)
+template <typename T, typename TP>
+cudaError_t launch_bwd_xp_wide(const void* enc, const void* pred, const void* w,
+                               const void* bias, const void* lab, const void* logz,
+                               const void* gb, const void* ge, void* wt, void* wn, void* xbuf,
+                               void* dlbuf, void* dpre, void* d_enc, void* d_pred, int* launched,
+                               cudaStream_t st, int B, int Tn, int U1, int J, int V, int Vp,
+                               int blank, int chunk) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  const int M = B * Tn * U1;
+  const size_t wlo = (size_t)J * Vp, xlo = (size_t)chunk * J, dlo = (size_t)chunk * Vp;
+  cudaError_t e = prep_w<T>(w, wt, kF32 ? wn : nullptr, J, Vp, st);
+  if (e != cudaSuccess) return e;
+  ++*launched;
+  const Operand wt_op{wt, wlo, (uint64_t)Vp, (uint64_t)J};
+  const Operand w_op{kF32 ? wn : w, wlo, (uint64_t)J, (uint64_t)Vp};
+  for (int row0 = 0; row0 < M; row0 += chunk) {
+    const int rows = min(chunk, M - row0);
+    T* x = static_cast<T*>(xbuf);
+    T* dl = static_cast<T*>(dlbuf);
+    e = launch_tile<T, kF32>(XSrc<T, TP>{static_cast<const T*>(enc), static_cast<const TP*>(pred),
+                                         row0, Tn, U1, J},
+                             x, static_cast<T*>(nullptr), xlo, 0, rows, J, J, 0, st);
+    if (e != cudaSuccess) return e;
+    ++*launched;
+    const DlEpi<T, kF32, false> dl_epi{
+        static_cast<const float*>(bias), static_cast<const int*>(lab),
+        static_cast<const float*>(logz), static_cast<const float*>(gb),
+        static_cast<const float*>(ge), dl, nullptr, dlo, row0, rows, Vp, Tn, U1, V, Vp, blank};
+    const Operand x_op{x, xlo, (uint64_t)rows, (uint64_t)J};
+    if constexpr (kF32) e = launch_gemm<T, 128>(x_op, wt_op, J, 1, dl_epi, st);
+    else e = launch_gemm<T, 256>(x_op, wt_op, J, 1, dl_epi, st);
+    if (e != cudaSuccess) return e;
+    ++*launched;
+    const DpreEpi<T, kF32> dpre_epi{x, static_cast<float*>(dpre), xlo, row0, rows, J};
+    const Operand dl_op{dl, dlo, (uint64_t)rows, (uint64_t)Vp};
+    if constexpr (kF32) e = launch_gemm<T, 128>(dl_op, w_op, Vp, 1, dpre_epi, st);
+    else if (J % 256) e = launch_gemm<T, 128>(dl_op, w_op, Vp, 1, dpre_epi, st);
+    else e = launch_gemm<T, 256>(dl_op, w_op, Vp, 1, dpre_epi, st);
+    if (e != cudaSuccess) return e;
+    ++*launched;
+  }
+  joint_reduce_xp_kernel<<<B * Tn + B * U1, 128, 0, st>>>(
+      static_cast<const float*>(dpre), static_cast<float*>(d_enc), static_cast<float*>(d_pred),
+      B, Tn, U1, J);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return e;
+}
+
+// dW / dbias for J > 512: per chunk of `chunk` cells x and x^T, the
+// logits product with dl^T [Vp][rows] and the tiles' dbias sums, the
+// chunk's dW = x^T dl added into part [n_split][J][Vp] (K split n_split
+// ways); then the sums over the splits and the row tiles, in order.
+// xbuf [chunk][J], xtbuf [J][chunk], dlbuf [Vp][chunk] (float32: hi, then
+// lo); dbpart [ceil(M / 128)][Vp]
+template <typename T, typename TP>
+cudaError_t launch_bwd_w_wide(const void* enc, const void* pred, const void* w, const void* bias,
+                              const void* lab, const void* logz, const void* gb, const void* ge,
+                              void* wt, void* xbuf, void* xtbuf, void* dlbuf, void* part,
+                              void* dbpart, void* dw, void* db, int* launched, cudaStream_t st,
+                              int B, int Tn, int U1, int J, int V, int Vp, int blank, int chunk,
+                              int n_split) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  const int M = B * Tn * U1;
+  const size_t wlo = (size_t)J * Vp, xlo = (size_t)chunk * J, dlo = (size_t)chunk * Vp;
+  cudaError_t e = prep_w<T>(w, wt, nullptr, J, Vp, st);
+  if (e != cudaSuccess) return e;
+  ++*launched;
+  const Operand wt_op{wt, wlo, (uint64_t)Vp, (uint64_t)J};
+  for (int row0 = 0; row0 < M; row0 += chunk) {
+    const int rows = min(chunk, M - row0);
+    T* x = static_cast<T*>(xbuf);
+    T* xt = static_cast<T*>(xtbuf);
+    T* dl = static_cast<T*>(dlbuf);
+    e = launch_tile<T, kF32>(XSrc<T, TP>{static_cast<const T*>(enc), static_cast<const TP*>(pred),
+                                         row0, Tn, U1, J},
+                             x, xt, xlo, xlo, rows, J, J, chunk, st);
+    if (e != cudaSuccess) return e;
+    ++*launched;
+    const DlEpi<T, kF32, true> dl_epi{
+        static_cast<const float*>(bias), static_cast<const int*>(lab),
+        static_cast<const float*>(logz), static_cast<const float*>(gb),
+        static_cast<const float*>(ge), dl, static_cast<float*>(dbpart) + (size_t)(row0 / GM_BM) * Vp,
+        dlo, row0, rows, chunk, Tn, U1, V, Vp, blank};
+    const Operand x_op{x, xlo, (uint64_t)rows, (uint64_t)J};
+    if constexpr (kF32) e = launch_gemm<T, 128>(x_op, wt_op, J, 1, dl_epi, st);
+    else e = launch_gemm<T, 256>(x_op, wt_op, J, 1, dl_epi, st);
+    if (e != cudaSuccess) return e;
+    ++*launched;
+    const PartEpi part_epi{static_cast<float*>(part), J, Vp, row0 > 0};
+    const Operand xt_op{xt, xlo, (uint64_t)J, (uint64_t)chunk};
+    const Operand dl_op{dl, dlo, (uint64_t)Vp, (uint64_t)chunk};
+    if constexpr (kF32) e = launch_gemm<T, 128>(xt_op, dl_op, rows, n_split, part_epi, st);
+    else e = launch_gemm<T, 256>(xt_op, dl_op, rows, n_split, part_epi, st);
+    if (e != cudaSuccess) return e;
+    ++*launched;
+  }
+  const size_t jv = (size_t)J * Vp, n = jv + Vp;
+  joint_reduce_w_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(part), static_cast<const float*>(dbpart), static_cast<float*>(dw),
+      static_cast<float*>(db), n_split, (M + GM_BM - 1) / GM_BM, jv, Vp);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return e;
+}
+
+// the narrow kernels' widths (J a multiple of 128, after the wrappers' padding):
+// the forward up to 640 in bf16 and 512 in float32, the backward up to 512
+constexpr int NARROW_FWD_J_BF16 = 640, NARROW_BWD_J = 512, NARROW_J_F32 = 512;
+bool j_narrow(int J, bool is_bf16) { return J <= (is_bf16 ? NARROW_FWD_J_BF16 : NARROW_J_F32); }
+bool j_narrow_bwd(int J) { return J <= NARROW_BWD_J; }
 
 template <typename T, typename TP>
 cudaError_t launch_fwd_wide(const void* enc, const void* pred, const void* w, const void* bias,
@@ -1896,7 +2276,7 @@ cudaError_t launch_fwd(const void* enc, const void* pred, const void* w, const v
   }
 }
 
-// the wmma/FMA kernels of the backward: float32, and bf16 at J = 640
+// the FMA kernels of the narrow float32 backward
 template <typename T, typename TP>
 cudaError_t launch_bwd_xp_mma(const void* enc, const void* pred, const void* w, const void* bias,
                               const void* lab, const void* logz, const void* gb, const void* ge,
@@ -1930,6 +2310,7 @@ cudaError_t launch_bwd_w_mma(const void* xbuf, const void* w, const void* bias, 
   return cudaGetLastError();
 }
 
+// the narrow backward (J <= 512): bf16 on wgmma, float32 on FMAs
 template <typename T, typename TP>
 cudaError_t launch_bwd_xp(const void* enc, const void* pred, const void* w, const void* bias,
                           const void* lab, const void* logz, const void* gb, const void* ge,
@@ -1937,18 +2318,7 @@ cudaError_t launch_bwd_xp(const void* enc, const void* pred, const void* w, cons
                           int B, int Tn, int U1, int J, int V, int Vp, int blank) {
   const int M = B * Tn * U1;
   cudaError_t e;
-  if (!j_narrow(J, std::is_same<T, bf16>::value)) {
-    const WideSmem<T> S;
-    e = set_smem(joint_bwd_xp_wide_kernel<T, TP>, S.total);
-    if (e != cudaSuccess) return e;
-    const dim3 grid((M + Tile<T>::BM - 1) / Tile<T>::BM, (J + JG - 1) / JG);
-    joint_bwd_xp_wide_kernel<T, TP><<<grid, kThreads, S.total, st>>>(
-        static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<const T*>(w),
-        static_cast<const float*>(bias), static_cast<const int*>(lab),
-        static_cast<const float*>(logz), static_cast<const float*>(gb),
-        static_cast<const float*>(ge), static_cast<float*>(dpre), M, Tn, U1, J, V, Vp, blank);
-    e = cudaGetLastError();
-  } else if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value) {
     switch (J / 128) {
 #define XP_WG(NJ)                                                                               \
   case NJ:                                                                                      \
@@ -1957,10 +2327,6 @@ cudaError_t launch_bwd_xp(const void* enc, const void* pred, const void* w, cons
     break;
       XP_WG(1) XP_WG(2) XP_WG(3) XP_WG(4)
 #undef XP_WG
-      case 5:
-        e = launch_bwd_xp_mma<T, TP>(enc, pred, w, bias, lab, logz, gb, ge, dpre, st, M, Tn, U1,
-                                     J, V, Vp, blank);
-        break;
       default: return cudaErrorInvalidValue;
     }
   } else {
@@ -1992,18 +2358,7 @@ cudaError_t launch_bwd_w(const void* enc, const void* pred, const void* w, const
   *launched = 1;
   const int tiles = (M + Tile<T>::BM - 1) / Tile<T>::BM;
   const int rows_per_chunk = (tiles + n_chunks - 1) / n_chunks * Tile<T>::BM;
-  if (!j_narrow(J, std::is_same<T, bf16>::value)) {
-    const WideSmem<T> S;
-    e = set_smem(joint_bwd_w_wide_kernel<T>, S.total);
-    if (e != cudaSuccess) return e;
-    joint_bwd_w_wide_kernel<T><<<dim3(Vp / BN, n_chunks, (J + JG - 1) / JG), kThreads, S.total,
-                                 st>>>(
-        static_cast<const T*>(xbuf), static_cast<const T*>(w), static_cast<const float*>(bias),
-        static_cast<const int*>(lab), static_cast<const float*>(logz),
-        static_cast<const float*>(gb), static_cast<const float*>(ge), static_cast<float*>(part),
-        static_cast<float*>(dbpart), M, Tn, U1, J, V, Vp, blank, rows_per_chunk);
-    e = cudaGetLastError();
-  } else if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value) {
     switch (J / 128) {
 #define W_WG(NJ)                                                                              \
   case NJ:                                                                                    \
@@ -2012,10 +2367,6 @@ cudaError_t launch_bwd_w(const void* enc, const void* pred, const void* w, const
     break;
       W_WG(1) W_WG(2) W_WG(3) W_WG(4)
 #undef W_WG
-      case 5:
-        e = launch_bwd_w_mma<T>(xbuf, w, bias, lab, logz, gb, ge, part, dbpart, st, M, Tn, U1, J,
-                                V, Vp, blank, n_chunks, rows_per_chunk);
-        break;
       default: return cudaErrorInvalidValue;
     }
   } else {
@@ -2028,14 +2379,13 @@ cudaError_t launch_bwd_w(const void* enc, const void* pred, const void* w, const
   const size_t n = jv + Vp;
   joint_reduce_w_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(part), static_cast<const float*>(dbpart), static_cast<float*>(dw),
-      static_cast<float*>(db), n_chunks, jv, Vp);
+      static_cast<float*>(db), n_chunks, n_chunks, jv, Vp);
   e = cudaGetLastError();
   if (e == cudaSuccess) *launched = 3;
   return e;
 }
 
-// J that the entries route: any positive multiple of 128 (the narrow
-// kernels up to 640 in bf16 and 512 in float32, the wide ones above)
+// J that the entries route: any positive multiple of 128
 bool j_routed(int J) { return J > 0 && J % 128 == 0; }
 
 }  // namespace
@@ -2043,16 +2393,16 @@ bool j_routed(int J) { return J > 0 && J % 128 == 0; }
 // The C entries: enc in bf16 or float32 (is_bf16), pred likewise
 // (pred_bf16); w [J,Vp] in enc's dtype, bias [Vp] float32, lab [B,U1] int32.
 // J a multiple of 128; each entry returns cudaErrorInvalidValue before any
-// launch for J outside its routes. Routes by shape and dtype:
+// launch for J outside its routes. Routes by shape and dtype (J padded):
 //   forward   bf16 J <= 640: joint_fwd_wg_kernel (wgmma, TMA; Vp a multiple of 128)
 //             float32 J <= 512: joint_fwd_kernel (FMAs)
+//             above: joint_fwd_wide_kernel (J streamed in chunks of 128; wmma / FMAs)
 //   backward  bf16 J <= 512: joint_bwd_xp_wg_kernel, joint_bwd_w_wg_kernel (wgmma, TMA)
-//             bf16 J = 640: joint_bwd_xp_kernel, joint_bwd_w_kernel (wmma; 198 KB of
-//             shared memory, where the wgmma kernels would need 240 KB)
 //             float32 J <= 512: joint_bwd_xp_kernel, joint_bwd_w_kernel (FMAs)
-//   wide      bf16 J > 640, float32 J > 512, any J: joint_fwd_wide_kernel,
-//             joint_bwd_xp_wide_kernel, joint_bwd_w_wide_kernel (J streamed in
-//             chunks of 128; wmma in bf16, FMAs in float32)
+//             (joint_lattice_bwd_xp, joint_lattice_bwd_w)
+//   wide backward  J > 512, either dtype: joint_gemm_kernel's two products per chunk
+//             of cells (wgmma, TMA; 3xTF32 in float32) (joint_lattice_bwd_xp_wide,
+//             joint_lattice_bwd_w_wide)
 
 // -> lpb, lpe, logz [B,T,U1] float32.
 extern "C" int joint_lattice_fwd(const void* enc, const void* pred, const void* w,
@@ -2069,8 +2419,8 @@ extern "C" int joint_lattice_fwd(const void* enc, const void* pred, const void* 
 #undef JOINT_FWD
 }
 
-// -> d_enc [B,T,J], d_pred [B,U1,J] float32; dpre [B*T*U1, J] float32 scratch.
-// *grids: the grids launched (2).
+// J <= 512. -> d_enc [B,T,J], d_pred [B,U1,J] float32; dpre [B*T*U1, J]
+// float32 scratch. *grids: the grids launched (2).
 extern "C" int joint_lattice_bwd_xp(const void* enc, const void* pred, const void* w,
                                     const void* bias, const void* lab, const void* logz,
                                     const void* gb, const void* ge, void* dpre, void* d_enc,
@@ -2079,7 +2429,7 @@ extern "C" int joint_lattice_bwd_xp(const void* enc, const void* pred, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* launched = static_cast<int*>(grids);
   *launched = 0;
-  if (!j_routed(J)) return cudaErrorInvalidValue;
+  if (!j_routed(J) || !j_narrow_bwd(J)) return cudaErrorInvalidValue;
 #define JOINT_XP(T_, TP_)                                                                     \
   launch_bwd_xp<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, dpre, d_enc, d_pred, launched, \
                          st, B, T, U1, J, V, Vp, blank)
@@ -2088,8 +2438,8 @@ extern "C" int joint_lattice_bwd_xp(const void* enc, const void* pred, const voi
 #undef JOINT_XP
 }
 
-// -> dw [J,Vp], db [Vp] float32; scratch: xbuf [B*T*U1, J] in enc's dtype,
-// part [n_chunks, J, Vp] and dbpart [n_chunks, Vp] float32.
+// J <= 512. -> dw [J,Vp], db [Vp] float32; scratch: xbuf [B*T*U1, J] in
+// enc's dtype, part [n_chunks, J, Vp] and dbpart [n_chunks, Vp] float32.
 // *grids: the grids launched (3).
 extern "C" int joint_lattice_bwd_w(const void* enc, const void* pred, const void* w,
                                    const void* bias, const void* lab, const void* logz,
@@ -2100,10 +2450,59 @@ extern "C" int joint_lattice_bwd_w(const void* enc, const void* pred, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* launched = static_cast<int*>(grids);
   *launched = 0;
-  if (!j_routed(J)) return cudaErrorInvalidValue;
+  if (!j_routed(J) || !j_narrow_bwd(J)) return cudaErrorInvalidValue;
 #define JOINT_W(T_, TP_)                                                                      \
   launch_bwd_w<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, xbuf, part, dbpart, dw, db,     \
                         launched, st, B, T, U1, J, V, Vp, blank, n_chunks)
+  return static_cast<int>(is_bf16 ? (pred_bf16 ? JOINT_W(bf16, bf16) : JOINT_W(bf16, float))
+                                  : (pred_bf16 ? JOINT_W(float, bf16) : JOINT_W(float, float)));
+#undef JOINT_W
+}
+
+// J > 512 (any J a multiple of 128). -> d_enc, d_pred as joint_lattice_bwd_xp;
+// scratch in enc's dtype, each twice as long in float32 (tf32 hi, then lo):
+// wt [Vp,J], wn [J,Vp] (float32 only; null in bf16), xbuf [chunk,J], dlbuf
+// [chunk,Vp]; dpre [B*T*U1, J] float32. chunk: cells per chunk, a multiple
+// of 128. *grids: the grids launched (3 per chunk and 2).
+extern "C" int joint_lattice_bwd_xp_wide(const void* enc, const void* pred, const void* w,
+                                         const void* bias, const void* lab, const void* logz,
+                                         const void* gb, const void* ge, void* wt, void* wn,
+                                         void* xbuf, void* dlbuf, void* dpre, void* d_enc,
+                                         void* d_pred, void* grids, void* stream, int B, int T,
+                                         int U1, int J, int V, int Vp, int blank, int chunk,
+                                         int is_bf16, int pred_bf16) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* launched = static_cast<int*>(grids);
+  *launched = 0;
+  if (!j_routed(J) || j_narrow_bwd(J) || chunk <= 0 || chunk % GM_BM) return cudaErrorInvalidValue;
+#define JOINT_XP(T_, TP_)                                                                       \
+  launch_bwd_xp_wide<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, wt, wn, xbuf, dlbuf, dpre, \
+                              d_enc, d_pred, launched, st, B, T, U1, J, V, Vp, blank, chunk)
+  return static_cast<int>(is_bf16 ? (pred_bf16 ? JOINT_XP(bf16, bf16) : JOINT_XP(bf16, float))
+                                  : (pred_bf16 ? JOINT_XP(float, bf16) : JOINT_XP(float, float)));
+#undef JOINT_XP
+}
+
+// J > 512 (any J a multiple of 128). -> dw, db as joint_lattice_bwd_w;
+// scratch in enc's dtype, each twice as long in float32: wt [Vp,J], xbuf
+// [chunk,J], xtbuf [J,chunk], dlbuf [Vp,chunk]; float32 part [n_split,J,Vp],
+// dbpart [ceil(B*T*U1 / 128), Vp]. *grids: the grids launched (3 per chunk and 2).
+extern "C" int joint_lattice_bwd_w_wide(const void* enc, const void* pred, const void* w,
+                                        const void* bias, const void* lab, const void* logz,
+                                        const void* gb, const void* ge, void* wt, void* xbuf,
+                                        void* xtbuf, void* dlbuf, void* part, void* dbpart,
+                                        void* dw, void* db, void* grids, void* stream, int B,
+                                        int T, int U1, int J, int V, int Vp, int blank, int chunk,
+                                        int n_split, int is_bf16, int pred_bf16) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* launched = static_cast<int*>(grids);
+  *launched = 0;
+  if (!j_routed(J) || j_narrow_bwd(J) || chunk <= 0 || chunk % GM_BM || n_split <= 0)
+    return cudaErrorInvalidValue;
+#define JOINT_W(T_, TP_)                                                                         \
+  launch_bwd_w_wide<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, wt, xbuf, xtbuf, dlbuf, part, \
+                             dbpart, dw, db, launched, st, B, T, U1, J, V, Vp, blank, chunk,      \
+                             n_split)
   return static_cast<int>(is_bf16 ? (pred_bf16 ? JOINT_W(bf16, bf16) : JOINT_W(bf16, float))
                                   : (pred_bf16 ? JOINT_W(float, bf16) : JOINT_W(float, float)));
 #undef JOINT_W

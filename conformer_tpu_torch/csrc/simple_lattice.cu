@@ -101,6 +101,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -185,16 +187,8 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t a, int rows, int s) {
   return desc(a + (s >> 2) * rows * 128 + (s & 3) * 32);
 }
 
-// 3xTF32: x = hi + lo, both rounded to tf32; hi*hi + hi*lo + lo*hi keeps
-// float32 accuracy (the dropped lo*lo and lo's rounding are ~2^-22 of x)
-__device__ __forceinline__ void split_tf32(float x, float* hi, float* lo) {
-  uint32_t h, l;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
-  const float hf = __uint_as_float(h);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(l) : "f"(x - hf));
-  *hi = hf;
-  *lo = __uint_as_float(l);
-}
+// 3xTF32's split (hopper_common.cuh)
+using hopper::split_tf32;
 
 __device__ __forceinline__ void fence_view_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");

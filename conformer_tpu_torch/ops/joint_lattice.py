@@ -8,14 +8,18 @@ kernels are ``csrc/joint_lattice.cu``; its source note gives the math, the
 bound and the design. ``joint_lattice_fwd``, ``joint_lattice_bwd_xp`` and
 ``joint_lattice_bwd_w`` launch them for CUDA tensors and take the plain
 versions only for CPU tensors; each counts in ``.launches`` the grids it
-launched (1, 2 and 3 per call: the backwards sum across blocks in extra
-grids, in a fixed order). The plain versions are chunked over T, so they
+launched (1, 2 and 3 per call on the narrow kernels: the backwards sum
+across blocks in extra grids, in a fixed order; the wide backward 3 per
+chunk of cells and 2). The plain versions are chunked over T, so they
 build [B, t_chunk, U+1, V] at a time and never the whole lattice. The
 kernels take J in multiples of 128: the wrappers zero-pad J
 (``pad_join``, exact) and slice the gradients back. Every J is taken
-(``width_error``); ``route`` says which kernels run it: the narrow ones at
-every shipped width (bf16 up to 640, float32 up to 512 after padding),
-the wide ones, which stream J in chunks, above.
+(``width_error``); ``route`` says which kernels run it, by direction: the
+narrow ones at every shipped width (the forward up to 640 in bf16, the
+backward up to 512, float32 up to 512, after padding), the wide ones
+above (the forward streams J in chunks; the backward runs its two
+products on wgmma per chunk of cells, ``joint_lattice_bwd_xp_wide`` and
+``_bwd_w_wide`` in the C source).
 
 Inputs everywhere: enc [B, T, J] and pred [B, U+1, J], each float32 or
 bfloat16 (the model gives bf16 enc and float32 pred: the predictor runs in
@@ -38,10 +42,15 @@ from . import cuda_build
 _V_TILE = 64            # the backward's V tile: W and the bias are padded to a multiple of it
 _FWD_V_TILE = 128       # the forward's
 J_TILE = 128            # the kernels take J in multiples of it: the wrappers pad J with zeros
-NARROW_J = {torch.bfloat16: 640, torch.float32: 512}   # the narrow kernels' padded J, by dtype
+# the narrow kernels' padded J, by direction and dtype (csrc/joint_lattice.cu
+# NARROW_FWD_J_BF16, NARROW_BWD_J, NARROW_J_F32)
+NARROW_J = {"fwd": {torch.bfloat16: 640, torch.float32: 512},
+            "bwd": {torch.bfloat16: 512, torch.float32: 512}}
 _BWD_W_BLOCKS = 4 * 132   # bwd_w's grid: at least four blocks per SM of an H100
 _BWD_W_ROWS = 8192        # bwd_w: cells summed in float32 into one partial dW, at most
 _MAX_CHUNKS = 128
+_WIDE_TILE = 128          # the wide backward's tiles: 128 cells (or J rows) a block
+_WIDE_DL_BYTES = 1 << 29  # the wide backward: dl of one chunk of cells, at most (512 MiB)
 
 
 def _picks_index(lab, v: int):
@@ -125,24 +134,25 @@ def joint_lattice_plain_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank
 # ------------------------------------------------------------------ kernels
 
 
-def route(dtype, j: int) -> str:
-    """Which kernels run join width ``j`` with enc in ``dtype`` (J padded
-    to a multiple of ``J_TILE`` first): "narrow" at every shipped width,
-    bf16 (the model's) padded J <= 640 (Conformer-S 320 -> 384, M 512, L
-    640: the forward on wgmma, the backward on wgmma up to 512 and on wmma
-    at 640) and float32 (the parity path) padded J <= 512 (the FMA
-    kernels, whose x tile holds all of J); else "wide" (the wide kernels
-    of ``csrc/joint_lattice.cu``: J streamed in chunks of 128, shared
-    memory that does not grow with J)."""
+def route(dtype, j: int, direction: str = "fwd") -> str:
+    """Which kernels run join width ``j`` with enc in ``dtype`` in
+    ``direction`` ("fwd" or "bwd"; J padded to a multiple of ``J_TILE``
+    first): "narrow" at every shipped width, bf16 (the model's) padded J
+    <= 640 forward (Conformer-S 320 -> 384, M 512, L 640: on wgmma) and
+    <= 512 backward (on wgmma), float32 (the parity path) padded J <= 512
+    (the FMA kernels, whose x tile holds all of J); else "wide": the wide
+    forward streams J in chunks of 128; the wide backward runs its two
+    products per chunk of cells on wgmma fed by TMA (3xTF32 in float32),
+    dl between them in device memory."""
     jp = -(-j // J_TILE) * J_TILE
-    return "narrow" if jp <= NARROW_J.get(dtype, 0) else "wide"
+    return "narrow" if jp <= NARROW_J[direction].get(dtype, 0) else "wide"
 
 
 def width_error(dtype, j: int) -> str | None:
     """Why the kernels refuse join width ``j`` with enc in ``dtype``, or
     None where all three take it: enc float32 or bfloat16 and any J >= 1,
     as JAX's kernel, which takes the whole J as one block (``route``)."""
-    if dtype not in NARROW_J:
+    if dtype not in NARROW_J["fwd"]:
         return f"enc must be float32 or bfloat16, got {dtype}"
     if j <= 0:
         return f"J={j}: the join width must be positive"
@@ -224,10 +234,28 @@ def joint_lattice_fwd(enc, pred, w, b, lab, blank: int):
     return lpb, lpe, logz
 
 
+def _wide_chunk(m: int, vp: int, elem: int) -> int:
+    """Cells per chunk of the wide backward: a multiple of ``_WIDE_TILE``
+    whose dl ([chunk, Vp], ``elem`` bytes a value: 2 in bf16, 8 for
+    float32's tf32 hi and lo) stays within ``_WIDE_DL_BYTES``; M rounded up
+    where all of it fits."""
+    fit = _WIDE_DL_BYTES // (vp * elem) // _WIDE_TILE * _WIDE_TILE
+    return max(_WIDE_TILE, min(fit, -(-m // _WIDE_TILE) * _WIDE_TILE))
+
+
+def _wide_scratch(enc, n: int):
+    """n values of a wide-backward operand in enc's dtype (float32: twice
+    n, tf32 hi then lo)."""
+    f32 = enc.dtype == torch.float32
+    return torch.empty((2 * n if f32 else n,), dtype=enc.dtype, device=enc.device)
+
+
 def joint_lattice_bwd_xp(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int):
     """Kernel wrapper with the contract of ``joint_lattice_plain_bwd_xp``:
-    one grid computes dpre = (dl W^T)(1 - x^2) per cell into a float32
-    scratch [B T (U+1), J], a second sums it over u and over t."""
+    dpre = (dl W^T)(1 - x^2) per cell into a float32 scratch [B T (U+1),
+    J] (one grid on the narrow kernels; on the wide route a logits product
+    and a dX product per chunk of cells), then a last grid sums it over u
+    and over t."""
     if enc.device.type == "cpu":
         return joint_lattice_plain_bwd_xp(enc, pred, w, b, lab, logz, g_blank, g_emit, blank)
     lattice = (logz, g_blank, g_emit)
@@ -235,16 +263,29 @@ def joint_lattice_bwd_xp(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int
     enc, pred, w = pad_join(enc, pred, w)
     j = enc.shape[2]
     wk, bk, vp = _operands(enc, w, b)
-    dev = enc.device
-    dpre = torch.empty((bsz * t * u1, j), dtype=torch.float32, device=dev)
+    dev, m = enc.device, bsz * t * u1
+    dpre = torch.empty((m, j), dtype=torch.float32, device=dev)
     d_enc = torch.empty((bsz, t, j), dtype=torch.float32, device=dev)
     d_pred = torch.empty((bsz, u1, j), dtype=torch.float32, device=dev)
-    fn = cuda_build.load_function("joint_lattice", "joint_lattice_bwd_xp", n_ptrs=13, n_ints=9)
     P = cuda_build.ptr
     grids = ctypes.c_int(0)
-    err = fn(P(enc), P(pred), P(wk), P(bk), P(lab), P(logz), P(g_blank), P(g_emit), P(dpre),
-             P(d_enc), P(d_pred), ctypes.addressof(grids), cuda_build.stream_ptr(enc),
-             bsz, t, u1, j, v, vp, blank, *_dtypes(enc, pred))
+    common = (P(enc), P(pred), P(wk), P(bk), P(lab), P(logz), P(g_blank), P(g_emit))
+    if route(enc.dtype, j, "bwd") == "wide":
+        f32 = enc.dtype == torch.float32
+        chunk = _wide_chunk(m, vp, 8 if f32 else 2)
+        wt = _wide_scratch(enc, vp * j)
+        wn = _wide_scratch(enc, j * vp) if f32 else None
+        xbuf, dlbuf = _wide_scratch(enc, chunk * j), _wide_scratch(enc, chunk * vp)
+        fn = cuda_build.load_function("joint_lattice", "joint_lattice_bwd_xp_wide", n_ptrs=17,
+                                      n_ints=10)
+        err = fn(*common, P(wt), None if wn is None else P(wn), P(xbuf), P(dlbuf), P(dpre),
+                 P(d_enc), P(d_pred), ctypes.addressof(grids), cuda_build.stream_ptr(enc),
+                 bsz, t, u1, j, v, vp, blank, chunk, *_dtypes(enc, pred))
+    else:
+        fn = cuda_build.load_function("joint_lattice", "joint_lattice_bwd_xp", n_ptrs=13,
+                                      n_ints=9)
+        err = fn(*common, P(dpre), P(d_enc), P(d_pred), ctypes.addressof(grids),
+                 cuda_build.stream_ptr(enc), bsz, t, u1, j, v, vp, blank, *_dtypes(enc, pred))
     joint_lattice_bwd_xp.launches += grids.value
     cuda_build.check(err, "joint_lattice_bwd_xp")
     return d_enc[..., :j0], d_pred[..., :j0]
@@ -260,11 +301,22 @@ def _bwd_w_chunks(m: int, v: int) -> int:
     return max(1, min(_MAX_CHUNKS, max(-(-_BWD_W_BLOCKS // n_vt), -(-m // _BWD_W_ROWS))))
 
 
+def _wide_splits(j: int, vp: int, f32: bool) -> int:
+    """Ways the wide bwd_w's dW product splits its chunk's cells: enough
+    for ``_BWD_W_BLOCKS`` blocks of 128 J rows x 128 (float32) or 256
+    (bf16) V columns."""
+    tiles = (j // _WIDE_TILE) * -(-vp // (128 if f32 else 256))
+    return max(1, -(-_BWD_W_BLOCKS // tiles))
+
+
 def joint_lattice_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int):
-    """Kernel wrapper with the contract of ``joint_lattice_plain_bwd_w``:
-    one grid writes x = tanh(enc + pred) [B T (U+1), J], the main grid the
-    partial dW and dbias of each (V tile, chunk of rows), a third sums the
-    chunks in order."""
+    """Kernel wrapper with the contract of ``joint_lattice_plain_bwd_w``.
+    Narrow kernels: one grid writes x = tanh(enc + pred) [B T (U+1), J],
+    the main grid the partial dW and dbias of each (V tile, chunk of
+    rows), a third sums the chunks in order. Wide route: per chunk of
+    cells x and x^T, the logits product writing dl^T and each row tile's
+    dbias sums, the dW product adding into partials split over cells; a
+    last grid sums the partials in order."""
     if enc.device.type == "cpu":
         return joint_lattice_plain_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank)
     lattice = (logz, g_blank, g_emit)
@@ -272,20 +324,37 @@ def joint_lattice_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank: int)
     enc, pred, w = pad_join(enc, pred, w)
     j = enc.shape[2]
     wk, bk, vp = _operands(enc, w, b)
-    dev = enc.device
-    n_chunks = _bwd_w_chunks(bsz * t * u1, v)
-    xbuf = torch.empty((bsz * t * u1, j), dtype=enc.dtype, device=dev)
-    part = torch.empty((n_chunks, j, vp), dtype=torch.float32, device=dev)
-    dbpart = torch.empty((n_chunks, vp), dtype=torch.float32, device=dev)
-    dw = torch.empty((j, vp), dtype=torch.float32, device=dev)
-    db = torch.empty((vp,), dtype=torch.float32, device=dev)
-    fn = cuda_build.load_function("joint_lattice", "joint_lattice_bwd_w", n_ptrs=15, n_ints=10)
+    dev, m = enc.device, bsz * t * u1
+    f32 = dict(dtype=torch.float32, device=dev)
+    dw = torch.empty((j, vp), **f32)
+    db = torch.empty((vp,), **f32)
     P = cuda_build.ptr
     grids = ctypes.c_int(0)
-    err = fn(P(enc), P(pred), P(wk), P(bk), P(lab), P(logz), P(g_blank), P(g_emit), P(xbuf),
-             P(part), P(dbpart), P(dw), P(db), ctypes.addressof(grids),
-             cuda_build.stream_ptr(enc), bsz, t, u1, j, v, vp, blank, n_chunks,
-             *_dtypes(enc, pred))
+    common = (P(enc), P(pred), P(wk), P(bk), P(lab), P(logz), P(g_blank), P(g_emit))
+    if route(enc.dtype, j, "bwd") == "wide":
+        is_f32 = enc.dtype == torch.float32
+        chunk = _wide_chunk(m, vp, 8 if is_f32 else 2)
+        n_split = _wide_splits(j, vp, is_f32)
+        wt = _wide_scratch(enc, vp * j)
+        xbuf, xtbuf = _wide_scratch(enc, chunk * j), _wide_scratch(enc, j * chunk)
+        dlbuf = _wide_scratch(enc, vp * chunk)
+        part = torch.empty((n_split, j, vp), **f32)
+        dbpart = torch.empty((-(-m // _WIDE_TILE), vp), **f32)
+        fn = cuda_build.load_function("joint_lattice", "joint_lattice_bwd_w_wide", n_ptrs=18,
+                                      n_ints=11)
+        err = fn(*common, P(wt), P(xbuf), P(xtbuf), P(dlbuf), P(part), P(dbpart), P(dw), P(db),
+                 ctypes.addressof(grids), cuda_build.stream_ptr(enc), bsz, t, u1, j, v, vp,
+                 blank, chunk, n_split, *_dtypes(enc, pred))
+    else:
+        n_chunks = _bwd_w_chunks(m, v)
+        xbuf = torch.empty((m, j), dtype=enc.dtype, device=dev)
+        part = torch.empty((n_chunks, j, vp), **f32)
+        dbpart = torch.empty((n_chunks, vp), **f32)
+        fn = cuda_build.load_function("joint_lattice", "joint_lattice_bwd_w", n_ptrs=15,
+                                      n_ints=10)
+        err = fn(*common, P(xbuf), P(part), P(dbpart), P(dw), P(db), ctypes.addressof(grids),
+                 cuda_build.stream_ptr(enc), bsz, t, u1, j, v, vp, blank, n_chunks,
+                 *_dtypes(enc, pred))
     joint_lattice_bwd_w.launches += grids.value
     cuda_build.check(err, "joint_lattice_bwd_w")
     return dw[:j0, :v], db[:v]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of the bf16 full-lattice joint kernels goes on the GPU, by
-ablation, for the PyTorch/CUDA port (``conformer_tpu_torch``).
+"""Where the time of the bf16 full-lattice joint kernels, and of the wide
+backward in both dtypes, goes on the GPU, by ablation, for the
+PyTorch/CUDA port (``conformer_tpu_torch``).
 
     python3 scripts/torch_joint_ablation.py
 
@@ -10,17 +11,25 @@ built and timed against the unchanged source on the same inputs: the
 difference bounds what that stage costs where it does not overlap the
 rest. The forward's stages ("fwd: ..."): the logits product, the exps of
 the online logsumexp, the TMA copies of the W stages, the tanh of the x
-tiles. The backward's: the logits product, the exp of the dl epilogue,
-the second product, the TMA copies of the streamed tiles, the named
-barrier that hands dl between the consumer warpgroups, the extra grids
-around the main one. The ablated copies compute wrong results; only their
-times mean anything. Shape: chip_smoke.py's training shape of the joint
-(B=32, T'=374, U+1=65, J=512, V=5002), bf16 enc and float32 pred as the
-model gives them. Each C entry (``joint_lattice_fwd``,
-``joint_lattice_bwd_xp``, ``joint_lattice_bwd_w``, all of its grids) is
-timed with CUDA events, mean of 5 after a warm-up (chip_smoke.time_ms):
-the base copy all three, a forward ablation the forward, a backward one
-both backward entries. The copies build with nvcc into the checkout's
+tiles. The narrow backward's: the logits product, the exp of the dl
+epilogue, the second product, the TMA copies of the streamed tiles, the
+named barrier that hands dl between the consumer warpgroups, the extra
+grids around the main one. The wide backward's ("wide: ...", J > 512):
+the logits product and its copies (cut to one K slab of J), the exps of
+the dl epilogue, the dl stores (dl's hand-over to the second product
+through device memory: the design has no cluster exchange), the second
+product and its copies (cut to one K slab), every TMA copy of both products, the grids that
+write x and W^T in the operands' layouts. The ablated copies compute
+wrong results; only their times mean anything. Shapes: chip_smoke.py's
+training shape of the joint (B=32, T'=374, U+1=65, J=512, V=5002), bf16
+enc and float32 pred as the model gives them; the wide backward at
+scripts/torch_width_times.py's B=8, T'=374, U+1=65, V=5002 in bf16 at
+J 1024 and float32 at J 640. Each C entry (``joint_lattice_fwd``,
+``joint_lattice_bwd_xp``, ``joint_lattice_bwd_w``, the ``_wide`` ones, all
+of each one's grids) is timed with CUDA events, mean of 5 after a warm-up
+(chip_smoke.time_ms): the base copy all of them, a forward ablation the
+forward, a narrow backward one both narrow entries, a wide one both wide
+entries in both dtypes. The copies build with nvcc into the checkout's
 git-ignored build/joint_ablation/. The last line is one JSON object of
 all times in ms. Needs a CUDA device; imports nothing of JAX.
 """
@@ -53,6 +62,31 @@ FWD_LOADS = ("          hop::mbar_expect(&full[st], FWD_STAGE);\n"
              "          hop::tma_load(stage, &wmap, &full[st], t * FWD_VT, 64 * k);\n"
              "          hop::tma_load(stage + ATOM, &wmap, &full[st], t * FWD_VT + 64, 64 * k);\n")
 FWD_FILL = "    // x = tanh(enc + pred) of this consumer's 64 rows into its swizzled atoms\n"
+WIDE_LOGITS = ("launch_gemm<T, 128>(x_op, wt_op, J, 1, dl_epi, st)",
+               "launch_gemm<T, 256>(x_op, wt_op, J, 1, dl_epi, st)")
+WIDE_SECOND = ("launch_gemm<T, 128>(dl_op, w_op, Vp, 1, dpre_epi, st)",
+               "launch_gemm<T, 128>(dl_op, w_op, Vp, 1, dpre_epi, st)",
+               "launch_gemm<T, 256>(dl_op, w_op, Vp, 1, dpre_epi, st)",
+               "launch_gemm<T, 128>(xt_op, dl_op, rows, n_split, part_epi, st)",
+               "launch_gemm<T, 256>(xt_op, dl_op, rows, n_split, part_epi, st)")
+WIDE_LOADS = ("        hop::mbar_expect(&full[st], G::STAGE);\n"
+              "        unsigned char* d = ring + st * G::STAGE;\n"
+              "        hop::tma_load(d, &a_hi, &full[st], kc, m0);\n"
+              "        hop::tma_load(d + G::A_BYTES, &b_hi, &full[st], kc, n0);\n"
+              "        if constexpr (kTf32) {\n"
+              "          hop::tma_load(d + G::COPY, &a_lo, &full[st], kc, m0);\n"
+              "          hop::tma_load(d + G::COPY + G::A_BYTES, &b_lo, &full[st], kc, n0);\n"
+              "        }\n")
+WIDE_DL_STORES = ("      if (v < Vp) {\n#pragma unroll\n        for (int h = 0; h < 2; ++h) {\n"
+                  "          const int r = m + r0 + 8 * h;\n          if (r >= rows) continue;\n")
+
+
+def one_slab(texts, k: str):
+    """Substitutions that give each launch in ``texts`` (in source order)
+    a K of 1: its grid copies and multiplies one K slab (64 bf16 or 32
+    float32 values) of its J or Vp or chunk, and runs the whole epilogue."""
+    return [(t, t.replace(f", {k}, ", ", 1, ", 1)) for t in texts]
+
 # (name, source, [(text, replacement), ...]), applied in order
 ABLATIONS = [
     ("base", SRC, []),
@@ -72,7 +106,7 @@ ABLATIONS = [
       (W_LOADS, "        hop::mbar_arrive(&full[st]);\n")]),
     ("no dl hand-off barrier", SRC, [(HANDOFF, ""), (HANDOFF, "")]),
     ("main grid only", SRC,
-     [("  joint_reduce_xp_kernel<<<", "  if (0) joint_reduce_xp_kernel<<<"),
+     [("  *launched = 1;\n  joint_reduce_xp_kernel<<<", "  *launched = 1;\n  if (0) joint_reduce_xp_kernel<<<"),
       ("  joint_x_kernel<T, TP><<<", "  if (0) joint_x_kernel<T, TP><<<"),
       ("  joint_reduce_w_kernel<<<", "  if (0) joint_reduce_w_kernel<<<")]),
     ("fwd: no logits product", SRC,
@@ -82,11 +116,73 @@ ABLATIONS = [
      [("s += __expf(acc[4 * i + 2 * h] - mn) + __expf(acc[4 * i + 2 * h + 1] - mn);",
        "s += (acc[4 * i + 2 * h] - mn) + (acc[4 * i + 2 * h + 1] - mn);")]),
     ("fwd: no TMA copies", SRC, [(FWD_LOADS, "          hop::mbar_arrive(&full[st]);\n")]),
+    ("wide: logits product cut to one K slab", SRC,
+     one_slab([WIDE_LOGITS[0], WIDE_LOGITS[1], WIDE_LOGITS[0], WIDE_LOGITS[1]], "J")),
+    ("wide: no exp (p = logit)", SRC,
+     [("const float p = __expf(acc[4 * i + 2 * h + e] + bv - k.lz);",
+       "const float p = acc[4 * i + 2 * h + e];")]),
+    ("wide: no dl stores", SRC, [(WIDE_DL_STORES, WIDE_DL_STORES.replace("v < Vp", "v < 0"))]),
+    ("wide: second product cut to one K slab", SRC,
+     one_slab(WIDE_SECOND[:3], "Vp") + one_slab(WIDE_SECOND[3:], "rows")),
+    ("wide: no TMA copies", SRC, [(WIDE_LOADS, "        hop::mbar_arrive(&full[st]);\n")]),
+    ("wide: no x and W^T grids", SRC,
+     [("  joint_tile_kernel<T, kSplit, Src><<<", "  if (0) joint_tile_kernel<T, kSplit, Src><<<")]),
     ("fwd: no tanh (x = enc + pred)", SRC,
      [(FWD_FILL, FWD_FILL),
       ("x0 = to_f(joint_x<bf16, TP>(e[0], p[0]));\n          x1 = to_f(joint_x<bf16, TP>(e[1], p[1]));",
        "x0 = to_f(e[0]) + to_f(p[0]);\n          x1 = to_f(e[1]) + to_f(p[1]);")]),
 ]
+
+
+# the wide backward's shapes: (label, B, T', U, V, J, enc dtype), as
+# scripts/torch_width_times.py's rows
+WIDE = (("bf16 J=1024", 8, 374, 64, 5002, 1024, "bfloat16"),
+        ("f32 J=640", 8, 374, 64, 5002, 640, "float32"))
+
+
+def wide_calls(cs, jl, cuda_build, gen, label, b, t, u, v, j, dt):
+    """{key: fn(lib)} calling the wide C entries of a library on seeded
+    inputs at one shape, with the wrappers' scratch."""
+    import torch
+
+    dtype = getattr(torch, dt)
+    x = cs.joint_inputs("cuda", dtype, torch.float32, gen, b, t, u, v, j=j)
+    enc, pred, w = jl.pad_join(x["enc"], x["pred"], x["w"])
+    logz = jl.joint_lattice_fwd(x["enc"], x["pred"], x["w"], x["b"], x["lab"], 0)[2]
+    wk, bk, vp = jl._operands(enc, w, x["b"])
+    u1, m, f32 = u + 1, b * t * (u + 1), dtype == torch.float32
+    chunk = jl._wide_chunk(m, vp, 8 if f32 else 2)
+    n_split = jl._wide_splits(j, vp, f32)
+    s = lambda n: jl._wide_scratch(enc, n)   # noqa: E731
+    wt, wn = s(vp * j), (s(j * vp) if f32 else None)
+    xbuf, xtbuf, dlbuf = s(chunk * j), s(j * chunk), s(vp * chunk)
+    fl = dict(dtype=torch.float32, device="cuda")
+    dpre, d_enc, d_pred = (torch.empty(z, **fl) for z in ((m, j), (b, t, j), (b, u1, j)))
+    part, dbpart = torch.empty((n_split, j, vp), **fl), torch.empty((-(-m // 128), vp), **fl)
+    dw, db = torch.empty((j, vp), **fl), torch.empty((vp,), **fl)
+    grids = ctypes.c_int(0)
+    P = cuda_build.ptr
+    common = (P(enc), P(pred), P(wk), P(bk), P(x["lab"]), P(logz), P(x["g_blank"]),
+              P(x["g_emit"]))
+    flags = (int(not f32), 0)
+    st = cuda_build.stream_ptr(enc)
+
+    def xp(lib):
+        fn = lib.joint_lattice_bwd_xp_wide
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
+        fn.restype = ctypes.c_int
+        return fn(*common, P(wt), None if wn is None else P(wn), P(xbuf), P(dlbuf), P(dpre),
+                  P(d_enc), P(d_pred), ctypes.addressof(grids), st, b, t, u1, j, v, vp, 0,
+                  chunk, *flags)
+
+    def wg(lib):
+        fn = lib.joint_lattice_bwd_w_wide
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
+        fn.restype = ctypes.c_int
+        return fn(*common, P(wt), P(xbuf), P(xtbuf), P(dlbuf), P(part), P(dbpart), P(dw), P(db),
+                  ctypes.addressof(grids), st, b, t, u1, j, v, vp, 0, chunk, n_split, *flags)
+
+    return {f"wide bwd_xp {label}": xp, f"wide bwd_w {label}": wg}
 
 
 def main() -> int:
@@ -124,6 +220,9 @@ def main() -> int:
     P = cuda_build.ptr
     common = (P(enc), P(pred), P(wk), P(bk), P(x["lab"]), P(logz), P(x["g_blank"]),
               P(x["g_emit"]))
+    wide = {}
+    for shape in WIDE:
+        wide.update(wide_calls(cs, jl, cuda_build, gen, *shape))
     times = {}
     for (name, _), lib in libs.items():
         f_fn, xp_fn, w_fn = lib.joint_lattice_fwd, lib.joint_lattice_bwd_xp, lib.joint_lattice_bwd_w
@@ -141,16 +240,20 @@ def main() -> int:
             "bwd_w": lambda f=w_fn: f(*common, P(xbuf), P(part), P(dbpart), P(dw), P(db),
                                       ctypes.addressof(grids), cuda_build.stream_ptr(enc), b, t,
                                       u1, j, v, vp, 0, n_chunks, 1, 0),
+            **{k: (lambda fn=fn, lb=lib: fn(lb)) for k, fn in wide.items()},
         }
+        kind = name.split(":")[0] if ":" in name else "bwd"
         for key, call in calls.items():
-            if name != "base" and name.startswith("fwd:") != (key == "fwd"):
+            key_kind = "fwd" if key == "fwd" else "wide" if key.startswith("wide") else "bwd"
+            if name != "base" and kind != key_kind:
                 continue
             err = call()
             if err != 0:
                 raise SystemExit(f"{SRC} '{name}' {key}: CUDA error {err}")
             ms = cs.time_ms(call, 5)
             times[f"{key}: {name}"] = ms
-            print(f"ablation: {key} B={b} T'={t} U+1={u1} V={v}: {name}: {ms:.4f} ms")
+            shape = "" if key_kind == "wide" else f" B={b} T'={t} U+1={u1} V={v}"
+            print(f"ablation: {key}{shape}: {name}: {ms:.4f} ms")
     print(json.dumps(times))
     return 0
 

@@ -19,7 +19,9 @@ calls a time) and the fused int8 FFN at route B's decode batches (M = 48
 x 374 at Conformer-M and -L, 8 x 374 at the 1024-wide), bf16 x. For the
 joint and the FFN also the plain version's time, the bound (the
 products' operations at the tensor-core or float32 rate against the
-bytes of inputs and outputs at 3.35 TB/s) and a yardstick (the joint's
+bytes of inputs and outputs at 3.35 TB/s; for the float32 joint also at
+the rate of the 3xTF32 arithmetic its wide backward runs, three tf32
+products each at 495 TFLOP/s, " bound 3xtf32") and a yardstick (the joint's
 products alone by torch.matmul in t chunks; the FFN's two products by
 torch._int_mm) under " plain", " bound" and " yardstick". Inputs are
 seeded, with key padding to random lengths.
@@ -58,7 +60,7 @@ JOINT = (("M bf16 J=512", 8, 374, 64, 5002, 512, "bfloat16"),
 # (label, M, D, H): route B's fused FFN half, bf16 x
 FFN = (("M route B", 17952, 256, 2048), ("L route B", 17952, 512, 2048),
        ("1024-wide route B", 2992, 1024, 4096))
-HBM_TBPS, BF16_TFLOPS, F32_TFLOPS, INT8_TOPS = 3.35, 989.0, 67.0, 1979.0
+HBM_TBPS, BF16_TFLOPS, F32_TFLOPS, INT8_TOPS, TF32_TFLOPS = 3.35, 989.0, 67.0, 1979.0, 495.0
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -177,8 +179,9 @@ def bound_ms(n_bytes: float, ops: float, rate_tflops: float) -> float:
 
 
 def joint_times(gen, b, t, u, v, j, dt) -> dict:
-    """{kernel: (ms, device ms, host ms, plain ms, bound ms, yardstick ms)}
-    of the three joint kernels, or Nones where the tree refuses J."""
+    """{kernel: (ms, device ms, host ms, plain ms, bound ms, yardstick ms,
+    3xTF32 bound ms (float32; else None))} of the three joint kernels, or
+    Nones where the tree refuses J."""
     import torch
 
     import chip_smoke as cs
@@ -191,7 +194,7 @@ def joint_times(gen, b, t, u, v, j, dt) -> dict:
     try:
         logz = jl.joint_lattice_fwd(*args, 0)[2]
     except ValueError:
-        return dict.fromkeys(names, (None,) * 6)
+        return dict.fromkeys(names, (None,) * 7)
     bargs = (*args, logz, x["g_blank"], x["g_emit"], 0)
     cells, rate = b * t * (u + 1), BF16_TFLOPS if dt == "bfloat16" else F32_TFLOPS
     product = 2.0 * cells * j * v
@@ -209,8 +212,10 @@ def joint_times(gen, b, t, u, v, j, dt) -> dict:
     out = {}
     for name, (kern, plain, n_products, n_bytes) in kernels.items():
         ms, dev_ms, host = time_ms(kern, 3), device_ms(kern, 3), host_ms(kern, 3)
+        tf32 = bound_ms(n_bytes, 3 * n_products * product, TF32_TFLOPS) if dt == "float32" else None
         out[name] = (ms, dev_ms, host, time_ms(plain, 3),
-                     bound_ms(n_bytes, n_products * product, rate), time_ms(yard, 3) * n_products)
+                     bound_ms(n_bytes, n_products * product, rate), time_ms(yard, 3) * n_products,
+                     tf32)
     return out
 
 
@@ -271,8 +276,9 @@ def main() -> int:
     detail = ("", " device", " host", " plain", " bound", " yardstick")
     for label, *shape in JOINT:
         for name, times in joint_times(gen, *shape).items():
-            for suffix, ms in zip(detail, times):
-                res[f"joint {name} {label}{suffix}"] = ms
+            for suffix, ms in zip((*detail, " bound 3xtf32"), times):
+                if ms is not None or suffix != " bound 3xtf32":
+                    res[f"joint {name} {label}{suffix}"] = ms
     for label, *shape in FFN:
         for suffix, ms in zip(detail, ffn_times(gen, *shape)):
             res[f"int8_ffn {label}{suffix}"] = ms
