@@ -53,17 +53,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
                first), the FFN on its wide route at D / H = 1024 / 4096 and
                2048 / 8192 (M = 2992 and 37), the matmul refused past K =
                1024 before any launch;
-               the three joint kernels (forward, bwd_xp, bwd_w; the bf16
-               backward on wgmma with TMA) in float32 and bfloat16 at (B, T', U, V) = (32, 374, 64, 5002), (4, 412,
-               200, 5002) and a tiny ragged shape with edge rows, against
-               their plain versions and in float32 against autograd through
-               the plain forward, the backward bitwise repeatable; the
-               three also at Conformer-S's and -L's join widths (J = 320,
-               640) and at J = 1024, 896 and a ragged 700 (B=2, T'=200,
-               U=30, V=5002; the wide kernels in float32 from 640, in bf16
-               the backward past 512 and the forward past 640) in float32
-               and bf16 (both pred dtypes), outputs
-               poisoned with NaN first, the backward bitwise repeatable;
+               the three joint kernels (forward, bwd_xp, bwd_w; all on
+               wgmma with TMA, float32 on the wide route as 3xTF32) in
+               float32 and bfloat16 at (B, T', U, V) = (32, 374, 64,
+               5002), (4, 412, 200, 5002) and a tiny ragged shape with edge
+               rows, against their plain versions and in float32 against
+               autograd through the plain forward, the forward's outputs
+               (and the wide forward's partials) poisoned with NaN first,
+               forward and backward bitwise repeatable; the three also at
+               Conformer-S's and -L's join widths (J = 320, 640) and at J =
+               1024, 896 and a ragged 700 (B=2, T'=200, U=30, V=5002; the
+               wide route in float32 at every J, in bf16 the backward past
+               512 and the forward past 640) in float32 and bf16 (both pred
+               dtypes), outputs poisoned with NaN first, forward and
+               backward bitwise repeatable;
                the fbank kernel at 48 x 15 s against its plain version with
                dither 0 and 1 and against the host fbank_numpy, its
                dither's statistics, its distance from a float64 fbank
@@ -353,7 +356,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                encoder output and the step's gathered gradients, then a
                step with every dropout at 0.1, against one process seeded
                alike; (e3) the full lattice through the joint kernels (W
-               gathered) at model 2, one step; (e2) seq 2 x model 2, four
+               gathered) at model 2, one step (float32: the joint's wide
+               route, its grids as many as one process launches); (e2) seq 2 x model 2, four
                ranks, PAR_SEQ_MODEL_LAYERS layers, against one process;
                each rank's step ms and the share of its collectives
                (host-staged gloo, several ranks on one card); (e4) the
@@ -1793,13 +1797,49 @@ def joint_yardstick(x, dtype):
     return run
 
 
+def joint_fwd_poison(dtype, b, t, u, v, j) -> None:
+    """Poison (``poison``) the blocks of the forward's three outputs and, on
+    its wide route, of its (max, sum) partials [2, V tiles, cells], so that
+    a cell or a tile the kernels leave unwritten reads NaN."""
+    import torch
+
+    from conformer_tpu_torch.ops import joint_lattice as jl
+
+    like = [((b, t, u + 1), torch.float32)] * 3
+    if jl.route(dtype, j) == "wide":
+        vp = -(-v // jl._FWD_V_TILE) * jl._FWD_V_TILE
+        like.append(((2, jl.fwd_tiles(vp, dtype == torch.float32), b * t * (u + 1)),
+                     torch.float32))
+    poison(*like)
+
+
+def joint_fwd_twice(args, label: str):
+    """The forward on ``args`` with its outputs (and partials) poisoned,
+    then again; fails unless the two agree bit for bit. Returns the first."""
+    import torch
+
+    from conformer_tpu_torch.ops import joint_lattice as jl
+
+    b, t, _ = args[0].shape
+    joint_fwd_poison(args[0].dtype, b, t, args[1].shape[1] - 1, args[2].shape[1],
+                     args[0].shape[2])
+    fwd = jl.joint_lattice_fwd(*args, 0)
+    again = jl.joint_lattice_fwd(*args, 0)
+    torch.cuda.synchronize()
+    check(all(torch.equal(p, q) for p, q in zip(fwd, again)),
+          f"joint_lattice_fwd {label}: not bitwise repeatable")
+    return fwd
+
+
 def check_joint_kernels(dev, shapes=JOINT_SHAPES) -> dict:
     """The three joint kernels against their plain versions in float32, in
     the model's bf16 (bf16 enc, float32 pred) and with both bf16
     (``JOINT_DTYPES``) at the training shape (B=32, T'=374, U=64, V=5002), at the
     fit's longest bucket with labels padded to 200 (B=4, T'=412, U+1=201)
     and at a tiny ragged one; in float32 also against autograd through the
-    plain forward; the backward bitwise repeatable. Times of kernel, plain
+    plain forward; the forward's outputs (and on its wide route, float32's,
+    its partials) poisoned with NaN beforehand; forward and backward
+    bitwise repeatable. Times of kernel, plain
     version and the bf16 product alone (a yardstick: no one PyTorch call
     computes the function) beside the bounds, at the training shape in both
     dtypes (bf16, the recipe's, in the entries' main keys). Returns the
@@ -1818,7 +1858,7 @@ def check_joint_kernels(dev, shapes=JOINT_SHAPES) -> dict:
         for b, t, u, v in shapes:
             x = joint_inputs(dev, dtype, getattr(torch, pdt), gen, b, t, u, v)
             args = (x["enc"], x["pred"], x["w"], x["b"], x["lab"])
-            fwd = jl.joint_lattice_fwd(*args, 0)
+            fwd = joint_fwd_twice(args, f"{name} B={b} T'={t} U={u}")
             e_f = compare(f"joint_lattice_fwd {name} B={b} T'={t} U={u}", fwd,
                           jl.joint_lattice_plain_fwd(*args, 0), tol)
             bargs = (*args, fwd[2], x["g_blank"], x["g_emit"], 0)
@@ -1847,7 +1887,8 @@ def check_joint_kernels(dev, shapes=JOINT_SHAPES) -> dict:
                 errs[k] = max(errs[k], e)
             rule = lambda c: "abs + rel" if c is compare else "of max-abs"   # noqa: E731
             print(f"kernels: joint {name} B={b} T'={t} U+1={u + 1} V={v}: max_abs_err fwd "
-                  f"{e_f:.3g} (tol {tol} abs + rel), bwd_xp {e_xp:.3g} (tol {tol} "
+                  f"{e_f:.3g} (tol {tol} abs + rel; {jl.route(dtype, x['enc'].shape[2])} route, "
+                  f"outputs poisoned, bitwise repeatable), bwd_xp {e_xp:.3g} (tol {tol} "
                   f"{rule(xcmp)}), bwd_w {e_w:.3g} (tol {tol} {rule(wcmp)}){auto}; backward "
                   f"bitwise repeatable {same}")
             if (b, t, u, v) != shapes[0] or name not in ("float32", "bfloat16"):
@@ -1855,7 +1896,9 @@ def check_joint_kernels(dev, shapes=JOINT_SHAPES) -> dict:
             # --- times and bounds at the training shape
             j = x["enc"].shape[2]
             product = 2.0 * m * j * v
-            rate = (BF16_TFLOPS if dtype == torch.bfloat16 else F32_TFLOPS) * 1e12
+            # float32 runs each product as 3xTF32 on the tensor cores: three
+            # TF32 products at the TF32 rate
+            rate = (BF16_TFLOPS if dtype == torch.bfloat16 else TF32_TFLOPS / 3) * 1e12
             exp_rate = EXP_PER_CLK_SM * H100_SMS * H100_CLOCK_HZ
             ops = lambda n: max(n * product / rate, m * v / exp_rate)   # noqa: E731
             lat = (fwd[2], x["g_blank"], x["g_emit"])
@@ -1900,10 +1943,11 @@ def check_joint_kernels(dev, shapes=JOINT_SHAPES) -> dict:
 
 
 # Conformer-S's and -L's join_dim (configs/conformer_s.json, conformer_l.json)
-# at a small shape (B, T', U, V): the narrow kernels but the backward at L's
-# 640 and float32 at 640; J 1024, 896 (7 x 128: the dX product's 128-wide
-# tiles in bf16) and a ragged J 700 (padded to 768) on the wide kernels in
-# every dtype. No J is refused (JAX's kernel takes any J)
+# at a small shape (B, T', U, V): bf16 on the narrow kernels but the backward
+# at L's 640, float32 on the wide route at every J (S's 320 padded to 384);
+# J 1024, 896 (7 x 128: the dX product's 128-wide tiles in bf16) and a
+# ragged J 700 (padded to 768) on the wide route in every dtype. No J is
+# refused (JAX's kernel takes any J)
 JOINT_WIDTHS = {"conformer_s": 320, "conformer_l": 640, "1024": 1024, "896": 896,
                 "ragged 700": 700}
 JOINT_WIDTH_SHAPE = (2, 200, 30, 5002)
@@ -1913,8 +1957,9 @@ def check_joint_widths(dev) -> dict:
     """The three joint kernels at each of JOINT_WIDTHS in every row of
     ``JOINT_DTYPES``, on the route ``route`` names, against their plain
     versions under ``check_joint_kernels``'s tolerance rules, every output
-    poisoned with NaN beforehand, the backward bitwise repeatable. Returns
-    the largest error of each kernel."""
+    (and the wide forward's partials) poisoned with NaN beforehand, forward
+    and backward bitwise repeatable. Returns the largest error of each
+    kernel."""
     import torch
 
     from conformer_tpu_torch.ops import joint_lattice as jl
@@ -1932,8 +1977,7 @@ def check_joint_widths(dev) -> dict:
             x = joint_inputs(dev, dtype, getattr(torch, pdt), gen, b, t, u, v, j=j)
             args = (x["enc"], x["pred"], x["w"], x["b"], x["lab"])
             check(jl.width_error(dtype, j) is None, f"joint {label} {name}: J={j} refused")
-            poison(*([((b, t, u + 1), torch.float32)] * 3))
-            fwd = jl.joint_lattice_fwd(*args, 0)
+            fwd = joint_fwd_twice(args, f"{name} {label} J={j}")
             e_f = compare(f"joint_lattice_fwd {name} {label} J={j}", fwd,
                           jl.joint_lattice_plain_fwd(*args, 0), tol)
             bargs = (*args, fwd[2], x["g_blank"], x["g_emit"], 0)
@@ -1960,8 +2004,8 @@ def check_joint_widths(dev) -> dict:
                   f"to {jp}, {jl.route(dtype, j)} forward, {jl.route(dtype, j, 'bwd')} backward "
                   f"kernels): max_abs_err fwd {e_f:.3g} (tol {tol} "
                   f"abs + rel), bwd_xp {e_xp:.3g} (tol {tol} {rule(xcmp)}), bwd_w {e_w:.3g} (tol "
-                  f"{tol} {rule(wcmp)}); outputs poisoned with NaN beforehand; backward bitwise "
-                  "repeatable")
+                  f"{tol} {rule(wcmp)}); outputs (and the wide forward's partials) poisoned with "
+                  "NaN beforehand; forward and backward bitwise repeatable")
     return errs
 
 
@@ -5212,6 +5256,12 @@ def mesh_parity(kind: str, results: list, out: str, ref: dict, layers: int, card
 
     check(all(r is not None for r in results), f"parallel {kind}: a rank failed")
     want = per_microbatch(layers, True, pruned=pruned, joint=joint)
+    if joint:
+        # the joint's grids as one process launched them on the same rows:
+        # float32 takes its wide route, whose grids grow with the chunks of cells
+        want.update({k: ref["launches"][k] for k in JOINT_GRIDS})
+        check(all(want[k] >= n for k, n in JOINT_GRIDS.items()),
+              f"parallel {kind}: one process launched the joint's grids {want}")
     for r, res in enumerate(results):
         check(res["launches"] == want, f"parallel {kind}: rank {r} launched {res['launches']} "
               f"in its step, expected {want}")
@@ -5262,8 +5312,8 @@ def mesh_parity(kind: str, results: list, out: str, ref: dict, layers: int, card
 
 
 def one_process_reference(cfg, mb: dict, forward: bool) -> dict:
-    """The step's loss and gradients (and the deterministic encoder
-    output) of one process on ``mb``."""
+    """The step's loss, gradients and launches (and the deterministic
+    encoder output) of one process on ``mb``."""
     import torch
 
     from conformer_tpu_torch.train.loop import Trainer
@@ -5278,10 +5328,12 @@ def one_process_reference(cfg, mb: dict, forward: bool) -> dict:
         ref["out"] = out.float().cpu().numpy()
     tr.step_grads([mb])             # a warm-up, as each rank has
     torch.cuda.synchronize()
+    reset_launch_counts()
     t0 = time.perf_counter()
     grads, metrics, _ = tr.step_grads([mb])
     torch.cuda.synchronize()
     ref["step_ms"] = (time.perf_counter() - t0) * 1e3
+    ref["launches"] = launch_counts()
     ref["grads"] = {k: g.detach().cpu() for k, g in grads.items()}
     ref["loss"] = float(metrics[0])
     del tr

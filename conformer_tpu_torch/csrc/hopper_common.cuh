@@ -1,6 +1,6 @@
 // Hopper (sm_90a) pieces shared by the int8 serving kernels (int8_matmul.cu,
-// int8_ffn.cu), the simple lattice (simple_lattice.cu) and the wide joint
-// backward (joint_lattice.cu): TMA copies of tiles into 128-byte-swizzled
+// int8_ffn.cu), the simple lattice (simple_lattice.cu) and the joint's wide
+// route (joint_lattice.cu): TMA copies of tiles into 128-byte-swizzled
 // shared memory that complete on mbarriers, the int8 and tf32 warpgroup
 // products (wgmma ... s32.s8.s8, f32.tf32.tf32), the 3xTF32 split, TMA
 // stores from shared memory, the named and cluster barriers around them,

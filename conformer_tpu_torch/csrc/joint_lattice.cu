@@ -23,28 +23,25 @@
 //
 // Bound: the products. One product is 2 M J V flops (M = B T (U+1) cells):
 // 3.0e12 at the training shape (B=24, T'=374, U+1=65, J=512, V=5002), 3.0 ms
-// at the bf16 tensor rate and 45 ms in float32 off the tensor cores. The
-// forward is one product; bwd_xp two (the logits again, and dl W^T);
-// bwd_w two (the logits again, and x^T dl). The bytes (enc, pred, W, the
-// lattice outputs) are tens of MB, far below. The exps (M V per pass, 2.9e9)
-// take ~0.7 ms on the special-function units.
+// at the bf16 tensor rate; float32 runs each product as 3xTF32 (three tf32
+// products, 18 ms at 495 TFLOP/s). The forward is one product; bwd_xp two
+// (the logits again, and dl W^T); bwd_w two (the logits again, and x^T dl).
+// The bytes (enc, pred, W, the lattice outputs) are tens of MB, far below.
+// The exps (M V per pass, 2.9e9) take ~0.7 ms on the special-function units.
 //
 // Design. The TPU kernel kept a (16 t x 128-padded u) x J tile and all of W
 // in VMEM; neither fits a block's 227 KB here. The cells are flattened into
-// M rows and a block owns a fixed tile of rows (64 or 128 in bf16, 32 in
-// float32) whatever U is: the block shape never depends on U (a block that
-// held every u was refused at U+1 = 201 in the simple lattice's backward).
-//
-// The narrow float32 kernels (the parity path, not the model's; their
-// tiles also serve the wide forward, in both dtypes): the block keeps its
-// x tile in shared memory and walks V in tiles of 64 columns; W's column
-// tile [J x 64] is staged in shared memory per step (W, 5 MB in bf16, stays
-// in the 50 MB L2). Products: in bf16 on the tensor cores through
-// nvcuda::wmma (16x16x16, float32 accumulators); in float32 as FMAs on the
-// CUDA cores (no TF32), through the same 16x16 fragment shape. Each logits tile goes to shared
-// memory for the epilogue: an online logsumexp per row and the blank and
-// label picks (forward), or dl (backward, rounded to the inputs' dtype as
-// the product's operand).
+// M rows and a block owns a fixed tile of rows (64 or 128) whatever U is:
+// the block shape never depends on U (a block that held every u was refused
+// at U+1 = 201 in the simple lattice's backward). Two routes, by dtype and
+// J: the narrow kernels (bf16 enc only, the model's path, at the shipped
+// join widths), each a fused block that computes its own x tile and keeps
+// it in shared memory; and the wide route (float32 at every J, bf16 above
+// the narrow widths), which writes its operands once in the layouts the
+// tensor cores read and runs every product on one kernel,
+// joint_gemm_kernel ("wide route" below). float32 has no narrow kernels:
+// on the wide route's 3xTF32 it runs 4-6x faster than fused FMA kernels
+// on the CUDA cores did at J 512 (PERF.md).
 //
 // The forward in bf16 (bf16 enc, float32 or bf16 pred), joint_fwd_wg_kernel,
 // redesigned for Hopper: one block = 128 cells, two consumer warpgroups
@@ -110,48 +107,56 @@
 // writes x [M, J] in the inputs' dtype; the main grid's block owns (a V
 // tile, a chunk of rows) and accumulates that chunk's dW tile [J x 64] in
 // registers; a last grid sums the chunks' partial dW and dbias in order.
-// The C entries report the grids they launched (1, 2 and 3; the wide
-// backward 3 per chunk of cells and 2).
+// The C entries report the grids they launched (the narrow kernels 1, 2
+// and 3; the wide route's forward 2 per chunk of cells and 2, its
+// backward 3 per chunk and 2).
 //
-// The wide backward (J > 512 in either dtype; "wide backward" below): per
-// chunk of cells two products on wgmma fed by a TMA ring (3xTF32 in
-// float32), the logits product once per cell at every J, dl between them
-// in device memory. Bound at B=8, T'=374, U+1=65, V=5002 (M = 194,480):
-// two products, 2 x 2 M J V flops: bf16 J = 1024 4.03 ms at 989 TFLOP/s;
-// float32 J = 640 as 3xTF32 (three tf32 products each) 15.1 ms at 495
-// TFLOP/s (37.2 ms as FMAs at 67). Bytes, all from L2 but dl: a product's
-// 128 x BN tiles read their A and B slabs once per tile, (1/128 + 1/BN)
-// M N K operand values a product: bf16 J 1024 (BN 256) ~24 GB each, float32
-// J 640 (BN 128, hi and lo, 8 bytes a value) ~80 GB each, ~5 and ~16 ms
-// at ~5 TB/s of L2, against the products' 2.0 and 7.6 ms. dl is written
-// once and read once (W^T x chunks in the bf16 dW product read it J / 128
-// times, consecutive tiles sharing it in L2): 2.0 GB each way in bf16, 7.9
-// GB (hi and lo) in float32, 1.2 and 4.7 ms of device memory at 3.35 TB/s.
-// What it does about them: 128-row tiles, BN 256 in bf16 (the A slab read
-// once per 256 columns), consecutive blocks sharing one A tile (W or W^T,
-// 10-13 MB, stays in L2), 4-6 ring stages, no second pass over the
-// logits. Its times against these: PERF.md.
+// The wide route (float32 at every J, bf16 above the narrow widths): per
+// chunk of cells the products on wgmma fed by a TMA ring (3xTF32 in
+// float32). Bound at B=8, T'=374, U+1=65, V=5002 (M = 194,480): one
+// product is 2 M J V flops: bf16 J = 1024 2.01 ms at 989 TFLOP/s; float32
+// J = 640 as 3xTF32 (three tf32 products) 7.55 ms at 495 TFLOP/s. The
+// forward runs one, each backward entry two. Bytes, all from L2 but dl: a
+// product's 128 x BN tiles read their A and B slabs once per tile,
+// (1/128 + 1/BN) M N K operand values a product: bf16 J 1024 (BN 256)
+// ~24 GB, float32 J 640 (BN 128, hi and lo, 8 bytes a value) ~80 GB,
+// ~5 and ~16 ms at ~5 TB/s of L2, against the products' 2.0 and 7.6 ms.
+//  - The forward: the logits product x W^T with a logsumexp epilogue on
+//    the accumulators: per row of the 128 x BN tile the max of its logits
+//    and the sum of their exps about that max (bias added, columns past V
+//    masked; the four lanes of a row combine by shuffles), written as one
+//    (max, sum) pair per (V tile, cell), [2][Vp / BN][M] float32: 31 MB in
+//    bf16 and 62 MB in float32 at B=8. The tile that holds the blank or the
+//    row's label writes that logit. The logits never reach device memory.
+//    A last grid folds each cell's V tiles in tile order into logZ and
+//    subtracts it from the picks: no atomics, bitwise repeatable.
+//  - The backward: the logits product once per cell at every J, dl between
+//    the two products in device memory. dl is written once and read once
+//    (W^T x chunks in the bf16 dW product read it J / 128 times,
+//    consecutive tiles sharing it in L2): 2.0 GB each way in bf16, 7.9 GB
+//    (hi and lo) in float32, 1.2 and 4.7 ms of device memory at 3.35 TB/s.
+// What it does about the bytes: 128-row tiles, BN 256 in bf16 (the A slab
+// read once per 256 columns), consecutive blocks sharing one A tile (x in
+// the logits products; W or W^T, 10-26 MB, stays in L2), 4-6 ring stages,
+// no second pass over the logits. Its times against these: PERF.md.
 //
 // Limits: J a multiple of 128 (the wrapper pads J with zeros, which is
 // exact: x = tanh(0) = 0 in the padded columns and W's padded rows are 0),
-// any J (the narrow forward up to 640 in bf16 and 512 in float32, the
-// narrow backward up to 512; above, the wide forward and the wide
-// backward); V padded by the caller to Vp, a multiple of 64, and of 128
-// for the forward (W's padded columns are never read into a result).
-// Routes by shape, bf16: the forward on wgmma up to J = 640; the backward
-// on wgmma up to J = 512 (214 KB of shared memory there; at J = 640 its x
-// tile, a 2-stage ring of [J x 64] W tiles and the dl tiles would need
-// 240 KB) and on the wide backward above (which at J = 640 replaced the
-// narrow wmma kernels: PERF.md). float32: the FMA kernels up to 512 (218
-// KB), the wide ones above. The wide backward's chunk of cells is the
-// wrapper's (dl within 512 MiB); its ring takes 192 KB of shared memory.
+// any J; V padded by the caller to Vp, a multiple of 64, and of 128 for the
+// forward (W's padded columns are never read into a result). Routes by
+// dtype and J: bf16, the forward on joint_fwd_wg_kernel up to J = 640, the
+// backward on the narrow wgmma kernels up to J = 512 (214 KB of shared
+// memory there; at J = 640 its x tile, a 2-stage ring of [J x 64] W tiles
+// and the dl tiles would need 240 KB; the wide backward, faster at 640,
+// takes it: PERF.md), the wide route above; float32, the wide route at
+// every J. The wide route's chunk of cells is the wrapper's (dl within
+// 512 MiB); its ring takes 192 KB of shared memory.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -160,41 +165,11 @@
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int BN = 64;                 // V columns per tile
-constexpr int NCF = BN / 16;           // 16-wide fragments across a V tile
-constexpr int LDL = BN + 4;            // row stride of the float32 logits tile
-constexpr int kMaxNJ = 512 / 128;      // 16-wide fragments of J per warp, at most
-
-template <typename T> struct Tile;
-template <> struct Tile<bf16> {
-  static constexpr int BM = 64, PADX = 8, LDW = BN + 8, LDD = BN + 8;
-};
-template <> struct Tile<float> {
-  static constexpr int BM = 32, PADX = 4, LDW = BN + 4, LDD = BN + 4;
-};
-
-__host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
-
-// Byte offsets of the shared-memory regions: x tile [BM][J+PADX], W tile
-// [J][LDW], logits [BM][LDL] float32, dl [BM][LDD], row constants [4][BM].
-template <typename T> struct Smem {
-  int ldx;
-  size_t x, w, l, d, rows, total;
-  __host__ __device__ explicit Smem(int J) {
-    ldx = J + Tile<T>::PADX;
-    x = 0;
-    w = align128(x + sizeof(T) * Tile<T>::BM * ldx);
-    l = align128(w + sizeof(T) * J * Tile<T>::LDW);
-    d = align128(l + sizeof(float) * Tile<T>::BM * LDL);
-    rows = align128(d + sizeof(T) * Tile<T>::BM * Tile<T>::LDD);
-    total = rows + sizeof(float) * 4 * Tile<T>::BM;
-  }
-};
+constexpr int WG_ROWS = 64;            // cells of a narrow bwd_w tile
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -211,318 +186,10 @@ template <typename T, typename TP> __device__ __forceinline__ T joint_x(T e, TP 
   return from_f<T>(tanhf(s));
 }
 
-// c += A (16 x 16) B (16 x 16), A and B in shared memory, row- or
-// column-major as ACol / BCol say.
-template <typename T> struct Mma;
-
-template <> struct Mma<bf16> {
-  using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  static __device__ __forceinline__ void zero(Acc& c) { wmma::fill_fragment(c, 0.f); }
-  template <bool ACol, bool BCol>
-  static __device__ __forceinline__ void mma(Acc& c, const bf16* a, int lda, const bf16* b,
-                                             int ldb) {
-    using LA = typename std::conditional<ACol, wmma::col_major, wmma::row_major>::type;
-    using LB = typename std::conditional<BCol, wmma::col_major, wmma::row_major>::type;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-    wmma::load_matrix_sync(fa, a, lda);
-    wmma::load_matrix_sync(fb, b, ldb);
-    wmma::mma_sync(c, fa, fb, c);
-  }
-  static __device__ __forceinline__ void store(float* p, const Acc& c, int ldp) {
-    wmma::store_matrix_sync(p, c, ldp, wmma::mem_row_major);
-  }
-};
-
-// float32: lane l holds row l/2, columns 8 (l%2) .. 8 (l%2) + 7 of the tile
-struct AccF {
-  float v[8];
-};
-template <> struct Mma<float> {
-  using Acc = AccF;
-  static __device__ __forceinline__ void zero(Acc& c) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) c.v[q] = 0.f;
-  }
-  template <bool ACol, bool BCol>
-  static __device__ __forceinline__ void mma(Acc& c, const float* a, int lda, const float* b,
-                                             int ldb) {
-    const int lane = threadIdx.x & 31, r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const float av = ACol ? a[k * lda + r] : a[r * lda + k];
-      float bv[8];
-      if constexpr (BCol) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) bv[q] = b[(c0 + q) * ldb + k];
-      } else {
-        const float4 lo = *reinterpret_cast<const float4*>(b + k * ldb + c0);
-        const float4 hi = *reinterpret_cast<const float4*>(b + k * ldb + c0 + 4);
-        bv[0] = lo.x; bv[1] = lo.y; bv[2] = lo.z; bv[3] = lo.w;
-        bv[4] = hi.x; bv[5] = hi.y; bv[6] = hi.z; bv[7] = hi.w;
-      }
-#pragma unroll
-      for (int q = 0; q < 8; ++q) c.v[q] = fmaf(av, bv[q], c.v[q]);
-    }
-  }
-  static __device__ __forceinline__ void store(float* p, const Acc& c, int ldp) {
-    const int lane = threadIdx.x & 31, r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) p[r * ldp + c0 + q] = c.v[q];
-  }
-};
-
 // lab of cell m = (b, t, u): lab[b, u]
 __device__ __forceinline__ int cell_label(const int* lab, int m, int Tn, int U1) {
   const int bt = m / U1;
   return lab[(bt / Tn) * U1 + (m - bt * U1)];
-}
-
-// rows [m0, m0 + BM) of x = tanh(enc + pred) into Xs, one warp per row;
-// rows at or past M are zero
-template <typename T, typename TP>
-__device__ void load_x_tanh(T* Xs, int ldx, const T* __restrict__ enc,
-                            const TP* __restrict__ pred, int m0, int M, int Tn, int U1, int J) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < Tile<T>::BM; r += kWarps) {
-    const int m = m0 + r;
-    T* dst = Xs + (size_t)r * ldx;
-    if (m < M) {
-      const int bt = m / U1, u = m - bt * U1, b = bt / Tn;
-      const T* e = enc + (size_t)bt * J;
-      const TP* p = pred + ((size_t)b * U1 + u) * J;
-      for (int j = lane; j < J; j += 32) dst[j] = joint_x<T, TP>(e[j], p[j]);
-    } else {
-      for (int j = lane; j < J; j += 32) dst[j] = from_f<T>(0.f);
-    }
-  }
-}
-
-// W[:, v0 : v0 + BN] into Ws [J][LDW], 16-byte loads
-template <typename T>
-__device__ void load_w_tile(T* Ws, const T* __restrict__ W, int J, int Vp, int v0) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = BN / VEC;
-  for (int i = threadIdx.x; i < J * PER_ROW; i += kThreads) {
-    const int j = i / PER_ROW, c = (i - j * PER_ROW) * VEC;
-    *reinterpret_cast<uint4*>(Ws + (size_t)j * Tile<T>::LDW + c) =
-        *reinterpret_cast<const uint4*>(W + (size_t)j * Vp + v0 + c);
-  }
-}
-
-// rows [m0, m0 + BM) of the x buffer [M][J] into Xs; rows at or past `end` are zero
-template <typename T>
-__device__ void load_x_rows(T* Xs, int ldx, const T* __restrict__ X, int m0, int end, int J) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int per_row = J / VEC;
-  for (int i = threadIdx.x; i < Tile<T>::BM * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i - r * per_row) * VEC, m = m0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m < end) val = *reinterpret_cast<const uint4*>(X + (size_t)m * J + c);
-    *reinterpret_cast<uint4*>(Xs + (size_t)r * ldx + c) = val;
-  }
-}
-
-// Ls[BM][BN] = Xs[BM][J] Ws[J][BN] (float32 sums; the epilogues add the bias)
-template <typename T>
-__device__ void logits_tile(float* Ls, const T* Xs, int ldx, const T* Ws, int J) {
-  using MM = Mma<T>;
-  constexpr int NF = Tile<T>::BM / 16 * NCF / kWarps;
-  const int warp = threadIdx.x >> 5;
-  typename MM::Acc acc[NF];
-  int rf[NF], cf[NF];
-#pragma unroll
-  for (int i = 0; i < NF; ++i) {
-    const int f = warp * NF + i;
-    rf[i] = f / NCF;
-    cf[i] = f % NCF;
-    MM::zero(acc[i]);
-  }
-  for (int k = 0; k < J; k += 16) {
-#pragma unroll
-    for (int i = 0; i < NF; ++i)
-      MM::template mma<false, false>(acc[i], Xs + (size_t)rf[i] * 16 * ldx + k, ldx,
-                                     Ws + (size_t)k * Tile<T>::LDW + cf[i] * 16, Tile<T>::LDW);
-  }
-#pragma unroll
-  for (int i = 0; i < NF; ++i) MM::store(Ls + rf[i] * 16 * LDL + cf[i] * 16, acc[i], LDL);
-}
-
-// the row constants of rows [m0, m0 + BM): logZ, g_b, g_e, label; rows at
-// or past `end` get g = 0 and no label
-template <typename T>
-__device__ void load_rows(float* rows, const float* __restrict__ logz,
-                          const float* __restrict__ gb, const float* __restrict__ ge,
-                          const int* __restrict__ lab, int m0, int end, int Tn, int U1) {
-  constexpr int BM = Tile<T>::BM;
-  for (int i = threadIdx.x; i < BM; i += kThreads) {
-    const int m = m0 + i;
-    const bool ok = m < end;
-    rows[i] = ok ? logz[m] : 0.f;
-    rows[BM + i] = ok ? gb[m] : 0.f;
-    rows[2 * BM + i] = ok ? ge[m] : 0.f;
-    reinterpret_cast<int*>(rows)[3 * BM + i] = ok ? cell_label(lab, m, Tn, U1) : -1;
-  }
-}
-
-// dl of the logits tile in Ls (bias not yet added) into Ds (the product's
-// operand, rounded to T) and, with kKeep, back into Ls as float32
-template <typename T, bool kKeep>
-__device__ void dlogits_tile(float* Ls, T* Ds, const float* rows, const float* __restrict__ bias,
-                             int m0, int end, int v0, int V, int blank) {
-  constexpr int BM = Tile<T>::BM, TPR = kThreads / BM, CPT = BN / TPR;
-  const int r = threadIdx.x / TPR, sub = threadIdx.x % TPR;
-  const float lz = rows[r], g_b = rows[BM + r], g_e = rows[2 * BM + r];
-  const int lb = reinterpret_cast<const int*>(rows)[3 * BM + r];
-  const bool ok = m0 + r < end;
-#pragma unroll
-  for (int q = 0; q < CPT; ++q) {
-    const int c = sub + TPR * q, v = v0 + c;
-    float d = 0.f;
-    if (ok && v < V) {
-      const float p = __expf(Ls[r * LDL + c] + bias[v] - lz);
-      d = -(g_b + g_e) * p + (v == blank ? g_b : 0.f) + (v == lb ? g_e : 0.f);
-    }
-    Ds[r * Tile<T>::LDD + c] = from_f<T>(d);
-    if (kKeep) Ls[r * LDL + c] = d;
-  }
-}
-
-template <typename T, typename TP>
-__global__ void __launch_bounds__(kThreads, 1)
-joint_fwd_kernel(const T* __restrict__ enc, const TP* __restrict__ pred, const T* __restrict__ W,
-                 const float* __restrict__ bias, const int* __restrict__ lab,
-                 float* __restrict__ lpb, float* __restrict__ lpe, float* __restrict__ logz,
-                 int M, int Tn, int U1, int J, int V, int Vp, int blank) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<T> S(J);
-  T* Xs = reinterpret_cast<T*>(smem + S.x);
-  T* Ws = reinterpret_cast<T*>(smem + S.w);
-  float* Ls = reinterpret_cast<float*>(smem + S.l);
-  constexpr int BM = Tile<T>::BM, TPR = kThreads / BM, CPT = BN / TPR;
-  const int m0 = blockIdx.x * BM;
-  const int r = threadIdx.x / TPR, sub = threadIdx.x % TPR, m = m0 + r;
-  const int lb = (sub == 0 && m < M) ? cell_label(lab, m, Tn, U1) : -1;
-
-  load_x_tanh<T, TP>(Xs, S.ldx, enc, pred, m0, M, Tn, U1, J);
-  float run_m = -INFINITY, run_s = 0.f, bl = 0.f, em = 0.f;
-  for (int v0 = 0; v0 < Vp; v0 += BN) {
-    __syncthreads();
-    load_w_tile<T>(Ws, W, J, Vp, v0);
-    __syncthreads();
-    logits_tile<T>(Ls, Xs, S.ldx, Ws, J);
-    __syncthreads();
-    // online logsumexp over this thread's columns of its row
-    const float* lr = Ls + r * LDL;
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) {
-      const int c = sub + TPR * q, v = v0 + c;
-      if (v < V) tmax = fmaxf(tmax, lr[c] + bias[v]);
-    }
-    const float mn = fmaxf(run_m, tmax);
-    if (mn != -INFINITY) {
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        const int c = sub + TPR * q, v = v0 + c;
-        if (v < V) s += __expf(lr[c] + bias[v] - mn);
-      }
-      run_s = run_s * __expf(run_m - mn) + s;
-      run_m = mn;
-    }
-    if (sub == 0) {
-      if (blank >= v0 && blank < v0 + BN) bl = lr[blank - v0] + bias[blank];
-      if (lb >= v0 && lb < v0 + BN && lb < V) em = lr[lb - v0] + bias[lb];
-    }
-  }
-  // combine the row's TPR partial sums (neighbouring lanes)
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1) {
-    const float om = __shfl_xor_sync(0xffffffffu, run_m, off);
-    const float os = __shfl_xor_sync(0xffffffffu, run_s, off);
-    const float mn = fmaxf(run_m, om);
-    run_s = mn == -INFINITY ? 0.f : run_s * __expf(run_m - mn) + os * __expf(om - mn);
-    run_m = mn;
-  }
-  if (sub == 0 && m < M) {
-    const float lz = run_m + logf(run_s);
-    lpb[m] = bl - lz;
-    lpe[m] = em - lz;
-    logz[m] = lz;
-  }
-}
-
-template <typename T, typename TP>
-__global__ void __launch_bounds__(kThreads, 1)
-joint_bwd_xp_kernel(const T* __restrict__ enc, const TP* __restrict__ pred,
-                    const T* __restrict__ W, const float* __restrict__ bias,
-                    const int* __restrict__ lab, const float* __restrict__ logz,
-                    const float* __restrict__ gb, const float* __restrict__ ge,
-                    float* __restrict__ dpre, int M, int Tn, int U1, int J, int V, int Vp,
-                    int blank) {
-  using MM = Mma<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<T> S(J);
-  T* Xs = reinterpret_cast<T*>(smem + S.x);
-  T* Ws = reinterpret_cast<T*>(smem + S.w);
-  float* Ls = reinterpret_cast<float*>(smem + S.l);
-  T* Ds = reinterpret_cast<T*>(smem + S.d);
-  float* rows = reinterpret_cast<float*>(smem + S.rows);
-  constexpr int BM = Tile<T>::BM, RF = BM / 16, LDW = Tile<T>::LDW, LDD = Tile<T>::LDD;
-  const int m0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nj = J / 128;
-
-  load_rows<T>(rows, logz, gb, ge, lab, m0, M, Tn, U1);
-  load_x_tanh<T, TP>(Xs, S.ldx, enc, pred, m0, M, Tn, U1, J);
-  // dX [BM][J]: warp w owns the J columns [16 nj w, 16 nj (w + 1))
-  typename MM::Acc dx[RF][kMaxNJ];
-#pragma unroll
-  for (int a = 0; a < RF; ++a)
-#pragma unroll
-    for (int jf = 0; jf < kMaxNJ; ++jf) MM::zero(dx[a][jf]);
-
-  for (int v0 = 0; v0 < Vp; v0 += BN) {
-    __syncthreads();
-    load_w_tile<T>(Ws, W, J, Vp, v0);
-    __syncthreads();
-    logits_tile<T>(Ls, Xs, S.ldx, Ws, J);
-    __syncthreads();
-    dlogits_tile<T, false>(Ls, Ds, rows, bias, m0, M, v0, V, blank);
-    __syncthreads();
-    // dX += dl W^T: W^T's (v, j) is Ws[j][v], a column-major B operand
-#pragma unroll
-    for (int a = 0; a < RF; ++a)
-#pragma unroll
-      for (int jf = 0; jf < kMaxNJ; ++jf) {
-        if (jf >= nj) continue;
-        const int j0 = (warp * nj + jf) * 16;
-#pragma unroll
-        for (int k = 0; k < BN; k += 16)
-          MM::template mma<false, true>(dx[a][jf], Ds + a * 16 * LDD + k, LDD,
-                                        Ws + (size_t)j0 * LDW + k, LDW);
-      }
-  }
-  __syncthreads();
-  // dpre = dX (1 - x^2), each fragment staged through the W tile's space
-  float* stage = reinterpret_cast<float*>(Ws) + warp * 256;
-#pragma unroll
-  for (int a = 0; a < RF; ++a)
-#pragma unroll
-    for (int jf = 0; jf < kMaxNJ; ++jf) {
-      if (jf >= nj) continue;
-      const int j0 = (warp * nj + jf) * 16;
-      MM::store(stage, dx[a][jf], 16);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = a * 16 + (e >> 4), j = j0 + (e & 15), m = m0 + row;
-        if (m < M) {
-          const float xv = to_f(Xs[(size_t)row * S.ldx + j]);
-          dpre[(size_t)m * J + j] = stage[e] * (1.f - xv * xv);
-        }
-      }
-      __syncwarp();
-    }
 }
 
 // d enc[b,t] = sum_u dpre[b,t,u] (blocks [0, B T)); d pred[b,u] = sum_t
@@ -560,73 +227,6 @@ __global__ void joint_x_kernel(const T* __restrict__ enc, const TP* __restrict__
   for (int j = lane; j < J; j += 32) X[(size_t)m * J + j] = joint_x<T, TP>(e[j], p[j]);
 }
 
-// block (V tile, chunk of rows): that chunk's dW[:, tile] and dbias[tile]
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-joint_bwd_w_kernel(const T* __restrict__ X, const T* __restrict__ W,
-                   const float* __restrict__ bias, const int* __restrict__ lab,
-                   const float* __restrict__ logz, const float* __restrict__ gb,
-                   const float* __restrict__ ge, float* __restrict__ part,
-                   float* __restrict__ dbpart, int M, int Tn, int U1, int J, int V, int Vp,
-                   int blank, int rows_per_chunk) {
-  using MM = Mma<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem<T> S(J);
-  T* Xs = reinterpret_cast<T*>(smem + S.x);
-  T* Ws = reinterpret_cast<T*>(smem + S.w);
-  float* Ls = reinterpret_cast<float*>(smem + S.l);
-  T* Ds = reinterpret_cast<T*>(smem + S.d);
-  float* rows = reinterpret_cast<float*>(smem + S.rows);
-  constexpr int BM = Tile<T>::BM, LDD = Tile<T>::LDD;
-  const int v0 = blockIdx.x * BN, chunk = blockIdx.y;
-  const int begin = chunk * rows_per_chunk;
-  const int end = min(M, begin + rows_per_chunk);
-  const int warp = threadIdx.x >> 5, nj = J / 128;
-
-  load_w_tile<T>(Ws, W, J, Vp, v0);
-  // dW [J][BN]: warp w owns the J rows [16 nj w, 16 nj (w + 1))
-  typename MM::Acc dw[kMaxNJ][NCF];
-#pragma unroll
-  for (int jf = 0; jf < kMaxNJ; ++jf)
-#pragma unroll
-    for (int c = 0; c < NCF; ++c) MM::zero(dw[jf][c]);
-  float dbacc = 0.f;
-
-  for (int m0 = begin; m0 < end; m0 += BM) {
-    __syncthreads();
-    load_rows<T>(rows, logz, gb, ge, lab, m0, end, Tn, U1);
-    load_x_rows<T>(Xs, S.ldx, X, m0, end, J);
-    __syncthreads();
-    logits_tile<T>(Ls, Xs, S.ldx, Ws, J);
-    __syncthreads();
-    dlogits_tile<T, true>(Ls, Ds, rows, bias, m0, end, v0, V, blank);
-    __syncthreads();
-    if (threadIdx.x < BN)
-      for (int r = 0; r < BM; ++r) dbacc += Ls[r * LDL + threadIdx.x];
-    // dW += x^T dl: x^T's (j, row) is Xs[row][j], a column-major A operand
-#pragma unroll
-    for (int jf = 0; jf < kMaxNJ; ++jf) {
-      if (jf >= nj) continue;
-      const int j0 = (warp * nj + jf) * 16;
-#pragma unroll
-      for (int c = 0; c < NCF; ++c)
-#pragma unroll
-        for (int k = 0; k < BM; k += 16)
-          MM::template mma<true, false>(dw[jf][c], Xs + (size_t)k * S.ldx + j0, S.ldx,
-                                        Ds + k * LDD + c * 16, LDD);
-    }
-  }
-  float* pc = part + (size_t)chunk * J * Vp;
-#pragma unroll
-  for (int jf = 0; jf < kMaxNJ; ++jf) {
-    if (jf >= nj) continue;
-    const int j0 = (warp * nj + jf) * 16;
-#pragma unroll
-    for (int c = 0; c < NCF; ++c) MM::store(pc + (size_t)j0 * Vp + v0 + c * 16, dw[jf][c], Vp);
-  }
-  if (threadIdx.x < BN) dbpart[(size_t)chunk * Vp + v0 + threadIdx.x] = dbacc;
-}
-
 // dW = the sum of the n_part partials, dbias of the n_dbpart ones, in order
 __global__ void joint_reduce_w_kernel(const float* __restrict__ part,
                                       const float* __restrict__ dbpart, float* __restrict__ dw,
@@ -649,159 +249,6 @@ template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
-}
-
-// ------------------------------------------------ wide J forward: J streamed in chunks
-//
-// Above the narrow forward's widths (bf16 J > 640, float32 J > 512; JAX's
-// kernel takes the whole J as one block and has no such limit) the forward
-// takes joint_fwd_wide_kernel, whose shared memory does not grow with J:
-// the block's tiles are those of the wmma/FMA kernels above, but x and W
-// pass through in chunks of JC = 128 J columns. The logits tile's
-// accumulators stay in registers while every chunk of x (recomputed as
-// tanh(enc + pred)) and of W's V tile goes by; the sums run over j in the
-// narrow kernels' order. Shared memory ~70 KB in float32 and ~63 KB in
-// bf16 at every J. bf16 runs on wmma, float32 on FMAs; speed is later work
-// (PERF.md). The wide backward is further down ("wide backward").
-
-constexpr int JC = 128;                // J columns of a streamed chunk
-
-template <typename T> struct WideSmem {
-  int ldx;
-  size_t x, w, l, d, rows, total;
-  __host__ __device__ WideSmem() {
-    ldx = JC + Tile<T>::PADX;
-    x = 0;
-    w = align128(x + sizeof(T) * Tile<T>::BM * ldx);
-    l = align128(w + sizeof(T) * JC * Tile<T>::LDW);
-    d = align128(l + sizeof(float) * Tile<T>::BM * LDL);
-    rows = align128(d + sizeof(T) * Tile<T>::BM * Tile<T>::LDD);
-    total = rows + sizeof(float) * 4 * Tile<T>::BM;
-  }
-};
-
-// columns [j0, j0 + JC) of rows [m0, m0 + BM) of x = tanh(enc + pred) into
-// Xs, one warp per row; rows at or past M are zero
-template <typename T, typename TP>
-__device__ void load_x_tanh_chunk(T* Xs, int ldx, const T* __restrict__ enc,
-                                  const TP* __restrict__ pred, int m0, int M, int Tn, int U1,
-                                  int J, int j0) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < Tile<T>::BM; r += kWarps) {
-    const int m = m0 + r;
-    T* dst = Xs + (size_t)r * ldx;
-    if (m < M) {
-      const int bt = m / U1, u = m - bt * U1, b = bt / Tn;
-      const T* e = enc + (size_t)bt * J + j0;
-      const TP* p = pred + ((size_t)b * U1 + u) * J + j0;
-      for (int j = lane; j < JC; j += 32) dst[j] = joint_x<T, TP>(e[j], p[j]);
-    } else {
-      for (int j = lane; j < JC; j += 32) dst[j] = from_f<T>(0.f);
-    }
-  }
-}
-
-// W[j0 : j0 + JC, v0 : v0 + BN] into Ws [JC][LDW]
-template <typename T>
-__device__ void load_w_chunk(T* Ws, const T* __restrict__ W, int Vp, int v0, int j0) {
-  load_w_tile<T>(Ws, W + (size_t)j0 * Vp, JC, Vp, v0);
-}
-
-// Ls[BM][BN] = X W[:, v0 : v0 + BN] over all J, chunk by chunk: load_x(j0)
-// fills Xs with x's columns [j0, j0 + JC); the accumulators stay in
-// registers across the chunks. The caller synchronises before reading Ls.
-template <typename T, typename LoadX>
-__device__ void logits_streamed(float* Ls, T* Xs, int ldx, T* Ws, const T* __restrict__ W,
-                                int J, int Vp, int v0, LoadX load_x) {
-  using MM = Mma<T>;
-  constexpr int NF = Tile<T>::BM / 16 * NCF / kWarps;
-  const int warp = threadIdx.x >> 5;
-  typename MM::Acc acc[NF];
-  int rf[NF], cf[NF];
-#pragma unroll
-  for (int i = 0; i < NF; ++i) {
-    const int f = warp * NF + i;
-    rf[i] = f / NCF;
-    cf[i] = f % NCF;
-    MM::zero(acc[i]);
-  }
-  for (int j0 = 0; j0 < J; j0 += JC) {
-    __syncthreads();   // the previous chunk's (or the caller's) readers are done
-    load_x(j0);
-    load_w_chunk<T>(Ws, W, Vp, v0, j0);
-    __syncthreads();
-    for (int k = 0; k < JC; k += 16) {
-#pragma unroll
-      for (int i = 0; i < NF; ++i)
-        MM::template mma<false, false>(acc[i], Xs + (size_t)rf[i] * 16 * ldx + k, ldx,
-                                       Ws + (size_t)k * Tile<T>::LDW + cf[i] * 16, Tile<T>::LDW);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NF; ++i) MM::store(Ls + rf[i] * 16 * LDL + cf[i] * 16, acc[i], LDL);
-}
-
-template <typename T, typename TP>
-__global__ void __launch_bounds__(kThreads)
-joint_fwd_wide_kernel(const T* __restrict__ enc, const TP* __restrict__ pred,
-                      const T* __restrict__ W, const float* __restrict__ bias,
-                      const int* __restrict__ lab, float* __restrict__ lpb,
-                      float* __restrict__ lpe, float* __restrict__ logz, int M, int Tn, int U1,
-                      int J, int V, int Vp, int blank) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const WideSmem<T> S;
-  T* Xs = reinterpret_cast<T*>(smem + S.x);
-  T* Ws = reinterpret_cast<T*>(smem + S.w);
-  float* Ls = reinterpret_cast<float*>(smem + S.l);
-  constexpr int BM = Tile<T>::BM, TPR = kThreads / BM, CPT = BN / TPR;
-  const int m0 = blockIdx.x * BM;
-  const int r = threadIdx.x / TPR, sub = threadIdx.x % TPR, m = m0 + r;
-  const int lb = (sub == 0 && m < M) ? cell_label(lab, m, Tn, U1) : -1;
-
-  float run_m = -INFINITY, run_s = 0.f, bl = 0.f, em = 0.f;
-  for (int v0 = 0; v0 < Vp; v0 += BN) {
-    logits_streamed<T>(Ls, Xs, S.ldx, Ws, W, J, Vp, v0, [&](int j0) {
-      load_x_tanh_chunk<T, TP>(Xs, S.ldx, enc, pred, m0, M, Tn, U1, J, j0);
-    });
-    __syncthreads();
-    // online logsumexp over this thread's columns of its row, as joint_fwd_kernel
-    const float* lr = Ls + r * LDL;
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) {
-      const int c = sub + TPR * q, v = v0 + c;
-      if (v < V) tmax = fmaxf(tmax, lr[c] + bias[v]);
-    }
-    const float mn = fmaxf(run_m, tmax);
-    if (mn != -INFINITY) {
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        const int c = sub + TPR * q, v = v0 + c;
-        if (v < V) s += __expf(lr[c] + bias[v] - mn);
-      }
-      run_s = run_s * __expf(run_m - mn) + s;
-      run_m = mn;
-    }
-    if (sub == 0) {
-      if (blank >= v0 && blank < v0 + BN) bl = lr[blank - v0] + bias[blank];
-      if (lb >= v0 && lb < v0 + BN && lb < V) em = lr[lb - v0] + bias[lb];
-    }
-  }
-#pragma unroll
-  for (int off = TPR / 2; off > 0; off >>= 1) {
-    const float om = __shfl_xor_sync(0xffffffffu, run_m, off);
-    const float os = __shfl_xor_sync(0xffffffffu, run_s, off);
-    const float mn = fmaxf(run_m, om);
-    run_s = mn == -INFINITY ? 0.f : run_s * __expf(run_m - mn) + os * __expf(om - mn);
-    run_m = mn;
-  }
-  if (sub == 0 && m < M) {
-    const float lz = run_m + logf(run_s);
-    lpb[m] = bl - lz;
-    lpe[m] = em - lz;
-    logz[m] = lz;
-  }
 }
 
 // ------------------------------------------------------------ Hopper pieces
@@ -1605,18 +1052,21 @@ joint_fwd_wg_kernel(const __grid_constant__ CUtensorMap wmap, const bf16* __rest
   }
 }
 
-// ------------------------------------------------ wide backward
+// ------------------------------------------------ wide route
 //
-// Above the narrow backward's widths (J > 512 in either dtype) each backward
-// entry runs two products per chunk of cells, each on wgmma fed by a TMA
-// ring, with dl between them in device memory:
+// float32 at every J and bf16 above the narrow kernels' widths. The
+// forward runs one product per chunk of cells: the logits product S = x W
+// with the logsumexp epilogue (LseEpi: per (V tile, cell) the max and the
+// sum of exps about it, and the picks), then one grid folds each cell's
+// tiles into logZ. Each backward entry runs two products per chunk of
+// cells, with dl between them in device memory:
 //  - the logits product S = x W (once per cell at every J), whose epilogue
 //    turns S into dl on the accumulators (bias, exp, picks, g) and writes
 //    dl once, in the layout and precision of the second product's operand;
 //  - the second product: dX = dl W^T (bwd_xp; its epilogue writes
 //    dpre = dX (1 - x^2)) or dW = x^T dl (bwd_w; its epilogue adds the
 //    chunk's partial dW).
-// Both are one kernel, joint_gemm_kernel: C [rows x cols] = A [rows x K]
+// Every product is one kernel, joint_gemm_kernel: C [rows x cols] = A [rows x K]
 // B [cols x K]^T, both operands K-major (tf32 wgmma takes no other), a
 // block one 128 x BN tile of C: a producer warpgroup whose one thread keeps
 // a ring of K slabs (128 bytes of K: 64 bf16 or 32 float32 values) in
@@ -1624,7 +1074,11 @@ joint_fwd_wg_kernel(const __grid_constant__ CUtensorMap wmap, const bf16* __rest
 // stage on an mbarrier once the products that read it are done, one group
 // of products in flight. bf16: m64nBNk16, one copy of each operand.
 // float32: 3xTF32, each operand as tf32 hi and lo copies (cvt.rna), and
-// hi*hi + hi*lo + lo*hi (m64n128k8) summed in float32. The operands'
+// hi*hi + hi*lo + lo*hi (m64n128k8) summed on the tensor cores over 128 K
+// values at a time, each such partial then added to the float32
+// accumulators: the tensor cores' accumulation truncates, and summed there
+// over all of K (Vp ~ 5000 in dl W^T) its bias put bwd_xp 5.9e-4 from the
+// plain float32 version on an H100 (3.3e-5 promoted). The operands'
 // layouts: x [cells][J] and W^T [Vp][J] for the logits; dl [cells][Vp] and
 // W [J][Vp] for dX; x^T [J][cells] and dl^T [Vp][cells] for dW.
 // joint_tile_kernel writes W^T (and, float32, W's hi / lo) once per call
@@ -1632,6 +1086,7 @@ joint_fwd_wg_kernel(const __grid_constant__ CUtensorMap wmap, const bf16* __rest
 
 constexpr int GM_BM = 128;               // rows of C a block computes
 constexpr int GM_RING = 196608;          // bytes of the ring, at most (192 KB)
+constexpr int GM_PROMOTE = 4;            // float32: slabs (32 K values each) per promotion
 
 template <bool kTf32, int BN> struct Gemm {
   static constexpr int KS = kTf32 ? 32 : 64;                  // K values of a slab
@@ -1763,34 +1218,70 @@ joint_gemm_kernel(const __grid_constant__ CUtensorMap a_hi, const __grid_constan
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    int prev = 0;
-    for (int s = 0; s < ns; ++s) {
-      const int st = s % G::STAGES;
-      hop::mbar_wait(&full[st], (s / G::STAGES) & 1);
-      const uint32_t a = hop::saddr(ring + st * G::STAGE) + c * 8192;
-      const uint32_t b = hop::saddr(ring + st * G::STAGE) + G::A_BYTES;
-      hop::fence_regs(acc);
-      hop::wg_fence();
+    if constexpr (kTf32) {
+      // 3xTF32 (hi*hi + hi*lo + lo*hi) into `part`, which the first product
+      // of every GM_PROMOTE slabs overwrites; part is then added into acc
+      // with float32 adds, so that the tensor cores' truncating
+      // accumulation never runs over more than 128 K values
+      float part[BN / 2];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if constexpr (kTf32) {
-          hopper::wgmma_tf32_n128(acc, hop::desc(a + kk * 32), hop::desc(b + kk * 32), 1);
-          hopper::wgmma_tf32_n128(acc, hop::desc(a + kk * 32),
+      for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
+      int pending = -1;   // the ring stage of the one group still in flight
+      for (int s = 0; s < ns; ++s) {
+        const int st = s % G::STAGES;
+        hop::mbar_wait(&full[st], (s / G::STAGES) & 1);
+        const uint32_t a = hop::saddr(ring + st * G::STAGE) + c * 8192;
+        const uint32_t b = hop::saddr(ring + st * G::STAGE) + G::A_BYTES;
+        const int fresh = s % GM_PROMOTE == 0;
+        hop::fence_regs(part);
+        hop::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          hopper::wgmma_tf32_n128(part, hop::desc(a + kk * 32), hop::desc(b + kk * 32),
+                                  !(fresh && kk == 0));
+          hopper::wgmma_tf32_n128(part, hop::desc(a + kk * 32),
                                   hop::desc(b + G::COPY + kk * 32), 1);
-          hopper::wgmma_tf32_n128(acc, hop::desc(a + G::COPY + kk * 32),
+          hopper::wgmma_tf32_n128(part, hop::desc(a + G::COPY + kk * 32),
                                   hop::desc(b + kk * 32), 1);
+        }
+        hop::wg_commit();
+        if (s % GM_PROMOTE == GM_PROMOTE - 1 || s == ns - 1) {
+          hop::wg_wait0();
+          if (pending >= 0) hop::mbar_arrive(&empty[pending]);
+          hop::mbar_arrive(&empty[st]);
+          pending = -1;
+          hop::fence_regs(part);
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
         } else {
-          hop::wgmma<BN, 0, 0>(acc, hop::desc(a + kk * 32), hop::desc(b + kk * 32), 1);
+          if (pending >= 0) {
+            hop::wg_wait<1>();
+            hop::mbar_arrive(&empty[pending]);
+          }
+          pending = st;
         }
       }
-      hop::wg_commit();
-      if (s > 0) {
-        hop::wg_wait<1>();
-        hop::mbar_arrive(&empty[prev]);
+    } else {
+      int prev = 0;
+      for (int s = 0; s < ns; ++s) {
+        const int st = s % G::STAGES;
+        hop::mbar_wait(&full[st], (s / G::STAGES) & 1);
+        const uint32_t a = hop::saddr(ring + st * G::STAGE) + c * 8192;
+        const uint32_t b = hop::saddr(ring + st * G::STAGE) + G::A_BYTES;
+        hop::fence_regs(acc);
+        hop::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma<BN, 0, 0>(acc, hop::desc(a + kk * 32), hop::desc(b + kk * 32), 1);
+        hop::wg_commit();
+        if (s > 0) {
+          hop::wg_wait<1>();
+          hop::mbar_arrive(&empty[prev]);
+        }
+        prev = st;
       }
-      prev = st;
+      hop::wg_wait0();
     }
-    hop::wg_wait0();
     hop::fence_regs(acc);
     // both consumers' products are done: the ring is free for the epilogue
     hop::bar_sync(1, WG_CONSUMERS);
@@ -1951,6 +1442,95 @@ struct PartEpi {
     }
   }
 };
+
+// The forward's epilogue: per cell row0 + m (m < rows) of the tile, the max
+// of its logits (bias added; columns at or past V -inf) and the sum of
+// their exps about that max into pmax / psum [n_tiles][M] at (V tile
+// blockIdx.x, cell); the tile that holds the blank or the cell's label (in
+// [0, V)) writes that logit into lpb / lpe, from which the combine grid
+// subtracts logZ
+struct LseEpi {
+  const float* bias;
+  const int* lab;
+  float* pmax;
+  float* psum;
+  float* lpb;
+  float* lpe;
+  int row0, rows, M, Tn, U1, V, blank;
+
+  template <int NA>
+  __device__ void operator()(float (&acc)[NA], int m, int n0, unsigned char*) const {
+    constexpr int N = 2 * NA;   // the tile's columns
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, q = lane & 3;
+    const int r0 = 16 * warp + (lane >> 2);
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int v = n0 + 8 * i + 2 * q + e;
+        const float bv = v < V ? bias[v] : -INFINITY;
+        acc[4 * i + e] += bv;
+        acc[4 * i + 2 + e] += bv;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the row's max over the four lanes that hold it, then each lane's
+      // sum of exps about it, summed over the four
+      float mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i)
+        mx = fmaxf(mx, fmaxf(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float s = 0.f;
+      if (mx != -INFINITY) {
+#pragma unroll
+        for (int i = 0; i < N / 8; ++i)
+          s += __expf(acc[4 * i + 2 * h] - mx) + __expf(acc[4 * i + 2 * h + 1] - mx);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      const int r = m + r0 + 8 * h;
+      if (r >= rows) continue;
+      const int cell = row0 + r;
+      if (q == 0) {
+        pmax[(size_t)blockIdx.x * M + cell] = mx;
+        psum[(size_t)blockIdx.x * M + cell] = s;
+      }
+      const int lb = cell_label(lab, cell, Tn, U1);
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int v = n0 + 8 * i + 2 * q + e;
+          if (v == blank) lpb[cell] = acc[4 * i + 2 * h + e];
+          if (v == lb && v < V) lpe[cell] = acc[4 * i + 2 * h + e];
+        }
+    }
+  }
+};
+
+// the forward's last grid, one thread a cell: logZ from the cell's n_tiles
+// (max, sum) pairs, folded in tile order; lp_blank and lp_emit from the
+// picks in lpb / lpe (0 - logZ for a label outside [0, V))
+__global__ void joint_lse_combine_kernel(const float* __restrict__ pmax,
+                                         const float* __restrict__ psum,
+                                         const int* __restrict__ lab, float* __restrict__ lpb,
+                                         float* __restrict__ lpe, float* __restrict__ logz, int M,
+                                         int n_tiles, int Tn, int U1, int V) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  float mx = -INFINITY;
+  for (int k = 0; k < n_tiles; ++k) mx = fmaxf(mx, pmax[(size_t)k * M + m]);
+  float s = 0.f;
+  for (int k = 0; k < n_tiles; ++k)
+    s += psum[(size_t)k * M + m] * __expf(pmax[(size_t)k * M + m] - mx);
+  const float lz = mx + logf(s);
+  const int lb = cell_label(lab, m, Tn, U1);
+  logz[m] = lz;
+  lpb[m] -= lz;
+  lpe[m] = (lb >= 0 && lb < V ? lpe[m] : 0.f) - lz;
+}
 
 // ------------------------------------------------ host side of the wgmma kernels
 
@@ -2115,7 +1695,7 @@ cudaError_t prep_w(const void* w, void* wt, void* wn, int J, int Vp, cudaStream_
                                 static_cast<T*>(wt), lo, lo, J, Vp, Vp, J, st);
 }
 
-// d enc / d pred for J > 512: per chunk of `chunk` cells x, the logits
+// d enc / d pred on the wide route: per chunk of `chunk` cells x, the logits
 // product with dl [rows][Vp], dX = dl W^T with dpre; then the sums over u
 // and t. wt: W^T; wn: float32 W's hi / lo (bf16: W itself is the operand);
 // xbuf [chunk][J], dlbuf [chunk][Vp] (float32: hi, then lo)
@@ -2168,7 +1748,7 @@ cudaError_t launch_bwd_xp_wide(const void* enc, const void* pred, const void* w,
   return e;
 }
 
-// dW / dbias for J > 512: per chunk of `chunk` cells x and x^T, the
+// dW / dbias on the wide route: per chunk of `chunk` cells x and x^T, the
 // logits product with dl^T [Vp][rows] and the tiles' dbias sums, the
 // chunk's dW = x^T dl added into part [n_split][J][Vp] (K split n_split
 // ways); then the sums over the splits and the row tiles, in order.
@@ -2225,113 +1805,89 @@ cudaError_t launch_bwd_w_wide(const void* enc, const void* pred, const void* w, 
   return e;
 }
 
-// the narrow kernels' widths (J a multiple of 128, after the wrappers' padding):
-// the forward up to 640 in bf16 and 512 in float32, the backward up to 512
-constexpr int NARROW_FWD_J_BF16 = 640, NARROW_BWD_J = 512, NARROW_J_F32 = 512;
-bool j_narrow(int J, bool is_bf16) { return J <= (is_bf16 ? NARROW_FWD_J_BF16 : NARROW_J_F32); }
-bool j_narrow_bwd(int J) { return J <= NARROW_BWD_J; }
-
+// the wide forward: W^T [Vp][J] once; per chunk of `chunk` cells x, then
+// the logits product with the logsumexp epilogue into part (pmax, then
+// psum, [Vp / BN][M] each); then the combine. wt, xbuf as the wide
+// backward's (float32: hi, then lo)
 template <typename T, typename TP>
 cudaError_t launch_fwd_wide(const void* enc, const void* pred, const void* w, const void* bias,
-                            const void* lab, void* lpb, void* lpe, void* logz, cudaStream_t st,
-                            int M, int Tn, int U1, int J, int V, int Vp, int blank) {
-  const WideSmem<T> S;
-  cudaError_t e = set_smem(joint_fwd_wide_kernel<T, TP>, S.total);
+                            const void* lab, void* wt, void* xbuf, void* part, void* lpb,
+                            void* lpe, void* logz, int* launched, cudaStream_t st, int B, int Tn,
+                            int U1, int J, int V, int Vp, int blank, int chunk) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int BN = kF32 ? 128 : 256;
+  const int M = B * Tn * U1, n_tiles = (Vp + BN - 1) / BN;
+  const size_t wlo = (size_t)J * Vp, xlo = (size_t)chunk * J;
+  cudaError_t e = prep_w<T>(w, wt, nullptr, J, Vp, st);
   if (e != cudaSuccess) return e;
-  joint_fwd_wide_kernel<T, TP><<<(M + Tile<T>::BM - 1) / Tile<T>::BM, kThreads, S.total, st>>>(
-      static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<const int*>(lab), static_cast<float*>(lpb),
-      static_cast<float*>(lpe), static_cast<float*>(logz), M, Tn, U1, J, V, Vp, blank);
-  return cudaGetLastError();
+  ++*launched;
+  const Operand wt_op{wt, wlo, (uint64_t)Vp, (uint64_t)J};
+  float* pmax = static_cast<float*>(part);
+  float* psum = pmax + (size_t)n_tiles * M;
+  for (int row0 = 0; row0 < M; row0 += chunk) {
+    const int rows = min(chunk, M - row0);
+    T* x = static_cast<T*>(xbuf);
+    e = launch_tile<T, kF32>(XSrc<T, TP>{static_cast<const T*>(enc), static_cast<const TP*>(pred),
+                                         row0, Tn, U1, J},
+                             x, static_cast<T*>(nullptr), xlo, 0, rows, J, J, 0, st);
+    if (e != cudaSuccess) return e;
+    ++*launched;
+    const LseEpi epi{static_cast<const float*>(bias), static_cast<const int*>(lab), pmax, psum,
+                     static_cast<float*>(lpb), static_cast<float*>(lpe), row0, rows, M, Tn, U1,
+                     V, blank};
+    const Operand x_op{x, xlo, (uint64_t)rows, (uint64_t)J};
+    e = launch_gemm<T, BN>(x_op, wt_op, J, 1, epi, st);
+    if (e != cudaSuccess) return e;
+    ++*launched;
+  }
+  joint_lse_combine_kernel<<<(M + 255) / 256, 256, 0, st>>>(
+      pmax, psum, static_cast<const int*>(lab), static_cast<float*>(lpb), static_cast<float*>(lpe),
+      static_cast<float*>(logz), M, n_tiles, Tn, U1, V);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return e;
 }
 
-template <typename T, typename TP>
+// The narrow kernels' widths (J a multiple of 128, after the wrappers'
+// padding), bf16 enc only: the forward up to 640, the backward up to 512.
+// float32 has none: the wide route takes it at every J.
+constexpr int NARROW_FWD_J_BF16 = 640, NARROW_BWD_J_BF16 = 512;
+bool fwd_narrow(int J, bool is_bf16) { return is_bf16 && J <= NARROW_FWD_J_BF16; }
+bool bwd_narrow(int J, bool is_bf16) { return is_bf16 && J <= NARROW_BWD_J_BF16; }
+
+// the narrow forward: joint_fwd_wg_kernel
+template <typename TP>
 cudaError_t launch_fwd(const void* enc, const void* pred, const void* w, const void* bias,
                        const void* lab, void* lpb, void* lpe, void* logz, cudaStream_t st, int M,
                        int Tn, int U1, int J, int V, int Vp, int blank) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  if (!j_narrow(J, kBf16))
-    return launch_fwd_wide<T, TP>(enc, pred, w, bias, lab, lpb, lpe, logz, st, M, Tn, U1, J, V,
-                                  Vp, blank);
-  if constexpr (kBf16) {
-    switch (J / 128) {
+  switch (J / 128) {
 #define FWD_WG(NJ)                                                                              \
   case NJ:                                                                                      \
     return launch_fwd_wg<NJ, TP>(enc, pred, w, bias, lab, lpb, lpe, logz, st, M, Tn, U1, V, Vp, \
                                  blank);
-      FWD_WG(1) FWD_WG(2) FWD_WG(3) FWD_WG(4) FWD_WG(5)
+    FWD_WG(1) FWD_WG(2) FWD_WG(3) FWD_WG(4) FWD_WG(5)
 #undef FWD_WG
-      default: return cudaErrorInvalidValue;
-    }
-  } else {
-    const Smem<T> S(J);
-    cudaError_t e = set_smem(joint_fwd_kernel<T, TP>, S.total);
-    if (e != cudaSuccess) return e;
-    const int grid = (M + Tile<T>::BM - 1) / Tile<T>::BM;
-    joint_fwd_kernel<T, TP><<<grid, kThreads, S.total, st>>>(
-        static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<const T*>(w),
-        static_cast<const float*>(bias), static_cast<const int*>(lab), static_cast<float*>(lpb),
-        static_cast<float*>(lpe), static_cast<float*>(logz), M, Tn, U1, J, V, Vp, blank);
-    return cudaGetLastError();
+    default: return cudaErrorInvalidValue;
   }
 }
 
-// the FMA kernels of the narrow float32 backward
-template <typename T, typename TP>
-cudaError_t launch_bwd_xp_mma(const void* enc, const void* pred, const void* w, const void* bias,
-                              const void* lab, const void* logz, const void* gb, const void* ge,
-                              void* dpre, cudaStream_t st, int M, int Tn, int U1, int J, int V,
-                              int Vp, int blank) {
-  const Smem<T> S(J);
-  cudaError_t e = set_smem(joint_bwd_xp_kernel<T, TP>, S.total);
-  if (e != cudaSuccess) return e;
-  const int grid = (M + Tile<T>::BM - 1) / Tile<T>::BM;
-  joint_bwd_xp_kernel<T, TP><<<grid, kThreads, S.total, st>>>(
-      static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<const T*>(w),
-      static_cast<const float*>(bias), static_cast<const int*>(lab),
-      static_cast<const float*>(logz), static_cast<const float*>(gb),
-      static_cast<const float*>(ge), static_cast<float*>(dpre), M, Tn, U1, J, V, Vp, blank);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_bwd_w_mma(const void* xbuf, const void* w, const void* bias, const void* lab,
-                             const void* logz, const void* gb, const void* ge, void* part,
-                             void* dbpart, cudaStream_t st, int M, int Tn, int U1, int J, int V,
-                             int Vp, int blank, int n_chunks, int rows_per_chunk) {
-  const Smem<T> S(J);
-  cudaError_t e = set_smem(joint_bwd_w_kernel<T>, S.total);
-  if (e != cudaSuccess) return e;
-  joint_bwd_w_kernel<T><<<dim3(Vp / BN, n_chunks), kThreads, S.total, st>>>(
-      static_cast<const T*>(xbuf), static_cast<const T*>(w), static_cast<const float*>(bias),
-      static_cast<const int*>(lab), static_cast<const float*>(logz),
-      static_cast<const float*>(gb), static_cast<const float*>(ge), static_cast<float*>(part),
-      static_cast<float*>(dbpart), M, Tn, U1, J, V, Vp, blank, rows_per_chunk);
-  return cudaGetLastError();
-}
-
-// the narrow backward (J <= 512): bf16 on wgmma, float32 on FMAs
-template <typename T, typename TP>
+// the narrow backward: joint_bwd_xp_wg_kernel, then the sums over u and t
+template <typename TP>
 cudaError_t launch_bwd_xp(const void* enc, const void* pred, const void* w, const void* bias,
                           const void* lab, const void* logz, const void* gb, const void* ge,
                           void* dpre, void* d_enc, void* d_pred, int* launched, cudaStream_t st,
                           int B, int Tn, int U1, int J, int V, int Vp, int blank) {
   const int M = B * Tn * U1;
   cudaError_t e;
-  if constexpr (std::is_same<T, bf16>::value) {
-    switch (J / 128) {
+  switch (J / 128) {
 #define XP_WG(NJ)                                                                               \
   case NJ:                                                                                      \
     e = launch_bwd_xp_wg<NJ, TP>(enc, pred, w, bias, lab, logz, gb, ge, dpre, st, M, Tn, U1, V, \
                                  Vp, blank);                                                    \
     break;
-      XP_WG(1) XP_WG(2) XP_WG(3) XP_WG(4)
+    XP_WG(1) XP_WG(2) XP_WG(3) XP_WG(4)
 #undef XP_WG
-      default: return cudaErrorInvalidValue;
-    }
-  } else {
-    e = launch_bwd_xp_mma<T, TP>(enc, pred, w, bias, lab, logz, gb, ge, dpre, st, M, Tn, U1, J,
-                                 V, Vp, blank);
+    default: return cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return e;
   *launched = 1;
@@ -2343,35 +1899,31 @@ cudaError_t launch_bwd_xp(const void* enc, const void* pred, const void* w, cons
   return e;
 }
 
-template <typename T, typename TP>
+// the narrow backward: x, joint_bwd_w_wg_kernel, then the sums over chunks
+template <typename TP>
 cudaError_t launch_bwd_w(const void* enc, const void* pred, const void* w, const void* bias,
                          const void* lab, const void* logz, const void* gb, const void* ge,
                          void* xbuf, void* part, void* dbpart, void* dw, void* db, int* launched,
                          cudaStream_t st, int B, int Tn, int U1, int J, int V, int Vp, int blank,
                          int n_chunks) {
   const int M = B * Tn * U1;
-  joint_x_kernel<T, TP><<<(M + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      static_cast<const T*>(enc), static_cast<const TP*>(pred), static_cast<T*>(xbuf), M, Tn,
-      U1, J);
+  joint_x_kernel<bf16, TP><<<(M + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      static_cast<const bf16*>(enc), static_cast<const TP*>(pred), static_cast<bf16*>(xbuf), M,
+      Tn, U1, J);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   *launched = 1;
-  const int tiles = (M + Tile<T>::BM - 1) / Tile<T>::BM;
-  const int rows_per_chunk = (tiles + n_chunks - 1) / n_chunks * Tile<T>::BM;
-  if constexpr (std::is_same<T, bf16>::value) {
-    switch (J / 128) {
+  const int tiles = (M + WG_ROWS - 1) / WG_ROWS;
+  const int rows_per_chunk = (tiles + n_chunks - 1) / n_chunks * WG_ROWS;
+  switch (J / 128) {
 #define W_WG(NJ)                                                                              \
   case NJ:                                                                                    \
     e = launch_bwd_w_wg<NJ>(xbuf, w, bias, lab, logz, gb, ge, part, dbpart, st, M, Tn, U1, V, \
                             Vp, blank, n_chunks, rows_per_chunk);                             \
     break;
-      W_WG(1) W_WG(2) W_WG(3) W_WG(4)
+    W_WG(1) W_WG(2) W_WG(3) W_WG(4)
 #undef W_WG
-      default: return cudaErrorInvalidValue;
-    }
-  } else {
-    e = launch_bwd_w_mma<T>(xbuf, w, bias, lab, logz, gb, ge, part, dbpart, st, M, Tn, U1, J, V,
-                            Vp, blank, n_chunks, rows_per_chunk);
+    default: return cudaErrorInvalidValue;
   }
   if (e != cudaSuccess) return e;
   *launched = 2;
@@ -2393,34 +1945,60 @@ bool j_routed(int J) { return J > 0 && J % 128 == 0; }
 // The C entries: enc in bf16 or float32 (is_bf16), pred likewise
 // (pred_bf16); w [J,Vp] in enc's dtype, bias [Vp] float32, lab [B,U1] int32.
 // J a multiple of 128; each entry returns cudaErrorInvalidValue before any
-// launch for J outside its routes. Routes by shape and dtype (J padded):
-//   forward   bf16 J <= 640: joint_fwd_wg_kernel (wgmma, TMA; Vp a multiple of 128)
-//             float32 J <= 512: joint_fwd_kernel (FMAs)
-//             above: joint_fwd_wide_kernel (J streamed in chunks of 128; wmma / FMAs)
-//   backward  bf16 J <= 512: joint_bwd_xp_wg_kernel, joint_bwd_w_wg_kernel (wgmma, TMA)
-//             float32 J <= 512: joint_bwd_xp_kernel, joint_bwd_w_kernel (FMAs)
-//             (joint_lattice_bwd_xp, joint_lattice_bwd_w)
-//   wide backward  J > 512, either dtype: joint_gemm_kernel's two products per chunk
-//             of cells (wgmma, TMA; 3xTF32 in float32) (joint_lattice_bwd_xp_wide,
-//             joint_lattice_bwd_w_wide)
+// launch for a (dtype, J) outside its route. Routes by dtype and J (padded):
+//   narrow, bf16 enc only (joint_lattice_fwd, joint_lattice_bwd_xp, joint_lattice_bwd_w):
+//     forward J <= 640: joint_fwd_wg_kernel (wgmma, TMA; Vp a multiple of 128)
+//     backward J <= 512: joint_bwd_xp_wg_kernel, joint_bwd_w_wg_kernel (wgmma, TMA)
+//   wide, float32 at every J and bf16 above (joint_lattice_fwd_wide,
+//     joint_lattice_bwd_xp_wide, joint_lattice_bwd_w_wide): joint_gemm_kernel's
+//     products per chunk of cells (wgmma, TMA; 3xTF32 in float32), one in the
+//     forward, two in each backward entry
+// *grids: the grids each entry launched.
 
-// -> lpb, lpe, logz [B,T,U1] float32.
+// -> lpb, lpe, logz [B,T,U1] float32. *grids: 1.
 extern "C" int joint_lattice_fwd(const void* enc, const void* pred, const void* w,
                                  const void* bias, const void* lab, void* lpb, void* lpe,
-                                 void* logz, void* stream, int B, int T, int U1, int J, int V,
-                                 int Vp, int blank, int is_bf16, int pred_bf16) {
-  if (!j_routed(J) || (is_bf16 && Vp % FWD_VT)) return cudaErrorInvalidValue;
+                                 void* logz, void* grids, void* stream, int B, int T, int U1,
+                                 int J, int V, int Vp, int blank, int is_bf16, int pred_bf16) {
+  int* launched = static_cast<int*>(grids);
+  *launched = 0;
+  if (!j_routed(J) || !fwd_narrow(J, is_bf16) || Vp % FWD_VT) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = B * T * U1;
-#define JOINT_FWD(T_, TP_) \
-  launch_fwd<T_, TP_>(enc, pred, w, bias, lab, lpb, lpe, logz, st, M, T, U1, J, V, Vp, blank)
+  const cudaError_t e =
+      pred_bf16 ? launch_fwd<bf16>(enc, pred, w, bias, lab, lpb, lpe, logz, st, M, T, U1, J, V,
+                                   Vp, blank)
+                : launch_fwd<float>(enc, pred, w, bias, lab, lpb, lpe, logz, st, M, T, U1, J, V,
+                                    Vp, blank);
+  if (e == cudaSuccess) *launched = 1;
+  return static_cast<int>(e);
+}
+
+// float32 at any J, bf16 J > 640. -> lpb, lpe, logz as joint_lattice_fwd;
+// scratch in enc's dtype, each twice as long in float32 (tf32 hi, then lo):
+// wt [Vp,J], xbuf [chunk,J]; float32 part [2, ceil(Vp / BN), B*T*U1] (BN
+// 128 in float32, 256 in bf16). chunk: cells per chunk, a multiple of 128;
+// Vp a multiple of 128. *grids: 2 per chunk and 2.
+extern "C" int joint_lattice_fwd_wide(const void* enc, const void* pred, const void* w,
+                                      const void* bias, const void* lab, void* lpb, void* lpe,
+                                      void* logz, void* wt, void* xbuf, void* part, void* grids,
+                                      void* stream, int B, int T, int U1, int J, int V, int Vp,
+                                      int blank, int chunk, int is_bf16, int pred_bf16) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* launched = static_cast<int*>(grids);
+  *launched = 0;
+  if (!j_routed(J) || fwd_narrow(J, is_bf16) || Vp % FWD_VT || chunk <= 0 || chunk % GM_BM)
+    return cudaErrorInvalidValue;
+#define JOINT_FWD(T_, TP_)                                                                      \
+  launch_fwd_wide<T_, TP_>(enc, pred, w, bias, lab, wt, xbuf, part, lpb, lpe, logz, launched, \
+                           st, B, T, U1, J, V, Vp, blank, chunk)
   return static_cast<int>(is_bf16 ? (pred_bf16 ? JOINT_FWD(bf16, bf16) : JOINT_FWD(bf16, float))
                                   : (pred_bf16 ? JOINT_FWD(float, bf16) : JOINT_FWD(float, float)));
 #undef JOINT_FWD
 }
 
-// J <= 512. -> d_enc [B,T,J], d_pred [B,U1,J] float32; dpre [B*T*U1, J]
-// float32 scratch. *grids: the grids launched (2).
+// bf16 J <= 512. -> d_enc [B,T,J], d_pred [B,U1,J] float32; dpre [B*T*U1, J]
+// float32 scratch. *grids: 2.
 extern "C" int joint_lattice_bwd_xp(const void* enc, const void* pred, const void* w,
                                     const void* bias, const void* lab, const void* logz,
                                     const void* gb, const void* ge, void* dpre, void* d_enc,
@@ -2429,18 +2007,17 @@ extern "C" int joint_lattice_bwd_xp(const void* enc, const void* pred, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* launched = static_cast<int*>(grids);
   *launched = 0;
-  if (!j_routed(J) || !j_narrow_bwd(J)) return cudaErrorInvalidValue;
-#define JOINT_XP(T_, TP_)                                                                     \
-  launch_bwd_xp<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, dpre, d_enc, d_pred, launched, \
-                         st, B, T, U1, J, V, Vp, blank)
-  return static_cast<int>(is_bf16 ? (pred_bf16 ? JOINT_XP(bf16, bf16) : JOINT_XP(bf16, float))
-                                  : (pred_bf16 ? JOINT_XP(float, bf16) : JOINT_XP(float, float)));
+  if (!j_routed(J) || !bwd_narrow(J, is_bf16)) return cudaErrorInvalidValue;
+#define JOINT_XP(TP_)                                                                         \
+  launch_bwd_xp<TP_>(enc, pred, w, bias, lab, logz, gb, ge, dpre, d_enc, d_pred, launched, st, \
+                     B, T, U1, J, V, Vp, blank)
+  return static_cast<int>(pred_bf16 ? JOINT_XP(bf16) : JOINT_XP(float));
 #undef JOINT_XP
 }
 
-// J <= 512. -> dw [J,Vp], db [Vp] float32; scratch: xbuf [B*T*U1, J] in
-// enc's dtype, part [n_chunks, J, Vp] and dbpart [n_chunks, Vp] float32.
-// *grids: the grids launched (3).
+// bf16 J <= 512. -> dw [J,Vp], db [Vp] float32; scratch: xbuf [B*T*U1, J]
+// bf16, part [n_chunks, J, Vp] and dbpart [n_chunks, Vp] float32.
+// *grids: 3.
 extern "C" int joint_lattice_bwd_w(const void* enc, const void* pred, const void* w,
                                    const void* bias, const void* lab, const void* logz,
                                    const void* gb, const void* ge, void* xbuf, void* part,
@@ -2450,16 +2027,16 @@ extern "C" int joint_lattice_bwd_w(const void* enc, const void* pred, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* launched = static_cast<int*>(grids);
   *launched = 0;
-  if (!j_routed(J) || !j_narrow_bwd(J)) return cudaErrorInvalidValue;
-#define JOINT_W(T_, TP_)                                                                      \
-  launch_bwd_w<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, xbuf, part, dbpart, dw, db,     \
-                        launched, st, B, T, U1, J, V, Vp, blank, n_chunks)
-  return static_cast<int>(is_bf16 ? (pred_bf16 ? JOINT_W(bf16, bf16) : JOINT_W(bf16, float))
-                                  : (pred_bf16 ? JOINT_W(float, bf16) : JOINT_W(float, float)));
+  if (!j_routed(J) || !bwd_narrow(J, is_bf16)) return cudaErrorInvalidValue;
+#define JOINT_W(TP_)                                                                          \
+  launch_bwd_w<TP_>(enc, pred, w, bias, lab, logz, gb, ge, xbuf, part, dbpart, dw, db,         \
+                    launched, st, B, T, U1, J, V, Vp, blank, n_chunks)
+  return static_cast<int>(pred_bf16 ? JOINT_W(bf16) : JOINT_W(float));
 #undef JOINT_W
 }
 
-// J > 512 (any J a multiple of 128). -> d_enc, d_pred as joint_lattice_bwd_xp;
+
+// float32 at any J, bf16 J > 512. -> d_enc, d_pred as joint_lattice_bwd_xp;
 // scratch in enc's dtype, each twice as long in float32 (tf32 hi, then lo):
 // wt [Vp,J], wn [J,Vp] (float32 only; null in bf16), xbuf [chunk,J], dlbuf
 // [chunk,Vp]; dpre [B*T*U1, J] float32. chunk: cells per chunk, a multiple
@@ -2474,7 +2051,8 @@ extern "C" int joint_lattice_bwd_xp_wide(const void* enc, const void* pred, cons
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* launched = static_cast<int*>(grids);
   *launched = 0;
-  if (!j_routed(J) || j_narrow_bwd(J) || chunk <= 0 || chunk % GM_BM) return cudaErrorInvalidValue;
+  if (!j_routed(J) || bwd_narrow(J, is_bf16) || chunk <= 0 || chunk % GM_BM)
+    return cudaErrorInvalidValue;
 #define JOINT_XP(T_, TP_)                                                                       \
   launch_bwd_xp_wide<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, wt, wn, xbuf, dlbuf, dpre, \
                               d_enc, d_pred, launched, st, B, T, U1, J, V, Vp, blank, chunk)
@@ -2483,7 +2061,7 @@ extern "C" int joint_lattice_bwd_xp_wide(const void* enc, const void* pred, cons
 #undef JOINT_XP
 }
 
-// J > 512 (any J a multiple of 128). -> dw, db as joint_lattice_bwd_w;
+// float32 at any J, bf16 J > 512. -> dw, db as joint_lattice_bwd_w;
 // scratch in enc's dtype, each twice as long in float32: wt [Vp,J], xbuf
 // [chunk,J], xtbuf [J,chunk], dlbuf [Vp,chunk]; float32 part [n_split,J,Vp],
 // dbpart [ceil(B*T*U1 / 128), Vp]. *grids: the grids launched (3 per chunk and 2).
@@ -2497,7 +2075,7 @@ extern "C" int joint_lattice_bwd_w_wide(const void* enc, const void* pred, const
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* launched = static_cast<int*>(grids);
   *launched = 0;
-  if (!j_routed(J) || j_narrow_bwd(J) || chunk <= 0 || chunk % GM_BM || n_split <= 0)
+  if (!j_routed(J) || bwd_narrow(J, is_bf16) || chunk <= 0 || chunk % GM_BM || n_split <= 0)
     return cudaErrorInvalidValue;
 #define JOINT_W(T_, TP_)                                                                         \
   launch_bwd_w_wide<T_, TP_>(enc, pred, w, bias, lab, logz, gb, ge, wt, xbuf, xtbuf, dlbuf, part, \

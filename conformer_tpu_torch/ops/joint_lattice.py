@@ -9,17 +9,19 @@ bound and the design. ``joint_lattice_fwd``, ``joint_lattice_bwd_xp`` and
 ``joint_lattice_bwd_w`` launch them for CUDA tensors and take the plain
 versions only for CPU tensors; each counts in ``.launches`` the grids it
 launched (1, 2 and 3 per call on the narrow kernels: the backwards sum
-across blocks in extra grids, in a fixed order; the wide backward 3 per
-chunk of cells and 2). The plain versions are chunked over T, so they
-build [B, t_chunk, U+1, V] at a time and never the whole lattice. The
-kernels take J in multiples of 128: the wrappers zero-pad J
-(``pad_join``, exact) and slice the gradients back. Every J is taken
-(``width_error``); ``route`` says which kernels run it, by direction: the
-narrow ones at every shipped width (the forward up to 640 in bf16, the
-backward up to 512, float32 up to 512, after padding), the wide ones
-above (the forward streams J in chunks; the backward runs its two
-products on wgmma per chunk of cells, ``joint_lattice_bwd_xp_wide`` and
-``_bwd_w_wide`` in the C source).
+across blocks in extra grids, in a fixed order; on the wide route the
+forward 2 per chunk of cells and 2, each backward 3 per chunk and 2). The
+plain versions are chunked over T, so they build [B, t_chunk, U+1, V] at
+a time and never the whole lattice. The kernels take J in multiples of
+128: the wrappers zero-pad J (``pad_join``, exact) and slice the gradients
+back. Every J is taken (``width_error``); ``route`` says which kernels run
+it, by dtype and direction: the narrow ones for bf16 enc at the shipped
+widths (the forward up to 640, the backward up to 512, after padding),
+the wide route for float32 at every J and for bf16 above (per chunk of
+cells the products on wgmma fed by TMA, 3xTF32 in float32: the forward's
+logits product with a logsumexp epilogue, ``joint_lattice_fwd_wide`` in
+the C source; the backward's two products, ``joint_lattice_bwd_xp_wide``
+and ``_bwd_w_wide``).
 
 Inputs everywhere: enc [B, T, J] and pred [B, U+1, J], each float32 or
 bfloat16 (the model gives bf16 enc and float32 pred: the predictor runs in
@@ -42,15 +44,15 @@ from . import cuda_build
 _V_TILE = 64            # the backward's V tile: W and the bias are padded to a multiple of it
 _FWD_V_TILE = 128       # the forward's
 J_TILE = 128            # the kernels take J in multiples of it: the wrappers pad J with zeros
-# the narrow kernels' padded J, by direction and dtype (csrc/joint_lattice.cu
-# NARROW_FWD_J_BF16, NARROW_BWD_J, NARROW_J_F32)
-NARROW_J = {"fwd": {torch.bfloat16: 640, torch.float32: 512},
-            "bwd": {torch.bfloat16: 512, torch.float32: 512}}
+DTYPES = (torch.float32, torch.bfloat16)   # enc's dtypes that the kernels take
+# the narrow kernels' padded J, by direction, bf16 enc only (csrc/joint_lattice.cu
+# NARROW_FWD_J_BF16, NARROW_BWD_J_BF16); float32 takes the wide route at every J
+NARROW_J = {"fwd": {torch.bfloat16: 640}, "bwd": {torch.bfloat16: 512}}
 _BWD_W_BLOCKS = 4 * 132   # bwd_w's grid: at least four blocks per SM of an H100
 _BWD_W_ROWS = 8192        # bwd_w: cells summed in float32 into one partial dW, at most
 _MAX_CHUNKS = 128
-_WIDE_TILE = 128          # the wide backward's tiles: 128 cells (or J rows) a block
-_WIDE_DL_BYTES = 1 << 29  # the wide backward: dl of one chunk of cells, at most (512 MiB)
+_WIDE_TILE = 128          # the wide route's tiles: 128 cells (or J rows) a block
+_WIDE_DL_BYTES = 1 << 29  # the wide route: dl of one chunk of cells, at most (512 MiB)
 
 
 def _picks_index(lab, v: int):
@@ -137,13 +139,16 @@ def joint_lattice_plain_bwd_w(enc, pred, w, b, lab, logz, g_blank, g_emit, blank
 def route(dtype, j: int, direction: str = "fwd") -> str:
     """Which kernels run join width ``j`` with enc in ``dtype`` in
     ``direction`` ("fwd" or "bwd"; J padded to a multiple of ``J_TILE``
-    first): "narrow" at every shipped width, bf16 (the model's) padded J
-    <= 640 forward (Conformer-S 320 -> 384, M 512, L 640: on wgmma) and
-    <= 512 backward (on wgmma), float32 (the parity path) padded J <= 512
-    (the FMA kernels, whose x tile holds all of J); else "wide": the wide
-    forward streams J in chunks of 128; the wide backward runs its two
-    products per chunk of cells on wgmma fed by TMA (3xTF32 in float32),
-    dl between them in device memory."""
+    first): "narrow" for bf16 enc (the model's) at every shipped width,
+    padded J <= 640 forward (Conformer-S 320 -> 384, M 512, L 640) and
+    <= 512 backward, each a fused wgmma kernel that computes its own x
+    tile; else "wide": float32 (the parity path) at every J, bf16 above.
+    The wide route writes x and W^T once in the layouts the tensor cores
+    read and runs its products per chunk of cells on wgmma fed by TMA
+    (3xTF32 in float32): the forward's logits product with a logsumexp
+    epilogue (per V tile partial max and sum of exps, folded by a last
+    grid); the backward's two products, dl between them in device
+    memory."""
     jp = -(-j // J_TILE) * J_TILE
     return "narrow" if jp <= NARROW_J[direction].get(dtype, 0) else "wide"
 
@@ -152,7 +157,7 @@ def width_error(dtype, j: int) -> str | None:
     """Why the kernels refuse join width ``j`` with enc in ``dtype``, or
     None where all three take it: enc float32 or bfloat16 and any J >= 1,
     as JAX's kernel, which takes the whole J as one block (``route``)."""
-    if dtype not in NARROW_J["fwd"]:
+    if dtype not in DTYPES:
         return f"enc must be float32 or bfloat16, got {dtype}"
     if j <= 0:
         return f"J={j}: the join width must be positive"
@@ -214,38 +219,61 @@ def _dtypes(enc, pred):
 
 def joint_lattice_fwd(enc, pred, w, b, lab, blank: int):
     """Kernel wrapper with the contract of ``joint_lattice_plain_fwd``: CPU
-    tensors take the plain version, CUDA tensors launch the kernel or raise
-    (float32 or bfloat16 contiguous enc and pred, int32 labels, J that
-    ``width_error`` passes; J is zero-padded to a multiple of 128)."""
+    tensors take the plain version, CUDA tensors launch the kernels or
+    raise (float32 or bfloat16 contiguous enc and pred, int32 labels, J
+    that ``width_error`` passes; J is zero-padded to a multiple of 128).
+    Narrow route: one grid. Wide route: W^T once; per chunk of cells x and
+    the logits product, whose epilogue writes each (V tile, cell)'s max
+    and sum of exps and the picks; a last grid folds the tiles into logZ."""
     if enc.device.type == "cpu":
         return joint_lattice_plain_fwd(enc, pred, w, b, lab, blank)
     bsz, t, u1, _, v = _check("joint_lattice_fwd", enc, pred, w, b, lab, blank)
     enc, pred, w = pad_join(enc, pred, w)
     j = enc.shape[2]
     wk, bk, vp = _operands(enc, w, b, _FWD_V_TILE)
-    lpb, lpe, logz = (torch.empty((bsz, t, u1), dtype=torch.float32, device=enc.device)
+    dev, m = enc.device, bsz * t * u1
+    lpb, lpe, logz = (torch.empty((bsz, t, u1), dtype=torch.float32, device=dev)
                       for _ in range(3))
-    fn = cuda_build.load_function("joint_lattice", "joint_lattice_fwd", n_ptrs=9, n_ints=9)
     P = cuda_build.ptr
-    err = fn(P(enc), P(pred), P(wk), P(bk), P(lab), P(lpb), P(lpe), P(logz),
-             cuda_build.stream_ptr(enc), bsz, t, u1, j, v, vp, blank, *_dtypes(enc, pred))
+    grids = ctypes.c_int(0)
+    common = (P(enc), P(pred), P(wk), P(bk), P(lab), P(lpb), P(lpe), P(logz))
+    if route(enc.dtype, j) == "wide":
+        f32 = enc.dtype == torch.float32
+        chunk = _wide_chunk(m, vp, 8 if f32 else 2)
+        wt, xbuf = _wide_scratch(enc, vp * j), _wide_scratch(enc, chunk * j)
+        part = torch.empty((2, fwd_tiles(vp, f32), m), dtype=torch.float32, device=dev)
+        fn = cuda_build.load_function("joint_lattice", "joint_lattice_fwd_wide", n_ptrs=13,
+                                      n_ints=10)
+        err = fn(*common, P(wt), P(xbuf), P(part), ctypes.addressof(grids),
+                 cuda_build.stream_ptr(enc), bsz, t, u1, j, v, vp, blank, chunk,
+                 *_dtypes(enc, pred))
+    else:
+        fn = cuda_build.load_function("joint_lattice", "joint_lattice_fwd", n_ptrs=10, n_ints=9)
+        err = fn(*common, ctypes.addressof(grids), cuda_build.stream_ptr(enc), bsz, t, u1, j, v,
+                 vp, blank, *_dtypes(enc, pred))
+    joint_lattice_fwd.launches += grids.value
     cuda_build.check(err, "joint_lattice_fwd")
-    joint_lattice_fwd.launches += 1
     return lpb, lpe, logz
 
 
+def fwd_tiles(vp: int, f32: bool) -> int:
+    """V tiles of the wide forward's logits product (128 columns in float32,
+    256 in bf16): the partials hold one (max, sum) pair per tile and cell."""
+    return -(-vp // (128 if f32 else 256))
+
+
 def _wide_chunk(m: int, vp: int, elem: int) -> int:
-    """Cells per chunk of the wide backward: a multiple of ``_WIDE_TILE``
+    """Cells per chunk of the wide route: a multiple of ``_WIDE_TILE``
     whose dl ([chunk, Vp], ``elem`` bytes a value: 2 in bf16, 8 for
-    float32's tf32 hi and lo) stays within ``_WIDE_DL_BYTES``; M rounded up
-    where all of it fits."""
+    float32's tf32 hi and lo) stays within ``_WIDE_DL_BYTES`` (the forward
+    takes the backward's chunks); M rounded up where all of it fits."""
     fit = _WIDE_DL_BYTES // (vp * elem) // _WIDE_TILE * _WIDE_TILE
     return max(_WIDE_TILE, min(fit, -(-m // _WIDE_TILE) * _WIDE_TILE))
 
 
 def _wide_scratch(enc, n: int):
-    """n values of a wide-backward operand in enc's dtype (float32: twice
-    n, tf32 hi then lo)."""
+    """n values of a wide-route operand in enc's dtype (float32: twice n,
+    tf32 hi then lo)."""
     f32 = enc.dtype == torch.float32
     return torch.empty((2 * n if f32 else n,), dtype=enc.dtype, device=enc.device)
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the bf16 full-lattice joint kernels, and of the wide
-backward in both dtypes, goes on the GPU, by ablation, for the
-PyTorch/CUDA port (``conformer_tpu_torch``).
+route's forward and backward in both dtypes, goes on the GPU, by
+ablation, for the PyTorch/CUDA port (``conformer_tpu_torch``).
 
     python3 scripts/torch_joint_ablation.py
 
@@ -9,29 +9,39 @@ As ``scripts/torch_attention_ablation.py`` does for attention: copies of
 ``csrc/joint_lattice.cu`` with one stage of a wgmma kernel taken out are
 built and timed against the unchanged source on the same inputs: the
 difference bounds what that stage costs where it does not overlap the
-rest. The forward's stages ("fwd: ..."): the logits product, the exps of
-the online logsumexp, the TMA copies of the W stages, the tanh of the x
-tiles. The narrow backward's: the logits product, the exp of the dl
+rest. The narrow forward's stages ("fwd: ..."): the logits product, the
+exps of the online logsumexp, the TMA copies of the W stages, the tanh of
+the x tiles. The narrow backward's: the logits product, the exp of the dl
 epilogue, the second product, the TMA copies of the streamed tiles, the
 named barrier that hands dl between the consumer warpgroups, the extra
-grids around the main one. The wide backward's ("wide: ...", J > 512):
-the logits product and its copies (cut to one K slab of J), the exps of
-the dl epilogue, the dl stores (dl's hand-over to the second product
-through device memory: the design has no cluster exchange), the second
-product and its copies (cut to one K slab), every TMA copy of both products, the grids that
-write x and W^T in the operands' layouts. The ablated copies compute
-wrong results; only their times mean anything. Shapes: chip_smoke.py's
-training shape of the joint (B=32, T'=374, U+1=65, J=512, V=5002), bf16
-enc and float32 pred as the model gives them; the wide backward at
-scripts/torch_width_times.py's B=8, T'=374, U+1=65, V=5002 in bf16 at
-J 1024 and float32 at J 640. Each C entry (``joint_lattice_fwd``,
-``joint_lattice_bwd_xp``, ``joint_lattice_bwd_w``, the ``_wide`` ones, all
-of each one's grids) is timed with CUDA events, mean of 5 after a warm-up
-(chip_smoke.time_ms): the base copy all of them, a forward ablation the
-forward, a narrow backward one both narrow entries, a wide one both wide
-entries in both dtypes. The copies build with nvcc into the checkout's
-git-ignored build/joint_ablation/. The last line is one JSON object of
-all times in ms. Needs a CUDA device; imports nothing of JAX.
+grids around the main one. The wide forward's ("wide fwd: ..."): the
+logits product and its copies (cut to one K slab of J), the exps of the
+logsumexp epilogue, the stores of its (max, sum) partials, the combine
+grid. The wide backward's ("wide: ...", timed on the wide forward too,
+whose grids share joint_gemm_kernel and joint_tile_kernel): the logits
+product and its copies (cut to one K slab of J), the exps of the dl
+epilogue, the dl stores (dl's hand-over to the second product through
+device memory: the design has no cluster exchange), the second product
+and its copies (cut to one K slab), every TMA copy of every product, the
+grids that write x and W^T in the operands' layouts. The ablated copies
+compute wrong results; only their times mean anything. One copy
+("route: ...") is no ablation: its wide forward entry also takes the
+bf16 widths of the narrow forward, so that both forwards are timed on the
+same inputs at Conformer-M's and -L's J 512 and 640 (B=8, T'=374,
+U+1=65, V=5002), the choice of ``NARROW_FWD_J_BF16``. Shapes:
+chip_smoke.py's training shape of the joint (B=32, T'=374, U+1=65,
+J=512, V=5002), bf16 enc and float32 pred as the model gives them; the
+wide route at scripts/torch_width_times.py's B=8, T'=374, U+1=65, V=5002
+in bf16 at J 1024 and float32 at J 640. Each C entry
+(``joint_lattice_fwd``, ``joint_lattice_bwd_xp``, ``joint_lattice_bwd_w``,
+the ``_wide`` ones, all of each one's grids) is timed with CUDA events,
+mean of 5 after a warm-up (chip_smoke.time_ms): the base copy all of
+them, a narrow forward ablation the narrow forward, a narrow backward one
+both narrow backward entries, a wide forward one the wide forward, a
+wide one every wide entry in both dtypes. The copies build with nvcc
+into the checkout's git-ignored build/joint_ablation/. The last line is
+one JSON object of all times in ms. Needs a CUDA device; imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -77,6 +87,9 @@ WIDE_LOADS = ("        hop::mbar_expect(&full[st], G::STAGE);\n"
               "          hop::tma_load(d + G::COPY, &a_lo, &full[st], kc, m0);\n"
               "          hop::tma_load(d + G::COPY + G::A_BYTES, &b_lo, &full[st], kc, n0);\n"
               "        }\n")
+WIDE_FWD_LOGITS = "launch_gemm<T, BN>(x_op, wt_op, J, 1, epi, st)"
+WIDE_FWD_EXPS = "s += __expf(acc[4 * i + 2 * h] - mx) + __expf(acc[4 * i + 2 * h + 1] - mx);"
+WIDE_FWD_GATE = "if (!j_routed(J) || fwd_narrow(J, is_bf16) || Vp % FWD_VT || chunk <= 0"
 WIDE_DL_STORES = ("      if (v < Vp) {\n#pragma unroll\n        for (int h = 0; h < 2; ++h) {\n"
                   "          const int r = m + r0 + 8 * h;\n          if (r >= rows) continue;\n")
 
@@ -107,7 +120,7 @@ ABLATIONS = [
     ("no dl hand-off barrier", SRC, [(HANDOFF, ""), (HANDOFF, "")]),
     ("main grid only", SRC,
      [("  *launched = 1;\n  joint_reduce_xp_kernel<<<", "  *launched = 1;\n  if (0) joint_reduce_xp_kernel<<<"),
-      ("  joint_x_kernel<T, TP><<<", "  if (0) joint_x_kernel<T, TP><<<"),
+      ("  joint_x_kernel<bf16, TP><<<", "  if (0) joint_x_kernel<bf16, TP><<<"),
       ("  joint_reduce_w_kernel<<<", "  if (0) joint_reduce_w_kernel<<<")]),
     ("fwd: no logits product", SRC,
      [("        for (int kk = 0; kk < 4; ++kk)\n          hop::wgmma<128, 0, 1>",
@@ -127,6 +140,15 @@ ABLATIONS = [
     ("wide: no TMA copies", SRC, [(WIDE_LOADS, "        hop::mbar_arrive(&full[st]);\n")]),
     ("wide: no x and W^T grids", SRC,
      [("  joint_tile_kernel<T, kSplit, Src><<<", "  if (0) joint_tile_kernel<T, kSplit, Src><<<")]),
+    ("wide fwd: logits product cut to one K slab", SRC, one_slab([WIDE_FWD_LOGITS], "J")),
+    ("wide fwd: no exps (sum of logit - max)", SRC,
+     [(WIDE_FWD_EXPS, WIDE_FWD_EXPS.replace("__expf", ""))]),
+    ("wide fwd: no partials' stores", SRC, [("      if (q == 0) {\n        pmax[",
+                                             "      if (q == 0 && cell < 0) {\n        pmax[")]),
+    ("wide fwd: no combine grid", SRC,
+     [("  joint_lse_combine_kernel<<<", "  if (0) joint_lse_combine_kernel<<<")]),
+    ("route: the wide forward at the narrow widths", SRC,
+     [(WIDE_FWD_GATE, WIDE_FWD_GATE.replace(" fwd_narrow(J, is_bf16) ||", ""))]),
     ("fwd: no tanh (x = enc + pred)", SRC,
      [(FWD_FILL, FWD_FILL),
       ("x0 = to_f(joint_x<bf16, TP>(e[0], p[0]));\n          x1 = to_f(joint_x<bf16, TP>(e[1], p[1]));",
@@ -134,15 +156,16 @@ ABLATIONS = [
 ]
 
 
-# the wide backward's shapes: (label, B, T', U, V, J, enc dtype), as
+# the wide route's shapes: (label, B, T', U, V, J, enc dtype), as
 # scripts/torch_width_times.py's rows
 WIDE = (("bf16 J=1024", 8, 374, 64, 5002, 1024, "bfloat16"),
         ("f32 J=640", 8, 374, 64, 5002, 640, "float32"))
 
 
 def wide_calls(cs, jl, cuda_build, gen, label, b, t, u, v, j, dt):
-    """{key: fn(lib)} calling the wide C entries of a library on seeded
-    inputs at one shape, with the wrappers' scratch."""
+    """{key: fn(lib)} calling the wide C entries (forward and both
+    backward entries) of a library on seeded inputs at one shape, with the
+    wrappers' scratch."""
     import torch
 
     dtype = getattr(torch, dt)
@@ -166,6 +189,19 @@ def wide_calls(cs, jl, cuda_build, gen, label, b, t, u, v, j, dt):
               P(x["g_emit"]))
     flags = (int(not f32), 0)
     st = cuda_build.stream_ptr(enc)
+    wf, bf, vpf = jl._operands(enc, w, x["b"], jl._FWD_V_TILE)
+    fchunk = jl._wide_chunk(m, vpf, 8 if f32 else 2)
+    wtf, xfbuf = s(vpf * j), s(fchunk * j)
+    fpart = torch.empty((2, jl.fwd_tiles(vpf, f32), m), **fl)
+    lp = [torch.empty((b, t, u1), **fl) for _ in range(3)]
+
+    def fw(lib):
+        fn = lib.joint_lattice_fwd_wide
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
+        fn.restype = ctypes.c_int
+        return fn(P(enc), P(pred), P(wf), P(bf), P(x["lab"]), *(P(o) for o in lp), P(wtf),
+                  P(xfbuf), P(fpart), ctypes.addressof(grids), st, b, t, u1, j, v, vpf, 0,
+                  fchunk, *flags)
 
     def xp(lib):
         fn = lib.joint_lattice_bwd_xp_wide
@@ -182,7 +218,63 @@ def wide_calls(cs, jl, cuda_build, gen, label, b, t, u, v, j, dt):
         return fn(*common, P(wt), P(xbuf), P(xtbuf), P(dlbuf), P(part), P(dbpart), P(dw), P(db),
                   ctypes.addressof(grids), st, b, t, u1, j, v, vp, 0, chunk, n_split, *flags)
 
-    return {f"wide bwd_xp {label}": xp, f"wide bwd_w {label}": wg}
+    return {f"wide fwd {label}": fw, f"wide bwd_xp {label}": xp, f"wide bwd_w {label}": wg}
+
+
+# the bf16 forward's narrow widths at which the route is timed both ways:
+# (label, B, T', U, V, J), as scripts/torch_width_times.py's rows
+ROUTE_FWD = (("M bf16 J=512", 8, 374, 64, 5002, 512), ("L bf16 J=640", 8, 374, 64, 5002, 640))
+
+
+def route_calls(cs, jl, cuda_build, gen, label, b, t, u, v, j):
+    """{key: fn(lib)}: the narrow forward entry and the wide one on the same
+    seeded bf16 inputs (bf16 enc, float32 pred) at one of the narrow
+    kernel's widths, the wide one with the wrapper's scratch."""
+    import torch
+
+    x = cs.joint_inputs("cuda", torch.bfloat16, torch.float32, gen, b, t, u, v, j=j)
+    enc, pred = x["enc"], x["pred"]
+    wf, bf, vpf = jl._operands(enc, x["w"], x["b"], jl._FWD_V_TILE)
+    u1, m = u + 1, b * t * (u + 1)
+    fl = dict(dtype=torch.float32, device="cuda")
+    lp = [torch.empty((b, t, u1), **fl) for _ in range(3)]
+    chunk = jl._wide_chunk(m, vpf, 2)
+    wt, xbuf = jl._wide_scratch(enc, vpf * j), jl._wide_scratch(enc, chunk * j)
+    part = torch.empty((2, jl.fwd_tiles(vpf, False), m), **fl)
+    grids = ctypes.c_int(0)
+    P = cuda_build.ptr
+    common = (P(enc), P(pred), P(wf), P(bf), P(x["lab"]), *(P(o) for o in lp))
+    st = cuda_build.stream_ptr(enc)
+
+    def narrow(lib):
+        fn = lib.joint_lattice_fwd
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        fn.restype = ctypes.c_int
+        return fn(*common, ctypes.addressof(grids), st, b, t, u1, j, v, vpf, 0, 1, 0)
+
+    def wide(lib):
+        fn = lib.joint_lattice_fwd_wide
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
+        fn.restype = ctypes.c_int
+        return fn(*common, P(wt), P(xbuf), P(part), ctypes.addressof(grids), st, b, t, u1, j, v,
+                  vpf, 0, chunk, 1, 0)
+
+    return {f"route fwd narrow {label}": narrow, f"route fwd wide {label}": wide}
+
+
+def timed(name: str, key: str) -> bool:
+    """Whether the copy ``name`` times the call ``key``: the base copy every
+    call but the wide forward at the narrow widths (which its entry
+    refuses), the route copy only those, an ablation the calls of its
+    kind."""
+    if key.startswith("route fwd"):
+        return (name == "base") == key.startswith("route fwd narrow") and (
+            name == "base" or name.startswith("route"))
+    if name == "base":
+        return True
+    kind = name.split(":")[0] if ":" in name else "bwd"
+    key_kind = "fwd" if key == "fwd" else "wide" if key.startswith("wide") else "bwd"
+    return kind == key_kind or (kind == "wide fwd" and key.startswith("wide fwd"))
 
 
 def main() -> int:
@@ -223,17 +315,19 @@ def main() -> int:
     wide = {}
     for shape in WIDE:
         wide.update(wide_calls(cs, jl, cuda_build, gen, *shape))
+    for shape in ROUTE_FWD:
+        wide.update(route_calls(cs, jl, cuda_build, gen, *shape))
     times = {}
     for (name, _), lib in libs.items():
         f_fn, xp_fn, w_fn = lib.joint_lattice_fwd, lib.joint_lattice_bwd_xp, lib.joint_lattice_bwd_w
-        f_fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+        f_fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
         xp_fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
         w_fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10
         f_fn.restype = xp_fn.restype = w_fn.restype = ctypes.c_int
         calls = {
             "fwd": lambda f=f_fn: f(P(enc), P(pred), P(wf), P(bf), P(x["lab"]),
-                                    *(P(o) for o in fwd_out), cuda_build.stream_ptr(enc), b, t,
-                                    u1, j, v, vpf, 0, 1, 0),
+                                    *(P(o) for o in fwd_out), ctypes.addressof(grids),
+                                    cuda_build.stream_ptr(enc), b, t, u1, j, v, vpf, 0, 1, 0),
             "bwd_xp": lambda f=xp_fn: f(*common, P(dpre), P(d_enc), P(d_pred),
                                         ctypes.addressof(grids), cuda_build.stream_ptr(enc), b, t,
                                         u1, j, v, vp, 0, 1, 0),
@@ -242,17 +336,15 @@ def main() -> int:
                                       u1, j, v, vp, 0, n_chunks, 1, 0),
             **{k: (lambda fn=fn, lb=lib: fn(lb)) for k, fn in wide.items()},
         }
-        kind = name.split(":")[0] if ":" in name else "bwd"
         for key, call in calls.items():
-            key_kind = "fwd" if key == "fwd" else "wide" if key.startswith("wide") else "bwd"
-            if name != "base" and kind != key_kind:
+            if not timed(name, key):
                 continue
             err = call()
             if err != 0:
                 raise SystemExit(f"{SRC} '{name}' {key}: CUDA error {err}")
             ms = cs.time_ms(call, 5)
             times[f"{key}: {name}"] = ms
-            shape = "" if key_kind == "wide" else f" B={b} T'={t} U+1={u1} V={v}"
+            shape = "" if key.startswith(("wide", "route")) else f" B={b} T'={t} U+1={u1} V={v}"
             print(f"ablation: {key}{shape}: {name}: {ms:.4f} ms")
     print(json.dumps(times))
     return 0

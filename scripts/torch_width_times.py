@@ -2,8 +2,9 @@
 """Times of the attention, conv-block, joint and fused int8 FFN kernels on
 one card at the shipped widths (Conformer-S, -M, -L: the narrow kernels)
 and at wider ones (the 1024-wide Conformer's d=1024, 8 heads of 128, FFN
-4096; the joint at J 640 in float32 and 1024: the wide kernels), for the
-PyTorch/CUDA port (``conformer_tpu_torch``).
+4096; the joint at J 640 in float32 and 1024: the wide kernels; the
+joint in float32 at Conformer-M's J 512 too), for the PyTorch/CUDA port
+(``conformer_tpu_torch``).
 
     python3 scripts/torch_width_times.py [--tree DIR] [--out FILE]
 
@@ -20,7 +21,7 @@ x 374 at Conformer-M and -L, 8 x 374 at the 1024-wide), bf16 x. For the
 joint and the FFN also the plain version's time, the bound (the
 products' operations at the tensor-core or float32 rate against the
 bytes of inputs and outputs at 3.35 TB/s; for the float32 joint also at
-the rate of the 3xTF32 arithmetic its wide backward runs, three tf32
+the rate of the 3xTF32 arithmetic its wide route runs, three tf32
 products each at 495 TFLOP/s, " bound 3xtf32") and a yardstick (the joint's
 products alone by torch.matmul in t chunks; the FFN's two products by
 torch._int_mm) under " plain", " bound" and " yardstick". Inputs are
@@ -54,6 +55,7 @@ CONV = (("M decode", 48, 374, 256, 15), ("S decode", 48, 374, 144, 15),
         ("L decode", 48, 374, 512, 15), ("1024-wide decode", 8, 374, 1024, 15))
 # (label, B, T', U, V, J, enc dtype): enc bf16 with float32 pred is the model's
 JOINT = (("M bf16 J=512", 8, 374, 64, 5002, 512, "bfloat16"),
+         ("M f32 J=512", 8, 374, 64, 5002, 512, "float32"),
          ("L bf16 J=640", 8, 374, 64, 5002, 640, "bfloat16"),
          ("L f32 J=640", 8, 374, 64, 5002, 640, "float32"),
          ("bf16 J=1024", 8, 374, 64, 5002, 1024, "bfloat16"))

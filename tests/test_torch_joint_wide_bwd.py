@@ -1,5 +1,5 @@
 """The wide joint backward's arithmetic (``csrc/joint_lattice.cu``, "wide
-backward": J > 512 in either dtype) emulated on the CPU against JAX's
+route": float32 at every J, bf16 J > 512) emulated on the CPU against JAX's
 ``joint_lattice_log_probs_pallas`` VJP (its Pallas kernels in interpret
 mode, at small tiles), and ``route`` against the C source's constants.
 
@@ -11,7 +11,8 @@ lo*hi in float32; in bf16 dl rounded to bf16 as the second products'
 operand; dW summed over chunks of cells into partials split over cells,
 the partials then summed in order; dbias summed per tile of cells before
 any rounding, the tiles in order. Inputs from seeded numpy generators at B=2,
-T'=8, U+1=5, V=130 (no multiple of 64), J 640, 896 and 1024.
+T'=8, U+1=5, V=130 (no multiple of 64), J 640, 896 and 1024, and float32's
+J 512 (a shipped width: float32 has no narrow kernels).
 
 Tolerances: float32 1e-4 abs and rel (both sides sum in float32 in other
 orders; 3xTF32 keeps ~2^-22 of each term); bf16 2e-2 of each output's
@@ -31,34 +32,11 @@ import torch
 
 from conformer_tpu.ops.pallas import joint_kernel as jk
 from conformer_tpu_torch.ops import joint_lattice as p_joint
+from torch_joint_common import joint_inputs, product, split, tf32_rna
 
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_SHARE = 2e-2
-CASES = [(j, dt) for j in (640, 896, 1024) for dt in ("float32", "bfloat16")]
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32: round float32 to 10 mantissa bits, ties away from
-    zero, on the int32 bits (sign and magnitude: adding half of the dropped
-    unit to the magnitude, then truncating)."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    bits = ((bits + 0x1000) & 0xFFFFE000) & 0xFFFFFFFF
-    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    hi = tf32_rna(x)
-    return hi, tf32_rna(x - hi)
-
-
-def product(a: torch.Tensor, b: torch.Tensor, f32: bool) -> torch.Tensor:
-    """a @ b as the kernels run it: 3xTF32 in float32, else the operands as
-    given (bf16 values) with float32 sums."""
-    if not f32:
-        return a @ b
-    ah, al = split(a)
-    bh, bl = split(b)
-    return ah @ bh + ah @ bl + al @ bh
+CASES = [(j, dt) for j in (640, 896, 1024) for dt in ("float32", "bfloat16")] + [(512, "float32")]
 
 
 def emulated_bwd(enc, pred, w, bias, lab, logz, g_b, g_e, blank, chunk, n_split, tile):
@@ -105,18 +83,6 @@ def emulated_bwd(enc, pred, w, bias, lab, logz, g_b, g_e, blank, chunk, n_split,
     return d_enc[..., :j0], d_pred[..., :j0], dw[:j0], db
 
 
-def _inputs(j, dt, seed):
-    b, t, u, v = 2, 8, 4, 130
-    rng = np.random.default_rng(seed)
-    enc = rng.standard_normal((b, t, j)).astype(np.float32)
-    pred = rng.standard_normal((b, u + 1, j)).astype(np.float32)
-    w = (0.3 * rng.standard_normal((j, v)) / np.sqrt(j / 64)).astype(np.float32)
-    bias = (0.1 * rng.standard_normal(v)).astype(np.float32)
-    lab = np.pad(rng.integers(1, v, (b, u)).astype(np.int32), ((0, 0), (0, 1)))
-    g_b, g_e = (rng.standard_normal((b, t, u + 1)).astype(np.float32) for _ in range(2))
-    return enc, pred, w, bias, lab, g_b, g_e
-
-
 @pytest.mark.parametrize("j,dt", CASES)
 def test_wide_bwd_arithmetic_matches_pallas(j, dt):
     """d enc, d pred, dW and dbias of the emulated wide backward (several
@@ -124,7 +90,7 @@ def test_wide_bwd_arithmetic_matches_pallas(j, dt):
     takes J on the wide backward."""
     dtype = getattr(torch, dt)
     assert p_joint.route(dtype, j, "bwd") == "wide"
-    enc, pred, w, bias, lab, g_b, g_e = _inputs(j, dt, j)
+    enc, pred, w, bias, lab, g_b, g_e = joint_inputs(j, j)
     jdt = jnp.bfloat16 if dt == "bfloat16" else jnp.float32
     jx = (jnp.asarray(enc, jdt), jnp.asarray(pred), jnp.asarray(w), jnp.asarray(bias))
     jlab = jnp.asarray(lab)
@@ -165,20 +131,24 @@ def test_tf32_rna_rounds_to_nearest_ties_away():
 
 
 def test_joint_route_is_the_c_sources():
-    """The C entries take the narrow kernels up to NARROW_FWD_J_BF16 (the
-    bf16 forward) and NARROW_BWD_J / NARROW_J_F32, the wide ones above;
-    ``route`` mirrors those constants by direction, J padded to 128."""
+    """The C entries take the narrow kernels for bf16 enc up to
+    NARROW_FWD_J_BF16 (the forward) and NARROW_BWD_J_BF16 (the backward),
+    the wide route above and for float32 at every J; ``route`` mirrors
+    those constants by dtype and direction, J padded to 128."""
     src = (Path(p_joint.__file__).resolve().parents[1] / "csrc" / "joint_lattice.cu").read_text()
-    got = re.search(r"constexpr int NARROW_FWD_J_BF16 = (\d+), NARROW_BWD_J = (\d+), "
-                    r"NARROW_J_F32 = (\d+);", src)
-    fwd_bf16, bwd, f32 = (int(g) for g in got.groups())
-    assert p_joint.NARROW_J == {"fwd": {torch.bfloat16: fwd_bf16, torch.float32: f32},
-                                "bwd": {torch.bfloat16: bwd, torch.float32: min(bwd, f32)}}
-    for dtype, direction, edge in ((torch.bfloat16, "fwd", fwd_bf16), (torch.bfloat16, "bwd", bwd),
-                                   (torch.float32, "fwd", f32), (torch.float32, "bwd", f32)):
-        assert [p_joint.route(dtype, j, direction) for j in (1, edge - 1, edge, edge + 1,
-                                                              edge + 128, 4096)] \
+    got = re.search(r"constexpr int NARROW_FWD_J_BF16 = (\d+), NARROW_BWD_J_BF16 = (\d+);", src)
+    fwd, bwd = (int(g) for g in got.groups())
+    assert "bool fwd_narrow(int J, bool is_bf16) { return is_bf16 && J <= NARROW_FWD_J_BF16; }" \
+        in src
+    assert "bool bwd_narrow(int J, bool is_bf16) { return is_bf16 && J <= NARROW_BWD_J_BF16; }" \
+        in src
+    assert p_joint.NARROW_J == {"fwd": {torch.bfloat16: fwd}, "bwd": {torch.bfloat16: bwd}}
+    for direction, edge in (("fwd", fwd), ("bwd", bwd)):
+        assert [p_joint.route(torch.bfloat16, j, direction) for j in (1, edge - 1, edge, edge + 1,
+                                                                       edge + 128, 4096)] \
             == ["narrow"] * 3 + ["wide"] * 3
+        assert {p_joint.route(torch.float32, j, direction) for j in (1, 320, 512, 640, 4096)} \
+            == {"wide"}
     assert p_joint.route(torch.bfloat16, 640) == "narrow"          # the forward by default
     assert p_joint.route(torch.bfloat16, 640, "bwd") == "wide"     # Conformer-L's backward
 

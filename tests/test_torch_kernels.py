@@ -88,11 +88,10 @@ def test_kernel_width_limits():
     width (D 144, 256, 512 with K = 15) on the narrow kernels and at D 1024
     (K 15, 32, 64), D 2048 and float32 D 512 with K 31 on the wide ones,
     refusing D past 2048 or not a multiple of 16 and K past 64; the joint
-    kernels at every shipped join width (J 320, 512, 640) in bf16 and up to
-    512 in float32 on the narrow kernels (J padded to a multiple of 128),
-    every wider J (float32 640, 700, 1024, 2048, bf16 641 and above) on the
-    wide ones, refusing only a J below 1 or an enc dtype other than float32
-    and bf16; the int8 kernels at every shipped width (the matmul's K = D:
+    kernels at every shipped join width (J 320, 512, 640) in bf16 on the
+    narrow kernels (J padded to a multiple of 128), float32 at every J and
+    every wider bf16 J (641 and above) on the wide route, refusing only a J
+    below 1 or an enc dtype other than float32 and bf16; the int8 kernels at every shipped width (the matmul's K = D:
     144, 256, 512; the FFN's D / H: 144 / 576, 256 / 2048, 512 / 2048) on
     the narrow kernels, refusing K past 1024; the FFN past D 512 or H 2048
     (Conformer XL's 1024 / 4096, 2048 / 8192) on its wide route, refusing
@@ -120,7 +119,7 @@ def test_kernel_width_limits():
         assert pjl.route(torch.bfloat16, j) == "narrow"
     for j in (320, 512):
         assert pjl.width_error(torch.float32, j) is None
-        assert pjl.route(torch.float32, j) == "narrow"
+        assert pjl.route(torch.float32, j) == pjl.route(torch.float32, j, "bwd") == "wide"
     for dtype, wide in ((torch.bfloat16, (641, 700, 1024, 2048)),
                         (torch.float32, (513, 640, 700, 1024, 2048))):
         for j in wide:
