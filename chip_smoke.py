@@ -429,16 +429,20 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, name: str, iters: int = 20, tries: int = 3):
-    """Mean device time of the kernel launch whose name holds ``name`` (one
-    a call of ``fn``), by torch.profiler over ``iters`` calls after a
-    warm-up: the mean over the launches the trace recorded. A trace that
-    recorded none of them is taken again, up to ``tries`` times; then the
-    time is None (not measured)."""
+def device_ms(fn, name: str | tuple = "", iters: int = 20, tries: int = 3,
+              per_call: int | None = None):
+    """Device time by torch.profiler over ``iters`` calls of ``fn`` after a
+    warm-up, of the kernel launches whose name holds ``name`` (or one of
+    the names in a tuple). Without ``per_call``: the mean over the
+    recorded launches (one a call); a trace that recorded none is taken
+    again. With it: the sum of the ``per_call`` launches one call makes; a
+    trace that did not record exactly ``iters * per_call`` is taken again.
+    After ``tries`` traces the time is None (not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = name if isinstance(name, tuple) else (name,)
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -447,9 +451,14 @@ def device_ms(fn, name: str, iters: int = 20, tries: int = 3):
                 fn()
             torch.cuda.synchronize()
         us = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == DeviceType.CUDA and name in e.name]
-        if us:
+              if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+        if per_call is None and us:
             return sum(us) / len(us) / 1e3
+        if per_call is not None and len(us) == iters * per_call:
+            return sum(us) / iters / 1e3
+    if per_call is not None:
+        print(f"device_ms: the last trace recorded {len(us)} launches of {names} in {iters} "
+              f"calls, not {iters * per_call}: not measured")
     return None
 
 
@@ -587,10 +596,12 @@ def check_kernels(dev) -> dict:
 # label -> (D, kernel sizes): Conformer-S's and -L's widths (K = 15 as
 # shipped; K = 31, WeNet's and ESPnet's, at L's width takes float32's wide
 # path), the 1024-wide Conformer's (Conformer XL's width) at K = 15, 31,
-# 32 and 64 (the wide path's largest), and past the kernel's limits (D <=
-# 2048, a multiple of 16; K <= 64): refused
+# 32 and 64 (the wide path's largest), the wide path's widest D (2048) and
+# bf16's wide route by K alone (M's D 256 at K 33), and past the kernel's
+# limits (D <= 2048, a multiple of 16; K <= 64): refused
 CONV_WIDTHS = {"conformer_s": (144, (15,)), "conformer_l": (512, (15, 31)),
-               "conformer_xl": (1024, (15, 31, 32, 64)),
+               "conformer_xl": (1024, (15, 31, 32, 64)), "2048": (2048, (15, 64)),
+               "conformer_m K 33": (256, (33,)),
                "above the limit": (2064, (15,)), "above the limit K": (1024, (65,))}
 
 
@@ -3885,16 +3896,26 @@ def wide_backward_times(inputs) -> dict:
     bargs = (*args, seed, g, lse, (g.float() * out.float()).sum(dim=-1))
     dq = lambda: ra.rel_attention_bwd_dq(*bargs, **kw)    # noqa: E731
     dkv = lambda: ra.rel_attention_bwd_dkv(*bargs, **kw)  # noqa: E731
-    tk = args[2].shape[2]
+    tk, d = args[2].shape[2], args[1].shape[-1]
     scratch = 2 * math.prod(ra.scratch_shape(b, h, tq, tk, pd=True))     # bf16 bytes
+    pairs, rate = h * float(mask.sum()), BF16_TFLOPS * 1e12               # live (query, key)
     n_bytes = scratch + nbytes(q_u, g) + 2 * b * h * tk * dk * 4
-    bnd, by = bound_ms(n_bytes, 2.0 * 2 * h * float(mask.sum()) * dk / (BF16_TFLOPS * 1e12))
+    bnd, by = bound_ms(n_bytes, 2.0 * 2 * pairs * dk / rate)
+    # kernel 1: the inputs and dO, lse, delta read once, dS (and pd) written;
+    # S over the depth dk + D and dP over dk. Kernel 2: dS, K and F read,
+    # [dQu | dAB] written in float32; dS [K | F] over the depth of the keys
+    in1 = nbytes(*args, g, *bargs[8:])
+    k1 = bound_ms(in1 + scratch // 2, 2.0 * pairs * (2 * dk + d) / rate)
+    k1_pd = bound_ms(in1 + scratch, 2.0 * pairs * (2 * dk + d) / rate)
+    k2 = bound_ms(scratch // 2 + nbytes(args[2], args[4]) + b * h * tq * (dk + d) * 4,
+                  2.0 * pairs * (dk + d) / rate)
     return {"ms": time_ms(lambda: ra.rel_attention_bwd(*bargs, **kw)),
             "ds_ms": device_ms(dq, "rel_flash_bwd_ds_wide_kernel"),
             "dsk_ms": device_ms(dq, "rel_flash_bwd_dsk_wide_kernel"),
             "ds_pd_ms": device_ms(dkv, "rel_flash_bwd_ds_wide_kernel"),
             "dkv_product_ms": device_ms(dkv, "rel_flash_bwd_dkv_wide_kernel"),
-            "dkv_product_bound_ms": bnd, "dkv_product_bound_by": by}
+            "dkv_product_bound_ms": bnd, "dkv_product_bound_by": by,
+            "ds_bound": k1, "ds_pd_bound": k1_pd, "dsk_bound": k2}
 
 
 def wide_phase(dev, card: str) -> dict:
@@ -3986,7 +4007,84 @@ def wide_phase(dev, card: str) -> dict:
                                           d=WIDE_MODEL["encoder_dim"], k=k)
     res["times"]["conv_block"] = conv_block_times(x, lens, p_norm, p_conv, k)
     res["conv_shape"] = f"B={WIDE_BATCH} T'=374 D={x.shape[-1]} K={k}"
+    res["conv_wide"] = wide_conv_check(x, lens, p_norm, p_conv, k)
+    res["ffn_wide"] = wide_ffn_check(dev, gen, WIDE_BATCH * 374, WIDE_MODEL["encoder_dim"],
+                                     WIDE_MODEL["hidden_dim"])
     return res
+
+
+# the wide bf16 conv route's launches: LN_pre, pw1 + GLU, depthwise + LN +
+# swish, pw2 + residual (a call also casts float32 weights to bf16)
+WIDE_CONV_KERNELS = ("ln_pre_bf16_kernel", "conv_gemm_kernel", "dw_ln_bf16_kernel")
+
+
+def wide_conv_check(x, lens, p_norm, p_conv, k: int) -> dict:
+    """6d (c): the conv block's wide bf16 route at the decode shape against
+    its plain version, out and cache poisoned with NaN beforehand (TOL),
+    and its device time by torch.profiler."""
+    import torch
+
+    from conformer_tpu_torch.ops import conv_block as cb
+
+    b, t, d = x.shape
+    poison(((b, t, d), x.dtype), ((b, k - 1, d), x.dtype))
+    got = cb.conv_block(x, lens, p_norm, p_conv, kernel_size=k)
+    torch.cuda.synchronize()
+    err = compare(f"conv_block wide bf16 B={b} T'={t} D={d} K={k}", got,
+                  cb.conv_block_plain(x, lens, p_norm, p_conv, kernel_size=k), TOL["bfloat16"])
+    return {"route": cb.route(x.dtype, d, k), "max_abs_err": err,
+            "device_ms": device_ms(lambda: cb.conv_block(x, lens, p_norm, p_conv, kernel_size=k),
+                                   WIDE_CONV_KERNELS, per_call=4)}
+
+
+def wide_ffn_check(dev, gen, m: int, d: int, h: int) -> dict:
+    """6d (d): the fused int8 FFN's wide route at route B's batch (M = 8 x
+    374 rows, bf16 x with an all-zero row) against its plain version,
+    output poisoned with NaN beforehand (INT8_TOL); its times by CUDA
+    events (the wrapper's host work included where it outlasts the
+    device), by torch.profiler on the device, and on the host (a call that
+    returns before the device ends, 200 back to back), the plain version's
+    and the two products alone by ``torch._int_mm`` (yardstick); its bound
+    from these inputs: x read and out written, the weights and vectors
+    read once, against the products' integer operations."""
+    import torch
+
+    from conformer_tpu_torch.ops import int8_ffn as f8
+
+    ln, _, _, w1, w2 = int8_ffn_weights(dev, gen, d=d, h=h)
+    args = (ln, w1["kernel_q"], w1["kernel_scale"], w1["bias"], w2["kernel_q"],
+            w2["kernel_scale"], w2["bias"])
+    x = torch.randn(m, d, generator=gen)
+    x[m // 2] = 0.0
+    x = x.to(dev, torch.bfloat16)
+    poison(((m, d), x.dtype))
+    out = f8.int8_ffn_fused(x, *args)
+    torch.cuda.synchronize()
+    ref = f8.int8_ffn_plain(x, *args)
+    rtol, atol = INT8_TOL["bfloat16"]
+    diff = (out.float() - ref.float()).abs()
+    check(bool((diff <= atol + rtol * ref.float().abs()).all()),
+          f"int8_ffn wide bf16 M={m} D={d} H={h} disagrees with its plain version")
+    call = lambda: f8.int8_ffn_fused(x, *args)  # noqa: E731
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    host = (time.perf_counter() - t0) * 1e3 / 200
+    torch.cuda.synchronize()
+    xq = torch.randint(-127, 128, (m, d), generator=gen, dtype=torch.int8).to(dev)
+    hq = torch.randint(-127, 128, (m, h), generator=gen, dtype=torch.int8).to(dev)
+
+    def yard():
+        torch._int_mm(xq, w1["kernel_q"])
+        torch._int_mm(hq, w2["kernel_q"])
+
+    bnd, by = bound_ms(nbytes(x, out, w1["kernel_q"], w2["kernel_q"], *ln.values(),
+                              w1["kernel_scale"], w1["bias"], w2["kernel_scale"], w2["bias"]),
+                       4.0 * m * d * h / (INT8_TOPS * 1e12))
+    return {"route": f8.route(d, h), "max_abs_err": float(diff.max()), "ms": time_ms(call),
+            "device_ms": device_ms(call, "ffn_", per_call=4), "host_ms": host,
+            "plain_ms": time_ms(lambda: f8.int8_ffn_plain(x, *args)), "bound_ms": bnd,
+            "bound_by": by, "library_ms": time_ms(yard), "shape": f"M={m} D={d} H={h}"}
 
 
 def check_wide(res: dict, card: str) -> None:
@@ -4030,10 +4128,22 @@ def check_wide(res: dict, card: str) -> None:
     check(par["finite"] and par["loss_max_rel_err"] <= loss_lim
           and par["grad_max_rel_err"] <= grad_lim,
           "wide: the f32 training kernel path disagrees with the plain path")
-    e = res["times"]["conv_block"]
-    print(f"kernels: conv_block bf16 {res['conv_shape']}: kernel "
-          f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound {e['bound_ms'] * 1e3:.2f} us "
-          f"({e['bound_by']}) ({card})")
+    e, cw = res["times"]["conv_block"], res["conv_wide"]
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"   # noqa: E731
+    print(f"kernels: conv_block bf16 {res['conv_shape']} ({cw['route']} route: wgmma + TMA, "
+          f"192-row tiles): kernel {e['ms']:.4f} ms (device {fmt(cw['device_ms'])}), plain "
+          f"{e['plain_ms']:.4f} ms, bound {e['bound_ms'] * 1e3:.2f} us ({e['bound_by']}); "
+          f"max_abs_err {cw['max_abs_err']:.3g} (tol {TOL['bfloat16']} abs + rel; out and cache "
+          f"poisoned with NaN beforehand) ({card})")
+    check(cw["route"] == "wide", f"wide: the conv block took the {cw['route']} route")
+    fw = res["ffn_wide"]
+    print(f"kernels: int8_ffn bf16 {fw['shape']} ({fw['route']} route: int8 wgmma + TMA, "
+          f"192 x 128 tiles, persistent): kernel {fw['ms']:.4f} ms (device "
+          f"{fmt(fw['device_ms'])}, host {fw['host_ms']:.4f} ms a call), plain "
+          f"{fw['plain_ms']:.4f} ms, 2 x torch._int_mm {fw['library_ms']:.4f} ms, bound "
+          f"{fw['bound_ms']:.4f} ms ({fw['bound_by']}); max_abs_err {fw['max_abs_err']:.3g} "
+          f"(INT8_TOL {INT8_TOL['bfloat16']}; out poisoned with NaN beforehand) ({card})")
+    check(fw["route"] == "wide", f"wide: the int8 FFN took the {fw['route']} route")
     t, bw = res["times"], res["backward"]
     for name, what in (("rel_flash_attention", "forward (wgmma + TMA)"),
                        ("rel_flash_attention_bwd_dq", "dq (dS once, then dS [K | F])"),
@@ -4046,14 +4156,16 @@ def check_wide(res: dict, card: str) -> None:
               f"{e['bound_ms']:.4f} ms ({e['bound_by']}) at B=32 T'=374 H=8 dk=128 D=1024 "
               f"({card})")
     dq = t["rel_flash_attention_bwd_dq"]
-    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"   # noqa: E731
     before = (WIDE_EARLIER_MS["rel_flash_attention_bwd_dq"]
               + WIDE_EARLIER_MS["rel_flash_attention_bwd_dkv"])
     print(f"wide: the whole backward as training runs it (dS and pd once, then both products) "
           f"{bw['ms']:.4f} ms, against dq + dkv {before:.4f} ms before (PERF.md run CS) and "
           f"SDPA's whole backward {dq['library_ms']:.4f} ms; "
-          f"device times: dq's kernel 1 (S, dP, dS) {fmt(bw['ds_ms'])}, kernel 2 (dS [K | F]) "
-          f"{fmt(bw['dsk_ms'])}; dkv's kernel 1 (with pd) {fmt(bw['ds_pd_ms'])}, product kernel "
+          f"device times: dq's kernel 1 (S, dP, dS) {fmt(bw['ds_ms'])} (bound "
+          f"{bw['ds_bound'][0]:.4f} ms, {bw['ds_bound'][1]}), kernel 2 (dS [K | F]) "
+          f"{fmt(bw['dsk_ms'])} (bound {bw['dsk_bound'][0]:.4f} ms, {bw['dsk_bound'][1]}); dkv's "
+          f"kernel 1 (with pd) {fmt(bw['ds_pd_ms'])} (bound {bw['ds_pd_bound'][0]:.4f} ms, "
+          f"{bw['ds_pd_bound'][1]}), product kernel "
           f"{fmt(bw['dkv_product_ms'])} (bound {bw['dkv_product_bound_ms']:.4f} ms, "
           f"{bw['dkv_product_bound_by']}); dq's first design {WIDE_DQ_FIRST_MS} ms (run CN) "
           f"({card})")

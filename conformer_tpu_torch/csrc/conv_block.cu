@@ -49,16 +49,18 @@
 // multiple of 16 up to 512 (the shipped widths: Conformer-S 144, M 256, L
 // 512), bf16 K <= 32 (the register window), float32 what fits shared
 // memory (K <= 17 at D = 512). Wider D (to 2048: Conformer XL's 1024 among
-// them) or larger K (to 64) take the wide path (see its note below), whose
-// launch 1 takes 32 frames a block and two-pass LayerNorms over shared
-// memory, and whose launch 2 takes 16 frames, streams the depthwise taps
-// and pw2's columns. The C entry refuses other shapes before any launch.
+// them) or larger K (to 64) take the wide path (see its note below): in
+// bf16 four launches, both products on wgmma fed by TMA with 192-row tiles
+// and the operands through a bf16 scratch; in float32 16 frames a block
+// for launch 2, the depthwise taps and pw2's columns streamed. The C entry
+// refuses other shapes before any launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "rel_attention_common.cuh"
+#include "hopper_gemm.cuh"
+#include "rel_attention_hopper.cuh"
 
 namespace {
 
@@ -121,20 +123,16 @@ constexpr int Q1_K = 16;              // W1 rows per ring stage
 constexpr int Q1_S = 4;               // ring stages
 constexpr int Q1_LDW = 2 * Q1_C + 8;  // a | b columns of a stage row, padded
 
-__host__ __device__ constexpr int q1_rows(bool wide) { return wide ? 32 : Q1_M; }
-__host__ __device__ constexpr size_t q1_smem(int D, bool wide) {
-  return 2 * ((size_t)q1_rows(wide) * (D + 8) + (size_t)Q1_S * Q1_K * Q1_LDW);
+__host__ __device__ constexpr size_t q1_smem(int D) {
+  return 2 * ((size_t)Q1_M * (D + 8) + (size_t)Q1_S * Q1_K * Q1_LDW);
 }
 
-// WIDE: 32 frames a block (one 16-row tile a warp) and LN_pre in two passes
-// over the bf16 row in shared memory, so no register array grows with D
-template <bool WIDE>
 __global__ void __launch_bounds__(NT) pw1_glu_bf16_kernel(
     const bf16* __restrict__ x, const int* __restrict__ lengths,
     const float* __restrict__ pre_s, const float* __restrict__ pre_b,
     const bf16* __restrict__ w1, const float* __restrict__ b1, float* __restrict__ glu, int M,
     int Tlen, int D) {
-  constexpr int RM = q1_rows(WIDE), MI = RM / 32;   // frames; 16-row tiles a warp
+  constexpr int RM = Q1_M, MI = RM / 32;   // frames; 16-row tiles a warp
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldy = D + 8;
   bf16* ys = reinterpret_cast<bf16*>(smem);   // y [RM][ldy]
@@ -178,16 +176,6 @@ __global__ void __launch_bounds__(NT) pw1_glu_bf16_kernel(
     if (!valid) {
       for (int c = 2 * lane; c < D; c += 64)
         *reinterpret_cast<__nv_bfloat162*>(yr + c) = __floats2bfloat162_rn(0.f, 0.f);
-      continue;
-    }
-    if constexpr (WIDE) {
-      const float2 st = row_stats(yr, D, lane);
-      for (int c = 2 * lane; c < D; c += 64) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(yr + c));
-        *reinterpret_cast<__nv_bfloat162*>(yr + c) = __floats2bfloat162_rn(
-            (f.x - st.x) * st.y * pre_s[c] + pre_b[c],
-            (f.y - st.x) * st.y * pre_s[c + 1] + pre_b[c + 1]);
-      }
       continue;
     }
     float v[MAX_D / 32];
@@ -656,35 +644,58 @@ __global__ void __launch_bounds__(NT) dw_ln_pw2_f32_kernel(
 
 // ============================================================ wide path
 // D above 512 (up to MAX_D_WIDE) or K above the narrow kernels' (up to
-// MAX_K), in both dtypes. Launch 1 is pw1_glu_bf16_kernel<true> (32 frames
-// a block, LN_pre in two passes over shared memory) or the float32
-// pw1_glu_f32_kernel, which has no width limit. Launch 2 takes W2_T = 16
-// frames a block:
-//  - the depthwise taps: a thread per channel, its 16 frames' sums in
-//    registers, the taps streamed in windows of TAPS (16 + TAPS - 1 frames
-//    of g from L2 a window), so that no register array grows with K;
-//  - z [16, D] float32 in shared memory, LN and swish a warp per frame in
-//    two passes over it (into a bf16 tile [16, D] for the tensor cores, or
-//    in place in float32);
-//  - pw2 in column passes: W2's columns stream in [W2_K rows x NC columns]
-//    slices through a 2-stage cp.async ring, each warp owning NC / 8 of a
-//    pass's columns (bf16: mma.sync, 8 n8 tiles; float32: FMAs, 8 columns
-//    a lane for two frames), and out = x + mask(z W2 + b2) is written from
-//    the accumulators.
-// Shared memory: bf16 4 D 16 + 2 (D + 8) 16 + 2 (2 W2_K (512 + 8)) bytes
-// (225 KB at D = 2048), float32 4 D 16 + 2 (4 W2_K 256) bytes.
+// MAX_K), in both dtypes.
+//
+// float32 (the parity path): launch 1 is pw1_glu_f32_kernel, which has no
+// width limit; launch 2, dw_ln_pw2_f32_wide_kernel, takes W2_T = 16 frames
+// a block: the depthwise taps (a thread per channel, its 16 frames' sums in
+// registers, the taps streamed in windows of TAPS, 16 + TAPS - 1 frames of
+// g from L2 a window, so that no register array grows with K); z [16, D]
+// float32 in shared memory, LN and swish in place, a warp a frame in two
+// passes; pw2 in column passes of W2_NC_F32 columns, W2's [W2_K rows x NC]
+// slices through a 2-stage cp.async ring, FMAs (8 columns a lane for two
+// frames), out = x + mask(z W2 + b2) from the accumulators.
+//
+// bf16, on wgmma fed by TMA (hopper_gemm.cuh): four launches, the two
+// products' operands through a bf16 scratch [M, D] (y, then swish(LN(z)):
+// the TPU kernel rounds both to bf16 at exactly those points, so the
+// scratch changes no value), g float32 [M, D] as before.
+//  1. ln_pre_bf16_kernel: y = mask(LN_pre(x)) in bf16, a warp a row, the
+//     row's 16-byte pieces in registers (D <= 2048: 8 a lane).
+//  2. conv_gemm_kernel<EPI_GLU>: h = y W1 on tiles of 192 rows x 64
+//     channels, the a and b columns of those channels as the two 64-column
+//     blocks of one MN-major B (W1 as it lies in memory), so the GLU is
+//     taken on the accumulators; g staged through shared memory, 16-byte
+//     stores.
+//  3. dw_ln_bf16_kernel: 16 frames of one sequence a block, the depthwise
+//     taps as the float32 kernel takes them (depthwise_streamed), LN and
+//     swish a warp a frame, swish(LN(z)) in bf16 into the scratch, 16-byte
+//     stores; the cache from g.
+//  4. conv_gemm_kernel<EPI_RES>: out = x + mask(zq W2 + b2) on tiles of
+//     192 rows x 128 columns, staged 64 columns at a time, x read and out
+//     written as 16-byte vectors.
+// At 6d's decode shape (B=8, T'=374: M = 2992, D=1024, K=15) the products
+// are 256 and 128 tiles on 132 SMs (two rounds and one), W1 is read from
+// L2 16 times and W2 16 times (96 MB), the operand 16 and 8 times (144 MB).
+// The first design (32- and 16-frame blocks on mma.sync, W1 read 94 times
+// and W2 192 times, ~800 MB of L2 traffic) took 0.32 ms of device time,
+// its weights' copies and its 4- and 8-byte stores the largest stages by
+// ablation (PERF.md). Bound at that shape: the products' 18.8 GFLOP over
+// every frame, 0.0190 ms at the bf16 tensor rate; over the frames within
+// their lengths, as chip_smoke.py and scripts/torch_width_times.py count
+// them, 0.011-0.014 ms (operations). This design: 0.069-0.072 ms of device
+// time on an H100 at 700 W, the four launches ~5, ~23, ~25 and ~17 us
+// (PERF.md, scripts/torch_conv_ablation.py).
 constexpr int MAX_D_WIDE = 2048;
 constexpr int MAX_K = 64;
 constexpr int W2_T = 16;            // frames per block
-constexpr int W2_K = 16;            // W2 rows per ring stage
+constexpr int W2_K = 16;            // W2 rows per ring stage (float32)
 constexpr int TAPS = 16;            // depthwise taps per register window
-constexpr int W2_NC_BF16 = 512;     // pw2 columns per pass, bf16
 constexpr int W2_NC_F32 = 256;      // pw2 columns per pass, float32
 
-__host__ __device__ constexpr size_t w2_smem(int D, bool bf16_) {
-  return bf16_ ? 4 * (size_t)W2_T * D + 2 * (size_t)W2_T * (D + 8) +
-                     2 * 2 * (size_t)W2_K * (W2_NC_BF16 + 8)
-               : 4 * (size_t)W2_T * D + 2 * 4 * (size_t)W2_K * W2_NC_F32;
+// float32 launch 2: z [W2_T][D] and the W2 ring [2][W2_K][NC]
+__host__ __device__ constexpr size_t w2_smem_f32(int D) {
+  return 4 * (size_t)W2_T * D + 2 * 4 * (size_t)W2_K * W2_NC_F32;
 }
 
 // z = depthwise_K(g) + bd for frames [t0, t0 + W2_T) of one sequence into
@@ -734,89 +745,174 @@ __device__ __forceinline__ void load_w2_slice(T* dst, int ld, const T* __restric
   }
 }
 
-__global__ void __launch_bounds__(NT) dw_ln_pw2_bf16_wide_kernel(
-    const bf16* __restrict__ x, const int* __restrict__ lengths, const float* __restrict__ glu,
-    const float* __restrict__ wd, const float* __restrict__ bd, const float* __restrict__ ln_s,
-    const float* __restrict__ ln_b, const bf16* __restrict__ w2, const float* __restrict__ b2,
-    bf16* __restrict__ out, bf16* __restrict__ cache, int Tlen, int D, int K) {
-  constexpr int NC = W2_NC_BF16, LDW = NC + 8, NT8 = NC / 8 / (NT / 32);   // 8 tiles a warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldq = D + 8;
-  float* zs = reinterpret_cast<float*>(smem);            // z [W2_T][D] float32
-  bf16* zq = reinterpret_cast<bf16*>(zs + W2_T * D);     // swish(LN(z)) [W2_T][ldq]
-  bf16* ws = zq + W2_T * ldq;                            // W2 ring [2][W2_K][LDW]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int t0 = blockIdx.x * W2_T, b = blockIdx.y;
-  const int len = lengths[b];
-  const float* gb = glu + (size_t)b * Tlen * D;
-  const bf16* xb = x + (size_t)b * Tlen * D;
-  bf16* ob = out + (size_t)b * Tlen * D;
-  const int nk = D / W2_K, steps = (D + NC - 1) / NC * nk;
-  auto load_w = [&](int st) {
-    load_w2_slice(ws + (st & 1) * W2_K * LDW, LDW, w2, (st % nk) * W2_K, D, (st / nk) * NC, NC);
-  };
-  load_w(0);
-  rel_attn::cp_async_commit();
 
+// ------------------------------------------------------------ wide bf16
+constexpr int ROWS_NT = NT / 32;            // rows a block of the row-wise launches
+constexpr int PIECES = MAX_D_WIDE / 256;    // 16-byte pieces of a row a lane, at most
+constexpr int EPI_GLU = 0, EPI_RES = 1;
+
+// launch 1: y = LN_pre(x) rounded to bf16, zero for frames past the
+// length, a warp a row; lane l holds the pieces l + 32 i (8 columns each)
+__global__ void __launch_bounds__(NT) ln_pre_bf16_kernel(
+    const bf16* __restrict__ x, const int* __restrict__ lengths,
+    const float* __restrict__ pre_s, const float* __restrict__ pre_b, bf16* __restrict__ y,
+    int M, int Tlen, int D) {
+  const int m = blockIdx.x * ROWS_NT + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (m >= M) return;
+  const int b = m / Tlen, np = D / 8;
+  uint4* yr = reinterpret_cast<uint4*>(y + (size_t)m * D);
+  if (m - b * Tlen >= lengths[b]) {
+    for (int p = lane; p < np; p += 32) yr[p] = make_uint4(0u, 0u, 0u, 0u);
+    return;
+  }
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)m * D);
+  float v[PIECES][8];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < PIECES; ++i) {
+    const int p = lane + 32 * i;
+    pg::unpack8(p < np ? xr[p] : make_uint4(0u, 0u, 0u, 0u), v[i]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s += v[i][e];
+  }
+  const float mean = warp_sum(s) / D;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < PIECES; ++i)
+    if (lane + 32 * i < np)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = v[i][e] - mean;
+        q += d * d;
+      }
+  const float rstd = rsqrtf(warp_sum(q) / D + LN_EPS);
+#pragma unroll
+  for (int i = 0; i < PIECES; ++i) {
+    const int p = lane + 32 * i;
+    if (p >= np) continue;
+    float sc[8], bi[8], o[8];
+    pg::load8(pre_s + 8 * p, sc);
+    pg::load8(pre_b + 8 * p, bi);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = (v[i][e] - mean) * rstd * sc[e] + bi[e];
+    yr[p] = pg::pack8(o);
+  }
+}
+
+// launch 3: z = depthwise_K(g) + bd for frames [t0, t0 + W2_T) of one
+// sequence, then swish(LN(z)) rounded to bf16 into zq, a warp a frame
+// (lane l the pieces l + 32 i); block 0 of a sequence writes its cache
+__global__ void __launch_bounds__(NT) dw_ln_bf16_kernel(
+    const float* __restrict__ glu, const float* __restrict__ wd, const float* __restrict__ bd,
+    const float* __restrict__ ln_s, const float* __restrict__ ln_b, bf16* __restrict__ zq,
+    bf16* __restrict__ cache, int Tlen, int D, int K) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* zs = reinterpret_cast<float*>(smem);   // z [W2_T][D] float32
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t0 = blockIdx.x * W2_T, b = blockIdx.y;
+  const float* gb = glu + (size_t)b * Tlen * D;
   depthwise_streamed(zs, gb, wd, bd, t0, Tlen, D, K);
   __syncthreads();
-  for (int r = warp; r < W2_T; r += NT / 32) {   // LN, swish, rounded to bf16
+  for (int r = warp; r < W2_T && t0 + r < Tlen; r += NT / 32) {   // LN, swish, rounded to bf16
     const float* zr = zs + r * D;
     const float2 st = row_stats(zr, D, lane);
-    for (int c = lane; c < D; c += 32) {
-      const float z = (zr[c] - st.x) * st.y * ln_s[c] + ln_b[c];
-      zq[r * ldq + c] = __float2bfloat16(z * sigmoid_fast(z));
+    uint4* qr = reinterpret_cast<uint4*>(zq + ((size_t)b * Tlen + t0 + r) * D);
+    for (int p = lane; p < D / 8; p += 32) {
+      float z[8], sc[8], bi[8];
+      pg::load8(zr + 8 * p, z);
+      pg::load8(ln_s + 8 * p, sc);
+      pg::load8(ln_b + 8 * p, bi);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float u = (z[e] - st.x) * st.y * sc[e] + bi[e];
+        z[e] = u * sigmoid_fast(u);
+      }
+      qr[p] = pg::pack8(z);
     }
   }
+  if (blockIdx.x == 0) write_cache<bf16>(cache, gb, b, Tlen, D, K - 1);
+}
 
-  float acc[NT8][4];
-  for (int st = 0; st < steps; ++st) {
-    const int kc = st % nk, n0 = (st / nk) * NC;
-    if (st + 1 < steps) {
-      load_w(st + 1);
-      rel_attn::cp_async_commit();
-      rel_attn::cp_async_wait<1>();
+// launches 2 and 4: a persistent GEMM on bf16 wgmma (hopper_gemm.cuh). A:
+// the scratch [M, D] by amap (boxes of 64 columns x 192 rows); B: W1 [D,
+// 2D] or W2 [D, D] by bmap (boxes of 64 columns x 64 rows), MN-major.
+//  EPI_GLU: tile (mt, nt) is rows 192 mt.. x channels 64 nt..; its B is
+//    W1's a columns 64 nt.. and b columns D + 64 nt.. (channels past D read
+//    b columns or zeros and are not stored), so accumulator columns 0-63
+//    are h_a and 64-127 h_b of the same channels; g = (h_a + b1)
+//    sigmoid(h_b + b1') into `glu`.
+//  EPI_RES: tile (mt, nt) is rows 192 mt.. x columns 128 nt..; out = x +
+//    mask(acc + b2) (rows past their sequence's length: x).
+template <int EPI>
+__global__ void __launch_bounds__(pg::THREADS, 1) conv_gemm_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+    const int* __restrict__ lengths, const float* __restrict__ bias, const bf16* __restrict__ x,
+    float* __restrict__ glu, bf16* __restrict__ out, int M, int Tlen, int D) {
+  extern __shared__ unsigned char smem_raw[];
+  const pg::Smem sm = pg::setup(smem_raw);
+  __syncthreads();
+  const int tn = EPI == EPI_GLU ? (D + 63) / 64 : (D + 127) / 128;
+  const int tiles = (M + pg::TM - 1) / pg::TM * tn, nk = (D + 63) / 64;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<pg::REG_PRODUCER>();
+    if (tid == 0)
+      pg::produce(sm, tiles, tn, nk, [&](unsigned char* dst, uint64_t* bar, int mt, int nt, int kc) {
+        hopper::tma_load(dst, &amap, bar, 64 * kc, pg::TM * mt);
+        const int n0 = EPI == EPI_GLU ? 64 * nt : 128 * nt, n1 = EPI == EPI_GLU ? D + n0 : n0 + 64;
+        hopper::tma_load(dst + pg::A_BYTES, &bmap, bar, n0, 64 * kc);
+        hopper::tma_load(dst + pg::A_BYTES + pg::ATOM, &bmap, bar, n1, 64 * kc);
+      });
+    return;
+  }
+
+  hopper::setmaxnreg_inc<pg::REG_CONSUMER>();
+  const int c = wg - 1, ct = tid & 127, q = tid & 3;
+  float acc[64];
+  int g = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t / tn) * pg::TM + 64 * c, nt = t % tn;   // this warpgroup's rows m0..
+    pg::consume(acc, sm, nk, g, c, [](float (&a)[64], uint32_t sa, uint32_t sb, int kc) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wq::wgmma_ss<128, 0, 1>(a, hopper::desc(sa + kk * 32),
+                                wq::desc_mn(sb + kk * 2048, pg::ATOM), (kc | kk) != 0);
+    });
+    if constexpr (EPI == EPI_GLU) {
+      const int c0 = 64 * nt;
+      const float* stg = pg::stage(sm.stg, c, 0, [&](int i, int hh, int e) {
+        const int ch = min(c0 + 8 * i + 2 * q + e, D - 1);
+        return (acc[4 * i + 2 * hh + e] + bias[ch]) *
+               sigmoid_fast(acc[4 * (i + 8) + 2 * hh + e] + bias[D + ch]);
+      });
+      for (int j = ct; j < 64 * 16; j += 128) {   // 64 rows x 16 float4
+        const int r = j >> 4, cc = (j & 15) * 4, m = m0 + r;
+        if (m < M && c0 + cc < D)
+          *reinterpret_cast<float4*>(glu + (size_t)m * D + c0 + cc) =
+              *reinterpret_cast<const float4*>(stg + r * pg::EPI_LD + cc);
+      }
     } else {
-      rel_attn::cp_async_wait<0>();
-    }
-    __syncthreads();   // the slice has landed (and, at the first step, zq)
-    if (kc == 0) {
+#pragma unroll   // whole: acc is indexed by half, so it stays in registers
+      for (int half = 0; half < 2; ++half) {
+        const int n0 = 128 * nt + 64 * half;
+        const float* stg = pg::stage(sm.stg, c, half, [&](int i, int hh, int e) {
+          return acc[4 * i + 2 * hh + e] + bias[min(128 * nt + 8 * i + 2 * q + e, D - 1)];
+        });
+        for (int j = ct; j < 64 * 8; j += 128) {   // 64 rows x 8 pieces of 8 columns
+          const int r = j >> 3, cc = (j & 7) * 8, m = m0 + r, n = n0 + cc;
+          if (m >= M || n >= D) continue;
+          const int bq = m / Tlen;
+          const bool on = m - bq * Tlen < lengths[bq];
+          float xv[8], z[8];
+          pg::load8(x + (size_t)m * D + n, xv);
+          pg::load8(stg + r * pg::EPI_LD + cc, z);
 #pragma unroll
-      for (int j = 0; j < NT8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    }
-    const bf16* wt = ws + (st & 1) * W2_K * LDW;
-    uint32_t a[4];
-    rel_attn::load_a(a, zq, ldq, 0, kc * W2_K, lane);
-#pragma unroll
-    for (int j = 0; j < NT8; j += 2) {
-      uint32_t bf[4];
-      rel_attn::load_bt(bf, wt, LDW, 0, warp * 8 * NT8 + 8 * j, lane);
-      rel_attn::mma(acc[j], a, bf[0], bf[1]);
-      rel_attn::mma(acc[j + 1], a, bf[2], bf[3]);
-    }
-    __syncthreads();   // this stage is refilled two steps on
-    if (kc == nk - 1) {   // out = x + mask(z W2 + b2) for this pass's columns
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = t0 + (lane >> 2) + 8 * h;
-        if (t >= Tlen) continue;
-#pragma unroll
-        for (int j = 0; j < NT8; ++j) {
-          const int c = n0 + warp * 8 * NT8 + 8 * j + 2 * (lane & 3);
-          if (c >= D) continue;
-          const float2 xf =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xb + (size_t)t * D + c));
-          const bool on = t < len;
-          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)t * D + c) = __floats2bfloat162_rn(
-              xf.x + (on ? acc[j][2 * h] + b2[c] : 0.f),
-              xf.y + (on ? acc[j][2 * h + 1] + b2[c + 1] : 0.f));
+          for (int e = 0; e < 8; ++e) xv[e] += on ? z[e] : 0.f;
+          pg::store8(out + (size_t)m * D + n, xv);
         }
       }
     }
   }
-  if (blockIdx.x == 0) write_cache<bf16>(cache, gb, b, Tlen, D, K - 1);
 }
 
 __global__ void __launch_bounds__(NT) dw_ln_pw2_f32_wide_kernel(
@@ -919,18 +1015,70 @@ bool shape_ok(int D, int K) {
   return D >= 16 && D % 16 == 0 && D <= MAX_D_WIDE && K >= 1 && K <= MAX_K;
 }
 
+// the wide bf16 route: four launches (see "wide path" above), the operand
+// scratch opnd bf16 [M, D]
+cudaError_t launch_bf16_wide(const bf16* x, const int* lengths, const float* pre_s,
+                             const float* pre_b, const bf16* w1, const float* b1, const float* wd,
+                             const float* bd, const float* ln_s, const float* ln_b,
+                             const bf16* w2, const float* b2, bf16* out, bf16* cache, float* glu,
+                             bf16* opnd, cudaStream_t stream, int B, int Tlen, int D, int K) {
+  const int M = B * Tlen;
+  static bool smem_set = false;   // once per process
+  if (!smem_set) {
+    cudaError_t err = set_smem(conv_gemm_kernel<EPI_GLU>, pg::SMEM);
+    if (err == cudaSuccess) err = set_smem(conv_gemm_kernel<EPI_RES>, pg::SMEM);
+    if (err == cudaSuccess) err = set_smem(dw_ln_bf16_kernel, 4 * (size_t)W2_T * MAX_D_WIDE);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  CUtensorMap amap, w1map, w2map;
+  constexpr auto BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  cudaError_t err = hopper::tile_map(&amap, BF16, 2, opnd, M, D, pg::TM);
+  if (err == cudaSuccess) err = hopper::weight_map(&w1map, BF16, 2, w1, D, 2 * D, 64);
+  if (err == cudaSuccess) err = hopper::weight_map(&w2map, BF16, 2, w2, D, D, 64);
+  if (err != cudaSuccess) return err;
+  const int mt = (M + pg::TM - 1) / pg::TM;
+  ln_pre_bf16_kernel<<<(M + ROWS_NT - 1) / ROWS_NT, NT, 0, stream>>>(x, lengths, pre_s, pre_b,
+                                                                     opnd, M, Tlen, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int tiles1 = mt * ((D + 63) / 64);
+  conv_gemm_kernel<EPI_GLU><<<pg::grid_size(tiles1), pg::THREADS, pg::SMEM, stream>>>(
+      amap, w1map, lengths, b1, nullptr, glu, nullptr, M, Tlen, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dw_ln_bf16_kernel<<<dim3((Tlen + W2_T - 1) / W2_T, B), NT, 4 * (size_t)W2_T * D, stream>>>(
+      glu, wd, bd, ln_s, ln_b, opnd, cache, Tlen, D, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int tiles2 = mt * ((D + 127) / 128);
+  conv_gemm_kernel<EPI_RES><<<pg::grid_size(tiles2), pg::THREADS, pg::SMEM, stream>>>(
+      amap, w2map, lengths, b2, x, nullptr, out, M, Tlen, D);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_bf16(const void* x, const void* lengths, const void* pre_s, const void* pre_b,
                         const void* w1, const void* b1, const void* wd, const void* bd,
                         const void* ln_s, const void* ln_b, const void* w2, const void* b2,
-                        void* out, void* cache, void* glu, cudaStream_t stream, int B, int Tlen,
-                        int D, int K) {
+                        void* out, void* cache, void* glu, void* opnd, cudaStream_t stream,
+                        int B, int Tlen, int D, int K) {
+  if (!narrow_shape(D, K, 1)) {
+    if (opnd == nullptr) return cudaErrorInvalidValue;
+    return launch_bf16_wide(
+        static_cast<const bf16*>(x), static_cast<const int*>(lengths),
+        static_cast<const float*>(pre_s), static_cast<const float*>(pre_b),
+        static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+        static_cast<const float*>(wd), static_cast<const float*>(bd),
+        static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
+        static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out),
+        static_cast<bf16*>(cache), static_cast<float*>(glu), static_cast<bf16*>(opnd), stream, B,
+        Tlen, D, K);
+  }
   const int M = B * Tlen;
-  const bool wide = !narrow_shape(D, K, 1);
-  auto kernel1 = wide ? pw1_glu_bf16_kernel<true> : pw1_glu_bf16_kernel<false>;
-  cudaError_t err = set_smem(kernel1, q1_smem(D, wide));
+  cudaError_t err = set_smem(pw1_glu_bf16_kernel, q1_smem(D));
   if (err != cudaSuccess) return err;
-  dim3 grid1((M + q1_rows(wide) - 1) / q1_rows(wide), (D + Q1_C - 1) / Q1_C);
-  kernel1<<<grid1, NT, q1_smem(D, wide), stream>>>(
+  dim3 grid1((M + Q1_M - 1) / Q1_M, (D + Q1_C - 1) / Q1_C);
+  pw1_glu_bf16_kernel<<<grid1, NT, q1_smem(D), stream>>>(
       static_cast<const bf16*>(x), static_cast<const int*>(lengths),
       static_cast<const float*>(pre_s), static_cast<const float*>(pre_b),
       static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<float*>(glu), M,
@@ -938,13 +1086,11 @@ cudaError_t launch_bf16(const void* x, const void* lengths, const void* pre_s, c
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto kernel = wide ? dw_ln_pw2_bf16_wide_kernel
-                     : K <= 16 ? dw_ln_pw2_bf16_kernel<16> : dw_ln_pw2_bf16_kernel<32>;
-  const size_t smem2 = wide ? w2_smem(D, true) : q2_smem(D);
+  auto kernel = K <= 16 ? dw_ln_pw2_bf16_kernel<16> : dw_ln_pw2_bf16_kernel<32>;
+  const size_t smem2 = q2_smem(D);
   err = set_smem(kernel, smem2);
   if (err != cudaSuccess) return err;
-  const int t2 = wide ? W2_T : Q2_T;
-  dim3 grid2((Tlen + t2 - 1) / t2, B);
+  dim3 grid2((Tlen + Q2_T - 1) / Q2_T, B);
   kernel<<<grid2, NT, smem2, stream>>>(
       static_cast<const bf16*>(x), static_cast<const int*>(lengths),
       static_cast<const float*>(glu), static_cast<const float*>(wd),
@@ -971,7 +1117,7 @@ cudaError_t launch_f32(const void* x, const void* lengths, const void* pre_s, co
 
   const bool wide = !narrow_shape(D, K, 0);
   auto kernel = wide ? dw_ln_pw2_f32_wide_kernel : dw_ln_pw2_f32_kernel;
-  const size_t smem = wide ? w2_smem(D, false) : p2_smem(D, K);
+  const size_t smem = wide ? w2_smem_f32(D) : p2_smem(D, K);
   err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int t2 = wide ? W2_T : P2_T;
@@ -991,22 +1137,23 @@ cudaError_t launch_f32(const void* x, const void* lengths, const void* pre_s, co
 // x [B,T,D] (float32 or bf16: is_bf16); lengths int32 [B]; pre_s, pre_b,
 // b2, bd, ln_s, ln_b float32 [D]; w1 [D,2D] and w2 [D,D] in x's dtype
 // (16-byte aligned); b1 float32 [2D]; wd float32 [K,D]; out [B,T,D] and
-// cache [B,K-1,D] in x's dtype; glu float32 scratch [B,T,D]. All
-// contiguous. D a multiple of 16 up to 2048 and 1 <= K <= 64: the narrow
-// kernels where narrow_shape holds, else the wide path. Returns the CUDA
-// error code (0 on success; cudaErrorInvalidValue before any launch for a
-// shape outside these).
+// cache [B,K-1,D] in x's dtype; glu float32 scratch [B,T,D]; opnd bf16
+// scratch [B,T,D] (16-byte aligned), read only by the wide bf16 route (may
+// be null elsewhere). All contiguous. D a multiple of 16 up to 2048 and 1
+// <= K <= 64: the narrow kernels where narrow_shape holds, else the wide
+// path. Returns the CUDA error code (0 on success; cudaErrorInvalidValue
+// before any launch for a shape outside these).
 extern "C" int conv_block_fwd(const void* x, const void* lengths, const void* pre_s,
                               const void* pre_b, const void* w1, const void* b1,
                               const void* wd, const void* bd, const void* ln_s,
                               const void* ln_b, const void* w2, const void* b2,
-                              void* out, void* cache, void* glu, void* stream, int B,
+                              void* out, void* cache, void* glu, void* opnd, void* stream, int B,
                               int Tlen, int D, int K, int is_bf16) {
   if (!shape_ok(D, K)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       is_bf16 ? launch_bf16(x, lengths, pre_s, pre_b, w1, b1, wd, bd, ln_s, ln_b, w2, b2, out,
-                            cache, glu, s, B, Tlen, D, K)
+                            cache, glu, opnd, s, B, Tlen, D, K)
               : launch_f32(x, lengths, pre_s, pre_b, w1, b1, wd, bd, ln_s, ln_b, w2, b2, out,
                            cache, glu, s, B, Tlen, D, K);
   return static_cast<int>(err);

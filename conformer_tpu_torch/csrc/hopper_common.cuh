@@ -19,6 +19,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace hopper {
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
@@ -294,6 +298,29 @@ inline cudaError_t tile_map(CUtensorMap* map, CUtensorMapDataType type, uint32_t
                       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// tile_map of a matrix that outlives the call (a weight), encoded once: a
+// map is a function of these arguments alone, not of the data, so an entry
+// stays right whatever later lies at its address. Up to 1024 entries (a
+// weight each, two a layer and product), then the table starts again.
+inline cudaError_t weight_map(CUtensorMap* map, CUtensorMapDataType type, uint32_t elem,
+                              const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows) {
+  using Key = std::tuple<const void*, int, uint32_t, uint64_t, uint64_t, uint32_t>;
+  static std::map<Key, CUtensorMap> maps;
+  static std::mutex mu;
+  const Key key{ptr, static_cast<int>(type), elem, rows, cols, box_rows};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = maps.find(key);
+  if (it != maps.end()) {
+    *map = it->second;
+    return cudaSuccess;
+  }
+  cudaError_t err = tile_map(map, type, elem, ptr, rows, cols, box_rows);
+  if (err != cudaSuccess) return err;
+  if (maps.size() >= 1024) maps.clear();
+  maps.emplace(key, *map);
+  return cudaSuccess;
 }
 
 // an int8 matrix [rows][cols] (cols a multiple of 16) in 128 x 128 boxes

@@ -74,6 +74,7 @@
 #include <type_traits>
 
 #include "hopper_common.cuh"
+#include "hopper_gemm.cuh"
 #include "int8_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -547,232 +548,354 @@ cudaError_t launch(const void* x, const void* ln_s, const void* ln_b, const void
 // W2 partials of D 1024 reduced across them, more shared memory than a
 // block has at D 2048. Through device memory the hidden's scale s_h is
 // exact by construction: every h of a row is written before its absmax is
-// taken, and nothing is quantized before that (h is 49 MB in float32 at
-// M = 2992, H = 4096: ~30 us of the card's memory rate both ways, against
-// the products' 50 G integer operations, ~25 us at the int8 tensor rate).
+// taken, and nothing is quantized before that.
 //   1. ffn_norm_quant_kernel: LayerNorm and the per-row int8 of x, one warp
-//      a row, into xq [M, pad32(D)] and s_x [M] (the cluster kernel's
-//      arithmetic: lane l holds columns 128 j + 4 l .. + 3, sums in that
-//      order).
-//   2. ffn_gemm_kernel<HIDDEN>: h = swish(float(xq W1) s_x s1 + b1) [M, H].
-//   3. ffn_hidden_quant_kernel: s_h = the row's absmax over all H columns,
-//      then hq [M, pad32(H)], one warp a row.
-//   4. ffn_gemm_kernel<OUT>: out = x + half (float(hq W2) s_h s2 + b2).
-// The GEMM: a block of one producer warpgroup (one thread issues TMA
-// copies of 128 x 128-byte tiles of the int8 operand and of the weight's
-// kernel layout, both K-major) and two consumer warpgroups, each a 64 x
-// 128 tile of the 128 x 128 output tile on int8 wgmma (m64n128k32), fed
-// through a 4-stage ring of 32 KB (the depth K streams: no limit on D or
-// H); the epilogue from the int32 accumulators with the plain version's
-// rounding points. Every output element is one block's: bitwise
-// repeatable. Limits: none on D, H or M.
+//      a row, x read as 16-byte pieces (lane l the pieces l + 32 j, sums in
+//      that order), into xq [M, pad32(D)] and s_x [M].
+//   2. ffn_gemm_kernel<HIDDEN>: h = swish(float(xq W1) s_x s1 + b1) into h
+//      [M, pad32(H)] (zero past H), and each (row, 128-column tile)'s max
+//      |h| into pmax [M, H / 128]: a max is exact in any order, so the row
+//      absmax leaves the pass over h.
+//   3. ffn_hidden_quant_kernel: s_h = row_scale of the row's partial maxima,
+//      then hq [M, pad32(H)] from one read of h, one warp a row, 16-byte
+//      loads and stores.
+//   4. ffn_gemm_kernel<OUT>: out = x + half (float(hq W2) s_h s2 + b2), x
+//      read and out written as 16-byte vectors.
+// The GEMMs are the persistent skeleton of hopper_gemm.cuh on int8 wgmma
+// (m64n128k32, both operands K-major: the int8 rows and the weight's kernel
+// layout), 192 x 128 tiles, epilogues staged through shared memory. At 6d
+// (d)'s batch (M = 2992, D 1024 / H 4096) that is 512 hidden tiles (four
+// rounds on 132 SMs) and 128 output tiles (one round), where the first
+// design's 128 x 128 tiles ran the W2 product in 1.45 waves (192 blocks)
+// and its epilogues stored 4- and 2-byte scalars. Bound there: the
+// products' 50 G integer operations, 0.0254 ms at the int8 tensor rate;
+// h's 49 MB written and read once more (~30 us at 3.35 TB/s if none of it
+// stays in the 50 MB L2). The first design took 0.15-0.19 ms of device
+// time, its hidden GEMM's scalar stores and the two passes over h the
+// largest pieces by ablation; this one ~0.10 ms on an H100 at 700 W (the
+// launches ~10, ~43, ~20 and ~26 us; the swish ~5 us of the hidden GEMM
+// once no element branches around it; PERF.md,
+// scripts/torch_int8_ablation.py). Every output element is one block's:
+// bitwise repeatable. Limits: none on D, H or M.
 
-constexpr int WG_STAGES = 4;
-constexpr uint32_t WG_TILE = 16384;              // 128 rows x 128 K bytes
-constexpr uint32_t WG_STAGE = 2 * WG_TILE;       // the operand's tile and the weight's
-constexpr size_t WG_SMEM = 1024 + WG_STAGES * WG_STAGE + 2 * WG_STAGES * sizeof(uint64_t);
 constexpr int EPI_HIDDEN = 0, EPI_OUT = 1;
 
-// LayerNorm and int8 of rows of x, one warp a row: xq [M][kp], s_x [M]
-template <typename T>
-__global__ void __launch_bounds__(256)
+// the 16 bytes at p (aligned) as float32: 4 float32 or 8 bf16 values
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) { load4(p, v); }
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
+  pg::unpack8(__ldg(reinterpret_cast<const uint4*>(p)), v);
+}
+
+// LayerNorm and int8 of rows of x, one warp a row: xq [M][kp], s_x [M].
+// REG_D (1024 or 2048, D <= REG_D): the lane's pieces held in registers, x
+// read once and each element normalised once (the loops run REG_D
+// columns, so each width takes the smallest); REG_D = 0: every pass reads
+// the row again (any D).
+template <typename T, int REG_D>
+__global__ void __launch_bounds__(256, 2)
 ffn_norm_quant_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
                       const float* __restrict__ ln_b, int8_t* __restrict__ xq,
                       float* __restrict__ sx, int M, int D, int kp, float eps) {
+  constexpr bool REG = REG_D > 0;
+  constexpr int V = 16 / sizeof(T);    // elements of a 16-byte piece
+  constexpr int P = REG ? REG_D / (32 * V) : 1;   // REG: pieces a lane
   const int m = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (m >= M) return;
   const T* xr = x + (size_t)m * D;
-  const float inv_d = 1.f / static_cast<float>(D);
-  auto at = [&](int k) { return k < D ? to_f(xr[k]) : 0.f; };
-  float sum = 0.f;
-  for (int j = 0; 128 * j < D; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) sum = __fadd_rn(sum, at(128 * j + 4 * lane + e));
-  const float mean = __fmul_rn(warp_sum(sum), inv_d);
-  float sq = 0.f;
-  for (int j = 0; 128 * j < D; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = 128 * j + 4 * lane + e;
-      const float d = k < D ? __fsub_rn(at(k), mean) : 0.f;
-      sq = __fadd_rn(sq, __fmul_rn(d, d));
+  const bool vec = D % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  // the V elements of piece p (columns V p ..), zero past D
+  auto piece = [&](int p, float (&v)[V]) {
+    const int k0 = V * p;
+    if (vec && k0 < D) {
+      load16(xr + k0, v);
+      return;
     }
-  const float rs = rsqrtf(__fadd_rn(__fmul_rn(warp_sum(sq), inv_d), eps));
-  auto norm = [&](int k) {
-    return k < D ? __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(at(k), mean), rs), ln_s[k]), ln_b[k])
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = k0 + e < D ? to_f(xr[k0 + e]) : 0.f;
+  };
+  const int np = (D + V - 1) / V;
+  const float inv_d = 1.f / static_cast<float>(D);
+  float sum = 0.f, sq = 0.f, am = 0.f;
+  int8_t* qr = xq + (size_t)m * kp;
+  auto norm = [&](float v, int k, float mean, float rs) {
+    return k < D ? __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mean), rs), ln_s[k]), ln_b[k])
                  : 0.f;
   };
-  float am = 0.f;
-  for (int j = 0; 128 * j < D; ++j)
+  auto store = [&](int p, const uint32_t (&b)[8]) {
+    if constexpr (V == 8)
+      *reinterpret_cast<uint2*>(qr + V * p) =
+          make_uint2(pack4(b[0], b[1], b[2], b[3]), pack4(b[4], b[5], b[6], b[7]));
+    else
+      *reinterpret_cast<int*>(qr + V * p) = pack4(b[0], b[1], b[2], b[3]);
+  };
+  if constexpr (REG) {
+    float v[P][V];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) am = fmaxf(am, fabsf(norm(128 * j + 4 * lane + e)));
-  const RowDiv d = row_div(row_scale(warp_max(am)));
-  if (lane == 0) sx[m] = d.s;
-  int8_t* qr = xq + (size_t)m * kp;
-  for (int j = 0; 128 * j < kp; ++j) {
-    const int k = 128 * j + 4 * lane;
-    if (k >= kp) continue;      // kp is a multiple of 32: whole words
-    *reinterpret_cast<int*>(qr + k) =
-        pack4(quant_bits(norm(k), d), quant_bits(norm(k + 1), d), quant_bits(norm(k + 2), d),
-              quant_bits(norm(k + 3), d));
+    for (int j = 0; j < P; ++j) {
+      piece(lane + 32 * j, v[j]);       // zeros past D
+#pragma unroll
+      for (int e = 0; e < V; ++e) sum = __fadd_rn(sum, v[j][e]);
+    }
+    const float mean = __fmul_rn(warp_sum(sum), inv_d);
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float d = V * (lane + 32 * j) + e < D ? __fsub_rn(v[j][e], mean) : 0.f;
+        sq = __fadd_rn(sq, __fmul_rn(d, d));
+      }
+    const float rs = rsqrtf(__fadd_rn(__fmul_rn(warp_sum(sq), inv_d), eps));
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        v[j][e] = norm(v[j][e], V * (lane + 32 * j) + e, mean, rs);
+        am = fmaxf(am, fabsf(v[j][e]));
+      }
+    const RowDiv d = row_div(row_scale(warp_max(am)));
+    if (lane == 0) sx[m] = d.s;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int p = lane + 32 * j;
+      if (p >= kp / V) break;            // kp a multiple of 32: whole pieces, zero past D
+      uint32_t b[8];
+#pragma unroll
+      for (int e = 0; e < V; ++e) b[e] = quant_bits(v[j][e], d);
+      store(p, b);
+    }
+  } else {
+    for (int p = lane; p < np; p += 32) {
+      float v[V];
+      piece(p, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) sum = __fadd_rn(sum, v[e]);
+    }
+    const float mean = __fmul_rn(warp_sum(sum), inv_d);
+    for (int p = lane; p < np; p += 32) {
+      float v[V];
+      piece(p, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float d = V * p + e < D ? __fsub_rn(v[e], mean) : 0.f;
+        sq = __fadd_rn(sq, __fmul_rn(d, d));
+      }
+    }
+    const float rs = rsqrtf(__fadd_rn(__fmul_rn(warp_sum(sq), inv_d), eps));
+    for (int p = lane; p < np; p += 32) {
+      float v[V];
+      piece(p, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) am = fmaxf(am, fabsf(norm(v[e], V * p + e, mean, rs)));
+    }
+    const RowDiv d = row_div(row_scale(warp_max(am)));
+    if (lane == 0) sx[m] = d.s;
+    for (int p = lane; p < kp / V; p += 32) {
+      float v[V];
+      piece(p, v);
+      uint32_t b[8];
+#pragma unroll
+      for (int e = 0; e < V; ++e) b[e] = quant_bits(norm(v[e], V * p + e, mean, rs), d);
+      store(p, b);
+    }
   }
 }
 
-// s_h = row_scale(max |h|) over all H columns of each row, then its int8,
-// one warp a row: hq [M][hp], sh [M]
+// s_h = row_scale(max |h|) over all H columns of each row, from the GEMM's
+// partial maxima pmax [M][tiles], then the row's int8 from one read of h
+// [M][hp] (zero past H), one warp a row, 16 columns a lane a step: hq
+// [M][hp], sh [M]
 __global__ void __launch_bounds__(256)
-ffn_hidden_quant_kernel(const float* __restrict__ h, int8_t* __restrict__ hq,
-                        float* __restrict__ sh, int M, int H, int hp) {
+ffn_hidden_quant_kernel(const float* __restrict__ h, const float* __restrict__ pmax,
+                        int8_t* __restrict__ hq, float* __restrict__ sh, int M, int hp,
+                        int tiles) {
   const int m = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (m >= M) return;
-  const float* hr = h + (size_t)m * H;
   float am = 0.f;
-  for (int k = lane; k < H; k += 32) am = fmaxf(am, fabsf(hr[k]));
+  for (int j = lane; j < tiles; j += 32) am = fmaxf(am, pmax[(size_t)m * tiles + j]);
   const RowDiv d = row_div(row_scale(warp_max(am)));
   if (lane == 0) sh[m] = d.s;
-  int8_t* qr = hq + (size_t)m * hp;
-  for (int k = 4 * lane; k < hp; k += 128) {
-    uint32_t b[4];
+  const float* hr = h + (size_t)m * hp;
+  uint4* qr = reinterpret_cast<uint4*>(hq + (size_t)m * hp);
+  for (int p = lane; p < hp / 16; p += 32) {
+    float v[16];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) b[e] = k + e < H ? quant_bits(hr[k + e], d) : 0u;
-    *reinterpret_cast<int*>(qr + k) = pack4(b[0], b[1], b[2], b[3]);
+    for (int u = 0; u < 4; ++u) {
+      float f[4];
+      load4(hr + 16 * p + 4 * u, f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[4 * u + e] = f[e];
+    }
+    uint32_t w[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      w[u] = static_cast<uint32_t>(pack4(quant_bits(v[4 * u], d), quant_bits(v[4 * u + 1], d),
+                                         quant_bits(v[4 * u + 2], d), quant_bits(v[4 * u + 3], d)));
+    qr[p] = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-// C [M, N] = A [M, K] B^T (A int8 rows from amap, B^T the weight's kernel
-// layout [N, K] from bmap; kc 128-byte chunks of K), with the epilogue EPI:
-//   HIDDEN: hout[m, n] = swish(float(C) s_row[m] s_col[n] + bias[n])
-//   OUT:    out[m, n] = x[m, n] + half (float(C) s_row[m] s_col[n] + bias[n])
+// C [M, N] = A [M, K] B^T on int8 wgmma, persistent (hopper_gemm.cuh): A
+// int8 rows by amap (boxes of 128 K bytes x 192 rows), B^T the weight's
+// kernel layout [N, K] by bmap (128 x 128), kc 128-byte chunks of K; tile
+// (mt, nt) is rows 192 mt.. x columns 128 nt... The epilogue EPI, with the
+// plain version's rounding points and no per-element branch:
+//   HIDDEN: hout[m, n] = swish(float(C) s_row[m] s_col[n] + bias[n]) for
+//           n < N, 0 for N <= n < ldo (hout [M][ldo]), and the tile's max
+//           |h| of each row into pmax[m][nt];
+//   OUT:    out[m, n] = x[m, n] + half (float(C) s_row[m] s_col[n] + bias[n]).
 template <int EPI, typename T>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(pg::THREADS, 1)
 ffn_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
                 const float* __restrict__ s_row, const float* __restrict__ s_col,
                 const float* __restrict__ bias, const T* __restrict__ x, float* __restrict__ hout,
-                T* __restrict__ out, int M, int N, int kc, float half) {
+                float* __restrict__ pmax, T* __restrict__ out, int M, int N, int ldo, int kc,
+                float half) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = hopper::align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + WG_STAGES * WG_STAGE);
-  uint64_t* empty = full + WG_STAGES;
-  const int tid = threadIdx.x, wg = tid >> 7;
-  const int m0 = blockIdx.x * 128, n0 = blockIdx.y * 128;
-  if (tid == 0) {
-    for (int i = 0; i < WG_STAGES; ++i) {
-      hopper::mbar_init(&full[i], 1);
-      hopper::mbar_init(&empty[i], CONSUMERS);
-    }
-    hopper::mbar_fence_init();
-  }
+  const pg::Smem sm = pg::setup(smem_raw);
   __syncthreads();
-
+  const int tn = (N + 127) / 128, tiles = (M + pg::TM - 1) / pg::TM * tn;
+  const int tid = threadIdx.x, wg = tid >> 7;
   if (wg == 0) {
-    hopper::setmaxnreg_dec<REG_PRODUCER>();
-    if (tid == 0) {
-      for (int g = 0; g < kc; ++g) {
-        const int st = g % WG_STAGES;
-        hopper::mbar_wait(&empty[st], ((g / WG_STAGES) & 1) ^ 1);
-        hopper::mbar_expect(&full[st], WG_STAGE);
-        unsigned char* dst = ring + st * WG_STAGE;
-        hopper::tma_load(dst, &amap, &full[st], 128 * g, m0);
-        hopper::tma_load(dst + WG_TILE, &bmap, &full[st], 128 * g, n0);
-      }
-    }
+    hopper::setmaxnreg_dec<pg::REG_PRODUCER>();
+    if (tid == 0)
+      pg::produce(sm, tiles, tn, kc, [&](unsigned char* dst, uint64_t* bar, int mt, int nt, int k) {
+        hopper::tma_load(dst, &amap, bar, 128 * k, pg::TM * mt);
+        hopper::tma_load(dst + pg::A_BYTES, &bmap, bar, 128 * k, 128 * nt);
+      });
     return;
   }
 
-  hopper::setmaxnreg_inc<REG_CONSUMER>();
-  const int c = wg - 1, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int r0 = 16 * warp + (lane >> 2);         // this thread's accumulator rows r0, r0 + 8
+  hopper::setmaxnreg_inc<pg::REG_CONSUMER>();
+  const int c = wg - 1, ct = tid & 127, w = ct >> 5, q = tid & 3;
+  const bool vec = N % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
   int acc[64];
-  int prev = 0;
-  hopper::fence_regs(acc);
-  hopper::wg_fence();
-  for (int g = 0; g < kc; ++g) {
-    const int st = g % WG_STAGES;
-    hopper::mbar_wait(&full[st], (g / WG_STAGES) & 1);
-    const uint32_t a = hopper::saddr(ring + st * WG_STAGE + c * ATOM);
-    const uint32_t b = hopper::saddr(ring + st * WG_STAGE + WG_TILE);
-    if (g > 0) hopper::wg_fence();
+  int g = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t / tn) * pg::TM + 64 * c, nt = t % tn, n0 = 128 * nt;
+    pg::consume(acc, sm, kc, g, c, [](int (&a)[64], uint32_t sa, uint32_t sb, int k) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      hopper::wgmma_s8_n128(acc, hopper::desc(a + kk * 32), hopper::desc(b + kk * 32),
-                            (g | kk) != 0);
-    hopper::wg_commit();
-    if (g > 0) {
-      hopper::wg_wait<1>();
-      hopper::mbar_arrive(&empty[prev]);
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::wgmma_s8_n128(a, hopper::desc(sa + kk * 32), hopper::desc(sb + kk * 32),
+                              (k | kk) != 0);
+    });
+    // y (HIDDEN: h) in place of the int32 sums, as float bits
+    float am[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float sr = s_row[min(m0 + 16 * w + (ct & 31) / 4 + 8 * hh, M - 1)];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + 8 * i + 2 * q + e, nc = min(n, N - 1);
+          int& a = acc[4 * i + 2 * hh + e];
+          const float y = __fadd_rn(dequant(a, sr, s_col[nc]), bias[nc]);
+          if constexpr (EPI == EPI_HIDDEN) {
+            const float hv = swish(y) * (n < N ? 1.f : 0.f);   // no branch
+            am[hh] = fmaxf(am[hh], fabsf(hv));
+            a = __float_as_int(hv);
+          } else {
+            a = __float_as_int(y);
+          }
+        }
     }
-    prev = st;
-  }
-  hopper::wg_wait0();
-  hopper::fence_regs(acc);
-  hopper::mbar_arrive(&empty[prev]);
-
+    if constexpr (EPI == EPI_HIDDEN) {
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int m = m0 + 64 * c + r0 + 8 * hh;
-    if (m >= M) continue;
-    const float sr = s_row[m];
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = fmaxf(am[hh], __shfl_xor_sync(0xffffffffu, am[hh], 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const int m = m0 + 16 * w + (ct & 31) / 4 + 8 * hh;
+        if (q == 0 && m < M) pmax[(size_t)m * tn + nt] = mx;
+      }
+    }
+#pragma unroll   // whole: acc is indexed by hf, so it stays in registers
+    for (int hf = 0; hf < 2; ++hf) {
+      const float* stg = pg::stage(sm.stg, c, hf, [&](int i, int hh, int e) {
+        return __int_as_float(acc[4 * i + 2 * hh + e]);
+      });
+      const int nb = n0 + 64 * hf;
+      if constexpr (EPI == EPI_HIDDEN) {
+        for (int j = ct; j < 64 * 16; j += 128) {   // 64 rows x 16 float4
+          const int r = j >> 4, cc = (j & 15) * 4, m = m0 + r;
+          if (m < M && nb + cc < ldo)
+            *reinterpret_cast<float4*>(hout + (size_t)m * ldo + nb + cc) =
+                *reinterpret_cast<const float4*>(stg + r * pg::EPI_LD + cc);
+        }
+      } else if (vec) {
+        for (int j = ct; j < 64 * 8; j += 128) {    // 64 rows x 8 pieces of 8 columns
+          const int r = j >> 3, cc = (j & 7) * 8, m = m0 + r, n = nb + cc;
+          if (m >= M || n >= N) continue;
+          float xv[8];
+          pg::load8(x + (size_t)m * N + n, xv);
 #pragma unroll
-    for (int i = 0; i < 16; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + 8 * i + 2 * (lane & 3) + e;
-        if (n >= N) continue;
-        const float y = __fadd_rn(dequant(acc[4 * i + 2 * hh + e], sr, s_col[n]), bias[n]);
-        if constexpr (EPI == EPI_HIDDEN) {
-          hout[(size_t)m * N + n] = swish(y);
-        } else {
+          for (int e = 0; e < 8; ++e)
+            xv[e] = __fadd_rn(xv[e], __fmul_rn(half, stg[r * pg::EPI_LD + cc + e]));
+          pg::store8(out + (size_t)m * N + n, xv);
+        }
+      } else {
+        for (int j = ct; j < 64 * 64; j += 128) {
+          const int r = j >> 6, cc = j & 63, m = m0 + r, n = nb + cc;
+          if (m >= M || n >= N) continue;
           const size_t o = (size_t)m * N + n;
-          out[o] = from_f<T>(__fadd_rn(to_f(x[o]), __fmul_rn(half, y)));
+          out[o] = from_f<T>(__fadd_rn(to_f(x[o]), __fmul_rn(half, stg[r * pg::EPI_LD + cc])));
         }
       }
+    }
   }
-}
-
-template <int EPI, typename T>
-cudaError_t launch_gemm(const CUtensorMap& amap, const CUtensorMap& bmap, const void* s_row,
-                        const void* s_col, const void* bias, const void* x, void* hout,
-                        void* out, cudaStream_t s, int M, int N, int K, float half) {
-  cudaError_t err = cudaFuncSetAttribute(ffn_gemm_kernel<EPI, T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)WG_SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((M + 127) / 128, (N + 127) / 128);
-  ffn_gemm_kernel<EPI, T><<<grid, THREADS, WG_SMEM, s>>>(
-      amap, bmap, static_cast<const float*>(s_row), static_cast<const float*>(s_col),
-      static_cast<const float*>(bias), static_cast<const T*>(x), static_cast<float*>(hout),
-      static_cast<T*>(out), M, N, (pad32(K) + 127) / 128, half);
-  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_wide(const void* x, const void* ln_s, const void* ln_b, const void* w1t,
                         const void* s1, const void* b1, const void* w2t, const void* s2,
-                        const void* b2, void* out, void* xq, void* sx, void* h, void* hq,
-                        void* sh, cudaStream_t s, int M, int D, int H, float half, float eps) {
-  const int dp = pad32(D), hp = pad32(H);
+                        const void* b2, void* out, void* xq, void* sx, void* h, void* pmax,
+                        void* hq, void* sh, cudaStream_t s, int M, int D, int H, float half,
+                        float eps) {
+  const int dp = pad32(D), hp = pad32(H), tn1 = (H + 127) / 128, mt = (M + pg::TM - 1) / pg::TM;
+  static bool smem_set = false;     // once per process and type
+  if (!smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(ffn_gemm_kernel<EPI_HIDDEN, T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)pg::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ffn_gemm_kernel<EPI_OUT, T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pg::SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  constexpr auto U8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
   CUtensorMap xmap, w1map, hmap, w2map;
-  cudaError_t err = hopper::int8_map(&xmap, xq, M, dp);
-  if (err == cudaSuccess) err = hopper::int8_map(&w1map, w1t, H, dp);
-  if (err == cudaSuccess) err = hopper::int8_map(&hmap, hq, M, hp);
-  if (err == cudaSuccess) err = hopper::int8_map(&w2map, w2t, D, hp);
+  cudaError_t err = hopper::tile_map(&xmap, U8, 1, xq, M, dp, pg::TM);
+  if (err == cudaSuccess) err = hopper::weight_map(&w1map, U8, 1, w1t, H, dp, 128);
+  if (err == cudaSuccess) err = hopper::tile_map(&hmap, U8, 1, hq, M, hp, pg::TM);
+  if (err == cudaSuccess) err = hopper::weight_map(&w2map, U8, 1, w2t, D, hp, 128);
   if (err != cudaSuccess) return err;
   const int rows = (M + 7) / 8;
-  ffn_norm_quant_kernel<T><<<rows, 256, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-      static_cast<int8_t*>(xq), static_cast<float*>(sx), M, D, dp, eps);
+  auto norm = D <= 1024   ? ffn_norm_quant_kernel<T, 1024>
+              : D <= 2048 ? ffn_norm_quant_kernel<T, 2048>
+                          : ffn_norm_quant_kernel<T, 0>;
+  norm<<<rows, 256, 0, s>>>(static_cast<const T*>(x), static_cast<const float*>(ln_s),
+                            static_cast<const float*>(ln_b), static_cast<int8_t*>(xq),
+                            static_cast<float*>(sx), M, D, dp, eps);
   err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = launch_gemm<EPI_HIDDEN, T>(xmap, w1map, sx, s1, b1, nullptr, h, nullptr, s, M, H, D,
-                                     half);
+  if (err != cudaSuccess) return err;
+  ffn_gemm_kernel<EPI_HIDDEN, T><<<pg::grid_size(mt * tn1), pg::THREADS, pg::SMEM, s>>>(
+      xmap, w1map, static_cast<const float*>(sx), static_cast<const float*>(s1),
+      static_cast<const float*>(b1), nullptr, static_cast<float*>(h), static_cast<float*>(pmax),
+      nullptr, M, H, hp, (dp + 127) / 128, half);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ffn_hidden_quant_kernel<<<rows, 256, 0, s>>>(static_cast<const float*>(h),
+                                               static_cast<const float*>(pmax),
                                                static_cast<int8_t*>(hq), static_cast<float*>(sh),
-                                               M, H, hp);
+                                               M, hp, tn1);
   err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = launch_gemm<EPI_OUT, T>(hmap, w2map, sh, s2, b2, x, nullptr, out, s, M, D, H, half);
-  return err;
+  if (err != cudaSuccess) return err;
+  ffn_gemm_kernel<EPI_OUT, T><<<pg::grid_size(mt * ((D + 127) / 128)), pg::THREADS, pg::SMEM, s>>>(
+      hmap, w2map, static_cast<const float*>(sh), static_cast<const float*>(s2),
+      static_cast<const float*>(b2), static_cast<const T*>(x), nullptr, nullptr,
+      static_cast<T*>(out), M, D, D, (hp + 127) / 128, half);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -795,19 +918,20 @@ extern "C" int int8_ffn_fwd(const void* x, const void* ln_s, const void* ln_b, c
 }
 
 // The wide route (D > 512 or H > 2048; any widths): the same inputs, and
-// scratch xq int8 [M, pad32(D)], sx float32 [M], h float32 [M, H], hq int8
-// [M, pad32(H)], sh float32 [M]. Four launches (see "wide" above).
+// scratch (16-byte aligned) xq int8 [M, pad32(D)], sx float32 [M], h
+// float32 [M, pad32(H)], pmax float32 [M, ceil(H / 128)], hq int8 [M,
+// pad32(H)], sh float32 [M]. Four launches (see "wide" above).
 extern "C" int int8_ffn_wide_fwd(const void* x, const void* ln_s, const void* ln_b,
                                  const void* w1t, const void* s1, const void* b1, const void* w2t,
                                  const void* s2, const void* b2, void* out, void* xq, void* sx,
-                                 void* h, void* hq, void* sh, void* stream, int M, int D, int H,
-                                 int is_bf16, float half, float eps) {
+                                 void* h, void* pmax, void* hq, void* sh, void* stream, int M,
+                                 int D, int H, int is_bf16, float half, float eps) {
   if (M < 1 || D < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       is_bf16 ? launch_wide<__nv_bfloat16>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, xq, sx,
-                                           h, hq, sh, s, M, D, H, half, eps)
-              : launch_wide<float>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, xq, sx, h, hq,
-                                   sh, s, M, D, H, half, eps);
+                                           h, pmax, hq, sh, s, M, D, H, half, eps)
+              : launch_wide<float>(x, ln_s, ln_b, w1t, s1, b1, w2t, s2, b2, out, xq, sx, h, pmax,
+                                   hq, sh, s, M, D, H, half, eps);
   return static_cast<int>(err);
 }

@@ -16,6 +16,8 @@ LayerNorm, non-causal only.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -32,13 +34,24 @@ def route(dtype, d: int, kernel_size: int) -> str:
     ``dtype`` (``narrow_shape`` of ``csrc/conv_block.cu``): "narrow", the
     designs every shipped width takes (D <= 512; bf16 K <= 32; float32 the
     second launch's shared memory, 4 D (79 + 2 K) bytes, within a
-    block's), else "wide" (16 frames a block, taps and pw2 columns
-    streamed)."""
+    block's), else "wide" (bf16: four launches, both products on wgmma
+    with 192-row tiles, their operands through a bf16 scratch; float32:
+    16 frames a block, taps and pw2 columns streamed)."""
     if d > NARROW_D:
         return "wide"
     if dtype == torch.bfloat16:
         return "narrow" if kernel_size <= NARROW_K_BF16 else "wide"
     return "narrow" if 4 * d * (79 + 2 * kernel_size) <= cuda_build.SMEM_LIMIT else "wide"
+
+
+def scratch_shapes(dtype, b: int, t: int, d: int, kernel_size: int) -> list:
+    """(shape, dtype) of the kernel's scratch tensors: g float32 [B, T, D]
+    on every route, and on the wide bf16 route the products' operand
+    (LN_pre(x), then swish(LN(z))) in bf16 [B, T, D]."""
+    out = [((b, t, d), torch.float32)]
+    if dtype == torch.bfloat16 and route(dtype, d, kernel_size) == "wide":
+        out.append(((b, t, d), torch.bfloat16))
+    return out
 
 
 def width_error(dtype, d: int, kernel_size: int) -> str | None:
@@ -109,7 +122,8 @@ def conv_block(x, lengths, p_norm, p_conv, *, kernel_size: int):
     CPU tensors take the plain version. CUDA tensors launch the kernel or
     raise: float32 or bfloat16 x [B,T,D] with D and K that ``width_error``
     passes. ``conv_block.launches`` counts calls that launched the kernel
-    (one per call, though the kernel runs as two launches).
+    (one per call, though the kernel runs as two launches, or four on the wide
+    bf16 route).
     """
     if x.device.type == "cpu":
         return conv_block_plain(x, lengths, p_norm, p_conv, kernel_size=kernel_size)
@@ -134,15 +148,19 @@ def conv_block(x, lengths, p_norm, p_conv, *, kernel_size: int):
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(x)
     cache = torch.empty((b, k - 1, d), dtype=x.dtype, device=x.device)
-    glu = torch.empty((b, t, d), dtype=torch.float32, device=x.device)   # scratch
+    # one allocation: each part 16-byte aligned (its bytes are a multiple of 64)
+    sizes = [math.prod(shape) * dt.itemsize for shape, dt in scratch_shapes(x.dtype, b, t, d, k)]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, device=x.device)
+    glu = buf.data_ptr()
+    opnd = glu + sizes[0] if len(sizes) > 1 else None
 
-    fn = cuda_build.load_function("conv_block", "conv_block_fwd", n_ptrs=16, n_ints=5)
+    fn = cuda_build.load_function("conv_block", "conv_block_fwd", n_ptrs=17, n_ints=5)
     P = cuda_build.ptr
     err = fn(
         P(x), P(lens), P(w["pre_s"]), P(w["pre_b"]), P(w["w1"]), P(w["b1"]),
         P(w["wd"]), P(w["bd"]), P(w["ln_s"]), P(w["ln_b"]), P(w["w2"]), P(w["b2"]),
-        P(out), P(cache), P(glu), cuda_build.stream_ptr(x),
-        b, t, d, k, int(x.dtype == torch.bfloat16),
+        P(out), P(cache), glu, opnd,
+        cuda_build.stream_ptr(x), b, t, d, k, int(x.dtype == torch.bfloat16),
     )
     cuda_build.check(err, "conv_block")
     conv_block.launches += 1

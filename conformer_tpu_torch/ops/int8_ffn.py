@@ -15,6 +15,8 @@ CUDA tensors and takes ``int8_ffn_plain`` only for CPU tensors.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..models.layers import layer_norm
@@ -43,9 +45,39 @@ def route(d: int, h: int) -> str:
     (4 blocks hold each row's H hidden values in registers, at most 512
     columns a block, and a block's A tile holds D <= 512: every shipped
     width, S 144 / 576, M 256 / 2048, L 512 / 2048), else "wide" (four
-    launches, the hidden in float32 through device memory: Conformer XL's
-    1024 / 4096 and any wider)."""
+    launches, both products on int8 wgmma with 192 x 128 tiles on a
+    persistent grid, the hidden in float32 through device memory with each
+    128-column tile's row maxima beside it: Conformer XL's 1024 / 4096 and
+    any wider)."""
     return "narrow" if d <= DMAX and h <= HMAX else "wide"
+
+
+def wide_scratch_layout(m: int, d: int, h: int) -> list:
+    """(name, shape, dtype, byte offset) of the wide route's scratch tensors
+    in one buffer, each at a 256-byte boundary: LN(x)'s int8 xq [M, D_pad]
+    and scales sx [M]; the float32 hidden h [M, H_pad] (zero past H), its
+    rows' maxima of |h| over each 128-column tile pmax [M, ceil(H / 128)],
+    its int8 hq [M, H_pad] and scales sh [M] (``csrc/int8_ffn.cu``
+    ``int8_ffn_wide_fwd``; D_pad, H_pad: multiples of 32)."""
+    dp, hp = -(-d // 32) * 32, -(-h // 32) * 32
+    parts = [("xq", (m, dp), torch.int8), ("sx", (m,), torch.float32),
+             ("h", (m, hp), torch.float32), ("pmax", (m, -(-h // 128)), torch.float32),
+             ("hq", (m, hp), torch.int8), ("sh", (m,), torch.float32)]
+    out, at = [], 0
+    for name, shape, dt in parts:
+        out.append((name, shape, dt, at))
+        at += -(-dt.itemsize * math.prod(shape) // 256) * 256
+    return out
+
+
+def wide_scratch(m: int, d: int, h: int, device) -> tuple:
+    """The wide route's scratch (``wide_scratch_layout``) as one allocation:
+    (the buffer, the address of each part)."""
+    layout = wide_scratch_layout(m, d, h)
+    _, shape, dt, at = layout[-1]
+    buf = torch.empty(at + dt.itemsize * math.prod(shape), dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    return buf, [base + at for *_, at in layout]
 
 
 def width_error(d: int, h: int) -> str | None:
@@ -99,18 +131,13 @@ def int8_ffn_fused(x, ln, w1q, s1, b1, w2q, s2, b2, *, half: float = 0.5,
     if route(d, h) == "narrow":
         fn = cuda_build.load_function("int8_ffn", "int8_ffn_fwd", n_ptrs=11, n_ints=4,
                                       n_floats=2)
-        scratch = ()
+        scratch = []
     else:
-        # LN(x)'s int8 and scales, the float32 hidden, its int8 and scales
-        fn = cuda_build.load_function("int8_ffn", "int8_ffn_wide_fwd", n_ptrs=16, n_ints=4,
+        fn = cuda_build.load_function("int8_ffn", "int8_ffn_wide_fwd", n_ptrs=17, n_ints=4,
                                       n_floats=2)
-        scratch = (torch.empty((m, w1t.shape[1]), dtype=torch.int8, device=dev),
-                   torch.empty((m,), dtype=f32, device=dev),
-                   torch.empty((m, h), dtype=f32, device=dev),
-                   torch.empty((m, w2t.shape[1]), dtype=torch.int8, device=dev),
-                   torch.empty((m,), dtype=f32, device=dev))
+        buf, scratch = wide_scratch(m, d, h, dev)
     err = fn(P(x2), P(ln_s), P(ln_b), P(w1t), P(s1), P(b1), P(w2t), P(s2), P(b2), P(out),
-             *(P(t) for t in scratch), cuda_build.stream_ptr(x2), *ints, half, eps)
+             *scratch, cuda_build.stream_ptr(x2), *ints, half, eps)
     cuda_build.check(err, "int8_ffn")
     int8_ffn_fused.launches += 1
     return out.reshape(x.shape)

@@ -29,6 +29,7 @@ import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -80,10 +81,11 @@ def variant_source(src: str, subs) -> str:
     return src
 
 
-def build(cuda_build, ablations=ABLATIONS, out="ablation") -> dict:
-    """Compile every ablated copy in parallel into build/<out>/; return
+def build(cuda_build, ablations=ABLATIONS, out="ablation", csrc=None) -> dict:
+    """Compile every ablated copy of the sources under ``csrc`` (this
+    checkout's by default) in parallel into build/<out>/; return
     {(name, source): lib}."""
-    csrc = cuda_build.CSRC
+    csrc = cuda_build.CSRC if csrc is None else Path(csrc)
     out_dir = os.path.join(REPO, "build", out)
     procs = []
     for i, (name, source, subs) in enumerate(ablations):

@@ -18,12 +18,13 @@ backward as the autograd Function runs it ("bwd") at the training shape
 B=8 at d=1024); the three joint kernels at B=8, T'=374, U=64, V=5002 (3
 calls a time) and the fused int8 FFN at route B's decode batches (M = 48
 x 374 at Conformer-M and -L, 8 x 374 at the 1024-wide), bf16 x. For the
-joint and the FFN also the plain version's time, the bound (the
-products' operations at the tensor-core or float32 rate against the
-bytes of inputs and outputs at 3.35 TB/s; for the float32 joint also at
-the rate of the 3xTF32 arithmetic its wide route runs, three tf32
-products each at 495 TFLOP/s, " bound 3xtf32") and a yardstick (the joint's
-products alone by torch.matmul in t chunks; the FFN's two products by
+conv block, the joint and the FFN also the plain version's time, the
+bound (the products' operations at the tensor-core or float32 rate
+against the bytes of inputs and outputs at 3.35 TB/s; for the float32
+joint also at the rate of the 3xTF32 arithmetic its wide route runs, three
+tf32 products each at 495 TFLOP/s, " bound 3xtf32") and a yardstick (the
+conv block's two products alone by bf16 torch.matmul; the joint's products
+alone by torch.matmul in t chunks; the FFN's two products by
 torch._int_mm) under " plain", " bound" and " yardstick". Inputs are
 seeded, with key padding to random lengths.
 Times: CUDA events, mean of 20 calls after a warm-up (the wrapper's host
@@ -147,10 +148,17 @@ def attention_times(gen, b, h, t, dk, d, rate) -> dict:
             "bwd": both(backward)}
 
 
-def conv_times(gen, b, t, d, k) -> tuple[float | None, float | None, float | None]:
+def conv_times(gen, b, t, d, k) -> tuple:
+    """(ms, device ms, host ms, plain ms, bound ms, yardstick ms) of the bf16
+    conv block, or Nones where the tree refuses the width. The bound as
+    chip_smoke.conv_block_times takes it: the bytes of x, the weights, out
+    and the cache against the pointwise products of the valid frames at
+    the bf16 tensor rate and the depthwise taps at the float32 rate; the
+    yardstick: the two products alone by bf16 torch.matmul ([B T', D] x
+    [D, 2D] and [B T', D] x [D, D])."""
     import torch
 
-    from conformer_tpu_torch.ops.conv_block import conv_block
+    from conformer_tpu_torch.ops.conv_block import conv_block, conv_block_plain, kernel_weights
 
     dev = "cuda"
 
@@ -170,10 +178,23 @@ def conv_times(gen, b, t, d, k) -> tuple[float | None, float | None, float | Non
     x = torch.randn(b, t, d, generator=gen).to(dev, bf16)
     lens = torch.randint(t // 4, t + 1, (b,), generator=gen).to(dev, torch.int32)
     try:
-        conv_block(x, lens, p_norm, p_conv, kernel_size=k)
+        out = conv_block(x, lens, p_norm, p_conv, kernel_size=k)
     except ValueError:
-        return None, None, None
-    return both(lambda: conv_block(x, lens, p_norm, p_conv, kernel_size=k))
+        return (None,) * 6
+    frames = float(lens.sum())
+    w = kernel_weights(p_norm, p_conv, bf16)
+    n_bytes = sum(a.numel() * a.element_size() for a in (x, lens, *out, *w.values()))
+    bound = max(n_bytes / (HBM_TBPS * 1e9), 2.0 * frames * d * 3 * d / (BF16_TFLOPS * 1e9)
+                + 2.0 * frames * d * k / (F32_TFLOPS * 1e9))
+    y = x.reshape(b * t, d)
+
+    def yard():
+        torch.matmul(y, w["w1"])
+        torch.matmul(y, w["w2"])
+
+    return (*both(lambda: conv_block(x, lens, p_norm, p_conv, kernel_size=k)),
+            time_ms(lambda: conv_block_plain(x, lens, p_norm, p_conv, kernel_size=k)), bound,
+            time_ms(yard))
 
 
 def bound_ms(n_bytes: float, ops: float, rate_tflops: float) -> float:
@@ -272,10 +293,10 @@ def main() -> int:
             if name == "fwd" or shape[-1] > 0:
                 for suffix, ms in zip(("", " device", " host"), times):
                     res[f"attention {name} {label}{suffix}"] = ms
-    for label, *shape in CONV:
-        for suffix, ms in zip(("", " device", " host"), conv_times(gen, *shape)):
-            res[f"conv {label}{suffix}"] = ms
     detail = ("", " device", " host", " plain", " bound", " yardstick")
+    for label, *shape in CONV:
+        for suffix, ms in zip(detail, conv_times(gen, *shape)):
+            res[f"conv {label}{suffix}"] = ms
     for label, *shape in JOINT:
         for name, times in joint_times(gen, *shape).items():
             for suffix, ms in zip((*detail, " bound 3xtf32"), times):
