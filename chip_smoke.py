@@ -16,14 +16,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
                shape with a dynamic-chunk mask, against their plain
                versions and against autograd through the plain forward,
                the dropout keep-mask bit for bit, its keep share, and
-               bitwise repeatability; the same at Conformer-L's and -S's
-               head widths (H=8, dk=64, D=512; H=4, dk=36, D=144: the
-               narrow kernels) and the 1024-wide Conformer's (H=8, dk=128,
+               bitwise repeatability (at Conformer-M's widths the wide
+               kernels: wgmma fed by TMA); the same at Conformer-L's
+               training shape (B=32, H=8, dk=64, D=512) and M's widths
+               (the wide kernels), Conformer-S's (H=4, dk=36, D=144: the
+               narrow mma.sync forward, the backward on the wide kernels
+               padded to dk 40), dk=32, D=136 (wide), dk=20, D=100 (both
+               padded in the backward) and the 1024-wide Conformer's (H=8,
+               dk=128,
                D=1024 at B=32, T'=374 and at a chunk shape B=16, Tq=16,
                Tk=528, and dk=64, D=1024: the wide kernels; there in bf16
                also at heads 8-15 of 16, the keep-mask's global head), the
-               combined backward (rel_attention_bwd: dS and pd once on the
-               wide bf16 path) beside dq and dkv, its dK and dV the
+               combined backward (rel_attention_bwd: dS and pd once in
+               bf16) beside dq and dkv, its dK and dV the
                standalone dkv's bit for bit, every output poisoned
                with NaN first, in both dtypes, and every wrapper's
                ValueError at dk = 136; the conv block at Conformer-S's and -L's widths (D =
@@ -885,14 +890,21 @@ def attention_train_times(dev, gen, b: int, t: int, h: int = 4, dk: int = 64,
 
 # ------------------------------------ attention at the other shipped widths
 
-# Conformer-L (configs/conformer_l.json: d=512, 8 heads) and Conformer-S
-# (configs/conformer_s.json: d=144, 4 heads) at T'=374 (the narrow
-# kernels); the 1024-wide Conformer (Conformer XL's widths: d=1024, 8
-# heads of 128; the wide kernels) at its training shape and at a
-# streaming chunk shape (Tq = 16 queries against a 512-frame cache and
-# themselves); the keep-mask shape has T' <= dk (identity v and dO)
-ATTN_WIDTHS = {"conformer_l": dict(b=4, h=8, dk=64, d=512, keep=(4, 64)),
+# Conformer-L (configs/conformer_l.json: d=512, 8 heads) at its training
+# shape (B=32) and Conformer-M (d=256, 4 heads) at T'=374 (the wide
+# kernels), Conformer-S (configs/conformer_s.json: d=144, 4 heads of 36:
+# the narrow mma.sync forward, its backward on the wide kernels with dk
+# zero-padded to 40), a wide width whose head is narrower than its TMA box
+# and whose D is no multiple of 64 (dk 32, D 136), a narrow one whose
+# backward pads both dk and D (dk 20, D 100); the 1024-wide Conformer (Conformer XL's widths: d=1024, 8 heads of 128; the
+# wide kernels) at its training shape and at a streaming chunk shape (Tq =
+# 16 queries against a 512-frame cache and themselves); the keep-mask
+# shape has T' <= dk (identity v and dO)
+ATTN_WIDTHS = {"conformer_l": dict(b=32, h=8, dk=64, d=512, keep=(4, 64)),
+               "conformer_m": dict(b=8, h=4, dk=64, d=256, keep=(8, 64)),
                "conformer_s": dict(b=8, h=4, dk=36, d=144, keep=(8, 36)),
+               "dk 32 D 136": dict(b=4, h=4, dk=32, d=136, keep=(4, 32)),
+               "dk 20 D 100": dict(b=4, h=4, dk=20, d=100, keep=(4, 20)),
                "conformer_xl": dict(b=32, h=8, dk=128, d=1024, keep=(4, 128)),
                "conformer_xl chunk": dict(b=16, h=8, dk=128, d=1024, tq=16, tk=528,
                                           keep=None),
@@ -930,8 +942,7 @@ def check_attention_widths(dev) -> dict:
     """The attention kernels at each of ATTN_WIDTHS (T'=374, or the entry's
     Tq and Tk): the forward without and with dropout 0.1, dq and dkv, and
     the combined backward (``rel_attention_bwd``, the autograd backward's
-    call: on the wide bf16 path dS and pd once for dq's and dkv's
-    products), against their plain versions in every dtype whose kernels
+    call: in bf16 dS and pd once for dq's and dkv's products), against their plain versions in every dtype whose kernels
     take the width (an entry with ``heads``: bf16 with dropout, at that
     head offset), with outputs poisoned beforehand (no element left
     unwritten); the backward bitwise repeatable, the combined backward's
@@ -985,12 +996,15 @@ def check_attention_widths(dev) -> dict:
                               (ref_out, ref_lse), tol)
                 delta = (g.float() * ref_out.float()).sum(dim=-1)
                 bargs = (*args, seed, g, ref_lse, delta)
-                poison(((b, h, t, dk), torch.float32), ((b, h, t, d), torch.float32))
+                # the bf16 backward's outputs at its padded widths (cut back after)
+                pk, pd = ((ra.tma_width(dk), ra.tma_width(d)) if dtype == torch.bfloat16
+                          else (dk, d))
+                poison(((b, h, t, pk), torch.float32), ((b, h, t, pd), torch.float32))
                 dq = ra.rel_attention_bwd_dq(*bargs, **kw)
-                poison(((b, h, tk, dk), torch.float32), ((b, h, tk, dk), torch.float32))
+                poison(((b, h, tk, pk), torch.float32), ((b, h, tk, pk), torch.float32))
                 dkv = ra.rel_attention_bwd_dkv(*bargs, **kw)
-                poison(((b, h, t, dk), torch.float32), ((b, h, t, d), torch.float32),
-                       ((b, h, tk, dk), torch.float32), ((b, h, tk, dk), torch.float32))
+                poison(((b, h, t, pk), torch.float32), ((b, h, t, pd), torch.float32),
+                       ((b, h, tk, pk), torch.float32), ((b, h, tk, pk), torch.float32))
                 both = ra.rel_attention_bwd(*bargs, **kw)
                 same = all(torch.equal(x, y) for x, y in zip(
                     (*dq, *dkv), (*ra.rel_attention_bwd_dq(*bargs, **kw),
@@ -1008,8 +1022,12 @@ def check_attention_widths(dev) -> dict:
                                          both[2:], plain[2:], tol))
                 for key, e in zip(ATTENTION_KERNELS, (e_f, e_q, e_kv)):
                     errs[key] = max(errs[key], e)
+                route = ra.route(dtype, dk, d)
+                if dtype == torch.bfloat16 and route == "narrow":
+                    route = (f"narrow forward, backward on the wide at dk {ra.tma_width(dk)} "
+                             f"D {ra.tma_width(d)}")
                 line = (f"kernels: attention {label} {name} B={b} H={h} Tq={t} Tk={tk} dk={dk} "
-                        f"D={d} ({ra.route(dtype, dk, d)} kernels{heads_note(w)}), "
+                        f"D={d} ({route} kernels{heads_note(w)}), "
                         f"dropout {rate}: max_abs_err fwd {e_f:.3g}, dq/dAB {e_q:.3g}, dK/dV "
                         f"{e_kv:.3g} (alone and in the combined backward; tol {tol} abs + rel; "
                         f"outputs poisoned with NaN beforehand), bitwise repeatable {same}, "

@@ -244,37 +244,32 @@ __host__ __device__ constexpr int kd_pad(int dk, int D) { return round_up(dk_pad
 
 constexpr size_t SMEM_LIMIT = 232448;   // bytes of shared memory a block may use
 
-// Shared memory, in bytes, of one block of the bf16 kernels that keep the
-// whole [q+u | AB] or [K | F] row: the forward at nw warps, dq at qb query
-// rows, dkv. ops/rel_attention.py computes the same.
+// Shared memory, in bytes, of one block of the mma.sync bf16 forward,
+// which keeps the whole [q+u | AB] row, at nw warps. ops/rel_attention.py
+// computes the same.
 inline size_t fwd_bf16_smem(int dk, int D, int nw) {
   const int kd = kd_pad(dk, D), ldv = dk_pad(dk) + 8;
   return 2 * ((size_t)16 * nw * (kd + 8) + 2 * (size_t)8 * nw * (kd + 8 + ldv));
 }
-inline size_t dq_bf16_smem(int dk, int D, int qb) {
-  const size_t lda = kd_pad(dk, D) + 8, ldv = dk_pad(dk) + 8;
-  return 2 * (qb * (lda + ldv) + 2 * 64 * (lda + ldv) + qb * (64 + 8));
-}
-inline size_t dkv_bf16_smem(int dk, int D) {
-  const size_t lda = kd_pad(dk, D) + 8, ldv = dk_pad(dk) + 8;
-  return 2 * (64 * (lda + ldv) + 2 * 32 * (lda + ldv)) + sizeof(float) * 4 * 32;
-}
 
-// The two paths of every attention kernel, chosen by width alone, the same
-// in the forward and both backward kernels:
-//  - narrow: dk <= 64 and, in bf16, the score depth KD <= 576 with every
-//    block of the kernels above within shared memory; in float32 D <= 512.
-//    Every shipped width (Conformer-S, -M, -L) is narrow;
+// The two paths of every attention kernel, chosen by width alone:
 //  - wide: dk <= 128 and any D; in bf16 dk and D multiples of 8 and every
 //    operand 16-byte aligned (the TMA boxes' row strides and addresses).
+//    In bf16 it takes every width it can (Conformer-M, -L, the 1024-wide
+//    Conformer), and the backward every width (ops/rel_attention.py
+//    zero-pads dk and D up to multiples of 8);
+//  - narrow: dk <= 64; in float32 D <= 512; in bf16 the forward of the
+//    widths the wide kernels do not take (Conformer-S's dk 36, whose
+//    72-byte rows TMA cannot stride), on mma.sync, with the score depth
+//    KD <= 576 and its block within shared memory.
+inline bool wide_width(int dk, int D, bool bf16_) {
+  return dk <= 128 && (!bf16_ || (dk % 8 == 0 && D % 8 == 0));
+}
 inline bool narrow_width(int dk, int D, bool bf16_) {
   if (dk > 64) return false;
   if (!bf16_) return D <= 512;
-  return kd_pad(dk, D) <= 576 && fwd_bf16_smem(dk, D, 4) <= SMEM_LIMIT &&
-         dq_bf16_smem(dk, D, 32) <= SMEM_LIMIT && dkv_bf16_smem(dk, D) <= SMEM_LIMIT;
-}
-inline bool wide_width(int dk, int D, bool bf16_) {
-  return dk <= 128 && (!bf16_ || (dk % 8 == 0 && D % 8 == 0));
+  return !wide_width(dk, D, true) && kd_pad(dk, D) <= 576 &&
+         fwd_bf16_smem(dk, D, 4) <= SMEM_LIMIT;
 }
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 

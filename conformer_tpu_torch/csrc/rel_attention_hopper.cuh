@@ -197,20 +197,49 @@ __device__ __forceinline__ void ring_products(float (&acc)[N / 2], int n, unsign
   hopper::mbar_arrive(&empty[prev]);
 }
 
+// bytes [b0, b1) of a 16-byte word: is any of them nonzero?
+__device__ __forceinline__ bool any_byte(uint4 v, int b0, int b1) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int lo = min(max(b0 - 4 * q, 0), 4), hi = min(max(b1 - 4 * q, 0), 4);
+    any |= hi > lo && (w[q] & ((0xFFFFFFFFu >> (32 - 8 * (hi - lo))) << (8 * lo))) != 0u;
+  }
+  return any;
+}
+
 // Which key tiles of TK keys hold a live (query, key) pair of the mask
 // [Tq, Tk] at mg for rows [q0, q0 + TQ): live[kt] = 1 or 0, for all kt <
-// nkt. Every thread of the block calls it (it ends on a barrier).
+// nkt. Every thread of the block calls it (it ends on a barrier). A row's
+// bytes are read as the aligned 16-byte words that hold them, TK / 16 + 1
+// at most, the bytes outside the tile masked out (a word that holds one
+// byte of the mask lies within the mask's allocation granule); a thread
+// ORs its words' verdicts into a bit a tile, 64 tiles a pass, so that its
+// loads do not wait on each other.
 __device__ __forceinline__ void live_tiles(uint8_t* live, const uint8_t* mg, int q0, int Tq,
                                            int Tk, int nkt) {
+  constexpr int NW = TK / 16 + 1, PER = TQ * NW;
   const int tid = threadIdx.x;
-  for (int kt = 0; kt < nkt; ++kt) {
-    bool any = false;
-    for (int e = tid; e < TQ * TK; e += THREADS) {
-      const int i = q0 + e / TK, j = kt * TK + e % TK;
-      any |= i < Tq && j < Tk && mg[(size_t)i * Tk + j] != 0;
+  for (int t = tid; t < nkt; t += blockDim.x) live[t] = 0;
+  __syncthreads();
+  for (int t0 = 0; t0 < nkt; t0 += 64) {
+    const int nt = min(nkt - t0, 64);
+    uint64_t bits = 0;
+#pragma unroll 4
+    for (int e = tid; e < nt * PER; e += blockDim.x) {
+      const int t = e / PER, f = e - t * PER, r = f / NW, w = f - r * NW;
+      const int i = q0 + r, jb = (t0 + t) * TK;
+      const int span = min(jb + TK, Tk) - jb;
+      if (i < Tq && span > 0) {
+        const uintptr_t lo = reinterpret_cast<uintptr_t>(mg + (size_t)i * Tk + jb);
+        const uintptr_t a = (lo & ~uintptr_t(15)) + 16 * w, hi = lo + span;
+        if (a < hi && any_byte(*reinterpret_cast<const uint4*>(a), lo > a ? (int)(lo - a) : 0,
+                               hi - a < 16 ? (int)(hi - a) : 16))
+          bits |= 1ull << t;
+      }
     }
-    any = __syncthreads_or(any);
-    if (tid == 0) live[kt] = any;
+    for (; bits != 0; bits &= bits - 1) live[t0 + __ffsll((long long)bits) - 1] = 1;
   }
   __syncthreads();
 }

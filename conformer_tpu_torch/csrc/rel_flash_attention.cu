@@ -21,7 +21,18 @@
 // bounds it (~16 us at 3.35 TB/s), just above its bf16 tensor rate (~14
 // us).
 //
-// bf16 design (the model's path), on the tensor cores with mma.sync:
+// Two routes by width (wide_width, narrow_width of
+// rel_attention_common.cuh; PERF.md has each one's times):
+//  - wide (dk up to 128, any D; in bf16 dk and D multiples of 8):
+//    rel_flash_fwd_wide_kernel, every bf16 width it takes (Conformer-M, -L
+//    and the 1024-wide Conformer; a variant that kept [q+u | AB] in shared
+//    memory for the whole block measured no faster at M and L), and the
+//    float32 design at OC = 8, DCM = 128;
+//  - narrow (bf16 widths that are no multiples of 8, such as Conformer-S's
+//    dk 36, whose 72-byte rows TMA cannot stride; float32 D <= 512): the
+//    mma.sync and float32 designs next.
+//
+// narrow bf16 design, on the tensor cores with mma.sync:
 //  - The two score terms are one product of depth KD = dk + D (rounded up
 //    to 64): s = [q+u | AB] . [K | F]^T, bf16 operands, float32
 //    accumulators; dk = 36 (Conformer-S) is zero-padded to 48.
@@ -47,9 +58,6 @@
 //    since such a tile adds nothing. Padded keys past a row's length cost
 //    nothing then. exp2 runs on the special-function unit alone
 //    (ex2.approx, subnormals kept, so that no probability flushes to 0).
-//  wgmma (warpgroup MMA from shared-memory descriptors) and TMA are the
-//  next step: mma.sync with ldmatrix and cp.async came first because its
-//  fragment layouts need no descriptor or swizzle set-up to be right.
 //
 // float32 design (the parity path): one block of 256 threads owns a 64-row
 // query tile, keeps Q in shared memory as float32, and streams 64-key tiles
@@ -63,11 +71,10 @@
 // order either way. Narrow widths take OC = 4, DCM = 256; wide ones OC = 8,
 // DCM = 128 (182 KB at dk = 128), so no D is refused.
 //
-// Two paths by width (narrow_width, rel_attention_common.cuh): the designs
-// above are the narrow path, which every shipped width takes (dk <= 64,
-// bf16 score depth KD <= 576). The wide path takes dk up to 128 and any D
-// (Conformer XL / XXL, FastConformer-XL: d = 1024, 8 heads of 128), where
-// the bf16 tile [q+u | AB] of KD = 1152 would need 314 KB at 4 warps. Its
+// The wide path takes dk up to 128 and any D (Conformer XL / XXL,
+// FastConformer-XL: d = 1024, 8 heads of 128), where the bf16 tile
+// [q+u | AB] of KD = 1152 would need 314 KB at 4 warps, and in bf16 every
+// width whose dk and D are multiples of 8 (Conformer-M and -L). Its
 // float32 kernel is the one above at OC = 8, DCM = 128. Its bf16 kernel
 // (rel_flash_fwd_wide_kernel, below) runs on wgmma fed by TMA through an
 // mbarrier ring: 128 query rows a block, the score product's depth DKM + D
@@ -476,9 +483,9 @@ __global__ void __launch_bounds__(NW * 32) rel_flash_fwd_bf16_kernel(
   }
 }
 
-// The wide bf16 path (dk up to 128, any D; see narrow_width), on wgmma fed
-// by TMA (rel_attention_hopper.cuh). A block owns TQ = 128 query rows of
-// one (batch, head): one producer thread streams TMA boxes of 64 depth
+// The wide bf16 path (dk up to 128, any D, multiples of 8; see
+// wide_width), on wgmma fed by TMA (rel_attention_hopper.cuh). A block
+// owns TQ = 128 query rows of one (batch, head): one producer thread streams TMA boxes of 64 depth
 // columns into a 4-stage ring of 32 KB stages; two consumer warpgroups
 // take 64 rows each. Per live 128-key tile:
 //  - S = [q+u | AB] [K | F]^T over the depth DKM + D (q+u and K's chunks,
@@ -745,9 +752,8 @@ cudaError_t launch_bf16(const void* qu, const void* ab, const void* k, const voi
                         void* lse, cudaStream_t stream, int B, int H, int Tq, int Tk, int dk,
                         int D, float scale, int drop, uint32_t thr, int Ht, int Ho,
                         float inv_keep) {
-  if (!narrow_width(dk, D, true)) {
-    if (!wide_width(dk, D, true) || !aligned16(qu) || !aligned16(ab) || !aligned16(k) ||
-        !aligned16(v) || !aligned16(feats))
+  if (wide_width(dk, D, true)) {
+    if (!aligned16(qu) || !aligned16(ab) || !aligned16(k) || !aligned16(v) || !aligned16(feats))
       return cudaErrorInvalidValue;
     return dk <= 64 ? launch_bf16_wide<64>(qu, ab, k, v, feats, mask, seed, out, lse, stream,
                                            B, H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho,
@@ -756,6 +762,7 @@ cudaError_t launch_bf16(const void* qu, const void* ab, const void* k, const voi
                                             B, H, Tq, Tk, dk, D, scale, drop, thr, Ht, Ho,
                                             inv_keep);
   }
+  if (!narrow_width(dk, D, true)) return cudaErrorInvalidValue;
   const bool eight = fwd_bf16_smem(dk, D, 8) <= SMEM_LIMIT;
   switch (dk_pad(dk)) {
 #define CASE(P)                                                                               \

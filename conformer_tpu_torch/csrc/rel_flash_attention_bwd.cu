@@ -26,28 +26,11 @@
 // chip_smoke.py), ahead of their tensor-core products (the score tile is
 // recomputed in both, as in JAX).
 //
-// bf16 design (the model's path): every product on the tensor cores,
-// mma.sync.m16n8k16 with bf16 operands and float32 accumulators, ldmatrix
-// from padded rows, the next 16-deep step's fragments loaded while the
-// current one multiplies, cp.async 2-stage rings, the mask bytes one tile
-// ahead, tiles the mask hides entirely skipped; the score product is one
-// product of depth KD = dk + D (rounded up to 64) over [q+u | AB] and
-// [K | F], as in the forward.
-//  - dq: 16 warps own 64 query rows of one (batch, head), or 8 warps 32
-//    rows where 64 do not fit shared memory (Conformer-L); [q+u | AB] and
-//    dO stay in shared memory while 64-key tiles of [K | F] and V stream
-//    through, each block starting at another tile (rotated, as the
-//    forward). Each warp computes 16 rows x 16 keys of S and dP and writes
-//    its dS to shared memory once, as bf16. Then [dQu | dAB] += dS . [K | F]
-//    is one product of width KD: each warp owns KD / 8 of its columns for
-//    32 rows, so a thread holds KD / 8 float32 accumulators (40 at
-//    Conformer-M, 72 at L). 159 KB of shared memory at M, 210 KB at L.
-//  - dkv: 4 warps own 64 keys; [K | F] and V stay in shared memory while
-//    32-row query tiles of [q+u | AB], dO, lse and delta stream through.
-//    Each warp computes S^T and dP^T for its 16 keys, then dV += pd^T dO
-//    and dK += dS^T (q+u) with pd^T and dS^T taken from the accumulator
-//    registers as bf16 A operands. 101 KB at M (two blocks per SM).
-//  wgmma and TMA are the next step (see rel_flash_attention.cu).
+// Two routes by width (rel_attention_common.cuh): in bf16 every width runs
+// the wide kernels below, on wgmma fed by TMA (dk up to 128, dk and D
+// multiples of 8; ops/rel_attention.py zero-pads the widths that are not,
+// such as Conformer-S's dk 36, up to them); in float32 the narrow (D <=
+// 512) or the wide design of the float32 kernels.
 //
 // float32 design (the parity path): float32 FMAs on the CUDA cores, with
 // float32 tiles in shared memory. The position depth D streams in chunks of
@@ -67,8 +50,7 @@
 //  into groups of 512, each block recomputing its tile's scores, so that no
 //  D is refused (157 and 166 KB at dk = 128).
 //
-// The wide bf16 path (dk up to 128, any D; rel_attention_common.cuh's
-// narrow_width decides, as in the forward), redesigned for Hopper: S, P and
+// The bf16 path (dk up to 128, any D), redesigned for Hopper: S, P and
 // dS once per (query, key) pair for the whole backward on wgmma fed by TMA
 // through an mbarrier ring (rel_flash_bwd_ds_wide_kernel), dS and pd to
 // bf16 scratches in device memory, then [dQu | dAB] = dS [K | F] (dq) and
@@ -451,423 +433,8 @@ __global__ void __launch_bounds__(NT) rel_flash_bwd_dkv_f32_kernel(
   }
 }
 
-// ------------------------------------------------------------ bf16, tensor cores
-
-constexpr int QK = 64;    // key tile streamed by a bf16 dq block
-constexpr int VK = 64;    // keys of a bf16 dkv block: 4 warps x 16
-constexpr int VQ = 32;    // query tile streamed by a bf16 dkv block
-constexpr int VNT = 128;
-
-// QB query rows (32 or 64) and QB / 4 warps; NT8 = KD / 64: the 8-column
-// tiles of [dQu | dAB] that each warp owns for 32 rows
-template <int NT8, int QB>
-__global__ void __launch_bounds__(QB * 8) rel_flash_bwd_dq_bf16_kernel(
-    const bf16* __restrict__ qu, const bf16* __restrict__ ab, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ feats,
-    const uint8_t* __restrict__ mask, const int* __restrict__ seed,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dab, int H,
-    int Tq, int Tk, int dk, int D, int DKP, float scale, int drop, uint32_t thr, int Ht,
-    int Ho, float inv_keep) {
-  constexpr int QNT = QB * 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int KD = NT8 * 64, LDA = KD + 8, LDV = DKP + 8, LDS = QK + 8;
-  bf16* sA = reinterpret_cast<bf16*>(smem_raw);   // [QB][LDA]  [q+u | AB]
-  bf16* sO = sA + QB * LDA;                       // [QB][LDV]  dO
-  bf16* sB = sO + QB * LDV;                       // [2][QK][LDA]  [K | F]
-  bf16* sV = sB + 2 * QK * LDA;                   // [2][QK][LDV]
-  bf16* sS = sV + 2 * QK * LDV;                   // [QB][LDS]  dS
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c4 = lane & 3;
-  const int q0 = blockIdx.x * QB, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
-  const bf16* kg = k + bh * Tk * dk;
-  const bf16* vg = v + bh * Tk * dk;
-  const uint8_t* mg = mask + (size_t)b * Tq * Tk;
-  const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
-  const float sl2 = scale * LOG2E;
-
-  {
-    uint4* z = reinterpret_cast<uint4*>(smem_raw);
-    const int n = (QB * (LDA + LDV) + 2 * QK * (LDA + LDV) + QB * LDS) * 2 / 16;
-    for (int e = tid; e < n; e += QNT) z[e] = make_uint4(0, 0, 0, 0);
-  }
-  __syncthreads();
-  load_rows_async(sA, LDA, qu + bh * Tq * dk, q0, QB, Tq, dk, tid, QNT);
-  load_rows_async(sA + DKP, LDA, ab + bh * Tq * D, q0, QB, Tq, D, tid, QNT);
-  load_rows_async(sO, LDV, dout + bh * Tq * dk, q0, QB, Tq, dk, tid, QNT);
-  auto load_keys = [&](int stage, int k0) {
-    bf16* b_ = sB + stage * QK * LDA;
-    load_rows_async(b_, LDA, kg, k0, QK, Tk, dk, tid, QNT);
-    load_rows_async(b_ + DKP, LDA, feats, k0, QK, Tk, D, tid, QNT);
-    load_rows_async(sV + stage * QK * LDV, LDV, vg, k0, QK, Tk, dk, tid, QNT);
-  };
-  // blocks start at different key tiles (see rotated)
-  const int n_tiles = (Tk + QK - 1) / QK;
-  const int rot = (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) % n_tiles;
-  load_keys(0, rotated(0, rot, n_tiles) * QK);
-  cp_async_commit();
-
-  // phase 1: warp = 16 rows (rg) x 16 keys (kg) of S, dP, dS
-  const int rg = (warp % (QB / 16)) * 16, kg0 = (warp / (QB / 16)) * 16;
-  int qi[2];
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    qi[r] = q0 + rg + g + 8 * r;
-    lse2[r] = qi[r] < Tq ? lse[bh * Tq + qi[r]] * LOG2E : LSE_BIG;
-    dl[r] = qi[r] < Tq ? delta[bh * Tq + qi[r]] : 0.f;
-  }
-  // phase 2: warp owns columns [c0, c0 + 8 NT8) of [dQu | dAB] for the 32
-  // rows from rb
-  const int c0 = (warp & 7) * NT8 * 8, rb = (warp >> 3) * 32;
-  float acc[2][NT8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int n = 0; n < NT8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
-
-  // the mask bytes of this thread's 8 scores, loaded one tile ahead
-  const bool even = Tk % 2 == 0 && reinterpret_cast<uintptr_t>(mask) % 2 == 0;
-  uint32_t mk[2][2], mk_next[2][2];
-  auto load_mask = [&](int k0, uint32_t (&m_)[2][2]) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-        m_[r][n] = mask_pair(mg, qi[r], k0 + kg0 + n * 8 + 2 * c4, Tq, Tk, even);
-  };
-  load_mask(rotated(0, rot, n_tiles) * QK, mk);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = rotated(t, rot, n_tiles) * QK, stage = t & 1;
-    if (t + 1 < n_tiles) {
-      const int k1 = rotated(t + 1, rot, n_tiles) * QK;
-      load_keys(stage ^ 1, k1);
-      load_mask(k1, mk_next);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    // a tile that the mask hides from every row of the block adds nothing
-    bool any = false;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) any |= mk[r][n] != 0u;
-    if (__syncthreads_or(any)) {
-      const bf16* tB = sB + stage * QK * LDA;
-      const bf16* tV = sV + stage * QK * LDV;
-
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      {  // fragments of step kk + 16 load while step kk multiplies (KD % 32 == 0)
-        uint32_t fx[2][4], fy[2][4];
-        auto frags = [&](uint32_t (&f)[2][4], int kk) {
-          load_a(f[0], sA, LDA, rg, kk, lane);
-          load_b(f[1], tB, LDA, kg0, kk, lane);
-        };
-        auto step = [&](const uint32_t (&f)[2][4]) {
-          mma(s[0], f[0], f[1][0], f[1][1]);
-          mma(s[1], f[0], f[1][2], f[1][3]);
-        };
-        frags(fx, 0);
-        for (int kk = 0; kk < KD; kk += 32) {
-          frags(fy, kk + 16);
-          step(fx);
-          if (kk + 32 < KD) frags(fx, kk + 32);
-          step(fy);
-        }
-      }
-      for (int kk = 0; kk < DKP; kk += 16) {
-        uint32_t a[4], bb[4];
-        load_a(a, sO, LDV, rg, kk, lane);
-        load_b(bb, tV, LDV, kg0, kk, lane);
-        mma(dp[0], a, bb[0], bb[1]);
-        mma(dp[1], a, bb[2], bb[3]);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          float ds[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float p =
-                mask_bit(mk[r][n], e) ? exp2_approx(s[n][2 * r + e] * sl2 - lse2[r]) : 0.f;
-            float dpv = dp[n][2 * r + e];
-            if (drop)
-              dpv = keep_prob(sd, hbh, (uint32_t)qi[r],
-                              (uint32_t)(k0 + kg0 + n * 8 + 2 * c4 + e), thr)
-                        ? dpv * inv_keep
-                        : 0.f;
-            ds[e] = p * (dpv - dl[r]) * scale;
-          }
-          *reinterpret_cast<uint32_t*>(sS + (rg + g + 8 * r) * LDS + kg0 + n * 8 + 2 * c4) =
-              pack_bf16(ds[0], ds[1]);
-        }
-      __syncthreads();
-
-      // phase 2: [dQu | dAB] += dS . [K | F]
-#pragma unroll
-      for (int kk = 0; kk < QK; kk += 16) {
-        uint32_t a0[4], a1[4];
-        load_a(a0, sS, LDS, rb, kk, lane);
-        load_a(a1, sS, LDS, rb + 16, kk, lane);
-#pragma unroll
-        for (int n = 0; n < NT8; n += 2) {
-          if (n + 1 < NT8) {
-            uint32_t bb[4];
-            load_bt(bb, tB, LDA, kk, c0 + n * 8, lane);
-            mma(acc[0][n], a0, bb[0], bb[1]);
-            mma(acc[1][n], a1, bb[0], bb[1]);
-            mma(acc[0][n + 1], a0, bb[2], bb[3]);
-            mma(acc[1][n + 1], a1, bb[2], bb[3]);
-          } else {
-            uint32_t bb[2];
-            load_bt1(bb, tB, LDA, kk, c0 + n * 8, lane);
-            mma(acc[0][n], a0, bb[0], bb[1]);
-            mma(acc[1][n], a1, bb[0], bb[1]);
-          }
-        }
-      }
-    }
-    __syncthreads();   // this stage and dS are rewritten by the next iteration
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int n = 0; n < 2; ++n) mk[r][n] = mk_next[r][n];
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = q0 + rb + mt * 16 + g + 8 * r;
-      if (i >= Tq) continue;
-#pragma unroll
-      for (int n = 0; n < NT8; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = c0 + n * 8 + 2 * c4 + e;
-          const float x = acc[mt][n][2 * r + e];
-          if (c < dk)
-            dq[(bh * Tq + i) * dk + c] = x;
-          else if (c >= DKP && c < DKP + D)
-            dab[(bh * Tq + i) * D + c - DKP] = x;
-        }
-    }
-}
-
-template <int DKP>
-__global__ void __launch_bounds__(VNT) rel_flash_bwd_dkv_bf16_kernel(
-    const bf16* __restrict__ qu, const bf16* __restrict__ ab, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ feats,
-    const uint8_t* __restrict__ mask, const int* __restrict__ seed,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk_out,
-    float* __restrict__ dv_out, int H, int Tq, int Tk, int dk, int D, int KD, float scale,
-    int drop, uint32_t thr, int Ht, int Ho, float inv_keep) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int LDA = KD + 8, LDV = DKP + 8;
-  bf16* sKF = reinterpret_cast<bf16*>(smem_raw);  // [VK][LDA]  [K | F]
-  bf16* sV = sKF + VK * LDA;                      // [VK][LDV]
-  bf16* sQA = sV + VK * LDV;                      // [2][VQ][LDA]  [q+u | AB]
-  bf16* sO = sQA + 2 * VQ * LDA;                  // [2][VQ][LDV]  dO
-  float* sL = reinterpret_cast<float*>(sO + 2 * VQ * LDV);   // [2][VQ] lse
-  float* sD = sL + 2 * VQ;                                    // [2][VQ] delta
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, c4 = lane & 3;
-  const int k0 = blockIdx.x * VK, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const uint32_t hbh = (uint32_t)b * (uint32_t)Ht + (uint32_t)(Ho + h);  // keep-mask head
-  const bf16* qg = qu + bh * Tq * dk;
-  const bf16* abg = ab + bh * Tq * D;
-  const bf16* og = dout + bh * Tq * dk;
-  const float* lg = lse + bh * Tq;
-  const float* dg = delta + bh * Tq;
-  const uint8_t* mg = mask + (size_t)b * Tq * Tk;
-  const uint32_t sd = drop ? (uint32_t)seed[0] : 0u;
-  const float sl2 = scale * LOG2E;
-
-  {
-    uint4* z = reinterpret_cast<uint4*>(smem_raw);
-    const int n = (VK * (LDA + LDV) + 2 * VQ * (LDA + LDV)) * 2 / 16;
-    for (int e = tid; e < n; e += VNT) z[e] = make_uint4(0, 0, 0, 0);
-  }
-  __syncthreads();
-  load_rows_async(sKF, LDA, k + bh * Tk * dk, k0, VK, Tk, dk, tid, VNT);
-  load_rows_async(sKF + DKP, LDA, feats, k0, VK, Tk, D, tid, VNT);
-  load_rows_async(sV, LDV, v + bh * Tk * dk, k0, VK, Tk, dk, tid, VNT);
-  auto load_queries = [&](int stage, int q0) {
-    bf16* a_ = sQA + stage * VQ * LDA;
-    load_rows_async(a_, LDA, qg, q0, VQ, Tq, dk, tid, VNT);
-    load_rows_async(a_ + DKP, LDA, abg, q0, VQ, Tq, D, tid, VNT);
-    load_rows_async(sO + stage * VQ * LDV, LDV, og, q0, VQ, Tq, dk, tid, VNT);
-    for (int e = tid; e < VQ; e += VNT) {
-      const int i = q0 + e;
-      const int ic = i < Tq ? i : Tq - 1;
-      cp_async<4>(sL + stage * VQ + e, lg + ic, i < Tq);
-      cp_async<4>(sD + stage * VQ + e, dg + ic, i < Tq);
-    }
-  };
-  const int n_tiles = (Tq + VQ - 1) / VQ;
-  const int rot = (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) % n_tiles;
-  load_queries(0, rotated(0, rot, n_tiles) * VQ);
-  cp_async_commit();
-
-  constexpr int NO = DKP / 8;
-  float acc_k[NO][4], acc_v[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
-  const int r0 = warp * 16;        // the warp's keys in the tile
-  int kj[2];
-  kj[0] = k0 + r0 + g;
-  kj[1] = kj[0] + 8;
-
-  // fragment element (r, n, e): key kj[r], query q0 + 8n + 2c4 + e; its
-  // mask byte is loaded one tile ahead
-  uint32_t mk[2][8], mk_next[2][8];
-  auto load_mask = [&](int q0, uint32_t (&m_)[2][8]) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int i = q0 + (c >> 1) * 8 + 2 * c4 + (c & 1);
-        m_[r][c] = i < Tq && kj[r] < Tk ? mg[(size_t)i * Tk + kj[r]] : 0u;
-      }
-  };
-  load_mask(rotated(0, rot, n_tiles) * VQ, mk);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = rotated(t, rot, n_tiles) * VQ, stage = t & 1;
-    if (t + 1 < n_tiles) {
-      const int q1 = rotated(t + 1, rot, n_tiles) * VQ;
-      load_queries(stage ^ 1, q1);
-      load_mask(q1, mk_next);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    // a tile that the mask hides from every key of the block adds nothing
-    bool any = false;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) any |= mk[r][c] != 0u;
-    if (__syncthreads_or(any)) {
-      const bf16* tA = sQA + stage * VQ * LDA;
-      const bf16* tO = sO + stage * VQ * LDV;
-      const float* tL = sL + stage * VQ;
-      const float* tD = sD + stage * VQ;
-
-      float st[4][4], dpt[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-      {  // S^T = [K | F] . [q+u | AB]^T; step kk + 16's fragments load while kk multiplies
-        uint32_t fx[3][4], fy[3][4];
-        auto frags = [&](uint32_t (&f)[3][4], int kk) {
-          load_a(f[0], sKF, LDA, r0, kk, lane);
-          load_b(f[1], tA, LDA, 0, kk, lane);
-          load_b(f[2], tA, LDA, 16, kk, lane);
-        };
-        auto step = [&](const uint32_t (&f)[3][4]) {
-          mma(st[0], f[0], f[1][0], f[1][1]);
-          mma(st[1], f[0], f[1][2], f[1][3]);
-          mma(st[2], f[0], f[2][0], f[2][1]);
-          mma(st[3], f[0], f[2][2], f[2][3]);
-        };
-        frags(fx, 0);
-        for (int kk = 0; kk < KD; kk += 32) {
-          frags(fy, kk + 16);
-          step(fx);
-          if (kk + 32 < KD) frags(fx, kk + 32);
-          step(fy);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < DKP; kk += 16) {     // dP^T = V . dO^T
-        uint32_t a[4], b0[4], b1[4];
-        load_a(a, sV, LDV, r0, kk, lane);
-        load_b(b0, tO, LDV, 0, kk, lane);
-        load_b(b1, tO, LDV, 16, kk, lane);
-        mma(dpt[0], a, b0[0], b0[1]);
-        mma(dpt[1], a, b0[2], b0[3]);
-        mma(dpt[2], a, b1[0], b1[1]);
-        mma(dpt[3], a, b1[2], b1[3]);
-      }
-      // st becomes pd^T, dpt becomes dS^T
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qc = n * 8 + 2 * c4 + e;
-            const float p =
-                mk[r][n * 2 + e] != 0u ? exp2_approx(st[n][2 * r + e] * sl2 - tL[qc] * LOG2E) : 0.f;
-            float pd = p, dpv = dpt[n][2 * r + e];
-            if (drop) {
-              const bool kp = keep_prob(sd, hbh, (uint32_t)(q0 + qc), (uint32_t)kj[r], thr);
-              pd = kp ? p * inv_keep : 0.f;
-              dpv = kp ? dpv * inv_keep : 0.f;
-            }
-            st[n][2 * r + e] = pd;
-            dpt[n][2 * r + e] = p * (dpv - tD[qc]) * scale;
-          }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {           // dV += pd^T dO, dK += dS^T (q+u)
-        uint32_t ap[4], as[4];
-        acc_to_a(ap, st[2 * kk], st[2 * kk + 1]);
-        acc_to_a(as, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < NO; n += 2) {
-          uint32_t bo[4], bq[4];
-          load_bt(bo, tO, LDV, kk * 16, n * 8, lane);
-          load_bt(bq, tA, LDA, kk * 16, n * 8, lane);
-          mma(acc_v[n], ap, bo[0], bo[1]);
-          mma(acc_v[n + 1], ap, bo[2], bo[3]);
-          mma(acc_k[n], as, bq[0], bq[1]);
-          mma(acc_k[n + 1], as, bq[2], bq[3]);
-        }
-      }
-    }
-    __syncthreads();   // this stage is refilled by the next iteration
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) mk[r][c] = mk_next[r][c];
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = kj[r];
-    if (j >= Tk) continue;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = n * 8 + 2 * c4 + e;
-        if (d < dk) {
-          dk_out[(bh * Tk + j) * dk + d] = acc_k[n][2 * r + e];
-          dv_out[(bh * Tk + j) * dk + d] = acc_v[n][2 * r + e];
-        }
-      }
-  }
-}
-
 // ------------------------------------------------------------ wide, bf16
-// dk up to 128 and any D (see narrow_width), redesigned for Hopper: S, P
+// dk up to 128 and any D (every bf16 width), redesigned for Hopper: S, P
 // and dS are computed once per (query, key) pair for the whole backward,
 // on wgmma fed by TMA (rel_attention_hopper.cuh), and written to bf16
 // scratches that three product kernels share:
@@ -908,7 +475,10 @@ __global__ void __launch_bounds__(VNT) rel_flash_bwd_dkv_bf16_kernel(
 // 1024) makes it the backward's largest product, so a dkv that recomputes
 // S^T per key tile (the first design, on mma.sync) or a dq that recomputes
 // it per group of output columns does that product again; writing dS and
-// pd once costs their bytes instead (PERF.md has both designs' times).
+// pd once costs their bytes instead (PERF.md has both designs' times). At
+// Conformer-M's and -L's depths (320, 576) a dq and a dkv that each
+// recompute S, with one operand in shared memory for the whole block, were
+// built too and measured slower than this path's one call (PERF.md).
 // Bound at that shape: dq's bytes (AB read and dAB written dominate: 0.22
 // ms at 3.35 TB/s) over its products (S, dP and the dS product, ~0.18 ms
 // at the bf16 tensor rate); dkv's bytes (~0.12 ms). The scratches add dS's
@@ -1233,19 +803,6 @@ struct Args {
   void *o3 = nullptr, *o4 = nullptr;   // the combined backward's dK, dV
 };
 
-// a narrow bf16 kernel: its extra int (dq: round16(dk); dkv: KD) follows D
-template <typename K>
-cudaError_t run(K kernel, size_t smem, dim3 grid, int threads, const Args& a, int extra) {
-  return launch(kernel, smem, grid, threads, a.stream, static_cast<const bf16*>(a.qu),
-                static_cast<const bf16*>(a.ab), static_cast<const bf16*>(a.k),
-                static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.feats),
-                static_cast<const uint8_t*>(a.mask), static_cast<const int*>(a.seed),
-                static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
-                static_cast<const float*>(a.delta), static_cast<float*>(a.o1),
-                static_cast<float*>(a.o2), a.H, a.Tq, a.Tk, a.dk, a.D, extra, a.scale, a.drop,
-                a.thr, a.Ht, a.Ho, a.inv_keep);
-}
-
 // the float32 kernels take no extra int: wrap them to the common signature
 cudaError_t run_f32(void (*kernel)(const float*, const float*, const float*, const float*,
                                    const float*, const uint8_t*, const int*, const float*,
@@ -1337,28 +894,9 @@ cudaError_t launch_dq(const Args& a, bool bf16_) {
     return run_f32(rel_flash_bwd_dq_f32_kernel<8, 128, 4, true>, dq_f32_smem<128>(a.dk, a.D),
                    dim3(nq32 * groups, a.H, a.B), a);
   }
-  if (!narrow_width(a.dk, a.D, true)) {
-    if (!wide_ok(a) || a.scratch == nullptr) return cudaErrorInvalidValue;
-    cudaError_t e = launch_ds_wide(a, false);
-    return e != cudaSuccess ? e : launch_dsk_wide(a, a.o1, a.o2);
-  }
-  // 64 rows (16 warps) where the block fits shared memory, else 32 (8 warps)
-  const int kd = kd_pad(a.dk, a.D), dkp = dk_pad(a.dk);
-  const bool rows64 = kd <= 7 * 64 && dq_bf16_smem(a.dk, a.D, 64) <= SMEM_LIMIT;
-  const int qb = rows64 ? 64 : 32;
-  const dim3 grid((a.Tq + qb - 1) / qb, a.H, a.B);
-  const size_t smem = dq_bf16_smem(a.dk, a.D, qb);
-  switch (kd / 64) {
-#define CASE(N)                                                                            \
-  case N:                                                                                  \
-    return rows64 ? run(rel_flash_bwd_dq_bf16_kernel<N, 64>, smem, grid, 512, a, dkp)      \
-                  : run(rel_flash_bwd_dq_bf16_kernel<N, 32>, smem, grid, 256, a, dkp);
-    CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7)
-#undef CASE
-    case 8: return run(rel_flash_bwd_dq_bf16_kernel<8, 32>, smem, grid, 256, a, dkp);
-    case 9: return run(rel_flash_bwd_dq_bf16_kernel<9, 32>, smem, grid, 256, a, dkp);
-    default: return cudaErrorInvalidValue;
-  }
+  if (!wide_ok(a) || a.scratch == nullptr) return cudaErrorInvalidValue;
+  cudaError_t e = launch_ds_wide(a, false);
+  return e != cudaSuccess ? e : launch_dsk_wide(a, a.o1, a.o2);
 }
 
 cudaError_t launch_dkv(const Args& a, bool bf16_) {
@@ -1371,21 +909,9 @@ cudaError_t launch_dkv(const Args& a, bool bf16_) {
     return run_f32(rel_flash_bwd_dkv_f32_kernel<8, 128>, dkv_f32_smem<128>(a.dk, a.D),
                    dim3(nk64, a.H, a.B), a);
   }
-  if (!narrow_width(a.dk, a.D, true)) {
-    if (!wide_ok(a) || a.scratch == nullptr) return cudaErrorInvalidValue;
-    cudaError_t e = launch_ds_wide(a, true);
-    return e != cudaSuccess ? e : launch_dkv_wide(a, a.o1, a.o2);
-  }
-  const dim3 grid((a.Tk + VK - 1) / VK, a.H, a.B);
-  const size_t smem = dkv_bf16_smem(a.dk, a.D);
-  const int kd = kd_pad(a.dk, a.D);
-  switch (dk_pad(a.dk)) {
-#define CASE(P) \
-  case P: return run(rel_flash_bwd_dkv_bf16_kernel<P>, smem, grid, VNT, a, kd);
-    CASE(16) CASE(32) CASE(48) CASE(64)
-#undef CASE
-    default: return cudaErrorInvalidValue;
-  }
+  if (!wide_ok(a) || a.scratch == nullptr) return cudaErrorInvalidValue;
+  cudaError_t e = launch_ds_wide(a, true);
+  return e != cudaSuccess ? e : launch_dkv_wide(a, a.o1, a.o2);
 }
 
 }  // namespace
@@ -1394,10 +920,10 @@ cudaError_t launch_dkv(const Args& a, bool bf16_) {
 // plus dout [B,H,Tq,dk] in the inputs' dtype and lse, delta float32
 // [B,H,Tq]. dq_kernel writes dq [B,H,Tq,dk] and dab [B,H,Tq,D]; dkv_kernel
 // writes dk, dv [B,H,Tk,dk]; all float32, contiguous. Widths as the
-// forward's: narrow_width or wide_width (dout 16-byte aligned too on bf16's
-// wide path). Ht, Ho: the keep-mask's head total and offset, as the
-// forward's. scratch: the wide bf16 path's dS, bf16 [B,H,Tq,round128(Tk)],
-// followed for dkv by pd of the same shape (null elsewhere). Each returns
+// forward's, but in bf16 only wide_width's (dk and D multiples of 8; dout
+// 16-byte aligned too). Ht, Ho: the keep-mask's head total and offset, as
+// the forward's. scratch: the bf16 path's dS, bf16 [B,H,Tq,round128(Tk)],
+// followed for dkv by pd of the same shape (null in float32). Each returns
 // the CUDA error code of its launches (0 on success; cudaErrorInvalidValue
 // before any launch for widths outside both paths).
 extern "C" int rel_flash_attention_bwd_dq(
@@ -1437,7 +963,7 @@ extern "C" int rel_flash_attention_bwd(
   const Args a{qu, ab, k, v, feats, mask, seed, dout, lse, delta, dq, dab, scratch,
                static_cast<cudaStream_t>(stream), B, H, Tq, Tk, dk, D, drop,
                static_cast<uint32_t>(thr_bits), Ht, Ho, scale, inv_keep, dk_out, dv_out};
-  if (!is_bf16 || narrow_width(dk, D, true) || !wide_ok(a) || scratch == nullptr)
+  if (!is_bf16 || !wide_ok(a) || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = launch_ds_wide(a, true);
   if (e == cudaSuccess) e = launch_dsk_wide(a, dq, dab);

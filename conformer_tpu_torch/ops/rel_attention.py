@@ -7,10 +7,11 @@ the dropout keep-mask hash (``_tile_keep_mask``) and the backward
 (``_flash_bwd``: ``_attn_bwd_dq_kernel``, ``_attn_bwd_dkv_kernel``). The
 kernels are ``csrc/rel_flash_attention.cu`` (forward) and
 ``csrc/rel_flash_attention_bwd.cu`` (dq and dkv; ``rel_attention_bwd``
-runs both, on the wide bf16 path from one dS); their source notes give
-the bounds and the designs. Each wrapper launches its kernel for CUDA
-tensors and takes the plain version only for CPU tensors (the tests' path);
-each counts its launches in ``<wrapper>.launches``.
+runs both, in bf16 from one dS), each with two routes by width
+(``route``); their source notes give the bounds and the designs. Each
+wrapper launches its kernel for CUDA tensors and takes the plain version
+only for CPU tensors (the tests' path); each counts its launches in
+``<wrapper>.launches``.
 
 ``rel_flash_attention`` is the differentiable entry point (the JAX
 ``rel_flash_attention`` with its custom VJP): the forward saves the per-row
@@ -168,33 +169,32 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def bf16_smem(dk: int, d: int) -> dict[str, int]:
-    """Shared memory, in bytes, of one block of each narrow bf16 kernel at
-    head width ``dk`` and bias width ``d``: the formulas of the launches
-    (``fwd_bf16_smem`` at 4 warps and ``dq_bf16_smem`` at 32 rows, their
-    smallest blocks; ``dkv_bf16_smem``). Rows of [q+u | AB] and [K | F] are
-    kd = round64(round16(dk) + d) wide, plus 8."""
+def fwd_bf16_smem(dk: int, d: int) -> int:
+    """Shared memory, in bytes, of one block of the mma.sync bf16 forward at
+    head width ``dk`` and bias width ``d``, at 4 warps, its smallest block
+    (``fwd_bf16_smem`` of ``csrc/rel_attention_common.cuh``): rows of
+    [q+u | AB] and [K | F] kd = round64(round16(dk) + d) wide, plus 8."""
     ldv = _round_up(dk, 16) + 8
     lda = _round_up(_round_up(dk, 16) + d, 64) + 8
-    return {
-        "rel_flash_attention": 2 * (64 * lda + 2 * 32 * (lda + ldv)),
-        "rel_flash_attention_bwd_dq": 2 * (32 * (lda + ldv) + 2 * 64 * (lda + ldv) + 32 * 72),
-        "rel_flash_attention_bwd_dkv": 2 * (64 * (lda + ldv) + 2 * 32 * (lda + ldv)) + 4 * 128,
-    }
+    return 2 * (64 * lda + 2 * 32 * (lda + ldv))
 
 
 def route(dtype, dk: int, d: int) -> str:
-    """Which path of the three kernels runs head width ``dk`` and bias
-    width ``d`` in ``dtype`` (``narrow_width`` of
-    ``csrc/rel_attention_common.cuh``): "narrow", the designs every shipped
-    width takes (dk <= 64; bf16: the score depth round64(round16(dk) + D)
-    <= 576 with each block within shared memory; float32: D <= 512), else
-    "wide" (dk <= 128, D streamed in chunks)."""
+    """Which path of the kernels runs head width ``dk`` and bias width
+    ``d`` in ``dtype`` (``wide_width``, ``narrow_width`` of
+    ``csrc/rel_attention_common.cuh``). In bf16 "wide", the kernels on
+    wgmma fed by TMA, wherever dk <= 128 and dk and D are multiples of 8
+    (Conformer-M, -L and the 1024-wide Conformer); "narrow", the mma.sync
+    forward, for the others with dk <= 64 whose score depth round64(
+    round16(dk) + D) <= 576 fits its block in shared memory (Conformer-S's
+    dk 36); their backward runs the wide kernels on operands zero-padded to
+    multiples of 8 (``tma_width``). In float32 "narrow" for dk <= 64 and D
+    <= 512, else "wide" (D streamed in chunks)."""
     if dk > NARROW_DK:
         return "wide"
     if dtype == torch.bfloat16:
-        narrow = _round_up(_round_up(dk, 16) + d, 64) <= NARROW_KD and all(
-            need <= cuda_build.SMEM_LIMIT for need in bf16_smem(dk, d).values())
+        narrow = bool(dk % 8 or d % 8) and _round_up(_round_up(dk, 16) + d, 64) <= NARROW_KD \
+            and fwd_bf16_smem(dk, d) <= cuda_build.SMEM_LIMIT
     else:
         narrow = d <= NARROW_D_F32
     return "narrow" if narrow else "wide"
@@ -202,8 +202,8 @@ def route(dtype, dk: int, d: int) -> str:
 
 def width_error(dtype, dk: int, d: int) -> str | None:
     """Why the kernels refuse head width ``dk`` and bias width ``d`` in
-    ``dtype``, or None where all three take them: dk <= 128 and any D; the
-    bf16 wide path (``route``) reads rows by TMA, whose row strides are
+    ``dtype``, or None where they take them: dk <= 128 and any D; the bf16
+    wide path (``route``) reads rows by TMA, whose row strides are
     multiples of 16 bytes, so there dk and D are multiples of 8."""
     if dk > MAX_DK:
         return f"dk={dk} > {MAX_DK}"
@@ -211,6 +211,19 @@ def width_error(dtype, dk: int, d: int) -> str | None:
             and (dk % 8 or d % 8)):
         return f"dk={dk}, D={d}: the bf16 wide kernels take dk and D multiples of 8"
     return None
+
+
+def tma_width(n: int) -> int:
+    """Width ``n`` rounded up to a multiple of 8: the bf16 backward runs the
+    wide kernels, whose TMA rows need 16-byte strides, on q+u, K, V, dO
+    (dk) and AB, F (D) zero-padded to it, which adds nothing to any score
+    or gradient, and cuts its outputs back."""
+    return _round_up(n, 8)
+
+
+def _pad_to(x, n: int):
+    """``x`` zero-padded in its last dimension to ``n`` (itself at ``n``)."""
+    return x if x.shape[-1] == n else torch.nn.functional.pad(x, (0, n - x.shape[-1]))
 
 
 def scratch_shape(b: int, h: int, tq: int, tk: int, pd: bool) -> tuple[int, ...]:
@@ -322,29 +335,38 @@ def rel_attention(q_u, ab, k, v, k_feats, mask, *, scale: float, dropout_rate: f
 
 
 def _bwd_kernel(symbol, q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, scale,
-                dropout_rate, h_total, h_offset, out_shapes):
+                dropout_rate, h_total, h_offset, outs):
+    """Launch ``symbol`` and return its float32 outputs ``outs`` (names of
+    "dq", "dab", "dk", "dv"). bf16 runs the wide kernels: dk and D padded to
+    ``tma_width`` where they are not multiples of 8, the outputs cut back,
+    and the scratch of dS (and of pd, but for dq alone) made once."""
     b, h, tq, tk, dk, d = _check(symbol, q_u, ab, k, v, k_feats, mask, seed, dropout_rate,
                                  dout, lse, delta)
-    scratch = None
-    if q_u.dtype == torch.bfloat16 and route(q_u.dtype, dk, d) == "wide":
+    scratch, pk, pd = None, dk, d
+    if q_u.dtype == torch.bfloat16:
+        pk, pd = tma_width(dk), tma_width(d)
+        q_u, k, v, dout = (_pad_to(x, pk) for x in (q_u, k, v, dout))
+        ab, k_feats = _pad_to(ab, pd), _pad_to(k_feats, pd)
         q_u, ab, k, v, k_feats, dout = _aligned(q_u, ab, k, v, k_feats, dout)
-        # dS (and for dkv pd) of the wide path, made once (csrc note)
         scratch = torch.empty(scratch_shape(b, h, tq, tk, symbol != "rel_flash_attention_bwd_dq"),
                               dtype=torch.bfloat16, device=q_u.device)
-    outs = [torch.empty(s, dtype=torch.float32, device=q_u.device) for s in out_shapes]
+    shapes = {"dq": (b, h, tq, pk), "dab": (b, h, tq, pd), "dk": (b, h, tk, pk),
+              "dv": (b, h, tk, pk)}
+    bufs = [torch.empty(shapes[o], dtype=torch.float32, device=q_u.device) for o in outs]
     fn = cuda_build.load_function("rel_flash_attention_bwd", symbol,
-                                  n_ptrs=12 + len(outs), n_ints=11, n_floats=2)
+                                  n_ptrs=12 + len(bufs), n_ints=11, n_floats=2)
     drop, thr_bits, inv_keep = _drop_args(dropout_rate)
     P = cuda_build.ptr
     err = fn(
         P(q_u), P(ab), P(k), P(v), P(k_feats), P(mask), _seed_ptr(seed, dropout_rate),
-        P(dout), P(lse), P(delta), *(P(o) for o in outs),
+        P(dout), P(lse), P(delta), *(P(o) for o in bufs),
         None if scratch is None else P(scratch), cuda_build.stream_ptr(q_u),
-        b, h, tq, tk, dk, d, int(q_u.dtype == torch.bfloat16), drop, thr_bits, h_total,
+        b, h, tq, tk, pk, pd, int(q_u.dtype == torch.bfloat16), drop, thr_bits, h_total,
         h_offset, float(scale), inv_keep,
     )
     cuda_build.check(err, symbol)
-    return tuple(outs)
+    width = {"dq": dk, "dab": d, "dk": dk, "dv": dk}
+    return tuple(x[..., :width[o]] if x.shape[-1] != width[o] else x for x, o in zip(bufs, outs))
 
 
 def rel_attention_bwd_dq(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, *,
@@ -359,8 +381,7 @@ def rel_attention_bwd_dq(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, *
                                        scale=scale, dropout_rate=dropout_rate,
                                        h_total=h_total, h_offset=h_offset)[:2]
     outs = _bwd_kernel("rel_flash_attention_bwd_dq", q_u, ab, k, v, k_feats, mask, seed,
-                       dout, lse, delta, scale, dropout_rate, h_total, h_offset,
-                       [q_u.shape, ab.shape])
+                       dout, lse, delta, scale, dropout_rate, h_total, h_offset, ["dq", "dab"])
     rel_attention_bwd_dq.launches += 1
     return outs
 
@@ -376,8 +397,7 @@ def rel_attention_bwd_dkv(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, 
                                        scale=scale, dropout_rate=dropout_rate,
                                        h_total=h_total, h_offset=h_offset)[2:]
     outs = _bwd_kernel("rel_flash_attention_bwd_dkv", q_u, ab, k, v, k_feats, mask, seed,
-                       dout, lse, delta, scale, dropout_rate, h_total, h_offset,
-                       [k.shape, v.shape])
+                       dout, lse, delta, scale, dropout_rate, h_total, h_offset, ["dk", "dv"])
     rel_attention_bwd_dkv.launches += 1
     return outs
 
@@ -386,20 +406,19 @@ def rel_attention_bwd(q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta, *,
                       scale: float, dropout_rate: float = 0.0,
                       h_total: int | None = None, h_offset: int = 0):
     """(dQu, dAB, dK, dV) in float32: ``rel_attention_bwd_dq`` and
-    ``rel_attention_bwd_dkv`` together, for CUDA tensors in one call on the
-    wide bf16 path (dS and pd made once for both, then both products: each
-    of the two counts one launch), one by one elsewhere; the plain
-    backward for CPU tensors."""
+    ``rel_attention_bwd_dkv`` together, for CUDA tensors in one call in
+    bf16 (dS and pd made once for both, then both products: each of the
+    two counts one launch), one by one in float32; the plain backward for
+    CPU tensors."""
     h_total, h_offset = _heads(q_u.shape[1], h_total, h_offset)
     args = (q_u, ab, k, v, k_feats, mask, seed, dout, lse, delta)
     kw = dict(scale=scale, dropout_rate=dropout_rate, h_total=h_total, h_offset=h_offset)
     if q_u.device.type == "cpu":
         return rel_attention_bwd_plain(*args, **kw)
-    dk, d = q_u.shape[-1], k_feats.shape[-1]
-    if q_u.dtype != torch.bfloat16 or route(q_u.dtype, dk, d) != "wide":
+    if q_u.dtype != torch.bfloat16:
         return (*rel_attention_bwd_dq(*args, **kw), *rel_attention_bwd_dkv(*args, **kw))
     outs = _bwd_kernel("rel_flash_attention_bwd", *args, scale, dropout_rate, h_total, h_offset,
-                       [q_u.shape, ab.shape, k.shape, v.shape])
+                       ["dq", "dab", "dk", "dv"])
     rel_attention_bwd_dq.launches += 1
     rel_attention_bwd_dkv.launches += 1
     return outs

@@ -80,8 +80,9 @@ def test_rel_attention_wrapper_takes_plain_on_cpu():
 
 def test_kernel_width_limits():
     """The widths the CUDA wrappers take, checked before any launch: every
-    shipped attention width (Conformer-S, M, L) in bf16 and in float32 on
-    the narrow kernels, and the 1024-wide Conformer's (dk 128, D 1024; dk
+    shipped attention width (Conformer-S, M, L) in bf16 and in float32,
+    Conformer-M's and -L's bf16 on the wide kernels and the others on the
+    narrow ones, and the 1024-wide Conformer's (dk 128, D 1024; dk
     64, D 1024) and D 2048 on the wide ones, refusing dk past 128 and, in
     bf16's wide path, dk or D not a multiple of 8; the DP kernels past 1024
     states (their shared-memory limits); the conv block at every shipped
@@ -130,7 +131,8 @@ def test_kernel_width_limits():
     for dtype in (torch.bfloat16, torch.float32):
         for dk, d in ((36, 144), (64, 256), (64, 512)):
             assert pra.width_error(dtype, dk, d) is None
-            assert pra.route(dtype, dk, d) == "narrow"
+            wide = dtype == torch.bfloat16 and dk % 8 == 0
+            assert pra.route(dtype, dk, d) == ("wide" if wide else "narrow")
         for dk, d in ((128, 1024), (64, 1024), (128, 2048), (96, 768), (64, 576)):
             assert pra.width_error(dtype, dk, d) is None
             assert pra.route(dtype, dk, d) == "wide"

@@ -75,9 +75,24 @@ def test_masks_and_position_table_match_jax():
         np.asarray(j_masks.reverse_sequence(jnp.asarray(labels), jnp.asarray(lens), -1)))
     np.testing.assert_array_equal(p_masks.make_subsequent_mask(6).numpy(),
                                   np.asarray(j_masks.make_subsequent_mask(6)))
-    table = p_emb.sinusoid_table(5000, 64)
-    np.testing.assert_allclose(table[:600].numpy(), np.asarray(j_emb.sinusoid_table(5000, 64))[:600],
-                               atol=2e-5)
+    # XLA's float32 exp and torch's may differ by one ulp in a frequency (7
+    # of these 32); row p of the table then moves by up to p times that
+    # difference, plus one rounding of the angle p * omega and the sin / cos
+    # evaluation's own error (a few 2^-24)
+    d = 64
+    j_freqs = np.asarray(jnp.exp(jnp.arange(0, d, 2, dtype=jnp.float32)
+                                 * (-jnp.log(10000.0) / d)))      # JAX's sinusoid_table's
+    p_freqs = p_emb.rel_freqs(d).numpy()
+    np.testing.assert_array_max_ulp(p_freqs, j_freqs, maxulp=1)
+    table = p_emb.sinusoid_table(5000, d)
+    pos = np.arange(600, dtype=np.float64)[:, None]
+    angle = (pos * p_freqs.astype(np.float64)).astype(np.float32)
+    bound = (pos * np.abs(p_freqs.astype(np.float64) - j_freqs.astype(np.float64))
+             + np.spacing(angle) + 4.0 * 2.0 ** -24)
+    diff = np.abs(table[:600].numpy().astype(np.float64)
+                  - np.asarray(j_emb.sinusoid_table(5000, d))[:600].astype(np.float64))
+    assert (diff[:, 0::2] <= bound).all() and (diff[:, 1::2] <= bound).all(), (
+        float((diff[:, 0::2] - bound).max()), float((diff[:, 1::2] - bound).max()))
     np.testing.assert_array_equal(p_emb.absolute_pos_embed(table, 4998, 5).numpy(),
                                   table[4995:].numpy())     # clamped as lax.dynamic_slice
 
